@@ -1,9 +1,11 @@
-// K3/K4: flash attention over the head-major, unroped KV cache, for Hopper.
+// K3/K4 and K3q/K4q: flash attention over the head-major, unroped KV
+// cache, for Hopper.
 //
 // Replaces the TPU kernels llm_tpu/ops/pallas_attn.py::flash_decode ->
 // _kernel via _decode_body (K3, T <= 8) and flash_prefill ->
-// _prefill_kernel via _prefill_body (K4, T > 8). Both compute, for query
-// row r = t*G + g of KV head h (query head h*G + g):
+// _prefill_kernel via _prefill_body (K4, T > 8), and their int8-cache
+// variants _kernel_q8 (K3q) and _prefill_kernel_q8 (K4q). All compute, for
+// query row r = t*G + g of KV head h (query head h*G + g):
 //
 //   score[r,s] = (q.(k_s*cos_s) + q_rot.(k_s*sin_s)) * scale + max(bias[t,s], -1e30)
 //   out[t, h*G+g] = sum_s softmax_s(score[r,:]) * v_s
@@ -16,20 +18,32 @@
 // Loads are bounded by S (an out-of-range load is a fault on the GPU);
 // cells past S take no part at all.
 //
-// Inputs: q, q_rot bf16 [T, H, D]; k, v bf16 [Hkv, S, D]; cos, sin bf16
-// [S, D]; bias f32 [T, S]. Output f32 [T, H, D]. D = 128.
+// Inputs: q, q_rot bf16 [T, H, D]; K/V bf16 [Hkv, S, D] (K3/K4) or int8
+// [Hkv, S, D] with one bf16 scale per head row [Hkv, S, 1] (K3q/K4q);
+// cos, sin bf16 [S, D]; bias f32 [T, S]. Output f32 [T, H, D]. D = 128.
 //
-// K3 (decode) is bound by the bytes of K, V, cos and sin. One CTA per
+// The two cache types differ only in how one cell's 4 dims of K and V are
+// loaded, so the kernels are templates on a loader (Bf16KV, Q8KV), as the
+// TPU kernels share _decode_body / _prefill_body. Q8KV dequantizes as the
+// TPU kernel does, bf16(q) * bf16(s) rounded to bf16: (float)q * s is exact
+// in f32 (8 + 8 significant bits), so __float2bfloat16_rn of it is that
+// bf16 product bit for bit.
+//
+// K3/K3q (decode) are bound by the bytes of K, V, cos and sin (K3q reads
+// half of K3's K/V bytes: 1 byte a dim plus 2 bytes a row). One CTA per
 // (S split, KV head, chunk of 8 query rows): the Hkv x 1 grid alone would
 // fill 8 of 132 SMs, so S is split (flash-decoding) and a second small
 // kernel combines the splits' (m, l, acc). Each warp walks its cells; its
 // 32 lanes hold 4 of the 128 dims, so one cell's K/V/cos/sin rows are
-// 256-byte coalesced loads, and the dot products finish with warp shuffles.
+// coalesced loads (256 bytes of bf16, or 128 bytes of int8 read as one
+// char4 a lane plus the row's scale as a broadcast), and the dot products
+// finish with warp shuffles.
 //
-// K4 (prefill) is bound by operations. One CTA per (KV head, block of
+// K4/K4q (prefill) are bound by operations. One CTA per (KV head, block of
 // 64/G tokens) = 64 query rows, looping over S in blocks of 64 cells with
-// the online softmax; scores and P.V are plain f32 FMA loops over tiles in
-// shared memory (no tensor cores yet).
+// the online softmax; the tile load dequantizes into f32 shared memory, and
+// scores and P.V are plain f32 FMA loops over those tiles (no tensor cores
+// yet).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,17 +61,50 @@ __device__ __forceinline__ void ld4(const __nv_bfloat16* p, float out[4]) {
   out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
 }
 
+// Loaders: dims d0..d0+3 of cell s of KV head h, as f32.
+struct Bf16KV {
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  __device__ __forceinline__ void load(int h, int s, int S, int d0, float kk[4],
+                                       float vv[4]) const {
+    const size_t off = ((size_t)h * S + s) * D + d0;
+    ld4(k + off, kk);
+    ld4(v + off, vv);
+  }
+};
+
+__device__ __forceinline__ void dq4(const int8_t* p, __nv_bfloat16 sc, float out[4]) {
+  const char4 c = *reinterpret_cast<const char4*>(p);
+  const float s = __bfloat162float(sc);
+  out[0] = __bfloat162float(__float2bfloat16_rn((float)c.x * s));
+  out[1] = __bfloat162float(__float2bfloat16_rn((float)c.y * s));
+  out[2] = __bfloat162float(__float2bfloat16_rn((float)c.z * s));
+  out[3] = __bfloat162float(__float2bfloat16_rn((float)c.w * s));
+}
+
+struct Q8KV {
+  const int8_t* k;
+  const __nv_bfloat16* ks;  // [Hkv, S] (the trailing 1 dropped)
+  const int8_t* v;
+  const __nv_bfloat16* vs;
+  __device__ __forceinline__ void load(int h, int s, int S, int d0, float kk[4],
+                                       float vv[4]) const {
+    const size_t row = (size_t)h * S + s;
+    dq4(k + row * D + d0, ks[row], kk);
+    dq4(v + row * D + d0, vs[row], vv);
+  }
+};
+
 // ----------------------------------------------------------------------------
 // K3: split-S decode
 
 constexpr int DEC_WARPS = 4;
 constexpr int RC = 8;  // query rows per CTA
 
+template <class KV>
 __global__ void __launch_bounds__(DEC_WARPS * 32)
 flash_decode_split(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ qr,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
+                   const __nv_bfloat16* __restrict__ qr, const KV kv,
                    const __nv_bfloat16* __restrict__ cs,
                    const __nv_bfloat16* __restrict__ sn,
                    const float* __restrict__ bias, float* __restrict__ pm,
@@ -96,12 +143,9 @@ flash_decode_split(const __nv_bfloat16* __restrict__ q,
 
   const int s0 = split * cells_per_split;
   const int s1 = min(S, s0 + cells_per_split);
-  const __nv_bfloat16* kh = k + (size_t)h * S * D;
-  const __nv_bfloat16* vh = v + (size_t)h * S * D;
   for (int s = s0 + warp; s < s1; s += DEC_WARPS) {
     float kk[4], vv[4], cc[4], ss[4], kc[4], ks[4];
-    ld4(kh + (size_t)s * D + d0, kk);
-    ld4(vh + (size_t)s * D + d0, vv);
+    kv.load(h, s, S, d0, kk, vv);
     ld4(cs + (size_t)s * D + d0, cc);
     ld4(sn + (size_t)s * D + d0, ss);
 #pragma unroll
@@ -197,11 +241,10 @@ struct PrefillSmem {
   float m[PR], l[PR], alpha[PR];
 };
 
+template <class KV>
 __global__ void __launch_bounds__(PTHREADS)
 flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ qr,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
+                     const __nv_bfloat16* __restrict__ qr, const KV kv,
                      const __nv_bfloat16* __restrict__ cs,
                      const __nv_bfloat16* __restrict__ sn,
                      const float* __restrict__ bias, float* __restrict__ out,
@@ -241,8 +284,6 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  const __nv_bfloat16* kh = k + (size_t)h * S * D;
-  const __nv_bfloat16* vh = v + (size_t)h * S * D;
   for (int sb = 0; sb < S; sb += SB) {
     __syncthreads();
     for (int i = tid; i < SB * D / 4; i += PTHREADS) {
@@ -251,8 +292,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
       float kk[4] = {0.f, 0.f, 0.f, 0.f}, vv[4] = {0.f, 0.f, 0.f, 0.f};
       float cc[4] = {0.f, 0.f, 0.f, 0.f}, ss[4] = {0.f, 0.f, 0.f, 0.f};
       if (s < S) {
-        ld4(kh + (size_t)s * D + d, kk);
-        ld4(vh + (size_t)s * D + d, vv);
+        kv.load(h, s, S, d, kk, vv);
         ld4(cs + (size_t)s * D + d, cc);
         ld4(sn + (size_t)s * D + d, ss);
       }
@@ -370,9 +410,52 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+template <class KV>
+int launch_decode(const void* q, const void* qr, const KV& kv, const void* cs,
+                  const void* sn, const void* bias, void* out, void* pm, void* pl,
+                  void* pacc, int T, int H, int Hkv, int S, float scale,
+                  int n_splits, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int G = H / Hkv;
+  const int chunks = (T * G + RC - 1) / RC;
+  const int cps = (S + n_splits - 1) / n_splits;
+  dim3 grid(n_splits, Hkv, chunks);
+  using bf = __nv_bfloat16;
+  flash_decode_split<KV><<<grid, DEC_WARPS * 32, 0, st>>>(
+      (const bf*)q, (const bf*)qr, kv, (const bf*)cs, (const bf*)sn,
+      (const float*)bias, (float*)pm, (float*)pl, (float*)pacc, T, H, Hkv, S,
+      scale, cps);
+  flash_decode_combine<<<dim3(Hkv, T * G), D, 0, st>>>(
+      (const float*)pm, (const float*)pl, (const float*)pacc, (float*)out, T,
+      H, Hkv, n_splits);
+  return (int)cudaGetLastError();
+}
+
+template <class KV>
+int launch_prefill(const void* q, const void* qr, const KV& kv, const void* cs,
+                   const void* sn, const void* bias, void* out, int T, int H,
+                   int Hkv, int S, float scale, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int G = H / Hkv;
+  const int tb = PR / G;
+  const int smem = (int)sizeof(PrefillSmem);
+  static bool smem_set = false;  // once per loader, outside any later graph capture
+  if (!smem_set) {
+    cudaFuncSetAttribute(flash_prefill_kernel<KV>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    smem_set = true;
+  }
+  dim3 grid(Hkv, (T + tb - 1) / tb);
+  using bf = __nv_bfloat16;
+  flash_prefill_kernel<KV><<<grid, PTHREADS, smem, st>>>(
+      (const bf*)q, (const bf*)qr, kv, (const bf*)cs, (const bf*)sn,
+      (const float*)bias, (float*)out, T, H, Hkv, S, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Scratch for K3: pm, pl [Hkv * T*G * n_splits] f32, pacc [.. * D] f32,
+// Scratch for K3/K3q: pm, pl [Hkv * T*G * n_splits] f32, pacc [.. * D] f32,
 // sized by the caller from flash_decode_splits().
 extern "C" int flash_decode_splits(int S, int Hkv, int T, int H, int sms) {
   const int G = H / Hkv;
@@ -389,20 +472,22 @@ extern "C" int flash_decode_launch(const void* q, const void* qr, const void* k,
                                    void* pl, void* pacc, int T, int H, int Hkv,
                                    int S, float scale, int n_splits,
                                    void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int G = H / Hkv;
-  const int chunks = (T * G + RC - 1) / RC;
-  const int cps = (S + n_splits - 1) / n_splits;
-  dim3 grid(n_splits, Hkv, chunks);
-  using bf = __nv_bfloat16;
-  flash_decode_split<<<grid, DEC_WARPS * 32, 0, st>>>(
-      (const bf*)q, (const bf*)qr, (const bf*)k, (const bf*)v, (const bf*)cs,
-      (const bf*)sn, (const float*)bias, (float*)pm, (float*)pl, (float*)pacc,
-      T, H, Hkv, S, scale, cps);
-  flash_decode_combine<<<dim3(Hkv, T * G), D, 0, st>>>(
-      (const float*)pm, (const float*)pl, (const float*)pacc, (float*)out, T,
-      H, Hkv, n_splits);
-  return (int)cudaGetLastError();
+  const Bf16KV kv{(const __nv_bfloat16*)k, (const __nv_bfloat16*)v};
+  return launch_decode(q, qr, kv, cs, sn, bias, out, pm, pl, pacc, T, H, Hkv, S,
+                       scale, n_splits, stream);
+}
+
+extern "C" int flash_decode_q8_launch(const void* q, const void* qr, const void* k,
+                                      const void* ks, const void* v, const void* vs,
+                                      const void* cs, const void* sn,
+                                      const void* bias, void* out, void* pm,
+                                      void* pl, void* pacc, int T, int H,
+                                      int Hkv, int S, float scale, int n_splits,
+                                      void* stream) {
+  const Q8KV kv{(const int8_t*)k, (const __nv_bfloat16*)ks, (const int8_t*)v,
+                (const __nv_bfloat16*)vs};
+  return launch_decode(q, qr, kv, cs, sn, bias, out, pm, pl, pacc, T, H, Hkv, S,
+                       scale, n_splits, stream);
 }
 
 extern "C" int flash_prefill_launch(const void* q, const void* qr, const void* k,
@@ -410,20 +495,17 @@ extern "C" int flash_prefill_launch(const void* q, const void* qr, const void* k
                                     const void* sn, const void* bias, void* out,
                                     int T, int H, int Hkv, int S, float scale,
                                     void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int G = H / Hkv;
-  const int tb = PR / G;
-  const int smem = (int)sizeof(PrefillSmem);
-  static bool smem_set = false;  // once, outside any later graph capture
-  if (!smem_set) {
-    cudaFuncSetAttribute(flash_prefill_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    smem_set = true;
-  }
-  dim3 grid(Hkv, (T + tb - 1) / tb);
-  using bf = __nv_bfloat16;
-  flash_prefill_kernel<<<grid, PTHREADS, smem, st>>>(
-      (const bf*)q, (const bf*)qr, (const bf*)k, (const bf*)v, (const bf*)cs,
-      (const bf*)sn, (const float*)bias, (float*)out, T, H, Hkv, S, scale);
-  return (int)cudaGetLastError();
+  const Bf16KV kv{(const __nv_bfloat16*)k, (const __nv_bfloat16*)v};
+  return launch_prefill(q, qr, kv, cs, sn, bias, out, T, H, Hkv, S, scale, stream);
+}
+
+extern "C" int flash_prefill_q8_launch(const void* q, const void* qr, const void* k,
+                                       const void* ks, const void* v,
+                                       const void* vs, const void* cs,
+                                       const void* sn, const void* bias,
+                                       void* out, int T, int H, int Hkv, int S,
+                                       float scale, void* stream) {
+  const Q8KV kv{(const int8_t*)k, (const __nv_bfloat16*)ks, (const int8_t*)v,
+                (const __nv_bfloat16*)vs};
+  return launch_prefill(q, qr, kv, cs, sn, bias, out, T, H, Hkv, S, scale, stream);
 }

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..gguf.constants import GGMLType
 from ..ops.rope import ROPE_TYPE_NORM, RopeParams
 from ..quant.qtensor import QTensor, pack_p4, pack_p4_kmajor
@@ -124,16 +125,18 @@ def make_synthetic_model(n_embd: int = 64, n_layers: int = 2, n_heads: int = 8,
                          n_kv_heads: int = 8, n_ff: int = 256, vocab: int = 256,
                          head_dim: int | None = None,
                          qtype: GGMLType | None = None, seed: int = 0,
-                         dtype=torch.bfloat16, device="cpu",
+                         dtype=torch.bfloat16, device=None,
                          on_device: bool = False, scales_dtype=torch.bfloat16,
                          fuse: bool = True, recipe: str | None = None
                          ) -> tuple[dict, ModelConfig]:
-    """(params, cfg) for a llama-shaped model with random weights.
+    """(params, cfg) for a llama-shaped model with random weights, on
+    `device` (None = the card; pass "cpu" for the host).
     qtype None gives dense weights in `dtype`. recipe "Q4_K_M" mixes types
     as a Q4_K_M file does: Q6_K for the lm_head and for attn_v and ffn_down
     of the use_more_bits layers (those layers' QKV then stays unfused)."""
     if recipe not in (None, "Q4_K_M"):
         raise ValueError(f"unknown recipe {recipe!r}")
+    device = resolve_device(device)
     cfg = llama_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab, head_dim)
     hd = cfg.head_dim
     rng = np.random.default_rng(seed)

@@ -2,10 +2,15 @@
 llm_tpu/models/transformer.py::forward on its llama path:
 
   qembed -> per layer: rms_norm -> fused QKV (K1/K2) -> split -> rope on q
-  -> scatter unroped K/V into the head-major cache -> flash_decode (K3,
-  T <= 8) / flash_prefill (K4) -> o_proj -> residual -> rms_norm -> fused
+  -> scatter unroped K/V into the head-major cache (quantizing for a q8_0
+  cache) -> flash_decode (K3, or K3q on the int8 cache; T <= 8) /
+  flash_prefill (K4 / K4q) -> o_proj -> residual -> rms_norm -> fused
   gate+up -> SwiGLU -> down -> residual; final norm -> lm_head on the
   out_idx rows.
+
+A q8_0 cache with group scales (head_dim not a multiple of 128) has no
+flash kernel, as in the reference: on the CPU it is dequantized (kv_read)
+and goes through the unfused attention; on the card it raises.
 
 It runs eagerly and updates the KV cache tensors in place (the JAX
 package donates them to a jitted step instead). Variants of the llama
@@ -18,7 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops.attention import build_attn_bias
+from ..ops.attention import attention, build_attn_bias
 from ..ops.cuda_attn import expand_tables, flash_decode, flash_prefill, rope_companion
 from ..ops.norms import rms_norm
 from ..ops.qmatmul import qembed, qmm
@@ -58,12 +63,46 @@ def kept_rows(idx: torch.Tensor, n_cells: int) -> torch.Tensor:
     return torch.nonzero(idx < n_cells).flatten()
 
 
-def kv_write(cache: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
+def quantize_rows(val: torch.Tensor, n_groups: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """q8_0 rows: val [..., D] -> (int8 [..., D], bf16 scales [..., n_groups]).
+    Per group of D // n_groups dims: scale = amax / 127 in f32, q =
+    clip(round(v / scale), +-127) with round half to even (as jnp.round),
+    the scale stored as bf16. The reference's _kv_write and state loader."""
+    d = val.shape[-1]
+    vf = val.float().reshape(*val.shape[:-1], n_groups, d // n_groups)
+    scale = vf.abs().amax(dim=-1, keepdim=True) / 127.0
+    inv = torch.where(scale > 0, 1.0 / scale, torch.zeros_like(scale))
+    q = torch.clamp(torch.round(vf * inv), -127, 127).to(torch.int8)
+    return q.reshape(val.shape), scale.squeeze(-1).to(torch.bfloat16)
+
+
+def kv_write(cache, idx: torch.Tensor, val: torch.Tensor,
              keep: torch.Tensor | None = None) -> None:
     """Scatter token-major rows val [T, Hkv, D] into the head-major cache
-    [Hkv, S, D] at cells idx [T], in place, dropping padding rows."""
-    keep = kept_rows(idx, cache.shape[1]) if keep is None else keep
-    cache.index_copy_(1, idx[keep].long(), val[keep].transpose(0, 1).to(cache.dtype))
+    [Hkv, S, D] at cells idx [T], in place, dropping padding rows; a q8_0
+    (int8, scales) pair gets the rows quantized by quantize_rows."""
+    if keep is None:
+        keep = kept_rows(idx, (cache[0] if isinstance(cache, tuple) else cache).shape[1])
+    cells, rows = idx[keep].long(), val[keep]
+    if isinstance(cache, tuple):
+        q8, sc = cache
+        q, s = quantize_rows(rows, sc.shape[-1])
+        q8.index_copy_(1, cells, q.transpose(0, 1))
+        sc.index_copy_(1, cells, s.transpose(0, 1))
+        return
+    cache.index_copy_(1, cells, rows.transpose(0, 1).to(cache.dtype))
+
+
+def kv_read(cache, dtype) -> torch.Tensor:
+    """The cache CELL-MAJOR [S, Hkv, D] in dtype, a q8_0 pair dequantized
+    in f32 (q * s), for the unfused attention."""
+    if isinstance(cache, tuple):
+        q8, sc = cache
+        h, s, d = q8.shape
+        g = d // sc.shape[-1]
+        vf = q8.float().reshape(h, s, d // g, g) * sc.float()[..., None]
+        return vf.reshape(h, s, d).transpose(0, 1).to(dtype)
+    return cache.transpose(0, 1).to(dtype)
 
 
 def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
@@ -88,7 +127,11 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
     cos_cf, sin_cf = cos_cf.to(dtype).contiguous(), sin_cf.to(dtype).contiguous()
     bias = build_attn_bias(tok_pos, tok_seq, cell_pos, cell_seq_bits)
     fattn = flash_decode if T <= 8 else flash_prefill
-    keep = kept_rows(write_idx, kv_k[0].shape[1])
+    keep = kept_rows(write_idx, cell_pos.shape[0])
+    # a q8_0 cache with group scales has no flash kernel (reference:
+    # transformer.py's use_flash); on the card the kernel wrapper raises
+    unfused = (isinstance(kv_k[0], tuple) and kv_k[0][1].shape[-1] != 1
+               and not x.is_cuda)
 
     for il, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
@@ -101,8 +144,12 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
         q = apply_rope(q.reshape(T, H, Dk), cos_t, sin_t, rope.mode, rope.n_dims)
         kv_write(kv_k[il], write_idx, k.reshape(T, Hkv, Dk), keep)  # K enters unroped
         kv_write(kv_v[il], write_idx, v.reshape(T, Hkv, Dv), keep)
-        att = fattn(q.contiguous(), rope_companion(q, rope.mode, rope.n_dims).contiguous(),
-                    kv_k[il], kv_v[il], cos_cf, sin_cf, bias, scale)
+        if unfused:
+            k_all = apply_rope(kv_read(kv_k[il], dtype), cos_c, sin_c, rope.mode, rope.n_dims)
+            att = attention(q, k_all, kv_read(kv_v[il], dtype), bias, scale)
+        else:
+            att = fattn(q.contiguous(), rope_companion(q, rope.mode, rope.n_dims).contiguous(),
+                        kv_k[il], kv_v[il], cos_cf, sin_cf, bias, scale)
         x = x + qmm(att.reshape(T, H * Dv), layer["attn_output"], out_dtype=dtype)
 
         h2 = rms_norm(x, layer["ffn_norm"], cfg.rms_eps)

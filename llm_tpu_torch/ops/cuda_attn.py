@@ -1,6 +1,6 @@
-"""K3/K4: flash attention over the head-major, unroped KV cache.
-Counterpart of llm_tpu/ops/pallas_attn.py (flash_decode, flash_prefill,
-rope_companion, expand_tables).
+"""K3/K4 (and K3q/K4q on the int8 cache): flash attention over the
+head-major, unroped KV cache. Counterpart of llm_tpu/ops/pallas_attn.py
+(flash_decode, flash_prefill, rope_companion, expand_tables).
 
 Rope folds into the scores: (R(p_s) k_s).q = (k_s*cos_s).q + (k_s*sin_s).q_rot,
 with q_rot the rope companion of q and cos/sin full-width per-cell tables.
@@ -8,9 +8,16 @@ The additive bias [T, S] carries the seq/causal mask; -inf is clamped to
 -1e30 so fully masked padding rows stay finite, and the softmax denominator
 is max(l, 1e-30). Query head h reads KV head h // G (h = h_kv*G + g).
 
+K and V are bf16 [Hkv, S, D] tensors, or q8_0 (int8 [Hkv, S, D], bf16
+scales [Hkv, S, 1]) pairs: one scale per head row. A pair is dequantized as
+the TPU kernel does it, bf16(q) * bf16(s) rounded to bf16, then widened to
+f32 (that product is exact in f32 before the rounding, so the kernels'
+__float2bfloat16_rn((float)q * s) gives the same bits).
+
 `attn_plain` is the kernels' function in plain PyTorch (f32). flash_decode
 (T <= 8) and flash_prefill (T > 8) launch csrc/flash_attn.cu for CUDA
-tensors and take the plain version for CPU tensors.
+tensors (K3/K4 on a bf16 cache, K3q/K4q on a pair) and take the plain
+version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ from .rope import ROPE_TYPE_NEOX, ROPE_TYPE_NORM
 
 NEG = -1e30
 T_CHUNK = 64  # query rows per step of attn_plain, to bound its score tensor
-LAUNCHES = {"K3": 0, "K4": 0}
+LAUNCHES = {"K3": 0, "K4": 0, "K3q": 0, "K4q": 0}
 
 
 def reset_launches() -> None:
@@ -33,16 +40,26 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def dequant_bf16(kv) -> torch.Tensor:
+    """A cache plane as f32: a q8_0 pair as bf16(q) * bf16(s), rounded to
+    bf16 (the TPU kernel's dequant), a tensor as it is."""
+    if isinstance(kv, tuple):
+        q8, sc = kv
+        return (q8.to(torch.bfloat16) * sc.to(torch.bfloat16)).float()
+    return kv.float()
+
+
 def attn_plain(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Tensor:
-    """q, q_rot [T, H, D]; k, v [Hkv, S, D]; cos, sin [S, D]; bias [T, S].
-    Returns [T, H, Dv] f32. Chunked over T to bound the score tensor."""
+    """q, q_rot [T, H, D]; k, v [Hkv, S, D] or (int8, scales [Hkv, S, 1])
+    pairs; cos, sin [S, D]; bias [T, S]. Returns [T, H, Dv] f32. Chunked
+    over T to bound the score tensor."""
     T, H, D = q.shape
-    Hkv, S, Dv = v.shape
+    kf = dequant_bf16(k)
+    vf = dequant_bf16(v)
+    Hkv, S, Dv = vf.shape
     G = H // Hkv
-    kf = k.float()
     kc = kf * cos.float()[None]  # [Hkv, S, D]
     ks = kf * sin.float()[None]
-    vf = v.float()
     outs = []
     with full_f32():
         for t0 in range(0, T, T_CHUNK):
@@ -73,17 +90,27 @@ def _lib():
             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
             + [ctypes.c_float, ctypes.c_void_p])
         lib.flash_prefill_launch.restype = ctypes.c_int
+        lib.flash_decode_q8_launch.argtypes = (
+            [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        lib.flash_decode_q8_launch.restype = ctypes.c_int
+        lib.flash_prefill_q8_launch.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.flash_prefill_q8_launch.restype = ctypes.c_int
     return lib
 
 
-def _check_inputs(q, q_rot, k, v, cos, sin, bias):
+def _check_inputs(q, q_rot, k, v, cos, sin, bias, kv_dtype=torch.bfloat16):
+    """Checks every input of a flash kernel; k, v are tensors of kv_dtype.
+    Returns (T, H, Hkv, S)."""
     T, H, D = q.shape
     Hkv, S, Dv = v.shape
     if D != 128 or Dv != 128 or H % Hkv:
         raise ValueError(f"flash kernels take head_dim 128 and H % Hkv == 0 "
                          f"(got D={D}, Dv={Dv}, H={H}, Hkv={Hkv})")
     for name, t, dt in (("q", q, torch.bfloat16), ("q_rot", q_rot, torch.bfloat16),
-                        ("k", k, torch.bfloat16), ("v", v, torch.bfloat16),
+                        ("k", k, kv_dtype), ("v", v, kv_dtype),
                         ("cos", cos, torch.bfloat16), ("sin", sin, torch.bfloat16),
                         ("bias", bias, torch.float32)):
         if not t.is_cuda or t.dtype != dt or not t.is_contiguous():
@@ -95,9 +122,23 @@ def _check_inputs(q, q_rot, k, v, cos, sin, bias):
     return T, H, Hkv, S
 
 
-def flash_decode_cuda(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Tensor:
-    T, H, Hkv, S = _check_inputs(q, q_rot, k, v, cos, sin, bias)
-    lib = _lib()
+def _check_q8(q, q_rot, k, v, cos, sin, bias):
+    """As _check_inputs for (int8, bf16 scales [Hkv, S, 1]) pairs."""
+    if not (isinstance(k, tuple) and isinstance(v, tuple) and len(k) == len(v) == 2):
+        raise ValueError("q8 flash kernel: k and v must be (int8, scales) pairs")
+    (kq, ks), (vq, vs) = k, v
+    dims = _check_inputs(q, q_rot, kq, vq, cos, sin, bias, torch.int8)
+    Hkv, S = dims[2], dims[3]
+    for name, t in (("k scales", ks), ("v scales", vs)):
+        if not t.is_cuda or t.dtype != torch.bfloat16 or not t.is_contiguous() \
+                or tuple(t.shape) != (Hkv, S, 1):
+            raise ValueError(f"q8 flash kernel: {name} must be a contiguous CUDA "
+                             f"bf16 [{Hkv}, {S}, 1] tensor (one scale per head row), "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    return dims
+
+
+def _decode_scratch(lib, q, T, H, Hkv, S):
     dev = q.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     n_splits = lib.flash_decode_splits(S, Hkv, T, H, sms)
@@ -106,13 +147,36 @@ def flash_decode_cuda(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Ten
     pl = torch.empty(rows, dtype=torch.float32, device=dev)
     pacc = torch.empty((rows, 128), dtype=torch.float32, device=dev)
     out = torch.empty((T, H, 128), dtype=torch.float32, device=dev)
+    return n_splits, pm, pl, pacc, out
+
+
+def flash_decode_cuda(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Tensor:
+    T, H, Hkv, S = _check_inputs(q, q_rot, k, v, cos, sin, bias)
+    lib = _lib()
+    n_splits, pm, pl, pacc, out = _decode_scratch(lib, q, T, H, Hkv, S)
     rc = lib.flash_decode_launch(
         q.data_ptr(), q_rot.data_ptr(), k.data_ptr(), v.data_ptr(),
         cos.data_ptr(), sin.data_ptr(), bias.data_ptr(), out.data_ptr(),
         pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(), T, H, Hkv, S,
-        float(scale), n_splits, torch.cuda.current_stream(dev).cuda_stream)
+        float(scale), n_splits, torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(rc, "flash_decode_launch")
     LAUNCHES["K3"] += 1
+    return out
+
+
+def flash_decode_q8_cuda(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Tensor:
+    """K3q: K3 on (int8, scales [Hkv, S, 1]) pairs."""
+    T, H, Hkv, S = _check_q8(q, q_rot, k, v, cos, sin, bias)
+    lib = _lib()
+    n_splits, pm, pl, pacc, out = _decode_scratch(lib, q, T, H, Hkv, S)
+    (kq, ks), (vq, vs) = k, v
+    rc = lib.flash_decode_q8_launch(
+        q.data_ptr(), q_rot.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
+        vs.data_ptr(), cos.data_ptr(), sin.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(), T, H, Hkv, S,
+        float(scale), n_splits, torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_build.check(rc, "flash_decode_q8_launch")
+    LAUNCHES["K3q"] += 1
     return out
 
 
@@ -130,17 +194,37 @@ def flash_prefill_cuda(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Te
     return out
 
 
+def flash_prefill_q8_cuda(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Tensor:
+    """K4q: K4 on (int8, scales [Hkv, S, 1]) pairs."""
+    T, H, Hkv, S = _check_q8(q, q_rot, k, v, cos, sin, bias)
+    if 64 % (H // Hkv):
+        raise ValueError("flash_prefill kernel needs 64 % (H // Hkv) == 0")
+    out = torch.empty((T, H, 128), dtype=torch.float32, device=q.device)
+    (kq, ks), (vq, vs) = k, v
+    rc = _lib().flash_prefill_q8_launch(
+        q.data_ptr(), q_rot.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
+        vs.data_ptr(), cos.data_ptr(), sin.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        T, H, Hkv, S, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_build.check(rc, "flash_prefill_q8_launch")
+    LAUNCHES["K4q"] += 1
+    return out
+
+
 def flash_decode(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Tensor:
-    """K3 (T <= 8). Returns [T, H, Dv] f32."""
+    """K3, or K3q when k, v are (int8, scales) pairs (T <= 8). Returns
+    [T, H, Dv] f32."""
     if q.is_cuda:
-        return flash_decode_cuda(q, q_rot, k, v, cos, sin, bias, scale)
+        fn = flash_decode_q8_cuda if isinstance(k, tuple) else flash_decode_cuda
+        return fn(q, q_rot, k, v, cos, sin, bias, scale)
     return attn_plain(q, q_rot, k, v, cos, sin, bias, scale)
 
 
 def flash_prefill(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Tensor:
-    """K4 (T > 8), any T. Returns [T, H, Dv] f32."""
+    """K4, or K4q on (int8, scales) pairs (T > 8), any T. Returns
+    [T, H, Dv] f32."""
     if q.is_cuda:
-        return flash_prefill_cuda(q, q_rot, k, v, cos, sin, bias, scale)
+        fn = flash_prefill_q8_cuda if isinstance(k, tuple) else flash_prefill_cuda
+        return fn(q, q_rot, k, v, cos, sin, bias, scale)
     return attn_plain(q, q_rot, k, v, cos, sin, bias, scale)
 
 

@@ -48,9 +48,12 @@ def params_to(params, device):
 
 class Context:
     def __init__(self, reader=None, n_cells: int = 4096, dtype=torch.bfloat16,
-                 device=None, params_cfg=None):
+                 device=None, params_cfg=None, kv_dtype=None):
         """Load from a GGUFReader, or take (params, cfg) as made by
-        models/synthetic.py or convert_params.py. device None = the card."""
+        models/synthetic.py or convert_params.py. device None = the card.
+        kv_dtype: the cache type, None for `dtype`, a torch dtype, or
+        "q8_0" for int8 rows with bf16 scales (llama.cpp's
+        --cache-type-k/v q8_0)."""
         self.device = resolve_device(device)
         if params_cfg is not None:
             params, self.cfg = params_cfg
@@ -60,11 +63,12 @@ class Context:
                                                 device=self.device)
         check_supported(self.params, self.cfg)
         self.dtype = dtype
+        self.kv_dtype = kv_dtype if kv_dtype is not None else dtype
         self.n_cells = n_cells
         self.cells = CellTable(n_cells)
         cfg = self.cfg
         self.kv = new_kv_arrays(cfg.n_layers, n_cells, cfg.n_kv_heads, cfg.head_dim,
-                                cfg.head_dim_v, dtype, self.device)
+                                cfg.head_dim_v, self.kv_dtype, self.device)
         self._logits: dict[int, np.ndarray] = {}
 
     def _t(self, a) -> torch.Tensor:

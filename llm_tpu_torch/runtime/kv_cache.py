@@ -1,5 +1,5 @@
 """Unified KV cache: device tensors plus a host-side cell table.
-Counterpart of llm_tpu/runtime/kv_cache.py (bf16/f32 caches).
+Counterpart of llm_tpu/runtime/kv_cache.py (dense and q8_0 caches).
 
 Cell metadata (position, sequence bit-set) lives on the host in numpy; each
 step ships the cell positions and bit-sets to the device, where the mask
@@ -8,7 +8,10 @@ self-extend) are metadata edits. Cells need not be contiguous: steps
 scatter K/V rows to arbitrary cells.
 
 The cache is HEAD-MAJOR: k[il], v[il] are [Hkv, n_cells, D], so each KV
-head's cells are one contiguous plane for the flash kernels.
+head's cells are one contiguous plane for the flash kernels. A q8_0 cache
+(llama.cpp's --cache-type-k/v q8_0) holds per layer an (int8 [Hkv, S, D],
+bf16 scales [Hkv, S, D // g]) pair: one scale per head row when D is a
+multiple of 128 (the layout K3q/K4q read), else per 32-group.
 """
 
 from __future__ import annotations
@@ -20,6 +23,14 @@ import torch
 
 MAX_SEQS = 256  # sequence ids 0..255
 SEQ_WORDS = MAX_SEQS // 32  # [n_cells, SEQ_WORDS] uint32 bit-set words
+KV_QUANT_GROUP = 32
+
+
+def seq_bit_row(seq_id: int) -> np.ndarray:
+    """[SEQ_WORDS] uint32 bit-set with only `seq_id` set."""
+    row = np.zeros(SEQ_WORDS, np.uint32)
+    row[seq_id >> 5] = np.uint32(1) << np.uint32(seq_id & 31)
+    return row
 
 
 def pack_seq_sets(seq_sets) -> np.ndarray:
@@ -31,20 +42,50 @@ def pack_seq_sets(seq_sets) -> np.ndarray:
     return bits
 
 
+def planes_from_u64(bits64: np.ndarray) -> np.ndarray:
+    """Legacy uint64 [n] bit-sets -> [n, SEQ_WORDS] uint32 planes (old
+    state files stored the 64-sequence single-word form)."""
+    out = np.zeros((len(bits64), SEQ_WORDS), np.uint32)
+    out[:, 0] = (bits64 & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    out[:, 1] = (bits64 >> np.uint64(32)).astype(np.uint32)
+    return out
+
+
+def kv_group(d: int) -> int:
+    """q8_0 scale group along a head row of d dims: the whole row when d is
+    a multiple of 128 (one scale per row, as the flash kernels read it),
+    else 32 where it divides d, else d."""
+    if d % 128 == 0:
+        return d
+    return KV_QUANT_GROUP if d % KV_QUANT_GROUP == 0 else d
+
+
 @dataclass
 class KVArrays:
-    k: list[torch.Tensor]  # per layer [Hkv, n_cells, Dk], unroped
-    v: list[torch.Tensor]  # per layer [Hkv, n_cells, Dv]
+    # per layer [Hkv, n_cells, D] tensors (K unroped), or (int8, bf16
+    # scales [Hkv, n_cells, D // g]) pairs for a q8_0 cache
+    k: list
+    v: list
+
+    @property
+    def n_cells(self) -> int:
+        a = self.k[0]
+        return (a[0] if isinstance(a, tuple) else a).shape[1]
 
 
 def new_kv_arrays(n_layers: int, n_cells: int, n_kv_heads: int, head_dim_k: int,
                   head_dim_v: int, dtype=torch.bfloat16, device="cuda") -> KVArrays:
-    return KVArrays(
-        k=[torch.zeros((n_kv_heads, n_cells, head_dim_k), dtype=dtype, device=device)
-           for _ in range(n_layers)],
-        v=[torch.zeros((n_kv_heads, n_cells, head_dim_v), dtype=dtype, device=device)
-           for _ in range(n_layers)],
-    )
+    """dtype: a torch dtype for a dense cache, or "q8_0" for int8 rows with
+    bf16 scales (kv_group)."""
+    def plane(d):
+        if dtype == "q8_0":
+            return (torch.zeros((n_kv_heads, n_cells, d), dtype=torch.int8, device=device),
+                    torch.zeros((n_kv_heads, n_cells, d // kv_group(d)),
+                                dtype=torch.bfloat16, device=device))
+        return torch.zeros((n_kv_heads, n_cells, d), dtype=dtype, device=device)
+
+    return KVArrays(k=[plane(head_dim_k) for _ in range(n_layers)],
+                    v=[plane(head_dim_v) for _ in range(n_layers)])
 
 
 class CellTable:
@@ -58,6 +99,10 @@ class CellTable:
     def used_mask(self) -> np.ndarray:
         return self.seq_bits.any(axis=1)
 
+    @property
+    def n_used(self) -> int:
+        return int(np.count_nonzero(self.used_mask()))
+
     def seq_mask(self, seq_id: int) -> np.ndarray:
         bit = np.uint32(1) << np.uint32(seq_id & 31)
         return (self.seq_bits[:, seq_id >> 5] & bit) != 0
@@ -67,9 +112,16 @@ class CellTable:
         uint32 supports few ops; each word keeps its 32 bits)."""
         return torch.from_numpy(self.seq_bits.astype(np.int64)).to(device)
 
+    def seq_pos_min(self, seq_id: int) -> int:
+        m = self.seq_mask(seq_id)
+        return int(self.pos[m].min()) if m.any() else -1
+
     def seq_pos_max(self, seq_id: int) -> int:
         m = self.seq_mask(seq_id)
         return int(self.pos[m].max()) if m.any() else -1
+
+    def n_seq_cells(self, seq_id: int) -> int:
+        return int(np.count_nonzero(self.seq_mask(seq_id)))
 
     def find_slots(self, n: int) -> np.ndarray | None:
         """Indices of n free cells, or None if the cache is full."""

@@ -1,13 +1,14 @@
 """Where decode time goes on the card: LLAMA3_8B with Q4_K_M-style random
 planes, a 512-token prefill, then `--tokens` greedy tokens of
-Context.generate_loop under torch.profiler.
+Context.generate_loop under torch.profiler, with a bf16 or a q8_0 KV cache.
 
-    python3 -m llm_tpu_torch.tools.profile_decode [--tokens 16]
+    python3 -m llm_tpu_torch.tools.profile_decode [--tokens 16] [--kv-dtype q8_0]
 
 Prints one JSON line: wall ms per token (host clock around synchronized
 work), the device's busy and idle shares over that window (kernel time
 summed from the profiler's CUDA events; one stream, so kernels do not
-overlap), and device time per kernel name, largest first.
+overlap), device launches per token, and device time per kernel name,
+largest first.
 """
 
 from __future__ import annotations
@@ -28,13 +29,15 @@ from ..runtime.engine import Context
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tokens", type=int, default=16)
+    ap.add_argument("--kv-dtype", choices=("bf16", "q8_0"), default="bf16")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode needs a CUDA device")
 
     params, cfg = make_synthetic_model(qtype=GGMLType.Q4_K, device="cuda", on_device=True,
                                        seed=2, recipe="Q4_K_M", **LLAMA3_8B)
-    ctx = Context(None, n_cells=4096, device="cuda", params_cfg=(params, cfg))
+    ctx = Context(None, n_cells=4096, device="cuda", params_cfg=(params, cfg),
+                  kv_dtype="q8_0" if args.kv_dtype == "q8_0" else None)
     prompt = [(i * 104729) % cfg.vocab_size for i in range(512)]
     assert ctx.decode(Batch.text(prompt)) == 0
     tok = ctx.generate_loop(int(ctx.get_logits().argmax()), 8)[-1]  # warm-up
@@ -46,16 +49,20 @@ def main(argv=None) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = {}
+    launches = 0
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA or (
                 e.self_device_time_total > 0 and e.cpu_time_total == 0):
             kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total / 1e3
+            launches += e.count
     busy_ms = sum(kernels.values())
     n = len(toks)
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "layers": cfg.n_layers, "tokens": n,
+        "device": torch.cuda.get_device_name(0), "kv_dtype": args.kv_dtype,
+        "layers": cfg.n_layers, "tokens": n,
         "wall_ms_per_token": wall_ms / n, "device_busy_ms_per_token": busy_ms / n,
         "busy_share": busy_ms / wall_ms, "idle_share": 1 - busy_ms / wall_ms,
+        "device_launches_per_token": launches / n,
         "kernel_ms_per_token": {k: v / n for k, v in
                                 sorted(kernels.items(), key=lambda kv: -kv[1])[:20]},
     }))

@@ -2,8 +2,10 @@
 flash_decode / flash_prefill on the CPU) held against llm_tpu's Pallas
 flash_decode / flash_prefill in interpret mode, at test_pallas_attn.py's
 5e-3: GQA, masked tail cells, a fully masked padding row, NORM and NEOX
-rope folded into the scores. Also the rope glue (rope_angles, apply_rope,
-rope_companion, expand_tables) and the mask builder with seq ids >= 32.
+rope folded into the scores; K3q/K4q's plain version (attn_plain on
+(int8, scales) pairs) against the TPU's _kernel_q8 / _prefill_kernel_q8.
+Also the rope glue (rope_angles, apply_rope, rope_companion,
+expand_tables) and the mask builder with seq ids >= 32.
 The CUDA kernels are held against the plain version in test_torch_cuda.py."""
 
 import numpy as np
@@ -77,6 +79,92 @@ def test_fully_masked_row_is_finite_and_matches():
     got = cuda_attn.flash_decode(**t, scale=0.125).numpy()
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, atol=5e-3, rtol=5e-3)
+
+
+def _q8_rows(x):
+    """[Hkv, S, D] f32 -> (int8, bf16 scales [Hkv, S, 1]) as numpy, one
+    scale per head row, built as test_pallas_attn.py's q8 planes are."""
+    amax = np.abs(x).max(axis=-1, keepdims=True)
+    sc = amax / 127.0
+    q = np.clip(np.round(x / np.maximum(sc, 1e-9)), -127, 127).astype(np.int8)
+    return q, np.asarray(jnp.asarray(sc, jnp.bfloat16))
+
+
+def _q8_pair_inputs(T, H, Hkv, S, mode, masked_row=None, seed=0):
+    j, t, _, _ = _inputs(T, H, Hkv, S, 128, mode, seed=seed, masked_row=masked_row)
+    for name in ("k", "v"):
+        q, sc = _q8_rows(np.asarray(j[name]))
+        j[name] = (jnp.asarray(q), jnp.asarray(sc))
+        t[name] = (torch.from_numpy(q), torch.from_numpy(sc.astype(np.float32)).to(torch.bfloat16))
+    return j, t
+
+
+def _f32_product(kv):
+    return kv[0].float() * kv[1].float() if isinstance(kv, tuple) else kv.float()
+
+
+def _q8_oracle(j, oracle, monkeypatch):
+    """The TPU kernel dequantizes bf16(q) * bf16(s) rounded to bf16. Run in
+    interpret mode on the CPU, XLA folds that rounding away and llm_tpu's
+    _kernel_q8 computes the exact f32 product. So each case is held two
+    ways: "kernel_q8" runs _kernel_q8 / _prefill_kernel_q8 on the pairs
+    against the port with its dequant set to that f32 product; "bf16"
+    runs llm_tpu's dense kernels on the pairs dequantized and rounded to
+    bf16 (the TPU kernel's values) against the port's own attn_plain."""
+    if oracle == "kernel_q8":
+        monkeypatch.setattr(cuda_attn, "dequant_bf16", _f32_product)
+        return j
+    jd = dict(j)
+    for name in ("k", "v"):
+        q, sc = j[name]
+        jd[name] = jnp.asarray(np.asarray(q.astype(jnp.bfloat16) * sc))  # eager: rounded
+    return jd
+
+
+# Measured <= 5e-7 either way; the reference's 2e-2 compares a q8 cache
+# with an unquantized one.
+Q8_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("oracle", ["kernel_q8", "bf16"])
+@pytest.mark.parametrize("mode", [ROPE_TYPE_NORM, ROPE_TYPE_NEOX], ids=["norm", "neox"])
+@pytest.mark.parametrize("T,H,Hkv,S,masked_row", [(1, 8, 2, 200, None), (2, 8, 8, 256, 1),
+                                                  (8, 4, 1, 300, None), (8, 8, 2, 256, 5)])
+def test_flash_decode_q8_plain_matches_pallas(T, H, Hkv, S, masked_row, mode, oracle,
+                                              monkeypatch):
+    j, t = _q8_pair_inputs(T, H, Hkv, S, mode, masked_row)
+    j = _q8_oracle(j, oracle, monkeypatch)
+    scale = 128 ** -0.5
+    want = np.asarray(jax_attn.flash_decode(**j, scale=scale, sblk=128, interpret=True))
+    got = cuda_attn.flash_decode(**t, scale=scale).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **Q8_TOL)
+
+
+@pytest.mark.parametrize("oracle", ["kernel_q8", "bf16"])
+@pytest.mark.parametrize("mode", [ROPE_TYPE_NORM, ROPE_TYPE_NEOX], ids=["norm", "neox"])
+@pytest.mark.parametrize("T,H,Hkv,S,masked_row", [(16, 8, 2, 200, None), (32, 4, 4, 256, 3)])
+def test_flash_prefill_q8_plain_matches_pallas(T, H, Hkv, S, masked_row, mode, oracle,
+                                               monkeypatch):
+    j, t = _q8_pair_inputs(T, H, Hkv, S, mode, masked_row, seed=1)
+    j = _q8_oracle(j, oracle, monkeypatch)
+    scale = 128 ** -0.5
+    want = np.asarray(jax_attn.flash_prefill(**j, scale=scale, tblk=16, sblk=64,
+                                             interpret=True))
+    got = cuda_attn.flash_prefill(**t, scale=scale).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **Q8_TOL)
+
+
+def test_q8_dequant_rounds_to_bf16():
+    """The kernels' dequant is bf16(q) * bf16(s) rounded to bf16, not the
+    f32 product: some products of these scales are not bf16 values."""
+    q = torch.arange(-127, 128, dtype=torch.int8).reshape(1, 255, 1).expand(1, 255, 128)
+    s = torch.full((1, 255, 1), 0.0123, dtype=torch.bfloat16)
+    got = cuda_attn.dequant_bf16((q.contiguous(), s))
+    exact = q.float() * s.float()
+    assert torch.equal(got, exact.to(torch.bfloat16).float())
+    assert not torch.equal(got, exact)
 
 
 def test_flash_plain_matches_unfused_roped_attention():

@@ -1,8 +1,8 @@
-"""The CUDA kernels (K1/K2 quantized matmul, K3/K4 flash attention) held
-against their plain PyTorch versions on the card, at small and ragged
-shapes beside those of chip_smoke.py. Every test here is marked `cuda` and
-skips without a GPU. The file imports no JAX, so on a machine with a card
-and no JAX it runs as
+"""The CUDA kernels (K1/K2 quantized matmul, K3/K4 flash attention,
+K3q/K4q on the int8 KV cache) held against their plain PyTorch versions on
+the card, at small and ragged shapes beside those of chip_smoke.py. Every
+test here is marked `cuda` and skips without a GPU. The file imports no
+JAX, so on a machine with a card and no JAX it runs as
 
     python -m pytest --noconftest -o "markers=cuda: needs an NVIDIA GPU" \
         tests/test_torch_cuda.py -q
@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from llm_tpu_torch.gguf.constants import GGMLType
+from llm_tpu_torch.models.transformer import quantize_rows
 from llm_tpu_torch.ops import cuda_attn, qmatmul
 from llm_tpu_torch.ops.cuda_qmm import qmm_plain
 from llm_tpu_torch.ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NORM, RopeParams, rope_angles
@@ -96,6 +97,33 @@ def test_flash_kernels_match_plain(cuda_device, T, H, Hkv, S, mode):
     torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
 
 
+def _q8(x):
+    """bf16 [Hkv, S, D] -> (int8, bf16 scales [Hkv, S, 1]) by the cache's quantizer."""
+    return quantize_rows(x, 1)
+
+
+@pytest.mark.parametrize("mode", [ROPE_TYPE_NORM, ROPE_TYPE_NEOX], ids=["norm", "neox"])
+@pytest.mark.parametrize("T,H,Hkv,S", [(1, 32, 8, 1000), (2, 8, 8, 64), (3, 8, 1, 500),
+                                       (5, 8, 2, 333), (8, 32, 8, 512), (8, 4, 4, 4001),
+                                       (9, 4, 1, 70), (24, 16, 2, 200), (40, 32, 8, 300),
+                                       (512, 32, 8, 1024)])
+def test_flash_q8_kernels_match_plain(cuda_device, T, H, Hkv, S, mode):
+    """K3q (T <= 8) and K4q against attn_plain on the same (int8, scales)
+    pairs: ragged S, G in {1, 4, 8}, a padding row (row 0) that sees nothing."""
+    t = _attn_inputs(T, H, Hkv, S, mode)
+    t["k"], t["v"] = _q8(t["k"]), _q8(t["v"])
+    fn = cuda_attn.flash_decode if T <= 8 else cuda_attn.flash_prefill
+    dev = {n: (tuple(x.to(cuda_device) for x in a) if isinstance(a, tuple)
+               else a.to(cuda_device)) for n, a in t.items()}
+    launched = dict(cuda_attn.LAUNCHES)
+    got = fn(**dev, scale=128 ** -0.5).cpu()
+    want = cuda_attn.attn_plain(**t, scale=128 ** -0.5)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+    kern = "K3q" if T <= 8 else "K4q"
+    assert cuda_attn.LAUNCHES[kern] == launched[kern] + 1
+
+
 def test_cuda_tensors_never_take_the_plain_path(cuda_device):
     """A CUDA tensor whose kernel cannot take it raises; nothing falls back."""
     x, qt = _planes("i8", 0, 32, False, 128, 64, 3, torch.float32)
@@ -105,3 +133,14 @@ def test_cuda_tensors_never_take_the_plain_path(cuda_device):
     t["q"] = t["q"].float()
     with pytest.raises(ValueError):
         cuda_attn.flash_decode(**t, scale=0.1)
+    # q8 pairs: int8 planes and [Hkv, S, 1] bf16 scales, nothing else
+    t = {n: a.to(cuda_device) for n, a in _attn_inputs(1, 4, 2, 64, ROPE_TYPE_NORM).items()}
+    kq, ks = _q8(t["k"])
+    vq, vs = _q8(t["v"])
+    for bad_k, bad_v in (((kq, ks.float()), (vq, vs)),                  # f32 scales
+                         ((kq.float(), ks), (vq, vs)),                  # f32 "int8" plane
+                         ((kq, ks.expand(2, 64, 2).contiguous()), (vq, vs)),  # group scales
+                         ((kq, ks), vq)):                               # not a pair
+        for fn in (cuda_attn.flash_decode, cuda_attn.flash_prefill):
+            with pytest.raises(ValueError):
+                fn(**{**t, "k": bad_k, "v": bad_v}, scale=0.1)
