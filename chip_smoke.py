@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch/CUDA port (llm_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --sweep-seeds    # phase 3's q8_0 errors, seeds 1-6
-    python3 chip_smoke.py --screen-seeds   # its top-2 gaps on the card, seeds 1-64
+    python3 chip_smoke.py --sweep-seeds [q8_0|chain]  # phase 3's twins' errors, seeds 1-6
+    python3 chip_smoke.py --screen-seeds   # the q8_0 twin's top-2 gaps on the card, seeds 1-64
 
 Phases, each of which raises on failure (the script then exits nonzero and
 prints no result line):
@@ -10,15 +10,19 @@ prints no result line):
      llm_tpu_torch/csrc in parallel (nvcc, sm_90a);
   2. each kernel (K1/K2 quantized matmul, K3/K4 flash attention, K3q/K4q
      flash attention on the int8 KV cache, whose inputs the port's own
-     quantizer makes on the card) at the main path's shapes, held against
-     its plain PyTorch version on the card, and timed beside its bound, the
+     quantizer makes on the card, K5 group-factored matmul beside K1 at the
+     same shapes, K6 chained layer tail / norm + matmul beside the unfused
+     launches it replaces) at the main path's shapes, held against its
+     plain PyTorch version on the card, and timed beside its bound, the
      plain version and one PyTorch library call that computes the same
      function;
   3. two layers at LLAMA3_8B width: Context.decode of a 64-token prompt and
      8 greedy generate_loop steps, once on the card (kernels) and once on
      the CPU (plain versions), from the same random weights; every step's
      logits compared, and the greedy tokens; then the same with a q8_0 KV
-     cache, whose card logits are also held against the bf16 cache's;
+     cache, whose card logits are also held against the bf16 cache's; then
+     with chain=True, gdot=True (K5 on the unfused QKV of layer 0, K6 on
+     layer 1's head, both tails and the lm_head);
   4. LLAMA3_8B, 32 layers, Q4_K_M-style random planes made on the card:
      prefill 512 tokens, then 128 greedy tokens, with every kernel's
      launch count read over that run;
@@ -26,7 +30,12 @@ prints no result line):
      prefill 512, 128 greedy tokens, launch counts, the cache's bytes and
      peak memory against phase 4's; then the prompt's cells saved with
      state_seq_save, loaded into a fresh q8_0 Context (planes bit-equal)
-     and one decode step there against the uninterrupted Context.
+     and one decode step there against the uninterrupted Context;
+  6. phase 4's planes with gdot=True: K5 in place of every decode K1;
+  7. phase 4's planes with chain=True, gdot=True: K6 for every tail, fused
+     head and the lm_head, K5 for the unfused QKV; each of phases 4, 6 and
+     7 also profiled over 8 decode tokens (launches per token, idle share);
+     then the three paths' decode timed in turns (A B C C B A A B C).
 The last lines are a JSON "kernels" line, the card line, and
 {"ok": true, "device": {...}}. It imports nothing of JAX or llm_tpu.
 """
@@ -130,6 +139,121 @@ def check_qmm(results, name, qtype, K, N, B, scales_dtype=torch.bfloat16):
     log(json.dumps(rec))
     if not (err <= tol and math.isfinite(err)):
         raise AssertionError(f"{kern} {rec['shape']}: max|err| {err} > {tol}")
+    results.append(rec)
+
+
+def check_gdot(results, name, K, N, B):
+    """K5 at a Q4_K shape, beside K1 on the same inputs (probe S2 of the
+    TPU package, scripts/kbench6.py); its bound and library call are K1's."""
+    from llm_tpu_torch.gguf.constants import GGMLType
+    from llm_tpu_torch.models.synthetic import device_synthetic_qtensor
+    from llm_tpu_torch.ops import cuda_qmm
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(K * 5 + N + B)
+    q4k = GGMLType.Q4_K
+    nb = qt_bytes(device_synthetic_qtensor(gen, N, K, q4k))
+    ncp = copies_for(nb)
+    qts = [device_synthetic_qtensor(gen, N, K, q4k) for _ in range(ncp)]
+    x = torch.randn((B, K), generator=gen, device="cuda").to(torch.bfloat16)
+    y = cuda_qmm.qmm_cuda(x, qts[0], gdot=True)
+    want = cuda_qmm.qmm_gdot_plain(x, qts[0], torch.bfloat16)
+    torch.cuda.synchronize()
+    err = (y - want).abs().max().item()
+    tol = 1e-3 * want.abs().max().item()
+    ms = time_ms(lambda i: cuda_qmm.qmm_cuda(x, qts[i], gdot=True), ncp)
+    k1_ms = time_ms(lambda i: cuda_qmm.qmm_cuda(x, qts[i]), ncp)
+    plain_ms = time_ms(lambda i: cuda_qmm.qmm_gdot_plain(x, qts[i], torch.bfloat16), ncp,
+                       iters=5)
+    ws = [dequant_bf16(q) for q in qts[:copies_for(K * N * 2)]]
+    lib_ms = time_ms(lambda i: torch.matmul(x, ws[i]), len(ws))
+    del ws
+    bmin, by = bound_ms(nb + B * K * 2 + B * N * 4, 2.0 * B * K * N)
+    rec = dict(kernel="K5", shape=f"{name} Q4_K K={K} N={N} B={B}", max_abs_err=err, tol=tol,
+               ms=ms, k1_ms=k1_ms, plain_ms=plain_ms, bound_ms=bmin, bound_by=by,
+               library_ms=lib_ms)
+    log(json.dumps(rec))
+    if not (err <= tol and math.isfinite(err)):
+        raise AssertionError(f"K5 {rec['shape']}: max|err| {err} > {tol}")
+    results.append(rec)
+
+
+# K6 against its plain version on the card: a tail or head's output is
+# bf16, so a last-bit difference of an f32 sum can move a value across a
+# bf16 rounding boundary (of h, hn, cur or the output): one step is 2^-8
+# of the value, 3.9e-3 of max|out| at most. Held at 1e-2 of max|out|.
+K6_REL_TOL = 1e-2
+# LLAMA3_8B chains at their main-path types: (name, [(K, N, type)], pres)
+CHAINS = (
+    ("tail Q4_K down", ((4096, 4096, "Q4_K"), (4096, 28672, "Q4_K"), (14336, 4096, "Q4_K")),
+     ("cast", "res_norm", "swiglu")),
+    ("tail Q6_K down", ((4096, 4096, "Q4_K"), (4096, 28672, "Q4_K"), (14336, 4096, "Q6_K")),
+     ("cast", "res_norm", "swiglu")),
+    ("head qkv", ((4096, 6144, "Q4_K"),), ("norm",)),
+    ("lm_head Q6_K", ((4096, 128256, "Q6_K"),), ("norm",)),
+)
+
+
+def unfused_chain(x, qts, gamma, x_res, pres, mm):
+    """The chain as forward runs it unfused, with mm(x, i) for the i-th
+    matmul (f32 out): K1/K2 launches, or torch.matmul on bf16 weights."""
+    from llm_tpu_torch.ops.norms import rms_norm
+
+    bf = torch.bfloat16
+    if pres[0] == "norm":
+        y = mm(rms_norm(x, gamma, 1e-5), 0)
+        return y if qts[0].out_features == 128256 else y.to(bf)
+    h = x_res + mm(x, 0).to(bf)
+    g, u = mm(rms_norm(h, gamma, 1e-5), 1).chunk(2, dim=-1)
+    return h + mm((torch.nn.functional.silu(g) * u).to(bf), 2).to(bf)
+
+
+def check_chain(results, name, dims, pres, B):
+    """K6 on one chain at B rows: against qmm_chain_plain, and timed beside
+    the unfused path it replaces (K1/K2 launches, memsets and torch glue),
+    the plain version, and the library yardstick: the same chain of
+    torch.matmul over pre-dequantized bf16 weights with the same glue."""
+    from llm_tpu_torch.gguf.constants import GGMLType
+    from llm_tpu_torch.models.synthetic import device_synthetic_qtensor
+    from llm_tpu_torch.ops import cuda_qmm, cuda_qmm_chain
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(sum(n for _, n, _ in dims) + B)
+    qts = [device_synthetic_qtensor(gen, n, k, GGMLType[t]) for k, n, t in dims]
+    K0, N0 = dims[0][0], dims[0][1]
+    bf = torch.bfloat16
+    x = torch.randn((B, K0), generator=gen, device="cuda").to(bf)
+    x_res = torch.randn((B, N0), generator=gen, device="cuda").to(bf) \
+        if pres[0] == "cast" else None
+    gamma = 1 + 0.2 * torch.randn(dims[1][0] if pres[0] == "cast" else K0, generator=gen,
+                                  device="cuda")
+    out_dtype = torch.float32 if N0 == 128256 else bf
+    final = "add_res" if pres[0] == "cast" else "cast"
+    kw = dict(pres=pres, eps=1e-5, final=final, out_dtype=out_dtype)
+    run = (lambda: cuda_qmm_chain.qmm_chain_cuda(x, qts, (gamma,), x_res, **kw))
+    got = run()
+    want = cuda_qmm_chain.qmm_chain_plain(x, qts, (gamma,), x_res, **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = K6_REL_TOL * want.float().abs().max().item()
+    ms = time_ms(lambda i: run())
+    unfused_ms = time_ms(lambda i: unfused_chain(
+        x, qts, gamma, x_res, pres, lambda a, j: cuda_qmm.qmm_cuda(a.contiguous(), qts[j])))
+    plain_ms = time_ms(lambda i: cuda_qmm_chain.qmm_chain_plain(x, qts, (gamma,), x_res, **kw),
+                       iters=3)
+    ws = [dequant_bf16(q) for q in qts]
+    lib_ms = time_ms(lambda i: unfused_chain(x, qts, gamma, x_res, pres,
+                                             lambda a, j: torch.matmul(a, ws[j]).float()))
+    del ws
+    nbytes = sum(qt_bytes(q) for q in qts) + x.numel() * 2 + got.numel() * got.element_size()
+    nbytes += x_res.numel() * 2 if x_res is not None else 0
+    bmin, by = bound_ms(nbytes, sum(2.0 * B * k * n for k, n, _ in dims))
+    rec = dict(kernel="K6", shape=f"{name} B={B}", max_abs_err=err, tol=tol, ms=ms,
+               unfused_ms=unfused_ms, plain_ms=plain_ms, bound_ms=bmin, bound_by=by,
+               library_ms=lib_ms, grid=cuda_qmm_chain.chain_grid(B))
+    log(json.dumps(rec))
+    if not (err <= tol and math.isfinite(err)):
+        raise AssertionError(f"K6 {rec['shape']}: max|err| {err} > {tol}")
     results.append(rec)
 
 
@@ -241,6 +365,14 @@ def phase_kernels():
     check_attn(results, "decode ragged-S", 1, 4001, q8=True)
     check_attn(results, "decode T=8", 8, 4096, q8=True)
     check_attn(results, "prefill", 512, 4096, q8=True)
+    # K5 at the TPU package's gdot probe shapes (scripts/kbench6.py SHAPES)
+    for B in (1, 8):
+        for name, K, N in (("qkv", 4096, 6144), ("out", 4096, 4096), ("gu", 4096, 28672),
+                           ("down", 14336, 4096), ("head", 4096, 128256)):
+            check_gdot(results, name, K, N, B)
+    for B in (1, 8):
+        for name, dims, pres in CHAINS:
+            check_chain(results, name, dims, pres, B)
     return results
 
 
@@ -261,13 +393,14 @@ TWO_LAYER_Q8_REL_TOL = 1.7e-2
 TWO_LAYER_SEED = 5
 
 
-def two_layer_steps(seed: int, kv_dtype=None, devices=("cuda", "cpu")):
+def two_layer_steps(seed: int, kv_dtype=None, devices=("cuda", "cpu"), chain=False,
+                    gdot=False):
     """Full width, 2 layers, one set of weights on each device. Each device
     prefills a 64-token prompt (Context.decode) and generates 8 greedy
     tokens (generate_loop). Then the card's token stream is fed back one
     decode step at a time, so that every device's logits of every step come
-    from the same inputs. Returns (cfg, {device: logits [9, vocab]},
-    {device: greedy tokens})."""
+    from the same inputs. chain/gdot are Context's options. Returns (cfg,
+    {device: logits [9, vocab]}, {device: greedy tokens})."""
     import numpy as np
 
     from llm_tpu_torch.gguf.constants import GGMLType
@@ -283,7 +416,8 @@ def two_layer_steps(seed: int, kv_dtype=None, devices=("cuda", "cpu")):
     for dev in devices:
         t0 = time.perf_counter()
         p = params if dev == "cuda" else params_to(params, "cpu")
-        ctx = Context(None, n_cells=256, device=dev, params_cfg=(p, cfg), kv_dtype=kv_dtype)
+        ctx = Context(None, n_cells=256, device=dev, params_cfg=(p, cfg), kv_dtype=kv_dtype,
+                      chain=chain, gdot=gdot)
         assert ctx.decode(Batch.text(prompt)) == 0
         lg = [ctx.get_logits().copy()]
         first = int(lg[0].argmax())
@@ -293,25 +427,27 @@ def two_layer_steps(seed: int, kv_dtype=None, devices=("cuda", "cpu")):
             assert ctx.decode(Batch.text([t])) == 0
             lg.append(ctx.get_logits().copy())
         steps[dev] = np.stack(lg)
-        log(f"two-layer {dev} kv {kv_dtype}: {time.perf_counter() - t0:.1f} s, "
-            f"tokens {toks[dev]}")
+        log(f"two-layer {dev} kv {kv_dtype} chain {chain} gdot {gdot}: "
+            f"{time.perf_counter() - t0:.1f} s, tokens {toks[dev]}")
         del ctx, p
     return cfg, steps, toks
 
 
-def phase_two_layers(seed: int = TWO_LAYER_SEED, kv_dtype=None, rel_tol=TWO_LAYER_REL_TOL):
+def phase_two_layers(seed: int = TWO_LAYER_SEED, kv_dtype=None, rel_tol=TWO_LAYER_REL_TOL,
+                     chain=False, gdot=False):
     """two_layer_steps on the card and the CPU: every step's logits within
     rel_tol of max|logit|, and the greedy tokens equal. Returns the card's
     logits [9, vocab]."""
     import numpy as np
 
-    cfg, steps, toks = two_layer_steps(seed, kv_dtype)
+    cfg, steps, toks = two_layer_steps(seed, kv_dtype, chain=chain, gdot=gdot)
     lg, lc = steps["cuda"], steps["cpu"]
     tg, tc = toks["cuda"], toks["cpu"]
     assert np.isfinite(lg).all() and lg.shape == (9, cfg.vocab_size)
     err = float(np.abs(lg - lc).max())
     tol = rel_tol * float(np.abs(lc).max())
-    log(json.dumps(dict(seed=seed, kv_dtype=str(kv_dtype), two_layer_logits_max_abs_err=err,
+    log(json.dumps(dict(seed=seed, kv_dtype=str(kv_dtype), chain=chain, gdot=gdot,
+                        two_layer_logits_max_abs_err=err,
                         tol=tol, rel_err=err / float(np.abs(lc).max()),
                         step_max_abs_err=np.abs(lg - lc).max(axis=1).tolist(),
                         min_top2_gap=min_top2_gap(lc),
@@ -366,6 +502,50 @@ def phase_two_layers_q8(seed: int = TWO_LAYER_Q8_SEED):
         raise AssertionError(f"q8_0 vs bf16 prefill logits: max|diff| {diff} > {tol}")
 
 
+# the chained twin (chain=True, gdot=True): layer 0 is a use_more_bits
+# layer, so its QKV stays unfused (K5 on attn_q/attn_k, K2 on attn_v) and
+# its tail mixes Q4_K with a Q6_K down; layer 1 runs the fused head and an
+# all-Q4_K tail, and the lm_head is a K6 norm_mm. Card vs CPU, relative to
+# max|logit|: about 3x the largest error over seeds 1-6 (5.2e-3,
+# `--sweep-seeds chain`, PERF.md), for the same reason as the bf16 twin's.
+TWO_LAYER_CHAIN_REL_TOL = 1.5e-2
+# of seeds 1-6, seed 5 has the widest smallest top-2 gap of the CPU's 9
+# steps (0.115, 2.8x its error of 0.041); seed 6 parts on a 0.008 gap
+TWO_LAYER_CHAIN_SEED = 5
+
+
+def phase_two_layers_chain():
+    """Phase 3's chained twin; K5 and K6 must both launch on the card."""
+    from llm_tpu_torch.ops import cuda_qmm, cuda_qmm_chain
+
+    cuda_qmm.reset_launches()
+    cuda_qmm_chain.reset_launches()
+    phase_two_layers(TWO_LAYER_CHAIN_SEED, rel_tol=TWO_LAYER_CHAIN_REL_TOL, chain=True,
+                     gdot=True)
+    launched = {**cuda_qmm.LAUNCHES, **cuda_qmm_chain.LAUNCHES}
+    log(json.dumps(dict(two_layer_chain_launches=launched)))
+    for k in ("K5", "K6"):
+        if launched[k] <= 0:
+            raise AssertionError(f"the chained twin launched no {k}")
+
+
+def sweep_chain_seeds(seeds) -> None:
+    """What the chained twin's tolerance and seed come from: per seed, the
+    card-vs-CPU error over the 9 steps relative to max|logit|, the CPU's
+    smallest top-2 gap, and whether the greedy tokens agree. Logs only."""
+    import numpy as np
+
+    for seed in seeds:
+        _, steps, toks = two_layer_steps(seed, chain=True, gdot=True)
+        lg, lc = steps["cuda"], steps["cpu"]
+        log(json.dumps(dict(seed=seed, chain=True, gdot=True,
+                            card_vs_cpu_rel_err=float(np.abs(lg - lc).max() / np.abs(lc).max()),
+                            min_top2_gap=min_top2_gap(lc),
+                            min_top2_gap_rel=min_top2_gap(lc) / float(np.abs(lc).max()),
+                            distinct_tokens=len(set(toks["cuda"])),
+                            tokens_equal=toks["cuda"] == toks["cpu"])))
+
+
 def sweep_seeds(seeds, devices=("cuda", "cpu")) -> None:
     """What the q8_0 tolerances and seed above come from. For each seed:
     the card's q8_0 prefill logits against its bf16 cache's, and the
@@ -410,16 +590,38 @@ def decode_bytes_per_token(ctx):
     return w + kv_bytes(ctx) + tables
 
 
-def matmul_counts(params):
-    """Per forward step: (p4 launches, i8 launches) the model's weights make."""
+def decode_counts(params, chain=False, gdot=False):
+    """Launches of K1/K2/K5/K6 per decoded token (one row), from the params'
+    keys and plane types: with chain, one K6 for each layer's tail (o_proj,
+    fused gate+up, down), each fused QKV head and the lm_head; every other
+    matmul on K5 (p4, with gdot) or K1 (p4) or K2 (int8)."""
     from llm_tpu_torch.quant.qtensor import QTensor
 
-    p4 = i8 = 0
-    for w in [v for layer in params["layers"] for v in layer.values()] + [params["output"]]:
-        if isinstance(w, QTensor) and w.kmajor:
-            p4 += w.layout == "p4"
-            i8 += w.layout == "i8"
-    return p4, i8
+    n = {"K1": 0, "K2": 0, "K5": 0, "K6": 0}
+
+    def one(w):
+        n["K2" if w.layout == "i8" else ("K5" if gdot else "K1")] += 1
+
+    kmajor = (lambda w: isinstance(w, QTensor) and w.kmajor)
+    for layer in params["layers"]:
+        tail = [layer[k] for k in ("attn_output", "ffn_gateup_fused", "ffn_down")]
+        head = [layer[k] for k in ("attn_qkv_fused", "attn_q", "attn_k", "attn_v")
+                if k in layer]
+        if chain and "attn_qkv_fused" in layer:
+            n["K6"] += 1
+        else:
+            for w in head:
+                one(w)
+        if chain and all(kmajor(w) for w in tail):
+            n["K6"] += 1
+        else:
+            for w in tail:
+                one(w)
+    if chain and kmajor(params["output"]):
+        n["K6"] += 1
+    else:
+        one(params["output"])
+    return n
 
 
 LLAMA3_8B_PROMPT = 512
@@ -438,14 +640,21 @@ def llama3_8b_planes():
     return params, cfg
 
 
+def launch_counts() -> dict:
+    from llm_tpu_torch.ops import cuda_attn, cuda_qmm, cuda_qmm_chain
+
+    return {**cuda_qmm.LAUNCHES, **cuda_attn.LAUNCHES, **cuda_qmm_chain.LAUNCHES}
+
+
 def run_llama3_8b(ctx, attn_kernels):
     """The main path on ctx: prefill 512 tokens, then 128 greedy tokens,
     with every launch count set to 0 just before and read just after.
     attn_kernels: (decode kernel, prefill kernel) the cache type runs;
-    every other attention kernel must stay at 0."""
+    every other attention kernel must stay at 0. The matmul kernels per
+    token are decode_counts' for the Context's options."""
     import numpy as np
 
-    from llm_tpu_torch.ops import cuda_attn, cuda_qmm
+    from llm_tpu_torch.ops import cuda_attn, cuda_qmm, cuda_qmm_chain
     from llm_tpu_torch.runtime.batch import Batch
 
     cfg = ctx.cfg
@@ -453,32 +662,34 @@ def run_llama3_8b(ctx, attn_kernels):
     prompt = [(i * 104729) % cfg.vocab_size for i in range(LLAMA3_8B_PROMPT)]
     cuda_qmm.reset_launches()
     cuda_attn.reset_launches()
+    cuda_qmm_chain.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     assert ctx.decode(Batch.text(prompt)) == 0
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     logits = ctx.get_logits()
-    after_prefill = {**cuda_qmm.LAUNCHES, **cuda_attn.LAUNCHES}
+    after_prefill = launch_counts()
     first = int(np.argmax(logits))
     t0 = time.perf_counter()
     toks = ctx.generate_loop(first, LLAMA3_8B_DECODE)
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
-    counts = {**cuda_qmm.LAUNCHES, **cuda_attn.LAUNCHES}
+    counts = launch_counts()
 
     assert np.isfinite(logits).all(), "non-finite prefill logits"
     assert len(toks) == LLAMA3_8B_DECODE and all(0 <= t < cfg.vocab_size for t in toks)
     n = len(toks)
-    p4, i8 = matmul_counts(ctx.params)
     dec, pre = attn_kernels
     per_token = {k: (counts[k] - after_prefill[k]) / n for k in counts}
     want = {k: 0.0 for k in cuda_attn.LAUNCHES}
-    want.update({"K1": float(p4), "K2": float(i8), dec: float(cfg.n_layers)})
+    want.update({k: float(v) for k, v in decode_counts(ctx.params, ctx.chain, ctx.gdot).items()})
+    want[dec] = float(cfg.n_layers)
     prefill_counts = {k: after_prefill[k] for k in cuda_attn.LAUNCHES}
     want_prefill = {k: 0 for k in cuda_attn.LAUNCHES}
     want_prefill[pre] = cfg.n_layers
-    rec = dict(kv_dtype=str(ctx.kv_dtype), prefill_tokens=LLAMA3_8B_PROMPT,
+    rec = dict(kv_dtype=str(ctx.kv_dtype), chain=ctx.chain, gdot=ctx.gdot,
+               prefill_tokens=LLAMA3_8B_PROMPT,
                prefill_s=t_prefill, prefill_tok_s=LLAMA3_8B_PROMPT / t_prefill,
                decode_tokens=n, decode_s=t_decode, decode_tok_s=n / t_decode,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -486,8 +697,9 @@ def run_llama3_8b(ctx, attn_kernels):
                decode_bound_tok_s=PEAK_BYTES_PER_S / decode_bytes_per_token(ctx),
                launches=counts, launches_per_token=per_token, expected_per_token=want,
                attn_launches_in_prefill=prefill_counts)
+    rec["last_token"] = toks[-1]
     log(json.dumps(rec))
-    for k in ("K1", "K2", dec, pre):
+    for k in [k for k, v in want.items() if v > 0] + [pre]:
         if counts[k] <= 0:
             raise AssertionError(f"{k} was not launched on the main path")
     if per_token != want:
@@ -497,14 +709,64 @@ def run_llama3_8b(ctx, attn_kernels):
     return counts, rec
 
 
-def phase_llama3_8b(params, cfg):
+def phase_llama3_8b(params, cfg, chain=False, gdot=False, base=None):
+    """Phase 4 (no options), 6 (gdot) or 7 (chain and gdot): the main path
+    with the bf16 cache, then 8 more decode tokens under torch.profiler
+    (tools/profile_decode.py). base: phase 4's record, printed beside."""
     from llm_tpu_torch.runtime.engine import Context
+    from llm_tpu_torch.tools.profile_decode import profile_tokens
 
-    ctx = Context(None, n_cells=4096, device="cuda", params_cfg=(params, cfg))
+    ctx = Context(None, n_cells=4096, device="cuda", params_cfg=(params, cfg), chain=chain,
+                  gdot=gdot)
     counts, rec = run_llama3_8b(ctx, ("K3", "K4"))
+    prof = profile_tokens(ctx, rec["last_token"], 8)
+    log("profile_decode " + json.dumps(prof))
+    keys = ("decode_tok_s", "prefill_tok_s", "peak_mem_gib")
+    side = dict(chain=chain, gdot=gdot, **{k: rec[k] for k in keys},
+                launches_per_token=prof["device_launches_per_token"],
+                idle_share=prof["idle_share"])
+    if base is not None:
+        side.update({f"phase4_{k}": base[k] for k in keys + ("launches_per_token",
+                                                             "idle_share")})
+    log(json.dumps(side))
+    rec.update(launches_per_token=prof["device_launches_per_token"],
+               idle_share=prof["idle_share"])
     del ctx
     torch.cuda.empty_cache()
     return counts, rec
+
+
+def phase_decode_turns(params, cfg, n_tokens=32):
+    """Decode ms per token of the unfused path (A), the chained one (B,
+    chain=True, gdot=True) and gdot alone (C) in turns, A B C C B A A B C,
+    each after the same 512-token prompt: host-clock rates vary between
+    runs of one path, so this is how the paths are compared within one
+    call. Logs only."""
+    from llm_tpu_torch.runtime.batch import Batch
+    from llm_tpu_torch.runtime.engine import Context
+
+    prompt = [(i * 104729) % cfg.vocab_size for i in range(LLAMA3_8B_PROMPT)]
+    paths = {"A_unfused": {}, "B_chain_gdot": dict(chain=True, gdot=True),
+             "C_gdot": dict(gdot=True)}
+    ctxs = {}
+    for name, kw in paths.items():
+        ctx = Context(None, n_cells=4096, device="cuda", params_cfg=(params, cfg), **kw)
+        assert ctx.decode(Batch.text(prompt)) == 0
+        ctx.generate_loop(7, 4)  # warm-up
+        ctxs[name] = ctx
+    order = list(paths) + list(paths)[::-1] + list(paths)
+    runs = {name: [] for name in paths}
+    for name in order:
+        ctx = ctxs[name]
+        ctx.seq_rm(0, LLAMA3_8B_PROMPT, -1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctx.generate_loop(7, n_tokens)
+        torch.cuda.synchronize()
+        runs[name].append((time.perf_counter() - t0) / n_tokens * 1e3)
+    log(json.dumps(dict(decode_turns_order=order, decode_turns_ms_per_token=runs)))
+    del ctxs
+    torch.cuda.empty_cache()
 
 
 # the q8_0 cache of LLAMA3_8B at 4096 cells: per layer, K and V each hold
@@ -581,6 +843,8 @@ REPLACES = {
     "K4": ("llm_tpu_torch/csrc/flash_attn.cu", "llm_tpu/ops/pallas_attn.py:328"),
     "K3q": ("llm_tpu_torch/csrc/flash_attn.cu", "llm_tpu/ops/pallas_attn.py:135"),
     "K4q": ("llm_tpu_torch/csrc/flash_attn.cu", "llm_tpu/ops/pallas_attn.py:341"),
+    "K5": ("llm_tpu_torch/csrc/qmm.cu", "llm_tpu/ops/pallas_qmm.py:195"),
+    "K6": ("llm_tpu_torch/csrc/qmm_chain.cu", "llm_tpu/ops/pallas_qmm_chain.py:107"),
 }
 # the line's timing for each kernel comes from its main-path decode (or
 # prefill) shape; max_abs_err is the largest over every shape checked
@@ -589,7 +853,9 @@ HEADLINE = {"K1": "gate_up Q4_K K=4096 N=28672 B=1",
             "K3": "decode half-masked T=1 S=4096 H=32 Hkv=8 D=128",
             "K4": "prefill T=512 S=4096 H=32 Hkv=8 D=128",
             "K3q": "decode half-masked T=1 S=4096 H=32 Hkv=8 D=128",
-            "K4q": "prefill T=512 S=4096 H=32 Hkv=8 D=128"}
+            "K4q": "prefill T=512 S=4096 H=32 Hkv=8 D=128",
+            "K5": "gu Q4_K K=4096 N=28672 B=1",
+            "K6": "tail Q6_K down B=1"}
 
 
 def main() -> int:
@@ -614,8 +880,12 @@ def main() -> int:
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log("   ", line.strip())
-    if sys.argv[1:] == ["--sweep-seeds"]:
-        sweep_seeds(range(1, 7))
+    if sys.argv[1:2] == ["--sweep-seeds"]:
+        kinds = sys.argv[2:] or ["q8_0", "chain"]
+        if "q8_0" in kinds:
+            sweep_seeds(range(1, 7))
+        if "chain" in kinds:
+            sweep_chain_seeds(range(1, 7))
         return 0
     if sys.argv[1:] == ["--screen-seeds"]:
         sweep_seeds(range(1, 65), devices=("cuda",))
@@ -631,18 +901,29 @@ def main() -> int:
     phase_two_layers_q8()
     log(f"two-layer q8_0 card-vs-CPU check passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    phase_two_layers_chain()
+    log(f"two-layer chained card-vs-CPU check passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     params, cfg = llama3_8b_planes()
     counts, rec = phase_llama3_8b(params, cfg)
     log(f"LLAMA3_8B main path passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     counts_q8 = phase_llama3_8b_q8(params, cfg, rec)
     log(f"LLAMA3_8B q8_0 cache path passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts_gdot, _ = phase_llama3_8b(params, cfg, gdot=True, base=rec)
+    log(f"LLAMA3_8B gdot path passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts_chain, _ = phase_llama3_8b(params, cfg, chain=True, gdot=True, base=rec)
+    log(f"LLAMA3_8B chained path passed in {time.perf_counter() - t0:.1f} s")
+    phase_decode_turns(params, cfg)
     # each kernel's launches from the path that runs it: K1-K4 from phase 4,
-    # K3q/K4q from phase 5
-    counts = {**counts, "K3q": counts_q8["K3q"], "K4q": counts_q8["K4q"]}
+    # K3q/K4q from phase 5, K5 from phase 6, K6 from phase 7
+    counts = {**counts, "K3q": counts_q8["K3q"], "K4q": counts_q8["K4q"],
+              "K5": counts_gdot["K5"], "K6": counts_chain["K6"]}
 
     kernels = []
-    for k in ("K1", "K2", "K3", "K4", "K3q", "K4q"):
+    for k in ("K1", "K2", "K3", "K4", "K3q", "K4q", "K5", "K6"):
         mine = [r for r in results if r["kernel"] == k]
         head = next(r for r in mine if r["shape"] == HEADLINE[k])
         src, rep = REPLACES[k]
@@ -651,7 +932,8 @@ def main() -> int:
             max_abs_err=max(r["max_abs_err"] for r in mine), ms=head["ms"],
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
-            shape=head["shape"], passed=True))
+            shape=head["shape"], passed=True,
+            **{f: head[f] for f in ("k1_ms", "unfused_ms") if f in head}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -22,7 +22,12 @@
 //    (w = (q - zp) * s in f32, then an FMA per row of x), and the K range
 //    is split over CTAs so that even N = 4096 fills the 132 SMs; partial
 //    sums meet through f32 atomics (a memset first). The activations of a
-//    CTA's K range are staged once in shared memory.
+//    CTA's K range are staged once in shared memory. The loop lives in
+//    qmm_gemv.cuh, which the chained kernel K6 (qmm_chain.cu) shares.
+//    K5 (qmm_gdot_launch) is the same GEMV with GDOT set: it replaces
+//    llm_tpu/ops/pallas_qmm.py::_gdot_kernel (via _qmm_gdot_call), takes
+//    the scale once per 32-group instead of once per weight, and is bound
+//    by the same plane bytes as K1.
 //  * prefill (B > 16): a tiled tensor-core GEMM (mma.sync m16n8k16 bf16).
 //    A 64-wide K chunk of the planes is unpacked into shared memory as
 //    the raw integers (q - zp), which bf16 holds exactly; each quant group
@@ -31,191 +36,26 @@
 //    of mma.sync makes this possible). This is bound by operations; it is
 //    simple, not fast: no TMA, no wgmma, no pipelining.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "qmm_gemv.cuh"
 
 namespace {
 
 // ----------------------------------------------------------------------------
-// shared helpers
+// decode GEMV (K1/K2, and K5 with GDOT): one CTA per (N tile, K range)
 
-template <bool BF16>
-__device__ __forceinline__ float ld_group(const void* p, size_t i) {
-  if (BF16) return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i]);
-  return reinterpret_cast<const float*>(p)[i];
-}
-
-// 8 consecutive group values starting at element i; vec requires i % 8 == 0
-template <bool BF16>
-__device__ __forceinline__ void ld_group8(const void* p, size_t i, bool vec,
-                                          int nvalid, float out[8]) {
-  if (vec) {
-    if (BF16) {
-      uint4 u = *reinterpret_cast<const uint4*>(
-          reinterpret_cast<const __nv_bfloat16*>(p) + i);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float2 f = __bfloat1622float2(h[j]);
-        out[2 * j] = f.x;
-        out[2 * j + 1] = f.y;
-      }
-    } else {
-      const float4* f = reinterpret_cast<const float4*>(
-          reinterpret_cast<const float*>(p) + i);
-      float4 a = f[0], b = f[1];
-      out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-      out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) out[j] = j < nvalid ? ld_group<BF16>(p, i + j) : 0.f;
-  }
-}
-
-// ----------------------------------------------------------------------------
-// decode GEMV
-
-constexpr int GV_WARPS = 8;
-constexpr int GV_THREADS = GV_WARPS * 32;
-constexpr int LANE_COLS = 8;                // columns per lane (one 8-byte word)
-constexpr int GV_TILE_N = 32 * LANE_COLS;   // 256 columns per CTA
-constexpr int GV_STAGE = 8192;              // floats of staged x per CTA
-constexpr int GV_MAX_NB = 4;                // rows of x per launch
-
-// A "unit" is the work of one warp step: 32 plane rows. For p4 that is 32
-// packed rows of one pack tile = 64 values of k (32 low, 32 high nibbles);
-// for i8 it is 32 consecutive k.
-template <bool P4>
-__device__ __forceinline__ int unit_k(int u, int r) {
-  if (P4) {
-    int tile = u >> 2, j = u & 3;
-    return tile * 256 + j * 32 + (r < 32 ? r : 128 + (r - 32));
-  }
-  return u * 32 + r;
-}
-
-template <int NB, bool P4, bool SBF16, bool MINS>
+template <int NB, bool P4, bool SBF16, bool MINS, bool GDOT>
 __global__ void __launch_bounds__(GV_THREADS)
 qmm_gemv(const __nv_bfloat16* __restrict__ x, int B, int K,
          const uint8_t* __restrict__ qs, const void* __restrict__ sc,
          const void* __restrict__ mn, float* __restrict__ y, int N, int gs,
          int zp, int upc, int atomic_out) {
-  constexpr int UK = P4 ? 64 : 32;  // k values per unit
-  __shared__ float xs[GV_STAGE];    // [NB][units][UK], then the warp reduction
+  __shared__ float xs[GV_STAGE];  // [NB][units][UK], then the warp reduction
   __shared__ float xsum[GV_STAGE / 16];
-
-  const int n_units = (P4 ? K / 64 : K / 32);
+  const int n_units = P4 ? K / 64 : K / 32;
   const int u0 = blockIdx.y * upc;
-  const int nu = min(upc, n_units - u0);
-  const int n0 = blockIdx.x * GV_TILE_N;
-
-  for (int i = threadIdx.x; i < NB * nu * UK; i += GV_THREADS) {
-    int b = i / (nu * UK), rem = i % (nu * UK);
-    int k = unit_k<P4>(u0 + rem / UK, rem % UK);
-    xs[i] = b < B ? __bfloat162float(x[(size_t)b * K + k]) : 0.f;
-  }
-  __syncthreads();
-  const int gpu = UK / gs;  // groups per unit (2 for p4 and i8/gs16, 1 for i8/gs32)
-  if (MINS) {
-    for (int i = threadIdx.x; i < NB * nu * gpu; i += GV_THREADS) {
-      const float* src = xs + (size_t)i * gs;
-      float s = 0.f;
-      for (int j = 0; j < gs; ++j) s += src[j];
-      xsum[i] = s;
-    }
-    __syncthreads();
-  }
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int col = n0 + lane * LANE_COLS;
-  const int nvalid = max(0, min(LANE_COLS, N - col));
-  const bool vec = nvalid == LANE_COLS && (N % LANE_COLS) == 0;
-  const float fzp = (float)zp;
-
-  float acc[NB][LANE_COLS];
-#pragma unroll
-  for (int b = 0; b < NB; ++b)
-#pragma unroll
-    for (int c = 0; c < LANE_COLS; ++c) acc[b][c] = 0.f;
-
-  if (nvalid > 0) {
-    for (int ul = warp; ul < nu; ul += GV_WARPS) {
-      const int u = u0 + ul;
-      const float* xu = xs + ul * UK;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        // half 0/1: p4 -> low/high nibbles of the same 32 packed rows;
-        // i8 -> plane rows 0..15 / 16..31 of the unit
-        const int gl = P4 ? half : (half * 16) / gs;  // group within the unit
-        int g;                                       // global group row
-        if (P4) g = (u >> 2) * 8 + (u & 3) + half * 4;
-        else g = (u * 32 + half * 16) / gs;
-        float s[LANE_COLS];
-        ld_group8<SBF16>(sc, (size_t)g * N + col, vec, nvalid, s);
-        const int r_lo = P4 ? 0 : half * 16;
-        const int r_hi = P4 ? 32 : half * 16 + 16;
-#pragma unroll 8
-        for (int r = r_lo; r < r_hi; ++r) {
-          const size_t prow = P4 ? (size_t)((u >> 2) * 128 + (u & 3) * 32 + r)
-                                 : (size_t)(u * 32 + r);
-          uint32_t w[2];
-          if (vec) {
-            uint2 v = *reinterpret_cast<const uint2*>(qs + prow * N + col);
-            w[0] = v.x;
-            w[1] = v.y;
-          } else {
-            w[0] = w[1] = 0;
-            for (int c = 0; c < nvalid; ++c)
-              w[c >> 2] |= (uint32_t)qs[prow * N + col + c] << (8 * (c & 3));
-          }
-          float xv[NB];
-#pragma unroll
-          for (int b = 0; b < NB; ++b) xv[b] = xu[b * nu * UK + (P4 ? r + half * 32 : r)];
-#pragma unroll
-          for (int c = 0; c < LANE_COLS; ++c) {
-            uint32_t byte = (w[c >> 2] >> (8 * (c & 3))) & 0xFFu;
-            float q;
-            if (P4) q = (float)(half ? (byte >> 4) : (byte & 15u)) - fzp;
-            else q = (float)(int8_t)byte - fzp;
-            const float wv = q * s[c];
-#pragma unroll
-            for (int b = 0; b < NB; ++b) acc[b][c] = fmaf(xv[b], wv, acc[b][c]);
-          }
-        }
-        if (MINS && (P4 || gs == 16 || half == 0)) {
-          float m[LANE_COLS];
-          ld_group8<SBF16>(mn, (size_t)g * N + col, vec, nvalid, m);
-#pragma unroll
-          for (int b = 0; b < NB; ++b) {
-            const float xg = xsum[(b * nu + ul) * gpu + gl];
-#pragma unroll
-            for (int c = 0; c < LANE_COLS; ++c) acc[b][c] = fmaf(-xg, m[c], acc[b][c]);
-          }
-        }
-      }
-    }
-  }
-
-  __syncthreads();  // xs is reused for the cross-warp reduction
-  float* red = xs;  // [warps][NB][256]
-#pragma unroll
-  for (int b = 0; b < NB; ++b)
-#pragma unroll
-    for (int c = 0; c < LANE_COLS; ++c)
-      red[(warp * NB + b) * GV_TILE_N + lane * LANE_COLS + c] = acc[b][c];
-  __syncthreads();
-  for (int i = threadIdx.x; i < NB * GV_TILE_N; i += GV_THREADS) {
-    const int b = i / GV_TILE_N, cc = i % GV_TILE_N, n = n0 + cc;
-    if (b < B && n < N) {
-      float s = 0.f;
-#pragma unroll
-      for (int w = 0; w < GV_WARPS; ++w) s += red[(w * NB + b) * GV_TILE_N + cc];
-      if (atomic_out) atomicAdd(&y[(size_t)b * N + n], s);
-      else y[(size_t)b * N + n] = s;
-    }
-  }
+  gemv_block<NB, P4, SBF16, MINS, GDOT>(Bf16Rows{x, K}, B, qs, sc, mn, y, N, gs, zp, u0,
+                                        min(upc, n_units - u0), blockIdx.x * GV_TILE_N,
+                                        atomic_out != 0, xs, xsum);
 }
 
 // ----------------------------------------------------------------------------
@@ -370,39 +210,28 @@ qmm_gemm(const __nv_bfloat16* __restrict__ x, int B, int K,
       }
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 132;
-  }
-  return n;
-}
-
-template <int NB, bool P4, bool SBF16, bool MINS>
+template <int NB, bool P4, bool SBF16, bool MINS, bool GDOT>
 void launch_gemv_t(dim3 grid, cudaStream_t st, const __nv_bfloat16* x, int B,
                    int K, const uint8_t* qs, const void* sc, const void* mn,
                    float* y, int N, int gs, int zp, int upc, int atomic_out) {
-  qmm_gemv<NB, P4, SBF16, MINS><<<grid, GV_THREADS, 0, st>>>(
+  qmm_gemv<NB, P4, SBF16, MINS, GDOT><<<grid, GV_THREADS, 0, st>>>(
       x, B, K, qs, sc, mn, y, N, gs, zp, upc, atomic_out);
 }
 
-template <bool P4, bool SBF16, bool MINS>
+template <bool P4, bool SBF16, bool MINS, bool GDOT>
 void launch_gemv_nb(int nb, dim3 grid, cudaStream_t st, const __nv_bfloat16* x,
                     int B, int K, const uint8_t* qs, const void* sc,
                     const void* mn, float* y, int N, int gs, int zp, int upc,
                     int atomic_out) {
   if (nb == 1)
-    launch_gemv_t<1, P4, SBF16, MINS>(grid, st, x, B, K, qs, sc, mn, y, N, gs, zp, upc, atomic_out);
+    launch_gemv_t<1, P4, SBF16, MINS, GDOT>(grid, st, x, B, K, qs, sc, mn, y, N, gs, zp, upc, atomic_out);
   else if (nb == 2)
-    launch_gemv_t<2, P4, SBF16, MINS>(grid, st, x, B, K, qs, sc, mn, y, N, gs, zp, upc, atomic_out);
+    launch_gemv_t<2, P4, SBF16, MINS, GDOT>(grid, st, x, B, K, qs, sc, mn, y, N, gs, zp, upc, atomic_out);
   else
-    launch_gemv_t<4, P4, SBF16, MINS>(grid, st, x, B, K, qs, sc, mn, y, N, gs, zp, upc, atomic_out);
+    launch_gemv_t<4, P4, SBF16, MINS, GDOT>(grid, st, x, B, K, qs, sc, mn, y, N, gs, zp, upc, atomic_out);
 }
 
-template <bool P4, bool SBF16, bool MINS>
+template <bool P4, bool SBF16, bool MINS, bool GDOT>
 void run(cudaStream_t st, const __nv_bfloat16* x, int B, int K,
          const uint8_t* qs, const void* sc, const void* mn, float* y, int N,
          int gs, int zp) {
@@ -411,25 +240,17 @@ void run(cudaStream_t st, const __nv_bfloat16* x, int B, int K,
     qmm_gemm<P4, SBF16, MINS><<<grid, GM_THREADS, 0, st>>>(x, B, K, qs, sc, mn, y, N, gs, zp);
     return;
   }
-  const int UK = P4 ? 64 : 32;
-  const int n_units = K / UK;
-  const int ntiles = (N + GV_TILE_N - 1) / GV_TILE_N;
-  // split K so that about two CTAs of 8 warps land on every SM, with at
-  // least one unit per warp and the staged x within shared memory
-  int ksplit = (2 * sm_count() + ntiles - 1) / ntiles;
-  ksplit = max(1, min(ksplit, n_units / GV_WARPS));
-  int upc = (n_units + ksplit - 1) / ksplit;
-  upc = min(upc, GV_STAGE / (GV_MAX_NB * UK));
-  ksplit = (n_units + upc - 1) / upc;
-  const int atomic_out = ksplit > 1;
+  // about two CTAs of 8 warps on every SM
+  const GemvSplit sp = gemv_split(K, N, P4, 2 * sm_count());
+  const int atomic_out = sp.ksplit > 1;
   if (atomic_out) cudaMemsetAsync(y, 0, sizeof(float) * (size_t)B * N, st);
-  dim3 grid(ntiles, ksplit);
+  dim3 grid(sp.ntiles, sp.ksplit);
   for (int b0 = 0; b0 < B; b0 += GV_MAX_NB) {
     const int nb = min(GV_MAX_NB, B - b0);
     const int nbt = nb == 1 ? 1 : (nb == 2 ? 2 : 4);
-    launch_gemv_nb<P4, SBF16, MINS>(nbt, grid, st, x + (size_t)b0 * K, nb, K,
-                                    qs, sc, mn, y + (size_t)b0 * N, N, gs, zp,
-                                    upc, atomic_out);
+    launch_gemv_nb<P4, SBF16, MINS, GDOT>(nbt, grid, st, x + (size_t)b0 * K, nb, K,
+                                          qs, sc, mn, y + (size_t)b0 * N, N, gs, zp,
+                                          sp.upc, atomic_out);
   }
 }
 
@@ -448,7 +269,7 @@ extern "C" int qmm_launch(const void* x, const void* qs, const void* scales,
   const uint8_t* q = reinterpret_cast<const uint8_t*>(qs);
   float* yf = reinterpret_cast<float*>(y);
   const bool has_m = mins != nullptr;
-#define QMM_RUN(P, S, M) run<P, S, M>(st, xb, B, K, q, scales, mins, yf, N, gs, zp)
+#define QMM_RUN(P, S, M) run<P, S, M, false>(st, xb, B, K, q, scales, mins, yf, N, gs, zp)
   if (p4) {
     if (scales_bf16) { if (has_m) QMM_RUN(true, true, true); else QMM_RUN(true, true, false); }
     else { if (has_m) QMM_RUN(true, false, true); else QMM_RUN(true, false, false); }
@@ -457,5 +278,22 @@ extern "C" int qmm_launch(const void* x, const void* qs, const void* scales,
     else { if (has_m) QMM_RUN(false, false, true); else QMM_RUN(false, false, false); }
   }
 #undef QMM_RUN
+  return (int)cudaGetLastError();
+}
+
+// K5: the group-factored decode GEMV on p4 planes (gs 32). Requirements
+// (checked by the Python wrapper): B <= 16, K % 256 == 0.
+extern "C" int qmm_gdot_launch(const void* x, const void* qs, const void* scales,
+                               const void* mins, void* y, int B, int K, int N,
+                               int zp, int scales_bf16, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(x);
+  const uint8_t* q = reinterpret_cast<const uint8_t*>(qs);
+  float* yf = reinterpret_cast<float*>(y);
+  const bool has_m = mins != nullptr;
+#define GDOT_RUN(S, M) run<true, S, M, true>(st, xb, B, K, q, scales, mins, yf, N, 32, zp)
+  if (scales_bf16) { if (has_m) GDOT_RUN(true, true); else GDOT_RUN(true, false); }
+  else { if (has_m) GDOT_RUN(false, true); else GDOT_RUN(false, false); }
+#undef GDOT_RUN
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,284 @@
+// The decode GEMV's inner loop, shared by K1/K2/K5 (qmm.cu) and by every
+// phase of the chained kernel K6 (qmm_chain.cu), so that a chain phase
+// computes exactly what the unfused launch computes.
+//
+//   y[b,n] += sum_{k in the block's K range} x[b,k] * (q[k,n] - zp) * s[k/gs,n]
+//             - sum_g xsum[b,g] * m[g,n]
+//
+// One call is the work of one CTA: 256 columns of the output (32 lanes x
+// 8 columns per warp, each lane streaming one 8-byte word of a plane row)
+// over a range of K "units" (32 plane rows each), for up to 4 rows of x.
+// The activations of the K range are staged once in shared memory through
+// a loader functor xl(b, k), which is where K1 reads bf16 rows and K6
+// applies its phase boundary (RMSNorm, residual add, SwiGLU). The 8 warps
+// reduce in shared memory and the sums land in y, by atomics when K is
+// split over CTAs.
+//
+// GDOT (K5, p4 only) is the group-factored form of the same sum: a lane
+// keeps a per-group partial of x . q on the raw nibbles (no zero point, no
+// scale), multiplies it by s[g] once per group, and the zero-point and
+// mins terms become rank-G corrections from the group sums of x, rounded
+// to bf16 as the TPU kernel rounds them (llm_tpu/ops/pallas_qmm.py
+// _gdot_kernel). It saves one multiply per weight element; the planes it
+// reads, and so its bytes bound, are K1's.
+//
+// p4 layout: within each 256-row pack tile of K, packed row t holds k=t in
+// its low nibble and k=t+128 in its high nibble.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int GV_WARPS = 8;
+constexpr int GV_THREADS = GV_WARPS * 32;
+constexpr int LANE_COLS = 8;                // columns per lane (one 8-byte word)
+constexpr int GV_TILE_N = 32 * LANE_COLS;   // 256 columns per CTA
+constexpr int GV_STAGE = 8192;              // floats of staged x per CTA
+constexpr int GV_MAX_NB = 4;                // rows of x per call
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+template <bool BF16>
+__device__ __forceinline__ float ld_group(const void* p, size_t i) {
+  if (BF16) return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i]);
+  return reinterpret_cast<const float*>(p)[i];
+}
+
+// 8 consecutive group values starting at element i; vec requires i % 8 == 0
+template <bool BF16>
+__device__ __forceinline__ void ld_group8(const void* p, size_t i, bool vec,
+                                          int nvalid, float out[8]) {
+  if (vec) {
+    if (BF16) {
+      uint4 u = *reinterpret_cast<const uint4*>(
+          reinterpret_cast<const __nv_bfloat16*>(p) + i);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float2 f = __bfloat1622float2(h[j]);
+        out[2 * j] = f.x;
+        out[2 * j + 1] = f.y;
+      }
+    } else {
+      const float4* f = reinterpret_cast<const float4*>(
+          reinterpret_cast<const float*>(p) + i);
+      float4 a = f[0], b = f[1];
+      out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+      out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) out[j] = j < nvalid ? ld_group<BF16>(p, i + j) : 0.f;
+  }
+}
+
+// A "unit" is the work of one warp step: 32 plane rows. For p4 that is 32
+// packed rows of one pack tile = 64 values of k (32 low, 32 high nibbles);
+// for i8 it is 32 consecutive k.
+template <bool P4>
+__device__ __forceinline__ int unit_k(int u, int r) {
+  if (P4) {
+    int tile = u >> 2, j = u & 3;
+    return tile * 256 + j * 32 + (r < 32 ? r : 128 + (r - 32));
+  }
+  return u * 32 + r;
+}
+
+// K1's loader: bf16 rows of x with leading dimension ld
+struct Bf16Rows {
+  const __nv_bfloat16* x;
+  int ld;
+  __device__ __forceinline__ float operator()(int b, int k) const {
+    return __bfloat162float(x[(size_t)b * ld + k]);
+  }
+};
+
+// One CTA's share of y: columns [n0, n0 + 256) over units [u0, u0 + nu),
+// rows 0..B-1 (B <= NB) of xl. xs holds GV_STAGE floats and xsum
+// GV_STAGE / 16, both in shared memory; every thread of the CTA calls this.
+template <int NB, bool P4, bool SBF16, bool MINS, bool GDOT, class XL>
+__device__ __forceinline__ void gemv_block(
+    const XL& xl, int B, const uint8_t* __restrict__ qs, const void* __restrict__ sc,
+    const void* __restrict__ mn, float* __restrict__ y, int N, int gs, int zp,
+    int u0, int nu, int n0, bool atomic_out, float* xs, float* xsum) {
+  constexpr int UK = P4 ? 64 : 32;  // k values per unit
+  static_assert(!GDOT || P4, "the group-factored path reads p4 planes");
+
+  for (int i = threadIdx.x; i < NB * nu * UK; i += GV_THREADS) {
+    int b = i / (nu * UK), rem = i % (nu * UK);
+    int k = unit_k<P4>(u0 + rem / UK, rem % UK);
+    xs[i] = b < B ? xl(b, k) : 0.f;
+  }
+  __syncthreads();
+  const int gpu = UK / gs;  // groups per unit (2 for p4 and i8/gs16, 1 for i8/gs32)
+  const bool zp_corr = GDOT && zp != 0;
+  if (MINS || zp_corr) {
+    for (int i = threadIdx.x; i < NB * nu * gpu; i += GV_THREADS) {
+      const float* src = xs + (size_t)i * gs;
+      float s = 0.f;
+      for (int j = 0; j < gs; ++j) s += src[j];
+      xsum[i] = s;
+    }
+    __syncthreads();
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int col = n0 + lane * LANE_COLS;
+  const int nvalid = max(0, min(LANE_COLS, N - col));
+  const bool vec = nvalid == LANE_COLS && (N % LANE_COLS) == 0;
+  const float fzp = (float)zp;
+
+  float acc[NB][LANE_COLS];
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int c = 0; c < LANE_COLS; ++c) acc[b][c] = 0.f;
+
+  if (nvalid > 0) {
+    for (int ul = warp; ul < nu; ul += GV_WARPS) {
+      const int u = u0 + ul;
+      const float* xu = xs + ul * UK;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        // half 0/1: p4 -> low/high nibbles of the same 32 packed rows;
+        // i8 -> plane rows 0..15 / 16..31 of the unit
+        const int gl = P4 ? half : (half * 16) / gs;  // group within the unit
+        int g;                                       // global group row
+        if (P4) g = (u >> 2) * 8 + (u & 3) + half * 4;
+        else g = (u * 32 + half * 16) / gs;
+        float s[LANE_COLS];
+        ld_group8<SBF16>(sc, (size_t)g * N + col, vec, nvalid, s);
+        float part[GDOT ? NB : 1][LANE_COLS];  // K5: x . q of this group
+        if (GDOT) {
+#pragma unroll
+          for (int b = 0; b < NB; ++b)
+#pragma unroll
+            for (int c = 0; c < LANE_COLS; ++c) part[b][c] = 0.f;
+        }
+        const int r_lo = P4 ? 0 : half * 16;
+        const int r_hi = P4 ? 32 : half * 16 + 16;
+#pragma unroll 8
+        for (int r = r_lo; r < r_hi; ++r) {
+          const size_t prow = P4 ? (size_t)((u >> 2) * 128 + (u & 3) * 32 + r)
+                                 : (size_t)(u * 32 + r);
+          uint32_t w[2];
+          if (vec) {
+            uint2 v = *reinterpret_cast<const uint2*>(qs + prow * N + col);
+            w[0] = v.x;
+            w[1] = v.y;
+          } else {
+            w[0] = w[1] = 0;
+            for (int c = 0; c < nvalid; ++c)
+              w[c >> 2] |= (uint32_t)qs[prow * N + col + c] << (8 * (c & 3));
+          }
+          float xv[NB];
+#pragma unroll
+          for (int b = 0; b < NB; ++b) xv[b] = xu[b * nu * UK + (P4 ? r + half * 32 : r)];
+#pragma unroll
+          for (int c = 0; c < LANE_COLS; ++c) {
+            uint32_t byte = (w[c >> 2] >> (8 * (c & 3))) & 0xFFu;
+            if (GDOT) {
+              const float q = (float)(half ? (byte >> 4) : (byte & 15u));
+#pragma unroll
+              for (int b = 0; b < NB; ++b) part[b][c] = fmaf(xv[b], q, part[b][c]);
+            } else {
+              float q;
+              if (P4) q = (float)(half ? (byte >> 4) : (byte & 15u)) - fzp;
+              else q = (float)(int8_t)byte - fzp;
+              const float wv = q * s[c];
+#pragma unroll
+              for (int b = 0; b < NB; ++b) acc[b][c] = fmaf(xv[b], wv, acc[b][c]);
+            }
+          }
+        }
+        if (GDOT) {
+#pragma unroll
+          for (int b = 0; b < NB; ++b)
+#pragma unroll
+            for (int c = 0; c < LANE_COLS; ++c) acc[b][c] = fmaf(part[b][c], s[c], acc[b][c]);
+        }
+        if ((MINS || zp_corr) && (P4 || gs == 16 || half == 0)) {
+          float m[LANE_COLS];
+          if (MINS) ld_group8<SBF16>(mn, (size_t)g * N + col, vec, nvalid, m);
+#pragma unroll
+          for (int c = 0; c < LANE_COLS; ++c) {
+            // K5 rounds the corrections' operands to bf16, as the TPU's
+            // rank-G dots do
+            if (GDOT && MINS) m[c] = round_bf16(m[c]);
+            if (GDOT) s[c] = round_bf16(s[c]);
+          }
+#pragma unroll
+          for (int b = 0; b < NB; ++b) {
+            float xg = xsum[(b * nu + ul) * gpu + gl];
+            if (GDOT) xg = round_bf16(xg);
+#pragma unroll
+            for (int c = 0; c < LANE_COLS; ++c) {
+              float v = acc[b][c];
+              if (MINS) v = fmaf(-xg, m[c], v);
+              if (zp_corr) v = fmaf(-fzp * xg, s[c], v);
+              acc[b][c] = v;
+            }
+          }
+        }
+      }
+    }
+  }
+
+  __syncthreads();  // xs is reused for the cross-warp reduction
+  float* red = xs;  // [warps][NB][256]
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int c = 0; c < LANE_COLS; ++c)
+      red[(warp * NB + b) * GV_TILE_N + lane * LANE_COLS + c] = acc[b][c];
+  __syncthreads();
+  for (int i = threadIdx.x; i < NB * GV_TILE_N; i += GV_THREADS) {
+    const int b = i / GV_TILE_N, cc = i % GV_TILE_N, n = n0 + cc;
+    if (b < B && n < N) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < GV_WARPS; ++w) s += red[(w * NB + b) * GV_TILE_N + cc];
+      if (atomic_out) atomicAdd(&y[(size_t)b * N + n], s);
+      else y[(size_t)b * N + n] = s;
+    }
+  }
+  __syncthreads();  // xs and xsum are free for the CTA's next call
+}
+
+// split of K over CTAs for one GEMV: about `target` CTAs in all, at least
+// one unit per warp, the staged x within shared memory
+struct GemvSplit {
+  int ntiles, ksplit, upc;
+};
+
+inline GemvSplit gemv_split(int K, int N, bool p4, int target) {
+  const int UK = p4 ? 64 : 32;
+  const int n_units = K / UK;
+  GemvSplit sp;
+  sp.ntiles = (N + GV_TILE_N - 1) / GV_TILE_N;
+  int ksplit = (target + sp.ntiles - 1) / sp.ntiles;
+  ksplit = max(1, min(ksplit, n_units / GV_WARPS));
+  int upc = (n_units + ksplit - 1) / ksplit;
+  sp.upc = min(upc, GV_STAGE / (GV_MAX_NB * UK));
+  sp.ksplit = (n_units + sp.upc - 1) / sp.upc;
+  return sp;
+}
+
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 132;
+  }
+  return n;
+}
+
+}  // namespace

@@ -8,6 +8,14 @@ llm_tpu/models/transformer.py::forward on its llama path:
   gate+up -> SwiGLU -> down -> residual; final norm -> lm_head on the
   out_idx rows.
 
+With chain=True (the reference's LLM_TPU_CHAIN=1) a step of T <= 8 tokens
+runs the chained kernel K6 (ops/cuda_qmm_chain.py) where its gates admit
+the layer: attn_norm -> fused QKV as one norm_mm, the whole tail o_proj ->
+residual -> ffn_norm -> gate+up -> SwiGLU -> down -> residual as one
+layer_tail, and the final norm -> lm_head on the out_idx rows as one
+norm_mm. With gdot=True (LLM_TPU_GDOT=force) every quantized matmul that
+stays unfused routes p4 planes at B <= 16 through K5.
+
 A q8_0 cache with group scales (head_dim not a multiple of 128) has no
 flash kernel, as in the reference: on the CPU it is dequantized (kv_read)
 and goes through the unfused attention; on the card it raises.
@@ -25,6 +33,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import attention, build_attn_bias
 from ..ops.cuda_attn import expand_tables, flash_decode, flash_prefill, rope_companion
+from ..ops.cuda_qmm_chain import head_eligible, is_kmajor_qt, layer_tail, norm_mm, tail_eligible
 from ..ops.norms import rms_norm
 from ..ops.qmatmul import qembed, qmm
 from ..ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NORM, apply_rope, rope_angles
@@ -109,16 +118,21 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
             tokens: torch.Tensor, tok_pos: torch.Tensor, tok_seq: torch.Tensor,
             write_idx: torch.Tensor, cell_pos: torch.Tensor,
             cell_seq_bits: torch.Tensor, out_idx: torch.Tensor,
-            dtype=torch.bfloat16) -> tuple[torch.Tensor, torch.Tensor]:
+            dtype=torch.bfloat16, chain: bool = False,
+            gdot: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """One decode/prefill step over T tokens. cell_seq_bits: [S, W] int64
     bit-set words. Updates kv_k/kv_v in place. Returns (logits [O, vocab]
-    f32, hidden [O, n_embd] f32) for the out_idx rows."""
+    f32, hidden [O, n_embd] f32) for the out_idx rows. chain / gdot: the
+    chained kernel and the group-factored matmul (module docstring)."""
     check_supported(params, cfg)
     rope = cfg.rope
     ff = params.get("rope_freqs")
     H, Hkv, Dk, Dv = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim_v
     T = tokens.shape[0]
     scale = cfg.attn_scale if cfg.attn_scale is not None else Dk ** -0.5
+    # the reference's model-wide gates (rms norm, SwiGLU, no residual scale,
+    # sequential residual) hold for everything check_supported admits
+    use_chain = chain and T <= 8
 
     x = qembed(params["tok_embd"], tokens, dtype=dtype)
     cos_t, sin_t = rope_angles(tok_pos, rope, ff)
@@ -134,12 +148,18 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
                and not x.is_cuda)
 
     for il, layer in enumerate(params["layers"]):
-        h = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
-        if "attn_qkv_fused" in layer:
-            qkv = qmm(h, layer["attn_qkv_fused"], out_dtype=dtype)
+        qkv = None
+        if use_chain and head_eligible(layer):
+            qkv = norm_mm(x, layer["attn_norm"], layer["attn_qkv_fused"], eps=cfg.rms_eps,
+                          compute_dtype=dtype, out_dtype=dtype)
+        if qkv is None:
+            h = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
+            if "attn_qkv_fused" in layer:
+                qkv = qmm(h, layer["attn_qkv_fused"], out_dtype=dtype, gdot=gdot)
+        if qkv is not None:
             q, k, v = torch.split(qkv, (H * Dk, Hkv * Dk, Hkv * Dv), dim=-1)
         else:
-            q, k, v = (qmm(h, layer[key], out_dtype=dtype)
+            q, k, v = (qmm(h, layer[key], out_dtype=dtype, gdot=gdot)
                        for key in ("attn_q", "attn_k", "attn_v"))
         q = apply_rope(q.reshape(T, H, Dk), cos_t, sin_t, rope.mode, rope.n_dims)
         kv_write(kv_k[il], write_idx, k.reshape(T, Hkv, Dk), keep)  # K enters unroped
@@ -150,19 +170,35 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
         else:
             att = fattn(q.contiguous(), rope_companion(q, rope.mode, rope.n_dims).contiguous(),
                         kv_k[il], kv_v[il], cos_cf, sin_cf, bias, scale)
-        x = x + qmm(att.reshape(T, H * Dv), layer["attn_output"], out_dtype=dtype)
+        att = att.reshape(T, H * Dv)
+        if use_chain and tail_eligible(layer):
+            out = layer_tail(att, x, layer["ffn_norm"], layer["attn_output"],
+                             layer["ffn_gateup_fused"], layer["ffn_down"], eps=cfg.rms_eps,
+                             act=cfg.act, compute_dtype=dtype)
+            if out is not None:
+                x = out
+                continue
+        x = x + qmm(att, layer["attn_output"], out_dtype=dtype, gdot=gdot)
 
         h2 = rms_norm(x, layer["ffn_norm"], cfg.rms_eps)
         if "ffn_gateup_fused" in layer:
-            g, up = torch.split(qmm(h2, layer["ffn_gateup_fused"]), cfg.n_ff, dim=-1)
+            g, up = torch.split(qmm(h2, layer["ffn_gateup_fused"], gdot=gdot), cfg.n_ff, dim=-1)
             cur = (F.silu(g) * up).to(dtype)
         else:
-            up = qmm(h2, layer["ffn_up"], out_dtype=dtype)
-            g = F.silu(qmm(h2, layer["ffn_gate"]))
+            up = qmm(h2, layer["ffn_up"], out_dtype=dtype, gdot=gdot)
+            g = F.silu(qmm(h2, layer["ffn_gate"], gdot=gdot))
             cur = (g * up.float()).to(dtype)
-        x = x + qmm(cur, layer["ffn_down"], out_dtype=dtype)
+        x = x + qmm(cur, layer["ffn_down"], out_dtype=dtype, gdot=gdot)
 
     out_w = params.get("output")
     out_w = params["tok_embd"] if out_w is None else out_w
-    hs = rms_norm(x, params.get("output_norm"), cfg.rms_eps)[out_idx]
-    return qmm(hs, out_w), hs.float()
+    norm_w = params.get("output_norm")
+    if use_chain and norm_w is not None and is_kmajor_qt(out_w):
+        # fused final norm + lm_head: norm only the output rows
+        hs_pre = x[out_idx]
+        logits = norm_mm(hs_pre, norm_w, out_w, eps=cfg.rms_eps, compute_dtype=dtype,
+                         out_dtype=torch.float32)
+        if logits is not None:
+            return logits, rms_norm(hs_pre, norm_w, cfg.rms_eps).float()
+    hs = rms_norm(x, norm_w, cfg.rms_eps)[out_idx]
+    return qmm(hs, out_w, gdot=gdot), hs.float()

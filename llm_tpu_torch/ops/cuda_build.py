@@ -4,7 +4,8 @@ Each source in llm_tpu_torch/csrc is compiled by nvcc for sm_90a into a
 shared library with a plain C interface, loaded with ctypes. The build
 happens at first use, from the sources in the checkout only, into
 llm_tpu_torch/_build (listed in .gitignore); a library is rebuilt when its
-source is newer. `build_all` starts one nvcc per source at once.
+source, or any shared header (csrc/*.cuh), is newer. `build_all` starts
+one nvcc per source at once.
 
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -22,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("qmm", "flash_attn")
+SOURCES = ("qmm", "flash_attn", "qmm_chain")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -43,8 +44,13 @@ def _paths(name: str) -> tuple[Path, Path]:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or a shared header
+    (every source may include every header)."""
     src, lib = _paths(name)
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in [src, *CSRC.glob("*.cuh")])
+    return lib.stat().st_mtime < newest
 
 
 def _command(name: str, out: Path) -> list[str]:

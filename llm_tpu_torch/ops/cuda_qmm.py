@@ -1,14 +1,18 @@
-"""K1/K2: the fused dequantize x matmul. Counterpart of
-llm_tpu/ops/pallas_qmm.py::qmm_pallas (K1: p4 planes, K2: i8 planes).
+"""K1/K2: the fused dequantize x matmul, and K5, its group-factored decode
+form. Counterpart of llm_tpu/ops/pallas_qmm.py::qmm_pallas (K1: p4 planes,
+K2: i8 planes; K5: qmm_pallas(gdot=True) -> _gdot_kernel).
 
     y[b,n] = sum_k x[b,k] * (q[k,n] - zp) * s[k//gs,n] - sum_g xsum[b,g] * m[g,n]
 
 x is rounded to the compute dtype (bf16 on the card), weights are
 dequantized in f32 as (q - zp) * s, and the mins correction uses the f32
-group sums of the rounded x. `qmm_plain` is this function step by step in
-PyTorch; `qmm_cuda` launches csrc/qmm.cu. `quant_matmul` dispatches on the
-device of x: CPU tensors take the plain version, CUDA tensors the kernel
-(which raises rather than fall back).
+group sums of the rounded x. K5 computes the same sum as the TPU's gdot
+kernel does: per 32-group the dot of x with the raw nibbles, times s[g] in
+f32, then the mins and zero-point terms from the group sums of x, their
+operands rounded to the compute dtype. `qmm_plain` / `qmm_gdot_plain` are
+these functions step by step in PyTorch; `qmm_cuda` launches csrc/qmm.cu.
+`quant_matmul` dispatches on the device of x: CPU tensors take the plain
+version, CUDA tensors the kernel (which raises rather than fall back).
 """
 
 from __future__ import annotations
@@ -22,7 +26,9 @@ from ..quant.qtensor import QTensor
 from . import cuda_build
 
 # launches of each kernel, counted where the wrapper launches it
-LAUNCHES = {"K1": 0, "K2": 0}
+LAUNCHES = {"K1": 0, "K2": 0, "K5": 0}
+# rows up to which the reference takes the group-factored path
+GDOT_MAX_B = 16
 
 
 def reset_launches() -> None:
@@ -57,31 +63,60 @@ def qmm_plain(x: torch.Tensor, qt: QTensor, cdtype=torch.bfloat16) -> torch.Tens
     return y
 
 
+def gdot_eligible(qt: QTensor, B: int) -> bool:
+    """The reference's gate for the group-factored path (llm_tpu/ops/
+    qmatmul.py::qmm under LLM_TPU_GDOT=force): p4 planes, at most
+    GDOT_MAX_B rows, K a multiple of the pack tile. Shapes only, so both
+    devices route alike."""
+    return (qt.kmajor and qt.layout == "p4" and B <= GDOT_MAX_B
+            and qt.in_features % 256 == 0)
+
+
+def qmm_gdot_plain(x: torch.Tensor, qt: QTensor, cdtype=torch.bfloat16) -> torch.Tensor:
+    """K5's function in plain PyTorch: x [B, K] -> y [B, N] f32."""
+    assert qt.kmajor and qt.layout == "p4"
+    gs = qt.group_size
+    xr = x.to(cdtype).float()
+    q = (unpack_planes(qt) + qt.zp).float()  # the raw nibbles 0..15
+    K, N = q.shape
+    B, G = xr.shape[0], K // gs
+    xg3 = xr.reshape(B, G, gs)
+    with full_f32():
+        part = torch.bmm(xg3.transpose(0, 1), q.reshape(G, gs, N))  # [G, B, N]
+        y = (part * qt.scales.float()[:, None, :]).sum(0)
+        if qt.mins is not None or qt.zp:
+            xg = xg3.sum(-1).to(cdtype).float()
+            if qt.mins is not None:
+                y = y - xg @ qt.mins.to(cdtype).float()
+            if qt.zp:
+                y = y - qt.zp * (xg @ qt.scales.to(cdtype).float())
+    return y
+
+
 def _lib():
     lib = cuda_build.load("qmm")
     fn = lib.qmm_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        fn = lib.qmm_gdot_launch
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
-def qmm_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """Launch K1 (p4) or K2 (i8). x bf16 [B, K] on the card."""
-    B, K = x.shape
-    N = qt.out_features
+def check_planes(qt: QTensor, B: int, K: int) -> None:
+    """Raise unless the decode GEMV / prefill GEMM of csrc/qmm.cu takes
+    these planes for x [B, K] (the chained kernel's phases take the same)."""
     p4 = qt.layout == "p4"
-    if not (x.is_cuda and qt.qs.is_cuda and qt.scales.is_cuda):
+    if not (qt.qs.is_cuda and qt.scales.is_cuda):
         raise ValueError("qmm_cuda needs CUDA tensors")
-    if x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError("qmm_cuda: x must be contiguous bf16")
     if not qt.kmajor or qt.in_features != K:
         raise ValueError("qmm_cuda: weight must be K-major with K matching x")
     sdt = qt.scales.dtype
     if sdt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"qmm_cuda: scales dtype {sdt}")
-    tensors = [x, qt.qs, qt.scales] + ([qt.mins] if qt.mins is not None else [])
-    for t in tensors:
+    for t in [qt.qs, qt.scales] + ([qt.mins] if qt.mins is not None else []):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("qmm_cuda: planes must be contiguous and 16-byte aligned")
     if qt.mins is not None and qt.mins.dtype != sdt:
@@ -94,24 +129,47 @@ def qmm_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     if not ok or (B > 16 and K % 64):
         raise ValueError(f"qmm_cuda: unsupported planes layout={qt.layout} "
                          f"gs={qt.group_size} K={K} B={B}")
+
+
+def qmm_cuda(x: torch.Tensor, qt: QTensor, gdot: bool = False) -> torch.Tensor:
+    """Launch K1 (p4) or K2 (i8), or K5 with gdot. x bf16 [B, K] on the card."""
+    B, K = x.shape
+    if not x.is_cuda or x.dtype != torch.bfloat16 or not x.is_contiguous() \
+            or x.data_ptr() % 16:
+        raise ValueError("qmm_cuda: x must be a contiguous, 16-byte aligned bf16 CUDA tensor")
+    check_planes(qt, B, K)
+    N = qt.out_features
+    p4 = qt.layout == "p4"
+    if gdot and not gdot_eligible(qt, B):
+        raise ValueError(f"qmm_cuda: K5 takes p4 planes at B <= {GDOT_MAX_B}, "
+                         f"K % 256 == 0 (layout={qt.layout} B={B} K={K})")
     y = torch.empty((B, N), dtype=torch.float32, device=x.device)
     if B == 0:
         return y
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _lib().qmm_launch(
-        x.data_ptr(), qt.qs.data_ptr(), qt.scales.data_ptr(),
-        qt.mins.data_ptr() if qt.mins is not None else None, y.data_ptr(),
-        B, K, N, qt.group_size, qt.zp, int(p4), int(sdt == torch.bfloat16), stream)
+    mins = qt.mins.data_ptr() if qt.mins is not None else None
+    sbf16 = int(qt.scales.dtype == torch.bfloat16)
+    if gdot:
+        rc = _lib().qmm_gdot_launch(x.data_ptr(), qt.qs.data_ptr(), qt.scales.data_ptr(),
+                                    mins, y.data_ptr(), B, K, N, qt.zp, sbf16, stream)
+        cuda_build.check(rc, "qmm_gdot_launch")
+        LAUNCHES["K5"] += 1
+        return y
+    rc = _lib().qmm_launch(x.data_ptr(), qt.qs.data_ptr(), qt.scales.data_ptr(), mins,
+                           y.data_ptr(), B, K, N, qt.group_size, qt.zp, int(p4), sbf16,
+                           stream)
     cuda_build.check(rc, "qmm_launch")
     LAUNCHES["K1" if p4 else "K2"] += 1
     return y
 
 
-def quant_matmul(x: torch.Tensor, qt: QTensor, cdtype=torch.bfloat16) -> torch.Tensor:
+def quant_matmul(x: torch.Tensor, qt: QTensor, cdtype=torch.bfloat16,
+                 gdot: bool = False) -> torch.Tensor:
     """x [B, K] @ W -> [B, N] f32, by device: the kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    the plain version for CPU tensors. gdot: K5 (the caller has checked
+    gdot_eligible) in place of K1."""
     if x.is_cuda:
         if cdtype != torch.bfloat16:
             raise ValueError("the CUDA qmm kernels compute in bf16")
-        return qmm_cuda(x.to(torch.bfloat16).contiguous(), qt)
-    return qmm_plain(x, qt, cdtype)
+        return qmm_cuda(x.to(torch.bfloat16).contiguous(), qt, gdot)
+    return (qmm_gdot_plain if gdot else qmm_plain)(x, qt, cdtype)

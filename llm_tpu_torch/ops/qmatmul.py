@@ -2,7 +2,8 @@
 llm_tpu/ops/qmatmul.py::qmm / qembed.
 
 qmm sends K-major QTensors through K1/K2 (ops/cuda_qmm.py), which pick the
-kernel or its plain version by device. Dense weights ([N, K], as GGUF
+kernel or its plain version by device; with gdot=True (the reference's
+LLM_TPU_GDOT=force) the shapes its gate admits go to K5 instead. Dense weights ([N, K], as GGUF
 stores F32/F16 tensors) are a plain matmul. qembed is a row gather plus
 dequantization, plain PyTorch on every device.
 """
@@ -12,19 +13,23 @@ from __future__ import annotations
 import torch
 
 from ..quant.qtensor import QTensor
-from .cuda_qmm import quant_matmul
+from .cuda_qmm import gdot_eligible, quant_matmul
 
 # compute dtype of the quantized matmul unless the caller names one
 DEFAULT_DTYPE = torch.bfloat16
 
 
 def qmm(x: torch.Tensor, w: "QTensor | torch.Tensor", dtype=None,
-        out_dtype=None) -> torch.Tensor:
-    """y[..., n] = sum_k x[..., k] * W[k, n], accumulated in f32."""
+        out_dtype=None, gdot: bool = False) -> torch.Tensor:
+    """y[..., n] = sum_k x[..., k] * W[k, n], accumulated in f32. gdot:
+    p4 planes at B <= 16 rows with K % 256 == 0 take the group-factored
+    K5; every other shape K1/K2, as the reference routes them."""
     dtype = dtype or DEFAULT_DTYPE
     lead, k = x.shape[:-1], x.shape[-1]
     if isinstance(w, QTensor):
-        y = quant_matmul(x.reshape(-1, k), w, dtype).reshape(*lead, -1)
+        x2 = x.reshape(-1, k)
+        use_gdot = gdot and gdot_eligible(w, x2.shape[0])
+        y = quant_matmul(x2, w, dtype, use_gdot).reshape(*lead, -1)
     else:
         xw = x.to(w.dtype) if w.dtype != torch.float32 else x
         y = xw.float() @ w.float().T

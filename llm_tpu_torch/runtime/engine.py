@@ -48,12 +48,16 @@ def params_to(params, device):
 
 class Context:
     def __init__(self, reader=None, n_cells: int = 4096, dtype=torch.bfloat16,
-                 device=None, params_cfg=None, kv_dtype=None):
+                 device=None, params_cfg=None, kv_dtype=None, chain: bool = False,
+                 gdot: bool = False):
         """Load from a GGUFReader, or take (params, cfg) as made by
         models/synthetic.py or convert_params.py. device None = the card.
         kv_dtype: the cache type, None for `dtype`, a torch dtype, or
         "q8_0" for int8 rows with bf16 scales (llama.cpp's
-        --cache-type-k/v q8_0)."""
+        --cache-type-k/v q8_0). chain: decode steps (T <= 8) run the
+        chained kernel K6 where its gates admit a layer (the reference's
+        LLM_TPU_CHAIN=1); gdot: unfused p4 matmuls at B <= 16 run K5
+        (LLM_TPU_GDOT=force). Both are off by default, as in the reference."""
         self.device = resolve_device(device)
         if params_cfg is not None:
             params, self.cfg = params_cfg
@@ -63,6 +67,7 @@ class Context:
                                                 device=self.device)
         check_supported(self.params, self.cfg)
         self.dtype = dtype
+        self.chain, self.gdot = chain, gdot
         self.kv_dtype = kv_dtype if kv_dtype is not None else dtype
         self.n_cells = n_cells
         self.cells = CellTable(n_cells)
@@ -77,7 +82,7 @@ class Context:
     def _step(self, tokens, pos, seq, widx, cpos, cbits, oidx):
         logits, _ = forward(self.params, self.cfg, self.kv.k, self.kv.v,
                             tokens, pos, seq, widx, cpos, cbits, oidx,
-                            dtype=self.dtype)
+                            dtype=self.dtype, chain=self.chain, gdot=self.gdot)
         return logits
 
     def decode(self, batch: Batch) -> int:

@@ -1,6 +1,7 @@
 """The CUDA kernels (K1/K2 quantized matmul, K3/K4 flash attention,
-K3q/K4q on the int8 KV cache) held against their plain PyTorch versions on
-the card, at small and ragged shapes beside those of chip_smoke.py. Every
+K3q/K4q on the int8 KV cache, K5 group-factored matmul, K6 chained layer
+tail and norm + matmul) held against their plain PyTorch versions on the
+card, at small and ragged shapes beside those of chip_smoke.py. Every
 test here is marked `cuda` and skips without a GPU. The file imports no
 JAX, so on a machine with a card and no JAX it runs as
 
@@ -17,8 +18,8 @@ import torch
 
 from llm_tpu_torch.gguf.constants import GGMLType
 from llm_tpu_torch.models.transformer import quantize_rows
-from llm_tpu_torch.ops import cuda_attn, qmatmul
-from llm_tpu_torch.ops.cuda_qmm import qmm_plain
+from llm_tpu_torch.ops import cuda_attn, cuda_qmm, cuda_qmm_chain, qmatmul
+from llm_tpu_torch.ops.cuda_qmm import qmm_gdot_plain, qmm_plain
 from llm_tpu_torch.ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NORM, RopeParams, rope_angles
 from llm_tpu_torch.quant.qtensor import QTensor, pack_p4_kmajor
 
@@ -144,3 +145,102 @@ def test_cuda_tensors_never_take_the_plain_path(cuda_device):
         for fn in (cuda_attn.flash_decode, cuda_attn.flash_prefill):
             with pytest.raises(ValueError):
                 fn(**{**t, "k": bad_k, "v": bad_v}, scale=0.1)
+
+
+@pytest.mark.parametrize("scales_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B", [1, 3, 8, 16])
+@pytest.mark.parametrize("zp,mins,N,K", [(0, True, 256, 512), (8, False, 264, 512),
+                                         (0, True, 1000, 1024), (0, False, 512, 256)])
+def test_gdot_kernel_matches_plain(cuda_device, zp, mins, N, K, B, scales_dtype):
+    """K5 against qmm_gdot_plain (bf16): Q4_K with mins, Q4_0 with zero
+    point 8 and N not a multiple of 16, a ragged N tile, no correction."""
+    x, qt = _planes("p4", zp, 32, mins, N, K, B, scales_dtype)
+    launched = cuda_qmm.LAUNCHES["K5"]
+    got = qmatmul.qmm(x.to(cuda_device), qt.to(cuda_device), gdot=True).cpu()
+    want = qmm_gdot_plain(x, qt, torch.bfloat16)
+    assert cuda_qmm.LAUNCHES["K5"] == launched + 1
+    assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+
+
+def _chain_planes(rng, k, n, qtype, scales_dtype):
+    if qtype == "p4k":
+        qs = pack_p4_kmajor(rng.integers(0, 16, size=(k, n)), 0)
+        gs, layout, zp = 32, "p4", 0
+    else:
+        qs = rng.integers(-32, 32, size=(k, n)).astype(np.int8)
+        gs, layout, zp = (16 if qtype == "i8g16" else 32), "i8", 0
+    scales = ((rng.random((k // gs, n)) + 0.5) * (0.5 / np.sqrt(k) / 8)).astype(np.float32)
+    m = (scales * 7.5).astype(np.float32) if layout == "p4" else None
+    to = (lambda a: torch.from_numpy(a).to(scales_dtype))
+    return QTensor(torch.from_numpy(qs), to(scales), None if m is None else to(m), gs,
+                   GGMLType.Q4_K, layout, zp)
+
+
+@pytest.mark.parametrize("scales_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B", [1, 2, 5, 8])
+@pytest.mark.parametrize("down", ["p4k", "i8g16"])
+def test_chain_tail_kernel_matches_plain(cuda_device, down, B, scales_dtype):
+    """K6's layer tail against qmm_chain_plain: Q4_K o_proj and gate+up,
+    a Q4_K or Q6_K-like (int8, gs 16) down, random non-unit gamma. The
+    output is bf16: a last-bit difference of an f32 sum can move a value
+    across a bf16 rounding boundary of h, hn, cur or the output, one step
+    of 2^-8 of it; held at 2e-2 of max|out|."""
+    rng = np.random.default_rng(B)
+    E, Fh = 512, 768
+    wo, wgu, wd = (_chain_planes(rng, 512, E, "p4k", scales_dtype),
+                   _chain_planes(rng, E, 2 * Fh, "p4k", scales_dtype),
+                   _chain_planes(rng, Fh, E, down, scales_dtype))
+    bf = torch.bfloat16
+    att = torch.from_numpy(rng.normal(size=(B, 512)).astype(np.float32)).to(bf)
+    xres = torch.from_numpy(rng.normal(size=(B, E)).astype(np.float32)).to(bf)
+    gamma = torch.from_numpy((rng.normal(size=E) * 0.2 + 1).astype(np.float32))
+    want = cuda_qmm_chain.layer_tail(att, xres, gamma, wo, wgu, wd, eps=1e-5)
+    launched = cuda_qmm_chain.LAUNCHES["K6"]
+    got = cuda_qmm_chain.layer_tail(att.to(cuda_device), xres.to(cuda_device),
+                                    gamma.to(cuda_device), wo.to(cuda_device),
+                                    wgu.to(cuda_device), wd.to(cuda_device), eps=1e-5)
+    assert cuda_qmm_chain.LAUNCHES["K6"] == launched + 1
+    assert got.dtype == bf and got.shape == (B, E)
+    got, want = got.cpu().float(), want.float()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 2e-2 * want.abs().max()
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("qtype,N", [("p4k", 768), ("i8g16", 1280), ("i8g32", 384)])
+def test_chain_norm_mm_kernel_matches_plain(cuda_device, qtype, N, B, out_dtype):
+    """K6's norm + matmul (a head, an lm_head) against the plain version."""
+    rng = np.random.default_rng(N + B)
+    K = 512
+    w = _chain_planes(rng, K, N, qtype, torch.bfloat16)
+    x = torch.from_numpy(rng.normal(size=(B, K)).astype(np.float32)).to(torch.bfloat16)
+    gamma = torch.from_numpy((rng.normal(size=K) * 0.2 + 1).astype(np.float32))
+    want = cuda_qmm_chain.norm_mm(x, gamma, w, eps=1e-5, out_dtype=out_dtype).float()
+    got = cuda_qmm_chain.norm_mm(x.to(cuda_device), gamma.to(cuda_device), w.to(cuda_device),
+                                 eps=1e-5, out_dtype=out_dtype)
+    assert got.dtype == out_dtype
+    got = got.cpu().float()
+    assert (got - want).abs().max() <= 2e-2 * want.abs().max()
+
+
+def test_k5_k6_raise_rather_than_fall_back(cuda_device):
+    """K5 and K6 launch or raise: shapes outside their gates, non-bf16
+    compute and too many rows never take a plain path on the card."""
+    rng = np.random.default_rng(0)
+    x, qt = _planes("p4", 0, 32, True, 256, 512, 17, torch.float32)
+    with pytest.raises(ValueError):  # B > 16
+        cuda_qmm.qmm_cuda(x.to(cuda_device), qt.to(cuda_device), gdot=True)
+    x, qt = _planes("i8", 0, 32, False, 256, 512, 2, torch.float32)
+    with pytest.raises(ValueError):  # int8 planes
+        cuda_qmm.qmm_cuda(x.to(cuda_device), qt.to(cuda_device), gdot=True)
+    w = _chain_planes(rng, 512, 384, "p4k", torch.bfloat16).to(cuda_device)
+    g = torch.ones(512, device=cuda_device)
+    xs = torch.ones((9, 512), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError):  # B > 8
+        cuda_qmm_chain.norm_mm(xs, g, w, eps=1e-5)
+    with pytest.raises(ValueError):  # f32 compute
+        cuda_qmm_chain.norm_mm(xs[:2], g, w, eps=1e-5, compute_dtype=torch.float32)
+    w96 = _chain_planes(rng, 512, 96 * 4, "i8g32", torch.bfloat16).to(cuda_device)
+    w96.qs, w96.scales = w96.qs[:, :96].contiguous(), w96.scales[:, :96].contiguous()
+    assert cuda_qmm_chain.norm_mm(xs[:2], g, w96, eps=1e-5) is None  # the gate, both devices

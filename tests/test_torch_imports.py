@@ -1,6 +1,8 @@
 """llm_tpu_torch and chip_smoke.py import neither jax nor llm_tpu. Checked
 in a subprocess, because this test process already holds jax (conftest).
-Importing builds no kernel: that happens at first launch, on the card."""
+Every port module is imported, and so is every module that chip_smoke.py
+imports inside its phases. Importing builds no kernel: that happens at
+first launch, on the card."""
 
 import os
 import subprocess
@@ -10,12 +12,21 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 _PROBE = r"""
-import importlib, pkgutil, sys
+import ast, importlib, pkgutil, sys
 import llm_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(llm_tpu_torch.__path__, "llm_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
+assert "llm_tpu_torch.ops.cuda_qmm_chain" in mods, mods
 import chip_smoke
+lazy = set()
+for n in ast.walk(ast.parse(open(chip_smoke.__file__).read())):
+    if isinstance(n, ast.ImportFrom) and (n.module or "").startswith("llm_tpu_torch"):
+        lazy.add(n.module)
+        lazy.update(f"{n.module}.{a.name}" for a in n.names if f"{n.module}.{a.name}" in mods)
+assert {"llm_tpu_torch.ops.cuda_qmm_chain", "llm_tpu_torch.tools.profile_decode"} <= lazy
+for m in lazy:
+    importlib.import_module(m)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "llm_tpu."))
              or m == "llm_tpu")
 assert not bad, bad
