@@ -23,8 +23,9 @@ prints no result line):
      cache, whose card logits are also held against the bf16 cache's; then
      with chain=True, gdot=True (K5 on the unfused QKV of layer 0, K6 on
      layer 1's head, both tails and the lm_head);
-  4. LLAMA3_8B, 32 layers, Q4_K_M-style random planes made on the card:
-     prefill 512 tokens, then 128 greedy tokens, with every kernel's
+  4. LLAMA3_8B, 32 layers, Q4_K_M-style random planes made on the card
+     (first, K5 against its plain version at every p4 shape of these planes
+     that phase 2 left out, attn_k among them): prefill 512 tokens, then 128 greedy tokens, with every kernel's
      launch count read over that run;
   5. the same planes with a q8_0 KV cache (K3q/K4q in place of K3/K4):
      prefill 512, 128 greedy tokens, launch counts, the cache's bytes and
@@ -142,19 +143,18 @@ def check_qmm(results, name, qtype, K, N, B, scales_dtype=torch.bfloat16):
     results.append(rec)
 
 
-def check_gdot(results, name, K, N, B):
-    """K5 at a Q4_K shape, beside K1 on the same inputs (probe S2 of the
-    TPU package, scripts/kbench6.py); its bound and library call are K1's."""
+def check_gdot(results, name, K, N, B, qtype="Q4_K"):
+    """K5 at a p4 shape, beside K1 on the same inputs (probe S2 of the TPU
+    package, scripts/kbench6.py); its bound and library call are K1's."""
     from llm_tpu_torch.gguf.constants import GGMLType
     from llm_tpu_torch.models.synthetic import device_synthetic_qtensor
     from llm_tpu_torch.ops import cuda_qmm
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(K * 5 + N + B)
-    q4k = GGMLType.Q4_K
-    nb = qt_bytes(device_synthetic_qtensor(gen, N, K, q4k))
+    nb = qt_bytes(device_synthetic_qtensor(gen, N, K, GGMLType[qtype]))
     ncp = copies_for(nb)
-    qts = [device_synthetic_qtensor(gen, N, K, q4k) for _ in range(ncp)]
+    qts = [device_synthetic_qtensor(gen, N, K, GGMLType[qtype]) for _ in range(ncp)]
     x = torch.randn((B, K), generator=gen, device="cuda").to(torch.bfloat16)
     y = cuda_qmm.qmm_cuda(x, qts[0], gdot=True)
     want = cuda_qmm.qmm_gdot_plain(x, qts[0], torch.bfloat16)
@@ -169,7 +169,7 @@ def check_gdot(results, name, K, N, B):
     lib_ms = time_ms(lambda i: torch.matmul(x, ws[i]), len(ws))
     del ws
     bmin, by = bound_ms(nb + B * K * 2 + B * N * 4, 2.0 * B * K * N)
-    rec = dict(kernel="K5", shape=f"{name} Q4_K K={K} N={N} B={B}", max_abs_err=err, tol=tol,
+    rec = dict(kernel="K5", shape=f"{name} {qtype} K={K} N={N} B={B}", max_abs_err=err, tol=tol,
                ms=ms, k1_ms=k1_ms, plain_ms=plain_ms, bound_ms=bmin, bound_by=by,
                library_ms=lib_ms)
     log(json.dumps(rec))
@@ -365,7 +365,10 @@ def phase_kernels():
     check_attn(results, "decode ragged-S", 1, 4001, q8=True)
     check_attn(results, "decode T=8", 8, 4096, q8=True)
     check_attn(results, "prefill", 512, 4096, q8=True)
-    # K5 at the TPU package's gdot probe shapes (scripts/kbench6.py SHAPES)
+    # K5 at the TPU package's gdot probe shapes (scripts/kbench6.py SHAPES;
+    # "head" is a probe shape only: the main path's lm_head is Q6_K); every
+    # shape the main path gives K5 is checked once its planes exist
+    # (check_gdot_path)
     for B in (1, 8):
         for name, K, N in (("qkv", 4096, 6144), ("out", 4096, 4096), ("gu", 4096, 28672),
                            ("down", 14336, 4096), ("head", 4096, 128256)):
@@ -374,6 +377,35 @@ def phase_kernels():
         for name, dims, pres in CHAINS:
             check_chain(results, name, dims, pres, B)
     return results
+
+
+def gdot_path_shapes(params) -> dict:
+    """{(type, K, N): names} of every matmul of the params that qmm's gdot
+    gate sends to K5 at one row: what the decode steps of phases 6 and 7
+    give K5 (phase 7 runs a subset, the unfused QKV)."""
+    from llm_tpu_torch.ops.cuda_qmm import gdot_eligible
+    from llm_tpu_torch.quant.qtensor import QTensor
+
+    shapes = {}
+    named = [kw for layer in params["layers"] for kw in layer.items()]
+    for name, w in named + [("output", params["output"])]:
+        if isinstance(w, QTensor) and gdot_eligible(w, 1):
+            names = shapes.setdefault((w.ggml_type.name, w.in_features, w.out_features), [])
+            if name not in names:
+                names.append(name)
+    return shapes
+
+
+def check_gdot_path(results, params):
+    """K5 against its plain version at every shape the main path gives it
+    (gdot_path_shapes) that phase 2's probe shapes did not check."""
+    done = {r["shape"].split(" ", 1)[1] for r in results if r["kernel"] == "K5"}
+    shapes = gdot_path_shapes(params)
+    log(json.dumps(dict(k5_path_shapes={f"{t} K={k} N={n}": v
+                                        for (t, k, n), v in shapes.items()})))
+    for (qtype, K, N), names in shapes.items():
+        if f"{qtype} K={K} N={N} B=1" not in done:
+            check_gdot(results, "/".join(names), K, N, 1, qtype)
 
 
 # card-vs-CPU logits tolerance, relative to max|logit|: about 3x the largest
@@ -721,16 +753,16 @@ def phase_llama3_8b(params, cfg, chain=False, gdot=False, base=None):
     counts, rec = run_llama3_8b(ctx, ("K3", "K4"))
     prof = profile_tokens(ctx, rec["last_token"], 8)
     log("profile_decode " + json.dumps(prof))
-    keys = ("decode_tok_s", "prefill_tok_s", "peak_mem_gib")
-    side = dict(chain=chain, gdot=gdot, **{k: rec[k] for k in keys},
-                launches_per_token=prof["device_launches_per_token"],
-                idle_share=prof["idle_share"])
-    if base is not None:
-        side.update({f"phase4_{k}": base[k] for k in keys + ("launches_per_token",
-                                                             "idle_share")})
-    log(json.dumps(side))
-    rec.update(launches_per_token=prof["device_launches_per_token"],
+    # the profiler's device launches per token (every kernel, memsets and
+    # torch ops included), beside rec's per-kernel launches_per_token
+    rec.update(device_launches_per_token=prof["device_launches_per_token"],
                idle_share=prof["idle_share"])
+    keys = ("decode_tok_s", "prefill_tok_s", "peak_mem_gib", "device_launches_per_token",
+            "idle_share")
+    side = dict(chain=chain, gdot=gdot, **{k: rec[k] for k in keys})
+    if base is not None:
+        side.update({f"phase4_{k}": base[k] for k in keys})
+    log(json.dumps(side))
     del ctx
     torch.cuda.empty_cache()
     return counts, rec
@@ -905,6 +937,7 @@ def main() -> int:
     log(f"two-layer chained card-vs-CPU check passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     params, cfg = llama3_8b_planes()
+    check_gdot_path(results, params)
     counts, rec = phase_llama3_8b(params, cfg)
     log(f"LLAMA3_8B main path passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()

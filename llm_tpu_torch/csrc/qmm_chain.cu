@@ -235,14 +235,20 @@ const void* chain_kernel_for(int B) {
   return B == 1 ? (const void*)qmm_chain_kernel<1> : (const void*)qmm_chain_kernel<GV_MAX_NB>;
 }
 
-// CTAs that can be resident at once: the cooperative grid
+// CTAs that can be resident at once: the cooperative grid. It depends only
+// on the kernel variant (B == 1 or not), so it is asked once per variant.
 cudaError_t chain_grid(int B, int* grid) {
-  int per_sm = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, chain_kernel_for(B), GV_THREADS, 0);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *grid = per_sm * sm_count();
+  static int cached[2] = {0, 0};
+  int& g = cached[B == 1 ? 0 : 1];
+  if (g == 0) {
+    int per_sm = 0;
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, chain_kernel_for(B), GV_THREADS, 0);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    g = per_sm * sm_count();
+  }
+  *grid = g;
   return cudaSuccess;
 }
 

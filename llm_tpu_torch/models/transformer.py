@@ -174,7 +174,7 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
         if use_chain and tail_eligible(layer):
             out = layer_tail(att, x, layer["ffn_norm"], layer["attn_output"],
                              layer["ffn_gateup_fused"], layer["ffn_down"], eps=cfg.rms_eps,
-                             act=cfg.act, compute_dtype=dtype)
+                             compute_dtype=dtype)
             if out is not None:
                 x = out
                 continue

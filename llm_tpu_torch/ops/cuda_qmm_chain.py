@@ -40,18 +40,6 @@ LAUNCHES = {"K6": 0}
 CHAIN_MAX_B = 8
 PRE = {"cast": 0, "norm": 1, "res_norm": 2, "swiglu": 3}
 
-_TAIL_BANNED = (
-    "attn_sub_norm", "attn_post_norm", "ffn_post_norm", "ffn_sub_norm",
-    "ffn_norm_exps", "ffn_gate_inp", "attn_output_b", "ffn_down_b",
-    "ffn_norm_b", "attn_output.lora", "ffn_down.lora",
-    "ffn_gateup_fused.lora", "ffn_up_b", "ffn_gate_b", "cross_attn_norm",
-)
-_HEAD_BANNED = (
-    "attn_qkv_fused_b", "attn_q_b", "attn_k_b", "attn_v_b", "attn_norm_b",
-    "attn_qkv_fused.lora",
-)
-
-
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -62,23 +50,21 @@ def is_kmajor_qt(w) -> bool:
 
 
 def tail_eligible(layer: dict) -> bool:
-    """The layer's tail is exactly the llama recipe the chain implements:
-    o_proj, fused gate+up, down and ffn_norm, no biases, post-norms, LoRA
-    or MoE, K-major planes (the reference's tail_eligible)."""
+    """The layer's tail is the llama recipe the chain implements: o_proj,
+    fused gate+up, down and ffn_norm, K-major planes (the reference's
+    tail_eligible). The reference also refuses biases, post-norms, LoRA and
+    MoE; forward's check_supported refuses every such layer before it runs."""
     if any(k not in layer for k in
            ("attn_output", "ffn_gateup_fused", "ffn_down", "ffn_norm")):
-        return False
-    if any(k in layer for k in _TAIL_BANNED):
         return False
     return all(is_kmajor_qt(layer[k])
                for k in ("attn_output", "ffn_gateup_fused", "ffn_down"))
 
 
 def head_eligible(layer: dict) -> bool:
-    """The layer head is rmsnorm -> fused QKV with no biases."""
+    """The layer head is rmsnorm -> fused QKV (check_supported refuses
+    biases and LoRA, as the reference's head_eligible does)."""
     if "attn_qkv_fused" not in layer or "attn_norm" not in layer:
-        return False
-    if any(k in layer for k in _HEAD_BANNED):
         return False
     return is_kmajor_qt(layer["attn_qkv_fused"])
 
@@ -226,13 +212,11 @@ def qmm_chain(x, qts, gammas=(), x_res=None, *, pres, eps, final="cast",
                            cdtype=cdtype, out_dtype=out_dtype)
 
 
-def layer_tail(att, x_res, ffn_gamma, wo, wgu, wd, *, eps, act="silu",
-               compute_dtype=torch.bfloat16):
+def layer_tail(att, x_res, ffn_gamma, wo, wgu, wd, *, eps, compute_dtype=torch.bfloat16):
     """One-launch decoder-layer tail:
     out = h + swiglu(rmsnorm(h := x_res + att @ Wo) @ Wgu) @ Wd,
-    or None when the geometry gate says no."""
-    if act != "silu":
-        raise NotImplementedError(f"chained {act} FFN is not ported yet")
+    or None when the geometry gate says no. SwiGLU only: check_supported
+    refuses every other activation."""
     if not chain_fits((wo, wgu, wd)):
         return None
     return qmm_chain(att, (wo, wgu, wd), (ffn_gamma,), x_res,

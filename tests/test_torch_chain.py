@@ -38,6 +38,7 @@ from llm_tpu.tools.quantize import quantize_model
 from llm_tpu_torch.convert_params import params_from_reference
 from llm_tpu_torch.gguf.reader import GGUFReader
 from llm_tpu_torch.models.loader import load_params
+from llm_tpu_torch.models.transformer import check_supported
 from llm_tpu_torch.ops import cuda_qmm, cuda_qmm_chain, qmatmul
 from llm_tpu_torch.ops.cuda_qmm_chain import (chain_fits, head_eligible, layer_tail, norm_mm,
                                               tail_eligible)
@@ -172,7 +173,7 @@ def chain_ggufs(tmp_path_factory):
 def test_gates_agree_on_loaded_layers(chain_ggufs):
     for path in chain_ggufs.values():
         jp, _ = jax_load_params(JaxGGUFReader(path))
-        tp, _ = load_params(GGUFReader(path), device="cpu")
+        tp, tcfg = load_params(GGUFReader(path), device="cpu")
         for jl, tl in zip(jp["layers"], tp["layers"]):
             assert head_eligible(tl) == jax_chain.head_eligible(jl)
             assert tail_eligible(tl) == jax_chain.tail_eligible(jl)
@@ -180,7 +181,11 @@ def test_gates_agree_on_loaded_layers(chain_ggufs):
                 (jl["attn_output"], jl["ffn_gateup_fused"], jl["ffn_down"]),
                 ("cast", "res_norm", "swiglu")) is not None
             assert chain_fits((tl["attn_output"], tl["ffn_gateup_fused"], tl["ffn_down"])) == want
-        assert tail_eligible(tl) and not tail_eligible({**tl, "attn_post_norm": None})
+        # a post-norm: the reference's gate refuses the tail, the port's
+        # check_supported the whole layer, before any gate is asked
+        assert tail_eligible(tl) and not jax_chain.tail_eligible({**jl, "attn_post_norm": None})
+        with pytest.raises(NotImplementedError):
+            check_supported({"layers": [{**tl, "attn_post_norm": None}]}, tcfg)
     q4, _ = load_params(GGUFReader(chain_ggufs["Q4_K_M"]), device="cpu")
     assert [head_eligible(layer) for layer in q4["layers"]] == [False, True]
 

@@ -150,10 +150,12 @@ def test_cuda_tensors_never_take_the_plain_path(cuda_device):
 @pytest.mark.parametrize("scales_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("B", [1, 3, 8, 16])
 @pytest.mark.parametrize("zp,mins,N,K", [(0, True, 256, 512), (8, False, 264, 512),
-                                         (0, True, 1000, 1024), (0, False, 512, 256)])
+                                         (0, True, 1000, 1024), (0, False, 512, 256),
+                                         (0, True, 1024, 4096)])
 def test_gdot_kernel_matches_plain(cuda_device, zp, mins, N, K, B, scales_dtype):
     """K5 against qmm_gdot_plain (bf16): Q4_K with mins, Q4_0 with zero
-    point 8 and N not a multiple of 16, a ragged N tile, no correction."""
+    point 8 and N not a multiple of 16, a ragged N tile, no correction,
+    and LLAMA3_8B's attn_k (4 N tiles, a K split no other case takes)."""
     x, qt = _planes("p4", zp, 32, mins, N, K, B, scales_dtype)
     launched = cuda_qmm.LAUNCHES["K5"]
     got = qmatmul.qmm(x.to(cuda_device), qt.to(cuda_device), gdot=True).cpu()
