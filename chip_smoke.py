@@ -12,10 +12,13 @@ prints no result line):
      flash attention on the int8 KV cache, whose inputs the port's own
      quantizer makes on the card, K5 group-factored matmul beside K1 at the
      same shapes, K6 chained layer tail / norm + matmul beside the unfused
-     launches it replaces) at the main path's shapes, held against its
-     plain PyTorch version on the card, and timed beside its bound, the
-     plain version and one PyTorch library call that computes the same
-     function;
+     launches it replaces, K7 = K1/K2/K5 on a layer of stacked planes beside
+     the unstacked kernel on the same layer) at the main path's shapes, held
+     against its plain PyTorch version on the card, and timed beside its
+     bound, the plain version and one PyTorch library call that computes
+     the same function; then the decode GEMV's probes (S1,
+     tools/kbench.py) at the kbench shapes, each against its plain version
+     and timed beside K1;
   3. two layers at LLAMA3_8B width: Context.decode of a 64-token prompt and
      8 greedy generate_loop steps, once on the card (kernels) and once on
      the CPU (plain versions), from the same random weights; every step's
@@ -36,7 +39,15 @@ prints no result line):
   7. phase 4's planes with chain=True, gdot=True: K6 for every tail, fused
      head and the lm_head, K5 for the unfused QKV; each of phases 4, 6 and
      7 also profiled over 8 decode tokens (launches per token, idle share);
-     then the three paths' decode timed in turns (A B C C B A A B C).
+     then the three paths' decode timed in turns (A B C C B A A B C);
+  8. the scan decoder at LLAMA3_8B (phases 4-7's planes freed first):
+     uniform Q4_K planes made on the card, Context(scan_layers=True), whose
+     every layer matmul runs K7 (4 a layer a token) and the lm_head K1;
+     the same planes through the per-layer Context, whose greedy tokens
+     must be the scan's; the scan with gdot (K7's K5 variant, lm_head on
+     K5) and with chain and gdot (layers on K7, lm_head on K6), 16 tokens
+     each, enough for their launches per token; uniform Q8_0 planes (K7 on
+     int8 planes, lm_head on K2); the Q4_K and Q8_0 scans profiled.
 The last lines are a JSON "kernels" line, the card line, and
 {"ok": true, "device": {...}}. It imports nothing of JAX or llm_tpu.
 """
@@ -175,6 +186,72 @@ def check_gdot(results, name, K, N, B, qtype="Q4_K"):
     log(json.dumps(rec))
     if not (err <= tol and math.isfinite(err)):
         raise AssertionError(f"K5 {rec['shape']}: max|err| {err} > {tol}")
+    results.append(rec)
+
+
+# K7 against the unstacked kernel on the same layer: the same arithmetic on
+# the same bytes; where K is split over CTAs, f32 atomics add the partial
+# sums in an order that varies from launch to launch, a few ulps of max|y|
+K7_VS_UNSTACKED_REL_TOL = 1e-5
+
+
+def check_stacked(results, name, qtype, K, N, B, gdot=False):
+    """K7 on a stack of planes whose layers differ (enough layers to exceed
+    L2, so that a launch cycling over the layers finds them cold): layers 0
+    and 1 against its plain version and against K1/K2/K5 launched on the
+    layer's own planes (a view of the stack); timed beside that kernel, the
+    plain version and torch.matmul on the layer's pre-dequantized bf16
+    weight."""
+    from llm_tpu_torch.gguf.constants import GGMLType
+    from llm_tpu_torch.models.synthetic import device_synthetic_qtensor
+    from llm_tpu_torch.ops import cuda_qmm
+    from llm_tpu_torch.quant.qtensor import QTensor, StackedWeight
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(K * 3 + N + B + gdot)
+    layers = [device_synthetic_qtensor(gen, N, K, GGMLType[qtype])]
+    nb = qt_bytes(layers[0])
+    layers += [device_synthetic_qtensor(gen, N, K, GGMLType[qtype])
+               for _ in range(max(2, copies_for(nb)) - 1)]
+    L = len(layers)
+    one = layers[0]
+    stack = (lambda ts: torch.stack(ts))
+    qt = QTensor(stack([q.qs for q in layers]), stack([q.scales for q in layers]),
+                 None if one.mins is None else stack([q.mins for q in layers]),
+                 one.group_size, one.ggml_type, one.layout, one.zp, one.pack_tk, one.kmajor)
+    del layers
+    views = [qt.map(lambda t, il=il: t[il]) for il in range(L)]
+    lids = torch.arange(L, dtype=torch.int32, device="cuda")
+    sws = [StackedWeight(qt, lids[il:il + 1]) for il in range(L)]
+    x = torch.randn((B, K), generator=gen, device="cuda").to(torch.bfloat16)
+    err = diff = tol = dtol = 0.0
+    for il in (0, 1):
+        y = cuda_qmm.qmm_stacked_cuda(x, sws[il], gdot)
+        want = cuda_qmm.qmm_stacked_plain(x, sws[il], torch.bfloat16, gdot)
+        unst = cuda_qmm.qmm_cuda(x, views[il], gdot)
+        torch.cuda.synchronize()
+        err = max(err, (y - want).abs().max().item())
+        diff = max(diff, (y - unst).abs().max().item())
+        tol = max(tol, 1e-3 * want.abs().max().item())
+        dtol = max(dtol, K7_VS_UNSTACKED_REL_TOL * unst.abs().max().item())
+    ms = time_ms(lambda i: cuda_qmm.qmm_stacked_cuda(x, sws[i], gdot), L)
+    unst_ms = time_ms(lambda i: cuda_qmm.qmm_cuda(x, views[i], gdot), L)
+    plain_ms = time_ms(lambda i: cuda_qmm.qmm_stacked_plain(x, sws[i], torch.bfloat16, gdot),
+                       L, iters=5)
+    ws = [dequant_bf16(views[i]) for i in range(min(L, copies_for(K * N * 2)))]
+    lib_ms = time_ms(lambda i: torch.matmul(x, ws[i]), len(ws))
+    del ws
+    bmin, by = bound_ms(nb + B * K * 2 + B * N * 4, 2.0 * B * K * N)
+    variant = "K5" if gdot else ("K1" if one.layout == "p4" else "K2")
+    rec = dict(kernel="K7", variant=variant, shape=f"{name} {qtype} K={K} N={N} B={B}",
+               layers=L, max_abs_err=err, tol=tol, unstacked_max_abs_diff=diff,
+               unstacked_tol=dtol, ms=ms, unstacked_ms=unst_ms, plain_ms=plain_ms,
+               bound_ms=bmin, bound_by=by, library_ms=lib_ms)
+    log(json.dumps(rec))
+    if not (err <= tol and math.isfinite(err)):
+        raise AssertionError(f"K7 {rec['shape']}: max|err| {err} > {tol}")
+    if not diff <= dtol:
+        raise AssertionError(f"K7 {rec['shape']}: {diff} from {variant} on the same layer")
     results.append(rec)
 
 
@@ -376,7 +453,36 @@ def phase_kernels():
     for B in (1, 8):
         for name, dims, pres in CHAINS:
             check_chain(results, name, dims, pres, B)
+    # K7 at every layer matmul of phase 8's uniform planes: K1 (Q4_K) and K2
+    # (Q8_0) at decode and at a 512-token prefill step, K5 at decode and at
+    # the gdot probes' B = 8
+    for B in (1, 512):
+        for qtype in ("Q4_K", "Q8_0"):
+            for name, K, N in STACKED_SHAPES:
+                check_stacked(results, name, qtype, K, N, B)
+    for B in (1, 8):
+        for name, K, N in STACKED_SHAPES:
+            check_stacked(results, name, "Q4_K", K, N, B, gdot=True)
     return results
+
+
+# the layer matmuls of a uniform LLAMA3_8B (name, K, N)
+STACKED_SHAPES = (("qkv", 4096, 6144), ("o_proj", 4096, 4096), ("gate_up", 4096, 28672),
+                  ("down", 14336, 4096))
+
+
+def phase_probes():
+    """S1 through its entry point's loop (tools/kbench.py): the probes at
+    the kbench shapes at B = 8 (the TPU probes' rows) and 1, each against
+    its plain version, timed beside K1. Returns the records and the S1
+    launches of that run (the checks and the captured launches; graph
+    replays are not counted)."""
+    from llm_tpu_torch.ops import cuda_probe
+    from llm_tpu_torch.tools import kbench
+
+    cuda_probe.reset_launches()
+    recs = kbench.run(list(kbench.SHAPES), (8, 1), plain=True, log=log)
+    return recs, cuda_probe.LAUNCHES["S1"]
 
 
 def gdot_path_shapes(params) -> dict:
@@ -617,24 +723,31 @@ def decode_bytes_per_token(ctx):
 
     params, cfg = ctx.params, ctx.cfg
     ws = [v for layer in params["layers"] for v in layer.values()] + [params["output"]]
+    ws += list(params.get("layers_stacked", {}).values())  # every layer's planes
     w = sum(qt_bytes(v) for v in ws if isinstance(v, QTensor) and v.kmajor)
     tables = cfg.n_layers * 2 * ctx.n_cells * cfg.head_dim * 2
     return w + kv_bytes(ctx) + tables
 
 
 def decode_counts(params, chain=False, gdot=False):
-    """Launches of K1/K2/K5/K6 per decoded token (one row), from the params'
-    keys and plane types: with chain, one K6 for each layer's tail (o_proj,
-    fused gate+up, down), each fused QKV head and the lm_head; every other
-    matmul on K5 (p4, with gdot) or K1 (p4) or K2 (int8)."""
+    """Launches of K1/K2/K5/K6/K7 per decoded token (one row), from the
+    params' keys and plane types: with chain, one K6 for each layer's tail
+    (o_proj, fused gate+up, down), each fused QKV head and the lm_head;
+    every other matmul on K5 (p4, with gdot) or K1 (p4) or K2 (int8). A
+    stacked model runs every layer matmul on K7, chain or not (K6's gates
+    refuse stacked planes)."""
+    from llm_tpu_torch.models.transformer import n_stacked
     from llm_tpu_torch.quant.qtensor import QTensor
 
-    n = {"K1": 0, "K2": 0, "K5": 0, "K6": 0}
+    n = {"K1": 0, "K2": 0, "K5": 0, "K6": 0, "K7": 0}
 
     def one(w):
         n["K2" if w.layout == "i8" else ("K5" if gdot else "K1")] += 1
 
     kmajor = (lambda w: isinstance(w, QTensor) and w.kmajor)
+    stacked = params.get("layers_stacked")
+    if stacked is not None:
+        n["K7"] = n_stacked(stacked) * sum(kmajor(w) for w in stacked.values())
     for layer in params["layers"]:
         tail = [layer[k] for k in ("attn_output", "ffn_gateup_fused", "ffn_down")]
         head = [layer[k] for k in ("attn_qkv_fused", "attn_q", "attn_k", "attn_v")
@@ -678,12 +791,13 @@ def launch_counts() -> dict:
     return {**cuda_qmm.LAUNCHES, **cuda_attn.LAUNCHES, **cuda_qmm_chain.LAUNCHES}
 
 
-def run_llama3_8b(ctx, attn_kernels):
-    """The main path on ctx: prefill 512 tokens, then 128 greedy tokens,
-    with every launch count set to 0 just before and read just after.
+def run_llama3_8b(ctx, attn_kernels, keep=None, n_decode=LLAMA3_8B_DECODE):
+    """The main path on ctx: prefill 512 tokens, then n_decode (128) greedy
+    tokens, with every launch count set to 0 just before and read just after.
     attn_kernels: (decode kernel, prefill kernel) the cache type runs;
     every other attention kernel must stay at 0. The matmul kernels per
-    token are decode_counts' for the Context's options."""
+    token are decode_counts' for the Context's options. keep: a dict that
+    receives the prefill logits, the first token and the greedy tokens."""
     import numpy as np
 
     from llm_tpu_torch.ops import cuda_attn, cuda_qmm, cuda_qmm_chain
@@ -704,13 +818,13 @@ def run_llama3_8b(ctx, attn_kernels):
     after_prefill = launch_counts()
     first = int(np.argmax(logits))
     t0 = time.perf_counter()
-    toks = ctx.generate_loop(first, LLAMA3_8B_DECODE)
+    toks = ctx.generate_loop(first, n_decode)
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
     counts = launch_counts()
 
     assert np.isfinite(logits).all(), "non-finite prefill logits"
-    assert len(toks) == LLAMA3_8B_DECODE and all(0 <= t < cfg.vocab_size for t in toks)
+    assert len(toks) == n_decode and all(0 <= t < cfg.vocab_size for t in toks)
     n = len(toks)
     dec, pre = attn_kernels
     per_token = {k: (counts[k] - after_prefill[k]) / n for k in counts}
@@ -720,7 +834,9 @@ def run_llama3_8b(ctx, attn_kernels):
     prefill_counts = {k: after_prefill[k] for k in cuda_attn.LAUNCHES}
     want_prefill = {k: 0 for k in cuda_attn.LAUNCHES}
     want_prefill[pre] = cfg.n_layers
-    rec = dict(kv_dtype=str(ctx.kv_dtype), chain=ctx.chain, gdot=ctx.gdot,
+    if keep is not None:
+        keep.update(logits=logits, first=first, tokens=toks)
+    rec = dict(kv_dtype=str(ctx.kv_dtype), chain=ctx.chain, gdot=ctx.gdot, scan=ctx.scan,
                prefill_tokens=LLAMA3_8B_PROMPT,
                prefill_s=t_prefill, prefill_tok_s=LLAMA3_8B_PROMPT / t_prefill,
                decode_tokens=n, decode_s=t_decode, decode_tok_s=n / t_decode,
@@ -868,6 +984,124 @@ def phase_llama3_8b_q8(params, cfg, bf16_rec):
     return counts
 
 
+# phase 8's greedy streams, scan against per-layer: where the two part, the
+# per-layer logits' top two at that step must lie within this share of
+# max|logit| (K1's and K7's split-K atomics may add in another order from
+# launch to launch, and a last-bit difference can cross a bf16 rounding of
+# an activation and carry through the layers)
+SCAN_TIE_REL = 1e-3
+
+
+def top2_gap(logits) -> float:
+    import numpy as np
+
+    top2 = np.sort(logits)[-2:]
+    return float(top2[1] - top2[0])
+
+
+def compare_streams(scan_ctx, scan_keep, layer_ctx, layer_keep) -> dict:
+    """Phase 8: the scan's prefill logits and greedy stream against the
+    per-layer Context's on the same planes. The streams must be equal, or
+    part only at a step whose top two per-layer logits (replayed on both
+    Contexts from the common stream) lie within SCAN_TIE_REL of max|logit|
+    or within twice the two replays' difference."""
+    import numpy as np
+
+    from llm_tpu_torch.runtime.batch import Batch
+
+    ls, lp = scan_keep["logits"], layer_keep["logits"]
+    ss = [scan_keep["first"]] + scan_keep["tokens"]
+    sp = [layer_keep["first"]] + layer_keep["tokens"]
+    rec = dict(scan_vs_per_layer_prefill_max_abs_diff=float(np.abs(ls - lp).max()),
+               prefill_logits_bit_equal=bool(np.array_equal(ls, lp)),
+               greedy_tokens_equal=ss == sp, prefill_top2_gap=top2_gap(lp))
+    if ss != sp:
+        i = next(j for j, (a, b) in enumerate(zip(ss, sp)) if a != b)
+        if i > 0:
+            for c in (scan_ctx, layer_ctx):
+                c.seq_rm(0, LLAMA3_8B_PROMPT, -1)
+                assert c.decode(Batch.text(sp[:i])) == 0
+            ls, lp = scan_ctx.get_logits(), layer_ctx.get_logits()
+        diff = float(np.abs(ls - lp).max())
+        gap = top2_gap(lp)
+        rec.update(parted_at_step=i, step_max_abs_diff=diff, step_top2_gap=gap,
+                   step_max_abs_logit=float(np.abs(lp).max()))
+        if not gap <= max(2 * diff, SCAN_TIE_REL * float(np.abs(lp).max())):
+            log(json.dumps(rec))
+            raise AssertionError(f"scan and per-layer greedy streams part at step {i} on a "
+                                 f"top-2 gap of {gap}")
+    log(json.dumps(rec))
+    return rec
+
+
+# phase 8's decode tokens for the scan's gdot and chain options: their
+# launches per token are fixed from the first token on
+SCAN_OPTION_DECODE = 16
+
+
+def phase_scan():
+    """Phase 8: the scan decoder at LLAMA3_8B on uniform planes made on the
+    card (Q4_K everywhere, then Q8_0 everywhere: a Q4_K_M mix does not
+    stack). Every layer matmul must run K7 (4 a layer a token: fused QKV,
+    o_proj, fused gate+up, down) and the lm_head K1 / K5 (gdot) / K6
+    (chain) / K2 (Q8_0); attention K3 32 a token. The plain Q4_K and the
+    Q8_0 scans run 128 tokens and are profiled; the per-layer run 128
+    tokens for the comparison of streams; gdot and chain SCAN_OPTION_DECODE.
+    Returns each kernel's launches from the path that runs it: K7 from the
+    plain scan run."""
+    from llm_tpu_torch.gguf.constants import GGMLType
+    from llm_tpu_torch.models.synthetic import LLAMA3_8B, make_synthetic_model
+    from llm_tpu_torch.runtime.engine import Context
+    from llm_tpu_torch.tools.profile_decode import profile_tokens
+
+    def planes(qtype):
+        t0 = time.perf_counter()
+        params, cfg = make_synthetic_model(qtype=GGMLType[qtype], device="cuda", on_device=True,
+                                           seed=3, recipe=None, **LLAMA3_8B)
+        torch.cuda.synchronize()
+        log(f"uniform {qtype} LLAMA3_8B planes made on the card in "
+            f"{time.perf_counter() - t0:.1f} s")
+        return params, cfg
+
+    keys = ("decode_tok_s", "prefill_tok_s", "peak_mem_gib", "device_launches_per_token",
+            "idle_share", "launches_per_token")
+
+    def run(qtype, params, cfg, keep=None, profile=False, n_decode=LLAMA3_8B_DECODE, **kw):
+        ctx = Context(None, n_cells=4096, device="cuda", params_cfg=(params, cfg), **kw)
+        if kw.get("scan_layers") and not ctx.scan:
+            raise AssertionError(f"the uniform {qtype} planes did not stack")
+        counts, rec = run_llama3_8b(ctx, ("K3", "K4"), keep, n_decode)
+        if profile:
+            prof = profile_tokens(ctx, rec["last_token"], 8)
+            log("profile_decode " + json.dumps(prof))
+            rec.update(device_launches_per_token=prof["device_launches_per_token"],
+                       idle_share=prof["idle_share"])
+        log(json.dumps(dict(phase=8, qtype=qtype, scan=ctx.scan, chain=ctx.chain,
+                            gdot=ctx.gdot, **{k: rec[k] for k in keys if k in rec})))
+        return ctx, counts
+
+    params, cfg = planes("Q4_K")
+    scan_keep, layer_keep = {}, {}
+    scan_ctx, counts = run("Q4_K", params, cfg, scan_keep, profile=True, scan_layers=True)
+    layer_ctx, _ = run("Q4_K", params, cfg, layer_keep)
+    compare_streams(scan_ctx, scan_keep, layer_ctx, layer_keep)
+    stacked = scan_ctx.params  # the scan options below reuse its stacked planes
+    del layer_ctx, scan_ctx, params
+    torch.cuda.empty_cache()
+    run("Q4_K", stacked, cfg, n_decode=SCAN_OPTION_DECODE, gdot=True)
+    run("Q4_K", stacked, cfg, n_decode=SCAN_OPTION_DECODE, chain=True, gdot=True)
+    del stacked
+    torch.cuda.empty_cache()
+    params, cfg = planes("Q8_0")
+    ctx = Context(None, n_cells=4096, device="cuda", params_cfg=(params, cfg), scan_layers=True)
+    del params  # the per-layer planes: the Context keeps the stacked ones
+    torch.cuda.empty_cache()
+    run("Q8_0", ctx.params, cfg, profile=True, scan_layers=True)
+    del ctx
+    torch.cuda.empty_cache()
+    return counts
+
+
 REPLACES = {
     "K1": ("llm_tpu_torch/csrc/qmm.cu", "llm_tpu/ops/pallas_qmm.py:159"),
     "K2": ("llm_tpu_torch/csrc/qmm.cu", "llm_tpu/ops/pallas_qmm.py:149"),
@@ -877,6 +1111,8 @@ REPLACES = {
     "K4q": ("llm_tpu_torch/csrc/flash_attn.cu", "llm_tpu/ops/pallas_attn.py:341"),
     "K5": ("llm_tpu_torch/csrc/qmm.cu", "llm_tpu/ops/pallas_qmm.py:195"),
     "K6": ("llm_tpu_torch/csrc/qmm_chain.cu", "llm_tpu/ops/pallas_qmm_chain.py:107"),
+    "K7": ("llm_tpu_torch/csrc/qmm_stacked.cu", "llm_tpu/ops/pallas_qmm.py:481"),
+    "S1": ("llm_tpu_torch/csrc/qmm_probe.cu", "scripts/kbench.py:56"),
 }
 # the line's timing for each kernel comes from its main-path decode (or
 # prefill) shape; max_abs_err is the largest over every shape checked
@@ -887,7 +1123,10 @@ HEADLINE = {"K1": "gate_up Q4_K K=4096 N=28672 B=1",
             "K3q": "decode half-masked T=1 S=4096 H=32 Hkv=8 D=128",
             "K4q": "prefill T=512 S=4096 H=32 Hkv=8 D=128",
             "K5": "gu Q4_K K=4096 N=28672 B=1",
-            "K6": "tail Q6_K down B=1"}
+            "K6": "tail Q6_K down B=1",
+            "K7": "gate_up Q4_K K=4096 N=28672 B=1",
+            # S1's line reads its "dma" probe (every plane streamed, x staged)
+            "S1": "gu Q4_K K=4096 N=28672 B=8"}
 
 
 def main() -> int:
@@ -927,6 +1166,9 @@ def main() -> int:
     results = phase_kernels()
     log(f"kernel checks passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    probes, s1_launches = phase_probes()
+    log(f"decode GEMV probes passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     phase_two_layers()
     log(f"two-layer card-vs-CPU check passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -950,13 +1192,19 @@ def main() -> int:
     counts_chain, _ = phase_llama3_8b(params, cfg, chain=True, gdot=True, base=rec)
     log(f"LLAMA3_8B chained path passed in {time.perf_counter() - t0:.1f} s")
     phase_decode_turns(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    counts_scan = phase_scan()
+    log(f"LLAMA3_8B scan decoder passed in {time.perf_counter() - t0:.1f} s")
     # each kernel's launches from the path that runs it: K1-K4 from phase 4,
-    # K3q/K4q from phase 5, K5 from phase 6, K6 from phase 7
+    # K3q/K4q from phase 5, K5 from phase 6, K6 from phase 7, K7 from phase
+    # 8, S1 from the kbench run
     counts = {**counts, "K3q": counts_q8["K3q"], "K4q": counts_q8["K4q"],
-              "K5": counts_gdot["K5"], "K6": counts_chain["K6"]}
+              "K5": counts_gdot["K5"], "K6": counts_chain["K6"], "K7": counts_scan["K7"]}
 
     kernels = []
-    for k in ("K1", "K2", "K3", "K4", "K3q", "K4q", "K5", "K6"):
+    for k in ("K1", "K2", "K3", "K4", "K3q", "K4q", "K5", "K6", "K7"):
         mine = [r for r in results if r["kernel"] == k]
         head = next(r for r in mine if r["shape"] == HEADLINE[k])
         src, rep = REPLACES[k]
@@ -966,7 +1214,16 @@ def main() -> int:
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
             shape=head["shape"], passed=True,
-            **{f: head[f] for f in ("k1_ms", "unfused_ms") if f in head}))
+            **{f: head[f] for f in ("k1_ms", "unfused_ms", "unstacked_ms") if f in head}))
+    head = next(r for r in probes if r["shape"] == HEADLINE["S1"])
+    src, rep = REPLACES["S1"]
+    kernels.append(dict(
+        name="S1", route="cuda", source=src, replaces=rep, launches=s1_launches,
+        max_abs_err=max(e for r in probes for row in r["max_abs_err"].values() for e in row),
+        ms=head["us"]["dma"] / 1e3, plain_ms=head["plain_us"]["dma"] / 1e3,
+        bound_ms=head["bound_us"]["dma"] / 1e3, bound_by="bytes", library_ms=None,
+        shape=head["shape"] + " dma", passed=True, k1_ms=head["us"]["full"] / 1e3,
+        qs_ms=head["us"]["qs"] / 1e3, deq_ms=head["us"]["deq"] / 1e3))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

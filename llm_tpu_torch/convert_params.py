@@ -5,8 +5,11 @@ already turned into plain Python by the caller: arrays as numpy arrays,
 quantized weights as objects or dicts with the QTensor fields (qs, scales,
 mins, group_size, ggml_type, layout, zp, pack_tk, kmajor), the config as
 an object or dict with the ModelConfig fields. It returns the port's
-(params, cfg) on the CPU, so both packages compute the same model. This
-module reads no llm_tpu code.
+(params, cfg) on the CPU, so both packages compute the same model. A
+scan-mode tree (params["layers_stacked"], params["layers"] empty, as
+llm_tpu's Context(scan_layers=True) and stack_layers make it) keeps its
+stacked layout: QTensor leaves with [L, ...] planes and their meta, small
+leaves as [L, ...] tensors. This module reads no llm_tpu code.
 """
 
 from __future__ import annotations
@@ -75,5 +78,5 @@ def config_from_reference(cfg) -> ModelConfig:
 
 
 def params_from_reference(params, cfg) -> tuple[dict, ModelConfig]:
-    out = {k: _convert(v) for k, v in dict(params).items() if k != "layers_stacked"}
+    out = {k: _convert(v) for k, v in dict(params).items()}
     return out, config_from_reference(cfg)

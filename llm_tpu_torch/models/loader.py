@@ -4,7 +4,10 @@ file. Counterpart of llm_tpu/models/loader.py, for the llama tensors.
 Quantized matrices become K-major QTensor planes (the embedding table
 keeps the rows layout); F32/F16/BF16 matrices stay dense [N, K]; norms and
 rope factors are f32 vectors. QKV and gate+up are fused into single
-QTensors when their recipes match, so each runs as one kernel launch.
+QTensors when their recipes match, so each runs as one kernel launch. With
+scan_layers, uniform layers are stacked into one dict of [L, ...] leaves
+(stack_layers) for the scan decoder, whose matmuls read a layer of the
+stacked planes through K7.
 """
 
 from __future__ import annotations
@@ -60,10 +63,57 @@ def fuse_projections(layers: list[dict]) -> None:
                     del layer[k]
 
 
+_QT_META = ("group_size", "ggml_type", "layout", "zp", "pack_tk", "kmajor")
+
+
+def stack_layers(layers: list[dict]) -> dict | None:
+    """Per-layer dicts -> one dict whose leaves carry a leading layer dim
+    [L, ...] (QTensor planes stacked, meta kept), for the scan decoder. None
+    unless the layers are uniform: the same keys, each leaf the same shape
+    and dtype in every layer, and each QTensor the same meta and presence of
+    mins (llm_tpu/models/loader.py::stack_layers, whose tree map refuses the
+    same)."""
+    if not layers:
+        return None
+    keys = list(layers[0])
+    if any(set(layer) != set(keys) for layer in layers):
+        return None
+
+    def stack(ts):
+        if any(t.shape != ts[0].shape or t.dtype != ts[0].dtype for t in ts):
+            raise ValueError("leaves differ")
+        return torch.stack(ts)
+
+    out = {}
+    try:
+        for key in keys:
+            vals = [layer[key] for layer in layers]
+            v0 = vals[0]
+            if isinstance(v0, QTensor):
+                if any(not isinstance(v, QTensor) or (v.mins is None) != (v0.mins is None)
+                       or any(getattr(v, f) != getattr(v0, f) for f in _QT_META)
+                       for v in vals):
+                    return None
+                out[key] = QTensor(
+                    stack([v.qs for v in vals]), stack([v.scales for v in vals]),
+                    None if v0.mins is None else stack([v.mins for v in vals]),
+                    v0.group_size, v0.ggml_type, v0.layout, v0.zp, v0.pack_tk, v0.kmajor)
+            elif isinstance(v0, torch.Tensor) and all(isinstance(v, torch.Tensor)
+                                                      for v in vals):
+                out[key] = stack(vals)
+            else:
+                return None
+    except ValueError:
+        return None
+    return out
+
+
 def load_params(reader: GGUFReader, dense_dtype=torch.bfloat16, device="cuda",
-                fuse: bool = True) -> tuple[dict, ModelConfig]:
+                fuse: bool = True, scan_layers: bool = False) -> tuple[dict, ModelConfig]:
     """Returns (params, cfg); the layout is documented in
-    models/transformer.py::forward."""
+    models/transformer.py::forward. scan_layers: stack uniform layers into
+    params["layers_stacked"] (params["layers"] then empty); layers that
+    stack_layers refuses stay per layer, as in the reference."""
     cfg = config_from_gguf(reader)
     layers: list[dict] = [{} for _ in range(cfg.n_layers)]
     params: dict = {"layers": layers}
@@ -94,4 +144,9 @@ def load_params(reader: GGUFReader, dense_dtype=torch.bfloat16, device="cuda",
                             if isinstance(tok, QTensor) else tok)
     if fuse:
         fuse_projections(layers)
+    if scan_layers:
+        stacked = stack_layers(layers)
+        if stacked is not None:
+            params["layers_stacked"] = stacked
+            params["layers"] = []
     return params, cfg

@@ -16,6 +16,14 @@ layer_tail, and the final norm -> lm_head on the out_idx rows as one
 norm_mm. With gdot=True (LLM_TPU_GDOT=force) every quantized matmul that
 stays unfused routes p4 planes at B <= 16 through K5.
 
+With params["layers_stacked"] (uniform layers stacked by stack_layers, the
+reference's scan decoder, transformer.py:658-688) the layers run from the
+stacked dict: each layer's small leaves (norms) are its row, and its big
+leaves (QTensors, tensors of ndim >= 3) a StackedWeight on the layer's
+index, whose matmuls run K7 on the stacked planes, the index read on the
+card. K6's gates refuse a StackedWeight, as the reference's refuse anything
+but a QTensor: under chain the layers run unchained, the lm_head on K6.
+
 A q8_0 cache with group scales (head_dim not a multiple of 128) has no
 flash kernel, as in the reference: on the CPU it is dequantized (kv_read)
 and goes through the unfused attention; on the card it raises.
@@ -37,6 +45,7 @@ from ..ops.cuda_qmm_chain import head_eligible, is_kmajor_qt, layer_tail, norm_m
 from ..ops.norms import rms_norm
 from ..ops.qmatmul import qembed, qmm
 from ..ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NORM, apply_rope, rope_angles
+from ..quant.qtensor import QTensor, StackedWeight
 from .config import ModelConfig
 
 _UNSUPPORTED = (
@@ -59,10 +68,39 @@ def check_supported(params: dict, cfg: ModelConfig) -> None:
             raise NotImplementedError(f"{what} is not ported yet")
     if cfg.rope.mode not in (ROPE_TYPE_NORM, ROPE_TYPE_NEOX):
         raise NotImplementedError(f"rope mode {cfg.rope.mode} is not ported yet")
-    for layer in params["layers"]:
+    stacked = params.get("layers_stacked")
+    for layer in params["layers"] + ([stacked] if stacked is not None else []):
         extra = set(layer) - _LAYER_KEYS
         if extra:  # LoRA adapters, control vectors, biases, sub-norms
             raise NotImplementedError(f"layer tensors {sorted(extra)} are not ported yet")
+    n_layers = n_stacked(stacked) if stacked is not None else len(params["layers"])
+    if n_layers != cfg.n_layers:
+        raise ValueError(f"params hold {n_layers} layers, the config {cfg.n_layers}")
+
+
+def _leaf(v) -> torch.Tensor:
+    return v.qs if isinstance(v, QTensor) else v
+
+
+def n_stacked(stacked: dict) -> int:
+    """The layer count of a stacked layer dict (stack_layers)."""
+    return _leaf(next(iter(stacked.values()))).shape[0]
+
+
+def layer_views(stacked: dict) -> list[dict]:
+    """The layers of a stacked dict, one dict each, made once per model
+    (the Context keeps them): small leaves (norm vectors) as the layer's
+    row, big ones (QTensors, tensors of ndim >= 3) as a StackedWeight on
+    lids[il:il+1], lids the layer indices int32 [L] made once on the
+    leaves' device (the reference's scan xs and StackedWeight split)."""
+    big = {k: v for k, v in stacked.items() if isinstance(v, QTensor) or v.dim() >= 3}
+    small = {k: v for k, v in stacked.items() if k not in big}
+    n = n_stacked(stacked)
+    lids = torch.arange(n, dtype=torch.int32,
+                        device=_leaf(next(iter(stacked.values()))).device)
+    return [{**{k: v[il] for k, v in small.items()},
+             **{k: StackedWeight(w, lids[il:il + 1]) for k, w in big.items()}}
+            for il in range(n)]
 
 
 def kept_rows(idx: torch.Tensor, n_cells: int) -> torch.Tensor:
@@ -119,11 +157,14 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
             write_idx: torch.Tensor, cell_pos: torch.Tensor,
             cell_seq_bits: torch.Tensor, out_idx: torch.Tensor,
             dtype=torch.bfloat16, chain: bool = False,
-            gdot: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+            gdot: bool = False, stacked_layers: list | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """One decode/prefill step over T tokens. cell_seq_bits: [S, W] int64
     bit-set words. Updates kv_k/kv_v in place. Returns (logits [O, vocab]
     f32, hidden [O, n_embd] f32) for the out_idx rows. chain / gdot: the
-    chained kernel and the group-factored matmul (module docstring)."""
+    chained kernel and the group-factored matmul (module docstring).
+    stacked_layers: for params with "layers_stacked", the per-layer dicts
+    that layer_views makes of them, which the caller makes once."""
     check_supported(params, cfg)
     rope = cfg.rope
     ff = params.get("rope_freqs")
@@ -147,7 +188,13 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
     unfused = (isinstance(kv_k[0], tuple) and kv_k[0][1].shape[-1] != 1
                and not x.is_cuda)
 
-    for il, layer in enumerate(params["layers"]):
+    layers = params["layers"]
+    if params.get("layers_stacked") is not None:
+        if stacked_layers is None:
+            raise ValueError("stacked params run from layer_views' per-layer dicts, "
+                             "made once by the caller")
+        layers = stacked_layers
+    for il, layer in enumerate(layers):
         qkv = None
         if use_chain and head_eligible(layer):
             qkv = norm_mm(x, layer["attn_norm"], layer["attn_qkv_fused"], eps=cfg.rms_eps,

@@ -1,6 +1,8 @@
-"""K1/K2: the fused dequantize x matmul, and K5, its group-factored decode
-form. Counterpart of llm_tpu/ops/pallas_qmm.py::qmm_pallas (K1: p4 planes,
-K2: i8 planes; K5: qmm_pallas(gdot=True) -> _gdot_kernel).
+"""K1/K2: the fused dequantize x matmul, K5, its group-factored decode
+form, and K7, any of them on one layer of depth-stacked planes. Counterpart
+of llm_tpu/ops/pallas_qmm.py::qmm_pallas (K1: p4 planes, K2: i8 planes; K5:
+qmm_pallas(gdot=True) -> _gdot_kernel; K7: qmm_pallas(lidx=...), whose
+scalar-prefetch index maps pick the layer's blocks).
 
     y[b,n] = sum_k x[b,k] * (q[k,n] - zp) * s[k//gs,n] - sum_g xsum[b,g] * m[g,n]
 
@@ -11,8 +13,14 @@ kernel does: per 32-group the dot of x with the raw nibbles, times s[g] in
 f32, then the mins and zero-point terms from the group sums of x, their
 operands rounded to the compute dtype. `qmm_plain` / `qmm_gdot_plain` are
 these functions step by step in PyTorch; `qmm_cuda` launches csrc/qmm.cu.
-`quant_matmul` dispatches on the device of x: CPU tensors take the plain
-version, CUDA tensors the kernel (which raises rather than fall back).
+K7 computes exactly what K1/K2/K5 compute on layer idx of a StackedWeight:
+its plain version is theirs on the layer's copy (`qmm_stacked_plain`), and
+`qmm_stacked_cuda` launches the same kernels (built apart, from
+csrc/qmm_stacked.cu) with the stacked base pointers,
+the per-layer strides and a pointer to the device index, which every CTA
+reads once. `quant_matmul` dispatches on the device of x: CPU tensors take
+the plain version, CUDA tensors the kernel (which raises rather than fall
+back).
 """
 
 from __future__ import annotations
@@ -22,11 +30,11 @@ import ctypes
 import torch
 
 from ..device import full_f32
-from ..quant.qtensor import QTensor
+from ..quant.qtensor import QTensor, StackedWeight, slice_stacked
 from . import cuda_build
 
 # launches of each kernel, counted where the wrapper launches it
-LAUNCHES = {"K1": 0, "K2": 0, "K5": 0}
+LAUNCHES = {"K1": 0, "K2": 0, "K5": 0, "K7": 0}
 # rows up to which the reference takes the group-factored path
 GDOT_MAX_B = 16
 
@@ -93,15 +101,28 @@ def qmm_gdot_plain(x: torch.Tensor, qt: QTensor, cdtype=torch.bfloat16) -> torch
     return y
 
 
-def _lib():
-    lib = cuda_build.load("qmm")
-    fn = lib.qmm_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fn = lib.qmm_gdot_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+def qmm_stacked_plain(x: torch.Tensor, sw: StackedWeight, cdtype=torch.bfloat16,
+                      gdot: bool = False) -> torch.Tensor:
+    """K7's function in plain PyTorch: K1/K2's (K5's with gdot) on layer
+    sw.idx of the stacked planes."""
+    return (qmm_gdot_plain if gdot else qmm_plain)(x, slice_stacked(sw.w, sw.idx), cdtype)
+
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# entry points of each library: K1/K2/K5 (csrc/qmm.cu), K7 (csrc/qmm_stacked.cu)
+_ARGTYPES = {"qmm": {"qmm_launch": [_P] * 5 + [_I] * 7 + [_P],
+                     "qmm_gdot_launch": [_P] * 5 + [_I] * 5 + [_P]},
+             "qmm_stacked": {"qmm_stacked_launch": [_P] * 5 + [_I] * 7 + [_L, _L, _P, _P],
+                             "qmm_gdot_stacked_launch": [_P] * 5 + [_I] * 5 + [_L, _L, _P, _P]}}
+
+
+def _lib(name: str = "qmm"):
+    lib = cuda_build.load(name)
+    fns = _ARGTYPES[name]
+    if getattr(lib, next(iter(fns))).argtypes is None:
+        for fname, args in fns.items():
+            getattr(lib, fname).argtypes = args
+            getattr(lib, fname).restype = ctypes.c_int
     return lib
 
 
@@ -163,13 +184,61 @@ def qmm_cuda(x: torch.Tensor, qt: QTensor, gdot: bool = False) -> torch.Tensor:
     return y
 
 
-def quant_matmul(x: torch.Tensor, qt: QTensor, cdtype=torch.bfloat16,
+def qmm_stacked_cuda(x: torch.Tensor, sw: StackedWeight, gdot: bool = False) -> torch.Tensor:
+    """Launch K7: K1/K2 (K5 with gdot) on layer sw.idx of stacked K-major
+    planes, the index read on the card. x bf16 [B, K] on the card."""
+    qt = sw.w
+    if not isinstance(qt, QTensor) or qt.qs.dim() != 3:
+        raise ValueError("qmm_stacked_cuda: needs a QTensor with [L, ...] planes")
+    B, K = x.shape
+    if not x.is_cuda or x.dtype != torch.bfloat16 or not x.is_contiguous() \
+            or x.data_ptr() % 16:
+        raise ValueError("qmm_stacked_cuda: x must be a contiguous, 16-byte aligned bf16 "
+                         "CUDA tensor")
+    layer = sw.probe
+    check_planes(layer, B, K)  # layer 0's base; the strides below carry it to every layer
+    idx = sw.idx
+    if not (idx.is_cuda and idx.dtype == torch.int32 and idx.numel() == 1):
+        raise ValueError("qmm_stacked_cuda: the layer index must be an int32 [1] CUDA tensor")
+    if sw.layer_bytes is None or any(b % 16 for b in sw.layer_bytes):
+        raise ValueError("qmm_stacked_cuda: every layer's planes must start 16-byte aligned")
+    qs_ls, s_ls = sw.layer_bytes
+    if gdot and not gdot_eligible(layer, B):
+        raise ValueError(f"qmm_stacked_cuda: K5 takes p4 planes at B <= {GDOT_MAX_B}, "
+                         f"K % 256 == 0 (layout={layer.layout} B={B} K={K})")
+    N = layer.out_features
+    y = torch.empty((B, N), dtype=torch.float32, device=x.device)
+    if B == 0:
+        return y
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    mins = qt.mins.data_ptr() if qt.mins is not None else None
+    sbf16 = int(qt.scales.dtype == torch.bfloat16)
+    if gdot:
+        rc = _lib("qmm_stacked").qmm_gdot_stacked_launch(
+            x.data_ptr(), qt.qs.data_ptr(), qt.scales.data_ptr(), mins, y.data_ptr(), B, K, N,
+            qt.zp, sbf16, qs_ls, s_ls, idx.data_ptr(), stream)
+    else:
+        rc = _lib("qmm_stacked").qmm_stacked_launch(
+            x.data_ptr(), qt.qs.data_ptr(), qt.scales.data_ptr(), mins, y.data_ptr(), B, K, N,
+            qt.group_size, qt.zp, int(qt.layout == "p4"), sbf16, qs_ls, s_ls, idx.data_ptr(),
+            stream)
+    cuda_build.check(rc, "qmm_stacked_launch")
+    LAUNCHES["K7"] += 1
+    return y
+
+
+def quant_matmul(x: torch.Tensor, qt: "QTensor | StackedWeight", cdtype=torch.bfloat16,
                  gdot: bool = False) -> torch.Tensor:
     """x [B, K] @ W -> [B, N] f32, by device: the kernel for CUDA tensors,
     the plain version for CPU tensors. gdot: K5 (the caller has checked
-    gdot_eligible) in place of K1."""
+    gdot_eligible) in place of K1. A StackedWeight of K-major planes takes
+    K7."""
+    stacked = isinstance(qt, StackedWeight)
     if x.is_cuda:
         if cdtype != torch.bfloat16:
             raise ValueError("the CUDA qmm kernels compute in bf16")
-        return qmm_cuda(x.to(torch.bfloat16).contiguous(), qt, gdot)
+        xb = x.to(torch.bfloat16).contiguous()
+        return qmm_stacked_cuda(xb, qt, gdot) if stacked else qmm_cuda(xb, qt, gdot)
+    if stacked:
+        return qmm_stacked_plain(x, qt, cdtype, gdot)
     return (qmm_gdot_plain if gdot else qmm_plain)(x, qt, cdtype)

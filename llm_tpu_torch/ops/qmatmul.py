@@ -3,32 +3,40 @@ llm_tpu/ops/qmatmul.py::qmm / qembed.
 
 qmm sends K-major QTensors through K1/K2 (ops/cuda_qmm.py), which pick the
 kernel or its plain version by device; with gdot=True (the reference's
-LLM_TPU_GDOT=force) the shapes its gate admits go to K5 instead. Dense weights ([N, K], as GGUF
-stores F32/F16 tensors) are a plain matmul. qembed is a row gather plus
-dequantization, plain PyTorch on every device.
+LLM_TPU_GDOT=force) the shapes its gate admits go to K5 instead. A
+StackedWeight (the scan decoder's layer of [L, ...] planes) of K-major
+planes goes to K7, which reads the layer on the card; other stacked weights
+take a copy of the layer (the reference's _slice_stacked). Dense weights
+([N, K], as GGUF stores F32/F16 tensors) are a plain matmul. qembed is a
+row gather plus dequantization, plain PyTorch on every device.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..quant.qtensor import QTensor
+from ..quant.qtensor import QTensor, StackedWeight, slice_stacked
 from .cuda_qmm import gdot_eligible, quant_matmul
 
 # compute dtype of the quantized matmul unless the caller names one
 DEFAULT_DTYPE = torch.bfloat16
 
 
-def qmm(x: torch.Tensor, w: "QTensor | torch.Tensor", dtype=None,
+def qmm(x: torch.Tensor, w: "QTensor | torch.Tensor | StackedWeight", dtype=None,
         out_dtype=None, gdot: bool = False) -> torch.Tensor:
     """y[..., n] = sum_k x[..., k] * W[k, n], accumulated in f32. gdot:
     p4 planes at B <= 16 rows with K % 256 == 0 take the group-factored
-    K5; every other shape K1/K2, as the reference routes them."""
+    K5; every other shape K1/K2, as the reference routes them. A
+    StackedWeight of K-major planes takes K7 (with gdot where the layer's
+    shape passes the same gate)."""
     dtype = dtype or DEFAULT_DTYPE
     lead, k = x.shape[:-1], x.shape[-1]
-    if isinstance(w, QTensor):
+    if isinstance(w, StackedWeight) and not (isinstance(w.w, QTensor) and w.w.kmajor):
+        w = slice_stacked(w.w, w.idx)
+    if isinstance(w, (QTensor, StackedWeight)):
         x2 = x.reshape(-1, k)
-        use_gdot = gdot and gdot_eligible(w, x2.shape[0])
+        geo = w.probe if isinstance(w, StackedWeight) else w
+        use_gdot = gdot and gdot_eligible(geo, x2.shape[0])
         y = quant_matmul(x2, w, dtype, use_gdot).reshape(*lead, -1)
     else:
         xw = x.to(w.dtype) if w.dtype != torch.float32 else x

@@ -48,10 +48,51 @@ class QTensor:
         return self.qs.shape[-1] if self.kmajor else self.qs.shape[0]
 
     def to(self, device) -> "QTensor":
-        mv = (lambda t: None if t is None else t.to(device))
-        return QTensor(mv(self.qs), mv(self.scales), mv(self.mins),
+        return self.map(lambda t: t.to(device))
+
+    def map(self, fn) -> "QTensor":
+        """The same meta with fn applied to each plane (mins may be None)."""
+        return QTensor(fn(self.qs), fn(self.scales),
+                       None if self.mins is None else fn(self.mins),
                        self.group_size, self.ggml_type, self.layout, self.zp,
                        self.pack_tk, self.kmajor)
+
+
+class StackedWeight:
+    """Layer `idx` of depth-stacked weights, for the scan decoder.
+    Counterpart of llm_tpu/ops/qmatmul.py::StackedWeight: w is a QTensor
+    whose planes carry a leading layer dim [L, ...] (the meta is every
+    layer's), or a dense [L, N, K] tensor; idx is an int32 tensor [1] on
+    w's device, the counterpart of the reference's scalar-prefetch operand.
+    K7 reads the index on the card, so no launch waits on the host.
+
+    Made once per layer and weight (models/transformer.py::scan_layers), so
+    what K7's wrapper needs of the planes is worked out here, not per call:
+    `probe`, layer 0's planes as views, gives the per-layer geometry
+    (in_features, out_features, the K-major layout), which a stacked
+    QTensor's own properties would read off the layer dim (the reference's
+    `probe`); `layer_bytes` is (qs, scales) bytes from one layer's planes to
+    the next, None unless every plane is contiguous."""
+
+    __slots__ = ("w", "idx", "probe", "layer_bytes")
+
+    def __init__(self, w, idx: torch.Tensor):
+        self.w = w
+        self.idx = idx
+        self.probe = self.layer_bytes = None
+        if isinstance(w, QTensor):
+            self.probe = w.map(lambda t: t[0])
+            planes = [t for t in (w.qs, w.scales, w.mins) if t is not None]
+            if all(t.is_contiguous() for t in planes):
+                self.layer_bytes = tuple(t[0].numel() * t.element_size()
+                                         for t in (w.qs, w.scales))
+
+
+def slice_stacked(w, idx: torch.Tensor):
+    """Layer idx of stacked weights, copied out by an index on the device
+    (no host sync): the reference's _slice_stacked."""
+    take = (lambda t: t.index_select(0, idx).squeeze(0))
+    return w.map(take) if isinstance(w, QTensor) else take(w)
 
 
 def pack_p4(qs_i8, zp: int, tile_k: int = PACK_TK) -> np.ndarray:

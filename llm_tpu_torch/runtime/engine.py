@@ -18,8 +18,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.loader import load_params
-from ..models.transformer import check_supported, forward
+from ..models.loader import load_params, stack_layers
+from ..models.transformer import check_supported, forward, layer_views
 from ..quant.qtensor import QTensor
 from .batch import Batch, sanitize, split_simple
 from .kv_cache import MAX_SEQS, CellTable, new_kv_arrays, pack_seq_sets
@@ -49,7 +49,7 @@ def params_to(params, device):
 class Context:
     def __init__(self, reader=None, n_cells: int = 4096, dtype=torch.bfloat16,
                  device=None, params_cfg=None, kv_dtype=None, chain: bool = False,
-                 gdot: bool = False):
+                 gdot: bool = False, scan_layers: bool = False):
         """Load from a GGUFReader, or take (params, cfg) as made by
         models/synthetic.py or convert_params.py. device None = the card.
         kv_dtype: the cache type, None for `dtype`, a torch dtype, or
@@ -57,15 +57,28 @@ class Context:
         --cache-type-k/v q8_0). chain: decode steps (T <= 8) run the
         chained kernel K6 where its gates admit a layer (the reference's
         LLM_TPU_CHAIN=1); gdot: unfused p4 matmuls at B <= 16 run K5
-        (LLM_TPU_GDOT=force). Both are off by default, as in the reference."""
+        (LLM_TPU_GDOT=force). Both are off by default, as in the reference.
+        scan_layers: stack uniform layers (the reference's lax.scan decoder;
+        here a loop whose matmuls read one layer of the stacked planes, K7);
+        layers that do not stack run per layer, as in the reference. Params
+        that come stacked (params["layers_stacked"]) run stacked whatever the
+        option."""
         self.device = resolve_device(device)
         if params_cfg is not None:
             params, self.cfg = params_cfg
             self.params = params_to(params, self.device)
+            if scan_layers and "layers_stacked" not in self.params:
+                stacked = stack_layers(self.params["layers"])
+                if stacked is not None:
+                    self.params = {**self.params, "layers_stacked": stacked, "layers": []}
         else:
             self.params, self.cfg = load_params(reader, dense_dtype=dtype,
-                                                device=self.device)
+                                                device=self.device, scan_layers=scan_layers)
         check_supported(self.params, self.cfg)
+        self.scan = "layers_stacked" in self.params
+        # the layers' dicts of StackedWeights on the stacked planes, made once
+        self.stacked_layers = (layer_views(self.params["layers_stacked"])
+                               if self.scan else None)
         self.dtype = dtype
         self.chain, self.gdot = chain, gdot
         self.kv_dtype = kv_dtype if kv_dtype is not None else dtype
@@ -82,7 +95,8 @@ class Context:
     def _step(self, tokens, pos, seq, widx, cpos, cbits, oidx):
         logits, _ = forward(self.params, self.cfg, self.kv.k, self.kv.v,
                             tokens, pos, seq, widx, cpos, cbits, oidx,
-                            dtype=self.dtype, chain=self.chain, gdot=self.gdot)
+                            dtype=self.dtype, chain=self.chain, gdot=self.gdot,
+                            stacked_layers=self.stacked_layers)
         return logits
 
     def decode(self, batch: Batch) -> int:

@@ -2,10 +2,12 @@
 planes, a 512-token prefill, then `--tokens` greedy tokens of
 Context.generate_loop under torch.profiler, with a bf16 or a q8_0 KV cache,
 and optionally the chained kernel (--chain, K6) and the group-factored
-matmul (--gdot, K5).
+matmul (--gdot, K5). --scan runs the scan decoder (Context(scan_layers=
+True), K7 on stacked planes) on uniform planes, Q4_K in every matmul and
+the lm_head (a Q4_K_M mix does not stack).
 
     python3 -m llm_tpu_torch.tools.profile_decode [--tokens 16] [--kv-dtype q8_0]
-        [--chain] [--gdot]
+        [--chain] [--gdot] [--scan]
 
 Prints one JSON line: wall ms per token (host clock around synchronized
 work), the device's busy and idle shares over that window (kernel time
@@ -49,7 +51,8 @@ def profile_tokens(ctx: Context, tok: int, n_tokens: int) -> dict:
     n = len(toks)
     return {
         "device": torch.cuda.get_device_name(0), "kv_dtype": str(ctx.kv_dtype),
-        "chain": ctx.chain, "gdot": ctx.gdot, "layers": ctx.cfg.n_layers, "tokens": n,
+        "chain": ctx.chain, "gdot": ctx.gdot, "scan": ctx.scan, "layers": ctx.cfg.n_layers,
+        "tokens": n,
         "wall_ms_per_token": wall_ms / n, "device_busy_ms_per_token": busy_ms / n,
         "busy_share": busy_ms / wall_ms, "idle_share": 1 - busy_ms / wall_ms,
         "device_launches_per_token": launches / n,
@@ -64,15 +67,21 @@ def main(argv=None) -> None:
     ap.add_argument("--kv-dtype", choices=("bf16", "q8_0"), default="bf16")
     ap.add_argument("--chain", action="store_true", help="chained kernel K6 on decode steps")
     ap.add_argument("--gdot", action="store_true", help="group-factored K5 for unfused p4")
+    ap.add_argument("--scan", action="store_true",
+                    help="scan decoder (K7) on uniform Q4_K planes")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode needs a CUDA device")
 
     params, cfg = make_synthetic_model(qtype=GGMLType.Q4_K, device="cuda", on_device=True,
-                                       seed=2, recipe="Q4_K_M", **LLAMA3_8B)
+                                       seed=2, recipe=None if args.scan else "Q4_K_M",
+                                       **LLAMA3_8B)
     ctx = Context(None, n_cells=4096, device="cuda", params_cfg=(params, cfg),
                   kv_dtype="q8_0" if args.kv_dtype == "q8_0" else None,
-                  chain=args.chain, gdot=args.gdot)
+                  chain=args.chain, gdot=args.gdot, scan_layers=args.scan)
+    del params
+    if args.scan and not ctx.scan:
+        raise SystemExit("the planes did not stack")
     prompt = [(i * 104729) % cfg.vocab_size for i in range(512)]
     assert ctx.decode(Batch.text(prompt)) == 0
     tok = ctx.generate_loop(int(ctx.get_logits().argmax()), 8)[-1]  # warm-up

@@ -1,7 +1,8 @@
 """The CUDA kernels (K1/K2 quantized matmul, K3/K4 flash attention,
 K3q/K4q on the int8 KV cache, K5 group-factored matmul, K6 chained layer
-tail and norm + matmul) held against their plain PyTorch versions on the
-card, at small and ragged shapes beside those of chip_smoke.py. Every
+tail and norm + matmul, K7 on stacked planes, the S1 probes) held against
+their plain PyTorch versions on the card, at small and ragged shapes
+beside those of chip_smoke.py. Every
 test here is marked `cuda` and skips without a GPU. The file imports no
 JAX, so on a machine with a card and no JAX it runs as
 
@@ -18,10 +19,10 @@ import torch
 
 from llm_tpu_torch.gguf.constants import GGMLType
 from llm_tpu_torch.models.transformer import quantize_rows
-from llm_tpu_torch.ops import cuda_attn, cuda_qmm, cuda_qmm_chain, qmatmul
-from llm_tpu_torch.ops.cuda_qmm import qmm_gdot_plain, qmm_plain
+from llm_tpu_torch.ops import cuda_attn, cuda_probe, cuda_qmm, cuda_qmm_chain, qmatmul
+from llm_tpu_torch.ops.cuda_qmm import qmm_gdot_plain, qmm_plain, qmm_stacked_plain
 from llm_tpu_torch.ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NORM, RopeParams, rope_angles
-from llm_tpu_torch.quant.qtensor import QTensor, pack_p4_kmajor
+from llm_tpu_torch.quant.qtensor import QTensor, StackedWeight, pack_p4_kmajor
 
 pytestmark = pytest.mark.cuda
 
@@ -246,3 +247,78 @@ def test_k5_k6_raise_rather_than_fall_back(cuda_device):
     w96 = _chain_planes(rng, 512, 96 * 4, "i8g32", torch.bfloat16).to(cuda_device)
     w96.qs, w96.scales = w96.qs[:, :96].contiguous(), w96.scales[:, :96].contiguous()
     assert cuda_qmm_chain.norm_mm(xs[:2], g, w96, eps=1e-5) is None  # the gate, both devices
+
+
+def _stacked(layout, zp, gs, mins, N, K, B, scales_dtype, L=3):
+    """L different layers of _planes, stacked into [L, ...] planes."""
+    layers = [_planes(layout, zp, gs, mins, N, K, B, scales_dtype, seed=il)[1]
+              for il in range(L)]
+    st = (lambda ts: torch.stack(ts))
+    qt = QTensor(st([q.qs for q in layers]), st([q.scales for q in layers]),
+                 None if not mins else st([q.mins for q in layers]), gs, GGMLType.Q4_K,
+                 layout, zp)
+    return _planes(layout, zp, gs, mins, N, K, B, scales_dtype, seed=L)[0], qt
+
+
+K7_PLANES = [  # layout, zp, gs, mins, N, K
+    ("p4", 0, 32, True, 256, 512),     # Q4_K
+    ("p4", 8, 32, False, 264, 512),    # Q4_0, N not a multiple of 16
+    ("p4", 0, 32, True, 1000, 1024),   # ragged N tile
+    ("i8", 0, 16, False, 256, 512),    # Q6_K
+    ("i8", 0, 32, False, 200, 64),     # Q8_0, short K, ragged N
+]
+# stacked K1/K2 at decode and prefill rows; stacked K5 where its gate admits
+K7_CASES = ([(*p, B, False) for p in K7_PLANES for B in (1, 3, 8, 17, 40)]
+            + [(*p, B, True) for p in K7_PLANES if p[0] == "p4" for B in (1, 3, 8, 16)])
+
+
+@pytest.mark.parametrize("layout,zp,gs,mins,N,K,B,gdot", K7_CASES)
+def test_k7_matches_plain_and_unstacked(cuda_device, layout, zp, gs, mins, N, K, B, gdot):
+    """K7 on every layer of a 3-layer stack whose layers differ: against
+    its plain version, and against K1/K2/K5 launched on that layer's own
+    copy (the same arithmetic; f32 atomics may add a split K in another
+    order, a few ulps of max|y|)."""
+    x, qt = _stacked(layout, zp, gs, mins, N, K, B, torch.bfloat16)
+    xd, qd = x.to(cuda_device), qt.to(cuda_device)
+    lids = torch.arange(3, dtype=torch.int32, device=cuda_device)
+    for il in range(3):
+        sw = StackedWeight(qd, lids[il:il + 1])
+        launched = cuda_qmm.LAUNCHES["K7"]
+        got = qmatmul.qmm(xd, sw, gdot=gdot)
+        assert cuda_qmm.LAUNCHES["K7"] == launched + 1
+        want = qmm_stacked_plain(x, StackedWeight(qt, torch.tensor([il], dtype=torch.int32)),
+                                 torch.bfloat16, gdot=gdot)
+        assert (got.cpu() - want).abs().max() <= 1e-3 * want.abs().max()
+        one = cuda_qmm.qmm_cuda(xd, qd.map(lambda t: t[il].contiguous()), gdot=gdot)
+        assert (got - one).abs().max() <= 4e-6 * one.abs().max()
+
+
+def test_k7_raises_on_misaligned_layers(cuda_device):
+    """Layers whose planes would not start 16-byte aligned (bf16 scales of
+    one group row at N = 132: 264 bytes a layer) are refused, not read."""
+    x, qt = _stacked("i8", 0, 32, False, 132, 32, 1, torch.bfloat16)
+    sw = StackedWeight(qt.to(cuda_device), torch.zeros(1, dtype=torch.int32, device=cuda_device))
+    with pytest.raises(ValueError):
+        qmatmul.qmm(x.to(cuda_device), sw)
+    x, qt = _stacked("p4", 0, 32, True, 256, 512, 1, torch.bfloat16)
+    sw = StackedWeight(qt.to(cuda_device), torch.zeros(1, dtype=torch.int64, device=cuda_device))
+    with pytest.raises(ValueError):  # the index must be int32 on the card
+        qmatmul.qmm(x.to(cuda_device), sw)
+
+
+@pytest.mark.parametrize("mode", ["qs", "dma", "deq"])
+@pytest.mark.parametrize("B", [1, 2, 4, 5, 8, 16])
+@pytest.mark.parametrize("zp,mins,N,K", [(0, True, 256, 512), (8, False, 264, 512),
+                                         (0, True, 1000, 1024), (0, True, 512, 4096)])
+def test_probe_kernels_match_plain(cuda_device, zp, mins, N, K, B, mode):
+    """S1 against probe_plain, row by row (cuda_probe.tolerance): the packed
+    bytes' sums are integers below 2^24 (exact in f32 in any order); the
+    scales and mins, the dequantized weights and x are f32 sums in another
+    order, each held at 1e-5 of its own row's sum of magnitudes."""
+    x, qt = _planes("p4", zp, 32, mins, N, K, B, torch.bfloat16)
+    launched = cuda_probe.LAUNCHES["S1"]
+    got = cuda_probe.probe(mode, x.to(cuda_device), qt.to(cuda_device)).cpu()
+    assert cuda_probe.LAUNCHES["S1"] == launched + 1
+    want = cuda_probe.probe_plain(mode, x, qt)
+    assert got.shape == want.shape == (3, N)
+    assert ((got - want).abs().amax(1, keepdim=True) <= cuda_probe.tolerance(mode, x, qt)).all()
