@@ -16,9 +16,16 @@ prints no result line):
      the unstacked kernel on the same layer) at the main path's shapes, held
      against its plain PyTorch version on the card, and timed beside its
      bound, the plain version and one PyTorch library call that computes
-     the same function; then the decode GEMV's probes (S1,
-     tools/kbench.py) at the kbench shapes, each against its plain version
-     and timed beside K1;
+     the same function (K3/K3q's times also beside the kernel table's); then
+     the decode GEMV's probes (S1, tools/kbench.py) at the kbench shapes,
+     each against its plain version and timed beside K1; then the
+     flash-decode probes (S3, tools/kbench_attn.py): K3's split kernel over
+     a stack of 20 head-major (v1) and seq-major (v0) caches at S=1024, the
+     buffer named by an index on the card (buffers 0 and 19 checked, and
+     different), at splits of 256, 512 and 1024 cells and K3's own, and on
+     the int8 cache at S=4096 without the scale multiply, with it in f32,
+     and in bf16 (K3q's dequant), each against its plain version and timed
+     beside its bound and SDPA;
   3. two layers at LLAMA3_8B width: Context.decode of a 64-token prompt and
      8 greedy generate_loop steps, once on the card (kernels) and once on
      the CPU (plain versions), from the same random weights; every step's
@@ -483,6 +490,39 @@ def phase_probes():
     cuda_probe.reset_launches()
     recs = kbench.run(list(kbench.SHAPES), (8, 1), plain=True, log=log)
     return recs, cuda_probe.LAUNCHES["S1"]
+
+
+def phase_attn_probes():
+    """S3 through its entry point's loop (tools/kbench_attn.py): every
+    variant at its TPU probe's shape, v1 and v0 at every split, each against
+    its plain version (timed once a variant), beside its bound and SDPA.
+    Returns the records and the S3 launches of that run (the checks and the
+    captured launches; graph replays are not counted)."""
+    from llm_tpu_torch.ops import cuda_attn_probe
+    from llm_tpu_torch.tools import kbench_attn
+
+    cuda_attn_probe.reset_launches()
+    recs = kbench_attn.run(plain=True, log=log)
+    return recs, cuda_attn_probe.LAUNCHES["S3"]
+
+
+# K3/K3q's rows of PERF.md's kernel table (µs; chip run 7, PR 1 and chip
+# run 1, PR 2, read within 2.8% by every later PR). Their split kernel's body
+# is shared with S3 (csrc/flash_decode.cuh) and must keep their times, so
+# phase 2 logs the times it measures beside these.
+K3_TABLE_US = {("K3", "decode half-masked"): 47.9, ("K3", "decode ragged-S"): 47.2,
+               ("K3", "decode T=8"): 215.5, ("K3q", "decode half-masked"): 63.4,
+               ("K3q", "decode ragged-S"): 61.3, ("K3q", "decode T=8"): 265.2}
+
+
+def log_k3_against_table(results) -> None:
+    ratios = {}
+    for r in results:
+        for (kern, name), us in K3_TABLE_US.items():
+            if r["kernel"] == kern and r["shape"].startswith(name + " "):
+                ratios[f"{kern} {name}"] = {"us": 1e3 * r["ms"], "table_us": us,
+                                            "ratio": 1e3 * r["ms"] / us}
+    log(json.dumps(dict(k3_against_table=ratios)))
 
 
 def gdot_path_shapes(params) -> dict:
@@ -1113,6 +1153,11 @@ REPLACES = {
     "K6": ("llm_tpu_torch/csrc/qmm_chain.cu", "llm_tpu/ops/pallas_qmm_chain.py:107"),
     "K7": ("llm_tpu_torch/csrc/qmm_stacked.cu", "llm_tpu/ops/pallas_qmm.py:481"),
     "S1": ("llm_tpu_torch/csrc/qmm_probe.cu", "scripts/kbench.py:56"),
+    "S3 v1": ("llm_tpu_torch/csrc/flash_probe.cu", "scripts/kbench7.py:102"),
+    "S3 v0": ("llm_tpu_torch/csrc/flash_probe.cu", "scripts/kbench7.py:47"),
+    "S3 noscale": ("llm_tpu_torch/csrc/flash_probe.cu", "scripts/kbench9.py:35"),
+    "S3 full": ("llm_tpu_torch/csrc/flash_probe.cu", "scripts/kbench9.py:35"),
+    "S3 bf16": ("llm_tpu_torch/csrc/flash_probe.cu", "scripts/kbench9.py:35"),
 }
 # the line's timing for each kernel comes from its main-path decode (or
 # prefill) shape; max_abs_err is the largest over every shape checked
@@ -1165,9 +1210,13 @@ def main() -> int:
     t0 = time.perf_counter()
     results = phase_kernels()
     log(f"kernel checks passed in {time.perf_counter() - t0:.1f} s")
+    log_k3_against_table(results)
     t0 = time.perf_counter()
     probes, s1_launches = phase_probes()
     log(f"decode GEMV probes passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    attn_probes, s3_launches = phase_attn_probes()
+    log(f"flash-decode probes passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_two_layers()
     log(f"two-layer card-vs-CPU check passed in {time.perf_counter() - t0:.1f} s")
@@ -1199,7 +1248,7 @@ def main() -> int:
     log(f"LLAMA3_8B scan decoder passed in {time.perf_counter() - t0:.1f} s")
     # each kernel's launches from the path that runs it: K1-K4 from phase 4,
     # K3q/K4q from phase 5, K5 from phase 6, K6 from phase 7, K7 from phase
-    # 8, S1 from the kbench run
+    # 8, S1 from the kbench run, S3 from the kbench_attn run
     counts = {**counts, "K3q": counts_q8["K3q"], "K4q": counts_q8["K4q"],
               "K5": counts_gdot["K5"], "K6": counts_chain["K6"], "K7": counts_scan["K7"]}
 
@@ -1224,6 +1273,22 @@ def main() -> int:
         bound_ms=head["bound_us"]["dma"] / 1e3, bound_by="bytes", library_ms=None,
         shape=head["shape"] + " dma", passed=True, k1_ms=head["us"]["full"] / 1e3,
         qs_ms=head["us"]["qs"] / 1e3, deq_ms=head["us"]["deq"] / 1e3))
+    # S3, one entry a variant: its time at K3's own split (the q8 modes run
+    # at no other); launches are the variant's in the kbench_attn run
+    for variant in ("v1", "v0", "noscale", "full", "bf16"):
+        mine = [r for r in attn_probes if r["variant"] == variant]
+        head = next(r for r in mine if r["split"] == 0)
+        src, rep = REPLACES[f"S3 {variant}"]
+        kernels.append(dict(
+            name=f"S3 {variant}", route="cuda", source=src, replaces=rep,
+            launches=sum(r["launches"] for r in mine),
+            max_abs_err=max(r["max_abs_err"] for r in mine), ms=head["us"] / 1e3,
+            plain_ms=head["plain_us"] / 1e3, bound_ms=head["bound_us"] / 1e3,
+            bound_by=head["bound_by"], library_ms=head["library_us"] / 1e3,
+            shape=head["shape"], passed=True, n_splits=head["n_splits"],
+            sweep_ms={r["cells_per_split"]: r["us"] / 1e3 for r in mine}))
+    if sum(k["launches"] for k in kernels if k["name"].startswith("S3")) != s3_launches:
+        raise AssertionError(f"S3: the variants' launches do not add up to {s3_launches}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

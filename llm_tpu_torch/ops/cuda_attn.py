@@ -138,10 +138,13 @@ def _check_q8(q, q_rot, k, v, cos, sin, bias):
     return dims
 
 
-def _decode_scratch(lib, q, T, H, Hkv, S):
+def _decode_scratch(lib, q, T, H, Hkv, S, n_splits=None):
+    """Scratch and output of a split-S decode launch: n_splits as given, or
+    K3's choice (flash_decode_splits)."""
     dev = q.device
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_splits = lib.flash_decode_splits(S, Hkv, T, H, sms)
+    if n_splits is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        n_splits = lib.flash_decode_splits(S, Hkv, T, H, sms)
     rows = Hkv * T * (H // Hkv) * n_splits
     pm = torch.empty(rows, dtype=torch.float32, device=dev)
     pl = torch.empty(rows, dtype=torch.float32, device=dev)

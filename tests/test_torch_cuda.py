@@ -1,6 +1,7 @@
 """The CUDA kernels (K1/K2 quantized matmul, K3/K4 flash attention,
 K3q/K4q on the int8 KV cache, K5 group-factored matmul, K6 chained layer
-tail and norm + matmul, K7 on stacked planes, the S1 probes) held against
+tail and norm + matmul, K7 on stacked planes, the S1 probes, the S3
+flash-decode layout and q8 probes) held against
 their plain PyTorch versions on the card, at small and ragged shapes
 beside those of chip_smoke.py. Every
 test here is marked `cuda` and skips without a GPU. The file imports no
@@ -19,7 +20,8 @@ import torch
 
 from llm_tpu_torch.gguf.constants import GGMLType
 from llm_tpu_torch.models.transformer import quantize_rows
-from llm_tpu_torch.ops import cuda_attn, cuda_probe, cuda_qmm, cuda_qmm_chain, qmatmul
+from llm_tpu_torch.ops import (cuda_attn, cuda_attn_probe, cuda_probe, cuda_qmm,
+                               cuda_qmm_chain, qmatmul)
 from llm_tpu_torch.ops.cuda_qmm import qmm_gdot_plain, qmm_plain, qmm_stacked_plain
 from llm_tpu_torch.ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NORM, RopeParams, rope_angles
 from llm_tpu_torch.quant.qtensor import QTensor, StackedWeight, pack_p4_kmajor
@@ -322,3 +324,73 @@ def test_probe_kernels_match_plain(cuda_device, zp, mins, N, K, B, mode):
     want = cuda_probe.probe_plain(mode, x, qt)
     assert got.shape == want.shape == (3, N)
     assert ((got - want).abs().amax(1, keepdim=True) <= cuda_probe.tolerance(mode, x, qt)).all()
+
+
+def _s3_stack(variant, T, H, Hkv, S, mode, NB=3):
+    """_attn_inputs with K/V stacks of NB different caches, in the variant's
+    layout: [NB, Hkv, S, D] for v1, [NB, S, Hkv, D] for v0."""
+    t = _attn_inputs(T, H, Hkv, S, mode)
+    g = torch.Generator().manual_seed(S + NB)
+    for n in ("k", "v"):
+        st = torch.randn((NB, Hkv, S, 128), generator=g).to(torch.bfloat16)
+        t[n] = st if variant == "v1" else st.transpose(1, 2).contiguous()
+    return t
+
+
+@pytest.mark.parametrize("split", [None, 64, 100, 1000])
+@pytest.mark.parametrize("T,H,Hkv,S", [(1, 32, 8, 1000), (3, 8, 2, 333), (8, 32, 8, 512)])
+@pytest.mark.parametrize("variant", ["v1", "v0"])
+def test_s3_stacked_kernels_match_plain(cuda_device, variant, T, H, Hkv, S, split):
+    """S3's v1 / v0 against probe_plain on the first and last buffer of a
+    stack, at ragged S, G in {4}, a padding row (row 0), several split
+    sizes; the two buffers' outputs differ (the device-side index is read)."""
+    t = _s3_stack(variant, T, H, Hkv, S, ROPE_TYPE_NORM)
+    dev = {n: a.to(cuda_device) for n, a in t.items()}
+    outs = []
+    for i in (0, 2):
+        lidx = torch.tensor([i], dtype=torch.int32)
+        launched = cuda_attn_probe.LAUNCHES["S3"]
+        got = cuda_attn_probe.probe(variant, **dev, scale=128 ** -0.5,
+                                    lidx=lidx.to(cuda_device), split=split).cpu()
+        assert cuda_attn_probe.LAUNCHES["S3"] == launched + 1
+        want = cuda_attn_probe.probe_plain(variant, **t, scale=128 ** -0.5, lidx=lidx)
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max() <= cuda_attn_probe.tolerance(variant, want)
+        outs.append(got)
+    assert (outs[0] - outs[1]).abs().max() > 1e-2
+
+
+@pytest.mark.parametrize("variant", ["noscale", "full", "bf16"])
+@pytest.mark.parametrize("T,H,Hkv,S", [(1, 32, 8, 1000), (2, 8, 8, 64), (5, 8, 2, 333),
+                                       (8, 4, 4, 4001)])
+def test_s3_q8_kernels_match_plain(cuda_device, variant, T, H, Hkv, S):
+    """S3's q8 modes against probe_plain on the same (int8, scales) pairs;
+    bf16 is K3q's dequant and equals K3q's output bit for bit."""
+    t = _attn_inputs(T, H, Hkv, S, ROPE_TYPE_NEOX)
+    t["k"], t["v"] = _q8(t["k"]), _q8(t["v"])
+    dev = {n: (tuple(x.to(cuda_device) for x in a) if isinstance(a, tuple)
+               else a.to(cuda_device)) for n, a in t.items()}
+    launched = cuda_attn_probe.LAUNCHES["S3"]
+    got = cuda_attn_probe.probe(variant, **dev, scale=128 ** -0.5)
+    assert cuda_attn_probe.LAUNCHES["S3"] == launched + 1
+    want = cuda_attn_probe.probe_plain(variant, **t, scale=128 ** -0.5)
+    assert torch.isfinite(got).all()
+    assert (got.cpu() - want).abs().max() <= cuda_attn_probe.tolerance(variant, want)
+    if variant == "bf16":
+        assert torch.equal(got, cuda_attn.flash_decode(**dev, scale=128 ** -0.5))
+
+
+def test_s3_raises_rather_than_fall_back(cuda_device):
+    """An index that is not an int32 on the card, a stack of the wrong rank
+    or a split of 0 cells is refused."""
+    t = {n: a.to(cuda_device) for n, a in _s3_stack("v1", 1, 8, 2, 64, ROPE_TYPE_NORM).items()}
+    good = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    for lidx in (good.long(), good.cpu(), None, torch.zeros(2, dtype=torch.int32,
+                                                            device=cuda_device)):
+        with pytest.raises(ValueError):
+            cuda_attn_probe.probe_cuda("v1", **t, scale=0.1, lidx=lidx)
+    with pytest.raises(ValueError):
+        cuda_attn_probe.probe_cuda("v1", **{**t, "k": t["k"][0], "v": t["v"][0]}, scale=0.1,
+                                   lidx=good)
+    with pytest.raises(ValueError):
+        cuda_attn_probe.probe_cuda("v1", **t, scale=0.1, lidx=good, split=0)

@@ -17,7 +17,8 @@ import llm_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(llm_tpu_torch.__path__, "llm_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
-assert {"llm_tpu_torch.ops.cuda_qmm_chain", "llm_tpu_torch.tools.kbench"} <= set(mods), mods
+assert {"llm_tpu_torch.ops.cuda_qmm_chain", "llm_tpu_torch.tools.kbench",
+        "llm_tpu_torch.ops.cuda_attn_probe", "llm_tpu_torch.tools.kbench_attn"} <= set(mods), mods
 import chip_smoke
 lazy = set()
 for n in ast.walk(ast.parse(open(chip_smoke.__file__).read())):
@@ -25,7 +26,8 @@ for n in ast.walk(ast.parse(open(chip_smoke.__file__).read())):
         lazy.add(n.module)
         lazy.update(f"{n.module}.{a.name}" for a in n.names if f"{n.module}.{a.name}" in mods)
 assert {"llm_tpu_torch.ops.cuda_qmm_chain", "llm_tpu_torch.tools.profile_decode",
-        "llm_tpu_torch.tools.kbench"} <= lazy
+        "llm_tpu_torch.tools.kbench", "llm_tpu_torch.ops.cuda_attn_probe",
+        "llm_tpu_torch.tools.kbench_attn"} <= lazy
 for m in lazy:
     importlib.import_module(m)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "llm_tpu."))
