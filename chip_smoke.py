@@ -7,8 +7,11 @@
 Phases, each of which raises on failure (the script then exits nonzero and
 prints no result line):
   1. the card's name and power limit; build every kernel from
-     llm_tpu_torch/csrc in parallel (nvcc, sm_90a);
-  2. each kernel (K1/K2 quantized matmul, K3/K4 flash attention, K3q/K4q
+     llm_tpu_torch/csrc in parallel (nvcc, sm_90a); the prefill GEMM's
+     machine code read back (cuobjdump: every qmm_wgmma kernel issues HGMMA
+     and TMA loads, no mma.sync GEMM is left);
+  2. each kernel (K1/K2 quantized matmul, at B > 16 through the wgmma
+     prefill GEMM, also at a ragged B = 300; K3/K4 flash attention, K3q/K4q
      flash attention on the int8 KV cache, whose inputs the port's own
      quantizer makes on the card, K5 group-factored matmul beside K1 at the
      same shapes, K6 chained layer tail / norm + matmul beside the unfused
@@ -128,6 +131,34 @@ def dequant_bf16(qt):
     if qt.mins is not None:
         w = w - qt.mins.float()[:, None, :]
     return w.reshape(K, N).to(torch.bfloat16)
+
+
+def check_gemm_sass() -> dict:
+    """The prefill GEMM's machine code in the built libraries: each of the
+    eight qmm_wgmma kernels of qmm and qmm_stacked issues HGMMA (wgmma) and
+    UTMALDG (TMA tile loads), and no other GEMM kernel is left (the mma.sync
+    qmm_gemm is gone). Read with the toolkit's cuobjdump."""
+    import re
+    from pathlib import Path
+
+    from llm_tpu_torch.ops import cuda_build
+
+    tool = str(Path(cuda_build.nvcc()).parent / "cuobjdump")
+    out = {}
+    for lib in ("qmm", "qmm_stacked"):
+        sass = subprocess.run([tool, "-sass", str(cuda_build.BUILD_DIR / f"lib{lib}.so")],
+                              capture_output=True, text=True, check=True).stdout
+        funcs = {f.split("\n", 1)[0].strip(): f for f in re.split(r"\n\s*Function : ", sass)[1:]}
+        gemm = {k: v for k, v in funcs.items() if "qmm_wgmma" in k}
+        old = [k for k in funcs if "qmm_gemm" in k]
+        hgmma = {k: v.count("HGMMA") for k, v in gemm.items()}
+        tma = {k: v.count("UTMALDG") for k, v in gemm.items()}
+        out[lib] = dict(kernels=len(gemm), hgmma_min=min(hgmma.values(), default=0),
+                        utmaldg_min=min(tma.values(), default=0), old_gemm_kernels=len(old))
+        if len(gemm) != 8 or min(hgmma.values()) == 0 or min(tma.values()) == 0 or old:
+            raise AssertionError(f"lib{lib}.so: prefill GEMM machine code {out[lib]}")
+    log(json.dumps(dict(gemm_sass=out)))
+    return out
 
 
 def check_qmm(results, name, qtype, K, N, B, scales_dtype=torch.bfloat16):
@@ -437,6 +468,9 @@ def phase_kernels():
             check_qmm(results, name, Q6K, K, N, B)
         for name, K, N in (("4096x4096", 4096, 4096), ("down", 14336, 4096)):
             check_qmm(results, name, Q80, K, N, B)
+    # the prefill GEMM past its 128-row tiles at a ragged B (two full tiles
+    # and a 44-row one)
+    check_qmm(results, "gate_up", Q4K, 4096, 28672, 300)
     check_qmm(results, "qkv f32-scales", Q4K, 4096, 6144, 1, torch.float32)
     for B in (1, 128):
         check_qmm(results, "lm_head", Q4K, 4096, 128256, B)
@@ -1172,6 +1206,11 @@ HEADLINE = {"K1": "gate_up Q4_K K=4096 N=28672 B=1",
             "K7": "gate_up Q4_K K=4096 N=28672 B=1",
             # S1's line reads its "dma" probe (every plane streamed, x staged)
             "S1": "gu Q4_K K=4096 N=28672 B=8"}
+# K1/K2/K7's entries also carry their prefill GEMM's time (B = 512) at the
+# largest matmul of a prefill of their planes
+PREFILL_HEADLINE = {"K1": "gate_up Q4_K K=4096 N=28672 B=512",
+                    "K2": "down Q6_K K=14336 N=4096 B=512",
+                    "K7": "gate_up Q4_K K=4096 N=28672 B=512"}
 
 
 def main() -> int:
@@ -1194,8 +1233,9 @@ def main() -> int:
     for name, r in report.items():
         log(f"--- nvcc {name} ({r['seconds']:.1f} s)")
         for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if "registers" in line or "spill" in line or "error" in line or "C75" in line:
                 log("   ", line.strip())
+    check_gemm_sass()
     if sys.argv[1:2] == ["--sweep-seeds"]:
         kinds = sys.argv[2:] or ["q8_0", "chain"]
         if "q8_0" in kinds:
@@ -1264,6 +1304,10 @@ def main() -> int:
             bound_by=head["bound_by"], library_ms=head["library_ms"],
             shape=head["shape"], passed=True,
             **{f: head[f] for f in ("k1_ms", "unfused_ms", "unstacked_ms") if f in head}))
+        if k in PREFILL_HEADLINE:
+            pre = next(r for r in mine if r["shape"] == PREFILL_HEADLINE[k])
+            kernels[-1]["prefill"] = {f: pre[f] for f in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     head = next(r for r in probes if r["shape"] == HEADLINE["S1"])
     src, rep = REPLACES["S1"]
     kernels.append(dict(

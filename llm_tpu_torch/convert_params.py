@@ -66,7 +66,36 @@ def _convert(obj):
     return _tensor(obj)
 
 
+# the reference ModelConfig's fields that the port's config does not model,
+# with the reference's defaults (llm_tpu/models/config.py): a config that
+# sets one of them describes a graph the port would run wrongly (fused_tp:
+# shard-major fused QKV and gate+up planes, which the port would split as
+# segment-major), so config_from_reference refuses it
+UNMODELED_DEFAULTS = {
+    "expert_weights_norm": False, "expert_weights_scale": 1.0, "n_ff_expert": 0,
+    "expert_gating_func": "softmax", "ep_cf": 0.0, "qk_norm_full": False,
+    "qk_norm_ln": False, "nonparam_norm": False, "swa_pattern": 0, "rope_swa": None,
+    "nope_global_layers": False, "swa_chunked": False, "attn_temp_scale": 0.0,
+    "attn_temp_floor": 8192, "qk_l2_norm": False, "expert_weight_before": False,
+    "ssm_d_conv": 0, "ssm_d_inner": 0, "ssm_d_state": 0, "ssm_dt_rank": 0,
+    "ssm_n_group": 0, "ssm_dt_b_c_rms": False, "wkv_head_size": 0, "rescale_every_n": 0,
+    "q_lora_rank": 0, "qk_rope_dim": 0, "t5_rel_buckets": 0, "dec_start_token": -1,
+    "moe_every_n": 0, "altup_n": 0, "altup_act": 0, "n_embd_altup": 0, "n_kv_layers": 0,
+    "act_sparsity": None, "swa_layers": None, "n_heads_list": None,
+    "n_kv_heads_list": None, "fused_tp": 1,
+}
+_MISSING = object()
+
+
 def config_from_reference(cfg) -> ModelConfig:
+    """The port's ModelConfig for a reference config. Raises
+    NotImplementedError when a field the port does not model is set off the
+    reference's default."""
+    for name, default in UNMODELED_DEFAULTS.items():
+        value = _get(cfg, name, _MISSING)
+        if value is not _MISSING and value != default:
+            raise NotImplementedError(f"config field {name}={value!r} is not ported yet "
+                                      f"(the port runs only {name}={default!r})")
     fields = {f.name for f in dataclasses.fields(ModelConfig)}
     kw = {name: _get(cfg, name) for name in fields if _get(cfg, name) is not None}
     rope = _get(cfg, "rope")

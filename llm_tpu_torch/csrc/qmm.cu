@@ -8,13 +8,14 @@
 // x bf16 [B, K]; qs uint8 [K/2, N] (p4) or int8 [K, N] (i8); scales and
 // mins [K/gs, N] f32 or bf16 (mins may be null); y f32 [B, N].
 // Requirements (checked by the Python wrapper): p4 -> K % 256 == 0, gs 32;
-// i8 -> K % 32 == 0, gs 16 or 32; B > 16 -> K % 64 == 0.
+// i8 -> K % 32 == 0, gs 16 or 32; B > 16 -> K % 64 == 0. split: the prefill
+// GEMM's K ranges per tile (ops/cuda_qmm.py::gemm_split; unused at B <= 16).
 extern "C" int qmm_launch(const void* x, const void* qs, const void* scales,
                           const void* mins, void* y, int B, int K, int N,
-                          int gs, int zp, int p4, int scales_bf16,
+                          int gs, int zp, int p4, int scales_bf16, int split,
                           void* stream) {
-  return qmm_any<false>(x, qs, scales, mins, y, B, K, N, gs, zp, p4, scales_bf16,
-                        Stack{nullptr, 0, 0}, stream);
+  return qmm_any<false>(x, qs, scales, mins, y, B, K, N, gs, zp, p4, scales_bf16, split,
+                        Stack{nullptr, 0, 0}, 1, stream);
 }
 
 // K5: the group-factored decode GEMV on p4 planes (gs 32). Requirements

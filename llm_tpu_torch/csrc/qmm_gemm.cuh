@@ -1,0 +1,637 @@
+// K1/K2/K7's prefill GEMM (B > 16) for Hopper (sm_90a): the B > 16 regime
+// of llm_tpu/ops/pallas_qmm.py::qmm_pallas -> _qmm_kernel_p4 / _p4_m (K1),
+// _qmm_kernel_i8 / _i8_m (K2), and their stacked mode qmm_pallas(lidx=...)
+// (K7). It computes what the decode GEMV computes (qmm_kernels.cuh):
+//
+//   y[b,n] = sum_k x[b,k] * (q[k,n] - zp) * s[k/gs,n]  -  sum_g xsum[b,g] * m[g,n]
+//
+// with x bf16 [B, K], the planes K-major (p4 uint8 [K/2, N] in 256-row pack
+// tiles, low nibble k = t, high nibble k = t + 128; or i8 [K, N]), s and m
+// [K/gs, N] in bf16 or f32, y f32 [B, N].
+//
+// Bound: operations at the main path's prefill shapes (2 B K N at B = 512
+// is 2-4x the planes' bytes over the HBM rate). This kernel does twice
+// those operations (below), so its floor is twice the operations bound.
+//
+// Exact group arithmetic. The mins fold into the weight, w' = (q - zp) * s
+// - m in f32 (sum_g xsum[b,g] m[g,n] = sum_k x[b,k] m[k/gs,n]), and w' is
+// split into bf16 hi = bf16(w') and lo = bf16(w' - hi). x @ hi + x @ lo
+// accumulate in one f32 accumulator on the tensor cores: no per-group
+// epilogue breaks the chain of matrix instructions, and the result is
+// within ~1e-6 of max|y| of the f32 reference (a single bf16 rounding of
+// w, as the TPU kernel rounds it, misses the 1e-3 * max|y| check by
+// 1.4-1.6x; tests/test_torch_qmm_gemm.py).
+//
+// Shape of the kernel (the Hopper GEMM of the hopper-kernels guide):
+//  * a CTA computes a 256 (n) x 128 (b) tile of y over a range of K; 384
+//    threads: two consumer warpgroups of 128 columns each, and a producer
+//    warpgroup whose first warp works (setmaxnreg moves the registers: 40
+//    a producer thread, 232 a consumer thread). The CTAs are persistent
+//    (one per SM) and walk a list of (n tile, b tile, K split) items;
+//    split-K partial tiles meet in y through f32 atomics after a memset.
+//    The split is chosen by the wrapper (ops/cuda_qmm.py::gemm_split) by a
+//    cost model of item waves; the launch computes the items and the grid
+//    (attn_k and attn_v at B = 512: 16 tiles x split 8, 128 CTAs).
+//  * a ring of 2-4 stages in shared memory, each 128 k deep: two 64-wide
+//    x chunks (128 rows, 128-byte swizzle, by TMA; the rows past B read as
+//    zero), the plane rows that hold those k (p4: 64 packed rows whose low
+//    and high nibbles are the two chunks, so each packed byte is read once;
+//    i8: 128 rows) as two 128-column halves in the 128-byte swizzle, and
+//    their scales and mins. The producer keeps them in flight with TMA
+//    (cp.async.bulk.tensor, mbarrier completion) wherever the planes'
+//    strides allow it (N % 16 == 0: every main-path shape). Otherwise (N =
+//    264, 1000, ...) its 32 lanes gather the planes and group rows with
+//    bounds checks into the same layout and arrive on the stage's barrier;
+//    x still comes by TMA. K7 reads its layer index on the card once per
+//    CTA: a 3-D tensor map [L, rows, N] takes it as a coordinate.
+//  * wgmma with the weights as the register A operand: y^T = w'^T x^T,
+//    m64n128k16, A = 64 columns of w' x 16 k (each thread dequantizes its
+//    own fragment from the staged bytes: two adjacent columns at 4 k, one
+//    2-byte shared load a k, so no dequantized weight goes back to shared
+//    memory), B = the x chunk read from shared memory by its descriptor.
+//    Each warpgroup holds two 64-column slices (128 f32 accumulators a
+//    thread), interleaved so that a thread's rows are four adjacent columns
+//    of y: accumulator row r of warp w, slice j, is column 32 w + 4 (r mod
+//    8) + 2 j + (r >= 8) of the warpgroup's 128. Its scales and mins come
+//    in one 4-wide load, and its results go out as 16-byte stores (or
+//    16-byte f32 atomics when K is split). One hi/lo pair of wgmma a slice
+//    and k16 step; the fragments rotate through 4 register sets, so up to
+//    3 pairs run on the tensor cores while the next is dequantized
+//    (wgmma.wait_group 3).
+//  * one item = one tile over its K range; the consumers release a stage
+//    as soon as a wait in the next stage has retired the last matrix
+//    instruction that read it.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+#include "qmm_gemv.cuh"  // sm_count
+
+namespace {
+
+constexpr int GM_TILE_N = 256;                  // columns of y per tile
+constexpr int GM_TILE_B = 128;                  // rows of y per tile (wgmma N)
+constexpr int GM_UNIT_K = 128;                  // k per stage
+constexpr int GM_CONSUMERS = 256;               // two warpgroups
+constexpr int GM_THREADS = GM_CONSUMERS + 128;  // and a producer warpgroup (one warp works)
+constexpr int GM_PRODUCER_REGS = 40;            // setmaxnreg: 2 x 128 x 232 + 128 x 40 <= 64 K
+constexpr int GM_CONSUMER_REGS = 232;
+constexpr int GM_INFLIGHT = 3;                  // wgmma groups in flight a warpgroup
+constexpr int GM_SMEM_CAP = 232448 - 2048;      // dynamic shared memory a CTA may take
+constexpr int GM_RAGGED_ARRIVALS = 33;          // lane 0's expect_tx, then all 32 lanes
+
+template <bool P4, bool SBF16, bool MINS>
+struct GemmSmem {
+  static constexpr int X_CHUNK = GM_TILE_B * 64 * 2;  // 128 rows x 64 k of bf16
+  static constexpr int W_ROWS = P4 ? 64 : 128;        // plane rows of a stage
+  static constexpr int W_HALF = W_ROWS * 128;         // 128 columns of them
+  static constexpr int G_ROWS = P4 ? 4 : 8;           // group rows (i8: gs 16 or 32)
+  static constexpr int ES = SBF16 ? 2 : 4;
+  static constexpr int G_BYTES = G_ROWS * GM_TILE_N * ES;
+  static constexpr int W_OFF = 2 * X_CHUNK;
+  static constexpr int S_OFF = W_OFF + 2 * W_HALF;
+  static constexpr int M_OFF = S_OFF + G_BYTES;
+  static constexpr int STAGE = M_OFF + (MINS ? G_BYTES : 0);  // a multiple of 1024
+  static constexpr int STAGES = GM_SMEM_CAP / STAGE > 4 ? 4 : GM_SMEM_CAP / STAGE;
+  static constexpr int BYTES = STAGES * STAGE + 1024;  // + slack to align to 1024
+};
+
+struct GemmArgs {
+  const uint8_t* qs;  // the planes (layer 0 of a stack), read directly on the ragged path
+  const void* sc;
+  const void* mn;
+  float* y;
+  const int* lidx;  // K7: the layer index in device memory; null for K1/K2
+  long long qs_ls, s_ls;  // bytes from one layer's qs / scales (= mins) to the next
+  int B, K, N, gs, zp, split, n_items, tma_w;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                       int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                       int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving reads of the accumulators across a wait
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// descriptor of a K-major bf16 operand in the 128-byte swizzle: rows of 128
+// bytes, 8-row atoms 1024 bytes apart
+__device__ __forceinline__ uint64_t x_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)64 << 32) |
+         ((uint64_t)1 << 62);
+}
+
+// d[64] += A[64 x 16] (registers, bf16) x B[16 x 128] (shared memory, x)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                         int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// the integer (q - zp) of byte i of v as an f32: 2^23 + byte, minus base
+// (2^23 + zp for nibbles; 2^23 + 128 + zp for int8 bytes with their sign
+// bit flipped), exact
+__device__ __forceinline__ float q_of(uint32_t v, int i, float base) {
+  return __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7540 | i)) - base;
+}
+
+// two weights of consecutive k -> bf16x2 hi and lo (the lower k in the low
+// half), hi + lo = w to 16 bits
+__device__ __forceinline__ void split_hilo(float w0, float w1, uint32_t& hi, uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(w0, w1);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  __nv_bfloat162 l = __floats2bfloat162_rn(w0 - __uint_as_float(hi << 16),
+                                           w1 - __uint_as_float(hi & 0xFFFF0000u));
+  lo = *reinterpret_cast<uint32_t*>(&l);
+}
+
+template <bool MINS>
+__device__ __forceinline__ float fold(float q, float s, float m) {
+  return MINS ? fmaf(q, s, -m) : q * s;
+}
+
+// a thread's A fragment (hi and lo) from two byte words: xa = [even col @ k,
+// odd col @ k, even @ k+1, odd @ k+1] at k = 2 t4, xb the same at k = 2 t4 + 8.
+// Registers: 0 = (row gid = even col, k, k+1), 1 = (row gid + 8 = odd col,
+// k, k+1), 2 and 3 the same at k + 8.
+template <bool P4, bool MINS>
+__device__ __forceinline__ void dequant(uint32_t xa, uint32_t xb, bool high, float base,
+                                        float se, float so, float me, float mo,
+                                        uint32_t (&fh)[4], uint32_t (&fl)[4]) {
+  uint32_t ya, yb;
+  if (P4) {
+    ya = (high ? xa >> 4 : xa) & 0x0F0F0F0Fu;
+    yb = (high ? xb >> 4 : xb) & 0x0F0F0F0Fu;
+  } else {
+    ya = xa ^ 0x80808080u;
+    yb = xb ^ 0x80808080u;
+  }
+  split_hilo(fold<MINS>(q_of(ya, 0, base), se, me), fold<MINS>(q_of(ya, 2, base), se, me),
+             fh[0], fl[0]);
+  split_hilo(fold<MINS>(q_of(ya, 1, base), so, mo), fold<MINS>(q_of(ya, 3, base), so, mo),
+             fh[1], fl[1]);
+  split_hilo(fold<MINS>(q_of(yb, 0, base), se, me), fold<MINS>(q_of(yb, 2, base), se, me),
+             fh[2], fl[2]);
+  split_hilo(fold<MINS>(q_of(yb, 1, base), so, mo), fold<MINS>(q_of(yb, 3, base), so, mo),
+             fh[3], fl[3]);
+}
+
+// byte offset of (plane row r, byte column c < 128) in a 128-byte-swizzled half
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * 128 + ((((c >> 4) ^ r) & 7) << 4) + (c & 15);
+}
+
+struct Item {
+  int n0, b0, u0, u1;
+};
+
+__device__ __forceinline__ Item item_of(int item, const GemmArgs& a) {
+  const int nbt = (a.B + GM_TILE_B - 1) / GM_TILE_B;
+  const int units = (a.K + GM_UNIT_K - 1) / GM_UNIT_K;
+  const int bt = item % nbt, rest = item / nbt;
+  const int ks = rest % a.split, nt = rest / a.split;
+  return Item{nt * GM_TILE_N, bt * GM_TILE_B, units * ks / a.split,
+              units * (ks + 1) / a.split};
+}
+
+// the producer's share of a stage on the ragged path, gathered by its 32
+// lanes with bounds checks (zeros outside) into the TMA path's layout:
+// plane rows [row0, row0 + W_ROWS) x columns [n0, n0 + 256) ...
+template <bool P4>
+__device__ __forceinline__ void gather_rows(uint8_t* w, const uint8_t* qs, int lane, int n0,
+                                            int row0, const GemmArgs& a) {
+  using L = GemmSmem<P4, true, false>;
+  const int R = P4 ? a.K / 2 : a.K;
+  for (int i = lane; i < L::W_ROWS * (GM_TILE_N / 4); i += 32) {
+    const int r = i / (GM_TILE_N / 4), c4 = (i % (GM_TILE_N / 4)) * 4;
+    uint32_t v = 0;
+    if (row0 + r < R) {
+      const uint8_t* src = qs + (size_t)(row0 + r) * a.N;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (n0 + c4 + e < a.N) v |= (uint32_t)src[n0 + c4 + e] << (8 * e);
+    }
+    *reinterpret_cast<uint32_t*>(w + (c4 >> 7) * L::W_HALF + swz(r, c4 & 127)) = v;
+  }
+}
+
+// ... and the stage's group rows of scales or mins (p4: two rows from each
+// x chunk; i8: 128 / gs rows)
+template <bool P4, bool SBF16>
+__device__ __forceinline__ void gather_groups(uint8_t* s, const void* src, int lane, int n0,
+                                              int kx0, int kx1, const GemmArgs& a) {
+  using L = GemmSmem<P4, SBF16, false>;
+  const int G = a.K / a.gs, rows = P4 ? 4 : GM_UNIT_K / a.gs;
+  for (int i = lane; i < L::G_ROWS * GM_TILE_N; i += 32) {
+    const int gr = i / GM_TILE_N, n = n0 + i % GM_TILE_N;
+    const int g = P4 ? (gr < 2 ? kx0 / 32 + gr : kx1 / 32 + gr - 2) : kx0 / a.gs + gr;
+    const bool ok = gr < rows && g < G && n < a.N;
+    if (SBF16)
+      reinterpret_cast<uint16_t*>(s)[i] =
+          ok ? reinterpret_cast<const uint16_t*>(src)[(size_t)g * a.N + n] : 0;
+    else
+      reinterpret_cast<uint32_t*>(s)[i] =
+          ok ? reinterpret_cast<const uint32_t*>(src)[(size_t)g * a.N + n] : 0;
+  }
+}
+
+// a thread's four adjacent columns' values of a group row (idx % 4 == 0)
+template <bool SBF16>
+__device__ __forceinline__ void ld_quad(const uint8_t* base, int idx, float (&v)[4]) {
+  if (SBF16) {
+    const uint2 u = *reinterpret_cast<const uint2*>(base + idx * 2);
+    v[0] = __uint_as_float(u.x << 16);
+    v[1] = __uint_as_float(u.x & 0xFFFF0000u);
+    v[2] = __uint_as_float(u.y << 16);
+    v[3] = __uint_as_float(u.y & 0xFFFF0000u);
+  } else {
+    const float4 f = *reinterpret_cast<const float4*>(base + idx * 4);
+    v[0] = f.x;
+    v[1] = f.y;
+    v[2] = f.z;
+    v[3] = f.w;
+  }
+}
+
+template <bool P4, bool SBF16, bool MINS>
+__global__ void __launch_bounds__(GM_THREADS, 1)
+qmm_wgmma(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
+          const __grid_constant__ CUtensorMap tms, const __grid_constant__ CUtensorMap tmm,
+          const GemmArgs a) {
+  using L = GemmSmem<P4, SBF16, MINS>;
+  extern __shared__ uint8_t dyn_smem[];
+  __shared__ __align__(8) uint64_t bars[8];  // full[0..3], empty[4..7]
+  const uint32_t raw = smem_u32(dyn_smem);
+  uint8_t* smem = dyn_smem + (((raw + 1023) & ~1023u) - raw);
+  const uint32_t smem_a = smem_u32(smem);
+  const uint32_t full0 = smem_u32(&bars[0]), empty0 = smem_u32(&bars[4]);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, a.tma_w ? 1 : GM_RAGGED_ARRIVALS);
+      mbar_init(empty0 + 8 * s, GM_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x >= GM_CONSUMERS) {
+    // ---------------- producer warpgroup ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(GM_PRODUCER_REGS));
+    if (threadIdx.x >= GM_CONSUMERS + 32) return;
+    const int layer = a.lidx != nullptr ? __ldg(a.lidx) : 0;
+    const uint8_t* qs = a.qs + (long long)layer * a.qs_ls;
+    const void* sc = static_cast<const char*>(a.sc) + (long long)layer * a.s_ls;
+    const void* mn =
+        MINS ? static_cast<const void*>(static_cast<const char*>(a.mn) + (long long)layer * a.s_ls)
+             : nullptr;
+    const int g_box = (P4 ? 2 : GM_UNIT_K / a.gs) * GM_TILE_N * L::ES;
+    const uint32_t tx = 2 * L::X_CHUNK +
+                        (a.tma_w ? 2 * L::W_HALF + (P4 ? 2 : 1) * g_box * (MINS ? 2 : 1) : 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int it = blockIdx.x; it < a.n_items; it += gridDim.x) {
+      const Item t = item_of(it, a);
+      for (int u = t.u0; u < t.u1; ++u) {
+        mbar_wait(empty0 + 8 * stage, phase ^ 1);
+        const uint32_t st = smem_a + stage * L::STAGE, full = full0 + 8 * stage;
+        uint8_t* stp = smem + stage * L::STAGE;
+        // x chunks and plane rows of this unit (p4: the two chunks are the
+        // low and high nibbles of the same 64 packed rows)
+        const int kx0 = P4 ? 256 * (u >> 1) + 64 * (u & 1) : GM_UNIT_K * u;
+        const int kx1 = kx0 + (P4 ? 128 : 64);
+        const int row0 = P4 ? 128 * (u >> 1) + 64 * (u & 1) : GM_UNIT_K * u;
+        if (lane == 0) {
+          mbar_expect_tx(full, tx);
+          tma_2d(st, &tmx, full, kx0, t.b0);
+          tma_2d(st + L::X_CHUNK, &tmx, full, kx1, t.b0);
+          if (a.tma_w) {
+            tma_3d(st + L::W_OFF, &tmw, full, t.n0, row0, layer);
+            tma_3d(st + L::W_OFF + L::W_HALF, &tmw, full, t.n0 + 128, row0, layer);
+            if (P4) {
+              tma_3d(st + L::S_OFF, &tms, full, t.n0, kx0 / 32, layer);
+              tma_3d(st + L::S_OFF + g_box, &tms, full, t.n0, kx1 / 32, layer);
+              if (MINS) {
+                tma_3d(st + L::M_OFF, &tmm, full, t.n0, kx0 / 32, layer);
+                tma_3d(st + L::M_OFF + g_box, &tmm, full, t.n0, kx1 / 32, layer);
+              }
+            } else {
+              tma_3d(st + L::S_OFF, &tms, full, t.n0, kx0 / a.gs, layer);
+              if (MINS) tma_3d(st + L::M_OFF, &tmm, full, t.n0, kx0 / a.gs, layer);
+            }
+          }
+        }
+        if (!a.tma_w) {
+          gather_rows<P4>(stp + L::W_OFF, qs, lane, t.n0, row0, a);
+          gather_groups<P4, SBF16>(stp + L::S_OFF, sc, lane, t.n0, kx0, kx1, a);
+          if (MINS) gather_groups<P4, SBF16>(stp + L::M_OFF, mn, lane, t.n0, kx0, kx1, a);
+          mbar_arrive(full);
+        }
+        if (++stage == L::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---------------- consumer warpgroups ----------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(GM_CONSUMER_REGS));
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int gid = lane >> 2, t4 = lane & 3;
+  const float base = 8388608.f + (P4 ? 0.f : 128.f) + (float)a.zp;
+  const int gshift = (!P4 && a.gs == 16) ? 0 : 1;  // i8: k16 steps per group, log2
+  // this thread's four columns within the tile (slice j: 2 j and 2 j + 1)
+  const int ncol = 128 * wg + 32 * warp + 4 * gid;
+  const bool atomic_out = a.split > 1, quad_n = (a.N & 3) == 0;
+
+  float acc[2][64];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[j][i] = 0.f;
+  uint32_t fh[2][2][4], fl[2][2][4];  // [k16 step parity][slice]: hi and lo fragments
+
+  int stage = 0, pending = -1;
+  uint32_t phase = 0;
+  for (int it = blockIdx.x; it < a.n_items; it += gridDim.x) {
+    const Item t = item_of(it, a);
+    for (int u = t.u0; u < t.u1; ++u) {
+      mbar_wait(full0 + 8 * stage, phase);
+      const uint8_t* stp = smem + stage * L::STAGE;
+      const uint8_t* wsm = stp + L::W_OFF + wg * L::W_HALF;
+      const uint32_t xs = smem_a + stage * L::STAGE;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        uint32_t rw[2][2];  // per slice: the byte words at k = 2 t4 and 2 t4 + 8
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (P4 ? h == 0 : true) {
+            const int r = 16 * (P4 ? p : 2 * p + h) + 2 * t4;
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int c = 32 * warp + 4 * gid + 2 * j;
+              const uint32_t v0 = *reinterpret_cast<const uint16_t*>(wsm + swz(r, c));
+              const uint32_t v1 = *reinterpret_cast<const uint16_t*>(wsm + swz(r + 1, c));
+              const uint32_t v8 = *reinterpret_cast<const uint16_t*>(wsm + swz(r + 8, c));
+              const uint32_t v9 = *reinterpret_cast<const uint16_t*>(wsm + swz(r + 9, c));
+              rw[j][0] = __byte_perm(v0, v1, 0x5410);
+              rw[j][1] = __byte_perm(v8, v9, 0x5410);
+            }
+          }
+          const int chunk = P4 ? h : (2 * p + h) >> 2;
+          const int kk = P4 ? p : (2 * p + h) & 3;
+          const int grow = P4 ? 2 * h + (p >> 1) : (2 * p + h) >> gshift;
+          const uint64_t desc = x_desc(xs + chunk * L::X_CHUNK + kk * 32);
+          const int zero = (u == t.u0 && p == 0 && h == 0) ? 0 : 1;
+          float sv[4], mv[4] = {0.f, 0.f, 0.f, 0.f};
+          ld_quad<SBF16>(stp + L::S_OFF, grow * GM_TILE_N + ncol, sv);
+          if (MINS) ld_quad<SBF16>(stp + L::M_OFF, grow * GM_TILE_N + ncol, mv);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            // the set written here was last read GM_INFLIGHT + 1 groups ago
+            dequant<P4, MINS>(rw[j][0], rw[j][1], P4 && h == 1, base, sv[2 * j],
+                              sv[2 * j + 1], mv[2 * j], mv[2 * j + 1], fh[h][j], fl[h][j]);
+            wg_fence();
+            wgmma_rs(acc[j], fh[h][j], desc, zero);
+            wgmma_rs(acc[j], fl[h][j], desc, 1);
+            wg_commit();
+            wg_wait<GM_INFLIGHT>();
+            if ((2 * p + h) * 2 + j == GM_INFLIGHT && pending >= 0) {
+              // every matrix instruction that read the previous stage is done
+              __syncwarp();
+              if (lane == 0) mbar_arrive(empty0 + 8 * pending);
+              pending = -1;
+            }
+          }
+        }
+      }
+      pending = stage;
+      if (++stage == L::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wg_wait<0>();
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * pending);
+    pending = -1;
+
+    // epilogue: slice j's d[4i + e] is (column n + 2 j, row b) and d[4i + 2 + e]
+    // (n + 2 j + 1, b), with b = b0 + 8 i + 2 t4 + e
+    const int n = t.n0 + ncol;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int b = t.b0 + 8 * i + 2 * t4 + e;
+        if (b >= a.B) continue;
+        float* yp = a.y + (size_t)b * a.N + n;
+        const float4 v = make_float4(acc[0][4 * i + e], acc[0][4 * i + 2 + e],
+                                     acc[1][4 * i + e], acc[1][4 * i + 2 + e]);
+        if (quad_n && n + 3 < a.N) {
+          if (atomic_out) atomicAdd(reinterpret_cast<float4*>(yp), v);
+          else *reinterpret_cast<float4*>(yp) = v;
+        } else {
+          const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (n + c < a.N) {
+              if (atomic_out) atomicAdd(yp + c, vs[c]);
+              else yp[c] = vs[c];
+            }
+        }
+      }
+  }
+}
+
+// ----------------------------------------------------------------------------
+// host side: tensor maps and the launch
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (a libcuda entry point), found through the runtime's
+// entry-point query (no -lcuda)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// error codes of the GEMM's host side (beside cudaError_t's)
+constexpr int GM_ERR_NO_ENCODER = 9001, GM_ERR_ENCODE = 9002;
+
+// a 2-D or 3-D tiled map; dims and box innermost first, strides in bytes
+inline int make_map(CUtensorMap* m, CUtensorMapDataType dt, int rank, const void* base,
+                    const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                    CUtensorMapSwizzle swz) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return GM_ERR_NO_ENCODER;
+  const cuuint32_t es[3] = {1, 1, 1};
+  const CUresult r = fn(m, dt, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box, es,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : GM_ERR_ENCODE;
+}
+
+// the prefill GEMM on planes qs/sc/mn (K7: layer *lidx of n_layers stacked
+// ones, qs_ls / s_ls bytes apart); split: K ranges per tile (the wrapper's
+// gemm_split). Returns 0 or an error code; the launch's own error is left
+// for cudaGetLastError.
+template <bool P4, bool SBF16, bool MINS>
+int launch_gemm(cudaStream_t st, const __nv_bfloat16* x, int B, int K, const uint8_t* qs,
+                const void* sc, const void* mn, float* y, int N, int gs, int zp, int split,
+                const int* lidx, long long qs_ls, long long s_ls, int n_layers) {
+  using L = GemmSmem<P4, SBF16, MINS>;
+  static bool attr = false;
+  if (!attr) {
+    cudaFuncSetAttribute(qmm_wgmma<P4, SBF16, MINS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         L::BYTES);
+    attr = true;
+  }
+  const int R = P4 ? K / 2 : K, G = K / gs, units = (K + GM_UNIT_K - 1) / GM_UNIT_K;
+  split = split < 1 ? 1 : (split > units ? units : split);
+  const long long L_ = n_layers < 1 ? 1 : n_layers;
+  GemmArgs a{qs, sc, mn, y, lidx, lidx ? qs_ls : (long long)R * N,
+             lidx ? s_ls : (long long)G * N * L::ES, B, K, N, gs, zp, split, 0,
+             N % 16 == 0};
+  a.n_items = ((N + GM_TILE_N - 1) / GM_TILE_N) * ((B + GM_TILE_B - 1) / GM_TILE_B) * split;
+
+  CUtensorMap mx, mw, ms, mm;
+  memset(&mw, 0, sizeof(mw));
+  memset(&ms, 0, sizeof(ms));
+  memset(&mm, 0, sizeof(mm));
+  {
+    const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)B};
+    const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
+    const cuuint32_t box[2] = {64, GM_TILE_B};
+    if (int rc = make_map(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, dims, strides, box,
+                          CU_TENSOR_MAP_SWIZZLE_128B))
+      return rc;
+  }
+  if (a.tma_w) {
+    const cuuint64_t wd[3] = {(cuuint64_t)N, (cuuint64_t)R, (cuuint64_t)L_};
+    const cuuint64_t wst[2] = {(cuuint64_t)N, (cuuint64_t)a.qs_ls};
+    const cuuint32_t wb[3] = {128, (cuuint32_t)L::W_ROWS, 1};
+    if (int rc = make_map(&mw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, qs, wd, wst, wb,
+                          CU_TENSOR_MAP_SWIZZLE_128B))
+      return rc;
+    const CUtensorMapDataType sdt =
+        SBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+    const cuuint64_t sd[3] = {(cuuint64_t)N, (cuuint64_t)G, (cuuint64_t)L_};
+    const cuuint64_t sst[2] = {(cuuint64_t)N * L::ES, (cuuint64_t)a.s_ls};
+    const cuuint32_t sb[3] = {GM_TILE_N, (cuuint32_t)(P4 ? 2 : GM_UNIT_K / gs), 1};
+    if (int rc = make_map(&ms, sdt, 3, sc, sd, sst, sb, CU_TENSOR_MAP_SWIZZLE_NONE)) return rc;
+    if (MINS)
+      if (int rc = make_map(&mm, sdt, 3, mn, sd, sst, sb, CU_TENSOR_MAP_SWIZZLE_NONE)) return rc;
+  }
+  if (split > 1) cudaMemsetAsync(y, 0, sizeof(float) * (size_t)B * N, st);
+  const int grid = a.n_items < sm_count() ? a.n_items : sm_count();
+  qmm_wgmma<P4, SBF16, MINS><<<grid, GM_THREADS, L::BYTES, st>>>(mx, mw, ms, mm, a);
+  return 0;
+}
+
+}  // namespace

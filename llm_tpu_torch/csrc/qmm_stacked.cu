@@ -1,23 +1,26 @@
 // K7 for Hopper (sm_90a): K1/K2/K5 on one layer of depth-stacked planes,
 // the layer index read on the card. Replaces the stacked mode of the TPU
 // kernels (llm_tpu/ops/pallas_qmm.py::qmm_pallas(lidx=...), :481 for K1/K2
-// and :334 for K5). The kernels are qmm_kernels.cuh's, with STACKED set;
-// their own library keeps K1/K2/K5's code as it was and builds in parallel.
+// and :334 for K5). The kernels are qmm_kernels.cuh's (decode, STACKED set)
+// and qmm_gemm.cuh's (prefill, reading the layer index on the card); their
+// own library keeps K1/K2/K5's code as it was and builds in parallel.
 
 #include "qmm_kernels.cuh"
 
 // K7: qmm_launch / qmm_gdot_launch on layer *lidx (an int32 in device
 // memory) of stacked planes: qs, scales and mins are the bases of [L, ...]
 // allocations, qs_ls and s_ls the bytes of one layer's qs and of one
-// layer's scales (= mins). The wrapper checks that every layer's planes
+// layer's scales (= mins), n_layers the stack's depth (the prefill GEMM's
+// tensor maps span it). The wrapper checks that every layer's planes
 // start 16-byte aligned.
 extern "C" int qmm_stacked_launch(const void* x, const void* qs, const void* scales,
                                   const void* mins, void* y, int B, int K, int N,
-                                  int gs, int zp, int p4, int scales_bf16,
-                                  long long qs_ls, long long s_ls, const void* lidx,
-                                  void* stream) {
-  return qmm_any<true>(x, qs, scales, mins, y, B, K, N, gs, zp, p4, scales_bf16,
-                       Stack{reinterpret_cast<const int*>(lidx), qs_ls, s_ls}, stream);
+                                  int gs, int zp, int p4, int scales_bf16, int split,
+                                  long long qs_ls, long long s_ls, int n_layers,
+                                  const void* lidx, void* stream) {
+  return qmm_any<true>(x, qs, scales, mins, y, B, K, N, gs, zp, p4, scales_bf16, split,
+                       Stack{reinterpret_cast<const int*>(lidx), qs_ls, s_ls}, n_layers,
+                       stream);
 }
 
 extern "C" int qmm_gdot_stacked_launch(const void* x, const void* qs, const void* scales,

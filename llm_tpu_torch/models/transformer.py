@@ -58,6 +58,7 @@ _UNSUPPORTED = (
     ("parallel_residual", False, "parallel residual"), ("norm_kind", "rms", "LayerNorm"),
     ("act", "silu", "non-SwiGLU FFN"),
 )
+_TOP_KEYS = {"tok_embd", "layers", "layers_stacked", "output", "output_norm", "rope_freqs"}
 _LAYER_KEYS = {"attn_norm", "ffn_norm", "attn_q", "attn_k", "attn_v", "attn_qkv_fused",
                "attn_output", "ffn_gate", "ffn_up", "ffn_gateup_fused", "ffn_down"}
 
@@ -68,6 +69,9 @@ def check_supported(params: dict, cfg: ModelConfig) -> None:
             raise NotImplementedError(f"{what} is not ported yet")
     if cfg.rope.mode not in (ROPE_TYPE_NORM, ROPE_TYPE_NEOX):
         raise NotImplementedError(f"rope mode {cfg.rope.mode} is not ported yet")
+    extra = {k for k, v in params.items() if v is not None} - _TOP_KEYS
+    if extra:  # position embeddings, embedding norms, output biases, adapters
+        raise NotImplementedError(f"model tensors {sorted(extra)} are not ported yet")
     stacked = params.get("layers_stacked")
     for layer in params["layers"] + ([stacked] if stacked is not None else []):
         extra = set(layer) - _LAYER_KEYS

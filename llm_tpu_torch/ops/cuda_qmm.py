@@ -12,7 +12,9 @@ group sums of the rounded x. K5 computes the same sum as the TPU's gdot
 kernel does: per 32-group the dot of x with the raw nibbles, times s[g] in
 f32, then the mins and zero-point terms from the group sums of x, their
 operands rounded to the compute dtype. `qmm_plain` / `qmm_gdot_plain` are
-these functions step by step in PyTorch; `qmm_cuda` launches csrc/qmm.cu.
+these functions step by step in PyTorch; `qmm_cuda` launches csrc/qmm.cu
+(at B > 16 its prefill GEMM, csrc/qmm_gemm.cuh, whose K split over CTAs
+`gemm_split` chooses from the shape and the SM count).
 K7 computes exactly what K1/K2/K5 compute on layer idx of a StackedWeight:
 its plain version is theirs on the layer's copy (`qmm_stacked_plain`), and
 `qmm_stacked_cuda` launches the same kernels (built apart, from
@@ -37,6 +39,14 @@ from . import cuda_build
 LAUNCHES = {"K1": 0, "K2": 0, "K5": 0, "K7": 0}
 # rows up to which the reference takes the group-factored path
 GDOT_MAX_B = 16
+# the prefill GEMM (csrc/qmm_gemm.cuh, B > 16): a tile is 256 columns x 128
+# rows of y, a stage 128 k; an item is a tile over one of `split` K ranges
+GEMM_TILE_N, GEMM_TILE_B, GEMM_UNIT_K = 256, 128, 128
+GEMM_MAX_SPLIT = 32
+# an item's epilogue, in stages of matrix work: plain stores, and 16-byte f32
+# atomics into a zeroed y when K is split (fitted to a sweep of splits at the
+# LLAMA3_8B prefill shapes on an H100, PERF.md)
+GEMM_EPI_UNITS, GEMM_EPI_ATOMIC_UNITS = 1.5, 2.5
 
 
 def reset_launches() -> None:
@@ -69,6 +79,38 @@ def qmm_plain(x: torch.Tensor, qt: QTensor, cdtype=torch.bfloat16) -> torch.Tens
             xsum = xr.reshape(xr.shape[0], K // gs, gs).sum(-1)
             y = y - xsum @ qt.mins.float()
     return y
+
+
+def gemm_split(B: int, N: int, K: int, n_sm: int) -> int:
+    """The prefill GEMM's K split for x [B, K] and N columns on n_sm SMs:
+    the split that minimises the modelled time, the number of waves of
+    items (tiles x split, one persistent CTA per SM) times an item's stages
+    and epilogue; ties go to the smaller split. The launch owns the items
+    and the grid."""
+    tiles = -(-N // GEMM_TILE_N) * -(-B // GEMM_TILE_B)
+    units = -(-K // GEMM_UNIT_K)
+    best = None
+    for split in range(1, min(units, GEMM_MAX_SPLIT) + 1):
+        epi = GEMM_EPI_ATOMIC_UNITS if split > 1 else GEMM_EPI_UNITS
+        cost = -(-tiles * split // n_sm) * (-(-units // split) + epi)
+        if best is None or cost < best[0]:
+            best = (cost, split)
+    return best[1]
+
+
+_SM_COUNT: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
+def _split(x: torch.Tensor, N: int) -> int:
+    B, K = x.shape
+    return gemm_split(B, N, K, sm_count(x.device)) if B > GDOT_MAX_B else 1
 
 
 def gdot_eligible(qt: QTensor, B: int) -> bool:
@@ -110,9 +152,9 @@ def qmm_stacked_plain(x: torch.Tensor, sw: StackedWeight, cdtype=torch.bfloat16,
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # entry points of each library: K1/K2/K5 (csrc/qmm.cu), K7 (csrc/qmm_stacked.cu)
-_ARGTYPES = {"qmm": {"qmm_launch": [_P] * 5 + [_I] * 7 + [_P],
+_ARGTYPES = {"qmm": {"qmm_launch": [_P] * 5 + [_I] * 8 + [_P],
                      "qmm_gdot_launch": [_P] * 5 + [_I] * 5 + [_P]},
-             "qmm_stacked": {"qmm_stacked_launch": [_P] * 5 + [_I] * 7 + [_L, _L, _P, _P],
+             "qmm_stacked": {"qmm_stacked_launch": [_P] * 5 + [_I] * 8 + [_L, _L, _I, _P, _P],
                              "qmm_gdot_stacked_launch": [_P] * 5 + [_I] * 5 + [_L, _L, _P, _P]}}
 
 
@@ -154,6 +196,12 @@ def check_planes(qt: QTensor, B: int, K: int) -> None:
 
 def qmm_cuda(x: torch.Tensor, qt: QTensor, gdot: bool = False) -> torch.Tensor:
     """Launch K1 (p4) or K2 (i8), or K5 with gdot. x bf16 [B, K] on the card."""
+    return _qmm_launch(x, qt, gdot, None)
+
+
+def _qmm_launch(x: torch.Tensor, qt: QTensor, gdot: bool, split: int | None) -> torch.Tensor:
+    """qmm_cuda with the prefill GEMM's K split at B > 16 given (gemm_split's
+    when None; tools/gemm_splits.py times the others)."""
     B, K = x.shape
     if not x.is_cuda or x.dtype != torch.bfloat16 or not x.is_contiguous() \
             or x.data_ptr() % 16:
@@ -178,7 +226,7 @@ def qmm_cuda(x: torch.Tensor, qt: QTensor, gdot: bool = False) -> torch.Tensor:
         return y
     rc = _lib().qmm_launch(x.data_ptr(), qt.qs.data_ptr(), qt.scales.data_ptr(), mins,
                            y.data_ptr(), B, K, N, qt.group_size, qt.zp, int(p4), sbf16,
-                           stream)
+                           _split(x, N) if split is None else split, stream)
     cuda_build.check(rc, "qmm_launch")
     LAUNCHES["K1" if p4 else "K2"] += 1
     return y
@@ -220,8 +268,8 @@ def qmm_stacked_cuda(x: torch.Tensor, sw: StackedWeight, gdot: bool = False) -> 
     else:
         rc = _lib("qmm_stacked").qmm_stacked_launch(
             x.data_ptr(), qt.qs.data_ptr(), qt.scales.data_ptr(), mins, y.data_ptr(), B, K, N,
-            qt.group_size, qt.zp, int(qt.layout == "p4"), sbf16, qs_ls, s_ls, idx.data_ptr(),
-            stream)
+            qt.group_size, qt.zp, int(qt.layout == "p4"), sbf16, _split(x, N), qs_ls, s_ls,
+            qt.qs.shape[0], idx.data_ptr(), stream)
     cuda_build.check(rc, "qmm_stacked_launch")
     LAUNCHES["K7"] += 1
     return y

@@ -3,7 +3,8 @@ K3q/K4q on the int8 KV cache, K5 group-factored matmul, K6 chained layer
 tail and norm + matmul, K7 on stacked planes, the S1 probes, the S3
 flash-decode layout and q8 probes) held against
 their plain PyTorch versions on the card, at small and ragged shapes
-beside those of chip_smoke.py. Every
+beside those of chip_smoke.py (the prefill GEMM at B past one 128-row
+tile and ragged: 129, 300). Every
 test here is marked `cuda` and skips without a GPU. The file imports no
 JAX, so on a machine with a card and no JAX it runs as
 
@@ -53,7 +54,7 @@ def _planes(layout, zp, gs, mins, N, K, B, scales_dtype, seed=0):
 
 
 @pytest.mark.parametrize("scales_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("B", [1, 2, 3, 5, 16, 17, 40])
+@pytest.mark.parametrize("B", [1, 2, 3, 5, 16, 17, 40, 129, 300])
 @pytest.mark.parametrize("layout,zp,gs,mins,N,K", [
     ("p4", 0, 32, True, 256, 512),     # Q4_K
     ("p4", 8, 32, False, 264, 512),    # Q4_0, N not a multiple of 16
@@ -270,7 +271,7 @@ K7_PLANES = [  # layout, zp, gs, mins, N, K
     ("i8", 0, 32, False, 200, 64),     # Q8_0, short K, ragged N
 ]
 # stacked K1/K2 at decode and prefill rows; stacked K5 where its gate admits
-K7_CASES = ([(*p, B, False) for p in K7_PLANES for B in (1, 3, 8, 17, 40)]
+K7_CASES = ([(*p, B, False) for p in K7_PLANES for B in (1, 3, 8, 17, 40, 129, 300)]
             + [(*p, B, True) for p in K7_PLANES if p[0] == "p4" for B in (1, 3, 8, 16)])
 
 
