@@ -9,9 +9,12 @@ prints no result line):
   1. the card's name and power limit; build every kernel from
      llm_tpu_torch/csrc in parallel (nvcc, sm_90a); the prefill GEMM's
      machine code read back (cuobjdump: every qmm_wgmma kernel issues HGMMA
-     and TMA loads, no mma.sync GEMM is left);
+     and TMA loads, no mma.sync GEMM is left), and flash prefill's (every
+     flash_prefill kernel of libflash_prefill.so issues HGMMA, no f32-FMA
+     prefill kernel is left in it or in libflash_attn.so);
   2. each kernel (K1/K2 quantized matmul, at B > 16 through the wgmma
-     prefill GEMM, also at a ragged B = 300; K3/K4 flash attention, K3q/K4q
+     prefill GEMM, also at a ragged B = 300; K3/K4 flash attention (K4, the
+     wgmma flash prefill, also beside its doubled floor), K3q/K4q
      flash attention on the int8 KV cache, whose inputs the port's own
      quantizer makes on the card, K5 group-factored matmul beside K1 at the
      same shapes, K6 chained layer tail / norm + matmul beside the unfused
@@ -133,11 +136,11 @@ def dequant_bf16(qt):
     return w.reshape(K, N).to(torch.bfloat16)
 
 
-def check_gemm_sass() -> dict:
-    """The prefill GEMM's machine code in the built libraries: each of the
-    eight qmm_wgmma kernels of qmm and qmm_stacked issues HGMMA (wgmma) and
-    UTMALDG (TMA tile loads), and no other GEMM kernel is left (the mma.sync
-    qmm_gemm is gone). Read with the toolkit's cuobjdump."""
+def check_sass(tag: str, libs: dict, name: str, need: tuple, gone: str) -> dict:
+    """Machine code of built libraries, read with the toolkit's cuobjdump:
+    lib<lib>.so holds libs[lib] kernels whose name contains `name`, each of
+    which issues every instruction in `need`, and no kernel whose name
+    contains `gone` (the kernel they replaced)."""
     import re
     from pathlib import Path
 
@@ -145,19 +148,17 @@ def check_gemm_sass() -> dict:
 
     tool = str(Path(cuda_build.nvcc()).parent / "cuobjdump")
     out = {}
-    for lib in ("qmm", "qmm_stacked"):
+    for lib, n in libs.items():
         sass = subprocess.run([tool, "-sass", str(cuda_build.BUILD_DIR / f"lib{lib}.so")],
                               capture_output=True, text=True, check=True).stdout
         funcs = {f.split("\n", 1)[0].strip(): f for f in re.split(r"\n\s*Function : ", sass)[1:]}
-        gemm = {k: v for k, v in funcs.items() if "qmm_wgmma" in k}
-        old = [k for k in funcs if "qmm_gemm" in k]
-        hgmma = {k: v.count("HGMMA") for k, v in gemm.items()}
-        tma = {k: v.count("UTMALDG") for k, v in gemm.items()}
-        out[lib] = dict(kernels=len(gemm), hgmma_min=min(hgmma.values(), default=0),
-                        utmaldg_min=min(tma.values(), default=0), old_gemm_kernels=len(old))
-        if len(gemm) != 8 or min(hgmma.values()) == 0 or min(tma.values()) == 0 or old:
-            raise AssertionError(f"lib{lib}.so: prefill GEMM machine code {out[lib]}")
-    log(json.dumps(dict(gemm_sass=out)))
+        mine = [v for k, v in funcs.items() if name in k]
+        rec = out[lib] = dict(kernels=len(mine), old_kernels=sum(gone in k for k in funcs), **{
+            f"{ins.lower()}_min": min((v.count(ins) for v in mine), default=0) for ins in need})
+        if len(mine) != n or rec["old_kernels"] or \
+                any(rec[f"{ins.lower()}_min"] == 0 for ins in need if n):
+            raise AssertionError(f"lib{lib}.so: {tag} machine code {rec}")
+    log(json.dumps({tag: out}))
     return out
 
 
@@ -372,26 +373,6 @@ def check_chain(results, name, dims, pres, B):
     results.append(rec)
 
 
-def attn_inputs(T, H, Hkv, S, D, seed, masked_frac=0.5):
-    from llm_tpu_torch.ops.cuda_attn import expand_tables, rope_companion
-    from llm_tpu_torch.ops.rope import ROPE_TYPE_NORM, RopeParams, rope_angles
-
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(seed)
-    bf = torch.bfloat16
-    q = torch.randn((T, H, D), generator=gen, device="cuda").to(bf)
-    k = torch.randn((Hkv, S, D), generator=gen, device="cuda").to(bf)
-    v = torch.randn((Hkv, S, D), generator=gen, device="cuda").to(bf)
-    pos = torch.arange(S, device="cuda")
-    rp = RopeParams(n_dims=D, mode=ROPE_TYPE_NORM, freq_base=500000.0)
-    c, s = rope_angles(pos, rp)
-    cos, sin = (t.to(bf).contiguous() for t in expand_tables(c, s, ROPE_TYPE_NORM, D))
-    tok_pos = torch.arange(T, device="cuda") + int(S * (1 - masked_frac)) - T
-    bias = torch.where(pos[None, :] <= tok_pos[:, None], 0.0, float("-inf")).float()
-    qr = rope_companion(q, ROPE_TYPE_NORM).contiguous()
-    return dict(q=q, q_rot=qr, k=k, v=v, cos=cos, sin=sin, bias=bias.contiguous()), (c, s)
-
-
 def tensor_bytes(x) -> int:
     """Bytes of a tensor, or of every tensor in a tuple (a q8_0 pair)."""
     parts = x if isinstance(x, tuple) else (x,)
@@ -399,7 +380,8 @@ def tensor_bytes(x) -> int:
 
 
 def quantized(inp):
-    """attn_inputs with K and V made q8_0 pairs by the port's quantizer."""
+    """kbench_attn.attn_inputs with K and V made q8_0 pairs by the port's
+    quantizer."""
     from llm_tpu_torch.models.transformer import quantize_rows
 
     return {**inp, "k": quantize_rows(inp["k"], 1), "v": quantize_rows(inp["v"], 1)}
@@ -408,6 +390,7 @@ def quantized(inp):
 def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False):
     from llm_tpu_torch.ops import cuda_attn
     from llm_tpu_torch.ops.rope import ROPE_TYPE_NORM, apply_rope
+    from llm_tpu_torch.tools.kbench_attn import attn_inputs
 
     prep = quantized if q8 else (lambda x: x)
     inp, (c, s) = attn_inputs(T, H, Hkv, S, D, seed=S + T)
@@ -443,6 +426,10 @@ def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False):
     rec = dict(kernel=kern, shape=f"{name} T={T} S={S} H={H} Hkv={Hkv} D={D}",
                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bmin,
                bound_by=by, library_ms=lib_ms)
+    if T > 8:
+        # K4/K4q run every score and P.V product twice (bf16 hi + lo of
+        # k*cos, k*sin and p): their floor is twice the operations bound
+        rec["floor_ms"] = 2 * flops / PEAK_BF16_FLOPS * 1e3
     log(json.dumps(rec))
     if not (err <= tol and math.isfinite(err)):
         raise AssertionError(f"{kern} {rec['shape']}: max|err| {err} > {tol}")
@@ -1180,9 +1167,9 @@ REPLACES = {
     "K1": ("llm_tpu_torch/csrc/qmm.cu", "llm_tpu/ops/pallas_qmm.py:159"),
     "K2": ("llm_tpu_torch/csrc/qmm.cu", "llm_tpu/ops/pallas_qmm.py:149"),
     "K3": ("llm_tpu_torch/csrc/flash_attn.cu", "llm_tpu/ops/pallas_attn.py:123"),
-    "K4": ("llm_tpu_torch/csrc/flash_attn.cu", "llm_tpu/ops/pallas_attn.py:328"),
+    "K4": ("llm_tpu_torch/csrc/flash_prefill.cu", "llm_tpu/ops/pallas_attn.py:328"),
     "K3q": ("llm_tpu_torch/csrc/flash_attn.cu", "llm_tpu/ops/pallas_attn.py:135"),
-    "K4q": ("llm_tpu_torch/csrc/flash_attn.cu", "llm_tpu/ops/pallas_attn.py:341"),
+    "K4q": ("llm_tpu_torch/csrc/flash_prefill.cu", "llm_tpu/ops/pallas_attn.py:341"),
     "K5": ("llm_tpu_torch/csrc/qmm.cu", "llm_tpu/ops/pallas_qmm.py:195"),
     "K6": ("llm_tpu_torch/csrc/qmm_chain.cu", "llm_tpu/ops/pallas_qmm_chain.py:107"),
     "K7": ("llm_tpu_torch/csrc/qmm_stacked.cu", "llm_tpu/ops/pallas_qmm.py:481"),
@@ -1235,7 +1222,14 @@ def main() -> int:
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line or "error" in line or "C75" in line:
                 log("   ", line.strip())
-    check_gemm_sass()
+    # the prefill GEMM: the eight qmm_wgmma kernels of each library issue
+    # wgmma and TMA tile loads, and the mma.sync qmm_gemm is gone; flash
+    # prefill: K4 and K4q issue wgmma, libflash_attn.so holds only the
+    # decode kernels, and the f32-FMA flash_prefill_kernel is gone
+    check_sass("gemm_sass", {"qmm": 8, "qmm_stacked": 8}, "qmm_wgmma", ("HGMMA", "UTMALDG"),
+               "qmm_gemm")
+    check_sass("prefill_sass", {"flash_prefill": 2, "flash_attn": 0}, "flash_prefill",
+               ("HGMMA",), "flash_prefill_kernel")
     if sys.argv[1:2] == ["--sweep-seeds"]:
         kinds = sys.argv[2:] or ["q8_0", "chain"]
         if "q8_0" in kinds:
@@ -1303,7 +1297,8 @@ def main() -> int:
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
             shape=head["shape"], passed=True,
-            **{f: head[f] for f in ("k1_ms", "unfused_ms", "unstacked_ms") if f in head}))
+            **{f: head[f] for f in ("k1_ms", "unfused_ms", "unstacked_ms")
+               if f in head}))
         if k in PREFILL_HEADLINE:
             pre = next(r for r in mine if r["shape"] == PREFILL_HEADLINE[k])
             kernels[-1]["prefill"] = {f: pre[f] for f in (

@@ -1,0 +1,144 @@
+// Hopper (sm_90a) building blocks shared by the port's warp-specialized
+// kernels (the prefill GEMM, qmm_gemm.cuh; flash prefill, flash_prefill.cuh):
+// mbarriers, TMA tile loads, wgmma fences and the K-major swizzled operand
+// descriptor, the exact byte-to-float trick and the bf16 hi/lo split, and
+// the host side's tensor-map encoding.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                       int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                       int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// descriptor of a K-major bf16 operand in the 128-byte swizzle: rows of 128
+// bytes, 8-row atoms 1024 bytes apart
+__device__ __forceinline__ uint64_t x_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)64 << 32) |
+         ((uint64_t)1 << 62);
+}
+
+// the integer (q - zp) of byte i of v as an f32: 2^23 + byte, minus base
+// (2^23 + zp for nibbles; 2^23 + 128 + zp for int8 bytes with their sign
+// bit flipped), exact
+__device__ __forceinline__ float q_of(uint32_t v, int i, float base) {
+  return __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7540 | i)) - base;
+}
+
+// two weights of consecutive k -> bf16x2 hi and lo (the lower k in the low
+// half), hi + lo = w to 16 bits
+__device__ __forceinline__ void split_hilo(float w0, float w1, uint32_t& hi, uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(w0, w1);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  __nv_bfloat162 l = __floats2bfloat162_rn(w0 - __uint_as_float(hi << 16),
+                                           w1 - __uint_as_float(hi & 0xFFFF0000u));
+  lo = *reinterpret_cast<uint32_t*>(&l);
+}
+
+// ----------------------------------------------------------------------------
+// host side: tensor maps
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (a libcuda entry point), found through the runtime's
+// entry-point query (no -lcuda)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// error codes of make_map (beside cudaError_t's)
+constexpr int TMAP_ERR_NO_ENCODER = 9001, TMAP_ERR_ENCODE = 9002;
+
+// a 2-D or 3-D tiled map; dims and box innermost first, strides in bytes
+inline int make_map(CUtensorMap* m, CUtensorMapDataType dt, int rank, const void* base,
+                    const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                    CUtensorMapSwizzle swz) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return TMAP_ERR_NO_ENCODER;
+  const cuuint32_t es[3] = {1, 1, 1};
+  const CUresult r = fn(m, dt, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box, es,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : TMAP_ERR_ENCODE;
+}
+
+}  // namespace

@@ -70,6 +70,7 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "hopper.cuh"
 #include "qmm_gemv.cuh"  // sm_count
 
 namespace {
@@ -111,80 +112,10 @@ struct GemmArgs {
   int B, K, N, gs, zp, split, n_items, tma_w;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                       int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                       int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
 // keeps the compiler from moving reads of the accumulators across a wait
 __device__ __forceinline__ void fence_acc(float (&d)[64]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// descriptor of a K-major bf16 operand in the 128-byte swizzle: rows of 128
-// bytes, 8-row atoms 1024 bytes apart
-__device__ __forceinline__ uint64_t x_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)64 << 32) |
-         ((uint64_t)1 << 62);
 }
 
 // d[64] += A[64 x 16] (registers, bf16) x B[16 x 128] (shared memory, x)
@@ -213,23 +144,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-}
-
-// the integer (q - zp) of byte i of v as an f32: 2^23 + byte, minus base
-// (2^23 + zp for nibbles; 2^23 + 128 + zp for int8 bytes with their sign
-// bit flipped), exact
-__device__ __forceinline__ float q_of(uint32_t v, int i, float base) {
-  return __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7540 | i)) - base;
-}
-
-// two weights of consecutive k -> bf16x2 hi and lo (the lower k in the low
-// half), hi + lo = w to 16 bits
-__device__ __forceinline__ void split_hilo(float w0, float w1, uint32_t& hi, uint32_t& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(w0, w1);
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  __nv_bfloat162 l = __floats2bfloat162_rn(w0 - __uint_as_float(hi << 16),
-                                           w1 - __uint_as_float(hi & 0xFFFF0000u));
-  lo = *reinterpret_cast<uint32_t*>(&l);
 }
 
 template <bool MINS>
@@ -537,45 +451,7 @@ qmm_wgmma(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUten
 }
 
 // ----------------------------------------------------------------------------
-// host side: tensor maps and the launch
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled (a libcuda entry point), found through the runtime's
-// entry-point query (no -lcuda)
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// error codes of the GEMM's host side (beside cudaError_t's)
-constexpr int GM_ERR_NO_ENCODER = 9001, GM_ERR_ENCODE = 9002;
-
-// a 2-D or 3-D tiled map; dims and box innermost first, strides in bytes
-inline int make_map(CUtensorMap* m, CUtensorMapDataType dt, int rank, const void* base,
-                    const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
-                    CUtensorMapSwizzle swz) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return GM_ERR_NO_ENCODER;
-  const cuuint32_t es[3] = {1, 1, 1};
-  const CUresult r = fn(m, dt, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box, es,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : GM_ERR_ENCODE;
-}
+// host side: the launch (tensor maps by hopper.cuh's make_map)
 
 // the prefill GEMM on planes qs/sc/mn (K7: layer *lidx of n_layers stacked
 // ones, qs_ls / s_ls bytes apart); split: K ranges per tile (the wrapper's

@@ -14,10 +14,12 @@ the TPU kernel does it, bf16(q) * bf16(s) rounded to bf16, then widened to
 f32 (that product is exact in f32 before the rounding, so the kernels'
 __float2bfloat16_rn((float)q * s) gives the same bits).
 
-`attn_plain` is the kernels' function in plain PyTorch (f32). flash_decode
-(T <= 8) and flash_prefill (T > 8) launch csrc/flash_attn.cu for CUDA
-tensors (K3/K4 on a bf16 cache, K3q/K4q on a pair) and take the plain
-version for CPU tensors.
+`attn_plain` is the kernels' function in plain PyTorch (f32). For CUDA
+tensors flash_decode (T <= 8) launches csrc/flash_attn.cu (K3 on a bf16
+cache, K3q on a pair) and flash_prefill (T > 8) csrc/flash_prefill.cu (K4,
+K4q), a library of its own: the wgmma kernel whose operands are exact bf16
+hi + lo splits of k*cos, k*sin and p. Both take the plain version for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -86,14 +88,20 @@ def _lib():
             [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.flash_decode_launch.restype = ctypes.c_int
-        lib.flash_prefill_launch.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-            + [ctypes.c_float, ctypes.c_void_p])
-        lib.flash_prefill_launch.restype = ctypes.c_int
         lib.flash_decode_q8_launch.argtypes = (
             [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.flash_decode_q8_launch.restype = ctypes.c_int
+    return lib
+
+
+def _prefill_lib():
+    lib = cuda_build.load("flash_prefill")
+    if lib.flash_prefill_launch.argtypes is None:
+        lib.flash_prefill_launch.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.flash_prefill_launch.restype = ctypes.c_int
         lib.flash_prefill_q8_launch.argtypes = (
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
             + [ctypes.c_float, ctypes.c_void_p])
@@ -188,7 +196,7 @@ def flash_prefill_cuda(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Te
     if 64 % (H // Hkv):
         raise ValueError("flash_prefill kernel needs 64 % (H // Hkv) == 0")
     out = torch.empty((T, H, 128), dtype=torch.float32, device=q.device)
-    rc = _lib().flash_prefill_launch(
+    rc = _prefill_lib().flash_prefill_launch(
         q.data_ptr(), q_rot.data_ptr(), k.data_ptr(), v.data_ptr(),
         cos.data_ptr(), sin.data_ptr(), bias.data_ptr(), out.data_ptr(),
         T, H, Hkv, S, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
@@ -204,7 +212,7 @@ def flash_prefill_q8_cuda(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch
         raise ValueError("flash_prefill kernel needs 64 % (H // Hkv) == 0")
     out = torch.empty((T, H, 128), dtype=torch.float32, device=q.device)
     (kq, ks), (vq, vs) = k, v
-    rc = _lib().flash_prefill_q8_launch(
+    rc = _prefill_lib().flash_prefill_q8_launch(
         q.data_ptr(), q_rot.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
         vs.data_ptr(), cos.data_ptr(), sin.data_ptr(), bias.data_ptr(), out.data_ptr(),
         T, H, Hkv, S, float(scale), torch.cuda.current_stream(q.device).cuda_stream)

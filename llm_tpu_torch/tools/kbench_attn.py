@@ -52,6 +52,25 @@ def copies_for(n: int) -> int:
     return max(1, min(16, math.ceil(2 * L2_BYTES / max(n, 1))))
 
 
+def attn_inputs(T, H, Hkv, S, D, seed, masked_frac=0.5, device="cuda"):
+    """Attention inputs made from seed: a causal run of T tokens whose last
+    sees the first (1 - masked_frac) * S cells of a cache of S (NORM rope at
+    freq_base 5e5, bf16 q/K/V from N(0, 1)); and the half-width rope angles."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    bf = torch.bfloat16
+    q = torch.randn((T, H, D), generator=gen, device=device).to(bf)
+    k = torch.randn((Hkv, S, D), generator=gen, device=device).to(bf)
+    v = torch.randn((Hkv, S, D), generator=gen, device=device).to(bf)
+    pos = torch.arange(S, device=device)
+    c, s = rope_angles(pos, RopeParams(n_dims=D, mode=ROPE_TYPE_NORM, freq_base=500000.0))
+    cos, sin = (t.to(bf).contiguous() for t in cuda_attn.expand_tables(c, s, ROPE_TYPE_NORM, D))
+    tok_pos = torch.arange(T, device=device) + int(S * (1 - masked_frac)) - T
+    bias = torch.where(pos[None, :] <= tok_pos[:, None], 0.0, float("-inf")).float()
+    qr = cuda_attn.rope_companion(q, ROPE_TYPE_NORM).contiguous()
+    return dict(q=q, q_rot=qr, k=k, v=v, cos=cos, sin=sin, bias=bias.contiguous()), (c, s)
+
+
 def queries(gen, S: int) -> dict:
     """q, q_rot, the rope tables of positions 0..S-1 (kbench7's freq_base)
     and a zero bias, on the card; plus the half-width angles for SDPA."""

@@ -1,13 +1,15 @@
 """Where a 512-token prefill's time goes on the card: LLAMA3_8B with the
 Q4_K_M-style random planes of chip_smoke.py's phase 4 (seed 2), the same
-prompt, a bf16 KV cache of 4096 cells. Times --reps prefills on the host
-clock (each after clearing the sequence, every one synchronized), then
-profiles one more under torch.profiler: the device time of the prefill
-GEMM (K1/K2 at B = 512, kernels named qmm_wgmma, or qmm_gemm before the
-wgmma GEMM), of flash prefill (K4) and of every kernel.
+prompt, a KV cache of 4096 cells, bf16 or (--kv-dtype q8_0) int8 with a
+bf16 scale a row. Times --reps prefills on the host clock (each after
+clearing the sequence, every one synchronized), then profiles one more
+under torch.profiler: the device time of the prefill GEMM (K1/K2 at B =
+512, kernels named qmm_wgmma, or qmm_gemm before the wgmma GEMM), of flash
+prefill (K4, or K4q on the q8_0 cache: flash_prefill_wgmma, or
+flash_prefill_kernel before the wgmma kernel) and of every kernel.
 
-    python3 -m llm_tpu_torch.tools.prefill_bench [--reps 5]
-    python3 llm_tpu_torch/tools/prefill_bench.py --root <checkout> [--reps 5]
+    python3 -m llm_tpu_torch.tools.prefill_bench [--reps 5] [--kv-dtype q8_0]
+    python3 llm_tpu_torch/tools/prefill_bench.py --root <checkout> [--reps 5] [--kv-dtype q8_0]
 
 --root runs another checkout's llm_tpu_torch (an older commit unpacked
 with git archive), so that two versions can be timed in turns, one process
@@ -21,18 +23,21 @@ import argparse
 import json
 import os
 import statistics
+import subprocess
 import sys
 import time
 
 PROMPT = 512
 GEMM_NAMES = ("qmm_wgmma", "qmm_gemm<")
-K4_NAMES = ("flash_prefill",)
+K4_NAMES = ("flash_prefill_wgmma", "flash_prefill_kernel")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=None, help="checkout whose llm_tpu_torch to run")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--kv-dtype", choices=("bf16", "q8_0"), default="bf16",
+                    help="the KV cache's type: bf16 runs K4, q8_0 K4q")
     args = ap.parse_args(argv)
     if args.root is not None:
         sys.path.insert(0, os.path.abspath(args.root))
@@ -50,7 +55,8 @@ def main(argv=None) -> int:
 
     params, cfg = make_synthetic_model(qtype=GGMLType.Q4_K, device="cuda", on_device=True,
                                        seed=2, recipe="Q4_K_M", **LLAMA3_8B)
-    ctx = Context(None, n_cells=4096, device="cuda", params_cfg=(params, cfg))
+    ctx = Context(None, n_cells=4096, device="cuda", params_cfg=(params, cfg),
+                  kv_dtype="q8_0" if args.kv_dtype == "q8_0" else None)
     prompt = [(i * 104729) % cfg.vocab_size for i in range(PROMPT)]
 
     def prefill():
@@ -82,9 +88,12 @@ def main(argv=None) -> int:
     gemm_ms, gemm_n = total(GEMM_NAMES)
     k4_ms, k4_n = total(K4_NAMES)
     med = statistics.median(wall)
-    print(json.dumps(dict(
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip().splitlines()[:1]
+    print(json.dumps(dict(card=card[0] if card else None,
         root=os.path.dirname(os.path.dirname(os.path.abspath(llm_tpu_torch.__file__))),
-        device=torch.cuda.get_device_name(0), prompt=PROMPT, prefill_ms=wall,
+        device=torch.cuda.get_device_name(0), kv_dtype=args.kv_dtype, prompt=PROMPT,
+        prefill_ms=wall,
         prefill_ms_median=med, prefill_tok_s=PROMPT / med * 1e3,
         gemm_ms=gemm_ms, gemm_launches=gemm_n, k4_ms=k4_ms, k4_launches=k4_n,
         device_ms=sum(ms for ms, _ in kernels.values()),

@@ -4,7 +4,8 @@ tail and norm + matmul, K7 on stacked planes, the S1 probes, the S3
 flash-decode layout and q8 probes) held against
 their plain PyTorch versions on the card, at small and ragged shapes
 beside those of chip_smoke.py (the prefill GEMM at B past one 128-row
-tile and ragged: 129, 300). Every
+tile and ragged: 129, 300; the wgmma flash prefill K4/K4q at G = 1 and 8,
+S = 4001, T = 513 and the main path's T = 512, S = 4096). Every
 test here is marked `cuda` and skips without a GPU. The file imports no
 JAX, so on a machine with a card and no JAX it runs as
 
@@ -89,10 +90,16 @@ def _attn_inputs(T, H, Hkv, S, mode, seed=0):
                 cos=cos, sin=sin, bias=bias)
 
 
+# flash prefill (T > 8) at G = 1 (H = Hkv), G = 8, a ragged S = 4001, T = 513
+# (a CTA of 32 tokens past 16 full ones) and the main path's T=512 S=4096
+PREFILL_CASES = [(40, 8, 8, 300), (24, 16, 2, 200), (100, 32, 8, 4001), (513, 32, 8, 1024),
+                 (512, 32, 8, 4096)]
+
+
 @pytest.mark.parametrize("mode", [ROPE_TYPE_NORM, ROPE_TYPE_NEOX], ids=["norm", "neox"])
 @pytest.mark.parametrize("T,H,Hkv,S", [(1, 32, 8, 1000), (3, 8, 8, 64), (8, 32, 8, 512),
                                        (9, 4, 1, 70), (40, 32, 8, 300),
-                                       (512, 32, 8, 1024)])
+                                       (512, 32, 8, 1024)] + PREFILL_CASES)
 def test_flash_kernels_match_plain(cuda_device, T, H, Hkv, S, mode):
     t = _attn_inputs(T, H, Hkv, S, mode)
     fn = cuda_attn.flash_decode if T <= 8 else cuda_attn.flash_prefill
@@ -111,7 +118,7 @@ def _q8(x):
 @pytest.mark.parametrize("T,H,Hkv,S", [(1, 32, 8, 1000), (2, 8, 8, 64), (3, 8, 1, 500),
                                        (5, 8, 2, 333), (8, 32, 8, 512), (8, 4, 4, 4001),
                                        (9, 4, 1, 70), (24, 16, 2, 200), (40, 32, 8, 300),
-                                       (512, 32, 8, 1024)])
+                                       (512, 32, 8, 1024)] + PREFILL_CASES[:1] + PREFILL_CASES[2:])
 def test_flash_q8_kernels_match_plain(cuda_device, T, H, Hkv, S, mode):
     """K3q (T <= 8) and K4q against attn_plain on the same (int8, scales)
     pairs: ragged S, G in {1, 4, 8}, a padding row (row 0) that sees nothing."""
@@ -127,6 +134,26 @@ def test_flash_q8_kernels_match_plain(cuda_device, T, H, Hkv, S, mode):
     torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
     kern = "K3q" if T <= 8 else "K4q"
     assert cuda_attn.LAUNCHES[kern] == launched[kern] + 1
+
+
+@pytest.mark.parametrize("H,Hkv,D,q_dtype", [(6, 2, 128, torch.bfloat16),   # G = 3: 64 % G != 0
+                                              (8, 2, 64, torch.bfloat16),    # head_dim 64
+                                              (8, 2, 128, torch.float32)])   # f32 queries
+def test_flash_prefill_refuses_what_it_cannot_take(cuda_device, H, Hkv, D, q_dtype):
+    """K4 and K4q raise on a CUDA input outside their admitted set; nothing
+    falls back to attn_plain."""
+    T, S = 16, 64
+    g = torch.Generator().manual_seed(0)
+    mk = (lambda *shape, dt=torch.bfloat16: torch.randn(shape, generator=g).to(dt).to(cuda_device))
+    q = mk(T, H, D, dt=q_dtype)
+    args = dict(q=q, q_rot=q.clone(), cos=mk(S, D), sin=mk(S, D),
+                bias=torch.zeros((T, S), device=cuda_device))
+    k, v = mk(Hkv, S, D), mk(Hkv, S, D)
+    launched = dict(cuda_attn.LAUNCHES)
+    for kk, vv in ((k, v), (_q8(k), _q8(v))):
+        with pytest.raises(ValueError):
+            cuda_attn.flash_prefill(**args, k=kk, v=vv, scale=0.1)
+    assert cuda_attn.LAUNCHES == launched
 
 
 def test_cuda_tensors_never_take_the_plain_path(cuda_device):
