@@ -7,19 +7,24 @@
 Phases, each of which raises on failure (the script then exits nonzero and
 prints no result line):
   1. the card's name and power limit; build every kernel from
-     llm_tpu_torch/csrc in parallel (nvcc, sm_90a); the prefill GEMM's
-     machine code read back (cuobjdump: every qmm_wgmma kernel issues HGMMA
-     and TMA loads, no mma.sync GEMM is left), and flash prefill's (every
+     llm_tpu_torch/csrc in parallel (nvcc, sm_90a); the decode GEMV's
+     machine code read back (cuobjdump: every qmm_decode kernel issues HMMA
+     and TMA loads; libqmm.so and libqmm_stacked.so keep K5's qmm_gemv
+     kernels and no other), the prefill GEMM's (every qmm_wgmma kernel
+     issues HGMMA and TMA loads, no mma.sync GEMM is left), and flash
+     prefill's (every
      flash_prefill kernel of libflash_prefill.so issues HGMMA, no f32-FMA
      prefill kernel is left in it or in libflash_attn.so);
-  2. each kernel (K1/K2 quantized matmul, at B > 16 through the wgmma
-     prefill GEMM, also at a ragged B = 300; K3/K4 flash attention (K4, the
+  2. each kernel (K1/K2 quantized matmul: at B <= 16 the decode GEMV, at
+     B = 1 and 8, at B > 16 the wgmma prefill GEMM, also at a ragged B =
+     300; K3/K4 flash attention (K4, the
      wgmma flash prefill, also beside its doubled floor), K3q/K4q
      flash attention on the int8 KV cache, whose inputs the port's own
      quantizer makes on the card, K5 group-factored matmul beside K1 at the
      same shapes, K6 chained layer tail / norm + matmul beside the unfused
      launches it replaces, K7 = K1/K2/K5 on a layer of stacked planes beside
-     the unstacked kernel on the same layer) at the main path's shapes, held
+     the unstacked kernel on the same layer, bit-equal to it at decode) at
+     the main path's shapes, held
      against its plain PyTorch version on the card, and timed beside its
      bound, the plain version and one PyTorch library call that computes
      the same function (K3/K3q's times also beside the kernel table's); then
@@ -41,8 +46,9 @@ prints no result line):
      layer 1's head, both tails and the lm_head);
   4. LLAMA3_8B, 32 layers, Q4_K_M-style random planes made on the card
      (first, K5 against its plain version at every p4 shape of these planes
-     that phase 2 left out, attn_k among them): prefill 512 tokens, then 128 greedy tokens, with every kernel's
-     launch count read over that run;
+     that phase 2 left out, attn_k among them): prefill 512 tokens, then 128
+     greedy tokens, with every kernel's launch count read over that run; its
+     profile of 8 more tokens shows no memset;
   5. the same planes with a q8_0 KV cache (K3q/K4q in place of K3/K4):
      prefill 512, 128 greedy tokens, launch counts, the cache's bytes and
      peak memory against phase 4's; then the prompt's cells saved with
@@ -136,22 +142,28 @@ def dequant_bf16(qt):
     return w.reshape(K, N).to(torch.bfloat16)
 
 
-def check_sass(tag: str, libs: dict, name: str, need: tuple, gone: str) -> dict:
-    """Machine code of built libraries, read with the toolkit's cuobjdump:
-    lib<lib>.so holds libs[lib] kernels whose name contains `name`, each of
-    which issues every instruction in `need`, and no kernel whose name
-    contains `gone` (the kernel they replaced)."""
+def sass_functions(lib: str) -> dict:
+    """{mangled kernel name: its SASS} of lib<lib>.so, by the toolkit's
+    cuobjdump."""
     import re
     from pathlib import Path
 
     from llm_tpu_torch.ops import cuda_build
 
     tool = str(Path(cuda_build.nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(cuda_build.BUILD_DIR / f"lib{lib}.so")],
+                          capture_output=True, text=True, check=True).stdout
+    return {f.split("\n", 1)[0].strip(): f for f in re.split(r"\n\s*Function : ", sass)[1:]}
+
+
+def check_sass(tag: str, libs: dict, name: str, need: tuple, gone: str) -> dict:
+    """Machine code of built libraries: lib<lib>.so holds libs[lib] kernels
+    whose name contains `name`, each of which issues every instruction in
+    `need`, and no kernel whose name contains `gone` (the kernel they
+    replaced)."""
     out = {}
     for lib, n in libs.items():
-        sass = subprocess.run([tool, "-sass", str(cuda_build.BUILD_DIR / f"lib{lib}.so")],
-                              capture_output=True, text=True, check=True).stdout
-        funcs = {f.split("\n", 1)[0].strip(): f for f in re.split(r"\n\s*Function : ", sass)[1:]}
+        funcs = sass_functions(lib)
         mine = [v for k, v in funcs.items() if name in k]
         rec = out[lib] = dict(kernels=len(mine), old_kernels=sum(gone in k for k in funcs), **{
             f"{ins.lower()}_min": min((v.count(ins) for v in mine), default=0) for ins in need})
@@ -159,6 +171,29 @@ def check_sass(tag: str, libs: dict, name: str, need: tuple, gone: str) -> dict:
                 any(rec[f"{ins.lower()}_min"] == 0 for ins in need if n):
             raise AssertionError(f"lib{lib}.so: {tag} machine code {rec}")
     log(json.dumps({tag: out}))
+    return out
+
+
+# K5's qmm_gemv kernels in each library: 3 row counts (1, 2, 4 rows of x a
+# launch) x f32/bf16 scales x with/without mins
+K5_GEMV_KERNELS = 12
+
+
+def check_gemv_left() -> dict:
+    """The old decode GEMV's kernels (qmm_gemv, qmm_gemv_stacked; template
+    arguments NB, P4, SBF16, MINS, GDOT) in libqmm.so and libqmm_stacked.so:
+    K5's (GDOT set) are all there, K1/K2/K7's (GDOT clear) are gone."""
+    import re
+
+    pat = re.compile(r"qmm_gemv(?:_stacked)?ILi(\d)ELb([01])ELb([01])ELb([01])ELb([01])E")
+    out = {}
+    for lib in ("qmm", "qmm_stacked"):
+        args = [m.groups() for m in (pat.search(k) for k in sass_functions(lib)) if m]
+        out[lib] = dict(gdot=sum(a[4] == "1" for a in args),
+                        not_gdot=sum(a[4] == "0" for a in args))
+        if out[lib] != dict(gdot=K5_GEMV_KERNELS, not_gdot=0):
+            raise AssertionError(f"lib{lib}.so: qmm_gemv kernels {out[lib]}")
+    log(json.dumps({"gemv_left": out}))
     return out
 
 
@@ -229,8 +264,10 @@ def check_gdot(results, name, K, N, B, qtype="Q4_K"):
 
 
 # K7 against the unstacked kernel on the same layer: the same arithmetic on
-# the same bytes; where K is split over CTAs, f32 atomics add the partial
-# sums in an order that varies from launch to launch, a few ulps of max|y|
+# the same bytes. The decode GEMV (B <= 16 without gdot) sums in a fixed
+# order: bit-equal. Elsewhere, where K is split over CTAs, f32 atomics add
+# the partial sums in an order that varies from launch to launch, a few
+# ulps of max|y|
 K7_VS_UNSTACKED_REL_TOL = 1e-5
 
 
@@ -246,6 +283,7 @@ def check_stacked(results, name, qtype, K, N, B, gdot=False):
     from llm_tpu_torch.ops import cuda_qmm
     from llm_tpu_torch.quant.qtensor import QTensor, StackedWeight
 
+    bit_equal = not gdot and B <= cuda_qmm.GDOT_MAX_B
     gen = torch.Generator(device="cuda")
     gen.manual_seed(K * 3 + N + B + gdot)
     layers = [device_synthetic_qtensor(gen, N, K, GGMLType[qtype])]
@@ -272,7 +310,8 @@ def check_stacked(results, name, qtype, K, N, B, gdot=False):
         err = max(err, (y - want).abs().max().item())
         diff = max(diff, (y - unst).abs().max().item())
         tol = max(tol, 1e-3 * want.abs().max().item())
-        dtol = max(dtol, K7_VS_UNSTACKED_REL_TOL * unst.abs().max().item())
+        if not bit_equal:
+            dtol = max(dtol, K7_VS_UNSTACKED_REL_TOL * unst.abs().max().item())
     ms = time_ms(lambda i: cuda_qmm.qmm_stacked_cuda(x, sws[i], gdot), L)
     unst_ms = time_ms(lambda i: cuda_qmm.qmm_cuda(x, views[i], gdot), L)
     plain_ms = time_ms(lambda i: cuda_qmm.qmm_stacked_plain(x, sws[i], torch.bfloat16, gdot),
@@ -289,7 +328,7 @@ def check_stacked(results, name, qtype, K, N, B, gdot=False):
     log(json.dumps(rec))
     if not (err <= tol and math.isfinite(err)):
         raise AssertionError(f"K7 {rec['shape']}: max|err| {err} > {tol}")
-    if not diff <= dtol:
+    if not diff <= dtol:  # 0 where bit_equal
         raise AssertionError(f"K7 {rec['shape']}: {diff} from {variant} on the same layer")
     results.append(rec)
 
@@ -441,11 +480,12 @@ def phase_kernels():
 
     Q4K, Q6K, Q80 = GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0
     results = []
-    # every matmul shape of the Q4_K_M main path, at decode (B=1), at a
-    # 512-token prefill step, and at B=128 between them; the use_more_bits
-    # layers run attn_q, attn_k and attn_v unfused (attn_v and ffn_down in
-    # Q6_K). The main path's lm_head sees only the output rows (B=1).
-    for B in (1, 128, 512):
+    # every matmul shape of the Q4_K_M main path, at decode (B=1, and B=8,
+    # the decode GEMV's 8-row block full), at a 512-token prefill step, and
+    # at B=128 between them; the use_more_bits layers run attn_q, attn_k and
+    # attn_v unfused (attn_v and ffn_down in Q6_K). The main path's lm_head
+    # sees only the output rows (B=1; B=8 beside it).
+    for B in (1, 8, 128, 512):
         for name, K, N in (("qkv", 4096, 6144), ("attn_q/o_proj", 4096, 4096),
                            ("attn_k", 4096, 1024), ("gate_up", 4096, 28672),
                            ("down", 14336, 4096)):
@@ -461,7 +501,8 @@ def phase_kernels():
     check_qmm(results, "qkv f32-scales", Q4K, 4096, 6144, 1, torch.float32)
     for B in (1, 128):
         check_qmm(results, "lm_head", Q4K, 4096, 128256, B)
-    check_qmm(results, "lm_head", Q6K, 4096, 128256, 1)
+    for B in (1, 8):
+        check_qmm(results, "lm_head", Q6K, 4096, 128256, B)
     check_attn(results, "decode half-masked", 1, 4096)
     check_attn(results, "decode ragged-S", 1, 4001)
     check_attn(results, "decode T=8", 8, 4096)
@@ -934,6 +975,9 @@ def phase_llama3_8b(params, cfg, chain=False, gdot=False, base=None):
     # torch ops included), beside rec's per-kernel launches_per_token
     rec.update(device_launches_per_token=prof["device_launches_per_token"],
                idle_share=prof["idle_share"])
+    if not (chain or gdot) and prof["memsets_per_token"] != 0:
+        # the decode GEMV splits K over a cluster: no memset before it
+        raise AssertionError(f"phase 4 decode runs {prof['memsets_per_token']} memsets a token")
     keys = ("decode_tok_s", "prefill_tok_s", "peak_mem_gib", "device_launches_per_token",
             "idle_share")
     side = dict(chain=chain, gdot=gdot, **{k: rec[k] for k in keys})
@@ -1047,9 +1091,10 @@ def phase_llama3_8b_q8(params, cfg, bf16_rec):
 
 # phase 8's greedy streams, scan against per-layer: where the two part, the
 # per-layer logits' top two at that step must lie within this share of
-# max|logit| (K1's and K7's split-K atomics may add in another order from
-# launch to launch, and a last-bit difference can cross a bf16 rounding of
-# an activation and carry through the layers)
+# max|logit| (the prefill GEMM's split-K atomics may add in another order
+# from launch to launch, and a last-bit difference can cross a bf16 rounding
+# of an activation and carry through the layers; decode's K1 and K7 are
+# bit-equal)
 SCAN_TIE_REL = 1e-3
 
 
@@ -1164,15 +1209,15 @@ def phase_scan():
 
 
 REPLACES = {
-    "K1": ("llm_tpu_torch/csrc/qmm.cu", "llm_tpu/ops/pallas_qmm.py:159"),
-    "K2": ("llm_tpu_torch/csrc/qmm.cu", "llm_tpu/ops/pallas_qmm.py:149"),
+    "K1": ("llm_tpu_torch/csrc/qmm_decode.cu", "llm_tpu/ops/pallas_qmm.py:159"),
+    "K2": ("llm_tpu_torch/csrc/qmm_decode.cu", "llm_tpu/ops/pallas_qmm.py:149"),
     "K3": ("llm_tpu_torch/csrc/flash_attn.cu", "llm_tpu/ops/pallas_attn.py:123"),
     "K4": ("llm_tpu_torch/csrc/flash_prefill.cu", "llm_tpu/ops/pallas_attn.py:328"),
     "K3q": ("llm_tpu_torch/csrc/flash_attn.cu", "llm_tpu/ops/pallas_attn.py:135"),
     "K4q": ("llm_tpu_torch/csrc/flash_prefill.cu", "llm_tpu/ops/pallas_attn.py:341"),
     "K5": ("llm_tpu_torch/csrc/qmm.cu", "llm_tpu/ops/pallas_qmm.py:195"),
     "K6": ("llm_tpu_torch/csrc/qmm_chain.cu", "llm_tpu/ops/pallas_qmm_chain.py:107"),
-    "K7": ("llm_tpu_torch/csrc/qmm_stacked.cu", "llm_tpu/ops/pallas_qmm.py:481"),
+    "K7": ("llm_tpu_torch/csrc/qmm_decode.cu", "llm_tpu/ops/pallas_qmm.py:481"),
     "S1": ("llm_tpu_torch/csrc/qmm_probe.cu", "scripts/kbench.py:56"),
     "S3 v1": ("llm_tpu_torch/csrc/flash_probe.cu", "scripts/kbench7.py:102"),
     "S3 v0": ("llm_tpu_torch/csrc/flash_probe.cu", "scripts/kbench7.py:47"),
@@ -1193,8 +1238,11 @@ HEADLINE = {"K1": "gate_up Q4_K K=4096 N=28672 B=1",
             "K7": "gate_up Q4_K K=4096 N=28672 B=1",
             # S1's line reads its "dma" probe (every plane streamed, x staged)
             "S1": "gu Q4_K K=4096 N=28672 B=8"}
-# K1/K2/K7's entries also carry their prefill GEMM's time (B = 512) at the
-# largest matmul of a prefill of their planes
+# K1/K2/K7's entries (their source the decode GEMV's) also carry their
+# prefill GEMM's time (B = 512) at the largest matmul of a prefill of their
+# planes, with the GEMM's source
+PREFILL_SOURCE = {"K1": "llm_tpu_torch/csrc/qmm.cu", "K2": "llm_tpu_torch/csrc/qmm.cu",
+                  "K7": "llm_tpu_torch/csrc/qmm_stacked.cu"}
 PREFILL_HEADLINE = {"K1": "gate_up Q4_K K=4096 N=28672 B=512",
                     "K2": "down Q6_K K=14336 N=4096 B=512",
                     "K7": "gate_up Q4_K K=4096 N=28672 B=512"}
@@ -1222,6 +1270,11 @@ def main() -> int:
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line or "error" in line or "C75" in line:
                 log("   ", line.strip())
+    # the decode GEMV: the 16 qmm_decode kernels (p4/i8 x f32/bf16 scales x
+    # mins x 8/16 rows) issue mma.sync and TMA tile loads, and no qmm_gemv is
+    # in their library; the old GEMV's kernels are K5's alone
+    check_sass("decode_sass", {"qmm_decode": 16}, "qmm_decode", ("HMMA", "UTMALDG"), "qmm_gemv")
+    check_gemv_left()
     # the prefill GEMM: the eight qmm_wgmma kernels of each library issue
     # wgmma and TMA tile loads, and the mma.sync qmm_gemm is gone; flash
     # prefill: K4 and K4q issue wgmma, libflash_attn.so holds only the
@@ -1301,8 +1354,8 @@ def main() -> int:
                if f in head}))
         if k in PREFILL_HEADLINE:
             pre = next(r for r in mine if r["shape"] == PREFILL_HEADLINE[k])
-            kernels[-1]["prefill"] = {f: pre[f] for f in (
-                "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            kernels[-1]["prefill"] = {"source": PREFILL_SOURCE[k], **{f: pre[f] for f in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
     head = next(r for r in probes if r["shape"] == HEADLINE["S1"])
     src, rep = REPLACES["S1"]
     kernels.append(dict(

@@ -1,15 +1,17 @@
-// K1/K2 (fused dequantize x matmul) and K5 (its group-factored decode
-// GEMV) for Hopper (sm_90a): the entry points. The kernels, and what they
-// replace and compute, are in qmm_kernels.cuh; K7, the same kernels on
-// stacked planes, is built from qmm_stacked.cu.
+// K1/K2 (fused dequantize x matmul) at B > 16 and K5 (its group-factored
+// decode GEMV) for Hopper (sm_90a): the entry points. The kernels, and what
+// they replace and compute, are in qmm_kernels.cuh; K7, the same kernels on
+// stacked planes, is built from qmm_stacked.cu; K1/K2/K7 at B <= 16 from
+// qmm_decode.cu.
 
 #include "qmm_kernels.cuh"
 
 // x bf16 [B, K]; qs uint8 [K/2, N] (p4) or int8 [K, N] (i8); scales and
 // mins [K/gs, N] f32 or bf16 (mins may be null); y f32 [B, N].
 // Requirements (checked by the Python wrapper): p4 -> K % 256 == 0, gs 32;
-// i8 -> K % 32 == 0, gs 16 or 32; B > 16 -> K % 64 == 0. split: the prefill
-// GEMM's K ranges per tile (ops/cuda_qmm.py::gemm_split; unused at B <= 16).
+// i8 -> K % 32 == 0, gs 16 or 32; B > 16 and K % 64 == 0 (B <= 16 is
+// refused: qmm_decode.cu). split: the prefill GEMM's K ranges per tile
+// (ops/cuda_qmm.py::gemm_split).
 extern "C" int qmm_launch(const void* x, const void* qs, const void* scales,
                           const void* mins, void* y, int B, int K, int N,
                           int gs, int zp, int p4, int scales_bf16, int split,

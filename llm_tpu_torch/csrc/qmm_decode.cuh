@@ -1,0 +1,639 @@
+// K1/K2/K7's decode GEMV (B <= 16) for Hopper (sm_90a): the B <= 16
+// regime of llm_tpu/ops/pallas_qmm.py::qmm_pallas -> _qmm_kernel_p4 /
+// _p4_m (K1), _qmm_kernel_i8 / _i8_m (K2), and their stacked mode
+// qmm_pallas(lidx=...) (K7). It computes
+//
+//   y[b,n] = sum_k x[b,k] * (q[k,n] - zp) * s[k/gs,n]  -  sum_g xsum[b,g] * m[g,n]
+//
+// with x bf16 [B, K], the planes K-major (p4 uint8 [K/2, N] in 256-row pack
+// tiles: packed row t holds k = t in its low nibble and k = t + 128 in its
+// high nibble; or i8 [K, N]), s and m [K/gs, N] in bf16 or f32, and y
+// [B, N] written in f32 or bf16 (one round-to-nearest of the f32 sum).
+//
+// Bound: the planes' bytes (0.5 B a weight p4, 1 B i8, plus scales and
+// mins), a few hundred times more than its operations need at B <= 16.
+//
+// Exact group arithmetic on the tensor cores. q - zp is an integer that
+// bf16 holds exactly, and x is bf16, so a matrix product of x with the
+// integer plane, accumulated in f32 over one quant group (P_g), times
+// s[g,n] in f32, is K1's sum in another order; the mins term is
+// - xsum[b,g] * m[g,n] in f32, with xsum the f32 sum of the bf16 x (a
+// product of x with a block of ones on the same tensor cores). Nothing is
+// rounded to bf16 on the way (tests/test_torch_qmm_decode.py holds the
+// order against qmm_plain and the TPU kernel). The integer operands:
+//  * p4: byte_perm puts the bytes of two adjacent plane rows (k, k + 1) of
+//    one column into the two halves of a word, a LOP3 turns each half's
+//    nibble into the bf16 0x4300 | nib = 128 + nib, and one bf16x2
+//    subtract of 128 + zp leaves q - zp; the high nibbles (k + 128, the
+//    group four rows on) come from the same bytes after one shift, so every
+//    packed byte is read from device memory once and feeds two groups,
+//    each with its own accumulators;
+//  * i8: 2^23 + byte (sign bit flipped) as an f32 by byte_perm, minus
+//    2^23 + 128 + zp (hopper.cuh q_of), then cvt.rn.bf16x2.f32: exact for
+//    |q - zp| <= 256.
+//
+// Shape of the kernel:
+//  * a CTA computes 128 columns of y for all B <= 16 rows over a range of
+//    K; the planes are read once whatever B is (one launch a qmm call).
+//    160 threads: four consumer warps (two column halves of 64, times two
+//    that take the stages in turns) and a producer warp.
+//  * a stage is 128 k: the plane rows that hold them (p4: 64 packed rows,
+//    whose low and high nibbles are k0..k0+63 and k0+128..k0+191; i8: 128
+//    rows) as 128 columns in the 128-byte swizzle, two 64-k chunks of x
+//    (8 or 16 rows, 128-byte swizzle; rows past B read as zero) and the
+//    stage's group rows of scales and mins. The producer's lane 0 keeps a
+//    ring of 2 or 4 stages in flight with TMA (cp.async.bulk.tensor, mbarrier
+//    completion) wherever the planes' strides allow it (N % 16 == 0: every
+//    main-path shape); otherwise (N = 264, 1000, ...) its 32 lanes gather
+//    the plane and group rows with bounds checks into the same layout. The
+//    consumers issue no global load. K7 reads its layer index on the card:
+//    the plane maps are 3-D [L, rows, N] and take it as a coordinate.
+//  * mma.sync m16n8k16 (bf16 in, f32 accumulate): A = 16 columns of the
+//    integer plane x 16 k, built in registers from one 8-byte shared load
+//    per plane row and thread, B = x (8 rows; two n8 blocks at B > 8). A
+//    thread's A rows g and g + 8 of the four m16 tiles are the 8 adjacent
+//    columns 8g..8g+7 of its warp's 64, so its scales and mins come in one
+//    or two 16-byte loads. mma.sync rather than wgmma: at B <= 16 a
+//    wgmma's 64-row operand would be x padded 4-8x, or the weights would
+//    have to go back to shared memory for the A side; mma.sync takes the
+//    weights from registers at n = 8 and uses under half of the tensor
+//    cores' mma.sync rate at the bytes bound.
+//  * the K split: the CTAs of one column tile form a thread block cluster
+//    (up to 16, the split chosen by ops/cuda_qmm.py::decode_plan). Each CTA
+//    leaves its partial tile in shared memory; after a cluster barrier,
+//    CTA r sums slice r of the tile over every CTA of the cluster in rank
+//    order through distributed shared memory and writes it to y. No
+//    memset, no atomics: y is bit-identical from launch to launch, and K7
+//    equals K1/K2 on the same layer bit for bit.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+#include "hopper.cuh"
+
+namespace {
+
+constexpr int DV_TILE_N = 128;                 // columns of y per CTA
+constexpr int DV_UNIT_K = 128;                 // k per stage
+constexpr int DV_CONSUMERS = 128;              // four consumer warps
+constexpr int DV_THREADS = DV_CONSUMERS + 32;  // and a producer warp
+constexpr int DV_MAX_B = 16;                   // rows of x
+constexpr int DV_MAX_CLUSTER = 16;             // non-portable cluster size
+constexpr int DV_RAGGED_ARRIVALS = 33;         // lane 0's expect_tx, then all 32 lanes
+constexpr int DV_RING_MAX = 96 * 1024;         // a ring of 4 stages up to this size
+
+template <bool P4, bool SBF16, bool MINS>
+struct DecodeSmem {
+  static constexpr int W_ROWS = P4 ? 64 : 128;          // plane rows of a stage
+  static constexpr int W_BYTES = W_ROWS * DV_TILE_N;    // 128 columns of them
+  static constexpr int X_CHUNK = DV_MAX_B * 64 * 2;     // 16 rows x 64 k of bf16
+  static constexpr int ES = SBF16 ? 2 : 4;
+  static constexpr int G_ROWS = P4 ? 4 : 8;             // group rows (i8: gs 16 or 32)
+  static constexpr int G_BYTES = G_ROWS * DV_TILE_N * ES;
+  static constexpr int X_OFF = W_BYTES;                 // 1024-aligned
+  static constexpr int S_OFF = X_OFF + 2 * X_CHUNK;
+  static constexpr int M_OFF = S_OFF + G_BYTES;
+  static constexpr int STAGE = (M_OFF + (MINS ? G_BYTES : 0) + 1023) / 1024 * 1024;
+  // even: slot s is always taken by consumer pair s % 2, so no pair waits
+  // on a slot's phase while the other pair still holds its earlier one
+  static constexpr int STAGES = 4 * STAGE <= DV_RING_MAX ? 4 : 2;
+  static constexpr int RED = 2 * DV_MAX_B * DV_TILE_N * 4;  // [2][16][128] f32 partials
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int BYTES = (RING > RED ? RING : RED) + 1024;  // + slack to align to 1024
+};
+
+struct DecodeArgs {
+  const uint8_t* qs;  // the planes (layer 0 of a stack), read directly on the ragged path
+  const void* sc;
+  const void* mn;
+  void* y;
+  const int* lidx;        // K7: the layer index in device memory; null for K1/K2
+  long long qs_ls, s_ls;  // bytes from one layer's qs / scales (= mins) to the next
+  int B, K, N, gs, zp, upr, tma_w, out_bf16;  // upr: stages (units of 128 k) a CTA
+};
+
+// byte offset of (row r, byte c) in a 128-byte-swizzled tile of 128-byte rows
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * 128 + ((((c >> 4) ^ r) & 7) << 4) + (c & 15);
+}
+
+// d += a (16x16 bf16, registers) x b (16x8 bf16), f32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int NB8, int J>
+__device__ __forceinline__ void zero_acc(float (&p)[NB8][J][4]) {
+#pragma unroll
+  for (int nb = 0; nb < NB8; ++nb)
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[nb][j][e] = 0.f;
+}
+
+__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
+  __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&a),
+                             *reinterpret_cast<__nv_bfloat162*>(&b));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
+__device__ __forceinline__ uint32_t f2_bf16x2(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// a thread's 8 adjacent columns' values of one group row (col % 8 == 0)
+template <bool SBF16>
+__device__ __forceinline__ void ld_eight(const uint8_t* row, int col, float (&v)[8]) {
+  if (SBF16) {
+    const uint4 u = *reinterpret_cast<const uint4*>(row + col * 2);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+    }
+  } else {
+    const float4 a = *reinterpret_cast<const float4*>(row + col * 4);
+    const float4 b = *reinterpret_cast<const float4*>(row + col * 4 + 16);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  }
+}
+
+// the ragged path: the producer's lanes gather a stage's plane rows ...
+template <bool P4, bool SBF16, bool MINS>
+__device__ __forceinline__ void dv_gather_rows(uint8_t* w, const uint8_t* qs, int lane, int n0,
+                                               int row0, const DecodeArgs& a) {
+  using L = DecodeSmem<P4, SBF16, MINS>;
+  const int R = P4 ? a.K / 2 : a.K;
+  for (int i = lane; i < L::W_ROWS * (DV_TILE_N / 4); i += 32) {
+    const int r = i / (DV_TILE_N / 4), c4 = (i % (DV_TILE_N / 4)) * 4;
+    uint32_t v = 0;
+    if (row0 + r < R) {
+      const uint8_t* src = qs + (size_t)(row0 + r) * a.N;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (n0 + c4 + e < a.N) v |= (uint32_t)src[n0 + c4 + e] << (8 * e);
+    }
+    *reinterpret_cast<uint32_t*>(w + swz(r, c4)) = v;
+  }
+}
+
+// ... and its group rows of scales or mins (p4: two rows from each x chunk;
+// i8: 128 / gs rows)
+template <bool P4, bool SBF16, bool MINS>
+__device__ __forceinline__ void dv_gather_groups(uint8_t* s, const void* src, int lane, int n0,
+                                                 int kx0, int kx1, const DecodeArgs& a) {
+  using L = DecodeSmem<P4, SBF16, MINS>;
+  const int G = a.K / a.gs, rows = P4 ? 4 : DV_UNIT_K / a.gs;
+  for (int i = lane; i < L::G_ROWS * DV_TILE_N; i += 32) {
+    const int gr = i / DV_TILE_N, n = n0 + i % DV_TILE_N;
+    const int g = P4 ? (gr < 2 ? kx0 / 32 + gr : kx1 / 32 + gr - 2) : kx0 / a.gs + gr;
+    const bool ok = gr < rows && g < G && n < a.N;
+    if (SBF16)
+      reinterpret_cast<uint16_t*>(s)[i] =
+          ok ? reinterpret_cast<const uint16_t*>(src)[(size_t)g * a.N + n] : 0;
+    else
+      reinterpret_cast<uint32_t*>(s)[i] =
+          ok ? reinterpret_cast<const uint32_t*>(src)[(size_t)g * a.N + n] : 0;
+  }
+}
+
+// the producer warp: stages [u0, u1) of this CTA's column tile n0
+template <bool P4, bool SBF16, bool MINS>
+__device__ __forceinline__ void dv_producer(const CUtensorMap* tmx, const CUtensorMap* tmw,
+                                            const CUtensorMap* tms, const CUtensorMap* tmm,
+                                            const DecodeArgs& a, uint8_t* smem, uint32_t full0,
+                                            uint32_t empty0, int n0, int u0, int u1) {
+  using L = DecodeSmem<P4, SBF16, MINS>;
+  const int lane = threadIdx.x & 31;
+  if (a.tma_w && lane != 0) return;
+  const int layer = a.lidx != nullptr ? __ldg(a.lidx) : 0;
+  const uint8_t* qs = a.qs + (long long)layer * a.qs_ls;
+  const void* sc = static_cast<const char*>(a.sc) + (long long)layer * a.s_ls;
+  const void* mn =
+      MINS ? static_cast<const void*>(static_cast<const char*>(a.mn) + (long long)layer * a.s_ls)
+           : nullptr;
+  const int xr = a.B > 8 ? 16 : 8;                   // x rows a chunk's box brings
+  const int g_rows = P4 ? 4 : DV_UNIT_K / a.gs;      // group rows a stage
+  const uint32_t tx = 2 * 64 * xr * 2 +
+                      (a.tma_w ? L::W_BYTES + g_rows * DV_TILE_N * L::ES * (MINS ? 2 : 1) : 0);
+  const uint32_t smem_a = smem_u32(smem);
+  for (int j = 0; j < u1 - u0; ++j) {
+    const int slot = j % L::STAGES;
+    if (j >= L::STAGES) mbar_wait(empty0 + 8 * slot, ((j / L::STAGES) - 1) & 1);
+    const int u = u0 + j;
+    // the two x chunks and the plane rows of this stage (p4: the chunks are
+    // the low and high nibbles of the same 64 packed rows)
+    const int kx0 = P4 ? 256 * (u >> 1) + 64 * (u & 1) : DV_UNIT_K * u;
+    const int kx1 = kx0 + (P4 ? 128 : 64);
+    const int row0 = P4 ? 128 * (u >> 1) + 64 * (u & 1) : DV_UNIT_K * u;
+    const uint32_t st = smem_a + slot * L::STAGE, full = full0 + 8 * slot;
+    if (lane == 0) {
+      mbar_expect_tx(full, tx);
+      tma_2d(st + L::X_OFF, tmx, full, kx0, 0);
+      tma_2d(st + L::X_OFF + L::X_CHUNK, tmx, full, kx1, 0);
+      if (a.tma_w) {
+        tma_3d(st, tmw, full, n0, row0, layer);
+        if (P4) {
+          const int half = 2 * DV_TILE_N * L::ES;
+          tma_3d(st + L::S_OFF, tms, full, n0, kx0 / 32, layer);
+          tma_3d(st + L::S_OFF + half, tms, full, n0, kx1 / 32, layer);
+          if (MINS) {
+            tma_3d(st + L::M_OFF, tmm, full, n0, kx0 / 32, layer);
+            tma_3d(st + L::M_OFF + half, tmm, full, n0, kx1 / 32, layer);
+          }
+        } else {
+          tma_3d(st + L::S_OFF, tms, full, n0, kx0 / a.gs, layer);
+          if (MINS) tma_3d(st + L::M_OFF, tmm, full, n0, kx0 / a.gs, layer);
+        }
+      }
+    }
+    if (!a.tma_w) {
+      uint8_t* stp = smem + slot * L::STAGE;
+      dv_gather_rows<P4, SBF16, MINS>(stp, qs, lane, n0, row0, a);
+      dv_gather_groups<P4, SBF16, MINS>(stp + L::S_OFF, sc, lane, n0, kx0, kx1, a);
+      if (MINS) dv_gather_groups<P4, SBF16, MINS>(stp + L::M_OFF, mn, lane, n0, kx0, kx1, a);
+      mbar_arrive(full);
+    }
+  }
+}
+
+// x's B fragments of one k16 step of a chunk for both n8 blocks: rows g and
+// g + 8, k = k16 + 2t (+1) and + 8
+template <int NB8>
+__device__ __forceinline__ void ld_xfrag(const uint8_t* chunk, int k16, int g, int t,
+                                         uint32_t (&b)[NB8][2]) {
+#pragma unroll
+  for (int nb = 0; nb < NB8; ++nb) {
+    const int r = g + 8 * nb;
+    b[nb][0] = *reinterpret_cast<const uint32_t*>(chunk + swz(r, 2 * k16 + 4 * t));
+    b[nb][1] = *reinterpret_cast<const uint32_t*>(chunk + swz(r, 2 * k16 + 16 + 4 * t));
+  }
+}
+
+// acc += s * P - m * X over a thread's accumulators: m16 tile j holds the
+// thread's columns 2j (c0, c1) and 2j + 1 (c2, c3) of its eight; X's c0/c1
+// are the group sums of x's rows 2t, 2t + 1 (every row of a ones product is
+// the same)
+template <int NB8, bool MINS>
+__device__ __forceinline__ void fold_group(float (&acc)[NB8][4][4], const float (&p)[NB8][4][4],
+                                           const float (&xs)[NB8][1][4], const float (&s)[8],
+                                           const float (&m)[8]) {
+#pragma unroll
+  for (int nb = 0; nb < NB8; ++nb)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 2 * j + (e >> 1);
+        float v = fmaf(s[c], p[nb][j][e], acc[nb][j][e]);
+        if (MINS) v = fmaf(-m[c], xs[nb][0][e & 1], v);
+        acc[nb][j][e] = v;
+      }
+}
+
+// one consumer warp's share of a stage: columns col0..col0+63 of the tile
+template <bool P4, bool SBF16, bool MINS, int NB8>
+__device__ __forceinline__ void dv_consume(const uint8_t* stp, int col0, int gs, uint32_t zp2,
+                                           float ibase, float (&acc)[NB8][4][4]) {
+  using L = DecodeSmem<P4, SBF16, MINS>;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int c = col0 + 8 * g;  // the thread's 8 columns within the tile
+  const uint32_t ones[4] = {0x3F803F80u, 0x3F803F80u, 0x3F803F80u, 0x3F803F80u};
+  float s[8], m[8];
+  if constexpr (P4) {
+    // 4 k16 steps of 16 packed rows: low nibbles -> chunk 0 (groups 0, 1 of
+    // the stage's rows), high nibbles -> chunk 1 (rows 2, 3)
+    float plo[NB8][4][4], phi[NB8][4][4], xlo[NB8][1][4], xhi[NB8][1][4];
+#pragma unroll
+    for (int st = 0; st < 4; ++st) {
+      uint2 w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 16 * st + 2 * t + (i & 1) + 8 * (i >> 1);
+        w[i] = *reinterpret_cast<const uint2*>(stp + swz(r, c));
+      }
+      uint32_t b0[NB8][2], b1[NB8][2];
+      ld_xfrag<NB8>(stp + L::X_OFF, 16 * st, g, t, b0);
+      ld_xfrag<NB8>(stp + L::X_OFF + L::X_CHUNK, 16 * st, g, t, b1);
+      if ((st & 1) == 0) {  // a group's first step
+        zero_acc<NB8, 4>(plo);
+        zero_acc<NB8, 4>(phi);
+        zero_acc<NB8, 1>(xlo);
+        zero_acc<NB8, 1>(xhi);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t alo[4], ahi[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          // a[i]: column 2j + (i & 1), rows (k, k + 1) = plane rows 2(i >> 1), +1
+          const int cc = 2 * j + (i & 1), by = cc & 3;
+          const uint32_t wk = (cc >> 2) ? w[2 * (i >> 1)].y : w[2 * (i >> 1)].x;
+          const uint32_t wk1 = (cc >> 2) ? w[2 * (i >> 1) + 1].y : w[2 * (i >> 1) + 1].x;
+          const uint32_t p = __byte_perm(wk, wk1, by | ((4 + by) << 8) | (by << 4) | ((4 + by) << 12));
+          alo[i] = bf16x2_sub((p & 0x000F000Fu) | 0x43004300u, zp2);  // one LOP3
+          ahi[i] = bf16x2_sub(((p >> 4) & 0x000F000Fu) | 0x43004300u, zp2);
+        }
+#pragma unroll
+        for (int nb = 0; nb < NB8; ++nb) {
+          mma_bf16(plo[nb][j], alo, b0[nb][0], b0[nb][1]);
+          mma_bf16(phi[nb][j], ahi, b1[nb][0], b1[nb][1]);
+        }
+      }
+      if (MINS) {
+#pragma unroll
+        for (int nb = 0; nb < NB8; ++nb) {
+          mma_bf16(xlo[nb][0], ones, b0[nb][0], b0[nb][1]);
+          mma_bf16(xhi[nb][0], ones, b1[nb][0], b1[nb][1]);
+        }
+      }
+      if (st & 1) {  // the end of a 32-row group: its scale (and min) once
+        const int gr = st >> 1;
+        ld_eight<SBF16>(stp + L::S_OFF + gr * DV_TILE_N * L::ES, c, s);
+        if (MINS) ld_eight<SBF16>(stp + L::M_OFF + gr * DV_TILE_N * L::ES, c, m);
+        fold_group<NB8, MINS>(acc, plo, xlo, s, m);
+        ld_eight<SBF16>(stp + L::S_OFF + (2 + gr) * DV_TILE_N * L::ES, c, s);
+        if (MINS) ld_eight<SBF16>(stp + L::M_OFF + (2 + gr) * DV_TILE_N * L::ES, c, m);
+        fold_group<NB8, MINS>(acc, phi, xhi, s, m);
+      }
+    }
+  } else {
+    // 8 k16 steps of 16 plane rows; x chunk st / 4; a group is one step
+    // (gs 16) or two (gs 32)
+    const bool gs16 = gs == 16;
+    float pp[NB8][4][4], xx[NB8][1][4];
+#pragma unroll
+    for (int st = 0; st < 8; ++st) {
+      uint2 w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 16 * st + 2 * t + (i & 1) + 8 * (i >> 1);
+        w[i] = *reinterpret_cast<const uint2*>(stp + swz(r, c));
+        w[i].x ^= 0x80808080u;  // int8 -> byte + 128
+        w[i].y ^= 0x80808080u;
+      }
+      uint32_t b[NB8][2];
+      ld_xfrag<NB8>(stp + L::X_OFF + (st >> 2) * L::X_CHUNK, 16 * (st & 3), g, t, b);
+      if (gs16 || (st & 1) == 0) {  // a group's first step
+        zero_acc<NB8, 4>(pp);
+        zero_acc<NB8, 1>(xx);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t aa[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int cc = 2 * j + (i & 1), by = cc & 3;
+          const uint32_t wk = (cc >> 2) ? w[2 * (i >> 1)].y : w[2 * (i >> 1)].x;
+          const uint32_t wk1 = (cc >> 2) ? w[2 * (i >> 1) + 1].y : w[2 * (i >> 1) + 1].x;
+          aa[i] = f2_bf16x2(q_of(wk, by, ibase), q_of(wk1, by, ibase));
+        }
+#pragma unroll
+        for (int nb = 0; nb < NB8; ++nb)
+          mma_bf16(pp[nb][j], aa, b[nb][0], b[nb][1]);
+      }
+      if (MINS) {
+#pragma unroll
+        for (int nb = 0; nb < NB8; ++nb)
+          mma_bf16(xx[nb][0], ones, b[nb][0], b[nb][1]);
+      }
+      if (gs16 || (st & 1)) {
+        const int gr = gs16 ? st : st >> 1;
+        ld_eight<SBF16>(stp + L::S_OFF + gr * DV_TILE_N * L::ES, c, s);
+        if (MINS) ld_eight<SBF16>(stp + L::M_OFF + gr * DV_TILE_N * L::ES, c, m);
+        fold_group<NB8, MINS>(acc, pp, xx, s, m);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float ld_dsmem(uint32_t local, int rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(local), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+
+// grid (cluster size C, column tiles); the C CTAs of a cluster split K
+template <bool P4, bool SBF16, bool MINS, int NB8>
+__global__ void __launch_bounds__(DV_THREADS, NB8 == 1 ? 3 : 2)
+qmm_decode(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
+           const __grid_constant__ CUtensorMap tms, const __grid_constant__ CUtensorMap tmm,
+           const DecodeArgs a) {
+  using L = DecodeSmem<P4, SBF16, MINS>;
+  extern __shared__ uint8_t dyn_smem[];
+  __shared__ __align__(8) uint64_t bars[8];  // full[0..3], empty[4..7]
+  const uint32_t raw = smem_u32(dyn_smem);
+  uint8_t* smem = dyn_smem + (((raw + 1023) & ~1023u) - raw);
+  const uint32_t full0 = smem_u32(&bars[0]), empty0 = smem_u32(&bars[4]);
+  const int C = gridDim.x, rank = blockIdx.x, n0 = blockIdx.y * DV_TILE_N;
+  const int units = (a.K + DV_UNIT_K - 1) / DV_UNIT_K;
+  const int u0 = min(units, rank * a.upr), u1 = min(units, u0 + a.upr);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, a.tma_w ? 1 : DV_RAGGED_ARRIVALS);
+      mbar_init(empty0 + 8 * s, 2);  // the two consumer warps that take the stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float acc[NB8][4][4];
+#pragma unroll
+  for (int nb = 0; nb < NB8; ++nb)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nb][j][e] = 0.f;
+  const int cw = warp & 1, kw = warp >> 1;
+  if (warp == 4) {
+    dv_producer<P4, SBF16, MINS>(&tmx, &tmw, &tms, &tmm, a, smem, full0, empty0, n0, u0, u1);
+  } else {
+    // p4: 128 + zp as a bf16 pair; i8: 2^23 + 128 + zp
+    const uint32_t zb = 0x4300u | (uint32_t)a.zp;  // exact for zp <= 15
+    const uint32_t zp2 = zb | (zb << 16);
+    const float ibase = 8388608.f + 128.f + (float)a.zp;
+    for (int j = kw; j < u1 - u0; j += 2) {
+      const int slot = j % L::STAGES;
+      mbar_wait(full0 + 8 * slot, (j / L::STAGES) & 1);
+      dv_consume<P4, SBF16, MINS, NB8>(smem + slot * L::STAGE, 64 * cw, a.gs, zp2, ibase, acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * slot);
+    }
+  }
+  __syncthreads();  // every stage consumed: the ring becomes the partial tile
+
+  // the CTA's partial tile [kw][row][column], f32
+  float* red = reinterpret_cast<float*>(smem);
+  if (warp < 4) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int nb = 0; nb < NB8; ++nb)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int b = 8 * nb + 2 * t + (e & 1), col = 64 * cw + 8 * g + 2 * j + (e >> 1);
+          red[(kw * DV_MAX_B + b) * DV_TILE_N + col] = acc[nb][j][e];
+        }
+  }
+  if (C > 1) cluster_sync_all();
+  else __syncthreads();
+  // CTA `rank` sums its slice of the tile over the cluster, in rank order
+  const int elems = a.B * DV_TILE_N, per = (elems + C - 1) / C;
+  const int e0 = rank * per, e1 = min(elems, e0 + per);
+  for (int i = e0 + threadIdx.x; i < e1; i += DV_THREADS) {
+    const int b = i / DV_TILE_N, col = i % DV_TILE_N, n = n0 + col;
+    const uint32_t l0 = smem_u32(red + b * DV_TILE_N + col);
+    const uint32_t l1 = smem_u32(red + (DV_MAX_B + b) * DV_TILE_N + col);
+    float v = 0.f;
+    if (C > 1) {
+      for (int q = 0; q < C; ++q) {
+        v += ld_dsmem(l0, q);
+        v += ld_dsmem(l1, q);
+      }
+    } else {
+      v = red[b * DV_TILE_N + col] + red[(DV_MAX_B + b) * DV_TILE_N + col];
+    }
+    if (n < a.N) {
+      const size_t o = (size_t)b * a.N + n;
+      if (a.out_bf16) reinterpret_cast<__nv_bfloat16*>(a.y)[o] = __float2bfloat16_rn(v);
+      else reinterpret_cast<float*>(a.y)[o] = v;
+    }
+  }
+  if (C > 1) cluster_sync_all();  // no CTA leaves while another reads its tile
+}
+
+// ----------------------------------------------------------------------------
+// host side: the tensor maps (hopper.cuh's make_map) and the cluster launch
+
+// the decode GEMV on planes qs/sc/mn (K7: layer *lidx of n_layers stacked
+// ones, qs_ls / s_ls bytes apart), K split over a cluster of `cluster` CTAs
+// (the wrapper's decode_plan). Returns 0 or an error code; the launch's
+// own error is returned too.
+template <bool P4, bool SBF16, bool MINS, int NB8>
+int launch_decode_t(cudaStream_t st, const __nv_bfloat16* x, int B, int K, const uint8_t* qs,
+                    const void* sc, const void* mn, void* y, int N, int gs, int zp, int cluster,
+                    int out_bf16, const int* lidx, long long qs_ls, long long s_ls,
+                    int n_layers) {
+  using L = DecodeSmem<P4, SBF16, MINS>;
+  auto kern = qmm_decode<P4, SBF16, MINS, NB8>;
+  static bool attr = false;
+  if (!attr) {
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    attr = true;
+  }
+  const int R = P4 ? K / 2 : K, G = K / gs, units = (K + DV_UNIT_K - 1) / DV_UNIT_K;
+  if (cluster < 1 || cluster > DV_MAX_CLUSTER || cluster > units) return (int)cudaErrorInvalidValue;
+  const int upr = (units + cluster - 1) / cluster;
+  const long long L_ = n_layers < 1 ? 1 : n_layers;
+  DecodeArgs a{qs, sc, mn, y, lidx, lidx ? qs_ls : (long long)R * N,
+               lidx ? s_ls : (long long)G * N * L::ES, B, K, N, gs, zp, upr, N % 16 == 0,
+               out_bf16};
+
+  CUtensorMap mx, mw, ms, mm;
+  memset(&mw, 0, sizeof(mw));
+  memset(&ms, 0, sizeof(ms));
+  memset(&mm, 0, sizeof(mm));
+  {
+    const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)B};
+    const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
+    const cuuint32_t box[2] = {64, (cuuint32_t)(8 * NB8)};
+    if (int rc = make_map(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, dims, strides, box,
+                                 CU_TENSOR_MAP_SWIZZLE_128B))
+      return rc;
+  }
+  if (a.tma_w) {
+    const cuuint64_t wd[3] = {(cuuint64_t)N, (cuuint64_t)R, (cuuint64_t)L_};
+    const cuuint64_t wst[2] = {(cuuint64_t)N, (cuuint64_t)a.qs_ls};
+    const cuuint32_t wb[3] = {DV_TILE_N, (cuuint32_t)L::W_ROWS, 1};
+    if (int rc = make_map(&mw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, qs, wd, wst, wb,
+                                 CU_TENSOR_MAP_SWIZZLE_128B))
+      return rc;
+    const CUtensorMapDataType sdt =
+        SBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+    const cuuint64_t sd[3] = {(cuuint64_t)N, (cuuint64_t)G, (cuuint64_t)L_};
+    const cuuint64_t sst[2] = {(cuuint64_t)N * L::ES, (cuuint64_t)a.s_ls};
+    const cuuint32_t sb[3] = {DV_TILE_N, (cuuint32_t)(P4 ? 2 : DV_UNIT_K / gs), 1};
+    if (int rc = make_map(&ms, sdt, 3, sc, sd, sst, sb, CU_TENSOR_MAP_SWIZZLE_NONE))
+      return rc;
+    if (MINS)
+      if (int rc = make_map(&mm, sdt, 3, mn, sd, sst, sb, CU_TENSOR_MAP_SWIZZLE_NONE))
+        return rc;
+  }
+  cudaLaunchConfig_t cfg;
+  memset(&cfg, 0, sizeof(cfg));
+  cfg.gridDim = dim3(cluster, (N + DV_TILE_N - 1) / DV_TILE_N, 1);
+  cfg.blockDim = dim3(DV_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = L::BYTES;
+  cfg.stream = st;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = cluster;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kern, mx, mw, ms, mm, a);
+}
+
+template <bool P4, bool SBF16, bool MINS>
+int launch_decode_nb(cudaStream_t st, const __nv_bfloat16* x, int B, int K, const uint8_t* qs,
+                     const void* sc, const void* mn, void* y, int N, int gs, int zp,
+                     int cluster, int out_bf16, const int* lidx, long long qs_ls, long long s_ls,
+                     int n_layers) {
+  if (B <= 8)
+    return launch_decode_t<P4, SBF16, MINS, 1>(st, x, B, K, qs, sc, mn, y, N, gs, zp, cluster,
+                                               out_bf16, lidx, qs_ls, s_ls, n_layers);
+  return launch_decode_t<P4, SBF16, MINS, 2>(st, x, B, K, qs, sc, mn, y, N, gs, zp, cluster,
+                                             out_bf16, lidx, qs_ls, s_ls, n_layers);
+}
+
+// K1/K2 (K7 with lidx) at B <= 16 on any planes: the launch both entry points share
+inline int decode_any(const void* x, const void* qs, const void* scales, const void* mins,
+                      void* y, int B, int K, int N, int gs, int zp, int p4, int scales_bf16,
+                      int cluster, int out_bf16, const int* lidx, long long qs_ls,
+                      long long s_ls, int n_layers, void* stream) {
+  if (B < 1 || B > DV_MAX_B) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(x);
+  const uint8_t* q = reinterpret_cast<const uint8_t*>(qs);
+  const bool has_m = mins != nullptr;
+  int rc = 0;
+#define DV_RUN(P, S, M)                                                                     \
+  rc = launch_decode_nb<P, S, M>(st, xb, B, K, q, scales, mins, y, N, gs, zp, cluster,      \
+                                 out_bf16, lidx, qs_ls, s_ls, n_layers)
+  if (p4) {
+    if (scales_bf16) { if (has_m) DV_RUN(true, true, true); else DV_RUN(true, true, false); }
+    else { if (has_m) DV_RUN(true, false, true); else DV_RUN(true, false, false); }
+  } else {
+    if (scales_bf16) { if (has_m) DV_RUN(false, true, true); else DV_RUN(false, true, false); }
+    else { if (has_m) DV_RUN(false, false, true); else DV_RUN(false, false, false); }
+  }
+#undef DV_RUN
+  return rc != 0 ? rc : (int)cudaGetLastError();
+}
+
+}  // namespace

@@ -1,6 +1,6 @@
-// The decode GEMV's inner loop, shared by K1/K2/K5 (qmm.cu) and by every
-// phase of the chained kernel K6 (qmm_chain.cu), so that a chain phase
-// computes exactly what the unfused launch computes.
+// The GEMV loop of K5 (qmm.cu, qmm_stacked.cu), of every phase of the
+// chained kernel K6 (qmm_chain.cu) and of the S1 probes (qmm_probe.cu).
+// K1/K2/K7's decode GEMV no longer uses it (qmm_decode.cuh).
 //
 //   y[b,n] += sum_{k in the block's K range} x[b,k] * (q[k,n] - zp) * s[k/gs,n]
 //             - sum_g xsum[b,g] * m[g,n]
@@ -9,7 +9,7 @@
 // 8 columns per warp, each lane streaming one 8-byte word of a plane row)
 // over a range of K "units" (32 plane rows each), for up to 4 rows of x.
 // The activations of the K range are staged once in shared memory through
-// a loader functor xl(b, k), which is where K1 reads bf16 rows and K6
+// a loader functor xl(b, k), which is where K5 reads bf16 rows and K6
 // applies its phase boundary (RMSNorm, residual add, SwiGLU). The 8 warps
 // reduce in shared memory and the sums land in y, by atomics when K is
 // split over CTAs.
@@ -22,10 +22,10 @@
 // _gdot_kernel). It saves one multiply per weight element; the planes it
 // reads, and so its bytes bound, are K1's.
 //
-// MODE (default GV_FULL, which is the GEMV above; K1/K5/K6 use nothing
-// else) turns the same CTA into one of the decode GEMV's probes (S1), which
+// MODE (default GV_FULL, which is the GEMV above; K5/K6 use nothing else)
+// turns the same CTA into one of the old decode GEMV's probes (S1), which
 // replace the TPU package's timing probes scripts/kbench.py:56 and
-// scripts/kbench3.py:54/:89. They run on K1's grid over p4 planes and write
+// scripts/kbench3.py:54/:89. They run on K5's grid over p4 planes and write
 // f32 [GV_PROBE_ROWS = 3, N], to which every byte they load contributes, so
 // that no load can be dropped by the compiler. Each kind of load has a row
 // of its own, so that each is checked at a tolerance of its own size (the
@@ -38,7 +38,7 @@
 //   row 2, the sum of the staged x (GV_DMA, GV_DEQ).
 // GV_QS streams the packed qs only; GV_DMA also streams scales and mins and
 // stages x as the GEMV does; a row a mode does not feed is 0. A launch per
-// 4 rows of x streams the planes once, as K1's does, so every plane term
+// 4 rows of x streams the planes once, as K5's does, so every plane term
 // counts once per such launch.
 //
 // p4 layout: within each 256-row pack tile of K, packed row t holds k=t in
@@ -113,7 +113,7 @@ __device__ __forceinline__ int unit_k(int u, int r) {
   return u * 32 + r;
 }
 
-// K1's loader: bf16 rows of x with leading dimension ld
+// K5's (and the probes') loader: bf16 rows of x with leading dimension ld
 struct Bf16Rows {
   const __nv_bfloat16* x;
   int ld;

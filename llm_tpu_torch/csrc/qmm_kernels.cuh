@@ -15,20 +15,19 @@
 // p4 layout: within each 256-row pack tile of K, packed row t holds k=t in
 // its low nibble and k=t+128 in its high nibble.
 //
-// Two regimes:
-//  * decode (B <= 16, rows in chunks of 4): a GEMV bound by the bytes of
-//    the planes (0.5 B/weight p4, 1 B/weight i8, plus scales and mins).
-//    Each warp streams 8-byte words of one plane row across 256 columns
-//    (32 lanes x 8 columns, fully coalesced), dequantizes in registers
-//    (w = (q - zp) * s in f32, then an FMA per row of x), and the K range
-//    is split over CTAs so that even N = 4096 fills the 132 SMs; partial
-//    sums meet through f32 atomics (a memset first). The activations of a
-//    CTA's K range are staged once in shared memory. The loop lives in
-//    qmm_gemv.cuh, which the chained kernel K6 (qmm_chain.cu) shares.
-//    K5 (qmm_gdot_launch) is the same GEMV with GDOT set: it replaces
-//    llm_tpu/ops/pallas_qmm.py::_gdot_kernel (via _qmm_gdot_call), takes
-//    the scale once per 32-group instead of once per weight, and is bound
-//    by the same plane bytes as K1.
+// Two kernels here, the decode GEMV of K1/K2/K7 apart:
+//  * decode (B <= 16) of K1/K2/K7 is no longer here: qmm_decode.cuh, built
+//    as its own library from qmm_decode.cu (mma.sync on exact integer
+//    operands over a TMA ring, K split over a thread block cluster; see
+//    there). ops/cuda_qmm.py sends every B <= 16 call without gdot to it.
+//  * K5 (qmm_gdot_launch, B <= 16) is the GEMV of qmm_gemv.cuh with GDOT
+//    set: it replaces llm_tpu/ops/pallas_qmm.py::_gdot_kernel (via
+//    _qmm_gdot_call). Each warp streams 8-byte words of one plane row
+//    across 256 columns, keeps a per-group partial of x . q on the raw
+//    nibbles and takes the scale once per 32-group; the K range is split
+//    over CTAs whose partial sums meet through f32 atomics (a memset
+//    first), in launches of 4 rows of x. The chained kernel K6
+//    (qmm_chain.cu) shares that loop.
 //  * prefill (B > 16): qmm_gemm.cuh's warp-specialized wgmma GEMM over a
 //    TMA ring of stages, the mins folded into the weight and each weight
 //    split into bf16 hi + lo, so that the tensor cores keep the f32 group
@@ -43,9 +42,9 @@
 // the per-layer strides; nothing else changes, so K7 computes exactly what
 // the unstacked kernel computes on that layer, and the host never reads the
 // index (no sync per launch). Its bound is the unstacked kernel's: one
-// layer's planes. K7's decode kernel (qmm_gemv_stacked) wraps the same
-// inlined CTA body as K1/K2/K5's, whose kernels keep the parameters and
-// code they had before K7 existed; its prefill runs qmm_gemm.cuh's kernel,
+// layer's planes. K7's K5 variant (qmm_gemv_stacked) wraps the same
+// inlined CTA body as K5's, whose kernels keep the parameters and code
+// they had before K7 existed; its prefill runs qmm_gemm.cuh's kernel,
 // whose producer reads the layer index and takes it as the third
 // coordinate of its tensor maps. K7's instantiations live in their own
 // library (qmm_stacked.cu).
@@ -75,7 +74,7 @@ __device__ __forceinline__ void to_layer(const Stack& sk, const uint8_t*& qs, co
 }
 
 // ----------------------------------------------------------------------------
-// decode GEMV (K1/K2, and K5 with GDOT): one CTA per (N tile, K range)
+// K5's decode GEMV (GDOT): one CTA per (N tile, K range)
 
 template <int NB, bool P4, bool SBF16, bool MINS, bool GDOT>
 __device__ __forceinline__ void gemv_cta(const __nv_bfloat16* __restrict__ x, int B, int K,
@@ -136,33 +135,35 @@ void launch_gemv_nb(int nb, dim3 grid, cudaStream_t st, const __nv_bfloat16* x,
     launch_gemv_t<4, P4, SBF16, MINS, GDOT, STACKED>(grid, st, x, B, K, qs, sc, mn, y, N, gs, zp, upc, atomic_out, sk);
 }
 
-// returns 0, or the prefill GEMM's host-side error code
+// returns 0, or the prefill GEMM's host-side error code; K1/K2 at B <= 16
+// run qmm_decode.cu's kernel and are refused here
 template <bool P4, bool SBF16, bool MINS, bool GDOT, bool STACKED>
 int run(cudaStream_t st, const __nv_bfloat16* x, int B, int K,
         const uint8_t* qs, const void* sc, const void* mn, float* y, int N,
         int gs, int zp, Stack sk, int split, int n_layers) {
   if constexpr (!GDOT) {
-    if (B > 16)
-      return launch_gemm<P4, SBF16, MINS>(st, x, B, K, qs, sc, mn, y, N, gs, zp, split,
-                                          STACKED ? sk.lidx : nullptr, sk.qs_ls, sk.s_ls,
-                                          n_layers);
+    if (B <= 16) return (int)cudaErrorInvalidValue;
+    return launch_gemm<P4, SBF16, MINS>(st, x, B, K, qs, sc, mn, y, N, gs, zp, split,
+                                        STACKED ? sk.lidx : nullptr, sk.qs_ls, sk.s_ls,
+                                        n_layers);
+  } else {
+    // about two CTAs of 8 warps on every SM
+    const GemvSplit sp = gemv_split(K, N, P4, 2 * sm_count());
+    const int atomic_out = sp.ksplit > 1;
+    if (atomic_out) cudaMemsetAsync(y, 0, sizeof(float) * (size_t)B * N, st);
+    dim3 grid(sp.ntiles, sp.ksplit);
+    for (int b0 = 0; b0 < B; b0 += GV_MAX_NB) {
+      const int nb = min(GV_MAX_NB, B - b0);
+      const int nbt = nb == 1 ? 1 : (nb == 2 ? 2 : 4);
+      launch_gemv_nb<P4, SBF16, MINS, GDOT, STACKED>(nbt, grid, st, x + (size_t)b0 * K, nb, K,
+                                            qs, sc, mn, y + (size_t)b0 * N, N, gs, zp,
+                                            sp.upc, atomic_out, sk);
+    }
+    return 0;
   }
-  // about two CTAs of 8 warps on every SM
-  const GemvSplit sp = gemv_split(K, N, P4, 2 * sm_count());
-  const int atomic_out = sp.ksplit > 1;
-  if (atomic_out) cudaMemsetAsync(y, 0, sizeof(float) * (size_t)B * N, st);
-  dim3 grid(sp.ntiles, sp.ksplit);
-  for (int b0 = 0; b0 < B; b0 += GV_MAX_NB) {
-    const int nb = min(GV_MAX_NB, B - b0);
-    const int nbt = nb == 1 ? 1 : (nb == 2 ? 2 : 4);
-    launch_gemv_nb<P4, SBF16, MINS, GDOT, STACKED>(nbt, grid, st, x + (size_t)b0 * K, nb, K,
-                                          qs, sc, mn, y + (size_t)b0 * N, N, gs, zp,
-                                          sp.upc, atomic_out, sk);
-  }
-  return 0;
 }
 
-// K1/K2 (K7 with STACKED) on any planes: the launch the entry points share
+// K1/K2 (K7 with STACKED) at B > 16 on any planes: the launch the entry points share
 template <bool STACKED>
 int qmm_any(const void* x, const void* qs, const void* scales, const void* mins,
             void* y, int B, int K, int N, int gs, int zp, int p4, int scales_bf16,

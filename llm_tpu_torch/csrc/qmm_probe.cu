@@ -4,11 +4,13 @@
 // scripts/kbench3.py:54 _probe1_kernel (stream the qs plane only) and
 // scripts/kbench.py:56 / scripts/kbench3.py:89 _probe_kernel (mode "dma":
 // stream every plane; mode "deq": stream and dequantize, no dot). Each is
-// K1's decode GEMV (qmm_gemv.cuh, gemv_block) with its MODE set, on K1's
-// own grid and split (gemv_split, one launch per 4 rows of x), so that the
-// times of GV_QS, GV_DMA, GV_DEQ and K1 itself split the GEMV's time into
-// streaming the packed nibbles, streaming everything it reads, dequantizing,
-// and the product with x. Bound by the bytes each mode reads.
+// the GEMV loop of qmm_gemv.cuh (gemv_block: K1's decode GEMV when S1 was
+// ported, K5's and K6's now; K1 has its own, qmm_decode.cuh) with its MODE
+// set, on that loop's grid and split (gemv_split, one launch per 4 rows of
+// x), so that the times of GV_QS, GV_DMA, GV_DEQ and the full loop split
+// its time into streaming the packed nibbles, streaming everything it
+// reads, dequantizing, and the product with x. Bound by the bytes each
+// mode reads.
 //
 // Unlike the TPU probes, which sum a slice of each block whose rows depend
 // on the tile, every byte a probe loads feeds its output, so the output is
@@ -54,7 +56,8 @@ void launch(int nb, dim3 grid, cudaStream_t st, const __nv_bfloat16* x, int B, i
 template <bool MINS, int MODE>
 void run(cudaStream_t st, const __nv_bfloat16* x, int B, int K, const uint8_t* qs,
          const void* sc, const void* mn, float* y, int N, int zp) {
-  // K1's split (qmm.cu run); launches for more than 4 rows meet in y too
+  // the loop's split (qmm_kernels.cuh run); launches for more than 4 rows
+  // meet in y too
   const GemvSplit sp = gemv_split(K, N, true, 2 * sm_count());
   const int atomic_out = sp.ksplit > 1 || B > GV_MAX_NB;
   if (atomic_out) cudaMemsetAsync(y, 0, sizeof(float) * GV_PROBE_ROWS * (size_t)N, st);

@@ -23,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("qmm", "qmm_stacked", "flash_attn", "flash_prefill", "qmm_chain", "qmm_probe",
+SOURCES = ("qmm", "qmm_stacked", "qmm_decode", "flash_attn", "flash_prefill", "qmm_chain", "qmm_probe",
            "flash_probe")
 
 _lock = threading.Lock()

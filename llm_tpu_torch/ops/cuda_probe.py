@@ -4,12 +4,13 @@ scripts/kbench.py / kbench3.py::probe (_probe_kernel, modes "dma" and
 "deq"), which split the fused dequantize x matmul's time into streaming and
 dequantizing.
 
-`probe_cuda(mode, x, qt)` launches csrc/qmm_probe.cu: K1's decode GEMV on
-K1's grid with its MODE set, over p4 planes with bf16 scales, x bf16
-[B <= 16, K]. Each mode writes f32 [3, N], to which every byte it loads
-contributes (the compiler can drop no load), one row for each kind of
-load; per column n, with C the number of K1 launches (one per 4 rows of x)
-and X the sum of x:
+`probe_cuda(mode, x, qt)` launches csrc/qmm_probe.cu: the GEMV loop of
+csrc/qmm_gemv.cuh (K5's and K6's, and K1's before K1's decode GEMV moved
+to csrc/qmm_decode.cu) on that loop's grid with its MODE set, over p4
+planes with bf16 scales, x bf16 [B <= 16, K]. Each mode writes f32 [3, N],
+to which every byte it loads contributes (the compiler can drop no load),
+one row for each kind of load; per column n, with C the number of the
+loop's launches (one per 4 rows of x) and X the sum of x:
 
     row 0, "qs" and "dma":  C * sum_r qs[r, n]                (packed bytes)
     row 1, "dma":           C * (sum_g s[g, n] + sum_g m[g, n])
@@ -45,7 +46,7 @@ OUT_ROWS = 3  # rows of a probe's output (module docstring)
 REL_TOL = 1e-5
 # launches of the probe kernel, counted where the wrapper launches it
 LAUNCHES = {"S1": 0}
-ROWS_PER_LAUNCH = 4  # K1's decode GEMV takes x 4 rows at a time
+ROWS_PER_LAUNCH = 4  # the qmm_gemv.cuh loop takes x 4 rows at a time
 
 
 def reset_launches() -> None:

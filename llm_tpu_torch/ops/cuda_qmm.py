@@ -12,17 +12,20 @@ group sums of the rounded x. K5 computes the same sum as the TPU's gdot
 kernel does: per 32-group the dot of x with the raw nibbles, times s[g] in
 f32, then the mins and zero-point terms from the group sums of x, their
 operands rounded to the compute dtype. `qmm_plain` / `qmm_gdot_plain` are
-these functions step by step in PyTorch; `qmm_cuda` launches csrc/qmm.cu
-(at B > 16 its prefill GEMM, csrc/qmm_gemm.cuh, whose K split over CTAs
-`gemm_split` chooses from the shape and the SM count).
+these functions step by step in PyTorch. `qmm_cuda` launches, for K1/K2
+at B <= 16, the decode GEMV of csrc/qmm_decode.cu (a library of its own:
+mma.sync on exact integer operands over a TMA ring, K split over a thread
+block cluster whose size `decode_plan` chooses, y written in the caller's
+dtype); at B > 16 the prefill GEMM of csrc/qmm.cu (csrc/qmm_gemm.cuh,
+whose K split over CTAs `gemm_split` chooses); and K5 from csrc/qmm.cu.
 K7 computes exactly what K1/K2/K5 compute on layer idx of a StackedWeight:
 its plain version is theirs on the layer's copy (`qmm_stacked_plain`), and
-`qmm_stacked_cuda` launches the same kernels (built apart, from
-csrc/qmm_stacked.cu) with the stacked base pointers,
-the per-layer strides and a pointer to the device index, which every CTA
-reads once. `quant_matmul` dispatches on the device of x: CPU tensors take
-the plain version, CUDA tensors the kernel (which raises rather than fall
-back).
+`qmm_stacked_cuda` launches the same kernels (the decode GEMV's stacked
+entry point; the GEMM and K5 built apart, from csrc/qmm_stacked.cu) with
+the stacked base pointers, the per-layer strides and a pointer to the
+device index, which every CTA reads once. `quant_matmul` dispatches on the
+device of x: CPU tensors take the plain version, CUDA tensors the kernel
+(which raises rather than fall back).
 """
 
 from __future__ import annotations
@@ -37,8 +40,19 @@ from . import cuda_build
 
 # launches of each kernel, counted where the wrapper launches it
 LAUNCHES = {"K1": 0, "K2": 0, "K5": 0, "K7": 0}
-# rows up to which the reference takes the group-factored path
+# rows up to which the reference takes the group-factored path (and up to
+# which K1/K2/K7 run the decode GEMV, csrc/qmm_decode.cu)
 GDOT_MAX_B = 16
+# the decode GEMV: a CTA computes 128 columns of y over stages of 128 k; the
+# CTAs of one column tile (a thread block cluster, at most 16) split K
+DECODE_TILE_N, DECODE_UNIT_K, DECODE_MAX_CLUSTER = 128, 128, 16
+# decode_plan's rule, fitted to a sweep of the cluster size at the LLAMA3_8B
+# decode shapes at B = 1, 8 and 16 on an H100 (tools/gemm_splits.py,
+# PERF.md): CTAs on every SM (p4; i8, whose CTA holds a ring of 88 KB of
+# shared memory), at most 8 CTAs a cluster (portable), at least 4 stages a
+# CTA
+DECODE_CTAS_PER_SM = {"p4": 1.5, "i8": 0.75}
+DECODE_PLAN_MAX_CLUSTER, DECODE_MIN_UNITS = 8, 4
 # the prefill GEMM (csrc/qmm_gemm.cuh, B > 16): a tile is 256 columns x 128
 # rows of y, a stage 128 k; an item is a tile over one of `split` K ranges
 GEMM_TILE_N, GEMM_TILE_B, GEMM_UNIT_K = 256, 128, 128
@@ -98,6 +112,22 @@ def gemm_split(B: int, N: int, K: int, n_sm: int) -> int:
     return best[1]
 
 
+def decode_plan(K: int, N: int, B: int, n_sm: int, layout: str = "p4") -> tuple[int, int]:
+    """The decode GEMV's (tile width, cluster size) for x [B <= 16, K] and N
+    columns of `layout` planes on n_sm SMs: as many CTAs as
+    DECODE_CTAS_PER_SM on every SM allow, at most DECODE_PLAN_MAX_CLUSTER a
+    cluster and at least DECODE_MIN_UNITS stages of 128 k a CTA; then the
+    fewest CTAs that give each the same number of stages (none without
+    one). The kernel reads the planes once whatever B is, so B does not
+    enter."""
+    tiles = -(-N // DECODE_TILE_N)
+    units = -(-K // DECODE_UNIT_K)
+    target = min(DECODE_PLAN_MAX_CLUSTER, max(1, units // DECODE_MIN_UNITS),
+                 max(1, int(DECODE_CTAS_PER_SM[layout] * n_sm) // tiles))
+    per = -(-units // target)
+    return DECODE_TILE_N, -(-units // per)
+
+
 _SM_COUNT: dict = {}
 
 
@@ -108,9 +138,12 @@ def sm_count(device: torch.device) -> int:
     return _SM_COUNT[idx]
 
 
-def _split(x: torch.Tensor, N: int) -> int:
+def _split(x: torch.Tensor, N: int, layout: str) -> int:
+    """The prefill GEMM's K split (B > 16) or the decode GEMV's cluster size."""
     B, K = x.shape
-    return gemm_split(B, N, K, sm_count(x.device)) if B > GDOT_MAX_B else 1
+    if B > GDOT_MAX_B:
+        return gemm_split(B, N, K, sm_count(x.device))
+    return decode_plan(K, N, B, sm_count(x.device), layout)[1]
 
 
 def gdot_eligible(qt: QTensor, B: int) -> bool:
@@ -151,8 +184,12 @@ def qmm_stacked_plain(x: torch.Tensor, sw: StackedWeight, cdtype=torch.bfloat16,
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# entry points of each library: K1/K2/K5 (csrc/qmm.cu), K7 (csrc/qmm_stacked.cu)
-_ARGTYPES = {"qmm": {"qmm_launch": [_P] * 5 + [_I] * 8 + [_P],
+# entry points of each library: K1/K2 at B > 16 and K5 (csrc/qmm.cu), K7's
+# (csrc/qmm_stacked.cu), K1/K2/K7 at B <= 16 (csrc/qmm_decode.cu)
+_ARGTYPES = {"qmm_decode": {"qmm_decode_launch": [_P] * 5 + [_I] * 9 + [_P],
+                            "qmm_decode_stacked_launch": [_P] * 5 + [_I] * 9
+                            + [_L, _L, _I, _P, _P]},
+             "qmm": {"qmm_launch": [_P] * 5 + [_I] * 8 + [_P],
                      "qmm_gdot_launch": [_P] * 5 + [_I] * 5 + [_P]},
              "qmm_stacked": {"qmm_stacked_launch": [_P] * 5 + [_I] * 8 + [_L, _L, _I, _P, _P],
                              "qmm_gdot_stacked_launch": [_P] * 5 + [_I] * 5 + [_L, _L, _P, _P]}}
@@ -169,8 +206,9 @@ def _lib(name: str = "qmm"):
 
 
 def check_planes(qt: QTensor, B: int, K: int) -> None:
-    """Raise unless the decode GEMV / prefill GEMM of csrc/qmm.cu takes
-    these planes for x [B, K] (the chained kernel's phases take the same)."""
+    """Raise unless the decode GEMV (csrc/qmm_decode.cu) or the prefill GEMM
+    (csrc/qmm.cu) takes these planes for x [B, K] (the chained kernel's
+    phases take the same)."""
     p4 = qt.layout == "p4"
     if not (qt.qs.is_cuda and qt.scales.is_cuda):
         raise ValueError("qmm_cuda needs CUDA tensors")
@@ -194,13 +232,36 @@ def check_planes(qt: QTensor, B: int, K: int) -> None:
                          f"gs={qt.group_size} K={K} B={B}")
 
 
-def qmm_cuda(x: torch.Tensor, qt: QTensor, gdot: bool = False) -> torch.Tensor:
-    """Launch K1 (p4) or K2 (i8), or K5 with gdot. x bf16 [B, K] on the card."""
-    return _qmm_launch(x, qt, gdot, None)
+def _check_decode(qt: QTensor) -> None:
+    """The decode GEMV's integer operands: q - zp exact in bf16 (p4: 128 + zp
+    as a bf16 of the nibbles' exponent; i8: |q - zp| <= 256)."""
+    if not (0 <= qt.zp <= 15 if qt.layout == "p4" else -128 <= qt.zp <= 128):
+        raise ValueError(f"qmm_cuda: zero point {qt.zp} outside the decode GEMV's range")
 
 
-def _qmm_launch(x: torch.Tensor, qt: QTensor, gdot: bool, split: int | None) -> torch.Tensor:
-    """qmm_cuda with the prefill GEMM's K split at B > 16 given (gemm_split's
+def _out(B: int, N: int, x: torch.Tensor, out_dtype) -> tuple[torch.Tensor, int]:
+    """y for the decode GEMV, which writes f32 or bf16 (other dtypes: f32,
+    cast by the caller), and whether it is bf16."""
+    bf16 = out_dtype == torch.bfloat16
+    return torch.empty((B, N), dtype=torch.bfloat16 if bf16 else torch.float32,
+                       device=x.device), int(bf16)
+
+
+def _cast(y: torch.Tensor, out_dtype) -> torch.Tensor:
+    return y if out_dtype is None or y.dtype == out_dtype else y.to(out_dtype)
+
+
+def qmm_cuda(x: torch.Tensor, qt: QTensor, gdot: bool = False, out_dtype=None) -> torch.Tensor:
+    """Launch K1 (p4) or K2 (i8), or K5 with gdot. x bf16 [B, K] on the card;
+    y in out_dtype (f32 when None): at B <= 16 without gdot the kernel
+    writes bf16 or f32 itself, elsewhere f32 is cast."""
+    return _qmm_launch(x, qt, gdot, None, out_dtype)
+
+
+def _qmm_launch(x: torch.Tensor, qt: QTensor, gdot: bool, split: int | None,
+                out_dtype=None) -> torch.Tensor:
+    """qmm_cuda with the prefill GEMM's K split at B > 16, or the decode
+    GEMV's cluster size at B <= 16, given (gemm_split's or decode_plan's
     when None; tools/gemm_splits.py times the others)."""
     B, K = x.shape
     if not x.is_cuda or x.dtype != torch.bfloat16 or not x.is_contiguous() \
@@ -212,29 +273,41 @@ def _qmm_launch(x: torch.Tensor, qt: QTensor, gdot: bool, split: int | None) -> 
     if gdot and not gdot_eligible(qt, B):
         raise ValueError(f"qmm_cuda: K5 takes p4 planes at B <= {GDOT_MAX_B}, "
                          f"K % 256 == 0 (layout={qt.layout} B={B} K={K})")
-    y = torch.empty((B, N), dtype=torch.float32, device=x.device)
     if B == 0:
-        return y
+        return torch.empty((0, N), dtype=out_dtype or torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     mins = qt.mins.data_ptr() if qt.mins is not None else None
     sbf16 = int(qt.scales.dtype == torch.bfloat16)
+    split = _split(x, N, qt.layout) if split is None else split
     if gdot:
+        y = torch.empty((B, N), dtype=torch.float32, device=x.device)
         rc = _lib().qmm_gdot_launch(x.data_ptr(), qt.qs.data_ptr(), qt.scales.data_ptr(),
                                     mins, y.data_ptr(), B, K, N, qt.zp, sbf16, stream)
         cuda_build.check(rc, "qmm_gdot_launch")
         LAUNCHES["K5"] += 1
-        return y
-    rc = _lib().qmm_launch(x.data_ptr(), qt.qs.data_ptr(), qt.scales.data_ptr(), mins,
-                           y.data_ptr(), B, K, N, qt.group_size, qt.zp, int(p4), sbf16,
-                           _split(x, N) if split is None else split, stream)
-    cuda_build.check(rc, "qmm_launch")
+        return _cast(y, out_dtype)
+    if B <= GDOT_MAX_B:
+        _check_decode(qt)
+        y, obf16 = _out(B, N, x, out_dtype)
+        rc = _lib("qmm_decode").qmm_decode_launch(
+            x.data_ptr(), qt.qs.data_ptr(), qt.scales.data_ptr(), mins, y.data_ptr(), B, K, N,
+            qt.group_size, qt.zp, int(p4), sbf16, split, obf16, stream)
+        cuda_build.check(rc, "qmm_decode_launch")
+    else:
+        y = torch.empty((B, N), dtype=torch.float32, device=x.device)
+        rc = _lib().qmm_launch(x.data_ptr(), qt.qs.data_ptr(), qt.scales.data_ptr(), mins,
+                               y.data_ptr(), B, K, N, qt.group_size, qt.zp, int(p4), sbf16,
+                               split, stream)
+        cuda_build.check(rc, "qmm_launch")
     LAUNCHES["K1" if p4 else "K2"] += 1
-    return y
+    return _cast(y, out_dtype)
 
 
-def qmm_stacked_cuda(x: torch.Tensor, sw: StackedWeight, gdot: bool = False) -> torch.Tensor:
+def qmm_stacked_cuda(x: torch.Tensor, sw: StackedWeight, gdot: bool = False,
+                     out_dtype=None) -> torch.Tensor:
     """Launch K7: K1/K2 (K5 with gdot) on layer sw.idx of stacked K-major
-    planes, the index read on the card. x bf16 [B, K] on the card."""
+    planes, the index read on the card. x bf16 [B, K] on the card; y in
+    out_dtype as qmm_cuda's."""
     qt = sw.w
     if not isinstance(qt, QTensor) or qt.qs.dim() != 3:
         raise ValueError("qmm_stacked_cuda: needs a QTensor with [L, ...] planes")
@@ -255,38 +328,52 @@ def qmm_stacked_cuda(x: torch.Tensor, sw: StackedWeight, gdot: bool = False) -> 
         raise ValueError(f"qmm_stacked_cuda: K5 takes p4 planes at B <= {GDOT_MAX_B}, "
                          f"K % 256 == 0 (layout={layer.layout} B={B} K={K})")
     N = layer.out_features
-    y = torch.empty((B, N), dtype=torch.float32, device=x.device)
     if B == 0:
-        return y
+        return torch.empty((0, N), dtype=out_dtype or torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     mins = qt.mins.data_ptr() if qt.mins is not None else None
     sbf16 = int(qt.scales.dtype == torch.bfloat16)
+    p4 = int(qt.layout == "p4")
     if gdot:
+        y = torch.empty((B, N), dtype=torch.float32, device=x.device)
         rc = _lib("qmm_stacked").qmm_gdot_stacked_launch(
             x.data_ptr(), qt.qs.data_ptr(), qt.scales.data_ptr(), mins, y.data_ptr(), B, K, N,
             qt.zp, sbf16, qs_ls, s_ls, idx.data_ptr(), stream)
+    elif B <= GDOT_MAX_B:
+        _check_decode(layer)
+        y, obf16 = _out(B, N, x, out_dtype)
+        rc = _lib("qmm_decode").qmm_decode_stacked_launch(
+            x.data_ptr(), qt.qs.data_ptr(), qt.scales.data_ptr(), mins, y.data_ptr(), B, K, N,
+            qt.group_size, qt.zp, p4, sbf16, _split(x, N, qt.layout), obf16, qs_ls, s_ls,
+            qt.qs.shape[0], idx.data_ptr(), stream)
     else:
+        y = torch.empty((B, N), dtype=torch.float32, device=x.device)
         rc = _lib("qmm_stacked").qmm_stacked_launch(
             x.data_ptr(), qt.qs.data_ptr(), qt.scales.data_ptr(), mins, y.data_ptr(), B, K, N,
-            qt.group_size, qt.zp, int(qt.layout == "p4"), sbf16, _split(x, N), qs_ls, s_ls,
+            qt.group_size, qt.zp, p4, sbf16, _split(x, N, qt.layout), qs_ls, s_ls,
             qt.qs.shape[0], idx.data_ptr(), stream)
     cuda_build.check(rc, "qmm_stacked_launch")
     LAUNCHES["K7"] += 1
-    return y
+    return _cast(y, out_dtype)
 
 
 def quant_matmul(x: torch.Tensor, qt: "QTensor | StackedWeight", cdtype=torch.bfloat16,
-                 gdot: bool = False) -> torch.Tensor:
-    """x [B, K] @ W -> [B, N] f32, by device: the kernel for CUDA tensors,
-    the plain version for CPU tensors. gdot: K5 (the caller has checked
-    gdot_eligible) in place of K1. A StackedWeight of K-major planes takes
-    K7."""
+                 gdot: bool = False, out_dtype=None) -> torch.Tensor:
+    """x [B, K] @ W -> [B, N] in out_dtype (f32 when None), by device: the
+    kernel for CUDA tensors (the decode GEMV writes bf16 itself), the plain
+    version, whose f32 is cast, for CPU tensors. gdot: K5 (the caller has
+    checked gdot_eligible) in place of K1. A StackedWeight of K-major
+    planes takes K7."""
     stacked = isinstance(qt, StackedWeight)
     if x.is_cuda:
         if cdtype != torch.bfloat16:
             raise ValueError("the CUDA qmm kernels compute in bf16")
         xb = x.to(torch.bfloat16).contiguous()
-        return qmm_stacked_cuda(xb, qt, gdot) if stacked else qmm_cuda(xb, qt, gdot)
+        if stacked:
+            return qmm_stacked_cuda(xb, qt, gdot, out_dtype)
+        return qmm_cuda(xb, qt, gdot, out_dtype)
     if stacked:
-        return qmm_stacked_plain(x, qt, cdtype, gdot)
-    return (qmm_gdot_plain if gdot else qmm_plain)(x, qt, cdtype)
+        y = qmm_stacked_plain(x, qt, cdtype, gdot)
+    else:
+        y = (qmm_gdot_plain if gdot else qmm_plain)(x, qt, cdtype)
+    return _cast(y, out_dtype)

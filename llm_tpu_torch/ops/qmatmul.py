@@ -24,7 +24,9 @@ DEFAULT_DTYPE = torch.bfloat16
 
 def qmm(x: torch.Tensor, w: "QTensor | torch.Tensor | StackedWeight", dtype=None,
         out_dtype=None, gdot: bool = False) -> torch.Tensor:
-    """y[..., n] = sum_k x[..., k] * W[k, n], accumulated in f32. gdot:
+    """y[..., n] = sum_k x[..., k] * W[k, n], accumulated in f32 and given
+    in out_dtype (f32 when None; the decode GEMV writes it, elsewhere the
+    f32 result is cast). gdot:
     p4 planes at B <= 16 rows with K % 256 == 0 take the group-factored
     K5; every other shape K1/K2, as the reference routes them. A
     StackedWeight of K-major planes takes K7 (with gdot where the layer's
@@ -37,10 +39,9 @@ def qmm(x: torch.Tensor, w: "QTensor | torch.Tensor | StackedWeight", dtype=None
         x2 = x.reshape(-1, k)
         geo = w.probe if isinstance(w, StackedWeight) else w
         use_gdot = gdot and gdot_eligible(geo, x2.shape[0])
-        y = quant_matmul(x2, w, dtype, use_gdot).reshape(*lead, -1)
-    else:
-        xw = x.to(w.dtype) if w.dtype != torch.float32 else x
-        y = xw.float() @ w.float().T
+        return quant_matmul(x2, w, dtype, use_gdot, out_dtype).reshape(*lead, -1)
+    xw = x.to(w.dtype) if w.dtype != torch.float32 else x
+    y = xw.float() @ w.float().T
     return y if out_dtype is None else y.to(out_dtype)
 
 

@@ -1,4 +1,6 @@
-"""The CUDA kernels (K1/K2 quantized matmul, K3/K4 flash attention,
+"""The CUDA kernels (K1/K2 quantized matmul: the decode GEMV at B <= 16,
+bit-identical from launch to launch and, as K7, bit-equal to K1/K2 on the
+layer, writing bf16 or f32; K3/K4 flash attention,
 K3q/K4q on the int8 KV cache, K5 group-factored matmul, K6 chained layer
 tail and norm + matmul, K7 on stacked planes, the S1 probes, the S3
 flash-decode layout and q8 probes) held against
@@ -70,6 +72,111 @@ def test_qmm_kernel_matches_plain(cuda_device, layout, zp, gs, mins, N, K, B, sc
     got = qmatmul.qmm(x.to(cuda_device), qt.to(cuda_device)).cpu()
     want = qmm_plain(x, qt, torch.bfloat16)
     assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+
+
+# the decode GEMV (K1/K2 at B <= 16, csrc/qmm_decode.cu) at the main path's
+# decode shapes: p4 attn_k, p4 down, Q6_K (i8 gs 16) down and an i8 gs 32
+# attn_k, at B on both sides of each 8-row block
+DECODE_MAIN = [("Q4_K", 4096, 1024), ("Q4_K", 14336, 4096), ("Q6_K", 14336, 4096),
+               ("Q8_0", 4096, 1024)]
+
+
+def _device_planes(dev, qtype, K, N, B, seed=0):
+    from llm_tpu_torch.models.synthetic import device_synthetic_qtensor
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + K + N + B)
+    qt = device_synthetic_qtensor(gen, N, K, GGMLType[qtype])
+    return torch.randn((B, K), generator=gen, device=dev).to(torch.bfloat16), qt
+
+
+@pytest.mark.parametrize("B", [1, 4, 8, 9, 16])
+@pytest.mark.parametrize("qtype,K,N", DECODE_MAIN, ids=[f"{q}-{k}x{n}" for q, k, n in DECODE_MAIN])
+def test_decode_main_shapes_match_plain(cuda_device, qtype, K, N, B):
+    """One launch of the decode GEMV a call, in f32 or bf16 (counted, and
+    seen by the profiler: no memset, no cast), within 1e-3 of max|y| of
+    qmm_plain; the bf16 y is the f32 one rounded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, qt = _device_planes(cuda_device, qtype, K, N, B)
+    kern = "K1" if qt.layout == "p4" else "K2"
+    launched = cuda_qmm.LAUNCHES[kern]
+    y = cuda_qmm.qmm_cuda(x, qt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        y16 = cuda_qmm.qmm_cuda(x, qt, out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+    assert cuda_qmm.LAUNCHES[kern] == launched + 2
+    dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum(e.count for e in dev) == 1 and "qmm_decode" in dev[0].key, \
+        [(e.key, e.count) for e in dev]
+    want = qmm_plain(x, qt, torch.bfloat16)
+    assert y.dtype == torch.float32 and y16.dtype == torch.bfloat16
+    assert (y - want).abs().max() <= 1e-3 * want.abs().max()
+    assert torch.equal(y16, y.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 5, 16])
+@pytest.mark.parametrize("qtype,K,N,B", [("Q4_K", 4096, 1024, 1), ("Q6_K", 4096, 1024, 16),
+                                         ("Q4_K", 4096, 1000, 9)])
+def test_decode_is_bit_identical_from_launch_to_launch(cuda_device, qtype, K, N, B, cluster):
+    """No atomics: two launches give the same bits at every cluster size,
+    each within 1e-3 of max|y| of qmm_plain."""
+    from llm_tpu_torch.quant.qtensor import QTensor
+
+    x, qt = _device_planes(cuda_device, qtype, K, N if N % 16 == 0 else 1024, B)
+    if N % 16:  # a ragged N: the producer gathers the planes
+        qt = QTensor(qt.qs[:, :N].contiguous(), qt.scales[:, :N].contiguous(),
+                     None if qt.mins is None else qt.mins[:, :N].contiguous(),
+                     qt.group_size, qt.ggml_type, qt.layout, qt.zp, qt.pack_tk, qt.kmajor)
+    y1 = cuda_qmm._qmm_launch(x, qt, False, cluster)
+    y2 = cuda_qmm._qmm_launch(x, qt, False, cluster)
+    want = qmm_plain(x, qt, torch.bfloat16)
+    assert torch.equal(y1, y2)
+    assert (y1 - want).abs().max() <= 1e-3 * want.abs().max()
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 16])
+@pytest.mark.parametrize("qtype,K,N", [("Q4_K", 4096, 1024), ("Q6_K", 1024, 512),
+                                       ("Q8_0", 14336, 256)])
+def test_k7_decode_equals_unstacked_bit_for_bit(cuda_device, qtype, K, N, B):
+    """K7 at B <= 16 is the decode GEMV on the layer the index names: the
+    same bits as K1/K2 on that layer's own copy."""
+    from llm_tpu_torch.models.synthetic import device_synthetic_qtensor
+
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(K + N + B)
+    layers = [device_synthetic_qtensor(gen, N, K, GGMLType[qtype]) for _ in range(3)]
+    one = layers[0]
+    st = (lambda ts: torch.stack(ts))
+    qt = QTensor(st([q.qs for q in layers]), st([q.scales for q in layers]),
+                 None if one.mins is None else st([q.mins for q in layers]), one.group_size,
+                 one.ggml_type, one.layout, one.zp, one.pack_tk, one.kmajor)
+    x = torch.randn((B, K), generator=gen, device=cuda_device).to(torch.bfloat16)
+    lids = torch.arange(3, dtype=torch.int32, device=cuda_device)
+    for il in range(3):
+        got = cuda_qmm.qmm_stacked_cuda(x, StackedWeight(qt, lids[il:il + 1]))
+        assert torch.equal(got, cuda_qmm.qmm_cuda(x, layers[il]))
+
+
+@pytest.mark.parametrize("B,gdot", [(1, False), (9, False), (17, False), (1, True), (9, True)])
+def test_out_dtype_bf16_is_the_f32_result_rounded(cuda_device, B, gdot):
+    """out_dtype=bf16 gives the f32 result rounded once to bf16: written by
+    the decode GEMV (B <= 16), cast after the prefill GEMM (B = 17, its K
+    unsplit: a split adds through atomics in a varying order) and K5; the
+    same for K7 at B <= 16."""
+    x, qt = _planes("p4", 0, 32, True, 512, 1024, B, torch.bfloat16)
+    xd, qd = x.to(cuda_device), qt.to(cuda_device)
+    split = 1 if B > 16 else None
+    f32 = cuda_qmm._qmm_launch(xd, qd, gdot, split)
+    b16 = cuda_qmm._qmm_launch(xd, qd, gdot, split, torch.bfloat16)
+    assert f32.dtype == torch.float32 and b16.dtype == torch.bfloat16
+    assert torch.equal(b16, f32.to(torch.bfloat16))
+    if B <= 16:
+        q3 = qd.map(lambda t: torch.stack([t, t]))
+        sw = StackedWeight(q3, torch.ones(1, dtype=torch.int32, device=cuda_device))
+        got = cuda_qmm.qmm_stacked_cuda(xd, sw, gdot, out_dtype=torch.bfloat16)
+        assert torch.equal(got, b16)
 
 
 def _attn_inputs(T, H, Hkv, S, mode, seed=0):
