@@ -11,10 +11,13 @@ prints no result line):
      machine code read back (cuobjdump: every qmm_decode kernel issues HMMA
      and TMA loads; libqmm.so and libqmm_stacked.so keep K5's qmm_gemv
      kernels and no other), the prefill GEMM's (every qmm_wgmma kernel
-     issues HGMMA and TMA loads, no mma.sync GEMM is left), and flash
+     issues HGMMA and TMA loads, no mma.sync GEMM is left), flash
      prefill's (every
      flash_prefill kernel of libflash_prefill.so issues HGMMA, no f32-FMA
-     prefill kernel is left in it or in libflash_attn.so);
+     prefill kernel is left in it or in libflash_attn.so), and flash
+     decode's (the six flash_decode_tc kernels of libflash_attn.so issue
+     HMMA and TMA loads, no split-S kernel or combine kernel is left there;
+     libflash_probe.so keeps the split-S body and its combine for S3);
   2. each kernel (K1/K2 quantized matmul: at B <= 16 the decode GEMV, at
      B = 1 and 8, at B > 16 the wgmma prefill GEMM, also at a ragged B =
      300; K3/K4 flash attention (K4, the
@@ -27,13 +30,15 @@ prints no result line):
      the main path's shapes, held
      against its plain PyTorch version on the card, and timed beside its
      bound, the plain version and one PyTorch library call that computes
-     the same function (K3/K3q's times also beside the kernel table's); then
+     the same function (K3/K3q's times also beside the split-S kernel's
+     that they replace); then
      the decode GEMV's probes (S1, tools/kbench.py) at the kbench shapes,
      each against its plain version and timed beside K1; then the
-     flash-decode probes (S3, tools/kbench_attn.py): K3's split kernel over
+     flash-decode probes (S3, tools/kbench_attn.py, each within
+     S3_MAX_RATIO of its kernel table's time): the split-S decode body over
      a stack of 20 head-major (v1) and seq-major (v0) caches at S=1024, the
      buffer named by an index on the card (buffers 0 and 19 checked, and
-     different), at splits of 256, 512 and 1024 cells and K3's own, and on
+     different), at splits of 256, 512 and 1024 cells and its own, and on
      the int8 cache at S=4096 without the scale multiply, with it in f32,
      and in bf16 (K3q's dequant), each against its plain version and timed
      beside its bound and SDPA;
@@ -48,10 +53,12 @@ prints no result line):
      (first, K5 against its plain version at every p4 shape of these planes
      that phase 2 left out, attn_k among them): prefill 512 tokens, then 128
      greedy tokens, with every kernel's launch count read over that run; its
-     profile of 8 more tokens shows no memset;
+     profile of 8 more tokens shows no memset, and one flash decode launch
+     a layer (no combine kernel);
   5. the same planes with a q8_0 KV cache (K3q/K4q in place of K3/K4):
      prefill 512, 128 greedy tokens, launch counts, the cache's bytes and
-     peak memory against phase 4's; then the prompt's cells saved with
+     peak memory against phase 4's, a profile of 8 more tokens (one K3q
+     launch a layer, no combine kernel); then the prompt's cells saved with
      state_seq_save, loaded into a fresh q8_0 Context (planes bit-equal)
      and one decode step there against the uninterrupted Context;
   6. phase 4's planes with gdot=True: K5 in place of every decode K1;
@@ -156,16 +163,18 @@ def sass_functions(lib: str) -> dict:
     return {f.split("\n", 1)[0].strip(): f for f in re.split(r"\n\s*Function : ", sass)[1:]}
 
 
-def check_sass(tag: str, libs: dict, name: str, need: tuple, gone: str) -> dict:
+def check_sass(tag: str, libs: dict, name: str, need: tuple, gone) -> dict:
     """Machine code of built libraries: lib<lib>.so holds libs[lib] kernels
     whose name contains `name`, each of which issues every instruction in
     `need`, and no kernel whose name contains `gone` (the kernel they
-    replaced)."""
+    replaced; a tuple: any of them)."""
+    gone = (gone,) if isinstance(gone, str) else gone
     out = {}
     for lib, n in libs.items():
         funcs = sass_functions(lib)
         mine = [v for k, v in funcs.items() if name in k]
-        rec = out[lib] = dict(kernels=len(mine), old_kernels=sum(gone in k for k in funcs), **{
+        rec = out[lib] = dict(kernels=len(mine),
+                              old_kernels=sum(any(x in k for x in gone) for k in funcs), **{
             f"{ins.lower()}_min": min((v.count(ins) for v in mine), default=0) for ins in need})
         if len(mine) != n or rec["old_kernels"] or \
                 any(rec[f"{ins.lower()}_min"] == 0 for ins in need if n):
@@ -177,6 +186,12 @@ def check_sass(tag: str, libs: dict, name: str, need: tuple, gone: str) -> dict:
 # K5's qmm_gemv kernels in each library: 3 row counts (1, 2, 4 rows of x a
 # launch) x f32/bf16 scales x with/without mins
 K5_GEMV_KERNELS = 12
+# K3/K3q's kernels: bf16 / q8_0 cache x one, two or four n8 tiles of rows
+K3_KERNELS = 6
+
+# S3's split-S kernels in libflash_probe.so: stacked v1 / v0 and the three
+# q8 modes
+S3_SPLIT_KERNELS = 5
 
 
 def check_gemv_left() -> dict:
@@ -568,23 +583,42 @@ def phase_attn_probes():
     return recs, cuda_attn_probe.LAUNCHES["S3"]
 
 
-# K3/K3q's rows of PERF.md's kernel table (µs; chip run 7, PR 1 and chip
-# run 1, PR 2, read within 2.8% by every later PR). Their split kernel's body
-# is shared with S3 (csrc/flash_decode.cuh) and must keep their times, so
-# phase 2 logs the times it measures beside these.
-K3_TABLE_US = {("K3", "decode half-masked"): 47.9, ("K3", "decode ragged-S"): 47.2,
-               ("K3", "decode T=8"): 215.5, ("K3q", "decode half-masked"): 63.4,
-               ("K3q", "decode ragged-S"): 61.3, ("K3q", "decode T=8"): 265.2}
+# The split-S decode kernel's times that K3/K3q's rows of PERF.md's kernel
+# table had before the cluster kernel replaced it (µs; chip run 7, PR 1 and
+# chip run 1, PR 2, read within 2.8% by every later PR until then): phase 2
+# logs the new times beside these.
+K3_WAS_US = {("K3", "decode half-masked"): 47.9, ("K3", "decode ragged-S"): 47.2,
+             ("K3", "decode T=8"): 215.5, ("K3q", "decode half-masked"): 63.4,
+             ("K3q", "decode ragged-S"): 61.3, ("K3q", "decode T=8"): 265.2}
+# S3's rows of the kernel table (µs, at the split body's own split; chip run
+# 2, PR 5): the probes run that body still, alone, so they keep these times.
+# A run reads them within 2% on a card at 700 W; past S3_MAX_RATIO of them
+# the body (flash_decode.cuh, no longer K3's) lost its time.
+S3_TABLE_US = {"v1": 25.4, "v0": 25.9, "noscale": 61.5, "full": 61.9, "bf16": 63.1}
+S3_MAX_RATIO = 1.25
 
 
-def log_k3_against_table(results) -> None:
+def log_k3_against_was(results) -> None:
     ratios = {}
     for r in results:
-        for (kern, name), us in K3_TABLE_US.items():
+        for (kern, name), was in K3_WAS_US.items():
             if r["kernel"] == kern and r["shape"].startswith(name + " "):
-                ratios[f"{kern} {name}"] = {"us": 1e3 * r["ms"], "table_us": us,
-                                            "ratio": 1e3 * r["ms"] / us}
-    log(json.dumps(dict(k3_against_table=ratios)))
+                ratios[f"{kern} {r['shape']}"] = {"us": 1e3 * r["ms"], "was_us": was,
+                                                  "ratio": 1e3 * r["ms"] / was}
+    log(json.dumps(dict(k3_against_was=ratios)))
+
+
+def check_s3_against_table(attn_probes) -> None:
+    ratios = {}
+    for r in attn_probes:
+        if r["split"] == 0:
+            us = S3_TABLE_US[r["variant"]]
+            ratios[r["variant"]] = {"us": r["us"], "table_us": us, "ratio": r["us"] / us}
+    log(json.dumps(dict(s3_against_table=ratios)))
+    slow = {v: x["ratio"] for v, x in ratios.items() if x["ratio"] > S3_MAX_RATIO}
+    if slow or set(ratios) != set(S3_TABLE_US):
+        raise AssertionError(f"S3 against its table times: {ratios} (slower than "
+                             f"{S3_MAX_RATIO}x: {slow})")
 
 
 def gdot_path_shapes(params) -> dict:
@@ -978,6 +1012,7 @@ def phase_llama3_8b(params, cfg, chain=False, gdot=False, base=None):
     if not (chain or gdot) and prof["memsets_per_token"] != 0:
         # the decode GEMV splits K over a cluster: no memset before it
         raise AssertionError(f"phase 4 decode runs {prof['memsets_per_token']} memsets a token")
+    check_attn_profile(prof, cfg.n_layers)
     keys = ("decode_tok_s", "prefill_tok_s", "peak_mem_gib", "device_launches_per_token",
             "idle_share")
     side = dict(chain=chain, gdot=gdot, **{k: rec[k] for k in keys})
@@ -987,6 +1022,15 @@ def phase_llama3_8b(params, cfg, chain=False, gdot=False, base=None):
     del ctx
     torch.cuda.empty_cache()
     return counts, rec
+
+
+def check_attn_profile(prof, n_layers: int) -> None:
+    """Flash decode in a decode profile: one launch a layer a token (K3 or
+    K3q, the cluster kernel), no combine kernel."""
+    if prof["attn_launches_per_token"] != n_layers or prof["attn_combines_per_token"] != 0:
+        raise AssertionError(f"flash decode: {prof['attn_launches_per_token']} launches and "
+                             f"{prof['attn_combines_per_token']} combines a token "
+                             f"(want {n_layers} and 0)")
 
 
 def phase_decode_turns(params, cfg, n_tokens=32):
@@ -1036,6 +1080,7 @@ def phase_llama3_8b_q8(params, cfg, bf16_rec):
     from llm_tpu_torch.runtime import state
     from llm_tpu_torch.runtime.batch import Batch
     from llm_tpu_torch.runtime.engine import Context
+    from llm_tpu_torch.tools.profile_decode import profile_tokens
 
     ctx = Context(None, n_cells=4096, device="cuda", params_cfg=(params, cfg),
                   kv_dtype="q8_0")
@@ -1045,6 +1090,9 @@ def phase_llama3_8b_q8(params, cfg, bf16_rec):
     saved = bf16_rec["peak_mem_gib"] - rec["peak_mem_gib"]
     if not saved >= 0.2:
         raise AssertionError(f"q8_0 peak memory is only {saved:.3f} GiB below bf16's")
+    prof = profile_tokens(ctx, rec["last_token"], 8)
+    log("profile_decode " + json.dumps(prof))
+    check_attn_profile(prof, cfg.n_layers)
 
     # the prompt's cells: drop the generated tokens (a metadata edit), save
     # sequence 0, load it into a fresh Context
@@ -1180,6 +1228,7 @@ def phase_scan():
         if profile:
             prof = profile_tokens(ctx, rec["last_token"], 8)
             log("profile_decode " + json.dumps(prof))
+            check_attn_profile(prof, cfg.n_layers)
             rec.update(device_launches_per_token=prof["device_launches_per_token"],
                        idle_share=prof["idle_share"])
         log(json.dumps(dict(phase=8, qtype=qtype, scan=ctx.scan, chain=ctx.chain,
@@ -1283,6 +1332,15 @@ def main() -> int:
                "qmm_gemm")
     check_sass("prefill_sass", {"flash_prefill": 2, "flash_attn": 0}, "flash_prefill",
                ("HGMMA",), "flash_prefill_kernel")
+    # flash decode: K3/K3q's cluster kernels issue mma.sync and TMA tile
+    # loads, and no split-S kernel or combine kernel is left in their
+    # library; S3's library keeps that body
+    check_sass("decode_attn_sass", {"flash_attn": K3_KERNELS}, "flash_decode_tc",
+               ("HMMA", "UTMALDG"), ("flash_decode_split", "flash_decode_combine"))
+    # S3's library keeps the split-S body that K3/K3q no longer run, and its
+    # combine kernel
+    check_sass("probe_split_sass", {"flash_probe": S3_SPLIT_KERNELS}, "flash_probe_split", (), ())
+    check_sass("probe_combine_sass", {"flash_probe": 1}, "flash_decode_combine", (), ())
     if sys.argv[1:2] == ["--sweep-seeds"]:
         kinds = sys.argv[2:] or ["q8_0", "chain"]
         if "q8_0" in kinds:
@@ -1297,13 +1355,14 @@ def main() -> int:
     t0 = time.perf_counter()
     results = phase_kernels()
     log(f"kernel checks passed in {time.perf_counter() - t0:.1f} s")
-    log_k3_against_table(results)
+    log_k3_against_was(results)
     t0 = time.perf_counter()
     probes, s1_launches = phase_probes()
     log(f"decode GEMV probes passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     attn_probes, s3_launches = phase_attn_probes()
     log(f"flash-decode probes passed in {time.perf_counter() - t0:.1f} s")
+    check_s3_against_table(attn_probes)
     t0 = time.perf_counter()
     phase_two_layers()
     log(f"two-layer card-vs-CPU check passed in {time.perf_counter() - t0:.1f} s")
@@ -1365,7 +1424,7 @@ def main() -> int:
         bound_ms=head["bound_us"]["dma"] / 1e3, bound_by="bytes", library_ms=None,
         shape=head["shape"] + " dma", passed=True, k1_ms=head["us"]["full"] / 1e3,
         qs_ms=head["us"]["qs"] / 1e3, deq_ms=head["us"]["deq"] / 1e3))
-    # S3, one entry a variant: its time at K3's own split (the q8 modes run
+    # S3, one entry a variant: its time at the split body's own split (the q8 modes run
     # at no other); launches are the variant's in the kbench_attn run
     for variant in ("v1", "v0", "noscale", "full", "bf16"):
         mine = [r for r in attn_probes if r["variant"] == variant]

@@ -1,5 +1,5 @@
 // K3 and K3q: flash decode (T <= 8) over the head-major, unroped KV cache,
-// for Hopper.
+// for Hopper (sm_90a).
 //
 // Replaces the TPU kernels llm_tpu/ops/pallas_attn.py::flash_decode ->
 // _kernel via _decode_body (K3) and its int8-cache variant _kernel_q8
@@ -11,80 +11,739 @@
 //
 // Rope stays folded into the scores exactly as on the TPU: K is cached
 // unroped and cos/sin are full-width per-cell tables. The -inf mask is
-// clamped to -1e30, so a fully masked (padding) row comes out finite; the
-// online softmax starts from m = -1e30, l = 0 and divides by max(l, 1e-30).
-// Every cache cell is read, filled or not: the bias masks empty cells.
-// Loads are bounded by S (an out-of-range load is a fault on the GPU);
-// cells past S take no part at all.
+// clamped to -1e30, so a fully masked (padding) row comes out finite (the
+// mean of V over the S cells); the online softmax starts from m = -1e30,
+// l = 0 and the output divides by max(l, 1e-30). Every cache cell is read,
+// filled or not: the bias masks empty cells. Cells past S take no part at
+// all (score -inf, p = 0 exactly).
 //
 // Inputs: q, q_rot bf16 [T, H, D]; K/V bf16 [Hkv, S, D] (K3) or int8
 // [Hkv, S, D] with one bf16 scale per head row [Hkv, S, 1] (K3q); cos, sin
-// bf16 [S, D]; bias f32 [T, S]. Output f32 [T, H, D]. D = 128.
-//
-// The two cache types differ only in how one cell's 4 dims of K and V are
-// loaded, so the kernel is a template on a loader (Bf16KV, Q8KV), as the
-// TPU kernels share _decode_body. Q8KV dequantizes as the TPU kernel does,
+// bf16 [S, D]; bias f32 [T, S]. Output f32 [T, H, D]. D = 128, T <= 8,
+// every pointer 16-byte aligned. K3q dequantizes as the TPU kernel does,
 // bf16(q) * bf16(s) rounded to bf16: (float)q * s is exact in f32 (8 + 8
-// significant bits), so __float2bfloat16_rn of it is that bf16 product bit
-// for bit.
+// significant bits), so __float2bfloat16_rn of it is that product bit for
+// bit.
 //
-// K3/K3q are bound by the bytes of K, V, cos and sin (K3q reads half of
-// K3's K/V bytes: 1 byte a dim plus 2 bytes a row). Their split-S kernel
-// and its combine live in flash_decode.cuh, which flash_probe.cu (S3)
-// shares: one CTA per (S split, KV head, chunk of 8 query rows), the
-// splits' (m, l, acc) combined by a second small kernel.
+// Bound: the bytes of K, V, cos and sin (K3q: half of K3's K/V bytes, 1
+// byte a dim plus 2 bytes a row). At T = 1 the score and P.V products are
+// 4 query rows of a KV head against each cell, a few operations a byte.
 //
-// The prefill kernels K4/K4q (T > 8) are flash_prefill.cu's, a library of
-// their own, so that these kernels keep their machine code.
+// Exact operands on the tensor cores. k, cos and sin are bf16, so k*cos and
+// k*sin have at most 16 significant bits: hi = bf16(k*c) (one bf16x2
+// multiply, rounded once) and lo = k*c - hi (at most 8 bits; one bf16x2 fma
+// gives -lo exactly) split each exactly. q and q_rot are bf16. So mma.sync
+// m16n8k16 of [kc_hi | ks_hi] and [kc_lo | ks_lo] against [q | q_rot],
+// accumulated in f32, gives the TPU body's f32 dots up to the order of the
+// sum. p in [0, 1] becomes P_hi = bf16(p) and P_lo = bf16(p - P_hi), 16
+// bits; O += V.P_hi + V.P_lo with V exact in bf16 (K3q's dequantized values
+// are bf16 too). One bf16 rounding of k*cos, k*sin or p misses the card's
+// atol = rtol = 1e-3 at small caches (tests/test_torch_flash_decode.py).
+//
+// Shape of the kernel:
+//  * a thread block cluster of C CTAs (up to 8, the size chosen by
+//    ops/cuda_attn.py::decode_attn_plan) shares one KV head and every query
+//    row of it (up to 32; T*G > 32 takes more row chunks on the grid's z,
+//    each reading K and V again): CTA `rank` walks its share of the blocks
+//    of 64 cells, so K and V cross from device memory once per head
+//    whatever T is. Grid (C, Hkv, row chunks), one launch a call.
+//  * 160 threads: a producer warp that keeps a ring of 3 stages in flight.
+//    Its lane 0 has TMA (cp.async.bulk.tensor, mbarrier completion) bring a
+//    block's K and V ([Hkv, S, D] 3-D maps; K3: two 64-dim halves each, K3q:
+//    the int8 rows) and cos and sin (two halves each), all in the 128-byte
+//    swizzle; the cells past S read as zero. Its 32 lanes bring the block's
+//    T bias rows and K3q's two scale rows by 4-byte cp.async (zero past S
+//    or past the tensor's end), whose completion the same mbarrier tracks:
+//    those rows start at any element, and a TMA box must start 16-byte
+//    aligned (an unaligned 1-D box stops the card with an illegal
+//    instruction). The consumers issue no global load in the loop.
+//  * four consumer warps, 16 cells of each block apiece. The products run
+//    transposed: the warp's cells on mma's 16-row side, the query rows on
+//    its 8-column side in one, two or four n8 tiles (the 4 rows of a KV head
+//    at T = 1 fill half a tile, where on the 16-row side they would fill a
+//    quarter). A warp forms its cells' kc and ks from the staged k (K3q:
+//    dequantized), cos and sin as hi/lo A fragments, runs S^T = [kc | ks] .
+//    [q | q_rot]^T (q's B fragments in registers up to 16 rows), then the
+//    online softmax in log2 units: s' = (s * scale + max(bias, -1e30)) *
+//    log2 e, p = 2^(s' - m'), a row's max and sum over the 8 lanes that
+//    hold its cells. P_hi^T and P_lo^T become B fragments by movmatrix, V^T
+//    the A operand through ldmatrix.trans (K3q: the warp first writes its
+//    cells' V dequantized to bf16 into a tile of its own), and O^T +=
+//    V^T.P^T. A thread's k positions of a k16 step hold 4 adjacent dims, so
+//    k, cos and sin come in 8-byte loads.
+//  * the end: the CTA combines its warps' (m, l, O) in warp order in shared
+//    memory; after a cluster barrier CTA `rank` combines a slice of the
+//    rows x dims over every rank in rank order through distributed shared
+//    memory and writes it to out. No second kernel, no scratch in device
+//    memory, no atomics: a launch's output is bit-identical to the last.
+//
+// mma.sync rather than wgmma: the 4 query rows of a KV head at T = 1 would
+// be padded 16x to wgmma's 64-row side; mma.sync pads them to 8.
+//
+// The prefill kernels K4/K4q (T > 8) are flash_prefill.cu's, and the S3
+// probes flash_probe.cu's (the split-S body of flash_decode.cuh):
+// libraries of their own, so that each keeps its machine code.
 
-#include "flash_decode.cuh"
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+#include <string.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-// ----------------------------------------------------------------------------
-// K3: split-S decode (the CTA body is flash_decode.cuh's)
+constexpr int DA_D = 128;                       // head dim
+constexpr int DA_BLK = 64;                      // cells a stage
+constexpr int DA_CELLS = 16;                    // cells of a stage a consumer warp takes
+constexpr int DA_WARPS = DA_BLK / DA_CELLS;     // consumer warps
+constexpr int DA_THREADS = DA_WARPS * 32 + 32;  // and a producer warp
+constexpr int DA_ROWS = 32;                     // query rows a CTA at most (four n8 tiles)
+constexpr int DA_MAX_T = 8;
+constexpr int DA_MAX_CLUSTER = 8;               // portable cluster size
+constexpr int DA_STAGES = 3;
+constexpr float DA_NEG = -1e30f;
+constexpr float DA_LOG2E = 1.4426950408889634f;
+constexpr int DA_HALF = DA_BLK * 128;           // one 64-dim half of a bf16 block: 8 KB
+constexpr int DA_SC_WORDS = DA_BLK / 2 + 1;     // words that cover 64 bf16 scales
+constexpr int DA_FULL_ARRIVALS = 33;            // lane 0's expect_tx, then 32 lanes' cp.async
 
-template <class KV>
-__global__ void __launch_bounds__(DEC_WARPS * 32)
-flash_decode_split(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ qr, const KV kv,
-                   const __nv_bfloat16* __restrict__ cs,
-                   const __nv_bfloat16* __restrict__ sn,
-                   const float* __restrict__ bias, float* __restrict__ pm,
-                   float* __restrict__ pl, float* __restrict__ pacc, int T,
-                   int H, int Hkv, int S, float scale, int cells_per_split) {
-  decode_split_cta(kv, q, qr, cs, sn, bias, pm, pl, pacc, T, H, Hkv, S, scale,
-                   cells_per_split);
+// shared memory: the ring, then q and q_rot, then K3q's dequantized V tiles
+template <bool Q8>
+struct DecSmem {
+  static constexpr int KV_BYTES = Q8 ? DA_BLK * DA_D : 2 * DA_HALF;
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = KV_BYTES;
+  static constexpr int C_OFF = 2 * KV_BYTES;           // cos, two halves
+  static constexpr int S_OFF = C_OFF + 2 * DA_HALF;    // sin, two halves
+  static constexpr int B_OFF = S_OFF + 2 * DA_HALF;    // bias [T][64] f32
+  // K3q: the 4-byte words that hold the block's K and V scales (bf16,
+  // starting at element (h*S + s0) & 1 of the first word)
+  static constexpr int KS_OFF = B_OFF + DA_MAX_T * DA_BLK * 4;
+  static constexpr int VS_OFF = KS_OFF + 4 * DA_SC_WORDS;
+  static constexpr int STAGE = ((Q8 ? VS_OFF + 4 * DA_SC_WORDS : KS_OFF) + 1023) / 1024 * 1024;
+  static constexpr int RING = DA_STAGES * STAGE;
+  static constexpr int Q_OFF = RING;                   // [q, q_rot][half][32 rows][128 B]
+  static constexpr int Q_BYTES = 2 * 2 * DA_ROWS * 128;
+  static constexpr int VT_OFF = Q_OFF + Q_BYTES;       // K3q: [warp][half][16 cells][128 B]
+  static constexpr int VT_WARP = 2 * DA_CELLS * 128;
+  // the end, over the ring and past it: each warp's O^T (its fragments), m and l
+  // [warp][row], then the CTA's O [row][dim], m and l [row], then every
+  // rank's m and l, f32
+  static constexpr int W_ACC = 0;
+  static constexpr int W_M = W_ACC + DA_WARPS * DA_ROWS * DA_D * 4;
+  static constexpr int W_L = W_M + DA_WARPS * DA_ROWS * 4;
+  static constexpr int C_ACC = W_L + DA_WARPS * DA_ROWS * 4;
+  static constexpr int C_M = C_ACC + DA_ROWS * DA_D * 4;
+  static constexpr int C_L = C_M + DA_ROWS * 4;
+  static constexpr int X_M = C_L + DA_ROWS * 4;  // every rank's m and l [rank][row]
+  static constexpr int X_L = X_M + DA_MAX_CLUSTER * DA_ROWS * 4;
+  static constexpr int END = X_L + DA_MAX_CLUSTER * DA_ROWS * 4;
+  static constexpr int USED = VT_OFF + (Q8 ? DA_WARPS * VT_WARP : 0);
+  static constexpr int BYTES = (USED > END ? USED : END) + 1024;  // + slack to align to 1024
+  static_assert(BYTES <= 232448, "227 KB of shared memory a CTA");
+};
+
+struct DecArgs {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* qr;
+  const float* bias;
+  const __nv_bfloat16* ks;  // K3q: [Hkv, S] scales
+  const __nv_bfloat16* vs;
+  float* out;
+  int T, H, Hkv, G, S, R, bpr;  // R = T*G rows; bpr: blocks of 64 cells a rank
+  float scale2;                 // scale * log2 e
+};
+
+// 4 bytes (the first `bytes` of them read, the rest zero) into shared memory
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// an arrival on bar once the thread's cp.async copies so far have landed
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// the int8 value of byte i of v as an f32, exactly, without a conversion
+// instruction: 2^23 + (byte + 128) by byte_perm (hopper.cuh q_of), minus
+// 2^23 + 128
+constexpr float DA_I8_BASE = 8388608.f + 128.f;
+__device__ __forceinline__ float i8_of(uint32_t v, int i) {
+  return q_of(v ^ 0x80808080u, i, DA_I8_BASE);
+}
+
+// K3q's dequant of 4 int8 values (a word) and their row scale: two bf16
+// pairs, bf16(q * s) each
+__device__ __forceinline__ void dq4(uint32_t w, float s, uint32_t& lo, uint32_t& hi) {
+  __nv_bfloat162 x = __floats2bfloat162_rn(i8_of(w, 0) * s, i8_of(w, 1) * s);
+  __nv_bfloat162 y = __floats2bfloat162_rn(i8_of(w, 2) * s, i8_of(w, 3) * s);
+  lo = *reinterpret_cast<uint32_t*>(&x);
+  hi = *reinterpret_cast<uint32_t*>(&y);
+}
+
+// ... of 16 int8 values: 16 bf16 in two uint4
+__device__ __forceinline__ void dq16(uint4 raw, float s, uint4& lo, uint4& hi) {
+  dq4(raw.x, s, lo.x, lo.y);
+  dq4(raw.y, s, lo.z, lo.w);
+  dq4(raw.z, s, hi.x, hi.y);
+  dq4(raw.w, s, hi.z, hi.w);
+}
+
+// the producer warp: blocks [b0, b1) of KV head h into the ring
+template <bool Q8>
+__device__ __forceinline__ void da_producer(const CUtensorMap* tmk, const CUtensorMap* tmv,
+                                            const CUtensorMap* tmc, const CUtensorMap* tms,
+                                            const DecArgs& a, uint32_t sm, uint32_t full0,
+                                            uint32_t empty0, int h, int b0, int b1) {
+  using L = DecSmem<Q8>;
+  const int lane = threadIdx.x & 31;
+  const uint32_t tx = 2 * L::KV_BYTES + 4 * DA_HALF;
+  const long long sc_bytes = 2LL * a.Hkv * a.S;
+  for (int j = 0; j < b1 - b0; ++j) {
+    const int slot = j % DA_STAGES;
+    if (j >= DA_STAGES) mbar_wait(empty0 + 8 * slot, ((j / DA_STAGES) - 1) & 1);
+    const int s0 = (b0 + j) * DA_BLK;
+    const uint32_t st = sm + slot * L::STAGE, full = full0 + 8 * slot;
+    if (lane == 0) {
+      mbar_expect_tx(full, tx);
+      if (Q8) {
+        tma_3d(st + L::K_OFF, tmk, full, 0, s0, h);
+        tma_3d(st + L::V_OFF, tmv, full, 0, s0, h);
+      } else {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          tma_3d(st + L::K_OFF + hf * DA_HALF, tmk, full, 64 * hf, s0, h);
+          tma_3d(st + L::V_OFF + hf * DA_HALF, tmv, full, 64 * hf, s0, h);
+        }
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        tma_2d(st + L::C_OFF + hf * DA_HALF, tmc, full, 64 * hf, s0);
+        tma_2d(st + L::S_OFF + hf * DA_HALF, tms, full, 64 * hf, s0);
+      }
+    }
+    for (int i = lane; i < a.T * DA_BLK; i += 32) {
+      const int t = i / DA_BLK, s = s0 + i % DA_BLK;
+      cp_async4(st + L::B_OFF + 4 * i, a.bias + (size_t)t * a.S + min(s, a.S - 1),
+                s < a.S ? 4 : 0);
+    }
+    if (Q8) {
+      const long long w0 = ((long long)h * a.S + s0) >> 1;
+      for (int i = lane; i < 2 * DA_SC_WORDS; i += 32) {
+        const int v = i / DA_SC_WORDS, wi = i % DA_SC_WORDS;
+        const long long byte = 4 * (w0 + wi);
+        const int n = (int)max(0LL, min(4LL, sc_bytes - byte));
+        const char* base = reinterpret_cast<const char*>(v ? a.vs : a.ks);
+        cp_async4(st + (v ? L::VS_OFF : L::KS_OFF) + 4 * wi, base + (n ? byte : 0), n);
+      }
+    }
+    cp_async_arrive(full);
+  }
+}
+
+// a * b and a * b + c on bf16 pairs, each rounded to bf16 once
+__device__ __forceinline__ uint32_t bmul2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t bfma2(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// movmatrix: the transpose of an 8x8 b16 matrix held one row pair a thread
+__device__ __forceinline__ uint32_t mov_t(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// one consumer warp over blocks [b0, b1): its 16 cells 16w.. of each block
+// against the CTA's 8 NR query rows. The products run transposed, the cells
+// on mma's 16-row side and the query rows on its 8-column side (4 rows of a
+// KV head at T = 1 fill half a side of 8, where they would fill a quarter of
+// 16): S^T = [kc | ks] . [q | q_rot]^T, then O^T += V^T . P^T. Leaves the
+// warp's (m, l, O^T) in registers: acc[dim tile][row tile] holds dims
+// 16 dm + g (+ 8) of rows 8 nr + 2t (+ 1).
+template <bool Q8, int NR>
+__device__ __forceinline__ void da_consumer(const DecArgs& a, uint8_t* smem, uint32_t full0,
+                                            uint32_t empty0, int h, int r0, int b0, int b1,
+                                            float (&acc)[8][NR][4], float (&m)[NR][2],
+                                            float (&l)[NR][2]) {
+  using L = DecSmem<Q8>;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int cw0 = DA_CELLS * w;  // the warp's first cell of a block
+  // the bias row (token) of each of the thread's rows 8 nr + 2t (+ 1);
+  // padding rows past R read the last token's and are never written
+  int tok[NR][2];
+#pragma unroll
+  for (int nr = 0; nr < NR; ++nr)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) tok[nr][i] = min((r0 + 8 * nr + 2 * t4 + i) / a.G, a.T - 1);
+  // the lane's ldmatrix row of V^T's A fragments: cell (lane % 8) + 8 (lane / 16),
+  // dims + 8 ((lane / 8) % 2)
+  const int v_cell = (lane & 7) + 8 * (lane >> 4), v_col = 8 * ((lane >> 3) & 1);
+  uint8_t* vt = smem + L::VT_OFF + w * L::VT_WARP;  // K3q: the warp's V in bf16
+  // a k16 step's B fragments of q and q_rot for row tile nr: row 8 nr + g.
+  // A thread's k positions 2t, 2t + 1 and 2t + 8, 2t + 9 hold dims 4t..4t+3
+  // of the step (the sum over dims does not care which k a dim takes, and q
+  // and k agree), so each operand comes in one 8-byte load
+  auto ld_q = [&](uint32_t (&qb)[2], uint32_t (&rb)[2], int nr, int kk) {
+    const uint8_t* qa = smem + L::Q_OFF + (kk >> 2) * (DA_ROWS * 128);
+    const int o = swz(8 * nr + g, 32 * (kk & 3) + 8 * t4);
+    const uint2 x = *reinterpret_cast<const uint2*>(qa + o);
+    const uint2 y = *reinterpret_cast<const uint2*>(qa + 2 * DA_ROWS * 128 + o);
+    qb[0] = x.x;
+    qb[1] = x.y;
+    rb[0] = y.x;
+    rb[1] = y.y;
+  };
+  // up to 16 rows the B fragments of q and q_rot stay in registers; past
+  // that two are read from shared memory at each k16 step
+  constexpr bool QREG = NR <= 2;
+  constexpr int QN = QREG ? NR : 1, QK = QREG ? 8 : 1;
+  uint32_t qreg[QK][QN][2], rreg[QK][QN][2];
+  if constexpr (QREG) {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int nr = 0; nr < NR; ++nr) ld_q(qreg[kk][nr], rreg[kk][nr], nr, kk);
+  }
+
+  for (int j = 0; j < b1 - b0; ++j) {
+    const int slot = j % DA_STAGES;
+    mbar_wait(full0 + 8 * slot, (j / DA_STAGES) & 1);
+    const uint8_t* st = smem + slot * L::STAGE;
+
+    // K3q: the block's scales start at element sc0 of their words
+    const int sc0 = (int)(((long long)h * a.S + (b0 + j) * DA_BLK) & 1);
+    float kscale[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      kscale[i] = Q8 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(
+                           st + L::KS_OFF)[sc0 + cw0 + g + 8 * i])
+                     : 0.f;
+    // S^T of the warp's 16 cells x the rows: the hi products and the negated
+    // lo products apart
+    float sh[NR][4], sl[NR][4];
+#pragma unroll
+    for (int nr = 0; nr < NR; ++nr)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sh[nr][e] = sl[nr][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const int hf = kk >> 2;  // the 64-dim half of dims 16kk..16kk+15
+      // A fragments of k*cos and k*sin: cells g (a0, a2) and g + 8 (a1,
+      // a3), dims 4t..4t+3 of the step; hi = bf16(k*c) and -lo = bf16(hi -
+      // k*c), both exact (k*c has at most 16 significant bits, hi - k*c at
+      // most 8)
+      uint32_t chi[4], cnl[4], shi[4], snl[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int c = cw0 + g + 8 * i;
+        const int cb = swz(c, 32 * (kk & 3) + 8 * t4) + hf * DA_HALF;
+        uint32_t k2[2];
+        if (Q8) {
+          dq4(*reinterpret_cast<const uint32_t*>(st + L::K_OFF + swz(c, 16 * kk + 4 * t4)),
+              kscale[i], k2[0], k2[1]);
+        } else {
+          const uint2 kw = *reinterpret_cast<const uint2*>(st + L::K_OFF + cb);
+          k2[0] = kw.x;
+          k2[1] = kw.y;
+        }
+        const uint2 cw = *reinterpret_cast<const uint2*>(st + L::C_OFF + cb);
+        const uint2 sw = *reinterpret_cast<const uint2*>(st + L::S_OFF + cb);
+        const uint32_t c2[2] = {cw.x, cw.y}, s2[2] = {sw.x, sw.y};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int ai = i + 2 * e;  // a0/a1: dims 4t, 4t+1; a2/a3: 4t+2, 4t+3
+          const uint32_t kn = k2[e] ^ 0x80008000u;
+          chi[ai] = bmul2(k2[e], c2[e]);
+          cnl[ai] = bfma2(kn, c2[e], chi[ai]);
+          shi[ai] = bmul2(k2[e], s2[e]);
+          snl[ai] = bfma2(kn, s2[e], shi[ai]);
+        }
+      }
+#pragma unroll
+      for (int nr = 0; nr < NR; ++nr) {
+        uint32_t qb[2], rb[2];
+        if constexpr (QREG) {
+          qb[0] = qreg[kk][nr][0];
+          qb[1] = qreg[kk][nr][1];
+          rb[0] = rreg[kk][nr][0];
+          rb[1] = rreg[kk][nr][1];
+        } else {
+          ld_q(qb, rb, nr, kk);
+        }
+        mma_bf16(sh[nr], chi, qb[0], qb[1]);
+        mma_bf16(sh[nr], shi, rb[0], rb[1]);
+        mma_bf16(sl[nr], cnl, qb[0], qb[1]);
+        mma_bf16(sl[nr], snl, rb[0], rb[1]);
+      }
+    }
+
+    // K3q: the warp's cells of V dequantized into its own bf16 tile
+    uint32_t v_base = smem_u32(st + L::V_OFF);
+    int v_row = cw0 + v_cell, v_half = DA_HALF;
+    if (Q8) {
+      __syncwarp();  // the last block's ldmatrix reads are done
+#pragma unroll
+      for (int i = 0; i < DA_CELLS / 4; ++i) {
+        const int ci = lane + 32 * i, row = ci >> 3, c16 = ci & 7;  // 16 dims at 16 c16
+        const uint4 raw =
+            *reinterpret_cast<const uint4*>(st + L::V_OFF + swz(cw0 + row, 16 * c16));
+        const float s = __bfloat162float(
+            reinterpret_cast<const __nv_bfloat16*>(st + L::VS_OFF)[sc0 + cw0 + row]);
+        uint4 lo, hi;
+        dq16(raw, s, lo, hi);
+        uint8_t* dst = vt + (c16 >> 2) * (DA_CELLS * 128);
+        *reinterpret_cast<uint4*>(dst + swz(row, (c16 & 3) * 32)) = lo;
+        *reinterpret_cast<uint4*>(dst + swz(row, (c16 & 3) * 32 + 16)) = hi;
+      }
+      __syncwarp();
+      v_base = smem_u32(vt);
+      v_row = v_cell;
+      v_half = DA_CELLS * 128;
+    }
+
+    // the online softmax in log2 units; cells past S take no part. A row's
+    // 16 cells lie in the 8 lanes of one t (cells g and g + 8 each)
+    const float* bias = reinterpret_cast<const float*>(st + L::B_OFF);
+    const int cell0 = (b0 + j) * DA_BLK + cw0;
+    uint32_t ph[NR][2], pl[NR][2];  // P^T's B fragments: cells 2t.., 2t+8.. of row g
+    float al[NR][2];
+    bool moved = false;
+#pragma unroll
+    for (int nr = 0; nr < NR; ++nr) {
+      float p[4];  // cell g rows 2t, 2t+1; cell g+8 rows 2t, 2t+1
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int cl = g + 8 * (e >> 1);
+        const float x = (sh[nr][e] - sl[nr][e]) * a.scale2 +
+                        fmaxf(bias[tok[nr][e & 1] * DA_BLK + cw0 + cl], DA_NEG) * DA_LOG2E;
+        p[e] = cell0 + cl < a.S ? x : -INFINITY;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = fmaxf(p[i], p[2 + i]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+        const float mn = fmaxf(m[nr][i], mx);
+        const float alpha = ex2(m[nr][i] - mn);
+        m[nr][i] = mn;
+        p[i] = ex2(p[i] - mn);
+        p[2 + i] = ex2(p[2 + i] - mn);
+        l[nr][i] = l[nr][i] * alpha + (p[i] + p[2 + i]);
+        al[nr][i] = alpha;
+        moved |= alpha != 1.f;
+      }
+      // P^T hi + lo: row pairs (2t, 2t + 1) of cells g and g + 8, then the
+      // transpose of each 8x8 (cells x rows) block
+      uint32_t hi0, lo0, hi1, lo1;
+      split_hilo(p[0], p[1], hi0, lo0);
+      split_hilo(p[2], p[3], hi1, lo1);
+      ph[nr][0] = mov_t(hi0);
+      ph[nr][1] = mov_t(hi1);
+      pl[nr][0] = mov_t(lo0);
+      pl[nr][1] = mov_t(lo1);
+    }
+    // O *= alpha where a row's max moved (after the first blocks, rarely)
+    if (__any_sync(0xffffffffu, moved)) {
+#pragma unroll
+      for (int dm = 0; dm < 8; ++dm)
+#pragma unroll
+        for (int nr = 0; nr < NR; ++nr)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[dm][nr][e] *= al[nr][e & 1];
+    }
+
+    // O^T += V^T.P_hi^T + V^T.P_lo^T, V^T's A fragments by ldmatrix.trans
+#pragma unroll
+    for (int dm = 0; dm < 8; ++dm) {
+      const int d = 16 * dm + v_col;
+      uint32_t va[4];
+      ldsm_x4_t(va, v_base + (d >> 6) * v_half + swz(v_row, (d & 63) * 2));
+#pragma unroll
+      for (int nr = 0; nr < NR; ++nr) {
+        mma_bf16(acc[dm][nr], va, ph[nr][0], ph[nr][1]);
+        mma_bf16(acc[dm][nr], va, pl[nr][0], pl[nr][1]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * slot);
+  }
+  // l over the rows' 16 cells (the 8 lanes of one t)
+#pragma unroll
+  for (int nr = 0; nr < NR; ++nr)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[nr][i] += __shfl_xor_sync(0xffffffffu, l[nr][i], 4);
+      l[nr][i] += __shfl_xor_sync(0xffffffffu, l[nr][i], 8);
+      l[nr][i] += __shfl_xor_sync(0xffffffffu, l[nr][i], 16);
+    }
+}
+
+// grid (cluster C, Hkv, row chunks of 8 NR); the C CTAs of a cluster split
+// the cells of one KV head
+template <bool Q8, int NR>
+__global__ void __launch_bounds__(DA_THREADS, 1)
+flash_decode_tc(const __grid_constant__ CUtensorMap tmk, const __grid_constant__ CUtensorMap tmv,
+                const __grid_constant__ CUtensorMap tmc, const __grid_constant__ CUtensorMap tms,
+                const DecArgs a) {
+  using L = DecSmem<Q8>;
+  constexpr int RC = 8 * NR;  // rows a CTA
+  extern __shared__ uint8_t dyn_smem[];
+  __shared__ __align__(8) uint64_t bars[2 * DA_STAGES];  // full, then empty
+  const uint32_t raw = smem_u32(dyn_smem);
+  uint8_t* smem = dyn_smem + (((raw + 1023) & ~1023u) - raw);
+  const uint32_t sm = smem_u32(smem);
+  const uint32_t full0 = smem_u32(&bars[0]), empty0 = smem_u32(&bars[DA_STAGES]);
+  const int C = gridDim.x, rank = blockIdx.x, h = blockIdx.y, r0 = blockIdx.z * RC;
+  const int nblk = (a.S + DA_BLK - 1) / DA_BLK;
+  const int b0 = min(nblk, rank * a.bpr), b1 = min(nblk, b0 + a.bpr);
+  const int nrows = min(RC, a.R - r0);  // rows of this CTA that exist
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < DA_STAGES; ++s) {
+      mbar_init(full0 + 8 * s, DA_FULL_ARRIVALS);
+      mbar_init(empty0 + 8 * s, DA_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the barriers are initialized: the producer may start
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float acc[8][NR][4], m[NR][2], l[NR][2];
+#pragma unroll
+  for (int nr = 0; nr < NR; ++nr) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m[nr][i] = DA_NEG * DA_LOG2E;
+      l[nr][i] = 0.f;
+    }
+#pragma unroll
+    for (int dm = 0; dm < 8; ++dm)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[dm][nr][e] = 0.f;
+  }
+  if (warp == DA_WARPS) {
+    da_producer<Q8>(&tmk, &tmv, &tmc, &tms, a, sm, full0, empty0, h, b0, b1);
+  } else {
+    // q and q_rot of rows r0.. into [which][half][row][128 B], 128-byte
+    // swizzle, rows past R zero, while the first blocks come in
+    for (int i = threadIdx.x; i < 2 * RC * 16; i += DA_WARPS * 32) {
+      const int which = i / (RC * 16), r = (i / 16) % RC, c16 = i % 16;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (r < nrows) {
+        const int rg = r0 + r, t = rg / a.G, g = rg % a.G;
+        const __nv_bfloat16* src =
+            (which ? a.qr : a.q) + ((size_t)t * a.H + (size_t)h * a.G + g) * DA_D + 8 * c16;
+        v = *reinterpret_cast<const uint4*>(src);
+      }
+      *reinterpret_cast<uint4*>(smem + L::Q_OFF + which * 2 * DA_ROWS * 128 +
+                                (c16 >> 3) * DA_ROWS * 128 + swz(r, (c16 & 7) * 16)) = v;
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(DA_WARPS * 32) : "memory");  // the consumers
+    da_consumer<Q8, NR>(a, smem, full0, empty0, h, r0, b0, b1, acc, m, l);
+  }
+  __syncthreads();  // every stage consumed: shared memory holds the partials now
+
+  float* wacc = reinterpret_cast<float*>(smem + L::W_ACC);
+  float* wm = reinterpret_cast<float*>(smem + L::W_M);
+  float* wl = reinterpret_cast<float*>(smem + L::W_L);
+  float* cacc = reinterpret_cast<float*>(smem + L::C_ACC);
+  float* cm = reinterpret_cast<float*>(smem + L::C_M);
+  float* cl = reinterpret_cast<float*>(smem + L::C_L);
+  // each warp's O^T in fragment order [warp][dim tile][row tile][element]
+  // [lane] (consecutive lanes, no bank conflict), and (m, l); rows past R
+  // skipped
+  if (warp < DA_WARPS) {
+    const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+    for (int nr = 0; nr < NR; ++nr)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = 8 * nr + 2 * t4 + i;
+        if (row < nrows) {
+#pragma unroll
+          for (int dm = 0; dm < 8; ++dm)
+#pragma unroll
+            for (int e = i; e < 4; e += 2)
+              wacc[(((warp * 8 + dm) * NR + nr) * 4 + e) * 32 + lane] = acc[dm][nr][e];
+          if (g == 0) {
+            wm[warp * DA_ROWS + row] = m[nr][i];
+            wl[warp * DA_ROWS + row] = l[nr][i];
+          }
+        }
+      }
+  }
+  __syncthreads();
+  // the CTA's (m, l, O): its warps in order
+  for (int i = threadIdx.x; i < nrows * DA_D; i += DA_THREADS) {
+    const int r = i / DA_D, d = i % DA_D;
+    // (r, d)'s place in a warp's fragments
+    const int frag = ((d >> 4) * NR + (r >> 3)) * 4 + 2 * ((d >> 3) & 1) + (r & 1);
+    const int fl = 4 * (d & 7) + ((r & 7) >> 1);
+    float M = wm[r];
+#pragma unroll
+    for (int w = 1; w < DA_WARPS; ++w) M = fmaxf(M, wm[w * DA_ROWS + r]);
+    float Ls = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < DA_WARPS; ++w) {
+      const float e = ex2(wm[w * DA_ROWS + r] - M);
+      Ls += wl[w * DA_ROWS + r] * e;
+      A += wacc[(w * 32 * NR + frag) * 32 + fl] * e;
+    }
+    cacc[r * DA_D + d] = A;
+    if (d == 0) {
+      cm[r] = M;
+      cl[r] = Ls;
+    }
+  }
+  if (C > 1) cluster_sync_all();
+  else __syncthreads();
+  // every rank's (m, l) of the rows, once, then CTA `rank` writes its slice
+  // of rows x dims: the ranks in rank order
+  float* xm = reinterpret_cast<float*>(smem + L::X_M);
+  float* xl = reinterpret_cast<float*>(smem + L::X_L);
+  for (int i = threadIdx.x; i < C * nrows; i += DA_THREADS) {
+    const int q = i / nrows, r = i % nrows;
+    xm[q * DA_ROWS + r] = C > 1 ? ld_dsmem(smem_u32(cm + r), q) : cm[r];
+    xl[q * DA_ROWS + r] = C > 1 ? ld_dsmem(smem_u32(cl + r), q) : cl[r];
+  }
+  __syncthreads();
+  const int elems = nrows * DA_D, per = (elems + C - 1) / C;
+  const int e0 = rank * per, e1 = min(elems, e0 + per);
+  for (int i = e0 + threadIdx.x; i < e1; i += DA_THREADS) {
+    const int r = i / DA_D, d = i % DA_D;
+    float M = -INFINITY;
+    for (int q = 0; q < C; ++q) M = fmaxf(M, xm[q * DA_ROWS + r]);
+    // every rank's O of the element in flight at once
+    float o[DA_MAX_CLUSTER];
+#pragma unroll
+    for (int q = 0; q < DA_MAX_CLUSTER; ++q)
+      if (q < C) o[q] = ld_dsmem(smem_u32(cacc + i), q);
+    float Ls = 0.f, A = 0.f;
+#pragma unroll
+    for (int q = 0; q < DA_MAX_CLUSTER; ++q) {
+      if (q < C) {
+        const float e = ex2(xm[q * DA_ROWS + r] - M);
+        Ls += xl[q * DA_ROWS + r] * e;
+        A += o[q] * e;
+      }
+    }
+    const int rg = r0 + r, t = rg / a.G, g = rg % a.G;
+    a.out[((size_t)t * a.H + (size_t)h * a.G + g) * DA_D + d] = A / fmaxf(Ls, 1e-30f);
+  }
+  if (C > 1) cluster_sync_all();  // no CTA leaves while another reads its partials
+}
+
+// ----------------------------------------------------------------------------
+// host side: the tensor maps (hopper.cuh's make_map) and the cluster launch
+
+struct DecPtrs {
+  const void *q, *qr, *k, *ks, *v, *vs, *cs, *sn, *bias;
+  void* out;
+};
+
+template <bool Q8, int NR>
+int launch_t(const DecPtrs& p, int T, int H, int Hkv, int S, float scale, int cluster,
+             cudaStream_t st) {
+  using L = DecSmem<Q8>;
+  auto kern = flash_decode_tc<Q8, NR>;
+  static bool attr = false;
+  if (!attr) {
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    attr = true;
+  }
+  const int G = H / Hkv, R = T * G, nblk = (S + DA_BLK - 1) / DA_BLK;
+  using bf = __nv_bfloat16;
+  DecArgs a{(const bf*)p.q, (const bf*)p.qr, (const float*)p.bias, (const bf*)p.ks,
+            (const bf*)p.vs, (float*)p.out, T, H, Hkv, G, S, R,
+            (nblk + cluster - 1) / cluster, scale * DA_LOG2E};
+
+  CUtensorMap mk, mv, mc, ms;
+  {  // K, V: [Hkv, S, D] as 3-D maps; K3: 64-dim halves of bf16, K3q: int8 rows
+    const cuuint64_t es = Q8 ? 1 : 2;
+    const cuuint64_t dims[3] = {(cuuint64_t)DA_D, (cuuint64_t)S, (cuuint64_t)Hkv};
+    const cuuint64_t strides[2] = {DA_D * es, (cuuint64_t)S * DA_D * es};
+    const cuuint32_t box[3] = {Q8 ? 128u : 64u, (cuuint32_t)DA_BLK, 1};
+    const CUtensorMapDataType dt =
+        Q8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    if (int rc = make_map(&mk, dt, 3, p.k, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
+      return rc;
+    if (int rc = make_map(&mv, dt, 3, p.v, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
+      return rc;
+  }
+  {  // cos, sin: [S, D] bf16, 64-dim halves
+    const cuuint64_t dims[2] = {(cuuint64_t)DA_D, (cuuint64_t)S};
+    const cuuint64_t strides[1] = {DA_D * 2};
+    const cuuint32_t box[2] = {64, (cuuint32_t)DA_BLK};
+    if (int rc = make_map(&mc, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.cs, dims, strides, box,
+                          CU_TENSOR_MAP_SWIZZLE_128B))
+      return rc;
+    if (int rc = make_map(&ms, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.sn, dims, strides, box,
+                          CU_TENSOR_MAP_SWIZZLE_128B))
+      return rc;
+  }
+  cudaLaunchConfig_t cfg;
+  memset(&cfg, 0, sizeof(cfg));
+  cfg.gridDim = dim3(cluster, Hkv, (R + 8 * NR - 1) / (8 * NR));
+  cfg.blockDim = dim3(DA_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = L::BYTES;
+  cfg.stream = st;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = cluster;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kern, mk, mv, mc, ms, a);
+}
+
+// the rows of a KV head in one, two or four n8 tiles (chunks of 32 past 32)
+template <bool Q8>
+int launch_any(const DecPtrs& p, int T, int H, int Hkv, int S, float scale, int cluster,
+               void* stream) {
+  if (T < 1 || T > DA_MAX_T || Hkv < 1 || H % Hkv || S < 1) return (int)cudaErrorInvalidValue;
+  const int nblk = (S + DA_BLK - 1) / DA_BLK;
+  if (cluster < 1 || cluster > DA_MAX_CLUSTER || cluster > nblk) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int R = T * (H / Hkv);
+  const int rc = R <= 8    ? launch_t<Q8, 1>(p, T, H, Hkv, S, scale, cluster, st)
+                 : R <= 16 ? launch_t<Q8, 2>(p, T, H, Hkv, S, scale, cluster, st)
+                           : launch_t<Q8, 4>(p, T, H, Hkv, S, scale, cluster, st);
+  return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Scratch for K3/K3q: pm, pl [Hkv * T*G * n_splits] f32, pacc [.. * D] f32,
-// sized by the caller from flash_decode_splits().
-extern "C" int flash_decode_splits(int S, int Hkv, int T, int H, int sms) {
-  return decode_splits(S, Hkv, T, H, sms);
-}
-
-extern "C" int flash_decode_launch(const void* q, const void* qr, const void* k,
-                                   const void* v, const void* cs, const void* sn,
-                                   const void* bias, void* out, void* pm,
-                                   void* pl, void* pacc, int T, int H, int Hkv,
-                                   int S, float scale, int n_splits,
+// K3: cluster is the number of CTAs that split a KV head's cells
+// (ops/cuda_attn.py::decode_attn_plan), 1..8 and at most ceil(S / 64).
+extern "C" int flash_decode_launch(const void* q, const void* qr, const void* k, const void* v,
+                                   const void* cs, const void* sn, const void* bias, void* out,
+                                   int T, int H, int Hkv, int S, float scale, int cluster,
                                    void* stream) {
-  const Bf16KV kv{(const __nv_bfloat16*)k, (const __nv_bfloat16*)v};
-  return launch_decode(flash_decode_split<Bf16KV>, q, qr, kv, cs, sn, bias, out, pm,
-                       pl, pacc, T, H, Hkv, S, scale, n_splits, stream);
+  const DecPtrs p{q, qr, k, nullptr, v, nullptr, cs, sn, bias, out};
+  return launch_any<false>(p, T, H, Hkv, S, scale, cluster, stream);
 }
 
+// K3q: the same on int8 K/V with bf16 scales [Hkv, S] (the trailing 1 dropped).
 extern "C" int flash_decode_q8_launch(const void* q, const void* qr, const void* k,
                                       const void* ks, const void* v, const void* vs,
-                                      const void* cs, const void* sn,
-                                      const void* bias, void* out, void* pm,
-                                      void* pl, void* pacc, int T, int H,
-                                      int Hkv, int S, float scale, int n_splits,
-                                      void* stream) {
-  const Q8KV kv{(const int8_t*)k, (const __nv_bfloat16*)ks, (const int8_t*)v,
-                (const __nv_bfloat16*)vs};
-  return launch_decode(flash_decode_split<Q8KV>, q, qr, kv, cs, sn, bias, out, pm,
-                       pl, pacc, T, H, Hkv, S, scale, n_splits, stream);
+                                      const void* cs, const void* sn, const void* bias,
+                                      void* out, int T, int H, int Hkv, int S, float scale,
+                                      int cluster, void* stream) {
+  const DecPtrs p{q, qr, k, ks, v, vs, cs, sn, bias, out};
+  return launch_any<true>(p, T, H, Hkv, S, scale, cluster, stream);
 }

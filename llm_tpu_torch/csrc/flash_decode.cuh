@@ -1,7 +1,7 @@
-// K3's split-S flash decode, shared by flash_attn.cu (K3 on a bf16 cache,
-// K3q on the int8 cache) and flash_probe.cu (S3, the layout and dequant
-// probes): the K/V loaders, the CTA body of the split kernel, the combine
-// kernel, the choice of split and the launch of the two.
+// The split-S flash decode that only the S3 probes run (flash_probe.cu: the
+// layout and dequant probes; K3/K3q run flash_attn.cu's flash_decode_tc):
+// the K/V loaders, the CTA body of the split kernel, the combine kernel, the
+// choice of split and the launch of the two.
 //
 // For query row r = t*G + g of KV head h (query head h*G + g):
 //
@@ -21,9 +21,9 @@
 // (S3's split sweep, PERF.md): more cells in flight is what would speed it.
 //
 // A loader gives dims d0..d0+3 of cell s of KV head h as f32; a kernel
-// calls decode_split_cta with the loader it has bound to its buffer (K3 and
-// K3q pass theirs as they are; S3's stacked loaders first read the buffer
-// index, once a CTA).
+// calls decode_split_cta with the loader it has bound to its buffer (the
+// int8 modes pass theirs as they are; the stacked loaders first read the
+// buffer index, once a CTA).
 
 #pragma once
 
@@ -80,7 +80,7 @@ struct Q8KV {
 };
 
 // ----------------------------------------------------------------------------
-// K3: split-S decode
+// split-S decode
 
 constexpr int DEC_WARPS = 4;
 constexpr int RC = 8;  // query rows per CTA

@@ -298,12 +298,6 @@ __device__ __forceinline__ void load_bias(float (&ba)[16], float (&bb)[16], cons
   }
 }
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // thread 0 of the producer: the raw block at cell sb
 template <bool Q8>
 __device__ __forceinline__ void load_raw(uint32_t raw, uint32_t bar, const CUtensorMap* tmk,

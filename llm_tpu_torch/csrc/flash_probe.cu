@@ -14,20 +14,21 @@
 //     applied), "full" (int8 x bf16 scale kept in f32) and "bf16" (the
 //     production K3q dequant, rounded to bf16).
 //
-// Every probe is K3's split-S decode (flash_decode.cuh, the same CTA body
-// and combine, on K3's grid) with another loader, so its time differs from
-// K3's or K3q's only by how a cell's K/V are addressed and dequantized:
+// Every probe is the split-S decode of flash_decode.cuh (its CTA body and
+// combine, on its grid; K3/K3q run flash_attn.cu's flash_decode_tc) with
+// another loader, so the probes' times differ from one another only by how
+// a cell's K/V are addressed and dequantized:
 //   v1        Stacked<Bf16KV>: buffer *lidx of [NB, Hkv, S, D];
 //   v0        Stacked<Bf16KVSeqMajor>: buffer *lidx of [NB, S, Hkv, D],
 //             cell (s, h) at ((s*Hkv + h)*D); each row is still 256
 //             contiguous bytes, so a warp's load is as coalesced as v1's;
-//   noscale   Q8KVNoScale, full Q8KVF32, bf16 Q8KV (K3q's own loader),
+//   noscale   Q8KVNoScale, full Q8KVF32, bf16 Q8KV (the body's K3q loader),
 //             on int8 [Hkv, S, D] with bf16 scales [Hkv, S].
 // The buffer index lives in device memory and every CTA reads it once (as
 // K7 reads its layer index), so a CUDA graph of launches that each name
 // another index cycles the buffers past the 50 MB L2, as the TPU's scalar
-// prefetch did. The split size (cells per CTA) is a launch parameter, K3's
-// choice (decode_splits) the default. Bound by the bytes of K, V (and
+// prefetch did. The split size (cells per CTA) is a launch parameter, the
+// body's own choice (decode_splits) the default. Bound by the bytes of K, V (and
 // scales), cos and sin; the sweep over split sizes shows what bounds it
 // instead.
 
@@ -135,8 +136,8 @@ using bf = __nv_bfloat16;
 }  // namespace
 
 // Splits for a probe launch: cells_per_split > 0 asks for splits of that
-// many cells, 0 for K3's choice. The caller sizes the scratch from it as
-// for K3 (flash_attn.cu).
+// many cells, 0 for the body's own choice. The caller sizes the scratch
+// from it: pm, pl [Hkv * T*G * n_splits] f32, pacc [.. * D] f32.
 extern "C" int flash_probe_splits(int S, int Hkv, int T, int H, int sms,
                                   int cells_per_split) {
   if (cells_per_split > 0) return (S + cells_per_split - 1) / cells_per_split;
@@ -144,8 +145,9 @@ extern "C" int flash_probe_splits(int S, int Hkv, int T, int H, int sms,
 }
 
 // v1 (seq_major 0) or v0 (seq_major 1) on buffer *lidx (int32 in device
-// memory) of bf16 stacks [NB, Hkv, S, D] or [NB, S, Hkv, D]; the other
-// arguments as flash_decode_launch's.
+// memory) of bf16 stacks [NB, Hkv, S, D] or [NB, S, Hkv, D]; q, qr, cos,
+// sin, bias and out as K3's (flash_attn.cu), then the scratch and the
+// splits.
 extern "C" int flash_probe_stacked_launch(int seq_major, const void* q, const void* qr,
                                           const void* k, const void* v, const void* lidx,
                                           const void* cs, const void* sn, const void* bias,
@@ -166,7 +168,7 @@ extern "C" int flash_probe_stacked_launch(int seq_major, const void* q, const vo
 
 // The q8 modes on int8 [Hkv, S, D] K/V with bf16 scales [Hkv, S]: mode 0
 // noscale, 1 full, 2 bf16 (K3q's dequant); the other arguments as
-// flash_decode_q8_launch's.
+// flash_probe_stacked_launch's.
 extern "C" int flash_probe_q8_launch(int mode, const void* q, const void* qr, const void* k,
                                      const void* ks, const void* v, const void* vs,
                                      const void* cs, const void* sn, const void* bias,

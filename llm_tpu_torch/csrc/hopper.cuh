@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's warp-specialized
-// kernels (the prefill GEMM, qmm_gemm.cuh; flash prefill, flash_prefill.cuh):
-// mbarriers, TMA tile loads, wgmma fences and the K-major swizzled operand
-// descriptor, the exact byte-to-float trick and the bf16 hi/lo split, and
-// the host side's tensor-map encoding.
+// kernels (the prefill GEMM, qmm_gemm.cuh; flash prefill, flash_prefill.cuh;
+// the decode GEMV, qmm_decode.cuh; flash decode, flash_attn.cu): mbarriers,
+// TMA tile loads, wgmma fences and the K-major swizzled operand descriptor,
+// the 128-byte swizzle's offsets, mma.sync and ldmatrix, the cluster barrier
+// and distributed shared memory loads, the exact byte-to-float trick and the
+// bf16 hi/lo split, and the host side's tensor-map encoding.
 
 #pragma once
 
@@ -45,6 +47,15 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       : "memory");
 }
 
+__device__ __forceinline__ void tma_1d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                       int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                        int c0, int c1) {
   asm volatile(
@@ -81,6 +92,48 @@ __device__ __forceinline__ void wg_wait() {
 __device__ __forceinline__ uint64_t x_desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)64 << 32) |
          ((uint64_t)1 << 62);
+}
+
+// byte offset of (row r, byte c) in a 128-byte-swizzled tile of 128-byte rows
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * 128 + ((((c >> 4) ^ r) & 7) << 4) + (c & 15);
+}
+
+// d += a (16x16 bf16, registers) x b (16x8 bf16), f32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 b16 matrices from shared memory, transposed: lane i gives a row
+// address of matrix i / 8, and each thread receives a column pair
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// 2^x (the softmax's exponent, in log2 units)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float ld_dsmem(uint32_t local, int rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(local), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
 }
 
 // the integer (q - zp) of byte i of v as an f32: 2^23 + byte, minus base

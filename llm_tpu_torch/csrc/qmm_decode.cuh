@@ -117,20 +117,6 @@ struct DecodeArgs {
   int B, K, N, gs, zp, upr, tma_w, out_bf16;  // upr: stages (units of 128 k) a CTA
 };
 
-// byte offset of (row r, byte c) in a 128-byte-swizzled tile of 128-byte rows
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * 128 + ((((c >> 4) ^ r) & 7) << 4) + (c & 15);
-}
-
-// d += a (16x16 bf16, registers) x b (16x8 bf16), f32
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 template <int NB8, int J>
 __device__ __forceinline__ void zero_acc(float (&p)[NB8][J][4]) {
 #pragma unroll
@@ -418,19 +404,6 @@ __device__ __forceinline__ void dv_consume(const uint8_t* stp, int col0, int gs,
       }
     }
   }
-}
-
-__device__ __forceinline__ void cluster_sync_all() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ float ld_dsmem(uint32_t local, int rank) {
-  uint32_t remote;
-  float v;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(local), "r"(rank));
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
-  return v;
 }
 
 // grid (cluster size C, column tiles); the C CTAs of a cluster split K

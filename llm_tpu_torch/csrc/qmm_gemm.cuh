@@ -177,11 +177,6 @@ __device__ __forceinline__ void dequant(uint32_t xa, uint32_t xb, bool high, flo
              fh[3], fl[3]);
 }
 
-// byte offset of (plane row r, byte column c < 128) in a 128-byte-swizzled half
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * 128 + ((((c >> 4) ^ r) & 7) << 4) + (c & 15);
-}
-
 struct Item {
   int n0, b0, u0, u1;
 };

@@ -16,10 +16,14 @@ __float2bfloat16_rn((float)q * s) gives the same bits).
 
 `attn_plain` is the kernels' function in plain PyTorch (f32). For CUDA
 tensors flash_decode (T <= 8) launches csrc/flash_attn.cu (K3 on a bf16
-cache, K3q on a pair) and flash_prefill (T > 8) csrc/flash_prefill.cu (K4,
-K4q), a library of its own: the wgmma kernel whose operands are exact bf16
-hi + lo splits of k*cos, k*sin and p. Both take the plain version for CPU
-tensors.
+cache, K3q on a pair): one launch a call, the cells of a KV head split over
+a thread block cluster whose size `decode_attn_plan` chooses, the scores
+and P.V on the tensor cores with exact bf16 hi + lo operands, the ranks'
+states combined through distributed shared memory (no scratch, output
+bit-identical from launch to launch). flash_prefill (T > 8) launches
+csrc/flash_prefill.cu (K4, K4q), a library of its own: the wgmma kernel
+whose operands are the same exact splits of k*cos, k*sin and p. Both take
+the plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -30,11 +34,22 @@ import torch
 
 from ..device import full_f32
 from . import cuda_build
+from .cuda_qmm import sm_count
 from .rope import ROPE_TYPE_NEOX, ROPE_TYPE_NORM
 
 NEG = -1e30
 T_CHUNK = 64  # query rows per step of attn_plain, to bound its score tensor
 LAUNCHES = {"K3": 0, "K4": 0, "K3q": 0, "K4q": 0}
+# K3/K3q (csrc/flash_attn.cu): a CTA walks blocks of 64 cells and holds up
+# to 32 query rows of one KV head (past 32, more row chunks, each reading K
+# and V again); T <= 8 (the bias rows of a stage); the CTAs of a thread
+# block cluster (at most the portable 8) split a head's blocks.
+# decode_attn_plan's rule, fitted to a sweep of the cluster size at the
+# LLAMA3_8B decode shapes on an H100 (tools/attn_splits.py, PERF.md): one CTA
+# an SM (a CTA holds ~200 KB of shared memory), up to 8 a cluster. Clusters
+# of 12 and 16 lost to 8 at every swept shape: a cluster of 16 such CTAs
+# needs 16 free SMs of one GPC, which not every GPC of the card has.
+DECODE_BLOCK, DECODE_ROWS, DECODE_MAX_T, DECODE_MAX_CLUSTER = 64, 32, 8, 8
 
 
 def reset_launches() -> None:
@@ -82,14 +97,12 @@ def attn_plain(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Tensor:
 def _lib():
     lib = cuda_build.load("flash_attn")
     if lib.flash_decode_launch.argtypes is None:
-        lib.flash_decode_splits.argtypes = [ctypes.c_int] * 5
-        lib.flash_decode_splits.restype = ctypes.c_int
         lib.flash_decode_launch.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.flash_decode_launch.restype = ctypes.c_int
         lib.flash_decode_q8_launch.argtypes = (
-            [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.flash_decode_q8_launch.restype = ctypes.c_int
     return lib
@@ -146,49 +159,62 @@ def _check_q8(q, q_rot, k, v, cos, sin, bias):
     return dims
 
 
-def _decode_scratch(lib, q, T, H, Hkv, S, n_splits=None):
-    """Scratch and output of a split-S decode launch: n_splits as given, or
-    K3's choice (flash_decode_splits)."""
-    dev = q.device
-    if n_splits is None:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        n_splits = lib.flash_decode_splits(S, Hkv, T, H, sms)
-    rows = Hkv * T * (H // Hkv) * n_splits
-    pm = torch.empty(rows, dtype=torch.float32, device=dev)
-    pl = torch.empty(rows, dtype=torch.float32, device=dev)
-    pacc = torch.empty((rows, 128), dtype=torch.float32, device=dev)
-    out = torch.empty((T, H, 128), dtype=torch.float32, device=dev)
-    return n_splits, pm, pl, pacc, out
+def decode_attn_plan(T: int, H: int, Hkv: int, S: int, n_sm: int) -> tuple[int, int, int]:
+    """K3/K3q's grid for T query tokens of H heads over Hkv KV heads and S
+    cells on n_sm SMs: (cluster size, blocks of 64 cells a CTA, row chunks).
+    A KV head's T*G rows are one chunk up to 32 (one, two or four n8 tiles),
+    else chunks of 32. The cluster is as many CTAs as put one on every SM,
+    at most DECODE_MAX_CLUSTER and one a block; then the fewest that
+    give each CTA the same number of blocks, so none is left without one.
+    CTA `rank` takes blocks [rank * per, (rank + 1) * per), per =
+    ceil(blocks / cluster) as the kernel computes it."""
+    R = T * (H // Hkv)
+    chunks = -(-R // DECODE_ROWS)
+    nblk = -(-S // DECODE_BLOCK)
+    target = max(1, min(DECODE_MAX_CLUSTER, nblk, n_sm // (Hkv * chunks)))
+    cluster = -(-nblk // -(-nblk // target))
+    return cluster, -(-nblk // cluster), chunks
+
+
+def _check_decode(T, *tensors):
+    """What K3/K3q take beyond _check_inputs: T <= 8 and 16-byte aligned
+    tensors (TMA and 16-byte loads)."""
+    if not 1 <= T <= DECODE_MAX_T:
+        raise ValueError(f"flash_decode kernel takes 1 <= T <= {DECODE_MAX_T}, got {T}")
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("flash_decode kernel: every tensor must start 16-byte aligned")
+
+
+def _decode_launch(q8: bool, q, q_rot, k, v, cos, sin, bias, scale: float,
+                   cluster=None) -> torch.Tensor:
+    """Launch K3 (bf16 k, v) or K3q (q8: (int8, scales) pairs) with
+    `cluster` CTAs a KV head (None: decode_attn_plan's). Returns [T, H, D]
+    f32."""
+    T, H, Hkv, S = (_check_q8 if q8 else _check_inputs)(q, q_rot, k, v, cos, sin, bias)
+    planes = (*k, *v) if q8 else (k, v)
+    _check_decode(T, q, q_rot, *planes, cos, sin, bias)
+    if cluster is None:
+        cluster = decode_attn_plan(T, H, Hkv, S, sm_count(q.device))[0]
+    out = torch.empty((T, H, 128), dtype=torch.float32, device=q.device)
+    ptrs = [t.data_ptr() for t in (q, q_rot, *planes, cos, sin, bias, out)]
+    lib = _lib()
+    fn = lib.flash_decode_q8_launch if q8 else lib.flash_decode_launch
+    rc = fn(*ptrs, T, H, Hkv, S, float(scale), int(cluster),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_build.check(rc, "flash_decode_q8_launch" if q8 else "flash_decode_launch")
+    LAUNCHES["K3q" if q8 else "K3"] += 1
+    return out
 
 
 def flash_decode_cuda(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Tensor:
-    T, H, Hkv, S = _check_inputs(q, q_rot, k, v, cos, sin, bias)
-    lib = _lib()
-    n_splits, pm, pl, pacc, out = _decode_scratch(lib, q, T, H, Hkv, S)
-    rc = lib.flash_decode_launch(
-        q.data_ptr(), q_rot.data_ptr(), k.data_ptr(), v.data_ptr(),
-        cos.data_ptr(), sin.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(), T, H, Hkv, S,
-        float(scale), n_splits, torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_build.check(rc, "flash_decode_launch")
-    LAUNCHES["K3"] += 1
-    return out
+    """K3 on a bf16 cache."""
+    return _decode_launch(False, q, q_rot, k, v, cos, sin, bias, scale)
 
 
 def flash_decode_q8_cuda(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Tensor:
     """K3q: K3 on (int8, scales [Hkv, S, 1]) pairs."""
-    T, H, Hkv, S = _check_q8(q, q_rot, k, v, cos, sin, bias)
-    lib = _lib()
-    n_splits, pm, pl, pacc, out = _decode_scratch(lib, q, T, H, Hkv, S)
-    (kq, ks), (vq, vs) = k, v
-    rc = lib.flash_decode_q8_launch(
-        q.data_ptr(), q_rot.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
-        vs.data_ptr(), cos.data_ptr(), sin.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(), T, H, Hkv, S,
-        float(scale), n_splits, torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_build.check(rc, "flash_decode_q8_launch")
-    LAUNCHES["K3q"] += 1
-    return out
+    return _decode_launch(True, q, q_rot, k, v, cos, sin, bias, scale)
 
 
 def flash_prefill_cuda(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Tensor:

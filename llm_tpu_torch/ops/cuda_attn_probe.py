@@ -4,8 +4,8 @@ decode kernel over a head-major or a seq-major cache, the buffer of a stack
 picked by an index on the device) and scripts/kbench9.py (_mk_kernel: the
 q8 cache's dequant without the scale, in f32, or in bf16 as K3q does).
 
-Each variant computes K3's decode function (cuda_attn.attn_plain) on its
-own form of the cache:
+Each variant computes the decode function of K3 (cuda_attn.attn_plain) on
+its own form of the cache:
 
     v1       k, v bf16 [NB, Hkv, S, D]; buffer lidx (int32 [1]) of the stack
     v0       k, v bf16 [NB, S, Hkv, D] (seq-major); buffer lidx, read as
@@ -17,9 +17,11 @@ own form of the cache:
 
 `probe_plain` builds that K/V from its inputs alone (the buffer picked with
 index_select, so the index never leaves the device) and calls attn_plain.
-`probe_cuda` launches csrc/flash_probe.cu, K3's split-S kernel on each
-variant's loader, with the split size (cells per CTA) as a parameter and
-K3's choice as the default; it counts its launches in LAUNCHES["S3"].
+`probe_cuda` launches csrc/flash_probe.cu, the split-S decode body of
+csrc/flash_decode.cuh (one CTA per S split, then a combine kernel; K3 and
+K3q run csrc/flash_attn.cu's cluster kernel) on each variant's loader,
+with the split size (cells per CTA) as a parameter and the body's own
+choice as the default; it counts its launches in LAUNCHES["S3"].
 `probe` takes the kernel for CUDA tensors and the plain version for CPU
 tensors; on a CUDA tensor the kernel runs or raises.
 
@@ -36,6 +38,7 @@ import ctypes
 import torch
 
 from . import cuda_attn, cuda_build
+from .cuda_qmm import sm_count
 
 STACKED = ("v1", "v0")
 Q8_MODES = {"noscale": 0, "full": 1, "bf16": 2}
@@ -128,25 +131,33 @@ def _check_stacked(variant, q, q_rot, k, v, cos, sin, bias, lidx):
 
 
 def split_count(device, T: int, H: int, Hkv: int, S: int, split: int | None) -> int:
-    """S splits of a probe launch: of `split` cells each, or K3's choice
-    (flash_decode_splits) for None."""
+    """S splits of a probe launch: of `split` cells each, or the body's own
+    choice (flash_decode.cuh's decode_splits) for None."""
     if split is not None and split < 1:
         raise ValueError(f"S3: split must be a positive number of cells, got {split}")
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return _lib().flash_probe_splits(S, Hkv, T, H, sms, split or 0)
+    return _lib().flash_probe_splits(S, Hkv, T, H, sm_count(device), split or 0)
+
+
+def _scratch(q, T: int, H: int, Hkv: int, n_splits: int):
+    """The split kernel's partials pm, pl [Hkv * T*G * n_splits] f32 and
+    pacc [.., D] f32, and the output [T, H, D] f32."""
+    rows = Hkv * T * (H // Hkv) * n_splits
+    f32 = dict(dtype=torch.float32, device=q.device)
+    return (torch.empty(rows, **f32), torch.empty(rows, **f32), torch.empty((rows, 128), **f32),
+            torch.empty((T, H, 128), **f32))
 
 
 def probe_cuda(variant, q, q_rot, k, v, cos, sin, bias, scale: float, lidx=None,
                split: int | None = None) -> torch.Tensor:
     """Launch the variant's kernel: [T, H, D] f32. split: cells per CTA
-    (None: K3's choice)."""
+    (None: the body's own choice)."""
     if _variant(variant) in STACKED:
         T, H, Hkv, S = _check_stacked(variant, q, q_rot, k, v, cos, sin, bias, lidx)
     else:
         T, H, Hkv, S = cuda_attn._check_q8(q, q_rot, k, v, cos, sin, bias)
     lib = _lib()
-    n_splits, pm, pl, pacc, out = cuda_attn._decode_scratch(
-        lib, q, T, H, Hkv, S, split_count(q.device, T, H, Hkv, S, split))
+    n_splits = split_count(q.device, T, H, Hkv, S, split)
+    pm, pl, pacc, out = _scratch(q, T, H, Hkv, n_splits)
     tail = (out.data_ptr(), pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(), T, H, Hkv, S,
             float(scale), n_splits, torch.cuda.current_stream(q.device).cuda_stream)
     if variant in STACKED:

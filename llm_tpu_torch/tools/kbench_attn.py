@@ -11,10 +11,10 @@ At T=1, H=32, Hkv=8, D=128, with real NORM rope tables and a zero bias:
            D] copies of the same values; each launch reads the buffer that
            an int32 index on the card names, and the timed graph cycles the
            index through the NB buffers (kbench7's rem(it, NB)); swept over
-           the split sizes (cells per CTA; 0 is K3's own choice);
+           the split sizes (cells per CTA; 0 is the split body's own choice);
   noscale, full, bf16   S=4096 on int8 K/V with bf16 scales (kbench9's
            data: uniform int8 in [-127, 127], scales 0.02 + 0.01 N(0, 1)),
-           enough copies to pass the L2, cycled; at K3's split.
+           enough copies to pass the L2, cycled; at the split body's own split.
 Each configuration is first held against its plain version (for v1/v0 on
 buffers 0 and NB-1 at every split, whose outputs must also differ: the
 index is honoured). Then CUDA events around a CUDA graph of launches give
@@ -43,7 +43,7 @@ from .kbench import L2_BYTES, PEAK_BYTES_PER_S, card, nbytes, time_ms
 T, H, HKV, D = 1, 32, 8, 128
 S_STACKED, NB = 1024, 20  # scripts/kbench7.py
 S_Q8 = 4096  # scripts/kbench9.py
-SPLITS = (0, 256, 512, 1024)  # kbench7's sblks; 0 = K3's choice
+SPLITS = (0, 256, 512, 1024)  # kbench7's sblks; 0 = the split body's choice
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense
 
 
@@ -187,7 +187,7 @@ def q8_inputs(gen, S: int) -> dict:
 
 
 def bench_q8(modes, plain=False, seed=1, log=print) -> list[dict]:
-    """The q8 modes on the same int8 caches at K3's split (module docstring)."""
+    """The q8 modes on the same int8 caches at the split body's own split (module docstring)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     inp, angles = queries(gen, S_Q8)
@@ -225,7 +225,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variants", default=",".join(cuda_attn_probe.VARIANTS))
     ap.add_argument("--splits", default=",".join(map(str, SPLITS)),
-                    help="cells per CTA for v1/v0, comma-separated; 0 is K3's choice")
+                    help="cells per CTA for v1/v0, comma-separated; 0 is the split body's choice")
     ap.add_argument("--plain", action="store_true", help="also time the plain versions")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

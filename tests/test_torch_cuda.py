@@ -1,6 +1,8 @@
 """The CUDA kernels (K1/K2 quantized matmul: the decode GEMV at B <= 16,
 bit-identical from launch to launch and, as K7, bit-equal to K1/K2 on the
-layer, writing bf16 or f32; K3/K4 flash attention,
+layer, writing bf16 or f32; K3/K4 flash attention (K3/K3q, the cluster
+decode kernel, at the main path's T = 1 and 8 over 4096 cells and
+bit-identical from launch to launch),
 K3q/K4q on the int8 KV cache, K5 group-factored matmul, K6 chained layer
 tail and norm + matmul, K7 on stacked planes, the S1 probes, the S3
 flash-decode layout and q8 probes) held against
@@ -203,10 +205,15 @@ PREFILL_CASES = [(40, 8, 8, 300), (24, 16, 2, 200), (100, 32, 8, 4001), (513, 32
                  (512, 32, 8, 4096)]
 
 
+# flash decode (T <= 8) at the main path's shapes: T = 1 and 8 over a
+# 4096-cell cache at LLAMA3_8B's heads
+DECODE_MAIN_CASES = [(1, 32, 8, 4096), (8, 32, 8, 4096)]
+
+
 @pytest.mark.parametrize("mode", [ROPE_TYPE_NORM, ROPE_TYPE_NEOX], ids=["norm", "neox"])
 @pytest.mark.parametrize("T,H,Hkv,S", [(1, 32, 8, 1000), (3, 8, 8, 64), (8, 32, 8, 512),
-                                       (9, 4, 1, 70), (40, 32, 8, 300),
-                                       (512, 32, 8, 1024)] + PREFILL_CASES)
+                                       (8, 64, 8, 512), (9, 4, 1, 70), (40, 32, 8, 300),
+                                       (512, 32, 8, 1024)] + PREFILL_CASES + DECODE_MAIN_CASES)
 def test_flash_kernels_match_plain(cuda_device, T, H, Hkv, S, mode):
     t = _attn_inputs(T, H, Hkv, S, mode)
     fn = cuda_attn.flash_decode if T <= 8 else cuda_attn.flash_prefill
@@ -225,7 +232,8 @@ def _q8(x):
 @pytest.mark.parametrize("T,H,Hkv,S", [(1, 32, 8, 1000), (2, 8, 8, 64), (3, 8, 1, 500),
                                        (5, 8, 2, 333), (8, 32, 8, 512), (8, 4, 4, 4001),
                                        (9, 4, 1, 70), (24, 16, 2, 200), (40, 32, 8, 300),
-                                       (512, 32, 8, 1024)] + PREFILL_CASES[:1] + PREFILL_CASES[2:])
+                                       (512, 32, 8, 1024)] + PREFILL_CASES[:1] + PREFILL_CASES[2:]
+                         + DECODE_MAIN_CASES)
 def test_flash_q8_kernels_match_plain(cuda_device, T, H, Hkv, S, mode):
     """K3q (T <= 8) and K4q against attn_plain on the same (int8, scales)
     pairs: ragged S, G in {1, 4, 8}, a padding row (row 0) that sees nothing."""
@@ -241,6 +249,33 @@ def test_flash_q8_kernels_match_plain(cuda_device, T, H, Hkv, S, mode):
     torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
     kern = "K3q" if T <= 8 else "K4q"
     assert cuda_attn.LAUNCHES[kern] == launched[kern] + 1
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "q8_0"])
+@pytest.mark.parametrize("T,H,Hkv,S,cluster", [(1, 32, 8, 4096, None), (8, 32, 8, 4001, None),
+                                               (3, 8, 2, 333, 1), (3, 8, 2, 333, 5),
+                                               (1, 32, 8, 4096, 6), (8, 64, 8, 1000, 7)])
+def test_flash_decode_is_bit_identical_from_launch_to_launch(cuda_device, q8, T, H, Hkv, S,
+                                                             cluster):
+    """K3 and K3q are one launch a call (no combine kernel, no scratch): the
+    ranks of a cluster meet through distributed shared memory in rank order,
+    so two launches give the same bits, at the plan's cluster size (None)
+    and at others, ragged S and two row chunks among them; each within
+    atol = rtol = 1e-3 of attn_plain."""
+    t = _attn_inputs(T, H, Hkv, S, ROPE_TYPE_NORM)
+    if q8:
+        t["k"], t["v"] = _q8(t["k"]), _q8(t["v"])
+    dev = {n: (tuple(x.to(cuda_device) for x in a) if isinstance(a, tuple)
+               else a.to(cuda_device)) for n, a in t.items()}
+    kern = "K3q" if q8 else "K3"
+    launched = cuda_attn.LAUNCHES[kern]
+    run = (lambda: cuda_attn._decode_launch(q8, **dev, scale=128 ** -0.5, cluster=cluster))
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert cuda_attn.LAUNCHES[kern] == launched + 2
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first.cpu(), cuda_attn.attn_plain(**t, scale=128 ** -0.5),
+                               atol=1e-3, rtol=1e-3)
 
 
 @pytest.mark.parametrize("H,Hkv,D,q_dtype", [(6, 2, 128, torch.bfloat16),   # G = 3: 64 % G != 0
@@ -500,7 +535,9 @@ def test_s3_stacked_kernels_match_plain(cuda_device, variant, T, H, Hkv, S, spli
                                        (8, 4, 4, 4001)])
 def test_s3_q8_kernels_match_plain(cuda_device, variant, T, H, Hkv, S):
     """S3's q8 modes against probe_plain on the same (int8, scales) pairs;
-    bf16 is K3q's dequant and equals K3q's output bit for bit."""
+    bf16 is K3q's dequant, and its output (the split-S body of
+    flash_decode.cuh) is within
+    K3q's atol = rtol = 1e-3 of K3q's."""
     t = _attn_inputs(T, H, Hkv, S, ROPE_TYPE_NEOX)
     t["k"], t["v"] = _q8(t["k"]), _q8(t["v"])
     dev = {n: (tuple(x.to(cuda_device) for x in a) if isinstance(a, tuple)
@@ -512,7 +549,8 @@ def test_s3_q8_kernels_match_plain(cuda_device, variant, T, H, Hkv, S):
     assert torch.isfinite(got).all()
     assert (got.cpu() - want).abs().max() <= cuda_attn_probe.tolerance(variant, want)
     if variant == "bf16":
-        assert torch.equal(got, cuda_attn.flash_decode(**dev, scale=128 ** -0.5))
+        torch.testing.assert_close(got, cuda_attn.flash_decode(**dev, scale=128 ** -0.5),
+                                   atol=1e-3, rtol=1e-3)
 
 
 def test_s3_raises_rather_than_fall_back(cuda_device):
