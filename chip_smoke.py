@@ -8,9 +8,12 @@ Phases, each of which raises on failure (the script then exits nonzero and
 prints no result line):
   1. the card's name and power limit; build every kernel from
      llm_tpu_torch/csrc in parallel (nvcc, sm_90a); the decode GEMV's
-     machine code read back (cuobjdump: every qmm_decode kernel issues HMMA
-     and TMA loads; libqmm.so and libqmm_stacked.so keep K5's qmm_gemv
-     kernels and no other), the prefill GEMM's (every qmm_wgmma kernel
+     machine code read back (cuobjdump: every qmm_decode kernel, K1/K2/K7's
+     and K5's qmm_decode_gdot, issues HMMA and TMA loads; no qmm_gemv kernel
+     is left in libqmm.so, libqmm_stacked.so or libqmm_chain.so, and
+     libqmm_probe.so keeps S1's probes of that loop), K6's (its
+     qmm_chain_tc kernel issues HMMA and TMA loads, the old
+     qmm_chain_kernel is gone), the prefill GEMM's (every qmm_wgmma kernel
      issues HGMMA and TMA loads, no mma.sync GEMM is left), flash
      prefill's (every
      flash_prefill kernel of libflash_prefill.so issues HGMMA, no f32-FMA
@@ -23,10 +26,12 @@ prints no result line):
      300; K3/K4 flash attention (K4, the
      wgmma flash prefill, also beside its doubled floor), K3q/K4q
      flash attention on the int8 KV cache, whose inputs the port's own
-     quantizer makes on the card, K5 group-factored matmul beside K1 at the
-     same shapes, K6 chained layer tail / norm + matmul beside the unfused
-     launches it replaces, K7 = K1/K2/K5 on a layer of stacked planes beside
-     the unstacked kernel on the same layer, bit-equal to it at decode) at
+     quantizer makes on the card, K5 group-factored matmul (the decode
+     GEMV's CTA with the group-factored sum) beside K1 at the same shapes,
+     K6 chained layer tail / norm + matmul (the decode GEMV's CTA on a
+     cooperative grid of clusters) beside the unfused launches it replaces,
+     K7 = K1/K2/K5 on a layer of stacked planes beside the unstacked kernel
+     on the same layer, bit-equal to it at decode) at
      the main path's shapes, held
      against its plain PyTorch version on the card, and timed beside its
      bound, the plain version and one PyTorch library call that computes
@@ -64,8 +69,9 @@ prints no result line):
   6. phase 4's planes with gdot=True: K5 in place of every decode K1;
   7. phase 4's planes with chain=True, gdot=True: K6 for every tail, fused
      head and the lm_head, K5 for the unfused QKV; each of phases 4, 6 and
-     7 also profiled over 8 decode tokens (launches per token, idle share);
-     then the three paths' decode timed in turns (A B C C B A A B C);
+     7 also profiled over 8 decode tokens (launches per token, idle share;
+     no memset and no qmm_gemv kernel in any of them); then the three
+     paths' decode timed in turns (A B C C B A A B C);
   8. the scan decoder at LLAMA3_8B (phases 4-7's planes freed first):
      uniform Q4_K planes made on the card, Context(scan_layers=True), whose
      every layer matmul runs K7 (4 a layer a token) and the lm_head K1;
@@ -73,7 +79,8 @@ prints no result line):
      must be the scan's; the scan with gdot (K7's K5 variant, lm_head on
      K5) and with chain and gdot (layers on K7, lm_head on K6), 16 tokens
      each, enough for their launches per token; uniform Q8_0 planes (K7 on
-     int8 planes, lm_head on K2); the Q4_K and Q8_0 scans profiled.
+     int8 planes, lm_head on K2); the Q4_K and Q8_0 scans profiled (no
+     memset, no qmm_gemv kernel).
 The last lines are a JSON "kernels" line, the card line, and
 {"ok": true, "device": {...}}. It imports nothing of JAX or llm_tpu.
 """
@@ -183,33 +190,17 @@ def check_sass(tag: str, libs: dict, name: str, need: tuple, gone) -> dict:
     return out
 
 
-# K5's qmm_gemv kernels in each library: 3 row counts (1, 2, 4 rows of x a
-# launch) x f32/bf16 scales x with/without mins
-K5_GEMV_KERNELS = 12
+# the decode GEMV's kernels in libqmm_decode.so: p4/i8 x f32/bf16 scales x
+# mins x 8/16 rows (K1/K2/K7), and K5's on p4 planes (qmm_decode_gdot)
+DECODE_KERNELS = 16 + 8
+# S1's kernels in libqmm_probe.so: 1, 2 or 4 rows of x x mins x three modes
+S1_KERNELS = 18
 # K3/K3q's kernels: bf16 / q8_0 cache x one, two or four n8 tiles of rows
 K3_KERNELS = 6
 
 # S3's split-S kernels in libflash_probe.so: stacked v1 / v0 and the three
 # q8 modes
 S3_SPLIT_KERNELS = 5
-
-
-def check_gemv_left() -> dict:
-    """The old decode GEMV's kernels (qmm_gemv, qmm_gemv_stacked; template
-    arguments NB, P4, SBF16, MINS, GDOT) in libqmm.so and libqmm_stacked.so:
-    K5's (GDOT set) are all there, K1/K2/K7's (GDOT clear) are gone."""
-    import re
-
-    pat = re.compile(r"qmm_gemv(?:_stacked)?ILi(\d)ELb([01])ELb([01])ELb([01])ELb([01])E")
-    out = {}
-    for lib in ("qmm", "qmm_stacked"):
-        args = [m.groups() for m in (pat.search(k) for k in sass_functions(lib)) if m]
-        out[lib] = dict(gdot=sum(a[4] == "1" for a in args),
-                        not_gdot=sum(a[4] == "0" for a in args))
-        if out[lib] != dict(gdot=K5_GEMV_KERNELS, not_gdot=0):
-            raise AssertionError(f"lib{lib}.so: qmm_gemv kernels {out[lib]}")
-    log(json.dumps({"gemv_left": out}))
-    return out
 
 
 def check_qmm(results, name, qtype, K, N, B, scales_dtype=torch.bfloat16):
@@ -420,7 +411,8 @@ def check_chain(results, name, dims, pres, B):
     bmin, by = bound_ms(nbytes, sum(2.0 * B * k * n for k, n, _ in dims))
     rec = dict(kernel="K6", shape=f"{name} B={B}", max_abs_err=err, tol=tol, ms=ms,
                unfused_ms=unfused_ms, plain_ms=plain_ms, bound_ms=bmin, bound_by=by,
-               library_ms=lib_ms, grid=cuda_qmm_chain.chain_grid(B))
+               library_ms=lib_ms, plan=cuda_qmm_chain.launch_plan(qts),
+               clusters=cuda_qmm_chain.chain_clusters())
     log(json.dumps(rec))
     if not (err <= tol and math.isfinite(err)):
         raise AssertionError(f"K6 {rec['shape']}: max|err| {err} > {tol}")
@@ -1009,9 +1001,7 @@ def phase_llama3_8b(params, cfg, chain=False, gdot=False, base=None):
     # torch ops included), beside rec's per-kernel launches_per_token
     rec.update(device_launches_per_token=prof["device_launches_per_token"],
                idle_share=prof["idle_share"])
-    if not (chain or gdot) and prof["memsets_per_token"] != 0:
-        # the decode GEMV splits K over a cluster: no memset before it
-        raise AssertionError(f"phase 4 decode runs {prof['memsets_per_token']} memsets a token")
+    check_gemv_profile(prof)
     check_attn_profile(prof, cfg.n_layers)
     keys = ("decode_tok_s", "prefill_tok_s", "peak_mem_gib", "device_launches_per_token",
             "idle_share")
@@ -1022,6 +1012,15 @@ def phase_llama3_8b(params, cfg, chain=False, gdot=False, base=None):
     del ctx
     torch.cuda.empty_cache()
     return counts, rec
+
+
+def check_gemv_profile(prof) -> None:
+    """The decode matmuls in a decode profile: no memset (the decode GEMV,
+    K5 and K6 split K over clusters and sum in rank order) and no kernel of
+    the old GEMV loop."""
+    if prof["memsets_per_token"] != 0 or prof["qmm_gemv_launches_per_token"] != 0:
+        raise AssertionError(f"decode runs {prof['memsets_per_token']} memsets and "
+                             f"{prof['qmm_gemv_launches_per_token']} qmm_gemv kernels a token")
 
 
 def check_attn_profile(prof, n_layers: int) -> None:
@@ -1228,6 +1227,7 @@ def phase_scan():
         if profile:
             prof = profile_tokens(ctx, rec["last_token"], 8)
             log("profile_decode " + json.dumps(prof))
+            check_gemv_profile(prof)
             check_attn_profile(prof, cfg.n_layers)
             rec.update(device_launches_per_token=prof["device_launches_per_token"],
                        idle_share=prof["idle_share"])
@@ -1264,7 +1264,7 @@ REPLACES = {
     "K4": ("llm_tpu_torch/csrc/flash_prefill.cu", "llm_tpu/ops/pallas_attn.py:328"),
     "K3q": ("llm_tpu_torch/csrc/flash_attn.cu", "llm_tpu/ops/pallas_attn.py:135"),
     "K4q": ("llm_tpu_torch/csrc/flash_prefill.cu", "llm_tpu/ops/pallas_attn.py:341"),
-    "K5": ("llm_tpu_torch/csrc/qmm.cu", "llm_tpu/ops/pallas_qmm.py:195"),
+    "K5": ("llm_tpu_torch/csrc/qmm_decode.cu", "llm_tpu/ops/pallas_qmm.py:195"),
     "K6": ("llm_tpu_torch/csrc/qmm_chain.cu", "llm_tpu/ops/pallas_qmm_chain.py:107"),
     "K7": ("llm_tpu_torch/csrc/qmm_decode.cu", "llm_tpu/ops/pallas_qmm.py:481"),
     "S1": ("llm_tpu_torch/csrc/qmm_probe.cu", "scripts/kbench.py:56"),
@@ -1319,11 +1319,18 @@ def main() -> int:
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line or "error" in line or "C75" in line:
                 log("   ", line.strip())
-    # the decode GEMV: the 16 qmm_decode kernels (p4/i8 x f32/bf16 scales x
-    # mins x 8/16 rows) issue mma.sync and TMA tile loads, and no qmm_gemv is
-    # in their library; the old GEMV's kernels are K5's alone
-    check_sass("decode_sass", {"qmm_decode": 16}, "qmm_decode", ("HMMA", "UTMALDG"), "qmm_gemv")
-    check_gemv_left()
+    # the decode GEMV: K1/K2/K7's 16 qmm_decode kernels and K5's 8
+    # (qmm_decode_gdot) issue mma.sync and TMA tile loads; the old GEMV loop
+    # (qmm_gemv) is in no library but S1's, whose probes keep it; K6's
+    # qmm_chain_tc, the decode GEMV's CTA on a cooperative grid, issues
+    # mma.sync and TMA tile loads, and the old qmm_chain_kernel is gone
+    check_sass("decode_sass", {"qmm_decode": DECODE_KERNELS}, "qmm_decode",
+               ("HMMA", "UTMALDG"), "qmm_gemv")
+    check_sass("gemv_left", {"qmm": 0, "qmm_stacked": 0, "qmm_chain": 0}, "qmm_gemv", (),
+               "qmm_gemv")
+    check_sass("probe_sass", {"qmm_probe": S1_KERNELS}, "qmm_probe", (), ())
+    check_sass("chain_sass", {"qmm_chain": 1}, "qmm_chain_tc", ("HMMA", "UTMALDG"),
+               ("qmm_chain_kernel", "qmm_decode"))
     # the prefill GEMM: the eight qmm_wgmma kernels of each library issue
     # wgmma and TMA tile loads, and the mma.sync qmm_gemm is gone; flash
     # prefill: K4 and K4q issue wgmma, libflash_attn.so holds only the

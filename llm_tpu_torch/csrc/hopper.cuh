@@ -154,7 +154,19 @@ __device__ __forceinline__ void split_hilo(float w0, float w1, uint32_t& hi, uin
 }
 
 // ----------------------------------------------------------------------------
-// host side: tensor maps
+// host side: the SM count and tensor maps
+
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 132;
+  }
+  return n;
+}
+
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,

@@ -1,8 +1,7 @@
-// K1/K2 (fused dequantize x matmul) at B > 16 and K5 (its group-factored
-// decode GEMV) for Hopper (sm_90a): the entry points. The kernels, and what
-// they replace and compute, are in qmm_kernels.cuh; K7, the same kernels on
-// stacked planes, is built from qmm_stacked.cu; K1/K2/K7 at B <= 16 from
-// qmm_decode.cu.
+// K1/K2 (fused dequantize x matmul) at B > 16 for Hopper (sm_90a): the
+// entry point. The kernels, and what they replace and compute, are in
+// qmm_kernels.cuh; K7, the same kernels on stacked planes, is built from
+// qmm_stacked.cu; K1/K2/K5/K7 at B <= 16 from qmm_decode.cu.
 
 #include "qmm_kernels.cuh"
 
@@ -20,11 +19,3 @@ extern "C" int qmm_launch(const void* x, const void* qs, const void* scales,
                         Stack{nullptr, 0, 0}, 1, stream);
 }
 
-// K5: the group-factored decode GEMV on p4 planes (gs 32). Requirements
-// (checked by the Python wrapper): B <= 16, K % 256 == 0.
-extern "C" int qmm_gdot_launch(const void* x, const void* qs, const void* scales,
-                               const void* mins, void* y, int B, int K, int N,
-                               int zp, int scales_bf16, void* stream) {
-  return gdot_any<false>(x, qs, scales, mins, y, B, K, N, zp, scales_bf16,
-                         Stack{nullptr, 0, 0}, stream);
-}

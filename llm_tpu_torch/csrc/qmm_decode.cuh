@@ -1,7 +1,9 @@
 // K1/K2/K7's decode GEMV (B <= 16) for Hopper (sm_90a): the B <= 16
 // regime of llm_tpu/ops/pallas_qmm.py::qmm_pallas -> _qmm_kernel_p4 /
 // _p4_m (K1), _qmm_kernel_i8 / _i8_m (K2), and their stacked mode
-// qmm_pallas(lidx=...) (K7). It computes
+// qmm_pallas(lidx=...) (K7); with GDOT, K5 (_qmm_gdot_call -> _gdot_kernel,
+// and its stacked mode, K7's K5 variant); and the CTA body that K6
+// (qmm_chain.cu) runs phase after phase. It computes
 //
 //   y[b,n] = sum_k x[b,k] * (q[k,n] - zp) * s[k/gs,n]  -  sum_g xsum[b,g] * m[g,n]
 //
@@ -20,7 +22,16 @@
 // - xsum[b,g] * m[g,n] in f32, with xsum the f32 sum of the bf16 x (a
 // product of x with a block of ones on the same tensor cores). Nothing is
 // rounded to bf16 on the way (tests/test_torch_qmm_decode.py holds the
-// order against qmm_plain and the TPU kernel). The integer operands:
+// order against qmm_plain and the TPU kernel). K5 (GDOT, p4 only) is the
+// TPU gdot kernel's group-factored form of the same sum: the A operand is
+// the raw nibble (128 + nib minus 128), P'_g is folded with the f32 s[g],
+// and then either the mins or the zero-point correction, -bf16(m[g]) *
+// bf16(xsum) or -zp * bf16(xsum) * bf16(s[g]), their operands rounded to
+// bf16 as the TPU kernel's rank-G dots round them (fold_group;
+// tests/test_torch_gdot_decode.py). Its kernels (qmm_decode_gdot) are
+// their own instantiations of the same CTA (dv_cta), so K1/K2/K7's keep
+// their machine code; the bytes read, and so the bound, are K1's. The
+// integer operands:
 //  * p4: byte_perm puts the bytes of two adjacent plane rows (k, k + 1) of
 //    one column into the two halves of a word, a LOP3 turns each half's
 //    nibble into the bf16 0x4300 | nib = 128 + nib, and one bf16x2
@@ -136,6 +147,10 @@ __device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
 __device__ __forceinline__ uint32_t f2_bf16x2(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float rn_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // a thread's 8 adjacent columns' values of one group row (col % 8 == 0)
@@ -272,11 +287,15 @@ __device__ __forceinline__ void ld_xfrag(const uint8_t* chunk, int k16, int g, i
 // acc += s * P - m * X over a thread's accumulators: m16 tile j holds the
 // thread's columns 2j (c0, c1) and 2j + 1 (c2, c3) of its eight; X's c0/c1
 // are the group sums of x's rows 2t, 2t + 1 (every row of a ones product is
-// the same)
-template <int NB8, bool MINS>
+// the same). GDOT (K5): P is the product with the raw nibbles, and the mins
+// or the zero-point correction takes its operands rounded to bf16, as the
+// TPU kernel's rank-G dots do: acc += s * P' - bf16(m) * bf16(X), or (no
+// mins) acc += s * P' - zp * bf16(X) * bf16(s), which adds nothing at zp = 0
+// (K5 takes no planes with both)
+template <int NB8, bool MINS, bool GDOT = false>
 __device__ __forceinline__ void fold_group(float (&acc)[NB8][4][4], const float (&p)[NB8][4][4],
                                            const float (&xs)[NB8][1][4], const float (&s)[8],
-                                           const float (&m)[8]) {
+                                           const float (&m)[8], float zp = 0.f) {
 #pragma unroll
   for (int nb = 0; nb < NB8; ++nb)
 #pragma unroll
@@ -285,15 +304,25 @@ __device__ __forceinline__ void fold_group(float (&acc)[NB8][4][4], const float 
       for (int e = 0; e < 4; ++e) {
         const int c = 2 * j + (e >> 1);
         float v = fmaf(s[c], p[nb][j][e], acc[nb][j][e]);
-        if (MINS) v = fmaf(-m[c], xs[nb][0][e & 1], v);
+        if constexpr (GDOT) {
+          const float xg = rn_bf16(xs[nb][0][e & 1]);
+          if (MINS) v = fmaf(-rn_bf16(m[c]), xg, v);
+          else v = fmaf(-zp * xg, rn_bf16(s[c]), v);
+        } else if (MINS) {
+          v = fmaf(-m[c], xs[nb][0][e & 1], v);
+        }
         acc[nb][j][e] = v;
       }
 }
 
-// one consumer warp's share of a stage: columns col0..col0+63 of the tile
-template <bool P4, bool SBF16, bool MINS, int NB8>
+// one consumer warp's share of a stage: columns col0..col0+63 of the tile.
+// GDOT (K5, p4): zp2 is 128 (the raw nibbles), zpf the zero point whose
+// correction fold_group applies; the group sums of x feed either correction
+template <bool P4, bool SBF16, bool MINS, int NB8, bool GDOT = false>
 __device__ __forceinline__ void dv_consume(const uint8_t* stp, int col0, int gs, uint32_t zp2,
-                                           float ibase, float (&acc)[NB8][4][4]) {
+                                           float ibase, float (&acc)[NB8][4][4],
+                                           float zpf = 0.f) {
+  static_assert(!GDOT || P4, "K5 reads p4 planes");
   using L = DecodeSmem<P4, SBF16, MINS>;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int c = col0 + 8 * g;  // the thread's 8 columns within the tile
@@ -339,7 +368,7 @@ __device__ __forceinline__ void dv_consume(const uint8_t* stp, int col0, int gs,
           mma_bf16(phi[nb][j], ahi, b1[nb][0], b1[nb][1]);
         }
       }
-      if (MINS) {
+      if (MINS || GDOT) {
 #pragma unroll
         for (int nb = 0; nb < NB8; ++nb) {
           mma_bf16(xlo[nb][0], ones, b0[nb][0], b0[nb][1]);
@@ -350,10 +379,10 @@ __device__ __forceinline__ void dv_consume(const uint8_t* stp, int col0, int gs,
         const int gr = st >> 1;
         ld_eight<SBF16>(stp + L::S_OFF + gr * DV_TILE_N * L::ES, c, s);
         if (MINS) ld_eight<SBF16>(stp + L::M_OFF + gr * DV_TILE_N * L::ES, c, m);
-        fold_group<NB8, MINS>(acc, plo, xlo, s, m);
+        fold_group<NB8, MINS, GDOT>(acc, plo, xlo, s, m, zpf);
         ld_eight<SBF16>(stp + L::S_OFF + (2 + gr) * DV_TILE_N * L::ES, c, s);
         if (MINS) ld_eight<SBF16>(stp + L::M_OFF + (2 + gr) * DV_TILE_N * L::ES, c, m);
-        fold_group<NB8, MINS>(acc, phi, xhi, s, m);
+        fold_group<NB8, MINS, GDOT>(acc, phi, xhi, s, m, zpf);
       }
     }
   } else {
@@ -406,12 +435,12 @@ __device__ __forceinline__ void dv_consume(const uint8_t* stp, int col0, int gs,
   }
 }
 
-// grid (cluster size C, column tiles); the C CTAs of a cluster split K
-template <bool P4, bool SBF16, bool MINS, int NB8>
-__global__ void __launch_bounds__(DV_THREADS, NB8 == 1 ? 3 : 2)
-qmm_decode(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
-           const __grid_constant__ CUtensorMap tms, const __grid_constant__ CUtensorMap tmm,
-           const DecodeArgs a) {
+// a CTA of the grid (cluster size C, column tiles); the C CTAs of a
+// cluster split K. GDOT: K5's group-factored sum (dv_consume)
+template <bool P4, bool SBF16, bool MINS, int NB8, bool GDOT>
+__device__ __forceinline__ void dv_cta(const CUtensorMap& tmx, const CUtensorMap& tmw,
+                                       const CUtensorMap& tms, const CUtensorMap& tmm,
+                                       const DecodeArgs& a) {
   using L = DecodeSmem<P4, SBF16, MINS>;
   extern __shared__ uint8_t dyn_smem[];
   __shared__ __align__(8) uint64_t bars[8];  // full[0..3], empty[4..7]
@@ -443,14 +472,15 @@ qmm_decode(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUte
   if (warp == 4) {
     dv_producer<P4, SBF16, MINS>(&tmx, &tmw, &tms, &tmm, a, smem, full0, empty0, n0, u0, u1);
   } else {
-    // p4: 128 + zp as a bf16 pair; i8: 2^23 + 128 + zp
-    const uint32_t zb = 0x4300u | (uint32_t)a.zp;  // exact for zp <= 15
+    // p4: 128 + zp as a bf16 pair (K5: 128, the raw nibbles); i8: 2^23 + 128 + zp
+    const uint32_t zb = 0x4300u | (uint32_t)(GDOT ? 0 : a.zp);  // exact for zp <= 15
     const uint32_t zp2 = zb | (zb << 16);
     const float ibase = 8388608.f + 128.f + (float)a.zp;
     for (int j = kw; j < u1 - u0; j += 2) {
       const int slot = j % L::STAGES;
       mbar_wait(full0 + 8 * slot, (j / L::STAGES) & 1);
-      dv_consume<P4, SBF16, MINS, NB8>(smem + slot * L::STAGE, 64 * cw, a.gs, zp2, ibase, acc);
+      dv_consume<P4, SBF16, MINS, NB8, GDOT>(smem + slot * L::STAGE, 64 * cw, a.gs, zp2, ibase,
+                                             acc, GDOT ? (float)a.zp : 0.f);
       __syncwarp();
       if (lane == 0) mbar_arrive(empty0 + 8 * slot);
     }
@@ -498,115 +528,22 @@ qmm_decode(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUte
   if (C > 1) cluster_sync_all();  // no CTA leaves while another reads its tile
 }
 
-// ----------------------------------------------------------------------------
-// host side: the tensor maps (hopper.cuh's make_map) and the cluster launch
-
-// the decode GEMV on planes qs/sc/mn (K7: layer *lidx of n_layers stacked
-// ones, qs_ls / s_ls bytes apart), K split over a cluster of `cluster` CTAs
-// (the wrapper's decode_plan). Returns 0 or an error code; the launch's
-// own error is returned too.
+// K1/K2/K7's decode GEMV
 template <bool P4, bool SBF16, bool MINS, int NB8>
-int launch_decode_t(cudaStream_t st, const __nv_bfloat16* x, int B, int K, const uint8_t* qs,
-                    const void* sc, const void* mn, void* y, int N, int gs, int zp, int cluster,
-                    int out_bf16, const int* lidx, long long qs_ls, long long s_ls,
-                    int n_layers) {
-  using L = DecodeSmem<P4, SBF16, MINS>;
-  auto kern = qmm_decode<P4, SBF16, MINS, NB8>;
-  static bool attr = false;
-  if (!attr) {
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
-    cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    attr = true;
-  }
-  const int R = P4 ? K / 2 : K, G = K / gs, units = (K + DV_UNIT_K - 1) / DV_UNIT_K;
-  if (cluster < 1 || cluster > DV_MAX_CLUSTER || cluster > units) return (int)cudaErrorInvalidValue;
-  const int upr = (units + cluster - 1) / cluster;
-  const long long L_ = n_layers < 1 ? 1 : n_layers;
-  DecodeArgs a{qs, sc, mn, y, lidx, lidx ? qs_ls : (long long)R * N,
-               lidx ? s_ls : (long long)G * N * L::ES, B, K, N, gs, zp, upr, N % 16 == 0,
-               out_bf16};
-
-  CUtensorMap mx, mw, ms, mm;
-  memset(&mw, 0, sizeof(mw));
-  memset(&ms, 0, sizeof(ms));
-  memset(&mm, 0, sizeof(mm));
-  {
-    const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)B};
-    const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
-    const cuuint32_t box[2] = {64, (cuuint32_t)(8 * NB8)};
-    if (int rc = make_map(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, dims, strides, box,
-                                 CU_TENSOR_MAP_SWIZZLE_128B))
-      return rc;
-  }
-  if (a.tma_w) {
-    const cuuint64_t wd[3] = {(cuuint64_t)N, (cuuint64_t)R, (cuuint64_t)L_};
-    const cuuint64_t wst[2] = {(cuuint64_t)N, (cuuint64_t)a.qs_ls};
-    const cuuint32_t wb[3] = {DV_TILE_N, (cuuint32_t)L::W_ROWS, 1};
-    if (int rc = make_map(&mw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, qs, wd, wst, wb,
-                                 CU_TENSOR_MAP_SWIZZLE_128B))
-      return rc;
-    const CUtensorMapDataType sdt =
-        SBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-    const cuuint64_t sd[3] = {(cuuint64_t)N, (cuuint64_t)G, (cuuint64_t)L_};
-    const cuuint64_t sst[2] = {(cuuint64_t)N * L::ES, (cuuint64_t)a.s_ls};
-    const cuuint32_t sb[3] = {DV_TILE_N, (cuuint32_t)(P4 ? 2 : DV_UNIT_K / gs), 1};
-    if (int rc = make_map(&ms, sdt, 3, sc, sd, sst, sb, CU_TENSOR_MAP_SWIZZLE_NONE))
-      return rc;
-    if (MINS)
-      if (int rc = make_map(&mm, sdt, 3, mn, sd, sst, sb, CU_TENSOR_MAP_SWIZZLE_NONE))
-        return rc;
-  }
-  cudaLaunchConfig_t cfg;
-  memset(&cfg, 0, sizeof(cfg));
-  cfg.gridDim = dim3(cluster, (N + DV_TILE_N - 1) / DV_TILE_N, 1);
-  cfg.blockDim = dim3(DV_THREADS, 1, 1);
-  cfg.dynamicSmemBytes = L::BYTES;
-  cfg.stream = st;
-  cudaLaunchAttribute at[1];
-  at[0].id = cudaLaunchAttributeClusterDimension;
-  at[0].val.clusterDim.x = cluster;
-  at[0].val.clusterDim.y = 1;
-  at[0].val.clusterDim.z = 1;
-  cfg.attrs = at;
-  cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, kern, mx, mw, ms, mm, a);
+__global__ void __launch_bounds__(DV_THREADS, NB8 == 1 ? 3 : 2)
+qmm_decode(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
+           const __grid_constant__ CUtensorMap tms, const __grid_constant__ CUtensorMap tmm,
+           const DecodeArgs a) {
+  dv_cta<P4, SBF16, MINS, NB8, false>(tmx, tmw, tms, tmm, a);
 }
 
-template <bool P4, bool SBF16, bool MINS>
-int launch_decode_nb(cudaStream_t st, const __nv_bfloat16* x, int B, int K, const uint8_t* qs,
-                     const void* sc, const void* mn, void* y, int N, int gs, int zp,
-                     int cluster, int out_bf16, const int* lidx, long long qs_ls, long long s_ls,
-                     int n_layers) {
-  if (B <= 8)
-    return launch_decode_t<P4, SBF16, MINS, 1>(st, x, B, K, qs, sc, mn, y, N, gs, zp, cluster,
-                                               out_bf16, lidx, qs_ls, s_ls, n_layers);
-  return launch_decode_t<P4, SBF16, MINS, 2>(st, x, B, K, qs, sc, mn, y, N, gs, zp, cluster,
-                                             out_bf16, lidx, qs_ls, s_ls, n_layers);
-}
-
-// K1/K2 (K7 with lidx) at B <= 16 on any planes: the launch both entry points share
-inline int decode_any(const void* x, const void* qs, const void* scales, const void* mins,
-                      void* y, int B, int K, int N, int gs, int zp, int p4, int scales_bf16,
-                      int cluster, int out_bf16, const int* lidx, long long qs_ls,
-                      long long s_ls, int n_layers, void* stream) {
-  if (B < 1 || B > DV_MAX_B) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(x);
-  const uint8_t* q = reinterpret_cast<const uint8_t*>(qs);
-  const bool has_m = mins != nullptr;
-  int rc = 0;
-#define DV_RUN(P, S, M)                                                                     \
-  rc = launch_decode_nb<P, S, M>(st, xb, B, K, q, scales, mins, y, N, gs, zp, cluster,      \
-                                 out_bf16, lidx, qs_ls, s_ls, n_layers)
-  if (p4) {
-    if (scales_bf16) { if (has_m) DV_RUN(true, true, true); else DV_RUN(true, true, false); }
-    else { if (has_m) DV_RUN(true, false, true); else DV_RUN(true, false, false); }
-  } else {
-    if (scales_bf16) { if (has_m) DV_RUN(false, true, true); else DV_RUN(false, true, false); }
-    else { if (has_m) DV_RUN(false, false, true); else DV_RUN(false, false, false); }
-  }
-#undef DV_RUN
-  return rc != 0 ? rc : (int)cudaGetLastError();
+// K5 (and K7's K5 variant): the same CTA on p4 planes, group-factored
+template <bool SBF16, bool MINS, int NB8>
+__global__ void __launch_bounds__(DV_THREADS, NB8 == 1 ? 3 : 2)
+qmm_decode_gdot(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
+                const __grid_constant__ CUtensorMap tms, const __grid_constant__ CUtensorMap tmm,
+                const DecodeArgs a) {
+  dv_cta<true, SBF16, MINS, NB8, true>(tmx, tmw, tms, tmm, a);
 }
 
 }  // namespace

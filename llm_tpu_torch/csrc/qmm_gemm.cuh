@@ -71,7 +71,6 @@
 #include <string.h>
 
 #include "hopper.cuh"
-#include "qmm_gemv.cuh"  // sm_count
 
 namespace {
 

@@ -1,6 +1,7 @@
-// The GEMV loop of K5 (qmm.cu, qmm_stacked.cu), of every phase of the
-// chained kernel K6 (qmm_chain.cu) and of the S1 probes (qmm_probe.cu).
-// K1/K2/K7's decode GEMV no longer uses it (qmm_decode.cuh).
+// The GEMV loop of the S1 probes (qmm_probe.cu) alone: no production
+// kernel runs it. K1/K2/K7 and K5 run qmm_decode.cuh's decode GEMV, K6 the
+// same CTA body (qmm_chain.cu); this loop was K1's decode GEMV when S1 was
+// ported, and K5's and K6's after that.
 //
 //   y[b,n] += sum_{k in the block's K range} x[b,k] * (q[k,n] - zp) * s[k/gs,n]
 //             - sum_g xsum[b,g] * m[g,n]
@@ -9,23 +10,13 @@
 // 8 columns per warp, each lane streaming one 8-byte word of a plane row)
 // over a range of K "units" (32 plane rows each), for up to 4 rows of x.
 // The activations of the K range are staged once in shared memory through
-// a loader functor xl(b, k), which is where K5 reads bf16 rows and K6
-// applies its phase boundary (RMSNorm, residual add, SwiGLU). The 8 warps
-// reduce in shared memory and the sums land in y, by atomics when K is
-// split over CTAs.
+// a loader functor xl(b, k). The 8 warps reduce in shared memory and the
+// sums land in y, by atomics when K is split over CTAs.
 //
-// GDOT (K5, p4 only) is the group-factored form of the same sum: a lane
-// keeps a per-group partial of x . q on the raw nibbles (no zero point, no
-// scale), multiplies it by s[g] once per group, and the zero-point and
-// mins terms become rank-G corrections from the group sums of x, rounded
-// to bf16 as the TPU kernel rounds them (llm_tpu/ops/pallas_qmm.py
-// _gdot_kernel). It saves one multiply per weight element; the planes it
-// reads, and so its bytes bound, are K1's.
-//
-// MODE (default GV_FULL, which is the GEMV above; K5/K6 use nothing else)
-// turns the same CTA into one of the old decode GEMV's probes (S1), which
+// MODE (default GV_FULL, which is the GEMV above) turns the same CTA into
+// one of the old decode GEMV's probes (S1), which
 // replace the TPU package's timing probes scripts/kbench.py:56 and
-// scripts/kbench3.py:54/:89. They run on K5's grid over p4 planes and write
+// scripts/kbench3.py:54/:89. They run on the loop's grid over p4 planes and write
 // f32 [GV_PROBE_ROWS = 3, N], to which every byte they load contributes, so
 // that no load can be dropped by the compiler. Each kind of load has a row
 // of its own, so that each is checked at a tolerance of its own size (the
@@ -38,7 +29,7 @@
 //   row 2, the sum of the staged x (GV_DMA, GV_DEQ).
 // GV_QS streams the packed qs only; GV_DMA also streams scales and mins and
 // stages x as the GEMV does; a row a mode does not feed is 0. A launch per
-// 4 rows of x streams the planes once, as K5's does, so every plane term
+// 4 rows of x streams the planes once, as the loop does, so every plane term
 // counts once per such launch.
 //
 // p4 layout: within each 256-row pack tile of K, packed row t holds k=t in
@@ -49,6 +40,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"  // sm_count
 
 namespace {
 
@@ -62,10 +55,6 @@ constexpr int GV_PROBE_ROWS = 3;            // rows of a probe's output
 
 // what a gemv_block call computes (the probes are S1's, see above)
 enum { GV_FULL = 0, GV_QS = 1, GV_DMA = 2, GV_DEQ = 3 };
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
 
 template <bool BF16>
 __device__ __forceinline__ float ld_group(const void* p, size_t i) {
@@ -113,7 +102,7 @@ __device__ __forceinline__ int unit_k(int u, int r) {
   return u * 32 + r;
 }
 
-// K5's (and the probes') loader: bf16 rows of x with leading dimension ld
+// the probes' loader: bf16 rows of x with leading dimension ld
 struct Bf16Rows {
   const __nv_bfloat16* x;
   int ld;
@@ -181,14 +170,13 @@ __device__ __forceinline__ void probe_stream(
 // GV_STAGE / 16, both in shared memory; every thread of the CTA calls this.
 // MODE other than GV_FULL: an S1 probe (file comment), which writes rows
 // 0..GV_PROBE_ROWS-1.
-template <int NB, bool P4, bool SBF16, bool MINS, bool GDOT, int MODE = GV_FULL, class XL>
+template <int NB, bool P4, bool SBF16, bool MINS, int MODE = GV_FULL, class XL>
 __device__ __forceinline__ void gemv_block(
     const XL& xl, int B, const uint8_t* __restrict__ qs, const void* __restrict__ sc,
     const void* __restrict__ mn, float* __restrict__ y, int N, int gs, int zp,
     int u0, int nu, int n0, bool atomic_out, float* xs, float* xsum) {
   constexpr int UK = P4 ? 64 : 32;  // k values per unit
-  static_assert(!GDOT || P4, "the group-factored path reads p4 planes");
-  static_assert(MODE == GV_FULL || (P4 && !GDOT), "the probes read p4 planes");
+  static_assert(MODE == GV_FULL || P4, "the probes read p4 planes");
   constexpr bool PROBE_X = MODE == GV_DMA || MODE == GV_DEQ;  // x's sums feed the probe
   // rows of acc: x's rows, or a probe's output rows (at least NB, so that
   // the GEMV's code, unreached in a probe, indexes within acc)
@@ -204,8 +192,7 @@ __device__ __forceinline__ void gemv_block(
     __syncthreads();
   }
   const int gpu = UK / gs;  // groups per unit (2 for p4 and i8/gs16, 1 for i8/gs32)
-  const bool zp_corr = GDOT && zp != 0;
-  if (MODE != GV_QS && (MINS || zp_corr || PROBE_X)) {
+  if (MODE != GV_QS && (MINS || PROBE_X)) {
     for (int i = threadIdx.x; i < NB * nu * gpu; i += GV_THREADS) {
       const float* src = xs + (size_t)i * gs;
       float s = 0.f;
@@ -246,13 +233,6 @@ __device__ __forceinline__ void gemv_block(
         else g = (u * 32 + half * 16) / gs;
         float s[LANE_COLS];
         ld_group8<SBF16>(sc, (size_t)g * N + col, vec, nvalid, s);
-        float part[GDOT ? NB : 1][LANE_COLS];  // K5: x . q of this group
-        if (GDOT) {
-#pragma unroll
-          for (int b = 0; b < NB; ++b)
-#pragma unroll
-            for (int c = 0; c < LANE_COLS; ++c) part[b][c] = 0.f;
-        }
         const int r_lo = P4 ? 0 : half * 16;
         const int r_hi = P4 ? 32 : half * 16 + 16;
 #pragma unroll 8
@@ -275,29 +255,17 @@ __device__ __forceinline__ void gemv_block(
 #pragma unroll
           for (int c = 0; c < LANE_COLS; ++c) {
             uint32_t byte = (w[c >> 2] >> (8 * (c & 3))) & 0xFFu;
-            if (GDOT) {
-              const float q = (float)(half ? (byte >> 4) : (byte & 15u));
-#pragma unroll
-              for (int b = 0; b < NB; ++b) part[b][c] = fmaf(xv[b], q, part[b][c]);
+            float q;
+            if (P4) q = (float)(half ? (byte >> 4) : (byte & 15u)) - fzp;
+            else q = (float)(int8_t)byte - fzp;
+            const float wv = q * s[c];
+            if constexpr (MODE == GV_DEQ) {
+              acc[1][c] += wv;
             } else {
-              float q;
-              if (P4) q = (float)(half ? (byte >> 4) : (byte & 15u)) - fzp;
-              else q = (float)(int8_t)byte - fzp;
-              const float wv = q * s[c];
-              if constexpr (MODE == GV_DEQ) {
-                acc[1][c] += wv;
-              } else {
 #pragma unroll
-                for (int b = 0; b < NB; ++b) acc[b][c] = fmaf(xv[b], wv, acc[b][c]);
-              }
+              for (int b = 0; b < NB; ++b) acc[b][c] = fmaf(xv[b], wv, acc[b][c]);
             }
           }
-        }
-        if (GDOT) {
-#pragma unroll
-          for (int b = 0; b < NB; ++b)
-#pragma unroll
-            for (int c = 0; c < LANE_COLS; ++c) acc[b][c] = fmaf(part[b][c], s[c], acc[b][c]);
         }
         if constexpr (MODE == GV_DEQ) {
           // - gs * m per group (each weight's - m); the group's x sums
@@ -311,27 +279,14 @@ __device__ __forceinline__ void gemv_block(
             if (MINS) acc[1][c] = fmaf(-(float)gs, m[c], acc[1][c]);
             acc[2][c] += xt;
           }
-        } else if ((MINS || zp_corr) && (P4 || gs == 16 || half == 0)) {
+        } else if (MINS && (P4 || gs == 16 || half == 0)) {
           float m[LANE_COLS];
-          if (MINS) ld_group8<SBF16>(mn, (size_t)g * N + col, vec, nvalid, m);
-#pragma unroll
-          for (int c = 0; c < LANE_COLS; ++c) {
-            // K5 rounds the corrections' operands to bf16, as the TPU's
-            // rank-G dots do
-            if (GDOT && MINS) m[c] = round_bf16(m[c]);
-            if (GDOT) s[c] = round_bf16(s[c]);
-          }
+          ld_group8<SBF16>(mn, (size_t)g * N + col, vec, nvalid, m);
 #pragma unroll
           for (int b = 0; b < NB; ++b) {
-            float xg = xsum[(b * nu + ul) * gpu + gl];
-            if (GDOT) xg = round_bf16(xg);
+            const float xg = xsum[(b * nu + ul) * gpu + gl];
 #pragma unroll
-            for (int c = 0; c < LANE_COLS; ++c) {
-              float v = acc[b][c];
-              if (MINS) v = fmaf(-xg, m[c], v);
-              if (zp_corr) v = fmaf(-fzp * xg, s[c], v);
-              acc[b][c] = v;
-            }
+            for (int c = 0; c < LANE_COLS; ++c) acc[b][c] = fmaf(-xg, m[c], acc[b][c]);
           }
         }
       }
@@ -376,17 +331,6 @@ inline GemvSplit gemv_split(int K, int N, bool p4, int target) {
   sp.upc = min(upc, GV_STAGE / (GV_MAX_NB * UK));
   sp.ksplit = (n_units + sp.upc - 1) / sp.upc;
   return sp;
-}
-
-inline int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 132;
-  }
-  return n;
 }
 
 }  // namespace

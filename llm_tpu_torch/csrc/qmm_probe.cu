@@ -5,7 +5,7 @@
 // scripts/kbench.py:56 / scripts/kbench3.py:89 _probe_kernel (mode "dma":
 // stream every plane; mode "deq": stream and dequantize, no dot). Each is
 // the GEMV loop of qmm_gemv.cuh (gemv_block: K1's decode GEMV when S1 was
-// ported, K5's and K6's now; K1 has its own, qmm_decode.cuh) with its MODE
+// ported, later K5's and K6's; none of them runs it now) with its MODE
 // set, on that loop's grid and split (gemv_split, one launch per 4 rows of
 // x), so that the times of GV_QS, GV_DMA, GV_DEQ and the full loop split
 // its time into streaming the packed nibbles, streaming everything it
@@ -32,7 +32,7 @@ qmm_probe(const __nv_bfloat16* __restrict__ x, int B, int K,
   __shared__ float xsum[GV_STAGE / 16];
   const int n_units = K / 64;
   const int u0 = blockIdx.y * upc;
-  gemv_block<NB, true, true, MINS, false, MODE>(Bf16Rows{x, K}, B, qs, sc, mn, y, N, 32, zp,
+  gemv_block<NB, true, true, MINS, MODE>(Bf16Rows{x, K}, B, qs, sc, mn, y, N, 32, zp,
                                                  u0, min(upc, n_units - u0),
                                                  blockIdx.x * GV_TILE_N, atomic_out != 0, xs,
                                                  xsum);

@@ -1,15 +1,14 @@
-// K7 for Hopper (sm_90a): K1/K2/K5 on one layer of depth-stacked planes,
-// the layer index read on the card. Replaces the stacked mode of the TPU
-// kernels (llm_tpu/ops/pallas_qmm.py::qmm_pallas(lidx=...), :481 for K1/K2
-// and :334 for K5). The kernels are qmm_kernels.cuh's (K5's decode GEMV,
-// STACKED set) and qmm_gemm.cuh's (prefill, reading the layer index on the
-// card); their own library keeps K1/K2/K5's code as it was and builds in
-// parallel. K7 at B <= 16 without gdot is qmm_decode.cu's
-// qmm_decode_stacked_launch.
+// K7 for Hopper (sm_90a) at B > 16: K1/K2 on one layer of depth-stacked
+// planes, the layer index read on the card. Replaces the stacked mode of the
+// TPU kernels (llm_tpu/ops/pallas_qmm.py::qmm_pallas(lidx=...), :481). The
+// kernel is qmm_gemm.cuh's (prefill, reading the layer index on the card);
+// its own library keeps K1/K2's code as it was and builds in parallel. K7
+// at B <= 16, and its K5 variant (:334), are qmm_decode.cu's
+// qmm_decode_stacked_launch and qmm_gdot_decode_stacked_launch.
 
 #include "qmm_kernels.cuh"
 
-// K7: qmm_launch (B > 16) / qmm_gdot_launch on layer *lidx (an int32 in device
+// K7: qmm_launch (B > 16) on layer *lidx (an int32 in device
 // memory) of stacked planes: qs, scales and mins are the bases of [L, ...]
 // allocations, qs_ls and s_ls the bytes of one layer's qs and of one
 // layer's scales (= mins), n_layers the stack's depth (the prefill GEMM's
@@ -25,10 +24,3 @@ extern "C" int qmm_stacked_launch(const void* x, const void* qs, const void* sca
                        stream);
 }
 
-extern "C" int qmm_gdot_stacked_launch(const void* x, const void* qs, const void* scales,
-                                       const void* mins, void* y, int B, int K, int N,
-                                       int zp, int scales_bf16, long long qs_ls,
-                                       long long s_ls, const void* lidx, void* stream) {
-  return gdot_any<true>(x, qs, scales, mins, y, B, K, N, zp, scales_bf16,
-                        Stack{reinterpret_cast<const int*>(lidx), qs_ls, s_ls}, stream);
-}

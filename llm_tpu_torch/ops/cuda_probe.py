@@ -5,8 +5,8 @@ scripts/kbench.py / kbench3.py::probe (_probe_kernel, modes "dma" and
 dequantizing.
 
 `probe_cuda(mode, x, qt)` launches csrc/qmm_probe.cu: the GEMV loop of
-csrc/qmm_gemv.cuh (K5's and K6's, and K1's before K1's decode GEMV moved
-to csrc/qmm_decode.cu) on that loop's grid with its MODE set, over p4
+csrc/qmm_gemv.cuh (K1's decode GEMV when S1 was ported, later K5's and
+K6's; none of them runs it now) on that loop's grid with its MODE set, over p4
 planes with bf16 scales, x bf16 [B <= 16, K]. Each mode writes f32 [3, N],
 to which every byte it loads contributes (the compiler can drop no load),
 one row for each kind of load; per column n, with C the number of the

@@ -12,20 +12,21 @@ group sums of the rounded x. K5 computes the same sum as the TPU's gdot
 kernel does: per 32-group the dot of x with the raw nibbles, times s[g] in
 f32, then the mins and zero-point terms from the group sums of x, their
 operands rounded to the compute dtype. `qmm_plain` / `qmm_gdot_plain` are
-these functions step by step in PyTorch. `qmm_cuda` launches, for K1/K2
-at B <= 16, the decode GEMV of csrc/qmm_decode.cu (a library of its own:
-mma.sync on exact integer operands over a TMA ring, K split over a thread
-block cluster whose size `decode_plan` chooses, y written in the caller's
-dtype); at B > 16 the prefill GEMM of csrc/qmm.cu (csrc/qmm_gemm.cuh,
-whose K split over CTAs `gemm_split` chooses); and K5 from csrc/qmm.cu.
-K7 computes exactly what K1/K2/K5 compute on layer idx of a StackedWeight:
-its plain version is theirs on the layer's copy (`qmm_stacked_plain`), and
+these functions step by step in PyTorch. `qmm_cuda` launches, at B <= 16,
+the decode GEMV of csrc/qmm_decode.cu (a library of its own: mma.sync on
+exact integer operands over a TMA ring, K split over a thread block
+cluster whose size `decode_plan` chooses, y written in the caller's
+dtype), K1/K2's kernel or, with gdot, K5's, the same CTA with the
+group-factored sum; at B > 16 the prefill GEMM of csrc/qmm.cu
+(csrc/qmm_gemm.cuh, whose K split over CTAs `gemm_split` chooses). K7
+computes exactly what K1/K2/K5 compute on layer idx of a StackedWeight: its
+plain version is theirs on the layer's copy (`qmm_stacked_plain`), and
 `qmm_stacked_cuda` launches the same kernels (the decode GEMV's stacked
-entry point; the GEMM and K5 built apart, from csrc/qmm_stacked.cu) with
-the stacked base pointers, the per-layer strides and a pointer to the
-device index, which every CTA reads once. `quant_matmul` dispatches on the
-device of x: CPU tensors take the plain version, CUDA tensors the kernel
-(which raises rather than fall back).
+entry points; the GEMM built apart, from csrc/qmm_stacked.cu) with the
+stacked base pointers, the per-layer strides and a pointer to the device
+index, which every CTA reads once. `quant_matmul` dispatches on the device
+of x: CPU tensors take the plain version, CUDA tensors the kernel (which
+raises rather than fall back).
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ from . import cuda_build
 # launches of each kernel, counted where the wrapper launches it
 LAUNCHES = {"K1": 0, "K2": 0, "K5": 0, "K7": 0}
 # rows up to which the reference takes the group-factored path (and up to
-# which K1/K2/K7 run the decode GEMV, csrc/qmm_decode.cu)
+# which K1/K2/K5/K7 run the decode GEMV, csrc/qmm_decode.cu)
 GDOT_MAX_B = 16
 # the decode GEMV: a CTA computes 128 columns of y over stages of 128 k; the
 # CTAs of one column tile (a thread block cluster, at most 16) split K
@@ -184,15 +185,16 @@ def qmm_stacked_plain(x: torch.Tensor, sw: StackedWeight, cdtype=torch.bfloat16,
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# entry points of each library: K1/K2 at B > 16 and K5 (csrc/qmm.cu), K7's
-# (csrc/qmm_stacked.cu), K1/K2/K7 at B <= 16 (csrc/qmm_decode.cu)
+# entry points of each library: K1/K2 at B > 16 (csrc/qmm.cu), K7's
+# (csrc/qmm_stacked.cu), K1/K2/K5/K7 at B <= 16 (csrc/qmm_decode.cu)
 _ARGTYPES = {"qmm_decode": {"qmm_decode_launch": [_P] * 5 + [_I] * 9 + [_P],
                             "qmm_decode_stacked_launch": [_P] * 5 + [_I] * 9
+                            + [_L, _L, _I, _P, _P],
+                            "qmm_gdot_decode_launch": [_P] * 5 + [_I] * 7 + [_P],
+                            "qmm_gdot_decode_stacked_launch": [_P] * 5 + [_I] * 7
                             + [_L, _L, _I, _P, _P]},
-             "qmm": {"qmm_launch": [_P] * 5 + [_I] * 8 + [_P],
-                     "qmm_gdot_launch": [_P] * 5 + [_I] * 5 + [_P]},
-             "qmm_stacked": {"qmm_stacked_launch": [_P] * 5 + [_I] * 8 + [_L, _L, _I, _P, _P],
-                             "qmm_gdot_stacked_launch": [_P] * 5 + [_I] * 5 + [_L, _L, _P, _P]}}
+             "qmm": {"qmm_launch": [_P] * 5 + [_I] * 8 + [_P]},
+             "qmm_stacked": {"qmm_stacked_launch": [_P] * 5 + [_I] * 8 + [_L, _L, _I, _P, _P]}}
 
 
 def _lib(name: str = "qmm"):
@@ -232,16 +234,19 @@ def check_planes(qt: QTensor, B: int, K: int) -> None:
                          f"gs={qt.group_size} K={K} B={B}")
 
 
-def _check_decode(qt: QTensor) -> None:
+def _check_decode(qt: QTensor, gdot: bool = False) -> None:
     """The decode GEMV's integer operands: q - zp exact in bf16 (p4: 128 + zp
-    as a bf16 of the nibbles' exponent; i8: |q - zp| <= 256)."""
+    as a bf16 of the nibbles' exponent; i8: |q - zp| <= 256). K5 applies
+    either the mins or the zero-point correction (no GGUF type has both)."""
     if not (0 <= qt.zp <= 15 if qt.layout == "p4" else -128 <= qt.zp <= 128):
         raise ValueError(f"qmm_cuda: zero point {qt.zp} outside the decode GEMV's range")
+    if gdot and qt.mins is not None and qt.zp:
+        raise ValueError("qmm_cuda: K5 takes mins or a zero point, not both")
 
 
 def _out(B: int, N: int, x: torch.Tensor, out_dtype) -> tuple[torch.Tensor, int]:
-    """y for the decode GEMV, which writes f32 or bf16 (other dtypes: f32,
-    cast by the caller), and whether it is bf16."""
+    """y for the decode GEMV (K1/K2/K5/K7 at B <= 16), which writes f32 or
+    bf16 (other dtypes: f32, cast by the caller), and whether it is bf16."""
     bf16 = out_dtype == torch.bfloat16
     return torch.empty((B, N), dtype=torch.bfloat16 if bf16 else torch.float32,
                        device=x.device), int(bf16)
@@ -253,8 +258,8 @@ def _cast(y: torch.Tensor, out_dtype) -> torch.Tensor:
 
 def qmm_cuda(x: torch.Tensor, qt: QTensor, gdot: bool = False, out_dtype=None) -> torch.Tensor:
     """Launch K1 (p4) or K2 (i8), or K5 with gdot. x bf16 [B, K] on the card;
-    y in out_dtype (f32 when None): at B <= 16 without gdot the kernel
-    writes bf16 or f32 itself, elsewhere f32 is cast."""
+    y in out_dtype (f32 when None): at B <= 16 the kernel writes bf16 or f32
+    itself, above it f32 is cast."""
     return _qmm_launch(x, qt, gdot, None, out_dtype)
 
 
@@ -280,10 +285,12 @@ def _qmm_launch(x: torch.Tensor, qt: QTensor, gdot: bool, split: int | None,
     sbf16 = int(qt.scales.dtype == torch.bfloat16)
     split = _split(x, N, qt.layout) if split is None else split
     if gdot:
-        y = torch.empty((B, N), dtype=torch.float32, device=x.device)
-        rc = _lib().qmm_gdot_launch(x.data_ptr(), qt.qs.data_ptr(), qt.scales.data_ptr(),
-                                    mins, y.data_ptr(), B, K, N, qt.zp, sbf16, stream)
-        cuda_build.check(rc, "qmm_gdot_launch")
+        _check_decode(qt, True)
+        y, obf16 = _out(B, N, x, out_dtype)
+        rc = _lib("qmm_decode").qmm_gdot_decode_launch(
+            x.data_ptr(), qt.qs.data_ptr(), qt.scales.data_ptr(), mins, y.data_ptr(), B, K, N,
+            qt.zp, sbf16, split, obf16, stream)
+        cuda_build.check(rc, "qmm_gdot_decode_launch")
         LAUNCHES["K5"] += 1
         return _cast(y, out_dtype)
     if B <= GDOT_MAX_B:
@@ -335,10 +342,12 @@ def qmm_stacked_cuda(x: torch.Tensor, sw: StackedWeight, gdot: bool = False,
     sbf16 = int(qt.scales.dtype == torch.bfloat16)
     p4 = int(qt.layout == "p4")
     if gdot:
-        y = torch.empty((B, N), dtype=torch.float32, device=x.device)
-        rc = _lib("qmm_stacked").qmm_gdot_stacked_launch(
+        _check_decode(layer, True)
+        y, obf16 = _out(B, N, x, out_dtype)
+        rc = _lib("qmm_decode").qmm_gdot_decode_stacked_launch(
             x.data_ptr(), qt.qs.data_ptr(), qt.scales.data_ptr(), mins, y.data_ptr(), B, K, N,
-            qt.zp, sbf16, qs_ls, s_ls, idx.data_ptr(), stream)
+            qt.zp, sbf16, _split(x, N, qt.layout), obf16, qs_ls, s_ls, qt.qs.shape[0],
+            idx.data_ptr(), stream)
     elif B <= GDOT_MAX_B:
         _check_decode(layer)
         y, obf16 = _out(B, N, x, out_dtype)

@@ -9,17 +9,18 @@ with its wrappers layer_tail and norm_mm and its gates).
 The dtype walk is the reference's (the unfused path's): h = x_res +
 cdtype(y1) rounded to cdtype, hn = cdtype(rms(f32 h) * gamma), cur =
 cdtype(silu(g) * u) from the f32 gu, out = h + cdtype(y3), or the f32 y
-cast to out_dtype. Each phase is the port's K1/K2 function (qmm_plain;
-the CUDA kernel shares their GEMV loop): weights dequantized in f32 and
-the mins correction in f32, where the TPU kernel rounds (q - zp) * s and
-the corrections' operands to bf16.
+cast to out_dtype. Each phase is the port's K1/K2 function (qmm_plain; the
+CUDA kernel runs the decode GEMV's CTA body, exact integer products with s
+and m applied per group in f32), where the TPU kernel rounds (q - zp) * s
+and the corrections' operands to bf16.
 
 `qmm_chain_plain` is the chain in plain PyTorch, `qmm_chain_cuda`
-launches csrc/qmm_chain.cu, and `qmm_chain` dispatches on the device of x:
-CPU tensors take the plain version, CUDA tensors the kernel (which raises
-rather than fall back). `layer_tail` / `norm_mm` return None where the
-geometry gate says no, on both devices alike, and the caller runs the
-unfused path.
+launches csrc/qmm_chain.cu (one cooperative launch of thread block
+clusters; `chain_plan` picks each phase's K split within a cluster), and
+`qmm_chain` dispatches on the device of x: CPU tensors take the plain
+version, CUDA tensors the kernel (which raises rather than fall back).
+`layer_tail` / `norm_mm` return None where the geometry gate says no, on
+both devices alike, and the caller runs the unfused path.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import torch.nn.functional as F
 
 from ..quant.qtensor import QTensor
 from . import cuda_build
-from .cuda_qmm import check_planes, qmm_plain
+from .cuda_qmm import DECODE_TILE_N, DECODE_UNIT_K, _check_decode, check_planes, qmm_plain
 from .norms import rms_norm
 
 # launches of the kernel, counted where the wrapper launches it
@@ -39,6 +40,16 @@ LAUNCHES = {"K6": 0}
 # rows the kernel takes: the chain serves decode steps (T <= 8)
 CHAIN_MAX_B = 8
 PRE = {"cast": 0, "norm": 1, "res_norm": 2, "swiglu": 3}
+EPI = {"f32": 0, "bf16": 1, "res": 2}
+# the kernel's grid: as many clusters of C CTAs as the card holds at once
+# (qmm_chain_clusters; two CTAs an SM), C one of CHAIN_CLUSTERS, picked with
+# each phase's K split by chain_plan
+CHAIN_CLUSTERS = (4, 6, 8)
+# chain_plan's cost of a work item beyond its stages, in stages (the ring's
+# fill and the group's reduction), fitted to tools/gemm_splits.py --chain on
+# an H100 (PERF.md)
+CHAIN_ITEM_UNITS = 4
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -108,91 +119,208 @@ def qmm_chain_plain(x: torch.Tensor, qts, gammas=(), x_res: torch.Tensor | None 
     return prev.to(out_dtype or cdtype)
 
 
-class _PhaseDesc(ctypes.Structure):
-    """csrc/qmm_chain.cu::PhaseDesc."""
-    _fields_ = [("qs", ctypes.c_void_p), ("scales", ctypes.c_void_p),
-                ("mins", ctypes.c_void_p), ("gamma", ctypes.c_void_p),
-                ("acc", ctypes.c_void_p)] + [
-        (n, ctypes.c_int) for n in ("K", "N", "gs", "zp", "p4", "scales_bf16", "pre",
-                                    "ntiles", "ksplit", "upc")]
+def _splits(units: int, cluster: int):
+    """The K splits a phase may take: divisors of the cluster size that
+    leave every CTA of a group at least one stage."""
+    for split in range(1, cluster + 1):
+        if cluster % split == 0 and (split - 1) * -(-units // split) < units:
+            yield split
+
+
+def _phase_plan(K: int, N: int, n_clusters: int, cluster: int) -> tuple[int, int, int]:
+    """(cost, split, last split) of one phase of K x N on n_clusters clusters
+    of `cluster` CTAs: the split CTAs of a group share a 128-column tile, a
+    cluster's cluster / split groups take that many tiles a round; the tiles
+    that the full rounds leave may take one more round at a larger split
+    (the last split), so that its few tiles spread over more CTAs. The cost
+    is the stages a CTA runs, a round's stages + CHAIN_ITEM_UNITS each. The
+    fewest; ties go to the smaller splits."""
+    tiles, units = -(-N // DECODE_TILE_N), -(-K // DECODE_UNIT_K)
+    splits = list(_splits(units, cluster))
+    best = None
+    for split in splits:
+        per_round = n_clusters * (cluster // split)
+        item = -(-units // split) + CHAIN_ITEM_UNITS
+        cands = [(-(-tiles // per_round) * item, split, split)]
+        full, rest = divmod(tiles, per_round)
+        cands += [(full * item + -(-units // last) + CHAIN_ITEM_UNITS, split, last)
+                  for last in splits if last > split and full and rest
+                  and rest <= n_clusters * (cluster // last)]
+        for cand in cands:
+            if best is None or cand[0] < best[0]:
+                best = cand
+    return best
+
+
+def chain_plan(dims, n_clusters: dict) -> tuple[int, tuple[int, ...], tuple[int, ...]]:
+    """(cluster size, each phase's K split, each phase's last split) for
+    phases of (K, N), given the clusters the card holds at once for each
+    cluster size ({C: clusters}): the cluster size whose phases cost the
+    fewest stages a CTA in all (_phase_plan), ties to the smaller."""
+    best = None
+    for cluster in sorted(n_clusters):
+        plans = [_phase_plan(K, N, n_clusters[cluster], cluster) for K, N in dims]
+        cost = sum(p[0] for p in plans)
+        if best is None or cost < best[0]:
+            best = (cost, cluster, tuple(p[1] for p in plans), tuple(p[2] for p in plans))
+    return best[1:]
+
+
+def chain_items(K: int, N: int, split: int, n_clusters: int, cluster: int, last=None):
+    """The work items of one phase as the kernel deals them: (cluster, rank,
+    round, tile, first stage, end stage) of every CTA that has one."""
+    last = split if last is None else last
+    tiles, units = -(-N // DECODE_TILE_N), -(-K // DECODE_UNIT_K)
+    per_round = n_clusters * (cluster // split)
+    full = -(-tiles // per_round) if last == split else tiles // per_round
+    for k in range(full + (last != split)):
+        sp = split if k < full else last
+        upr = -(-units // sp)
+        for q in range(n_clusters):
+            for rank in range(cluster):
+                grp, kr = divmod(rank, sp)
+                u0 = min(units, kr * upr)
+                u1 = min(units, u0 + upr)
+                tile = min(k, full) * per_round + q * (cluster // sp) + grp
+                if tile < tiles:
+                    yield q, rank, k, tile, u0, u1
+
+
+class _ChainPhase(ctypes.Structure):
+    """csrc/qmm_chain.cu::ChainPhase."""
+    _fields_ = [(n, ctypes.c_void_p) for n in ("qs", "scales", "mins", "gamma", "src", "x",
+                                               "y", "res")] + [
+        (n, ctypes.c_int) for n in ("K", "N", "gs", "zp", "p4", "scales_bf16", "pre", "epi",
+                                    "split", "split_last")]
+
+
+_CLUSTERS: dict = {}
 
 
 def _lib():
     lib = cuda_build.load("qmm_chain")
     fn = lib.qmm_chain_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 + [
-            ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.qmm_chain_grid.argtypes = [ctypes.c_int]
-        lib.qmm_chain_grid.restype = ctypes.c_int
+        lib.qmm_chain_clusters.argtypes = [ctypes.c_int]
+        lib.qmm_chain_clusters.restype = ctypes.c_int
     return lib
 
 
-def chain_grid(B: int) -> int:
-    """CTAs of K6's cooperative grid for B rows on this card."""
-    return _lib().qmm_chain_grid(B)
+def chain_clusters() -> dict:
+    """{cluster size: clusters the card holds at once} for K6's grid, every
+    CTA resident."""
+    if not _CLUSTERS:
+        for c in CHAIN_CLUSTERS:
+            n = _lib().qmm_chain_clusters(c)
+            if n < 1:
+                raise RuntimeError(f"qmm_chain_clusters: the card holds no cluster of {c} of "
+                                   "K6's CTAs")
+            _CLUSTERS[c] = n
+    return _CLUSTERS
+
+
+def launch_plan(qts) -> tuple[int, tuple[int, ...], tuple[int, ...]]:
+    """The (cluster size, splits, last splits) K6 launches these phases with
+    on this card."""
+    return chain_plan(tuple((qt.in_features, qt.out_features) for qt in qts), chain_clusters())
 
 
 def qmm_chain_cuda(x: torch.Tensor, qts, gammas=(), x_res: torch.Tensor | None = None, *,
                    pres, eps: float, final: str = "cast", out_dtype=None) -> torch.Tensor:
     """Launch K6 on the card: x bf16 [B, K0] (B <= 8), the chain in bf16."""
+    return _chain_launch(x, qts, gammas, x_res, pres=pres, eps=eps, final=final,
+                         out_dtype=out_dtype)
+
+
+def _chain_launch(x, qts, gammas=(), x_res=None, *, pres, eps, final="cast", out_dtype=None,
+                  plan=None):
+    """qmm_chain_cuda with the (cluster size, splits[, last splits]) given
+    (chain_plan's when None; tools/gemm_splits.py times the others)."""
     B = x.shape[0]
-    out_dtype = out_dtype or torch.bfloat16
-    if not x.is_cuda or x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError("qmm_chain_cuda: x must be a contiguous bf16 CUDA tensor")
-    if not 1 <= B <= CHAIN_MAX_B or not 1 <= len(qts) <= 3 or len(pres) != len(qts):
-        raise ValueError(f"qmm_chain_cuda: B={B} (1..{CHAIN_MAX_B}), {len(qts)} phases (1..3)")
-    if out_dtype not in (torch.bfloat16, torch.float32) or (
-            final == "add_res" and out_dtype != torch.bfloat16):
+    bf = torch.bfloat16
+    out_dtype = out_dtype or bf
+    if not x.is_cuda or x.dtype != bf or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("qmm_chain_cuda: x must be a contiguous, 16-byte aligned bf16 CUDA "
+                         "tensor")
+    P = len(qts)
+    if not 1 <= B <= CHAIN_MAX_B or not 1 <= P <= 3 or len(pres) != P:
+        raise ValueError(f"qmm_chain_cuda: B={B} (1..{CHAIN_MAX_B}), {P} phases (1..3)")
+    if out_dtype not in (bf, torch.float32) or (final == "add_res" and out_dtype != bf):
         raise ValueError(f"qmm_chain_cuda: out_dtype {out_dtype}")
     if not chain_fits(qts):
         raise ValueError("qmm_chain_cuda: a phase's N % 128 or K % 256 is not 0")
     if pres[0] not in ("cast", "norm") or any(p not in ("res_norm", "swiglu") for p in pres[1:]):
         raise ValueError(f"qmm_chain_cuda: boundaries {pres}: phase 0 reads x, the others "
                          "the previous phase")
-    gam = iter(gammas)
-    keep = []  # tensors the launch reads: alive until it is enqueued
     k_in = x.shape[1]
     for qt, pre in zip(qts, pres):
         k_in = k_in // 2 if pre == "swiglu" else k_in
         if qt.in_features != k_in:
             raise ValueError("qmm_chain_cuda: the phases' widths do not chain")
         check_planes(qt, B, k_in)
+        _check_decode(qt)
         k_in = qt.out_features
-    N0, N_last = qts[0].out_features, qts[-1].out_features
+    N0 = qts[0].out_features
     if "res_norm" in pres or final == "add_res":
-        if x_res is None or not x_res.is_cuda or x_res.dtype != torch.bfloat16 \
+        if x_res is None or not x_res.is_cuda or x_res.dtype != bf \
                 or not x_res.is_contiguous() or tuple(x_res.shape) != (B, N0):
             raise ValueError("qmm_chain_cuda: x_res must be a contiguous bf16 CUDA tensor "
                              "[B, N0]")
-    if final == "add_res" and N_last != N0:
-        raise ValueError("qmm_chain_cuda: the residual's width differs from the output's")
-    acc = torch.empty(sum(B * qt.out_features for qt in qts), dtype=torch.float32,
-                      device=x.device)
-    descs = (_PhaseDesc * len(qts))()
-    off = 0
-    for d, qt, pre in zip(descs, qts, pres):
-        g = None
+    if any(pres[p + 1] == "res_norm" and qts[p].out_features != N0 for p in range(P - 1)):
+        raise ValueError("qmm_chain_cuda: the residual's width differs from h's")
+    if final == "add_res" and ("res_norm" not in pres or qts[-1].out_features != N0):
+        raise ValueError("qmm_chain_cuda: add_res needs the h of a res_norm boundary and the "
+                         "residual's width")
+    cluster, splits, *lasts = launch_plan(qts) if plan is None else plan
+    lasts = lasts[0] if lasts else splits
+    dev = x.device
+    gam = iter(gammas)
+    keep = []  # tensors the launch reads: alive until it is enqueued
+    descs = (_ChainPhase * P)()
+    prev = h = out = None
+    for p, (d, qt, pre) in enumerate(zip(descs, qts, pres)):
+        K, N = qt.in_features, qt.out_features
+        if pre == "cast":
+            xin = x
+        else:
+            d.src = (x if pre == "norm" else prev).data_ptr()
+            xin = torch.empty((B, K), dtype=bf, device=dev)
         if pre in ("norm", "res_norm"):
-            g = next(gam).to(device=x.device, dtype=torch.float32).contiguous()
-            if g.numel() != qt.in_features:
+            g = next(gam).to(device=dev, dtype=torch.float32).contiguous()
+            if g.numel() != K:
                 raise ValueError("qmm_chain_cuda: gamma's width differs from the phase's K")
+            if g.data_ptr() % 16:
+                g = g.clone()
             keep.append(g)
+            d.gamma = g.data_ptr()
+        # the output as what follows reads it: h for a res_norm, gu for a
+        # swiglu, the chain's out for the last phase
+        nxt = pres[p + 1] if p + 1 < P else None
+        if nxt == "res_norm":
+            y = h = torch.empty((B, N), dtype=bf, device=dev)
+            d.epi, d.res = EPI["res"], x_res.data_ptr()
+        elif nxt == "swiglu":
+            y = torch.empty((B, N), dtype=torch.float32, device=dev)
+            d.epi = EPI["f32"]
+        else:
+            y = out = torch.empty((B, N), dtype=out_dtype, device=dev)
+            if final == "add_res":
+                d.epi, d.res = EPI["res"], h.data_ptr()
+            else:
+                d.epi = EPI["f32" if out_dtype == torch.float32 else "bf16"]
+        keep += [xin, y]
         d.qs, d.scales = qt.qs.data_ptr(), qt.scales.data_ptr()
         d.mins = qt.mins.data_ptr() if qt.mins is not None else None
-        d.gamma = g.data_ptr() if g is not None else None
-        d.acc = acc.data_ptr() + 4 * off
-        d.K, d.N, d.gs, d.zp = qt.in_features, qt.out_features, qt.group_size, qt.zp
-        d.p4, d.scales_bf16 = int(qt.layout == "p4"), int(qt.scales.dtype == torch.bfloat16)
-        d.pre = PRE[pre]
-        off += B * qt.out_features
-    out = torch.empty((B, N_last), dtype=out_dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _lib().qmm_chain_launch(
-        descs, len(qts), x.data_ptr(), x_res.data_ptr() if x_res is not None else None,
-        out.data_ptr(), int(out_dtype == torch.float32), int(final == "add_res"), B,
-        float(eps), stream)
+        d.x, d.y = xin.data_ptr(), y.data_ptr()
+        d.K, d.N, d.gs, d.zp = K, N, qt.group_size, qt.zp
+        d.p4, d.scales_bf16 = int(qt.layout == "p4"), int(qt.scales.dtype == bf)
+        d.pre, d.split, d.split_last = PRE[pre], splits[p], lasts[p]
+        prev = y
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _lib().qmm_chain_launch(descs, P, B, float(eps), cluster, stream)
     cuda_build.check(rc, "qmm_chain_launch")
     LAUNCHES["K6"] += 1
     return out

@@ -1,9 +1,10 @@
 """The decode GEMV's probes (S1) beside K1, at the LLAMA3_8B decode shapes.
 Counterpart of the TPU package's scripts/kbench.py and scripts/kbench3.py.
-The probes run the GEMV loop of csrc/qmm_gemv.cuh (K5's and K6's; K1's
-before K1 got the decode GEMV of csrc/qmm_decode.cu), so their times now
-split that loop's time, and K1's "full" time beside them is the other
-kernel's.
+The probes run the GEMV loop of csrc/qmm_gemv.cuh, which no production
+kernel runs any more (K1's until K1 got the decode GEMV of
+csrc/qmm_decode.cu, then K5's and K6's until they moved onto that GEMV's
+CTA), so their times split that loop's time, and K1's "full" time beside
+them is the other kernel's.
 
     python3 -m llm_tpu_torch.tools.kbench [--shapes qkv,out,gu,down,head] [--B 1,8]
 

@@ -21,9 +21,10 @@ synchronized work), the device's busy and idle shares over that window
 (kernel time summed from the profiler's CUDA events; one stream, so
 kernels do not overlap), device launches per token, the decode GEMV's
 (K1/K2/K7: every kernel named qmm_decode or qmm_gemv) ms and launches per
-token, flash decode's (K3/K3q: every kernel named flash_decode, a split-S
-kernel's combine among them) ms and launches per token and its combine
-kernels per token, the memsets and the copy kernels (dtype casts among
+token, K5's alone (qmm_decode_gdot, or the older loop's qmm_gemv) and K6's
+(qmm_chain), flash decode's (K3/K3q: every kernel named flash_decode, a
+split-S kernel's combine among them) ms and launches per token and its
+combine kernels per token, the memsets and the copy kernels (dtype casts among
 them) per token, and device time per kernel name, largest first. Exits nonzero without a CUDA device.
 """
 
@@ -41,6 +42,8 @@ PATHS = {"unfused": {}, "gdot": dict(gdot=True), "chain": dict(chain=True, gdot=
 # kernel names of the decode GEMV of K1/K2/K7 (and, with gdot, K5's), and
 # of flash decode (K3/K3q)
 GEMV_NAMES = ("qmm_decode", "qmm_gemv")
+# K5's kernels (an older checkout's: the qmm_gemv loop) and K6's
+K5_NAMES, K6_NAME = ("qmm_decode_gdot", "qmm_gemv"), "qmm_chain"
 ATTN_NAME = "flash_decode"
 # the libraries decode runs (--root builds them in parallel first; the chain
 # path also qmm_chain)
@@ -68,6 +71,8 @@ def profile_tokens(ctx, tok: int, n_tokens: int) -> dict:
     busy_ms = sum(kernels.values())
     n = len(toks)
     gemv = [k for k in kernels if any(s in k for s in GEMV_NAMES)]
+    k5 = [k for k in kernels if any(s in k for s in K5_NAMES)]
+    k6 = [k for k in kernels if K6_NAME in k]
     attn = [k for k in kernels if ATTN_NAME in k]
     return {
         "device": torch.cuda.get_device_name(0), "kv_dtype": str(ctx.kv_dtype),
@@ -78,10 +83,15 @@ def profile_tokens(ctx, tok: int, n_tokens: int) -> dict:
         "device_launches_per_token": sum(counts.values()) / n,
         "gemv_ms_per_token": sum(kernels[k] for k in gemv) / n,
         "gemv_launches_per_token": sum(counts[k] for k in gemv) / n,
+        "k5_ms_per_token": sum(kernels[k] for k in k5) / n,
+        "k5_launches_per_token": sum(counts[k] for k in k5) / n,
+        "k6_ms_per_token": sum(kernels[k] for k in k6) / n,
+        "k6_launches_per_token": sum(counts[k] for k in k6) / n,
         "attn_ms_per_token": sum(kernels[k] for k in attn) / n,
         "attn_launches_per_token": sum(counts[k] for k in attn) / n,
         "attn_combines_per_token": sum(counts[k] for k in attn if "combine" in k) / n,
         "memsets_per_token": sum(c for k, c in counts.items() if "memset" in k.lower()) / n,
+        "qmm_gemv_launches_per_token": sum(c for k, c in counts.items() if "qmm_gemv" in k) / n,
         "copies_per_token": sum(c for k, c in counts.items() if "copy_kernel" in k) / n,
         "kernel_ms_per_token": {k: v / n for k, v in
                                 sorted(kernels.items(), key=lambda kv: -kv[1])[:20]},

@@ -164,8 +164,8 @@ def test_k7_decode_equals_unstacked_bit_for_bit(cuda_device, qtype, K, N, B):
 @pytest.mark.parametrize("B,gdot", [(1, False), (9, False), (17, False), (1, True), (9, True)])
 def test_out_dtype_bf16_is_the_f32_result_rounded(cuda_device, B, gdot):
     """out_dtype=bf16 gives the f32 result rounded once to bf16: written by
-    the decode GEMV (B <= 16), cast after the prefill GEMM (B = 17, its K
-    unsplit: a split adds through atomics in a varying order) and K5; the
+    the decode GEMV (K1 and K5 at B <= 16), cast after the prefill GEMM (B =
+    17, its K unsplit: a split adds through atomics in a varying order); the
     same for K7 at B <= 16."""
     x, qt = _planes("p4", 0, 32, True, 512, 1024, B, torch.bfloat16)
     xd, qd = x.to(cuda_device), qt.to(cuda_device)
@@ -337,6 +337,63 @@ def test_gdot_kernel_matches_plain(cuda_device, zp, mins, N, K, B, scales_dtype)
     assert (got - want).abs().max() <= 1e-3 * want.abs().max()
 
 
+# K5 on the decode GEMV's CTA (csrc/qmm_decode.cuh, GDOT) at the main path's
+# p4 decode shapes
+K5_MAIN = [(4096, 6144), (4096, 4096), (4096, 1024), (4096, 28672), (14336, 4096)]
+
+
+@pytest.mark.parametrize("B", [1, 8, 16])
+@pytest.mark.parametrize("K,N", K5_MAIN, ids=[f"{k}x{n}" for k, n in K5_MAIN])
+def test_k5_main_shapes_match_plain(cuda_device, K, N, B):
+    """One launch of K5's decode kernel a call, writing f32 or bf16 itself
+    (chip_smoke.py's decode profiles show no memset and no cast), within
+    1e-3 of max|y| of qmm_gdot_plain; the bf16 y is the f32 one rounded."""
+    x, qt = _device_planes(cuda_device, "Q4_K", K, N, B)
+    launched = cuda_qmm.LAUNCHES["K5"]
+    y = cuda_qmm.qmm_cuda(x, qt, gdot=True)
+    y16 = cuda_qmm.qmm_cuda(x, qt, gdot=True, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert cuda_qmm.LAUNCHES["K5"] == launched + 2
+    want = qmm_gdot_plain(x, qt, torch.bfloat16)
+    assert y.dtype == torch.float32 and y16.dtype == torch.bfloat16
+    assert (y - want).abs().max() <= 1e-3 * want.abs().max()
+    assert torch.equal(y16, y.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 5, 16])
+@pytest.mark.parametrize("K,N,B,zp", [(4096, 1024, 1, 0), (4096, 512, 16, 8), (4096, 1000, 9, 0)])
+def test_k5_is_bit_identical_from_launch_to_launch(cuda_device, K, N, B, zp, cluster):
+    """No atomics: two launches of K5 give the same bits at every cluster
+    size (a ragged N among them), each within 1e-3 of max|y| of
+    qmm_gdot_plain."""
+    x, qt = _planes("p4", zp, 32, zp == 0, N, K, B, torch.bfloat16)
+    xd, qd = x.to(cuda_device), qt.to(cuda_device)
+    y1 = cuda_qmm._qmm_launch(xd, qd, True, cluster)
+    y2 = cuda_qmm._qmm_launch(xd, qd, True, cluster)
+    want = qmm_gdot_plain(x, qt, torch.bfloat16)
+    assert torch.equal(y1, y2)
+    assert (y1.cpu() - want).abs().max() <= 1e-3 * want.abs().max()
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 16])
+@pytest.mark.parametrize("K,N,zp", [(4096, 1024, 0), (1024, 512, 8), (14336, 256, 0)])
+def test_k7_k5_variant_equals_k5_bit_for_bit(cuda_device, K, N, zp, B):
+    """K7's K5 variant is K5's kernel on the layer the index names: the same
+    bits as K5 on that layer's own copy."""
+    layers = [_planes("p4", zp, 32, zp == 0, N, K, B, torch.bfloat16, seed=il)[1]
+              for il in range(3)]
+    st = (lambda ts: torch.stack(ts))
+    one = layers[0]
+    qt = QTensor(st([q.qs for q in layers]), st([q.scales for q in layers]),
+                 None if one.mins is None else st([q.mins for q in layers]), 32, one.ggml_type,
+                 "p4", zp).to(cuda_device)
+    x = _planes("p4", zp, 32, zp == 0, N, K, B, torch.bfloat16, seed=7)[0].to(cuda_device)
+    lids = torch.arange(3, dtype=torch.int32, device=cuda_device)
+    for il in range(3):
+        got = cuda_qmm.qmm_stacked_cuda(x, StackedWeight(qt, lids[il:il + 1]), gdot=True)
+        assert torch.equal(got, cuda_qmm.qmm_cuda(x, layers[il].to(cuda_device), gdot=True))
+
+
 def _chain_planes(rng, k, n, qtype, scales_dtype):
     if qtype == "p4k":
         qs = pack_p4_kmajor(rng.integers(0, 16, size=(k, n)), 0)
@@ -397,6 +454,66 @@ def test_chain_norm_mm_kernel_matches_plain(cuda_device, qtype, N, B, out_dtype)
     assert got.dtype == out_dtype
     got = got.cpu().float()
     assert (got - want).abs().max() <= 2e-2 * want.abs().max()
+
+
+def _tail_inputs(dev, down, B, seed=0):
+    rng = np.random.default_rng(seed)
+    E, Fh = 512, 768
+    ws = (_chain_planes(rng, 512, E, "p4k", torch.bfloat16),
+          _chain_planes(rng, E, 2 * Fh, "p4k", torch.bfloat16),
+          _chain_planes(rng, Fh, E, down, torch.bfloat16))
+    bf = torch.bfloat16
+    att = torch.from_numpy(rng.normal(size=(B, 512)).astype(np.float32)).to(bf)
+    xres = torch.from_numpy(rng.normal(size=(B, E)).astype(np.float32)).to(bf)
+    gamma = torch.from_numpy((rng.normal(size=E) * 0.2 + 1).astype(np.float32))
+    return [w.to(dev) for w in ws], att.to(dev), xres.to(dev), gamma.to(dev)
+
+
+TAIL_PRES = dict(pres=("cast", "res_norm", "swiglu"), eps=1e-5, final="add_res")
+
+
+@pytest.mark.parametrize("plan", [(4, (1, 1, 1)), (4, (4, 2, 2)), (6, (2, 2, 6)),
+                                  (8, (4, 1, 2)), (8, (2, 4, 1))],
+                         ids=["c4-unsplit", "c4", "c6", "c8", "c8-b"])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("down", ["p4k", "i8g16"])
+def test_chain_is_bit_identical_at_every_plan(cuda_device, down, B, plan):
+    """K6 at cluster sizes 4, 6 and 8 and splits of one or several CTAs a
+    tile: within 2e-2 of max|out| of qmm_chain_plain, and two launches give
+    the same bits (no atomics, no memset), one launch a chain."""
+    ws, att, xres, gamma = _tail_inputs(cuda_device, down, B)
+    want = cuda_qmm_chain.qmm_chain_plain(att.cpu(), [w.to("cpu") for w in ws], (gamma.cpu(),),
+                                          xres.cpu(), **TAIL_PRES).float()
+    run = (lambda: cuda_qmm_chain._chain_launch(att, ws, (gamma,), xres, plan=plan,
+                                                **TAIL_PRES))
+    launched = cuda_qmm_chain.LAUNCHES["K6"]
+    got, again = run(), run()
+    assert cuda_qmm_chain.LAUNCHES["K6"] == launched + 2
+    assert torch.equal(got, again)
+    assert (got.cpu().float() - want).abs().max() <= 2e-2 * want.abs().max()
+
+
+@pytest.mark.parametrize("plan", [(8, (8,)), (8, (1,)), (4, (4,)), (6, (2,))],
+                         ids=["c8-split8", "c8-unsplit", "c4", "c6"])
+@pytest.mark.parametrize("B", [1, 8])
+def test_norm_mm_over_several_rounds(cuda_device, B, plan):
+    """A head whose 33 column tiles outnumber the groups of one round at
+    cluster size 8 and split 8 (a CTA takes a second item, its running
+    stage count carries the ring's parities on): within 2e-2 of max|out|
+    of qmm_chain_plain, bit-identical from launch to launch."""
+    rng = np.random.default_rng(B)
+    K, N = 1024, 33 * 128
+    w = _chain_planes(rng, K, N, "p4k", torch.bfloat16)
+    x = torch.from_numpy(rng.normal(size=(B, K)).astype(np.float32)).to(torch.bfloat16)
+    gamma = torch.from_numpy((rng.normal(size=K) * 0.2 + 1).astype(np.float32))
+    kw = dict(pres=("norm",), eps=1e-5, final="cast", out_dtype=torch.bfloat16)
+    want = cuda_qmm_chain.qmm_chain_plain(x, [w], (gamma,), **kw).float()
+    wd = w.to(cuda_device)
+    run = (lambda: cuda_qmm_chain._chain_launch(x.to(cuda_device), [wd],
+                                                (gamma.to(cuda_device),), plan=plan, **kw))
+    got = run()
+    assert torch.equal(got, run())
+    assert (got.cpu().float() - want).abs().max() <= 2e-2 * want.abs().max()
 
 
 def test_k5_k6_raise_rather_than_fall_back(cuda_device):
