@@ -15,12 +15,14 @@ prints no result line):
      qmm_chain_tc kernel issues HMMA and TMA loads, the old
      qmm_chain_kernel is gone), the prefill GEMM's (every qmm_wgmma kernel
      issues HGMMA and TMA loads, no mma.sync GEMM is left), flash
-     prefill's (every
-     flash_prefill kernel of libflash_prefill.so issues HGMMA, no f32-FMA
-     prefill kernel is left in it or in libflash_attn.so), and flash
-     decode's (the six flash_decode_tc kernels of libflash_attn.so issue
-     HMMA and TMA loads, no split-S kernel or combine kernel is left there;
-     libflash_probe.so keeps the split-S body and its combine for S3);
+     prefill's (every one of the ten
+     flash_prefill kernels of libflash_prefill.so, two at head dim 128 and
+     eight _dim ones at 64, 80, 96 and any other D, issues HGMMA, no
+     f32-FMA prefill kernel is left in it or in libflash_attn.so), and
+     flash decode's (the 30 flash_decode_tc kernels of libflash_attn.so,
+     six at head dim 128 and 24 _dim ones, issue HMMA and TMA loads, no
+     split-S kernel or combine kernel is left there; libflash_probe.so
+     keeps the split-S body and its combine for S3);
   2. each kernel (K1/K2 quantized matmul: at B <= 16 the decode GEMV, at
      B = 1 and 8, at B > 16 the wgmma prefill GEMM, also at a ragged B =
      300; K3/K4 flash attention (K4, the
@@ -46,14 +48,22 @@ prints no result line):
      different), at splits of 256, 512 and 1024 cells and its own, and on
      the int8 cache at S=4096 without the scale multiply, with it in f32,
      and in bf16 (K3q's dequant), each against its plain version and timed
-     beside its bound and SDPA;
+     beside its bound and SDPA; K3/K4 at head dims 64, 80 and 96 (the
+     columns of a 128-dim block past D zero) and K3q/K4q at 80 (a row keeps
+     one scale there), each at the decode and prefill shapes of the D = 128
+     rows, and K3/K4/K4q at G = 3 (24 query heads over 8 KV heads);
   3. two layers at LLAMA3_8B width: Context.decode of a 64-token prompt and
      8 greedy generate_loop steps, once on the card (kernels) and once on
      the CPU (plain versions), from the same random weights; every step's
      logits compared, and the greedy tokens; then the same with a q8_0 KV
      cache, whose card logits are also held against the bf16 cache's; then
      with chain=True, gdot=True (K5 on the unfused QKV of layer 0, K6 on
-     layer 1's head, both tails and the lm_head);
+     layer 1's head, both tails and the lm_head); then the same card-vs-CPU
+     check at Llama-3.2-1B's widths (2048 hidden, 32 / 8 heads of 64 dims,
+     ff 8192) with a bf16 cache (K3/K4 at D = 64) and a q8_0 cache (32-dim
+     group scales: the unfused attention, by shape, as the reference) and
+     at Llama-3.2-3B's (3072 hidden, 24 / 8 heads of 128, ff 8192; K4 at
+     G = 3);
   4. LLAMA3_8B, 32 layers, Q4_K_M-style random planes made on the card
      (first, K5 against its plain version at every p4 shape of these planes
      that phase 2 left out, attn_k among them): prefill 512 tokens, then 128
@@ -80,7 +90,19 @@ prints no result line):
      K5) and with chain and gdot (layers on K7, lm_head on K6), 16 tokens
      each, enough for their launches per token; uniform Q8_0 planes (K7 on
      int8 planes, lm_head on K2); the Q4_K and Q8_0 scans profiled (no
-     memset, no qmm_gemv kernel).
+     memset, no qmm_gemv kernel);
+  9. the text entry point on a GGUF: a LLAMA3_8B file typed as Q4_K_M
+     (Q6_K lm_head, attn_v and ffn_down of the use_more_bits layers) with
+     random blocks and a 128256-token byte-level BPE vocab
+     (tools/synth_gguf.py), written with the port's writer into a
+     temporary directory; `python -m llm_tpu_torch.tools.cli -m <file> -p
+     <~512-token prompt> -n 128 --temp 0 -c 4096` run as a user runs it
+     (its stdout, "model loaded in" line and PerfCounters line logged),
+     while this process loads the same file (both loads build the planes
+     on the host); once the CLI has exited, cli.generate's greedy tokens
+     held equal to Context.decode of the prompt followed by generate_loop,
+     and its text to what the CLI printed; the write and load times and
+     the peak host and device memory logged; the directory deleted.
 The last lines are a JSON "kernels" line, the card line, and
 {"ok": true, "device": {...}}. It imports nothing of JAX or llm_tpu.
 """
@@ -195,8 +217,12 @@ def check_sass(tag: str, libs: dict, name: str, need: tuple, gone) -> dict:
 DECODE_KERNELS = 16 + 8
 # S1's kernels in libqmm_probe.so: 1, 2 or 4 rows of x x mins x three modes
 S1_KERNELS = 18
-# K3/K3q's kernels: bf16 / q8_0 cache x one, two or four n8 tiles of rows
-K3_KERNELS = 6
+# K3/K3q's kernels: bf16 / q8_0 cache x one, two or four n8 tiles of rows,
+# at head dim 128 (flash_decode_tc) and at 64, 80, 96 and any other D
+# (flash_decode_tc_dim)
+K3_KERNELS = 6 * 5
+# K4/K4q's: bf16 / q8_0 cache, at 128 and at 64, 80, 96 and any other D
+K4_KERNELS = 2 * 5
 
 # S3's split-S kernels in libflash_probe.so: stacked v1 / v0 and the three
 # q8 modes
@@ -474,8 +500,11 @@ def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False):
                bound_by=by, library_ms=lib_ms)
     if T > 8:
         # K4/K4q run every score and P.V product twice (bf16 hi + lo of
-        # k*cos, k*sin and p): their floor is twice the operations bound
+        # k*cos, k*sin and p): their floor is twice the operations bound,
+        # and a head dim below 128 is computed as 128 (its zero columns)
         rec["floor_ms"] = 2 * flops / PEAK_BF16_FLOPS * 1e3
+        if D < 128:
+            rec["padded_floor_ms"] = rec["floor_ms"] * 128 / D
     log(json.dumps(rec))
     if not (err <= tol and math.isfinite(err)):
         raise AssertionError(f"{kern} {rec['shape']}: max|err| {err} > {tol}")
@@ -518,6 +547,18 @@ def phase_kernels():
     check_attn(results, "decode ragged-S", 1, 4001, q8=True)
     check_attn(results, "decode T=8", 8, 4096, q8=True)
     check_attn(results, "prefill", 512, 4096, q8=True)
+    # head dims below 128 (Llama-3.2-1B's 64; 80; 96) and G = 3
+    # (Llama-3.2-3B's 24 query heads over 8) at the same T and S
+    for D in (64, 80, 96):
+        check_attn(results, "decode half-masked", 1, 4096, D=D)
+        check_attn(results, "decode T=8", 8, 4096, D=D)
+        check_attn(results, "prefill", 512, 4096, D=D)
+    check_attn(results, "decode half-masked", 1, 4096, D=80, q8=True)
+    check_attn(results, "decode T=8", 8, 4096, D=80, q8=True)
+    check_attn(results, "prefill", 512, 4096, D=80, q8=True)
+    check_attn(results, "decode T=8 G=3", 8, 4096, H=24)
+    check_attn(results, "prefill G=3", 512, 4096, H=24)
+    check_attn(results, "prefill G=3", 512, 4096, H=24, q8=True)
     # K5 at the TPU package's gdot probe shapes (scripts/kbench6.py SHAPES;
     # "head" is a probe shape only: the main path's lm_head is Q6_K); every
     # shape the main path gives K5 is checked once its planes exist
@@ -660,13 +701,14 @@ TWO_LAYER_SEED = 5
 
 
 def two_layer_steps(seed: int, kv_dtype=None, devices=("cuda", "cpu"), chain=False,
-                    gdot=False):
+                    gdot=False, geo=None):
     """Full width, 2 layers, one set of weights on each device. Each device
     prefills a 64-token prompt (Context.decode) and generates 8 greedy
     tokens (generate_loop). Then the card's token stream is fed back one
     decode step at a time, so that every device's logits of every step come
-    from the same inputs. chain/gdot are Context's options. Returns (cfg,
-    {device: logits [9, vocab]}, {device: greedy tokens})."""
+    from the same inputs. chain/gdot are Context's options; geo the widths
+    (LLAMA3_8B's by default). Returns (cfg, {device: logits [9, vocab]},
+    {device: greedy tokens})."""
     import numpy as np
 
     from llm_tpu_torch.gguf.constants import GGMLType
@@ -674,7 +716,7 @@ def two_layer_steps(seed: int, kv_dtype=None, devices=("cuda", "cpu"), chain=Fal
     from llm_tpu_torch.runtime.batch import Batch
     from llm_tpu_torch.runtime.engine import Context, params_to
 
-    geo = dict(LLAMA3_8B, n_layers=2)
+    geo = dict(geo or LLAMA3_8B, n_layers=2)
     params, cfg = make_synthetic_model(qtype=GGMLType.Q4_K, device="cuda", on_device=True,
                                        seed=seed, recipe="Q4_K_M", **geo)
     prompt = [(i * 7919) % cfg.vocab_size for i in range(64)]
@@ -793,6 +835,66 @@ def phase_two_layers_chain():
     for k in ("K5", "K6"):
         if launched[k] <= 0:
             raise AssertionError(f"the chained twin launched no {k}")
+
+
+# two layers at the widths of the llama configs past LLAMA3_8B's head dim
+# and group: Llama-3.2-1B (hidden 2048, 32 heads over 8 of 64 dims) and
+# Llama-3.2-3B (hidden 3072, 24 heads over 8 of 128: G = 3), ff 8192 and
+# the Llama 3 vocab (their published config.json widths; 2 of 16 and 28
+# layers)
+LLAMA32_1B = dict(n_embd=2048, n_heads=32, n_kv_heads=8, n_ff=8192, vocab=128256, head_dim=64)
+LLAMA32_3B = dict(n_embd=3072, n_heads=24, n_kv_heads=8, n_ff=8192, vocab=128256, head_dim=128)
+WIDTHS_SEED = 5
+
+
+def phase_two_layers_widths():
+    """two_layer_steps at Llama-3.2-1B's widths with a bf16 cache (K3/K4 at
+    D = 64) and a q8_0 cache (its 64-dim rows keep 32-dim group scales: the
+    unfused attention on both devices, by shape, no K3q/K4q launch), and at
+    Llama-3.2-3B's (G = 3; the 64-token prompt is a K4 prefill). Every
+    step's logits within the two-layer tolerance of max|logit|; the greedy
+    tokens equal up to the first step whose top two logits on the CPU lie
+    within that tolerance (such a near tie may part the streams, and the
+    steps after it are fed the card's tokens on both devices, so their
+    logits stay comparable). Returns each run's record."""
+    import numpy as np
+
+    from llm_tpu_torch.ops import cuda_attn
+
+    recs = []
+    for name, geo, kv_dtype, rel_tol, want in (
+            ("Llama-3.2-1B", LLAMA32_1B, None, TWO_LAYER_REL_TOL, ("K3", "K4")),
+            ("Llama-3.2-1B", LLAMA32_1B, "q8_0", TWO_LAYER_Q8_REL_TOL, ()),
+            ("Llama-3.2-3B", LLAMA32_3B, None, TWO_LAYER_REL_TOL, ("K3", "K4"))):
+        t0 = time.perf_counter()
+        cuda_attn.reset_launches()
+        cfg, steps, toks = two_layer_steps(WIDTHS_SEED, kv_dtype, geo=geo)
+        launched = dict(cuda_attn.LAUNCHES)  # the card's run; the CPU's launches nothing
+        lg, lc = steps["cuda"], steps["cpu"]
+        tg, tc = toks["cuda"], toks["cpu"]
+        err = float(np.abs(lg - lc).max())
+        tol = rel_tol * float(np.abs(lc).max())
+        top2 = np.sort(lc, axis=-1)[:, -2:]
+        gaps = (top2[:, 1] - top2[:, 0]).tolist()
+        tie = next((i for i, g in enumerate(gaps) if g <= tol), len(gaps))
+        rec = dict(two_layer_widths=name, head_dim=cfg.head_dim, G=cfg.n_heads // cfg.n_kv_heads,
+                   kv_dtype=str(kv_dtype), logits_max_abs_err=err, tol=tol,
+                   rel_err=err / float(np.abs(lc).max()), top2_gaps=gaps,
+                   first_near_tie=tie, tokens_card=tg, tokens_cpu=tc,
+                   attn_launches=launched, seconds=time.perf_counter() - t0)
+        log(json.dumps(rec))
+        if not (np.isfinite(lg).all() and lg.shape == (9, cfg.vocab_size)):
+            raise AssertionError(f"{name}: card logits not finite or of the wrong shape")
+        if not err <= tol:
+            raise AssertionError(f"{name} kv {kv_dtype}: max|err| {err} > {tol}")
+        if tg[:tie + 1] != tc[:tie + 1]:
+            raise AssertionError(f"{name} kv {kv_dtype}: greedy tokens {tg} vs {tc}")
+        for k in cuda_attn.LAUNCHES:
+            if (launched[k] > 0) != (k in want):
+                raise AssertionError(f"{name} kv {kv_dtype}: attention launches {launched}, "
+                                     f"want {want} and no other")
+        recs.append(rec)
+    return recs
 
 
 def sweep_chain_seeds(seeds) -> None:
@@ -1257,6 +1359,147 @@ def phase_scan():
     return counts
 
 
+# the CLI phase: a prompt of about this many tokens, then -n 128 at temp 0
+GGUF_PROMPT_TOKENS = 512
+GGUF_DECODE = 128
+_WORDS = ("the of and to in is was that for on with as by at from his her they which "
+          "this have had were are but not be one all their there when an who will more "
+          "time about would up out so what some into than could them other only then "
+          "water people year world house number point river small city music light "
+          "mountain story garden morning language question history family paper").split()
+
+
+def gguf_prompt(tok, n_tokens: int = GGUF_PROMPT_TOKENS) -> str:
+    """English-like text from a fixed seed, sentences added until it
+    tokenizes to at least n_tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    text = ""
+    while len(tok.encode(text, add_special=True, parse_special=True)) < n_tokens:
+        words = [str(w) for w in rng.choice(_WORDS, 12)]
+        text += " ".join(words).capitalize() + ". "
+    return text
+
+
+def phase_gguf_cli() -> dict:
+    """Phase 9: the text entry point on a LLAMA3_8B GGUF typed as Q4_K_M."""
+    import os
+    import resource
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+
+    from llm_tpu_torch.gguf.reader import GGUFReader
+    from llm_tpu_torch.runtime.batch import Batch
+    from llm_tpu_torch.runtime.engine import Context
+    from llm_tpu_torch.samplers import SamplingParams
+    from llm_tpu_torch.tokenizers import tokenizer_from_gguf
+    from llm_tpu_torch.tools import cli, synth_gguf
+
+    tmp = tempfile.mkdtemp(prefix="llama3_8b_gguf_")
+    rec = {}
+    try:
+        path = os.path.join(tmp, "llama3_8b_q4_k_m.gguf")
+        free = shutil.disk_usage(tmp).free
+        t0 = time.perf_counter()
+        info = synth_gguf.write_llama_q4km(path, seed=0)
+        rec.update(gguf=info, write_s=time.perf_counter() - t0, disk_free_gib=free / 2**30)
+        log(json.dumps(dict(gguf_written=rec)))
+        t0 = time.perf_counter()
+        reader = GGUFReader(path)
+        tok = tokenizer_from_gguf(reader)
+        prompt = gguf_prompt(tok)
+        ptoks = tok.encode(prompt, add_special=True, parse_special=True)
+        rec.update(tokenizer_s=time.perf_counter() - t0, prompt_tokens=len(ptoks))
+
+        # the CLI as a user runs it, in a process of its own, started now so
+        # that its load (the planes built in numpy on the host, minutes at
+        # 8B) runs beside this process's own load below; this process uses
+        # the card only once the CLI has exited
+        cmd = [sys.executable, "-m", "llm_tpu_torch.tools.cli", "-m", path, "-p", prompt,
+               "-n", str(GGUF_DECODE), "--temp", "0", "-c", "4096"]
+        t_cli = time.perf_counter()
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                cwd=str(Path(__file__).resolve().parent))
+        try:
+            # the CLI's glue in this process: cli.generate on the loaded
+            # file against Context.decode of the prompt and generate_loop
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            ctx = Context(reader, n_cells=4096)
+            torch.cuda.synchronize()
+            rec.update(load_s=time.perf_counter() - t0,
+                       load_peak_device_gib=torch.cuda.max_memory_allocated() / 2**30)
+            log(json.dumps(dict(gguf_loaded=dict(load_s=rec["load_s"],
+                                                 peak_device_gib=rec["load_peak_device_gib"]))))
+            out, err_text = proc.communicate(timeout=900)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        rec.update(cli_s=time.perf_counter() - t_cli, cli_rc=proc.returncode,
+                   cli_peak_host_gib=resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss
+                   / 2**20)
+        r = subprocess.CompletedProcess(cmd, proc.returncode, out, err_text)
+        err = [line for line in r.stderr.splitlines() if line.strip()]
+        rec.update(cli_stderr=err[-6:], cli_generated=r.stdout[len(prompt):])
+        log(json.dumps(dict(gguf_cli=rec)))
+        if r.returncode != 0:
+            raise AssertionError(f"the CLI exited {r.returncode}: {r.stderr[-2000:]}")
+        import re
+
+        perf = re.fullmatch(r"load \d+ ms \| prefill (\d+) tok @ [\d.]+ t/s \| "
+                            r"decode (\d+) tok @ [\d.]+ t/s", err[-1] if err else "")
+        if not any(e.startswith("model loaded in ") for e in err) or perf is None:
+            raise AssertionError(f"the CLI's stderr lacks its load or perf line: {err}")
+        # the prompt is prefilled (and its last token decoded alone where the
+        # generation ended on the scalar loop), then every generated token
+        if not (r.stdout.startswith(prompt) and int(perf.group(1)) >= len(ptoks) - 1
+                and int(perf.group(2)) > 0):
+            raise AssertionError("the CLI printed no prompt, or prefilled or decoded nothing")
+
+        from llm_tpu_torch.ops import cuda_attn, cuda_qmm
+
+        cuda_qmm.reset_launches()
+        cuda_attn.reset_launches()
+        t0 = time.perf_counter()
+        got, text = cli.generate(ctx, tok, ptoks, GGUF_DECODE, SamplingParams(temp=0.0))
+        torch.cuda.synchronize()
+        rec.update(generate_s=time.perf_counter() - t0, generate_launches=launch_counts(),
+                   perf=ctx.perf.summary())
+        ctx.clear()
+        assert ctx.decode(Batch.text(ptoks)) == 0
+        logits = ctx.get_logits()
+        first = int(np.argmax(logits))
+        eogs = tuple(i for i in (tok.vocab.eos_id, tok.vocab.eot_id) if i is not None and i >= 0)
+        want = [first] + ctx.generate_loop(first, GGUF_DECODE - 1, eog_ids=eogs)
+        rec.update(tokens_equal=got == want[:len(got)], n_generated=len(got),
+                   text_equal_cli=r.stdout == prompt + text + "\n",
+                   peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   peak_host_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
+                   prefill_logits_finite=bool(np.isfinite(logits).all()))
+        log(json.dumps(dict(gguf_generate={k: v for k, v in rec.items()
+                                           if k not in ("cli_generated", "gguf")})))
+        if not rec["prefill_logits_finite"]:
+            raise AssertionError("non-finite logits from the 8B GGUF")
+        # generate stops before an EOG token, which generate_loop returns
+        full = len(got) == GGUF_DECODE or (len(want) > len(got) and want[len(got)] in eogs)
+        if not (rec["tokens_equal"] and full):
+            raise AssertionError(f"cli.generate {got} != decode + generate_loop {want}")
+        if not rec["text_equal_cli"]:
+            raise AssertionError("cli.generate's text is not what the CLI printed")
+        for k in ("K1", "K2", "K3", "K4"):
+            if rec["generate_launches"][k] <= 0:
+                raise AssertionError(f"cli.generate launched no {k}")
+        del ctx
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rec
+
+
 REPLACES = {
     "K1": ("llm_tpu_torch/csrc/qmm_decode.cu", "llm_tpu/ops/pallas_qmm.py:159"),
     "K2": ("llm_tpu_torch/csrc/qmm_decode.cu", "llm_tpu/ops/pallas_qmm.py:149"),
@@ -1337,7 +1580,7 @@ def main() -> int:
     # decode kernels, and the f32-FMA flash_prefill_kernel is gone
     check_sass("gemm_sass", {"qmm": 8, "qmm_stacked": 8}, "qmm_wgmma", ("HGMMA", "UTMALDG"),
                "qmm_gemm")
-    check_sass("prefill_sass", {"flash_prefill": 2, "flash_attn": 0}, "flash_prefill",
+    check_sass("prefill_sass", {"flash_prefill": K4_KERNELS, "flash_attn": 0}, "flash_prefill",
                ("HGMMA",), "flash_prefill_kernel")
     # flash decode: K3/K3q's cluster kernels issue mma.sync and TMA tile
     # loads, and no split-S kernel or combine kernel is left in their
@@ -1380,6 +1623,10 @@ def main() -> int:
     phase_two_layers_chain()
     log(f"two-layer chained card-vs-CPU check passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    phase_two_layers_widths()
+    log(f"two-layer Llama-3.2-1B/3B card-vs-CPU checks passed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     params, cfg = llama3_8b_planes()
     check_gdot_path(results, params)
     counts, rec = phase_llama3_8b(params, cfg)
@@ -1399,6 +1646,9 @@ def main() -> int:
     t0 = time.perf_counter()
     counts_scan = phase_scan()
     log(f"LLAMA3_8B scan decoder passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_gguf_cli()
+    log(f"LLAMA3_8B GGUF through the CLI passed in {time.perf_counter() - t0:.1f} s")
     # each kernel's launches from the path that runs it: K1-K4 from phase 4,
     # K3q/K4q from phase 5, K5 from phase 6, K6 from phase 7, K7 from phase
     # 8, S1 from the kbench run, S3 from the kbench_attn run

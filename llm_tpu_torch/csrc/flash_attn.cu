@@ -19,11 +19,19 @@
 //
 // Inputs: q, q_rot bf16 [T, H, D]; K/V bf16 [Hkv, S, D] (K3) or int8
 // [Hkv, S, D] with one bf16 scale per head row [Hkv, S, 1] (K3q); cos, sin
-// bf16 [S, D]; bias f32 [T, S]. Output f32 [T, H, D]. D = 128, T <= 8,
-// every pointer 16-byte aligned. K3q dequantizes as the TPU kernel does,
-// bf16(q) * bf16(s) rounded to bf16: (float)q * s is exact in f32 (8 + 8
-// significant bits), so __float2bfloat16_rn of it is that product bit for
-// bit.
+// bf16 [S, D]; bias f32 [T, S]. Output f32 [T, H, D]. T <= 8, every
+// pointer 16-byte aligned; D = Dk = Dv a multiple of 8 up to 128 (K3q: of
+// 16, the int8 rows' TMA pitch). The kernels hold a block as 128 dims
+// whatever D is: the tensor maps have the true width D, so TMA fills the
+// columns past D with zeros, q's are zero there too, and the zeros add
+// nothing to q.k or to P.V; only D output columns are stored. D = 128 is
+// flash_decode_tc; flash_decode_tc_dim takes D = 64, 80 and 96 as constants
+// and any other D at run time (DT = 0). Below D = 128 the products do
+// 128 / D times the work D needs (PERF.md).
+//
+// K3q dequantizes as the TPU kernel does, bf16(q) * bf16(s) rounded to
+// bf16: (float)q * s is exact in f32 (8 + 8 significant bits), so
+// __float2bfloat16_rn of it is that product bit for bit.
 //
 // Bound: the bytes of K, V, cos and sin (K3q: half of K3's K/V bytes, 1
 // byte a dim plus 2 bytes a row). At T = 1 the score and P.V products are
@@ -95,7 +103,7 @@
 
 namespace {
 
-constexpr int DA_D = 128;                       // head dim
+constexpr int DA_D = 128;                       // head dims a block holds (D <= 128)
 constexpr int DA_BLK = 64;                      // cells a stage
 constexpr int DA_CELLS = 16;                    // cells of a stage a consumer warp takes
 constexpr int DA_WARPS = DA_BLK / DA_CELLS;     // consumer warps
@@ -155,6 +163,7 @@ struct DecArgs {
   float* out;
   int T, H, Hkv, G, S, R, bpr;  // R = T*G rows; bpr: blocks of 64 cells a rank
   float scale2;                 // scale * log2 e
+  int D;                        // head dim (read only by flash_decode_tc_dim<.., 0>)
 };
 
 // 4 bytes (the first `bytes` of them read, the rest zero) into shared memory
@@ -492,17 +501,15 @@ __device__ __forceinline__ void da_consumer(const DecArgs& a, uint8_t* smem, uin
     }
 }
 
-// grid (cluster C, Hkv, row chunks of 8 NR); the C CTAs of a cluster split
-// the cells of one KV head
-template <bool Q8, int NR>
-__global__ void __launch_bounds__(DA_THREADS, 1)
-flash_decode_tc(const __grid_constant__ CUtensorMap tmk, const __grid_constant__ CUtensorMap tmv,
-                const __grid_constant__ CUtensorMap tmc, const __grid_constant__ CUtensorMap tms,
-                const DecArgs a) {
+// a CTA of the grid (cluster C, Hkv, row chunks of 8 NR); the C CTAs of a
+// cluster split the cells of one KV head. DT: the head dim, 0 = a.D
+template <bool Q8, int NR, int DT>
+__device__ __forceinline__ void decode_cta(const CUtensorMap& tmk, const CUtensorMap& tmv,
+                                           const CUtensorMap& tmc, const CUtensorMap& tms,
+                                           const DecArgs& a, uint8_t* dyn_smem, uint64_t* bars) {
   using L = DecSmem<Q8>;
   constexpr int RC = 8 * NR;  // rows a CTA
-  extern __shared__ uint8_t dyn_smem[];
-  __shared__ __align__(8) uint64_t bars[2 * DA_STAGES];  // full, then empty
+  const int D = DT ? DT : a.D;
   const uint32_t raw = smem_u32(dyn_smem);
   uint8_t* smem = dyn_smem + (((raw + 1023) & ~1023u) - raw);
   const uint32_t sm = smem_u32(smem);
@@ -543,10 +550,10 @@ flash_decode_tc(const __grid_constant__ CUtensorMap tmk, const __grid_constant__
     for (int i = threadIdx.x; i < 2 * RC * 16; i += DA_WARPS * 32) {
       const int which = i / (RC * 16), r = (i / 16) % RC, c16 = i % 16;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (r < nrows) {
+      if (r < nrows && (DT == DA_D || 8 * c16 < D)) {  // dims past D stay zero
         const int rg = r0 + r, t = rg / a.G, g = rg % a.G;
         const __nv_bfloat16* src =
-            (which ? a.qr : a.q) + ((size_t)t * a.H + (size_t)h * a.G + g) * DA_D + 8 * c16;
+            (which ? a.qr : a.q) + ((size_t)t * a.H + (size_t)h * a.G + g) * D + 8 * c16;
         v = *reinterpret_cast<const uint4*>(src);
       }
       *reinterpret_cast<uint4*>(smem + L::Q_OFF + which * 2 * DA_ROWS * 128 +
@@ -621,17 +628,19 @@ flash_decode_tc(const __grid_constant__ CUtensorMap tmk, const __grid_constant__
     xl[q * DA_ROWS + r] = C > 1 ? ld_dsmem(smem_u32(cl + r), q) : cl[r];
   }
   __syncthreads();
-  const int elems = nrows * DA_D, per = (elems + C - 1) / C;
+  // (the D columns that exist; cacc keeps DA_D a row)
+  const int elems = nrows * D, per = (elems + C - 1) / C;
   const int e0 = rank * per, e1 = min(elems, e0 + per);
   for (int i = e0 + threadIdx.x; i < e1; i += DA_THREADS) {
-    const int r = i / DA_D, d = i % DA_D;
+    const int r = i / D, d = i % D;
+    const int ci = DT == DA_D ? i : r * DA_D + d;
     float M = -INFINITY;
     for (int q = 0; q < C; ++q) M = fmaxf(M, xm[q * DA_ROWS + r]);
     // every rank's O of the element in flight at once
     float o[DA_MAX_CLUSTER];
 #pragma unroll
     for (int q = 0; q < DA_MAX_CLUSTER; ++q)
-      if (q < C) o[q] = ld_dsmem(smem_u32(cacc + i), q);
+      if (q < C) o[q] = ld_dsmem(smem_u32(cacc + ci), q);
     float Ls = 0.f, A = 0.f;
 #pragma unroll
     for (int q = 0; q < DA_MAX_CLUSTER; ++q) {
@@ -642,9 +651,32 @@ flash_decode_tc(const __grid_constant__ CUtensorMap tmk, const __grid_constant__
       }
     }
     const int rg = r0 + r, t = rg / a.G, g = rg % a.G;
-    a.out[((size_t)t * a.H + (size_t)h * a.G + g) * DA_D + d] = A / fmaxf(Ls, 1e-30f);
+    a.out[((size_t)t * a.H + (size_t)h * a.G + g) * D + d] = A / fmaxf(Ls, 1e-30f);
   }
   if (C > 1) cluster_sync_all();  // no CTA leaves while another reads its partials
+}
+
+// D = 128
+template <bool Q8, int NR>
+__global__ void __launch_bounds__(DA_THREADS, 1)
+flash_decode_tc(const __grid_constant__ CUtensorMap tmk, const __grid_constant__ CUtensorMap tmv,
+                const __grid_constant__ CUtensorMap tmc, const __grid_constant__ CUtensorMap tms,
+                const DecArgs a) {
+  extern __shared__ uint8_t dyn_smem[];
+  __shared__ __align__(8) uint64_t bars[2 * DA_STAGES];  // full, then empty
+  decode_cta<Q8, NR, DA_D>(tmk, tmv, tmc, tms, a, dyn_smem, bars);
+}
+
+// D = DT < 128, or a.D where DT = 0
+template <bool Q8, int NR, int DT>
+__global__ void __launch_bounds__(DA_THREADS, 1)
+flash_decode_tc_dim(const __grid_constant__ CUtensorMap tmk,
+                    const __grid_constant__ CUtensorMap tmv,
+                    const __grid_constant__ CUtensorMap tmc,
+                    const __grid_constant__ CUtensorMap tms, const DecArgs a) {
+  extern __shared__ uint8_t dyn_smem[];
+  __shared__ __align__(8) uint64_t bars[2 * DA_STAGES];  // full, then empty
+  decode_cta<Q8, NR, DT>(tmk, tmv, tmc, tms, a, dyn_smem, bars);
 }
 
 // ----------------------------------------------------------------------------
@@ -655,27 +687,45 @@ struct DecPtrs {
   void* out;
 };
 
+// the kernel for head dim D: flash_decode_tc at 128, else flash_decode_tc_dim
 template <bool Q8, int NR>
-int launch_t(const DecPtrs& p, int T, int H, int Hkv, int S, float scale, int cluster,
+using DecKernel = decltype(&flash_decode_tc<Q8, NR>);
+
+template <bool Q8, int NR>
+DecKernel<Q8, NR> decode_kernel(int D) {
+  switch (D) {
+    case DA_D: return flash_decode_tc<Q8, NR>;
+    case 64: return flash_decode_tc_dim<Q8, NR, 64>;
+    case 80: return flash_decode_tc_dim<Q8, NR, 80>;
+    case 96: return flash_decode_tc_dim<Q8, NR, 96>;
+    default: return flash_decode_tc_dim<Q8, NR, 0>;
+  }
+}
+
+template <bool Q8, int NR>
+int launch_t(const DecPtrs& p, int T, int H, int Hkv, int S, int D, float scale, int cluster,
              cudaStream_t st) {
   using L = DecSmem<Q8>;
-  auto kern = flash_decode_tc<Q8, NR>;
-  static bool attr = false;
-  if (!attr) {
+  const DecKernel<Q8, NR> kern = decode_kernel<Q8, NR>(D);
+  static bool attr[5] = {false, false, false, false, false};  // by decode_kernel's case
+  const int ai = D == DA_D ? 0 : D == 64 ? 1 : D == 80 ? 2 : D == 96 ? 3 : 4;
+  if (!attr[ai]) {
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
-    attr = true;
+    attr[ai] = true;
   }
   const int G = H / Hkv, R = T * G, nblk = (S + DA_BLK - 1) / DA_BLK;
   using bf = __nv_bfloat16;
   DecArgs a{(const bf*)p.q, (const bf*)p.qr, (const float*)p.bias, (const bf*)p.ks,
             (const bf*)p.vs, (float*)p.out, T, H, Hkv, G, S, R,
-            (nblk + cluster - 1) / cluster, scale * DA_LOG2E};
+            (nblk + cluster - 1) / cluster, scale * DA_LOG2E, D};
 
+  // the maps have the true width D: a box's columns past D (the whole second
+  // 64-dim half where D <= 64) arrive as zeros
   CUtensorMap mk, mv, mc, ms;
   {  // K, V: [Hkv, S, D] as 3-D maps; K3: 64-dim halves of bf16, K3q: int8 rows
     const cuuint64_t es = Q8 ? 1 : 2;
-    const cuuint64_t dims[3] = {(cuuint64_t)DA_D, (cuuint64_t)S, (cuuint64_t)Hkv};
-    const cuuint64_t strides[2] = {DA_D * es, (cuuint64_t)S * DA_D * es};
+    const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)Hkv};
+    const cuuint64_t strides[2] = {D * es, (cuuint64_t)S * D * es};
     const cuuint32_t box[3] = {Q8 ? 128u : 64u, (cuuint32_t)DA_BLK, 1};
     const CUtensorMapDataType dt =
         Q8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
@@ -685,8 +735,8 @@ int launch_t(const DecPtrs& p, int T, int H, int Hkv, int S, float scale, int cl
       return rc;
   }
   {  // cos, sin: [S, D] bf16, 64-dim halves
-    const cuuint64_t dims[2] = {(cuuint64_t)DA_D, (cuuint64_t)S};
-    const cuuint64_t strides[1] = {DA_D * 2};
+    const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)S};
+    const cuuint64_t strides[1] = {(cuuint64_t)D * 2};
     const cuuint32_t box[2] = {64, (cuuint32_t)DA_BLK};
     if (int rc = make_map(&mc, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.cs, dims, strides, box,
                           CU_TENSOR_MAP_SWIZZLE_128B))
@@ -713,37 +763,40 @@ int launch_t(const DecPtrs& p, int T, int H, int Hkv, int S, float scale, int cl
 
 // the rows of a KV head in one, two or four n8 tiles (chunks of 32 past 32)
 template <bool Q8>
-int launch_any(const DecPtrs& p, int T, int H, int Hkv, int S, float scale, int cluster,
+int launch_any(const DecPtrs& p, int T, int H, int Hkv, int S, int D, float scale, int cluster,
                void* stream) {
   if (T < 1 || T > DA_MAX_T || Hkv < 1 || H % Hkv || S < 1) return (int)cudaErrorInvalidValue;
+  if (D < 8 || D > DA_D || D % (Q8 ? 16 : 8)) return (int)cudaErrorInvalidValue;
   const int nblk = (S + DA_BLK - 1) / DA_BLK;
   if (cluster < 1 || cluster > DA_MAX_CLUSTER || cluster > nblk) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int R = T * (H / Hkv);
-  const int rc = R <= 8    ? launch_t<Q8, 1>(p, T, H, Hkv, S, scale, cluster, st)
-                 : R <= 16 ? launch_t<Q8, 2>(p, T, H, Hkv, S, scale, cluster, st)
-                           : launch_t<Q8, 4>(p, T, H, Hkv, S, scale, cluster, st);
+  const int rc = R <= 8    ? launch_t<Q8, 1>(p, T, H, Hkv, S, D, scale, cluster, st)
+                 : R <= 16 ? launch_t<Q8, 2>(p, T, H, Hkv, S, D, scale, cluster, st)
+                           : launch_t<Q8, 4>(p, T, H, Hkv, S, D, scale, cluster, st);
   return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // K3: cluster is the number of CTAs that split a KV head's cells
-// (ops/cuda_attn.py::decode_attn_plan), 1..8 and at most ceil(S / 64).
+// (ops/cuda_attn.py::decode_attn_plan), 1..8 and at most ceil(S / 64); D
+// the head dim, a multiple of 8 up to 128.
 extern "C" int flash_decode_launch(const void* q, const void* qr, const void* k, const void* v,
                                    const void* cs, const void* sn, const void* bias, void* out,
-                                   int T, int H, int Hkv, int S, float scale, int cluster,
-                                   void* stream) {
+                                   int T, int H, int Hkv, int S, int D, float scale,
+                                   int cluster, void* stream) {
   const DecPtrs p{q, qr, k, nullptr, v, nullptr, cs, sn, bias, out};
-  return launch_any<false>(p, T, H, Hkv, S, scale, cluster, stream);
+  return launch_any<false>(p, T, H, Hkv, S, D, scale, cluster, stream);
 }
 
-// K3q: the same on int8 K/V with bf16 scales [Hkv, S] (the trailing 1 dropped).
+// K3q: the same on int8 K/V with bf16 scales [Hkv, S] (the trailing 1
+// dropped); D a multiple of 16 up to 128.
 extern "C" int flash_decode_q8_launch(const void* q, const void* qr, const void* k,
                                       const void* ks, const void* v, const void* vs,
                                       const void* cs, const void* sn, const void* bias,
-                                      void* out, int T, int H, int Hkv, int S, float scale,
-                                      int cluster, void* stream) {
+                                      void* out, int T, int H, int Hkv, int S, int D,
+                                      float scale, int cluster, void* stream) {
   const DecPtrs p{q, qr, k, ks, v, vs, cs, sn, bias, out};
-  return launch_any<true>(p, T, H, Hkv, S, scale, cluster, stream);
+  return launch_any<true>(p, T, H, Hkv, S, D, scale, cluster, stream);
 }

@@ -17,7 +17,17 @@
 //
 // Inputs: q, q_rot bf16 [T, H, D]; K/V bf16 [Hkv, S, D] (K4) or int8
 // [Hkv, S, D] with bf16 scales [Hkv, S] (K4q); cos, sin bf16 [S, D]; bias
-// f32 [T, S]. Output f32 [T, H, D]. D = 128, 64 % G == 0.
+// f32 [T, S]. Output f32 [T, H, D]. D = Dk = Dv a multiple of 8 up to 128
+// (K4q: of 16, the int8 rows' TMA pitch), any G = H / Hkv.
+//
+// Head dims below 128: the CTA holds a block as 128 dims whatever D is. The
+// tensor maps have the true width D, so TMA fills the columns past D of the
+// raw block (and of K4's V tile: its whole second half where D <= 64) with
+// zeros; q's fragments are zero there too, and the zeros add nothing to the
+// scores or to P.V. Only D output columns are stored. The tensor work stays
+// that of D = 128, 128 / D times what D needs (PERF.md). prefill_consumers
+// takes D as a template constant (128 for flash_prefill_wgmma; 64, 80, 96
+// for flash_prefill_wgmma_dim) or at run time (DT = 0: a.D).
 //
 // Bound: operations (6 T H S D: two score dots of D and one P.V of D per
 // query row and cell). The tensor cores need bf16 operands, and the f32
@@ -37,10 +47,13 @@
 // tensor work: 12 T H S D operations, the kernel's floor.
 //
 // Shape of the kernel (warp-specialized, as Hopper attention kernels are):
-//  * a CTA owns 128 query rows (128/G tokens) of one KV head outright and
+//  * a CTA owns 128 query rows r = t*G + g of one KV head outright and
 //    walks all of S in blocks of 64 cells: no split over S and no atomics,
 //    so a launch is deterministic. Grid ceil(T*G/128) x Hkv (128 CTAs at
-//    T = 512, G = 4: one wave on 132 SMs).
+//    T = 512, G = 4: one wave on 132 SMs). Each row is its own softmax, so a
+//    token's G rows may fall in two CTAs (where 128 % G != 0): a row reads
+//    q of its head and the bias row of its token, r / G, as the reference's
+//    T*G tiling does.
 //  * 384 threads: two consumer warpgroups of 64 rows, and a producer
 //    warpgroup (setmaxnreg 56 / 224). The consumers hold their rows' q and
 //    q_rot as wgmma A fragments in registers for the whole launch (64 a
@@ -84,7 +97,7 @@
 
 namespace {
 
-constexpr int FP_D = 128;
+constexpr int FP_D = 128;  // head dims a block holds (D <= 128)
 constexpr float FP_NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int FP_ROWS = 128;  // query rows a CTA
@@ -119,6 +132,7 @@ struct PrefillArgs {
   float* out;
   int T, H, Hkv, S, G;
   float scale;
+  int D;  // head dim (read only by prefill_consumers<0>)
 };
 
 // named barriers between the two consumer warpgroups (256 threads)
@@ -390,8 +404,10 @@ __device__ __forceinline__ void prefill_producer(const PrefillCta& c, const CUte
 }
 
 // the two consumer warpgroups (threads 0 .. FP_CONSUMERS - 1): the CTA's
-// 128 rows over every stage, then the output
+// 128 rows over every stage, then the output. DT: the head dim, 0 = a.D
+template <int DT>
 __device__ __forceinline__ void prefill_consumers(const PrefillCta& c, const PrefillArgs& a) {
+  const int D = DT ? DT : a.D;
   const uint32_t smem_a = c.smem_a, full0 = c.full0, empty0 = c.empty0;
   const int h = c.h, row0 = c.row0, nblk = c.nblk;
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3, wg = threadIdx.x >> 7;
@@ -400,24 +416,28 @@ __device__ __forceinline__ void prefill_consumers(const PrefillCta& c, const Pre
   const int ra = 64 * wg + 16 * warp + gid, rb = ra + 8;
   const int G = a.G;
 
-  // q and q_rot of the two rows as A fragments: [q / q_rot][16-dim step]
+  // q and q_rot of the two rows as A fragments: [q / q_rot][16-dim step];
+  // dims past D zero
   uint32_t qf[2][8][4];
   {
     const int Ra = row0 + ra, Rb = row0 + rb;
     const bool oka = Ra / G < a.T, okb = Rb / G < a.T;
-    const size_t offa = ((size_t)(Ra / G) * a.H + h * G + Ra % G) * FP_D + 2 * t4;
-    const size_t offb = ((size_t)(Rb / G) * a.H + h * G + Rb % G) * FP_D + 2 * t4;
+    const size_t offa = ((size_t)(Ra / G) * a.H + h * G + Ra % G) * D + 2 * t4;
+    const size_t offb = ((size_t)(Rb / G) * a.H + h * G + Rb % G) * D + 2 * t4;
 #pragma unroll
     for (int w = 0; w < 2; ++w) {
       const __nv_bfloat16* src = w ? a.qr : a.q;
 #pragma unroll
       for (int ks = 0; ks < 8; ++ks) {
-        qf[w][ks][0] = oka ? __ldg(reinterpret_cast<const uint32_t*>(src + offa + 16 * ks)) : 0u;
-        qf[w][ks][1] = okb ? __ldg(reinterpret_cast<const uint32_t*>(src + offb + 16 * ks)) : 0u;
+        const bool lo = DT == FP_D || 16 * ks < D, hi = DT == FP_D || 16 * ks + 8 < D;
+        qf[w][ks][0] =
+            oka && lo ? __ldg(reinterpret_cast<const uint32_t*>(src + offa + 16 * ks)) : 0u;
+        qf[w][ks][1] =
+            okb && lo ? __ldg(reinterpret_cast<const uint32_t*>(src + offb + 16 * ks)) : 0u;
         qf[w][ks][2] =
-            oka ? __ldg(reinterpret_cast<const uint32_t*>(src + offa + 16 * ks + 8)) : 0u;
+            oka && hi ? __ldg(reinterpret_cast<const uint32_t*>(src + offa + 16 * ks + 8)) : 0u;
         qf[w][ks][3] =
-            okb ? __ldg(reinterpret_cast<const uint32_t*>(src + offb + 16 * ks + 8)) : 0u;
+            okb && hi ? __ldg(reinterpret_cast<const uint32_t*>(src + offb + 16 * ks + 8)) : 0u;
       }
     }
   }
@@ -572,19 +592,22 @@ __device__ __forceinline__ void prefill_consumers(const PrefillCta& c, const Pre
     const int t = R / G;
     if (t >= a.T) continue;
     const float inv = 1.f / fmaxf(half ? lb : la, 1e-30f);
-    float* dst = a.out + ((size_t)t * a.H + h * G + R % G) * FP_D + 2 * t4;
+    float* dst = a.out + ((size_t)t * a.H + h * G + R % G) * D + 2 * t4;
 #pragma unroll
     for (int i = 0; i < 16; ++i)
-      *reinterpret_cast<float2*>(dst + 8 * i) =
-          make_float2(o[4 * i + 2 * half] * inv, o[4 * i + 2 * half + 1] * inv);
+      if (DT == FP_D || 8 * i < D)
+        *reinterpret_cast<float2*>(dst + 8 * i) =
+            make_float2(o[4 * i + 2 * half] * inv, o[4 * i + 2 * half + 1] * inv);
   }
 }
 
-// a tiled map of a row-major bf16 or byte array, dims innermost first
+// a tiled map of a row-major bf16 or byte array [heads][rows][D], dims
+// innermost first: a box's columns past D read as zero
 int raw_map(CUtensorMap* m, CUtensorMapDataType dt, int rank, const void* base, int es,
-            cuuint64_t rows, cuuint64_t heads, CUtensorMapSwizzle swz, cuuint32_t box0) {
-  const cuuint64_t dims[3] = {FP_D, rows, heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)FP_D * es, rows * FP_D * es};
+            cuuint64_t D, cuuint64_t rows, cuuint64_t heads, CUtensorMapSwizzle swz,
+            cuuint32_t box0) {
+  const cuuint64_t dims[3] = {D, rows, heads};
+  const cuuint64_t strides[2] = {D * es, rows * D * es};
   const cuuint32_t box[3] = {box0, FP_SB, 1};
   return make_map(m, dt, rank, base, dims, strides, box, swz);
 }
@@ -595,13 +618,13 @@ template <bool Q8>
 int prefill_maps(const PrefillArgs& a, CUtensorMap (&m)[4]) {
   const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   const CUtensorMapSwizzle none = CU_TENSOR_MAP_SWIZZLE_NONE;
-  const cuuint64_t S = a.S, Hkv = a.Hkv;
-  int rc = Q8 ? raw_map(&m[0], u8, 3, a.k, 1, S, Hkv, none, FP_D)
-              : raw_map(&m[0], bf, 3, a.k, 2, S, Hkv, none, FP_D);
-  if (!rc) rc = Q8 ? raw_map(&m[1], u8, 3, a.v, 1, S, Hkv, none, FP_D)
-                   : raw_map(&m[1], bf, 3, a.v, 2, S, Hkv, CU_TENSOR_MAP_SWIZZLE_128B, 64);
-  if (!rc) rc = raw_map(&m[2], bf, 2, a.cs, 2, S, 1, none, FP_D);
-  if (!rc) rc = raw_map(&m[3], bf, 2, a.sn, 2, S, 1, none, FP_D);
+  const cuuint64_t S = a.S, Hkv = a.Hkv, D = a.D;
+  int rc = Q8 ? raw_map(&m[0], u8, 3, a.k, 1, D, S, Hkv, none, FP_D)
+              : raw_map(&m[0], bf, 3, a.k, 2, D, S, Hkv, none, FP_D);
+  if (!rc) rc = Q8 ? raw_map(&m[1], u8, 3, a.v, 1, D, S, Hkv, none, FP_D)
+                   : raw_map(&m[1], bf, 3, a.v, 2, D, S, Hkv, CU_TENSOR_MAP_SWIZZLE_128B, 64);
+  if (!rc) rc = raw_map(&m[2], bf, 2, a.cs, 2, D, S, 1, none, FP_D);
+  if (!rc) rc = raw_map(&m[3], bf, 2, a.sn, 2, D, S, 1, none, FP_D);
   return rc;
 }
 
@@ -611,12 +634,13 @@ inline dim3 prefill_grid(const PrefillArgs& a) {
 
 PrefillArgs args_of(const void* q, const void* qr, const void* k, const void* ks,
                     const void* v, const void* vs, const void* cs, const void* sn,
-                    const void* bias, void* out, int T, int H, int Hkv, int S, float scale) {
+                    const void* bias, void* out, int T, int H, int Hkv, int S, int D,
+                    float scale) {
   return PrefillArgs{(const __nv_bfloat16*)q,  (const __nv_bfloat16*)qr, k,
                      (const __nv_bfloat16*)ks, v,
                      (const __nv_bfloat16*)vs, (const __nv_bfloat16*)cs,
                      (const __nv_bfloat16*)sn, (const float*)bias,
-                     (float*)out,              T, H, Hkv, S, H / Hkv, scale};
+                     (float*)out,              T, H, Hkv, S, H / Hkv, scale, D};
 }
 
 }  // namespace

@@ -67,7 +67,7 @@ flash_prefill_part(const __grid_constant__ CUtensorMap tmk, const __grid_constan
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(FP_CONSUMER_REGS));
   if (PART == 2)
-    prefill_consumers(c, a);
+    prefill_consumers<FP_D>(c, a);
   else
     drain_stages(c);
 }
@@ -96,7 +96,7 @@ extern "C" int flash_prefill_part_launch(int part, int q8, const void* q, const 
                                          const void* vs, const void* cs, const void* sn,
                                          const void* bias, void* out, int T, int H, int Hkv,
                                          int S, float scale, void* stream) {
-  const PrefillArgs a = args_of(q, qr, k, ks, v, vs, cs, sn, bias, out, T, H, Hkv, S, scale);
+  const PrefillArgs a = args_of(q, qr, k, ks, v, vs, cs, sn, bias, out, T, H, Hkv, S, FP_D, scale);
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (part == 1) return q8 ? launch_part<true, 1>(a, st) : launch_part<false, 1>(a, st);
   if (part == 2) return q8 ? launch_part<true, 2>(a, st) : launch_part<false, 2>(a, st);

@@ -154,25 +154,43 @@ def tensor_nbytes(ggml_type: GGMLType | int, shape: tuple[int, ...]) -> int:
 
 
 class Keys:
-    """The metadata keys the llama path reads (part of the file format)."""
+    """The well-known metadata keys (part of the file format)."""
 
     class General:
         ARCHITECTURE = "general.architecture"
+        NAME = "general.name"
+        QUANTIZATION_VERSION = "general.quantization_version"
         ALIGNMENT = "general.alignment"
+        FILE_TYPE = "general.file_type"
 
     class LLM:  # format with .format(arch=...)
         CONTEXT_LENGTH = "{arch}.context_length"
         EMBEDDING_LENGTH = "{arch}.embedding_length"
         BLOCK_COUNT = "{arch}.block_count"
         FEED_FORWARD_LENGTH = "{arch}.feed_forward_length"
+        EXPERT_FEED_FORWARD_LENGTH = "{arch}.expert_feed_forward_length"
+        USE_PARALLEL_RESIDUAL = "{arch}.use_parallel_residual"
         EXPERT_COUNT = "{arch}.expert_count"
         EXPERT_USED_COUNT = "{arch}.expert_used_count"
+        EXPERT_SHARED_COUNT = "{arch}.expert_shared_count"
+        EXPERT_WEIGHTS_SCALE = "{arch}.expert_weights_scale"
+        EXPERT_WEIGHTS_NORM = "{arch}.expert_weights_norm"
+        EXPERT_GATING_FUNC = "{arch}.expert_gating_func"
         VOCAB_SIZE = "{arch}.vocab_size"
+
+    class SSM:  # state-space models (llama-arch.cpp:170-175)
+        CONV_KERNEL = "{arch}.ssm.conv_kernel"
+        INNER_SIZE = "{arch}.ssm.inner_size"
+        STATE_SIZE = "{arch}.ssm.state_size"
+        TIME_STEP_RANK = "{arch}.ssm.time_step_rank"
+        GROUP_COUNT = "{arch}.ssm.group_count"
+        DT_B_C_RMS = "{arch}.ssm.dt_b_c_rms"
 
     class Attention:
         HEAD_COUNT = "{arch}.attention.head_count"
         HEAD_COUNT_KV = "{arch}.attention.head_count_kv"
         LAYERNORM_RMS_EPS = "{arch}.attention.layer_norm_rms_epsilon"
+        LAYERNORM_EPS = "{arch}.attention.layer_norm_epsilon"
         KEY_LENGTH = "{arch}.attention.key_length"
         VALUE_LENGTH = "{arch}.attention.value_length"
         SLIDING_WINDOW = "{arch}.attention.sliding_window"
@@ -185,8 +203,60 @@ class Keys:
         SCALING_FACTOR = "{arch}.rope.scaling.factor"
         SCALING_ATTN_FACTOR = "{arch}.rope.scaling.attn_factor"
         SCALING_ORIG_CTX = "{arch}.rope.scaling.original_context_length"
+        SCALING_FINETUNED = "{arch}.rope.scaling.finetuned"
+        SCALING_YARN_LOG_MUL = "{arch}.rope.scaling.yarn_log_multiplier"
         SCALING_BETA_FAST = "{arch}.rope.scaling.beta_fast"
         SCALING_BETA_SLOW = "{arch}.rope.scaling.beta_slow"
 
     class Tokenizer:
+        MODEL = "tokenizer.ggml.model"
+        PRE = "tokenizer.ggml.pre"
         LIST = "tokenizer.ggml.tokens"
+        TOKEN_TYPE = "tokenizer.ggml.token_type"
+        SCORES = "tokenizer.ggml.scores"
+        MERGES = "tokenizer.ggml.merges"
+        BOS_ID = "tokenizer.ggml.bos_token_id"
+        EOS_ID = "tokenizer.ggml.eos_token_id"
+        EOT_ID = "tokenizer.ggml.eot_token_id"
+        UNK_ID = "tokenizer.ggml.unknown_token_id"
+        SEP_ID = "tokenizer.ggml.seperator_token_id"
+        PAD_ID = "tokenizer.ggml.padding_token_id"
+        ADD_BOS = "tokenizer.ggml.add_bos_token"
+        ADD_EOS = "tokenizer.ggml.add_eos_token"
+        ADD_SPACE_PREFIX = "tokenizer.ggml.add_space_prefix"
+        REMOVE_EXTRA_WS = "tokenizer.ggml.remove_extra_whitespaces"
+        PRECOMPILED_CHARSMAP = "tokenizer.ggml.precompiled_charsmap"
+        FIM_PRE_ID = "tokenizer.ggml.fim_pre_token_id"
+        FIM_SUF_ID = "tokenizer.ggml.fim_suf_token_id"
+        FIM_MID_ID = "tokenizer.ggml.fim_mid_token_id"
+        FIM_PAD_ID = "tokenizer.ggml.fim_pad_token_id"
+        FIM_REP_ID = "tokenizer.ggml.fim_rep_token_id"
+        FIM_SEP_ID = "tokenizer.ggml.fim_sep_token_id"
+        # legacy FIM key names (pre-rename)
+        PREFIX_ID = "tokenizer.ggml.prefix_token_id"
+        SUFFIX_ID = "tokenizer.ggml.suffix_token_id"
+        MIDDLE_ID = "tokenizer.ggml.middle_token_id"
+        CHAT_TEMPLATE = "tokenizer.chat_template"
+
+
+# llama_ftype-style file-level quant presets (llama.h): informational only.
+class FileType(enum.IntEnum):
+    ALL_F32 = 0
+    MOSTLY_F16 = 1
+    MOSTLY_Q4_0 = 2
+    MOSTLY_Q4_1 = 3
+    MOSTLY_Q8_0 = 7
+    MOSTLY_Q5_0 = 8
+    MOSTLY_Q5_1 = 9
+    MOSTLY_Q2_K = 10
+    MOSTLY_Q3_K_S = 11
+    MOSTLY_Q3_K_M = 12
+    MOSTLY_Q3_K_L = 13
+    MOSTLY_Q4_K_S = 14
+    MOSTLY_Q4_K_M = 15
+    MOSTLY_Q5_K_S = 16
+    MOSTLY_Q5_K_M = 17
+    MOSTLY_Q6_K = 18
+    MOSTLY_IQ4_NL = 25
+    MOSTLY_IQ4_XS = 30
+    MOSTLY_BF16 = 32

@@ -24,9 +24,13 @@ index, whose matmuls run K7 on the stacked planes, the index read on the
 card. K6's gates refuse a StackedWeight, as the reference's refuse anything
 but a QTensor: under chain the layers run unchained, the lm_head on K6.
 
-A q8_0 cache with group scales (head_dim not a multiple of 128) has no
-flash kernel, as in the reference: on the CPU it is dequantized (kv_read)
-and goes through the unfused attention; on the card it raises.
+A q8_0 cache with group scales (kv_cache.kv_group: head_dim 64 or 96, any
+multiple of 32 but not of 128) has no flash kernel, as in the reference
+(its use_flash gate, llm_tpu/models/transformer.py:389-392): it is
+dequantized (kv_read) and goes through the unfused attention, on the CPU
+and on the card alike, chosen by the scales' shape. Every other cache runs
+K3/K3q/K4/K4q at any head dim that is a multiple of 8 up to 128; on the
+card check_supported refuses a wider one up front.
 
 It runs eagerly and updates the KV cache tensors in place (the JAX
 package donates them to a jitted step instead). Variants of the llama
@@ -40,12 +44,14 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import attention, build_attn_bias
-from ..ops.cuda_attn import expand_tables, flash_decode, flash_prefill, rope_companion
+from ..ops.cuda_attn import (MAX_HEAD_DIM, expand_tables, flash_decode, flash_prefill,
+                             head_dim_ok, rope_companion)
 from ..ops.cuda_qmm_chain import head_eligible, is_kmajor_qt, layer_tail, norm_mm, tail_eligible
 from ..ops.norms import rms_norm
 from ..ops.qmatmul import qembed, qmm
 from ..ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NORM, apply_rope, rope_angles
 from ..quant.qtensor import QTensor, StackedWeight
+from ..runtime.kv_cache import kv_group
 from .config import ModelConfig
 
 _UNSUPPORTED = (
@@ -63,7 +69,31 @@ _LAYER_KEYS = {"attn_norm", "ffn_norm", "attn_q", "attn_k", "attn_v", "attn_qkv_
                "attn_output", "ffn_gate", "ffn_up", "ffn_gateup_fused", "ffn_down"}
 
 
-def check_supported(params: dict, cfg: ModelConfig) -> None:
+def check_attention(cfg: ModelConfig, on_card: bool, kv_q8: bool = False) -> None:
+    """On the card every attention step runs a flash kernel (or, for a q8_0
+    cache with group scales, the unfused attention): refuse up front the
+    head dims the kernels do not take. The reference's gate takes any
+    multiple of 8 (llm_tpu/models/transformer.py:361-368); its wider heads
+    (gemma's 256) and Dk != Dv (MLA) are ROADMAP Queue 3's open remainder
+    and Queue 1 items 8 (MLA, gemma)."""
+    if not on_card:
+        return
+    dk, dv = cfg.head_dim, cfg.head_dim_v
+    if dk != dv or not head_dim_ok(dk):
+        raise NotImplementedError(
+            f"head dims Dk={dk}, Dv={dv} are not ported on the card: the flash kernels "
+            f"take Dk = Dv, a multiple of 8 up to {MAX_HEAD_DIM} (ROADMAP Queue 3, "
+            f"head dims above 128)")
+    if kv_q8 and kv_group(dk) == dk and not head_dim_ok(dk, q8=True):
+        raise NotImplementedError(
+            f"a q8_0 cache at head_dim {dk} is not ported on the card: its rows carry one "
+            f"scale each, and K3q/K4q need a head_dim that is a multiple of 16 (the int8 "
+            f"rows' TMA pitch; ROADMAP Queue 3)")
+
+
+def check_supported(params: dict, cfg: ModelConfig, kv_q8: bool = False) -> None:
+    """Refuse what the forward does not port. kv_q8: whether the cache is
+    q8_0."""
     for name, default, what in _UNSUPPORTED:
         if getattr(cfg, name) != default:
             raise NotImplementedError(f"{what} is not ported yet")
@@ -80,6 +110,7 @@ def check_supported(params: dict, cfg: ModelConfig) -> None:
     n_layers = n_stacked(stacked) if stacked is not None else len(params["layers"])
     if n_layers != cfg.n_layers:
         raise ValueError(f"params hold {n_layers} layers, the config {cfg.n_layers}")
+    check_attention(cfg, _leaf(params["tok_embd"]).is_cuda, kv_q8)
 
 
 def _leaf(v) -> torch.Tensor:
@@ -169,7 +200,7 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
     chained kernel and the group-factored matmul (module docstring).
     stacked_layers: for params with "layers_stacked", the per-layer dicts
     that layer_views makes of them, which the caller makes once."""
-    check_supported(params, cfg)
+    check_supported(params, cfg, kv_q8=isinstance(kv_k[0], tuple))
     rope = cfg.rope
     ff = params.get("rope_freqs")
     H, Hkv, Dk, Dv = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim_v
@@ -187,10 +218,9 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
     bias = build_attn_bias(tok_pos, tok_seq, cell_pos, cell_seq_bits)
     fattn = flash_decode if T <= 8 else flash_prefill
     keep = kept_rows(write_idx, cell_pos.shape[0])
-    # a q8_0 cache with group scales has no flash kernel (reference:
-    # transformer.py's use_flash); on the card the kernel wrapper raises
-    unfused = (isinstance(kv_k[0], tuple) and kv_k[0][1].shape[-1] != 1
-               and not x.is_cuda)
+    # a q8_0 cache with group scales has no flash kernel: the unfused
+    # attention, on either device, as the reference's use_flash gate
+    unfused = isinstance(kv_k[0], tuple) and kv_k[0][1].shape[-1] != 1
 
     layers = params["layers"]
     if params.get("layers_stacked") is not None:

@@ -22,8 +22,15 @@ and P.V on the tensor cores with exact bf16 hi + lo operands, the ranks'
 states combined through distributed shared memory (no scratch, output
 bit-identical from launch to launch). flash_prefill (T > 8) launches
 csrc/flash_prefill.cu (K4, K4q), a library of its own: the wgmma kernel
-whose operands are the same exact splits of k*cos, k*sin and p. Both take
-the plain version for CPU tensors.
+whose operands are the same exact splits of k*cos, k*sin and p, at any G.
+Both take the plain version for CPU tensors.
+
+The kernels take any head dim D = Dk = Dv that is a multiple of 8 up to
+128 (the int8 cache: of 16, since TMA needs its rows' pitch a multiple of
+16 bytes), as the reference's flash gate does up to 128: a block is held as
+128 dims, the columns past D arrive from TMA as zeros. A wider head
+(gemma's 256) is refused here and, up front, by models/transformer.py's
+check_supported (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -50,6 +57,13 @@ LAUNCHES = {"K3": 0, "K4": 0, "K3q": 0, "K4q": 0}
 # of 12 and 16 lost to 8 at every swept shape: a cluster of 16 such CTAs
 # needs 16 free SMs of one GPC, which not every GPC of the card has.
 DECODE_BLOCK, DECODE_ROWS, DECODE_MAX_T, DECODE_MAX_CLUSTER = 64, 32, 8, 8
+MAX_HEAD_DIM = 128  # the head dims a kernel's block holds
+
+
+def head_dim_ok(d: int, q8: bool = False) -> bool:
+    """Whether the flash kernels take head dim d: a multiple of 8 (of 16 on
+    the int8 cache: its rows' TMA pitch) up to MAX_HEAD_DIM."""
+    return 0 < d <= MAX_HEAD_DIM and d % (16 if q8 else 8) == 0
 
 
 def reset_launches() -> None:
@@ -98,11 +112,11 @@ def _lib():
     lib = cuda_build.load("flash_attn")
     if lib.flash_decode_launch.argtypes is None:
         lib.flash_decode_launch.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.flash_decode_launch.restype = ctypes.c_int
         lib.flash_decode_q8_launch.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.flash_decode_q8_launch.restype = ctypes.c_int
     return lib
@@ -112,11 +126,11 @@ def _prefill_lib():
     lib = cuda_build.load("flash_prefill")
     if lib.flash_prefill_launch.argtypes is None:
         lib.flash_prefill_launch.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
             + [ctypes.c_float, ctypes.c_void_p])
         lib.flash_prefill_launch.restype = ctypes.c_int
         lib.flash_prefill_q8_launch.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
             + [ctypes.c_float, ctypes.c_void_p])
         lib.flash_prefill_q8_launch.restype = ctypes.c_int
     return lib
@@ -124,11 +138,13 @@ def _prefill_lib():
 
 def _check_inputs(q, q_rot, k, v, cos, sin, bias, kv_dtype=torch.bfloat16):
     """Checks every input of a flash kernel; k, v are tensors of kv_dtype.
-    Returns (T, H, Hkv, S)."""
+    Returns (T, H, Hkv, S, D)."""
     T, H, D = q.shape
     Hkv, S, Dv = v.shape
-    if D != 128 or Dv != 128 or H % Hkv:
-        raise ValueError(f"flash kernels take head_dim 128 and H % Hkv == 0 "
+    q8 = kv_dtype == torch.int8
+    if Dv != D or not head_dim_ok(D, q8) or H % Hkv:
+        raise ValueError(f"flash kernels take Dk = Dv, a multiple of {16 if q8 else 8} up to "
+                         f"{MAX_HEAD_DIM}, and H % Hkv == 0 "
                          f"(got D={D}, Dv={Dv}, H={H}, Hkv={Hkv})")
     for name, t, dt in (("q", q, torch.bfloat16), ("q_rot", q_rot, torch.bfloat16),
                         ("k", k, kv_dtype), ("v", v, kv_dtype),
@@ -140,7 +156,7 @@ def _check_inputs(q, q_rot, k, v, cos, sin, bias, kv_dtype=torch.bfloat16):
             or tuple(sin.shape) != (S, D) or tuple(bias.shape) != (T, S) \
             or tuple(q_rot.shape) != (T, H, D):
         raise ValueError("flash kernel: inconsistent shapes")
-    return T, H, Hkv, S
+    return T, H, Hkv, S, D
 
 
 def _check_q8(q, q_rot, k, v, cos, sin, bias):
@@ -191,16 +207,16 @@ def _decode_launch(q8: bool, q, q_rot, k, v, cos, sin, bias, scale: float,
     """Launch K3 (bf16 k, v) or K3q (q8: (int8, scales) pairs) with
     `cluster` CTAs a KV head (None: decode_attn_plan's). Returns [T, H, D]
     f32."""
-    T, H, Hkv, S = (_check_q8 if q8 else _check_inputs)(q, q_rot, k, v, cos, sin, bias)
+    T, H, Hkv, S, D = (_check_q8 if q8 else _check_inputs)(q, q_rot, k, v, cos, sin, bias)
     planes = (*k, *v) if q8 else (k, v)
     _check_decode(T, q, q_rot, *planes, cos, sin, bias)
     if cluster is None:
         cluster = decode_attn_plan(T, H, Hkv, S, sm_count(q.device))[0]
-    out = torch.empty((T, H, 128), dtype=torch.float32, device=q.device)
+    out = torch.empty((T, H, D), dtype=torch.float32, device=q.device)
     ptrs = [t.data_ptr() for t in (q, q_rot, *planes, cos, sin, bias, out)]
     lib = _lib()
     fn = lib.flash_decode_q8_launch if q8 else lib.flash_decode_launch
-    rc = fn(*ptrs, T, H, Hkv, S, float(scale), int(cluster),
+    rc = fn(*ptrs, T, H, Hkv, S, D, float(scale), int(cluster),
             torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(rc, "flash_decode_q8_launch" if q8 else "flash_decode_launch")
     LAUNCHES["K3q" if q8 else "K3"] += 1
@@ -218,14 +234,13 @@ def flash_decode_q8_cuda(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.
 
 
 def flash_prefill_cuda(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Tensor:
-    T, H, Hkv, S = _check_inputs(q, q_rot, k, v, cos, sin, bias)
-    if 64 % (H // Hkv):
-        raise ValueError("flash_prefill kernel needs 64 % (H // Hkv) == 0")
-    out = torch.empty((T, H, 128), dtype=torch.float32, device=q.device)
+    """K4 on a bf16 cache, any G = H / Hkv."""
+    T, H, Hkv, S, D = _check_inputs(q, q_rot, k, v, cos, sin, bias)
+    out = torch.empty((T, H, D), dtype=torch.float32, device=q.device)
     rc = _prefill_lib().flash_prefill_launch(
         q.data_ptr(), q_rot.data_ptr(), k.data_ptr(), v.data_ptr(),
         cos.data_ptr(), sin.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        T, H, Hkv, S, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        T, H, Hkv, S, D, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(rc, "flash_prefill_launch")
     LAUNCHES["K4"] += 1
     return out
@@ -233,15 +248,13 @@ def flash_prefill_cuda(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Te
 
 def flash_prefill_q8_cuda(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Tensor:
     """K4q: K4 on (int8, scales [Hkv, S, 1]) pairs."""
-    T, H, Hkv, S = _check_q8(q, q_rot, k, v, cos, sin, bias)
-    if 64 % (H // Hkv):
-        raise ValueError("flash_prefill kernel needs 64 % (H // Hkv) == 0")
-    out = torch.empty((T, H, 128), dtype=torch.float32, device=q.device)
+    T, H, Hkv, S, D = _check_q8(q, q_rot, k, v, cos, sin, bias)
+    out = torch.empty((T, H, D), dtype=torch.float32, device=q.device)
     (kq, ks), (vq, vs) = k, v
     rc = _prefill_lib().flash_prefill_q8_launch(
         q.data_ptr(), q_rot.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
         vs.data_ptr(), cos.data_ptr(), sin.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        T, H, Hkv, S, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        T, H, Hkv, S, D, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(rc, "flash_prefill_q8_launch")
     LAUNCHES["K4q"] += 1
     return out

@@ -2,7 +2,10 @@
 llm_tpu/runtime/engine.py::Context for the llama path: decode(batch) with
 ubatch splitting, KV slot allocation and the logits output map; an
 eager generation loop (greedy, or temperature/top-k through a
-torch.Generator); and the sequence ops on the cell table.
+torch.Generator); the sequence ops on the cell table; and the perf
+counters (PerfCounters, ctx.perf) that tools/cli.py prints, counted as the
+reference counts them: a ubatch of more than one token is prefill, a
+one-token decode and every token of generate_loop is decode.
 
 Steps run eagerly on `device` (default: the card). Token counts are padded
 to TOKEN_BUCKETS so every step has one of a few static shapes (what a
@@ -13,6 +16,9 @@ Return codes follow llama_decode: 0 ok, 1 no KV slot, -1 invalid.
 """
 
 from __future__ import annotations
+
+import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -33,6 +39,27 @@ def _bucket(n: int, buckets=TOKEN_BUCKETS) -> int:
         if n <= b:
             return b
     return ((n + buckets[-1] - 1) // buckets[-1]) * buckets[-1]
+
+
+@dataclass
+class PerfCounters:
+    """llama_perf_context analogue (llama.h:1440-1447); the reference's
+    PerfCounters, with the same summary text."""
+
+    t_load_ms: float = 0.0
+    t_prefill_ms: float = 0.0
+    t_decode_ms: float = 0.0
+    n_prefill: int = 0
+    n_decode: int = 0
+
+    def summary(self) -> str:
+        pp = self.n_prefill / self.t_prefill_ms * 1e3 if self.t_prefill_ms else 0.0
+        tg = self.n_decode / self.t_decode_ms * 1e3 if self.t_decode_ms else 0.0
+        return (
+            f"load {self.t_load_ms:.0f} ms | "
+            f"prefill {self.n_prefill} tok @ {pp:.2f} t/s | "
+            f"decode {self.n_decode} tok @ {tg:.2f} t/s"
+        )
 
 
 def params_to(params, device):
@@ -63,6 +90,7 @@ class Context:
         layers that do not stack run per layer, as in the reference. Params
         that come stacked (params["layers_stacked"]) run stacked whatever the
         option."""
+        t0 = time.perf_counter()
         self.device = resolve_device(device)
         if params_cfg is not None:
             params, self.cfg = params_cfg
@@ -74,20 +102,23 @@ class Context:
         else:
             self.params, self.cfg = load_params(reader, dense_dtype=dtype,
                                                 device=self.device, scan_layers=scan_layers)
-        check_supported(self.params, self.cfg)
+        self.kv_dtype = kv_dtype if kv_dtype is not None else dtype
+        check_supported(self.params, self.cfg, kv_q8=self.kv_dtype == "q8_0")
         self.scan = "layers_stacked" in self.params
         # the layers' dicts of StackedWeights on the stacked planes, made once
         self.stacked_layers = (layer_views(self.params["layers_stacked"])
                                if self.scan else None)
         self.dtype = dtype
         self.chain, self.gdot = chain, gdot
-        self.kv_dtype = kv_dtype if kv_dtype is not None else dtype
         self.n_cells = n_cells
         self.cells = CellTable(n_cells)
         cfg = self.cfg
         self.kv = new_kv_arrays(cfg.n_layers, n_cells, cfg.n_kv_heads, cfg.head_dim,
                                 cfg.head_dim_v, self.kv_dtype, self.device)
         self._logits: dict[int, np.ndarray] = {}
+        self.rslots = None  # recurrent state slots: no recurrent model is ported
+        self.perf = PerfCounters()
+        self.perf.t_load_ms = (time.perf_counter() - t0) * 1e3
 
     def _t(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int64)).to(self.device)
@@ -113,6 +144,7 @@ class Context:
             slots = self.cells.find_slots(n)
             if slots is None:
                 return 1
+            t0 = time.perf_counter()
             T = _bucket(n)
             out_rows = np.flatnonzero(ub.out_mask)
             O = _bucket(max(1, len(out_rows)))
@@ -136,6 +168,13 @@ class Context:
             logits_np = logits[: len(out_rows)].float().cpu().numpy()
             for i, bi in enumerate(ub.orig_index[out_rows]):
                 self._logits[int(bi)] = logits_np[i]
+            dt = (time.perf_counter() - t0) * 1e3
+            if n > 1:
+                self.perf.t_prefill_ms += dt
+                self.perf.n_prefill += n
+            else:
+                self.perf.t_decode_ms += dt
+                self.perf.n_decode += 1
         return 0
 
     def get_logits(self, i: int = -1) -> np.ndarray:
@@ -161,6 +200,7 @@ class Context:
         if slots is None:
             raise RuntimeError("generate_loop: no free KV cells")
         pos0 = self.cells.seq_pos_max(seq_id) + 1
+        t0 = time.perf_counter()
         cpos = self.cells.pos.astype(np.int64)
         cpos[slots] = pos0 + np.arange(n)
         cpos = self._t(cpos)
@@ -196,6 +236,8 @@ class Context:
         self.cells.occupy(slots[:cnt], pos0 + np.arange(cnt, dtype=np.int32),
                           np.full(cnt, seq_id, np.int64))
         self._logits.clear()
+        self.perf.t_decode_ms += (time.perf_counter() - t0) * 1e3
+        self.perf.n_decode += cnt
         return out
 
     # -- memory (seq) API ------------------------------------------------------

@@ -126,8 +126,8 @@ def host_us(kv: str, T: int, S: int, n: int = 2000) -> dict:
     encode = _encode_maps(kv, inp, S)
     calls = {
         "wrapper": lambda: cuda_attn._decode_launch(q8, **inp, scale=scale),
-        "library": lambda: fn(*ptrs, T, H, HKV, S, scale, cluster, stream),
-        "library_refused": lambda: fn(*ptrs, T, H, HKV, S, scale, 0, stream),
+        "library": lambda: fn(*ptrs, T, H, HKV, S, D, scale, cluster, stream),
+        "library_refused": lambda: fn(*ptrs, T, H, HKV, S, D, scale, 0, stream),
         "encode_4_maps": encode,
     }
     rec = dict(kernel="K3q" if q8 else "K3", shape=f"T={T} S={S} H={H} Hkv={HKV} D={D}",

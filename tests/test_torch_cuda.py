@@ -181,9 +181,8 @@ def test_out_dtype_bf16_is_the_f32_result_rounded(cuda_device, B, gdot):
         assert torch.equal(got, b16)
 
 
-def _attn_inputs(T, H, Hkv, S, mode, seed=0):
+def _attn_inputs(T, H, Hkv, S, mode, seed=0, D=128):
     g = torch.Generator().manual_seed(seed)
-    D = 128
     q = torch.randn((T, H, D), generator=g).to(torch.bfloat16)
     k = torch.randn((Hkv, S, D), generator=g).to(torch.bfloat16)
     v = torch.randn((Hkv, S, D), generator=g).to(torch.bfloat16)
@@ -278,12 +277,71 @@ def test_flash_decode_is_bit_identical_from_launch_to_launch(cuda_device, q8, T,
                                atol=1e-3, rtol=1e-3)
 
 
-@pytest.mark.parametrize("H,Hkv,D,q_dtype", [(6, 2, 128, torch.bfloat16),   # G = 3: 64 % G != 0
-                                              (8, 2, 64, torch.bfloat16),    # head_dim 64
+# the head dims and GQA groups past LLAMA3_8B's: D = 64 (Llama-3.2-1B), 80,
+# 96 and a D the kernels take at run time (40); G = 3 (Llama-3.2-3B) at 128
+# and 64. (T, H, Hkv, S, D); T <= 8 runs K3, T > 8 K4
+DIM_CASES = [(1, 32, 8, 4096, 64), (8, 32, 8, 4096, 64), (512, 32, 8, 4096, 64),
+             (1, 16, 8, 1000, 80), (40, 16, 8, 1000, 80), (3, 8, 2, 333, 96),
+             (100, 8, 2, 4001, 96), (2, 8, 2, 200, 40), (24, 8, 2, 200, 40),
+             (1, 24, 8, 4096, 128), (8, 24, 8, 4096, 128), (512, 24, 8, 4096, 128),
+             (130, 6, 2, 1000, 64), (513, 24, 8, 1024, 128)]
+
+
+@pytest.mark.parametrize("mode", [ROPE_TYPE_NORM, ROPE_TYPE_NEOX], ids=["norm", "neox"])
+@pytest.mark.parametrize("T,H,Hkv,S,D", DIM_CASES)
+def test_flash_kernels_match_plain_at_any_head_dim_and_group(cuda_device, T, H, Hkv, S, D,
+                                                             mode):
+    """K3/K4 at head dims below 128 (the blocks' columns past D zero) and at
+    G = 3 (a token's rows split over two CTAs of K4) against attn_plain."""
+    t = _attn_inputs(T, H, Hkv, S, mode, D=D)
+    fn = cuda_attn.flash_decode if T <= 8 else cuda_attn.flash_prefill
+    kern = "K3" if T <= 8 else "K4"
+    launched = cuda_attn.LAUNCHES[kern]
+    got = fn(**{n: a.to(cuda_device) for n, a in t.items()}, scale=D ** -0.5).cpu()
+    want = cuda_attn.attn_plain(**t, scale=D ** -0.5)
+    assert cuda_attn.LAUNCHES[kern] == launched + 1
+    assert got.shape == (T, H, D) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+
+
+# the int8 cache keeps one scale a row at D = 80 and 112 (kv_group) and at
+# 128; G = 3 at 128
+Q8_DIM_CASES = [(1, 16, 8, 4096, 80), (8, 16, 8, 4096, 80), (512, 16, 8, 4096, 80),
+                (3, 8, 2, 333, 112), (40, 8, 2, 333, 112), (1, 24, 8, 4096, 128),
+                (512, 24, 8, 4096, 128)]
+
+
+@pytest.mark.parametrize("T,H,Hkv,S,D", Q8_DIM_CASES)
+def test_flash_q8_kernels_match_plain_at_any_head_dim_and_group(cuda_device, T, H, Hkv, S, D):
+    t = _attn_inputs(T, H, Hkv, S, ROPE_TYPE_NEOX, D=D)
+    t["k"], t["v"] = _q8(t["k"]), _q8(t["v"])
+    dev = {n: (tuple(x.to(cuda_device) for x in a) if isinstance(a, tuple)
+               else a.to(cuda_device)) for n, a in t.items()}
+    fn = cuda_attn.flash_decode if T <= 8 else cuda_attn.flash_prefill
+    kern = "K3q" if T <= 8 else "K4q"
+    launched = cuda_attn.LAUNCHES[kern]
+    got = fn(**dev, scale=D ** -0.5).cpu()
+    assert cuda_attn.LAUNCHES[kern] == launched + 1
+    torch.testing.assert_close(got, cuda_attn.attn_plain(**t, scale=D ** -0.5),
+                               atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("D", [64, 80, 96])
+def test_flash_decode_at_any_head_dim_is_bit_identical(cuda_device, D):
+    t = _attn_inputs(3, 8, 2, 1000, ROPE_TYPE_NORM, D=D)
+    dev = {n: a.to(cuda_device) for n, a in t.items()}
+    first, second = (cuda_attn._decode_launch(False, **dev, scale=D ** -0.5, cluster=5)
+                     for _ in range(2))
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("H,Hkv,D,q_dtype", [(8, 2, 136, torch.bfloat16),   # past 128
+                                              (8, 2, 100, torch.bfloat16),   # not a multiple of 8
                                               (8, 2, 128, torch.float32)])   # f32 queries
 def test_flash_prefill_refuses_what_it_cannot_take(cuda_device, H, Hkv, D, q_dtype):
     """K4 and K4q raise on a CUDA input outside their admitted set; nothing
-    falls back to attn_plain."""
+    falls back to attn_plain. (G = 3 and D = 64 were refused here until the
+    kernels took them: DIM_CASES holds them now.)"""
     T, S = 16, 64
     g = torch.Generator().manual_seed(0)
     mk = (lambda *shape, dt=torch.bfloat16: torch.randn(shape, generator=g).to(dt).to(cuda_device))

@@ -1,4 +1,6 @@
-"""llm_tpu_torch and chip_smoke.py import neither jax nor llm_tpu. Checked
+"""llm_tpu_torch and chip_smoke.py import neither jax nor llm_tpu, nor the
+`regex` package (the card's machine has none: the BPE pre-tokenizer runs on
+the standard `re`). Checked
 in a subprocess, because this test process already holds jax (conftest).
 Every port module is imported, and so is every module that chip_smoke.py
 imports inside its phases. Importing builds no kernel: that happens at
@@ -30,8 +32,8 @@ assert {"llm_tpu_torch.ops.cuda_qmm_chain", "llm_tpu_torch.tools.profile_decode"
         "llm_tpu_torch.tools.kbench_attn"} <= lazy
 for m in lazy:
     importlib.import_module(m)
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "llm_tpu."))
-             or m == "llm_tpu")
+bad = sorted(m for m in sys.modules if m in ("jax", "llm_tpu", "regex")
+             or m.startswith(("jax.", "llm_tpu.")))
 assert not bad, bad
 from llm_tpu_torch.ops import cuda_build
 assert not cuda_build._libs, "a kernel library was loaded at import time"
@@ -69,3 +71,35 @@ def test_chip_smoke_fails_without_a_card():
                        text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+_NO_REGEX = r"""
+import sys
+sys.modules["regex"] = None  # any `import regex` raises
+from llm_tpu_torch.tokenizers import tokenizer_from_vocab
+from llm_tpu_torch.tokenizers.bpe import PRE_PATTERNS, BpeTokenizer
+from llm_tpu_torch.tokenizers.vocab import Vocab
+from llm_tpu_torch.tools import cli, synth_gguf, tokenize_cli
+from llm_tpu_torch.gguf.constants import Keys
+kv = synth_gguf.bpe_vocab(1024, seed=1)
+K = Keys.Tokenizer
+for pre in sorted(PRE_PATTERNS):
+    v = Vocab(model="gpt2", pre=pre, tokens=kv[K.LIST], scores=None, types=kv[K.TOKEN_TYPE],
+              merges=kv[K.MERGES], bos_id=kv[K.BOS_ID], eos_id=kv[K.EOS_ID], add_bos=True)
+    tok = tokenizer_from_vocab(v)
+    assert isinstance(tok, BpeTokenizer)
+    ids = tok.encode("Hello, World! It's 42 \u00e9t\u00e9 \u65e5\u672c 123456")
+    assert tok.decode(ids, special=False).startswith("Hello, World!"), pre
+print(len(PRE_PATTERNS))
+"""
+
+
+def test_tokenizers_need_no_regex_package():
+    """With `regex` made unimportable, the port's tokenizers, CLI and GGUF
+    tools import, and a byte-level BPE tokenizer round-trips text under
+    every pre-tokenizer."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", _NO_REGEX], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip().splitlines()[-1]) >= 40
