@@ -51,7 +51,13 @@ prints no result line):
      beside its bound and SDPA; K3/K4 at head dims 64, 80 and 96 (the
      columns of a 128-dim block past D zero) and K3q/K4q at 80 (a row keeps
      one scale there), each at the decode and prefill shapes of the D = 128
-     rows, and K3/K4/K4q at G = 3 (24 query heads over 8 KV heads);
+     rows, and K3/K4/K4q at G = 3 (24 query heads over 8 KV heads); the
+     wide kernels (K3w/K4w, K3qw/K4qw) at gemma's D = 256 (G = 2), MLA's
+     Dk 192 / Dv 128 (G = 1), Dk 128 / Dv 64, and the int8 cache at
+     D = 256 and at D = 72 and 136 (rows of 8 mod 16 bytes), each beside
+     SDPA (the backend it took logged); K3 at the server's batched steps
+     (T = 2 and 4, each row masked to its own sequence's cells;
+     per_sequence_bias), K3q at T = 4;
   3. two layers at LLAMA3_8B width: Context.decode of a 64-token prompt and
      8 greedy generate_loop steps, once on the card (kernels) and once on
      the CPU (plain versions), from the same random weights; every step's
@@ -63,7 +69,11 @@ prints no result line):
      ff 8192) with a bf16 cache (K3/K4 at D = 64) and a q8_0 cache (32-dim
      group scales: the unfused attention, by shape, as the reference) and
      at Llama-3.2-3B's (3072 hidden, 24 / 8 heads of 128, ff 8192; K4 at
-     G = 3);
+     G = 3); then llama configs at Gemma-2-2B's attention widths (2304
+     hidden, 8 / 4 heads of 256, ff 9216) with a bf16 and a q8_0 cache
+     (K3w/K4w, K3qw/K4qw), at DeepSeek-V2-Lite's (2048 hidden, 16 heads,
+     Dk 192, Dv 128; K3w/K4w) and at head_dim 100 (no multiple of 8: the
+     unfused attention, counted, no flash launch);
   4. LLAMA3_8B, 32 layers, Q4_K_M-style random planes made on the card
      (first, K5 against its plain version at every p4 shape of these planes
      that phase 2 left out, attn_k among them): prefill 512 tokens, then 128
@@ -102,7 +112,21 @@ prints no result line):
      on the host); once the CLI has exited, cli.generate's greedy tokens
      held equal to Context.decode of the prompt followed by generate_loop,
      and its text to what the CLI printed; the write and load times and
-     the peak host and device memory logged; the directory deleted.
+     the peak host and device memory logged;
+ 10. the server on phase 9's Context and tokenizer: the port's ServerApp
+     (http.server) on 127.0.0.1 at a free port with 4 slots, driven with
+     urllib: /health, /props, /v1/models, /tokenize, /detokenize; four
+     concurrent greedy streamed /completions of ~128-token prompts (n_predict
+     64) through the batched fast path (fast_chunks_total > 0, K3 launched
+     at T >= 2, its launches logged by T),
+     each equal to its prompt's decode + generate_loop or parted only at a
+     near tie; eight concurrent seeded sampled ones (temp 0.8, top_k 40); a
+     streamed chat completion equal to the unstreamed one; a response_format
+     enum schema whose answer parses to "yes" or "no"; a --lookup-ngram
+     server's greedy text against the plain one; a slot save / restore; two
+     embeddings. TTFT, total time and aggregate decode tok/s logged, and the
+     wall time of one batched step's token choice at B = 4 (sample_rows,
+     greedy and sampled, and the argmax); the directory deleted.
 The last lines are a JSON "kernels" line, the card line, and
 {"ok": true, "device": {...}}. It imports nothing of JAX or llm_tpu.
 """
@@ -219,10 +243,12 @@ DECODE_KERNELS = 16 + 8
 S1_KERNELS = 18
 # K3/K3q's kernels: bf16 / q8_0 cache x one, two or four n8 tiles of rows,
 # at head dim 128 (flash_decode_tc) and at 64, 80, 96 and any other D
-# (flash_decode_tc_dim)
-K3_KERNELS = 6 * 5
-# K4/K4q's: bf16 / q8_0 cache, at 128 and at 64, 80, 96 and any other D
-K4_KERNELS = 2 * 5
+# (flash_decode_tc_dim); the wide ones (flash_decode_tc_wide): bf16 / q8_0
+# x one or two n8 tiles x one or two 128-dim chunks
+K3_KERNELS = 6 * 5 + 8
+# K4/K4q's: bf16 / q8_0 cache, at 128 and at 64, 80, 96 and any other D,
+# and the wide one (flash_prefill_wgmma_wide)
+K4_KERNELS = 2 * 5 + 2
 
 # S3's split-S kernels in libflash_probe.so: stacked v1 / v0 and the three
 # q8 modes
@@ -459,13 +485,58 @@ def quantized(inp):
     return {**inp, "k": quantize_rows(inp["k"], 1), "v": quantize_rows(inp["v"], 1)}
 
 
-def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False):
+def sdpa_backend(*args, **kw) -> str:
+    """The SDPA backend that PyTorch's dispatcher takes for these inputs:
+    the first, in its priority order, that accepts them."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    order = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH]
+    prio = getattr(torch._C, "_get_sdp_priority_order", None)
+    if prio is not None:
+        by_value = {int(b): b for b in order}
+        order = [by_value[int(v)] for v in prio() if int(v) in by_value] or order
+    for b in order:
+        try:
+            with sdpa_kernel([b]):
+                torch.nn.functional.scaled_dot_product_attention(*args, **kw)
+            return b.name
+        except RuntimeError:
+            continue
+    return "none"
+
+
+def per_sequence_bias(T: int, S: int, prompt: int, chunk: int = 8) -> torch.Tensor:
+    """The bias of one step of Context.generate_loop_batch over T sequences:
+    cells [0, T * prompt) hold the T prompts one run each, the rest come in
+    runs of `chunk` cells dealt to the sequences in turn (a call's cells);
+    row t sees only its own sequence's cells, the last run up to its row."""
+    c = torch.arange(S, device="cuda")
+    tail = (c - T * prompt).clamp(min=0)
+    owner = torch.where(c < T * prompt, c // prompt, (tail // chunk) % T)
+    rows = torch.arange(T, device="cuda")[:, None]
+    seen = (owner[None, :] == rows) & (c[None, :] < S - rows)
+    return torch.where(seen, 0.0, float("-inf")).float().contiguous()
+
+
+def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False, Dv=None, prompt=None):
+    """K3/K4 (K3q/K4q on q8_0 pairs; the wide kernels where Dk != Dv, past
+    128 or at int8 rows of 8 mod 16 bytes) against attn_plain, timed beside
+    their bound and SDPA. D is Dk; Dv None: D. prompt: each of the T rows is
+    its own sequence's, prompts of that many cells (per_sequence_bias);
+    None: one causal sequence."""
     from llm_tpu_torch.ops import cuda_attn
     from llm_tpu_torch.ops.rope import ROPE_TYPE_NORM, apply_rope
     from llm_tpu_torch.tools.kbench_attn import attn_inputs
 
-    prep = quantized if q8 else (lambda x: x)
-    inp, (c, s) = attn_inputs(T, H, Hkv, S, D, seed=S + T)
+    Dv = Dv or D
+    quant = quantized if q8 else (lambda x: x)
+    seq_bias = None if prompt is None else per_sequence_bias(T, S, prompt)
+
+    def prep(x):
+        return quant(x if seq_bias is None else {**x, "bias": seq_bias})
+
+    inp, (c, s) = attn_inputs(T, H, Hkv, S, D, seed=S + T, Dv=Dv)
     inp = prep(inp)
     scale = D ** -0.5
     # the dispatchers launch K3/K4, or K3q/K4q on q8_0 pairs, for CUDA tensors
@@ -475,9 +546,9 @@ def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False):
     torch.cuda.synchronize()
     err = (out - want).abs().max().item()
     tol = 1e-3
-    nbytes = sum(tensor_bytes(t) for t in inp.values()) + T * H * D * 4
+    nbytes = sum(tensor_bytes(t) for t in inp.values()) + T * H * Dv * 4
     ncp = copies_for(nbytes)
-    inps = [inp] + [prep(attn_inputs(T, H, Hkv, S, D, seed=S + T + i)[0])
+    inps = [inp] + [prep(attn_inputs(T, H, Hkv, S, D, seed=S + T + i, Dv=Dv)[0])
                     for i in range(1, ncp)]
     ms = time_ms(lambda i: fn(**inps[i], scale=scale), ncp)
     plain_ms = time_ms(lambda i: cuda_attn.attn_plain(**inps[i], scale=scale), ncp, iters=5)
@@ -492,18 +563,24 @@ def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False):
     mask = inp["bias"].clamp(min=-1e30).to(torch.bfloat16)[None, None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = time_ms(lambda i: sdpa(qs, ks, vs, attn_mask=mask, scale=scale))
-    flops = 6.0 * T * H * S * D
+    # two score dots of Dk and one P.V of Dv a query row and cell
+    flops = 2.0 * T * H * S * (2 * D + Dv)
     bmin, by = bound_ms(nbytes, flops)
-    kern = ("K3" if T <= 8 else "K4") + ("q" if q8 else "")
-    rec = dict(kernel=kern, shape=f"{name} T={T} S={S} H={H} Hkv={Hkv} D={D}",
+    narrow = cuda_attn.is_narrow(D, Dv, q8)
+    kern = ("K3" if T <= 8 else "K4") + ("q" if q8 else "") + ("" if narrow else "w")
+    dims = f"D={D}" if Dv == D else f"Dk={D} Dv={Dv}"
+    if prompt is not None:
+        dims += f" {T} sequences"
+    rec = dict(kernel=kern, shape=f"{name} T={T} S={S} H={H} Hkv={Hkv} {dims}",
                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bmin,
-               bound_by=by, library_ms=lib_ms)
+               bound_by=by, library_ms=lib_ms,
+               sdpa_backend=sdpa_backend(qs, ks, vs, attn_mask=mask, scale=scale))
     if T > 8:
         # K4/K4q run every score and P.V product twice (bf16 hi + lo of
         # k*cos, k*sin and p): their floor is twice the operations bound,
         # and a head dim below 128 is computed as 128 (its zero columns)
         rec["floor_ms"] = 2 * flops / PEAK_BF16_FLOPS * 1e3
-        if D < 128:
+        if narrow and D < 128:
             rec["padded_floor_ms"] = rec["floor_ms"] * 128 / D
     log(json.dumps(rec))
     if not (err <= tol and math.isfinite(err)):
@@ -547,6 +624,12 @@ def phase_kernels():
     check_attn(results, "decode ragged-S", 1, 4001, q8=True)
     check_attn(results, "decode T=8", 8, 4096, q8=True)
     check_attn(results, "prefill", 512, 4096, q8=True)
+    # the server's batched steps (phase 10): T = B_pad = 2 or 4 rows, each
+    # its own sequence's, over prompts of SERVER_PROMPT_TOKENS cells and
+    # runs of 8 decode cells (T = 4, G = 4: 16 rows, the NR = 2 kernel)
+    for T, S in ((2, 288), (4, 576)):
+        check_attn(results, "server step", T, S, prompt=SERVER_PROMPT_TOKENS)
+    check_attn(results, "server step", 4, 576, q8=True, prompt=SERVER_PROMPT_TOKENS)
     # head dims below 128 (Llama-3.2-1B's 64; 80; 96) and G = 3
     # (Llama-3.2-3B's 24 query heads over 8) at the same T and S
     for D in (64, 80, 96):
@@ -558,6 +641,17 @@ def phase_kernels():
     check_attn(results, "prefill", 512, 4096, D=80, q8=True)
     check_attn(results, "decode T=8 G=3", 8, 4096, H=24)
     check_attn(results, "prefill G=3", 512, 4096, H=24)
+    # the wide kernels: gemma's 256 (Gemma-2-2B's 8 heads over 4), MLA's
+    # Dk 192 / Dv 128 (DeepSeek-V2-Lite's 16 heads, G = 1), Dk 128 / Dv 64,
+    # and the int8 cache at 256 and at 72, 136 (rows of 8 mod 16 bytes)
+    for T, name in ((1, "decode half-masked"), (8, "decode T=8"), (512, "prefill")):
+        check_attn(results, name, T, 4096, H=8, Hkv=4, D=256)
+        check_attn(results, name, T, 4096, H=16, Hkv=16, D=192, Dv=128)
+        check_attn(results, name, T, 4096, H=8, Hkv=4, D=256, q8=True)
+        if T != 8:
+            check_attn(results, name, T, 4096, D=128, Dv=64)
+            check_attn(results, name, T, 4096, D=72, q8=True)
+            check_attn(results, name, T, 4096, H=16, Hkv=8, D=136, q8=True)
     check_attn(results, "prefill G=3", 512, 4096, H=24, q8=True)
     # K5 at the TPU package's gdot probe shapes (scripts/kbench6.py SHAPES;
     # "head" is a probe shape only: the main path's lm_head is Q6_K); every
@@ -701,14 +795,15 @@ TWO_LAYER_SEED = 5
 
 
 def two_layer_steps(seed: int, kv_dtype=None, devices=("cuda", "cpu"), chain=False,
-                    gdot=False, geo=None):
+                    gdot=False, geo=None, after_card=None):
     """Full width, 2 layers, one set of weights on each device. Each device
     prefills a 64-token prompt (Context.decode) and generates 8 greedy
     tokens (generate_loop). Then the card's token stream is fed back one
     decode step at a time, so that every device's logits of every step come
     from the same inputs. chain/gdot are Context's options; geo the widths
-    (LLAMA3_8B's by default). Returns (cfg, {device: logits [9, vocab]},
-    {device: greedy tokens})."""
+    (LLAMA3_8B's by default); after_card, if given, is called right after
+    the card's run (to read counters before the CPU's run). Returns (cfg,
+    {device: logits [9, vocab]}, {device: greedy tokens})."""
     import numpy as np
 
     from llm_tpu_torch.gguf.constants import GGMLType
@@ -737,6 +832,8 @@ def two_layer_steps(seed: int, kv_dtype=None, devices=("cuda", "cpu"), chain=Fal
         steps[dev] = np.stack(lg)
         log(f"two-layer {dev} kv {kv_dtype} chain {chain} gdot {gdot}: "
             f"{time.perf_counter() - t0:.1f} s, tokens {toks[dev]}")
+        if dev == "cuda" and after_card is not None:
+            after_card()
         del ctx, p
     return cfg, steps, toks
 
@@ -844,6 +941,19 @@ def phase_two_layers_chain():
 # layers)
 LLAMA32_1B = dict(n_embd=2048, n_heads=32, n_kv_heads=8, n_ff=8192, vocab=128256, head_dim=64)
 LLAMA32_3B = dict(n_embd=3072, n_heads=24, n_kv_heads=8, n_ff=8192, vocab=128256, head_dim=128)
+# llama configs at the attention widths of the heads the wide kernels
+# take: Gemma-2-2B (hidden 2304, 8 heads over 4 of 256, ff 9216) and
+# DeepSeek-V2-Lite's MLA heads as plain ones (hidden 2048, 16 heads of Dk
+# 192 = 128 + 64 rope dims and Dv 128, no GQA; ff 8192 in place of its
+# 10944, which Q4_K's 256-wide groups do not divide), both with the Llama 3
+# vocab; and a head dim that is no multiple of 8 (100: 64 heads over 8, so
+# that attn_output's 6400 columns are Q4_K groups)
+GEMMA2_2B_ATTN = dict(n_embd=2304, n_heads=8, n_kv_heads=4, n_ff=9216, vocab=128256,
+                      head_dim=256)
+DSV2_LITE_ATTN = dict(n_embd=2048, n_heads=16, n_kv_heads=16, n_ff=8192, vocab=128256,
+                      head_dim=192, head_dim_v=128)
+HEAD_DIM_100 = dict(n_embd=2048, n_heads=64, n_kv_heads=8, n_ff=8192, vocab=128256,
+                    head_dim=100)
 WIDTHS_SEED = 5
 
 
@@ -851,7 +961,10 @@ def phase_two_layers_widths():
     """two_layer_steps at Llama-3.2-1B's widths with a bf16 cache (K3/K4 at
     D = 64) and a q8_0 cache (its 64-dim rows keep 32-dim group scales: the
     unfused attention on both devices, by shape, no K3q/K4q launch), and at
-    Llama-3.2-3B's (G = 3; the 64-token prompt is a K4 prefill). Every
+    Llama-3.2-3B's (G = 3; the 64-token prompt is a K4 prefill); then at
+    Gemma-2-2B's attention widths with a bf16 and a q8_0 cache (the wide
+    K3w/K4w, K3qw/K4qw), DeepSeek-V2-Lite's (K3w/K4w at Dk 192, Dv 128) and
+    head_dim 100 (the unfused attention, counted). Every
     step's logits within the two-layer tolerance of max|logit|; the greedy
     tokens equal up to the first step whose top two logits on the CPU lie
     within that tolerance (such a near tie may part the streams, and the
@@ -859,17 +972,28 @@ def phase_two_layers_widths():
     logits stay comparable). Returns each run's record."""
     import numpy as np
 
-    from llm_tpu_torch.ops import cuda_attn
+    from llm_tpu_torch.ops import attention, cuda_attn
 
     recs = []
     for name, geo, kv_dtype, rel_tol, want in (
             ("Llama-3.2-1B", LLAMA32_1B, None, TWO_LAYER_REL_TOL, ("K3", "K4")),
             ("Llama-3.2-1B", LLAMA32_1B, "q8_0", TWO_LAYER_Q8_REL_TOL, ()),
-            ("Llama-3.2-3B", LLAMA32_3B, None, TWO_LAYER_REL_TOL, ("K3", "K4"))):
+            ("Llama-3.2-3B", LLAMA32_3B, None, TWO_LAYER_REL_TOL, ("K3", "K4")),
+            ("Gemma-2-2B attention", GEMMA2_2B_ATTN, None, TWO_LAYER_REL_TOL, ("K3w", "K4w")),
+            ("Gemma-2-2B attention", GEMMA2_2B_ATTN, "q8_0", TWO_LAYER_Q8_REL_TOL,
+             ("K3qw", "K4qw")),
+            ("DeepSeek-V2-Lite attention", DSV2_LITE_ATTN, None, TWO_LAYER_REL_TOL,
+             ("K3w", "K4w")),
+            ("head_dim 100", HEAD_DIM_100, None, TWO_LAYER_REL_TOL, ())):
         t0 = time.perf_counter()
         cuda_attn.reset_launches()
-        cfg, steps, toks = two_layer_steps(WIDTHS_SEED, kv_dtype, geo=geo)
+        attention.LAUNCHES["unfused"] = 0
+        card = {}
+        cfg, steps, toks = two_layer_steps(
+            WIDTHS_SEED, kv_dtype, geo=geo,
+            after_card=lambda: card.update(attention.LAUNCHES))
         launched = dict(cuda_attn.LAUNCHES)  # the card's run; the CPU's launches nothing
+        unfused = card["unfused"]
         lg, lc = steps["cuda"], steps["cpu"]
         tg, tc = toks["cuda"], toks["cpu"]
         err = float(np.abs(lg - lc).max())
@@ -877,7 +1001,8 @@ def phase_two_layers_widths():
         top2 = np.sort(lc, axis=-1)[:, -2:]
         gaps = (top2[:, 1] - top2[:, 0]).tolist()
         tie = next((i for i, g in enumerate(gaps) if g <= tol), len(gaps))
-        rec = dict(two_layer_widths=name, head_dim=cfg.head_dim, G=cfg.n_heads // cfg.n_kv_heads,
+        rec = dict(two_layer_widths=name, head_dim=cfg.head_dim, head_dim_v=cfg.head_dim_v,
+                   G=cfg.n_heads // cfg.n_kv_heads, unfused_attention_calls=unfused,
                    kv_dtype=str(kv_dtype), logits_max_abs_err=err, tol=tol,
                    rel_err=err / float(np.abs(lc).max()), top2_gaps=gaps,
                    first_near_tie=tie, tokens_card=tg, tokens_cpu=tc,
@@ -893,6 +1018,9 @@ def phase_two_layers_widths():
             if (launched[k] > 0) != (k in want):
                 raise AssertionError(f"{name} kv {kv_dtype}: attention launches {launched}, "
                                      f"want {want} and no other")
+        if (unfused > 0) != (not want):
+            raise AssertionError(f"{name} kv {kv_dtype}: {unfused} unfused attention calls "
+                                 f"beside flash launches {launched}")
         recs.append(rec)
     return recs
 
@@ -1382,6 +1510,322 @@ def gguf_prompt(tok, n_tokens: int = GGUF_PROMPT_TOKENS) -> str:
     return text
 
 
+
+# phase 10: the server on phase 9's 8B Context: 4 slots, prompts of about
+# SERVER_PROMPT_TOKENS tokens, SERVER_DECODE tokens a request
+SERVER_SLOTS, SERVER_PROMPT_TOKENS, SERVER_DECODE = 4, 128, 64
+
+
+def http(port: int, method: str, path: str, body=None, stream: bool = False) -> dict:
+    """One request to the port's server with urllib: its status, JSON body
+    (or, streamed, the SSE events' payloads), the seconds to the first
+    event (TTFT) and in all. Raises on a status other than 200."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", method=method,
+                                 data=None if body is None else json.dumps(body).encode())
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if r.status != 200:
+            raise AssertionError(f"{method} {path}: status {r.status}")
+        if not stream:
+            raw = r.read()
+            ctype = r.headers["Content-Type"]
+            out = json.loads(raw) if ctype.startswith("application/json") else raw.decode()
+            return dict(body=out, total_s=time.perf_counter() - t0)
+        events, ttft, done = [], None, False
+        for line in r:
+            line = line.decode().rstrip("\n")
+            if not line:
+                continue
+            if not line.startswith("data: "):
+                raise AssertionError(f"{path}: not an SSE line: {line!r}")
+            if line == "data: [DONE]":
+                done = True
+                break
+            if ttft is None:
+                ttft = time.perf_counter() - t0
+            events.append(json.loads(line[len("data: "):]))
+        if not done:
+            raise AssertionError(f"{path}: the stream ended without [DONE]")
+        return dict(events=events, ttft_s=ttft, total_s=time.perf_counter() - t0)
+
+
+def concurrently(fns) -> list:
+    """Run the calls on threads at once; their results in order. A failed
+    call fails the phase."""
+    import threading
+
+    out, errs = [None] * len(fns), []
+
+    def run(i, f):
+        try:
+            out[i] = f()
+        except Exception as e:  # noqa: BLE001 - raised below
+            errs.append(e)
+
+    ths = [threading.Thread(target=run, args=(i, f)) for i, f in enumerate(fns)]
+    t0 = time.perf_counter()
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join()
+    if errs:
+        raise errs[0]
+    return out, time.perf_counter() - t0
+
+
+def server_prompts(tok, n: int) -> list[str]:
+    """n distinct prompts of about SERVER_PROMPT_TOKENS tokens."""
+    import numpy as np
+
+    out = []
+    for i in range(n):
+        rng = np.random.default_rng(100 + i)
+        text = ""
+        while len(tok.encode(text, add_special=True, parse_special=True)) < SERVER_PROMPT_TOKENS:
+            text += " ".join(str(w) for w in rng.choice(_WORDS, 12)).capitalize() + ". "
+        out.append(text)
+    return out
+
+
+def greedy_reference(ctx, tok, prompt: str, n: int, eogs, seq_id: int = SERVER_SLOTS + 1):
+    """A prompt's own Context.decode + generate_loop on a spare sequence:
+    (tokens, their pieces); the sequence is emptied after."""
+    import numpy as np
+
+    from llm_tpu_torch.runtime.batch import Batch
+
+    ptoks = tok.encode(prompt, add_special=True, parse_special=True)
+    ctx.seq_rm(seq_id)
+    assert ctx.decode(Batch.text(ptoks, seq_id=seq_id)) == 0
+    first = int(np.argmax(ctx.get_logits()))
+    toks = [first] + ctx.generate_loop(first, n - 1, seq_id=seq_id, eog_ids=eogs)
+    ctx.seq_rm(seq_id)
+    if toks and toks[-1] in eogs:
+        toks = toks[:-1]  # the server stops before an EOG token
+    return ptoks, toks
+
+
+def parted_at_a_tie(ctx, tok, ptoks, want, got_text, seq_id: int = SERVER_SLOTS + 1) -> dict:
+    """Where the server's text and the reference's tokens part: the step
+    whose pieces stop matching, and that step's top-2 gap of the
+    reference's logits (replayed from the common prefix) against
+    SCAN_TIE_REL of max|logit| (phase 8's rule)."""
+    import numpy as np
+
+    from llm_tpu_torch.runtime.batch import Batch
+
+    text, i = "", 0
+    while i < len(want) and got_text.startswith(text + tok.piece(want[i])):
+        text += tok.piece(want[i])
+        i += 1
+    ctx.seq_rm(seq_id)
+    assert ctx.decode(Batch.text(ptoks + want[:i], seq_id=seq_id)) == 0
+    lg = ctx.get_logits()
+    ctx.seq_rm(seq_id)
+    gap = top2_gap(lg)
+    return dict(parted_at_step=i, top2_gap=gap, max_abs_logit=float(np.abs(lg).max()),
+                near_tie=bool(gap <= SCAN_TIE_REL * float(np.abs(lg).max())))
+
+
+def sampler_step_ms(B: int, V: int, iters: int = 50) -> dict:
+    """Wall ms a call of one batched step's token choice over [B, V] f32
+    logits, synced after each call as generate_loop_batch syncs a step:
+    sample_rows with every row greedy (what an all-greedy step ran before it
+    took the argmax alone), sample_rows at temp 0.8 / top_k 40, and the
+    full-row argmax."""
+    from llm_tpu_torch.samplers.device import row_generators, sample_rows
+
+    lg = torch.randn((B, V), device="cuda")
+    gens = row_generators(range(B), "cuda")
+
+    def params(temp, top_k):
+        return (torch.full((B,), temp, device="cuda"), torch.full((B,), top_k, device="cuda"),
+                torch.ones(B, device="cuda"), torch.zeros(B, device="cuda"))
+
+    greedy, sampled = params(0.0, 0), params(0.8, 40)
+    fns = dict(sample_rows_greedy=lambda: sample_rows(lg, *greedy, gens),
+               sample_rows_sampled=lambda: sample_rows(lg, *sampled, gens),
+               argmax=lambda: torch.argmax(lg, dim=-1))
+    out = {}
+    for name, fn in fns.items():
+        for _ in range(3):
+            int(fn()[0])
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            int(fn()[0])
+        out[name] = (time.perf_counter() - t0) * 1e3 / iters
+    return out
+
+
+def phase_server(ctx, tok, tmp: str) -> dict:
+    """Phase 10: the port's ServerApp on 127.0.0.1 at a free port over
+    phase 9's Context and tokenizer, SERVER_SLOTS slots, driven with
+    urllib (module docstring). Fails on any failed request or check."""
+    import os
+
+    import numpy as np
+
+    from llm_tpu_torch.ops import cuda_attn, cuda_qmm
+    from llm_tpu_torch.server.app import ServerApp
+    from llm_tpu_torch.server.core import InferenceServer
+
+    eogs = tuple(i for i in (tok.vocab.eos_id, tok.vocab.eot_id) if i is not None and i >= 0)
+    prompts = server_prompts(tok, 8)
+    rec = {}
+
+    def serve(**kw):
+        ctx.clear()
+        eng = InferenceServer(ctx, tok, n_slots=SERVER_SLOTS, n_batch=256, **kw)
+        eng.start()
+        server, _ = ServerApp(eng, model_name="llama3-8b-q4_k_m").serve_in_thread("127.0.0.1", 0)
+        return eng, server
+
+    def stop(eng, server):
+        server.shutdown()
+        server.server_close()
+        eng.stop()
+
+    eng, server = serve()
+    port = server.server_address[1]
+    try:
+        for path in ("/health", "/props", "/v1/models"):
+            rec[path] = http(port, "GET", path)["body"]
+        if rec["/health"] != {"status": "ok"} or rec["/props"]["n_slots"] != SERVER_SLOTS:
+            raise AssertionError(f"/health or /props: {rec['/health']} {rec['/props']}")
+        toks = http(port, "POST", "/tokenize", {"content": prompts[0]})["body"]["tokens"]
+        text = http(port, "POST", "/detokenize", {"tokens": toks})["body"]["content"]
+        if toks != tok.encode(prompts[0], add_special=False, parse_special=True) \
+                or text != tok.decode(toks):
+            raise AssertionError("/tokenize or /detokenize differ from the tokenizer")
+
+        # 2. four concurrent greedy streams through the batched fast path
+        cuda_attn.reset_launches()
+        cuda_qmm.reset_launches()
+        ctx.batch_loop_shapes.clear()
+        body = dict(n_predict=SERVER_DECODE, temperature=0, stream=True)
+        greedy, wall = concurrently([
+            (lambda p=p: http(port, "POST", "/completion", {**body, "prompt": p}, stream=True))
+            for p in prompts[:4]])
+        launches = dict(cuda_attn.LAUNCHES)
+        by_t = dict(sorted(cuda_attn.DECODE_LAUNCHES_BY_T.items()))
+        metrics = http(port, "GET", "/metrics")["body"]
+        fast = int(next(ln.split()[1] for ln in metrics.splitlines()
+                        if ln.startswith("llm_tpu_fast_chunks_total ")))
+        n_tok = [len(r["events"]) - 1 for r in greedy]
+        rec["greedy4"] = dict(
+            ttft_s=[r["ttft_s"] for r in greedy], total_s=[r["total_s"] for r in greedy],
+            tokens=n_tok, wall_s=wall, decode_tok_s=sum(n_tok) / wall,
+            fast_chunks_total=fast, attn_launches=launches, k3_launches_by_t=by_t,
+            batch_loop_shapes=sorted(ctx.batch_loop_shapes))
+        log(json.dumps(dict(server_greedy4=rec["greedy4"])))
+        # batch_loop_shapes holds the loops whose steps ran; K3 must have
+        # run at T >= 2, rows of several sequences in one launch
+        if fast <= 0 or not any(b >= 2 for b, _ in ctx.batch_loop_shapes) \
+                or sum(c for t, c in by_t.items() if t >= 2) <= 0:
+            raise AssertionError(f"the batched fast path did not run: fast_chunks_total {fast}, "
+                                 f"shapes {ctx.batch_loop_shapes}, K3 by T {by_t}")
+        with eng.ctx_lock:
+            parts = []
+            for p, r in zip(prompts[:4], greedy):
+                got = "".join(e["choices"][0]["text"] for e in r["events"])
+                ptoks, want = greedy_reference(ctx, tok, p, SERVER_DECODE, eogs)
+                if got == "".join(tok.piece(t) for t in want):
+                    parts.append(None)
+                    continue
+                part = parted_at_a_tie(ctx, tok, ptoks, want, got)
+                parts.append(part)
+                if not part["near_tie"]:
+                    raise AssertionError(f"a greedy stream parts from its own decode + "
+                                         f"generate_loop off a near tie: {part}")
+        rec["greedy4"]["parted"] = parts
+        log(json.dumps(dict(server_greedy4_vs_generate_loop=parts)))
+
+        # 3. eight concurrent seeded sampled requests over 4 slots
+        body = dict(n_predict=SERVER_DECODE, temperature=0.8, top_k=40, stream=True)
+        sampled, wall = concurrently([
+            (lambda i=i, p=p: http(port, "POST", "/completion",
+                                   {**body, "prompt": p, "seed": 1000 + i}, stream=True))
+            for i, p in enumerate(prompts)])
+        n_tok = [len(r["events"]) - 1 for r in sampled]
+        ends = [r["events"][-1]["choices"][0]["finish_reason"] for r in sampled]
+        rec["sampled8"] = dict(ttft_s=[r["ttft_s"] for r in sampled],
+                               total_s=[r["total_s"] for r in sampled], tokens=n_tok,
+                               finish=ends, wall_s=wall, decode_tok_s=sum(n_tok) / wall)
+        log(json.dumps(dict(server_sampled8=rec["sampled8"])))
+        for n, e in zip(n_tok, ends):
+            if not (e == "length" and n == SERVER_DECODE or e == "stop" and n <= SERVER_DECODE):
+                raise AssertionError(f"a sampled request ended {e} after {n} tokens")
+
+        # 4. a streamed chat completion against the unstreamed one at temp 0
+        chat = dict(messages=[{"role": "user", "content": prompts[1][:200]}], max_tokens=32,
+                    temperature=0)
+        streamed = http(port, "POST", "/v1/chat/completions", {**chat, "stream": True},
+                        stream=True)
+        plain = http(port, "POST", "/v1/chat/completions", chat)["body"]
+        joined = "".join(e["choices"][0]["delta"].get("content", "")
+                         for e in streamed["events"])
+        rec["chat"] = dict(ttft_s=streamed["ttft_s"], total_s=streamed["total_s"],
+                           equal=joined == plain["choices"][0]["message"]["content"])
+        if not rec["chat"]["equal"]:
+            raise AssertionError("the streamed chat deltas differ from the unstreamed answer")
+
+        # 5. a JSON schema the grammar forces whatever the weights are
+        t0 = time.perf_counter()
+        yn = http(port, "POST", "/v1/chat/completions", dict(
+            messages=[{"role": "user", "content": "yes or no?"}], max_tokens=12,
+            temperature=0, response_format={"type": "json_schema", "json_schema": {
+                "schema": {"type": "string", "enum": ["yes", "no"]}}}))["body"]
+        content = yn["choices"][0]["message"]["content"]
+        rec["schema"] = dict(content=content, s=time.perf_counter() - t0)
+        if json.loads(content) not in ("yes", "no"):
+            raise AssertionError(f"the enum schema's answer {content!r}")
+
+        # 7. a slot's cells saved and restored
+        fn = os.path.join(tmp, "slot0.npz")
+        saved = http(port, "POST", "/slots/0?action=save", {"filename": fn})["body"]
+        restored = http(port, "POST", "/slots/0?action=restore", {"filename": fn})["body"]
+        rec["slots"] = dict(saved=saved["n_tokens"], restored=restored["n_tokens"])
+        if not saved["n_tokens"] == restored["n_tokens"] > 0:
+            raise AssertionError(f"slot save / restore: {saved} {restored}")
+
+        # 8. two embeddings
+        emb = http(port, "POST", "/embeddings", {"input": prompts[2:4]})["body"]["data"]
+        vecs = np.asarray([e["embedding"] for e in emb])
+        rec["embeddings"] = dict(shape=list(vecs.shape), finite=bool(np.isfinite(vecs).all()))
+        if vecs.shape != (2, ctx.cfg.n_embd) or not rec["embeddings"]["finite"]:
+            raise AssertionError(f"embeddings {rec['embeddings']}")
+        plain_text = http(port, "POST", "/completion", dict(
+            prompt=prompts[5], n_predict=SERVER_DECODE, temperature=0))["body"]["content"]
+    finally:
+        stop(eng, server)
+
+    # 6. a --lookup-ngram server's greedy text against the plain one
+    eng, server = serve(lookup_ngram=True)
+    try:
+        r = http(server.server_address[1], "POST", "/completion", dict(
+            prompt=prompts[5], n_predict=SERVER_DECODE, temperature=0))
+        rec["ngram"] = dict(equal=r["body"]["content"] == plain_text, total_s=r["total_s"],
+                            proposed=eng.metrics["draft_proposed_total"],
+                            accepted=eng.metrics["draft_accepted_total"])
+        if not rec["ngram"]["equal"]:
+            with eng.ctx_lock:
+                ptoks, want = greedy_reference(ctx, tok, prompts[5], SERVER_DECODE, eogs)
+                part = parted_at_a_tie(ctx, tok, ptoks, want, r["body"]["content"])
+            rec["ngram"]["parted"] = part
+            if not part["near_tie"]:
+                raise AssertionError(f"the lookup-ngram greedy text parts off a near tie: {part}")
+        log(json.dumps(dict(server_ngram=rec["ngram"])))
+    finally:
+        stop(eng, server)
+    ctx.clear()
+    rec["sampler_step_ms"] = sampler_step_ms(SERVER_SLOTS, ctx.cfg.vocab_size)
+    log(json.dumps(dict(server={k: v for k, v in rec.items() if k in (
+        "chat", "schema", "slots", "embeddings", "ngram", "sampler_step_ms")})))
+    return rec
+
+
 def phase_gguf_cli() -> dict:
     """Phase 9: the text entry point on a LLAMA3_8B GGUF typed as Q4_K_M."""
     import os
@@ -1493,6 +1937,9 @@ def phase_gguf_cli() -> dict:
         for k in ("K1", "K2", "K3", "K4"):
             if rec["generate_launches"][k] <= 0:
                 raise AssertionError(f"cli.generate launched no {k}")
+        t0 = time.perf_counter()
+        rec["server"] = phase_server(ctx, tok, tmp)
+        log(f"phase 10 (the server on the 8B GGUF) passed in {time.perf_counter() - t0:.1f} s")
         del ctx
         torch.cuda.empty_cache()
     finally:
@@ -1507,6 +1954,10 @@ REPLACES = {
     "K4": ("llm_tpu_torch/csrc/flash_prefill.cu", "llm_tpu/ops/pallas_attn.py:328"),
     "K3q": ("llm_tpu_torch/csrc/flash_attn.cu", "llm_tpu/ops/pallas_attn.py:135"),
     "K4q": ("llm_tpu_torch/csrc/flash_prefill.cu", "llm_tpu/ops/pallas_attn.py:341"),
+    "K3w": ("llm_tpu_torch/csrc/flash_attn.cu", "llm_tpu/ops/pallas_attn.py:123"),
+    "K4w": ("llm_tpu_torch/csrc/flash_prefill.cu", "llm_tpu/ops/pallas_attn.py:328"),
+    "K3qw": ("llm_tpu_torch/csrc/flash_attn.cu", "llm_tpu/ops/pallas_attn.py:135"),
+    "K4qw": ("llm_tpu_torch/csrc/flash_prefill.cu", "llm_tpu/ops/pallas_attn.py:341"),
     "K5": ("llm_tpu_torch/csrc/qmm_decode.cu", "llm_tpu/ops/pallas_qmm.py:195"),
     "K6": ("llm_tpu_torch/csrc/qmm_chain.cu", "llm_tpu/ops/pallas_qmm_chain.py:107"),
     "K7": ("llm_tpu_torch/csrc/qmm_decode.cu", "llm_tpu/ops/pallas_qmm.py:481"),
@@ -1525,6 +1976,11 @@ HEADLINE = {"K1": "gate_up Q4_K K=4096 N=28672 B=1",
             "K4": "prefill T=512 S=4096 H=32 Hkv=8 D=128",
             "K3q": "decode half-masked T=1 S=4096 H=32 Hkv=8 D=128",
             "K4q": "prefill T=512 S=4096 H=32 Hkv=8 D=128",
+            # the wide kernels at gemma's head dim (phase 3's Gemma-2-2B twins)
+            "K3w": "decode half-masked T=1 S=4096 H=8 Hkv=4 D=256",
+            "K4w": "prefill T=512 S=4096 H=8 Hkv=4 D=256",
+            "K3qw": "decode half-masked T=1 S=4096 H=8 Hkv=4 D=256",
+            "K4qw": "prefill T=512 S=4096 H=8 Hkv=4 D=256",
             "K5": "gu Q4_K K=4096 N=28672 B=1",
             "K6": "tail Q6_K down B=1",
             "K7": "gate_up Q4_K K=4096 N=28672 B=1",
@@ -1623,7 +2079,7 @@ def main() -> int:
     phase_two_layers_chain()
     log(f"two-layer chained card-vs-CPU check passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase_two_layers_widths()
+    widths = phase_two_layers_widths()
     log(f"two-layer Llama-3.2-1B/3B card-vs-CPU checks passed in "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -1651,12 +2107,17 @@ def main() -> int:
     log(f"LLAMA3_8B GGUF through the CLI passed in {time.perf_counter() - t0:.1f} s")
     # each kernel's launches from the path that runs it: K1-K4 from phase 4,
     # K3q/K4q from phase 5, K5 from phase 6, K6 from phase 7, K7 from phase
-    # 8, S1 from the kbench run, S3 from the kbench_attn run
+    # 8, the wide K3w/K4w/K3qw/K4qw from phase 3's Gemma-2-2B and
+    # DeepSeek-V2-Lite twins (their card runs), S1 from the kbench run, S3
+    # from the kbench_attn run
     counts = {**counts, "K3q": counts_q8["K3q"], "K4q": counts_q8["K4q"],
-              "K5": counts_gdot["K5"], "K6": counts_chain["K6"], "K7": counts_scan["K7"]}
+              "K5": counts_gdot["K5"], "K6": counts_chain["K6"], "K7": counts_scan["K7"],
+              **{k: sum(r["attn_launches"][k] for r in widths)
+                 for k in ("K3w", "K4w", "K3qw", "K4qw")}}
 
     kernels = []
-    for k in ("K1", "K2", "K3", "K4", "K3q", "K4q", "K5", "K6", "K7"):
+    for k in ("K1", "K2", "K3", "K4", "K3q", "K4q", "K3w", "K4w", "K3qw", "K4qw", "K5", "K6",
+              "K7"):
         mine = [r for r in results if r["kernel"] == k]
         head = next(r for r in mine if r["shape"] == HEADLINE[k])
         src, rep = REPLACES[k]

@@ -680,6 +680,466 @@ flash_decode_tc_dim(const __grid_constant__ CUtensorMap tmk,
 }
 
 // ----------------------------------------------------------------------------
+// The wide kernel: Dk and Dv apart, each a multiple of 8 up to 256 (two
+// 128-dim chunks), and K3q's int8 rows at any multiple of 8 (rows whose
+// pitch is no multiple of 16 bytes come by 8-byte cp.async, not TMA). The
+// stage is the narrow kernel's ([64 cells][128 dims] of K, V, cos and sin,
+// the bias and K3q's scales): block j's chunk c (dims 128c..128c+127) is
+// ring item j*NC + c. A warp sums its scores over the NC items of a block,
+// runs the softmax once, then P.V against each item's V into accumulator
+// dims 128c..; it releases the block's NC items together (3 stages: with
+// NC = 2 the producer stays one item ahead). At most 16 query rows a CTA
+// (NR <= 2; more rows take more row chunks) and q, q_rot read from shared
+// memory at each k16 step, so that acc[16][NR][4] fits beside the score
+// fragments. TMA fills the columns past Dk (past Dv) with zeros, so the
+// chunks past a width add nothing. Shared memory: 3 stages of 66 KB (K3q:
+// 50 KB) plus q and q_rot [2][4 x 64 dims][16 rows] bf16 (16 KB) and K3q's
+// V tiles (16 KB): 215 KB (K3q 185 KB); the end's partials [4 warps][16
+// rows][256 dims] f32 (64 KB) reuse the ring.
+
+constexpr int DW_ROWS = 16;  // query rows a CTA at most (two n8 tiles)
+constexpr int DW_DIMS = 256;
+
+template <bool Q8>
+struct DecWideSmem {
+  using N = DecSmem<Q8>;
+  static constexpr int STAGE = N::STAGE;
+  static constexpr int RING = N::RING;
+  static constexpr int Q_OFF = RING;                // [q, q_rot][quarter][16 rows][128 B]
+  static constexpr int Q_WHICH = 4 * DW_ROWS * 128;
+  static constexpr int VT_OFF = Q_OFF + 2 * Q_WHICH;
+  static constexpr int W_ACC = 0;
+  static constexpr int W_M = W_ACC + DA_WARPS * DW_ROWS * DW_DIMS * 4;
+  static constexpr int W_L = W_M + DA_WARPS * DW_ROWS * 4;
+  static constexpr int C_ACC = W_L + DA_WARPS * DW_ROWS * 4;
+  static constexpr int C_M = C_ACC + DW_ROWS * DW_DIMS * 4;
+  static constexpr int C_L = C_M + DW_ROWS * 4;
+  static constexpr int X_M = C_L + DW_ROWS * 4;
+  static constexpr int X_L = X_M + DA_MAX_CLUSTER * DW_ROWS * 4;
+  static constexpr int END = X_L + DA_MAX_CLUSTER * DW_ROWS * 4;
+  static constexpr int USED = VT_OFF + (Q8 ? DA_WARPS * N::VT_WARP : 0);
+  static constexpr int BYTES = (USED > END ? USED : END) + 1024;
+  static_assert(END <= RING, "the end's partials reuse the ring");
+  static_assert(BYTES <= 232448, "227 KB of shared memory a CTA");
+};
+
+struct DecWideArgs {
+  DecArgs a;   // a.D is Dk
+  int Dv;
+  int kcp, vcp;  // K3q: K's (V's) int8 rows by cp.async (pitch not a multiple of 16)
+  const int8_t* k8;
+  const int8_t* v8;
+};
+
+// 8 bytes (all or none of them read, the rest zero) into shared memory
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// the producer warp of the wide kernel: items [b0 * NC, b1 * NC)
+template <bool Q8, int NC>
+__device__ __forceinline__ void dw_producer(const CUtensorMap* tmk, const CUtensorMap* tmv,
+                                            const CUtensorMap* tmc, const CUtensorMap* tms,
+                                            const DecWideArgs& w, uint32_t sm, uint32_t full0,
+                                            uint32_t empty0, int h, int b0, int b1) {
+  using L = DecSmem<Q8>;
+  const DecArgs& a = w.a;
+  const int lane = threadIdx.x & 31;
+  const uint32_t tx = (w.kcp ? 0 : L::KV_BYTES) + (w.vcp ? 0 : L::KV_BYTES) + 4 * DA_HALF;
+  const long long sc_bytes = 2LL * a.Hkv * a.S;
+  for (int i = 0; i < (b1 - b0) * NC; ++i) {
+    const int slot = i % DA_STAGES, c = i % NC, x0 = 128 * c;
+    if (i >= DA_STAGES) mbar_wait(empty0 + 8 * slot, ((i / DA_STAGES) - 1) & 1);
+    const int s0 = (b0 + i / NC) * DA_BLK;
+    const uint32_t st = sm + slot * L::STAGE, full = full0 + 8 * slot;
+    if (lane == 0) {
+      mbar_expect_tx(full, tx);
+      if (Q8) {
+        if (!w.kcp) tma_3d(st + L::K_OFF, tmk, full, x0, s0, h);
+        if (!w.vcp) tma_3d(st + L::V_OFF, tmv, full, x0, s0, h);
+      } else {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          tma_3d(st + L::K_OFF + hf * DA_HALF, tmk, full, x0 + 64 * hf, s0, h);
+          tma_3d(st + L::V_OFF + hf * DA_HALF, tmv, full, x0 + 64 * hf, s0, h);
+        }
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        tma_2d(st + L::C_OFF + hf * DA_HALF, tmc, full, x0 + 64 * hf, s0);
+        tma_2d(st + L::S_OFF + hf * DA_HALF, tms, full, x0 + 64 * hf, s0);
+      }
+    }
+    if (Q8) {  // int8 rows whose pitch TMA cannot take: 8 bytes a piece, zero outside
+#pragma unroll 1
+      for (int v = 0; v < 2; ++v) {
+        if (!(v ? w.vcp : w.kcp)) continue;
+        const int D = v ? w.Dv : a.D;
+        const int8_t* base = v ? w.v8 : w.k8;
+        for (int pi = lane; pi < DA_BLK * 16; pi += 32) {
+          const int cell = pi >> 4, p = pi & 15, s = s0 + cell, d = x0 + 8 * p;
+          const bool ok = s < a.S && d < D;
+          cp_async8(st + (v ? L::V_OFF : L::K_OFF) + swz(cell, 8 * p),
+                    base + (ok ? ((size_t)h * a.S + s) * D + d : 0), ok ? 8 : 0);
+        }
+      }
+    }
+    for (int e = lane; e < a.T * DA_BLK; e += 32) {
+      const int t = e / DA_BLK, s = s0 + e % DA_BLK;
+      cp_async4(st + L::B_OFF + 4 * e, a.bias + (size_t)t * a.S + min(s, a.S - 1),
+                s < a.S ? 4 : 0);
+    }
+    if (Q8) {
+      const long long w0 = ((long long)h * a.S + s0) >> 1;
+      for (int e = lane; e < 2 * DA_SC_WORDS; e += 32) {
+        const int v = e / DA_SC_WORDS, wi = e % DA_SC_WORDS;
+        const long long byte = 4 * (w0 + wi);
+        const int n = (int)max(0LL, min(4LL, sc_bytes - byte));
+        const char* base = reinterpret_cast<const char*>(v ? a.vs : a.ks);
+        cp_async4(st + (v ? L::VS_OFF : L::KS_OFF) + 4 * wi, base + (n ? byte : 0), n);
+      }
+    }
+    cp_async_arrive(full);
+  }
+}
+
+// one consumer warp of the wide kernel over blocks [b0, b1): as da_consumer,
+// with the scores summed over a block's NC items and acc[8 NC][NR][4]
+template <bool Q8, int NR, int NC>
+__device__ __forceinline__ void dw_consumer(const DecArgs& a, uint8_t* smem, uint32_t full0,
+                                            uint32_t empty0, int h, int r0, int b0, int b1,
+                                            float (&acc)[8 * NC][NR][4], float (&m)[NR][2],
+                                            float (&l)[NR][2]) {
+  using L = DecSmem<Q8>;
+  using W = DecWideSmem<Q8>;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int cw0 = DA_CELLS * w;
+  int tok[NR][2];
+#pragma unroll
+  for (int nr = 0; nr < NR; ++nr)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) tok[nr][i] = min((r0 + 8 * nr + 2 * t4 + i) / a.G, a.T - 1);
+  const int v_cell = (lane & 7) + 8 * (lane >> 4), v_col = 8 * ((lane >> 3) & 1);
+  uint8_t* vt = smem + W::VT_OFF + w * L::VT_WARP;
+
+  for (int j = 0; j < b1 - b0; ++j) {
+    const int sc0 = (int)(((long long)h * a.S + (b0 + j) * DA_BLK) & 1);
+    float sh[NR][4], sl[NR][4];
+#pragma unroll
+    for (int nr = 0; nr < NR; ++nr)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sh[nr][e] = sl[nr][e] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int it = j * NC + c, slot = it % DA_STAGES;
+      mbar_wait(full0 + 8 * slot, (it / DA_STAGES) & 1);
+      const uint8_t* st = smem + slot * L::STAGE;
+      float kscale[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        kscale[i] = Q8 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(
+                             st + L::KS_OFF)[sc0 + cw0 + g + 8 * i])
+                       : 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const int hf = kk >> 2;
+        uint32_t chi[4], cnl[4], shi[4], snl[4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int cc = cw0 + g + 8 * i;
+          const int cb = swz(cc, 32 * (kk & 3) + 8 * t4) + hf * DA_HALF;
+          uint32_t k2[2];
+          if (Q8) {
+            dq4(*reinterpret_cast<const uint32_t*>(st + L::K_OFF + swz(cc, 16 * kk + 4 * t4)),
+                kscale[i], k2[0], k2[1]);
+          } else {
+            const uint2 kw = *reinterpret_cast<const uint2*>(st + L::K_OFF + cb);
+            k2[0] = kw.x;
+            k2[1] = kw.y;
+          }
+          const uint2 cw = *reinterpret_cast<const uint2*>(st + L::C_OFF + cb);
+          const uint2 sw = *reinterpret_cast<const uint2*>(st + L::S_OFF + cb);
+          const uint32_t c2[2] = {cw.x, cw.y}, s2[2] = {sw.x, sw.y};
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int ai = i + 2 * e;
+            const uint32_t kn = k2[e] ^ 0x80008000u;
+            chi[ai] = bmul2(k2[e], c2[e]);
+            cnl[ai] = bfma2(kn, c2[e], chi[ai]);
+            shi[ai] = bmul2(k2[e], s2[e]);
+            snl[ai] = bfma2(kn, s2[e], shi[ai]);
+          }
+        }
+        // q and q_rot of dims 128c + 16kk.. from their 64-dim quarter
+        const uint8_t* qa = smem + W::Q_OFF + (2 * c + hf) * (DW_ROWS * 128);
+#pragma unroll
+        for (int nr = 0; nr < NR; ++nr) {
+          const int o = swz(8 * nr + g, 32 * (kk & 3) + 8 * t4);
+          const uint2 x = *reinterpret_cast<const uint2*>(qa + o);
+          const uint2 y = *reinterpret_cast<const uint2*>(qa + W::Q_WHICH + o);
+          mma_bf16(sh[nr], chi, x.x, x.y);
+          mma_bf16(sh[nr], shi, y.x, y.y);
+          mma_bf16(sl[nr], cnl, x.x, x.y);
+          mma_bf16(sl[nr], snl, y.x, y.y);
+        }
+      }
+    }
+
+    // the online softmax, the bias from the block's first item
+    const uint8_t* st0 = smem + ((j * NC) % DA_STAGES) * L::STAGE;
+    const float* bias = reinterpret_cast<const float*>(st0 + L::B_OFF);
+    const int cell0 = (b0 + j) * DA_BLK + cw0;
+    uint32_t ph[NR][2], pl[NR][2];
+    float al[NR][2];
+    bool moved = false;
+#pragma unroll
+    for (int nr = 0; nr < NR; ++nr) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int cl = g + 8 * (e >> 1);
+        const float x = (sh[nr][e] - sl[nr][e]) * a.scale2 +
+                        fmaxf(bias[tok[nr][e & 1] * DA_BLK + cw0 + cl], DA_NEG) * DA_LOG2E;
+        p[e] = cell0 + cl < a.S ? x : -INFINITY;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = fmaxf(p[i], p[2 + i]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+        const float mn = fmaxf(m[nr][i], mx);
+        const float alpha = ex2(m[nr][i] - mn);
+        m[nr][i] = mn;
+        p[i] = ex2(p[i] - mn);
+        p[2 + i] = ex2(p[2 + i] - mn);
+        l[nr][i] = l[nr][i] * alpha + (p[i] + p[2 + i]);
+        al[nr][i] = alpha;
+        moved |= alpha != 1.f;
+      }
+      uint32_t hi0, lo0, hi1, lo1;
+      split_hilo(p[0], p[1], hi0, lo0);
+      split_hilo(p[2], p[3], hi1, lo1);
+      ph[nr][0] = mov_t(hi0);
+      ph[nr][1] = mov_t(hi1);
+      pl[nr][0] = mov_t(lo0);
+      pl[nr][1] = mov_t(lo1);
+    }
+    if (__any_sync(0xffffffffu, moved)) {
+#pragma unroll
+      for (int dm = 0; dm < 8 * NC; ++dm)
+#pragma unroll
+        for (int nr = 0; nr < NR; ++nr)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[dm][nr][e] *= al[nr][e & 1];
+    }
+
+    // O^T += V^T.P^T, item c's V into accumulator dims 128c..
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const uint8_t* st = smem + ((j * NC + c) % DA_STAGES) * L::STAGE;
+      uint32_t v_base = smem_u32(st + L::V_OFF);
+      int v_row = cw0 + v_cell, v_half = DA_HALF;
+      if (Q8) {
+        __syncwarp();  // the last item's ldmatrix reads are done
+#pragma unroll
+        for (int i = 0; i < DA_CELLS / 4; ++i) {
+          const int ci = lane + 32 * i, row = ci >> 3, c16 = ci & 7;
+          const uint4 raw =
+              *reinterpret_cast<const uint4*>(st + L::V_OFF + swz(cw0 + row, 16 * c16));
+          const float s = __bfloat162float(
+              reinterpret_cast<const __nv_bfloat16*>(st + L::VS_OFF)[sc0 + cw0 + row]);
+          uint4 lo, hi;
+          dq16(raw, s, lo, hi);
+          uint8_t* dst = vt + (c16 >> 2) * (DA_CELLS * 128);
+          *reinterpret_cast<uint4*>(dst + swz(row, (c16 & 3) * 32)) = lo;
+          *reinterpret_cast<uint4*>(dst + swz(row, (c16 & 3) * 32 + 16)) = hi;
+        }
+        __syncwarp();
+        v_base = smem_u32(vt);
+        v_row = v_cell;
+        v_half = DA_CELLS * 128;
+      }
+#pragma unroll
+      for (int dm = 0; dm < 8; ++dm) {
+        const int d = 16 * dm + v_col;
+        uint32_t va[4];
+        ldsm_x4_t(va, v_base + (d >> 6) * v_half + swz(v_row, (d & 63) * 2));
+#pragma unroll
+        for (int nr = 0; nr < NR; ++nr) {
+          mma_bf16(acc[8 * c + dm][nr], va, ph[nr][0], ph[nr][1]);
+          mma_bf16(acc[8 * c + dm][nr], va, pl[nr][0], pl[nr][1]);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) mbar_arrive(empty0 + 8 * ((j * NC + c) % DA_STAGES));
+    }
+  }
+#pragma unroll
+  for (int nr = 0; nr < NR; ++nr)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[nr][i] += __shfl_xor_sync(0xffffffffu, l[nr][i], 4);
+      l[nr][i] += __shfl_xor_sync(0xffffffffu, l[nr][i], 8);
+      l[nr][i] += __shfl_xor_sync(0xffffffffu, l[nr][i], 16);
+    }
+}
+
+// a CTA of the wide kernel: as decode_cta, with Dk = a.D and Dv apart
+template <bool Q8, int NR, int NC>
+__global__ void __launch_bounds__(DA_THREADS, 1)
+flash_decode_tc_wide(const __grid_constant__ CUtensorMap tmk,
+                     const __grid_constant__ CUtensorMap tmv,
+                     const __grid_constant__ CUtensorMap tmc,
+                     const __grid_constant__ CUtensorMap tms, const DecWideArgs wa) {
+  using W = DecWideSmem<Q8>;
+  constexpr int RC = 8 * NR, DM = 8 * NC, DH = 128 * NC;  // rows, dim tiles, dims held
+  extern __shared__ uint8_t dyn_smem[];
+  __shared__ __align__(8) uint64_t bars[2 * DA_STAGES];
+  const DecArgs& a = wa.a;
+  const int Dk = a.D, Dv = wa.Dv;
+  const uint32_t raw = smem_u32(dyn_smem);
+  uint8_t* smem = dyn_smem + (((raw + 1023) & ~1023u) - raw);
+  const uint32_t sm = smem_u32(smem);
+  const uint32_t full0 = smem_u32(&bars[0]), empty0 = smem_u32(&bars[DA_STAGES]);
+  const int C = gridDim.x, rank = blockIdx.x, h = blockIdx.y, r0 = blockIdx.z * RC;
+  const int nblk = (a.S + DA_BLK - 1) / DA_BLK;
+  const int b0 = min(nblk, rank * a.bpr), b1 = min(nblk, b0 + a.bpr);
+  const int nrows = min(RC, a.R - r0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < DA_STAGES; ++s) {
+      mbar_init(full0 + 8 * s, DA_FULL_ARRIVALS);
+      mbar_init(empty0 + 8 * s, DA_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float acc[DM][NR][4], m[NR][2], l[NR][2];
+#pragma unroll
+  for (int nr = 0; nr < NR; ++nr) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m[nr][i] = DA_NEG * DA_LOG2E;
+      l[nr][i] = 0.f;
+    }
+#pragma unroll
+    for (int dm = 0; dm < DM; ++dm)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[dm][nr][e] = 0.f;
+  }
+  if (warp == DA_WARPS) {
+    dw_producer<Q8, NC>(&tmk, &tmv, &tmc, &tms, wa, sm, full0, empty0, h, b0, b1);
+  } else {
+    // q and q_rot of rows r0.. into [which][quarter][row][128 B], dims past Dk zero
+    for (int i = threadIdx.x; i < 2 * RC * 32; i += DA_WARPS * 32) {
+      const int which = i / (RC * 32), r = (i / 32) % RC, c16 = i % 32;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (r < nrows && 8 * c16 < Dk) {
+        const int rg = r0 + r, t = rg / a.G, g = rg % a.G;
+        const __nv_bfloat16* src =
+            (which ? a.qr : a.q) + ((size_t)t * a.H + (size_t)h * a.G + g) * Dk + 8 * c16;
+        v = *reinterpret_cast<const uint4*>(src);
+      }
+      *reinterpret_cast<uint4*>(smem + W::Q_OFF + which * W::Q_WHICH +
+                                (c16 >> 3) * DW_ROWS * 128 + swz(r, (c16 & 7) * 16)) = v;
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(DA_WARPS * 32) : "memory");
+    dw_consumer<Q8, NR, NC>(a, smem, full0, empty0, h, r0, b0, b1, acc, m, l);
+  }
+  __syncthreads();
+
+  float* wacc = reinterpret_cast<float*>(smem + W::W_ACC);
+  float* wm = reinterpret_cast<float*>(smem + W::W_M);
+  float* wl = reinterpret_cast<float*>(smem + W::W_L);
+  float* cacc = reinterpret_cast<float*>(smem + W::C_ACC);
+  float* cm = reinterpret_cast<float*>(smem + W::C_M);
+  float* cl = reinterpret_cast<float*>(smem + W::C_L);
+  if (warp < DA_WARPS) {
+    const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+    for (int nr = 0; nr < NR; ++nr)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = 8 * nr + 2 * t4 + i;
+        if (row < nrows) {
+#pragma unroll
+          for (int dm = 0; dm < DM; ++dm)
+#pragma unroll
+            for (int e = i; e < 4; e += 2)
+              wacc[(((warp * DM + dm) * NR + nr) * 4 + e) * 32 + lane] = acc[dm][nr][e];
+          if (g == 0) {
+            wm[warp * DW_ROWS + row] = m[nr][i];
+            wl[warp * DW_ROWS + row] = l[nr][i];
+          }
+        }
+      }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < nrows * DH; i += DA_THREADS) {
+    const int r = i / DH, d = i % DH;
+    const int frag = ((d >> 4) * NR + (r >> 3)) * 4 + 2 * ((d >> 3) & 1) + (r & 1);
+    const int fl = 4 * (d & 7) + ((r & 7) >> 1);
+    float M = wm[r];
+#pragma unroll
+    for (int w = 1; w < DA_WARPS; ++w) M = fmaxf(M, wm[w * DW_ROWS + r]);
+    float Ls = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < DA_WARPS; ++w) {
+      const float e = ex2(wm[w * DW_ROWS + r] - M);
+      Ls += wl[w * DW_ROWS + r] * e;
+      A += wacc[(w * DM * NR * 4 + frag) * 32 + fl] * e;
+    }
+    cacc[r * DH + d] = A;
+    if (d == 0) {
+      cm[r] = M;
+      cl[r] = Ls;
+    }
+  }
+  if (C > 1) cluster_sync_all();
+  else __syncthreads();
+  float* xm = reinterpret_cast<float*>(smem + W::X_M);
+  float* xl = reinterpret_cast<float*>(smem + W::X_L);
+  for (int i = threadIdx.x; i < C * nrows; i += DA_THREADS) {
+    const int q = i / nrows, r = i % nrows;
+    xm[q * DW_ROWS + r] = C > 1 ? ld_dsmem(smem_u32(cm + r), q) : cm[r];
+    xl[q * DW_ROWS + r] = C > 1 ? ld_dsmem(smem_u32(cl + r), q) : cl[r];
+  }
+  __syncthreads();
+  const int elems = nrows * Dv, per = (elems + C - 1) / C;
+  const int e0 = rank * per, e1 = min(elems, e0 + per);
+  for (int i = e0 + threadIdx.x; i < e1; i += DA_THREADS) {
+    const int r = i / Dv, d = i % Dv;
+    const int ci = r * DH + d;
+    float M = -INFINITY;
+    for (int q = 0; q < C; ++q) M = fmaxf(M, xm[q * DW_ROWS + r]);
+    float o[DA_MAX_CLUSTER];
+#pragma unroll
+    for (int q = 0; q < DA_MAX_CLUSTER; ++q)
+      if (q < C) o[q] = ld_dsmem(smem_u32(cacc + ci), q);
+    float Ls = 0.f, A = 0.f;
+#pragma unroll
+    for (int q = 0; q < DA_MAX_CLUSTER; ++q) {
+      if (q < C) {
+        const float e = ex2(xm[q * DW_ROWS + r] - M);
+        Ls += xl[q * DW_ROWS + r] * e;
+        A += o[q] * e;
+      }
+    }
+    const int rg = r0 + r, t = rg / a.G, g = rg % a.G;
+    a.out[((size_t)t * a.H + (size_t)h * a.G + g) * Dv + d] = A / fmaxf(Ls, 1e-30f);
+  }
+  if (C > 1) cluster_sync_all();
+}
+
+// ----------------------------------------------------------------------------
 // host side: the tensor maps (hopper.cuh's make_map) and the cluster launch
 
 struct DecPtrs {
@@ -777,6 +1237,89 @@ int launch_any(const DecPtrs& p, int T, int H, int Hkv, int S, int D, float scal
   return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
+// the wide kernel's launch: Dk, Dv multiples of 8 up to 256, rows in one or
+// two n8 tiles (chunks of 16 past 16), NC = 1 up to 128 dims, else 2
+template <bool Q8, int NR, int NC>
+int launch_wide_t(const DecPtrs& p, int T, int H, int Hkv, int S, int Dk, int Dv, float scale,
+                  int cluster, cudaStream_t st) {
+  using W = DecWideSmem<Q8>;
+  const auto kern = flash_decode_tc_wide<Q8, NR, NC>;
+  static bool attr = false;
+  if (!attr) {
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, W::BYTES);
+    attr = true;
+  }
+  const int G = H / Hkv, R = T * G, nblk = (S + DA_BLK - 1) / DA_BLK;
+  using bf = __nv_bfloat16;
+  DecWideArgs wa{{(const bf*)p.q, (const bf*)p.qr, (const float*)p.bias, (const bf*)p.ks,
+                  (const bf*)p.vs, (float*)p.out, T, H, Hkv, G, S, R,
+                  (nblk + cluster - 1) / cluster, scale * DA_LOG2E, Dk},
+                 Dv, Q8 && Dk % 16 != 0, Q8 && Dv % 16 != 0, (const int8_t*)p.k,
+                 (const int8_t*)p.v};
+  CUtensorMap mk, mv, mc, ms;
+  memset(&mk, 0, sizeof(mk));
+  memset(&mv, 0, sizeof(mv));
+  const CUtensorMapDataType dt =
+      Q8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const cuuint64_t es = Q8 ? 1 : 2;
+  const cuuint32_t box[3] = {Q8 ? 128u : 64u, (cuuint32_t)DA_BLK, 1};
+  for (int v = 0; v < 2; ++v) {  // K at Dk, V at Dv: [Hkv, S, D] 3-D maps
+    const int D = v ? Dv : Dk;
+    if (v ? wa.vcp : wa.kcp) continue;
+    const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)Hkv};
+    const cuuint64_t strides[2] = {D * es, (cuuint64_t)S * D * es};
+    if (int rc = make_map(v ? &mv : &mk, dt, 3, v ? p.v : p.k, dims, strides, box,
+                          CU_TENSOR_MAP_SWIZZLE_128B))
+      return rc;
+  }
+  {  // cos, sin: [S, Dk] bf16, 64-dim halves
+    const cuuint64_t dims[2] = {(cuuint64_t)Dk, (cuuint64_t)S};
+    const cuuint64_t strides[1] = {(cuuint64_t)Dk * 2};
+    const cuuint32_t cbox[2] = {64, (cuuint32_t)DA_BLK};
+    if (int rc = make_map(&mc, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.cs, dims, strides, cbox,
+                          CU_TENSOR_MAP_SWIZZLE_128B))
+      return rc;
+    if (int rc = make_map(&ms, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.sn, dims, strides, cbox,
+                          CU_TENSOR_MAP_SWIZZLE_128B))
+      return rc;
+  }
+  cudaLaunchConfig_t cfg;
+  memset(&cfg, 0, sizeof(cfg));
+  cfg.gridDim = dim3(cluster, Hkv, (R + 8 * NR - 1) / (8 * NR));
+  cfg.blockDim = dim3(DA_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = W::BYTES;
+  cfg.stream = st;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = cluster;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kern, mk, mv, mc, ms, wa);
+}
+
+template <bool Q8>
+int launch_wide(const DecPtrs& p, int T, int H, int Hkv, int S, int Dk, int Dv, float scale,
+                int cluster, void* stream) {
+  if (T < 1 || T > DA_MAX_T || Hkv < 1 || H % Hkv || S < 1) return (int)cudaErrorInvalidValue;
+  if (Dk < 8 || Dk > DW_DIMS || Dk % 8 || Dv < 8 || Dv > DW_DIMS || Dv % 8)
+    return (int)cudaErrorInvalidValue;
+  const int nblk = (S + DA_BLK - 1) / DA_BLK;
+  if (cluster < 1 || cluster > DA_MAX_CLUSTER || cluster > nblk) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int R = T * (H / Hkv);
+  const bool two = Dk > 128 || Dv > 128;
+  int rc;
+  if (R <= 8)
+    rc = two ? launch_wide_t<Q8, 1, 2>(p, T, H, Hkv, S, Dk, Dv, scale, cluster, st)
+             : launch_wide_t<Q8, 1, 1>(p, T, H, Hkv, S, Dk, Dv, scale, cluster, st);
+  else
+    rc = two ? launch_wide_t<Q8, 2, 2>(p, T, H, Hkv, S, Dk, Dv, scale, cluster, st)
+             : launch_wide_t<Q8, 2, 1>(p, T, H, Hkv, S, Dk, Dv, scale, cluster, st);
+  return rc != 0 ? rc : (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // K3: cluster is the number of CTAs that split a KV head's cells
@@ -799,4 +1342,25 @@ extern "C" int flash_decode_q8_launch(const void* q, const void* qr, const void*
                                       float scale, int cluster, void* stream) {
   const DecPtrs p{q, qr, k, ks, v, vs, cs, sn, bias, out};
   return launch_any<true>(p, T, H, Hkv, S, D, scale, cluster, stream);
+}
+
+// K3 at Dk, Dv apart (each a multiple of 8 up to 256): the wide kernel.
+// cluster: CTAs a KV head (decode_attn_plan with 16 rows a CTA).
+extern "C" int flash_decode_wide_launch(const void* q, const void* qr, const void* k,
+                                        const void* v, const void* cs, const void* sn,
+                                        const void* bias, void* out, int T, int H, int Hkv,
+                                        int S, int Dk, int Dv, float scale, int cluster,
+                                        void* stream) {
+  const DecPtrs p{q, qr, k, nullptr, v, nullptr, cs, sn, bias, out};
+  return launch_wide<false>(p, T, H, Hkv, S, Dk, Dv, scale, cluster, stream);
+}
+
+// K3q on the wide kernel: int8 rows at any multiple of 8, one scale a row.
+extern "C" int flash_decode_wide_q8_launch(const void* q, const void* qr, const void* k,
+                                           const void* ks, const void* v, const void* vs,
+                                           const void* cs, const void* sn, const void* bias,
+                                           void* out, int T, int H, int Hkv, int S, int Dk,
+                                           int Dv, float scale, int cluster, void* stream) {
+  const DecPtrs p{q, qr, k, ks, v, vs, cs, sn, bias, out};
+  return launch_wide<true>(p, T, H, Hkv, S, Dk, Dv, scale, cluster, stream);
 }

@@ -111,19 +111,19 @@ def device_synthetic_qtensor(gen: torch.Generator, n: int, k: int,
 
 
 def llama_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab,
-                 head_dim=None) -> ModelConfig:
+                 head_dim=None, head_dim_v=None) -> ModelConfig:
     head_dim = head_dim or n_embd // n_heads
     return ModelConfig(
         arch="llama", vocab_size=vocab, n_embd=n_embd, n_layers=n_layers,
         n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim,
-        head_dim_v=head_dim, n_ff=n_ff, rms_eps=1e-5,
+        head_dim_v=head_dim_v or head_dim, n_ff=n_ff, rms_eps=1e-5,
         rope=RopeParams(n_dims=head_dim, mode=ROPE_TYPE_NORM),
         tie_embeddings=True, context_length=4096)
 
 
 def make_synthetic_model(n_embd: int = 64, n_layers: int = 2, n_heads: int = 8,
                          n_kv_heads: int = 8, n_ff: int = 256, vocab: int = 256,
-                         head_dim: int | None = None,
+                         head_dim: int | None = None, head_dim_v: int | None = None,
                          qtype: GGMLType | None = None, seed: int = 0,
                          dtype=torch.bfloat16, device=None,
                          on_device: bool = False, scales_dtype=torch.bfloat16,
@@ -133,12 +133,14 @@ def make_synthetic_model(n_embd: int = 64, n_layers: int = 2, n_heads: int = 8,
     `device` (None = the card; pass "cpu" for the host).
     qtype None gives dense weights in `dtype`. recipe "Q4_K_M" mixes types
     as a Q4_K_M file does: Q6_K for the lm_head and for attn_v and ffn_down
-    of the use_more_bits layers (those layers' QKV then stays unfused)."""
+    of the use_more_bits layers (those layers' QKV then stays unfused).
+    head_dim_v: V's head dim where it differs from K's (MLA's 128 beside
+    192), for attn_v's rows and attn_output's columns."""
     if recipe not in (None, "Q4_K_M"):
         raise ValueError(f"unknown recipe {recipe!r}")
     device = resolve_device(device)
-    cfg = llama_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab, head_dim)
-    hd = cfg.head_dim
+    cfg = llama_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab, head_dim, head_dim_v)
+    hd, hdv = cfg.head_dim, cfg.head_dim_v
     rng = np.random.default_rng(seed)
     gen = None
     if on_device:
@@ -167,8 +169,8 @@ def make_synthetic_model(n_embd: int = 64, n_layers: int = 2, n_heads: int = 8,
             "attn_norm": vec(n_embd),
             "attn_q": mat(n_heads * hd, n_embd),
             "attn_k": mat(n_kv_heads * hd, n_embd),
-            "attn_v": mat(n_kv_heads * hd, n_embd, six_bit=more),
-            "attn_output": mat(n_embd, n_heads * hd),
+            "attn_v": mat(n_kv_heads * hdv, n_embd, six_bit=more),
+            "attn_output": mat(n_embd, n_heads * hdv),
             "ffn_norm": vec(n_embd),
             "ffn_gate": mat(n_ff, n_embd),
             "ffn_up": mat(n_ff, n_embd),

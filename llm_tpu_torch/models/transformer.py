@@ -24,13 +24,17 @@ index, whose matmuls run K7 on the stacked planes, the index read on the
 card. K6's gates refuse a StackedWeight, as the reference's refuse anything
 but a QTensor: under chain the layers run unchained, the lm_head on K6.
 
-A q8_0 cache with group scales (kv_cache.kv_group: head_dim 64 or 96, any
-multiple of 32 but not of 128) has no flash kernel, as in the reference
-(its use_flash gate, llm_tpu/models/transformer.py:389-392): it is
-dequantized (kv_read) and goes through the unfused attention, on the CPU
-and on the card alike, chosen by the scales' shape. Every other cache runs
-K3/K3q/K4/K4q at any head dim that is a multiple of 8 up to 128; on the
-card check_supported refuses a wider one up front.
+Attention takes the reference's route (its use_flash gate,
+llm_tpu/models/transformer.py:355-392), chosen by flash_route on either
+device: head dims Dk and Dv that are multiples of 8 run K3/K3q/K4/K4q (up
+to 256 on the card; check_supported refuses a wider one up front, ROADMAP
+Queue 3); a head dim that is no multiple of 8, and a q8_0 cache whose rows
+carry group scales (kv_cache.kv_group: head_dim 64 or 96, any multiple of
+32 but not of 128), go through the unfused attention, the cache
+dequantized by kv_read. The reference looks at K's scales only; with V's
+rows group-scaled under one K scale a row (Dk 128, Dv 192) its kernels read
+V's first group scale for the whole row (ROADMAP, "Faults in the
+reference"), so the port takes the unfused attention there.
 
 It runs eagerly and updates the KV cache tensors in place (the JAX
 package donates them to a jitted step instead). Variants of the llama
@@ -45,7 +49,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import attention, build_attn_bias
 from ..ops.cuda_attn import (MAX_HEAD_DIM, expand_tables, flash_decode, flash_prefill,
-                             head_dim_ok, rope_companion)
+                             rope_companion)
 from ..ops.cuda_qmm_chain import head_eligible, is_kmajor_qt, layer_tail, norm_mm, tail_eligible
 from ..ops.norms import rms_norm
 from ..ops.qmatmul import qembed, qmm
@@ -69,26 +73,28 @@ _LAYER_KEYS = {"attn_norm", "ffn_norm", "attn_q", "attn_k", "attn_v", "attn_qkv_
                "attn_output", "ffn_gate", "ffn_up", "ffn_gateup_fused", "ffn_down"}
 
 
+def flash_route(dk: int, dv: int, k_groups: int = 1, v_groups: int = 1) -> bool:
+    """Whether attention runs the flash kernels (else the unfused
+    attention): Dk and Dv multiples of 8, and on a q8_0 cache one scale a
+    row of K and of V (k_groups, v_groups: scales a row; 1 for a dense
+    cache). The reference's use_flash gate, which reads K's scales only."""
+    return dk % 8 == 0 and dv % 8 == 0 and k_groups == 1 and v_groups == 1
+
+
 def check_attention(cfg: ModelConfig, on_card: bool, kv_q8: bool = False) -> None:
-    """On the card every attention step runs a flash kernel (or, for a q8_0
-    cache with group scales, the unfused attention): refuse up front the
-    head dims the kernels do not take. The reference's gate takes any
-    multiple of 8 (llm_tpu/models/transformer.py:361-368); its wider heads
-    (gemma's 256) and Dk != Dv (MLA) are ROADMAP Queue 3's open remainder
-    and Queue 1 items 8 (MLA, gemma)."""
+    """On the card every attention step that flash_route sends to the flash
+    kernels runs one: refuse up front the head dims they do not take, Dk or
+    Dv past MAX_HEAD_DIM (256; the reference's gate takes any multiple of
+    8: ROADMAP Queue 3's remainder)."""
     if not on_card:
         return
     dk, dv = cfg.head_dim, cfg.head_dim_v
-    if dk != dv or not head_dim_ok(dk):
+    groups = ((dk // kv_group(dk), dv // kv_group(dv)) if kv_q8 else (1, 1))
+    if flash_route(dk, dv, *groups) and max(dk, dv) > MAX_HEAD_DIM:
         raise NotImplementedError(
             f"head dims Dk={dk}, Dv={dv} are not ported on the card: the flash kernels "
-            f"take Dk = Dv, a multiple of 8 up to {MAX_HEAD_DIM} (ROADMAP Queue 3, "
-            f"head dims above 128)")
-    if kv_q8 and kv_group(dk) == dk and not head_dim_ok(dk, q8=True):
-        raise NotImplementedError(
-            f"a q8_0 cache at head_dim {dk} is not ported on the card: its rows carry one "
-            f"scale each, and K3q/K4q need a head_dim that is a multiple of 16 (the int8 "
-            f"rows' TMA pitch; ROADMAP Queue 3)")
+            f"take multiples of 8 up to {MAX_HEAD_DIM} (ROADMAP Queue 3, head dims "
+            f"above 256)")
 
 
 def check_supported(params: dict, cfg: ModelConfig, kv_q8: bool = False) -> None:
@@ -218,9 +224,10 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
     bias = build_attn_bias(tok_pos, tok_seq, cell_pos, cell_seq_bits)
     fattn = flash_decode if T <= 8 else flash_prefill
     keep = kept_rows(write_idx, cell_pos.shape[0])
-    # a q8_0 cache with group scales has no flash kernel: the unfused
-    # attention, on either device, as the reference's use_flash gate
-    unfused = isinstance(kv_k[0], tuple) and kv_k[0][1].shape[-1] != 1
+    # the reference's use_flash gate, on either device (module docstring)
+    q8 = isinstance(kv_k[0], tuple)
+    unfused = not flash_route(Dk, Dv, kv_k[0][1].shape[-1] if q8 else 1,
+                              kv_v[0][1].shape[-1] if q8 else 1)
 
     layers = params["layers"]
     if params.get("layers_stacked") is not None:

@@ -15,6 +15,10 @@ from __future__ import annotations
 import torch
 
 NEG_INF = float("-inf")
+# calls of the unfused attention (the route of heads that are no multiple
+# of 8 and of group-scaled q8_0 caches): no kernel, counted beside the
+# flash kernels' launches
+LAUNCHES = {"unfused": 0}
 
 
 def build_attn_bias(tok_pos: torch.Tensor, tok_seq: torch.Tensor,
@@ -37,6 +41,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Grouped-query attention with an f32 softmax over roped keys.
     q [T, H, D]; k [S, Hkv, D]; v [S, Hkv, Dv]; bias [T, S]. Returns
     [T, H, Dv] f32. Head h reads KV head h // (H // Hkv)."""
+    LAUNCHES["unfused"] += 1
     T, H, D = q.shape
     S, Hkv, _ = k.shape
     rep = H // Hkv

@@ -25,11 +25,16 @@ csrc/flash_prefill.cu (K4, K4q), a library of its own: the wgmma kernel
 whose operands are the same exact splits of k*cos, k*sin and p, at any G.
 Both take the plain version for CPU tensors.
 
-The kernels take any head dim D = Dk = Dv that is a multiple of 8 up to
-128 (the int8 cache: of 16, since TMA needs its rows' pitch a multiple of
-16 bytes), as the reference's flash gate does up to 128: a block is held as
-128 dims, the columns past D arrive from TMA as zeros. A wider head
-(gemma's 256) is refused here and, up front, by models/transformer.py's
+The kernels take head dims Dk (of q, K, cos and sin) and Dv (of V and the
+output) that are multiples of 8 up to 256, as the reference's flash gate
+does (any multiple of 8). Dk = Dv <= 128 (on the int8 cache a multiple of
+16, its rows' TMA pitch) runs the narrow kernels, which hold a block as 128
+dims, the columns past D arriving from TMA as zeros. Everything else, Dk !=
+Dv (MLA's 192/128), heads past 128 (gemma's 256) and int8 rows whose pitch
+is no multiple of 16 bytes (D = 72, 136: 8 mod 16), runs the wide kernels
+(LAUNCHES "K3w", "K3qw", "K4w", "K4qw"): the same arithmetic over two
+128-dim chunks, int8 rows of such a pitch brought by 8-byte cp.async.
+Heads past 256 are refused here and, up front, by models/transformer.py's
 check_supported (ROADMAP Queue 3).
 """
 
@@ -46,7 +51,9 @@ from .rope import ROPE_TYPE_NEOX, ROPE_TYPE_NORM
 
 NEG = -1e30
 T_CHUNK = 64  # query rows per step of attn_plain, to bound its score tensor
-LAUNCHES = {"K3": 0, "K4": 0, "K3q": 0, "K4q": 0}
+LAUNCHES = {"K3": 0, "K4": 0, "K3q": 0, "K4q": 0, "K3w": 0, "K4w": 0, "K3qw": 0, "K4qw": 0}
+# the K3/K3q launches (narrow and wide) by T, the query rows of the call
+DECODE_LAUNCHES_BY_T: dict[int, int] = {}
 # K3/K3q (csrc/flash_attn.cu): a CTA walks blocks of 64 cells and holds up
 # to 32 query rows of one KV head (past 32, more row chunks, each reading K
 # and V again); T <= 8 (the bias rows of a stage); the CTAs of a thread
@@ -57,18 +64,27 @@ LAUNCHES = {"K3": 0, "K4": 0, "K3q": 0, "K4q": 0}
 # of 12 and 16 lost to 8 at every swept shape: a cluster of 16 such CTAs
 # needs 16 free SMs of one GPC, which not every GPC of the card has.
 DECODE_BLOCK, DECODE_ROWS, DECODE_MAX_T, DECODE_MAX_CLUSTER = 64, 32, 8, 8
-MAX_HEAD_DIM = 128  # the head dims a kernel's block holds
+WIDE_ROWS = 16  # the wide K3/K3q: query rows a CTA
+NARROW_HEAD_DIM = 128  # the head dims a narrow kernel's block holds
+MAX_HEAD_DIM = 256  # the wide kernels: two 128-dim chunks
 
 
-def head_dim_ok(d: int, q8: bool = False) -> bool:
-    """Whether the flash kernels take head dim d: a multiple of 8 (of 16 on
-    the int8 cache: its rows' TMA pitch) up to MAX_HEAD_DIM."""
-    return 0 < d <= MAX_HEAD_DIM and d % (16 if q8 else 8) == 0
+def head_dim_ok(d: int) -> bool:
+    """Whether the flash kernels take head dim d (Dk or Dv): a multiple of
+    8 up to MAX_HEAD_DIM."""
+    return 0 < d <= MAX_HEAD_DIM and d % 8 == 0
+
+
+def is_narrow(dk: int, dv: int, q8: bool) -> bool:
+    """Whether (Dk, Dv) runs the narrow kernels: Dk = Dv <= 128, on the
+    int8 cache a multiple of 16 (the rows' TMA pitch). Else the wide ones."""
+    return dk == dv and dk <= NARROW_HEAD_DIM and dk % (16 if q8 else 8) == 0
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    DECODE_LAUNCHES_BY_T.clear()
 
 
 def dequant_bf16(kv) -> torch.Tensor:
@@ -81,9 +97,9 @@ def dequant_bf16(kv) -> torch.Tensor:
 
 
 def attn_plain(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Tensor:
-    """q, q_rot [T, H, D]; k, v [Hkv, S, D] or (int8, scales [Hkv, S, 1])
-    pairs; cos, sin [S, D]; bias [T, S]. Returns [T, H, Dv] f32. Chunked
-    over T to bound the score tensor."""
+    """q, q_rot [T, H, Dk]; k [Hkv, S, Dk], v [Hkv, S, Dv], or (int8,
+    scales [Hkv, S, 1]) pairs; cos, sin [S, Dk]; bias [T, S]. Returns
+    [T, H, Dv] f32. Chunked over T to bound the score tensor."""
     T, H, D = q.shape
     kf = dequant_bf16(k)
     vf = dequant_bf16(v)
@@ -119,6 +135,14 @@ def _lib():
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.flash_decode_q8_launch.restype = ctypes.c_int
+        lib.flash_decode_wide_launch.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        lib.flash_decode_wide_launch.restype = ctypes.c_int
+        lib.flash_decode_wide_q8_launch.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        lib.flash_decode_wide_q8_launch.restype = ctypes.c_int
     return lib
 
 
@@ -133,19 +157,24 @@ def _prefill_lib():
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
             + [ctypes.c_float, ctypes.c_void_p])
         lib.flash_prefill_q8_launch.restype = ctypes.c_int
+        lib.flash_prefill_wide_launch.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+        lib.flash_prefill_wide_launch.restype = ctypes.c_int
+        lib.flash_prefill_wide_q8_launch.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+        lib.flash_prefill_wide_q8_launch.restype = ctypes.c_int
     return lib
 
 
 def _check_inputs(q, q_rot, k, v, cos, sin, bias, kv_dtype=torch.bfloat16):
     """Checks every input of a flash kernel; k, v are tensors of kv_dtype.
-    Returns (T, H, Hkv, S, D)."""
+    Returns (T, H, Hkv, S, Dk, Dv)."""
     T, H, D = q.shape
     Hkv, S, Dv = v.shape
-    q8 = kv_dtype == torch.int8
-    if Dv != D or not head_dim_ok(D, q8) or H % Hkv:
-        raise ValueError(f"flash kernels take Dk = Dv, a multiple of {16 if q8 else 8} up to "
+    if not head_dim_ok(D) or not head_dim_ok(Dv) or H % Hkv:
+        raise ValueError(f"flash kernels take Dk and Dv that are multiples of 8 up to "
                          f"{MAX_HEAD_DIM}, and H % Hkv == 0 "
-                         f"(got D={D}, Dv={Dv}, H={H}, Hkv={Hkv})")
+                         f"(got Dk={D}, Dv={Dv}, H={H}, Hkv={Hkv})")
     for name, t, dt in (("q", q, torch.bfloat16), ("q_rot", q_rot, torch.bfloat16),
                         ("k", k, kv_dtype), ("v", v, kv_dtype),
                         ("cos", cos, torch.bfloat16), ("sin", sin, torch.bfloat16),
@@ -156,7 +185,7 @@ def _check_inputs(q, q_rot, k, v, cos, sin, bias, kv_dtype=torch.bfloat16):
             or tuple(sin.shape) != (S, D) or tuple(bias.shape) != (T, S) \
             or tuple(q_rot.shape) != (T, H, D):
         raise ValueError("flash kernel: inconsistent shapes")
-    return T, H, Hkv, S, D
+    return T, H, Hkv, S, D, Dv
 
 
 def _check_q8(q, q_rot, k, v, cos, sin, bias):
@@ -175,17 +204,19 @@ def _check_q8(q, q_rot, k, v, cos, sin, bias):
     return dims
 
 
-def decode_attn_plan(T: int, H: int, Hkv: int, S: int, n_sm: int) -> tuple[int, int, int]:
+def decode_attn_plan(T: int, H: int, Hkv: int, S: int, n_sm: int,
+                     rows: int = DECODE_ROWS) -> tuple[int, int, int]:
     """K3/K3q's grid for T query tokens of H heads over Hkv KV heads and S
     cells on n_sm SMs: (cluster size, blocks of 64 cells a CTA, row chunks).
-    A KV head's T*G rows are one chunk up to 32 (one, two or four n8 tiles),
-    else chunks of 32. The cluster is as many CTAs as put one on every SM,
+    A KV head's T*G rows are one chunk up to `rows` (32 for the narrow
+    kernel, in one, two or four n8 tiles; WIDE_ROWS for the wide one), else
+    chunks of `rows`. The cluster is as many CTAs as put one on every SM,
     at most DECODE_MAX_CLUSTER and one a block; then the fewest that
     give each CTA the same number of blocks, so none is left without one.
     CTA `rank` takes blocks [rank * per, (rank + 1) * per), per =
     ceil(blocks / cluster) as the kernel computes it."""
     R = T * (H // Hkv)
-    chunks = -(-R // DECODE_ROWS)
+    chunks = -(-R // rows)
     nblk = -(-S // DECODE_BLOCK)
     target = max(1, min(DECODE_MAX_CLUSTER, nblk, n_sm // (Hkv * chunks)))
     cluster = -(-nblk // -(-nblk // target))
@@ -204,22 +235,29 @@ def _check_decode(T, *tensors):
 
 def _decode_launch(q8: bool, q, q_rot, k, v, cos, sin, bias, scale: float,
                    cluster=None) -> torch.Tensor:
-    """Launch K3 (bf16 k, v) or K3q (q8: (int8, scales) pairs) with
-    `cluster` CTAs a KV head (None: decode_attn_plan's). Returns [T, H, D]
-    f32."""
-    T, H, Hkv, S, D = (_check_q8 if q8 else _check_inputs)(q, q_rot, k, v, cos, sin, bias)
+    """Launch K3 (bf16 k, v) or K3q (q8: (int8, scales) pairs), narrow or
+    wide by is_narrow, with `cluster` CTAs a KV head (None:
+    decode_attn_plan's). Returns [T, H, Dv] f32."""
+    T, H, Hkv, S, Dk, Dv = (_check_q8 if q8 else _check_inputs)(q, q_rot, k, v, cos, sin, bias)
     planes = (*k, *v) if q8 else (k, v)
     _check_decode(T, q, q_rot, *planes, cos, sin, bias)
+    narrow = is_narrow(Dk, Dv, q8)
     if cluster is None:
-        cluster = decode_attn_plan(T, H, Hkv, S, sm_count(q.device))[0]
-    out = torch.empty((T, H, D), dtype=torch.float32, device=q.device)
+        cluster = decode_attn_plan(T, H, Hkv, S, sm_count(q.device),
+                                   DECODE_ROWS if narrow else WIDE_ROWS)[0]
+    out = torch.empty((T, H, Dv), dtype=torch.float32, device=q.device)
     ptrs = [t.data_ptr() for t in (q, q_rot, *planes, cos, sin, bias, out)]
     lib = _lib()
-    fn = lib.flash_decode_q8_launch if q8 else lib.flash_decode_launch
-    rc = fn(*ptrs, T, H, Hkv, S, D, float(scale), int(cluster),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_build.check(rc, "flash_decode_q8_launch" if q8 else "flash_decode_launch")
-    LAUNCHES["K3q" if q8 else "K3"] += 1
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if narrow:
+        name = "flash_decode_q8_launch" if q8 else "flash_decode_launch"
+        rc = getattr(lib, name)(*ptrs, T, H, Hkv, S, Dk, float(scale), int(cluster), stream)
+    else:
+        name = "flash_decode_wide_q8_launch" if q8 else "flash_decode_wide_launch"
+        rc = getattr(lib, name)(*ptrs, T, H, Hkv, S, Dk, Dv, float(scale), int(cluster), stream)
+    cuda_build.check(rc, name)
+    LAUNCHES[("K3q" if q8 else "K3") + ("" if narrow else "w")] += 1
+    DECODE_LAUNCHES_BY_T[T] = DECODE_LAUNCHES_BY_T.get(T, 0) + 1
     return out
 
 
@@ -233,31 +271,35 @@ def flash_decode_q8_cuda(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.
     return _decode_launch(True, q, q_rot, k, v, cos, sin, bias, scale)
 
 
-def flash_prefill_cuda(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Tensor:
-    """K4 on a bf16 cache, any G = H / Hkv."""
-    T, H, Hkv, S, D = _check_inputs(q, q_rot, k, v, cos, sin, bias)
-    out = torch.empty((T, H, D), dtype=torch.float32, device=q.device)
-    rc = _prefill_lib().flash_prefill_launch(
-        q.data_ptr(), q_rot.data_ptr(), k.data_ptr(), v.data_ptr(),
-        cos.data_ptr(), sin.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        T, H, Hkv, S, D, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_build.check(rc, "flash_prefill_launch")
-    LAUNCHES["K4"] += 1
+def _prefill_launch(q8: bool, q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Tensor:
+    """Launch K4 (bf16 k, v) or K4q (q8: (int8, scales) pairs), narrow or
+    wide by is_narrow, any G = H / Hkv. Returns [T, H, Dv] f32."""
+    T, H, Hkv, S, Dk, Dv = (_check_q8 if q8 else _check_inputs)(q, q_rot, k, v, cos, sin, bias)
+    planes = (*k, *v) if q8 else (k, v)
+    narrow = is_narrow(Dk, Dv, q8)
+    out = torch.empty((T, H, Dv), dtype=torch.float32, device=q.device)
+    ptrs = [t.data_ptr() for t in (q, q_rot, *planes, cos, sin, bias, out)]
+    lib = _prefill_lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if narrow:
+        name = "flash_prefill_q8_launch" if q8 else "flash_prefill_launch"
+        rc = getattr(lib, name)(*ptrs, T, H, Hkv, S, Dk, float(scale), stream)
+    else:
+        name = "flash_prefill_wide_q8_launch" if q8 else "flash_prefill_wide_launch"
+        rc = getattr(lib, name)(*ptrs, T, H, Hkv, S, Dk, Dv, float(scale), stream)
+    cuda_build.check(rc, name)
+    LAUNCHES[("K4q" if q8 else "K4") + ("" if narrow else "w")] += 1
     return out
+
+
+def flash_prefill_cuda(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Tensor:
+    """K4 on a bf16 cache."""
+    return _prefill_launch(False, q, q_rot, k, v, cos, sin, bias, scale)
 
 
 def flash_prefill_q8_cuda(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Tensor:
     """K4q: K4 on (int8, scales [Hkv, S, 1]) pairs."""
-    T, H, Hkv, S, D = _check_q8(q, q_rot, k, v, cos, sin, bias)
-    out = torch.empty((T, H, D), dtype=torch.float32, device=q.device)
-    (kq, ks), (vq, vs) = k, v
-    rc = _prefill_lib().flash_prefill_q8_launch(
-        q.data_ptr(), q_rot.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
-        vs.data_ptr(), cos.data_ptr(), sin.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        T, H, Hkv, S, D, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_build.check(rc, "flash_prefill_q8_launch")
-    LAUNCHES["K4q"] += 1
-    return out
+    return _prefill_launch(True, q, q_rot, k, v, cos, sin, bias, scale)
 
 
 def flash_decode(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Tensor:

@@ -154,9 +154,9 @@ def probe_cuda(variant, q, q_rot, k, v, cos, sin, bias, scale: float, lidx=None,
     if _variant(variant) in STACKED:
         T, H, Hkv, S = _check_stacked(variant, q, q_rot, k, v, cos, sin, bias, lidx)
     else:
-        T, H, Hkv, S, D = cuda_attn._check_q8(q, q_rot, k, v, cos, sin, bias)
-        if D != 128:  # the split-S body holds 128 dims, as the TPU probes do
-            raise ValueError(f"S3 {variant}: head_dim 128 (got {D})")
+        T, H, Hkv, S, D, Dv = cuda_attn._check_q8(q, q_rot, k, v, cos, sin, bias)
+        if D != 128 or Dv != 128:  # the split-S body holds 128 dims, as the TPU probes do
+            raise ValueError(f"S3 {variant}: head_dim 128 (got Dk={D}, Dv={Dv})")
     lib = _lib()
     n_splits = split_count(q.device, T, H, Hkv, S, split)
     pm, pl, pacc, out = _scratch(q, T, H, Hkv, n_splits)

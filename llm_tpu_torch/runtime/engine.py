@@ -1,8 +1,11 @@
 """Context: the execution engine. Counterpart of
 llm_tpu/runtime/engine.py::Context for the llama path: decode(batch) with
-ubatch splitting, KV slot allocation and the logits output map; an
-eager generation loop (greedy, or temperature/top-k through a
-torch.Generator); the sequence ops on the cell table; and the perf
+ubatch splitting, KV slot allocation and the logits and hidden-row output
+maps; an eager generation loop (greedy, or temperature/top-k through a
+torch.Generator); the batched loop of the server (generate_loop_batch: B
+sequences, one batched one-token step a token, per-row sampling on the
+card); encode (pooled hidden rows); the sequence ops on the cell table;
+and the perf
 counters (PerfCounters, ctx.perf) that tools/cli.py prints, counted as the
 reference counts them: a ubatch of more than one token is prefill, a
 one-token decode and every token of generate_loop is decode.
@@ -28,10 +31,16 @@ from ..models.loader import load_params, stack_layers
 from ..models.transformer import check_supported, forward, layer_views
 from ..quant.qtensor import QTensor
 from .batch import Batch, sanitize, split_simple
+from ..samplers.device import row_generators, sample_rows
 from .kv_cache import MAX_SEQS, CellTable, new_kv_arrays, pack_seq_sets
 
 TOKEN_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048)
 N_UBATCH = 512  # tokens per step; longer batches are split
+
+
+class NoFreeCells(RuntimeError):
+    """The KV cache has no run of free cells for a decode loop (the
+    reference's RuntimeError; callers evict and retry on this alone)."""
 
 
 def _bucket(n: int, buckets=TOKEN_BUCKETS) -> int:
@@ -116,7 +125,11 @@ class Context:
         self.kv = new_kv_arrays(cfg.n_layers, n_cells, cfg.n_kv_heads, cfg.head_dim,
                                 cfg.head_dim_v, self.kv_dtype, self.device)
         self._logits: dict[int, np.ndarray] = {}
+        self._embd: dict[int, np.ndarray] = {}  # batch index -> final-norm hidden row
         self.rslots = None  # recurrent state slots: no recurrent model is ported
+        # the (B_pad, n) shapes generate_loop_batch has run: the reference
+        # compiles one program for each ("gloopb", B_pad, n)
+        self.batch_loop_shapes: set[tuple[int, int]] = set()
         self.perf = PerfCounters()
         self.perf.t_load_ms = (time.perf_counter() - t0) * 1e3
 
@@ -124,11 +137,11 @@ class Context:
         return torch.as_tensor(np.asarray(a, np.int64)).to(self.device)
 
     def _step(self, tokens, pos, seq, widx, cpos, cbits, oidx):
-        logits, _ = forward(self.params, self.cfg, self.kv.k, self.kv.v,
-                            tokens, pos, seq, widx, cpos, cbits, oidx,
-                            dtype=self.dtype, chain=self.chain, gdot=self.gdot,
-                            stacked_layers=self.stacked_layers)
-        return logits
+        """One forward: (logits, final-norm hidden rows) of the oidx rows."""
+        return forward(self.params, self.cfg, self.kv.k, self.kv.v,
+                       tokens, pos, seq, widx, cpos, cbits, oidx,
+                       dtype=self.dtype, chain=self.chain, gdot=self.gdot,
+                       stacked_layers=self.stacked_layers)
 
     def decode(self, batch: Batch) -> int:
         if len(batch) == 0:
@@ -139,6 +152,7 @@ class Context:
                     return -1
         batch = sanitize(batch, self.cells)
         self._logits.clear()
+        self._embd.clear()
         for ub in split_simple(batch, N_UBATCH):
             n = len(ub.tokens)
             slots = self.cells.find_slots(n)
@@ -159,15 +173,18 @@ class Context:
             self.cells.pos[slots] = ub.pos
             self.cells.seq_bits[slots] = pack_seq_sets(ub.seq_sets)
             try:
-                logits = self._step(self._t(tokens), self._t(pos), self._t(seq),
-                                    self._t(widx), self._t(self.cells.pos),
-                                    self.cells.device_bits(self.device), self._t(oidx))
+                logits, hidden = self._step(self._t(tokens), self._t(pos), self._t(seq),
+                                            self._t(widx), self._t(self.cells.pos),
+                                            self.cells.device_bits(self.device),
+                                            self._t(oidx))
             except Exception:
                 self.cells.release(slots)
                 raise
             logits_np = logits[: len(out_rows)].float().cpu().numpy()
+            hidden_np = hidden[: len(out_rows)].float().cpu().numpy()
             for i, bi in enumerate(ub.orig_index[out_rows]):
                 self._logits[int(bi)] = logits_np[i]
+                self._embd[int(bi)] = hidden_np[i]
             dt = (time.perf_counter() - t0) * 1e3
             if n > 1:
                 self.perf.t_prefill_ms += dt
@@ -198,7 +215,7 @@ class Context:
             return []
         slots = self.cells.find_slots(n)
         if slots is None:
-            raise RuntimeError("generate_loop: no free KV cells")
+            raise NoFreeCells("generate_loop: no free KV cells")
         pos0 = self.cells.seq_pos_max(seq_id) + 1
         t0 = time.perf_counter()
         cpos = self.cells.pos.astype(np.int64)
@@ -219,7 +236,7 @@ class Context:
         for i in range(n):
             cbits[slots[i], word] |= bit
             logits = self._step(tok, self._t([pos0 + i]), seq, slots_d[i:i + 1],
-                                cpos, cbits, oidx)[0]
+                                cpos, cbits, oidx)[0][0]
             if temp <= 0.0:
                 nxt = torch.argmax(logits)
             else:
@@ -236,9 +253,151 @@ class Context:
         self.cells.occupy(slots[:cnt], pos0 + np.arange(cnt, dtype=np.int32),
                           np.full(cnt, seq_id, np.int64))
         self._logits.clear()
+        self._embd.clear()
         self.perf.t_decode_ms += (time.perf_counter() - t0) * 1e3
         self.perf.n_decode += cnt
         return out
+
+    def generate_loop_batch(self, first_tokens, n_tokens: int, *, seq_ids,
+                            temps=None, top_ks=None, top_ps=None,
+                            min_ps=None, seeds=None, n_limits=None,
+                            eog_ids=()) -> list[list[int]]:
+        """Decode up to n_tokens for B sequences at once: per token one
+        batched one-token step over the B rows (K3 at T = B, each row
+        masked to its own sequence's cells) and per-row sampling on the
+        card (samplers/device.py; one torch.Generator a row, seeded from
+        seeds[b]). The reference runs the same loop inside one jitted
+        while_loop; here it is eager, with one host sync a step (whether
+        every row is done).
+
+        first_tokens/seq_ids: length-B lists. temps/top_ks/top_ps/min_ps/
+        seeds/n_limits: optional per-row lists (defaults: greedy, no limit
+        within n_tokens). A row stops at any eog_ids token (up to 8) or at
+        its n_limits; finished rows coast (their tokens are not recorded and
+        their remaining cells are not occupied). Returns B token lists of at
+        most n_tokens each.
+
+        B is padded to a power of two (the reference's compiled-program
+        bucket): pad rows decode under the scratch sequence MAX_SEQS - 1
+        into one shared run of spare cells that nothing occupies."""
+        if self.rslots is not None:
+            raise ValueError("generate_loop_batch: unsupported memory kind")
+        B = len(seq_ids)
+        n = int(n_tokens)
+        if B == 0 or n <= 0:
+            return [[] for _ in seq_ids]
+        if len(first_tokens) != B:
+            raise ValueError("first_tokens/seq_ids length mismatch")
+        for s in seq_ids:
+            if not (0 <= s < MAX_SEQS):
+                raise ValueError(f"bad seq_id {s}")
+        scratch = MAX_SEQS - 1
+        B_pad = 1 << (B - 1).bit_length()
+        n_extra = n if (B_pad > B and scratch not in seq_ids) else 0
+        flat = self.cells.find_slots(B * n + n_extra)
+        if flat is None and n_extra:
+            B_pad, n_extra = B, 0  # KV pressure: exact B, no spares
+            flat = self.cells.find_slots(B * n)
+        if flat is None:
+            raise NoFreeCells("generate_loop_batch: no free KV cells")
+        if not n_extra:
+            B_pad = B
+        slots_mat = flat[: B * n].reshape(B, n)
+        pos0 = np.asarray([self.cells.seq_pos_max(s) + 1 for s in seq_ids], np.int64)
+
+        t0 = time.perf_counter()
+        cpos = self.cells.pos.astype(np.int64)
+        cpos[slots_mat] = pos0[:, None] + np.arange(n)
+        temps = np.zeros(B, np.float32) if temps is None else np.asarray(temps, np.float32)
+        top_ks = np.zeros(B, np.int64) if top_ks is None else np.asarray(top_ks, np.int64)
+        top_ps = np.ones(B, np.float32) if top_ps is None else np.asarray(top_ps, np.float32)
+        min_ps = np.zeros(B, np.float32) if min_ps is None else np.asarray(min_ps, np.float32)
+        n_lim = (np.full(B, n, np.int64) if n_limits is None
+                 else np.minimum(np.asarray(n_limits, np.int64), n))
+        seeds = list(seeds) if seeds is not None else list(range(B))
+        first = np.asarray(first_tokens, np.int64)
+        seq_arr = np.asarray(seq_ids, np.int64)
+        if B_pad > B:
+            pad = B_pad - B
+            slots_mat = np.concatenate([slots_mat, np.broadcast_to(flat[B * n:], (pad, n))])
+            first = np.concatenate([first, np.zeros(pad, np.int64)])
+            seq_arr = np.concatenate([seq_arr, np.full(pad, scratch, np.int64)])
+            pos0 = np.concatenate([pos0, np.zeros(pad, np.int64)])
+            n_lim = np.concatenate([n_lim, np.ones(pad, np.int64)])
+            temps = np.concatenate([temps, np.zeros(pad, np.float32)])
+            top_ks = np.concatenate([top_ks, np.zeros(pad, np.int64)])
+            top_ps = np.concatenate([top_ps, np.ones(pad, np.float32)])
+            min_ps = np.concatenate([min_ps, np.zeros(pad, np.float32)])
+            seeds = seeds + [seeds[0]] * pad
+
+        dev = self.device
+        f32 = (lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev))
+        temps_d, top_ps_d, min_ps_d = f32(temps), f32(top_ps), f32(min_ps)
+        top_ks_d, n_lim_d = self._t(top_ks), self._t(n_lim)
+        # all rows greedy (known here): a full-row argmax, no candidate set
+        # and no draws
+        greedy = not bool((temps > 0.0).any())
+        gens = None if greedy else row_generators(seeds, dev)
+        eogs = self._t(list(eog_ids)[:8] or [-1])
+        cpos_d, cbits = self._t(cpos), self.cells.device_bits(dev)
+        slots_d, pos0_d, seq_d = self._t(slots_mat), self._t(pos0), self._t(seq_arr)
+        words, bits = seq_d >> 5, torch.ones_like(seq_d) << (seq_d & 31)
+        oidx = self._t(np.arange(B_pad))
+        tok = self._t(first)
+        done = torch.zeros(B_pad, dtype=torch.bool, device=dev)
+        toks = torch.full((B_pad, n), -1, dtype=torch.int64, device=dev)
+        for i in range(n):
+            cells_i = slots_d[:, i]
+            # each row's pre-labeled cell becomes visible to its own sequence
+            cbits[cells_i, words] = cbits[cells_i, words] | bits
+            logits, _ = self._step(tok, pos0_d + i, seq_d, cells_i, cpos_d, cbits, oidx)
+            nxt = (torch.argmax(logits, dim=-1) if greedy
+                   else sample_rows(logits, temps_d, top_ks_d, top_ps_d, min_ps_d, gens))
+            # finished rows keep feeding their last token; their cells stay
+            # unoccupied on the host, so what they write is never read
+            nxt = torch.where(done, tok, nxt)
+            toks[:, i] = torch.where(done, -1, nxt)
+            done = done | torch.isin(nxt, eogs) | (i + 1 >= n_lim_d)
+            tok = nxt
+            if bool(done.all()):  # the step's host sync
+                break
+        toks = toks.cpu().numpy()
+        self.batch_loop_shapes.add((B_pad, n))  # recorded once its steps ran
+        out: list[list[int]] = []
+        total = 0
+        for b in range(B):
+            row = toks[b]
+            stop = np.flatnonzero(row == -1)
+            cnt = int(stop[0]) if len(stop) else n
+            self.cells.occupy(slots_mat[b, :cnt], pos0[b] + np.arange(cnt, dtype=np.int32),
+                              np.full(cnt, seq_ids[b], np.int64))
+            out.append([int(t) for t in row[:cnt]])
+            total += cnt
+        self._logits.clear()
+        self._embd.clear()
+        self.perf.t_decode_ms += (time.perf_counter() - t0) * 1e3
+        self.perf.n_decode += total
+        return out
+
+    def encode(self, tokens: list[int], pooling: str = "mean", seq_id: int = 0):
+        """Sequence embedding with pooling (llama_encode + pooling_type
+        semantics: none/mean/cls/last) over the final-norm hidden rows."""
+        self.cells.seq_rm(seq_id)
+        b = Batch()
+        for i, t in enumerate(tokens):
+            b.add(t, i, (seq_id,), logits=True)
+        rc = self.decode(b)
+        if rc != 0:
+            raise RuntimeError(f"encode failed rc={rc}")
+        rows = np.stack([self._embd[i] for i in range(len(tokens))])
+        self.cells.seq_rm(seq_id)
+        if pooling == "none":
+            return rows
+        if pooling == "cls":
+            return rows[0]
+        if pooling == "last":
+            return rows[-1]
+        return rows.mean(axis=0)
 
     # -- memory (seq) API ------------------------------------------------------
 

@@ -11,9 +11,10 @@ scalar loop through the host sampler chain, and the same output text.
 
 Runs on the card (--device cuda, the default; without a card it exits
 nonzero) unless --device cpu is given. --profile DIR writes a
-torch.profiler trace there. Options whose modules the port has not ported
-exit with an error that names their ROADMAP item: --grammar,
---grammar-file and --json-schema (grammar), --lora and --control-vector,
+torch.profiler trace there. --grammar, --grammar-file and --json-schema
+constrain the generated text through the port's grammar/ (GBNF, "%regex",
+JSON schema). Options whose modules the port has not ported exit with an
+error that names their ROADMAP item: --lora and --control-vector,
 --no-planes (dense dequantization at load), the mesh options and T5
 models.
 """
@@ -30,13 +31,8 @@ from ..runtime.engine import Context
 from ..samplers import SamplingParams, build_chain
 from ..tokenizers import tokenizer_from_gguf
 
-GRAMMAR_TODO = ("grammar-constrained sampling is not ported yet "
-                "(ROADMAP Queue 1 item 4: grammar/)")
 # option -> (the value that means "not used", what it needs)
 _NOT_PORTED = {
-    "grammar": ("", GRAMMAR_TODO),
-    "grammar_file": (None, GRAMMAR_TODO),
-    "json_schema": (None, GRAMMAR_TODO),
     "lora": ([], "LoRA adapters are not ported yet (ROADMAP Queue 1 item 9.1)"),
     "control_vector": ([], "control vectors are not ported yet (ROADMAP Queue 1 item 9.1)"),
     "control_vector_layer_range": (None, "control vectors are not ported yet "
@@ -81,7 +77,10 @@ def generate(
     for t in prompt_tokens:
         chain.accept(t)
     if sampling.grammar:
-        raise NotImplementedError(GRAMMAR_TODO)
+        # constrain GENERATED text only: wrap after the prompt is accepted
+        from ..grammar import constrained_chain
+
+        chain = constrained_chain(chain, tok, grammar=sampling.grammar)
 
     out_tokens: list[int] = []
     text_parts: list[str] = []
@@ -209,9 +208,11 @@ def _parser():
     ap.add_argument("--top-p", type=float, default=ed("top-p", 0.95))
     ap.add_argument("--min-p", type=float, default=0.05)
     ap.add_argument("--grammar", default=ed("grammar", ""),
-                    help="GBNF grammar text (not ported yet)")
-    ap.add_argument("--grammar-file", default=None, help="(not ported yet)")
-    ap.add_argument("--json-schema", default=None, help="(not ported yet)")
+                    help="GBNF grammar text, or '%%regex <pattern>'")
+    ap.add_argument("--grammar-file", default=None,
+                    help="read --grammar from a file (.gbnf)")
+    ap.add_argument("--json-schema", default=None,
+                    help="constrain output to a JSON schema (string or @file)")
     ap.add_argument("--repeat-penalty", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=-1)
     ap.add_argument("--f32", action="store_true")
@@ -323,10 +324,23 @@ def main(argv=None):
                 print(f"prompt cache load failed: {e}", file=sys.stderr)
                 ctx.clear()
 
+    grammar = args.grammar or ""
+    if args.grammar_file:
+        grammar = open(args.grammar_file).read()
+    if args.json_schema and not grammar:
+        import json as _json
+
+        from ..grammar.json_schema import json_schema_to_gbnf
+
+        js = args.json_schema
+        if js.startswith("@"):
+            js = open(js[1:]).read()
+        grammar = json_schema_to_gbnf(_json.loads(js))
     sampling = SamplingParams(
         temp=args.temp, top_k=args.top_k, top_p=args.top_p, min_p=args.min_p,
         penalty_repeat=args.repeat_penalty,
         seed=args.seed if args.seed >= 0 else 0xFFFFFFFF,
+        grammar=grammar,
     )
 
     sys.stdout.write(prompt)

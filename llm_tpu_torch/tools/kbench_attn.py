@@ -52,16 +52,17 @@ def copies_for(n: int) -> int:
     return max(1, min(16, math.ceil(2 * L2_BYTES / max(n, 1))))
 
 
-def attn_inputs(T, H, Hkv, S, D, seed, masked_frac=0.5, device="cuda"):
+def attn_inputs(T, H, Hkv, S, D, seed, masked_frac=0.5, device="cuda", Dv=None):
     """Attention inputs made from seed: a causal run of T tokens whose last
     sees the first (1 - masked_frac) * S cells of a cache of S (NORM rope at
-    freq_base 5e5, bf16 q/K/V from N(0, 1)); and the half-width rope angles."""
+    freq_base 5e5, bf16 q/K/V from N(0, 1); V at Dv, None: D); and the
+    half-width rope angles."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     bf = torch.bfloat16
     q = torch.randn((T, H, D), generator=gen, device=device).to(bf)
     k = torch.randn((Hkv, S, D), generator=gen, device=device).to(bf)
-    v = torch.randn((Hkv, S, D), generator=gen, device=device).to(bf)
+    v = torch.randn((Hkv, S, Dv or D), generator=gen, device=device).to(bf)
     pos = torch.arange(S, device=device)
     c, s = rope_angles(pos, RopeParams(n_dims=D, mode=ROPE_TYPE_NORM, freq_base=500000.0))
     cos, sin = (t.to(bf).contiguous() for t in cuda_attn.expand_tables(c, s, ROPE_TYPE_NORM, D))

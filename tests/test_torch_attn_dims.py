@@ -1,5 +1,5 @@
-"""Flash attention at every llama head dim up to 128 and every GQA group:
-the port against llm_tpu on the CPU.
+"""Flash attention at every llama head dim up to 256, Dk != Dv, and every
+GQA group: the port against llm_tpu on the CPU.
 
 - K3/K4's plain version (attn_plain, behind flash_decode / flash_prefill on
   the CPU) against llm_tpu's Pallas flash_decode / flash_prefill in
@@ -16,9 +16,14 @@ the port against llm_tpu on the CPU.
   flash tolerances (5e-3 dense, 2e-2 q8, relative to max|logit|), greedy
   tokens exactly equal. A q8_0 cache with 32-dim group scales (D = 64, 96)
   takes the unfused attention on both sides, by the scales' shape.
-- What the card refuses up front (check_attention): a head dim past 128 or
-  not a multiple of 8, Dk != Dv, and a q8_0 cache whose rows keep one scale
-  at a head dim that is not a multiple of 16.
+- The wide kernels (Dk != Dv, heads past 128, int8 rows at 8 mod 16):
+  attn_plain against llm_tpu's interpreted kernels at D = 256, Dk 192 /
+  Dv 128, Dk 128 / Dv 64 and q8_0 at D = 72 and 136; their arithmetic on
+  inputs zero-padded to two 128-dim chunks; the engine against llm_tpu's
+  at head_dim 256 and at Dk 192 / Dv 128.
+- Where attention goes (flash_route, as the reference's use_flash gate): a
+  head dim that is no multiple of 8 takes the unfused attention; the card
+  refuses up front (check_attention) only heads past 256.
 The kernels themselves are held against attn_plain on the card in
 test_torch_cuda.py and chip_smoke.py."""
 
@@ -56,16 +61,16 @@ DENSE_REL, Q8_REL = 5e-3, 2e-2              # engine logits, of max|logit|
 PAD_REL_TOL = 1e-5
 
 
-def _inputs(T, H, Hkv, S, D, mode, seed=0):
+def _inputs(T, H, Hkv, S, D, mode, seed=0, Dv=None):
     """Seeded numpy inputs for both packages, rounded to bf16 (the kernels'
-    types); the last quarter of the cells is empty. No padding row: over a
+    types), V at Dv (None: D); the last quarter of the cells is empty. No padding row: over a
     ragged S it averages the TPU kernels' padded tail too (ROADMAP,
     "Deliberate differences")."""
     rng = np.random.default_rng(seed)
     bf = (lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32)))
     q = bf(rng.normal(size=(T, H, D)))
     k = bf(rng.normal(size=(Hkv, S, D)))
-    v = bf(rng.normal(size=(Hkv, S, D)))
+    v = bf(rng.normal(size=(Hkv, S, Dv or D)))
     pos = rng.permutation(S).astype(np.int32)
     cos_h, sin_h = jax_rope_angles(jnp.asarray(pos), JaxRopeParams(n_dims=D, mode=mode))
     cos, sin = (bf(np.asarray(x)) for x in jax_attn.expand_tables(cos_h, sin_h, mode, D))
@@ -153,6 +158,82 @@ def test_flash_q8_plain_matches_pallas_at_head_dim_80(T, H, Hkv, S, monkeypatch)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **PALLAS_Q8_TOL)
 
 
+# (T, H, Hkv, S, Dk, Dv): gemma's 256, MLA's 192 / 128, and Dv < Dk
+WIDE_DECODE = [(1, 4, 2, 200, 256, 256), (8, 4, 4, 130, 192, 128), (4, 4, 2, 200, 128, 64)]
+WIDE_PREFILL = [(32, 4, 2, 200, 256, 256), (16, 4, 4, 130, 192, 128),
+                (32, 4, 2, 128, 128, 64)]
+
+
+def _wide_ids(shapes):
+    return [f"T{t}-G{h // hk}-Dk{dk}-Dv{dv}" for t, h, hk, _, dk, dv in shapes]
+
+
+@pytest.mark.parametrize("T,H,Hkv,S,Dk,Dv", WIDE_DECODE + WIDE_PREFILL,
+                         ids=_wide_ids(WIDE_DECODE + WIDE_PREFILL))
+def test_flash_plain_matches_pallas_at_wide_heads(T, H, Hkv, S, Dk, Dv):
+    """K3/K4's plain version at heads past 128 and Dk != Dv against
+    llm_tpu's interpreted flash_decode / flash_prefill (which take any
+    Dk, Dv that are multiples of 8), at test_pallas_attn.py's 5e-3."""
+    a = _inputs(T, H, Hkv, S, Dk, ROPE_TYPE_NEOX, seed=4, Dv=Dv)
+    if T <= 8:
+        want = jax_attn.flash_decode(**_jax(a), scale=Dk ** -0.5, sblk=128, interpret=True)
+        got = cuda_attn.flash_decode(**_torch(a), scale=Dk ** -0.5)
+    else:
+        want = jax_attn.flash_prefill(**_jax(a), scale=Dk ** -0.5, tblk=16, sblk=64,
+                                      interpret=True)
+        got = cuda_attn.flash_prefill(**_torch(a), scale=Dk ** -0.5)
+    assert got.shape == (T, H, Dv) and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **PALLAS_TOL)
+
+
+@pytest.mark.parametrize("T", [1, 8, 32])
+@pytest.mark.parametrize("D", [72, 136])
+def test_flash_q8_plain_matches_pallas_at_8_mod_16(D, T, monkeypatch):
+    """K3q/K4q's plain version on int8 rows at D = 72 and 136 (one scale a
+    row: kv_group gives the whole row; the pitch is 8 mod 16 bytes, which
+    the wide kernels load by 8-byte cp.async) against llm_tpu's interpreted
+    _kernel_q8 / _prefill_kernel_q8, the dequant set to their f32 product,
+    at test_pallas_attn.py's 2e-2."""
+    assert kv_group(D) == D and D % 16 == 8
+    a = _inputs(T, 4, 2, 160, D, ROPE_TYPE_NORM, seed=6)
+    t, j = _torch(a), _jax(a)
+    for name in ("k", "v"):
+        t[name], (q, s) = _q8(a[name])
+        j[name] = (jnp.asarray(q), jnp.asarray(s, jnp.bfloat16))
+    monkeypatch.setattr(cuda_attn, "dequant_bf16",
+                        lambda kv: kv[0].float() * kv[1].float() if isinstance(kv, tuple)
+                        else kv.float())
+    assert not cuda_attn.is_narrow(D, D, q8=True) and cuda_attn.is_narrow(D, D, q8=False) \
+        == (D <= 128)
+    if T <= 8:
+        want = jax_attn.flash_decode(**j, scale=D ** -0.5, sblk=128, interpret=True)
+        got = cuda_attn.flash_decode(**t, scale=D ** -0.5)
+    else:
+        want = jax_attn.flash_prefill(**j, scale=D ** -0.5, tblk=16, sblk=64, interpret=True)
+        got = cuda_attn.flash_prefill(**t, scale=D ** -0.5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **PALLAS_Q8_TOL)
+
+
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+@pytest.mark.parametrize("Dk,Dv", [(256, 256), (192, 128), (128, 64), (72, 72)])
+def test_two_chunk_block_is_the_function_at_dk_dv(Dk, Dv, kind):
+    """The wide kernels hold K, cos, sin and q as two 128-dim chunks and V
+    as two more, the columns past Dk (past Dv) zero (TMA's and cp.async's
+    zero fill): the kernels' arithmetic on inputs zero-padded so gives
+    attn_plain at (Dk, Dv) in its first Dv columns and zeros past them."""
+    T = 4 if kind == "decode" else 40
+    a = _inputs(T, 6, 2, 200, Dk, ROPE_TYPE_NEOX, seed=3, Dv=Dv)
+    t = _torch(a)
+    pad = (lambda x: torch.nn.functional.pad(x, (0, 256 - x.shape[-1])))
+    padded = {n: (x if n == "bias" else pad(x)) for n, x in t.items()}
+    order = decode_order if kind == "decode" else prefill_order
+    got = order(**padded, scale=Dk ** -0.5)
+    want = cuda_attn.attn_plain(**t, scale=Dk ** -0.5)
+    assert torch.equal(got[..., Dv:], torch.zeros_like(got[..., Dv:]))
+    err = (got[..., :Dv] - want).abs().max().item()
+    assert err <= PAD_REL_TOL * want.abs().max().item(), err
+
+
 def _pad128(t: dict) -> dict:
     """Every D-wide input zero-padded to 128 dims, as the kernels' blocks
     hold it (TMA's zero fill past the maps' width D; q's zeros)."""
@@ -237,6 +318,13 @@ def test_engine_matches_reference_at_any_head_dim(n_embd, H, Hkv, D, kv, f32_bot
                                         **geo)
     params, cfg = params_from_reference(_to_numpy(jp), jcfg)
     assert cfg.head_dim == D and cfg.n_heads // cfg.n_kv_heads == H // Hkv
+    _engine_agrees(jp, jcfg, params, cfg, kv, monkeypatch)
+
+
+def _engine_agrees(jp, jcfg, params, cfg, kv, monkeypatch):
+    """The port's Context against llm_tpu's on the same params: a prefill
+    of 12 tokens, one decode step, 8 greedy tokens; which attention ran
+    (flash or unfused) as the scales' shape says."""
     kv_dtype = "q8_0" if kv == "q8_0" else None
     fused = {"flash": 0, "unfused": 0}
     real_attention = transformer.attention
@@ -246,7 +334,8 @@ def test_engine_matches_reference_at_any_head_dim(n_embd, H, Hkv, D, kv, f32_bot
         real = getattr(transformer, name)
         monkeypatch.setattr(transformer, name, lambda *a, _f=real, **k: (
             fused.__setitem__("flash", fused["flash"] + 1), _f(*a, **k))[1])
-    if kv_dtype and kv_group(D) == D:
+    row = kv_group(cfg.head_dim) == cfg.head_dim and kv_group(cfg.head_dim_v) == cfg.head_dim_v
+    if kv_dtype and row:
         monkeypatch.setattr(cuda_attn, "dequant_bf16",
                             lambda x: x[0].float() * x[1].float() if isinstance(x, tuple)
                             else x.float())
@@ -270,21 +359,50 @@ def test_engine_matches_reference_at_any_head_dim(n_embd, H, Hkv, D, kv, f32_bot
     assert ref.decode(JaxBatch.one(first)) == 0 and ctx.decode(Batch.one(first)) == 0
     nxt = agree()
     assert ctx.generate_loop(nxt, 8) == ref.generate_loop(nxt, 8)
-    group = kv_dtype is not None and kv_group(D) != D
+    group = kv_dtype is not None and not row
     assert (fused["unfused"] > 0, fused["flash"] > 0) == (group, not group)
+
+
+@pytest.mark.parametrize("Dk,Dv,H,Hkv,kv", [(256, 256, 4, 2, "bf16"), (256, 256, 4, 2, "q8_0"),
+                                            (192, 128, 4, 4, "bf16")],
+                         ids=["D256-G2-bf16", "D256-G2-q8_0", "Dk192-Dv128-bf16"])
+def test_engine_matches_reference_at_wide_heads(Dk, Dv, H, Hkv, kv, f32_both, monkeypatch):
+    """Two layers at gemma's head_dim 256 (G 2) and at MLA's Dk 192 / Dv 128
+    as a llama (G 1): llm_tpu's synthetic Q8_0 planes with attn_v and
+    attn_output remade at Dv, converted. D = 256 keeps one q8_0 scale a
+    row (the wide K3q/K4q)."""
+    from dataclasses import replace
+
+    from llm_tpu.models.synthetic import synthetic_qtensor
+
+    jp, jcfg = jax_make_synthetic_model(
+        n_embd=256, n_layers=2, n_heads=H, n_kv_heads=Hkv, n_ff=256, vocab=256, head_dim=Dk,
+        qtype=JaxGGMLType.Q8_0, seed=5, dtype=jnp.float32, fuse=False)
+    if Dv != Dk:
+        rng = np.random.default_rng(7)
+        for lay in jp["layers"]:
+            lay["attn_v"] = synthetic_qtensor(rng, Hkv * Dv, 256, JaxGGMLType.Q8_0)
+            lay["attn_output"] = synthetic_qtensor(rng, 256, H * Dv, JaxGGMLType.Q8_0)
+        jcfg = replace(jcfg, head_dim_v=Dv)
+    params, cfg = params_from_reference(_to_numpy(jp), jcfg)
+    assert (cfg.head_dim, cfg.head_dim_v) == (Dk, Dv)
+    _engine_agrees(jp, jcfg, params, cfg, kv, monkeypatch)
 
 
 @pytest.mark.parametrize("dk,dv,kv_q8,ok", [
     (64, 64, False, True), (80, 80, False, True), (96, 96, False, True),
     (128, 128, False, True), (8, 8, False, True), (72, 72, False, True),
     (64, 64, True, True), (96, 96, True, True), (80, 80, True, True), (112, 112, True, True),
-    (136, 136, False, False), (100, 100, False, False), (256, 256, False, False),
-    (192, 128, False, False), (72, 72, True, False), (120, 120, True, False)])
+    (136, 136, False, True), (100, 100, False, True), (256, 256, False, True),
+    (192, 128, False, True), (72, 72, True, True), (120, 120, True, True),
+    (264, 264, False, False), (256, 272, False, False)])
 def test_card_refuses_what_no_kernel_takes(dk, dv, kv_q8, ok):
-    """On the card: a head dim past 128 or not a multiple of 8, Dk != Dv, or
-    a row-scaled q8_0 cache at a head dim that is not a multiple of 16 is
-    refused before any step; a group-scaled q8_0 cache (64, 96) is taken
-    (the unfused attention). Off the card nothing is refused here."""
+    """On the card: Dk or Dv past 256 (a multiple of 8, which the
+    reference's gate sends to its flash kernels) is refused before any
+    step; everything up to 256 is taken, Dk != Dv and row-scaled q8_0 at
+    8 mod 16 by the wide kernels, a head dim that is no multiple of 8 (100)
+    and a group-scaled q8_0 cache (64, 96) by the unfused attention. Off the
+    card nothing is refused here."""
     from llm_tpu_torch.models.config import ModelConfig
 
     cfg = ModelConfig(arch="llama", vocab_size=64, n_embd=256, n_layers=1, n_heads=4,
@@ -295,3 +413,15 @@ def test_card_refuses_what_no_kernel_takes(dk, dv, kv_q8, ok):
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 3"):
             check_attention(cfg, on_card=True, kv_q8=kv_q8)
+
+
+@pytest.mark.parametrize("dk,dv,kq8,want", [
+    (128, 128, None, True), (100, 100, None, False), (256, 256, None, True),
+    (192, 128, None, True), (128, 128, (1, 1), True), (64, 64, (2, 2), False),
+    (128, 192, (1, 6), False), (72, 72, (1, 1), True)])
+def test_flash_route_is_the_reference_gate(dk, dv, kq8, want):
+    """flash_route: the reference's use_flash gate (multiples of 8, K's
+    rows one scale), and the unfused attention where V's rows carry group
+    scales under one K scale, which the reference's kernels misread
+    (ROADMAP, "Faults in the reference")."""
+    assert transformer.flash_route(dk, dv, *(kq8 or (1, 1))) == want

@@ -10,7 +10,8 @@ Files: tests/test_tools.py's SPM vocab on a tiny HF llama converted by
 llm_tpu's convert_hf_llama, and a tiny Q4_K_M-typed llama with a
 byte-level BPE vocab ("llama-bpe") from the port's tools/synth_gguf.py.
 Also: the perf counters counted as the reference counts them, the
-prompt cache, --profile, the options the port has not ported (an error
+prompt cache, --profile, --grammar / --grammar-file / --json-schema (the
+reference's text at temp 0), the options the port has not ported (an error
 that names the ROADMAP item), and --device cuda without a card."""
 
 import re
@@ -97,6 +98,31 @@ def test_cli_prints_the_reference_text(model, case, spm_gguf, bpe_gguf, capsys):
                         r"decode \d+ tok @ [\d.]+ t/s", gerr[-1])
 
 
+GRAMMAR_CASES = {
+    "gbnf": ["--grammar", 'root ::= ("the" | "a") " " [a-z]+ "."'],
+    "regex": ["--grammar", "%regex [0-9]{2,4}-(yes|no)"],
+    "file": ["--grammar-file", "{tmp}/g.gbnf"],
+    "schema": ["--json-schema", '{"type": "object", "properties": {"n": {"type": "integer"}}, '
+               '"required": ["n"]}'],
+    "enum": ["--json-schema", '{"type": "string", "enum": ["yes", "no"]}'],
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRAMMAR_CASES))
+def test_cli_grammar_prints_the_reference_text(case, spm_gguf, tmp_path, capsys):
+    """Under a grammar (GBNF, %regex, a grammar file) or a JSON schema the
+    port prints llm_tpu's text at temp 0: the grammar constrains the
+    generated text through the same resample rule on both sides."""
+    (tmp_path / "g.gbnf").write_text('root ::= [a-c]+ " " [x-z]+')
+    extra = [a.replace("{tmp}", str(tmp_path)) for a in GRAMMAR_CASES[case]]
+    argv = ["-m", spm_gguf, "--f32", "-c", "64", "-p", "Answer:", "-n", "10", "--temp", "0",
+            "--device", "cpu", *extra]
+    want, werr = _run(jax_cli.main, argv, capsys)
+    got, gerr = _run(cli.main, argv, capsys)
+    assert got == want and len(got) > len("Answer:")
+    assert _untimed(gerr) == _untimed(werr)
+
+
 @pytest.mark.parametrize("vals", [(0.0, 0.0, 0.0, 0, 0), (1234.5, 56.7, 890.1, 17, 21),
                                   (12.0, 3.0, 0.0, 5, 0)])
 def test_perf_summary_text_is_the_reference(vals):
@@ -170,9 +196,9 @@ def test_profile_writes_a_trace(spm_gguf, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--grammar", "root ::= \"a\""], "Queue 1 item 4"), (["--grammar-file", "g.gbnf"],
-                                                         "Queue 1 item 4"),
-    (["--json-schema", "{}"], "Queue 1 item 4"), (["--lora", "a.gguf"], "Queue 1 item 9.1"),
+    (["--control-vector-layer-range", "0", "1"], "Queue 1 item 9.1"),
+    (["-sp", "2"], "Queue 1 item 10"), (["--platform", "cpu"], "Queue 1 item 10"),
+    (["--lora", "a.gguf"], "Queue 1 item 9.1"),
     (["--control-vector", "c.gguf"], "Queue 1 item 9.1"), (["-tp", "2"], "Queue 1 item 10"),
     (["--no-planes"], "Queue 1 item 8"), (["--ep-capacity-factor", "1.5"], "Queue 1 item 8")])
 def test_unported_options_exit_naming_the_roadmap(spm_gguf, extra, item, capsys):

@@ -181,11 +181,11 @@ def test_out_dtype_bf16_is_the_f32_result_rounded(cuda_device, B, gdot):
         assert torch.equal(got, b16)
 
 
-def _attn_inputs(T, H, Hkv, S, mode, seed=0, D=128):
+def _attn_inputs(T, H, Hkv, S, mode, seed=0, D=128, Dv=None):
     g = torch.Generator().manual_seed(seed)
     q = torch.randn((T, H, D), generator=g).to(torch.bfloat16)
     k = torch.randn((Hkv, S, D), generator=g).to(torch.bfloat16)
-    v = torch.randn((Hkv, S, D), generator=g).to(torch.bfloat16)
+    v = torch.randn((Hkv, S, Dv or D), generator=g).to(torch.bfloat16)
     pos = torch.randperm(S, generator=g)
     c, s = rope_angles(pos, RopeParams(n_dims=D, mode=mode))
     cos, sin = (t.to(torch.bfloat16).contiguous()
@@ -248,6 +248,31 @@ def test_flash_q8_kernels_match_plain(cuda_device, T, H, Hkv, S, mode):
     torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
     kern = "K3q" if T <= 8 else "K4q"
     assert cuda_attn.LAUNCHES[kern] == launched[kern] + 1
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "q8_0"])
+@pytest.mark.parametrize("T,S", [(2, 288), (3, 400), (4, 576)])
+def test_flash_decode_rows_of_several_sequences_match_plain(cuda_device, T, S, q8):
+    """K3/K3q at the server's batched steps (LLAMA3_8B heads, T = B rows):
+    row t sees only its own sequence's cells (prompt runs of 128 cells,
+    then runs of 8 dealt in turn), held against attn_plain; the launch is
+    counted under its T."""
+    t = _attn_inputs(T, 32, 8, S, ROPE_TYPE_NORM)
+    c = torch.arange(S)
+    owner = torch.where(c < T * 128, c // 128, ((c - T * 128).clamp(min=0) // 8) % T)
+    rows = torch.arange(T)[:, None]
+    seen = (owner[None, :] == rows) & (c[None, :] < S - rows)
+    t["bias"] = torch.zeros((T, S)).masked_fill_(~seen, float("-inf"))
+    if q8:
+        t["k"], t["v"] = _q8(t["k"]), _q8(t["v"])
+    dev = {n: (tuple(x.to(cuda_device) for x in a) if isinstance(a, tuple)
+               else a.to(cuda_device)) for n, a in t.items()}
+    before = cuda_attn.DECODE_LAUNCHES_BY_T.get(T, 0)
+    got = cuda_attn.flash_decode(**dev, scale=128 ** -0.5).cpu()
+    want = cuda_attn.attn_plain(**t, scale=128 ** -0.5)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+    assert cuda_attn.DECODE_LAUNCHES_BY_T[T] == before + 1
 
 
 @pytest.mark.parametrize("q8", [False, True], ids=["bf16", "q8_0"])
@@ -335,13 +360,74 @@ def test_flash_decode_at_any_head_dim_is_bit_identical(cuda_device, D):
     assert torch.equal(first, second)
 
 
-@pytest.mark.parametrize("H,Hkv,D,q_dtype", [(8, 2, 136, torch.bfloat16),   # past 128
+# the wide kernels: heads past 128 (gemma's 256; 136), Dk != Dv (MLA's
+# 192 / 128; 128 / 64; 64 / 128) and, on the int8 cache, rows whose pitch is
+# 8 mod 16 bytes (72, 136). (T, H, Hkv, S, Dk, Dv); T <= 8 runs K3w, T > 8
+# K4w; T * G past 16 takes more row chunks of the wide K3 (64 rows: four)
+WIDE_CASES = [(1, 8, 4, 4096, 256, 256), (8, 8, 4, 4096, 256, 256), (512, 8, 4, 4096, 256, 256),
+              (3, 16, 2, 333, 256, 256), (100, 8, 4, 4001, 256, 256),
+              (1, 16, 16, 4096, 192, 128), (8, 16, 16, 1000, 192, 128),
+              (512, 16, 16, 4096, 192, 128), (1, 32, 8, 4096, 128, 64),
+              (40, 32, 8, 1000, 128, 64), (4, 8, 2, 500, 64, 128), (24, 8, 2, 500, 64, 128),
+              (2, 8, 2, 200, 136, 136), (70, 8, 2, 200, 136, 136), (8, 8, 1, 300, 256, 256)]
+WIDE_Q8_CASES = [(1, 8, 4, 4096, 256, 256), (512, 8, 4, 4096, 256, 256),
+                 (1, 8, 4, 4096, 72, 72), (8, 8, 2, 999, 72, 72), (512, 8, 4, 4096, 72, 72),
+                 (1, 8, 4, 4096, 136, 136), (100, 8, 4, 1000, 136, 136),
+                 (3, 16, 16, 700, 192, 128), (40, 16, 16, 700, 192, 128)]
+
+
+def _wide_ids(cases):
+    return [f"T{t}-H{h}-Hkv{hk}-S{s}-Dk{dk}-Dv{dv}" for t, h, hk, s, dk, dv in cases]
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "q8_0"])
+@pytest.mark.parametrize("mode", [ROPE_TYPE_NORM, ROPE_TYPE_NEOX], ids=["norm", "neox"])
+@pytest.mark.parametrize("T,H,Hkv,S,Dk,Dv", WIDE_CASES + WIDE_Q8_CASES,
+                         ids=_wide_ids(WIDE_CASES + WIDE_Q8_CASES))
+def test_flash_wide_kernels_match_plain(cuda_device, T, H, Hkv, S, Dk, Dv, mode, q8):
+    """K3w/K4w (K3qw/K4qw on (int8, scales) pairs) against attn_plain at
+    atol = rtol = 1e-3, each one launch; the cases the narrow kernels take
+    (bf16 at 72, WIDE_Q8_CASES' rows on a dense cache) do not run here."""
+    if cuda_attn.is_narrow(Dk, Dv, q8):
+        pytest.skip("the narrow kernels take these heads")
+    t = _attn_inputs(T, H, Hkv, S, mode, D=Dk, Dv=Dv)
+    if q8:
+        t["k"], t["v"] = _q8(t["k"]), _q8(t["v"])
+    dev = {n: (tuple(x.to(cuda_device) for x in a) if isinstance(a, tuple)
+               else a.to(cuda_device)) for n, a in t.items()}
+    fn = cuda_attn.flash_decode if T <= 8 else cuda_attn.flash_prefill
+    kern = ("K3" if T <= 8 else "K4") + ("q" if q8 else "") + "w"
+    launched = cuda_attn.LAUNCHES[kern]
+    got = fn(**dev, scale=Dk ** -0.5).cpu()
+    assert cuda_attn.LAUNCHES[kern] == launched + 1
+    assert got.shape == (T, H, Dv) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, cuda_attn.attn_plain(**t, scale=Dk ** -0.5),
+                               atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "q8_0"])
+@pytest.mark.parametrize("Dk,Dv", [(256, 256), (192, 128), (136, 136)])
+def test_flash_decode_wide_is_bit_identical(cuda_device, Dk, Dv, q8):
+    """The wide K3/K3q meet their ranks in rank order too: two launches at
+    a cluster of 5 give the same bits."""
+    t = _attn_inputs(3, 8, 2, 1000, ROPE_TYPE_NORM, D=Dk, Dv=Dv)
+    if q8:
+        t["k"], t["v"] = _q8(t["k"]), _q8(t["v"])
+    dev = {n: (tuple(x.to(cuda_device) for x in a) if isinstance(a, tuple)
+               else a.to(cuda_device)) for n, a in t.items()}
+    first, second = (cuda_attn._decode_launch(q8, **dev, scale=Dk ** -0.5, cluster=5)
+                     for _ in range(2))
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("H,Hkv,D,q_dtype", [(8, 2, 264, torch.bfloat16),   # past 256
                                               (8, 2, 100, torch.bfloat16),   # not a multiple of 8
                                               (8, 2, 128, torch.float32)])   # f32 queries
 def test_flash_prefill_refuses_what_it_cannot_take(cuda_device, H, Hkv, D, q_dtype):
     """K4 and K4q raise on a CUDA input outside their admitted set; nothing
-    falls back to attn_plain. (G = 3 and D = 64 were refused here until the
-    kernels took them: DIM_CASES holds them now.)"""
+    falls back to attn_plain. (G = 3 and D = 64, and then D = 136, were
+    refused here until the kernels took them: DIM_CASES and WIDE_CASES hold
+    them now.)"""
     T, S = 16, 64
     g = torch.Generator().manual_seed(0)
     mk = (lambda *shape, dt=torch.bfloat16: torch.randn(shape, generator=g).to(dt).to(cuda_device))
