@@ -19,10 +19,13 @@ prints no result line):
      flash_prefill kernels of libflash_prefill.so, two at head dim 128 and
      eight _dim ones at 64, 80, 96 and any other D, issues HGMMA, no
      f32-FMA prefill kernel is left in it or in libflash_attn.so), and
-     flash decode's (the 30 flash_decode_tc kernels of libflash_attn.so,
-     six at head dim 128 and 24 _dim ones, issue HMMA and TMA loads, no
-     split-S kernel or combine kernel is left there; libflash_probe.so
-     keeps the split-S body and its combine for S3);
+     flash decode's (the 46 flash_decode_tc kernels of libflash_attn.so,
+     six at head dim 128, 24 _dim ones, 8 wide and 8 capped wide ones,
+     issue HMMA and TMA loads, no split-S kernel or combine kernel is left
+     there; libflash_probe.so keeps the split-S body and its combine for
+     S3), and the capped wide kernels (gemma2's softcap) counted apart: 8
+     flash_decode_tc_wide_cap (HMMA, TMA) and 2
+     flash_prefill_wgmma_wide_cap (HGMMA, TMA);
   2. each kernel (K1/K2 quantized matmul: at B <= 16 the decode GEMV, at
      B = 1 and 8, at B > 16 the wgmma prefill GEMM, also at a ragged B =
      300; K3/K4 flash attention (K4, the
@@ -57,7 +60,13 @@ prints no result line):
      D = 256 and at D = 72 and 136 (rows of 8 mod 16 bytes), each beside
      SDPA (the backend it took logged); K3 at the server's batched steps
      (T = 2 and 4, each row masked to its own sequence's cells;
-     per_sequence_bias), K3q at T = 4;
+     per_sequence_bias), K3q at T = 4; K1/K2 at every Gemma-2-9B matmul
+     shape (K or N = 3584, its 256000-row tied Q6_K lm_head) at B = 1, 8
+     and 512; the capped wide kernels at cap 50 (K3w_cap, K3qw_cap,
+     K4w_cap, K4qw_cap) at Gemma-2-9B's heads (16 over 8 of 256) and
+     K3w_cap/K4w_cap at Gemma-2-27B's (32 over 16 of 128), each timed
+     beside the uncapped kernel at the same shape and SDPA's uncapped time
+     (no one PyTorch call computes capped attention: library None);
   3. two layers at LLAMA3_8B width: Context.decode of a 64-token prompt and
      8 greedy generate_loop steps, once on the card (kernels) and once on
      the CPU (plain versions), from the same random weights; every step's
@@ -72,8 +81,13 @@ prints no result line):
      G = 3); then llama configs at Gemma-2-2B's attention widths (2304
      hidden, 8 / 4 heads of 256, ff 9216) with a bf16 and a q8_0 cache
      (K3w/K4w, K3qw/K4qw), at DeepSeek-V2-Lite's (2048 hidden, 16 heads,
-     Dk 192, Dv 128; K3w/K4w) and at head_dim 100 (no multiple of 8: the
-     unfused attention, counted, no flash launch);
+     Dk 192, Dv 128; K3w/K4w), at head_dim 100 (no multiple of 8: the
+     unfused attention, counted, no flash launch) and 264 (past 256: the
+     same); then two layers of the real Gemma-2-9B config (gemma2: a
+     sliding and a global layer, softcaps, post-norms, gelu, the tied Q6_K
+     lm_head) with a bf16 and a q8_0 cache (K3w_cap/K4w_cap,
+     K3qw_cap/K4qw_cap), and with the window cut to 32 (bf16 cache) so that
+     the mask bites inside the 64-token prompt;
   4. LLAMA3_8B, 32 layers, Q4_K_M-style random planes made on the card
      (first, K5 against its plain version at every p4 shape of these planes
      that phase 2 left out, attn_k among them): prefill 512 tokens, then 128
@@ -101,7 +115,8 @@ prints no result line):
      each, enough for their launches per token; uniform Q8_0 planes (K7 on
      int8 planes, lm_head on K2); the Q4_K and Q8_0 scans profiled (no
      memset, no qmm_gemv kernel);
-  9. the text entry point on a GGUF: a LLAMA3_8B file typed as Q4_K_M
+  9. the text entry point on a GGUF: a file at LLAMA3_8B's widths and 8
+     of its 32 layers (GGUF_LAYERS, cut for time) typed as Q4_K_M
      (Q6_K lm_head, attn_v and ffn_down of the use_more_bits layers) with
      random blocks and a 128256-token byte-level BPE vocab
      (tools/synth_gguf.py), written with the port's writer into a
@@ -126,7 +141,19 @@ prints no result line):
      server's greedy text against the plain one; a slot save / restore; two
      embeddings. TTFT, total time and aggregate decode tok/s logged, and the
      wall time of one batched step's token choice at B = 4 (sample_rows,
-     greedy and sampled, and the argmax); the directory deleted.
+     greedy and sampled, and the argmax); the directory deleted;
+ 11. Gemma-2-9B at full depth (42 layers, Q4_K_M-style random planes made
+     on the card, tied Q6_K lm_head): the ISWA ring Context (8192 cells, a
+     4608-cell ring) prefills 4608 tokens in 512-token steps and decodes
+     128 greedy tokens, each on a reused ring cell (K3w_cap/K4w_cap, no
+     uncapped flash launch; profiled over 8 more tokens; the cache beside
+     swa_full's); swa_full on the same planes: the same greedy stream or
+     one parted at a near tie, prompt logits within the two-layer
+     tolerance; swa_window = 0: the prompt's last logits (position 4607)
+     apart by more than it; a q8_0 ring (prefill 512, 32 tokens:
+     K3qw_cap/K4qw_cap) whose first 128 prompt cells, in both of its
+     tables, go through a state file into a fresh q8_0 ring Context, one
+     decode step against the uninterrupted one.
 The last lines are a JSON "kernels" line, the card line, and
 {"ok": true, "device": {...}}. It imports nothing of JAX or llm_tpu.
 """
@@ -244,11 +271,14 @@ S1_KERNELS = 18
 # K3/K3q's kernels: bf16 / q8_0 cache x one, two or four n8 tiles of rows,
 # at head dim 128 (flash_decode_tc) and at 64, 80, 96 and any other D
 # (flash_decode_tc_dim); the wide ones (flash_decode_tc_wide): bf16 / q8_0
-# x one or two n8 tiles x one or two 128-dim chunks
-K3_KERNELS = 6 * 5 + 8
+# x one or two n8 tiles x one or two 128-dim chunks; and as many capped
+# (gemma2's softcap: flash_decode_tc_wide_cap)
+K3_CAP_KERNELS = 8
+K3_KERNELS = 6 * 5 + 8 + K3_CAP_KERNELS
 # K4/K4q's: bf16 / q8_0 cache, at 128 and at 64, 80, 96 and any other D,
-# and the wide one (flash_prefill_wgmma_wide)
-K4_KERNELS = 2 * 5 + 2
+# the wide one (flash_prefill_wgmma_wide) and the capped wide one
+K4_CAP_KERNELS = 2
+K4_KERNELS = 2 * 5 + 2 + K4_CAP_KERNELS
 
 # S3's split-S kernels in libflash_probe.so: stacked v1 / v0 and the three
 # q8 modes
@@ -519,12 +549,19 @@ def per_sequence_bias(T: int, S: int, prompt: int, chunk: int = 8) -> torch.Tens
     return torch.where(seen, 0.0, float("-inf")).float().contiguous()
 
 
-def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False, Dv=None, prompt=None):
+def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False, Dv=None, prompt=None,
+               softcap=0.0):
     """K3/K4 (K3q/K4q on q8_0 pairs; the wide kernels where Dk != Dv, past
     128 or at int8 rows of 8 mod 16 bytes) against attn_plain, timed beside
     their bound and SDPA. D is Dk; Dv None: D. prompt: each of the T rows is
     its own sequence's, prompts of that many cells (per_sequence_bias);
-    None: one causal sequence."""
+    None: one causal sequence. softcap > 0: the capped wide kernels
+    (K3w_cap, K3qw_cap, K4w_cap, K4qw_cap) against attn_plain(softcap=),
+    at scores scaled by CAP_SCORE_SCALE, where attn_plain without the cap
+    must differ from attn_plain with it by more than the tolerance; no one
+    PyTorch call computes capped attention, so the library column is None,
+    with SDPA's uncapped time and the uncapped kernel's at the same shape
+    logged beside it."""
     from llm_tpu_torch.ops import cuda_attn
     from llm_tpu_torch.ops.rope import ROPE_TYPE_NORM, apply_rope
     from llm_tpu_torch.tools.kbench_attn import attn_inputs
@@ -538,11 +575,11 @@ def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False, Dv=None, promp
 
     inp, (c, s) = attn_inputs(T, H, Hkv, S, D, seed=S + T, Dv=Dv)
     inp = prep(inp)
-    scale = D ** -0.5
+    scale = D ** -0.5 * (CAP_SCORE_SCALE if softcap > 0 else 1.0)
     # the dispatchers launch K3/K4, or K3q/K4q on q8_0 pairs, for CUDA tensors
     fn = cuda_attn.flash_decode if T <= 8 else cuda_attn.flash_prefill
-    out = fn(**inp, scale=scale)
-    want = cuda_attn.attn_plain(**inp, scale=scale)
+    out = fn(**inp, scale=scale, softcap=softcap)
+    want = cuda_attn.attn_plain(**inp, scale=scale, softcap=softcap)
     torch.cuda.synchronize()
     err = (out - want).abs().max().item()
     tol = 1e-3
@@ -550,8 +587,9 @@ def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False, Dv=None, promp
     ncp = copies_for(nbytes)
     inps = [inp] + [prep(attn_inputs(T, H, Hkv, S, D, seed=S + T + i, Dv=Dv)[0])
                     for i in range(1, ncp)]
-    ms = time_ms(lambda i: fn(**inps[i], scale=scale), ncp)
-    plain_ms = time_ms(lambda i: cuda_attn.attn_plain(**inps[i], scale=scale), ncp, iters=5)
+    ms = time_ms(lambda i: fn(**inps[i], scale=scale, softcap=softcap), ncp)
+    plain_ms = time_ms(lambda i: cuda_attn.attn_plain(**inps[i], scale=scale, softcap=softcap),
+                       ncp, iters=5)
     # library yardstick: SDPA over pre-roped (and, for q8, pre-dequantized)
     # bf16 keys and values with the same additive mask
     kb, vb = (cuda_attn.dequant_bf16(inp[n]).to(torch.bfloat16) for n in ("k", "v"))
@@ -571,20 +609,33 @@ def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False, Dv=None, promp
     dims = f"D={D}" if Dv == D else f"Dk={D} Dv={Dv}"
     if prompt is not None:
         dims += f" {T} sequences"
+    extra = {}
+    if softcap > 0:
+        # the cap is live at these scores: a kernel without it fails
+        cap_moves = (cuda_attn.attn_plain(**inp, scale=scale) - want).abs().max().item()
+        extra = dict(uncapped_kernel=kern, uncapped_ms=time_ms(
+            lambda i: fn(**inps[i], scale=scale), ncp), sdpa_uncapped_ms=lib_ms,
+            score_scale=scale, cap_moves_plain_by=cap_moves)
+        kern = ("K3" if T <= 8 else "K4") + ("q" if q8 else "") + "w_cap"
+        dims += f" cap={softcap:g}"
+        lib_ms = None
     rec = dict(kernel=kern, shape=f"{name} T={T} S={S} H={H} Hkv={Hkv} {dims}",
                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bmin,
                bound_by=by, library_ms=lib_ms,
-               sdpa_backend=sdpa_backend(qs, ks, vs, attn_mask=mask, scale=scale))
+               sdpa_backend=sdpa_backend(qs, ks, vs, attn_mask=mask, scale=scale), **extra)
     if T > 8:
         # K4/K4q run every score and P.V product twice (bf16 hi + lo of
         # k*cos, k*sin and p): their floor is twice the operations bound,
         # and a head dim below 128 is computed as 128 (its zero columns)
         rec["floor_ms"] = 2 * flops / PEAK_BF16_FLOPS * 1e3
-        if narrow and D < 128:
+        if narrow and not softcap and D < 128:
             rec["padded_floor_ms"] = rec["floor_ms"] * 128 / D
     log(json.dumps(rec))
     if not (err <= tol and math.isfinite(err)):
         raise AssertionError(f"{kern} {rec['shape']}: max|err| {err} > {tol}")
+    if softcap > 0 and not extra["cap_moves_plain_by"] > tol:
+        raise AssertionError(f"{kern} {rec['shape']}: the cap moves attn_plain by only "
+                             f"{extra['cap_moves_plain_by']} <= {tol}")
     results.append(rec)
 
 
@@ -653,6 +704,28 @@ def phase_kernels():
             check_attn(results, name, T, 4096, D=72, q8=True)
             check_attn(results, name, T, 4096, H=16, Hkv=8, D=136, q8=True)
     check_attn(results, "prefill G=3", 512, 4096, H=24, q8=True)
+    # Gemma-2-9B's matmuls (phase 11's Q4_K_M-style planes) at decode (B = 1,
+    # 8) and a 512-token prefill step: K = 3584 and N = 3584 are new to
+    # decode_plan and gemm_split; the use_more_bits layers run attn_q,
+    # attn_k and attn_v unfused (attn_v and ffn_down in Q6_K); the tied
+    # Q6_K lm_head (256000 rows) sees the output rows only
+    for B in (1, 8, 512):
+        for name, K, N in GEMMA2_MATMULS_Q4K:
+            check_qmm(results, name, Q4K, K, N, B)
+        for name, K, N in GEMMA2_MATMULS_Q6K:
+            check_qmm(results, name, Q6K, K, N, B)
+    for B in (1, 8):
+        check_qmm(results, "gemma2 lm_head", Q6K, 3584, 256000, B)
+    # the capped wide kernels at cap 50: Gemma-2-9B's heads (16 over 8 of
+    # 256) at decode (T = 1, 8; K3qw_cap at T = 1) and at a 512-token
+    # prefill step over 4096 cells, and Gemma-2-27B's (32 over 16 of 128),
+    # a shape the narrow kernels take uncapped
+    for T, name in ((1, "decode half-masked"), (8, "decode T=8"), (512, "prefill")):
+        check_attn(results, name, T, 4096, H=16, Hkv=8, D=256, softcap=GEMMA2_CAP)
+        check_attn(results, name, T, 4096, H=32, Hkv=16, D=128, softcap=GEMMA2_CAP)
+        if T != 8:
+            check_attn(results, name, T, 4096, H=16, Hkv=8, D=256, q8=True,
+                       softcap=GEMMA2_CAP)
     # K5 at the TPU package's gdot probe shapes (scripts/kbench6.py SHAPES;
     # "head" is a probe shape only: the main path's lm_head is Q6_K); every
     # shape the main path gives K5 is checked once its planes exist
@@ -676,6 +749,20 @@ def phase_kernels():
             check_stacked(results, name, "Q4_K", K, N, B, gdot=True)
     return results
 
+
+# Gemma-2-9B's matmuls (name, K, N): Q4_K fused QKV, attn_q and attn_k
+# (unfused in the use_more_bits layers), o_proj, fused gate+up and down;
+# Q6_K attn_v and down of the use_more_bits layers; its attention softcap
+GEMMA2_MATMULS_Q4K = (("gemma2 qkv", 3584, 8192), ("gemma2 attn_q", 3584, 4096),
+                      ("gemma2 attn_k", 3584, 2048), ("gemma2 o_proj", 4096, 3584),
+                      ("gemma2 gate_up", 3584, 28672), ("gemma2 down", 14336, 3584))
+GEMMA2_MATMULS_Q6K = (("gemma2 attn_v", 3584, 2048), ("gemma2 down", 14336, 3584))
+GEMMA2_CAP = 50.0
+# the capped rows' score scale, in units of D^-0.5: attn_inputs' N(0, 1) q
+# and k give scores of about this standard deviation, whose largest
+# (~3.5 of it over 4096 cells) cap 50 moves by tens. At D^-0.5 alone the
+# cap would move them by ~1e-3 and a kernel without it would pass
+CAP_SCORE_SCALE = 16.0
 
 # the layer matmuls of a uniform LLAMA3_8B (name, K, N)
 STACKED_SHAPES = (("qkv", 4096, 6144), ("o_proj", 4096, 4096), ("gate_up", 4096, 28672),
@@ -811,7 +898,7 @@ def two_layer_steps(seed: int, kv_dtype=None, devices=("cuda", "cpu"), chain=Fal
     from llm_tpu_torch.runtime.batch import Batch
     from llm_tpu_torch.runtime.engine import Context, params_to
 
-    geo = dict(geo or LLAMA3_8B, n_layers=2)
+    geo = dict(geo or LLAMA3_8B, n_layers=2)  # may carry arch and swa_window
     params, cfg = make_synthetic_model(qtype=GGMLType.Q4_K, device="cuda", on_device=True,
                                        seed=seed, recipe="Q4_K_M", **geo)
     prompt = [(i * 7919) % cfg.vocab_size for i in range(64)]
@@ -954,6 +1041,22 @@ DSV2_LITE_ATTN = dict(n_embd=2048, n_heads=16, n_kv_heads=16, n_ff=8192, vocab=1
                       head_dim=192, head_dim_v=128)
 HEAD_DIM_100 = dict(n_embd=2048, n_heads=64, n_kv_heads=8, n_ff=8192, vocab=128256,
                     head_dim=100)
+# a head past 256 (264, a multiple of 8 that no kernel of the port holds:
+# the unfused attention on either device; 32 heads over 8, so that
+# attn_output's 8448 columns are Q4_K groups)
+HEAD_DIM_264 = dict(n_embd=2048, n_heads=32, n_kv_heads=8, n_ff=8192, vocab=128256,
+                    head_dim=264)
+# Gemma-2-9B's geometry (models/synthetic.py GEMMA2_9B; google/gemma-2-9b
+# config.json); gemma2_config adds its window, softcaps and scales
+GEMMA2_9B = dict(n_embd=3584, n_layers=42, n_heads=16, n_kv_heads=8, n_ff=14336,
+                 vocab=256000, head_dim=256)
+# two layers of the real Gemma-2-9B config (layer 0 slides, layer 1 is
+# global; tied Q6_K lm_head of 256000 rows), and the same with the window
+# cut to 32 so that the mask bites inside the 64-token prompt (bf16 only:
+# the mask is the bias, whatever the cache; each such row costs ~1 min,
+# most of it the CPU dequantizing the lm_head in f32 at every step)
+GEMMA2_9B_TWO = dict(arch="gemma2")
+GEMMA2_9B_W32 = dict(arch="gemma2", swa_window=32)
 WIDTHS_SEED = 5
 
 
@@ -965,11 +1068,14 @@ def phase_two_layers_widths():
     Gemma-2-2B's attention widths with a bf16 and a q8_0 cache (the wide
     K3w/K4w, K3qw/K4qw), DeepSeek-V2-Lite's (K3w/K4w at Dk 192, Dv 128) and
     head_dim 100 (the unfused attention, counted). Every
-    step's logits within the two-layer tolerance of max|logit|; the greedy
-    tokens equal up to the first step whose top two logits on the CPU lie
-    within that tolerance (such a near tie may part the streams, and the
-    steps after it are fed the card's tokens on both devices, so their
-    logits stay comparable). Returns each run's record."""
+    step's logits within the two-layer tolerance of max|logit|. At every
+    step the card's greedy token is one whose CPU logit lies within that
+    tolerance of the CPU's top logit on the same inputs (both devices are
+    fed the card's tokens); where the CPU's top two are further apart, that
+    is the CPU's own argmax, so the two greedy streams must be equal before
+    the first step whose top two CPU logits lie within the tolerance. At
+    that near tie either device may take either token and the streams may
+    part. Returns each run's record."""
     import numpy as np
 
     from llm_tpu_torch.ops import attention, cuda_attn
@@ -984,7 +1090,14 @@ def phase_two_layers_widths():
              ("K3qw", "K4qw")),
             ("DeepSeek-V2-Lite attention", DSV2_LITE_ATTN, None, TWO_LAYER_REL_TOL,
              ("K3w", "K4w")),
-            ("head_dim 100", HEAD_DIM_100, None, TWO_LAYER_REL_TOL, ())):
+            ("head_dim 100", HEAD_DIM_100, None, TWO_LAYER_REL_TOL, ()),
+            ("head_dim 264", HEAD_DIM_264, None, TWO_LAYER_REL_TOL, ()),
+            ("Gemma-2-9B", dict(GEMMA2_9B, **GEMMA2_9B_TWO), None, TWO_LAYER_REL_TOL,
+             ("K3w_cap", "K4w_cap")),
+            ("Gemma-2-9B", dict(GEMMA2_9B, **GEMMA2_9B_TWO), "q8_0", TWO_LAYER_Q8_REL_TOL,
+             ("K3qw_cap", "K4qw_cap")),
+            ("Gemma-2-9B window cut to 32", dict(GEMMA2_9B, **GEMMA2_9B_W32), None,
+             TWO_LAYER_REL_TOL, ("K3w_cap", "K4w_cap"))):
         t0 = time.perf_counter()
         cuda_attn.reset_launches()
         attention.LAUNCHES["unfused"] = 0
@@ -1001,19 +1114,27 @@ def phase_two_layers_widths():
         top2 = np.sort(lc, axis=-1)[:, -2:]
         gaps = (top2[:, 1] - top2[:, 0]).tolist()
         tie = next((i for i, g in enumerate(gaps) if g <= tol), len(gaps))
-        rec = dict(two_layer_widths=name, head_dim=cfg.head_dim, head_dim_v=cfg.head_dim_v,
+        # how far below the CPU's top logit the card's pick lies, per step
+        below = [float(lc[i].max() - lc[i, t]) for i, t in enumerate(tg)]
+        rec = dict(two_layer_widths=name, arch=cfg.arch, swa_window=cfg.swa_window,
+                   head_dim=cfg.head_dim, head_dim_v=cfg.head_dim_v,
                    G=cfg.n_heads // cfg.n_kv_heads, unfused_attention_calls=unfused,
                    kv_dtype=str(kv_dtype), logits_max_abs_err=err, tol=tol,
                    rel_err=err / float(np.abs(lc).max()), top2_gaps=gaps,
-                   first_near_tie=tie, tokens_card=tg, tokens_cpu=tc,
+                   first_near_tie=tie, card_pick_below_cpu_top=below,
+                   tokens_card=tg, tokens_cpu=tc,
                    attn_launches=launched, seconds=time.perf_counter() - t0)
         log(json.dumps(rec))
         if not (np.isfinite(lg).all() and lg.shape == (9, cfg.vocab_size)):
             raise AssertionError(f"{name}: card logits not finite or of the wrong shape")
         if not err <= tol:
             raise AssertionError(f"{name} kv {kv_dtype}: max|err| {err} > {tol}")
-        if tg[:tie + 1] != tc[:tie + 1]:
-            raise AssertionError(f"{name} kv {kv_dtype}: greedy tokens {tg} vs {tc}")
+        if not max(below) <= tol:
+            raise AssertionError(f"{name} kv {kv_dtype}: the card's greedy tokens {tg} lie "
+                                 f"{below} below the CPU's top logits, tolerance {tol}")
+        if tg[:tie] != tc[:tie]:
+            raise AssertionError(f"{name} kv {kv_dtype}: greedy tokens {tg} vs {tc} part "
+                                 f"before the first near tie at step {tie}")
         for k in cuda_attn.LAUNCHES:
             if (launched[k] > 0) != (k in want):
                 raise AssertionError(f"{name} kv {kv_dtype}: attention launches {launched}, "
@@ -1083,7 +1204,9 @@ def decode_bytes_per_token(ctx):
     ws = [v for layer in params["layers"] for v in layer.values()] + [params["output"]]
     ws += list(params.get("layers_stacked", {}).values())  # every layer's planes
     w = sum(qt_bytes(v) for v in ws if isinstance(v, QTensor) and v.kmajor)
-    tables = cfg.n_layers * 2 * ctx.n_cells * cfg.head_dim * 2
+    # each layer's cells (the ISWA ring's for its sliding-window layers)
+    cells = [(k[0] if isinstance(k, tuple) else k).shape[1] for k in ctx.kv.k]
+    tables = sum(cells) * 2 * cfg.head_dim * 2
     return w + kv_bytes(ctx) + tables
 
 
@@ -1149,13 +1272,20 @@ def launch_counts() -> dict:
     return {**cuda_qmm.LAUNCHES, **cuda_attn.LAUNCHES, **cuda_qmm_chain.LAUNCHES}
 
 
-def run_llama3_8b(ctx, attn_kernels, keep=None, n_decode=LLAMA3_8B_DECODE):
-    """The main path on ctx: prefill 512 tokens, then n_decode (128) greedy
-    tokens, with every launch count set to 0 just before and read just after.
-    attn_kernels: (decode kernel, prefill kernel) the cache type runs;
-    every other attention kernel must stay at 0. The matmul kernels per
-    token are decode_counts' for the Context's options. keep: a dict that
-    receives the prefill logits, the first token and the greedy tokens."""
+def main_prompt(vocab_size: int, n: int) -> list[int]:
+    """The main paths' n-token prompt."""
+    return [(i * 104729) % vocab_size for i in range(n)]
+
+
+def run_llama3_8b(ctx, attn_kernels, keep=None, n_decode=LLAMA3_8B_DECODE,
+                  n_prompt=LLAMA3_8B_PROMPT):
+    """The main path on ctx: prefill n_prompt (512) tokens, in steps of
+    ctx.n_ubatch, then n_decode (128) greedy tokens, with every launch count
+    set to 0 just before and read just after. attn_kernels: (decode kernel,
+    prefill kernel) the cache type runs; every other attention kernel must
+    stay at 0. The matmul kernels per token are decode_counts' for the
+    Context's options. keep: a dict that receives the prefill logits, the
+    first token and the greedy tokens."""
     import numpy as np
 
     from llm_tpu_torch.ops import cuda_attn, cuda_qmm, cuda_qmm_chain
@@ -1163,7 +1293,7 @@ def run_llama3_8b(ctx, attn_kernels, keep=None, n_decode=LLAMA3_8B_DECODE):
 
     cfg = ctx.cfg
     torch.cuda.reset_peak_memory_stats()
-    prompt = [(i * 104729) % cfg.vocab_size for i in range(LLAMA3_8B_PROMPT)]
+    prompt = main_prompt(cfg.vocab_size, n_prompt)
     cuda_qmm.reset_launches()
     cuda_attn.reset_launches()
     cuda_qmm_chain.reset_launches()
@@ -1191,12 +1321,12 @@ def run_llama3_8b(ctx, attn_kernels, keep=None, n_decode=LLAMA3_8B_DECODE):
     want[dec] = float(cfg.n_layers)
     prefill_counts = {k: after_prefill[k] for k in cuda_attn.LAUNCHES}
     want_prefill = {k: 0 for k in cuda_attn.LAUNCHES}
-    want_prefill[pre] = cfg.n_layers
+    want_prefill[pre] = cfg.n_layers * -(-n_prompt // ctx.n_ubatch)
     if keep is not None:
         keep.update(logits=logits, first=first, tokens=toks)
     rec = dict(kv_dtype=str(ctx.kv_dtype), chain=ctx.chain, gdot=ctx.gdot, scan=ctx.scan,
-               prefill_tokens=LLAMA3_8B_PROMPT,
-               prefill_s=t_prefill, prefill_tok_s=LLAMA3_8B_PROMPT / t_prefill,
+               prefill_tokens=n_prompt,
+               prefill_s=t_prefill, prefill_tok_s=n_prompt / t_prefill,
                decode_tokens=n, decode_s=t_decode, decode_tok_s=n / t_decode,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                kv_bytes=kv_bytes(ctx),
@@ -1244,11 +1374,14 @@ def phase_llama3_8b(params, cfg, chain=False, gdot=False, base=None):
     return counts, rec
 
 
-def check_gemv_profile(prof) -> None:
+def check_gemv_profile(prof, memsets: int = 0) -> None:
     """The decode matmuls in a decode profile: no memset (the decode GEMV,
     K5 and K6 split K over clusters and sum in rank order) and no kernel of
-    the old GEMV loop."""
-    if prof["memsets_per_token"] != 0 or prof["qmm_gemv_launches_per_token"] != 0:
+    the old GEMV loop. memsets: those a token that come from elsewhere
+    (torch.argmax over Gemma-2's 256000 logits zeroes its multi-block
+    reduction's semaphores with one memset; over 128256 it runs in one
+    pass)."""
+    if prof["memsets_per_token"] != memsets or prof["qmm_gemv_launches_per_token"] != 0:
         raise AssertionError(f"decode runs {prof['memsets_per_token']} memsets and "
                              f"{prof['qmm_gemv_launches_per_token']} qmm_gemv kernels a token")
 
@@ -1271,7 +1404,7 @@ def phase_decode_turns(params, cfg, n_tokens=32):
     from llm_tpu_torch.runtime.batch import Batch
     from llm_tpu_torch.runtime.engine import Context
 
-    prompt = [(i * 104729) % cfg.vocab_size for i in range(LLAMA3_8B_PROMPT)]
+    prompt = main_prompt(cfg.vocab_size, LLAMA3_8B_PROMPT)
     paths = {"A_unfused": {}, "B_chain_gdot": dict(chain=True, gdot=True),
              "C_gdot": dict(gdot=True)}
     ctxs = {}
@@ -1382,12 +1515,16 @@ def top2_gap(logits) -> float:
     return float(top2[1] - top2[0])
 
 
-def compare_streams(scan_ctx, scan_keep, layer_ctx, layer_keep) -> dict:
+def compare_streams(scan_ctx, scan_keep, layer_ctx, layer_keep,
+                    n_prompt=LLAMA3_8B_PROMPT) -> dict:
     """Phase 8: the scan's prefill logits and greedy stream against the
-    per-layer Context's on the same planes. The streams must be equal, or
-    part only at a step whose top two per-layer logits (replayed on both
-    Contexts from the common stream) lie within SCAN_TIE_REL of max|logit|
-    or within twice the two replays' difference."""
+    per-layer Context's on the same planes (phase 11: the ISWA ring's
+    against swa_full's, after an n_prompt-token prompt). The streams must
+    be equal, or part only at a step whose top two per-layer logits
+    (replayed on both Contexts, from an empty sequence, over the prompt and
+    the common stream: a ring cannot rewind past cells it pruned) lie
+    within SCAN_TIE_REL of max|logit| or within twice the two replays'
+    difference."""
     import numpy as np
 
     from llm_tpu_torch.runtime.batch import Batch
@@ -1402,8 +1539,9 @@ def compare_streams(scan_ctx, scan_keep, layer_ctx, layer_keep) -> dict:
         i = next(j for j, (a, b) in enumerate(zip(ss, sp)) if a != b)
         if i > 0:
             for c in (scan_ctx, layer_ctx):
-                c.seq_rm(0, LLAMA3_8B_PROMPT, -1)
-                assert c.decode(Batch.text(sp[:i])) == 0
+                c.seq_rm(0)
+                assert c.decode(Batch.text(main_prompt(c.cfg.vocab_size, n_prompt)
+                                           + sp[:i])) == 0
             ls, lp = scan_ctx.get_logits(), layer_ctx.get_logits()
         diff = float(np.abs(ls - lp).max())
         gap = top2_gap(lp)
@@ -1487,9 +1625,14 @@ def phase_scan():
     return counts
 
 
-# the CLI phase: a prompt of about this many tokens, then -n 128 at temp 0
+# the CLI phase: a prompt of about this many tokens, then -n 128 at temp 0,
+# on a file of LLAMA3_8B's widths and GGUF_LAYERS of its 32 layers (cut
+# from 32 to keep the script near its time: the host builds the
+# planes of the file twice, in the CLI's process and in this one, ~3 s a
+# layer)
 GGUF_PROMPT_TOKENS = 512
 GGUF_DECODE = 128
+GGUF_LAYERS = 8
 _WORDS = ("the of and to in is was that for on with as by at from his her they which "
           "this have had were are but not be one all their there when an who will more "
           "time about would up out so what some into than could them other only then "
@@ -1827,7 +1970,8 @@ def phase_server(ctx, tok, tmp: str) -> dict:
 
 
 def phase_gguf_cli() -> dict:
-    """Phase 9: the text entry point on a LLAMA3_8B GGUF typed as Q4_K_M."""
+    """Phase 9: the text entry point on a GGUF typed as Q4_K_M, at
+    LLAMA3_8B's widths and GGUF_LAYERS of its layers."""
     import os
     import resource
     import shutil
@@ -1848,7 +1992,7 @@ def phase_gguf_cli() -> dict:
         path = os.path.join(tmp, "llama3_8b_q4_k_m.gguf")
         free = shutil.disk_usage(tmp).free
         t0 = time.perf_counter()
-        info = synth_gguf.write_llama_q4km(path, seed=0)
+        info = synth_gguf.write_llama_q4km(path, n_layers=GGUF_LAYERS, seed=0)
         rec.update(gguf=info, write_s=time.perf_counter() - t0, disk_free_gib=free / 2**30)
         log(json.dumps(dict(gguf_written=rec)))
         t0 = time.perf_counter()
@@ -1947,6 +2091,254 @@ def phase_gguf_cli() -> dict:
     return rec
 
 
+# phase 11: Gemma-2-9B at full depth. The ring holds 1 * (4096 + 512) =
+# 4608 cells beside 8192 full ones; a prompt of exactly that many tokens
+# fills it, so every decode step reuses a cell that slid out of the window
+GEMMA2_CELLS = 8192
+GEMMA2_PROMPT = 4608
+GEMMA2_DECODE = 128
+GEMMA2_Q8_PROMPT, GEMMA2_Q8_DECODE = 512, 32
+# the state round trip saves the q8_0 ring Context's first prompt cells
+# (its other cells removed, a metadata edit), held in both of its tables.
+# Not the bf16 run's: after its 128 tokens the ring has pruned every cell
+# at or before position 640, which no later token of the sequence can see
+# (a pruned cell cannot be rewound, as in llama.cpp's ISWA cache), and its
+# whole 4608-cell sequence would make a ~3 GB compressed file
+GEMMA2_STATE_CELLS = 128
+# (b)'s replay past the prompt on the ring and on swa_full: one step of
+# this many tokens of the ring's stream, then single decode steps
+GEMMA2_REPLAY_STEP, GEMMA2_REPLAY_DECODE = 64, 4
+
+
+def gemma2_9b_planes():
+    from llm_tpu_torch.gguf.constants import GGMLType
+    from llm_tpu_torch.models.synthetic import make_synthetic_model
+
+    t0 = time.perf_counter()
+    params, cfg = make_synthetic_model(qtype=GGMLType.Q4_K, device="cuda", on_device=True,
+                                       seed=11, recipe="Q4_K_M", arch="gemma2", **GEMMA2_9B)
+    torch.cuda.synchronize()
+    from llm_tpu_torch.quant.qtensor import QTensor
+
+    leaves = [v for layer in params["layers"] for v in layer.values()]
+    leaves += [params["tok_embd"], params["output"]]
+    nbytes = sum(qt_bytes(v) for v in leaves if isinstance(v, QTensor))
+    log(json.dumps(dict(gemma2_9b_planes_s=time.perf_counter() - t0, planes_bytes=nbytes,
+                        planes_gib=nbytes / 2**30)))
+    return params, cfg
+
+
+def state_round_trip(ctx, n_cells: int, tol_rel: float) -> dict:
+    """The first n_cells cells of sequence 0 (its later cells removed from
+    both tables) through state_seq_save / state_seq_load into a fresh
+    Context of ctx's kind; one decode step on each, logits within tol_rel
+    of max|logit|; the loaded cells' planes bit-equal to the saved ones."""
+    import numpy as np
+
+    from llm_tpu_torch.ops import cuda_build
+    from llm_tpu_torch.runtime import state
+    from llm_tpu_torch.runtime.batch import Batch
+    from llm_tpu_torch.runtime.engine import Context
+
+    ctx.seq_rm(0, n_cells, -1)
+    ring_cells = None if ctx.cells_swa is None else ctx.cells_swa.n_seq_cells(0)
+    if ring_cells == 0:
+        raise AssertionError("the ring holds none of the cells to save")
+    BUILD = cuda_build.BUILD_DIR
+    BUILD.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        path = f"{tmp}/seq0.npz"
+        t0 = time.perf_counter()
+        state.state_seq_save(ctx, 0, path)
+        t_save = time.perf_counter() - t0
+        fresh = Context(None, n_cells=ctx.n_cells, device="cuda",
+                        params_cfg=(ctx.params, ctx.cfg), kv_dtype=ctx.kv_dtype,
+                        swa_full=ctx.cells_swa is None)
+        t0 = time.perf_counter()
+        state.state_seq_load(fresh, 0, path)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    for a_tab, b_tab, ks, kf in ((ctx.cells, fresh.cells, False, None),
+                                 (ctx.cells_swa, fresh.cells_swa, True, None)):
+        if a_tab is None:
+            continue
+        cells = np.flatnonzero(a_tab.seq_mask(0))
+        cells = cells[np.argsort(a_tab.pos[cells], kind="stable")]
+        slots = np.flatnonzero(b_tab.seq_mask(0))
+        slots = slots[np.argsort(b_tab.pos[slots], kind="stable")]
+        if not np.array_equal(b_tab.pos[slots], a_tab.pos[cells]):
+            raise AssertionError("the loaded sequence's cells differ from the saved ones")
+        ci = torch.as_tensor(cells, device="cuda")
+        si = torch.as_tensor(slots, device="cuda")
+        for il in range(ctx.cfg.n_layers):
+            if (ctx.cells_swa is not None and ctx.cfg.layer_is_swa(il)) != ks:
+                continue
+            for a, b in ((ctx.kv.k[il], fresh.kv.k[il]), (ctx.kv.v[il], fresh.kv.v[il])):
+                for x, y in zip(a if isinstance(a, tuple) else (a,),
+                                b if isinstance(b, tuple) else (b,)):
+                    if not torch.equal(x[:, ci], y[:, si]):
+                        raise AssertionError("loaded planes are not bit-equal to the saved")
+    tok = 7
+    assert ctx.decode(Batch.one(tok, pos=n_cells)) == 0
+    want = ctx.get_logits().copy()
+    assert fresh.decode(Batch.one(tok, pos=n_cells)) == 0
+    got = fresh.get_logits()
+    err = float(np.abs(got - want).max())
+    tol = tol_rel * float(np.abs(want).max())
+    rec = dict(state_seq_cells=n_cells, state_ring_cells=ring_cells, state_save_s=t_save,
+               state_load_s=t_load, planes_bit_equal=True, step_logits_max_abs_err=err,
+               tol=tol)
+    log(json.dumps(rec))
+    if not (np.isfinite(got).all() and err <= tol):
+        raise AssertionError(f"decode after state load: max|err| {err} > {tol}")
+    del fresh
+    return rec
+
+
+def replay_past_prompt(ring, full, stream) -> dict:
+    """Phase 11(b) past the prompt: the ring and swa_full Contexts empty
+    their sequence (a ring cannot rewind past cells it pruned), then take
+    the same tokens: the prompt and the first GEMMA2_REPLAY_STEP tokens of
+    stream in n_ubatch steps (K4w_cap; the last step wraps the full ring),
+    then GEMMA2_REPLAY_DECODE single decode steps (K3w_cap), each written
+    to a ring cell that an earlier position held. Each step's logits agree
+    within TWO_LAYER_REL_TOL of swa_full's max|logit|."""
+    import numpy as np
+
+    from llm_tpu_torch.runtime.batch import Batch
+
+    for c in (ring, full):
+        c.seq_rm(0)
+    n = GEMMA2_REPLAY_STEP
+    prompt = main_prompt(ring.cfg.vocab_size, GEMMA2_PROMPT)
+    steps = [prompt + stream[:n]] + [[t] for t in stream[n:n + GEMMA2_REPLAY_DECODE]]
+    diffs, tols = [], []
+    for step in steps:
+        for c in (ring, full):
+            assert c.decode(Batch.text(step)) == 0
+        lf = full.get_logits()
+        diffs.append(float(np.abs(ring.get_logits() - lf).max()))
+        tols.append(TWO_LAYER_REL_TOL * float(np.abs(lf).max()))
+    last = GEMMA2_PROMPT + n + GEMMA2_REPLAY_DECODE - 1
+    rec = dict(phase=11, replay_positions=[GEMMA2_PROMPT, last],
+               replay_step_tokens=[len(t) for t in steps], ring_used=ring.cells_swa.n_used,
+               ring_vs_swa_full_replay_max_abs_diff=diffs, tol=tols)
+    log(json.dumps(rec))
+    for i, (d, t) in enumerate(zip(diffs, tols)):
+        if not d <= t:
+            raise AssertionError(f"ring vs swa_full past the prompt, step {i}: "
+                                 f"max|diff| {d} > {t}")
+    return rec
+
+
+def phase_gemma2_9b() -> dict:
+    """Phase 11: Gemma-2-9B at full width and depth (42 layers, Q4_K_M-style
+    random planes made on the card from seed 11, tied Q6_K lm_head).
+    (a) the ISWA ring Context (8192 cells, ring 4608): prefill 4608 tokens
+        in 512-token steps, then 128 greedy tokens, every decode step on a
+        reused ring cell; launches by kernel (capped K3w_cap / K4w_cap a
+        layer a step, no uncapped flash launch); profiled over 8 more
+        tokens; the cache's bytes beside swa_full's;
+    (b) swa_full on the same planes and prompt: the greedy streams equal or
+        parted only at a near tie (compare_streams), the prompt's last
+        logits within TWO_LAYER_REL_TOL of max|logit|; then both drop
+        their cells past the prompt and take the same tokens of the ring's
+        stream (replay_past_prompt), every step's logits within that
+        tolerance, so the ring's reused cells are held whether or not the
+        streams part;
+    (c) the same planes with swa_window = 0: the prompt's last logits
+        (position 4607, past the window) apart from (b)'s by more than that
+        tolerance: the window is live at full width;
+    (d) a q8_0 ring Context: prefill 512, 32 greedy tokens (K3qw_cap,
+        K4qw_cap); then its first GEMMA2_STATE_CELLS prompt cells, in both
+        tables, through a state file into a fresh q8_0 ring Context, one
+        decode step against the uninterrupted one.
+    Returns the capped kernels' launches of (a) and (d)."""
+    import dataclasses
+
+    import numpy as np
+
+    from llm_tpu_torch.runtime.batch import Batch
+    from llm_tpu_torch.runtime.engine import Context
+    from llm_tpu_torch.tools.profile_decode import profile_tokens
+
+    params, cfg = gemma2_9b_planes()
+    out = {}
+    ring = Context(None, n_cells=GEMMA2_CELLS, device="cuda", params_cfg=(params, cfg))
+    if ring.cells_swa is None or ring.cells_swa.n_cells != GEMMA2_PROMPT:
+        raise AssertionError(f"the ring holds {ring.cells_swa and ring.cells_swa.n_cells} cells")
+    ring_keep = {}
+    counts, rec = run_llama3_8b(ring, ("K3w_cap", "K4w_cap"), ring_keep, GEMMA2_DECODE,
+                                GEMMA2_PROMPT)
+    out.update(K3w_cap=counts["K3w_cap"], K4w_cap=counts["K4w_cap"])
+    prof = profile_tokens(ring, rec["last_token"], 8)
+    log("profile_decode " + json.dumps(prof))
+    check_gemv_profile(prof, memsets=1)  # the greedy argmax's over 256000 logits
+    check_attn_profile(prof, cfg.n_layers)
+    full = Context(None, n_cells=GEMMA2_CELLS, device="cuda", params_cfg=(params, cfg),
+                   swa_full=True)
+    full_bytes = kv_bytes(full)
+    log(json.dumps(dict(phase=11, path="ISWA ring", ring_cells=ring.cells_swa.n_cells,
+                        ring_used_after=ring.cells_swa.n_used, kv_bytes=rec["kv_bytes"],
+                        swa_full_kv_bytes=full_bytes,
+                        kv_saved_gib=(full_bytes - rec["kv_bytes"]) / 2**30,
+                        ms_per_token=1e3 / rec["decode_tok_s"],
+                        prefill_tok_s=rec["prefill_tok_s"], peak_mem_gib=rec["peak_mem_gib"],
+                        device_busy_ms_per_token=prof["device_busy_ms_per_token"],
+                        idle_share=prof["idle_share"],
+                        device_launches_per_token=prof["device_launches_per_token"],
+                        decode_bound_tok_s=rec["decode_bound_tok_s"])))
+    if not full_bytes > rec["kv_bytes"]:
+        raise AssertionError("the ring saves no cache bytes")
+
+    # (b) swa_full: the same stream, or parted at a near tie
+    full_keep = {}
+    _, full_rec = run_llama3_8b(full, ("K3w_cap", "K4w_cap"), full_keep, GEMMA2_DECODE,
+                                GEMMA2_PROMPT)
+    lr, lf = ring_keep["logits"], full_keep["logits"]
+    err = float(np.abs(lr - lf).max())
+    tol = TWO_LAYER_REL_TOL * float(np.abs(lf).max())
+    streams = compare_streams(ring, ring_keep, full, full_keep, GEMMA2_PROMPT)
+    log(json.dumps(dict(phase=11, ring_vs_swa_full_prefill_max_abs_diff=err, tol=tol,
+                        swa_full_ms_per_token=1e3 / full_rec["decode_tok_s"], **streams)))
+    if not err <= tol:
+        raise AssertionError(f"ring vs swa_full prompt logits: max|diff| {err} > {tol}")
+    replay_past_prompt(ring, full, [ring_keep["first"]] + ring_keep["tokens"])
+    del full
+    torch.cuda.empty_cache()
+
+    # (c) no window: position 4607 then sees cells the window hides
+    flat = Context(None, n_cells=GEMMA2_CELLS, device="cuda",
+                   params_cfg=(params, dataclasses.replace(cfg, swa_window=0)))
+    prompt = main_prompt(cfg.vocab_size, GEMMA2_PROMPT)
+    assert flat.decode(Batch.text(prompt)) == 0
+    diff = float(np.abs(flat.get_logits() - lf).max())
+    log(json.dumps(dict(phase=11, no_window_vs_window_prompt_max_abs_diff=diff, tol=tol,
+                        position=GEMMA2_PROMPT - 1)))
+    if not diff > tol:
+        raise AssertionError(f"swa_window=0 moves the logits past the window by only {diff}")
+    del flat
+    torch.cuda.empty_cache()
+
+    del ring
+    torch.cuda.empty_cache()
+
+    # (d) the q8_0 ring: K3qw_cap / K4qw_cap
+    q8 = Context(None, n_cells=GEMMA2_CELLS, device="cuda", params_cfg=(params, cfg),
+                 kv_dtype="q8_0")
+    counts_q8, rec_q8 = run_llama3_8b(q8, ("K3qw_cap", "K4qw_cap"), None, GEMMA2_Q8_DECODE,
+                                      GEMMA2_Q8_PROMPT)
+    out.update(K3qw_cap=counts_q8["K3qw_cap"], K4qw_cap=counts_q8["K4qw_cap"])
+    log(json.dumps(dict(phase=11, path="ISWA ring q8_0", kv_bytes=rec_q8["kv_bytes"],
+                        ms_per_token=1e3 / rec_q8["decode_tok_s"],
+                        peak_mem_gib=rec_q8["peak_mem_gib"])))
+    # its first prompt cells through a state file into a fresh q8_0 ring
+    out["state"] = state_round_trip(q8, GEMMA2_STATE_CELLS, TWO_LAYER_Q8_REL_TOL)
+    del q8, params
+    torch.cuda.empty_cache()
+    return out
+
+
 REPLACES = {
     "K1": ("llm_tpu_torch/csrc/qmm_decode.cu", "llm_tpu/ops/pallas_qmm.py:159"),
     "K2": ("llm_tpu_torch/csrc/qmm_decode.cu", "llm_tpu/ops/pallas_qmm.py:149"),
@@ -1958,6 +2350,13 @@ REPLACES = {
     "K4w": ("llm_tpu_torch/csrc/flash_prefill.cu", "llm_tpu/ops/pallas_attn.py:328"),
     "K3qw": ("llm_tpu_torch/csrc/flash_attn.cu", "llm_tpu/ops/pallas_attn.py:135"),
     "K4qw": ("llm_tpu_torch/csrc/flash_prefill.cu", "llm_tpu/ops/pallas_attn.py:341"),
+    # the softcap term of the TPU kernels' bodies (_decode_body :81-82,
+    # _prefill_body :292-293), reached through _kernel / _kernel_q8 and
+    # _prefill_kernel / _prefill_kernel_q8
+    "K3w_cap": ("llm_tpu_torch/csrc/flash_attn.cu", "llm_tpu/ops/pallas_attn.py:123"),
+    "K4w_cap": ("llm_tpu_torch/csrc/flash_prefill.cu", "llm_tpu/ops/pallas_attn.py:328"),
+    "K3qw_cap": ("llm_tpu_torch/csrc/flash_attn.cu", "llm_tpu/ops/pallas_attn.py:135"),
+    "K4qw_cap": ("llm_tpu_torch/csrc/flash_prefill.cu", "llm_tpu/ops/pallas_attn.py:341"),
     "K5": ("llm_tpu_torch/csrc/qmm_decode.cu", "llm_tpu/ops/pallas_qmm.py:195"),
     "K6": ("llm_tpu_torch/csrc/qmm_chain.cu", "llm_tpu/ops/pallas_qmm_chain.py:107"),
     "K7": ("llm_tpu_torch/csrc/qmm_decode.cu", "llm_tpu/ops/pallas_qmm.py:481"),
@@ -1981,6 +2380,11 @@ HEADLINE = {"K1": "gate_up Q4_K K=4096 N=28672 B=1",
             "K4w": "prefill T=512 S=4096 H=8 Hkv=4 D=256",
             "K3qw": "decode half-masked T=1 S=4096 H=8 Hkv=4 D=256",
             "K4qw": "prefill T=512 S=4096 H=8 Hkv=4 D=256",
+            # the capped wide kernels at Gemma-2-9B's heads (phase 11)
+            "K3w_cap": "decode half-masked T=1 S=4096 H=16 Hkv=8 D=256 cap=50",
+            "K4w_cap": "prefill T=512 S=4096 H=16 Hkv=8 D=256 cap=50",
+            "K3qw_cap": "decode half-masked T=1 S=4096 H=16 Hkv=8 D=256 cap=50",
+            "K4qw_cap": "prefill T=512 S=4096 H=16 Hkv=8 D=256 cap=50",
             "K5": "gu Q4_K K=4096 N=28672 B=1",
             "K6": "tail Q6_K down B=1",
             "K7": "gate_up Q4_K K=4096 N=28672 B=1",
@@ -2043,6 +2447,13 @@ def main() -> int:
     # library; S3's library keeps that body
     check_sass("decode_attn_sass", {"flash_attn": K3_KERNELS}, "flash_decode_tc",
                ("HMMA", "UTMALDG"), ("flash_decode_split", "flash_decode_combine"))
+    # the capped wide instantiations (gemma2's attention softcap), counted
+    # apart: K3w_cap/K3qw_cap issue mma.sync and TMA loads, K4w_cap/K4qw_cap
+    # wgmma and TMA loads
+    check_sass("capped_decode_sass", {"flash_attn": K3_CAP_KERNELS}, "flash_decode_tc_wide_cap",
+               ("HMMA", "UTMALDG"), ())
+    check_sass("capped_prefill_sass", {"flash_prefill": K4_CAP_KERNELS},
+               "flash_prefill_wgmma_wide_cap", ("HGMMA", "UTMALDG"), ())
     # S3's library keeps the split-S body that K3/K3q no longer run, and its
     # combine kernel
     check_sass("probe_split_sass", {"flash_probe": S3_SPLIT_KERNELS}, "flash_probe_split", (), ())
@@ -2105,19 +2516,24 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_gguf_cli()
     log(f"LLAMA3_8B GGUF through the CLI passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts_gemma2 = phase_gemma2_9b()
+    log(f"Gemma-2-9B at full depth passed in {time.perf_counter() - t0:.1f} s")
     # each kernel's launches from the path that runs it: K1-K4 from phase 4,
     # K3q/K4q from phase 5, K5 from phase 6, K6 from phase 7, K7 from phase
     # 8, the wide K3w/K4w/K3qw/K4qw from phase 3's Gemma-2-2B and
-    # DeepSeek-V2-Lite twins (their card runs), S1 from the kbench run, S3
-    # from the kbench_attn run
+    # DeepSeek-V2-Lite twins (their card runs), the capped ones from phase
+    # 11 (K3w_cap/K4w_cap its ring run, K3qw_cap/K4qw_cap its q8_0 one), S1
+    # from the kbench run, S3 from the kbench_attn run
     counts = {**counts, "K3q": counts_q8["K3q"], "K4q": counts_q8["K4q"],
               "K5": counts_gdot["K5"], "K6": counts_chain["K6"], "K7": counts_scan["K7"],
               **{k: sum(r["attn_launches"][k] for r in widths)
-                 for k in ("K3w", "K4w", "K3qw", "K4qw")}}
+                 for k in ("K3w", "K4w", "K3qw", "K4qw")},
+              **{k: counts_gemma2[k] for k in ("K3w_cap", "K4w_cap", "K3qw_cap", "K4qw_cap")}}
 
     kernels = []
-    for k in ("K1", "K2", "K3", "K4", "K3q", "K4q", "K3w", "K4w", "K3qw", "K4qw", "K5", "K6",
-              "K7"):
+    for k in ("K1", "K2", "K3", "K4", "K3q", "K4q", "K3w", "K4w", "K3qw", "K4qw", "K3w_cap",
+              "K4w_cap", "K3qw_cap", "K4qw_cap", "K5", "K6", "K7"):
         mine = [r for r in results if r["kernel"] == k]
         head = next(r for r in mine if r["shape"] == HEADLINE[k])
         src, rep = REPLACES[k]
@@ -2127,8 +2543,8 @@ def main() -> int:
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
             shape=head["shape"], passed=True,
-            **{f: head[f] for f in ("k1_ms", "unfused_ms", "unstacked_ms")
-               if f in head}))
+            **{f: head[f] for f in ("k1_ms", "unfused_ms", "unstacked_ms", "uncapped_kernel",
+                                    "uncapped_ms", "sdpa_uncapped_ms") if f in head}))
         if k in PREFILL_HEADLINE:
             pre = next(r for r in mine if r["shape"] == PREFILL_HEADLINE[k])
             kernels[-1]["prefill"] = {"source": PREFILL_SOURCE[k], **{f: pre[f] for f in (

@@ -74,7 +74,7 @@ def _convert(obj):
 UNMODELED_DEFAULTS = {
     "expert_weights_norm": False, "expert_weights_scale": 1.0, "n_ff_expert": 0,
     "expert_gating_func": "softmax", "ep_cf": 0.0, "qk_norm_full": False,
-    "qk_norm_ln": False, "nonparam_norm": False, "swa_pattern": 0, "rope_swa": None,
+    "qk_norm_ln": False, "nonparam_norm": False, "rope_swa": None,
     "nope_global_layers": False, "swa_chunked": False, "attn_temp_scale": 0.0,
     "attn_temp_floor": 8192, "qk_l2_norm": False, "expert_weight_before": False,
     "ssm_d_conv": 0, "ssm_d_inner": 0, "ssm_d_state": 0, "ssm_dt_rank": 0,

@@ -696,6 +696,15 @@ flash_decode_tc_dim(const __grid_constant__ CUtensorMap tmk,
 // 50 KB) plus q and q_rot [2][4 x 64 dims][16 rows] bf16 (16 KB) and K3q's
 // V tiles (16 KB): 215 KB (K3q 185 KB); the end's partials [4 warps][16
 // rows][256 dims] f32 (64 KB) reuse the ring.
+//
+// gemma2's attention softcap (pallas_attn.py _decode_body: scores =
+// tanh(scores / cap) * cap after the scale, before the bias) is the
+// SOFTCAP instantiation of the same CTA body, a __global__ of its own
+// (flash_decode_tc_wide_cap) so that the uncapped kernels keep their names
+// and machine code: its scale-and-bias step is cap log2e * tanhf(s * scale
+// / cap) + max(bias, -1e30) log2e. tanhf, not tanh.approx.f32: at cap 50
+// the approximation's ~2^-11 relative error is up to ~0.024 in a score.
+// Every capped step takes this kernel, at any head dims (NC = 1 up to 128).
 
 constexpr int DW_ROWS = 16;  // query rows a CTA at most (two n8 tiles)
 constexpr int DW_DIMS = 256;
@@ -806,12 +815,15 @@ __device__ __forceinline__ void dw_producer(const CUtensorMap* tmk, const CUtens
 }
 
 // one consumer warp of the wide kernel over blocks [b0, b1): as da_consumer,
-// with the scores summed over a block's NC items and acc[8 NC][NR][4]
-template <bool Q8, int NR, int NC>
+// with the scores summed over a block's NC items and acc[8 NC][NR][4].
+// SOFTCAP: a score s becomes cap.y * tanhf(s * cap.x) + max(bias, -1e30) *
+// log2 e, cap.x = scale / softcap and cap.y = softcap * log2 e (the TPU
+// kernel's tanh(s * scale / cap) * cap, in log2 units)
+template <bool Q8, int NR, int NC, bool SOFTCAP>
 __device__ __forceinline__ void dw_consumer(const DecArgs& a, uint8_t* smem, uint32_t full0,
                                             uint32_t empty0, int h, int r0, int b0, int b1,
                                             float (&acc)[8 * NC][NR][4], float (&m)[NR][2],
-                                            float (&l)[NR][2]) {
+                                            float (&l)[NR][2], float2 cap) {
   using L = DecSmem<Q8>;
   using W = DecWideSmem<Q8>;
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
@@ -900,8 +912,13 @@ __device__ __forceinline__ void dw_consumer(const DecArgs& a, uint8_t* smem, uin
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int cl = g + 8 * (e >> 1);
-        const float x = (sh[nr][e] - sl[nr][e]) * a.scale2 +
-                        fmaxf(bias[tok[nr][e & 1] * DA_BLK + cw0 + cl], DA_NEG) * DA_LOG2E;
+        float x;
+        if constexpr (SOFTCAP)
+          x = fmaf(tanhf((sh[nr][e] - sl[nr][e]) * cap.x), cap.y,
+                   fmaxf(bias[tok[nr][e & 1] * DA_BLK + cw0 + cl], DA_NEG) * DA_LOG2E);
+        else
+          x = (sh[nr][e] - sl[nr][e]) * a.scale2 +
+              fmaxf(bias[tok[nr][e & 1] * DA_BLK + cw0 + cl], DA_NEG) * DA_LOG2E;
         p[e] = cell0 + cl < a.S ? x : -INFINITY;
       }
 #pragma unroll
@@ -990,13 +1007,12 @@ __device__ __forceinline__ void dw_consumer(const DecArgs& a, uint8_t* smem, uin
     }
 }
 
-// a CTA of the wide kernel: as decode_cta, with Dk = a.D and Dv apart
-template <bool Q8, int NR, int NC>
-__global__ void __launch_bounds__(DA_THREADS, 1)
-flash_decode_tc_wide(const __grid_constant__ CUtensorMap tmk,
-                     const __grid_constant__ CUtensorMap tmv,
-                     const __grid_constant__ CUtensorMap tmc,
-                     const __grid_constant__ CUtensorMap tms, const DecWideArgs wa) {
+// a CTA of the wide kernel: as decode_cta, with Dk = a.D and Dv apart;
+// SOFTCAP and cap as dw_consumer's
+template <bool Q8, int NR, int NC, bool SOFTCAP>
+__device__ __forceinline__ void decode_wide_cta(const CUtensorMap* tmk, const CUtensorMap* tmv,
+                                                const CUtensorMap* tmc, const CUtensorMap* tms,
+                                                const DecWideArgs& wa, float2 cap) {
   using W = DecWideSmem<Q8>;
   constexpr int RC = 8 * NR, DM = 8 * NC, DH = 128 * NC;  // rows, dim tiles, dims held
   extern __shared__ uint8_t dyn_smem[];
@@ -1036,7 +1052,7 @@ flash_decode_tc_wide(const __grid_constant__ CUtensorMap tmk,
       for (int e = 0; e < 4; ++e) acc[dm][nr][e] = 0.f;
   }
   if (warp == DA_WARPS) {
-    dw_producer<Q8, NC>(&tmk, &tmv, &tmc, &tms, wa, sm, full0, empty0, h, b0, b1);
+    dw_producer<Q8, NC>(tmk, tmv, tmc, tms, wa, sm, full0, empty0, h, b0, b1);
   } else {
     // q and q_rot of rows r0.. into [which][quarter][row][128 B], dims past Dk zero
     for (int i = threadIdx.x; i < 2 * RC * 32; i += DA_WARPS * 32) {
@@ -1052,7 +1068,7 @@ flash_decode_tc_wide(const __grid_constant__ CUtensorMap tmk,
                                 (c16 >> 3) * DW_ROWS * 128 + swz(r, (c16 & 7) * 16)) = v;
     }
     asm volatile("bar.sync 1, %0;\n" ::"n"(DA_WARPS * 32) : "memory");
-    dw_consumer<Q8, NR, NC>(a, smem, full0, empty0, h, r0, b0, b1, acc, m, l);
+    dw_consumer<Q8, NR, NC, SOFTCAP>(a, smem, full0, empty0, h, r0, b0, b1, acc, m, l, cap);
   }
   __syncthreads();
 
@@ -1137,6 +1153,27 @@ flash_decode_tc_wide(const __grid_constant__ CUtensorMap tmk,
     a.out[((size_t)t * a.H + (size_t)h * a.G + g) * Dv + d] = A / fmaxf(Ls, 1e-30f);
   }
   if (C > 1) cluster_sync_all();
+}
+
+template <bool Q8, int NR, int NC>
+__global__ void __launch_bounds__(DA_THREADS, 1)
+flash_decode_tc_wide(const __grid_constant__ CUtensorMap tmk,
+                     const __grid_constant__ CUtensorMap tmv,
+                     const __grid_constant__ CUtensorMap tmc,
+                     const __grid_constant__ CUtensorMap tms, const DecWideArgs wa) {
+  decode_wide_cta<Q8, NR, NC, false>(&tmk, &tmv, &tmc, &tms, wa, make_float2(0.f, 0.f));
+}
+
+// the wide kernel with gemma2's attention softcap: cap = (scale / softcap,
+// softcap * log2 e)
+template <bool Q8, int NR, int NC>
+__global__ void __launch_bounds__(DA_THREADS, 1)
+flash_decode_tc_wide_cap(const __grid_constant__ CUtensorMap tmk,
+                         const __grid_constant__ CUtensorMap tmv,
+                         const __grid_constant__ CUtensorMap tmc,
+                         const __grid_constant__ CUtensorMap tms, const DecWideArgs wa,
+                         const float2 cap) {
+  decode_wide_cta<Q8, NR, NC, true>(&tmk, &tmv, &tmc, &tms, wa, cap);
 }
 
 // ----------------------------------------------------------------------------
@@ -1238,15 +1275,20 @@ int launch_any(const DecPtrs& p, int T, int H, int Hkv, int S, int D, float scal
 }
 
 // the wide kernel's launch: Dk, Dv multiples of 8 up to 256, rows in one or
-// two n8 tiles (chunks of 16 past 16), NC = 1 up to 128 dims, else 2
-template <bool Q8, int NR, int NC>
+// two n8 tiles (chunks of 16 past 16), NC = 1 up to 128 dims, else 2;
+// SOFTCAP: the capped instantiation, at softcap > 0
+template <bool Q8, int NR, int NC, bool SOFTCAP>
 int launch_wide_t(const DecPtrs& p, int T, int H, int Hkv, int S, int Dk, int Dv, float scale,
-                  int cluster, cudaStream_t st) {
+                  float softcap, int cluster, cudaStream_t st) {
   using W = DecWideSmem<Q8>;
-  const auto kern = flash_decode_tc_wide<Q8, NR, NC>;
   static bool attr = false;
   if (!attr) {
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, W::BYTES);
+    if constexpr (SOFTCAP)
+      cudaFuncSetAttribute(flash_decode_tc_wide_cap<Q8, NR, NC>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, W::BYTES);
+    else
+      cudaFuncSetAttribute(flash_decode_tc_wide<Q8, NR, NC>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, W::BYTES);
     attr = true;
   }
   const int G = H / Hkv, R = T * G, nblk = (S + DA_BLK - 1) / DA_BLK;
@@ -1296,27 +1338,42 @@ int launch_wide_t(const DecPtrs& p, int T, int H, int Hkv, int S, int Dk, int Dv
   at[0].val.clusterDim.z = 1;
   cfg.attrs = at;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, kern, mk, mv, mc, ms, wa);
+  if constexpr (SOFTCAP)
+    return (int)cudaLaunchKernelEx(&cfg, flash_decode_tc_wide_cap<Q8, NR, NC>, mk, mv, mc, ms,
+                                   wa, make_float2(scale / softcap, softcap * DA_LOG2E));
+  else
+    return (int)cudaLaunchKernelEx(&cfg, flash_decode_tc_wide<Q8, NR, NC>, mk, mv, mc, ms, wa);
+}
+
+template <bool Q8, bool SOFTCAP>
+int launch_wide_rows(const DecPtrs& p, int T, int H, int Hkv, int S, int Dk, int Dv,
+                     float scale, float softcap, int cluster, cudaStream_t st) {
+  const bool two = Dk > 128 || Dv > 128;
+  if (T * (H / Hkv) <= 8)
+    return two ? launch_wide_t<Q8, 1, 2, SOFTCAP>(p, T, H, Hkv, S, Dk, Dv, scale, softcap,
+                                                  cluster, st)
+               : launch_wide_t<Q8, 1, 1, SOFTCAP>(p, T, H, Hkv, S, Dk, Dv, scale, softcap,
+                                                  cluster, st);
+  return two ? launch_wide_t<Q8, 2, 2, SOFTCAP>(p, T, H, Hkv, S, Dk, Dv, scale, softcap,
+                                                cluster, st)
+             : launch_wide_t<Q8, 2, 1, SOFTCAP>(p, T, H, Hkv, S, Dk, Dv, scale, softcap,
+                                                cluster, st);
 }
 
 template <bool Q8>
 int launch_wide(const DecPtrs& p, int T, int H, int Hkv, int S, int Dk, int Dv, float scale,
-                int cluster, void* stream) {
+                float softcap, int cluster, void* stream) {
   if (T < 1 || T > DA_MAX_T || Hkv < 1 || H % Hkv || S < 1) return (int)cudaErrorInvalidValue;
   if (Dk < 8 || Dk > DW_DIMS || Dk % 8 || Dv < 8 || Dv > DW_DIMS || Dv % 8)
     return (int)cudaErrorInvalidValue;
   const int nblk = (S + DA_BLK - 1) / DA_BLK;
   if (cluster < 1 || cluster > DA_MAX_CLUSTER || cluster > nblk) return (int)cudaErrorInvalidValue;
+  if (!(softcap >= 0.f)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int R = T * (H / Hkv);
-  const bool two = Dk > 128 || Dv > 128;
-  int rc;
-  if (R <= 8)
-    rc = two ? launch_wide_t<Q8, 1, 2>(p, T, H, Hkv, S, Dk, Dv, scale, cluster, st)
-             : launch_wide_t<Q8, 1, 1>(p, T, H, Hkv, S, Dk, Dv, scale, cluster, st);
-  else
-    rc = two ? launch_wide_t<Q8, 2, 2>(p, T, H, Hkv, S, Dk, Dv, scale, cluster, st)
-             : launch_wide_t<Q8, 2, 1>(p, T, H, Hkv, S, Dk, Dv, scale, cluster, st);
+  const int rc =
+      softcap > 0.f
+          ? launch_wide_rows<Q8, true>(p, T, H, Hkv, S, Dk, Dv, scale, softcap, cluster, st)
+          : launch_wide_rows<Q8, false>(p, T, H, Hkv, S, Dk, Dv, scale, softcap, cluster, st);
   return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
@@ -1345,14 +1402,15 @@ extern "C" int flash_decode_q8_launch(const void* q, const void* qr, const void*
 }
 
 // K3 at Dk, Dv apart (each a multiple of 8 up to 256): the wide kernel.
-// cluster: CTAs a KV head (decode_attn_plan with 16 rows a CTA).
+// cluster: CTAs a KV head (decode_attn_plan with 16 rows a CTA). softcap >
+// 0: the capped instantiation (gemma2's attention logit cap); 0: none.
 extern "C" int flash_decode_wide_launch(const void* q, const void* qr, const void* k,
                                         const void* v, const void* cs, const void* sn,
                                         const void* bias, void* out, int T, int H, int Hkv,
-                                        int S, int Dk, int Dv, float scale, int cluster,
-                                        void* stream) {
+                                        int S, int Dk, int Dv, float scale, float softcap,
+                                        int cluster, void* stream) {
   const DecPtrs p{q, qr, k, nullptr, v, nullptr, cs, sn, bias, out};
-  return launch_wide<false>(p, T, H, Hkv, S, Dk, Dv, scale, cluster, stream);
+  return launch_wide<false>(p, T, H, Hkv, S, Dk, Dv, scale, softcap, cluster, stream);
 }
 
 // K3q on the wide kernel: int8 rows at any multiple of 8, one scale a row.
@@ -1360,7 +1418,8 @@ extern "C" int flash_decode_wide_q8_launch(const void* q, const void* qr, const 
                                            const void* ks, const void* v, const void* vs,
                                            const void* cs, const void* sn, const void* bias,
                                            void* out, int T, int H, int Hkv, int S, int Dk,
-                                           int Dv, float scale, int cluster, void* stream) {
+                                           int Dv, float scale, float softcap, int cluster,
+                                           void* stream) {
   const DecPtrs p{q, qr, k, ks, v, vs, cs, sn, bias, out};
-  return launch_wide<true>(p, T, H, Hkv, S, Dk, Dv, scale, cluster, stream);
+  return launch_wide<true>(p, T, H, Hkv, S, Dk, Dv, scale, softcap, cluster, stream);
 }

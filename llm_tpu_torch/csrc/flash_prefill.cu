@@ -88,7 +88,11 @@ int launch_prefill(const PrefillArgs& a, cudaStream_t st) {
 // warpgroup runs its score chain on its stage, the two partial scores meet
 // in shared memory (warpgroup 1's into warpgroup 0, the sum back: 16 KB,
 // two named barriers), both run the same softmax on the same sums, and
-// each runs P.V against its stage's V. Shared memory: 2 x 80 KB stages, the
+// each runs P.V against its stage's V. gemma2's attention softcap is the
+// SOFTCAP instantiation of the same CTA, a __global__ of its own
+// (flash_prefill_wgmma_wide_cap, so that the uncapped kernel keeps its name
+// and machine code): its scale-and-bias step is cap log2e * tanhf(s *
+// scale / cap) + max(bias, -1e30) log2e, in place of the one fmaf. Shared memory: 2 x 80 KB stages, the
 // 48 KB raw block and the 16 KB exchange: 225 KB. Past Dk or Dv, TMA and
 // cp.async fill zeros, which add nothing.
 
@@ -190,8 +194,12 @@ __device__ __forceinline__ void wide_producer(const PrefillCta& cta, const CUten
 }
 
 // the two consumer warpgroups: warpgroup c takes dims 128c.. of the scores
-// and of O for the CTA's 64 rows
-__device__ __forceinline__ void wide_consumers(const PrefillCta& cta, const PrefillWideArgs& w) {
+// and of O for the CTA's 64 rows. SOFTCAP: a score s becomes cap.y *
+// tanhf(s * cap.x) + max(bias, -1e30) log2 e, cap.x = scale / softcap and
+// cap.y = softcap * log2 e (the TPU kernel's tanh(s * scale / cap) * cap)
+template <bool SOFTCAP>
+__device__ __forceinline__ void wide_consumers(const PrefillCta& cta, const PrefillWideArgs& w,
+                                               float2 cap) {
   const PrefillArgs& a = w.a;
   const int Dk = a.D, Dv = w.Dv;
   const int h = cta.h, row0 = cta.row0, nblk = cta.nblk;
@@ -275,10 +283,17 @@ __device__ __forceinline__ void wide_consumers(const PrefillCta& cta, const Pref
 
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      sc[4 * i + 0] = fmaf(sc[4 * i + 0], scale2, ba[2 * i]);
-      sc[4 * i + 1] = fmaf(sc[4 * i + 1], scale2, ba[2 * i + 1]);
-      sc[4 * i + 2] = fmaf(sc[4 * i + 2], scale2, bb[2 * i]);
-      sc[4 * i + 3] = fmaf(sc[4 * i + 3], scale2, bb[2 * i + 1]);
+      if constexpr (SOFTCAP) {
+        sc[4 * i + 0] = fmaf(tanhf(sc[4 * i + 0] * cap.x), cap.y, ba[2 * i]);
+        sc[4 * i + 1] = fmaf(tanhf(sc[4 * i + 1] * cap.x), cap.y, ba[2 * i + 1]);
+        sc[4 * i + 2] = fmaf(tanhf(sc[4 * i + 2] * cap.x), cap.y, bb[2 * i]);
+        sc[4 * i + 3] = fmaf(tanhf(sc[4 * i + 3] * cap.x), cap.y, bb[2 * i + 1]);
+      } else {
+        sc[4 * i + 0] = fmaf(sc[4 * i + 0], scale2, ba[2 * i]);
+        sc[4 * i + 1] = fmaf(sc[4 * i + 1], scale2, ba[2 * i + 1]);
+        sc[4 * i + 2] = fmaf(sc[4 * i + 2], scale2, bb[2 * i]);
+        sc[4 * i + 3] = fmaf(sc[4 * i + 3], scale2, bb[2 * i + 1]);
+      }
     }
     if (sb + FP_SB > a.S) {
 #pragma unroll
@@ -406,19 +421,67 @@ flash_prefill_wgmma_wide(const __grid_constant__ CUtensorMap tmk,
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(FP_CONSUMER_REGS));
-  wide_consumers(c, w);
+  wide_consumers<false>(c, w, make_float2(0.f, 0.f));
 }
 
+// the wide kernel with gemma2's attention softcap, cap = (scale / softcap,
+// softcap * log2 e): the same CTA but for wide_consumers<true>. (Its body is
+// the uncapped kernel's, written out: with the two sharing a force-inlined
+// CTA function, ptxas ordered two of the K4qw kernel's prologue loads
+// differently, and its machine code would no longer be the parent's.)
 template <bool Q8>
-int launch_prefill_wide(const PrefillWideArgs& w, cudaStream_t st) {
+__global__ void __launch_bounds__(FP_THREADS, 1)
+flash_prefill_wgmma_wide_cap(const __grid_constant__ CUtensorMap tmk,
+                             const __grid_constant__ CUtensorMap tmv,
+                             const __grid_constant__ CUtensorMap tmc,
+                             const __grid_constant__ CUtensorMap tms, const PrefillWideArgs w,
+                             const float2 cap) {
+  extern __shared__ uint8_t dyn_smem[];
+  __shared__ __align__(8) uint64_t bars[2 * FP_STAGES + 1];
+  PrefillCta c;
+  const uint32_t raw_ = smem_u32(dyn_smem);
+  c.smem = dyn_smem + (((raw_ + 1023) & ~1023u) - raw_);
+  c.smem_a = smem_u32(c.smem);
+  c.full0 = smem_u32(&bars[0]);
+  c.empty0 = smem_u32(&bars[FP_STAGES]);
+  c.rawbar = smem_u32(&bars[2 * FP_STAGES]);
+  c.h = blockIdx.y;
+  c.row0 = blockIdx.x * FW_ROWS;
+  c.nblk = (w.a.S + FP_SB - 1) / FP_SB;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < FP_STAGES; ++s) {
+      mbar_init(c.full0 + 8 * s, Q8 ? 128 : 129);  // K4: + lane 0's expect_tx for V
+      mbar_init(c.empty0 + 8 * s, 4);               // one warpgroup a stage
+    }
+    mbar_init(c.rawbar, 1 + (Q8 && (w.kcp || w.vcp) ? 128 : 0));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= FP_CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(FP_PRODUCER_REGS));
+    wide_producer<Q8>(c, &tmk, &tmv, &tmc, &tms, w);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(FP_CONSUMER_REGS));
+  wide_consumers<true>(c, w, cap);
+}
+
+// softcap > 0: the capped instantiation; 0: none
+template <bool Q8>
+int launch_prefill_wide(const PrefillWideArgs& w, float softcap, cudaStream_t st) {
   const PrefillArgs& a = w.a;
-  if (a.D < 8 || a.D > 256 || a.D % 8 || w.Dv < 8 || w.Dv > 256 || w.Dv % 8 || a.H % a.Hkv)
+  if (a.D < 8 || a.D > 256 || a.D % 8 || w.Dv < 8 || w.Dv > 256 || w.Dv % 8 || a.H % a.Hkv ||
+      !(softcap >= 0.f))
     return (int)cudaErrorInvalidValue;
-  static bool attr = false;
-  if (!attr) {
-    cudaFuncSetAttribute(flash_prefill_wgmma_wide<Q8>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, FW_SMEM);
-    attr = true;
+  static bool attr[2] = {false, false};
+  if (!attr[softcap > 0.f]) {
+    if (softcap > 0.f)
+      cudaFuncSetAttribute(flash_prefill_wgmma_wide_cap<Q8>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, FW_SMEM);
+    else
+      cudaFuncSetAttribute(flash_prefill_wgmma_wide<Q8>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, FW_SMEM);
+    attr[softcap > 0.f] = true;
   }
   const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   const CUtensorMapSwizzle none = CU_TENSOR_MAP_SWIZZLE_NONE;
@@ -436,7 +499,11 @@ int launch_prefill_wide(const PrefillWideArgs& w, cudaStream_t st) {
   if (!rc) rc = raw_map(&m[3], bf, 2, a.sn, 2, Dk, S, 1, none, FP_D);
   if (rc) return rc;
   const dim3 grid((a.T * a.G + FW_ROWS - 1) / FW_ROWS, a.Hkv);
-  flash_prefill_wgmma_wide<Q8><<<grid, FP_THREADS, FW_SMEM, st>>>(m[0], m[1], m[2], m[3], w);
+  if (softcap > 0.f)
+    flash_prefill_wgmma_wide_cap<Q8><<<grid, FP_THREADS, FW_SMEM, st>>>(
+        m[0], m[1], m[2], m[3], w, make_float2(a.scale / softcap, softcap * LOG2E));
+  else
+    flash_prefill_wgmma_wide<Q8><<<grid, FP_THREADS, FW_SMEM, st>>>(m[0], m[1], m[2], m[3], w);
   return (int)cudaGetLastError();
 }
 
@@ -465,14 +532,16 @@ extern "C" int flash_prefill_q8_launch(const void* q, const void* qr, const void
 }
 
 // K4 at Dk, Dv apart, each a multiple of 8 up to 256: the wide kernel.
+// softcap > 0: the capped instantiation (gemma2's attention logit cap).
 extern "C" int flash_prefill_wide_launch(const void* q, const void* qr, const void* k,
                                          const void* v, const void* cs, const void* sn,
                                          const void* bias, void* out, int T, int H, int Hkv,
-                                         int S, int Dk, int Dv, float scale, void* stream) {
+                                         int S, int Dk, int Dv, float scale, float softcap,
+                                         void* stream) {
   const PrefillWideArgs w{
       args_of(q, qr, k, nullptr, v, nullptr, cs, sn, bias, out, T, H, Hkv, S, Dk, scale), Dv,
       0, 0};
-  return launch_prefill_wide<false>(w, reinterpret_cast<cudaStream_t>(stream));
+  return launch_prefill_wide<false>(w, softcap, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // K4q on the wide kernel: int8 rows at any multiple of 8, one scale a row.
@@ -480,9 +549,9 @@ extern "C" int flash_prefill_wide_q8_launch(const void* q, const void* qr, const
                                             const void* ks, const void* v, const void* vs,
                                             const void* cs, const void* sn, const void* bias,
                                             void* out, int T, int H, int Hkv, int S, int Dk,
-                                            int Dv, float scale, void* stream) {
+                                            int Dv, float scale, float softcap, void* stream) {
   const PrefillWideArgs w{
       args_of(q, qr, k, ks, v, vs, cs, sn, bias, out, T, H, Hkv, S, Dk, scale), Dv,
       Dk % 16 != 0, Dv % 16 != 0};
-  return launch_prefill_wide<true>(w, reinterpret_cast<cudaStream_t>(stream));
+  return launch_prefill_wide<true>(w, softcap, reinterpret_cast<cudaStream_t>(stream));
 }

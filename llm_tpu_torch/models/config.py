@@ -1,17 +1,22 @@
 """Model hyperparameters from GGUF metadata. Counterpart of
-llm_tpu/models/config.py, for the llama family: the general keys, rope,
-and the variant flags that the port's forward refuses (it raises
+llm_tpu/models/config.py, for the llama family and gemma2: the general
+keys, rope, gemma2's adjustments (gelu, the embedding scale, the sliding
+window on every other layer, both softcaps, its attention scale, NEOX
+rope), and the variant flags that the port's forward refuses (it raises
 NotImplementedError for them, see models/transformer.py)."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 from ..gguf.constants import Keys
-from ..ops.rope import ROPE_TYPE_NORM, RopeParams
+from ..ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NORM, RopeParams
 
-# architectures whose graph is the plain llama decoder (NORM rope)
-LLAMA_ARCHS = ("llama",)
+# architectures the port's forward runs: the plain llama decoder, and
+# gemma2's variant of it (post-norms, gelu, softcaps, interleaved SWA)
+LLAMA_ARCHS = ("llama", "gemma2")
+# rope layout per architecture (llm_tpu/models/config.py _ROPE_MODE)
+_ROPE_MODE = {"llama": ROPE_TYPE_NORM, "gemma2": ROPE_TYPE_NEOX}
 
 
 @dataclass(frozen=True)
@@ -41,6 +46,7 @@ class ModelConfig:
     attn_softcap: float = 0.0
     final_softcap: float = 0.0
     swa_window: int = 0
+    swa_pattern: int = 0  # every Nth layer is full-attention (0 = no SWA)
     alibi_max_bias: float = 0.0
     kv_lora_rank: int = 0
     rope_sections: tuple | None = None
@@ -53,11 +59,18 @@ class ModelConfig:
     def n_rep(self) -> int:
         return self.n_heads // self.n_kv_heads
 
+    def layer_is_swa(self, il: int) -> bool:
+        """Whether layer il attends through the sliding window: with
+        swa_pattern N, every layer but each Nth ((il + 1) % N != 0)."""
+        if self.swa_window <= 0 or self.swa_pattern <= 0:
+            return False
+        return (il + 1) % self.swa_pattern != 0
+
 
 def config_from_gguf(reader) -> ModelConfig:
     arch = reader.architecture
     if arch not in LLAMA_ARCHS:
-        raise NotImplementedError(f"architecture {arch!r}: the port runs the llama path only")
+        raise NotImplementedError(f"architecture {arch!r}: the port runs {LLAMA_ARCHS} only")
     ak = reader.akey
     n_embd = int(ak(Keys.LLM.EMBEDDING_LENGTH))
     n_heads = int(ak(Keys.Attention.HEAD_COUNT))
@@ -72,7 +85,7 @@ def config_from_gguf(reader) -> ModelConfig:
     factor = float(ak(Keys.Rope.SCALING_FACTOR, 1.0) or 1.0)
     rope = RopeParams(
         n_dims=int(ak(Keys.Rope.DIMENSION_COUNT, head_dim)),
-        mode=ROPE_TYPE_NORM,
+        mode=_ROPE_MODE[arch],
         freq_base=float(ak(Keys.Rope.FREQ_BASE, 10000.0)),
         freq_scale=1.0 / factor if scaling_type in ("linear", "yarn") and factor else 1.0,
         ext_factor=float(ak("{arch}.rope.scaling.extrapolation_factor", 1.0) or 1.0)
@@ -83,7 +96,7 @@ def config_from_gguf(reader) -> ModelConfig:
         n_ctx_orig=int(ak(Keys.Rope.SCALING_ORIG_CTX, ctx_len) or ctx_len),
     )
     scale = ak(Keys.Attention.SCALE)
-    return ModelConfig(
+    cfg = ModelConfig(
         arch=arch,
         vocab_size=int(vocab),
         n_embd=n_embd,
@@ -101,3 +114,16 @@ def config_from_gguf(reader) -> ModelConfig:
         n_expert_used=int(ak(Keys.LLM.EXPERT_USED_COUNT, 0) or 0),
         swa_window=int(ak(Keys.Attention.SLIDING_WINDOW, 0) or 0),
     )
+    if arch == "gemma2":
+        # llm_tpu/models/config.py's gemma adjustments; 27B (46 layers)
+        # scales by n_embd / n_head (llama-model.cpp), and a scale in the
+        # file (the converter's query_pre_attn_scalar^-0.5) wins, as there
+        n_layers = cfg.n_layers
+        cfg = replace(
+            cfg, act="gelu", embedding_scale=float(n_embd) ** 0.5,
+            swa_window=int(ak(Keys.Attention.SLIDING_WINDOW, 4096) or 4096), swa_pattern=2,
+            attn_softcap=float(ak("{arch}.attn_logit_softcapping", 50.0) or 50.0),
+            final_softcap=float(ak("{arch}.final_logit_softcapping", 30.0) or 30.0),
+            attn_scale=float(scale) if scale is not None else
+            (n_embd / n_heads) ** -0.5 if n_layers == 46 else head_dim ** -0.5)
+    return cfg

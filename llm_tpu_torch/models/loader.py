@@ -1,5 +1,8 @@
 """Build model params (a dict of QTensors and dense tensors) from a GGUF
-file. Counterpart of llm_tpu/models/loader.py, for the llama tensors.
+file. Counterpart of llm_tpu/models/loader.py, for the llama tensors and
+gemma2's post-norms (attn_post_norm, ffn_post_norm, the names llm_tpu's
+converter writes; llama.cpp's own post_attention_norm / post_ffw_norm are
+refused, ROADMAP "Faults in the reference").
 
 Quantized matrices become K-major QTensor planes (the embedding table
 keeps the rows layout); F32/F16/BF16 matrices stay dense [N, K]; norms and
@@ -26,7 +29,7 @@ from .config import ModelConfig, config_from_gguf
 _BLK_RE = re.compile(r"^blk\.(\d+)\.(.+?)\.(weight|bias)$")
 _LAYER_MATS = ("attn_q", "attn_k", "attn_v", "attn_output", "ffn_gate", "ffn_up",
                "ffn_down")
-_LAYER_VECS = ("attn_norm", "ffn_norm")
+_LAYER_VECS = ("attn_norm", "ffn_norm", "attn_post_norm", "ffn_post_norm")
 _DENSE = (GGMLType.F32, GGMLType.F16, GGMLType.BF16)
 
 
@@ -108,12 +111,19 @@ def stack_layers(layers: list[dict]) -> dict | None:
     return out
 
 
+def scan_stack(layers: list[dict], cfg: ModelConfig) -> dict | None:
+    """stack_layers for the scan decoder, which runs no model with a
+    sliding-window pattern (gemma2: its layers stay per layer, as the
+    reference's scan takes none either)."""
+    return None if cfg.swa_pattern else stack_layers(layers)
+
+
 def load_params(reader: GGUFReader, dense_dtype=torch.bfloat16, device="cuda",
                 fuse: bool = True, scan_layers: bool = False) -> tuple[dict, ModelConfig]:
     """Returns (params, cfg); the layout is documented in
     models/transformer.py::forward. scan_layers: stack uniform layers into
     params["layers_stacked"] (params["layers"] then empty); layers that
-    stack_layers refuses stay per layer, as in the reference."""
+    scan_stack refuses stay per layer, as in the reference."""
     cfg = config_from_gguf(reader)
     layers: list[dict] = [{} for _ in range(cfg.n_layers)]
     params: dict = {"layers": layers}
@@ -145,7 +155,7 @@ def load_params(reader: GGUFReader, dense_dtype=torch.bfloat16, device="cuda",
     if fuse:
         fuse_projections(layers)
     if scan_layers:
-        stacked = stack_layers(layers)
+        stacked = scan_stack(layers, cfg)
         if stacked is not None:
             params["layers_stacked"] = stacked
             params["layers"] = []

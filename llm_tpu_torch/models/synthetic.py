@@ -17,7 +17,7 @@ import torch
 
 from ..device import resolve_device
 from ..gguf.constants import GGMLType
-from ..ops.rope import ROPE_TYPE_NORM, RopeParams
+from ..ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NORM, RopeParams
 from ..quant.qtensor import QTensor, pack_p4, pack_p4_kmajor
 from .config import ModelConfig
 from .loader import fuse_projections
@@ -25,6 +25,11 @@ from .loader import fuse_projections
 # Llama-3-8B geometry, the flagship configuration
 LLAMA3_8B = dict(n_embd=4096, n_layers=32, n_heads=32, n_kv_heads=8,
                  n_ff=14336, vocab=128256, head_dim=128)
+# Gemma-2-9B (google/gemma-2-9b config.json): 16 query heads over 8 KV
+# heads of 256 dims, a 4096-cell window on every other layer, softcaps 50
+# (attention) and 30 (logits), tied embeddings; gemma2_config adds the rest
+GEMMA2_9B = dict(n_embd=3584, n_layers=42, n_heads=16, n_kv_heads=8,
+                 n_ff=14336, vocab=256000, head_dim=256)
 
 
 def use_more_bits(i_layer: int, n_layers: int) -> bool:
@@ -121,13 +126,42 @@ def llama_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab,
         tie_embeddings=True, context_length=4096)
 
 
+def gemma2_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab, head_dim=None,
+                  swa_window: int = 4096) -> ModelConfig:
+    """A gemma2 config as config_from_gguf reads Gemma-2's: NEOX rope at
+    base 10000, rms eps 1e-6, gelu, the embedding scaled by sqrt(n_embd),
+    the window on every other layer, softcaps 50 and 30, head_dim^-0.5
+    (query_pre_attn_scalar = head_dim; 27B's 46 layers scale by
+    n_embd / n_heads), tied embeddings."""
+    head_dim = head_dim or n_embd // n_heads
+    return ModelConfig(
+        arch="gemma2", vocab_size=vocab, n_embd=n_embd, n_layers=n_layers,
+        n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim, head_dim_v=head_dim,
+        n_ff=n_ff, rms_eps=1e-6, rope=RopeParams(n_dims=head_dim, mode=ROPE_TYPE_NEOX),
+        attn_scale=(n_embd / n_heads) ** -0.5 if n_layers == 46 else head_dim ** -0.5,
+        tie_embeddings=True, act="gelu", context_length=8192, attn_softcap=50.0,
+        final_softcap=30.0, swa_window=swa_window, swa_pattern=2,
+        embedding_scale=float(n_embd) ** 0.5)
+
+
+def kmajor_copy(qt: QTensor) -> QTensor:
+    """The K-major planes of a rows-layout int8 QTensor (a tied embedding
+    table's lm_head copy, the same weights)."""
+    if qt.kmajor or qt.layout != "i8":
+        raise ValueError("kmajor_copy takes rows-layout int8 planes")
+    t = (lambda a: None if a is None else a.t().contiguous())
+    return QTensor(t(qt.qs), t(qt.scales), t(qt.mins), qt.group_size, qt.ggml_type, "i8",
+                   qt.zp, qt.pack_tk, True)
+
+
 def make_synthetic_model(n_embd: int = 64, n_layers: int = 2, n_heads: int = 8,
                          n_kv_heads: int = 8, n_ff: int = 256, vocab: int = 256,
                          head_dim: int | None = None, head_dim_v: int | None = None,
                          qtype: GGMLType | None = None, seed: int = 0,
                          dtype=torch.bfloat16, device=None,
                          on_device: bool = False, scales_dtype=torch.bfloat16,
-                         fuse: bool = True, recipe: str | None = None
+                         fuse: bool = True, recipe: str | None = None,
+                         arch: str = "llama", swa_window: int = 4096
                          ) -> tuple[dict, ModelConfig]:
     """(params, cfg) for a llama-shaped model with random weights, on
     `device` (None = the card; pass "cpu" for the host).
@@ -135,11 +169,21 @@ def make_synthetic_model(n_embd: int = 64, n_layers: int = 2, n_heads: int = 8,
     as a Q4_K_M file does: Q6_K for the lm_head and for attn_v and ffn_down
     of the use_more_bits layers (those layers' QKV then stays unfused).
     head_dim_v: V's head dim where it differs from K's (MLA's 128 beside
-    192), for attn_v's rows and attn_output's columns."""
+    192), for attn_v's rows and attn_output's columns. arch "gemma2":
+    gemma2_config (swa_window its window), a post-norm after attention and
+    after the FFN of every layer, and a tied embedding: with the recipe the
+    table is Q6_K (llama.cpp's Q4_K_M type for a tied token_embd) and the
+    lm_head its K-major copy."""
     if recipe not in (None, "Q4_K_M"):
         raise ValueError(f"unknown recipe {recipe!r}")
+    if arch not in ("llama", "gemma2"):
+        raise ValueError(f"unknown arch {arch!r}")
     device = resolve_device(device)
-    cfg = llama_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab, head_dim, head_dim_v)
+    gemma = arch == "gemma2"
+    cfg = (gemma2_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab, head_dim,
+                         swa_window) if gemma else
+           llama_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab, head_dim,
+                        head_dim_v))
     hd, hdv = cfg.head_dim, cfg.head_dim_v
     rng = np.random.default_rng(seed)
     gen = None
@@ -176,12 +220,14 @@ def make_synthetic_model(n_embd: int = 64, n_layers: int = 2, n_heads: int = 8,
             "ffn_up": mat(n_ff, n_embd),
             "ffn_down": mat(n_embd, n_ff, six_bit=more),
         })
+        if gemma:
+            layers[-1].update(attn_post_norm=vec(n_embd), ffn_post_norm=vec(n_embd))
         if fuse and qtype is not None:
             fuse_projections(layers[-1:])
-    params = {
-        "layers": layers,
-        "tok_embd": mat(vocab, n_embd, kmajor=False),
-        "output": mat(vocab, n_embd, six_bit=True),
-        "output_norm": vec(n_embd),
-    }
+    if gemma:  # tied: the lm_head is the embedding table
+        tok = mat(vocab, n_embd, kmajor=False, six_bit=True)
+        out = kmajor_copy(tok) if isinstance(tok, QTensor) else tok
+    else:
+        tok, out = mat(vocab, n_embd, kmajor=False), mat(vocab, n_embd, six_bit=True)
+    params = {"layers": layers, "tok_embd": tok, "output": out, "output_norm": vec(n_embd)}
     return params, cfg

@@ -1,5 +1,5 @@
 """The llama decoder forward. Counterpart of
-llm_tpu/models/transformer.py::forward on its llama path:
+llm_tpu/models/transformer.py::forward on its llama and gemma2 paths:
 
   qembed -> per layer: rms_norm -> fused QKV (K1/K2) -> split -> rope on q
   -> scatter unroped K/V into the head-major cache (quantizing for a q8_0
@@ -7,6 +7,18 @@ llm_tpu/models/transformer.py::forward on its llama path:
   flash_prefill (K4 / K4q) -> o_proj -> residual -> rms_norm -> fused
   gate+up -> SwiGLU -> down -> residual; final norm -> lm_head on the
   out_idx rows.
+
+gemma2 (cfg.arch "gemma2") adds, as the reference does: the embedding
+scaled by sqrt(n_embd) in f32; the attention logit softcap inside the
+flash kernels (their capped wide instantiations, K3w_cap/K4w_cap and the
+q8 ones) and the unfused attention; a sliding window on every other layer
+(cfg.layer_is_swa), as a second bias; post-norms (attn_post_norm,
+ffn_post_norm) on the attention and FFN outputs before each residual; a
+gelu (tanh) FFN; and the final logit softcap after the lm_head. With the
+ISWA dual cache (the Context's ring, runtime/kv_cache.py SWACellTable) the
+sliding-window layers read and write their own smaller cache: swa_cell_pos,
+swa_cell_seq_bits and swa_write_idx describe it, with its own rope tables
+and bias; without them those layers use the full cache (swa_full).
 
 With chain=True (the reference's LLM_TPU_CHAIN=1) a step of T <= 8 tokens
 runs the chained kernel K6 (ops/cuda_qmm_chain.py) where its gates admit
@@ -26,12 +38,13 @@ but a QTensor: under chain the layers run unchained, the lm_head on K6.
 
 Attention takes the reference's route (its use_flash gate,
 llm_tpu/models/transformer.py:355-392), chosen by flash_route on either
-device: head dims Dk and Dv that are multiples of 8 run K3/K3q/K4/K4q (up
-to 256 on the card; check_supported refuses a wider one up front, ROADMAP
-Queue 3); a head dim that is no multiple of 8, and a q8_0 cache whose rows
-carry group scales (kv_cache.kv_group: head_dim 64 or 96, any multiple of
-32 but not of 128), go through the unfused attention, the cache
-dequantized by kv_read. The reference looks at K's scales only; with V's
+device: head dims Dk and Dv that are multiples of 8 up to 256 run
+K3/K3q/K4/K4q; heads past 256, which the reference's gate sends to its
+flash kernels and no kernel of the port takes, go through the unfused
+attention on either device (ROADMAP, "Deliberate differences"), and so do
+a head dim that is no multiple of 8 and a q8_0 cache whose rows carry
+group scales (kv_cache.kv_group: head_dim 64 or 96, any multiple of 32 but
+not of 128), the cache dequantized by kv_read. The reference looks at K's scales only; with V's
 rows group-scaled under one K scale a row (Dk 128, Dv 192) its kernels read
 V's first group scale for the whole row (ROADMAP, "Faults in the
 reference"), so the port takes the unfused attention there.
@@ -55,54 +68,43 @@ from ..ops.norms import rms_norm
 from ..ops.qmatmul import qembed, qmm
 from ..ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NORM, apply_rope, rope_angles
 from ..quant.qtensor import QTensor, StackedWeight
-from ..runtime.kv_cache import kv_group
 from .config import ModelConfig
 
 _UNSUPPORTED = (
     ("n_expert", 0, "MoE"), ("attn_bias", False, "QKV biases"),
-    ("qk_norm", False, "qk-norm"), ("attn_softcap", 0.0, "attention softcap"),
-    ("final_softcap", 0.0, "final softcap"), ("swa_window", 0, "sliding-window attention"),
-    ("alibi_max_bias", 0.0, "ALiBi"), ("kv_lora_rank", 0, "MLA"),
-    ("rope_sections", None, "M-RoPE"), ("embedding_scale", 1.0, "embedding scale"),
+    ("qk_norm", False, "qk-norm"), ("alibi_max_bias", 0.0, "ALiBi"),
+    ("kv_lora_rank", 0, "MLA"), ("rope_sections", None, "M-RoPE"),
     ("logit_scale", 1.0, "logit scale"), ("residual_scale", 1.0, "residual scale"),
     ("parallel_residual", False, "parallel residual"), ("norm_kind", "rms", "LayerNorm"),
-    ("act", "silu", "non-SwiGLU FFN"),
 )
+# the FFN activations (the reference's ACTIVATIONS but relu2): the gated
+# SiLU of llama and the gated gelu (tanh) of gemma2
+ACTIVATIONS = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh")}
 _TOP_KEYS = {"tok_embd", "layers", "layers_stacked", "output", "output_norm", "rope_freqs"}
 _LAYER_KEYS = {"attn_norm", "ffn_norm", "attn_q", "attn_k", "attn_v", "attn_qkv_fused",
-               "attn_output", "ffn_gate", "ffn_up", "ffn_gateup_fused", "ffn_down"}
+               "attn_output", "ffn_gate", "ffn_up", "ffn_gateup_fused", "ffn_down",
+               "attn_post_norm", "ffn_post_norm"}
 
 
 def flash_route(dk: int, dv: int, k_groups: int = 1, v_groups: int = 1) -> bool:
     """Whether attention runs the flash kernels (else the unfused
-    attention): Dk and Dv multiples of 8, and on a q8_0 cache one scale a
-    row of K and of V (k_groups, v_groups: scales a row; 1 for a dense
-    cache). The reference's use_flash gate, which reads K's scales only."""
-    return dk % 8 == 0 and dv % 8 == 0 and k_groups == 1 and v_groups == 1
+    attention): Dk and Dv multiples of 8 up to MAX_HEAD_DIM, and on a q8_0
+    cache one scale a row of K and of V (k_groups, v_groups: scales a row;
+    1 for a dense cache). The reference's use_flash gate, which reads K's
+    scales only and takes any multiple of 8; no kernel of the port holds a
+    head past 256 (ROADMAP, "Deliberate differences")."""
+    return (dk % 8 == 0 and dv % 8 == 0 and max(dk, dv) <= MAX_HEAD_DIM
+            and k_groups == 1 and v_groups == 1)
 
 
-def check_attention(cfg: ModelConfig, on_card: bool, kv_q8: bool = False) -> None:
-    """On the card every attention step that flash_route sends to the flash
-    kernels runs one: refuse up front the head dims they do not take, Dk or
-    Dv past MAX_HEAD_DIM (256; the reference's gate takes any multiple of
-    8: ROADMAP Queue 3's remainder)."""
-    if not on_card:
-        return
-    dk, dv = cfg.head_dim, cfg.head_dim_v
-    groups = ((dk // kv_group(dk), dv // kv_group(dv)) if kv_q8 else (1, 1))
-    if flash_route(dk, dv, *groups) and max(dk, dv) > MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"head dims Dk={dk}, Dv={dv} are not ported on the card: the flash kernels "
-            f"take multiples of 8 up to {MAX_HEAD_DIM} (ROADMAP Queue 3, head dims "
-            f"above 256)")
-
-
-def check_supported(params: dict, cfg: ModelConfig, kv_q8: bool = False) -> None:
-    """Refuse what the forward does not port. kv_q8: whether the cache is
-    q8_0."""
+def check_supported(params: dict, cfg: ModelConfig) -> None:
+    """Refuse what the forward does not port (every head dim and cache
+    layout runs: flash_route picks the attention)."""
     for name, default, what in _UNSUPPORTED:
         if getattr(cfg, name) != default:
             raise NotImplementedError(f"{what} is not ported yet")
+    if cfg.act not in ACTIVATIONS:
+        raise NotImplementedError(f"FFN activation {cfg.act!r} is not ported yet")
     if cfg.rope.mode not in (ROPE_TYPE_NORM, ROPE_TYPE_NEOX):
         raise NotImplementedError(f"rope mode {cfg.rope.mode} is not ported yet")
     extra = {k for k, v in params.items() if v is not None} - _TOP_KEYS
@@ -116,7 +118,6 @@ def check_supported(params: dict, cfg: ModelConfig, kv_q8: bool = False) -> None
     n_layers = n_stacked(stacked) if stacked is not None else len(params["layers"])
     if n_layers != cfg.n_layers:
         raise ValueError(f"params hold {n_layers} layers, the config {cfg.n_layers}")
-    check_attention(cfg, _leaf(params["tok_embd"]).is_cuda, kv_q8)
 
 
 def _leaf(v) -> torch.Tensor:
@@ -147,7 +148,8 @@ def layer_views(stacked: dict) -> list[dict]:
 def kept_rows(idx: torch.Tensor, n_cells: int) -> torch.Tensor:
     """Rows whose write index is in range. Padding tokens carry
     idx == n_cells and are dropped (the reference scatters with
-    mode="drop"; torch has none). One host sync, once per step."""
+    mode="drop"; torch has none). One host sync, once per step and cache
+    (twice with the ISWA ring)."""
     return torch.nonzero(idx < n_cells).flatten()
 
 
@@ -198,32 +200,60 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
             write_idx: torch.Tensor, cell_pos: torch.Tensor,
             cell_seq_bits: torch.Tensor, out_idx: torch.Tensor,
             dtype=torch.bfloat16, chain: bool = False,
-            gdot: bool = False, stacked_layers: list | None = None
+            gdot: bool = False, stacked_layers: list | None = None,
+            swa_cell_pos: torch.Tensor | None = None,
+            swa_cell_seq_bits: torch.Tensor | None = None,
+            swa_write_idx: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """One decode/prefill step over T tokens. cell_seq_bits: [S, W] int64
     bit-set words. Updates kv_k/kv_v in place. Returns (logits [O, vocab]
     f32, hidden [O, n_embd] f32) for the out_idx rows. chain / gdot: the
     chained kernel and the group-factored matmul (module docstring).
     stacked_layers: for params with "layers_stacked", the per-layer dicts
-    that layer_views makes of them, which the caller makes once."""
-    check_supported(params, cfg, kv_q8=isinstance(kv_k[0], tuple))
+    that layer_views makes of them, which the caller makes once.
+    swa_cell_pos [Ss], swa_cell_seq_bits [Ss, W], swa_write_idx [T]: the
+    ISWA ring of the sliding-window layers, whose caches then have Ss cells
+    (None: they share the full cache's cells)."""
+    check_supported(params, cfg)
     rope = cfg.rope
     ff = params.get("rope_freqs")
     H, Hkv, Dk, Dv = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim_v
     T = tokens.shape[0]
     scale = cfg.attn_scale if cfg.attn_scale is not None else Dk ** -0.5
-    # the reference's model-wide gates (rms norm, SwiGLU, no residual scale,
-    # sequential residual) hold for everything check_supported admits
+    act = ACTIVATIONS[cfg.act]
+    # the reference's model-wide gates (rms norm, no residual scale,
+    # sequential residual) hold for everything check_supported admits; K6's
+    # tail runs SwiGLU only (its gelu is not ported), and no gelu config
+    # the port admits has a tail it takes (gemma2's post-norms)
     use_chain = chain and T <= 8
+    tail_chain = use_chain and cfg.act == "silu"
 
     x = qembed(params["tok_embd"], tokens, dtype=dtype)
+    if cfg.embedding_scale != 1.0:
+        x = (x.float() * cfg.embedding_scale).to(dtype)
+    dual = swa_cell_pos is not None
+
+    def tables(cpos):
+        """Half-width rope tables of the cells, their full-width bf16
+        expansion for the flash kernels, and the rows the step writes."""
+        ch, sh = rope_angles(cpos, rope, ff)
+        cf, sf = expand_tables(ch, sh, rope.mode, Dk, n_dims=rope.n_dims)
+        return ch, sh, cf.to(dtype).contiguous(), sf.to(dtype).contiguous()
+
     cos_t, sin_t = rope_angles(tok_pos, rope, ff)
-    cos_c, sin_c = rope_angles(cell_pos, rope, ff)
-    cos_cf, sin_cf = expand_tables(cos_c, sin_c, rope.mode, Dk, n_dims=rope.n_dims)
-    cos_cf, sin_cf = cos_cf.to(dtype).contiguous(), sin_cf.to(dtype).contiguous()
-    bias = build_attn_bias(tok_pos, tok_seq, cell_pos, cell_seq_bits)
-    fattn = flash_decode if T <= 8 else flash_prefill
+    tab = tables(cell_pos)
     keep = kept_rows(write_idx, cell_pos.shape[0])
+    bias = build_attn_bias(tok_pos, tok_seq, cell_pos, cell_seq_bits)
+    tab_swa, keep_swa, bias_swa = tab, keep, None
+    if dual:
+        tab_swa = tables(swa_cell_pos)
+        keep_swa = kept_rows(swa_write_idx, swa_cell_pos.shape[0])
+    if cfg.swa_window > 0:
+        bias_swa = build_attn_bias(tok_pos, tok_seq,
+                                   swa_cell_pos if dual else cell_pos,
+                                   swa_cell_seq_bits if dual else cell_seq_bits,
+                                   swa_window=cfg.swa_window)
+    fattn = flash_decode if T <= 8 else flash_prefill
     # the reference's use_flash gate, on either device (module docstring)
     q8 = isinstance(kv_k[0], tuple)
     unfused = not flash_route(Dk, Dv, kv_k[0][1].shape[-1] if q8 else 1,
@@ -236,6 +266,7 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
                              "made once by the caller")
         layers = stacked_layers
     for il, layer in enumerate(layers):
+        is_swa = cfg.layer_is_swa(il)
         qkv = None
         if use_chain and head_eligible(layer):
             qkv = norm_mm(x, layer["attn_norm"], layer["attn_qkv_fused"], eps=cfg.rms_eps,
@@ -250,43 +281,60 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
             q, k, v = (qmm(h, layer[key], out_dtype=dtype, gdot=gdot)
                        for key in ("attn_q", "attn_k", "attn_v"))
         q = apply_rope(q.reshape(T, H, Dk), cos_t, sin_t, rope.mode, rope.n_dims)
-        kv_write(kv_k[il], write_idx, k.reshape(T, Hkv, Dk), keep)  # K enters unroped
-        kv_write(kv_v[il], write_idx, v.reshape(T, Hkv, Dv), keep)
+        ring = dual and is_swa  # the layer's cache is the ring
+        widx, lkeep = (swa_write_idx, keep_swa) if ring else (write_idx, keep)
+        kv_write(kv_k[il], widx, k.reshape(T, Hkv, Dk), lkeep)  # K enters unroped
+        kv_write(kv_v[il], widx, v.reshape(T, Hkv, Dv), lkeep)
+        cos_c, sin_c, cos_cf, sin_cf = tab_swa if ring else tab
+        lbias = bias_swa if is_swa else bias
         if unfused:
             k_all = apply_rope(kv_read(kv_k[il], dtype), cos_c, sin_c, rope.mode, rope.n_dims)
-            att = attention(q, k_all, kv_read(kv_v[il], dtype), bias, scale)
+            att = attention(q, k_all, kv_read(kv_v[il], dtype), lbias, scale,
+                            softcap=cfg.attn_softcap)
         else:
             att = fattn(q.contiguous(), rope_companion(q, rope.mode, rope.n_dims).contiguous(),
-                        kv_k[il], kv_v[il], cos_cf, sin_cf, bias, scale)
+                        kv_k[il], kv_v[il], cos_cf, sin_cf, lbias, scale,
+                        softcap=cfg.attn_softcap)
         att = att.reshape(T, H * Dv)
-        if use_chain and tail_eligible(layer):
+        if tail_chain and tail_eligible(layer):
             out = layer_tail(att, x, layer["ffn_norm"], layer["attn_output"],
                              layer["ffn_gateup_fused"], layer["ffn_down"], eps=cfg.rms_eps,
                              compute_dtype=dtype)
             if out is not None:
                 x = out
                 continue
-        x = x + qmm(att, layer["attn_output"], out_dtype=dtype, gdot=gdot)
+        attn_out = qmm(att, layer["attn_output"], out_dtype=dtype, gdot=gdot)
+        if "attn_post_norm" in layer:  # gemma2: a norm before the residual
+            attn_out = rms_norm(attn_out, layer["attn_post_norm"], cfg.rms_eps)
+        x = x + attn_out
 
         h2 = rms_norm(x, layer["ffn_norm"], cfg.rms_eps)
         if "ffn_gateup_fused" in layer:
             g, up = torch.split(qmm(h2, layer["ffn_gateup_fused"], gdot=gdot), cfg.n_ff, dim=-1)
-            cur = (F.silu(g) * up).to(dtype)
+            cur = (act(g) * up).to(dtype)
         else:
             up = qmm(h2, layer["ffn_up"], out_dtype=dtype, gdot=gdot)
-            g = F.silu(qmm(h2, layer["ffn_gate"], gdot=gdot))
+            g = act(qmm(h2, layer["ffn_gate"], gdot=gdot))
             cur = (g * up.float()).to(dtype)
-        x = x + qmm(cur, layer["ffn_down"], out_dtype=dtype, gdot=gdot)
+        ffn_out = qmm(cur, layer["ffn_down"], out_dtype=dtype, gdot=gdot)
+        if "ffn_post_norm" in layer:
+            ffn_out = rms_norm(ffn_out, layer["ffn_post_norm"], cfg.rms_eps)
+        x = x + ffn_out
 
     out_w = params.get("output")
     out_w = params["tok_embd"] if out_w is None else out_w
     norm_w = params.get("output_norm")
+    logits = None
     if use_chain and norm_w is not None and is_kmajor_qt(out_w):
         # fused final norm + lm_head: norm only the output rows
         hs_pre = x[out_idx]
         logits = norm_mm(hs_pre, norm_w, out_w, eps=cfg.rms_eps, compute_dtype=dtype,
                          out_dtype=torch.float32)
         if logits is not None:
-            return logits, rms_norm(hs_pre, norm_w, cfg.rms_eps).float()
-    hs = rms_norm(x, norm_w, cfg.rms_eps)[out_idx]
-    return qmm(hs, out_w, gdot=gdot), hs.float()
+            hs = rms_norm(hs_pre, norm_w, cfg.rms_eps)
+    if logits is None:
+        hs = rms_norm(x, norm_w, cfg.rms_eps)[out_idx]
+        logits = qmm(hs, out_w, gdot=gdot)
+    if cfg.final_softcap > 0.0:
+        logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
+    return logits, hs.float()

@@ -23,30 +23,38 @@ LAUNCHES = {"unfused": 0}
 
 def build_attn_bias(tok_pos: torch.Tensor, tok_seq: torch.Tensor,
                     cell_pos: torch.Tensor, cell_seq_bits: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
+                    swa_window: int = 0, causal: bool = True) -> torch.Tensor:
     """Additive f32 bias [T, S]: 0 where attention is allowed, -inf
     elsewhere. cell_seq_bits: [S, W] int64 words of 32 sequence bits each.
-    Unused cells have no bits set and are masked."""
+    Unused cells have no bits set and are masked. swa_window > 0: a token
+    sees only cells less than the window behind it (the reference's
+    is_masked_swa: tok_pos - cell_pos >= window is masked)."""
     tok_seq = tok_seq.long()
     word = cell_seq_bits[:, tok_seq >> 5].T  # [T, S]
     allowed = ((word >> (tok_seq[:, None] & 31)) & 1) > 0
     if causal:
         allowed = allowed & (cell_pos[None, :] <= tok_pos[:, None])
+    if swa_window > 0:
+        allowed = allowed & ((tok_pos[:, None] - cell_pos[None, :]) < swa_window)
     bias = torch.zeros(allowed.shape, dtype=torch.float32, device=allowed.device)
     return bias.masked_fill_(~allowed, NEG_INF)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              bias: torch.Tensor, scale: float) -> torch.Tensor:
+              bias: torch.Tensor, scale: float, softcap: float = 0.0) -> torch.Tensor:
     """Grouped-query attention with an f32 softmax over roped keys.
     q [T, H, D]; k [S, Hkv, D]; v [S, Hkv, Dv]; bias [T, S]. Returns
-    [T, H, Dv] f32. Head h reads KV head h // (H // Hkv)."""
+    [T, H, Dv] f32. Head h reads KV head h // (H // Hkv). softcap > 0:
+    scores = tanh(scores / softcap) * softcap after the scale, before the
+    bias (gemma2)."""
     LAUNCHES["unfused"] += 1
     T, H, D = q.shape
     S, Hkv, _ = k.shape
     rep = H // Hkv
     qf = q.float().reshape(T, Hkv, rep, D)
     scores = torch.einsum("tgrd,sgd->tgrs", qf, k.float()) * scale
+    if softcap > 0.0:
+        scores = torch.tanh(scores / softcap) * softcap
     scores = scores + bias[:, None, None, :]
     m = torch.clamp(scores.amax(dim=-1, keepdim=True), min=-1e30)
     p = torch.exp(scores - m)

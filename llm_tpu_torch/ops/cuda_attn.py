@@ -34,8 +34,18 @@ Dv (MLA's 192/128), heads past 128 (gemma's 256) and int8 rows whose pitch
 is no multiple of 16 bytes (D = 72, 136: 8 mod 16), runs the wide kernels
 (LAUNCHES "K3w", "K3qw", "K4w", "K4qw"): the same arithmetic over two
 128-dim chunks, int8 rows of such a pitch brought by 8-byte cp.async.
-Heads past 256 are refused here and, up front, by models/transformer.py's
-check_supported (ROADMAP Queue 3).
+Heads past 256 are refused here; models/transformer.py's flash_route sends
+them to the unfused attention on either device.
+
+softcap > 0 (gemma2's attention logit cap, pallas_attn.py's `softcap`):
+each score becomes cap * tanh(score * scale / cap) before the bias is added.
+Every capped step runs the wide kernels' capped instantiations (LAUNCHES
+"K3w_cap", "K3qw_cap", "K4w_cap", "K4qw_cap"), whatever its head dims: a
+shape the narrow kernels would take (Gemma-2-27B's 128) raises nothing and
+runs wide with one 128-dim chunk, so the narrow kernels and the uncapped
+wide ones keep their machine code. The kernels take tanhf, not
+tanh.approx.f32, whose ~2^-11 relative error would reach ~2% of a weight
+at cap 50.
 """
 
 from __future__ import annotations
@@ -51,8 +61,9 @@ from .rope import ROPE_TYPE_NEOX, ROPE_TYPE_NORM
 
 NEG = -1e30
 T_CHUNK = 64  # query rows per step of attn_plain, to bound its score tensor
-LAUNCHES = {"K3": 0, "K4": 0, "K3q": 0, "K4q": 0, "K3w": 0, "K4w": 0, "K3qw": 0, "K4qw": 0}
-# the K3/K3q launches (narrow and wide) by T, the query rows of the call
+LAUNCHES = {"K3": 0, "K4": 0, "K3q": 0, "K4q": 0, "K3w": 0, "K4w": 0, "K3qw": 0, "K4qw": 0,
+            "K3w_cap": 0, "K4w_cap": 0, "K3qw_cap": 0, "K4qw_cap": 0}
+# the K3/K3q launches (narrow, wide and capped) by T, the query rows of the call
 DECODE_LAUNCHES_BY_T: dict[int, int] = {}
 # K3/K3q (csrc/flash_attn.cu): a CTA walks blocks of 64 cells and holds up
 # to 32 query rows of one KV head (past 32, more row chunks, each reading K
@@ -96,10 +107,13 @@ def dequant_bf16(kv) -> torch.Tensor:
     return kv.float()
 
 
-def attn_plain(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Tensor:
+def attn_plain(q, q_rot, k, v, cos, sin, bias, scale: float,
+               softcap: float = 0.0) -> torch.Tensor:
     """q, q_rot [T, H, Dk]; k [Hkv, S, Dk], v [Hkv, S, Dv], or (int8,
     scales [Hkv, S, 1]) pairs; cos, sin [S, Dk]; bias [T, S]. Returns
-    [T, H, Dv] f32. Chunked over T to bound the score tensor."""
+    [T, H, Dv] f32. Chunked over T to bound the score tensor. The score is
+    (q.kc + q_rot.ks) * scale, then cap * tanh(s / cap) where softcap > 0,
+    then + max(bias, -1e30): the reference kernel's order."""
     T, H, D = q.shape
     kf = dequant_bf16(k)
     vf = dequant_bf16(v)
@@ -115,6 +129,8 @@ def attn_plain(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Tensor:
             qrh = q_rot[t0:t1].float().reshape(t1 - t0, Hkv, G, D).permute(1, 0, 2, 3)
             sc = (torch.einsum("htgd,hsd->htgs", qh, kc)
                   + torch.einsum("htgd,hsd->htgs", qrh, ks)) * scale
+            if softcap > 0.0:
+                sc = torch.tanh(sc / softcap) * softcap
             sc = sc + torch.clamp(bias[t0:t1].float(), min=NEG)[None, :, None, :]
             m = torch.clamp(sc.amax(dim=-1, keepdim=True), min=NEG)
             p = torch.exp(sc - m)
@@ -137,11 +153,11 @@ def _lib():
         lib.flash_decode_q8_launch.restype = ctypes.c_int
         lib.flash_decode_wide_launch.argtypes = (
             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+            + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.flash_decode_wide_launch.restype = ctypes.c_int
         lib.flash_decode_wide_q8_launch.argtypes = (
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+            + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.flash_decode_wide_q8_launch.restype = ctypes.c_int
     return lib
 
@@ -158,10 +174,12 @@ def _prefill_lib():
             + [ctypes.c_float, ctypes.c_void_p])
         lib.flash_prefill_q8_launch.restype = ctypes.c_int
         lib.flash_prefill_wide_launch.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+            + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         lib.flash_prefill_wide_launch.restype = ctypes.c_int
         lib.flash_prefill_wide_q8_launch.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+            + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         lib.flash_prefill_wide_q8_launch.restype = ctypes.c_int
     return lib
 
@@ -234,14 +252,14 @@ def _check_decode(T, *tensors):
 
 
 def _decode_launch(q8: bool, q, q_rot, k, v, cos, sin, bias, scale: float,
-                   cluster=None) -> torch.Tensor:
+                   cluster=None, softcap: float = 0.0) -> torch.Tensor:
     """Launch K3 (bf16 k, v) or K3q (q8: (int8, scales) pairs), narrow or
-    wide by is_narrow, with `cluster` CTAs a KV head (None:
-    decode_attn_plan's). Returns [T, H, Dv] f32."""
+    wide by is_narrow (wide and capped where softcap > 0), with `cluster`
+    CTAs a KV head (None: decode_attn_plan's). Returns [T, H, Dv] f32."""
     T, H, Hkv, S, Dk, Dv = (_check_q8 if q8 else _check_inputs)(q, q_rot, k, v, cos, sin, bias)
     planes = (*k, *v) if q8 else (k, v)
     _check_decode(T, q, q_rot, *planes, cos, sin, bias)
-    narrow = is_narrow(Dk, Dv, q8)
+    narrow = is_narrow(Dk, Dv, q8) and softcap <= 0.0
     if cluster is None:
         cluster = decode_attn_plan(T, H, Hkv, S, sm_count(q.device),
                                    DECODE_ROWS if narrow else WIDE_ROWS)[0]
@@ -254,29 +272,41 @@ def _decode_launch(q8: bool, q, q_rot, k, v, cos, sin, bias, scale: float,
         rc = getattr(lib, name)(*ptrs, T, H, Hkv, S, Dk, float(scale), int(cluster), stream)
     else:
         name = "flash_decode_wide_q8_launch" if q8 else "flash_decode_wide_launch"
-        rc = getattr(lib, name)(*ptrs, T, H, Hkv, S, Dk, Dv, float(scale), int(cluster), stream)
+        rc = getattr(lib, name)(*ptrs, T, H, Hkv, S, Dk, Dv, float(scale),
+                                max(float(softcap), 0.0), int(cluster), stream)
     cuda_build.check(rc, name)
-    LAUNCHES[("K3q" if q8 else "K3") + ("" if narrow else "w")] += 1
+    LAUNCHES[_kernel_name("K3", q8, narrow, softcap)] += 1
     DECODE_LAUNCHES_BY_T[T] = DECODE_LAUNCHES_BY_T.get(T, 0) + 1
     return out
 
 
-def flash_decode_cuda(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Tensor:
+def _kernel_name(base: str, q8: bool, narrow: bool, softcap: float) -> str:
+    """The LAUNCHES key of a launch: K3/K4, q on the int8 cache, w on the
+    wide kernels, _cap on their capped instantiations."""
+    return (base + ("q" if q8 else "") + ("" if narrow else "w")
+            + ("_cap" if softcap > 0.0 else ""))
+
+
+def flash_decode_cuda(q, q_rot, k, v, cos, sin, bias, scale: float,
+                      softcap: float = 0.0) -> torch.Tensor:
     """K3 on a bf16 cache."""
-    return _decode_launch(False, q, q_rot, k, v, cos, sin, bias, scale)
+    return _decode_launch(False, q, q_rot, k, v, cos, sin, bias, scale, softcap=softcap)
 
 
-def flash_decode_q8_cuda(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Tensor:
+def flash_decode_q8_cuda(q, q_rot, k, v, cos, sin, bias, scale: float,
+                         softcap: float = 0.0) -> torch.Tensor:
     """K3q: K3 on (int8, scales [Hkv, S, 1]) pairs."""
-    return _decode_launch(True, q, q_rot, k, v, cos, sin, bias, scale)
+    return _decode_launch(True, q, q_rot, k, v, cos, sin, bias, scale, softcap=softcap)
 
 
-def _prefill_launch(q8: bool, q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Tensor:
+def _prefill_launch(q8: bool, q, q_rot, k, v, cos, sin, bias, scale: float,
+                    softcap: float = 0.0) -> torch.Tensor:
     """Launch K4 (bf16 k, v) or K4q (q8: (int8, scales) pairs), narrow or
-    wide by is_narrow, any G = H / Hkv. Returns [T, H, Dv] f32."""
+    wide by is_narrow (wide and capped where softcap > 0), any G = H / Hkv.
+    Returns [T, H, Dv] f32."""
     T, H, Hkv, S, Dk, Dv = (_check_q8 if q8 else _check_inputs)(q, q_rot, k, v, cos, sin, bias)
     planes = (*k, *v) if q8 else (k, v)
-    narrow = is_narrow(Dk, Dv, q8)
+    narrow = is_narrow(Dk, Dv, q8) and softcap <= 0.0
     out = torch.empty((T, H, Dv), dtype=torch.float32, device=q.device)
     ptrs = [t.data_ptr() for t in (q, q_rot, *planes, cos, sin, bias, out)]
     lib = _prefill_lib()
@@ -286,38 +316,43 @@ def _prefill_launch(q8: bool, q, q_rot, k, v, cos, sin, bias, scale: float) -> t
         rc = getattr(lib, name)(*ptrs, T, H, Hkv, S, Dk, float(scale), stream)
     else:
         name = "flash_prefill_wide_q8_launch" if q8 else "flash_prefill_wide_launch"
-        rc = getattr(lib, name)(*ptrs, T, H, Hkv, S, Dk, Dv, float(scale), stream)
+        rc = getattr(lib, name)(*ptrs, T, H, Hkv, S, Dk, Dv, float(scale),
+                                max(float(softcap), 0.0), stream)
     cuda_build.check(rc, name)
-    LAUNCHES[("K4q" if q8 else "K4") + ("" if narrow else "w")] += 1
+    LAUNCHES[_kernel_name("K4", q8, narrow, softcap)] += 1
     return out
 
 
-def flash_prefill_cuda(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Tensor:
+def flash_prefill_cuda(q, q_rot, k, v, cos, sin, bias, scale: float,
+                       softcap: float = 0.0) -> torch.Tensor:
     """K4 on a bf16 cache."""
-    return _prefill_launch(False, q, q_rot, k, v, cos, sin, bias, scale)
+    return _prefill_launch(False, q, q_rot, k, v, cos, sin, bias, scale, softcap)
 
 
-def flash_prefill_q8_cuda(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Tensor:
+def flash_prefill_q8_cuda(q, q_rot, k, v, cos, sin, bias, scale: float,
+                          softcap: float = 0.0) -> torch.Tensor:
     """K4q: K4 on (int8, scales [Hkv, S, 1]) pairs."""
-    return _prefill_launch(True, q, q_rot, k, v, cos, sin, bias, scale)
+    return _prefill_launch(True, q, q_rot, k, v, cos, sin, bias, scale, softcap)
 
 
-def flash_decode(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Tensor:
-    """K3, or K3q when k, v are (int8, scales) pairs (T <= 8). Returns
-    [T, H, Dv] f32."""
+def flash_decode(q, q_rot, k, v, cos, sin, bias, scale: float,
+                 softcap: float = 0.0) -> torch.Tensor:
+    """K3, or K3q when k, v are (int8, scales) pairs (T <= 8); capped where
+    softcap > 0. Returns [T, H, Dv] f32."""
     if q.is_cuda:
         fn = flash_decode_q8_cuda if isinstance(k, tuple) else flash_decode_cuda
-        return fn(q, q_rot, k, v, cos, sin, bias, scale)
-    return attn_plain(q, q_rot, k, v, cos, sin, bias, scale)
+        return fn(q, q_rot, k, v, cos, sin, bias, scale, softcap)
+    return attn_plain(q, q_rot, k, v, cos, sin, bias, scale, softcap)
 
 
-def flash_prefill(q, q_rot, k, v, cos, sin, bias, scale: float) -> torch.Tensor:
-    """K4, or K4q on (int8, scales) pairs (T > 8), any T. Returns
-    [T, H, Dv] f32."""
+def flash_prefill(q, q_rot, k, v, cos, sin, bias, scale: float,
+                  softcap: float = 0.0) -> torch.Tensor:
+    """K4, or K4q on (int8, scales) pairs (T > 8), any T; capped where
+    softcap > 0. Returns [T, H, Dv] f32."""
     if q.is_cuda:
         fn = flash_prefill_q8_cuda if isinstance(k, tuple) else flash_prefill_cuda
-        return fn(q, q_rot, k, v, cos, sin, bias, scale)
-    return attn_plain(q, q_rot, k, v, cos, sin, bias, scale)
+        return fn(q, q_rot, k, v, cos, sin, bias, scale, softcap)
+    return attn_plain(q, q_rot, k, v, cos, sin, bias, scale, softcap)
 
 
 def rope_companion(q: torch.Tensor, mode: int, n_dims: int | None = None) -> torch.Tensor:

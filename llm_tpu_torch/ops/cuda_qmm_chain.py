@@ -60,13 +60,25 @@ def is_kmajor_qt(w) -> bool:
     return isinstance(w, QTensor) and w.kmajor
 
 
+# layer keys that put a tail outside the chain's recipe (the reference's
+# _TAIL_BANNED): gemma2's post-norms among them
+TAIL_BANNED = (
+    "attn_sub_norm", "attn_post_norm", "ffn_post_norm", "ffn_sub_norm",
+    "ffn_norm_exps", "ffn_gate_inp", "attn_output_b", "ffn_down_b",
+    "ffn_norm_b", "attn_output.lora", "ffn_down.lora",
+    "ffn_gateup_fused.lora", "ffn_up_b", "ffn_gate_b", "cross_attn_norm",
+)
+
+
 def tail_eligible(layer: dict) -> bool:
     """The layer's tail is the llama recipe the chain implements: o_proj,
-    fused gate+up, down and ffn_norm, K-major planes (the reference's
-    tail_eligible). The reference also refuses biases, post-norms, LoRA and
-    MoE; forward's check_supported refuses every such layer before it runs."""
+    fused gate+up, down and ffn_norm, K-major planes, and none of
+    TAIL_BANNED (the reference's tail_eligible: biases, post-norms, LoRA and
+    MoE; of these the port's forward runs only gemma2's post-norms)."""
     if any(k not in layer for k in
            ("attn_output", "ffn_gateup_fused", "ffn_down", "ffn_norm")):
+        return False
+    if any(k in layer for k in TAIL_BANNED):
         return False
     return all(is_kmajor_qt(layer[k])
                for k in ("attn_output", "ffn_gateup_fused", "ffn_down"))

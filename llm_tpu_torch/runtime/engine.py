@@ -10,6 +10,15 @@ counters (PerfCounters, ctx.perf) that tools/cli.py prints, counted as the
 reference counts them: a ubatch of more than one token is prefill, a
 one-token decode and every token of generate_loop is decode.
 
+A model with interleaved sliding-window layers (gemma2) gets the ISWA dual
+cache unless swa_full: those layers keep a ring of n_seq_hint * (window +
+n_ubatch) cells (when that is fewer than n_cells) with its own cell table,
+SWACellTable, whose out-of-window cells are pruned and reused; decode takes
+a ring slot for every token beside its cell in the full table, and
+generate_loop plans the ring slots of its tokens on the host up front, as
+the reference's loop does (generate_loop_batch refuses a ring Context, as
+the reference's does).
+
 Steps run eagerly on `device` (default: the card). Token counts are padded
 to TOKEN_BUCKETS so every step has one of a few static shapes (what a
 later CUDA-graph capture of decode needs). Padding tokens write to cell
@@ -27,15 +36,14 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.loader import load_params, stack_layers
+from ..models.loader import load_params, scan_stack
 from ..models.transformer import check_supported, forward, layer_views
 from ..quant.qtensor import QTensor
 from .batch import Batch, sanitize, split_simple
 from ..samplers.device import row_generators, sample_rows
-from .kv_cache import MAX_SEQS, CellTable, new_kv_arrays, pack_seq_sets
+from .kv_cache import MAX_SEQS, CellTable, SWACellTable, new_kv_arrays, pack_seq_sets
 
 TOKEN_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048)
-N_UBATCH = 512  # tokens per step; longer batches are split
 
 
 class NoFreeCells(RuntimeError):
@@ -85,7 +93,8 @@ def params_to(params, device):
 class Context:
     def __init__(self, reader=None, n_cells: int = 4096, dtype=torch.bfloat16,
                  device=None, params_cfg=None, kv_dtype=None, chain: bool = False,
-                 gdot: bool = False, scan_layers: bool = False):
+                 gdot: bool = False, scan_layers: bool = False, n_ubatch: int = 512,
+                 swa_full: bool = False, n_seq_hint: int = 1):
         """Load from a GGUFReader, or take (params, cfg) as made by
         models/synthetic.py or convert_params.py. device None = the card.
         kv_dtype: the cache type, None for `dtype`, a torch dtype, or
@@ -96,23 +105,28 @@ class Context:
         (LLM_TPU_GDOT=force). Both are off by default, as in the reference.
         scan_layers: stack uniform layers (the reference's lax.scan decoder;
         here a loop whose matmuls read one layer of the stacked planes, K7);
-        layers that do not stack run per layer, as in the reference. Params
-        that come stacked (params["layers_stacked"]) run stacked whatever the
-        option."""
+        layers that do not stack run per layer, as in the reference, and so
+        do a sliding-window model's. Params that come stacked
+        (params["layers_stacked"]) run stacked whatever the option.
+        n_ubatch: tokens a step (longer batches are split). swa_full: give
+        the sliding-window layers full-size caches instead of the ISWA ring
+        (the reference's --swa-full); n_seq_hint: the sequences expected at
+        once, which size the ring at n_seq_hint * (window + n_ubatch)
+        cells."""
         t0 = time.perf_counter()
         self.device = resolve_device(device)
         if params_cfg is not None:
             params, self.cfg = params_cfg
             self.params = params_to(params, self.device)
             if scan_layers and "layers_stacked" not in self.params:
-                stacked = stack_layers(self.params["layers"])
+                stacked = scan_stack(self.params["layers"], self.cfg)
                 if stacked is not None:
                     self.params = {**self.params, "layers_stacked": stacked, "layers": []}
         else:
             self.params, self.cfg = load_params(reader, dense_dtype=dtype,
                                                 device=self.device, scan_layers=scan_layers)
         self.kv_dtype = kv_dtype if kv_dtype is not None else dtype
-        check_supported(self.params, self.cfg, kv_q8=self.kv_dtype == "q8_0")
+        check_supported(self.params, self.cfg)
         self.scan = "layers_stacked" in self.params
         # the layers' dicts of StackedWeights on the stacked planes, made once
         self.stacked_layers = (layer_views(self.params["layers_stacked"])
@@ -120,10 +134,21 @@ class Context:
         self.dtype = dtype
         self.chain, self.gdot = chain, gdot
         self.n_cells = n_cells
+        self.n_ubatch = n_ubatch
         self.cells = CellTable(n_cells)
         cfg = self.cfg
+        # the ISWA ring (the reference's sizing rule), used only where it
+        # saves cells
+        self.cells_swa = None
+        row_counts = None
+        if not swa_full and cfg.swa_window > 0 and cfg.swa_pattern > 0:
+            n_swa = min(n_cells, n_seq_hint * (cfg.swa_window + n_ubatch))
+            if n_swa < n_cells:
+                self.cells_swa = SWACellTable(n_swa, cfg.swa_window)
+                row_counts = [n_swa if cfg.layer_is_swa(il) else n_cells
+                              for il in range(cfg.n_layers)]
         self.kv = new_kv_arrays(cfg.n_layers, n_cells, cfg.n_kv_heads, cfg.head_dim,
-                                cfg.head_dim_v, self.kv_dtype, self.device)
+                                cfg.head_dim_v, self.kv_dtype, self.device, row_counts)
         self._logits: dict[int, np.ndarray] = {}
         self._embd: dict[int, np.ndarray] = {}  # batch index -> final-norm hidden row
         self.rslots = None  # recurrent state slots: no recurrent model is ported
@@ -136,12 +161,56 @@ class Context:
     def _t(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int64)).to(self.device)
 
-    def _step(self, tokens, pos, seq, widx, cpos, cbits, oidx):
-        """One forward: (logits, final-norm hidden rows) of the oidx rows."""
+    def _step(self, tokens, pos, seq, widx, cpos, cbits, oidx, swa=(None, None, None)):
+        """One forward: (logits, final-norm hidden rows) of the oidx rows.
+        swa: the ring's (cell positions, bit-sets, write indices) on the
+        device, or Nones without a ring."""
+        spos, sbits, swidx = swa
         return forward(self.params, self.cfg, self.kv.k, self.kv.v,
                        tokens, pos, seq, widx, cpos, cbits, oidx,
                        dtype=self.dtype, chain=self.chain, gdot=self.gdot,
-                       stacked_layers=self.stacked_layers)
+                       stacked_layers=self.stacked_layers, swa_cell_pos=spos,
+                       swa_cell_seq_bits=sbits, swa_write_idx=swidx)
+
+    def _swa_step_inputs(self, T: int, n: int, slots_swa) -> tuple:
+        """The ring's device metadata for a step of T rows (n real):
+        (cell positions, bit-sets, write indices; padding rows write to
+        cell n_swa, which the scatter drops)."""
+        widx = np.full(T, self.cells_swa.n_cells, np.int64)
+        widx[:n] = slots_swa
+        return (self._t(self.cells_swa.pos), self.cells_swa.device_bits(self.device),
+                self._t(widx))
+
+    def _plan_swa_slots(self, seq_id: int, pos0: int, n: int):
+        """The ring slot of each of n generated tokens at positions
+        pos0.., planned on the host up front (the reference's
+        _plan_swa_slots): free cells first, then this sequence's oldest
+        cell that no other sequence holds, once it is out of the window of
+        the token that takes it (pos <= p - window; positions only grow, so
+        a dead cell stays dead). [n] int32, a cell possibly more than once,
+        or None when the ring cannot host the schedule."""
+        import heapq
+
+        ct = self.cells_swa
+        this = ct.seq_mask(seq_id)
+        bits = ct.seq_bits.copy()
+        bits[:, seq_id >> 5] &= ~(np.uint32(1) << np.uint32(seq_id & 31))
+        shared = bits.any(axis=1)  # a member of some other sequence too
+        free_list = [int(c) for c in np.flatnonzero(~ct.used_mask())]
+        heap = [(int(ct.pos[c]), int(c)) for c in np.flatnonzero(this & ~shared)]
+        heapq.heapify(heap)
+        slots = np.empty(n, np.int32)
+        for i in range(n):
+            p = pos0 + i
+            if free_list:
+                c = free_list.pop()
+            elif heap and heap[0][0] <= p - ct.window:
+                c = heapq.heappop(heap)[1]
+            else:
+                return None
+            slots[i] = c
+            heapq.heappush(heap, (p, c))
+        return slots
 
     def decode(self, batch: Batch) -> int:
         if len(batch) == 0:
@@ -153,11 +222,16 @@ class Context:
         batch = sanitize(batch, self.cells)
         self._logits.clear()
         self._embd.clear()
-        for ub in split_simple(batch, N_UBATCH):
+        for ub in split_simple(batch, self.n_ubatch):
             n = len(ub.tokens)
             slots = self.cells.find_slots(n)
             if slots is None:
                 return 1
+            slots_swa = None
+            if self.cells_swa is not None:
+                slots_swa = self.cells_swa.find_slots(n)
+                if slots_swa is None:
+                    return 1
             t0 = time.perf_counter()
             T = _bucket(n)
             out_rows = np.flatnonzero(ub.out_mask)
@@ -170,15 +244,23 @@ class Context:
             oidx = np.zeros(O, np.int64)
             oidx[: len(out_rows)] = out_rows
             # occupy cells BEFORE the step so the ubatch attends to itself
+            bits = pack_seq_sets(ub.seq_sets)
             self.cells.pos[slots] = ub.pos
-            self.cells.seq_bits[slots] = pack_seq_sets(ub.seq_sets)
+            self.cells.seq_bits[slots] = bits
+            swa = (None, None, None)
+            if slots_swa is not None:
+                self.cells_swa.pos[slots_swa] = ub.pos
+                self.cells_swa.seq_bits[slots_swa] = bits
+                swa = self._swa_step_inputs(T, n, slots_swa)
             try:
                 logits, hidden = self._step(self._t(tokens), self._t(pos), self._t(seq),
                                             self._t(widx), self._t(self.cells.pos),
                                             self.cells.device_bits(self.device),
-                                            self._t(oidx))
+                                            self._t(oidx), swa)
             except Exception:
                 self.cells.release(slots)
+                if slots_swa is not None:
+                    self.cells_swa.release(slots_swa)
                 raise
             logits_np = logits[: len(out_rows)].float().cpu().numpy()
             hidden_np = hidden[: len(out_rows)].float().cpu().numpy()
@@ -207,7 +289,10 @@ class Context:
         sampling in-graph (greedy at temp 0, else temperature and top-k from
         a torch.Generator seeded with `seed`); stops after an EOG token.
         Cells are allocated and labeled with their positions up front; each
-        step makes its own cell visible to the sequence."""
+        step makes its own cell visible to the sequence. With the ISWA ring
+        the tokens' ring slots are planned up front (_plan_swa_slots) and
+        each step relabels its slot, which may reuse a cell that slid out of
+        the window; the host tables take only the emitted tokens' cells."""
         if not (0 <= seq_id < MAX_SEQS):
             raise ValueError(f"bad seq_id {seq_id}")
         n = int(n_tokens)
@@ -217,6 +302,11 @@ class Context:
         if slots is None:
             raise NoFreeCells("generate_loop: no free KV cells")
         pos0 = self.cells.seq_pos_max(seq_id) + 1
+        plan = None
+        if self.cells_swa is not None:
+            plan = self._plan_swa_slots(seq_id, pos0, n)
+            if plan is None:
+                raise NoFreeCells("generate_loop: no SWA ring space")
         t0 = time.perf_counter()
         cpos = self.cells.pos.astype(np.int64)
         cpos[slots] = pos0 + np.arange(n)
@@ -232,11 +322,19 @@ class Context:
             gen.manual_seed(seed)
         eogs = set(int(e) for e in eog_ids)
         tok = self._t([first_token])
+        swa = (None, None, None)
+        if plan is not None:
+            spos, sbits = self._t(self.cells_swa.pos), self.cells_swa.device_bits(self.device)
+            plan_d = self._t(plan)
         out: list[int] = []
         for i in range(n):
             cbits[slots[i], word] |= bit
+            if plan is not None:  # the planned ring slot takes this token
+                spos[plan[i]] = pos0 + i
+                sbits[plan[i], word] |= bit
+                swa = (spos, sbits, plan_d[i:i + 1])
             logits = self._step(tok, self._t([pos0 + i]), seq, slots_d[i:i + 1],
-                                cpos, cbits, oidx)[0][0]
+                                cpos, cbits, oidx, swa)[0][0]
             if temp <= 0.0:
                 nxt = torch.argmax(logits)
             else:
@@ -252,6 +350,13 @@ class Context:
         cnt = len(out)
         self.cells.occupy(slots[:cnt], pos0 + np.arange(cnt, dtype=np.int32),
                           np.full(cnt, seq_id, np.int64))
+        if plan is not None and cnt > 0:
+            # each ring slot's position is its last write's
+            final = {int(c): pos0 + i for i, c in enumerate(plan[:cnt])}
+            cells = np.fromiter(final.keys(), np.int32, len(final))
+            self.cells_swa.occupy(cells, np.fromiter(final.values(), np.int32, len(final)),
+                                  np.full(len(final), seq_id, np.int64))
+            self.cells_swa.prune()
         self._logits.clear()
         self._embd.clear()
         self.perf.t_decode_ms += (time.perf_counter() - t0) * 1e3
@@ -279,8 +384,10 @@ class Context:
 
         B is padded to a power of two (the reference's compiled-program
         bucket): pad rows decode under the scratch sequence MAX_SEQS - 1
-        into one shared run of spare cells that nothing occupies."""
-        if self.rslots is not None:
+        into one shared run of spare cells that nothing occupies. A ring
+        Context (the ISWA dual cache) is refused, as the reference refuses
+        it: its callers take generate_loop."""
+        if self.rslots is not None or self.cells_swa is not None:
             raise ValueError("generate_loop_batch: unsupported memory kind")
         B = len(seq_ids)
         n = int(n_tokens)
@@ -401,24 +508,35 @@ class Context:
 
     # -- memory (seq) API ------------------------------------------------------
 
+    def _tables(self) -> list:
+        """The cell tables every sequence edit applies to: the full one and
+        the ring's."""
+        return [self.cells] + ([self.cells_swa] if self.cells_swa is not None else [])
+
     def seq_rm(self, seq_id, p0=-1, p1=-1):
-        self.cells.seq_rm(seq_id, p0, p1)
+        for t in self._tables():
+            t.seq_rm(seq_id, p0, p1)
         return True
 
     def seq_cp(self, src, dst, p0=-1, p1=-1):
-        self.cells.seq_cp(src, dst, p0, p1)
+        for t in self._tables():
+            t.seq_cp(src, dst, p0, p1)
 
     def seq_keep(self, seq_id):
-        self.cells.seq_keep(seq_id)
+        for t in self._tables():
+            t.seq_keep(seq_id)
 
     def seq_add(self, seq_id, p0, p1, delta):
-        self.cells.seq_add(seq_id, p0, p1, delta)
+        for t in self._tables():
+            t.seq_add(seq_id, p0, p1, delta)
 
     def seq_div(self, seq_id, p0, p1, d):
-        self.cells.seq_div(seq_id, p0, p1, d)
+        for t in self._tables():
+            t.seq_div(seq_id, p0, p1, d)
 
     def seq_pos_max(self, seq_id):
         return self.cells.seq_pos_max(seq_id)
 
     def clear(self):
-        self.cells.clear()
+        for t in self._tables():
+            t.clear()

@@ -1,5 +1,7 @@
 """Unified KV cache: device tensors plus a host-side cell table.
-Counterpart of llm_tpu/runtime/kv_cache.py (dense and q8_0 caches).
+Counterpart of llm_tpu/runtime/kv_cache.py (dense and q8_0 caches, and
+the ISWA ring: SWACellTable, the cell table of the sliding-window layers'
+smaller cache).
 
 Cell metadata (position, sequence bit-set) lives on the host in numpy; each
 step ships the cell positions and bit-sets to the device, where the mask
@@ -74,18 +76,22 @@ class KVArrays:
 
 
 def new_kv_arrays(n_layers: int, n_cells: int, n_kv_heads: int, head_dim_k: int,
-                  head_dim_v: int, dtype=torch.bfloat16, device="cuda") -> KVArrays:
+                  head_dim_v: int, dtype=torch.bfloat16, device="cuda",
+                  row_counts=None) -> KVArrays:
     """dtype: a torch dtype for a dense cache, or "q8_0" for int8 rows with
-    bf16 scales (kv_group)."""
-    def plane(d):
-        if dtype == "q8_0":
-            return (torch.zeros((n_kv_heads, n_cells, d), dtype=torch.int8, device=device),
-                    torch.zeros((n_kv_heads, n_cells, d // kv_group(d)),
-                                dtype=torch.bfloat16, device=device))
-        return torch.zeros((n_kv_heads, n_cells, d), dtype=dtype, device=device)
+    bf16 scales (kv_group). row_counts: each layer's cells (the ISWA ring's
+    for its sliding-window layers); None: n_cells for every layer."""
+    rows = list(row_counts) if row_counts is not None else [n_cells] * n_layers
 
-    return KVArrays(k=[plane(head_dim_k) for _ in range(n_layers)],
-                    v=[plane(head_dim_v) for _ in range(n_layers)])
+    def plane(n, d):
+        if dtype == "q8_0":
+            return (torch.zeros((n_kv_heads, n, d), dtype=torch.int8, device=device),
+                    torch.zeros((n_kv_heads, n, d // kv_group(d)),
+                                dtype=torch.bfloat16, device=device))
+        return torch.zeros((n_kv_heads, n, d), dtype=dtype, device=device)
+
+    return KVArrays(k=[plane(n, head_dim_k) for n in rows],
+                    v=[plane(n, head_dim_v) for n in rows])
 
 
 class CellTable:
@@ -176,3 +182,40 @@ class CellTable:
     def clear(self) -> None:
         self.pos[:] = -1
         self.seq_bits[:] = 0
+
+
+class SWACellTable(CellTable):
+    """Ring cell table for sliding-window layers (the small half of the
+    ISWA dual cache; llm_tpu/runtime/kv_cache.py SWACellTable): cells whose
+    position has slid out of every member sequence's window are pruned when
+    space is needed, exactly the cells the window mask would hide anyway, so
+    pruning never changes outputs."""
+
+    def __init__(self, n_cells: int, window: int):
+        super().__init__(n_cells)
+        self.window = window
+
+    def prune(self) -> None:
+        occupied = self.used_mask()
+        if not occupied.any():
+            return
+        live = np.zeros(self.n_cells, bool)
+        all_bits = np.bitwise_or.reduce(self.seq_bits, axis=0)
+        for s in range(MAX_SEQS):
+            if not (int(all_bits[s >> 5]) >> (s & 31)) & 1:
+                continue
+            m = self.seq_mask(s)
+            pmax = int(self.pos[m].max())
+            # visible to some future query of seq s: qp - pos < window with
+            # qp >= pmax + 1, so pos > pmax + 1 - window
+            live |= m & (self.pos > pmax + 1 - self.window)
+        dead = occupied & ~live
+        self.seq_bits[dead] = 0
+        self.pos[dead] = -1
+
+    def find_slots(self, n: int) -> np.ndarray | None:
+        r = super().find_slots(n)
+        if r is None:
+            self.prune()
+            r = super().find_slots(n)
+        return r

@@ -10,8 +10,11 @@ cache's layout or type. A q8_0 cache is dequantized on save (q * s in f32)
 and quantized again on load by the cache's own quantizer; for rows that
 quantizer wrote, that round trip gives back the same int8 and scale bits.
 
-The port has no sliding-window (ISWA) ring yet: a file that carries one
-(swa_* keys) raises NotImplementedError.
+With the ISWA dual cache the sliding-window layers' rows come from their
+ring, whose occupied cells are saved with their metadata under swa_* keys
+(swa_pos, and swa_seq_bits in a full-context file), and a ring Context
+loads them back into its ring; a ring Context refuses a file without
+them. A Context without a ring ignores swa_* keys, as llm_tpu's does.
 """
 
 from __future__ import annotations
@@ -67,11 +70,18 @@ def _check(ctx, d, magic: str) -> None:
         raise ValueError(f"not a llm_tpu {'per-seq ' if magic != MAGIC else ''}state file")
     if int(d["n_layers"]) != ctx.cfg.n_layers:
         raise ValueError("layer count mismatch")
-    if any(k.startswith("swa_") for k in d.files):
-        raise NotImplementedError("state files with a sliding-window ring are not ported yet")
+    if ctx.cells_swa is not None and "swa_pos" not in d.files:
+        raise ValueError("state file lacks SWA ring data for this model")
 
 
-def _save(ctx, path: str, magic: str, used: np.ndarray, tokens, extra: dict) -> None:
+def _ring_layer(ctx, il: int) -> bool:
+    return ctx.cells_swa is not None and ctx.cfg.layer_is_swa(il)
+
+
+def _save(ctx, path: str, magic: str, used: np.ndarray, used_swa, tokens,
+          extra: dict) -> None:
+    """used: the full table's cells to save; used_swa: the ring's (None
+    without a ring)."""
     data = {
         "magic": np.asarray(magic),
         "pos": ctx.cells.pos[used],
@@ -79,22 +89,31 @@ def _save(ctx, path: str, magic: str, used: np.ndarray, tokens, extra: dict) -> 
         "tokens": np.asarray(tokens if tokens is not None else [], np.int32),
         "n_layers": np.asarray(ctx.cfg.n_layers),
     }
+    if used_swa is not None:
+        data["swa_pos"] = ctx.cells_swa.pos[used_swa]
     for il in range(ctx.cfg.n_layers):
-        data[f"k{il}"] = _rows_to_f32(ctx.kv.k[il], used)
-        data[f"v{il}"] = _rows_to_f32(ctx.kv.v[il], used)
+        src = used_swa if _ring_layer(ctx, il) else used
+        data[f"k{il}"] = _rows_to_f32(ctx.kv.k[il], src)
+        data[f"v{il}"] = _rows_to_f32(ctx.kv.v[il], src)
     np.savez_compressed(path, **data)
 
 
-def _load_rows(ctx, d, slots: np.ndarray) -> None:
+def _load_rows(ctx, d, slots: np.ndarray, slots_swa) -> None:
     for il in range(ctx.cfg.n_layers):
-        _set_rows(ctx.kv.k[il], slots, d[f"k{il}"])
-        _set_rows(ctx.kv.v[il], slots, d[f"v{il}"])
+        dst = slots_swa if _ring_layer(ctx, il) else slots
+        _set_rows(ctx.kv.k[il], dst, d[f"k{il}"])
+        _set_rows(ctx.kv.v[il], dst, d[f"v{il}"])
 
 
 def state_save(ctx, path: str, tokens: list[int] | None = None) -> None:
-    """Full context state: every occupied cell and its KV rows."""
+    """Full context state: every occupied cell and its KV rows (with the
+    ring, its occupied cells and their rows too)."""
     used = np.flatnonzero(ctx.cells.used_mask()).astype(np.int32)
-    _save(ctx, path, MAGIC, used, tokens, {"seq_bits": ctx.cells.seq_bits[used]})
+    extra, used_swa = {"seq_bits": ctx.cells.seq_bits[used]}, None
+    if ctx.cells_swa is not None:
+        used_swa = np.flatnonzero(ctx.cells_swa.used_mask()).astype(np.int32)
+        extra["swa_seq_bits"] = ctx.cells_swa.seq_bits[used_swa]
+    _save(ctx, path, MAGIC, used, used_swa, tokens, extra)
 
 
 def state_load(ctx, path: str) -> list[int]:
@@ -108,15 +127,27 @@ def state_load(ctx, path: str) -> list[int]:
             raise ValueError(f"cache too small for saved state ({n} cells)")
         ctx.cells.pos[slots] = d["pos"]
         ctx.cells.seq_bits[slots] = _bits_planes(d["seq_bits"])
-        _load_rows(ctx, d, slots)
+        slots_swa = None
+        if ctx.cells_swa is not None:
+            slots_swa = ctx.cells_swa.find_slots(len(d["swa_pos"]))
+            if slots_swa is None:
+                raise ValueError("SWA ring too small for saved state")
+            ctx.cells_swa.pos[slots_swa] = d["swa_pos"]
+            ctx.cells_swa.seq_bits[slots_swa] = _bits_planes(d["swa_seq_bits"])
+        _load_rows(ctx, d, slots, slots_swa)
         return [int(t) for t in d["tokens"]]
 
 
 def state_seq_save(ctx, seq_id: int, path: str, tokens: list[int] | None = None) -> None:
-    """One sequence's cells, in position order (llama_state_seq_get_data)."""
+    """One sequence's cells, in position order (llama_state_seq_get_data);
+    with the ring, its cells of the sequence too."""
     used = np.flatnonzero(ctx.cells.seq_mask(seq_id)).astype(np.int32)
     used = used[np.argsort(ctx.cells.pos[used], kind="stable")]
-    _save(ctx, path, MAGIC + "_seq", used, tokens, {})
+    used_swa = None
+    if ctx.cells_swa is not None:
+        used_swa = np.flatnonzero(ctx.cells_swa.seq_mask(seq_id)).astype(np.int32)
+        used_swa = used_swa[np.argsort(ctx.cells_swa.pos[used_swa], kind="stable")]
+    _save(ctx, path, MAGIC + "_seq", used, used_swa, tokens, {})
 
 
 def state_seq_load(ctx, seq_id: int, path: str) -> list[int]:
@@ -131,5 +162,12 @@ def state_seq_load(ctx, seq_id: int, path: str) -> list[int]:
             raise ValueError("no KV space for sequence state")
         ctx.cells.pos[slots] = d["pos"]
         ctx.cells.seq_bits[slots] = seq_bit_row(seq_id)
-        _load_rows(ctx, d, slots)
+        slots_swa = None
+        if ctx.cells_swa is not None:
+            slots_swa = ctx.cells_swa.find_slots(len(d["swa_pos"]))
+            if slots_swa is None:
+                raise ValueError("no SWA ring space for sequence state")
+            ctx.cells_swa.pos[slots_swa] = d["swa_pos"]
+            ctx.cells_swa.seq_bits[slots_swa] = seq_bit_row(seq_id)
+        _load_rows(ctx, d, slots, slots_swa)
         return [int(t) for t in d["tokens"]]

@@ -665,12 +665,28 @@ def _parser():
     return ap
 
 
-def main(argv=None):
+def server_contexts(args, reader, device):
+    """The server's Context on reader and its draft model's (None without
+    --model-draft). -b is each Context's n_ubatch and -np the sequences
+    that size the ISWA ring, as the reference's server gives them."""
     import torch
 
-    from ..device import resolve_device
     from ..gguf.reader import GGUFReader
     from ..runtime.engine import Context
+
+    dtype = torch.float32 if args.f32 else torch.bfloat16
+    ctx = Context(reader, n_cells=args.ctx_size, n_ubatch=args.n_batch, dtype=dtype,
+                  device=device, n_seq_hint=args.n_parallel)
+    draft_ctx = None
+    if args.model_draft:
+        draft_ctx = Context(GGUFReader(args.model_draft), n_cells=args.ctx_size,
+                            n_ubatch=args.n_batch, dtype=dtype, device=device)
+    return ctx, draft_ctx
+
+
+def main(argv=None):
+    from ..device import resolve_device
+    from ..gguf.reader import GGUFReader
     from ..tokenizers import tokenizer_from_gguf
     from ..tools.args import apply_kv_overrides
 
@@ -683,15 +699,10 @@ def main(argv=None):
         device = resolve_device(args.device)
     except RuntimeError as e:
         ap.exit(2, f"{ap.prog}: error: {e}\n")
-    dtype = torch.float32 if args.f32 else torch.bfloat16
     reader = GGUFReader(args.model)
     apply_kv_overrides(reader, args.override_kv)
     tok = tokenizer_from_gguf(reader)
-    ctx = Context(reader, n_cells=args.ctx_size, dtype=dtype, device=device)
-    draft_ctx = None
-    if args.model_draft:
-        draft_ctx = Context(GGUFReader(args.model_draft), n_cells=args.ctx_size, dtype=dtype,
-                            device=device)
+    ctx, draft_ctx = server_contexts(args, reader, device)
     engine = InferenceServer(ctx, tok, n_slots=args.n_parallel, n_batch=args.n_batch,
                              draft_ctx=draft_ctx, n_draft=args.draft_max,
                              lookup_ngram=args.lookup_ngram)

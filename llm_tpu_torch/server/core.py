@@ -142,7 +142,7 @@ class InferenceServer:
                 self.ctx.decode(Batch.text([1] * T, seq_id=0))
             self.ctx.seq_rm(0)
             B = 1
-            while B <= self.n_slots:
+            while B <= self.n_slots and self._batch_ctx_ok():
                 seqs = list(range(B))
                 for s in seqs:
                     self.ctx.seq_rm(s)
@@ -330,6 +330,11 @@ class InferenceServer:
 
     FAST_CHUNK = 8  # tokens per device dispatch on the fast path
 
+    def _batch_ctx_ok(self) -> bool:
+        """generate_loop_batch refuses the ISWA ring: a ring Context takes
+        the scalar loop, as the reference's does."""
+        return self.ctx.cells_swa is None
+
     def _fast_generate_batch(self, gen: list[Slot]) -> bool:
         """Step ALL generating slots one chunk forward in one call
         (Context.generate_loop_batch): the reference batches every
@@ -391,7 +396,7 @@ class InferenceServer:
                     and device_eligible(s.task.params) for s in gen)
             and not any(s.state == SlotState.PROCESSING_PROMPT
                         for s in self.slots))
-        if fastable and self._fast_generate_batch(gen):
+        if fastable and self._batch_ctx_ok() and self._fast_generate_batch(gen):
             return True
 
         batch = Batch()

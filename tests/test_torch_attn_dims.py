@@ -22,8 +22,10 @@ GQA group: the port against llm_tpu on the CPU.
   inputs zero-padded to two 128-dim chunks; the engine against llm_tpu's
   at head_dim 256 and at Dk 192 / Dv 128.
 - Where attention goes (flash_route, as the reference's use_flash gate): a
-  head dim that is no multiple of 8 takes the unfused attention; the card
-  refuses up front (check_attention) only heads past 256.
+  head dim that is no multiple of 8 takes the unfused attention, and so do
+  heads past 256 on either device (no kernel of the port holds them; the
+  reference's gate sends them to its flash kernels): the engine at
+  Dk = Dv = 264 against llm_tpu's interpreted flash kernels.
 The kernels themselves are held against attn_plain on the card in
 test_torch_cuda.py and chip_smoke.py."""
 
@@ -45,7 +47,7 @@ from llm_tpu.runtime.engine import Context as JaxContext
 
 from llm_tpu_torch.convert_params import params_from_reference
 from llm_tpu_torch.models import transformer
-from llm_tpu_torch.models.transformer import check_attention, quantize_rows
+from llm_tpu_torch.models.transformer import quantize_rows
 from llm_tpu_torch.ops import cuda_attn, qmatmul
 from llm_tpu_torch.ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NORM
 from llm_tpu_torch.runtime.batch import Batch
@@ -359,18 +361,20 @@ def _engine_agrees(jp, jcfg, params, cfg, kv, monkeypatch):
     assert ref.decode(JaxBatch.one(first)) == 0 and ctx.decode(Batch.one(first)) == 0
     nxt = agree()
     assert ctx.generate_loop(nxt, 8) == ref.generate_loop(nxt, 8)
-    group = kv_dtype is not None and not row
-    assert (fused["unfused"] > 0, fused["flash"] > 0) == (group, not group)
+    flash = not (kv_dtype is not None and not row) and max(cfg.head_dim, cfg.head_dim_v) <= 256
+    assert (fused["unfused"] > 0, fused["flash"] > 0) == (not flash, flash)
 
 
 @pytest.mark.parametrize("Dk,Dv,H,Hkv,kv", [(256, 256, 4, 2, "bf16"), (256, 256, 4, 2, "q8_0"),
-                                            (192, 128, 4, 4, "bf16")],
-                         ids=["D256-G2-bf16", "D256-G2-q8_0", "Dk192-Dv128-bf16"])
+                                            (192, 128, 4, 4, "bf16"), (264, 264, 4, 2, "bf16")],
+                         ids=["D256-G2-bf16", "D256-G2-q8_0", "Dk192-Dv128-bf16",
+                              "D264-G2-bf16"])
 def test_engine_matches_reference_at_wide_heads(Dk, Dv, H, Hkv, kv, f32_both, monkeypatch):
     """Two layers at gemma's head_dim 256 (G 2) and at MLA's Dk 192 / Dv 128
     as a llama (G 1): llm_tpu's synthetic Q8_0 planes with attn_v and
     attn_output remade at Dv, converted. D = 256 keeps one q8_0 scale a
-    row (the wide K3q/K4q)."""
+    row (the wide K3q/K4q). At D = 264 the port takes the unfused attention
+    (flash_route) where llm_tpu runs its interpreted flash kernels."""
     from dataclasses import replace
 
     from llm_tpu.models.synthetic import synthetic_qtensor
@@ -389,30 +393,27 @@ def test_engine_matches_reference_at_wide_heads(Dk, Dv, H, Hkv, kv, f32_both, mo
     _engine_agrees(jp, jcfg, params, cfg, kv, monkeypatch)
 
 
-@pytest.mark.parametrize("dk,dv,kv_q8,ok", [
+@pytest.mark.parametrize("dk,dv,kv_q8,flash", [
     (64, 64, False, True), (80, 80, False, True), (96, 96, False, True),
     (128, 128, False, True), (8, 8, False, True), (72, 72, False, True),
-    (64, 64, True, True), (96, 96, True, True), (80, 80, True, True), (112, 112, True, True),
-    (136, 136, False, True), (100, 100, False, True), (256, 256, False, True),
+    (64, 64, True, False), (96, 96, True, False), (80, 80, True, True), (112, 112, True, True),
+    (136, 136, False, True), (100, 100, False, False), (256, 256, False, True),
     (192, 128, False, True), (72, 72, True, True), (120, 120, True, True),
     (264, 264, False, False), (256, 272, False, False)])
-def test_card_refuses_what_no_kernel_takes(dk, dv, kv_q8, ok):
-    """On the card: Dk or Dv past 256 (a multiple of 8, which the
-    reference's gate sends to its flash kernels) is refused before any
-    step; everything up to 256 is taken, Dk != Dv and row-scaled q8_0 at
-    8 mod 16 by the wide kernels, a head dim that is no multiple of 8 (100)
-    and a group-scaled q8_0 cache (64, 96) by the unfused attention. Off the
-    card nothing is refused here."""
+def test_card_refuses_what_no_kernel_takes(dk, dv, kv_q8, flash):
+    """Nothing is refused on either device any more: every head up to 256
+    takes the flash kernels (Dk != Dv and row-scaled q8_0 at 8 mod 16 the
+    wide ones), and a head dim that is no multiple of 8 (100), a
+    group-scaled q8_0 cache (64, 96) and Dk or Dv past 256 (264, 272: a
+    multiple of 8, which the reference's gate sends to its flash kernels)
+    the unfused attention, by flash_route; check_supported passes them all."""
     from llm_tpu_torch.models.config import ModelConfig
 
     cfg = ModelConfig(arch="llama", vocab_size=64, n_embd=256, n_layers=1, n_heads=4,
                       n_kv_heads=2, head_dim=dk, head_dim_v=dv, n_ff=256)
-    check_attention(cfg, on_card=False, kv_q8=kv_q8)
-    if ok:
-        check_attention(cfg, on_card=True, kv_q8=kv_q8)
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 3"):
-            check_attention(cfg, on_card=True, kv_q8=kv_q8)
+    groups = (dk // kv_group(dk), dv // kv_group(dv)) if kv_q8 else (1, 1)
+    assert transformer.flash_route(dk, dv, *groups) == flash
+    transformer.check_supported({"layers": [{}]}, cfg)
 
 
 @pytest.mark.parametrize("dk,dv,kq8,want", [

@@ -40,8 +40,8 @@ from llm_tpu_torch.gguf.reader import GGUFReader
 from llm_tpu_torch.models.loader import load_params
 from llm_tpu_torch.models.transformer import check_supported
 from llm_tpu_torch.ops import cuda_qmm, cuda_qmm_chain, qmatmul
-from llm_tpu_torch.ops.cuda_qmm_chain import (chain_fits, head_eligible, layer_tail, norm_mm,
-                                              tail_eligible)
+from llm_tpu_torch.ops.cuda_qmm_chain import (TAIL_BANNED, chain_fits, head_eligible,
+                                              layer_tail, norm_mm, tail_eligible)
 from llm_tpu_torch.quant.qtensor import qtensor_from_gguf
 from llm_tpu_torch.runtime.batch import Batch
 from llm_tpu_torch.runtime.engine import Context
@@ -181,11 +181,16 @@ def test_gates_agree_on_loaded_layers(chain_ggufs):
                 (jl["attn_output"], jl["ffn_gateup_fused"], jl["ffn_down"]),
                 ("cast", "res_norm", "swiglu")) is not None
             assert chain_fits((tl["attn_output"], tl["ffn_gateup_fused"], tl["ffn_down"])) == want
-        # a post-norm: the reference's gate refuses the tail, the port's
-        # check_supported the whole layer, before any gate is asked
-        assert tail_eligible(tl) and not jax_chain.tail_eligible({**jl, "attn_post_norm": None})
+        # every banned key (gemma2's post-norms among them): both gates
+        # refuse the tail; a sub-norm (bitnet's), which the port does not
+        # run, check_supported refuses with the whole layer before any gate
+        # is asked
+        assert tail_eligible(tl)
+        for key in TAIL_BANNED:
+            assert not tail_eligible({**tl, key: None})
+            assert not jax_chain.tail_eligible({**jl, key: None})
         with pytest.raises(NotImplementedError):
-            check_supported({"layers": [{**tl, "attn_post_norm": None}]}, tcfg)
+            check_supported({"layers": [{**tl, "attn_sub_norm": None}]}, tcfg)
     q4, _ = load_params(GGUFReader(chain_ggufs["Q4_K_M"]), device="cpu")
     assert [head_eligible(layer) for layer in q4["layers"]] == [False, True]
 

@@ -100,6 +100,38 @@ def test_default_config_converts(q8_model):
             assert getattr(cfg, f.name) == want, f.name
 
 
+def test_gemma2_config_converts(tmp_path):
+    """A gemma2 config as llm_tpu's config_from_gguf reads it (the window
+    on every other layer, both softcaps, gelu, the embedding scale, NEOX
+    rope) converts, swa_pattern with it; its layer_is_swa is the
+    reference's at every layer, and the port's own config_from_gguf reads
+    the same file into the same config."""
+    from llm_tpu.gguf.reader import GGUFReader as JaxGGUFReader
+    from llm_tpu.gguf.writer import GGUFWriter as JaxGGUFWriter
+    from llm_tpu.models.config import config_from_gguf as jax_config_from_gguf
+
+    from llm_tpu_torch.gguf.reader import GGUFReader
+    from llm_tpu_torch.models.config import config_from_gguf
+
+    path = str(tmp_path / "gemma2.gguf")
+    w = JaxGGUFWriter(path, arch="gemma2")
+    for key, val in (("context_length", 8192), ("embedding_length", 64), ("block_count", 5),
+                     ("feed_forward_length", 128), ("attention.head_count", 4),
+                     ("attention.head_count_kv", 2), ("attention.key_length", 32),
+                     ("attention.value_length", 32), ("attention.sliding_window", 8),
+                     ("attention.layer_norm_rms_epsilon", 1e-6), ("vocab_size", 96),
+                     ("attn_logit_softcapping", 50.0), ("final_logit_softcapping", 30.0)):
+        w.add_kv(f"gemma2.{key}", val)
+    w.write()
+    jcfg = jax_config_from_gguf(JaxGGUFReader(path))
+    assert jcfg.swa_pattern == 2
+    cfg = config_from_reference(jcfg)
+    assert cfg == config_from_gguf(GGUFReader(path))
+    assert (cfg.swa_pattern, cfg.swa_window, cfg.attn_softcap, cfg.act) == (2, 8, 50.0, "gelu")
+    assert [cfg.layer_is_swa(il) for il in range(5)] == \
+        [jcfg.layer_is_swa(il) for il in range(5)] == [True, False, True, False, True]
+
+
 @pytest.mark.parametrize("key", ["pos_embd", "tok_norm", "output_norm_b", "output_b"])
 def test_check_supported_refuses_unused_top_level_tensors(q8_model, key):
     jp, jcfg = q8_model

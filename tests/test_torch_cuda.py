@@ -3,7 +3,9 @@ bit-identical from launch to launch and, as K7, bit-equal to K1/K2 on the
 layer, writing bf16 or f32; K3/K4 flash attention (K3/K3q, the cluster
 decode kernel, at the main path's T = 1 and 8 over 4096 cells and
 bit-identical from launch to launch),
-K3q/K4q on the int8 KV cache, K5 group-factored matmul, K6 chained layer
+K3q/K4q on the int8 KV cache, the wide kernels and their capped
+instantiations (gemma2's attention softcap, at cap 50 and 2), K5
+group-factored matmul, K6 chained layer
 tail and norm + matmul, K7 on stacked planes, the S1 probes, the S3
 flash-decode layout and q8 probes) held against
 their plain PyTorch versions on the card, at small and ragged shapes
@@ -417,6 +419,60 @@ def test_flash_decode_wide_is_bit_identical(cuda_device, Dk, Dv, q8):
                else a.to(cuda_device)) for n, a in t.items()}
     first, second = (cuda_attn._decode_launch(q8, **dev, scale=Dk ** -0.5, cluster=5)
                      for _ in range(2))
+    assert torch.equal(first, second)
+
+
+# the capped wide kernels (gemma2's attention softcap): Gemma-2-9B's heads
+# (16 over 8 of 256) at decode, prefill, a ragged S and T * G past 16;
+# Gemma-2-27B's (32 over 16 of 128, a shape the narrow kernels take, run
+# wide with one 128-dim chunk); G = 4 at 128. (T, H, Hkv, S, D)
+CAP_CASES = [(1, 16, 8, 4096, 256), (8, 16, 8, 4096, 256), (512, 16, 8, 4096, 256),
+             (3, 16, 8, 333, 256), (100, 16, 8, 1000, 256), (1, 32, 16, 4096, 128),
+             (8, 32, 16, 1000, 128), (512, 32, 16, 4096, 128), (40, 8, 2, 300, 128)]
+
+
+@pytest.mark.parametrize("cap", [50.0, 2.0], ids=["cap50", "cap2"])
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "q8_0"])
+@pytest.mark.parametrize("T,H,Hkv,S,D", CAP_CASES,
+                         ids=[f"T{t}-H{h}-Hkv{hk}-S{s}-D{d}" for t, h, hk, s, d in CAP_CASES])
+def test_flash_capped_kernels_match_plain(cuda_device, T, H, Hkv, S, D, q8, cap):
+    """K3w_cap/K4w_cap (K3qw_cap/K4qw_cap on (int8, scales) pairs) against
+    attn_plain(softcap=cap) at the uncapped kernels' atol = rtol = 1e-3,
+    each one launch of its capped kernel and none of another; cap 2 bends
+    most scores (|s| ~ 1 here), cap 50 gemma2's own. Past T = 1, row 0 is
+    a padding row."""
+    t = _attn_inputs(T, H, Hkv, S, ROPE_TYPE_NEOX, D=D)
+    if T == 1:  # a row that sees cells (_attn_inputs' row 0 sees none)
+        t["bias"] = torch.zeros((1, S)).masked_fill_(
+            torch.arange(S)[None] >= S - S // 4, float("-inf"))
+    if q8:
+        t["k"], t["v"] = _q8(t["k"]), _q8(t["v"])
+    dev = {n: (tuple(x.to(cuda_device) for x in a) if isinstance(a, tuple)
+               else a.to(cuda_device)) for n, a in t.items()}
+    fn = cuda_attn.flash_decode if T <= 8 else cuda_attn.flash_prefill
+    kern = ("K3" if T <= 8 else "K4") + ("q" if q8 else "") + "w_cap"
+    launched = dict(cuda_attn.LAUNCHES)
+    got = fn(**dev, scale=D ** -0.5, softcap=cap).cpu()
+    assert {k: v - launched[k] for k, v in cuda_attn.LAUNCHES.items() if v != launched[k]} \
+        == {kern: 1}
+    assert got.shape == (T, H, D) and torch.isfinite(got).all()
+    want = cuda_attn.attn_plain(**t, scale=D ** -0.5, softcap=cap)
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+    if cap == 2.0:  # the cap is live: the uncapped function is elsewhere
+        assert (want - cuda_attn.attn_plain(**t, scale=D ** -0.5)).abs().max() > 1e-2
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "q8_0"])
+def test_flash_decode_capped_is_bit_identical(cuda_device, q8):
+    """The capped K3w/K3qw meet their ranks in rank order: two launches at a
+    cluster of 5 give the same bits."""
+    t = _attn_inputs(3, 16, 8, 1000, ROPE_TYPE_NEOX, D=256)
+    if q8:
+        t["k"], t["v"] = _q8(t["k"]), _q8(t["v"])
+    dev = {n: (tuple(x.to(cuda_device) for x in a) if isinstance(a, tuple)
+               else a.to(cuda_device)) for n, a in t.items()}
+    first, second = (cuda_attn._decode_launch(q8, **dev, scale=256 ** -0.5, cluster=5,
+                                              softcap=50.0) for _ in range(2))
     assert torch.equal(first, second)
 
 

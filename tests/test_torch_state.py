@@ -8,7 +8,8 @@ state module: the same npz format both ways, for dense and q8_0 caches.
 - llm_tpu save -> port load and port save -> llm_tpu load, full and
   per-sequence: continuation logits agree at 2e-4;
 - legacy uint64 seq bit-sets still load; wrong magic, a layer-count
-  mismatch, a cache too small and a sliding-window ring raise.
+  mismatch and a cache too small raise; a file with a sliding-window ring's
+  keys loads into a Context without a ring, as into llm_tpu's.
 
 Models are dense f32 synthetic llama models made by llm_tpu and carried
 over with params_from_reference, so both packages compute the same model.
@@ -225,5 +226,9 @@ def test_state_load_errors(models, tmp_path):
     data["swa_seq_bits"] = data["seq_bits"]
     ring = str(tmp_path / "ring.npz")
     np.savez_compressed(ring, **data)
-    with pytest.raises(NotImplementedError):
-        state.state_load(b, ring)
+    # a Context without a ring ignores swa_* keys, as llm_tpu's does: the
+    # file loads into both, and the next step agrees (a ring Context's
+    # files: test_torch_iswa.py)
+    assert state.state_load(b, ring) == jax_state.state_load(ref := _jax(models, 64, "q8_0"),
+                                                             ring)
+    np.testing.assert_allclose(_continue(b, Batch), _continue(ref, JaxBatch), **TOL)
