@@ -25,7 +25,9 @@ prints no result line):
      there; libflash_probe.so keeps the split-S body and its combine for
      S3), and the capped wide kernels (gemma2's softcap) counted apart: 8
      flash_decode_tc_wide_cap (HMMA, TMA) and 2
-     flash_prefill_wgmma_wide_cap (HGMMA, TMA);
+     flash_prefill_wgmma_wide_cap (HGMMA, TMA); likewise the narrow
+     kernels' ALiBi instantiations: 12 flash_decode_tc_alibi (HMMA, TMA)
+     and 4 flash_prefill_wgmma_alibi (HGMMA, TMA);
   2. each kernel (K1/K2 quantized matmul: at B <= 16 the decode GEMV, at
      B = 1 and 8, at B > 16 the wgmma prefill GEMM, also at a ragged B =
      300; K3/K4 flash attention (K4, the
@@ -66,11 +68,19 @@ prints no result line):
      K4w_cap, K4qw_cap) at Gemma-2-9B's heads (16 over 8 of 256) and
      K3w_cap/K4w_cap at Gemma-2-27B's (32 over 16 of 128), each timed
      beside the uncapped kernel at the same shape and SDPA's uncapped time
-     (no one PyTorch call computes capped attention: library None);
+     (no one PyTorch call computes capped attention: library None); the
+     ALiBi kernels (K3_alibi, K3q_alibi, K4_alibi, K4q_alibi) on rope
+     NONE (no rope tables) at Baichuan-13B's heads (40 over 40 of 128, both
+     caches) and refact's (32 over 1 of 64, the run-time D kernels), each
+     timed beside the kernel without ALiBi at the same shape and SDPA with
+     the ALiBi term in its float mask (the library column); K1/K2 at every
+     Baichuan-13B matmul shape (Q8_0 down at K = 13696) at B = 1, 8 and
+     512;
   3. two layers at LLAMA3_8B width: Context.decode of a 64-token prompt and
-     8 greedy generate_loop steps, once on the card (kernels) and once on
-     the CPU (plain versions), from the same random weights; every step's
-     logits compared, and the greedy tokens; then the same with a q8_0 KV
+     8 greedy generate_loop steps on the card (kernels), the card's stream
+     decoded step by step on the card and on the CPU (plain versions), from
+     the same random weights; every step's logits compared, and the greedy
+     tokens (the CPU's: each step's argmax after the card's prefix); then the same with a q8_0 KV
      cache, whose card logits are also held against the bf16 cache's; then
      with chain=True, gdot=True (K5 on the unfused QKV of layer 0, K6 on
      layer 1's head, both tails and the lm_head); then the same card-vs-CPU
@@ -85,9 +95,12 @@ prints no result line):
      unfused attention, counted, no flash launch) and 264 (past 256: the
      same); then two layers of the real Gemma-2-9B config (gemma2: a
      sliding and a global layer, softcaps, post-norms, gelu, the tied Q6_K
-     lm_head) with a bf16 and a q8_0 cache (K3w_cap/K4w_cap,
-     K3qw_cap/K4qw_cap), and with the window cut to 32 (bf16 cache) so that
-     the mask bites inside the 64-token prompt;
+     lm_head) with the window cut to 32, so that the mask bites inside the
+     64-token prompt, and a bf16 cache (K3w_cap/K4w_cap), and at its own
+     window with a q8_0 cache (K3qw_cap/K4qw_cap); then two layers of
+     Baichuan-13B (its 13B profile: rope NONE, ALiBi) with a bf16 and a
+     q8_0 cache (K3_alibi/K4_alibi, K3q_alibi/K4q_alibi) and of
+     Refact-1.6B (ALiBi at G = 32, D = 64) with a bf16 cache;
   4. LLAMA3_8B, 32 layers, Q4_K_M-style random planes made on the card
      (first, K5 against its plain version at every p4 shape of these planes
      that phase 2 left out, attn_k among them): prefill 512 tokens, then 128
@@ -142,7 +155,7 @@ prints no result line):
      embeddings. TTFT, total time and aggregate decode tok/s logged, and the
      wall time of one batched step's token choice at B = 4 (sample_rows,
      greedy and sampled, and the argmax); the directory deleted;
- 11. Gemma-2-9B at full depth (42 layers, Q4_K_M-style random planes made
+ 11. Gemma-2-9B at 21 of its 42 layers (Q4_K_M-style random planes made
      on the card, tied Q6_K lm_head): the ISWA ring Context (8192 cells, a
      4608-cell ring) prefills 4608 tokens in 512-token steps and decodes
      128 greedy tokens, each on a reused ring cell (K3w_cap/K4w_cap, no
@@ -153,7 +166,14 @@ prints no result line):
      apart by more than it; a q8_0 ring (prefill 512, 32 tokens:
      K3qw_cap/K4qw_cap) whose first 128 prompt cells, in both of its
      tables, go through a state file into a fresh q8_0 ring Context, one
-     decode step against the uninterrupted one.
+     decode step against the uninterrupted one;
+ 12. Baichuan-13B at full depth (40 layers, Q4_K_M-style random planes made
+     on the card, Q8_0 ffn_down at K = 13696), rope NONE and ALiBi: 4096
+     cells, prefill 512 and 128 greedy tokens with the bf16 cache
+     (K3_alibi/K4_alibi, no other flash launch; profiled over 8 more
+     tokens; the cache's 3,355,443,200 bytes), the prompt's logits with
+     alibi_max_bias = 0 apart by more than the two-layer tolerance, and
+     the q8_0 cache (prefill 512, 32 tokens: K3q_alibi/K4q_alibi).
 The last lines are a JSON "kernels" line, the card line, and
 {"ok": true, "device": {...}}. It imports nothing of JAX or llm_tpu.
 """
@@ -272,13 +292,17 @@ S1_KERNELS = 18
 # at head dim 128 (flash_decode_tc) and at 64, 80, 96 and any other D
 # (flash_decode_tc_dim); the wide ones (flash_decode_tc_wide): bf16 / q8_0
 # x one or two n8 tiles x one or two 128-dim chunks; and as many capped
-# (gemma2's softcap: flash_decode_tc_wide_cap)
+# (gemma2's softcap: flash_decode_tc_wide_cap); and the narrow ones' ALiBi
+# instantiations at 128 and at any other D (flash_decode_tc_alibi)
 K3_CAP_KERNELS = 8
-K3_KERNELS = 6 * 5 + 8 + K3_CAP_KERNELS
+K3_ALIBI_KERNELS = 6 * 2
+K3_KERNELS = 6 * 5 + 8 + K3_CAP_KERNELS + K3_ALIBI_KERNELS
 # K4/K4q's: bf16 / q8_0 cache, at 128 and at 64, 80, 96 and any other D,
-# the wide one (flash_prefill_wgmma_wide) and the capped wide one
+# the wide one (flash_prefill_wgmma_wide), the capped wide one, and the
+# ALiBi ones at 128 and at any other D (flash_prefill_wgmma_alibi)
 K4_CAP_KERNELS = 2
-K4_KERNELS = 2 * 5 + 2 + K4_CAP_KERNELS
+K4_ALIBI_KERNELS = 2 * 2
+K4_KERNELS = 2 * 5 + 2 + K4_CAP_KERNELS + K4_ALIBI_KERNELS
 
 # S3's split-S kernels in libflash_probe.so: stacked v1 / v0 and the three
 # q8 modes
@@ -549,8 +573,38 @@ def per_sequence_bias(T: int, S: int, prompt: int, chunk: int = 8) -> torch.Tens
     return torch.where(seen, 0.0, float("-inf")).float().contiguous()
 
 
+ALIBI_KEYS = ("alibi_slopes", "tok_pos", "cell_pos")
+ROPE_KEYS = ("q_rot", "cos", "sin")
+
+
+def alibi_inputs(inp, T: int, S: int, H: int) -> dict:
+    """attn_inputs (a causal run of T tokens ending at position
+    S - S/2 - 1 over cells at positions 0..S-1) on rope NONE (no q_rot,
+    cos or sin), with ALiBi's slopes of max_bias 8 for H heads and the
+    tokens' and cells' positions in f32: Baichuan-13B's and refact's
+    attention."""
+    from llm_tpu_torch.models.transformer import alibi_slopes
+
+    slopes = torch.tensor(alibi_slopes(H, ALIBI_MAX_BIAS), dtype=torch.float32, device="cuda")
+    return {**{n: x for n, x in inp.items() if n not in ROPE_KEYS},
+            "q_rot": None, "cos": None, "sin": None, "alibi_slopes": slopes,
+            "tok_pos": (torch.arange(T, device="cuda") + S // 2 - T).float(),
+            "cell_pos": torch.arange(S, device="cuda").float()}
+
+
+def without_alibi(inp) -> dict:
+    """inp of alibi_inputs without the ALiBi term, on the identity rope
+    tables (q_rot 0, cos 1, sin 0) that the kernels without ALiBi read."""
+    q = inp["q"]
+    S, D = inp["bias"].shape[1], q.shape[-1]
+    return {**{n: x for n, x in inp.items() if n not in ALIBI_KEYS},
+            "q_rot": torch.zeros_like(q),
+            "cos": torch.ones((S, D), dtype=torch.bfloat16, device=q.device),
+            "sin": torch.zeros((S, D), dtype=torch.bfloat16, device=q.device)}
+
+
 def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False, Dv=None, prompt=None,
-               softcap=0.0):
+               softcap=0.0, alibi=False):
     """K3/K4 (K3q/K4q on q8_0 pairs; the wide kernels where Dk != Dv, past
     128 or at int8 rows of 8 mod 16 bytes) against attn_plain, timed beside
     their bound and SDPA. D is Dk; Dv None: D. prompt: each of the T rows is
@@ -561,7 +615,16 @@ def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False, Dv=None, promp
     must differ from attn_plain with it by more than the tolerance; no one
     PyTorch call computes capped attention, so the library column is None,
     with SDPA's uncapped time and the uncapped kernel's at the same shape
-    logged beside it."""
+    logged beside it. alibi: the narrow kernels' ALiBi instantiations
+    (K3_alibi, K3q_alibi, K4_alibi, K4q_alibi) on alibi_inputs against
+    attn_plain(alibi_slopes=, tok_pos=, cell_pos=), where attn_plain
+    without the term must differ by more than the tolerance; timed beside
+    the kernel without ALiBi at the same shape (on the identity rope
+    tables) and SDPA with the ALiBi term and the bias in its float mask
+    [1, H, T, S] (which computes the same function: the library column).
+    The bound counts what the function needs: the bytes of the tensors
+    given (an ALiBi call has no q_rot, cos or sin) and, under ALiBi, one
+    score dot of Dk, not the two of a rope fold."""
     from llm_tpu_torch.ops import cuda_attn
     from llm_tpu_torch.ops.rope import ROPE_TYPE_NORM, apply_rope
     from llm_tpu_torch.tools.kbench_attn import attn_inputs
@@ -571,6 +634,7 @@ def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False, Dv=None, promp
     seq_bias = None if prompt is None else per_sequence_bias(T, S, prompt)
 
     def prep(x):
+        x = alibi_inputs(x, T, S, H) if alibi else x
         return quant(x if seq_bias is None else {**x, "bias": seq_bias})
 
     inp, (c, s) = attn_inputs(T, H, Hkv, S, D, seed=S + T, Dv=Dv)
@@ -583,7 +647,7 @@ def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False, Dv=None, promp
     torch.cuda.synchronize()
     err = (out - want).abs().max().item()
     tol = 1e-3
-    nbytes = sum(tensor_bytes(t) for t in inp.values()) + T * H * Dv * 4
+    nbytes = sum(tensor_bytes(t) for t in inp.values() if t is not None) + T * H * Dv * 4
     ncp = copies_for(nbytes)
     inps = [inp] + [prep(attn_inputs(T, H, Hkv, S, D, seed=S + T + i, Dv=Dv)[0])
                     for i in range(1, ncp)]
@@ -593,16 +657,22 @@ def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False, Dv=None, promp
     # library yardstick: SDPA over pre-roped (and, for q8, pre-dequantized)
     # bf16 keys and values with the same additive mask
     kb, vb = (cuda_attn.dequant_bf16(inp[n]).to(torch.bfloat16) for n in ("k", "v"))
-    k_roped = apply_rope(kb.transpose(0, 1), c, s, ROPE_TYPE_NORM, D).transpose(0, 1)
+    k_roped = kb if alibi else \
+        apply_rope(kb.transpose(0, 1), c, s, ROPE_TYPE_NORM, D).transpose(0, 1)
     G = H // Hkv
     qs = inp["q"].transpose(0, 1)[None]
     ks = k_roped.repeat_interleave(G, dim=0)[None].contiguous()
     vs = vb.repeat_interleave(G, dim=0)[None].contiguous()
-    mask = inp["bias"].clamp(min=-1e30).to(torch.bfloat16)[None, None]
+    mask = inp["bias"].clamp(min=-1e30)[None, None]
+    if alibi:  # the ALiBi term of each head in the float mask [1, H, T, S]
+        dist = inp["tok_pos"][:, None] - inp["cell_pos"][None, :]
+        mask = mask - inp["alibi_slopes"][None, :, None, None] * dist[None, None]
+    mask = mask.to(torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = time_ms(lambda i: sdpa(qs, ks, vs, attn_mask=mask, scale=scale))
-    # two score dots of Dk and one P.V of Dv a query row and cell
-    flops = 2.0 * T * H * S * (2 * D + Dv)
+    # two score dots of Dk (the rope fold; under ALiBi, rope NONE, one) and
+    # one P.V of Dv a query row and cell, and ALiBi's multiply-add
+    flops = 2.0 * T * H * S * ((D + Dv + 1) if alibi else (2 * D + Dv))
     bmin, by = bound_ms(nbytes, flops)
     narrow = cuda_attn.is_narrow(D, Dv, q8)
     kern = ("K3" if T <= 8 else "K4") + ("q" if q8 else "") + ("" if narrow else "w")
@@ -610,6 +680,14 @@ def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False, Dv=None, promp
     if prompt is not None:
         dims += f" {T} sequences"
     extra = {}
+    if alibi:
+        # the term is live: a kernel without it fails
+        moves = (cuda_attn.attn_plain(**without_alibi(inp), scale=scale) - want).abs().max().item()
+        plain_inps = [without_alibi(x) for x in inps]
+        extra = dict(unalibi_kernel=kern, unalibi_ms=time_ms(
+            lambda i: fn(**plain_inps[i], scale=scale), ncp), alibi_moves_plain_by=moves)
+        kern += "_alibi"
+        dims += " alibi"
     if softcap > 0:
         # the cap is live at these scores: a kernel without it fails
         cap_moves = (cuda_attn.attn_plain(**inp, scale=scale) - want).abs().max().item()
@@ -626,8 +704,11 @@ def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False, Dv=None, promp
     if T > 8:
         # K4/K4q run every score and P.V product twice (bf16 hi + lo of
         # k*cos, k*sin and p): their floor is twice the operations bound,
-        # and a head dim below 128 is computed as 128 (its zero columns)
-        rec["floor_ms"] = 2 * flops / PEAK_BF16_FLOPS * 1e3
+        # and a head dim below 128 is computed as 128 (its zero columns);
+        # the ALiBi ones run the score dot once (k is exact in bf16) and
+        # P.V twice
+        work = 2.0 * T * H * S * (D + 2 * Dv) if alibi else 2 * flops
+        rec["floor_ms"] = work / PEAK_BF16_FLOPS * 1e3
         if narrow and not softcap and D < 128:
             rec["padded_floor_ms"] = rec["floor_ms"] * 128 / D
     log(json.dumps(rec))
@@ -636,6 +717,9 @@ def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False, Dv=None, promp
     if softcap > 0 and not extra["cap_moves_plain_by"] > tol:
         raise AssertionError(f"{kern} {rec['shape']}: the cap moves attn_plain by only "
                              f"{extra['cap_moves_plain_by']} <= {tol}")
+    if alibi and not extra["alibi_moves_plain_by"] > tol:
+        raise AssertionError(f"{kern} {rec['shape']}: ALiBi moves attn_plain by only "
+                             f"{extra['alibi_moves_plain_by']} <= {tol}")
     results.append(rec)
 
 
@@ -726,6 +810,27 @@ def phase_kernels():
         if T != 8:
             check_attn(results, name, T, 4096, H=16, Hkv=8, D=256, q8=True,
                        softcap=GEMMA2_CAP)
+    # the ALiBi kernels: Baichuan-13B's heads (40 over 40 of 128) and
+    # refact's (32 over 1 of 64: the run-time D kernels), at decode (T = 1,
+    # 8) and a 512-token prefill step over 4096 cells, both caches (refact's
+    # q8_0 cache keeps group scales at 64: the unfused attention)
+    for T, name in ((1, "decode half-masked"), (8, "decode T=8"), (512, "prefill")):
+        for q8 in (False, True):
+            check_attn(results, name, T, 4096, H=40, Hkv=40, D=128, q8=q8, alibi=True)
+        check_attn(results, name, T, 4096, H=32, Hkv=1, D=64, alibi=True)
+    # Baichuan-13B's matmuls (phase 12's Q4_K_M-style planes) at decode (B =
+    # 1, 8) and a 512-token prefill step: K = 5120 and N = 15360, 27392 and
+    # 5120 are new to decode_plan and gemm_split, and ffn_down is Q8_0 at K
+    # = 13696 (no multiple of 256: 107 stages of 128 k) in every layer; the
+    # use_more_bits layers run attn_q and attn_k unfused (the o_proj shape)
+    # and attn_v in Q6_K; the Q6_K lm_head (64000 rows) sees the output rows
+    for B in (1, 8, 512):
+        for name, K, N in BAICHUAN_MATMULS_Q4K:
+            check_qmm(results, name, Q4K, K, N, B)
+        check_qmm(results, "baichuan attn_v", Q6K, 5120, 5120, B)
+        check_qmm(results, "baichuan down", Q80, 13696, 5120, B)
+    for B in (1, 8):
+        check_qmm(results, "baichuan lm_head", Q6K, 5120, 64000, B)
     # K5 at the TPU package's gdot probe shapes (scripts/kbench6.py SHAPES;
     # "head" is a probe shape only: the main path's lm_head is Q6_K); every
     # shape the main path gives K5 is checked once its planes exist
@@ -758,6 +863,12 @@ GEMMA2_MATMULS_Q4K = (("gemma2 qkv", 3584, 8192), ("gemma2 attn_q", 3584, 4096),
                       ("gemma2 gate_up", 3584, 28672), ("gemma2 down", 14336, 3584))
 GEMMA2_MATMULS_Q6K = (("gemma2 attn_v", 3584, 2048), ("gemma2 down", 14336, 3584))
 GEMMA2_CAP = 50.0
+# Baichuan-13B's Q4_K matmuls (name, K, N): fused QKV, o_proj (and the
+# unfused attn_q / attn_k of the use_more_bits layers), fused gate+up; its
+# Q6_K attn_v and Q8_0 down are checked beside them; ALiBi's max_bias
+BAICHUAN_MATMULS_Q4K = (("baichuan qkv", 5120, 15360), ("baichuan o_proj", 5120, 5120),
+                        ("baichuan gate_up", 5120, 27392))
+ALIBI_MAX_BIAS = 8.0
 # the capped rows' score scale, in units of D^-0.5: attn_inputs' N(0, 1) q
 # and k give scores of about this standard deviation, whose largest
 # (~3.5 of it over 4096 cells) cap 50 moves by tens. At D^-0.5 alone the
@@ -884,23 +995,34 @@ TWO_LAYER_SEED = 5
 def two_layer_steps(seed: int, kv_dtype=None, devices=("cuda", "cpu"), chain=False,
                     gdot=False, geo=None, after_card=None):
     """Full width, 2 layers, one set of weights on each device. Each device
-    prefills a 64-token prompt (Context.decode) and generates 8 greedy
-    tokens (generate_loop). Then the card's token stream is fed back one
-    decode step at a time, so that every device's logits of every step come
-    from the same inputs. chain/gdot are Context's options; geo the widths
+    prefills a 64-token prompt (Context.decode). The card generates 8
+    greedy tokens (generate_loop), then its token stream is fed back one
+    decode step at a time on every device, so that every device's logits of
+    every step come from the same inputs. A device's greedy tokens are
+    those of generate_loop on the card and, on the CPU, the argmax of each
+    step's logits: the CPU's own greedy stream equals the card's exactly
+    when each card token is the CPU's argmax after the same prefix, so the
+    CPU runs no generate_loop of its own (8 forward passes of plain
+    dequantizing matmuls saved a row). chain/gdot are Context's options; geo the widths
     (LLAMA3_8B's by default); after_card, if given, is called right after
-    the card's run (to read counters before the CPU's run). Returns (cfg,
-    {device: logits [9, vocab]}, {device: greedy tokens})."""
+    the card's run (to read counters before the CPU's run); geo's
+    alibi_profile, if true, gives the model cfg's ALiBi profile (rope NONE,
+    ALiBi of max_bias 8: Baichuan-13B's, whose depth 40 selects it).
+    Returns (cfg, {device: logits [9, vocab]}, {device: greedy tokens})."""
     import numpy as np
 
     from llm_tpu_torch.gguf.constants import GGMLType
+    from llm_tpu_torch.models.config import alibi_profile
     from llm_tpu_torch.models.synthetic import LLAMA3_8B, make_synthetic_model
     from llm_tpu_torch.runtime.batch import Batch
     from llm_tpu_torch.runtime.engine import Context, params_to
 
     geo = dict(geo or LLAMA3_8B, n_layers=2)  # may carry arch and swa_window
+    profile = geo.pop("alibi_profile", False)
     params, cfg = make_synthetic_model(qtype=GGMLType.Q4_K, device="cuda", on_device=True,
                                        seed=seed, recipe="Q4_K_M", **geo)
+    if profile:
+        cfg = alibi_profile(cfg)
     prompt = [(i * 7919) % cfg.vocab_size for i in range(64)]
     toks, steps = {}, {}
     for dev in devices:
@@ -910,13 +1032,16 @@ def two_layer_steps(seed: int, kv_dtype=None, devices=("cuda", "cpu"), chain=Fal
                       chain=chain, gdot=gdot)
         assert ctx.decode(Batch.text(prompt)) == 0
         lg = [ctx.get_logits().copy()]
-        first = int(lg[0].argmax())
-        toks[dev] = [first] + ctx.generate_loop(first, 8)
-        ctx.seq_rm(0, len(prompt), -1)
+        if dev == "cuda":
+            first = int(lg[0].argmax())
+            toks[dev] = [first] + ctx.generate_loop(first, 8)
+            ctx.seq_rm(0, len(prompt), -1)
         for t in toks["cuda"][:-1]:
             assert ctx.decode(Batch.text([t])) == 0
             lg.append(ctx.get_logits().copy())
         steps[dev] = np.stack(lg)
+        if dev != "cuda":
+            toks[dev] = [int(x.argmax()) for x in steps[dev]]
         log(f"two-layer {dev} kv {kv_dtype} chain {chain} gdot {gdot}: "
             f"{time.perf_counter() - t0:.1f} s, tokens {toks[dev]}")
         if dev == "cuda" and after_card is not None:
@@ -1051,12 +1176,27 @@ HEAD_DIM_264 = dict(n_embd=2048, n_heads=32, n_kv_heads=8, n_ff=8192, vocab=1282
 GEMMA2_9B = dict(n_embd=3584, n_layers=42, n_heads=16, n_kv_heads=8, n_ff=14336,
                  vocab=256000, head_dim=256)
 # two layers of the real Gemma-2-9B config (layer 0 slides, layer 1 is
-# global; tied Q6_K lm_head of 256000 rows), and the same with the window
-# cut to 32 so that the mask bites inside the 64-token prompt (bf16 only:
-# the mask is the bias, whatever the cache; each such row costs ~1 min,
-# most of it the CPU dequantizing the lm_head in f32 at every step)
+# global; tied Q6_K lm_head of 256000 rows): with the window cut to 32 so
+# that the mask bites inside the 64-token prompt and a bf16 cache (a row at
+# its own window of 4096 would check nothing more: the 64 cells lie inside
+# it), and with the q8_0 cache at its own window (the mask is the bias,
+# whatever the cache). Each row costs ~1 min, most of it the CPU
+# dequantizing the lm_head in f32 at every step
 GEMMA2_9B_TWO = dict(arch="gemma2")
 GEMMA2_9B_W32 = dict(arch="gemma2", swa_window=32)
+# phase 11's depth: 21 of Gemma-2-9B's 42 layers (the sliding and global
+# layers alternate either way), cut for chip_smoke.py's time limit
+GEMMA2_PHASE11_LAYERS = 21
+# two layers of Baichuan-13B (models/synthetic.py BAICHUAN_13B) with its
+# 13B profile (rope NONE, ALiBi of max_bias 8, which its 40 layers select:
+# two_layer_steps applies alibi_profile to the cut model's config), and of
+# Refact-1.6B (REFACT_1_6B: ALiBi at G = 32, D = 64, the run-time D
+# kernels; its q8_0 cache keeps group scales at 64, so only the bf16 one)
+BAICHUAN_13B = dict(n_embd=5120, n_layers=40, n_heads=40, n_kv_heads=40, n_ff=13696,
+                    vocab=64000, head_dim=128)
+BAICHUAN_13B_TWO = dict(BAICHUAN_13B, arch="baichuan", alibi_profile=True)
+REFACT_1_6B_TWO = dict(n_embd=2048, n_heads=32, n_kv_heads=1, n_ff=5632, vocab=49216,
+                       head_dim=64, arch="refact")
 WIDTHS_SEED = 5
 
 
@@ -1092,12 +1232,16 @@ def phase_two_layers_widths():
              ("K3w", "K4w")),
             ("head_dim 100", HEAD_DIM_100, None, TWO_LAYER_REL_TOL, ()),
             ("head_dim 264", HEAD_DIM_264, None, TWO_LAYER_REL_TOL, ()),
-            ("Gemma-2-9B", dict(GEMMA2_9B, **GEMMA2_9B_TWO), None, TWO_LAYER_REL_TOL,
-             ("K3w_cap", "K4w_cap")),
+            ("Gemma-2-9B window cut to 32", dict(GEMMA2_9B, **GEMMA2_9B_W32), None,
+             TWO_LAYER_REL_TOL, ("K3w_cap", "K4w_cap")),
             ("Gemma-2-9B", dict(GEMMA2_9B, **GEMMA2_9B_TWO), "q8_0", TWO_LAYER_Q8_REL_TOL,
              ("K3qw_cap", "K4qw_cap")),
-            ("Gemma-2-9B window cut to 32", dict(GEMMA2_9B, **GEMMA2_9B_W32), None,
-             TWO_LAYER_REL_TOL, ("K3w_cap", "K4w_cap"))):
+            ("Baichuan-13B", BAICHUAN_13B_TWO, None, TWO_LAYER_REL_TOL,
+             ("K3_alibi", "K4_alibi")),
+            ("Baichuan-13B", BAICHUAN_13B_TWO, "q8_0", TWO_LAYER_Q8_REL_TOL,
+             ("K3q_alibi", "K4q_alibi")),
+            ("Refact-1.6B", REFACT_1_6B_TWO, None, TWO_LAYER_REL_TOL,
+             ("K3_alibi", "K4_alibi"))):
         t0 = time.perf_counter()
         cuda_attn.reset_launches()
         attention.LAUNCHES["unfused"] = 0
@@ -1117,6 +1261,7 @@ def phase_two_layers_widths():
         # how far below the CPU's top logit the card's pick lies, per step
         below = [float(lc[i].max() - lc[i, t]) for i, t in enumerate(tg)]
         rec = dict(two_layer_widths=name, arch=cfg.arch, swa_window=cfg.swa_window,
+                   alibi_max_bias=cfg.alibi_max_bias, rope_mode=cfg.rope.mode,
                    head_dim=cfg.head_dim, head_dim_v=cfg.head_dim_v,
                    G=cfg.n_heads // cfg.n_kv_heads, unfused_attention_calls=unfused,
                    kv_dtype=str(kv_dtype), logits_max_abs_err=err, tol=tol,
@@ -2116,7 +2261,8 @@ def gemma2_9b_planes():
 
     t0 = time.perf_counter()
     params, cfg = make_synthetic_model(qtype=GGMLType.Q4_K, device="cuda", on_device=True,
-                                       seed=11, recipe="Q4_K_M", arch="gemma2", **GEMMA2_9B)
+                                       seed=11, recipe="Q4_K_M", arch="gemma2",
+                                       **dict(GEMMA2_9B, n_layers=GEMMA2_PHASE11_LAYERS))
     torch.cuda.synchronize()
     from llm_tpu_torch.quant.qtensor import QTensor
 
@@ -2232,7 +2378,7 @@ def replay_past_prompt(ring, full, stream) -> dict:
 
 
 def phase_gemma2_9b() -> dict:
-    """Phase 11: Gemma-2-9B at full width and depth (42 layers, Q4_K_M-style
+    """Phase 11: Gemma-2-9B at full width and 21 of its 42 layers (Q4_K_M-style
     random planes made on the card from seed 11, tied Q6_K lm_head).
     (a) the ISWA ring Context (8192 cells, ring 4608): prefill 4608 tokens
         in 512-token steps, then 128 greedy tokens, every decode step on a
@@ -2339,6 +2485,118 @@ def phase_gemma2_9b() -> dict:
     return out
 
 
+# phase 12: Baichuan-13B at full depth (40 layers) on 4096 cells: a
+# 512-token prefill and 128 greedy tokens with the bf16 cache, 512 + 32
+# with the q8_0 one
+BAICHUAN_CELLS = 4096
+BAICHUAN_PROMPT, BAICHUAN_DECODE = 512, 128
+BAICHUAN_Q8_PROMPT, BAICHUAN_Q8_DECODE = 512, 32
+
+
+def baichuan_13b_planes():
+    from llm_tpu_torch.gguf.constants import GGMLType
+    from llm_tpu_torch.models.synthetic import make_synthetic_model
+    from llm_tpu_torch.quant.qtensor import QTensor
+
+    t0 = time.perf_counter()
+    params, cfg = make_synthetic_model(qtype=GGMLType.Q4_K, device="cuda", on_device=True,
+                                       seed=13, recipe="Q4_K_M", arch="baichuan",
+                                       **BAICHUAN_13B)
+    torch.cuda.synchronize()
+    leaves = [v for layer in params["layers"] for v in layer.values()]
+    leaves += [params["tok_embd"], params["output"]]
+    types = {}
+    for v in leaves:
+        if isinstance(v, QTensor):
+            types[v.ggml_type.name] = types.get(v.ggml_type.name, 0) + 1
+    nbytes = sum(qt_bytes(v) for v in leaves if isinstance(v, QTensor))
+    log(json.dumps(dict(baichuan_13b_planes_s=time.perf_counter() - t0, planes_bytes=nbytes,
+                        planes_gib=nbytes / 2**30, plane_types=types)))
+    downs = [layer["ffn_down"].ggml_type.name for layer in params["layers"]]
+    if downs != ["Q8_0"] * cfg.n_layers:
+        raise AssertionError(f"ffn_down at K = 13696 must fall back to Q8_0: {downs}")
+    return params, cfg
+
+
+def phase_baichuan_13b() -> dict:
+    """Phase 12: Baichuan-13B at full width and depth (40 layers, Q4_K_M-
+    style random planes made on the card from seed 13: Q8_0 ffn_down at K =
+    13696, Q6_K attn_v in the use_more_bits layers and the lm_head), its 13B
+    profile: rope NONE and ALiBi of max_bias 8.
+    (a) the bf16 cache (4096 cells): prefill 512 tokens, then 128 greedy
+        tokens; launches by kernel (K3_alibi / K4_alibi a layer a step, no
+        other flash launch); profiled over 8 more tokens; the cache's
+        bytes (2 x 40 layers x 40 heads x 4096 cells x 128 x 2 B);
+    (b) the same planes with alibi_max_bias = 0: the prompt's last logits
+        apart from (a)'s by more than the two-layer tolerance (ALiBi is
+        live at full depth);
+    (c) the q8_0 cache: prefill 512, 32 greedy tokens (K3q_alibi,
+        K4q_alibi).
+    Returns the ALiBi kernels' launches of (a) and (c)."""
+    import dataclasses
+
+    import numpy as np
+
+    from llm_tpu_torch.ops.rope import ROPE_TYPE_NONE
+    from llm_tpu_torch.runtime.batch import Batch
+    from llm_tpu_torch.runtime.engine import Context
+    from llm_tpu_torch.tools.profile_decode import profile_tokens
+
+    params, cfg = baichuan_13b_planes()
+    if not (cfg.alibi_max_bias == ALIBI_MAX_BIAS and cfg.rope.mode == ROPE_TYPE_NONE):
+        raise AssertionError(f"not the 13B profile: {cfg}")
+    out = {}
+    ctx = Context(None, n_cells=BAICHUAN_CELLS, device="cuda", params_cfg=(params, cfg))
+    keep = {}
+    counts, rec = run_llama3_8b(ctx, ("K3_alibi", "K4_alibi"), keep, BAICHUAN_DECODE,
+                                BAICHUAN_PROMPT)
+    out.update(K3_alibi=counts["K3_alibi"], K4_alibi=counts["K4_alibi"])
+    prof = profile_tokens(ctx, rec["last_token"], 8)
+    log("profile_decode " + json.dumps(prof))
+    check_gemv_profile(prof)
+    check_attn_profile(prof, cfg.n_layers)
+    want_bytes = 2 * cfg.n_layers * cfg.n_kv_heads * BAICHUAN_CELLS * cfg.head_dim * 2
+    log(json.dumps(dict(phase=12, path="Baichuan-13B bf16 cache", kv_bytes=rec["kv_bytes"],
+                        ms_per_token=1e3 / rec["decode_tok_s"],
+                        prefill_tok_s=rec["prefill_tok_s"], peak_mem_gib=rec["peak_mem_gib"],
+                        device_busy_ms_per_token=prof["device_busy_ms_per_token"],
+                        idle_share=prof["idle_share"],
+                        device_launches_per_token=prof["device_launches_per_token"],
+                        decode_bound_tok_s=rec["decode_bound_tok_s"],
+                        distinct_tokens=len(set(keep["tokens"])))))
+    if rec["kv_bytes"] != want_bytes:
+        raise AssertionError(f"the cache holds {rec['kv_bytes']} bytes, not {want_bytes}")
+    del ctx
+    torch.cuda.empty_cache()
+
+    # (b) ALiBi off: the same planes without the term
+    flat = Context(None, n_cells=BAICHUAN_CELLS, device="cuda",
+                   params_cfg=(params, dataclasses.replace(cfg, alibi_max_bias=0.0)))
+    assert flat.decode(Batch.text(main_prompt(cfg.vocab_size, BAICHUAN_PROMPT))) == 0
+    lf = keep["logits"]
+    diff = float(np.abs(flat.get_logits() - lf).max())
+    tol = TWO_LAYER_REL_TOL * float(np.abs(lf).max())
+    log(json.dumps(dict(phase=12, no_alibi_vs_alibi_prompt_max_abs_diff=diff, tol=tol)))
+    if not diff > tol:
+        raise AssertionError(f"alibi_max_bias=0 moves the prompt's logits by only {diff}")
+    del flat
+    torch.cuda.empty_cache()
+
+    # (c) the q8_0 cache: K3q_alibi / K4q_alibi
+    q8 = Context(None, n_cells=BAICHUAN_CELLS, device="cuda", params_cfg=(params, cfg),
+                 kv_dtype="q8_0")
+    counts_q8, rec_q8 = run_llama3_8b(q8, ("K3q_alibi", "K4q_alibi"), None, BAICHUAN_Q8_DECODE,
+                                      BAICHUAN_Q8_PROMPT)
+    out.update(K3q_alibi=counts_q8["K3q_alibi"], K4q_alibi=counts_q8["K4q_alibi"])
+    log(json.dumps(dict(phase=12, path="Baichuan-13B q8_0 cache", kv_bytes=rec_q8["kv_bytes"],
+                        ms_per_token=1e3 / rec_q8["decode_tok_s"],
+                        prefill_tok_s=rec_q8["prefill_tok_s"],
+                        peak_mem_gib=rec_q8["peak_mem_gib"])))
+    del q8, params
+    torch.cuda.empty_cache()
+    return out
+
+
 REPLACES = {
     "K1": ("llm_tpu_torch/csrc/qmm_decode.cu", "llm_tpu/ops/pallas_qmm.py:159"),
     "K2": ("llm_tpu_torch/csrc/qmm_decode.cu", "llm_tpu/ops/pallas_qmm.py:149"),
@@ -2357,6 +2615,12 @@ REPLACES = {
     "K4w_cap": ("llm_tpu_torch/csrc/flash_prefill.cu", "llm_tpu/ops/pallas_attn.py:328"),
     "K3qw_cap": ("llm_tpu_torch/csrc/flash_attn.cu", "llm_tpu/ops/pallas_attn.py:135"),
     "K4qw_cap": ("llm_tpu_torch/csrc/flash_prefill.cu", "llm_tpu/ops/pallas_attn.py:341"),
+    # the ALiBi term of the TPU kernels' bodies (_decode_body :83-96,
+    # _prefill_body :294-302), reached through the same entries
+    "K3_alibi": ("llm_tpu_torch/csrc/flash_attn.cu", "llm_tpu/ops/pallas_attn.py:123"),
+    "K4_alibi": ("llm_tpu_torch/csrc/flash_prefill.cu", "llm_tpu/ops/pallas_attn.py:328"),
+    "K3q_alibi": ("llm_tpu_torch/csrc/flash_attn.cu", "llm_tpu/ops/pallas_attn.py:135"),
+    "K4q_alibi": ("llm_tpu_torch/csrc/flash_prefill.cu", "llm_tpu/ops/pallas_attn.py:341"),
     "K5": ("llm_tpu_torch/csrc/qmm_decode.cu", "llm_tpu/ops/pallas_qmm.py:195"),
     "K6": ("llm_tpu_torch/csrc/qmm_chain.cu", "llm_tpu/ops/pallas_qmm_chain.py:107"),
     "K7": ("llm_tpu_torch/csrc/qmm_decode.cu", "llm_tpu/ops/pallas_qmm.py:481"),
@@ -2385,6 +2649,11 @@ HEADLINE = {"K1": "gate_up Q4_K K=4096 N=28672 B=1",
             "K4w_cap": "prefill T=512 S=4096 H=16 Hkv=8 D=256 cap=50",
             "K3qw_cap": "decode half-masked T=1 S=4096 H=16 Hkv=8 D=256 cap=50",
             "K4qw_cap": "prefill T=512 S=4096 H=16 Hkv=8 D=256 cap=50",
+            # the ALiBi kernels at Baichuan-13B's heads (phase 12)
+            "K3_alibi": "decode half-masked T=1 S=4096 H=40 Hkv=40 D=128 alibi",
+            "K4_alibi": "prefill T=512 S=4096 H=40 Hkv=40 D=128 alibi",
+            "K3q_alibi": "decode half-masked T=1 S=4096 H=40 Hkv=40 D=128 alibi",
+            "K4q_alibi": "prefill T=512 S=4096 H=40 Hkv=40 D=128 alibi",
             "K5": "gu Q4_K K=4096 N=28672 B=1",
             "K6": "tail Q6_K down B=1",
             "K7": "gate_up Q4_K K=4096 N=28672 B=1",
@@ -2454,6 +2723,13 @@ def main() -> int:
                ("HMMA", "UTMALDG"), ())
     check_sass("capped_prefill_sass", {"flash_prefill": K4_CAP_KERNELS},
                "flash_prefill_wgmma_wide_cap", ("HGMMA", "UTMALDG"), ())
+    # the ALiBi instantiations of the narrow kernels (Baichuan-13B, refact),
+    # counted apart: K3_alibi/K3q_alibi issue mma.sync and TMA loads,
+    # K4_alibi/K4q_alibi wgmma and TMA loads
+    check_sass("alibi_decode_sass", {"flash_attn": K3_ALIBI_KERNELS}, "flash_decode_tc_alibi",
+               ("HMMA", "UTMALDG"), ())
+    check_sass("alibi_prefill_sass", {"flash_prefill": K4_ALIBI_KERNELS},
+               "flash_prefill_wgmma_alibi", ("HGMMA", "UTMALDG"), ())
     # S3's library keeps the split-S body that K3/K3q no longer run, and its
     # combine kernel
     check_sass("probe_split_sass", {"flash_probe": S3_SPLIT_KERNELS}, "flash_probe_split", (), ())
@@ -2518,22 +2794,28 @@ def main() -> int:
     log(f"LLAMA3_8B GGUF through the CLI passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     counts_gemma2 = phase_gemma2_9b()
-    log(f"Gemma-2-9B at full depth passed in {time.perf_counter() - t0:.1f} s")
+    log(f"Gemma-2-9B at 21 layers passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts_baichuan = phase_baichuan_13b()
+    log(f"Baichuan-13B at full depth passed in {time.perf_counter() - t0:.1f} s")
     # each kernel's launches from the path that runs it: K1-K4 from phase 4,
     # K3q/K4q from phase 5, K5 from phase 6, K6 from phase 7, K7 from phase
     # 8, the wide K3w/K4w/K3qw/K4qw from phase 3's Gemma-2-2B and
     # DeepSeek-V2-Lite twins (their card runs), the capped ones from phase
-    # 11 (K3w_cap/K4w_cap its ring run, K3qw_cap/K4qw_cap its q8_0 one), S1
-    # from the kbench run, S3 from the kbench_attn run
+    # 11 (K3w_cap/K4w_cap its ring run, K3qw_cap/K4qw_cap its q8_0 one), the
+    # ALiBi ones from phase 12 (its bf16 and q8_0 runs), S1 from the kbench
+    # run, S3 from the kbench_attn run
     counts = {**counts, "K3q": counts_q8["K3q"], "K4q": counts_q8["K4q"],
               "K5": counts_gdot["K5"], "K6": counts_chain["K6"], "K7": counts_scan["K7"],
               **{k: sum(r["attn_launches"][k] for r in widths)
                  for k in ("K3w", "K4w", "K3qw", "K4qw")},
-              **{k: counts_gemma2[k] for k in ("K3w_cap", "K4w_cap", "K3qw_cap", "K4qw_cap")}}
+              **{k: counts_gemma2[k] for k in ("K3w_cap", "K4w_cap", "K3qw_cap", "K4qw_cap")},
+              **counts_baichuan}
 
     kernels = []
     for k in ("K1", "K2", "K3", "K4", "K3q", "K4q", "K3w", "K4w", "K3qw", "K4qw", "K3w_cap",
-              "K4w_cap", "K3qw_cap", "K4qw_cap", "K5", "K6", "K7"):
+              "K4w_cap", "K3qw_cap", "K4qw_cap", "K3_alibi", "K4_alibi", "K3q_alibi",
+              "K4q_alibi", "K5", "K6", "K7"):
         mine = [r for r in results if r["kernel"] == k]
         head = next(r for r in mine if r["shape"] == HEADLINE[k])
         src, rep = REPLACES[k]
@@ -2544,7 +2826,8 @@ def main() -> int:
             bound_by=head["bound_by"], library_ms=head["library_ms"],
             shape=head["shape"], passed=True,
             **{f: head[f] for f in ("k1_ms", "unfused_ms", "unstacked_ms", "uncapped_kernel",
-                                    "uncapped_ms", "sdpa_uncapped_ms") if f in head}))
+                                    "uncapped_ms", "sdpa_uncapped_ms", "unalibi_kernel",
+                                    "unalibi_ms", "sdpa_backend") if f in head}))
         if k in PREFILL_HEADLINE:
             pre = next(r for r in mine if r["shape"] == PREFILL_HEADLINE[k])
             kernels[-1]["prefill"] = {"source": PREFILL_SOURCE[k], **{f: pre[f] for f in (

@@ -88,6 +88,26 @@
 // mma.sync rather than wgmma: the 4 query rows of a KV head at T = 1 would
 // be padded 16x to wgmma's 64-row side; mma.sync pads them to 8.
 //
+// ALiBi (Baichuan-13B, refact: pallas_attn.py _decode_body's slopes_ref /
+// dist_ref term, score -= slope_h * (pos_q - pos_k) after the scale and
+// before the bias) is the ALIBI instantiation of the same CTA body, in
+// __global__s of their own (flash_decode_tc_alibi<Q8, NR, DT>, at D = 128
+// and at any other D at run time, DT = 0) so that the kernels above keep
+// their names and machine code. Every ALiBi model runs rope NONE, so the
+// ALIBI body folds no rope: no cos / sin tiles and no q_rot, and the
+// scores are one chain S^T = k . q^T (k is bf16, or K3q's dequantized
+// bf16: exact A operands with no hi / lo split). The inputs are the
+// positions themselves, tok_pos [T] and cell_pos [S] f32: the block's 64
+// cell positions travel with its bias rows, by the producer lanes' 4-byte
+// cp.async into the stage; each consumer thread reads its rows' slopes and
+// token positions once, before the block loop (head h*G + r % G of row
+// r), and the scale-and-bias step becomes s * scale2 - slope log2e *
+// (tok_pos[t] - cell_pos[s]) + max(bias, -1e30) log2e. The difference of
+// two integer positions below 2^24 is exact in f32: the reference's dist,
+// which keeps the cells near the query near 0 (dropping the row-constant
+// -slope * pos_q would leave scores near slope * pos_k, ~3400 at S = 4096,
+// where an f32 ulp is 2.4e-4).
+//
 // The prefill kernels K4/K4q (T > 8) are flash_prefill.cu's, and the S3
 // probes flash_probe.cu's (the split-S body of flash_decode.cuh):
 // libraries of their own, so that each keeps its machine code.
@@ -118,18 +138,21 @@ constexpr int DA_HALF = DA_BLK * 128;           // one 64-dim half of a bf16 blo
 constexpr int DA_SC_WORDS = DA_BLK / 2 + 1;     // words that cover 64 bf16 scales
 constexpr int DA_FULL_ARRIVALS = 33;            // lane 0's expect_tx, then 32 lanes' cp.async
 
-// shared memory: the ring, then q and q_rot, then K3q's dequantized V tiles
-template <bool Q8>
+// shared memory: the ring, then q and q_rot, then K3q's dequantized V tiles;
+// ALIBI: no cos and sin in a stage, and the block's cell positions [64] f32
+template <bool Q8, bool ALIBI = false>
 struct DecSmem {
   static constexpr int KV_BYTES = Q8 ? DA_BLK * DA_D : 2 * DA_HALF;
+  static constexpr int CS_BYTES = ALIBI ? 0 : 2 * DA_HALF;  // a rope table, two halves
   static constexpr int K_OFF = 0;
   static constexpr int V_OFF = KV_BYTES;
   static constexpr int C_OFF = 2 * KV_BYTES;           // cos, two halves
-  static constexpr int S_OFF = C_OFF + 2 * DA_HALF;    // sin, two halves
-  static constexpr int B_OFF = S_OFF + 2 * DA_HALF;    // bias [T][64] f32
+  static constexpr int S_OFF = C_OFF + CS_BYTES;       // sin, two halves
+  static constexpr int B_OFF = S_OFF + CS_BYTES;       // bias [T][64] f32
+  static constexpr int P_OFF = B_OFF + DA_MAX_T * DA_BLK * 4;  // ALIBI: cell_pos [64] f32
   // K3q: the 4-byte words that hold the block's K and V scales (bf16,
   // starting at element (h*S + s0) & 1 of the first word)
-  static constexpr int KS_OFF = B_OFF + DA_MAX_T * DA_BLK * 4;
+  static constexpr int KS_OFF = P_OFF + (ALIBI ? DA_BLK * 4 : 0);
   static constexpr int VS_OFF = KS_OFF + 4 * DA_SC_WORDS;
   static constexpr int STAGE = ((Q8 ? VS_OFF + 4 * DA_SC_WORDS : KS_OFF) + 1023) / 1024 * 1024;
   static constexpr int RING = DA_STAGES * STAGE;
@@ -164,6 +187,13 @@ struct DecArgs {
   int T, H, Hkv, G, S, R, bpr;  // R = T*G rows; bpr: blocks of 64 cells a rank
   float scale2;                 // scale * log2 e
   int D;                        // head dim (read only by flash_decode_tc_dim<.., 0>)
+};
+
+// the ALiBi kernels' inputs, f32: slopes [H], tok_pos [T], cell_pos [S]
+struct DecAlibi {
+  const float* slopes;
+  const float* tok_pos;
+  const float* cell_pos;
 };
 
 // 4 bytes (the first `bytes` of them read, the rest zero) into shared memory
@@ -203,15 +233,17 @@ __device__ __forceinline__ void dq16(uint4 raw, float s, uint4& lo, uint4& hi) {
   dq4(raw.w, s, hi.z, hi.w);
 }
 
-// the producer warp: blocks [b0, b1) of KV head h into the ring
-template <bool Q8>
+// the producer warp: blocks [b0, b1) of KV head h into the ring (ALIBI:
+// no cos and sin; the cell positions beside the bias rows)
+template <bool Q8, bool ALIBI = false>
 __device__ __forceinline__ void da_producer(const CUtensorMap* tmk, const CUtensorMap* tmv,
                                             const CUtensorMap* tmc, const CUtensorMap* tms,
                                             const DecArgs& a, uint32_t sm, uint32_t full0,
-                                            uint32_t empty0, int h, int b0, int b1) {
-  using L = DecSmem<Q8>;
+                                            uint32_t empty0, int h, int b0, int b1,
+                                            const float* cell_pos = nullptr) {
+  using L = DecSmem<Q8, ALIBI>;
   const int lane = threadIdx.x & 31;
-  const uint32_t tx = 2 * L::KV_BYTES + 4 * DA_HALF;
+  const uint32_t tx = 2 * L::KV_BYTES + 2 * L::CS_BYTES;
   const long long sc_bytes = 2LL * a.Hkv * a.S;
   for (int j = 0; j < b1 - b0; ++j) {
     const int slot = j % DA_STAGES;
@@ -230,16 +262,24 @@ __device__ __forceinline__ void da_producer(const CUtensorMap* tmk, const CUtens
           tma_3d(st + L::V_OFF + hf * DA_HALF, tmv, full, 64 * hf, s0, h);
         }
       }
+      if constexpr (!ALIBI) {
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        tma_2d(st + L::C_OFF + hf * DA_HALF, tmc, full, 64 * hf, s0);
-        tma_2d(st + L::S_OFF + hf * DA_HALF, tms, full, 64 * hf, s0);
+        for (int hf = 0; hf < 2; ++hf) {
+          tma_2d(st + L::C_OFF + hf * DA_HALF, tmc, full, 64 * hf, s0);
+          tma_2d(st + L::S_OFF + hf * DA_HALF, tms, full, 64 * hf, s0);
+        }
       }
     }
     for (int i = lane; i < a.T * DA_BLK; i += 32) {
       const int t = i / DA_BLK, s = s0 + i % DA_BLK;
       cp_async4(st + L::B_OFF + 4 * i, a.bias + (size_t)t * a.S + min(s, a.S - 1),
                 s < a.S ? 4 : 0);
+    }
+    if constexpr (ALIBI) {
+      for (int i = lane; i < DA_BLK; i += 32) {
+        const int s = s0 + i;
+        cp_async4(st + L::P_OFF + 4 * i, cell_pos + min(s, a.S - 1), s < a.S ? 4 : 0);
+      }
     }
     if (Q8) {
       const long long w0 = ((long long)h * a.S + s0) >> 1;
@@ -281,13 +321,16 @@ __device__ __forceinline__ uint32_t mov_t(uint32_t x) {
 // KV head at T = 1 fill half a side of 8, where they would fill a quarter of
 // 16): S^T = [kc | ks] . [q | q_rot]^T, then O^T += V^T . P^T. Leaves the
 // warp's (m, l, O^T) in registers: acc[dim tile][row tile] holds dims
-// 16 dm + g (+ 8) of rows 8 nr + 2t (+ 1).
-template <bool Q8, int NR>
+// 16 dm + g (+ 8) of rows 8 nr + 2t (+ 1). ALIBI: no rope, S^T = k . q^T,
+// and each score's term slope log2e * (tok_pos - cell_pos) from al.
+template <bool Q8, int NR, bool ALIBI = false>
 __device__ __forceinline__ void da_consumer(const DecArgs& a, uint8_t* smem, uint32_t full0,
                                             uint32_t empty0, int h, int r0, int b0, int b1,
                                             float (&acc)[8][NR][4], float (&m)[NR][2],
-                                            float (&l)[NR][2]) {
-  using L = DecSmem<Q8>;
+                                            float (&l)[NR][2],
+                                            const DecAlibi& al = DecAlibi{nullptr, nullptr,
+                                                                          nullptr}) {
+  using L = DecSmem<Q8, ALIBI>;
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
   const int cw0 = DA_CELLS * w;  // the warp's first cell of a block
   // the bias row (token) of each of the thread's rows 8 nr + 2t (+ 1);
@@ -297,6 +340,18 @@ __device__ __forceinline__ void da_consumer(const DecArgs& a, uint8_t* smem, uin
   for (int nr = 0; nr < NR; ++nr)
 #pragma unroll
     for (int i = 0; i < 2; ++i) tok[nr][i] = min((r0 + 8 * nr + 2 * t4 + i) / a.G, a.T - 1);
+  // ALIBI: each row's slope times log2 e, head h*G + r % G, and its
+  // token's position (padding rows too: they are never written)
+  float slope2[ALIBI ? NR : 1][2], tpos[ALIBI ? NR : 1][2];
+  if constexpr (ALIBI) {
+#pragma unroll
+    for (int nr = 0; nr < NR; ++nr)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        slope2[nr][i] = al.slopes[h * a.G + (r0 + 8 * nr + 2 * t4 + i) % a.G] * DA_LOG2E;
+        tpos[nr][i] = al.tok_pos[tok[nr][i]];
+      }
+  }
   // the lane's ldmatrix row of V^T's A fragments: cell (lane % 8) + 8 (lane / 16),
   // dims + 8 ((lane / 8) % 2)
   const int v_cell = (lane & 7) + 8 * (lane >> 4), v_col = 8 * ((lane >> 3) & 1);
@@ -309,11 +364,13 @@ __device__ __forceinline__ void da_consumer(const DecArgs& a, uint8_t* smem, uin
     const uint8_t* qa = smem + L::Q_OFF + (kk >> 2) * (DA_ROWS * 128);
     const int o = swz(8 * nr + g, 32 * (kk & 3) + 8 * t4);
     const uint2 x = *reinterpret_cast<const uint2*>(qa + o);
-    const uint2 y = *reinterpret_cast<const uint2*>(qa + 2 * DA_ROWS * 128 + o);
     qb[0] = x.x;
     qb[1] = x.y;
-    rb[0] = y.x;
-    rb[1] = y.y;
+    if constexpr (!ALIBI) {  // ALIBI: no q_rot
+      const uint2 y = *reinterpret_cast<const uint2*>(qa + 2 * DA_ROWS * 128 + o);
+      rb[0] = y.x;
+      rb[1] = y.y;
+    }
   };
   // up to 16 rows the B fragments of q and q_rot stay in registers; past
   // that two are read from shared memory at each k16 step
@@ -347,55 +404,92 @@ __device__ __forceinline__ void da_consumer(const DecArgs& a, uint8_t* smem, uin
     for (int nr = 0; nr < NR; ++nr)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sh[nr][e] = sl[nr][e] = 0.f;
+    if constexpr (ALIBI) {
+      // no rope: S^T = k . q^T, k's A fragments as they stand (cells g and
+      // g + 8, dims 4t..4t+3 of the step), exact in bf16
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const int hf = kk >> 2;  // the 64-dim half of dims 16kk..16kk+15
-      // A fragments of k*cos and k*sin: cells g (a0, a2) and g + 8 (a1,
-      // a3), dims 4t..4t+3 of the step; hi = bf16(k*c) and -lo = bf16(hi -
-      // k*c), both exact (k*c has at most 16 significant bits, hi - k*c at
-      // most 8)
-      uint32_t chi[4], cnl[4], shi[4], snl[4];
+      for (int kk = 0; kk < 8; ++kk) {
+        const int hf = kk >> 2;
+        uint32_t ka[4];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int c = cw0 + g + 8 * i;
-        const int cb = swz(c, 32 * (kk & 3) + 8 * t4) + hf * DA_HALF;
-        uint32_t k2[2];
-        if (Q8) {
-          dq4(*reinterpret_cast<const uint32_t*>(st + L::K_OFF + swz(c, 16 * kk + 4 * t4)),
-              kscale[i], k2[0], k2[1]);
-        } else {
-          const uint2 kw = *reinterpret_cast<const uint2*>(st + L::K_OFF + cb);
-          k2[0] = kw.x;
-          k2[1] = kw.y;
+        for (int i = 0; i < 2; ++i) {
+          const int c = cw0 + g + 8 * i;
+          uint32_t k2[2];
+          if (Q8) {
+            dq4(*reinterpret_cast<const uint32_t*>(st + L::K_OFF + swz(c, 16 * kk + 4 * t4)),
+                kscale[i], k2[0], k2[1]);
+          } else {
+            const uint2 kw = *reinterpret_cast<const uint2*>(
+                st + L::K_OFF + swz(c, 32 * (kk & 3) + 8 * t4) + hf * DA_HALF);
+            k2[0] = kw.x;
+            k2[1] = kw.y;
+          }
+          ka[i] = k2[0];
+          ka[i + 2] = k2[1];
         }
-        const uint2 cw = *reinterpret_cast<const uint2*>(st + L::C_OFF + cb);
-        const uint2 sw = *reinterpret_cast<const uint2*>(st + L::S_OFF + cb);
-        const uint32_t c2[2] = {cw.x, cw.y}, s2[2] = {sw.x, sw.y};
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int ai = i + 2 * e;  // a0/a1: dims 4t, 4t+1; a2/a3: 4t+2, 4t+3
-          const uint32_t kn = k2[e] ^ 0x80008000u;
-          chi[ai] = bmul2(k2[e], c2[e]);
-          cnl[ai] = bfma2(kn, c2[e], chi[ai]);
-          shi[ai] = bmul2(k2[e], s2[e]);
-          snl[ai] = bfma2(kn, s2[e], shi[ai]);
+        for (int nr = 0; nr < NR; ++nr) {
+          uint32_t qb[2], rb[2];
+          if constexpr (QREG) {
+            qb[0] = qreg[kk][nr][0];
+            qb[1] = qreg[kk][nr][1];
+          } else {
+            ld_q(qb, rb, nr, kk);
+          }
+          mma_bf16(sh[nr], ka, qb[0], qb[1]);
         }
       }
+    } else {
 #pragma unroll
-      for (int nr = 0; nr < NR; ++nr) {
-        uint32_t qb[2], rb[2];
-        if constexpr (QREG) {
-          qb[0] = qreg[kk][nr][0];
-          qb[1] = qreg[kk][nr][1];
-          rb[0] = rreg[kk][nr][0];
-          rb[1] = rreg[kk][nr][1];
-        } else {
-          ld_q(qb, rb, nr, kk);
+      for (int kk = 0; kk < 8; ++kk) {
+        const int hf = kk >> 2;  // the 64-dim half of dims 16kk..16kk+15
+        // A fragments of k*cos and k*sin: cells g (a0, a2) and g + 8 (a1,
+        // a3), dims 4t..4t+3 of the step; hi = bf16(k*c) and -lo = bf16(hi -
+        // k*c), both exact (k*c has at most 16 significant bits, hi - k*c at
+        // most 8)
+        uint32_t chi[4], cnl[4], shi[4], snl[4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int c = cw0 + g + 8 * i;
+          const int cb = swz(c, 32 * (kk & 3) + 8 * t4) + hf * DA_HALF;
+          uint32_t k2[2];
+          if (Q8) {
+            dq4(*reinterpret_cast<const uint32_t*>(st + L::K_OFF + swz(c, 16 * kk + 4 * t4)),
+                kscale[i], k2[0], k2[1]);
+          } else {
+            const uint2 kw = *reinterpret_cast<const uint2*>(st + L::K_OFF + cb);
+            k2[0] = kw.x;
+            k2[1] = kw.y;
+          }
+          const uint2 cw = *reinterpret_cast<const uint2*>(st + L::C_OFF + cb);
+          const uint2 sw = *reinterpret_cast<const uint2*>(st + L::S_OFF + cb);
+          const uint32_t c2[2] = {cw.x, cw.y}, s2[2] = {sw.x, sw.y};
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int ai = i + 2 * e;  // a0/a1: dims 4t, 4t+1; a2/a3: 4t+2, 4t+3
+            const uint32_t kn = k2[e] ^ 0x80008000u;
+            chi[ai] = bmul2(k2[e], c2[e]);
+            cnl[ai] = bfma2(kn, c2[e], chi[ai]);
+            shi[ai] = bmul2(k2[e], s2[e]);
+            snl[ai] = bfma2(kn, s2[e], shi[ai]);
+          }
         }
-        mma_bf16(sh[nr], chi, qb[0], qb[1]);
-        mma_bf16(sh[nr], shi, rb[0], rb[1]);
-        mma_bf16(sl[nr], cnl, qb[0], qb[1]);
-        mma_bf16(sl[nr], snl, rb[0], rb[1]);
+#pragma unroll
+        for (int nr = 0; nr < NR; ++nr) {
+          uint32_t qb[2], rb[2];
+          if constexpr (QREG) {
+            qb[0] = qreg[kk][nr][0];
+            qb[1] = qreg[kk][nr][1];
+            rb[0] = rreg[kk][nr][0];
+            rb[1] = rreg[kk][nr][1];
+          } else {
+            ld_q(qb, rb, nr, kk);
+          }
+          mma_bf16(sh[nr], chi, qb[0], qb[1]);
+          mma_bf16(sh[nr], shi, rb[0], rb[1]);
+          mma_bf16(sl[nr], cnl, qb[0], qb[1]);
+          mma_bf16(sl[nr], snl, rb[0], rb[1]);
+        }
       }
     }
 
@@ -436,8 +530,15 @@ __device__ __forceinline__ void da_consumer(const DecArgs& a, uint8_t* smem, uin
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int cl = g + 8 * (e >> 1);
-        const float x = (sh[nr][e] - sl[nr][e]) * a.scale2 +
-                        fmaxf(bias[tok[nr][e & 1] * DA_BLK + cw0 + cl], DA_NEG) * DA_LOG2E;
+        float x;
+        if constexpr (ALIBI) {
+          const float* cpos = reinterpret_cast<const float*>(st + L::P_OFF);
+          x = fmaf(-slope2[nr][e & 1], tpos[nr][e & 1] - cpos[cw0 + cl], sh[nr][e] * a.scale2) +
+              fmaxf(bias[tok[nr][e & 1] * DA_BLK + cw0 + cl], DA_NEG) * DA_LOG2E;
+        } else {
+          x = (sh[nr][e] - sl[nr][e]) * a.scale2 +
+              fmaxf(bias[tok[nr][e & 1] * DA_BLK + cw0 + cl], DA_NEG) * DA_LOG2E;
+        }
         p[e] = cell0 + cl < a.S ? x : -INFINITY;
       }
 #pragma unroll
@@ -502,12 +603,15 @@ __device__ __forceinline__ void da_consumer(const DecArgs& a, uint8_t* smem, uin
 }
 
 // a CTA of the grid (cluster C, Hkv, row chunks of 8 NR); the C CTAs of a
-// cluster split the cells of one KV head. DT: the head dim, 0 = a.D
-template <bool Q8, int NR, int DT>
+// cluster split the cells of one KV head. DT: the head dim, 0 = a.D;
+// ALIBI: the ALiBi term, from al, and no rope (tmc, tms unread)
+template <bool Q8, int NR, int DT, bool ALIBI = false>
 __device__ __forceinline__ void decode_cta(const CUtensorMap& tmk, const CUtensorMap& tmv,
                                            const CUtensorMap& tmc, const CUtensorMap& tms,
-                                           const DecArgs& a, uint8_t* dyn_smem, uint64_t* bars) {
-  using L = DecSmem<Q8>;
+                                           const DecArgs& a, uint8_t* dyn_smem, uint64_t* bars,
+                                           const DecAlibi& al = DecAlibi{nullptr, nullptr,
+                                                                         nullptr}) {
+  using L = DecSmem<Q8, ALIBI>;
   constexpr int RC = 8 * NR;  // rows a CTA
   const int D = DT ? DT : a.D;
   const uint32_t raw = smem_u32(dyn_smem);
@@ -543,11 +647,12 @@ __device__ __forceinline__ void decode_cta(const CUtensorMap& tmk, const CUtenso
       for (int e = 0; e < 4; ++e) acc[dm][nr][e] = 0.f;
   }
   if (warp == DA_WARPS) {
-    da_producer<Q8>(&tmk, &tmv, &tmc, &tms, a, sm, full0, empty0, h, b0, b1);
+    da_producer<Q8, ALIBI>(&tmk, &tmv, &tmc, &tms, a, sm, full0, empty0, h, b0, b1,
+                           al.cell_pos);
   } else {
-    // q and q_rot of rows r0.. into [which][half][row][128 B], 128-byte
-    // swizzle, rows past R zero, while the first blocks come in
-    for (int i = threadIdx.x; i < 2 * RC * 16; i += DA_WARPS * 32) {
+    // q and q_rot (ALIBI: q alone) of rows r0.. into [which][half][row][128
+    // B], 128-byte swizzle, rows past R zero, while the first blocks come in
+    for (int i = threadIdx.x; i < (ALIBI ? 1 : 2) * RC * 16; i += DA_WARPS * 32) {
       const int which = i / (RC * 16), r = (i / 16) % RC, c16 = i % 16;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
       if (r < nrows && (DT == DA_D || 8 * c16 < D)) {  // dims past D stay zero
@@ -560,7 +665,7 @@ __device__ __forceinline__ void decode_cta(const CUtensorMap& tmk, const CUtenso
                                 (c16 >> 3) * DA_ROWS * 128 + swz(r, (c16 & 7) * 16)) = v;
     }
     asm volatile("bar.sync 1, %0;\n" ::"n"(DA_WARPS * 32) : "memory");  // the consumers
-    da_consumer<Q8, NR>(a, smem, full0, empty0, h, r0, b0, b1, acc, m, l);
+    da_consumer<Q8, NR, ALIBI>(a, smem, full0, empty0, h, r0, b0, b1, acc, m, l, al);
   }
   __syncthreads();  // every stage consumed: shared memory holds the partials now
 
@@ -677,6 +782,17 @@ flash_decode_tc_dim(const __grid_constant__ CUtensorMap tmk,
   extern __shared__ uint8_t dyn_smem[];
   __shared__ __align__(8) uint64_t bars[2 * DA_STAGES];  // full, then empty
   decode_cta<Q8, NR, DT>(tmk, tmv, tmc, tms, a, dyn_smem, bars);
+}
+
+// ALiBi at D = DT: 128, or a.D where DT = 0; no rope (no cos / sin maps)
+template <bool Q8, int NR, int DT>
+__global__ void __launch_bounds__(DA_THREADS, 1)
+flash_decode_tc_alibi(const __grid_constant__ CUtensorMap tmk,
+                      const __grid_constant__ CUtensorMap tmv, const DecArgs a,
+                      const DecAlibi al) {
+  extern __shared__ uint8_t dyn_smem[];
+  __shared__ __align__(8) uint64_t bars[2 * DA_STAGES];  // full, then empty
+  decode_cta<Q8, NR, DT, true>(tmk, tmv, tmk, tmk, a, dyn_smem, bars, al);
 }
 
 // ----------------------------------------------------------------------------
@@ -1199,15 +1315,29 @@ DecKernel<Q8, NR> decode_kernel(int D) {
   }
 }
 
+// the ALiBi kernel for head dim D: D = 128's, else the run-time D's
 template <bool Q8, int NR>
+using DecAlibiKernel = decltype(&flash_decode_tc_alibi<Q8, NR, DA_D>);
+
+template <bool Q8, int NR>
+DecAlibiKernel<Q8, NR> decode_alibi_kernel(int D) {
+  return D == DA_D ? flash_decode_tc_alibi<Q8, NR, DA_D> : flash_decode_tc_alibi<Q8, NR, 0>;
+}
+
+// ALIBI: the ALiBi kernels, with al
+template <bool Q8, int NR, bool ALIBI>
 int launch_t(const DecPtrs& p, int T, int H, int Hkv, int S, int D, float scale, int cluster,
-             cudaStream_t st) {
-  using L = DecSmem<Q8>;
-  const DecKernel<Q8, NR> kern = decode_kernel<Q8, NR>(D);
-  static bool attr[5] = {false, false, false, false, false};  // by decode_kernel's case
-  const int ai = D == DA_D ? 0 : D == 64 ? 1 : D == 80 ? 2 : D == 96 ? 3 : 4;
+             cudaStream_t st, const DecAlibi& al) {
+  using L = DecSmem<Q8, ALIBI>;
+  static bool attr[5] = {false, false, false, false, false};  // by the kernel's case
+  const int ai = D == DA_D ? 0 : ALIBI ? 1 : D == 64 ? 1 : D == 80 ? 2 : D == 96 ? 3 : 4;
   if (!attr[ai]) {
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if constexpr (ALIBI)
+      cudaFuncSetAttribute(decode_alibi_kernel<Q8, NR>(D),
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    else
+      cudaFuncSetAttribute(decode_kernel<Q8, NR>(D), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           L::BYTES);
     attr[ai] = true;
   }
   const int G = H / Hkv, R = T * G, nblk = (S + DA_BLK - 1) / DA_BLK;
@@ -1231,7 +1361,7 @@ int launch_t(const DecPtrs& p, int T, int H, int Hkv, int S, int D, float scale,
     if (int rc = make_map(&mv, dt, 3, p.v, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
       return rc;
   }
-  {  // cos, sin: [S, D] bf16, 64-dim halves
+  if (!ALIBI) {  // cos, sin: [S, D] bf16, 64-dim halves (ALIBI: no rope)
     const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)S};
     const cuuint64_t strides[1] = {(cuuint64_t)D * 2};
     const cuuint32_t box[2] = {64, (cuuint32_t)DA_BLK};
@@ -1255,22 +1385,26 @@ int launch_t(const DecPtrs& p, int T, int H, int Hkv, int S, int D, float scale,
   at[0].val.clusterDim.z = 1;
   cfg.attrs = at;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, kern, mk, mv, mc, ms, a);
+  if constexpr (ALIBI)
+    return (int)cudaLaunchKernelEx(&cfg, decode_alibi_kernel<Q8, NR>(D), mk, mv, a, al);
+  else
+    return (int)cudaLaunchKernelEx(&cfg, decode_kernel<Q8, NR>(D), mk, mv, mc, ms, a);
 }
 
-// the rows of a KV head in one, two or four n8 tiles (chunks of 32 past 32)
-template <bool Q8>
+// the rows of a KV head in one, two or four n8 tiles (chunks of 32 past 32);
+// ALIBI: the ALiBi kernels
+template <bool Q8, bool ALIBI = false>
 int launch_any(const DecPtrs& p, int T, int H, int Hkv, int S, int D, float scale, int cluster,
-               void* stream) {
+               void* stream, const DecAlibi& al = DecAlibi{nullptr, nullptr, nullptr}) {
   if (T < 1 || T > DA_MAX_T || Hkv < 1 || H % Hkv || S < 1) return (int)cudaErrorInvalidValue;
   if (D < 8 || D > DA_D || D % (Q8 ? 16 : 8)) return (int)cudaErrorInvalidValue;
   const int nblk = (S + DA_BLK - 1) / DA_BLK;
   if (cluster < 1 || cluster > DA_MAX_CLUSTER || cluster > nblk) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int R = T * (H / Hkv);
-  const int rc = R <= 8    ? launch_t<Q8, 1>(p, T, H, Hkv, S, D, scale, cluster, st)
-                 : R <= 16 ? launch_t<Q8, 2>(p, T, H, Hkv, S, D, scale, cluster, st)
-                           : launch_t<Q8, 4>(p, T, H, Hkv, S, D, scale, cluster, st);
+  const int rc = R <= 8    ? launch_t<Q8, 1, ALIBI>(p, T, H, Hkv, S, D, scale, cluster, st, al)
+                 : R <= 16 ? launch_t<Q8, 2, ALIBI>(p, T, H, Hkv, S, D, scale, cluster, st, al)
+                           : launch_t<Q8, 4, ALIBI>(p, T, H, Hkv, S, D, scale, cluster, st, al);
   return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
@@ -1399,6 +1533,33 @@ extern "C" int flash_decode_q8_launch(const void* q, const void* qr, const void*
                                       float scale, int cluster, void* stream) {
   const DecPtrs p{q, qr, k, ks, v, vs, cs, sn, bias, out};
   return launch_any<true>(p, T, H, Hkv, S, D, scale, cluster, stream);
+}
+
+// K3 with ALiBi (K3_alibi), on rope NONE (no q_rot, cos or sin): slopes
+// [H], tok_pos [T] and cell_pos [S] f32, 16-byte aligned; otherwise as
+// flash_decode_launch.
+extern "C" int flash_decode_alibi_launch(const void* q, const void* k, const void* v,
+                                         const void* bias, const void* slopes,
+                                         const void* tok_pos, const void* cell_pos, void* out,
+                                         int T, int H, int Hkv, int S, int D, float scale,
+                                         int cluster, void* stream) {
+  const DecPtrs p{q, nullptr, k, nullptr, v, nullptr, nullptr, nullptr, bias, out};
+  return launch_any<false, true>(
+      p, T, H, Hkv, S, D, scale, cluster, stream,
+      DecAlibi{(const float*)slopes, (const float*)tok_pos, (const float*)cell_pos});
+}
+
+// K3q with ALiBi (K3q_alibi).
+extern "C" int flash_decode_q8_alibi_launch(const void* q, const void* k, const void* ks,
+                                            const void* v, const void* vs, const void* bias,
+                                            const void* slopes, const void* tok_pos,
+                                            const void* cell_pos, void* out, int T, int H,
+                                            int Hkv, int S, int D, float scale, int cluster,
+                                            void* stream) {
+  const DecPtrs p{q, nullptr, k, ks, v, vs, nullptr, nullptr, bias, out};
+  return launch_any<true, true>(
+      p, T, H, Hkv, S, D, scale, cluster, stream,
+      DecAlibi{(const float*)slopes, (const float*)tok_pos, (const float*)cell_pos});
 }
 
 // K3 at Dk, Dv apart (each a multiple of 8 up to 256): the wide kernel.

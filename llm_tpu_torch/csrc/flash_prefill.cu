@@ -4,7 +4,9 @@
 // out in csrc/flash_prefill.cuh, which holds the CTA body. One kernel a
 // cache type at D = 128 (flash_prefill_wgmma, whose machine code the other
 // head dims leave as it was) and four more at D = 64, 80, 96 and any other
-// admitted D (flash_prefill_wgmma_dim).
+// admitted D (flash_prefill_wgmma_dim); the ALiBi instantiations
+// (flash_prefill_wgmma_alibi, at D = 128 and at any other D at run time) are
+// kernels of their own, so that those keep their machine code.
 
 #include <string.h>
 
@@ -49,6 +51,24 @@ flash_prefill_wgmma_dim(const __grid_constant__ CUtensorMap tmk,
   prefill_consumers<DT>(c, a);
 }
 
+// ALiBi at D = DT: 128, or a.D where DT = 0; no rope (no cos / sin maps)
+template <bool Q8, int DT>
+__global__ void __launch_bounds__(FP_THREADS, 1)
+flash_prefill_wgmma_alibi(const __grid_constant__ CUtensorMap tmk,
+                          const __grid_constant__ CUtensorMap tmv, const PrefillArgs a,
+                          const PrefillAlibi al) {
+  extern __shared__ uint8_t dyn_smem[];
+  __shared__ __align__(8) uint64_t bars[2 * FP_STAGES + 1];
+  const PrefillCta c = prefill_cta<Q8>(dyn_smem, bars, a);
+  if (threadIdx.x >= FP_CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(FP_PRODUCER_REGS));
+    prefill_producer<Q8, true>(c, &tmk, &tmv, &tmk, &tmk, a);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(FP_CONSUMER_REGS));
+  prefill_consumers<DT, true>(c, a, al);
+}
+
 template <bool Q8>
 using PrefillKernel = decltype(&flash_prefill_wgmma<Q8>);
 
@@ -70,6 +90,25 @@ int launch_prefill(const PrefillArgs& a, cudaStream_t st) {
   CUtensorMap m[4];
   if (const int rc = prefill_maps<Q8>(a, m)) return rc;
   kerns[ki]<<<prefill_grid(a), FP_THREADS, FP_SMEM, st>>>(m[0], m[1], m[2], m[3], a);
+  return (int)cudaGetLastError();
+}
+
+// the ALiBi kernels: D = 128's, else the run-time D's
+template <bool Q8>
+int launch_prefill_alibi(const PrefillArgs& a, const PrefillAlibi& al, cudaStream_t st) {
+  if (a.D < 8 || a.D > FP_D || a.D % (Q8 ? 16 : 8) || a.H % a.Hkv)
+    return (int)cudaErrorInvalidValue;
+  const int ki = a.D == FP_D ? 0 : 1;
+  using K = decltype(&flash_prefill_wgmma_alibi<Q8, FP_D>);
+  const K kerns[2] = {flash_prefill_wgmma_alibi<Q8, FP_D>, flash_prefill_wgmma_alibi<Q8, 0>};
+  static bool attr[2] = {false, false};
+  if (!attr[ki]) {
+    cudaFuncSetAttribute(kerns[ki], cudaFuncAttributeMaxDynamicSharedMemorySize, FP_SMEM);
+    attr[ki] = true;
+  }
+  CUtensorMap m[4];
+  if (const int rc = prefill_maps<Q8>(a, m, false)) return rc;
+  kerns[ki]<<<prefill_grid(a), FP_THREADS, FP_SMEM, st>>>(m[0], m[1], a, al);
   return (int)cudaGetLastError();
 }
 
@@ -528,6 +567,32 @@ extern "C" int flash_prefill_q8_launch(const void* q, const void* qr, const void
                                        float scale, void* stream) {
   return launch_prefill<true>(
       args_of(q, qr, k, ks, v, vs, cs, sn, bias, out, T, H, Hkv, S, D, scale),
+      reinterpret_cast<cudaStream_t>(stream));
+}
+
+// K4 with ALiBi (K4_alibi), on rope NONE (no q_rot, cos or sin): slopes
+// [H], tok_pos [T] and cell_pos [S] f32.
+extern "C" int flash_prefill_alibi_launch(const void* q, const void* k, const void* v,
+                                          const void* bias, const void* slopes,
+                                          const void* tok_pos, const void* cell_pos, void* out,
+                                          int T, int H, int Hkv, int S, int D, float scale,
+                                          void* stream) {
+  return launch_prefill_alibi<false>(
+      args_of(q, nullptr, k, nullptr, v, nullptr, nullptr, nullptr, bias, out, T, H, Hkv, S,
+              D, scale),
+      PrefillAlibi{(const float*)slopes, (const float*)tok_pos, (const float*)cell_pos},
+      reinterpret_cast<cudaStream_t>(stream));
+}
+
+// K4q with ALiBi (K4q_alibi).
+extern "C" int flash_prefill_q8_alibi_launch(const void* q, const void* k, const void* ks,
+                                             const void* v, const void* vs, const void* bias,
+                                             const void* slopes, const void* tok_pos,
+                                             const void* cell_pos, void* out, int T, int H,
+                                             int Hkv, int S, int D, float scale, void* stream) {
+  return launch_prefill_alibi<true>(
+      args_of(q, nullptr, k, ks, v, vs, nullptr, nullptr, bias, out, T, H, Hkv, S, D, scale),
+      PrefillAlibi{(const float*)slopes, (const float*)tok_pos, (const float*)cell_pos},
       reinterpret_cast<cudaStream_t>(stream));
 }
 

@@ -85,6 +85,22 @@
 //    issue their chains (named barriers), so that one's softmax runs while
 //    the other's chain does; a warpgroup releases the stage once both its
 //    chains have retired.
+//
+// ALiBi (pallas_attn.py _prefill_body's slopes_ref / dist_ref term, score
+// -= slope_h * (pos_q - pos_k) after the scale and before the bias) is the
+// ALIBI instantiation of the producer and the consumers. Every ALiBi model
+// runs rope NONE, so it folds no rope: the producer has TMA bring K (K4q:
+// K and V) alone into the raw block and writes k itself as the one K-side
+// plane (k is bf16, or K4q's dequantized bf16: exact, no hi / lo split),
+// and the consumers hold q alone and run one score chain of 8 wgmma in
+// place of 32. Its inputs are the positions, tok_pos [T] and cell_pos [S]
+// f32: each thread reads its two rows' slopes (head h*G + r % G) and token
+// positions once and folds slope log2e * (tok_pos - cell_pos) into the
+// bias term of the one fmaf, one block ahead with the bias rows
+// (load_bias_alibi): one load a cell of cell_pos, shared by every row of
+// the CTA. The difference of two integer positions below 2^24 is exact in
+// f32, the reference's dist. (A dist [T, S] row a query row beside each
+// bias row cost 1.85x K4's time at Baichuan-13B's G = 1; PERF.md.)
 
 #pragma once
 
@@ -133,6 +149,13 @@ struct PrefillArgs {
   int T, H, Hkv, S, G;
   float scale;
   int D;  // head dim (read only by prefill_consumers<0>)
+};
+
+// the ALiBi kernels' inputs, f32: slopes [H], tok_pos [T], cell_pos [S]
+struct PrefillAlibi {
+  const float* slopes;
+  const float* tok_pos;
+  const float* cell_pos;
 };
 
 // named barriers between the two consumer warpgroups (256 threads)
@@ -253,7 +276,8 @@ __device__ __forceinline__ int plane_off(int c, int c8) {
 // The producer's conversion of one S block, by its 128 lanes (p), from the
 // raw block to the four K-side planes and (K4q) V of a stage. A lane takes
 // 8 dims of cells p / 16 + 8 j; ksc / vsc are those cells' K4q scales.
-template <bool Q8>
+// ALIBI (no rope): k itself as the one K-side plane.
+template <bool Q8, bool ALIBI = false>
 __device__ __forceinline__ void convert_block(uint8_t* st, const uint8_t* raw, int p,
                                               const float (&ksc)[8], const float (&vsc)[8]) {
 #pragma unroll
@@ -265,6 +289,12 @@ __device__ __forceinline__ void convert_block(uint8_t* st, const uint8_t* raw, i
       vw = dq8(*reinterpret_cast<const uint2*>(raw + FP_RAW_V8 + c * FP_D + 8 * c8), vsc[j]);
     } else {
       kw = *reinterpret_cast<const uint4*>(raw + c * 256 + 16 * c8);
+    }
+    if constexpr (ALIBI) {
+      const int off = plane_off(c, c8);
+      *reinterpret_cast<uint4*>(st + off) = kw;
+      if (Q8) *reinterpret_cast<uint4*>(st + FP_V_OFF + off) = vw;
+      continue;
     }
     const uint4 cw = *reinterpret_cast<const uint4*>(raw + FP_RAW_C + c * 256 + 16 * c8);
     const uint4 sw = *reinterpret_cast<const uint4*>(raw + FP_RAW_S + c * 256 + 16 * c8);
@@ -312,16 +342,48 @@ __device__ __forceinline__ void load_bias(float (&ba)[16], float (&bb)[16], cons
   }
 }
 
-// thread 0 of the producer: the raw block at cell sb
-template <bool Q8>
+// load_bias with the ALiBi term: ba[i] = max(bias, -1e30) log2e - sa *
+// (ta - cell_pos[s]) (sa, sb: the rows' slopes times log2 e; ta, tb: their
+// tokens' positions), 0 past S; pairs as float2 where S is even
+__device__ __forceinline__ void load_bias_alibi(float (&ba)[16], float (&bb)[16],
+                                                const float* bra, const float* brb,
+                                                const float* cpos, float sa, float sb, float ta,
+                                                float tb, int s0, int S) {
+  if ((S & 1) == 0 && s0 + 8 * 7 + 1 < S) {
+    const float2* pa = reinterpret_cast<const float2*>(bra + s0);
+    const float2* pb = reinterpret_cast<const float2*>(brb + s0);
+    const float2* pc = reinterpret_cast<const float2*>(cpos + s0);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float2 va = __ldg(pa + 4 * i), vb = __ldg(pb + 4 * i), vc = __ldg(pc + 4 * i);
+      ba[2 * i] = fmaf(-sa, ta - vc.x, fmaxf(va.x, FP_NEG) * LOG2E);
+      ba[2 * i + 1] = fmaf(-sa, ta - vc.y, fmaxf(va.y, FP_NEG) * LOG2E);
+      bb[2 * i] = fmaf(-sb, tb - vc.x, fmaxf(vb.x, FP_NEG) * LOG2E);
+      bb[2 * i + 1] = fmaf(-sb, tb - vc.y, fmaxf(vb.y, FP_NEG) * LOG2E);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int s = s0 + 8 * (i >> 1) + (i & 1);
+      const float c = s < S ? __ldg(cpos + s) : 0.f;
+      ba[i] = s < S ? fmaf(-sa, ta - c, fmaxf(__ldg(bra + s), FP_NEG) * LOG2E) : 0.f;
+      bb[i] = s < S ? fmaf(-sb, tb - c, fmaxf(__ldg(brb + s), FP_NEG) * LOG2E) : 0.f;
+    }
+  }
+}
+
+// thread 0 of the producer: the raw block at cell sb (ALIBI: no cos, sin)
+template <bool Q8, bool ALIBI = false>
 __device__ __forceinline__ void load_raw(uint32_t raw, uint32_t bar, const CUtensorMap* tmk,
                                          const CUtensorMap* tmv, const CUtensorMap* tmc,
                                          const CUtensorMap* tms, int sb, int h) {
-  mbar_expect_tx(bar, FP_RAW_BYTES);
+  mbar_expect_tx(bar, ALIBI ? FP_PLANE : FP_RAW_BYTES);
   tma_3d(raw, tmk, bar, 0, sb, h);
   if (Q8) tma_3d(raw + FP_RAW_V8, tmv, bar, 0, sb, h);
-  tma_2d(raw + FP_RAW_C, tmc, bar, 0, sb);
-  tma_2d(raw + FP_RAW_S, tms, bar, 0, sb);
+  if constexpr (!ALIBI) {
+    tma_2d(raw + FP_RAW_C, tmc, bar, 0, sb);
+    tma_2d(raw + FP_RAW_S, tms, bar, 0, sb);
+  }
 }
 
 // a CTA's shared memory (aligned to 1024 bytes: the ring's stages, then
@@ -359,8 +421,8 @@ __device__ __forceinline__ PrefillCta prefill_cta(uint8_t* dyn_smem, uint64_t* b
 }
 
 // the producer warpgroup (threads FP_CONSUMERS ..): each S block into a
-// stage of the ring
-template <bool Q8>
+// stage of the ring (ALIBI: no rope; tmc, tms unread)
+template <bool Q8, bool ALIBI = false>
 __device__ __forceinline__ void prefill_producer(const PrefillCta& c, const CUtensorMap* tmk,
                                                  const CUtensorMap* tmv, const CUtensorMap* tmc,
                                                  const CUtensorMap* tms, const PrefillArgs& a) {
@@ -369,7 +431,7 @@ __device__ __forceinline__ void prefill_producer(const PrefillCta& c, const CUte
   const int h = c.h, nblk = c.nblk;
   const int p = threadIdx.x - FP_CONSUMERS;
   const uint32_t raw = smem_a + FP_RAW;
-  if (p == 0) load_raw<Q8>(raw, rawbar, tmk, tmv, tmc, tms, 0, h);
+  if (p == 0) load_raw<Q8, ALIBI>(raw, rawbar, tmk, tmv, tmc, tms, 0, h);
   int stage = 0;
   uint32_t phase = 0;
   for (int b = 0; b < nblk; ++b) {
@@ -389,11 +451,11 @@ __device__ __forceinline__ void prefill_producer(const PrefillCta& c, const CUte
       tma_3d(vdst + FP_HALF, tmv, full, 64, b * FP_SB, h);
     }
     mbar_wait(rawbar, b & 1);
-    convert_block<Q8>(smem + stage * FP_STAGE, smem + FP_RAW, p, ksc, vsc);
+    convert_block<Q8, ALIBI>(smem + stage * FP_STAGE, smem + FP_RAW, p, ksc, vsc);
     // every lane has read the raw block: lane 0 asks for the next one
     asm volatile("bar.sync 1, 128;\n" ::: "memory");
     if (p == 0 && b + 1 < nblk)
-      load_raw<Q8>(raw, rawbar, tmk, tmv, tmc, tms, (b + 1) * FP_SB, h);
+      load_raw<Q8, ALIBI>(raw, rawbar, tmk, tmv, tmc, tms, (b + 1) * FP_SB, h);
     fence_proxy_async();
     mbar_arrive(full);
     if (++stage == FP_STAGES) {
@@ -404,9 +466,12 @@ __device__ __forceinline__ void prefill_producer(const PrefillCta& c, const CUte
 }
 
 // the two consumer warpgroups (threads 0 .. FP_CONSUMERS - 1): the CTA's
-// 128 rows over every stage, then the output. DT: the head dim, 0 = a.D
-template <int DT>
-__device__ __forceinline__ void prefill_consumers(const PrefillCta& c, const PrefillArgs& a) {
+// 128 rows over every stage, then the output. DT: the head dim, 0 = a.D;
+// ALIBI: the ALiBi term, from al, and no rope (q alone, one K-side plane)
+template <int DT, bool ALIBI = false>
+__device__ __forceinline__ void prefill_consumers(
+    const PrefillCta& c, const PrefillArgs& a,
+    const PrefillAlibi& al = PrefillAlibi{nullptr, nullptr, nullptr}) {
   const int D = DT ? DT : a.D;
   const uint32_t smem_a = c.smem_a, full0 = c.full0, empty0 = c.empty0;
   const int h = c.h, row0 = c.row0, nblk = c.nblk;
@@ -416,16 +481,17 @@ __device__ __forceinline__ void prefill_consumers(const PrefillCta& c, const Pre
   const int ra = 64 * wg + 16 * warp + gid, rb = ra + 8;
   const int G = a.G;
 
-  // q and q_rot of the two rows as A fragments: [q / q_rot][16-dim step];
-  // dims past D zero
-  uint32_t qf[2][8][4];
+  // q and q_rot (ALIBI: q alone) of the two rows as A fragments: [q /
+  // q_rot][16-dim step]; dims past D zero
+  constexpr int NQ = ALIBI ? 1 : 2;
+  uint32_t qf[NQ][8][4];
   {
     const int Ra = row0 + ra, Rb = row0 + rb;
     const bool oka = Ra / G < a.T, okb = Rb / G < a.T;
     const size_t offa = ((size_t)(Ra / G) * a.H + h * G + Ra % G) * D + 2 * t4;
     const size_t offb = ((size_t)(Rb / G) * a.H + h * G + Rb % G) * D + 2 * t4;
 #pragma unroll
-    for (int w = 0; w < 2; ++w) {
+    for (int w = 0; w < NQ; ++w) {
       const __nv_bfloat16* src = w ? a.qr : a.q;
 #pragma unroll
       for (int ks = 0; ks < 8; ++ks) {
@@ -447,7 +513,17 @@ __device__ __forceinline__ void prefill_consumers(const PrefillCta& c, const Pre
   // a block's bias of both rows, ba[2i + e] = cell sb + 8 i + 2 t4 + e
   // (clamped to -1e30, times log2 e), loaded one block ahead of its use
   float ba[16], bb[16];
-  load_bias(ba, bb, bra, brb, 2 * t4, a.S);
+  // ALIBI: the rows' slopes times log2 e and their tokens' positions
+  float sla = 0.f, slb = 0.f, tpa = 0.f, tpb = 0.f;
+  if constexpr (ALIBI) {
+    sla = al.slopes[h * G + (row0 + ra) % G] * LOG2E;
+    slb = al.slopes[h * G + (row0 + rb) % G] * LOG2E;
+    tpa = __ldg(al.tok_pos + min((row0 + ra) / G, a.T - 1));
+    tpb = __ldg(al.tok_pos + min((row0 + rb) / G, a.T - 1));
+    load_bias_alibi(ba, bb, bra, brb, al.cell_pos, sla, slb, tpa, tpb, 2 * t4, a.S);
+  } else {
+    load_bias(ba, bb, bra, brb, 2 * t4, a.S);
+  }
 
   float o[64];
 #pragma unroll
@@ -468,16 +544,17 @@ __device__ __forceinline__ void prefill_consumers(const PrefillCta& c, const Pre
     mbar_wait(full0 + 8 * stage, phase);
     const uint32_t st = smem_a + stage * FP_STAGE;
     // scores: [q | q_rot | q | q_rot] . [kc_hi | ks_hi | kc_lo | ks_lo]
+    // (ALIBI: q . k)
     float sc[32];
     named_sync(turn);
     wg_fence();
 #pragma unroll
-    for (int pl = 0; pl < 4; ++pl)
+    for (int pl = 0; pl < (ALIBI ? 1 : 4); ++pl)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_s(sc, qf[pl & 1][4 * hh + kk],
+          wgmma_s(sc, qf[pl & (NQ - 1)][4 * hh + kk],
                   x_desc(st + pl * FP_PLANE + hh * FP_HALF + kk * 32),
                   (pl | hh | kk) ? 1 : 0);
     wg_commit();
@@ -501,7 +578,13 @@ __device__ __forceinline__ void prefill_consumers(const PrefillCta& c, const Pre
       for (int i = 0; i < 32; ++i)
         if (sb + 8 * (i >> 2) + 2 * t4 + (i & 1) >= a.S) sc[i] = NINF;
     }
-    if (b + 1 < nblk) load_bias(ba, bb, bra, brb, sb + FP_SB + 2 * t4, a.S);
+    if (b + 1 < nblk) {
+      if constexpr (ALIBI)
+        load_bias_alibi(ba, bb, bra, brb, al.cell_pos, sla, slb, tpa, tpb, sb + FP_SB + 2 * t4,
+                        a.S);
+      else
+        load_bias(ba, bb, bra, brb, sb + FP_SB + 2 * t4, a.S);
+    }
     float mxa, mxb;
     {
       float m4[4][2];
@@ -613,9 +696,10 @@ int raw_map(CUtensorMap* m, CUtensorMapDataType dt, int rank, const void* base, 
 }
 
 // K, V, cos and sin's tensor maps: [0] K, [1] V (K4's lands in its stage
-// slot in the 128-byte swizzle, 64 dims a box), [2] cos, [3] sin
+// slot in the 128-byte swizzle, 64 dims a box), [2] cos, [3] sin (rope
+// false: K and V alone)
 template <bool Q8>
-int prefill_maps(const PrefillArgs& a, CUtensorMap (&m)[4]) {
+int prefill_maps(const PrefillArgs& a, CUtensorMap (&m)[4], bool rope = true) {
   const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   const CUtensorMapSwizzle none = CU_TENSOR_MAP_SWIZZLE_NONE;
   const cuuint64_t S = a.S, Hkv = a.Hkv, D = a.D;
@@ -623,8 +707,8 @@ int prefill_maps(const PrefillArgs& a, CUtensorMap (&m)[4]) {
               : raw_map(&m[0], bf, 3, a.k, 2, D, S, Hkv, none, FP_D);
   if (!rc) rc = Q8 ? raw_map(&m[1], u8, 3, a.v, 1, D, S, Hkv, none, FP_D)
                    : raw_map(&m[1], bf, 3, a.v, 2, D, S, Hkv, CU_TENSOR_MAP_SWIZZLE_128B, 64);
-  if (!rc) rc = raw_map(&m[2], bf, 2, a.cs, 2, D, S, 1, none, FP_D);
-  if (!rc) rc = raw_map(&m[3], bf, 2, a.sn, 2, D, S, 1, none, FP_D);
+  if (!rc && rope) rc = raw_map(&m[2], bf, 2, a.cs, 2, D, S, 1, none, FP_D);
+  if (!rc && rope) rc = raw_map(&m[3], bf, 2, a.sn, 2, D, S, 1, none, FP_D);
   return rc;
 }
 

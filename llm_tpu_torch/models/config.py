@@ -1,22 +1,31 @@
 """Model hyperparameters from GGUF metadata. Counterpart of
-llm_tpu/models/config.py, for the llama family and gemma2: the general
-keys, rope, gemma2's adjustments (gelu, the embedding scale, the sliding
-window on every other layer, both softcaps, its attention scale, NEOX
-rope), and the variant flags that the port's forward refuses (it raises
-NotImplementedError for them, see models/transformer.py)."""
+llm_tpu/models/config.py, for the llama family, gemma2, baichuan and
+refact: the general keys, rope, gemma2's adjustments (gelu, the embedding
+scale, the sliding window on every other layer, both softcaps, its
+attention scale, NEOX rope), baichuan-13B's and refact's (no rope, ALiBi
+with max_bias 8), and the variant flags that the port's forward refuses
+(it raises NotImplementedError for them, see models/transformer.py)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
 
 from ..gguf.constants import Keys
-from ..ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NORM, RopeParams
+from ..ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NONE, ROPE_TYPE_NORM, RopeParams
 
-# architectures the port's forward runs: the plain llama decoder, and
-# gemma2's variant of it (post-norms, gelu, softcaps, interleaved SWA)
-LLAMA_ARCHS = ("llama", "gemma2")
-# rope layout per architecture (llm_tpu/models/config.py _ROPE_MODE)
-_ROPE_MODE = {"llama": ROPE_TYPE_NORM, "gemma2": ROPE_TYPE_NEOX}
+# architectures the port's forward runs: the plain llama decoder, gemma2's
+# variant of it (post-norms, gelu, softcaps, interleaved SWA), and baichuan
+# and refact, which run the llama graph (baichuan-13B and refact with
+# ALiBi in place of rope)
+LLAMA_ARCHS = ("llama", "gemma2", "baichuan", "refact")
+# rope layout per architecture (llm_tpu/models/config.py _ROPE_MODE, whose
+# default is NEOX; refact's is then replaced by NONE)
+_ROPE_MODE = {"llama": ROPE_TYPE_NORM, "gemma2": ROPE_TYPE_NEOX, "baichuan": ROPE_TYPE_NORM,
+              "refact": ROPE_TYPE_NEOX}
+# baichuan's 13B profile, keyed on its layer count as the reference keys it
+BAICHUAN_13B_LAYERS = 40
+# the ALiBi max_bias baichuan-13B and refact hardcode (llama-model.cpp)
+ALIBI_MAX_BIAS = 8.0
 
 
 @dataclass(frozen=True)
@@ -126,4 +135,15 @@ def config_from_gguf(reader) -> ModelConfig:
             final_softcap=float(ak("{arch}.final_logit_softcapping", 30.0) or 30.0),
             attn_scale=float(scale) if scale is not None else
             (n_embd / n_heads) ** -0.5 if n_layers == 46 else head_dim ** -0.5)
+    if (arch == "baichuan" and cfg.n_layers == BAICHUAN_13B_LAYERS) or arch == "refact":
+        # baichuan-13B and refact: no rope, ALiBi slopes of max_bias 8
+        # (llm_tpu/models/config.py's baichuan and refact branches)
+        cfg = alibi_profile(cfg)
     return cfg
+
+
+def alibi_profile(cfg: ModelConfig) -> ModelConfig:
+    """cfg with rope NONE (n_dims 0) and ALiBi of max_bias 8: the profile
+    of baichuan-13B and refact."""
+    return replace(cfg, rope=replace(cfg.rope, mode=ROPE_TYPE_NONE, n_dims=0),
+                   alibi_max_bias=ALIBI_MAX_BIAS)

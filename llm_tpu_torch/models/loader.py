@@ -1,5 +1,6 @@
 """Build model params (a dict of QTensors and dense tensors) from a GGUF
-file. Counterpart of llm_tpu/models/loader.py, for the llama tensors and
+file. Counterpart of llm_tpu/models/loader.py, for the llama tensors (also
+those of baichuan and refact, which name theirs as llama does) and
 gemma2's post-norms (attn_post_norm, ffn_post_norm, the names llm_tpu's
 converter writes; llama.cpp's own post_attention_norm / post_ffw_norm are
 refused, ROADMAP "Faults in the reference").

@@ -19,7 +19,7 @@ from ..device import resolve_device
 from ..gguf.constants import GGMLType
 from ..ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NORM, RopeParams
 from ..quant.qtensor import QTensor, pack_p4, pack_p4_kmajor
-from .config import ModelConfig
+from .config import BAICHUAN_13B_LAYERS, ModelConfig, alibi_profile
 from .loader import fuse_projections
 
 # Llama-3-8B geometry, the flagship configuration
@@ -30,6 +30,16 @@ LLAMA3_8B = dict(n_embd=4096, n_layers=32, n_heads=32, n_kv_heads=8,
 # (attention) and 30 (logits), tied embeddings; gemma2_config adds the rest
 GEMMA2_9B = dict(n_embd=3584, n_layers=42, n_heads=16, n_kv_heads=8,
                  n_ff=14336, vocab=256000, head_dim=256)
+# Baichuan-13B (baichuan-inc/Baichuan-13B-Base config.json): 40 heads over
+# 40 KV heads of 128 dims, ff 13696 (no multiple of 256: a Q4_K_M-style
+# recipe writes its ffn_down as Q8_0), untied lm_head; 40 layers select
+# the 13B profile, rope NONE and ALiBi (baichuan_config)
+BAICHUAN_13B = dict(n_embd=5120, n_layers=40, n_heads=40, n_kv_heads=40,
+                    n_ff=13696, vocab=64000, head_dim=128)
+# Refact-1.6B (smallcloudai/Refact-1_6B-fim config.json): 32 query heads
+# over one KV head of 64 dims (G = 32), ff 5632, ALiBi, no rope
+REFACT_1_6B = dict(n_embd=2048, n_layers=32, n_heads=32, n_kv_heads=1,
+                   n_ff=5632, vocab=49216, head_dim=64)
 
 
 def use_more_bits(i_layer: int, n_layers: int) -> bool:
@@ -42,6 +52,18 @@ def use_more_bits(i_layer: int, n_layers: int) -> bool:
 
 def _gs(qtype) -> int:
     return 16 if qtype in (GGMLType.Q6_K, GGMLType.Q2_K, GGMLType.Q3_K) else 32
+
+
+# the block (weights a block along K) of the types the recipe writes
+_BLOCK = {GGMLType.Q4_K: 256, GGMLType.Q6_K: 256, GGMLType.Q8_0: 32}
+
+
+def fallback_type(qtype: GGMLType, k: int) -> GGMLType:
+    """The type a matrix of K inputs takes: qtype where its block divides
+    K, else Q8_0 (the quantizer's block-size fallback; own copy of
+    llm_tpu/tools/quantize.py:141-147, whose F16 step no K of a
+    supported model reaches)."""
+    return qtype if k % _BLOCK.get(qtype, 32) == 0 else GGMLType.Q8_0
 
 
 def synthetic_qtensor(rng: np.random.Generator, n: int, k: int,
@@ -144,6 +166,33 @@ def gemma2_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab, head_dim=N
         embedding_scale=float(n_embd) ** 0.5)
 
 
+def baichuan_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab,
+                    head_dim=None) -> ModelConfig:
+    """A baichuan config as config_from_gguf reads one: the llama graph,
+    NORM rope at base 10000, rms eps 1e-6, an untied lm_head; the 13B
+    profile (rope NONE, ALiBi of max_bias 8) where the model has 40 layers
+    (a model cut below 40 takes it from alibi_profile)."""
+    head_dim = head_dim or n_embd // n_heads
+    cfg = ModelConfig(
+        arch="baichuan", vocab_size=vocab, n_embd=n_embd, n_layers=n_layers,
+        n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim, head_dim_v=head_dim,
+        n_ff=n_ff, rms_eps=1e-6, rope=RopeParams(n_dims=head_dim, mode=ROPE_TYPE_NORM),
+        context_length=4096)
+    return alibi_profile(cfg) if n_layers == BAICHUAN_13B_LAYERS else cfg
+
+
+def refact_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab,
+                  head_dim=None) -> ModelConfig:
+    """A refact config as config_from_gguf reads one: the llama graph,
+    rms eps 1e-5, rope NONE and ALiBi of max_bias 8, an untied lm_head."""
+    head_dim = head_dim or n_embd // n_heads
+    return alibi_profile(ModelConfig(
+        arch="refact", vocab_size=vocab, n_embd=n_embd, n_layers=n_layers,
+        n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim, head_dim_v=head_dim,
+        n_ff=n_ff, rms_eps=1e-5, rope=RopeParams(n_dims=head_dim, mode=ROPE_TYPE_NEOX),
+        context_length=4096))
+
+
 def kmajor_copy(qt: QTensor) -> QTensor:
     """The K-major planes of a rows-layout int8 QTensor (a tied embedding
     table's lm_head copy, the same weights)."""
@@ -173,17 +222,27 @@ def make_synthetic_model(n_embd: int = 64, n_layers: int = 2, n_heads: int = 8,
     gemma2_config (swa_window its window), a post-norm after attention and
     after the FFN of every layer, and a tied embedding: with the recipe the
     table is Q6_K (llama.cpp's Q4_K_M type for a tied token_embd) and the
-    lm_head its K-major copy."""
+    lm_head its K-major copy. arch "baichuan": baichuan_config (at 40
+    layers rope NONE and ALiBi; the weights do not depend on the profile,
+    so a cut model takes it by alibi_profile on the returned config);
+    "refact": refact_config. With the recipe a matrix whose K its type's
+    block does not divide takes Q8_0 (fallback_type; Baichuan-13B's
+    ffn_down, K = 13696)."""
     if recipe not in (None, "Q4_K_M"):
         raise ValueError(f"unknown recipe {recipe!r}")
-    if arch not in ("llama", "gemma2"):
+    if arch not in ("llama", "gemma2", "baichuan", "refact"):
         raise ValueError(f"unknown arch {arch!r}")
     device = resolve_device(device)
     gemma = arch == "gemma2"
-    cfg = (gemma2_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab, head_dim,
-                         swa_window) if gemma else
-           llama_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab, head_dim,
-                        head_dim_v))
+    geo = (n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab, head_dim)
+    if gemma:
+        cfg = gemma2_config(*geo, swa_window)
+    elif arch == "baichuan":
+        cfg = baichuan_config(*geo)
+    elif arch == "refact":
+        cfg = refact_config(*geo)
+    else:
+        cfg = llama_config(*geo, head_dim_v)
     hd, hdv = cfg.head_dim, cfg.head_dim_v
     rng = np.random.default_rng(seed)
     gen = None
@@ -193,6 +252,8 @@ def make_synthetic_model(n_embd: int = 64, n_layers: int = 2, n_heads: int = 8,
 
     def mat(n, k, kmajor=True, six_bit=False):
         qt = GGMLType.Q6_K if (six_bit and recipe and qtype is not None) else qtype
+        if recipe and qt is not None:
+            qt = fallback_type(qt, k)
         if on_device:
             if qt is None:
                 w = torch.randn((n, k), generator=gen, device=device) * 0.02

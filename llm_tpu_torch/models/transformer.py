@@ -1,5 +1,6 @@
 """The llama decoder forward. Counterpart of
-llm_tpu/models/transformer.py::forward on its llama and gemma2 paths:
+llm_tpu/models/transformer.py::forward on its llama, gemma2 and ALiBi
+(baichuan-13B, refact) paths:
 
   qembed -> per layer: rms_norm -> fused QKV (K1/K2) -> split -> rope on q
   -> scatter unroped K/V into the head-major cache (quantizing for a q8_0
@@ -19,6 +20,17 @@ ISWA dual cache (the Context's ring, runtime/kv_cache.py SWACellTable) the
 sliding-window layers read and write their own smaller cache: swa_cell_pos,
 swa_cell_seq_bits and swa_write_idx describe it, with its own rope tables
 and bias; without them those layers use the full cache (swa_full).
+
+ALiBi (cfg.alibi_max_bias > 0: baichuan-13B, refact, with rope NONE), as
+the reference does (transformer.py:338-348, :434-437): the slopes of
+ggml's soft_max_ext schedule (alibi_slopes) and the positions tok_pos and
+cell_pos as f32, made once a step, go to the narrow flash kernels' ALiBi
+instantiations (K3_alibi, K3q_alibi, K4_alibi, K4q_alibi), which fold no
+rope: no q_rot and no tables (the reference passes zeros and the identity
+tables, :556-561, to kernels that fold them). The wide and capped kernels
+take no ALiBi, nor does any kernel take ALiBi beside a rope: flash_route
+sends such a step to the unfused attention, which subtracts slope *
+(tok_pos - cell_pos) after the bias (ROADMAP, "Deliberate differences").
 
 With chain=True (the reference's LLM_TPU_CHAIN=1) a step of T <= 8 tokens
 runs the chained kernel K6 (ops/cuda_qmm_chain.py) where its gates admit
@@ -57,23 +69,25 @@ NotImplementedError.
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 import torch.nn.functional as F
 
 from ..ops.attention import attention, build_attn_bias
 from ..ops.cuda_attn import (MAX_HEAD_DIM, expand_tables, flash_decode, flash_prefill,
-                             rope_companion)
+                             is_narrow, rope_companion)
 from ..ops.cuda_qmm_chain import head_eligible, is_kmajor_qt, layer_tail, norm_mm, tail_eligible
 from ..ops.norms import rms_norm
 from ..ops.qmatmul import qembed, qmm
-from ..ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NORM, apply_rope, rope_angles
+from ..ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NONE, ROPE_TYPE_NORM, apply_rope, rope_angles
 from ..quant.qtensor import QTensor, StackedWeight
 from .config import ModelConfig
 
 _UNSUPPORTED = (
     ("n_expert", 0, "MoE"), ("attn_bias", False, "QKV biases"),
-    ("qk_norm", False, "qk-norm"), ("alibi_max_bias", 0.0, "ALiBi"),
-    ("kv_lora_rank", 0, "MLA"), ("rope_sections", None, "M-RoPE"),
+    ("qk_norm", False, "qk-norm"), ("kv_lora_rank", 0, "MLA"), ("rope_sections", None, "M-RoPE"),
     ("logit_scale", 1.0, "logit scale"), ("residual_scale", 1.0, "residual scale"),
     ("parallel_residual", False, "parallel residual"), ("norm_kind", "rms", "LayerNorm"),
 )
@@ -86,15 +100,40 @@ _LAYER_KEYS = {"attn_norm", "ffn_norm", "attn_q", "attn_k", "attn_v", "attn_qkv_
                "attn_post_norm", "ffn_post_norm"}
 
 
-def flash_route(dk: int, dv: int, k_groups: int = 1, v_groups: int = 1) -> bool:
+def flash_route(dk: int, dv: int, k_groups: int = 1, v_groups: int = 1,
+                alibi: bool = False, q8: bool = False, softcap: float = 0.0,
+                roped: bool = False) -> bool:
     """Whether attention runs the flash kernels (else the unfused
     attention): Dk and Dv multiples of 8 up to MAX_HEAD_DIM, and on a q8_0
     cache one scale a row of K and of V (k_groups, v_groups: scales a row;
     1 for a dense cache). The reference's use_flash gate, which reads K's
     scales only and takes any multiple of 8; no kernel of the port holds a
-    head past 256 (ROADMAP, "Deliberate differences")."""
+    head past 256 (ROADMAP, "Deliberate differences"). An ALiBi step
+    (alibi) runs the flash kernels only where the narrow, uncapped ones
+    take it (is_narrow on the cache type q8, no softcap) and its rope is
+    NONE (not roped): the wide and capped kernels have no ALiBi
+    instantiation, and the ALiBi ones fold no rope."""
+    if alibi and (roped or not (is_narrow(dk, dv, q8) and softcap <= 0.0)):
+        return False
     return (dk % 8 == 0 and dv % 8 == 0 and max(dk, dv) <= MAX_HEAD_DIM
             and k_groups == 1 and v_groups == 1)
+
+
+def alibi_slopes(n_heads: int, max_bias: float) -> list[float]:
+    """The ALiBi slope of each head, ggml's soft_max_ext max_bias schedule
+    (the reference's transformer.py:338-348), in Python floats: n2 = 2 **
+    floor(log2 H), m0 = 2 ** (-max_bias / n2), m1 = 2 ** (-max_bias / 2 /
+    n2); head h < n2 takes m0 ** (h + 1), the rest m1 ** (2 (h - n2) + 1)."""
+    n2 = 2 ** math.floor(math.log2(n_heads))
+    m0 = 2.0 ** (-max_bias / n2)
+    m1 = 2.0 ** (-max_bias / 2.0 / n2)
+    return [m0 ** (h + 1) if h < n2 else m1 ** (2 * (h - n2) + 1) for h in range(n_heads)]
+
+
+@functools.lru_cache(maxsize=8)
+def _slopes_tensor(n_heads: int, max_bias: float, device: torch.device) -> torch.Tensor:
+    """alibi_slopes cast to f32 [H] on device, made once."""
+    return torch.tensor(alibi_slopes(n_heads, max_bias), dtype=torch.float32, device=device)
 
 
 def check_supported(params: dict, cfg: ModelConfig) -> None:
@@ -105,7 +144,7 @@ def check_supported(params: dict, cfg: ModelConfig) -> None:
             raise NotImplementedError(f"{what} is not ported yet")
     if cfg.act not in ACTIVATIONS:
         raise NotImplementedError(f"FFN activation {cfg.act!r} is not ported yet")
-    if cfg.rope.mode not in (ROPE_TYPE_NORM, ROPE_TYPE_NEOX):
+    if cfg.rope.mode not in (ROPE_TYPE_NORM, ROPE_TYPE_NEOX, ROPE_TYPE_NONE):
         raise NotImplementedError(f"rope mode {cfg.rope.mode} is not ported yet")
     extra = {k for k, v in params.items() if v is not None} - _TOP_KEYS
     if extra:  # position embeddings, embedding norms, output biases, adapters
@@ -233,12 +272,20 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
         x = (x.float() * cfg.embedding_scale).to(dtype)
     dual = swa_cell_pos is not None
 
+    alibi = cfg.alibi_max_bias > 0.0
+    slopes = _slopes_tensor(H, cfg.alibi_max_bias, x.device) if alibi else None
+    tok_pos_f = tok_pos.float().contiguous() if alibi else None
+
     def tables(cpos):
         """Half-width rope tables of the cells, their full-width bf16
-        expansion for the flash kernels, and the rows the step writes."""
+        expansion for the flash kernels (None under ALiBi, whose kernels
+        fold no rope), and the cells' positions in f32 for ALiBi (else
+        None)."""
         ch, sh = rope_angles(cpos, rope, ff)
+        if alibi:
+            return ch, sh, None, None, cpos.float().contiguous()
         cf, sf = expand_tables(ch, sh, rope.mode, Dk, n_dims=rope.n_dims)
-        return ch, sh, cf.to(dtype).contiguous(), sf.to(dtype).contiguous()
+        return ch, sh, cf.to(dtype).contiguous(), sf.to(dtype).contiguous(), None
 
     cos_t, sin_t = rope_angles(tok_pos, rope, ff)
     tab = tables(cell_pos)
@@ -257,7 +304,8 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
     # the reference's use_flash gate, on either device (module docstring)
     q8 = isinstance(kv_k[0], tuple)
     unfused = not flash_route(Dk, Dv, kv_k[0][1].shape[-1] if q8 else 1,
-                              kv_v[0][1].shape[-1] if q8 else 1)
+                              kv_v[0][1].shape[-1] if q8 else 1, alibi=alibi, q8=q8,
+                              softcap=cfg.attn_softcap, roped=rope.mode != ROPE_TYPE_NONE)
 
     layers = params["layers"]
     if params.get("layers_stacked") is not None:
@@ -285,16 +333,18 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
         widx, lkeep = (swa_write_idx, keep_swa) if ring else (write_idx, keep)
         kv_write(kv_k[il], widx, k.reshape(T, Hkv, Dk), lkeep)  # K enters unroped
         kv_write(kv_v[il], widx, v.reshape(T, Hkv, Dv), lkeep)
-        cos_c, sin_c, cos_cf, sin_cf = tab_swa if ring else tab
+        cos_c, sin_c, cos_cf, sin_cf, cpos_f = tab_swa if ring else tab
         lbias = bias_swa if is_swa else bias
         if unfused:
             k_all = apply_rope(kv_read(kv_k[il], dtype), cos_c, sin_c, rope.mode, rope.n_dims)
             att = attention(q, k_all, kv_read(kv_v[il], dtype), lbias, scale,
-                            softcap=cfg.attn_softcap)
+                            softcap=cfg.attn_softcap, alibi_slopes=slopes, cell_pos=cpos_f,
+                            tok_pos=tok_pos_f)
         else:
-            att = fattn(q.contiguous(), rope_companion(q, rope.mode, rope.n_dims).contiguous(),
-                        kv_k[il], kv_v[il], cos_cf, sin_cf, lbias, scale,
-                        softcap=cfg.attn_softcap)
+            q_rot = None if alibi else rope_companion(q, rope.mode, rope.n_dims).contiguous()
+            att = fattn(q.contiguous(), q_rot, kv_k[il], kv_v[il], cos_cf, sin_cf, lbias, scale,
+                        softcap=cfg.attn_softcap, alibi_slopes=slopes, tok_pos=tok_pos_f,
+                        cell_pos=cpos_f)
         att = att.reshape(T, H * Dv)
         if tail_chain and tail_eligible(layer):
             out = layer_tail(att, x, layer["ffn_norm"], layer["attn_output"],

@@ -16,8 +16,9 @@ import torch
 
 NEG_INF = float("-inf")
 # calls of the unfused attention (the route of heads that are no multiple
-# of 8 and of group-scaled q8_0 caches): no kernel, counted beside the
-# flash kernels' launches
+# of 8 or past 256, of group-scaled q8_0 caches, and of ALiBi steps the
+# narrow kernels do not take): no kernel, counted beside the flash
+# kernels' launches
 LAUNCHES = {"unfused": 0}
 
 
@@ -41,12 +42,18 @@ def build_attn_bias(tok_pos: torch.Tensor, tok_seq: torch.Tensor,
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              bias: torch.Tensor, scale: float, softcap: float = 0.0) -> torch.Tensor:
+              bias: torch.Tensor, scale: float, softcap: float = 0.0,
+              alibi_slopes: torch.Tensor | None = None,
+              cell_pos: torch.Tensor | None = None,
+              tok_pos: torch.Tensor | None = None) -> torch.Tensor:
     """Grouped-query attention with an f32 softmax over roped keys.
     q [T, H, D]; k [S, Hkv, D]; v [S, Hkv, Dv]; bias [T, S]. Returns
     [T, H, Dv] f32. Head h reads KV head h // (H // Hkv). softcap > 0:
     scores = tanh(scores / softcap) * softcap after the scale, before the
-    bias (gemma2)."""
+    bias (gemma2). alibi_slopes [H] with cell_pos [S] and tok_pos [T]:
+    scores -= slope_h * (tok_pos - cell_pos) in f32 after the bias, as the
+    reference's unfused attention does (ggml's soft_max_ext max_bias
+    path)."""
     LAUNCHES["unfused"] += 1
     T, H, D = q.shape
     S, Hkv, _ = k.shape
@@ -56,6 +63,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if softcap > 0.0:
         scores = torch.tanh(scores / softcap) * softcap
     scores = scores + bias[:, None, None, :]
+    if alibi_slopes is not None:
+        slopes = alibi_slopes.float().reshape(Hkv, rep)
+        dist = (tok_pos[:, None] - cell_pos[None, :]).float()
+        scores = scores - slopes[None, :, :, None] * dist[:, None, None, :]
     m = torch.clamp(scores.amax(dim=-1, keepdim=True), min=-1e30)
     p = torch.exp(scores - m)
     p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)

@@ -46,6 +46,21 @@ runs wide with one 128-dim chunk, so the narrow kernels and the uncapped
 wide ones keep their machine code. The kernels take tanhf, not
 tanh.approx.f32, whose ~2^-11 relative error would reach ~2% of a weight
 at cap 50.
+
+ALiBi (alibi_slopes f32 [H] with the positions tok_pos [T] and cell_pos
+[S]; pallas_attn.py's `alibi_slopes` / `dist`, dist = tok_pos - cell_pos,
+Baichuan-13B's and refact's): each score becomes s * scale - slope_h *
+(tok_pos[t] - cell_pos[s]) before the bias is added. The difference is
+taken in f32 from f32 positions, exact for integer positions below 2^24.
+Every ALiBi model runs rope NONE, and the ALiBi kernels fold no rope: an
+ALiBi call passes q_rot, cos and sin as None, and a call with rope tables
+takes no ALiBi. The narrow kernels' ALiBi instantiations take it (LAUNCHES
+"K3_alibi", "K3q_alibi", "K4_alibi", "K4q_alibi"): flash_decode_tc_alibi
+and flash_prefill_wgmma_alibi at D = 128 and at any other narrow D at run
+time, so that every existing kernel keeps its machine code. The wide and
+capped kernels take no ALiBi (no ALiBi model of the reference has a head
+past 128 or a softcap): models/transformer.py's flash_route sends such a
+step to the unfused attention on either device, and the launch raises.
 """
 
 from __future__ import annotations
@@ -57,13 +72,14 @@ import torch
 from ..device import full_f32
 from . import cuda_build
 from .cuda_qmm import sm_count
-from .rope import ROPE_TYPE_NEOX, ROPE_TYPE_NORM
+from .rope import ROPE_TYPE_NEOX, ROPE_TYPE_NONE, ROPE_TYPE_NORM
 
 NEG = -1e30
 T_CHUNK = 64  # query rows per step of attn_plain, to bound its score tensor
 LAUNCHES = {"K3": 0, "K4": 0, "K3q": 0, "K4q": 0, "K3w": 0, "K4w": 0, "K3qw": 0, "K4qw": 0,
-            "K3w_cap": 0, "K4w_cap": 0, "K3qw_cap": 0, "K4qw_cap": 0}
-# the K3/K3q launches (narrow, wide and capped) by T, the query rows of the call
+            "K3w_cap": 0, "K4w_cap": 0, "K3qw_cap": 0, "K4qw_cap": 0,
+            "K3_alibi": 0, "K4_alibi": 0, "K3q_alibi": 0, "K4q_alibi": 0}
+# the K3/K3q launches (narrow, wide, capped and ALiBi) by T, the query rows of the call
 DECODE_LAUNCHES_BY_T: dict[int, int] = {}
 # K3/K3q (csrc/flash_attn.cu): a CTA walks blocks of 64 cells and holds up
 # to 32 query rows of one KV head (past 32, more row chunks, each reading K
@@ -108,29 +124,41 @@ def dequant_bf16(kv) -> torch.Tensor:
 
 
 def attn_plain(q, q_rot, k, v, cos, sin, bias, scale: float,
-               softcap: float = 0.0) -> torch.Tensor:
+               softcap: float = 0.0, alibi_slopes=None, tok_pos=None,
+               cell_pos=None) -> torch.Tensor:
     """q, q_rot [T, H, Dk]; k [Hkv, S, Dk], v [Hkv, S, Dv], or (int8,
-    scales [Hkv, S, 1]) pairs; cos, sin [S, Dk]; bias [T, S]. Returns
-    [T, H, Dv] f32. Chunked over T to bound the score tensor. The score is
-    (q.kc + q_rot.ks) * scale, then cap * tanh(s / cap) where softcap > 0,
-    then + max(bias, -1e30): the reference kernel's order."""
+    scales [Hkv, S, 1]) pairs; cos, sin [S, Dk], or q_rot, cos and sin all
+    None (no rope); bias [T, S]; alibi_slopes [H] with tok_pos [T] and
+    cell_pos [S], or None. Returns [T, H, Dv] f32. Chunked over T to bound
+    the score tensor. The score is (q.kc + q_rot.ks) * scale (no rope:
+    q.k * scale), then cap * tanh(s / cap) where softcap > 0, then -
+    slope_h * (tok_pos[t] - cell_pos[s]) (ALiBi), then + max(bias, -1e30):
+    the reference kernel's order."""
     T, H, D = q.shape
     kf = dequant_bf16(k)
     vf = dequant_bf16(v)
     Hkv, S, Dv = vf.shape
     G = H // Hkv
-    kc = kf * cos.float()[None]  # [Hkv, S, D]
-    ks = kf * sin.float()[None]
+    roped = cos is not None
+    kc = kf * cos.float()[None] if roped else kf  # [Hkv, S, D]
+    ks = kf * sin.float()[None] if roped else None
+    dist = (tok_pos.float()[:, None] - cell_pos.float()[None, :]
+            if alibi_slopes is not None else None)
     outs = []
     with full_f32():
         for t0 in range(0, T, T_CHUNK):
             t1 = min(T, t0 + T_CHUNK)
             qh = q[t0:t1].float().reshape(t1 - t0, Hkv, G, D).permute(1, 0, 2, 3)
-            qrh = q_rot[t0:t1].float().reshape(t1 - t0, Hkv, G, D).permute(1, 0, 2, 3)
-            sc = (torch.einsum("htgd,hsd->htgs", qh, kc)
-                  + torch.einsum("htgd,hsd->htgs", qrh, ks)) * scale
+            sc = torch.einsum("htgd,hsd->htgs", qh, kc)
+            if roped:
+                qrh = q_rot[t0:t1].float().reshape(t1 - t0, Hkv, G, D).permute(1, 0, 2, 3)
+                sc = sc + torch.einsum("htgd,hsd->htgs", qrh, ks)
+            sc = sc * scale
             if softcap > 0.0:
                 sc = torch.tanh(sc / softcap) * softcap
+            if dist is not None:
+                sl = alibi_slopes.float().reshape(Hkv, 1, G, 1)
+                sc = sc - sl * dist[t0:t1][None, :, None, :]
             sc = sc + torch.clamp(bias[t0:t1].float(), min=NEG)[None, :, None, :]
             m = torch.clamp(sc.amax(dim=-1, keepdim=True), min=NEG)
             p = torch.exp(sc - m)
@@ -159,6 +187,14 @@ def _lib():
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
             + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.flash_decode_wide_q8_launch.restype = ctypes.c_int
+        lib.flash_decode_alibi_launch.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        lib.flash_decode_alibi_launch.restype = ctypes.c_int
+        lib.flash_decode_q8_alibi_launch.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        lib.flash_decode_q8_alibi_launch.restype = ctypes.c_int
     return lib
 
 
@@ -181,27 +217,35 @@ def _prefill_lib():
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
             + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         lib.flash_prefill_wide_q8_launch.restype = ctypes.c_int
+        lib.flash_prefill_alibi_launch.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+        lib.flash_prefill_alibi_launch.restype = ctypes.c_int
+        lib.flash_prefill_q8_alibi_launch.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+        lib.flash_prefill_q8_alibi_launch.restype = ctypes.c_int
     return lib
 
 
 def _check_inputs(q, q_rot, k, v, cos, sin, bias, kv_dtype=torch.bfloat16):
-    """Checks every input of a flash kernel; k, v are tensors of kv_dtype.
-    Returns (T, H, Hkv, S, Dk, Dv)."""
+    """Checks every input of a flash kernel; k, v are tensors of kv_dtype;
+    q_rot, cos and sin all tensors, or all None (no rope). Returns (T, H,
+    Hkv, S, Dk, Dv)."""
     T, H, D = q.shape
     Hkv, S, Dv = v.shape
     if not head_dim_ok(D) or not head_dim_ok(Dv) or H % Hkv:
         raise ValueError(f"flash kernels take Dk and Dv that are multiples of 8 up to "
                          f"{MAX_HEAD_DIM}, and H % Hkv == 0 "
                          f"(got Dk={D}, Dv={Dv}, H={H}, Hkv={Hkv})")
-    for name, t, dt in (("q", q, torch.bfloat16), ("q_rot", q_rot, torch.bfloat16),
-                        ("k", k, kv_dtype), ("v", v, kv_dtype),
-                        ("cos", cos, torch.bfloat16), ("sin", sin, torch.bfloat16),
-                        ("bias", bias, torch.float32)):
+    rope = (("q_rot", q_rot, (T, H, D)), ("cos", cos, (S, D)), ("sin", sin, (S, D)))
+    if any(t is None for _, t, _ in rope) and any(t is not None for _, t, _ in rope):
+        raise ValueError("flash kernel: q_rot, cos and sin are all given or all None")
+    for name, t, dt in (("q", q, torch.bfloat16), ("k", k, kv_dtype), ("v", v, kv_dtype),
+                        ("bias", bias, torch.float32),
+                        *((n, t, torch.bfloat16) for n, t, _ in rope if t is not None)):
         if not t.is_cuda or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"flash kernel: {name} must be a contiguous CUDA {dt}")
-    if tuple(k.shape) != (Hkv, S, D) or tuple(cos.shape) != (S, D) \
-            or tuple(sin.shape) != (S, D) or tuple(bias.shape) != (T, S) \
-            or tuple(q_rot.shape) != (T, H, D):
+    if tuple(k.shape) != (Hkv, S, D) or tuple(bias.shape) != (T, S) \
+            or any(t is not None and tuple(t.shape) != shape for _, t, shape in rope):
         raise ValueError("flash kernel: inconsistent shapes")
     return T, H, Hkv, S, D, Dv
 
@@ -220,6 +264,36 @@ def _check_q8(q, q_rot, k, v, cos, sin, bias):
                              f"bf16 [{Hkv}, {S}, 1] tensor (one scale per head row), "
                              f"got {t.dtype} {tuple(t.shape)}")
     return dims
+
+
+def _check_alibi(alibi_slopes, tok_pos, cell_pos, roped: bool, T: int, H: int, S: int,
+                 narrow: bool, softcap: float) -> bool:
+    """Whether a launch runs ALiBi: alibi_slopes, tok_pos and cell_pos all
+    given (f32 [H], [T] and [S], contiguous and 16-byte aligned on the
+    card) or none. The ALiBi kernels fold no rope (roped: q_rot, cos and
+    sin were given), the others need the tables; only the narrow, uncapped
+    kernels take ALiBi."""
+    named = (("alibi_slopes", alibi_slopes, (H,)), ("tok_pos", tok_pos, (T,)),
+             ("cell_pos", cell_pos, (S,)))
+    given = [t is not None for _, t, _ in named]
+    if any(given) and not all(given):
+        raise ValueError("flash kernel: ALiBi takes alibi_slopes, tok_pos and cell_pos")
+    if roped == any(given):
+        raise ValueError("flash kernel: an ALiBi call passes q_rot, cos and sin as None (its "
+                         "kernels fold no rope: every ALiBi model runs rope NONE), any other "
+                         "call passes them")
+    if not any(given):
+        return False
+    for name, t, shape in named:
+        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous() \
+                or tuple(t.shape) != shape or t.data_ptr() % 16:
+            raise ValueError(f"flash kernel: {name} must be a contiguous, 16-byte aligned "
+                             f"CUDA f32 {list(shape)} tensor, got {t.dtype} {tuple(t.shape)}")
+    if not narrow or softcap > 0.0:
+        raise ValueError("flash kernel: ALiBi runs the narrow, uncapped kernels only "
+                         "(models/transformer.py's flash_route sends other shapes to the "
+                         "unfused attention)")
+    return True
 
 
 def decode_attn_plan(T: int, H: int, Hkv: int, S: int, n_sm: int,
@@ -251,114 +325,151 @@ def _check_decode(T, *tensors):
             raise ValueError("flash_decode kernel: every tensor must start 16-byte aligned")
 
 
+def _launch_ptrs(q, q_rot, planes, cos, sin, bias, alibi_slopes, tok_pos, cell_pos,
+                 out) -> list[int]:
+    """The launcher's pointers in its order: q, q_rot, the planes, cos,
+    sin, bias, out; an ALiBi launcher's q, the planes, bias, the slopes,
+    tok_pos, cell_pos, out (no rope)."""
+    if alibi_slopes is None:
+        ts = (q, q_rot, *planes, cos, sin, bias, out)
+    else:
+        ts = (q, *planes, bias, alibi_slopes, tok_pos, cell_pos, out)
+    return [t.data_ptr() for t in ts]
+
+
 def _decode_launch(q8: bool, q, q_rot, k, v, cos, sin, bias, scale: float,
-                   cluster=None, softcap: float = 0.0) -> torch.Tensor:
+                   cluster=None, softcap: float = 0.0, alibi_slopes=None,
+                   tok_pos=None, cell_pos=None) -> torch.Tensor:
     """Launch K3 (bf16 k, v) or K3q (q8: (int8, scales) pairs), narrow or
-    wide by is_narrow (wide and capped where softcap > 0), with `cluster`
-    CTAs a KV head (None: decode_attn_plan's). Returns [T, H, Dv] f32."""
+    wide by is_narrow (wide and capped where softcap > 0; the narrow ALiBi
+    instantiation with alibi_slopes, tok_pos and cell_pos, q_rot, cos and
+    sin None), with `cluster` CTAs a KV head (None: decode_attn_plan's).
+    Returns [T, H, Dv] f32."""
     T, H, Hkv, S, Dk, Dv = (_check_q8 if q8 else _check_inputs)(q, q_rot, k, v, cos, sin, bias)
     planes = (*k, *v) if q8 else (k, v)
-    _check_decode(T, q, q_rot, *planes, cos, sin, bias)
+    _check_decode(T, *(t for t in (q, q_rot, *planes, cos, sin, bias) if t is not None))
     narrow = is_narrow(Dk, Dv, q8) and softcap <= 0.0
+    alibi = _check_alibi(alibi_slopes, tok_pos, cell_pos, cos is not None, T, H, S, narrow,
+                         softcap)
     if cluster is None:
         cluster = decode_attn_plan(T, H, Hkv, S, sm_count(q.device),
                                    DECODE_ROWS if narrow else WIDE_ROWS)[0]
     out = torch.empty((T, H, Dv), dtype=torch.float32, device=q.device)
-    ptrs = [t.data_ptr() for t in (q, q_rot, *planes, cos, sin, bias, out)]
+    ptrs = _launch_ptrs(q, q_rot, planes, cos, sin, bias, alibi_slopes, tok_pos, cell_pos, out)
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if narrow:
-        name = "flash_decode_q8_launch" if q8 else "flash_decode_launch"
+        name = ("flash_decode_q8" if q8 else "flash_decode") + ("_alibi" if alibi else "") \
+            + "_launch"
         rc = getattr(lib, name)(*ptrs, T, H, Hkv, S, Dk, float(scale), int(cluster), stream)
     else:
         name = "flash_decode_wide_q8_launch" if q8 else "flash_decode_wide_launch"
         rc = getattr(lib, name)(*ptrs, T, H, Hkv, S, Dk, Dv, float(scale),
                                 max(float(softcap), 0.0), int(cluster), stream)
     cuda_build.check(rc, name)
-    LAUNCHES[_kernel_name("K3", q8, narrow, softcap)] += 1
+    LAUNCHES[_kernel_name("K3", q8, narrow, softcap, alibi)] += 1
     DECODE_LAUNCHES_BY_T[T] = DECODE_LAUNCHES_BY_T.get(T, 0) + 1
     return out
 
 
-def _kernel_name(base: str, q8: bool, narrow: bool, softcap: float) -> str:
+def _kernel_name(base: str, q8: bool, narrow: bool, softcap: float,
+                 alibi: bool = False) -> str:
     """The LAUNCHES key of a launch: K3/K4, q on the int8 cache, w on the
-    wide kernels, _cap on their capped instantiations."""
+    wide kernels, _cap on their capped instantiations, _alibi on the
+    narrow kernels' ALiBi ones."""
     return (base + ("q" if q8 else "") + ("" if narrow else "w")
-            + ("_cap" if softcap > 0.0 else ""))
+            + ("_cap" if softcap > 0.0 else "") + ("_alibi" if alibi else ""))
 
 
-def flash_decode_cuda(q, q_rot, k, v, cos, sin, bias, scale: float,
-                      softcap: float = 0.0) -> torch.Tensor:
+def flash_decode_cuda(q, q_rot, k, v, cos, sin, bias, scale: float, softcap: float = 0.0,
+                      alibi_slopes=None, tok_pos=None, cell_pos=None) -> torch.Tensor:
     """K3 on a bf16 cache."""
-    return _decode_launch(False, q, q_rot, k, v, cos, sin, bias, scale, softcap=softcap)
+    return _decode_launch(False, q, q_rot, k, v, cos, sin, bias, scale, softcap=softcap,
+                          alibi_slopes=alibi_slopes, tok_pos=tok_pos, cell_pos=cell_pos)
 
 
-def flash_decode_q8_cuda(q, q_rot, k, v, cos, sin, bias, scale: float,
-                         softcap: float = 0.0) -> torch.Tensor:
+def flash_decode_q8_cuda(q, q_rot, k, v, cos, sin, bias, scale: float, softcap: float = 0.0,
+                         alibi_slopes=None, tok_pos=None, cell_pos=None) -> torch.Tensor:
     """K3q: K3 on (int8, scales [Hkv, S, 1]) pairs."""
-    return _decode_launch(True, q, q_rot, k, v, cos, sin, bias, scale, softcap=softcap)
+    return _decode_launch(True, q, q_rot, k, v, cos, sin, bias, scale, softcap=softcap,
+                          alibi_slopes=alibi_slopes, tok_pos=tok_pos, cell_pos=cell_pos)
 
 
 def _prefill_launch(q8: bool, q, q_rot, k, v, cos, sin, bias, scale: float,
-                    softcap: float = 0.0) -> torch.Tensor:
+                    softcap: float = 0.0, alibi_slopes=None, tok_pos=None,
+                    cell_pos=None) -> torch.Tensor:
     """Launch K4 (bf16 k, v) or K4q (q8: (int8, scales) pairs), narrow or
-    wide by is_narrow (wide and capped where softcap > 0), any G = H / Hkv.
-    Returns [T, H, Dv] f32."""
+    wide by is_narrow (wide and capped where softcap > 0; the narrow ALiBi
+    instantiation with alibi_slopes, tok_pos and cell_pos, q_rot, cos and
+    sin None), any G = H / Hkv. Returns [T, H, Dv] f32."""
     T, H, Hkv, S, Dk, Dv = (_check_q8 if q8 else _check_inputs)(q, q_rot, k, v, cos, sin, bias)
     planes = (*k, *v) if q8 else (k, v)
     narrow = is_narrow(Dk, Dv, q8) and softcap <= 0.0
+    alibi = _check_alibi(alibi_slopes, tok_pos, cell_pos, cos is not None, T, H, S, narrow,
+                         softcap)
     out = torch.empty((T, H, Dv), dtype=torch.float32, device=q.device)
-    ptrs = [t.data_ptr() for t in (q, q_rot, *planes, cos, sin, bias, out)]
+    ptrs = _launch_ptrs(q, q_rot, planes, cos, sin, bias, alibi_slopes, tok_pos, cell_pos, out)
     lib = _prefill_lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if narrow:
-        name = "flash_prefill_q8_launch" if q8 else "flash_prefill_launch"
+        name = ("flash_prefill_q8" if q8 else "flash_prefill") + ("_alibi" if alibi else "") \
+            + "_launch"
         rc = getattr(lib, name)(*ptrs, T, H, Hkv, S, Dk, float(scale), stream)
     else:
         name = "flash_prefill_wide_q8_launch" if q8 else "flash_prefill_wide_launch"
         rc = getattr(lib, name)(*ptrs, T, H, Hkv, S, Dk, Dv, float(scale),
                                 max(float(softcap), 0.0), stream)
     cuda_build.check(rc, name)
-    LAUNCHES[_kernel_name("K4", q8, narrow, softcap)] += 1
+    LAUNCHES[_kernel_name("K4", q8, narrow, softcap, alibi)] += 1
     return out
 
 
-def flash_prefill_cuda(q, q_rot, k, v, cos, sin, bias, scale: float,
-                       softcap: float = 0.0) -> torch.Tensor:
+def flash_prefill_cuda(q, q_rot, k, v, cos, sin, bias, scale: float, softcap: float = 0.0,
+                       alibi_slopes=None, tok_pos=None, cell_pos=None) -> torch.Tensor:
     """K4 on a bf16 cache."""
-    return _prefill_launch(False, q, q_rot, k, v, cos, sin, bias, scale, softcap)
+    return _prefill_launch(False, q, q_rot, k, v, cos, sin, bias, scale, softcap,
+                           alibi_slopes, tok_pos, cell_pos)
 
 
-def flash_prefill_q8_cuda(q, q_rot, k, v, cos, sin, bias, scale: float,
-                          softcap: float = 0.0) -> torch.Tensor:
+def flash_prefill_q8_cuda(q, q_rot, k, v, cos, sin, bias, scale: float, softcap: float = 0.0,
+                          alibi_slopes=None, tok_pos=None, cell_pos=None) -> torch.Tensor:
     """K4q: K4 on (int8, scales [Hkv, S, 1]) pairs."""
-    return _prefill_launch(True, q, q_rot, k, v, cos, sin, bias, scale, softcap)
+    return _prefill_launch(True, q, q_rot, k, v, cos, sin, bias, scale, softcap,
+                           alibi_slopes, tok_pos, cell_pos)
 
 
-def flash_decode(q, q_rot, k, v, cos, sin, bias, scale: float,
-                 softcap: float = 0.0) -> torch.Tensor:
+def flash_decode(q, q_rot, k, v, cos, sin, bias, scale: float, softcap: float = 0.0,
+                 alibi_slopes=None, tok_pos=None, cell_pos=None) -> torch.Tensor:
     """K3, or K3q when k, v are (int8, scales) pairs (T <= 8); capped where
-    softcap > 0. Returns [T, H, Dv] f32."""
+    softcap > 0; ALiBi with alibi_slopes [H], tok_pos [T] and cell_pos [S]
+    (q_rot, cos and sin None). Returns [T, H, Dv] f32."""
     if q.is_cuda:
         fn = flash_decode_q8_cuda if isinstance(k, tuple) else flash_decode_cuda
-        return fn(q, q_rot, k, v, cos, sin, bias, scale, softcap)
-    return attn_plain(q, q_rot, k, v, cos, sin, bias, scale, softcap)
+        return fn(q, q_rot, k, v, cos, sin, bias, scale, softcap, alibi_slopes, tok_pos,
+                  cell_pos)
+    return attn_plain(q, q_rot, k, v, cos, sin, bias, scale, softcap, alibi_slopes, tok_pos,
+                      cell_pos)
 
 
-def flash_prefill(q, q_rot, k, v, cos, sin, bias, scale: float,
-                  softcap: float = 0.0) -> torch.Tensor:
+def flash_prefill(q, q_rot, k, v, cos, sin, bias, scale: float, softcap: float = 0.0,
+                  alibi_slopes=None, tok_pos=None, cell_pos=None) -> torch.Tensor:
     """K4, or K4q on (int8, scales) pairs (T > 8), any T; capped where
-    softcap > 0. Returns [T, H, Dv] f32."""
+    softcap > 0; ALiBi with alibi_slopes [H], tok_pos [T] and cell_pos [S]
+    (q_rot, cos and sin None). Returns [T, H, Dv] f32."""
     if q.is_cuda:
         fn = flash_prefill_q8_cuda if isinstance(k, tuple) else flash_prefill_cuda
-        return fn(q, q_rot, k, v, cos, sin, bias, scale, softcap)
-    return attn_plain(q, q_rot, k, v, cos, sin, bias, scale, softcap)
+        return fn(q, q_rot, k, v, cos, sin, bias, scale, softcap, alibi_slopes, tok_pos,
+                  cell_pos)
+    return attn_plain(q, q_rot, k, v, cos, sin, bias, scale, softcap, alibi_slopes, tok_pos,
+                      cell_pos)
 
 
 def rope_companion(q: torch.Tensor, mode: int, n_dims: int | None = None) -> torch.Tensor:
     """q_rot such that R(p)k . q == (k*cos_p).q + (k*sin_p).q_rot.
     NEOX halves: [q_hi, -q_lo]; NORM pairs: [q1, -q0] interleaved. Dims
-    past n_dims (partial rotary) get 0."""
+    past n_dims (partial rotary) get 0; mode NONE is all zeros."""
+    if mode == ROPE_TYPE_NONE:
+        return torch.zeros_like(q)
     d = q.shape[-1]
     nd = d if n_dims is None else n_dims
     if mode == ROPE_TYPE_NEOX:
@@ -377,7 +488,12 @@ def rope_companion(q: torch.Tensor, mode: int, n_dims: int | None = None) -> tor
 def expand_tables(cos_h: torch.Tensor, sin_h: torch.Tensor, mode: int, d: int,
                   n_dims: int | None = None):
     """Half-width [S, n_dims/2] rope tables -> full-width [S, D] per layout;
-    unrotated trailing dims get cos=1, sin=0."""
+    unrotated trailing dims get cos=1, sin=0; mode NONE gives all-ones cos
+    and all-zeros sin."""
+    if mode == ROPE_TYPE_NONE:
+        shape = (*cos_h.shape[:-1], d)
+        return (torch.ones(shape, dtype=cos_h.dtype, device=cos_h.device),
+                torch.zeros(shape, dtype=sin_h.dtype, device=sin_h.device))
     nd = d if n_dims is None else n_dims
     ch, sh = cos_h[..., : nd // 2], sin_h[..., : nd // 2]
     if mode == ROPE_TYPE_NEOX:

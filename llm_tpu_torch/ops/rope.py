@@ -4,6 +4,9 @@ llm_tpu/ops/rope.py.
 
   * NORM (mode 0): rotate adjacent pairs (x[2i], x[2i+1]).
   * NEOX (mode 2): rotate split halves (x[i], x[i + n_rot/2]).
+  * NONE (mode -1): no rotation (ALiBi and learned-position archs: the
+    config sets n_dims = 0); the tables are empty and apply_rope is the
+    identity.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+ROPE_TYPE_NONE = -1
 ROPE_TYPE_NORM = 0
 ROPE_TYPE_NEOX = 2
 
@@ -46,8 +50,12 @@ def _yarn_corr_dims(p: RopeParams) -> tuple[float, float]:
 def rope_angles(positions: torch.Tensor, p: RopeParams,
                 freq_factors=None) -> tuple[torch.Tensor, torch.Tensor]:
     """f32 cos/sin tables of shape [*positions.shape, n_dims//2].
-    freq_factors: optional per-dim divisors (llama3-style rope_freqs)."""
+    freq_factors: optional per-dim divisors (llama3-style rope_freqs).
+    n_dims = 0 (rope NONE): empty tables."""
     half = p.n_dims // 2
+    if half == 0:
+        empty = torch.zeros((*positions.shape, 0), dtype=torch.float32, device=positions.device)
+        return empty, empty
     dim_idx = np.arange(half, dtype=np.float32)
     inv_freq = np.power(p.freq_base, -2.0 * dim_idx / p.n_dims).astype(np.float32)
     inv = torch.from_numpy(inv_freq).to(positions.device)
@@ -74,7 +82,10 @@ def rope_angles(positions: torch.Tensor, p: RopeParams,
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                mode: int, n_dims: int) -> torch.Tensor:
     """Rotate the first n_dims of the last axis of x [..., heads, head_dim]
-    in f32; cos/sin [..., n_dims//2] broadcast over heads."""
+    in f32; cos/sin [..., n_dims//2] broadcast over heads. Mode NONE (or
+    n_dims = 0) is the identity."""
+    if mode == ROPE_TYPE_NONE or n_dims == 0:
+        return x
     dtype = x.dtype
     rot, rest = x[..., :n_dims].float(), x[..., n_dims:]
     c = cos[..., None, :].float()

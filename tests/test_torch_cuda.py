@@ -4,7 +4,9 @@ layer, writing bf16 or f32; K3/K4 flash attention (K3/K3q, the cluster
 decode kernel, at the main path's T = 1 and 8 over 4096 cells and
 bit-identical from launch to launch),
 K3q/K4q on the int8 KV cache, the wide kernels and their capped
-instantiations (gemma2's attention softcap, at cap 50 and 2), K5
+instantiations (gemma2's attention softcap, at cap 50 and 2), the narrow
+kernels' ALiBi instantiations (K3_alibi, K3q_alibi, K4_alibi, K4q_alibi at
+Baichuan-13B's heads, G = 4 and refact's G = 32, D = 64, 80 and 128), K5
 group-factored matmul, K6 chained layer
 tail and norm + matmul, K7 on stacked planes, the S1 probes, the S3
 flash-decode layout and q8 probes) held against
@@ -27,11 +29,12 @@ import pytest
 import torch
 
 from llm_tpu_torch.gguf.constants import GGMLType
-from llm_tpu_torch.models.transformer import quantize_rows
+from llm_tpu_torch.models.transformer import alibi_slopes, quantize_rows
 from llm_tpu_torch.ops import (cuda_attn, cuda_attn_probe, cuda_probe, cuda_qmm,
                                cuda_qmm_chain, qmatmul)
 from llm_tpu_torch.ops.cuda_qmm import qmm_gdot_plain, qmm_plain, qmm_stacked_plain
-from llm_tpu_torch.ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NORM, RopeParams, rope_angles
+from llm_tpu_torch.ops.rope import (ROPE_TYPE_NEOX, ROPE_TYPE_NONE, ROPE_TYPE_NORM, RopeParams,
+                                    rope_angles)
 from llm_tpu_torch.quant.qtensor import QTensor, StackedWeight, pack_p4_kmajor
 
 pytestmark = pytest.mark.cuda
@@ -474,6 +477,112 @@ def test_flash_decode_capped_is_bit_identical(cuda_device, q8):
     first, second = (cuda_attn._decode_launch(q8, **dev, scale=256 ** -0.5, cluster=5,
                                               softcap=50.0) for _ in range(2))
     assert torch.equal(first, second)
+
+
+def _alibi_inputs(T, H, Hkv, S, D, seed=0):
+    """Inputs on rope NONE (q_rot, cos and sin None, as the ALiBi kernels
+    take them), cells at a permutation of positions, the last quarter
+    empty, T tokens at sorted positions (past T = 1 row 0 a padding row
+    that sees nothing), and ALiBi's slopes of max_bias 8 with tok_pos and
+    cell_pos in f32."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((T, H, D), generator=g).to(torch.bfloat16)
+    k = torch.randn((Hkv, S, D), generator=g).to(torch.bfloat16)
+    v = torch.randn((Hkv, S, D), generator=g).to(torch.bfloat16)
+    pos = torch.randperm(S, generator=g)
+    tok_pos = torch.sort(torch.randint(S // 4, S, (T,), generator=g)).values
+    allowed = (pos[None, :] <= tok_pos[:, None]) & (torch.arange(S) < S - S // 4)[None]
+    if T > 1:
+        allowed[0] = False
+    return dict(q=q, q_rot=None, k=k, v=v, cos=None, sin=None,
+                bias=torch.zeros((T, S)).masked_fill_(~allowed, float("-inf")),
+                alibi_slopes=torch.tensor(alibi_slopes(H, 8.0), dtype=torch.float32),
+                tok_pos=tok_pos.float(), cell_pos=pos.float())
+
+
+def _on(t: dict, device) -> dict:
+    """t's tensors (and pairs' tensors) on device; None stays None."""
+    return {n: (None if a is None else tuple(x.to(device) for x in a)
+                if isinstance(a, tuple) else a.to(device)) for n, a in t.items()}
+
+
+def _rope_none(t: dict) -> dict:
+    """t without ALiBi, on rope NONE's tables (q_rot 0, cos 1, sin 0) that
+    the kernels without ALiBi read."""
+    S, D = t["bias"].shape[1], t["q"].shape[-1]
+    cos, sin = (x.to(torch.bfloat16).contiguous() for x in cuda_attn.expand_tables(
+        torch.zeros((S, 0)), torch.zeros((S, 0)), ROPE_TYPE_NONE, D))
+    return {**{n: a for n, a in t.items() if n not in ("alibi_slopes", "tok_pos", "cell_pos")},
+            "q_rot": torch.zeros_like(t["q"]), "cos": cos, "sin": sin}
+
+
+# the ALiBi kernels (T, H, Hkv, S, D): Baichuan-13B's heads (40 over 40 of
+# 128) at decode, prefill and a ragged S; G = 4 at 128 and 64; refact's
+# G = 32 at 64 (the run-time D kernels); D = 80; a prefill past 512 rows
+ALIBI_CASES = [(1, 40, 40, 4096, 128), (8, 40, 40, 4096, 128), (512, 40, 40, 4096, 128),
+               (3, 40, 40, 333, 128), (1, 16, 4, 1000, 128), (8, 32, 8, 512, 128),
+               (40, 8, 2, 300, 128), (8, 16, 4, 700, 64), (1, 32, 1, 1000, 64),
+               (8, 32, 1, 700, 64), (100, 32, 1, 1000, 64), (4, 8, 2, 300, 80),
+               (513, 8, 8, 1024, 128)]
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "q8_0"])
+@pytest.mark.parametrize("T,H,Hkv,S,D", ALIBI_CASES,
+                         ids=[f"T{t}-H{h}-Hkv{hk}-S{s}-D{d}" for t, h, hk, s, d in ALIBI_CASES])
+def test_flash_alibi_kernels_match_plain(cuda_device, T, H, Hkv, S, D, q8):
+    """K3_alibi/K4_alibi (K3q_alibi/K4q_alibi on (int8, scales) pairs)
+    against attn_plain(alibi_slopes=, tok_pos=, cell_pos=) at atol = rtol
+    = 1e-3, each one launch of its ALiBi kernel and none of another; ALiBi
+    bites (without it attn_plain is elsewhere)."""
+    t = _alibi_inputs(T, H, Hkv, S, D, seed=T + H + D)
+    if q8:
+        t["k"], t["v"] = _q8(t["k"]), _q8(t["v"])
+    dev = _on(t, cuda_device)
+    fn = cuda_attn.flash_decode if T <= 8 else cuda_attn.flash_prefill
+    kern = ("K3" if T <= 8 else "K4") + ("q" if q8 else "") + "_alibi"
+    launched = dict(cuda_attn.LAUNCHES)
+    got = fn(**dev, scale=D ** -0.5).cpu()
+    assert {k: v - launched[k] for k, v in cuda_attn.LAUNCHES.items() if v != launched[k]} \
+        == {kern: 1}
+    assert got.shape == (T, H, D) and torch.isfinite(got).all()
+    want = cuda_attn.attn_plain(**t, scale=D ** -0.5)
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+    assert (want - cuda_attn.attn_plain(**_rope_none(t), scale=D ** -0.5)).abs().max() > 1e-2
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "q8_0"])
+def test_flash_decode_alibi_is_bit_identical(cuda_device, q8):
+    """K3_alibi/K3q_alibi meet their ranks in rank order: two launches at a
+    cluster of 5 give the same bits."""
+    t = _alibi_inputs(3, 40, 40, 1000, 128)
+    if q8:
+        t["k"], t["v"] = _q8(t["k"]), _q8(t["v"])
+    dev = _on(t, cuda_device)
+    first, second = (cuda_attn._decode_launch(q8, **dev, scale=128 ** -0.5, cluster=5)
+                     for _ in range(2))
+    assert torch.equal(first, second)
+
+
+def test_flash_alibi_refuses_what_no_kernel_takes(cuda_device):
+    """ALiBi runs the narrow, uncapped kernels only (flash_route sends the
+    rest to the unfused attention), with no rope: a head of 256, a
+    softcap, slopes without the positions, positions of the wrong type or
+    shape, and rope tables beside ALiBi raise, launching nothing."""
+    launched = dict(cuda_attn.LAUNCHES)
+    for T in (1, 16):
+        fn = cuda_attn.flash_decode if T <= 8 else cuda_attn.flash_prefill
+        wide = _on(_alibi_inputs(T, 4, 2, 64, 256), cuda_device)
+        t = _on(_alibi_inputs(T, 4, 2, 64, 128), cuda_device)
+        roped = {n: a for n, a in _on(_rope_none(_alibi_inputs(T, 4, 2, 64, 128)),
+                                      cuda_device).items() if n in ("q_rot", "cos", "sin")}
+        for bad in (dict(wide), dict(t, softcap=50.0), dict(t, cell_pos=None),
+                    dict(t, tok_pos=t["tok_pos"].double()),
+                    dict(t, cell_pos=t["cell_pos"][:32]),
+                    dict(t, alibi_slopes=t["alibi_slopes"][:2]), dict(t, **roped),
+                    dict(t, cos=roped["cos"])):
+            with pytest.raises(ValueError):
+                fn(**bad, scale=0.1)
+    assert cuda_attn.LAUNCHES == launched
 
 
 @pytest.mark.parametrize("H,Hkv,D,q_dtype", [(8, 2, 264, torch.bfloat16),   # past 256
