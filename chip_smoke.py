@@ -12,8 +12,8 @@ prints no result line):
      and K5's qmm_decode_gdot, issues HMMA and TMA loads; no qmm_gemv kernel
      is left in libqmm.so, libqmm_stacked.so or libqmm_chain.so, and
      libqmm_probe.so keeps S1's probes of that loop), K6's (its
-     qmm_chain_tc kernel issues HMMA and TMA loads, the old
-     qmm_chain_kernel is gone), the prefill GEMM's (every qmm_wgmma kernel
+     qmm_chain_tc kernel and the GeGLU one, qmm_chain_tc_gelu, issue HMMA
+     and TMA loads, the old qmm_chain_kernel is gone), the prefill GEMM's (every qmm_wgmma kernel
      issues HGMMA and TMA loads, no mma.sync GEMM is left), flash
      prefill's (every one of the ten
      flash_prefill kernels of libflash_prefill.so, two at head dim 128 and
@@ -75,7 +75,13 @@ prints no result line):
      timed beside the kernel without ALiBi at the same shape and SDPA with
      the ALiBi term in its float mask (the library column); K1/K2 at every
      Baichuan-13B matmul shape (Q8_0 down at K = 13696) at B = 1, 8 and
-     512;
+     512; K6_gelu (the GeGLU tail, qmm_chain_tc_gelu) at Gemma-7B's
+     widths with a Q4_K and a Q6_K down and K6 at its fused head, B = 1
+     and 8, beside the unfused launches, the tail also without its
+     residual (the FFN's output alone, where the plain SwiGLU must lie
+     apart from the plain GeGLU); K1/K2 at Qwen3-30B-A3B's and Gemma-7B's
+     attention, FFN and lm_head shapes at B = 1, 8 (and 512 but the
+     lm_heads);
   3. two layers at LLAMA3_8B width: Context.decode of a 64-token prompt and
      8 greedy generate_loop steps on the card (kernels), the card's stream
      decoded step by step on the card and on the CPU (plain versions), from
@@ -100,7 +106,12 @@ prints no result line):
      window with a q8_0 cache (K3qw_cap/K4qw_cap); then two layers of
      Baichuan-13B (its 13B profile: rope NONE, ALiBi) with a bf16 and a
      q8_0 cache (K3_alibi/K4_alibi, K3q_alibi/K4q_alibi) and of
-     Refact-1.6B (ALiBi at G = 32, D = 64) with a bf16 cache;
+     Refact-1.6B (ALiBi at G = 32, D = 64) with a bf16 cache; then two
+     layers of Qwen3-30B-A3B (qk-norm, 128 experts of 768, 8 a token: the
+     prompt on the grouped dispatch, the decode steps on the gather; K3/K4
+     at G = 8), of Qwen2.5-7B (QKV biases, G = 7) and of Gemma-7B with
+     chain=True (a GeGLU tail on K6_gelu in each layer of each decode
+     step, K3w/K4w at D = 256);
   4. LLAMA3_8B, 32 layers, Q4_K_M-style random planes made on the card
      (first, K5 against its plain version at every p4 shape of these planes
      that phase 2 left out, attn_k among them): prefill 512 tokens, then 128
@@ -173,7 +184,26 @@ prints no result line):
      (K3_alibi/K4_alibi, no other flash launch; profiled over 8 more
      tokens; the cache's 3,355,443,200 bytes), the prompt's logits with
      alibi_max_bias = 0 apart by more than the two-layer tolerance, and
-     the q8_0 cache (prefill 512, 32 tokens: K3q_alibi/K4q_alibi).
+     the q8_0 cache (prefill 512, 32 tokens: K3q_alibi/K4q_alibi);
+ 13. Qwen3-30B-A3B at full depth (48 layers, Q4_K_M-style random planes
+     made on the card: 128 experts a layer as rows-layout stacks, Q6_K
+     ffn_down_exps and attn_v in the use_more_bits layers, a bf16 router,
+     an untied Q6_K lm_head), 4096 cells: prefill 512 (the grouped
+     dispatch) and 128 greedy tokens (the gather) with the bf16 cache (K3/K4
+     a layer a step at G = 8; profiled over 8 more tokens with the MoE
+     FFN's and its gather-dequant's device ms and launches a token; the
+     cache's bytes, the planes' and the peak memory), chain=True for 16
+     tokens (K6 heads, unchained MoE tails; the stream equal to the
+     unchained one or parted only at a near tie), and the q8_0 cache for
+     32 tokens (K3q/K4q);
+ 14. Gemma-7B with chain=True at full width and depth (28 layers, Q4_K_M-
+     style random planes, a tied Q6_K table of 256000 rows), 4096 cells:
+     prefill 512 and 128 greedy tokens, a GeGLU tail on K6_gelu in every
+     layer of every token, K3w/K4w (profiled over 8 more tokens); the
+     unchained Context's 128 tokens on the same planes, the streams equal
+     or parted only at a near tie, and 4 decode steps of distinct tokens
+     on both, every step's logits within the chained twin's tolerance
+     (as for phase 13's chain=True run).
 The last lines are a JSON "kernels" line, the card line, and
 {"ok": true, "device": {...}}. It imports nothing of JAX or llm_tpu.
 """
@@ -461,9 +491,22 @@ CHAINS = (
 )
 
 
+# Gemma-7B's chains (phase 14's planes): the GeGLU tail with a Q4_K and a
+# Q6_K down (o_proj 4096 -> 3072, gate+up 3072 -> 49152, down 24576 ->
+# 3072: K6_gelu), and the fused head (3072 -> 12288: K6)
+GEMMA7B_CHAINS = (
+    ("gemma-7b tail Q4_K down", ((4096, 3072, "Q4_K"), (3072, 49152, "Q4_K"),
+                                 (24576, 3072, "Q4_K")), ("cast", "res_norm", "geglu")),
+    ("gemma-7b tail Q6_K down", ((4096, 3072, "Q4_K"), (3072, 49152, "Q4_K"),
+                                 (24576, 3072, "Q6_K")), ("cast", "res_norm", "geglu")),
+    ("gemma-7b head qkv", ((3072, 12288, "Q4_K"),), ("norm",)),
+)
+
+
 def unfused_chain(x, qts, gamma, x_res, pres, mm):
     """The chain as forward runs it unfused, with mm(x, i) for the i-th
     matmul (f32 out): K1/K2 launches, or torch.matmul on bf16 weights."""
+    from llm_tpu_torch.ops.cuda_qmm_chain import GLU
     from llm_tpu_torch.ops.norms import rms_norm
 
     bf = torch.bfloat16
@@ -472,7 +515,7 @@ def unfused_chain(x, qts, gamma, x_res, pres, mm):
         return y if qts[0].out_features == 128256 else y.to(bf)
     h = x_res + mm(x, 0).to(bf)
     g, u = mm(rms_norm(h, gamma, 1e-5), 1).chunk(2, dim=-1)
-    return h + mm((torch.nn.functional.silu(g) * u).to(bf), 2).to(bf)
+    return h + mm((GLU[pres[2]](g) * u).to(bf), 2).to(bf)
 
 
 def check_chain(results, name, dims, pres, B):
@@ -515,13 +558,32 @@ def check_chain(results, name, dims, pres, B):
     nbytes = sum(qt_bytes(q) for q in qts) + x.numel() * 2 + got.numel() * got.element_size()
     nbytes += x_res.numel() * 2 if x_res is not None else 0
     bmin, by = bound_ms(nbytes, sum(2.0 * B * k * n for k, n, _ in dims))
-    rec = dict(kernel="K6", shape=f"{name} B={B}", max_abs_err=err, tol=tol, ms=ms,
+    gelu = "geglu" in pres
+    kern = "K6_gelu" if gelu else "K6"
+    rec = dict(kernel=kern, shape=f"{name} B={B}", max_abs_err=err, tol=tol, ms=ms,
                unfused_ms=unfused_ms, plain_ms=plain_ms, bound_ms=bmin, bound_by=by,
-               library_ms=lib_ms, plan=cuda_qmm_chain.launch_plan(qts),
-               clusters=cuda_qmm_chain.chain_clusters())
+               library_ms=lib_ms, plan=cuda_qmm_chain.launch_plan(qts, gelu),
+               clusters=cuda_qmm_chain.chain_clusters(gelu))
+    if gelu:
+        # the tail without its residual (final "cast": the FFN's output,
+        # which h would hide): the kernel against the plain GeGLU, and the
+        # plain SwiGLU apart from it by more than twice the tolerance, so
+        # that the activation is live
+        ffn = dict(kw, final="cast")
+        got_f = cuda_qmm_chain.qmm_chain_cuda(x, qts, (gamma,), x_res, **ffn).float()
+        want_f = cuda_qmm_chain.qmm_chain_plain(x, qts, (gamma,), x_res, **ffn).float()
+        silu_f = cuda_qmm_chain.qmm_chain_plain(
+            x, qts, (gamma,), x_res, **dict(ffn, pres=(*pres[:2], "swiglu"))).float()
+        rec.update(ffn_max_abs_err=(got_f - want_f).abs().max().item(),
+                   ffn_tol=K6_REL_TOL * want_f.abs().max().item(),
+                   silu_vs_gelu_ffn_max_abs_diff=(silu_f - want_f).abs().max().item())
+        rec["max_abs_err"] = max(err, rec["ffn_max_abs_err"])
     log(json.dumps(rec))
     if not (err <= tol and math.isfinite(err)):
-        raise AssertionError(f"K6 {rec['shape']}: max|err| {err} > {tol}")
+        raise AssertionError(f"{kern} {rec['shape']}: max|err| {err} > {tol}")
+    if gelu and not (rec["ffn_max_abs_err"] <= rec["ffn_tol"]
+                     and rec["silu_vs_gelu_ffn_max_abs_diff"] > 2 * rec["ffn_tol"]):
+        raise AssertionError(f"{kern} {rec['shape']}: the GeGLU FFN's output: {rec}")
     results.append(rec)
 
 
@@ -840,8 +902,21 @@ def phase_kernels():
                            ("down", 14336, 4096), ("head", 4096, 128256)):
             check_gdot(results, name, K, N, B)
     for B in (1, 8):
-        for name, dims, pres in CHAINS:
+        for name, dims, pres in CHAINS + GEMMA7B_CHAINS:
             check_chain(results, name, dims, pres, B)
+    # Qwen3-30B-A3B's and Gemma-7B's attention matmuls and lm_heads (phases
+    # 13 and 14): N = 5120, 512 (attn_k / attn_v of the use_more_bits
+    # layers), 2048 (o_proj) and 151936 (lm_head) are new to decode_plan
+    # and gemm_split, and so are Gemma-7B's K = 3072 and 24576 and N =
+    # 12288, 49152 and 256000; the experts run plain PyTorch
+    for B in (1, 8, 512):
+        for name, K, N in QWEN3_MATMULS_Q4K + GEMMA7B_MATMULS_Q4K:
+            check_qmm(results, name, Q4K, K, N, B)
+        for name, K, N in QWEN3_MATMULS_Q6K + GEMMA7B_MATMULS_Q6K:
+            check_qmm(results, name, Q6K, K, N, B)
+    for B in (1, 8):
+        check_qmm(results, "qwen3 lm_head", Q6K, 2048, 151936, B)
+        check_qmm(results, "gemma-7b lm_head", Q6K, 3072, 256000, B)
     # K7 at every layer matmul of phase 8's uniform planes: K1 (Q4_K) and K2
     # (Q8_0) at decode and at a 512-token prefill step, K5 at decode and at
     # the gdot probes' B = 8
@@ -855,6 +930,19 @@ def phase_kernels():
     return results
 
 
+# Qwen3-30B-A3B's attention matmuls (name, K, N): Q4_K fused QKV, attn_q
+# and attn_k (unfused in the use_more_bits layers), o_proj; Q6_K attn_v of
+# the use_more_bits layers
+QWEN3_MATMULS_Q4K = (("qwen3 qkv", 2048, 5120), ("qwen3 attn_q", 2048, 4096),
+                     ("qwen3 attn_k", 2048, 512), ("qwen3 o_proj", 4096, 2048))
+QWEN3_MATMULS_Q6K = (("qwen3 attn_v", 2048, 512),)
+# Gemma-7B's matmuls (name, K, N): Q4_K fused QKV, attn_q/k/v (unfused in the
+# use_more_bits layers), o_proj, fused gate+up and down; Q6_K attn_v and
+# down of the use_more_bits layers
+GEMMA7B_MATMULS_Q4K = (("gemma-7b qkv", 3072, 12288), ("gemma-7b attn_q", 3072, 4096),
+                       ("gemma-7b o_proj", 4096, 3072), ("gemma-7b gate_up", 3072, 49152),
+                       ("gemma-7b down", 24576, 3072))
+GEMMA7B_MATMULS_Q6K = (("gemma-7b attn_v", 3072, 4096), ("gemma-7b down", 24576, 3072))
 # Gemma-2-9B's matmuls (name, K, N): Q4_K fused QKV, attn_q and attn_k
 # (unfused in the use_more_bits layers), o_proj, fused gate+up and down;
 # Q6_K attn_v and down of the use_more_bits layers; its attention softcap
@@ -992,8 +1080,134 @@ TWO_LAYER_Q8_REL_TOL = 1.7e-2
 TWO_LAYER_SEED = 5
 
 
+# a router near tie, in router probabilities: where a follower's experts
+# (RouteTwin) differ from the recorded run's, each expert swapped in lies
+# within ROUTE_GAP_TOL of each expert swapped out on the follower's own
+# probabilities; and on every token the two runs' probabilities differ by
+# at most ROUTE_DIFF_TOL (the same inputs). About 3x the largest readings
+# at Qwen3-30B-A3B's widths over 48 layers (a swap's gap 7.3e-4, a swapped
+# token's difference 3.3e-3, PERF.md), where the largest probability of a
+# token is 0.026 or more (a softmax over 128 router logits of std 0.9)
+ROUTE_GAP_TOL = 2.5e-3
+ROUTE_DIFF_TOL = 1e-2
+
+
+def route_swaps(sel, idx, rsel, ridx) -> tuple[float, list[float]]:
+    """A follower's router probabilities sel [T, E] and experts idx [T, k]
+    against a recorded run's (rsel, ridx): (the largest difference of the
+    probabilities, the gap of each token whose experts differ). Raises
+    unless the shapes match, every difference is within ROUTE_DIFF_TOL and
+    every gap within ROUTE_GAP_TOL (a near tie)."""
+    if sel.shape != rsel.shape or idx.shape != ridx.shape:
+        raise AssertionError(f"router calls of shapes {tuple(sel.shape)} and "
+                             f"{tuple(rsel.shape)}: not the recorded step")
+    diff = float((sel - rsel).abs().max())
+    if not diff <= ROUTE_DIFF_TOL:
+        raise AssertionError(f"the router probabilities differ by {diff} > {ROUTE_DIFF_TOL}"
+                             f" from the recorded run's: not its inputs")
+    gaps = []
+    for t in range(idx.shape[0]):
+        mine, ref = set(idx[t].tolist()), set(ridx[t].tolist())
+        if mine == ref:
+            continue
+        gap = max(abs(float(sel[t, a] - sel[t, b])) for a in mine - ref for b in ref - mine)
+        if not gap <= ROUTE_GAP_TOL:
+            raise AssertionError(f"token {t}: the routers part on experts "
+                                 f"{sorted(mine ^ ref)} {gap} apart > {ROUTE_GAP_TOL}")
+        gaps.append(gap)
+    return diff, gaps
+
+
+class RouteTwin:
+    """The experts a mixture-of-experts run picks (models/transformer.py's
+    top_k), recorded on a reference run and followed on a second run over
+    the same inputs. The router is discontinuous: where two experts'
+    probabilities nearly tie, the last-bit differences between two devices
+    (or the chained and the unchained path) pick either, and the layer's
+    output moves by a whole expert. So the second run takes the reference's
+    experts after route_swaps has held each of its calls to the recorded
+    one: the same probabilities within ROUTE_DIFF_TOL, and experts that
+    differ only at a near tie (ROUTE_GAP_TOL). Then the runs' logits are
+    compared as any twins'. mode: "record", "follow" or None (neither:
+    steps of the reference that the second run does not repeat, and timed
+    windows, which take no host sync of it)."""
+
+    def __init__(self):
+        self.mode, self.calls, self.seen, self.i = None, [], [], 0
+        self.flips, self.worst_gap, self.worst_diff = 0, 0.0, 0.0
+
+    def follow(self):
+        self.mode, self.i = "follow", 0
+
+    def __enter__(self):
+        from llm_tpu_torch.models import transformer
+
+        self._real = real = transformer.top_k
+
+        def top_k(sel, k):
+            idx = real(sel, k)
+            if self.mode == "record":
+                self.calls.append((sel.float().cpu(), idx.cpu()))
+            elif self.mode == "follow":
+                if self.i >= len(self.calls):
+                    raise AssertionError(f"router call {self.i} past the "
+                                         f"{len(self.calls)} recorded")
+                rsel, ridx = self.calls[self.i]
+                self.i += 1
+                mine = (sel.float().cpu(), idx.cpu())
+                self.seen.append(mine)
+                diff, gaps = route_swaps(*mine, rsel, ridx)
+                self.flips += len(gaps)
+                self.worst_gap = max([self.worst_gap] + gaps)
+                self.worst_diff = max(self.worst_diff, diff)
+                idx = ridx.to(sel.device)
+            return idx
+
+        transformer.top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        from llm_tpu_torch.models import transformer
+
+        transformer.top_k = self._real
+
+    def followed_all(self, name: str) -> None:
+        """Raise unless the follower repeated every recorded call."""
+        if self.i != len(self.calls):
+            raise AssertionError(f"{name}: the follower made {self.i} of the "
+                                 f"{len(self.calls)} recorded router calls")
+
+    def planted_fault(self) -> None:
+        """route_swaps must refuse two faults planted in the first followed
+        call's recorded token 0: a router row whose weights moved (the
+        follower's least likely expert raised 0.05 past the row's largest
+        probability, so that the recorded run picks it), and a pick that is
+        no near tie (the recorded last expert swapped for the follower's
+        least likely, the probabilities kept)."""
+        if not self.seen:
+            raise AssertionError("no router call was followed")
+        sel, idx = self.seen[0]
+        rsel, ridx = self.calls[0]
+        low = int(sel[0].argmin())
+        moved = rsel.clone()
+        moved[0, low] = float(rsel[0].max()) + 0.05
+        far = ridx.clone()
+        far[0, -1] = low
+        for name, fault in (("a moved router row", (moved, self._real(moved, idx.shape[1]))),
+                            ("a pick far from a tie", (rsel, far))):
+            try:
+                route_swaps(sel, idx, *fault)
+            except AssertionError:
+                continue
+            raise AssertionError(f"route_swaps accepted {name}")
+
+    def record(self) -> dict:
+        return dict(router_calls=len(self.calls), router_flips=self.flips,
+                    flip_max_gap=self.worst_gap, router_max_prob_diff=self.worst_diff)
+
+
 def two_layer_steps(seed: int, kv_dtype=None, devices=("cuda", "cpu"), chain=False,
-                    gdot=False, geo=None, after_card=None):
+                    gdot=False, geo=None, after_card=None, route=None):
     """Full width, 2 layers, one set of weights on each device. Each device
     prefills a 64-token prompt (Context.decode). The card generates 8
     greedy tokens (generate_loop), then its token stream is fed back one
@@ -1007,7 +1221,10 @@ def two_layer_steps(seed: int, kv_dtype=None, devices=("cuda", "cpu"), chain=Fal
     (LLAMA3_8B's by default); after_card, if given, is called right after
     the card's run (to read counters before the CPU's run); geo's
     alibi_profile, if true, gives the model cfg's ALiBi profile (rope NONE,
-    ALiBi of max_bias 8: Baichuan-13B's, whose depth 40 selects it).
+    ALiBi of max_bias 8: Baichuan-13B's, whose depth 40 selects it), and
+    geo's chain, if given, is the chain option. route: a RouteTwin (in
+    force) that records the card's experts over the steps the CPU repeats
+    (the prompt and the replayed steps) and that the CPU follows.
     Returns (cfg, {device: logits [9, vocab]}, {device: greedy tokens})."""
     import numpy as np
 
@@ -1017,8 +1234,9 @@ def two_layer_steps(seed: int, kv_dtype=None, devices=("cuda", "cpu"), chain=Fal
     from llm_tpu_torch.runtime.batch import Batch
     from llm_tpu_torch.runtime.engine import Context, params_to
 
-    geo = dict(geo or LLAMA3_8B, n_layers=2)  # may carry arch and swa_window
+    geo = dict(geo or LLAMA3_8B, n_layers=2)  # may carry arch, swa_window and experts
     profile = geo.pop("alibi_profile", False)
+    chain = geo.pop("chain", chain)
     params, cfg = make_synthetic_model(qtype=GGMLType.Q4_K, device="cuda", on_device=True,
                                        seed=seed, recipe="Q4_K_M", **geo)
     if profile:
@@ -1030,11 +1248,20 @@ def two_layer_steps(seed: int, kv_dtype=None, devices=("cuda", "cpu"), chain=Fal
         p = params if dev == "cuda" else params_to(params, "cpu")
         ctx = Context(None, n_cells=256, device=dev, params_cfg=(p, cfg), kv_dtype=kv_dtype,
                       chain=chain, gdot=gdot)
+        if route is not None:
+            if dev == "cuda":
+                route.mode = "record"
+            else:
+                route.follow()
         assert ctx.decode(Batch.text(prompt)) == 0
         lg = [ctx.get_logits().copy()]
         if dev == "cuda":
             first = int(lg[0].argmax())
+            if route is not None:  # steps the CPU does not repeat
+                route.mode = None
             toks[dev] = [first] + ctx.generate_loop(first, 8)
+            if route is not None:
+                route.mode = "record"
             ctx.seq_rm(0, len(prompt), -1)
         for t in toks["cuda"][:-1]:
             assert ctx.decode(Batch.text([t])) == 0
@@ -1195,6 +1422,13 @@ GEMMA2_PHASE11_LAYERS = 21
 BAICHUAN_13B = dict(n_embd=5120, n_layers=40, n_heads=40, n_kv_heads=40, n_ff=13696,
                     vocab=64000, head_dim=128)
 BAICHUAN_13B_TWO = dict(BAICHUAN_13B, arch="baichuan", alibi_profile=True)
+# two layers of Qwen3-30B-A3B (models/synthetic.py QWEN3_30B_A3B: qk-norm,
+# 128 experts of 768, 8 a token; the 64-token prompt runs the grouped
+# dispatch, the 8 decode steps the per-(token, k) gather; K3/K4 at G = 8),
+# of Qwen2.5-7B (QWEN2_5_7B: QKV biases, G = 7) and of Gemma-7B with
+# chain=True (GEMMA_7B: both layers are use_more_bits ones, so their QKV
+# stays unfused and each tail is a GeGLU chain with a Q6_K down, K6_gelu;
+# the tied lm_head a K6 norm_mm; D = 256: K3w/K4w)
 REFACT_1_6B_TWO = dict(n_embd=2048, n_heads=32, n_kv_heads=1, n_ff=5632, vocab=49216,
                        head_dim=64, arch="refact")
 WIDTHS_SEED = 5
@@ -1218,7 +1452,8 @@ def phase_two_layers_widths():
     part. Returns each run's record."""
     import numpy as np
 
-    from llm_tpu_torch.ops import attention, cuda_attn
+    from llm_tpu_torch.models.synthetic import GEMMA_7B, QWEN2_5_7B, QWEN3_30B_A3B
+    from llm_tpu_torch.ops import attention, cuda_attn, cuda_qmm_chain
 
     recs = []
     for name, geo, kv_dtype, rel_tol, want in (
@@ -1241,14 +1476,26 @@ def phase_two_layers_widths():
             ("Baichuan-13B", BAICHUAN_13B_TWO, "q8_0", TWO_LAYER_Q8_REL_TOL,
              ("K3q_alibi", "K4q_alibi")),
             ("Refact-1.6B", REFACT_1_6B_TWO, None, TWO_LAYER_REL_TOL,
-             ("K3_alibi", "K4_alibi"))):
+             ("K3_alibi", "K4_alibi")),
+            ("Qwen3-30B-A3B", dict(QWEN3_30B_A3B, arch="qwen3moe"), None, TWO_LAYER_REL_TOL,
+             ("K3", "K4")),
+            ("Qwen2.5-7B", dict(QWEN2_5_7B, arch="qwen2"), None, TWO_LAYER_REL_TOL,
+             ("K3", "K4")),
+            ("Gemma-7B chain", dict(GEMMA_7B, arch="gemma", chain=True), None,
+             TWO_LAYER_CHAIN_REL_TOL, ("K3w", "K4w"))):
         t0 = time.perf_counter()
         cuda_attn.reset_launches()
+        cuda_qmm_chain.reset_launches()
         attention.LAUNCHES["unfused"] = 0
         card = {}
-        cfg, steps, toks = two_layer_steps(
-            WIDTHS_SEED, kv_dtype, geo=geo,
-            after_card=lambda: card.update(attention.LAUNCHES))
+        with RouteTwin() as route:
+            cfg, steps, toks = two_layer_steps(
+                WIDTHS_SEED, kv_dtype, geo=geo,
+                after_card=lambda: card.update(attention.LAUNCHES, **cuda_qmm_chain.LAUNCHES),
+                route=route if geo.get("n_expert") else None)
+        route.followed_all(name)
+        if geo.get("n_expert"):
+            route.planted_fault()
         launched = dict(cuda_attn.LAUNCHES)  # the card's run; the CPU's launches nothing
         unfused = card["unfused"]
         lg, lc = steps["cuda"], steps["cpu"]
@@ -1260,6 +1507,7 @@ def phase_two_layers_widths():
         tie = next((i for i, g in enumerate(gaps) if g <= tol), len(gaps))
         # how far below the CPU's top logit the card's pick lies, per step
         below = [float(lc[i].max() - lc[i, t]) for i, t in enumerate(tg)]
+        chained = {k: card[k] for k in cuda_qmm_chain.LAUNCHES}
         rec = dict(two_layer_widths=name, arch=cfg.arch, swa_window=cfg.swa_window,
                    alibi_max_bias=cfg.alibi_max_bias, rope_mode=cfg.rope.mode,
                    head_dim=cfg.head_dim, head_dim_v=cfg.head_dim_v,
@@ -1268,7 +1516,9 @@ def phase_two_layers_widths():
                    rel_err=err / float(np.abs(lc).max()), top2_gaps=gaps,
                    first_near_tie=tie, card_pick_below_cpu_top=below,
                    tokens_card=tg, tokens_cpu=tc,
-                   attn_launches=launched, seconds=time.perf_counter() - t0)
+                   attn_launches=launched, chain_launches=chained,
+                   n_expert=cfg.n_expert, attn_bias=cfg.attn_bias, qk_norm=cfg.qk_norm,
+                   **route.record(), seconds=time.perf_counter() - t0)
         log(json.dumps(rec))
         if not (np.isfinite(lg).all() and lg.shape == (9, cfg.vocab_size)):
             raise AssertionError(f"{name}: card logits not finite or of the wrong shape")
@@ -1287,6 +1537,16 @@ def phase_two_layers_widths():
         if (unfused > 0) != (not want):
             raise AssertionError(f"{name} kv {kv_dtype}: {unfused} unfused attention calls "
                                  f"beside flash launches {launched}")
+        # the chained row: a GeGLU tail on each layer of each of the card's
+        # 16 decode steps (generate_loop's 8, then the 8 replayed), the
+        # lm_head (and layer 1's fused head) on K6; the others chain nothing
+        steps = 16
+        if geo.get("chain"):
+            ok = chained["K6_gelu"] == steps * cfg.n_layers and chained["K6"] >= steps
+        else:
+            ok = not any(chained.values())
+        if not ok:
+            raise AssertionError(f"{name}: chained launches {chained}")
         recs.append(rec)
     return recs
 
@@ -1355,17 +1615,21 @@ def decode_bytes_per_token(ctx):
     return w + kv_bytes(ctx) + tables
 
 
-def decode_counts(params, chain=False, gdot=False):
-    """Launches of K1/K2/K5/K6/K7 per decoded token (one row), from the
-    params' keys and plane types: with chain, one K6 for each layer's tail
-    (o_proj, fused gate+up, down), each fused QKV head and the lm_head;
-    every other matmul on K5 (p4, with gdot) or K1 (p4) or K2 (int8). A
-    stacked model runs every layer matmul on K7, chain or not (K6's gates
-    refuse stacked planes)."""
+def decode_counts(params, chain=False, gdot=False, act="silu"):
+    """Launches of K1/K2/K5/K6/K6_gelu/K7 per decoded token (one row), from
+    the params' keys and plane types: with chain, one K6 for each layer's
+    tail (o_proj, fused gate+up, down; K6_gelu where act is gelu), each
+    fused QKV head without biases and the lm_head; every other K-major
+    matmul on K5 (p4, with gdot) or K1 (p4) or K2 (int8). A mixture-of-
+    experts layer's tail is unchained: its o_proj and shared expert on
+    K1/K2, its router (dense) and experts (rows-layout planes) plain
+    PyTorch. A stacked model runs every layer matmul on K7, chain or not
+    (K6's gates refuse stacked planes)."""
     from llm_tpu_torch.models.transformer import n_stacked
+    from llm_tpu_torch.ops.cuda_qmm_chain import head_eligible
     from llm_tpu_torch.quant.qtensor import QTensor
 
-    n = {"K1": 0, "K2": 0, "K5": 0, "K6": 0, "K7": 0}
+    n = {"K1": 0, "K2": 0, "K5": 0, "K6": 0, "K6_gelu": 0, "K7": 0}
 
     def one(w):
         n["K2" if w.layout == "i8" else ("K5" if gdot else "K1")] += 1
@@ -1375,19 +1639,23 @@ def decode_counts(params, chain=False, gdot=False):
     if stacked is not None:
         n["K7"] = n_stacked(stacked) * sum(kmajor(w) for w in stacked.values())
     for layer in params["layers"]:
-        tail = [layer[k] for k in ("attn_output", "ffn_gateup_fused", "ffn_down")]
+        moe = "ffn_gate_inp" in layer
+        tail = [layer[k] for k in ("attn_output", "ffn_gateup_fused", "ffn_down",
+                                   "ffn_gate_shexp", "ffn_up_shexp", "ffn_down_shexp",
+                                   "ffn_gate_inp_shexp") if k in layer]
         head = [layer[k] for k in ("attn_qkv_fused", "attn_q", "attn_k", "attn_v")
                 if k in layer]
-        if chain and "attn_qkv_fused" in layer:
+        if chain and head_eligible(layer):
             n["K6"] += 1
         else:
             for w in head:
                 one(w)
-        if chain and all(kmajor(w) for w in tail):
-            n["K6"] += 1
+        if chain and not moe and all(kmajor(w) for w in tail):
+            n["K6_gelu" if act == "gelu" else "K6"] += 1
         else:
-            for w in tail:
-                one(w)
+            for w in tail:  # every quantized matmul (a dense router is plain)
+                if isinstance(w, QTensor):
+                    one(w)
     if chain and kmajor(params["output"]):
         n["K6"] += 1
     else:
@@ -1462,7 +1730,8 @@ def run_llama3_8b(ctx, attn_kernels, keep=None, n_decode=LLAMA3_8B_DECODE,
     dec, pre = attn_kernels
     per_token = {k: (counts[k] - after_prefill[k]) / n for k in counts}
     want = {k: 0.0 for k in cuda_attn.LAUNCHES}
-    want.update({k: float(v) for k, v in decode_counts(ctx.params, ctx.chain, ctx.gdot).items()})
+    want.update({k: float(v) for k, v in decode_counts(ctx.params, ctx.chain, ctx.gdot,
+                                                        ctx.cfg.act).items()})
     want[dec] = float(cfg.n_layers)
     prefill_counts = {k: after_prefill[k] for k in cuda_attn.LAUNCHES}
     want_prefill = {k: 0 for k in cuda_attn.LAUNCHES}
@@ -2597,6 +2866,311 @@ def phase_baichuan_13b() -> dict:
     return out
 
 
+# phase 13: Qwen3-30B-A3B at full width and depth (48 layers) on 4096
+# cells: a 512-token prefill and 128 greedy tokens with the bf16 cache (8
+# more profiled), 16 with chain=True, 32 with the q8_0 cache
+QWEN3_LAYERS = 48
+QWEN3_CELLS = 4096
+QWEN3_PROMPT, QWEN3_DECODE = 512, 128
+QWEN3_CHAIN_DECODE, QWEN3_Q8_DECODE = 16, 32
+# the profiler ranges phase 13 wraps around the MoE FFN and, inside it, the
+# experts' gather and dequantization
+MOE_RANGES = ("moe_ffn", "gather_experts")
+
+
+def planes_summary(params, cfg, tag: str) -> dict:
+    """The plane types, the bytes of the K-major planes, of the expert
+    stacks and of the dense routers, logged."""
+    from llm_tpu_torch.quant.qtensor import QTensor
+
+    leaves = [(k, v) for layer in params["layers"] for k, v in layer.items()]
+    leaves += [("tok_embd", params["tok_embd"]), ("output", params["output"])]
+    types, nbytes, expert_bytes, dense_bytes = {}, 0, 0, 0
+    for k, v in leaves:
+        if isinstance(v, QTensor):
+            types[v.ggml_type.name] = types.get(v.ggml_type.name, 0) + 1
+            nbytes += qt_bytes(v)
+            expert_bytes += qt_bytes(v) if k.endswith("_exps") else 0
+        elif v.dim() >= 2:
+            dense_bytes += v.numel() * v.element_size()
+    rec = {f"{tag}_planes_bytes": nbytes, "planes_gib": nbytes / 2**30,
+           "expert_planes_bytes": expert_bytes, "dense_bytes": dense_bytes,
+           "plane_types": types, "n_layers": cfg.n_layers}
+    log(json.dumps(rec))
+    return rec
+
+
+def qwen3_30b_a3b_planes():
+    from llm_tpu_torch.gguf.constants import GGMLType
+    from llm_tpu_torch.models.synthetic import QWEN3_30B_A3B, make_synthetic_model, use_more_bits
+
+    t0 = time.perf_counter()
+    params, cfg = make_synthetic_model(qtype=GGMLType.Q4_K, device="cuda", on_device=True,
+                                       seed=15, recipe="Q4_K_M", arch="qwen3moe",
+                                       **dict(QWEN3_30B_A3B, n_layers=QWEN3_LAYERS))
+    torch.cuda.synchronize()
+    log(json.dumps(dict(qwen3_30b_a3b_planes_s=time.perf_counter() - t0)))
+    planes_summary(params, cfg, "qwen3_30b_a3b")
+    downs = [layer["ffn_down_exps"].ggml_type.name for layer in params["layers"]]
+    want = ["Q6_K" if use_more_bits(il, cfg.n_layers) else "Q4_K"
+            for il in range(cfg.n_layers)]
+    if downs != want or params["layers"][0]["ffn_up_exps"].qs.shape[0] != cfg.n_expert:
+        raise AssertionError(f"Qwen3-30B-A3B's expert stacks: downs {downs}")
+    return params, cfg
+
+
+def traced(module, names):
+    """Wrap module's functions `names` in torch.profiler ranges of their
+    names (profile_tokens' ranges); returns a function that unwraps them."""
+    real = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def run(*a, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*a, **kw)
+        return run
+
+    for n, fn in real.items():
+        setattr(module, n, wrap(n, fn))
+    return lambda: [setattr(module, n, fn) for n, fn in real.items()]
+
+
+def parted_at_near_tie(ctx, keep, other, n_prompt: int, rel_tol: float) -> dict:
+    """ctx's greedy stream (keep: its first token and tokens) against another
+    run's on the same planes (other: the same keys, at most as many tokens):
+    equal, or parted at a step whose top two logits on ctx, replayed over
+    the prompt and the common stream, lie within rel_tol of max|logit|."""
+    import numpy as np
+
+    from llm_tpu_torch.runtime.batch import Batch
+
+    a = [keep["first"]] + keep["tokens"]
+    b = [other["first"]] + other["tokens"]
+    a = a[:len(b)]
+    rec = dict(streams_equal=a == b, compared_tokens=len(b))
+    if a != b:
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        ctx.seq_rm(0)
+        assert ctx.decode(Batch.text(main_prompt(ctx.cfg.vocab_size, n_prompt) + a[:i])) == 0
+        lg = ctx.get_logits()
+        gap, top = top2_gap(lg), float(np.abs(lg).max())
+        rec.update(parted_at_step=i, step_top2_gap=gap, step_max_abs_logit=top,
+                   tol=rel_tol * top)
+        if not gap <= rel_tol * top:
+            log(json.dumps(rec))
+            raise AssertionError(f"the greedy streams part at step {i} on a top-2 gap of {gap}")
+    log(json.dumps(rec))
+    return rec
+
+
+# the decode steps on which phases 13 and 14 hold the chained Context's
+# logits against the unchained one's (distinct tokens, where the greedy
+# streams of random planes may repeat one token)
+CHAIN_STEPS = 4
+
+
+def chain_steps_against(chained, ctx, n_prompt: int) -> dict:
+    """Both Contexts emptied, the n_prompt-token prompt prefilled again on
+    each, then CHAIN_STEPS single-token decode steps of distinct tokens on
+    each. A MoE's chained Context follows the unchained one's experts over
+    the prompt and the steps, the same inputs on both (RouteTwin; its
+    gate also refuses planted faults). Every step's logits within
+    TWO_LAYER_CHAIN_REL_TOL of max|logit| (the chained twin's tolerance: K6
+    and K1/K2 round their bf16 boundaries apart as the card and the CPU
+    do)."""
+    import numpy as np
+
+    from llm_tpu_torch.runtime.batch import Batch
+
+    prompt = main_prompt(ctx.cfg.vocab_size, n_prompt)
+    toks = [(i * 7919 + 13) % ctx.cfg.vocab_size for i in range(1, CHAIN_STEPS + 1)]
+    lg = {}
+    with RouteTwin() as route:
+        for name, c in (("unchained", ctx), ("chain", chained)):
+            if name == "unchained":
+                route.mode = "record"
+            else:
+                route.follow()
+            c.seq_rm(0)
+            assert c.decode(Batch.text(prompt)) == 0
+            steps = []
+            for t in toks:
+                assert c.decode(Batch.text([t])) == 0
+                steps.append(c.get_logits().copy())
+            lg[name] = np.stack(steps)
+        route.mode = None
+    route.followed_all("the chained steps")
+    if ctx.cfg.n_expert:
+        route.planted_fault()
+    err = float(np.abs(lg["chain"] - lg["unchained"]).max())
+    tol = TWO_LAYER_CHAIN_REL_TOL * float(np.abs(lg["unchained"]).max())
+    rec = dict(chain_steps_max_abs_err=err, tol=tol, rel_err=err / float(
+        np.abs(lg["unchained"]).max()), top1_equal=[int(a.argmax()) == int(b.argmax())
+                                                   for a, b in zip(lg["chain"], lg["unchained"])],
+        **route.record())
+    log(json.dumps(rec))
+    if not (np.isfinite(lg["chain"]).all() and err <= tol):
+        raise AssertionError(f"chained vs unchained decode steps: max|err| {err} > {tol}")
+    return rec
+
+
+def phase_qwen3_30b_a3b() -> dict:
+    """Phase 13: Qwen3-30B-A3B at full width and depth (48 layers, Q4_K_M-
+    style random planes made on the card from seed 15: rows-layout expert
+    stacks, Q6_K ffn_down_exps and attn_v in the use_more_bits layers, a
+    bf16 router, an untied Q6_K lm_head; qk-norm; 128 experts, 8 a token).
+    (a) the bf16 cache (4096 cells): prefill 512 tokens (the grouped
+        dispatch), then 128 greedy tokens (the gather); launches by kernel
+        (K3 / K4 a layer a step at G = 8, the experts none); profiled over 8
+        more tokens, with the MoE FFN's and its gather-dequant's device ms
+        and launches a token (MOE_RANGES); the cache's bytes (2 x 48 layers
+        x 4 heads x 4096 cells x 128 x 2 B) and the peak memory;
+    (b) chain=True on the same planes, 16 tokens: K6 for each fused head
+        (qk-norm after it) and the lm_head, every MoE tail unchained; the
+        stream equal to (a)'s or parted only at a near tie; then
+        chain_steps_against (a)'s Context, which holds the chained logits
+        to the unchained ones on the same experts (RouteTwin, outside the
+        timed windows, which run no hook);
+    (c) the q8_0 cache: prefill 512, 32 greedy tokens (K3q, K4q).
+    Returns the records."""
+    from llm_tpu_torch.models import transformer
+    from llm_tpu_torch.runtime.engine import Context
+    from llm_tpu_torch.tools.profile_decode import profile_tokens
+
+    params, cfg = qwen3_30b_a3b_planes()
+    if not (cfg.qk_norm and cfg.n_expert == 128 and cfg.n_expert_used == 8
+            and cfg.n_heads // cfg.n_kv_heads == 8):
+        raise AssertionError(f"not Qwen3-30B-A3B's profile: {cfg}")
+    out = {}
+    ctx = Context(None, n_cells=QWEN3_CELLS, device="cuda", params_cfg=(params, cfg))
+    keep = {}
+    counts, rec = run_llama3_8b(ctx, ("K3", "K4"), keep, QWEN3_DECODE, QWEN3_PROMPT)
+    untrace = traced(transformer, MOE_RANGES)
+    try:
+        prof = profile_tokens(ctx, rec["last_token"], 8, ranges=MOE_RANGES)
+    finally:
+        untrace()
+    log("profile_decode " + json.dumps(prof))
+    check_attn_profile(prof, cfg.n_layers)
+    if prof["qmm_gemv_launches_per_token"] != 0:
+        raise AssertionError("a qmm_gemv kernel ran in decode")
+    busy = prof["device_busy_ms_per_token"]
+    want_bytes = 2 * cfg.n_layers * cfg.n_kv_heads * QWEN3_CELLS * cfg.head_dim * 2
+    out["a"] = dict(phase=13, path="Qwen3-30B-A3B bf16 cache", kv_bytes=rec["kv_bytes"],
+                    ms_per_token=1e3 / rec["decode_tok_s"],
+                    prefill_tok_s=rec["prefill_tok_s"], peak_mem_gib=rec["peak_mem_gib"],
+                    device_busy_ms_per_token=busy, idle_share=prof["idle_share"],
+                    device_launches_per_token=prof["device_launches_per_token"],
+                    moe_ffn_share_of_device=prof["moe_ffn_ms_per_token"] / busy,
+                    gather_dequant_share_of_device=prof["gather_experts_ms_per_token"] / busy,
+                    moe_ffn_launches_per_token=prof["moe_ffn_launches_per_token"],
+                    gather_dequant_launches_per_token=prof["gather_experts_launches_per_token"],
+                    K3_per_token=rec["launches_per_token"]["K3"],
+                    K4_in_prefill=counts["K4"], decode_bound_tok_s=rec["decode_bound_tok_s"],
+                    distinct_tokens=len(set(keep["tokens"])))
+    log(json.dumps(out["a"]))
+    if rec["kv_bytes"] != want_bytes:
+        raise AssertionError(f"the cache holds {rec['kv_bytes']} bytes, not {want_bytes}")
+    if not (0 < prof["gather_experts_ms_per_token"] <= prof["moe_ffn_ms_per_token"] < busy):
+        raise AssertionError(f"the MoE ranges' device time does not nest: {prof}")
+
+    # (b) chain=True: K6 heads, unchained MoE tails, the same stream
+    chained = Context(None, n_cells=QWEN3_CELLS, device="cuda", params_cfg=(params, cfg),
+                      chain=True)
+    keep_c = {}
+    counts_c, rec_c = run_llama3_8b(chained, ("K3", "K4"), keep_c, QWEN3_CHAIN_DECODE,
+                                    QWEN3_PROMPT)
+    out["b"] = dict(phase=13, path="Qwen3-30B-A3B chain", K6_per_token=rec_c[
+        "launches_per_token"]["K6"], ms_per_token=1e3 / rec_c["decode_tok_s"],
+        **parted_at_near_tie(ctx, keep, keep_c, QWEN3_PROMPT, TWO_LAYER_CHAIN_REL_TOL),
+        steps=chain_steps_against(chained, ctx, QWEN3_PROMPT))
+    del chained
+    torch.cuda.empty_cache()
+    log(json.dumps(out["b"]))
+    if not counts_c["K6"] > 0 or counts_c["K6_gelu"]:
+        raise AssertionError(f"the chained run's K6 launches: {counts_c}")
+    del ctx
+    torch.cuda.empty_cache()
+
+    # (c) the q8_0 cache: K3q / K4q
+    q8 = Context(None, n_cells=QWEN3_CELLS, device="cuda", params_cfg=(params, cfg),
+                 kv_dtype="q8_0")
+    counts_q8, rec_q8 = run_llama3_8b(q8, ("K3q", "K4q"), None, QWEN3_Q8_DECODE, QWEN3_PROMPT)
+    out["c"] = dict(phase=13, path="Qwen3-30B-A3B q8_0 cache", kv_bytes=rec_q8["kv_bytes"],
+                    ms_per_token=1e3 / rec_q8["decode_tok_s"],
+                    prefill_tok_s=rec_q8["prefill_tok_s"], peak_mem_gib=rec_q8["peak_mem_gib"])
+    log(json.dumps(out["c"]))
+    del q8, params
+    torch.cuda.empty_cache()
+    return out
+
+
+# phase 14: Gemma-7B at full width with chain=True (GEMMA7B_LAYERS of its
+# 28 layers) on 4096 cells: a 512-token prefill and 128 greedy tokens,
+# against the unchained Context on the same planes
+GEMMA7B_LAYERS = 28
+GEMMA7B_CELLS = 4096
+GEMMA7B_PROMPT, GEMMA7B_DECODE = 512, 128
+
+
+def phase_gemma_7b() -> dict:
+    """Phase 14: Gemma-7B (gemma v1: gelu, the embedding scaled by
+    sqrt(3072), 16 heads of 256, a tied Q6_K table of 256000 rows) at full
+    width, Q4_K_M-style random planes made on the card from seed 16, with
+    chain=True: prefill 512, 128 greedy tokens; a GeGLU tail (K6_gelu) on
+    every layer a token, K6 on each fused head and the lm_head, K3w/K4w for
+    attention; profiled over 8 more tokens; then the unchained Context's
+    128 tokens on the same planes, the streams equal or parted only at a
+    near tie (random planes with a tied, scaled table repeat one token),
+    and chain_steps_against it on distinct tokens. Returns K6_gelu's
+    launches and the records."""
+    from llm_tpu_torch.gguf.constants import GGMLType
+    from llm_tpu_torch.models.synthetic import GEMMA_7B, make_synthetic_model
+    from llm_tpu_torch.runtime.engine import Context
+    from llm_tpu_torch.tools.profile_decode import profile_tokens
+
+    t0 = time.perf_counter()
+    params, cfg = make_synthetic_model(qtype=GGMLType.Q4_K, device="cuda", on_device=True,
+                                       seed=16, recipe="Q4_K_M", arch="gemma",
+                                       **dict(GEMMA_7B, n_layers=GEMMA7B_LAYERS))
+    torch.cuda.synchronize()
+    log(json.dumps(dict(gemma_7b_planes_s=time.perf_counter() - t0)))
+    planes_summary(params, cfg, "gemma_7b")
+    if not (cfg.arch == "gemma" and cfg.act == "gelu" and cfg.head_dim == 256):
+        raise AssertionError(f"not Gemma-7B's profile: {cfg}")
+    out = {}
+    chained = Context(None, n_cells=GEMMA7B_CELLS, device="cuda", params_cfg=(params, cfg),
+                      chain=True)
+    keep_c = {}
+    counts_c, rec_c = run_llama3_8b(chained, ("K3w", "K4w"), keep_c, GEMMA7B_DECODE,
+                                    GEMMA7B_PROMPT)
+    prof = profile_tokens(chained, rec_c["last_token"], 8)
+    log("profile_decode " + json.dumps(prof))
+    check_gemv_profile(prof, memsets=1)  # the greedy argmax's over 256000 logits
+    check_attn_profile(prof, cfg.n_layers)
+    if rec_c["launches_per_token"]["K6_gelu"] != cfg.n_layers:
+        raise AssertionError(f"K6_gelu a token: {rec_c['launches_per_token']}")
+    ctx = Context(None, n_cells=GEMMA7B_CELLS, device="cuda", params_cfg=(params, cfg))
+    keep = {}
+    _, rec = run_llama3_8b(ctx, ("K3w", "K4w"), keep, GEMMA7B_DECODE, GEMMA7B_PROMPT)
+    out["chain"] = dict(phase=14, path="Gemma-7B chain", ms_per_token=1e3 / rec_c[
+        "decode_tok_s"], unchained_ms_per_token=1e3 / rec["decode_tok_s"],
+        prefill_tok_s=rec_c["prefill_tok_s"], peak_mem_gib=rec_c["peak_mem_gib"],
+        device_busy_ms_per_token=prof["device_busy_ms_per_token"],
+        idle_share=prof["idle_share"], k6_ms_per_token=prof["k6_ms_per_token"],
+        device_launches_per_token=prof["device_launches_per_token"],
+        K6_gelu_per_token=rec_c["launches_per_token"]["K6_gelu"],
+        K6_per_token=rec_c["launches_per_token"]["K6"],
+        distinct_tokens=len(set(keep_c["tokens"])),
+        **parted_at_near_tie(ctx, keep, keep_c, GEMMA7B_PROMPT, TWO_LAYER_CHAIN_REL_TOL),
+        steps=chain_steps_against(chained, ctx, GEMMA7B_PROMPT))
+    log(json.dumps(out["chain"]))
+    del chained, ctx, params
+    torch.cuda.empty_cache()
+    out["K6_gelu"] = counts_c["K6_gelu"]
+    return out
+
+
 REPLACES = {
     "K1": ("llm_tpu_torch/csrc/qmm_decode.cu", "llm_tpu/ops/pallas_qmm.py:159"),
     "K2": ("llm_tpu_torch/csrc/qmm_decode.cu", "llm_tpu/ops/pallas_qmm.py:149"),
@@ -2623,6 +3197,9 @@ REPLACES = {
     "K4q_alibi": ("llm_tpu_torch/csrc/flash_prefill.cu", "llm_tpu/ops/pallas_attn.py:341"),
     "K5": ("llm_tpu_torch/csrc/qmm_decode.cu", "llm_tpu/ops/pallas_qmm.py:195"),
     "K6": ("llm_tpu_torch/csrc/qmm_chain.cu", "llm_tpu/ops/pallas_qmm_chain.py:107"),
+    # the gelu term of _chain_kernel's "geglu" boundary (:164-167, _act_f32
+    # :101-104)
+    "K6_gelu": ("llm_tpu_torch/csrc/qmm_chain.cu", "llm_tpu/ops/pallas_qmm_chain.py:107"),
     "K7": ("llm_tpu_torch/csrc/qmm_decode.cu", "llm_tpu/ops/pallas_qmm.py:481"),
     "S1": ("llm_tpu_torch/csrc/qmm_probe.cu", "scripts/kbench.py:56"),
     "S3 v1": ("llm_tpu_torch/csrc/flash_probe.cu", "scripts/kbench7.py:102"),
@@ -2656,6 +3233,8 @@ HEADLINE = {"K1": "gate_up Q4_K K=4096 N=28672 B=1",
             "K4q_alibi": "prefill T=512 S=4096 H=40 Hkv=40 D=128 alibi",
             "K5": "gu Q4_K K=4096 N=28672 B=1",
             "K6": "tail Q6_K down B=1",
+            # the GeGLU tail at Gemma-7B's widths (phase 14)
+            "K6_gelu": "gemma-7b tail Q4_K down B=1",
             "K7": "gate_up Q4_K K=4096 N=28672 B=1",
             # S1's line reads its "dma" probe (every plane streamed, x staged)
             "S1": "gu Q4_K K=4096 N=28672 B=8"}
@@ -2701,7 +3280,7 @@ def main() -> int:
     check_sass("gemv_left", {"qmm": 0, "qmm_stacked": 0, "qmm_chain": 0}, "qmm_gemv", (),
                "qmm_gemv")
     check_sass("probe_sass", {"qmm_probe": S1_KERNELS}, "qmm_probe", (), ())
-    check_sass("chain_sass", {"qmm_chain": 1}, "qmm_chain_tc", ("HMMA", "UTMALDG"),
+    check_sass("chain_sass", {"qmm_chain": 2}, "qmm_chain_tc", ("HMMA", "UTMALDG"),
                ("qmm_chain_kernel", "qmm_decode"))
     # the prefill GEMM: the eight qmm_wgmma kernels of each library issue
     # wgmma and TMA tile loads, and the mma.sync qmm_gemm is gone; flash
@@ -2798,24 +3377,31 @@ def main() -> int:
     t0 = time.perf_counter()
     counts_baichuan = phase_baichuan_13b()
     log(f"Baichuan-13B at full depth passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_qwen3_30b_a3b()
+    log(f"Qwen3-30B-A3B at full depth passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gemma7b = phase_gemma_7b()
+    log(f"Gemma-7B with chain at {GEMMA7B_LAYERS} layers passed in "
+        f"{time.perf_counter() - t0:.1f} s")
     # each kernel's launches from the path that runs it: K1-K4 from phase 4,
     # K3q/K4q from phase 5, K5 from phase 6, K6 from phase 7, K7 from phase
     # 8, the wide K3w/K4w/K3qw/K4qw from phase 3's Gemma-2-2B and
     # DeepSeek-V2-Lite twins (their card runs), the capped ones from phase
     # 11 (K3w_cap/K4w_cap its ring run, K3qw_cap/K4qw_cap its q8_0 one), the
-    # ALiBi ones from phase 12 (its bf16 and q8_0 runs), S1 from the kbench
-    # run, S3 from the kbench_attn run
+    # ALiBi ones from phase 12 (its bf16 and q8_0 runs), K6_gelu from phase
+    # 14's chained run, S1 from the kbench run, S3 from the kbench_attn run
     counts = {**counts, "K3q": counts_q8["K3q"], "K4q": counts_q8["K4q"],
               "K5": counts_gdot["K5"], "K6": counts_chain["K6"], "K7": counts_scan["K7"],
               **{k: sum(r["attn_launches"][k] for r in widths)
                  for k in ("K3w", "K4w", "K3qw", "K4qw")},
               **{k: counts_gemma2[k] for k in ("K3w_cap", "K4w_cap", "K3qw_cap", "K4qw_cap")},
-              **counts_baichuan}
+              **counts_baichuan, "K6_gelu": gemma7b["K6_gelu"]}
 
     kernels = []
     for k in ("K1", "K2", "K3", "K4", "K3q", "K4q", "K3w", "K4w", "K3qw", "K4qw", "K3w_cap",
               "K4w_cap", "K3qw_cap", "K4qw_cap", "K3_alibi", "K4_alibi", "K3q_alibi",
-              "K4q_alibi", "K5", "K6", "K7"):
+              "K4q_alibi", "K5", "K6", "K6_gelu", "K7"):
         mine = [r for r in results if r["kernel"] == k]
         head = next(r for r in mine if r["shape"] == HEADLINE[k])
         src, rep = REPLACES[k]

@@ -9,7 +9,10 @@ an object or dict with the ModelConfig fields. It returns the port's
 scan-mode tree (params["layers_stacked"], params["layers"] empty, as
 llm_tpu's Context(scan_layers=True) and stack_layers make it) keeps its
 stacked layout: QTensor leaves with [L, ...] planes and their meta, small
-leaves as [L, ...] tensors. This module reads no llm_tpu code.
+leaves as [L, ...] tensors. A mixture-of-experts layer's stacked-expert
+QTensors (rows-layout planes with a leading expert dim [E, ...]) and dense
+[E, N, K] stacks come across as they are, and so do the config's expert
+fields. This module reads no llm_tpu code.
 """
 
 from __future__ import annotations
@@ -72,8 +75,7 @@ def _convert(obj):
 # shard-major fused QKV and gate+up planes, which the port would split as
 # segment-major), so config_from_reference refuses it
 UNMODELED_DEFAULTS = {
-    "expert_weights_norm": False, "expert_weights_scale": 1.0, "n_ff_expert": 0,
-    "expert_gating_func": "softmax", "ep_cf": 0.0, "qk_norm_full": False,
+    "qk_norm_full": False,
     "qk_norm_ln": False, "nonparam_norm": False, "rope_swa": None,
     "nope_global_layers": False, "swa_chunked": False, "attn_temp_scale": 0.0,
     "attn_temp_floor": 8192, "qk_l2_norm": False, "expert_weight_before": False,

@@ -5,9 +5,12 @@
 // _chain_kernel. A chain is a layer tail
 //
 //   y1 = att @ Wo;  h = bf16(x_res + bf16(y1));  hn = bf16(rms(h) * gamma)
-//   gu = hn @ Wgu;  cur = bf16(silu(g) * u);     y3 = cur @ Wd
+//   gu = hn @ Wgu;  cur = bf16(act(g) * u);      y3 = cur @ Wd
 //   out = bf16(h + bf16(y3))
 //
+// with act silu (SwiGLU: kernel qmm_chain_tc) or gelu's tanh form (GeGLU,
+// the TPU kernel's _act_f32 "gelu", jax.nn.gelu(approximate=True), with
+// tanhf: kernel qmm_chain_tc_gelu, the same CTA instantiated for it),
 // or one phase, out = (bf16(rms(x) * gamma)) @ W cast to bf16 or f32 (the
 // attn_norm -> fused QKV head and the final norm -> lm_head). Each phase is
 // K1/K2's function as their decode GEMV computes it (qmm_decode.cuh: exact
@@ -49,7 +52,7 @@
 //    otherwise a boundary step after a grid barrier writes x once into bf16
 //    scratch: bf16(rms(v) * gamma) of the caller's x (a head) or of h (the
 //    tail's phase 0 epilogue writes h), one CTA a row (the row read once,
-//    in registers), or cur = bf16(silu(g) * u) from the f32 gu by the whole
+//    in registers), or cur = bf16(act(g) * u) from the f32 gu by the whole
 //    grid; then fence.proxy.async (TMA, the async proxy, reads what generic
 //    stores wrote) and a grid barrier;
 //  * the last phase's epilogue writes the output itself.
@@ -62,7 +65,9 @@
 
 namespace cg = cooperative_groups;
 
-enum { PRE_CAST = 0, PRE_NORM = 1, PRE_RES_NORM = 2, PRE_SWIGLU = 3 };
+// PRE_GEGLU is PRE_SWIGLU's boundary with gelu: a launch with one runs
+// qmm_chain_tc_gelu, whose PRE_SWIGLU-or-PRE_GEGLU boundary computes gelu
+enum { PRE_CAST = 0, PRE_NORM = 1, PRE_RES_NORM = 2, PRE_SWIGLU = 3, PRE_GEGLU = 4 };
 enum { EPI_F32 = 0, EPI_BF16 = 1, EPI_RES = 2 };
 constexpr int CH_MAX_PHASES = 3;
 constexpr int CH_MAX_B = 8;
@@ -150,8 +155,21 @@ __device__ __forceinline__ float cta_sum(float v, float* red5) {
 
 constexpr int CH_ROW_CHUNKS = 4;  // 8-element chunks of a norm's row a thread keeps (K <= 5120)
 
+// the gated FFN's activation of g in f32: silu, or gelu's tanh form
+// 0.5 g (1 + tanh(sqrt(2/pi) (g + 0.044715 g^3))) with the full tanhf (the
+// approximate tanh moves a weight by ~2.4%)
+template <bool GELU>
+__device__ __forceinline__ float glu_act(float g) {
+  if constexpr (GELU) {
+    return g * (0.5f * (1.f + tanhf(0.7978845608028654f * (g + 0.044715f * (g * g * g)))));
+  } else {
+    return g / (1.f + expf(-g));
+  }
+}
+
 // the boundary before phase p: its x, written once into bf16 scratch
 // (K % 8 == 0, every pointer 16-byte aligned)
+template <bool GELU>
 __device__ __forceinline__ void chain_boundary(const ChainArgs& a, int p, float* red5) {
   const ChainPhase& ph = a.ph[p];
   const int K = ph.K;
@@ -203,7 +221,7 @@ __device__ __forceinline__ void chain_boundary(const ChainArgs& a, int p, float*
         put(ch, w);
       }
     }
-  } else {  // PRE_SWIGLU: x = bf16(silu(g) * u) of gu [B, 2K], 4 k a thread at a time
+  } else {  // PRE_SWIGLU / PRE_GEGLU: x = bf16(act(g) * u) of gu [B, 2K], 4 k a thread at a time
     const float* gu = reinterpret_cast<const float*>(ph.src);
     const size_t n = (size_t)a.B * K / 4;
     for (size_t i = (size_t)blockIdx.x * DV_THREADS + threadIdx.x; i < n;
@@ -212,8 +230,8 @@ __device__ __forceinline__ void chain_boundary(const ChainArgs& a, int p, float*
       const float4 g = __ldcg(reinterpret_cast<const float4*>(gu + b * 2 * K + k));
       const float4 u = __ldcg(reinterpret_cast<const float4*>(gu + b * 2 * K + K + k));
       uint2 o;
-      o.x = f2_bf16x2(g.x / (1.f + expf(-g.x)) * u.x, g.y / (1.f + expf(-g.y)) * u.y);
-      o.y = f2_bf16x2(g.z / (1.f + expf(-g.z)) * u.z, g.w / (1.f + expf(-g.w)) * u.w);
+      o.x = f2_bf16x2(glu_act<GELU>(g.x) * u.x, glu_act<GELU>(g.y) * u.y);
+      o.y = f2_bf16x2(glu_act<GELU>(g.z) * u.z, glu_act<GELU>(g.w) * u.w);
       *reinterpret_cast<uint2*>(reinterpret_cast<uint16_t*>(ph.x) + 4 * i) = o;
     }
   }
@@ -391,8 +409,13 @@ __device__ __forceinline__ void chain_phase(const ChainMaps& maps, const ChainAr
   }
 }
 
-__global__ void __launch_bounds__(DV_THREADS, 2)
-qmm_chain_tc(const __grid_constant__ ChainMaps maps, const __grid_constant__ ChainArgs a) {
+// the CTA of either kernel: the phases in turn, the boundaries with act
+// silu (GELU false) or gelu. It declares the kernel's shared memory itself:
+// handed in as pointers from the kernel, the arrays cost qmm_chain_tc 24
+// more instructions (tools/cubin_cmp.py read DIFF), declared here it keeps
+// its machine code
+template <bool GELU>
+__device__ __forceinline__ void chain_cta(const ChainMaps& maps, const ChainArgs& a) {
   extern __shared__ uint8_t dyn_smem[];
   __shared__ __align__(8) uint64_t bars[2 * CH_MAX_SLOTS];  // full, then empty
   __shared__ float red5[DV_THREADS / 32];
@@ -405,7 +428,7 @@ qmm_chain_tc(const __grid_constant__ ChainMaps maps, const __grid_constant__ Cha
   for (int p = 0; p < a.P; ++p) {
     const ChainPhase& ph = a.ph[p];
     if (ph.pre != PRE_CAST) {
-      chain_boundary(a, p, red5);
+      chain_boundary<GELU>(a, p, red5);
       grid.sync();
     }
     // arm the ring's barriers for this phase (every earlier wait has
@@ -435,19 +458,36 @@ qmm_chain_tc(const __grid_constant__ ChainMaps maps, const __grid_constant__ Cha
   }
 }
 
-// clusters of `cluster` CTAs that can be resident at once: the grid. Asked
-// once for each cluster size (it depends only on the kernel and the card).
-cudaError_t chain_clusters(int cluster, int* n) {
-  static int cached[CH_MAX_CLUSTER + 1] = {0};
-  static bool attr = false;
+__global__ void __launch_bounds__(DV_THREADS, 2)
+qmm_chain_tc(const __grid_constant__ ChainMaps maps, const __grid_constant__ ChainArgs a) {
+  chain_cta<false>(maps, a);
+}
+
+__global__ void __launch_bounds__(DV_THREADS, 2)
+qmm_chain_tc_gelu(const __grid_constant__ ChainMaps maps, const __grid_constant__ ChainArgs a) {
+  chain_cta<true>(maps, a);
+}
+
+// the kernel of a launch: qmm_chain_tc_gelu if a phase's boundary is
+// PRE_GEGLU, else qmm_chain_tc
+using ChainKernel = void (*)(ChainMaps, ChainArgs);
+ChainKernel chain_kernel(bool gelu) { return gelu ? qmm_chain_tc_gelu : qmm_chain_tc; }
+
+// clusters of `cluster` CTAs of the kernel (gelu: qmm_chain_tc_gelu) that
+// can be resident at once: the grid. Asked once for each kernel and cluster
+// size (it depends only on the kernel and the card).
+cudaError_t chain_clusters(int cluster, bool gelu, int* n) {
+  static int cached[2][CH_MAX_CLUSTER + 1] = {{0}};
+  static bool attr[2] = {false, false};
   if (cluster < 1 || cluster > CH_MAX_CLUSTER) return cudaErrorInvalidValue;
-  if (!attr) {
-    cudaError_t err = cudaFuncSetAttribute(qmm_chain_tc,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, CH_SMEM);
+  const ChainKernel kernel = chain_kernel(gelu);
+  if (!attr[gelu]) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           CH_SMEM);
     if (err != cudaSuccess) return err;
-    attr = true;
+    attr[gelu] = true;
   }
-  if (cached[cluster] == 0) {
+  if (cached[gelu][cluster] == 0) {
     cudaLaunchConfig_t cfg;
     memset(&cfg, 0, sizeof(cfg));
     cudaLaunchAttribute at[1];
@@ -461,12 +501,12 @@ cudaError_t chain_clusters(int cluster, int* n) {
     cfg.attrs = at;
     cfg.numAttrs = 1;
     int q = 0;
-    cudaError_t err = cudaOccupancyMaxActiveClusters(&q, qmm_chain_tc, &cfg);
+    cudaError_t err = cudaOccupancyMaxActiveClusters(&q, kernel, &cfg);
     if (err != cudaSuccess) return err;
     if (q < 1) return cudaErrorInvalidConfiguration;
-    cached[cluster] = q;
+    cached[gelu][cluster] = q;
   }
-  *n = cached[cluster];
+  *n = cached[gelu][cluster];
   return cudaSuccess;
 }
 
@@ -508,11 +548,12 @@ int phase_maps(const ChainPhase& ph, int B, ChainMaps* mp, int p) {
 }  // namespace
 
 // The clusters of `cluster` CTAs the card holds at once (-1 on an error):
-// the grid of a launch with that cluster size. The wrapper's plan
-// (chain_plan) picks the cluster size and deals a phase's tiles to them.
-extern "C" int qmm_chain_clusters(int cluster) {
+// the grid of a launch with that cluster size, of the GeGLU kernel if gelu
+// is nonzero. The wrapper's plan (chain_plan) picks the cluster size and
+// deals a phase's tiles to them.
+extern "C" int qmm_chain_clusters(int cluster, int gelu) {
   int n = 0;
-  return chain_clusters(cluster, &n) == cudaSuccess ? n : -1;
+  return chain_clusters(cluster, gelu != 0, &n) == cudaSuccess ? n : -1;
 }
 
 // phases [P] (P <= 3), every field set by the wrapper; B <= 8 rows; the
@@ -525,8 +566,10 @@ extern "C" int qmm_chain_clusters(int cluster) {
 extern "C" int qmm_chain_launch(const ChainPhase* phases, int P, int B, float eps, int cluster,
                                 void* stream) {
   if (P < 1 || P > CH_MAX_PHASES || B < 1 || B > CH_MAX_B) return (int)cudaErrorInvalidValue;
+  bool gelu = false;
+  for (int p = 0; p < P; ++p) gelu = gelu || phases[p].pre == PRE_GEGLU;
   int q = 0;
-  cudaError_t err = chain_clusters(cluster, &q);
+  cudaError_t err = chain_clusters(cluster, gelu, &q);
   if (err != cudaSuccess) return (int)err;
   ChainArgs a;
   ChainMaps maps;
@@ -566,7 +609,7 @@ extern "C" int qmm_chain_launch(const ChainPhase* phases, int P, int B, float ep
   at[1].val.cooperative = 1;
   cfg.attrs = at;
   cfg.numAttrs = 2;
-  err = cudaLaunchKernelEx(&cfg, qmm_chain_tc, maps, a);
+  err = cudaLaunchKernelEx(&cfg, chain_kernel(gelu), maps, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,15 @@
 """Model hyperparameters from GGUF metadata. Counterpart of
-llm_tpu/models/config.py, for the llama family, gemma2, baichuan and
-refact: the general keys, rope, gemma2's adjustments (gelu, the embedding
-scale, the sliding window on every other layer, both softcaps, its
-attention scale, NEOX rope), baichuan-13B's and refact's (no rope, ALiBi
-with max_bias 8), and the variant flags that the port's forward refuses
-(it raises NotImplementedError for them, see models/transformer.py)."""
+llm_tpu/models/config.py, for the llama family, gemma (v1) and gemma2,
+baichuan and refact, qwen2 / qwen3 and the mixture-of-experts qwen2moe,
+qwen3moe and mixtral: the general keys, rope, gemma's adjustments (gelu,
+the embedding scale, NEOX rope) and gemma2's (beside those the sliding
+window on every other layer, both softcaps, its attention scale),
+baichuan-13B's and refact's (no rope, ALiBi with max_bias 8), qwen2's QKV
+biases, qwen3's per-head qk-norm, the experts' count, width and routing
+(the top-k weights normalized for llama with experts, mixtral and
+qwen3moe, not for qwen2moe), and the variant flags that the port's forward
+refuses (it raises NotImplementedError for them, see
+models/transformer.py)."""
 
 from __future__ import annotations
 
@@ -13,15 +18,21 @@ from dataclasses import dataclass, field, replace
 from ..gguf.constants import Keys
 from ..ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NONE, ROPE_TYPE_NORM, RopeParams
 
-# architectures the port's forward runs: the plain llama decoder, gemma2's
-# variant of it (post-norms, gelu, softcaps, interleaved SWA), and baichuan
-# and refact, which run the llama graph (baichuan-13B and refact with
-# ALiBi in place of rope)
-LLAMA_ARCHS = ("llama", "gemma2", "baichuan", "refact")
+# architectures the port's forward runs: the plain llama decoder (with
+# experts: mixtral's graph), gemma's and gemma2's variants of it (gelu,
+# the embedding scale; gemma2's post-norms, softcaps, interleaved SWA),
+# baichuan and refact, which run the llama graph (baichuan-13B and refact
+# with ALiBi in place of rope), qwen2 (QKV biases) and qwen3 (qk-norm), and
+# their mixture-of-experts variants qwen2moe (with a sigmoid-gated shared
+# expert) and qwen3moe, and mixtral
+LLAMA_ARCHS = ("llama", "gemma", "gemma2", "baichuan", "refact", "qwen2", "qwen3",
+               "qwen2moe", "qwen3moe", "mixtral")
 # rope layout per architecture (llm_tpu/models/config.py _ROPE_MODE, whose
 # default is NEOX; refact's is then replaced by NONE)
-_ROPE_MODE = {"llama": ROPE_TYPE_NORM, "gemma2": ROPE_TYPE_NEOX, "baichuan": ROPE_TYPE_NORM,
-              "refact": ROPE_TYPE_NEOX}
+_ROPE_MODE = {"llama": ROPE_TYPE_NORM, "gemma": ROPE_TYPE_NEOX, "gemma2": ROPE_TYPE_NEOX,
+              "baichuan": ROPE_TYPE_NORM, "refact": ROPE_TYPE_NEOX, "qwen2": ROPE_TYPE_NEOX,
+              "qwen3": ROPE_TYPE_NEOX, "qwen2moe": ROPE_TYPE_NEOX, "qwen3moe": ROPE_TYPE_NEOX,
+              "mixtral": ROPE_TYPE_NORM}
 # baichuan's 13B profile, keyed on its layer count as the reference keys it
 BAICHUAN_13B_LAYERS = 40
 # the ALiBi max_bias baichuan-13B and refact hardcode (llama-model.cpp)
@@ -46,12 +57,21 @@ class ModelConfig:
     norm_kind: str = "rms"
     act: str = "silu"
     context_length: int = 0
-    # variants of the llama graph the JAX package supports and this port
-    # does not run yet; forward raises NotImplementedError when one is set
+    # mixture of experts (models/transformer.py::moe_ffn): experts, those a
+    # token takes, their FFN width; the top-k weights normalized to sum 1
+    # and scaled; softmax or sigmoid router probabilities; the grouped
+    # path's capacity factor (0: exact; parallel/moe.py::cap_from_cf)
     n_expert: int = 0
     n_expert_used: int = 0
-    attn_bias: bool = False
-    qk_norm: bool = False
+    n_ff_expert: int = 0
+    expert_weights_norm: bool = False
+    expert_weights_scale: float = 1.0
+    expert_gating_func: str = "softmax"
+    ep_cf: float = 0.0
+    attn_bias: bool = False  # QKV biases (qwen2, qwen2moe)
+    qk_norm: bool = False  # per-head RMS norm of q and k (qwen3, qwen3moe)
+    # variants of the llama graph the JAX package supports and this port
+    # does not run yet; forward raises NotImplementedError when one is set
     attn_softcap: float = 0.0
     final_softcap: float = 0.0
     swa_window: int = 0
@@ -121,8 +141,20 @@ def config_from_gguf(reader) -> ModelConfig:
         context_length=ctx_len,
         n_expert=int(ak(Keys.LLM.EXPERT_COUNT, 0) or 0),
         n_expert_used=int(ak(Keys.LLM.EXPERT_USED_COUNT, 0) or 0),
+        n_ff_expert=int(ak(Keys.LLM.EXPERT_FEED_FORWARD_LENGTH, 0) or 0),
         swa_window=int(ak(Keys.Attention.SLIDING_WINDOW, 0) or 0),
     )
+    # llm_tpu/models/config.py's per-arch adjustments, in its order
+    if arch in ("qwen2", "qwen2moe"):
+        cfg = replace(cfg, attn_bias=True)
+    if cfg.n_expert > 0 and arch in ("llama", "mixtral", "qwen3moe"):
+        # mixtral and qwen3moe normalize the top-k router weights (qwen2moe
+        # does not: norm_topk_prob=false)
+        cfg = replace(cfg, expert_weights_norm=True)
+    if arch in ("qwen3", "qwen3moe"):
+        cfg = replace(cfg, qk_norm=True)
+    if arch == "gemma":
+        cfg = replace(cfg, act="gelu", embedding_scale=float(n_embd) ** 0.5)
     if arch == "gemma2":
         # llm_tpu/models/config.py's gemma adjustments; 27B (46 layers)
         # scales by n_embd / n_head (llama-model.cpp), and a scale in the

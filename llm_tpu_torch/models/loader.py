@@ -1,17 +1,24 @@
 """Build model params (a dict of QTensors and dense tensors) from a GGUF
 file. Counterpart of llm_tpu/models/loader.py, for the llama tensors (also
-those of baichuan and refact, which name theirs as llama does) and
-gemma2's post-norms (attn_post_norm, ffn_post_norm, the names llm_tpu's
-converter writes; llama.cpp's own post_attention_norm / post_ffw_norm are
-refused, ROADMAP "Faults in the reference").
+those of gemma, baichuan, refact and qwen2 / qwen3, which name theirs as
+llama does), gemma2's post-norms (attn_post_norm, ffn_post_norm, the
+names llm_tpu's converter writes; llama.cpp's own post_attention_norm /
+post_ffw_norm are refused, ROADMAP "Faults in the reference"), qwen2's
+QKV biases (attn_{q,k,v}_b), qwen3's qk-norms (attn_q_norm, attn_k_norm),
+and a mixture-of-experts layer's router (ffn_gate_inp, and exp_probs_b as
+ffn_exp_probs_b), expert stacks (ffn_{gate,up,down}_exps) and shared
+expert (ffn_{gate,up,down}_shexp, ffn_gate_inp_shexp).
 
 Quantized matrices become K-major QTensor planes (the embedding table
-keeps the rows layout); F32/F16/BF16 matrices stay dense [N, K]; norms and
-rope factors are f32 vectors. QKV and gate+up are fused into single
+keeps the rows layout, and a 3-D expert stack rows-layout planes with a
+leading expert dim, quant/qtensor.py::expert_qtensor_from_gguf);
+F32/F16/BF16 matrices stay dense [N, K] (expert stacks [E, N, K]); norms,
+biases and rope factors are f32 vectors. QKV and gate+up are fused into single
 QTensors when their recipes match, so each runs as one kernel launch. With
 scan_layers, uniform layers are stacked into one dict of [L, ...] leaves
 (stack_layers) for the scan decoder, whose matmuls read a layer of the
-stacked planes through K7.
+stacked planes through K7 (not a mixture-of-experts model's, which runs per
+layer as in the reference).
 """
 
 from __future__ import annotations
@@ -24,13 +31,21 @@ import torch
 from ..gguf.constants import GGMLType
 from ..gguf.reader import GGUFReader
 from ..quant.codecs import dequantize_dense
-from ..quant.qtensor import PLANE_TYPES, QTensor, concat_qtensors, qtensor_from_gguf
+from ..quant.qtensor import (PLANE_TYPES, QTensor, concat_qtensors, expert_qtensor_from_gguf,
+                             qtensor_from_gguf)
 from .config import ModelConfig, config_from_gguf
 
 _BLK_RE = re.compile(r"^blk\.(\d+)\.(.+?)\.(weight|bias)$")
 _LAYER_MATS = ("attn_q", "attn_k", "attn_v", "attn_output", "ffn_gate", "ffn_up",
-               "ffn_down")
-_LAYER_VECS = ("attn_norm", "ffn_norm", "attn_post_norm", "ffn_post_norm")
+               "ffn_down", "ffn_gate_inp", "ffn_gate_shexp", "ffn_up_shexp",
+               "ffn_down_shexp", "ffn_gate_inp_shexp")
+_LAYER_VECS = ("attn_norm", "ffn_norm", "attn_post_norm", "ffn_post_norm", "attn_q_norm",
+               "attn_k_norm")
+_LAYER_STACKS = ("ffn_gate_exps", "ffn_up_exps", "ffn_down_exps")
+# biases, each under its matrix's key + "_b" (the expert-selection bias
+# exp_probs_b.bias under ffn_exp_probs_b, as the reference loader keys it)
+_LAYER_BIASES = {"attn_q": "attn_q_b", "attn_k": "attn_k_b", "attn_v": "attn_v_b",
+                 "exp_probs_b": "ffn_exp_probs_b"}
 _DENSE = (GGMLType.F32, GGMLType.F16, GGMLType.BF16)
 
 
@@ -46,6 +61,18 @@ def _matrix(reader: GGUFReader, name: str, dense_dtype, device,
     if ti.ggml_type in PLANE_TYPES and len(ti.shape) == 2:
         return qtensor_from_gguf(reader.data(name), ti.ggml_type, ti.shape,
                                  device=device, kmajor=kmajor)
+    if ti.ggml_type in _DENSE:
+        arr = dequantize_dense(reader.data(name), ti.ggml_type, ti.shape)
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(device, dense_dtype)
+    raise NotImplementedError(f"{name}: type {ti.ggml_type.name} is not on the port's path")
+
+
+def _expert_stack(reader: GGUFReader, name: str, dense_dtype, device):
+    """A 3-D expert stack ne = (K, N, E): stacked-expert planes, or dense
+    [E, N, K]."""
+    ti = reader.tensors[name]
+    if ti.ggml_type in PLANE_TYPES:
+        return expert_qtensor_from_gguf(reader.data(name), ti.ggml_type, ti.shape, device=device)
     if ti.ggml_type in _DENSE:
         arr = dequantize_dense(reader.data(name), ti.ggml_type, ti.shape)
         return torch.from_numpy(np.ascontiguousarray(arr)).to(device, dense_dtype)
@@ -114,9 +141,9 @@ def stack_layers(layers: list[dict]) -> dict | None:
 
 def scan_stack(layers: list[dict], cfg: ModelConfig) -> dict | None:
     """stack_layers for the scan decoder, which runs no model with a
-    sliding-window pattern (gemma2: its layers stay per layer, as the
-    reference's scan takes none either)."""
-    return None if cfg.swa_pattern else stack_layers(layers)
+    sliding-window pattern (gemma2) or experts: their layers stay per
+    layer, as the reference's scan takes neither."""
+    return None if cfg.swa_pattern or cfg.n_expert else stack_layers(layers)
 
 
 def load_params(reader: GGUFReader, dense_dtype=torch.bfloat16, device="cuda",
@@ -134,8 +161,12 @@ def load_params(reader: GGUFReader, dense_dtype=torch.bfloat16, device="cuda",
             il, base, kind = int(m.group(1)), m.group(2), m.group(3)
             if kind == "weight" and base in _LAYER_MATS:
                 layers[il][base] = _matrix(reader, name, dense_dtype, device)
+            elif kind == "weight" and base in _LAYER_STACKS:
+                layers[il][base] = _expert_stack(reader, name, dense_dtype, device)
             elif kind == "weight" and base in _LAYER_VECS:
                 layers[il][base] = _vector(reader, name, device)
+            elif kind == "bias" and base in _LAYER_BIASES:
+                layers[il][_LAYER_BIASES[base]] = _vector(reader, name, device)
             else:
                 raise NotImplementedError(f"{name}: not on the port's llama path")
         elif name == "token_embd.weight":

@@ -40,6 +40,23 @@ BAICHUAN_13B = dict(n_embd=5120, n_layers=40, n_heads=40, n_kv_heads=40,
 # over one KV head of 64 dims (G = 32), ff 5632, ALiBi, no rope
 REFACT_1_6B = dict(n_embd=2048, n_layers=32, n_heads=32, n_kv_heads=1,
                    n_ff=5632, vocab=49216, head_dim=64)
+# Gemma-7B (google/gemma-7b config.json): 16 heads over 16 KV heads of 256
+# dims (q 4096 wide beside a hidden of 3072), ff 24576, gelu, tied
+# embeddings; gemma_config adds the rest
+GEMMA_7B = dict(n_embd=3072, n_layers=28, n_heads=16, n_kv_heads=16,
+                n_ff=24576, vocab=256000, head_dim=256)
+# Qwen2.5-7B (Qwen/Qwen2.5-7B config.json): 28 heads over 4 KV heads of
+# 128, ff 18944, QKV biases, untied; qwen2_config adds the rest
+QWEN2_5_7B = dict(n_embd=3584, n_layers=28, n_heads=28, n_kv_heads=4,
+                  n_ff=18944, vocab=152064, head_dim=128)
+# Qwen3-30B-A3B (Qwen/Qwen3-30B-A3B config.json): 32 heads over 4 KV heads
+# of 128 (q 4096 wide beside a hidden of 2048), qk-norm, every layer a
+# mixture of 128 experts of 768, 8 a token, their weights normalized; ff
+# 6144 (the dense width, which no layer uses), untied; qwen3moe_config adds
+# the rest
+QWEN3_30B_A3B = dict(n_embd=2048, n_layers=48, n_heads=32, n_kv_heads=4,
+                     n_ff=6144, vocab=151936, head_dim=128, n_expert=128,
+                     n_expert_used=8, n_ff_expert=768)
 
 
 def use_more_bits(i_layer: int, n_layers: int) -> bool:
@@ -166,6 +183,49 @@ def gemma2_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab, head_dim=N
         embedding_scale=float(n_embd) ** 0.5)
 
 
+def gemma_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab,
+                 head_dim=None) -> ModelConfig:
+    """A gemma (v1) config as config_from_gguf reads Gemma's: the llama
+    graph with NEOX rope at base 10000, rms eps 1e-6, gelu, the embedding
+    scaled by sqrt(n_embd), tied embeddings."""
+    head_dim = head_dim or n_embd // n_heads
+    return ModelConfig(
+        arch="gemma", vocab_size=vocab, n_embd=n_embd, n_layers=n_layers,
+        n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim, head_dim_v=head_dim,
+        n_ff=n_ff, rms_eps=1e-6, rope=RopeParams(n_dims=head_dim, mode=ROPE_TYPE_NEOX),
+        tie_embeddings=True, act="gelu", context_length=8192,
+        embedding_scale=float(n_embd) ** 0.5)
+
+
+def qwen2_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab,
+                 head_dim=None) -> ModelConfig:
+    """A qwen2 config as config_from_gguf reads Qwen2.5's: NEOX rope at
+    base 1e6, rms eps 1e-6, QKV biases, an untied lm_head."""
+    head_dim = head_dim or n_embd // n_heads
+    return ModelConfig(
+        arch="qwen2", vocab_size=vocab, n_embd=n_embd, n_layers=n_layers,
+        n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim, head_dim_v=head_dim,
+        n_ff=n_ff, rms_eps=1e-6,
+        rope=RopeParams(n_dims=head_dim, mode=ROPE_TYPE_NEOX, freq_base=1e6),
+        context_length=32768, attn_bias=True)
+
+
+def qwen3moe_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab, head_dim=None,
+                    n_expert=128, n_expert_used=8, n_ff_expert=768) -> ModelConfig:
+    """A qwen3moe config as config_from_gguf reads Qwen3-30B-A3B's: NEOX
+    rope at base 1e6, rms eps 1e-6, per-head qk-norm, softmax routing to
+    n_expert_used of n_expert experts of n_ff_expert, their weights
+    normalized, an untied lm_head."""
+    head_dim = head_dim or n_embd // n_heads
+    return ModelConfig(
+        arch="qwen3moe", vocab_size=vocab, n_embd=n_embd, n_layers=n_layers,
+        n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim, head_dim_v=head_dim,
+        n_ff=n_ff, rms_eps=1e-6,
+        rope=RopeParams(n_dims=head_dim, mode=ROPE_TYPE_NEOX, freq_base=1e6),
+        context_length=40960, qk_norm=True, n_expert=n_expert,
+        n_expert_used=n_expert_used, n_ff_expert=n_ff_expert, expert_weights_norm=True)
+
+
 def baichuan_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab,
                     head_dim=None) -> ModelConfig:
     """A baichuan config as config_from_gguf reads one: the llama graph,
@@ -210,7 +270,8 @@ def make_synthetic_model(n_embd: int = 64, n_layers: int = 2, n_heads: int = 8,
                          dtype=torch.bfloat16, device=None,
                          on_device: bool = False, scales_dtype=torch.bfloat16,
                          fuse: bool = True, recipe: str | None = None,
-                         arch: str = "llama", swa_window: int = 4096
+                         arch: str = "llama", swa_window: int = 4096,
+                         n_expert: int = 0, n_expert_used: int = 0, n_ff_expert: int = 0
                          ) -> tuple[dict, ModelConfig]:
     """(params, cfg) for a llama-shaped model with random weights, on
     `device` (None = the card; pass "cpu" for the host).
@@ -225,18 +286,33 @@ def make_synthetic_model(n_embd: int = 64, n_layers: int = 2, n_heads: int = 8,
     lm_head its K-major copy. arch "baichuan": baichuan_config (at 40
     layers rope NONE and ALiBi; the weights do not depend on the profile,
     so a cut model takes it by alibi_profile on the returned config);
-    "refact": refact_config. With the recipe a matrix whose K its type's
-    block does not divide takes Q8_0 (fallback_type; Baichuan-13B's
-    ffn_down, K = 13696)."""
+    "refact": refact_config. arch "gemma": gemma_config, the table tied as
+    gemma2's, no post-norms. arch "qwen2": qwen2_config, with random f32
+    biases on q, k and v (attn_q_b, attn_k_b, attn_v_b). arch "qwen3moe":
+    qwen3moe_config with n_expert experts of n_ff_expert, n_expert_used a
+    token: per layer qk-norm weights, a dense router ffn_gate_inp [E,
+    n_embd] in dtype (a GGUF keeps it F32, loaded in the dense dtype), and
+    the expert stacks ffn_{gate,up,down}_exps as stacked-expert planes
+    (rows layout, [E, ...]; the recipe's Q6_K for ffn_down_exps in the
+    use_more_bits layers) or dense [E, N, K], in place of the FFN. With the
+    recipe a matrix whose K its type's block does not divide takes Q8_0
+    (fallback_type; Baichuan-13B's ffn_down, K = 13696)."""
     if recipe not in (None, "Q4_K_M"):
         raise ValueError(f"unknown recipe {recipe!r}")
-    if arch not in ("llama", "gemma2", "baichuan", "refact"):
+    if arch not in ("llama", "gemma", "gemma2", "baichuan", "refact", "qwen2", "qwen3moe"):
         raise ValueError(f"unknown arch {arch!r}")
     device = resolve_device(device)
-    gemma = arch == "gemma2"
+    tied = arch in ("gemma", "gemma2")
+    moe = arch == "qwen3moe"
     geo = (n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab, head_dim)
-    if gemma:
+    if arch == "gemma2":
         cfg = gemma2_config(*geo, swa_window)
+    elif arch == "gemma":
+        cfg = gemma_config(*geo)
+    elif arch == "qwen2":
+        cfg = qwen2_config(*geo)
+    elif moe:
+        cfg = qwen3moe_config(*geo, n_expert, n_expert_used, n_ff_expert)
     elif arch == "baichuan":
         cfg = baichuan_config(*geo)
     elif arch == "refact":
@@ -267,6 +343,19 @@ def make_synthetic_model(n_embd: int = 64, n_layers: int = 2, n_heads: int = 8,
     def vec(n):
         return torch.ones(n, dtype=torch.float32, device=device)
 
+    def dense(n, k, std=0.02, dt=None):  # a dense [n, k] in dt (dtype when None)
+        if on_device:
+            w = torch.randn((n, k), generator=gen, device=device) * std
+        else:
+            w = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32) * std)
+        return w.to(device, dt or dtype)
+
+    def stack(n, k, six_bit=False):  # n_expert experts of [n, k], rows layout
+        w = mat(n * n_expert, k, kmajor=False, six_bit=six_bit)
+        if isinstance(w, QTensor):
+            return w.map(lambda t: t.reshape(n_expert, n, -1))
+        return w.reshape(n_expert, n, k)
+
     layers = []
     for il in range(n_layers):
         more = use_more_bits(il, n_layers)
@@ -277,15 +366,26 @@ def make_synthetic_model(n_embd: int = 64, n_layers: int = 2, n_heads: int = 8,
             "attn_v": mat(n_kv_heads * hdv, n_embd, six_bit=more),
             "attn_output": mat(n_embd, n_heads * hdv),
             "ffn_norm": vec(n_embd),
-            "ffn_gate": mat(n_ff, n_embd),
-            "ffn_up": mat(n_ff, n_embd),
-            "ffn_down": mat(n_embd, n_ff, six_bit=more),
         })
-        if gemma:
+        if moe:
+            layers[-1].update(
+                attn_q_norm=vec(hd), attn_k_norm=vec(hd),
+                ffn_gate_inp=dense(n_expert, n_embd),
+                ffn_gate_exps=stack(n_ff_expert, n_embd),
+                ffn_up_exps=stack(n_ff_expert, n_embd),
+                ffn_down_exps=stack(n_embd, n_ff_expert, six_bit=more))
+        else:
+            layers[-1].update(ffn_gate=mat(n_ff, n_embd), ffn_up=mat(n_ff, n_embd),
+                              ffn_down=mat(n_embd, n_ff, six_bit=more))
+        if arch == "gemma2":
             layers[-1].update(attn_post_norm=vec(n_embd), ffn_post_norm=vec(n_embd))
+        if arch == "qwen2":
+            for key, n in (("attn_q_b", n_heads * hd), ("attn_k_b", n_kv_heads * hd),
+                           ("attn_v_b", n_kv_heads * hdv)):
+                layers[-1][key] = dense(1, n, std=0.1, dt=torch.float32)[0]
         if fuse and qtype is not None:
             fuse_projections(layers[-1:])
-    if gemma:  # tied: the lm_head is the embedding table
+    if tied:  # the lm_head is the embedding table
         tok = mat(vocab, n_embd, kmajor=False, six_bit=True)
         out = kmajor_copy(tok) if isinstance(tok, QTensor) else tok
     else:

@@ -1,6 +1,7 @@
 """The llama decoder forward. Counterpart of
-llm_tpu/models/transformer.py::forward on its llama, gemma2 and ALiBi
-(baichuan-13B, refact) paths:
+llm_tpu/models/transformer.py::forward on its llama, gemma, gemma2, ALiBi
+(baichuan-13B, refact), qwen2 / qwen3 and mixture-of-experts (mixtral,
+qwen2moe, qwen3moe) paths:
 
   qembed -> per layer: rms_norm -> fused QKV (K1/K2) -> split -> rope on q
   -> scatter unroped K/V into the head-major cache (quantizing for a q8_0
@@ -9,13 +10,15 @@ llm_tpu/models/transformer.py::forward on its llama, gemma2 and ALiBi
   gate+up -> SwiGLU -> down -> residual; final norm -> lm_head on the
   out_idx rows.
 
-gemma2 (cfg.arch "gemma2") adds, as the reference does: the embedding
-scaled by sqrt(n_embd) in f32; the attention logit softcap inside the
-flash kernels (their capped wide instantiations, K3w_cap/K4w_cap and the
-q8 ones) and the unfused attention; a sliding window on every other layer
-(cfg.layer_is_swa), as a second bias; post-norms (attn_post_norm,
-ffn_post_norm) on the attention and FFN outputs before each residual; a
-gelu (tanh) FFN; and the final logit softcap after the lm_head. With the
+gemma (v1) runs the llama graph with a gelu (tanh) FFN and the embedding
+scaled by sqrt(n_embd) in f32. gemma2 (cfg.arch "gemma2") adds, as the
+reference does: the embedding scaled by sqrt(n_embd) in f32; the
+attention logit softcap inside the flash kernels (their capped wide
+instantiations, K3w_cap/K4w_cap and the q8 ones) and the unfused
+attention; a sliding window on every other layer (cfg.layer_is_swa), as a
+second bias; post-norms (attn_post_norm, ffn_post_norm) on the attention
+and FFN outputs before each residual; a gelu (tanh) FFN; and the final
+logit softcap after the lm_head. With the
 ISWA dual cache (the Context's ring, runtime/kv_cache.py SWACellTable) the
 sliding-window layers read and write their own smaller cache: swa_cell_pos,
 swa_cell_seq_bits and swa_write_idx describe it, with its own rope tables
@@ -32,13 +35,31 @@ take no ALiBi, nor does any kernel take ALiBi beside a rope: flash_route
 sends such a step to the unfused attention, which subtracts slope *
 (tok_pos - cell_pos) after the bias (ROADMAP, "Deliberate differences").
 
+qwen2 (cfg.attn_bias) adds its q, k and v biases to the fused QKV's
+slices; qwen3 (cfg.qk_norm) RMS-normalizes each head of q and k (before
+rope, and k before it enters the cache). A mixture-of-experts layer
+(ffn_gate_inp: the router, and the stacks ffn_{gate,up,down}_exps) runs
+moe_ffn in place of the FFN, the reference's _moe_ffn: softmax (or
+sigmoid) router probabilities, the top n_expert_used experts of a token
+(ties to the lower expert, as jax.lax.top_k), their weights normalized and
+scaled as the config says; at T <= 8 the chosen experts' planes are
+gathered and dequantized per (token, k) ([T, k, N, K], gather_experts)
+and multiplied in f32, at T > 8 the grouped dispatch of parallel/moe.py
+runs each expert once over its tokens; a shared expert (qwen2moe:
+ffn_*_shexp), gated by sigmoid(h @ ffn_gate_inp_shexp) where that is
+given, is added. The experts' products are plain PyTorch, as the
+reference computes them outside its Pallas kernels (ROADMAP Queue 2 holds
+their kernel as later work).
+
 With chain=True (the reference's LLM_TPU_CHAIN=1) a step of T <= 8 tokens
 runs the chained kernel K6 (ops/cuda_qmm_chain.py) where its gates admit
 the layer: attn_norm -> fused QKV as one norm_mm, the whole tail o_proj ->
-residual -> ffn_norm -> gate+up -> SwiGLU -> down -> residual as one
-layer_tail, and the final norm -> lm_head on the out_idx rows as one
-norm_mm. With gdot=True (LLM_TPU_GDOT=force) every quantized matmul that
-stays unfused routes p4 planes at B <= 16 through K5.
+residual -> ffn_norm -> gate+up -> SwiGLU or GeGLU -> down -> residual as
+one layer_tail, and the final norm -> lm_head on the out_idx rows as one
+norm_mm. The reference's gates hold: QKV biases keep a head unchained,
+a mixture-of-experts layer's tail runs unchained, and qk-norm runs after
+the chained QKV. With gdot=True (LLM_TPU_GDOT=force) every quantized
+matmul that stays unfused routes p4 planes at B <= 16 through K5.
 
 With params["layers_stacked"] (uniform layers stacked by stack_layers, the
 reference's scan decoder, transformer.py:658-688) the layers run from the
@@ -75,29 +96,38 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..device import full_f32
 from ..ops.attention import attention, build_attn_bias
 from ..ops.cuda_attn import (MAX_HEAD_DIM, expand_tables, flash_decode, flash_prefill,
                              is_narrow, rope_companion)
 from ..ops.cuda_qmm_chain import head_eligible, is_kmajor_qt, layer_tail, norm_mm, tail_eligible
 from ..ops.norms import rms_norm
-from ..ops.qmatmul import qembed, qmm
+from ..ops.qmatmul import dequant_expert_rows, qembed, qmm
 from ..ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NONE, ROPE_TYPE_NORM, apply_rope, rope_angles
+from ..parallel.moe import moe_ffn_grouped
 from ..quant.qtensor import QTensor, StackedWeight
 from .config import ModelConfig
 
 _UNSUPPORTED = (
-    ("n_expert", 0, "MoE"), ("attn_bias", False, "QKV biases"),
-    ("qk_norm", False, "qk-norm"), ("kv_lora_rank", 0, "MLA"), ("rope_sections", None, "M-RoPE"),
+    ("kv_lora_rank", 0, "MLA"), ("rope_sections", None, "M-RoPE"),
     ("logit_scale", 1.0, "logit scale"), ("residual_scale", 1.0, "residual scale"),
     ("parallel_residual", False, "parallel residual"), ("norm_kind", "rms", "LayerNorm"),
 )
 # the FFN activations (the reference's ACTIVATIONS but relu2): the gated
-# SiLU of llama and the gated gelu (tanh) of gemma2
+# SiLU of llama and the gated gelu (tanh) of gemma and gemma2
 ACTIVATIONS = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh")}
+# the router's probabilities (the reference's expert_gating_func)
+GATING = ("softmax", "sigmoid")
+# steps of at most this many tokens gather their experts' planes per (token,
+# k); longer ones take the grouped dispatch (the reference's T > 8)
+MOE_GATHER_MAX_T = 8
 _TOP_KEYS = {"tok_embd", "layers", "layers_stacked", "output", "output_norm", "rope_freqs"}
 _LAYER_KEYS = {"attn_norm", "ffn_norm", "attn_q", "attn_k", "attn_v", "attn_qkv_fused",
                "attn_output", "ffn_gate", "ffn_up", "ffn_gateup_fused", "ffn_down",
-               "attn_post_norm", "ffn_post_norm"}
+               "attn_post_norm", "ffn_post_norm", "attn_q_b", "attn_k_b", "attn_v_b",
+               "attn_q_norm", "attn_k_norm", "ffn_gate_inp", "ffn_exp_probs_b",
+               "ffn_gate_exps", "ffn_up_exps", "ffn_down_exps", "ffn_gate_shexp",
+               "ffn_up_shexp", "ffn_down_shexp", "ffn_gate_inp_shexp"}
 
 
 def flash_route(dk: int, dv: int, k_groups: int = 1, v_groups: int = 1,
@@ -144,6 +174,8 @@ def check_supported(params: dict, cfg: ModelConfig) -> None:
             raise NotImplementedError(f"{what} is not ported yet")
     if cfg.act not in ACTIVATIONS:
         raise NotImplementedError(f"FFN activation {cfg.act!r} is not ported yet")
+    if cfg.expert_gating_func not in GATING:
+        raise NotImplementedError(f"expert gating {cfg.expert_gating_func!r} is not ported")
     if cfg.rope.mode not in (ROPE_TYPE_NORM, ROPE_TYPE_NEOX, ROPE_TYPE_NONE):
         raise NotImplementedError(f"rope mode {cfg.rope.mode} is not ported yet")
     extra = {k for k, v in params.items() if v is not None} - _TOP_KEYS
@@ -234,6 +266,108 @@ def kv_read(cache, dtype) -> torch.Tensor:
     return cache.transpose(0, 1).to(dtype)
 
 
+def ffn(h: torch.Tensor, layer: dict, cfg: ModelConfig, dtype, gdot: bool = False
+        ) -> torch.Tensor:
+    """The gated FFN of h [T, D] in dtype: fused gate+up, or gate and up
+    apart (the shared expert's ffn_gate / ffn_up), act(g) * u in f32, down
+    (the reference's _ffn)."""
+    act = ACTIVATIONS[cfg.act]
+    if "ffn_gateup_fused" in layer:
+        g, up = torch.split(qmm(h, layer["ffn_gateup_fused"], gdot=gdot), cfg.n_ff, dim=-1)
+        cur = (act(g) * up).to(dtype)
+    else:
+        up = qmm(h, layer["ffn_up"], out_dtype=dtype, gdot=gdot)
+        if layer.get("ffn_gate") is not None:
+            g = act(qmm(h, layer["ffn_gate"], gdot=gdot))
+            cur = (g * up.float()).to(dtype)
+        else:
+            cur = act(up.float()).to(dtype)
+    return qmm(cur, layer["ffn_down"], out_dtype=dtype, gdot=gdot)
+
+
+def gather_experts(stack, topi: torch.Tensor, dtype) -> torch.Tensor:
+    """The experts topi [T, k] of a stack, dequantized: [T, k, N, K] in
+    dtype (a stacked-expert QTensor's planes gathered, or a dense [E, N, K]
+    stack's rows; the reference's _gather_experts)."""
+    if isinstance(stack, QTensor):
+        return dequant_expert_rows(stack, topi, dtype=dtype)
+    return stack[topi].to(dtype)
+
+
+def top_k(sel: torch.Tensor, k: int) -> torch.Tensor:
+    """The indices [T, k] of the k largest entries of each row of sel [T,
+    E], largest first, and of equal entries the lower index first, as
+    jax.lax.top_k orders them (torch.topk promises no order of ties)."""
+    return torch.sort(sel, dim=-1, descending=True, stable=True).indices[:, :k]
+
+
+def moe_ffn(h: torch.Tensor, layer: dict, cfg: ModelConfig,
+            weight_before: bool = False) -> torch.Tensor:
+    """The mixture-of-experts FFN of h [T, D] (the reference's _moe_ffn):
+    router logits h @ ffn_gate_inp, their softmax (or sigmoid) in f32; the
+    top n_expert_used experts of each token by the probabilities plus
+    ffn_exp_probs_b where given (the weights stay the unbiased
+    probabilities), normalized to sum 1 if expert_weights_norm, times
+    expert_weights_scale. weight_before (llama4's expert_weight_before,
+    which the port's config does not model: config_from_reference refuses
+    it) scales the expert's input by the weight instead. T <= MOE_GATHER_MAX_T: each (token, k)'s expert
+    gathered and dequantized in cdtype (f32 when h is, else bf16), its
+    products in f32 rounded to cdtype, act in f32, the k outputs weighted
+    and summed in f32; longer steps take parallel/moe.py's grouped
+    dispatch. Returns [T, D] in h's dtype."""
+    T = h.shape[0]
+    logits = qmm(h, layer["ffn_gate_inp"])  # [T, E] f32
+    if cfg.expert_gating_func == "sigmoid":
+        probs = torch.sigmoid(logits.float())
+    else:
+        probs = torch.softmax(logits.float(), dim=-1)
+    sel = probs
+    if "ffn_exp_probs_b" in layer:  # biases which experts, not their weights
+        sel = probs + layer["ffn_exp_probs_b"].float()
+    topi = top_k(sel, cfg.n_expert_used)
+    topw = torch.gather(probs, -1, topi)
+    if cfg.expert_weights_norm:
+        topw = topw / topw.sum(dim=-1, keepdim=True)
+    topw = topw * cfg.expert_weights_scale
+    act = ACTIVATIONS[cfg.act]
+    cdtype = torch.float32 if h.dtype == torch.float32 else torch.bfloat16
+    gate = layer.get("ffn_gate_exps")
+
+    def mm(a: torch.Tensor, w: torch.Tensor, eq: str) -> torch.Tensor:
+        # an einsum of cdtype operands, exact products summed in f32, the
+        # result in cdtype (XLA's dot of two cdtype operands)
+        with full_f32():
+            return torch.einsum(eq, a.to(cdtype).float(), w.float()).to(cdtype)
+
+    if weight_before:
+        # llama4: the weight scales the expert's input (build_moe_ffn
+        # weight_before_ffn)
+        if cfg.n_expert_used == 1:
+            h = (h.float() * topw[:, :1]).to(h.dtype)
+            topw = torch.ones_like(topw)
+        else:
+            hk = (h.float()[:, None, :] * topw[..., None]).to(cdtype)  # [T, k, K]
+            up = mm(hk, gather_experts(layer["ffn_up_exps"], topi, cdtype), "tki,tkni->tkn")
+            if gate is not None:
+                g = act(mm(hk, gather_experts(gate, topi, cdtype), "tki,tkni->tkn").float())
+                cur = (g * up.float()).to(cdtype)
+            else:
+                cur = act(up.float()).to(cdtype)
+            out = mm(cur, gather_experts(layer["ffn_down_exps"], topi, cdtype), "tkf,tkef->tke")
+            return out.float().sum(dim=1).to(h.dtype)
+    if T > MOE_GATHER_MAX_T:
+        return moe_ffn_grouped(h, layer["ffn_up_exps"], gate, layer["ffn_down_exps"], topi,
+                               topw.float(), act, cf=cfg.ep_cf).to(h.dtype)
+    up = mm(h, gather_experts(layer["ffn_up_exps"], topi, cdtype), "ti,tkni->tkn")
+    if gate is not None:
+        g = act(mm(h, gather_experts(gate, topi, cdtype), "ti,tkni->tkn").float())
+        cur = (g * up.float()).to(h.dtype)
+    else:
+        cur = act(up.float()).to(h.dtype)
+    out = mm(cur, gather_experts(layer["ffn_down_exps"], topi, cdtype), "tkf,tkef->tke")
+    return (out.float() * topw[..., None]).sum(dim=1).to(h.dtype)
+
+
 def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
             tokens: torch.Tensor, tok_pos: torch.Tensor, tok_seq: torch.Tensor,
             write_idx: torch.Tensor, cell_pos: torch.Tensor,
@@ -259,13 +393,10 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
     H, Hkv, Dk, Dv = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim_v
     T = tokens.shape[0]
     scale = cfg.attn_scale if cfg.attn_scale is not None else Dk ** -0.5
-    act = ACTIVATIONS[cfg.act]
     # the reference's model-wide gates (rms norm, no residual scale,
-    # sequential residual) hold for everything check_supported admits; K6's
-    # tail runs SwiGLU only (its gelu is not ported), and no gelu config
-    # the port admits has a tail it takes (gemma2's post-norms)
+    # sequential residual, silu or gelu) hold for everything check_supported
+    # admits
     use_chain = chain and T <= 8
-    tail_chain = use_chain and cfg.act == "silu"
 
     x = qembed(params["tok_embd"], tokens, dtype=dtype)
     if cfg.embedding_scale != 1.0:
@@ -328,10 +459,17 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
         else:
             q, k, v = (qmm(h, layer[key], out_dtype=dtype, gdot=gdot)
                        for key in ("attn_q", "attn_k", "attn_v"))
-        q = apply_rope(q.reshape(T, H, Dk), cos_t, sin_t, rope.mode, rope.n_dims)
+        if "attn_q_b" in layer:  # qwen2: biases on the fused QKV's slices
+            q, k, v = (t + layer[b].to(t.dtype)
+                       for t, b in ((q, "attn_q_b"), (k, "attn_k_b"), (v, "attn_v_b")))
+        q, k = q.reshape(T, H, Dk), k.reshape(T, Hkv, Dk)
+        if cfg.qk_norm:  # qwen3: each head of q and k, k before the cache
+            q = rms_norm(q, layer.get("attn_q_norm"), cfg.rms_eps)
+            k = rms_norm(k, layer.get("attn_k_norm"), cfg.rms_eps)
+        q = apply_rope(q, cos_t, sin_t, rope.mode, rope.n_dims)
         ring = dual and is_swa  # the layer's cache is the ring
         widx, lkeep = (swa_write_idx, keep_swa) if ring else (write_idx, keep)
-        kv_write(kv_k[il], widx, k.reshape(T, Hkv, Dk), lkeep)  # K enters unroped
+        kv_write(kv_k[il], widx, k, lkeep)  # K enters unroped
         kv_write(kv_v[il], widx, v.reshape(T, Hkv, Dv), lkeep)
         cos_c, sin_c, cos_cf, sin_cf, cpos_f = tab_swa if ring else tab
         lbias = bias_swa if is_swa else bias
@@ -346,10 +484,10 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
                         softcap=cfg.attn_softcap, alibi_slopes=slopes, tok_pos=tok_pos_f,
                         cell_pos=cpos_f)
         att = att.reshape(T, H * Dv)
-        if tail_chain and tail_eligible(layer):
+        if use_chain and tail_eligible(layer):
             out = layer_tail(att, x, layer["ffn_norm"], layer["attn_output"],
                              layer["ffn_gateup_fused"], layer["ffn_down"], eps=cfg.rms_eps,
-                             compute_dtype=dtype)
+                             act=cfg.act, compute_dtype=dtype)
             if out is not None:
                 x = out
                 continue
@@ -359,14 +497,18 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
         x = x + attn_out
 
         h2 = rms_norm(x, layer["ffn_norm"], cfg.rms_eps)
-        if "ffn_gateup_fused" in layer:
-            g, up = torch.split(qmm(h2, layer["ffn_gateup_fused"], gdot=gdot), cfg.n_ff, dim=-1)
-            cur = (act(g) * up).to(dtype)
+        if cfg.n_expert > 0 and "ffn_gate_inp" in layer:
+            ffn_out = moe_ffn(h2, layer, cfg)
+            if "ffn_up_shexp" in layer:  # the shared expert (qwen2moe)
+                shared = ffn(h2, {"ffn_gate": layer.get("ffn_gate_shexp"),
+                                  "ffn_up": layer["ffn_up_shexp"],
+                                  "ffn_down": layer["ffn_down_shexp"]}, cfg, dtype, gdot)
+                if "ffn_gate_inp_shexp" in layer:  # its sigmoid gate
+                    gate = torch.sigmoid(qmm(h2, layer["ffn_gate_inp_shexp"]).float())
+                    shared = (shared.float() * gate).to(shared.dtype)
+                ffn_out = ffn_out + shared
         else:
-            up = qmm(h2, layer["ffn_up"], out_dtype=dtype, gdot=gdot)
-            g = act(qmm(h2, layer["ffn_gate"], gdot=gdot))
-            cur = (g * up.float()).to(dtype)
-        ffn_out = qmm(cur, layer["ffn_down"], out_dtype=dtype, gdot=gdot)
+            ffn_out = ffn(h2, layer, cfg, dtype, gdot)
         if "ffn_post_norm" in layer:
             ffn_out = rms_norm(ffn_out, layer["ffn_post_norm"], cfg.rms_eps)
         x = x + ffn_out

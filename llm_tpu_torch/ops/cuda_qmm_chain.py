@@ -3,20 +3,23 @@ Counterpart of llm_tpu/ops/pallas_qmm_chain.py (qmm_chain -> _chain_kernel,
 with its wrappers layer_tail and norm_mm and its gates).
 
     layer tail:  y1 = att @ Wo;  h = x_res + y1;  hn = rmsnorm(h) * gamma
-                 gu = hn @ Wgu;  cur = silu(g) * u;  out = h + cur @ Wd
+                 gu = hn @ Wgu;  cur = act(g) * u;   out = h + cur @ Wd
     norm + mm:   out = (rmsnorm(x) * gamma) @ W
 
-The dtype walk is the reference's (the unfused path's): h = x_res +
-cdtype(y1) rounded to cdtype, hn = cdtype(rms(f32 h) * gamma), cur =
-cdtype(silu(g) * u) from the f32 gu, out = h + cdtype(y3), or the f32 y
-cast to out_dtype. Each phase is the port's K1/K2 function (qmm_plain; the
+act is silu (the "swiglu" boundary) or gelu's tanh form (the "geglu"
+boundary: gemma), the reference's _act_f32. The dtype walk is the
+reference's (the unfused path's): h = x_res + cdtype(y1) rounded to
+cdtype, hn = cdtype(rms(f32 h) * gamma), cur = cdtype(act(g) * u) from the
+f32 gu, out = h + cdtype(y3), or the f32 y cast to out_dtype. Each phase is the port's K1/K2 function (qmm_plain; the
 CUDA kernel runs the decode GEMV's CTA body, exact integer products with s
 and m applied per group in f32), where the TPU kernel rounds (q - zp) * s
 and the corrections' operands to bf16.
 
 `qmm_chain_plain` is the chain in plain PyTorch, `qmm_chain_cuda`
 launches csrc/qmm_chain.cu (one cooperative launch of thread block
-clusters; `chain_plan` picks each phase's K split within a cluster), and
+clusters of qmm_chain_tc, or of qmm_chain_tc_gelu for a GeGLU tail,
+counted apart as K6_gelu; `chain_plan` picks each phase's K split within
+a cluster), and
 `qmm_chain` dispatches on the device of x: CPU tensors take the plain
 version, CUDA tensors the kernel (which raises rather than fall back).
 `layer_tail` / `norm_mm` return None where the geometry gate says no, on
@@ -35,11 +38,17 @@ from . import cuda_build
 from .cuda_qmm import DECODE_TILE_N, DECODE_UNIT_K, _check_decode, check_planes, qmm_plain
 from .norms import rms_norm
 
-# launches of the kernel, counted where the wrapper launches it
-LAUNCHES = {"K6": 0}
+# launches of the kernels, counted where the wrapper launches them: K6 the
+# SwiGLU kernel (every head and lm_head, and llama's tails), K6_gelu the
+# GeGLU one (gemma's tails)
+LAUNCHES = {"K6": 0, "K6_gelu": 0}
 # rows the kernel takes: the chain serves decode steps (T <= 8)
 CHAIN_MAX_B = 8
-PRE = {"cast": 0, "norm": 1, "res_norm": 2, "swiglu": 3}
+PRE = {"cast": 0, "norm": 1, "res_norm": 2, "swiglu": 3, "geglu": 4}
+# the gated boundaries and their activations (the reference's _act_f32)
+GLU = {"swiglu": F.silu, "geglu": lambda g: F.gelu(g, approximate="tanh")}
+# the boundary of the tail's last phase for the FFN's activation
+GLU_OF_ACT = {"silu": "swiglu", "gelu": "geglu"}
 EPI = {"f32": 0, "bf16": 1, "res": 2}
 # the kernel's grid: as many clusters of C CTAs as the card holds at once
 # (qmm_chain_clusters; two CTAs an SM), C one of CHAIN_CLUSTERS, picked with
@@ -74,7 +83,8 @@ def tail_eligible(layer: dict) -> bool:
     """The layer's tail is the llama recipe the chain implements: o_proj,
     fused gate+up, down and ffn_norm, K-major planes, and none of
     TAIL_BANNED (the reference's tail_eligible: biases, post-norms, LoRA and
-    MoE; of these the port's forward runs only gemma2's post-norms)."""
+    MoE; of these the port's forward runs gemma2's post-norms and the MoE
+    router ffn_gate_inp)."""
     if any(k not in layer for k in
            ("attn_output", "ffn_gateup_fused", "ffn_down", "ffn_norm")):
         return False
@@ -84,10 +94,20 @@ def tail_eligible(layer: dict) -> bool:
                for k in ("attn_output", "ffn_gateup_fused", "ffn_down"))
 
 
+# layer keys that put a head outside the chain's recipe (the reference's
+# _HEAD_BANNED): qwen2's QKV biases among them
+HEAD_BANNED = (
+    "attn_qkv_fused_b", "attn_q_b", "attn_k_b", "attn_v_b", "attn_norm_b",
+    "attn_qkv_fused.lora",
+)
+
+
 def head_eligible(layer: dict) -> bool:
-    """The layer head is rmsnorm -> fused QKV (check_supported refuses
-    biases and LoRA, as the reference's head_eligible does)."""
+    """The layer head is rmsnorm -> fused QKV with none of HEAD_BANNED (the
+    reference's head_eligible: no biases, no LoRA)."""
     if "attn_qkv_fused" not in layer or "attn_norm" not in layer:
+        return False
+    if any(k in layer for k in HEAD_BANNED):
         return False
     return is_kmajor_qt(layer["attn_qkv_fused"])
 
@@ -120,9 +140,9 @@ def qmm_chain_plain(x: torch.Tensor, qts, gammas=(), x_res: torch.Tensor | None 
         elif pre == "res_norm":
             h = x_res.to(cdtype) + prev.to(cdtype)
             xin = rms_norm(h, next(gam), eps)
-        elif pre == "swiglu":
+        elif pre in GLU:
             g, u = prev.chunk(2, dim=-1)
-            xin = (F.silu(g) * u).to(cdtype)
+            xin = (GLU[pre](g) * u).to(cdtype)
         else:
             raise ValueError(pre)
         prev = qmm_plain(xin, qt, cdtype)
@@ -216,28 +236,31 @@ def _lib():
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                        ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.qmm_chain_clusters.argtypes = [ctypes.c_int]
+        lib.qmm_chain_clusters.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.qmm_chain_clusters.restype = ctypes.c_int
     return lib
 
 
-def chain_clusters() -> dict:
-    """{cluster size: clusters the card holds at once} for K6's grid, every
-    CTA resident."""
-    if not _CLUSTERS:
+def chain_clusters(gelu: bool = False) -> dict:
+    """{cluster size: clusters the card holds at once} for K6's grid (gelu:
+    K6_gelu's), every CTA resident."""
+    if gelu not in _CLUSTERS:
+        counts = {}
         for c in CHAIN_CLUSTERS:
-            n = _lib().qmm_chain_clusters(c)
+            n = _lib().qmm_chain_clusters(c, int(gelu))
             if n < 1:
                 raise RuntimeError(f"qmm_chain_clusters: the card holds no cluster of {c} of "
                                    "K6's CTAs")
-            _CLUSTERS[c] = n
-    return _CLUSTERS
+            counts[c] = n
+        _CLUSTERS[gelu] = counts
+    return _CLUSTERS[gelu]
 
 
-def launch_plan(qts) -> tuple[int, tuple[int, ...], tuple[int, ...]]:
-    """The (cluster size, splits, last splits) K6 launches these phases with
-    on this card."""
-    return chain_plan(tuple((qt.in_features, qt.out_features) for qt in qts), chain_clusters())
+def launch_plan(qts, gelu: bool = False) -> tuple[int, tuple[int, ...], tuple[int, ...]]:
+    """The (cluster size, splits, last splits) K6 (gelu: K6_gelu) launches
+    these phases with on this card."""
+    return chain_plan(tuple((qt.in_features, qt.out_features) for qt in qts),
+                      chain_clusters(gelu))
 
 
 def qmm_chain_cuda(x: torch.Tensor, qts, gammas=(), x_res: torch.Tensor | None = None, *,
@@ -264,12 +287,14 @@ def _chain_launch(x, qts, gammas=(), x_res=None, *, pres, eps, final="cast", out
         raise ValueError(f"qmm_chain_cuda: out_dtype {out_dtype}")
     if not chain_fits(qts):
         raise ValueError("qmm_chain_cuda: a phase's N % 128 or K % 256 is not 0")
-    if pres[0] not in ("cast", "norm") or any(p not in ("res_norm", "swiglu") for p in pres[1:]):
+    if pres[0] not in ("cast", "norm") or any(p not in ("res_norm", *GLU) for p in pres[1:]) \
+            or len({p for p in pres if p in GLU}) > 1:
         raise ValueError(f"qmm_chain_cuda: boundaries {pres}: phase 0 reads x, the others "
-                         "the previous phase")
+                         "the previous phase, with one activation")
+    gelu = "geglu" in pres
     k_in = x.shape[1]
     for qt, pre in zip(qts, pres):
-        k_in = k_in // 2 if pre == "swiglu" else k_in
+        k_in = k_in // 2 if pre in GLU else k_in
         if qt.in_features != k_in:
             raise ValueError("qmm_chain_cuda: the phases' widths do not chain")
         check_planes(qt, B, k_in)
@@ -286,7 +311,7 @@ def _chain_launch(x, qts, gammas=(), x_res=None, *, pres, eps, final="cast", out
     if final == "add_res" and ("res_norm" not in pres or qts[-1].out_features != N0):
         raise ValueError("qmm_chain_cuda: add_res needs the h of a res_norm boundary and the "
                          "residual's width")
-    cluster, splits, *lasts = launch_plan(qts) if plan is None else plan
+    cluster, splits, *lasts = launch_plan(qts, gelu) if plan is None else plan
     lasts = lasts[0] if lasts else splits
     dev = x.device
     gam = iter(gammas)
@@ -309,12 +334,12 @@ def _chain_launch(x, qts, gammas=(), x_res=None, *, pres, eps, final="cast", out
             keep.append(g)
             d.gamma = g.data_ptr()
         # the output as what follows reads it: h for a res_norm, gu for a
-        # swiglu, the chain's out for the last phase
+        # swiglu or geglu, the chain's out for the last phase
         nxt = pres[p + 1] if p + 1 < P else None
         if nxt == "res_norm":
             y = h = torch.empty((B, N), dtype=bf, device=dev)
             d.epi, d.res = EPI["res"], x_res.data_ptr()
-        elif nxt == "swiglu":
+        elif nxt in GLU:
             y = torch.empty((B, N), dtype=torch.float32, device=dev)
             d.epi = EPI["f32"]
         else:
@@ -334,7 +359,7 @@ def _chain_launch(x, qts, gammas=(), x_res=None, *, pres, eps, final="cast", out
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib().qmm_chain_launch(descs, P, B, float(eps), cluster, stream)
     cuda_build.check(rc, "qmm_chain_launch")
-    LAUNCHES["K6"] += 1
+    LAUNCHES["K6_gelu" if gelu else "K6"] += 1
     return out
 
 
@@ -352,15 +377,16 @@ def qmm_chain(x, qts, gammas=(), x_res=None, *, pres, eps, final="cast",
                            cdtype=cdtype, out_dtype=out_dtype)
 
 
-def layer_tail(att, x_res, ffn_gamma, wo, wgu, wd, *, eps, compute_dtype=torch.bfloat16):
+def layer_tail(att, x_res, ffn_gamma, wo, wgu, wd, *, eps, act="silu",
+               compute_dtype=torch.bfloat16):
     """One-launch decoder-layer tail:
-    out = h + swiglu(rmsnorm(h := x_res + att @ Wo) @ Wgu) @ Wd,
-    or None when the geometry gate says no. SwiGLU only: check_supported
-    refuses every other activation."""
+    out = h + glu(rmsnorm(h := x_res + att @ Wo) @ Wgu) @ Wd, glu(gu) =
+    act(g) * u with act "silu" (SwiGLU, K6) or "gelu" (GeGLU, K6_gelu), or
+    None when the geometry gate says no."""
     if not chain_fits((wo, wgu, wd)):
         return None
     return qmm_chain(att, (wo, wgu, wd), (ffn_gamma,), x_res,
-                     pres=("cast", "res_norm", "swiglu"), eps=eps, final="add_res",
+                     pres=("cast", "res_norm", GLU_OF_ACT[act]), eps=eps, final="add_res",
                      cdtype=compute_dtype)
 
 

@@ -6,7 +6,9 @@ fields and the same planes (the tests hold them byte-equal):
 
 Matmul weights are K-major (qs [K(/2), N], scales [K//gs, N]); embedding
 tables keep the rows layout (qs [N, K(/2)], scales [N, K//gs]) so token
-gathers are row gathers. Layout "p4" nibble-packs 4-bit types along K with
+gathers are row gathers, and so do a mixture-of-experts layer's expert
+stacks, with a leading expert dim (qs [E, N, K(/2)], scales [E, N, K//gs];
+expert_qtensor_from_gguf), so a token's experts are a gather of rows. Layout "p4" nibble-packs 4-bit types along K with
 pairing stride pack_tk: within each 256-row tile, byte t holds k=t in the
 low nibble and k=t+128 in the high nibble. Layout "i8" keeps int8 planes.
 
@@ -222,3 +224,40 @@ def concat_qtensors(tensors: list) -> QTensor | None:
         group_size=first.group_size, ggml_type=first.ggml_type,
         layout=first.layout, zp=first.zp, pack_tk=first.pack_tk, kmajor=True,
     )
+
+
+def expert_qtensor_from_gguf(raw: np.ndarray, ggml_type: GGMLType,
+                             ne_shape: tuple[int, ...], device="cpu") -> QTensor:
+    """Stacked expert planes from a 3-D GGUF tensor ne = (K, N, E): a
+    rows-layout QTensor whose planes carry a leading expert dim, qs [E, N,
+    K(/2)] and scales / mins [E, N, K//gs] (f32), the experts kept at their
+    stored bit-width (llm_tpu/quant/qtensor.py::expert_qtensor_from_gguf)."""
+    K, N, E = (int(d) for d in ne_shape)
+    flat = qtensor_from_gguf(raw, ggml_type, (K, N * E), device=device, kmajor=False)
+    return flat.map(lambda t: t.reshape(E, N, -1))
+
+
+def unpack_p4_rows(packed: torch.Tensor, pack_tk: int, zp: int) -> torch.Tensor:
+    """Nibble planes packed along the last dim [..., K//2] -> int16 q - zp
+    [..., K]: within each pack_tk tile, byte t holds k = t (low nibble) and
+    k = t + pack_tk // 2 (high). (K-major planes [K//2, N] unpack as their
+    transpose.)"""
+    lead, kh = packed.shape[:-1], packed.shape[-1]
+    half = pack_tk // 2
+    p = packed.reshape(*lead, kh // half, half).to(torch.int16)
+    q = torch.stack([p & 0xF, p >> 4], dim=-2)
+    return q.reshape(*lead, kh * 2) - zp
+
+
+def dequantize_qtensor(qt: QTensor) -> torch.Tensor:
+    """The weights of any QTensor in f32, [..., N, K] whatever its layout:
+    K-major planes, rows-layout ones, and rows-layout ones with leading dims
+    (an expert stack's [E, N, K]). Counterpart of
+    llm_tpu/quant/qtensor.py::dequantize_qtensor."""
+    rows = (lambda t: None if t is None else (t.T if qt.kmajor else t))
+    q, s, m = rows(qt.qs), rows(qt.scales).float(), rows(qt.mins)
+    q = unpack_p4_rows(q, qt.pack_tk, qt.zp) if qt.layout == "p4" else q
+    w = q.float() * s.repeat_interleave(qt.group_size, dim=-1)
+    if m is not None:
+        w = w - m.float().repeat_interleave(qt.group_size, dim=-1)
+    return w

@@ -29,6 +29,7 @@ Return codes follow llama_decode: 0 ok, 1 no KV slot, -1 invalid.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 
@@ -94,7 +95,7 @@ class Context:
     def __init__(self, reader=None, n_cells: int = 4096, dtype=torch.bfloat16,
                  device=None, params_cfg=None, kv_dtype=None, chain: bool = False,
                  gdot: bool = False, scan_layers: bool = False, n_ubatch: int = 512,
-                 swa_full: bool = False, n_seq_hint: int = 1):
+                 swa_full: bool = False, n_seq_hint: int = 1, ep_cf: float = 0.0):
         """Load from a GGUFReader, or take (params, cfg) as made by
         models/synthetic.py or convert_params.py. device None = the card.
         kv_dtype: the cache type, None for `dtype`, a torch dtype, or
@@ -112,7 +113,10 @@ class Context:
         the sliding-window layers full-size caches instead of the ISWA ring
         (the reference's --swa-full); n_seq_hint: the sequences expected at
         once, which size the ring at n_seq_hint * (window + n_ubatch)
-        cells."""
+        cells. ep_cf: a mixture-of-experts model's capacity factor, folded
+        into the config where it has none (the reference's LLM_TPU_EP_CF /
+        --ep-capacity-factor): steps of more than 8 tokens cap each
+        expert's tokens and drop the rest (parallel/moe.py); 0 is exact."""
         t0 = time.perf_counter()
         self.device = resolve_device(device)
         if params_cfg is not None:
@@ -125,6 +129,8 @@ class Context:
         else:
             self.params, self.cfg = load_params(reader, dense_dtype=dtype,
                                                 device=self.device, scan_layers=scan_layers)
+        if ep_cf > 0 and self.cfg.n_expert > 0 and self.cfg.ep_cf == 0.0:
+            self.cfg = dataclasses.replace(self.cfg, ep_cf=float(ep_cf))
         self.kv_dtype = kv_dtype if kv_dtype is not None else dtype
         check_supported(self.params, self.cfg)
         self.scan = "layers_stacked" in self.params

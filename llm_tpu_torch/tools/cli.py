@@ -46,7 +46,8 @@ _NOT_PORTED = {
     "dist_process_id": (None, "meshes are not ported yet (ROADMAP Queue 1 item 10)"),
     "platform": (None, "meshes are not ported yet (ROADMAP Queue 1 item 10)"),
     "n_virtual_devices": (None, "meshes are not ported yet (ROADMAP Queue 1 item 10)"),
-    "ep_capacity_factor": (0.0, "MoE is not ported yet (ROADMAP Queue 1 item 8)"),
+    "ep_capacity_factor": (0.0, "the flag does not reach the Context yet, whose ep_cf "
+                                "argument takes it (ROADMAP Queue 1 item 8)"),
 }
 
 

@@ -50,9 +50,24 @@ ATTN_NAME = "flash_decode"
 DECODE_LIBS = ("qmm", "qmm_stacked", "qmm_decode", "flash_attn", "flash_prefill")
 
 
-def profile_tokens(ctx, tok: int, n_tokens: int) -> dict:
+def _span(e, skip) -> tuple[float, int]:
+    """(device us, launches) of the kernels under a profiler event and its
+    CPU children, the ranges named in skip aside (the profiler lists a
+    range's own span on the card among its kernels)."""
+    us = sum(k.duration for k in e.kernels if k.name not in skip)
+    n = sum(k.name not in skip for k in e.kernels)
+    for c in e.cpu_children:
+        cu, cn = _span(c, skip)
+        us, n = us + cu, n + cn
+    return us, n
+
+
+def profile_tokens(ctx, tok: int, n_tokens: int, ranges=()) -> dict:
     """Profile n_tokens greedy tokens of ctx.generate_loop from tok (the
-    cache already holds the prompt). The numbers of the JSON line."""
+    cache already holds the prompt). The numbers of the JSON line; and for
+    each name in ranges (a torch.profiler.record_function range the caller
+    wraps around some functions), the device ms and kernel launches per
+    token of the work launched inside it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -64,6 +79,8 @@ def profile_tokens(ctx, tok: int, n_tokens: int) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels, counts = {}, {}
     for e in prof.key_averages():
+        if e.key in ranges:  # a range's span on the card, not a kernel
+            continue
         if e.device_type == torch.autograd.DeviceType.CUDA or (
                 e.self_device_time_total > 0 and e.cpu_time_total == 0):
             kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total / 1e3
@@ -74,7 +91,16 @@ def profile_tokens(ctx, tok: int, n_tokens: int) -> dict:
     k5 = [k for k in kernels if any(s in k for s in K5_NAMES)]
     k6 = [k for k in kernels if K6_NAME in k]
     attn = [k for k in kernels if ATTN_NAME in k]
-    return {
+    spans = {}
+    for name in ranges:
+        us, launched = 0.0, 0
+        for e in prof.events():
+            if e.name == name and e.device_type == torch.autograd.DeviceType.CPU:
+                eu, en = _span(e, ranges)
+                us, launched = us + eu, launched + en
+        spans[f"{name}_ms_per_token"] = us / 1e3 / n
+        spans[f"{name}_launches_per_token"] = launched / n
+    return {**spans,
         "device": torch.cuda.get_device_name(0), "kv_dtype": str(ctx.kv_dtype),
         "chain": ctx.chain, "gdot": ctx.gdot, "scan": ctx.scan, "layers": ctx.cfg.n_layers,
         "tokens": n,

@@ -8,7 +8,7 @@ instantiations (gemma2's attention softcap, at cap 50 and 2), the narrow
 kernels' ALiBi instantiations (K3_alibi, K3q_alibi, K4_alibi, K4q_alibi at
 Baichuan-13B's heads, G = 4 and refact's G = 32, D = 64, 80 and 128), K5
 group-factored matmul, K6 chained layer
-tail and norm + matmul, K7 on stacked planes, the S1 probes, the S3
+tail (SwiGLU, and GeGLU: K6_gelu) and norm + matmul, K7 on stacked planes, the S1 probes, the S3
 flash-decode layout and q8 probes) held against
 their plain PyTorch versions on the card, at small and ragged shapes
 beside those of chip_smoke.py (the prefill GEMM at B past one 128-row
@@ -745,6 +745,50 @@ def test_chain_tail_kernel_matches_plain(cuda_device, down, B, scales_dtype):
     got, want = got.cpu().float(), want.float()
     assert torch.isfinite(got).all()
     assert (got - want).abs().max() <= 2e-2 * want.abs().max()
+
+
+@pytest.mark.parametrize("B", [1, 2, 5, 8])
+@pytest.mark.parametrize("down", ["p4k", "i8g16"])
+def test_chain_gelu_tail_kernel_matches_plain(cuda_device, down, B):
+    """K6_gelu (qmm_chain_tc_gelu: the GeGLU tail, gemma's) against
+    qmm_chain_plain with the "geglu" boundary, as the SwiGLU tail is held,
+    counted apart from K6; then the tail without its residual (final
+    "cast": the FFN's output alone, which the activation moves by far more
+    than the tolerance, where h would hide it), against the plain GeGLU
+    and apart from the plain SwiGLU."""
+    ws, att, xres, gamma = _tail_inputs(cuda_device, down, B, seed=B)
+    cpu = [w.to("cpu") for w in ws]
+    want = cuda_qmm_chain.layer_tail(att.cpu(), xres.cpu(), gamma.cpu(), *cpu, eps=1e-5,
+                                     act="gelu").float()
+    before = dict(cuda_qmm_chain.LAUNCHES)
+    got = cuda_qmm_chain.layer_tail(att, xres, gamma, *ws, eps=1e-5, act="gelu")
+    again = cuda_qmm_chain.layer_tail(att, xres, gamma, *ws, eps=1e-5, act="gelu")
+    assert cuda_qmm_chain.LAUNCHES == {**before, "K6_gelu": before["K6_gelu"] + 2}
+    assert torch.equal(got, again)
+    got = got.cpu().float()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 2e-2 * want.abs().max()
+    ffn = dict(eps=1e-5, final="cast")
+    want = cuda_qmm_chain.qmm_chain_plain(att.cpu(), cpu, (gamma.cpu(),), xres.cpu(),
+                                          pres=("cast", "res_norm", "geglu"), **ffn).float()
+    silu = cuda_qmm_chain.qmm_chain_plain(att.cpu(), cpu, (gamma.cpu(),), xres.cpu(),
+                                          pres=("cast", "res_norm", "swiglu"), **ffn).float()
+    got = cuda_qmm_chain.qmm_chain_cuda(att, ws, (gamma,), xres,
+                                        pres=("cast", "res_norm", "geglu"), **ffn).cpu().float()
+    tol = 2e-2 * want.abs().max()
+    assert (got - want).abs().max() <= tol
+    assert (silu - want).abs().max() > 2 * tol  # 9-16% of max|want| on the CPU
+
+
+@pytest.mark.parametrize("plan", [(4, (1, 1, 1)), (8, (4, 1, 2))], ids=["c4-unsplit", "c8"])
+def test_chain_gelu_at_a_given_plan(cuda_device, plan):
+    """K6_gelu at cluster sizes 4 and 8 with split phases."""
+    ws, att, xres, gamma = _tail_inputs(cuda_device, "p4k", 8, seed=3)
+    pres = dict(TAIL_PRES, pres=("cast", "res_norm", "geglu"))
+    want = cuda_qmm_chain.qmm_chain_plain(att.cpu(), [w.to("cpu") for w in ws], (gamma.cpu(),),
+                                          xres.cpu(), **pres).float()
+    got = cuda_qmm_chain._chain_launch(att, ws, (gamma,), xres, plan=plan, **pres)
+    assert (got.cpu().float() - want).abs().max() <= 2e-2 * want.abs().max()
 
 
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])

@@ -26,7 +26,8 @@ assert {"llm_tpu_torch.ops.cuda_qmm_chain", "llm_tpu_torch.tools.kbench",
         "llm_tpu_torch.grammar.gbnf", "llm_tpu_torch.grammar.regex",
         "llm_tpu_torch.grammar.json_schema", "llm_tpu_torch.grammar.sampler",
         "llm_tpu_torch.server.core", "llm_tpu_torch.server.app", "llm_tpu_torch.server.chat",
-        "llm_tpu_torch.server.toolcall", "llm_tpu_torch.server.webui"} <= set(mods), mods
+        "llm_tpu_torch.server.toolcall", "llm_tpu_torch.server.webui",
+        "llm_tpu_torch.parallel", "llm_tpu_torch.parallel.moe"} <= set(mods), mods
 import chip_smoke
 lazy = set()
 for n in ast.walk(ast.parse(open(chip_smoke.__file__).read())):
