@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port (llm_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --sweep-seeds [q8_0|chain]  # phase 3's twins' errors, seeds 1-6
+    python3 chip_smoke.py --sweep-seeds [q8_0|chain|gguf]  # phase 3's twins' errors
     python3 chip_smoke.py --screen-seeds   # the q8_0 twin's top-2 gaps on the card, seeds 1-64
 
 Phases, each of which raises on failure (the script then exits nonzero and
@@ -27,7 +27,10 @@ prints no result line):
      flash_decode_tc_wide_cap (HMMA, TMA) and 2
      flash_prefill_wgmma_wide_cap (HGMMA, TMA); likewise the narrow
      kernels' ALiBi instantiations: 12 flash_decode_tc_alibi (HMMA, TMA)
-     and 4 flash_prefill_wgmma_alibi (HGMMA, TMA);
+     and 4 flash_prefill_wgmma_alibi (HGMMA, TMA); and the forms on nibble
+     planes at group size 16, counted apart: 16 qmm_decode_g16 /
+     qmm_decode_gdot_g16 (HMMA, TMA), qmm_chain_tc_g16 (HMMA, TMA) and 4
+     qmm_wgmma_g16 in each GEMM library (HGMMA, TMA);
   2. each kernel (K1/K2 quantized matmul: at B <= 16 the decode GEMV, at
      B = 1 and 8, at B > 16 the wgmma prefill GEMM, also at a ragged B =
      300; K3/K4 flash attention (K4, the
@@ -81,9 +84,14 @@ prints no result line):
      residual (the FFN's output alone, where the plain SwiGLU must lie
      apart from the plain GeGLU); K1/K2 at Qwen3-30B-A3B's and Gemma-7B's
      attention, FFN and lm_head shapes at B = 1, 8 (and 512 but the
-     lm_heads);
+     lm_heads); at LLAMA3_8B's gate+up, attn_q, attn_k and down on Q3_K
+     (zero point 4) and Q2_K (mins) nibble planes at group size 16:
+     K1_gs16 and K7_gs16 at B = 1, 8 and 512, K5_gs16 at B = 1 and 8,
+     K6_gs16 on a Q3_K tail at B = 1 and 8; K2 at 4096x4096 on Q5_0,
+     Q5_1, Q5_K, IQ4_NL and IQ4_XS planes;
   3. two layers at LLAMA3_8B width: Context.decode of a 64-token prompt and
-     8 greedy generate_loop steps on the card (kernels), the card's stream
+     4 greedy generate_loop steps on the card (kernels; TWO_LAYER_DECODE,
+     cut from 8 in PR 16 for time), the card's stream
      decoded step by step on the card and on the CPU (plain versions), from
      the same random weights; every step's logits compared, and the greedy
      tokens (the CPU's: each step's argmax after the card's prefix); then the same with a q8_0 KV
@@ -111,7 +119,11 @@ prints no result line):
      prompt on the grouped dispatch, the decode steps on the gather; K3/K4
      at G = 8), of Qwen2.5-7B (QKV biases, G = 7) and of Gemma-7B with
      chain=True (a GeGLU tail on K6_gelu in each layer of each decode
-     step, K3w/K4w at D = 256);
+     step, K3w/K4w at D = 256); then two layers at LLAMA3_8B width from a
+     2-layer tools/synth_gguf.py file typed as Q3_K_M (Q3_K, Q5_K, Q4_K,
+     Q6_K) and one typed as Q2_K (Q2_K, Q3_K, Q4_K, Q6_K), loaded through
+     models/loader.py so that the unpackers run on real block bytes
+     (K1_gs16 launched on the card);
   4. LLAMA3_8B, 32 layers, Q4_K_M-style random planes made on the card
      (first, K5 against its plain version at every p4 shape of these planes
      that phase 2 left out, attn_k among them): prefill 512 tokens, then 128
@@ -139,7 +151,7 @@ prints no result line):
      each, enough for their launches per token; uniform Q8_0 planes (K7 on
      int8 planes, lm_head on K2); the Q4_K and Q8_0 scans profiled (no
      memset, no qmm_gemv kernel);
-  9. the text entry point on a GGUF: a file at LLAMA3_8B's widths and 8
+  9. the text entry point on a GGUF: a file at LLAMA3_8B's widths and 4
      of its 32 layers (GGUF_LAYERS, cut for time) typed as Q4_K_M
      (Q6_K lm_head, attn_v and ffn_down of the use_more_bits layers) with
      random blocks and a 128256-token byte-level BPE vocab
@@ -185,7 +197,8 @@ prints no result line):
      tokens; the cache's 3,355,443,200 bytes), the prompt's logits with
      alibi_max_bias = 0 apart by more than the two-layer tolerance, and
      the q8_0 cache (prefill 512, 32 tokens: K3q_alibi/K4q_alibi);
- 13. Qwen3-30B-A3B at full depth (48 layers, Q4_K_M-style random planes
+ 13. Qwen3-30B-A3B at 24 of its 48 layers (QWEN3_LAYERS, cut for time;
+     Q4_K_M-style random planes
      made on the card: 128 experts a layer as rows-layout stacks, Q6_K
      ffn_down_exps and attn_v in the use_more_bits layers, a bf16 router,
      an untied Q6_K lm_head), 4096 cells: prefill 512 (the grouped
@@ -203,7 +216,17 @@ prints no result line):
      unchained Context's 128 tokens on the same planes, the streams equal
      or parted only at a near tie, and 4 decode steps of distinct tokens
      on both, every step's logits within the chained twin's tolerance
-     (as for phase 13's chain=True run).
+     (as for phase 13's chain=True run);
+ 15. (run after phase 8 has freed its planes) LLAMA3_8B at 32 layers on
+     Q3_K_M-style planes made on the card (Q3_K nibble planes at group
+     size 16, Q5_K / Q4_K attn_v, Q4_K down in layers 0-1, Q6_K lm_head):
+     prefill 512 and 128 greedy tokens with every kernel's launches
+     (K1_gs16), profiled over 8 more tokens; gdot=True (K5_gs16) and
+     chain=True, gdot=True (K6_gs16), 16 tokens each, each stream equal
+     to the unfused one or parted only at a near tie; Q2_K-recipe planes,
+     prefill 512 and 32 tokens; uniform Q2_K planes through
+     Context(scan_layers=True) (K7_gs16, 16 tokens) against the
+     per-layer Context's greedy tokens.
 The last lines are a JSON "kernels" line, the card line, and
 {"ok": true, "device": {...}}. It imports nothing of JAX or llm_tpu.
 """
@@ -314,8 +337,15 @@ def check_sass(tag: str, libs: dict, name: str, need: tuple, gone) -> dict:
 
 
 # the decode GEMV's kernels in libqmm_decode.so: p4/i8 x f32/bf16 scales x
-# mins x 8/16 rows (K1/K2/K7), and K5's on p4 planes (qmm_decode_gdot)
-DECODE_KERNELS = 16 + 8
+# mins x 8/16 rows (K1/K2/K7), K5's on p4 planes (qmm_decode_gdot), and
+# both on nibble planes at group size 16 (qmm_decode_g16,
+# qmm_decode_gdot_g16: f32/bf16 scales x mins x 8/16 rows each)
+DECODE_G16_KERNELS = 8 + 8
+DECODE_KERNELS = 16 + 8 + DECODE_G16_KERNELS
+# the prefill GEMM's in libqmm.so and libqmm_stacked.so: p4/i8 x f32/bf16
+# scales x mins (qmm_wgmma), and p4 at group size 16 (qmm_wgmma_g16)
+GEMM_G16_KERNELS = 4
+GEMM_KERNELS = 8 + GEMM_G16_KERNELS
 # S1's kernels in libqmm_probe.so: 1, 2 or 4 rows of x x mins x three modes
 S1_KERNELS = 18
 # K3/K3q's kernels: bf16 / q8_0 cache x one, two or four n8 tiles of rows,
@@ -360,7 +390,7 @@ def check_qmm(results, name, qtype, K, N, B, scales_dtype=torch.bfloat16):
     lib_ms = time_ms(lambda i: torch.matmul(x, ws[i]), len(ws))
     del ws
     bmin, by = bound_ms(nb + B * K * 2 + B * N * 4, 2.0 * B * K * N)
-    kern = "K1" if qts[0].layout == "p4" else "K2"
+    kern = cuda_qmm.kernel_name("K1", qts[0])
     rec = dict(kernel=kern, shape=f"{name} {qtype.name} K={K} N={N} B={B}",
                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bmin,
                bound_by=by, library_ms=lib_ms)
@@ -396,12 +426,13 @@ def check_gdot(results, name, K, N, B, qtype="Q4_K"):
     lib_ms = time_ms(lambda i: torch.matmul(x, ws[i]), len(ws))
     del ws
     bmin, by = bound_ms(nb + B * K * 2 + B * N * 4, 2.0 * B * K * N)
-    rec = dict(kernel="K5", shape=f"{name} {qtype} K={K} N={N} B={B}", max_abs_err=err, tol=tol,
+    rec = dict(kernel=cuda_qmm.kernel_name("K5", qts[0]),
+               shape=f"{name} {qtype} K={K} N={N} B={B}", max_abs_err=err, tol=tol,
                ms=ms, k1_ms=k1_ms, plain_ms=plain_ms, bound_ms=bmin, bound_by=by,
                library_ms=lib_ms)
     log(json.dumps(rec))
     if not (err <= tol and math.isfinite(err)):
-        raise AssertionError(f"K5 {rec['shape']}: max|err| {err} > {tol}")
+        raise AssertionError(f"{rec['kernel']} {rec['shape']}: max|err| {err} > {tol}")
     results.append(rec)
 
 
@@ -463,15 +494,17 @@ def check_stacked(results, name, qtype, K, N, B, gdot=False):
     del ws
     bmin, by = bound_ms(nb + B * K * 2 + B * N * 4, 2.0 * B * K * N)
     variant = "K5" if gdot else ("K1" if one.layout == "p4" else "K2")
-    rec = dict(kernel="K7", variant=variant, shape=f"{name} {qtype} K={K} N={N} B={B}",
+    rec = dict(kernel=cuda_qmm.kernel_name("K7", one), variant=variant,
+               shape=f"{name} {qtype} K={K} N={N} B={B}",
                layers=L, max_abs_err=err, tol=tol, unstacked_max_abs_diff=diff,
                unstacked_tol=dtol, ms=ms, unstacked_ms=unst_ms, plain_ms=plain_ms,
                bound_ms=bmin, bound_by=by, library_ms=lib_ms)
     log(json.dumps(rec))
     if not (err <= tol and math.isfinite(err)):
-        raise AssertionError(f"K7 {rec['shape']}: max|err| {err} > {tol}")
+        raise AssertionError(f"{rec['kernel']} {rec['shape']}: max|err| {err} > {tol}")
     if not diff <= dtol:  # 0 where bit_equal
-        raise AssertionError(f"K7 {rec['shape']}: {diff} from {variant} on the same layer")
+        raise AssertionError(f"{rec['kernel']} {rec['shape']}: {diff} from {variant} on the "
+                             "same layer")
     results.append(rec)
 
 
@@ -488,6 +521,15 @@ CHAINS = (
      ("cast", "res_norm", "swiglu")),
     ("head qkv", ((4096, 6144, "Q4_K"),), ("norm",)),
     ("lm_head Q6_K", ((4096, 128256, "Q6_K"),), ("norm",)),
+)
+
+
+# LLAMA3_8B's Q3_K_M tail (phase 15's planes): o_proj, gate+up and down on
+# nibble planes at group size 16 (the use_more_bits layers' Q4_K down runs
+# the same kernel beside them: K6_gs16)
+LOWBIT_CHAINS = (
+    ("tail Q3_K", ((4096, 4096, "Q3_K"), (4096, 28672, "Q3_K"), (14336, 4096, "Q3_K")),
+     ("cast", "res_norm", "swiglu")),
 )
 
 
@@ -559,11 +601,11 @@ def check_chain(results, name, dims, pres, B):
     nbytes += x_res.numel() * 2 if x_res is not None else 0
     bmin, by = bound_ms(nbytes, sum(2.0 * B * k * n for k, n, _ in dims))
     gelu = "geglu" in pres
-    kern = "K6_gelu" if gelu else "K6"
+    kern = cuda_qmm_chain.chain_kernel(qts, gelu)
     rec = dict(kernel=kern, shape=f"{name} B={B}", max_abs_err=err, tol=tol, ms=ms,
                unfused_ms=unfused_ms, plain_ms=plain_ms, bound_ms=bmin, bound_by=by,
                library_ms=lib_ms, plan=cuda_qmm_chain.launch_plan(qts, gelu),
-               clusters=cuda_qmm_chain.chain_clusters(gelu))
+               clusters=cuda_qmm_chain.chain_clusters(kern))
     if gelu:
         # the tail without its residual (final "cast": the FFN's output,
         # which h would hide): the kernel against the plain GeGLU, and the
@@ -927,7 +969,30 @@ def phase_kernels():
     for B in (1, 8):
         for name, K, N in STACKED_SHAPES:
             check_stacked(results, name, "Q4_K", K, N, B, gdot=True)
+    # LLAMA3_8B at Q3_K_M and Q2_K (phase 15's planes): K1 and K7 on nibble
+    # planes at group size 16 (Q3_K with zero point 4, Q2_K with mins) at
+    # decode and a 512-token prefill step, K5 at decode, K6 on the Q3_K
+    # tail; then K2 on the int8 planes of the other types the port loads
+    for qtype in ("Q3_K", "Q2_K"):
+        for B in (1, 8, 512):
+            for name, K, N in LOWBIT_SHAPES:
+                check_qmm(results, name, GGMLType[qtype], K, N, B)
+                check_stacked(results, name, qtype, K, N, B)
+        for B in (1, 8):
+            for name, K, N in LOWBIT_SHAPES:
+                check_gdot(results, name, K, N, B, qtype)
+    for B in (1, 8):
+        for name, dims, pres in LOWBIT_CHAINS:
+            check_chain(results, name, dims, pres, B)
+    for qtype in ("Q5_0", "Q5_1", "Q5_K", "IQ4_NL", "IQ4_XS"):
+        check_qmm(results, "4096x4096", GGMLType[qtype], 4096, 4096, 1)
     return results
+
+
+# LLAMA3_8B's matmuls (name, K, N) at Q3_K_M and Q2_K: gate+up, attn_q (and
+# o_proj), attn_k (QKV stays unfused: attn_v's type differs), down
+LOWBIT_SHAPES = (("gate_up", 4096, 28672), ("attn_q", 4096, 4096), ("attn_k", 4096, 1024),
+                 ("down", 14336, 4096))
 
 
 # Qwen3-30B-A3B's attention matmuls (name, K, N): Q4_K fused QKV, attn_q
@@ -1078,6 +1143,12 @@ TWO_LAYER_Q8_REL_TOL = 1.7e-2
 # gap of the 9 steps is 0.163, over 4x the error (seed 6 parts at step 0
 # on a gap of 0.018; PERF.md)
 TWO_LAYER_SEED = 5
+# the greedy tokens the two-layer checks generate on the card (every one
+# replayed on the CPU, whose plain versions dequantize each step's
+# weights, the lm_head's among them: most of phase 3's time); cut from 8
+# in PR 16 for chip_smoke.py's time limit. The seeds above were chosen on
+# the 9 steps of 8 tokens, whose first 5 these are
+TWO_LAYER_DECODE = 4
 
 
 # a router near tie, in router probabilities: where a follower's experts
@@ -1222,10 +1293,13 @@ def two_layer_steps(seed: int, kv_dtype=None, devices=("cuda", "cpu"), chain=Fal
     the card's run (to read counters before the CPU's run); geo's
     alibi_profile, if true, gives the model cfg's ALiBi profile (rope NONE,
     ALiBi of max_bias 8: Baichuan-13B's, whose depth 40 selects it), and
-    geo's chain, if given, is the chain option. route: a RouteTwin (in
+    geo's chain, if given, is the chain option; geo's ftype, if given,
+    takes the weights from a 2-layer tools/synth_gguf.py file of that
+    type mix, through models/loader.py (gguf_two_layers). route: a RouteTwin (in
     force) that records the card's experts over the steps the CPU repeats
     (the prompt and the replayed steps) and that the CPU follows.
-    Returns (cfg, {device: logits [9, vocab]}, {device: greedy tokens})."""
+    Returns (cfg, {device: logits [TWO_LAYER_DECODE + 1, vocab]}, {device:
+    greedy tokens})."""
     import numpy as np
 
     from llm_tpu_torch.gguf.constants import GGMLType
@@ -1237,8 +1311,12 @@ def two_layer_steps(seed: int, kv_dtype=None, devices=("cuda", "cpu"), chain=Fal
     geo = dict(geo or LLAMA3_8B, n_layers=2)  # may carry arch, swa_window and experts
     profile = geo.pop("alibi_profile", False)
     chain = geo.pop("chain", chain)
-    params, cfg = make_synthetic_model(qtype=GGMLType.Q4_K, device="cuda", on_device=True,
-                                       seed=seed, recipe="Q4_K_M", **geo)
+    ftype = geo.pop("ftype", None)
+    if ftype is not None:
+        params, cfg = gguf_two_layers(ftype, seed, geo)
+    else:
+        params, cfg = make_synthetic_model(qtype=GGMLType.Q4_K, device="cuda", on_device=True,
+                                           seed=seed, recipe="Q4_K_M", **geo)
     if profile:
         cfg = alibi_profile(cfg)
     prompt = [(i * 7919) % cfg.vocab_size for i in range(64)]
@@ -1259,7 +1337,7 @@ def two_layer_steps(seed: int, kv_dtype=None, devices=("cuda", "cpu"), chain=Fal
             first = int(lg[0].argmax())
             if route is not None:  # steps the CPU does not repeat
                 route.mode = None
-            toks[dev] = [first] + ctx.generate_loop(first, 8)
+            toks[dev] = [first] + ctx.generate_loop(first, TWO_LAYER_DECODE)
             if route is not None:
                 route.mode = "record"
             ctx.seq_rm(0, len(prompt), -1)
@@ -1277,17 +1355,49 @@ def two_layer_steps(seed: int, kv_dtype=None, devices=("cuda", "cpu"), chain=Fal
     return cfg, steps, toks
 
 
+# the BPE vocab of phase 3's GGUF rows, made once for both files
+_GGUF_VOCAB: dict = {}
+
+
+def gguf_two_layers(ftype: str, seed: int, geo: dict):
+    """Phase 3's GGUF rows: a tools/synth_gguf.py file of geo's widths, 2
+    layers and the ftype's type mix (random blocks from seed, a
+    128256-token BPE vocab) written into a temporary directory and loaded
+    on the card by models/loader.py, so that the unpackers run on real
+    block bytes. Returns (params, cfg)."""
+    from llm_tpu_torch.gguf.reader import GGUFReader
+    from llm_tpu_torch.models.loader import load_params
+    from llm_tpu_torch.tools import synth_gguf
+
+    t0 = time.perf_counter()
+    if "vocab" not in _GGUF_VOCAB:
+        _GGUF_VOCAB["vocab"] = synth_gguf.bpe_vocab(geo["vocab"], 0)
+    with tempfile.TemporaryDirectory() as d:
+        info = synth_gguf.write_llama(
+            f"{d}/two_{ftype}.gguf", n_layers=geo["n_layers"], n_embd=geo["n_embd"],
+            n_heads=geo["n_heads"], n_kv_heads=geo["n_kv_heads"], n_ff=geo["n_ff"],
+            vocab=_GGUF_VOCAB["vocab"], seed=seed, ftype=ftype)
+        t1 = time.perf_counter()
+        params, cfg = load_params(GGUFReader(info["path"]), device="cuda")
+        torch.cuda.synchronize()
+    log(json.dumps(dict(two_layer_gguf=ftype, file_bytes=info["file_bytes"],
+                        tensors=info["tensors"], write_s=t1 - t0,
+                        load_s=time.perf_counter() - t1)))
+    planes_summary(params, cfg, f"two_layer_{ftype}")
+    return params, cfg
+
+
 def phase_two_layers(seed: int = TWO_LAYER_SEED, kv_dtype=None, rel_tol=TWO_LAYER_REL_TOL,
                      chain=False, gdot=False):
     """two_layer_steps on the card and the CPU: every step's logits within
     rel_tol of max|logit|, and the greedy tokens equal. Returns the card's
-    logits [9, vocab]."""
+    logits [TWO_LAYER_DECODE + 1, vocab]."""
     import numpy as np
 
     cfg, steps, toks = two_layer_steps(seed, kv_dtype, chain=chain, gdot=gdot)
     lg, lc = steps["cuda"], steps["cpu"]
     tg, tc = toks["cuda"], toks["cpu"]
-    assert np.isfinite(lg).all() and lg.shape == (9, cfg.vocab_size)
+    assert np.isfinite(lg).all() and lg.shape == (TWO_LAYER_DECODE + 1, cfg.vocab_size)
     err = float(np.abs(lg - lc).max())
     tol = rel_tol * float(np.abs(lc).max())
     log(json.dumps(dict(seed=seed, kv_dtype=str(kv_dtype), chain=chain, gdot=gdot,
@@ -1297,7 +1407,7 @@ def phase_two_layers(seed: int = TWO_LAYER_SEED, kv_dtype=None, rel_tol=TWO_LAYE
                         min_top2_gap=min_top2_gap(lc),
                         distinct_tokens=len(set(tg)), tokens_equal=tg == tc)))
     if not err <= tol:
-        raise AssertionError(f"two-layer logits over 9 steps: max|err| {err} > {tol}")
+        raise AssertionError(f"two-layer logits over {len(lg)} steps: max|err| {err} > {tol}")
     for i, t in enumerate(tg):  # generate_loop's greedy pick is decode's argmax
         if lg[i, t] < lg[i].max() - tol:
             raise AssertionError(f"step {i}: generate_loop took {t}, decode's argmax is "
@@ -1452,8 +1562,8 @@ def phase_two_layers_widths():
     part. Returns each run's record."""
     import numpy as np
 
-    from llm_tpu_torch.models.synthetic import GEMMA_7B, QWEN2_5_7B, QWEN3_30B_A3B
-    from llm_tpu_torch.ops import attention, cuda_attn, cuda_qmm_chain
+    from llm_tpu_torch.models.synthetic import GEMMA_7B, LLAMA3_8B, QWEN2_5_7B, QWEN3_30B_A3B
+    from llm_tpu_torch.ops import attention, cuda_attn, cuda_qmm, cuda_qmm_chain
 
     recs = []
     for name, geo, kv_dtype, rel_tol, want in (
@@ -1482,16 +1592,22 @@ def phase_two_layers_widths():
             ("Qwen2.5-7B", dict(QWEN2_5_7B, arch="qwen2"), None, TWO_LAYER_REL_TOL,
              ("K3", "K4")),
             ("Gemma-7B chain", dict(GEMMA_7B, arch="gemma", chain=True), None,
-             TWO_LAYER_CHAIN_REL_TOL, ("K3w", "K4w"))):
+             TWO_LAYER_CHAIN_REL_TOL, ("K3w", "K4w")),
+            ("Q3_K_M GGUF", dict(LLAMA3_8B, ftype="Q3_K_M"), None, TWO_LAYER_REL_TOL,
+             ("K3", "K4")),
+            ("Q2_K GGUF", dict(LLAMA3_8B, ftype="Q2_K"), None, TWO_LAYER_REL_TOL,
+             ("K3", "K4"))):
         t0 = time.perf_counter()
         cuda_attn.reset_launches()
         cuda_qmm_chain.reset_launches()
+        cuda_qmm.reset_launches()
         attention.LAUNCHES["unfused"] = 0
         card = {}
         with RouteTwin() as route:
             cfg, steps, toks = two_layer_steps(
                 WIDTHS_SEED, kv_dtype, geo=geo,
-                after_card=lambda: card.update(attention.LAUNCHES, **cuda_qmm_chain.LAUNCHES),
+                after_card=lambda: card.update(attention.LAUNCHES, **cuda_qmm_chain.LAUNCHES,
+                                               qmm=dict(cuda_qmm.LAUNCHES)),
                 route=route if geo.get("n_expert") else None)
         route.followed_all(name)
         if geo.get("n_expert"):
@@ -1516,11 +1632,11 @@ def phase_two_layers_widths():
                    rel_err=err / float(np.abs(lc).max()), top2_gaps=gaps,
                    first_near_tie=tie, card_pick_below_cpu_top=below,
                    tokens_card=tg, tokens_cpu=tc,
-                   attn_launches=launched, chain_launches=chained,
+                   attn_launches=launched, chain_launches=chained, qmm_launches=card["qmm"],
                    n_expert=cfg.n_expert, attn_bias=cfg.attn_bias, qk_norm=cfg.qk_norm,
                    **route.record(), seconds=time.perf_counter() - t0)
         log(json.dumps(rec))
-        if not (np.isfinite(lg).all() and lg.shape == (9, cfg.vocab_size)):
+        if not (np.isfinite(lg).all() and lg.shape == (TWO_LAYER_DECODE + 1, cfg.vocab_size)):
             raise AssertionError(f"{name}: card logits not finite or of the wrong shape")
         if not err <= tol:
             raise AssertionError(f"{name} kv {kv_dtype}: max|err| {err} > {tol}")
@@ -1538,22 +1654,25 @@ def phase_two_layers_widths():
             raise AssertionError(f"{name} kv {kv_dtype}: {unfused} unfused attention calls "
                                  f"beside flash launches {launched}")
         # the chained row: a GeGLU tail on each layer of each of the card's
-        # 16 decode steps (generate_loop's 8, then the 8 replayed), the
+        # 2 * TWO_LAYER_DECODE decode steps (generate_loop's, then those replayed), the
         # lm_head (and layer 1's fused head) on K6; the others chain nothing
-        steps = 16
+        steps = 2 * TWO_LAYER_DECODE
         if geo.get("chain"):
             ok = chained["K6_gelu"] == steps * cfg.n_layers and chained["K6"] >= steps
         else:
             ok = not any(chained.values())
         if not ok:
             raise AssertionError(f"{name}: chained launches {chained}")
+        # the GGUF rows' Q2_K / Q3_K matmuls run the group-size-16 kernels
+        if geo.get("ftype") and not card["qmm"]["K1_gs16"] > 0:
+            raise AssertionError(f"{name}: matmul launches {card['qmm']}")
         recs.append(rec)
     return recs
 
 
 def sweep_chain_seeds(seeds) -> None:
     """What the chained twin's tolerance and seed come from: per seed, the
-    card-vs-CPU error over the 9 steps relative to max|logit|, the CPU's
+    card-vs-CPU error over the steps relative to max|logit|, the CPU's
     smallest top-2 gap, and whether the greedy tokens agree. Logs only."""
     import numpy as np
 
@@ -1568,12 +1687,36 @@ def sweep_chain_seeds(seeds) -> None:
                             tokens_equal=toks["cuda"] == toks["cpu"])))
 
 
+def sweep_gguf_seeds(seeds, ftypes=("Q3_K_M", "Q2_K", "Q4_K_M")) -> None:
+    """Phase 3's GGUF twins over seeds: per ftype (Q4_K_M, whose planes
+    the kernels took before the group-size-16 forms, as the control) and
+    seed, the card-vs-CPU error of every step relative to max|logit|, the
+    CPU's smallest top-2 gap and whether the greedy tokens agree. Logs
+    only."""
+    import numpy as np
+
+    from llm_tpu_torch.models.synthetic import LLAMA3_8B
+
+    for ftype in ftypes:
+        for seed in seeds:
+            _, steps, toks = two_layer_steps(seed, geo=dict(LLAMA3_8B, ftype=ftype))
+            lg, lc = steps["cuda"], steps["cpu"]
+            top = float(np.abs(lc).max())
+            log(json.dumps(dict(
+                sweep="gguf", ftype=ftype, seed=seed,
+                card_vs_cpu_rel_err=float(np.abs(lg - lc).max()) / top,
+                step_rel_err=(np.abs(lg - lc).max(axis=1) / top).tolist(),
+                max_abs_logit=top, min_top2_gap_rel=min_top2_gap(lc) / top,
+                distinct_tokens=len(set(toks["cuda"])),
+                tokens_equal=toks["cuda"] == toks["cpu"])))
+
+
 def sweep_seeds(seeds, devices=("cuda", "cpu")) -> None:
     """What the q8_0 tolerances and seed above come from. For each seed:
     the card's q8_0 prefill logits against its bf16 cache's, and the
     smallest top-2 gaps (relative to max|logit|) of the card's q8_0 steps
     and its bf16 prefill; with the CPU also the q8_0 cache's card-vs-CPU
-    error over the 9 steps. Logs; checks nothing."""
+    error over the steps. Logs; checks nothing."""
     import numpy as np
 
     for seed in seeds:
@@ -1629,15 +1772,21 @@ def decode_counts(params, chain=False, gdot=False, act="silu"):
     from llm_tpu_torch.ops.cuda_qmm_chain import head_eligible
     from llm_tpu_torch.quant.qtensor import QTensor
 
-    n = {"K1": 0, "K2": 0, "K5": 0, "K6": 0, "K6_gelu": 0, "K7": 0}
+    from llm_tpu_torch.ops.cuda_qmm import kernel_name
+    from llm_tpu_torch.ops.cuda_qmm_chain import chain_kernel
+
+    n = {k: 0 for k in ("K1", "K2", "K5", "K6", "K6_gelu", "K7", "K1_gs16", "K5_gs16",
+                        "K6_gs16", "K7_gs16")}
 
     def one(w):
-        n["K2" if w.layout == "i8" else ("K5" if gdot else "K1")] += 1
+        n[kernel_name("K5" if gdot and w.layout == "p4" else "K1", w)] += 1
 
     kmajor = (lambda w: isinstance(w, QTensor) and w.kmajor)
     stacked = params.get("layers_stacked")
     if stacked is not None:
-        n["K7"] = n_stacked(stacked) * sum(kmajor(w) for w in stacked.values())
+        for w in stacked.values():
+            if kmajor(w):
+                n[kernel_name("K7", w.map(lambda t: t[0]))] += n_stacked(stacked)
     for layer in params["layers"]:
         moe = "ffn_gate_inp" in layer
         tail = [layer[k] for k in ("attn_output", "ffn_gateup_fused", "ffn_down",
@@ -1646,18 +1795,18 @@ def decode_counts(params, chain=False, gdot=False, act="silu"):
         head = [layer[k] for k in ("attn_qkv_fused", "attn_q", "attn_k", "attn_v")
                 if k in layer]
         if chain and head_eligible(layer):
-            n["K6"] += 1
+            n[chain_kernel(head)] += 1
         else:
             for w in head:
                 one(w)
         if chain and not moe and all(kmajor(w) for w in tail):
-            n["K6_gelu" if act == "gelu" else "K6"] += 1
+            n[chain_kernel(tail, act == "gelu")] += 1
         else:
             for w in tail:  # every quantized matmul (a dense router is plain)
                 if isinstance(w, QTensor):
                     one(w)
     if chain and kmajor(params["output"]):
-        n["K6"] += 1
+        n[chain_kernel([params["output"]])] += 1
     else:
         one(params["output"])
     return n
@@ -2039,14 +2188,147 @@ def phase_scan():
     return counts
 
 
+# phase 15's runs: the Q3_K_M planes' options (gdot, chain) and the uniform
+# Q2_K scan take this many tokens (their launches per token are fixed from
+# the first token on), the Q2_K recipe's run LOWBIT_Q2K_DECODE
+LOWBIT_OPTION_DECODE = 16
+LOWBIT_Q2K_DECODE = 32
+
+
+def lowbit_planes(recipe: str | None, qtype: str, seed: int):
+    """LLAMA3_8B's planes made on the card: a recipe's type mix (Q3_K_M or
+    Q2_K: models/synthetic.py's tensor_type_for), or qtype everywhere
+    (recipe None). Returns (params, cfg, planes_summary's record)."""
+    from llm_tpu_torch.gguf.constants import GGMLType
+    from llm_tpu_torch.models.synthetic import LLAMA3_8B, make_synthetic_model
+
+    t0 = time.perf_counter()
+    params, cfg = make_synthetic_model(qtype=GGMLType[qtype], device="cuda", on_device=True,
+                                       seed=seed, recipe=recipe, **LLAMA3_8B)
+    torch.cuda.synchronize()
+    log(json.dumps(dict(phase=15, recipe=recipe, qtype=qtype,
+                        planes_s=time.perf_counter() - t0)))
+    return params, cfg, planes_summary(params, cfg, f"llama3_8b_{recipe or qtype}")
+
+
+def phase_llama3_8b_lowbit() -> dict:
+    """Phase 15: LLAMA3_8B at 32 layers on Q3_K_M-style planes made on the
+    card from seed 17 (Q3_K nibble planes at group size 16 with zero point
+    4 everywhere; attn_v Q5_K in layers 0-1, else Q4_K, so QKV stays
+    unfused; ffn_down Q4_K in layers 0-1; a Q6_K lm_head; a Q3_K
+    embedding table): prefill 512 and 128 greedy tokens with every
+    kernel's launches (K1_gs16 for every Q3_K matmul), profiled over 8
+    more tokens (device ms, idle share, no memset); decode_bound_tok_s
+    from these planes' bytes; then gdot=True (K5_gs16) and chain=True,
+    gdot=True (K6_gs16 for every tail, K5_gs16 for the unfused QKV) for
+    LOWBIT_OPTION_DECODE tokens each, each stream equal to the unfused one
+    or parted only at a near tie. Then Q2_K-recipe planes (seed 18: Q2_K
+    with mins, attn_v Q4_K, ffn_down Q3_K in the use_more_bits layers):
+    prefill 512, LOWBIT_Q2K_DECODE tokens. Then uniform Q2_K planes (seed
+    19, every matrix and the lm_head) through Context(scan_layers=True),
+    every layer matmul on K7_gs16 (4 a layer a token) and the lm_head on
+    K1_gs16, against the per-layer Context on the same planes
+    (compare_streams), LOWBIT_OPTION_DECODE tokens each. Returns the
+    group-size-16 kernels' launches from the runs that drive them and the
+    records."""
+    from llm_tpu_torch.models.synthetic import use_more_bits
+    from llm_tpu_torch.runtime.engine import Context
+    from llm_tpu_torch.tools.profile_decode import profile_tokens
+
+    out = {}
+    params, cfg, planes = lowbit_planes("Q3_K_M", "Q3_K", 17)
+    l0, l5 = params["layers"][0], params["layers"][5]
+    types = {k: (l5[k].ggml_type.name, l5[k].layout, l5[k].group_size, l5[k].zp)
+             for k in ("attn_q", "attn_v", "attn_output", "ffn_gateup_fused", "ffn_down")}
+    if types != {"attn_q": ("Q3_K", "p4", 16, 4), "attn_v": ("Q4_K", "p4", 32, 0),
+                 "attn_output": ("Q3_K", "p4", 16, 4),
+                 "ffn_gateup_fused": ("Q3_K", "p4", 16, 4),
+                 "ffn_down": ("Q3_K", "p4", 16, 4)} \
+            or l0["attn_v"].ggml_type.name != "Q5_K" or l0["ffn_down"].ggml_type.name != "Q4_K":
+        raise AssertionError(f"not the Q3_K_M recipe's planes: layer 5 {types}")
+    ctx = Context(None, n_cells=4096, device="cuda", params_cfg=(params, cfg))
+    keep = {}
+    counts, rec = run_llama3_8b(ctx, ("K3", "K4"), keep)
+    prof = profile_tokens(ctx, rec["last_token"], 8)
+    log("profile_decode " + json.dumps(prof))
+    check_gemv_profile(prof)
+    check_attn_profile(prof, cfg.n_layers)
+    out["Q3_K_M"] = dict(
+        phase=15, path="LLAMA3_8B Q3_K_M", decode_tok_s=rec["decode_tok_s"],
+        prefill_tok_s=rec["prefill_tok_s"], decode_bound_tok_s=rec["decode_bound_tok_s"],
+        planes_bytes=planes["llama3_8b_Q3_K_M_planes_bytes"], peak_mem_gib=rec["peak_mem_gib"],
+        device_busy_ms_per_token=prof["device_busy_ms_per_token"],
+        idle_share=prof["idle_share"], gemv_ms_per_token=prof.get("gemv_ms_per_token"),
+        device_launches_per_token=prof["device_launches_per_token"],
+        launches_per_token={k: v for k, v in rec["launches_per_token"].items() if v})
+    log(json.dumps(out["Q3_K_M"]))
+    for name, kw in (("gdot", dict(gdot=True)), ("chain", dict(chain=True, gdot=True))):
+        other = Context(None, n_cells=4096, device="cuda", params_cfg=(params, cfg), **kw)
+        keep_o = {}
+        counts_o, rec_o = run_llama3_8b(other, ("K3", "K4"), keep_o, LOWBIT_OPTION_DECODE)
+        out[name] = dict(phase=15, path=f"LLAMA3_8B Q3_K_M {name}",
+                         decode_tok_s=rec_o["decode_tok_s"],
+                         launches_per_token={k: v for k, v in
+                                             rec_o["launches_per_token"].items() if v},
+                         **parted_at_near_tie(ctx, keep, keep_o, LLAMA3_8B_PROMPT,
+                                              TWO_LAYER_CHAIN_REL_TOL))
+        log(json.dumps(out[name]))
+        # K5_gs16's launches from the gdot run, K6_gs16's from the chained one
+        key = "K5_gs16" if name == "gdot" else "K6_gs16"
+        counts[key] = counts_o[key]
+        del other
+    del ctx, params
+    torch.cuda.empty_cache()
+
+    params, cfg, _ = lowbit_planes("Q2_K", "Q2_K", 18)
+    downs = [layer["ffn_down"].ggml_type.name for layer in params["layers"]]
+    if downs != ["Q3_K" if use_more_bits(il, cfg.n_layers) else "Q2_K"
+                 for il in range(cfg.n_layers)] \
+            or params["layers"][1]["attn_v"].ggml_type.name != "Q4_K" \
+            or params["layers"][1]["ffn_gateup_fused"].mins is None:
+        raise AssertionError(f"not the Q2_K recipe's planes: ffn_down {downs}")
+    ctx = Context(None, n_cells=4096, device="cuda", params_cfg=(params, cfg))
+    _, rec = run_llama3_8b(ctx, ("K3", "K4"), None, LOWBIT_Q2K_DECODE)
+    out["Q2_K"] = dict(phase=15, path="LLAMA3_8B Q2_K", decode_tok_s=rec["decode_tok_s"],
+                       prefill_tok_s=rec["prefill_tok_s"],
+                       decode_bound_tok_s=rec["decode_bound_tok_s"],
+                       peak_mem_gib=rec["peak_mem_gib"],
+                       launches_per_token={k: v for k, v in rec["launches_per_token"].items()
+                                           if v})
+    log(json.dumps(out["Q2_K"]))
+    del ctx, params
+    torch.cuda.empty_cache()
+
+    params, cfg, _ = lowbit_planes(None, "Q2_K", 19)
+    scan_keep, layer_keep = {}, {}
+    scan_ctx = Context(None, n_cells=4096, device="cuda", params_cfg=(params, cfg),
+                       scan_layers=True)
+    if not scan_ctx.scan:
+        raise AssertionError("the uniform Q2_K planes did not stack")
+    counts_s, rec_s = run_llama3_8b(scan_ctx, ("K3", "K4"), scan_keep, LOWBIT_OPTION_DECODE)
+    layer_ctx = Context(None, n_cells=4096, device="cuda", params_cfg=(params, cfg))
+    run_llama3_8b(layer_ctx, ("K3", "K4"), layer_keep, LOWBIT_OPTION_DECODE)
+    out["scan"] = dict(phase=15, path="LLAMA3_8B uniform Q2_K scan",
+                       decode_tok_s=rec_s["decode_tok_s"],
+                       launches_per_token={k: v for k, v in
+                                           rec_s["launches_per_token"].items() if v},
+                       **compare_streams(scan_ctx, scan_keep, layer_ctx, layer_keep))
+    log(json.dumps(out["scan"]))
+    counts["K7_gs16"] = counts_s["K7_gs16"]
+    del scan_ctx, layer_ctx, params
+    torch.cuda.empty_cache()
+    out["counts"] = counts
+    return out
+
+
 # the CLI phase: a prompt of about this many tokens, then -n 128 at temp 0,
 # on a file of LLAMA3_8B's widths and GGUF_LAYERS of its 32 layers (cut
-# from 32 to keep the script near its time: the host builds the
-# planes of the file twice, in the CLI's process and in this one, ~3 s a
-# layer)
+# from 32 to 8 in PR 13 and to 4 in PR 16 to keep the script near its
+# time: the host builds the planes of the file twice, in the CLI's
+# process and in this one, ~3 s a layer)
 GGUF_PROMPT_TOKENS = 512
 GGUF_DECODE = 128
-GGUF_LAYERS = 8
+GGUF_LAYERS = 4
 _WORDS = ("the of and to in is was that for on with as by at from his her they which "
           "this have had were are but not be one all their there when an who will more "
           "time about would up out so what some into than could them other only then "
@@ -2406,7 +2688,7 @@ def phase_gguf_cli() -> dict:
         path = os.path.join(tmp, "llama3_8b_q4_k_m.gguf")
         free = shutil.disk_usage(tmp).free
         t0 = time.perf_counter()
-        info = synth_gguf.write_llama_q4km(path, n_layers=GGUF_LAYERS, seed=0)
+        info = synth_gguf.write_llama(path, n_layers=GGUF_LAYERS, seed=0)
         rec.update(gguf=info, write_s=time.perf_counter() - t0, disk_free_gib=free / 2**30)
         log(json.dumps(dict(gguf_written=rec)))
         t0 = time.perf_counter()
@@ -2866,10 +3148,11 @@ def phase_baichuan_13b() -> dict:
     return out
 
 
-# phase 13: Qwen3-30B-A3B at full width and depth (48 layers) on 4096
-# cells: a 512-token prefill and 128 greedy tokens with the bf16 cache (8
-# more profiled), 16 with chain=True, 32 with the q8_0 cache
-QWEN3_LAYERS = 48
+# phase 13: Qwen3-30B-A3B at full width and 24 of its 48 layers (cut in PR
+# 16 for chip_smoke.py's time limit) on 4096 cells: a 512-token prefill and
+# 128 greedy tokens with the bf16 cache (8 more profiled), 16 with
+# chain=True, 32 with the q8_0 cache
+QWEN3_LAYERS = 24
 QWEN3_CELLS = 4096
 QWEN3_PROMPT, QWEN3_DECODE = 512, 128
 QWEN3_CHAIN_DECODE, QWEN3_Q8_DECODE = 16, 32
@@ -3015,15 +3298,15 @@ def chain_steps_against(chained, ctx, n_prompt: int) -> dict:
 
 
 def phase_qwen3_30b_a3b() -> dict:
-    """Phase 13: Qwen3-30B-A3B at full width and depth (48 layers, Q4_K_M-
-    style random planes made on the card from seed 15: rows-layout expert
+    """Phase 13: Qwen3-30B-A3B at full width and QWEN3_LAYERS (24) of its 48
+    layers (Q4_K_M-style random planes made on the card from seed 15: rows-layout expert
     stacks, Q6_K ffn_down_exps and attn_v in the use_more_bits layers, a
     bf16 router, an untied Q6_K lm_head; qk-norm; 128 experts, 8 a token).
     (a) the bf16 cache (4096 cells): prefill 512 tokens (the grouped
         dispatch), then 128 greedy tokens (the gather); launches by kernel
         (K3 / K4 a layer a step at G = 8, the experts none); profiled over 8
         more tokens, with the MoE FFN's and its gather-dequant's device ms
-        and launches a token (MOE_RANGES); the cache's bytes (2 x 48 layers
+        and launches a token (MOE_RANGES); the cache's bytes (2 x 24 layers
         x 4 heads x 4096 cells x 128 x 2 B) and the peak memory;
     (b) chain=True on the same planes, 16 tokens: K6 for each fused head
         (qk-norm after it) and the lm_head, every MoE tail unchained; the
@@ -3201,6 +3484,12 @@ REPLACES = {
     # :101-104)
     "K6_gelu": ("llm_tpu_torch/csrc/qmm_chain.cu", "llm_tpu/ops/pallas_qmm_chain.py:107"),
     "K7": ("llm_tpu_torch/csrc/qmm_decode.cu", "llm_tpu/ops/pallas_qmm.py:481"),
+    # the same TPU kernels on nibble planes at group size 16 (Q2_K, Q3_K:
+    # _p4_m's and _gdot_kernel's groups, _chain_kernel's phases, :189-204)
+    "K1_gs16": ("llm_tpu_torch/csrc/qmm_decode.cu", "llm_tpu/ops/pallas_qmm.py:159"),
+    "K5_gs16": ("llm_tpu_torch/csrc/qmm_decode.cu", "llm_tpu/ops/pallas_qmm.py:195"),
+    "K6_gs16": ("llm_tpu_torch/csrc/qmm_chain.cu", "llm_tpu/ops/pallas_qmm_chain.py:107"),
+    "K7_gs16": ("llm_tpu_torch/csrc/qmm_decode.cu", "llm_tpu/ops/pallas_qmm.py:481"),
     "S1": ("llm_tpu_torch/csrc/qmm_probe.cu", "scripts/kbench.py:56"),
     "S3 v1": ("llm_tpu_torch/csrc/flash_probe.cu", "scripts/kbench7.py:102"),
     "S3 v0": ("llm_tpu_torch/csrc/flash_probe.cu", "scripts/kbench7.py:47"),
@@ -3236,16 +3525,25 @@ HEADLINE = {"K1": "gate_up Q4_K K=4096 N=28672 B=1",
             # the GeGLU tail at Gemma-7B's widths (phase 14)
             "K6_gelu": "gemma-7b tail Q4_K down B=1",
             "K7": "gate_up Q4_K K=4096 N=28672 B=1",
+            # the group-size-16 forms at phase 15's Q3_K gate+up and tail
+            "K1_gs16": "gate_up Q3_K K=4096 N=28672 B=1",
+            "K5_gs16": "gate_up Q3_K K=4096 N=28672 B=1",
+            "K6_gs16": "tail Q3_K B=1",
+            "K7_gs16": "gate_up Q3_K K=4096 N=28672 B=1",
             # S1's line reads its "dma" probe (every plane streamed, x staged)
             "S1": "gu Q4_K K=4096 N=28672 B=8"}
 # K1/K2/K7's entries (their source the decode GEMV's) also carry their
 # prefill GEMM's time (B = 512) at the largest matmul of a prefill of their
 # planes, with the GEMM's source
 PREFILL_SOURCE = {"K1": "llm_tpu_torch/csrc/qmm.cu", "K2": "llm_tpu_torch/csrc/qmm.cu",
-                  "K7": "llm_tpu_torch/csrc/qmm_stacked.cu"}
+                  "K7": "llm_tpu_torch/csrc/qmm_stacked.cu",
+                  "K1_gs16": "llm_tpu_torch/csrc/qmm.cu",
+                  "K7_gs16": "llm_tpu_torch/csrc/qmm_stacked.cu"}
 PREFILL_HEADLINE = {"K1": "gate_up Q4_K K=4096 N=28672 B=512",
                     "K2": "down Q6_K K=14336 N=4096 B=512",
-                    "K7": "gate_up Q4_K K=4096 N=28672 B=512"}
+                    "K7": "gate_up Q4_K K=4096 N=28672 B=512",
+                    "K1_gs16": "gate_up Q3_K K=4096 N=28672 B=512",
+                    "K7_gs16": "gate_up Q3_K K=4096 N=28672 B=512"}
 
 
 def main() -> int:
@@ -3280,14 +3578,22 @@ def main() -> int:
     check_sass("gemv_left", {"qmm": 0, "qmm_stacked": 0, "qmm_chain": 0}, "qmm_gemv", (),
                "qmm_gemv")
     check_sass("probe_sass", {"qmm_probe": S1_KERNELS}, "qmm_probe", (), ())
-    check_sass("chain_sass", {"qmm_chain": 2}, "qmm_chain_tc", ("HMMA", "UTMALDG"),
+    check_sass("chain_sass", {"qmm_chain": 3}, "qmm_chain_tc", ("HMMA", "UTMALDG"),
                ("qmm_chain_kernel", "qmm_decode"))
+    # the forms on nibble planes at group size 16 (Q2_K, Q3_K), counted
+    # apart: K1/K7/K5's decode kernels and K6's issue mma.sync and TMA
+    # loads, K1/K7's prefill GEMM wgmma and TMA loads
+    check_sass("g16_decode_sass", {"qmm_decode": DECODE_G16_KERNELS}, "_g16",
+               ("HMMA", "UTMALDG"), ())
+    check_sass("g16_chain_sass", {"qmm_chain": 1}, "qmm_chain_tc_g16", ("HMMA", "UTMALDG"), ())
+    check_sass("g16_gemm_sass", {"qmm": GEMM_G16_KERNELS, "qmm_stacked": GEMM_G16_KERNELS},
+               "qmm_wgmma_g16", ("HGMMA", "UTMALDG"), ())
     # the prefill GEMM: the eight qmm_wgmma kernels of each library issue
     # wgmma and TMA tile loads, and the mma.sync qmm_gemm is gone; flash
     # prefill: K4 and K4q issue wgmma, libflash_attn.so holds only the
     # decode kernels, and the f32-FMA flash_prefill_kernel is gone
-    check_sass("gemm_sass", {"qmm": 8, "qmm_stacked": 8}, "qmm_wgmma", ("HGMMA", "UTMALDG"),
-               "qmm_gemm")
+    check_sass("gemm_sass", {"qmm": GEMM_KERNELS, "qmm_stacked": GEMM_KERNELS}, "qmm_wgmma",
+               ("HGMMA", "UTMALDG"), "qmm_gemm")
     check_sass("prefill_sass", {"flash_prefill": K4_KERNELS, "flash_attn": 0}, "flash_prefill",
                ("HGMMA",), "flash_prefill_kernel")
     # flash decode: K3/K3q's cluster kernels issue mma.sync and TMA tile
@@ -3314,11 +3620,13 @@ def main() -> int:
     check_sass("probe_split_sass", {"flash_probe": S3_SPLIT_KERNELS}, "flash_probe_split", (), ())
     check_sass("probe_combine_sass", {"flash_probe": 1}, "flash_decode_combine", (), ())
     if sys.argv[1:2] == ["--sweep-seeds"]:
-        kinds = sys.argv[2:] or ["q8_0", "chain"]
+        kinds = sys.argv[2:] or ["q8_0", "chain", "gguf"]
         if "q8_0" in kinds:
             sweep_seeds(range(1, 7))
         if "chain" in kinds:
             sweep_chain_seeds(range(1, 7))
+        if "gguf" in kinds:
+            sweep_gguf_seeds(range(1, 5))
         return 0
     if sys.argv[1:] == ["--screen-seeds"]:
         sweep_seeds(range(1, 65), devices=("cuda",))
@@ -3369,6 +3677,9 @@ def main() -> int:
     counts_scan = phase_scan()
     log(f"LLAMA3_8B scan decoder passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    lowbit = phase_llama3_8b_lowbit()
+    log(f"LLAMA3_8B at Q3_K_M and Q2_K passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     phase_gguf_cli()
     log(f"LLAMA3_8B GGUF through the CLI passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -3379,7 +3690,7 @@ def main() -> int:
     log(f"Baichuan-13B at full depth passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_qwen3_30b_a3b()
-    log(f"Qwen3-30B-A3B at full depth passed in {time.perf_counter() - t0:.1f} s")
+    log(f"Qwen3-30B-A3B at {QWEN3_LAYERS} layers passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     gemma7b = phase_gemma_7b()
     log(f"Gemma-7B with chain at {GEMMA7B_LAYERS} layers passed in "
@@ -3396,12 +3707,14 @@ def main() -> int:
               **{k: sum(r["attn_launches"][k] for r in widths)
                  for k in ("K3w", "K4w", "K3qw", "K4qw")},
               **{k: counts_gemma2[k] for k in ("K3w_cap", "K4w_cap", "K3qw_cap", "K4qw_cap")},
-              **counts_baichuan, "K6_gelu": gemma7b["K6_gelu"]}
+              **counts_baichuan, "K6_gelu": gemma7b["K6_gelu"],
+              **{k: lowbit["counts"][k] for k in ("K1_gs16", "K5_gs16", "K6_gs16", "K7_gs16")}}
 
     kernels = []
     for k in ("K1", "K2", "K3", "K4", "K3q", "K4q", "K3w", "K4w", "K3qw", "K4qw", "K3w_cap",
               "K4w_cap", "K3qw_cap", "K4qw_cap", "K3_alibi", "K4_alibi", "K3q_alibi",
-              "K4q_alibi", "K5", "K6", "K6_gelu", "K7"):
+              "K4q_alibi", "K5", "K6", "K6_gelu", "K7", "K1_gs16", "K5_gs16", "K6_gs16",
+              "K7_gs16"):
         mine = [r for r in results if r["kernel"] == k]
         head = next(r for r in mine if r["shape"] == HEADLINE[k])
         src, rep = REPLACES[k]

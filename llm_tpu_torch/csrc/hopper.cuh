@@ -191,6 +191,15 @@ inline EncodeTiled encode_tiled() {
 }
 
 // error codes of make_map (beside cudaError_t's)
+// the quantized matmuls' nibble planes at group size 32 (G16 false) or 16
+// (G16: Q2_K, Q3_K): a 64-k chunk of x spans CG groups of GS rows (int8
+// planes take gs 16 or 32 at run time)
+template <bool G16>
+struct P4Groups {
+  static constexpr int CG = G16 ? 4 : 2;    // group rows of one x chunk
+  static constexpr int GS = G16 ? 16 : 32;  // the group size
+};
+
 constexpr int TMAP_ERR_NO_ENCODER = 9001, TMAP_ERR_ENCODE = 9002;
 
 // a 2-D or 3-D tiled map; dims and box innermost first, strides in bytes

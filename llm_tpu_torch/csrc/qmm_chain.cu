@@ -11,7 +11,9 @@
 // with act silu (SwiGLU: kernel qmm_chain_tc) or gelu's tanh form (GeGLU,
 // the TPU kernel's _act_f32 "gelu", jax.nn.gelu(approximate=True), with
 // tanhf: kernel qmm_chain_tc_gelu, the same CTA instantiated for it),
-// or one phase, out = (bf16(rms(x) * gamma)) @ W cast to bf16 or f32 (the
+// either of them with phases on nibble planes at group size 16 (Q2_K,
+// Q3_K; kernel qmm_chain_tc_g16, which reads each boundary's act), or one
+// phase, out = (bf16(rms(x) * gamma)) @ W cast to bf16 or f32 (the
 // attn_norm -> fused QKV head and the final norm -> lm_head). Each phase is
 // K1/K2's function as their decode GEMV computes it (qmm_decode.cuh: exact
 // integer products on the tensor cores, s and m applied per group in f32).
@@ -31,7 +33,8 @@
 //    keeps a TMA ring of stages (128 plane columns x 128 k, two x chunks,
 //    the group rows of scales and mins), and four consumer warps that run
 //    dv_consume. The ring holds CH_RING = 96 KB (two CTAs an SM); each phase
-//    lays it out in slots of its own layout's stage (p4: 6 slots, i8: 4) and
+//    lays it out in slots of its own layout's stage (p4: 6 slots, 4 at group
+//    size 16 with f32 scales and mins; i8: 4) and
 //    re-arms the slots' mbarriers, so that a running stage count within the
 //    phase gives every wait its parity across the phase's work items, and
 //    each consumer pair takes the slots of one parity;
@@ -238,12 +241,14 @@ __device__ __forceinline__ void chain_boundary(const ChainArgs& a, int p, float*
   fence_proxy_async_global();  // the next phase's TMA reads these stores
 }
 
-// the TMA loads of stage u (128 k) of column tile n0 into st
-template <bool P4, bool SBF16, bool MINS>
+// the TMA loads of stage u (128 k) of column tile n0 into st (G16: p4
+// planes at group size 16)
+template <bool P4, bool SBF16, bool MINS, bool G16>
 __device__ __forceinline__ void chain_issue(const ChainMaps& maps, int p, int gs, uint32_t st,
                                             uint32_t full, int n0, int u) {
-  using L = DecodeSmem<P4, SBF16, MINS>;
-  const int g_rows = P4 ? 4 : DV_UNIT_K / gs;
+  using L = DecodeSmem<P4, SBF16, MINS, G16>;
+  constexpr int CG = P4Groups<G16>::CG, GS = P4Groups<G16>::GS;
+  const int g_rows = P4 ? 2 * CG : DV_UNIT_K / gs;
   const uint32_t tx = 2 * 64 * CH_MAX_B * 2 + L::W_BYTES +
                       g_rows * DV_TILE_N * L::ES * (MINS ? 2 : 1);
   const int kx0 = P4 ? 256 * (u >> 1) + 64 * (u & 1) : DV_UNIT_K * u;
@@ -254,12 +259,12 @@ __device__ __forceinline__ void chain_issue(const ChainMaps& maps, int p, int gs
   tma_2d(st + L::X_OFF + L::X_CHUNK, &maps.x[p], full, kx1, 0);
   tma_2d(st, &maps.w[p], full, n0, row0);
   if (P4) {
-    const int half = 2 * DV_TILE_N * L::ES;
-    tma_2d(st + L::S_OFF, &maps.s[p], full, n0, kx0 / 32);
-    tma_2d(st + L::S_OFF + half, &maps.s[p], full, n0, kx1 / 32);
+    const int half = CG * DV_TILE_N * L::ES;
+    tma_2d(st + L::S_OFF, &maps.s[p], full, n0, kx0 / GS);
+    tma_2d(st + L::S_OFF + half, &maps.s[p], full, n0, kx1 / GS);
     if (MINS) {
-      tma_2d(st + L::M_OFF, &maps.m[p], full, n0, kx0 / 32);
-      tma_2d(st + L::M_OFF + half, &maps.m[p], full, n0, kx1 / 32);
+      tma_2d(st + L::M_OFF, &maps.m[p], full, n0, kx0 / GS);
+      tma_2d(st + L::M_OFF + half, &maps.m[p], full, n0, kx1 / GS);
     }
   } else {
     tma_2d(st + L::S_OFF, &maps.s[p], full, n0, kx0 / gs);
@@ -282,19 +287,20 @@ __device__ __forceinline__ void chain_store(const ChainPhase& ph, int b, int n, 
 
 // the ring's slots for a layout's stage: as many as CH_RING holds, even (a
 // consumer pair takes the slots of one parity), at most CH_MAX_SLOTS
-template <bool P4, bool SBF16, bool MINS>
+template <bool P4, bool SBF16, bool MINS, bool G16>
 struct ChainSlots {
-  static constexpr int FIT = CH_RING / DecodeSmem<P4, SBF16, MINS>::STAGE;
+  static constexpr int FIT = CH_RING / DecodeSmem<P4, SBF16, MINS, G16>::STAGE;
   static constexpr int N = (FIT < CH_MAX_SLOTS ? FIT : CH_MAX_SLOTS) & ~1;
 };
 
-// one phase on this CTA: its items, round by round
-template <bool P4, bool SBF16, bool MINS>
+// one phase on this CTA: its items, round by round (G16: p4 planes at
+// group size 16)
+template <bool P4, bool SBF16, bool MINS, bool G16>
 __device__ __forceinline__ void chain_phase(const ChainMaps& maps, const ChainArgs& a, int p,
                                             uint8_t* ring, float* red, uint32_t full0,
                                             uint32_t empty0) {
-  using L = DecodeSmem<P4, SBF16, MINS>;
-  constexpr int SLOTS = ChainSlots<P4, SBF16, MINS>::N;
+  using L = DecodeSmem<P4, SBF16, MINS, G16>;
+  constexpr int SLOTS = ChainSlots<P4, SBF16, MINS, G16>::N;
   static_assert(SLOTS >= 2 && SLOTS * L::STAGE <= CH_RING, "a stage outgrows the ring");
   const ChainPhase& ph = a.ph[p];
   uint32_t rank, cid;
@@ -330,8 +336,8 @@ __device__ __forceinline__ void chain_phase(const ChainMaps& maps, const ChainAr
         for (int j = 0; j < nu; ++j, ++c) {
           const int slot = c % SLOTS;
           if (c >= SLOTS) mbar_wait(empty0 + 8 * slot, ((c / SLOTS) - 1) & 1);
-          chain_issue<P4, SBF16, MINS>(maps, p, ph.gs, ring_a + slot * L::STAGE,
-                                       full0 + 8 * slot, tile * DV_TILE_N, u0 + j);
+          chain_issue<P4, SBF16, MINS, G16>(maps, p, ph.gs, ring_a + slot * L::STAGE,
+                                            full0 + 8 * slot, tile * DV_TILE_N, u0 + j);
         }
       }
       __syncwarp();
@@ -361,7 +367,8 @@ __device__ __forceinline__ void chain_phase(const ChainMaps& maps, const ChainAr
         if ((c & 1) != kw) continue;  // pair kw takes the stages of its parity
         const int slot = c % SLOTS;
         mbar_wait(full0 + 8 * slot, (c / SLOTS) & 1);
-        dv_consume<P4, SBF16, MINS, 1>(ring + slot * L::STAGE, 64 * cw, ph.gs, zp2, ibase, acc);
+        dv_consume<P4, SBF16, MINS, 1, false, G16>(ring + slot * L::STAGE, 64 * cw, ph.gs, zp2,
+                                                   ibase, acc);
         __syncwarp();
         if (lane == 0) mbar_arrive(empty0 + 8 * slot);
       }
@@ -409,12 +416,13 @@ __device__ __forceinline__ void chain_phase(const ChainMaps& maps, const ChainAr
   }
 }
 
-// the CTA of either kernel: the phases in turn, the boundaries with act
-// silu (GELU false) or gelu. It declares the kernel's shared memory itself:
-// handed in as pointers from the kernel, the arrays cost qmm_chain_tc 24
-// more instructions (tools/cubin_cmp.py read DIFF), declared here it keeps
-// its machine code
-template <bool GELU>
+// the CTA of every kernel: the phases in turn, the boundaries with act
+// silu (GELU false) or gelu; G16: p4 phases may also have group size 16,
+// and the act is the boundary's (PRE_SWIGLU or PRE_GEGLU).
+// It declares the kernel's shared memory itself: handed in as pointers
+// from the kernel, the arrays cost qmm_chain_tc 24 more instructions
+// (tools/cubin_cmp.py read DIFF), declared here it keeps its machine code
+template <bool GELU, bool G16 = false>
 __device__ __forceinline__ void chain_cta(const ChainMaps& maps, const ChainArgs& a) {
   extern __shared__ uint8_t dyn_smem[];
   __shared__ __align__(8) uint64_t bars[2 * CH_MAX_SLOTS];  // full, then empty
@@ -428,7 +436,8 @@ __device__ __forceinline__ void chain_cta(const ChainMaps& maps, const ChainArgs
   for (int p = 0; p < a.P; ++p) {
     const ChainPhase& ph = a.ph[p];
     if (ph.pre != PRE_CAST) {
-      chain_boundary<GELU>(a, p, red5);
+      if (G16 && ph.pre == PRE_GEGLU) chain_boundary<true>(a, p, red5);
+      else chain_boundary<GELU>(a, p, red5);
       grid.sync();
     }
     // arm the ring's barriers for this phase (every earlier wait has
@@ -445,14 +454,21 @@ __device__ __forceinline__ void chain_cta(const ChainMaps& maps, const ChainArgs
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
-#define CHAIN_PHASE(P4, S, M) chain_phase<P4, S, M>(maps, a, p, ring, red, full0, empty0)
-    if (ph.p4) {
-      if (ph.scales_bf16) { if (ph.mins) CHAIN_PHASE(true, true, true); else CHAIN_PHASE(true, true, false); }
-      else { if (ph.mins) CHAIN_PHASE(true, false, true); else CHAIN_PHASE(true, false, false); }
+#define CHAIN_PHASE(P4, S, M, G) chain_phase<P4, S, M, G>(maps, a, p, ring, red, full0, empty0)
+#define CHAIN_SM(P4, G)                                                            \
+  if (ph.scales_bf16) {                                                            \
+    if (ph.mins) CHAIN_PHASE(P4, true, true, G); else CHAIN_PHASE(P4, true, false, G); \
+  } else {                                                                         \
+    if (ph.mins) CHAIN_PHASE(P4, false, true, G); else CHAIN_PHASE(P4, false, false, G); \
+  }
+    if (G16 && ph.p4 && ph.gs == 16) {
+      CHAIN_SM(true, G16)
+    } else if (ph.p4) {
+      CHAIN_SM(true, false)
     } else {
-      if (ph.scales_bf16) { if (ph.mins) CHAIN_PHASE(false, true, true); else CHAIN_PHASE(false, true, false); }
-      else { if (ph.mins) CHAIN_PHASE(false, false, true); else CHAIN_PHASE(false, false, false); }
+      CHAIN_SM(false, false)
     }
+#undef CHAIN_SM
 #undef CHAIN_PHASE
     if (p + 1 < a.P) grid.sync();
   }
@@ -468,26 +484,40 @@ qmm_chain_tc_gelu(const __grid_constant__ ChainMaps maps, const __grid_constant_
   chain_cta<true>(maps, a);
 }
 
-// the kernel of a launch: qmm_chain_tc_gelu if a phase's boundary is
-// PRE_GEGLU, else qmm_chain_tc
-using ChainKernel = void (*)(ChainMaps, ChainArgs);
-ChainKernel chain_kernel(bool gelu) { return gelu ? qmm_chain_tc_gelu : qmm_chain_tc; }
+// either with phases on p4 planes at group size 16 (Q2_K, Q3_K) beside the
+// others: a kernel of its own, so that the two above keep their machine
+// code
+__global__ void __launch_bounds__(DV_THREADS, 2)
+qmm_chain_tc_g16(const __grid_constant__ ChainMaps maps, const __grid_constant__ ChainArgs a) {
+  chain_cta<false, true>(maps, a);
+}
 
-// clusters of `cluster` CTAs of the kernel (gelu: qmm_chain_tc_gelu) that
-// can be resident at once: the grid. Asked once for each kernel and cluster
+// the kernel of a launch, by its index `kind`: 2 (qmm_chain_tc_g16) if a
+// phase's p4 planes have group size 16, else 1 (qmm_chain_tc_gelu) if a
+// phase's boundary is PRE_GEGLU, else 0 (qmm_chain_tc)
+using ChainKernel = void (*)(ChainMaps, ChainArgs);
+constexpr int CH_KINDS = 3;
+ChainKernel chain_kernel(int kind) {
+  const ChainKernel kernels[CH_KINDS] = {qmm_chain_tc, qmm_chain_tc_gelu, qmm_chain_tc_g16};
+  return kernels[kind];
+}
+
+// clusters of `cluster` CTAs of the kernel `kind` (chain_kernel) that can
+// be resident at once: the grid. Asked once for each kernel and cluster
 // size (it depends only on the kernel and the card).
-cudaError_t chain_clusters(int cluster, bool gelu, int* n) {
-  static int cached[2][CH_MAX_CLUSTER + 1] = {{0}};
-  static bool attr[2] = {false, false};
-  if (cluster < 1 || cluster > CH_MAX_CLUSTER) return cudaErrorInvalidValue;
-  const ChainKernel kernel = chain_kernel(gelu);
-  if (!attr[gelu]) {
+cudaError_t chain_clusters(int cluster, int kind, int* n) {
+  static int cached[CH_KINDS][CH_MAX_CLUSTER + 1] = {{0}};
+  static bool attr[CH_KINDS] = {false, false, false};
+  if (cluster < 1 || cluster > CH_MAX_CLUSTER || kind < 0 || kind >= CH_KINDS)
+    return cudaErrorInvalidValue;
+  const ChainKernel kernel = chain_kernel(kind);
+  if (!attr[kind]) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            CH_SMEM);
     if (err != cudaSuccess) return err;
-    attr[gelu] = true;
+    attr[kind] = true;
   }
-  if (cached[gelu][cluster] == 0) {
+  if (cached[kind][cluster] == 0) {
     cudaLaunchConfig_t cfg;
     memset(&cfg, 0, sizeof(cfg));
     cudaLaunchAttribute at[1];
@@ -504,9 +534,9 @@ cudaError_t chain_clusters(int cluster, bool gelu, int* n) {
     cudaError_t err = cudaOccupancyMaxActiveClusters(&q, kernel, &cfg);
     if (err != cudaSuccess) return err;
     if (q < 1) return cudaErrorInvalidConfiguration;
-    cached[gelu][cluster] = q;
+    cached[kind][cluster] = q;
   }
-  *n = cached[gelu][cluster];
+  *n = cached[kind][cluster];
   return cudaSuccess;
 }
 
@@ -534,7 +564,7 @@ int phase_maps(const ChainPhase& ph, int B, ChainMaps* mp, int p) {
       ph.scales_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   const cuuint64_t dims[2] = {(cuuint64_t)ph.N, (cuuint64_t)G};
   const cuuint64_t strides[1] = {(cuuint64_t)ph.N * es};
-  const cuuint32_t box[2] = {DV_TILE_N, (cuuint32_t)(ph.p4 ? 2 : DV_UNIT_K / ph.gs)};
+  const cuuint32_t box[2] = {DV_TILE_N, (cuuint32_t)(ph.p4 ? 64 / ph.gs : DV_UNIT_K / ph.gs)};
   if (int rc = make_map(&mp->s[p], dt, 2, ph.scales, dims, strides, box,
                         CU_TENSOR_MAP_SWIZZLE_NONE))
     return rc;
@@ -548,12 +578,12 @@ int phase_maps(const ChainPhase& ph, int B, ChainMaps* mp, int p) {
 }  // namespace
 
 // The clusters of `cluster` CTAs the card holds at once (-1 on an error):
-// the grid of a launch with that cluster size, of the GeGLU kernel if gelu
-// is nonzero. The wrapper's plan (chain_plan) picks the cluster size and
-// deals a phase's tiles to them.
-extern "C" int qmm_chain_clusters(int cluster, int gelu) {
+// the grid of a launch with that cluster size, of the kernel `kind`
+// (chain_kernel: 0 SwiGLU, 1 GeGLU, 2 group size 16). The wrapper's plan
+// (chain_plan) picks the cluster size and deals a phase's tiles to them.
+extern "C" int qmm_chain_clusters(int cluster, int kind) {
   int n = 0;
-  return chain_clusters(cluster, gelu != 0, &n) == cudaSuccess ? n : -1;
+  return chain_clusters(cluster, kind, &n) == cudaSuccess ? n : -1;
 }
 
 // phases [P] (P <= 3), every field set by the wrapper; B <= 8 rows; the
@@ -566,10 +596,14 @@ extern "C" int qmm_chain_clusters(int cluster, int gelu) {
 extern "C" int qmm_chain_launch(const ChainPhase* phases, int P, int B, float eps, int cluster,
                                 void* stream) {
   if (P < 1 || P > CH_MAX_PHASES || B < 1 || B > CH_MAX_B) return (int)cudaErrorInvalidValue;
-  bool gelu = false;
-  for (int p = 0; p < P; ++p) gelu = gelu || phases[p].pre == PRE_GEGLU;
+  bool gelu = false, g16 = false;
+  for (int p = 0; p < P; ++p) {
+    gelu = gelu || phases[p].pre == PRE_GEGLU;
+    g16 = g16 || (phases[p].p4 && phases[p].gs == 16);
+  }
+  const int kind = g16 ? 2 : gelu;
   int q = 0;
-  cudaError_t err = chain_clusters(cluster, gelu, &q);
+  cudaError_t err = chain_clusters(cluster, kind, &q);
   if (err != cudaSuccess) return (int)err;
   ChainArgs a;
   ChainMaps maps;
@@ -589,7 +623,7 @@ extern "C" int qmm_chain_launch(const ChainPhase* phases, int P, int B, float ep
     const int rest = tiles % (q * (cluster / ph.split));
     if (ph.split_last != ph.split && (rest == 0 || rest > q * (cluster / ph.split_last)))
       return (int)cudaErrorInvalidValue;
-    if (ph.N % DV_TILE_N != 0 || ph.K % 256 != 0 || (ph.p4 && ph.gs != 32))
+    if (ph.N % DV_TILE_N != 0 || ph.K % 256 != 0 || (ph.p4 && ph.gs != 32 && ph.gs != 16))
       return (int)cudaErrorInvalidValue;
     a.ph[p] = ph;
     if (int rc = phase_maps(ph, B, &maps, p)) return rc;
@@ -609,7 +643,7 @@ extern "C" int qmm_chain_launch(const ChainPhase* phases, int P, int B, float ep
   at[1].val.cooperative = 1;
   cfg.attrs = at;
   cfg.numAttrs = 2;
-  err = cudaLaunchKernelEx(&cfg, chain_kernel(gelu), maps, a);
+  err = cudaLaunchKernelEx(&cfg, chain_kernel(kind), maps, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

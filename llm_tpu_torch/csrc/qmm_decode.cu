@@ -13,16 +13,18 @@ namespace {
 
 // the decode GEMV on planes qs/sc/mn (K7: layer *lidx of n_layers stacked
 // ones, qs_ls / s_ls bytes apart), K split over a cluster of `cluster` CTAs
-// (the wrapper's decode_plan). Returns 0 or an error code; the launch's
-// own error is returned too.
-template <bool P4, bool SBF16, bool MINS, int NB8, bool GDOT>
+// (the wrapper's decode_plan); G16: p4 planes at group size 16. Returns 0
+// or an error code; the launch's own error is returned too.
+template <bool P4, bool SBF16, bool MINS, int NB8, bool GDOT, bool G16>
 int launch_decode_t(cudaStream_t st, const __nv_bfloat16* x, int B, int K, const uint8_t* qs,
                     const void* sc, const void* mn, void* y, int N, int gs, int zp, int cluster,
                     int out_bf16, const int* lidx, long long qs_ls, long long s_ls,
                     int n_layers) {
-  using L = DecodeSmem<P4, SBF16, MINS>;
+  using L = DecodeSmem<P4, SBF16, MINS, G16>;
   auto kern = qmm_decode<P4, SBF16, MINS, NB8>;
-  if constexpr (GDOT) kern = qmm_decode_gdot<SBF16, MINS, NB8>;
+  if constexpr (G16) kern = GDOT ? qmm_decode_gdot_g16<SBF16, MINS, NB8>
+                                 : qmm_decode_g16<SBF16, MINS, NB8>;
+  else if constexpr (GDOT) kern = qmm_decode_gdot<SBF16, MINS, NB8>;
   static bool attr = false;
   if (!attr) {
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
@@ -60,7 +62,8 @@ int launch_decode_t(cudaStream_t st, const __nv_bfloat16* x, int B, int K, const
         SBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
     const cuuint64_t sd[3] = {(cuuint64_t)N, (cuuint64_t)G, (cuuint64_t)L_};
     const cuuint64_t sst[2] = {(cuuint64_t)N * L::ES, (cuuint64_t)a.s_ls};
-    const cuuint32_t sb[3] = {DV_TILE_N, (cuuint32_t)(P4 ? 2 : DV_UNIT_K / gs), 1};
+    const cuuint32_t sb[3] = {DV_TILE_N, (cuuint32_t)(P4 ? P4Groups<G16>::CG : DV_UNIT_K / gs),
+                              1};
     if (int rc = make_map(&ms, sdt, 3, sc, sd, sst, sb, CU_TENSOR_MAP_SWIZZLE_NONE))
       return rc;
     if (MINS)
@@ -83,16 +86,16 @@ int launch_decode_t(cudaStream_t st, const __nv_bfloat16* x, int B, int K, const
   return (int)cudaLaunchKernelEx(&cfg, kern, mx, mw, ms, mm, a);
 }
 
-template <bool P4, bool SBF16, bool MINS, bool GDOT>
+template <bool P4, bool SBF16, bool MINS, bool GDOT, bool G16>
 int launch_decode_nb(cudaStream_t st, const __nv_bfloat16* x, int B, int K, const uint8_t* qs,
                      const void* sc, const void* mn, void* y, int N, int gs, int zp,
                      int cluster, int out_bf16, const int* lidx, long long qs_ls, long long s_ls,
                      int n_layers) {
   if (B <= 8)
-    return launch_decode_t<P4, SBF16, MINS, 1, GDOT>(st, x, B, K, qs, sc, mn, y, N, gs, zp,
+    return launch_decode_t<P4, SBF16, MINS, 1, GDOT, G16>(st, x, B, K, qs, sc, mn, y, N, gs, zp,
                                                      cluster, out_bf16, lidx, qs_ls, s_ls,
                                                      n_layers);
-  return launch_decode_t<P4, SBF16, MINS, 2, GDOT>(st, x, B, K, qs, sc, mn, y, N, gs, zp,
+  return launch_decode_t<P4, SBF16, MINS, 2, GDOT, G16>(st, x, B, K, qs, sc, mn, y, N, gs, zp,
                                                    cluster, out_bf16, lidx, qs_ls, s_ls,
                                                    n_layers);
 }
@@ -103,26 +106,31 @@ inline int decode_any(const void* x, const void* qs, const void* scales, const v
                       void* y, int B, int K, int N, int gs, int zp, int p4, int scales_bf16,
                       int cluster, int out_bf16, const int* lidx, long long qs_ls,
                       long long s_ls, int n_layers, int gdot, void* stream) {
-  if (B < 1 || B > DV_MAX_B || (gdot && (!p4 || (mins != nullptr && zp != 0))))
+  if (B < 1 || B > DV_MAX_B || (gdot && (!p4 || (mins != nullptr && zp != 0))) ||
+      (p4 && gs != 32 && gs != 16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(x);
   const uint8_t* q = reinterpret_cast<const uint8_t*>(qs);
-  const bool has_m = mins != nullptr;
+  const bool has_m = mins != nullptr, g16 = p4 && gs == 16;
   int rc = 0;
-#define DV_RUN(P, S, M, G)                                                                  \
-  rc = launch_decode_nb<P, S, M, G>(st, xb, B, K, q, scales, mins, y, N, gs, zp, cluster,   \
-                                    out_bf16, lidx, qs_ls, s_ls, n_layers)
-  if (gdot) {
-    if (scales_bf16) { if (has_m) DV_RUN(true, true, true, true); else DV_RUN(true, true, false, true); }
-    else { if (has_m) DV_RUN(true, false, true, true); else DV_RUN(true, false, false, true); }
-  } else if (p4) {
-    if (scales_bf16) { if (has_m) DV_RUN(true, true, true, false); else DV_RUN(true, true, false, false); }
-    else { if (has_m) DV_RUN(true, false, true, false); else DV_RUN(true, false, false, false); }
-  } else {
-    if (scales_bf16) { if (has_m) DV_RUN(false, true, true, false); else DV_RUN(false, true, false, false); }
-    else { if (has_m) DV_RUN(false, false, true, false); else DV_RUN(false, false, false, false); }
+#define DV_RUN(P, S, M, G, W)                                                                  \
+  rc = launch_decode_nb<P, S, M, G, W>(st, xb, B, K, q, scales, mins, y, N, gs, zp, cluster,  \
+                                       out_bf16, lidx, qs_ls, s_ls, n_layers)
+#define DV_SM(P, G, W)                                                                     \
+  if (scales_bf16) {                                                                       \
+    if (has_m) DV_RUN(P, true, true, G, W); else DV_RUN(P, true, false, G, W);             \
+  } else {                                                                                 \
+    if (has_m) DV_RUN(P, false, true, G, W); else DV_RUN(P, false, false, G, W);           \
   }
+  if (gdot) {
+    if (g16) { DV_SM(true, true, true) } else { DV_SM(true, true, false) }
+  } else if (p4) {
+    if (g16) { DV_SM(true, false, true) } else { DV_SM(true, false, false) }
+  } else {
+    DV_SM(false, false, false)
+  }
+#undef DV_SM
 #undef DV_RUN
   return rc != 0 ? rc : (int)cudaGetLastError();
 }
@@ -133,8 +141,8 @@ inline int decode_any(const void* x, const void* qs, const void* scales, const v
 // scales and mins [K/gs, N] f32 or bf16 (mins may be null); y [B, N] in
 // bf16 (out_bf16) or f32. cluster: the CTAs that split K for one column
 // tile (ops/cuda_qmm.py::decode_plan). Requirements (checked by the Python
-// wrapper): p4 -> K % 256 == 0, gs 32, zp <= 15; i8 -> K % 32 == 0, gs 16
-// or 32; every pointer 16-byte aligned.
+// wrapper): p4 -> K % 256 == 0, gs 16 or 32, zp <= 15; i8 -> K % 32 == 0,
+// gs 16 or 32; every pointer 16-byte aligned.
 extern "C" int qmm_decode_launch(const void* x, const void* qs, const void* scales,
                                  const void* mins, void* y, int B, int K, int N, int gs,
                                  int zp, int p4, int scales_bf16, int cluster, int out_bf16,
@@ -158,13 +166,13 @@ extern "C" int qmm_decode_stacked_launch(const void* x, const void* qs, const vo
                     stream);
 }
 
-// K5: the group-factored decode GEMV on p4 planes (gs 32, K % 256 == 0,
-// zp <= 15, no zero point beside mins), otherwise as qmm_decode_launch
+// K5: the group-factored decode GEMV on p4 planes (gs 16 or 32, K % 256 ==
+// 0, zp <= 15, no zero point beside mins), otherwise as qmm_decode_launch
 extern "C" int qmm_gdot_decode_launch(const void* x, const void* qs, const void* scales,
-                                      const void* mins, void* y, int B, int K, int N, int zp,
-                                      int scales_bf16, int cluster, int out_bf16,
+                                      const void* mins, void* y, int B, int K, int N, int gs,
+                                      int zp, int scales_bf16, int cluster, int out_bf16,
                                       void* stream) {
-  return decode_any(x, qs, scales, mins, y, B, K, N, 32, zp, 1, scales_bf16, cluster,
+  return decode_any(x, qs, scales, mins, y, B, K, N, gs, zp, 1, scales_bf16, cluster,
                     out_bf16, nullptr, 0, 0, 1, 1, stream);
 }
 
@@ -172,10 +180,10 @@ extern "C" int qmm_gdot_decode_launch(const void* x, const void* qs, const void*
 // qmm_decode_stacked_launch
 extern "C" int qmm_gdot_decode_stacked_launch(const void* x, const void* qs, const void* scales,
                                               const void* mins, void* y, int B, int K, int N,
-                                              int zp, int scales_bf16, int cluster,
+                                              int gs, int zp, int scales_bf16, int cluster,
                                               int out_bf16, long long qs_ls, long long s_ls,
                                               int n_layers, const void* lidx, void* stream) {
-  return decode_any(x, qs, scales, mins, y, B, K, N, 32, zp, 1, scales_bf16, cluster,
+  return decode_any(x, qs, scales, mins, y, B, K, N, gs, zp, 1, scales_bf16, cluster,
                     out_bf16, reinterpret_cast<const int*>(lidx), qs_ls, s_ls, n_layers, 1,
                     stream);
 }

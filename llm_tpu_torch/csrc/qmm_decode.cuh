@@ -11,6 +11,9 @@
 // tiles: packed row t holds k = t in its low nibble and k = t + 128 in its
 // high nibble; or i8 [K, N]), s and m [K/gs, N] in bf16 or f32, and y
 // [B, N] written in f32 or bf16 (one round-to-nearest of the f32 sum).
+// p4 planes have group size 32 or 16 (Q2_K, Q3_K: the kernels
+// qmm_decode_g16 and qmm_decode_gdot_g16, the same CTA with 4 group rows of
+// scales and mins for each 64-k x chunk, each k16 step a group).
 //
 // Bound: the planes' bytes (0.5 B a weight p4, 1 B i8, plus scales and
 // mins), a few hundred times more than its operations need at B <= 16.
@@ -98,13 +101,14 @@ constexpr int DV_MAX_CLUSTER = 16;             // non-portable cluster size
 constexpr int DV_RAGGED_ARRIVALS = 33;         // lane 0's expect_tx, then all 32 lanes
 constexpr int DV_RING_MAX = 96 * 1024;         // a ring of 4 stages up to this size
 
-template <bool P4, bool SBF16, bool MINS>
+template <bool P4, bool SBF16, bool MINS, bool G16 = false>
 struct DecodeSmem {
   static constexpr int W_ROWS = P4 ? 64 : 128;          // plane rows of a stage
   static constexpr int W_BYTES = W_ROWS * DV_TILE_N;    // 128 columns of them
   static constexpr int X_CHUNK = DV_MAX_B * 64 * 2;     // 16 rows x 64 k of bf16
   static constexpr int ES = SBF16 ? 2 : 4;
-  static constexpr int G_ROWS = P4 ? 4 : 8;             // group rows (i8: gs 16 or 32)
+  // group rows (i8: gs 16 or 32)
+  static constexpr int G_ROWS = P4 ? 2 * P4Groups<G16>::CG : 8;
   static constexpr int G_BYTES = G_ROWS * DV_TILE_N * ES;
   static constexpr int X_OFF = W_BYTES;                 // 1024-aligned
   static constexpr int S_OFF = X_OFF + 2 * X_CHUNK;
@@ -191,16 +195,17 @@ __device__ __forceinline__ void dv_gather_rows(uint8_t* w, const uint8_t* qs, in
   }
 }
 
-// ... and its group rows of scales or mins (p4: two rows from each x chunk;
+// ... and its group rows of scales or mins (p4: CG rows from each x chunk;
 // i8: 128 / gs rows)
-template <bool P4, bool SBF16, bool MINS>
+template <bool P4, bool SBF16, bool MINS, bool G16 = false>
 __device__ __forceinline__ void dv_gather_groups(uint8_t* s, const void* src, int lane, int n0,
                                                  int kx0, int kx1, const DecodeArgs& a) {
-  using L = DecodeSmem<P4, SBF16, MINS>;
-  const int G = a.K / a.gs, rows = P4 ? 4 : DV_UNIT_K / a.gs;
+  using L = DecodeSmem<P4, SBF16, MINS, G16>;
+  constexpr int CG = P4Groups<G16>::CG, GS = P4Groups<G16>::GS;
+  const int G = a.K / a.gs, rows = P4 ? 2 * CG : DV_UNIT_K / a.gs;
   for (int i = lane; i < L::G_ROWS * DV_TILE_N; i += 32) {
     const int gr = i / DV_TILE_N, n = n0 + i % DV_TILE_N;
-    const int g = P4 ? (gr < 2 ? kx0 / 32 + gr : kx1 / 32 + gr - 2) : kx0 / a.gs + gr;
+    const int g = P4 ? (gr < CG ? kx0 / GS + gr : kx1 / GS + gr - CG) : kx0 / a.gs + gr;
     const bool ok = gr < rows && g < G && n < a.N;
     if (SBF16)
       reinterpret_cast<uint16_t*>(s)[i] =
@@ -212,12 +217,13 @@ __device__ __forceinline__ void dv_gather_groups(uint8_t* s, const void* src, in
 }
 
 // the producer warp: stages [u0, u1) of this CTA's column tile n0
-template <bool P4, bool SBF16, bool MINS>
+template <bool P4, bool SBF16, bool MINS, bool G16 = false>
 __device__ __forceinline__ void dv_producer(const CUtensorMap* tmx, const CUtensorMap* tmw,
                                             const CUtensorMap* tms, const CUtensorMap* tmm,
                                             const DecodeArgs& a, uint8_t* smem, uint32_t full0,
                                             uint32_t empty0, int n0, int u0, int u1) {
-  using L = DecodeSmem<P4, SBF16, MINS>;
+  using L = DecodeSmem<P4, SBF16, MINS, G16>;
+  constexpr int CG = P4Groups<G16>::CG, GS = P4Groups<G16>::GS;
   const int lane = threadIdx.x & 31;
   if (a.tma_w && lane != 0) return;
   const int layer = a.lidx != nullptr ? __ldg(a.lidx) : 0;
@@ -227,7 +233,7 @@ __device__ __forceinline__ void dv_producer(const CUtensorMap* tmx, const CUtens
       MINS ? static_cast<const void*>(static_cast<const char*>(a.mn) + (long long)layer * a.s_ls)
            : nullptr;
   const int xr = a.B > 8 ? 16 : 8;                   // x rows a chunk's box brings
-  const int g_rows = P4 ? 4 : DV_UNIT_K / a.gs;      // group rows a stage
+  const int g_rows = P4 ? 2 * CG : DV_UNIT_K / a.gs;  // group rows a stage
   const uint32_t tx = 2 * 64 * xr * 2 +
                       (a.tma_w ? L::W_BYTES + g_rows * DV_TILE_N * L::ES * (MINS ? 2 : 1) : 0);
   const uint32_t smem_a = smem_u32(smem);
@@ -248,12 +254,12 @@ __device__ __forceinline__ void dv_producer(const CUtensorMap* tmx, const CUtens
       if (a.tma_w) {
         tma_3d(st, tmw, full, n0, row0, layer);
         if (P4) {
-          const int half = 2 * DV_TILE_N * L::ES;
-          tma_3d(st + L::S_OFF, tms, full, n0, kx0 / 32, layer);
-          tma_3d(st + L::S_OFF + half, tms, full, n0, kx1 / 32, layer);
+          const int half = CG * DV_TILE_N * L::ES;
+          tma_3d(st + L::S_OFF, tms, full, n0, kx0 / GS, layer);
+          tma_3d(st + L::S_OFF + half, tms, full, n0, kx1 / GS, layer);
           if (MINS) {
-            tma_3d(st + L::M_OFF, tmm, full, n0, kx0 / 32, layer);
-            tma_3d(st + L::M_OFF + half, tmm, full, n0, kx1 / 32, layer);
+            tma_3d(st + L::M_OFF, tmm, full, n0, kx0 / GS, layer);
+            tma_3d(st + L::M_OFF + half, tmm, full, n0, kx1 / GS, layer);
           }
         } else {
           tma_3d(st + L::S_OFF, tms, full, n0, kx0 / a.gs, layer);
@@ -264,8 +270,9 @@ __device__ __forceinline__ void dv_producer(const CUtensorMap* tmx, const CUtens
     if (!a.tma_w) {
       uint8_t* stp = smem + slot * L::STAGE;
       dv_gather_rows<P4, SBF16, MINS>(stp, qs, lane, n0, row0, a);
-      dv_gather_groups<P4, SBF16, MINS>(stp + L::S_OFF, sc, lane, n0, kx0, kx1, a);
-      if (MINS) dv_gather_groups<P4, SBF16, MINS>(stp + L::M_OFF, mn, lane, n0, kx0, kx1, a);
+      dv_gather_groups<P4, SBF16, MINS, G16>(stp + L::S_OFF, sc, lane, n0, kx0, kx1, a);
+      if (MINS)
+        dv_gather_groups<P4, SBF16, MINS, G16>(stp + L::M_OFF, mn, lane, n0, kx0, kx1, a);
       mbar_arrive(full);
     }
   }
@@ -317,20 +324,24 @@ __device__ __forceinline__ void fold_group(float (&acc)[NB8][4][4], const float 
 
 // one consumer warp's share of a stage: columns col0..col0+63 of the tile.
 // GDOT (K5, p4): zp2 is 128 (the raw nibbles), zpf the zero point whose
-// correction fold_group applies; the group sums of x feed either correction
-template <bool P4, bool SBF16, bool MINS, int NB8, bool GDOT = false>
+// correction fold_group applies; the group sums of x feed either correction.
+// G16 (p4 at group size 16): every k16 step is a group of each chunk
+template <bool P4, bool SBF16, bool MINS, int NB8, bool GDOT = false, bool G16 = false>
 __device__ __forceinline__ void dv_consume(const uint8_t* stp, int col0, int gs, uint32_t zp2,
                                            float ibase, float (&acc)[NB8][4][4],
                                            float zpf = 0.f) {
   static_assert(!GDOT || P4, "K5 reads p4 planes");
-  using L = DecodeSmem<P4, SBF16, MINS>;
+  static_assert(!G16 || P4, "i8 planes take their group size at run time");
+  using L = DecodeSmem<P4, SBF16, MINS, G16>;
+  constexpr int CG = P4Groups<G16>::CG;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int c = col0 + 8 * g;  // the thread's 8 columns within the tile
   const uint32_t ones[4] = {0x3F803F80u, 0x3F803F80u, 0x3F803F80u, 0x3F803F80u};
   float s[8], m[8];
   if constexpr (P4) {
-    // 4 k16 steps of 16 packed rows: low nibbles -> chunk 0 (groups 0, 1 of
-    // the stage's rows), high nibbles -> chunk 1 (rows 2, 3)
+    // 4 k16 steps of 16 packed rows: low nibbles -> chunk 0 (the stage's
+    // group rows 0..CG-1), high nibbles -> chunk 1 (rows CG..2CG-1); a group
+    // is two steps (gs 32) or one (G16)
     float plo[NB8][4][4], phi[NB8][4][4], xlo[NB8][1][4], xhi[NB8][1][4];
 #pragma unroll
     for (int st = 0; st < 4; ++st) {
@@ -343,7 +354,7 @@ __device__ __forceinline__ void dv_consume(const uint8_t* stp, int col0, int gs,
       uint32_t b0[NB8][2], b1[NB8][2];
       ld_xfrag<NB8>(stp + L::X_OFF, 16 * st, g, t, b0);
       ld_xfrag<NB8>(stp + L::X_OFF + L::X_CHUNK, 16 * st, g, t, b1);
-      if ((st & 1) == 0) {  // a group's first step
+      if (G16 || (st & 1) == 0) {  // a group's first step
         zero_acc<NB8, 4>(plo);
         zero_acc<NB8, 4>(phi);
         zero_acc<NB8, 1>(xlo);
@@ -375,13 +386,13 @@ __device__ __forceinline__ void dv_consume(const uint8_t* stp, int col0, int gs,
           mma_bf16(xhi[nb][0], ones, b1[nb][0], b1[nb][1]);
         }
       }
-      if (st & 1) {  // the end of a 32-row group: its scale (and min) once
-        const int gr = st >> 1;
+      if (G16 || (st & 1)) {  // the end of a group: its scale (and min) once
+        const int gr = G16 ? st : st >> 1;
         ld_eight<SBF16>(stp + L::S_OFF + gr * DV_TILE_N * L::ES, c, s);
         if (MINS) ld_eight<SBF16>(stp + L::M_OFF + gr * DV_TILE_N * L::ES, c, m);
         fold_group<NB8, MINS, GDOT>(acc, plo, xlo, s, m, zpf);
-        ld_eight<SBF16>(stp + L::S_OFF + (2 + gr) * DV_TILE_N * L::ES, c, s);
-        if (MINS) ld_eight<SBF16>(stp + L::M_OFF + (2 + gr) * DV_TILE_N * L::ES, c, m);
+        ld_eight<SBF16>(stp + L::S_OFF + (CG + gr) * DV_TILE_N * L::ES, c, s);
+        if (MINS) ld_eight<SBF16>(stp + L::M_OFF + (CG + gr) * DV_TILE_N * L::ES, c, m);
         fold_group<NB8, MINS, GDOT>(acc, phi, xhi, s, m, zpf);
       }
     }
@@ -436,12 +447,13 @@ __device__ __forceinline__ void dv_consume(const uint8_t* stp, int col0, int gs,
 }
 
 // a CTA of the grid (cluster size C, column tiles); the C CTAs of a
-// cluster split K. GDOT: K5's group-factored sum (dv_consume)
-template <bool P4, bool SBF16, bool MINS, int NB8, bool GDOT>
+// cluster split K. GDOT: K5's group-factored sum (dv_consume); G16: p4
+// planes at group size 16
+template <bool P4, bool SBF16, bool MINS, int NB8, bool GDOT, bool G16 = false>
 __device__ __forceinline__ void dv_cta(const CUtensorMap& tmx, const CUtensorMap& tmw,
                                        const CUtensorMap& tms, const CUtensorMap& tmm,
                                        const DecodeArgs& a) {
-  using L = DecodeSmem<P4, SBF16, MINS>;
+  using L = DecodeSmem<P4, SBF16, MINS, G16>;
   extern __shared__ uint8_t dyn_smem[];
   __shared__ __align__(8) uint64_t bars[8];  // full[0..3], empty[4..7]
   const uint32_t raw = smem_u32(dyn_smem);
@@ -470,7 +482,8 @@ __device__ __forceinline__ void dv_cta(const CUtensorMap& tmx, const CUtensorMap
       for (int e = 0; e < 4; ++e) acc[nb][j][e] = 0.f;
   const int cw = warp & 1, kw = warp >> 1;
   if (warp == 4) {
-    dv_producer<P4, SBF16, MINS>(&tmx, &tmw, &tms, &tmm, a, smem, full0, empty0, n0, u0, u1);
+    dv_producer<P4, SBF16, MINS, G16>(&tmx, &tmw, &tms, &tmm, a, smem, full0, empty0, n0, u0,
+                                      u1);
   } else {
     // p4: 128 + zp as a bf16 pair (K5: 128, the raw nibbles); i8: 2^23 + 128 + zp
     const uint32_t zb = 0x4300u | (uint32_t)(GDOT ? 0 : a.zp);  // exact for zp <= 15
@@ -479,8 +492,8 @@ __device__ __forceinline__ void dv_cta(const CUtensorMap& tmx, const CUtensorMap
     for (int j = kw; j < u1 - u0; j += 2) {
       const int slot = j % L::STAGES;
       mbar_wait(full0 + 8 * slot, (j / L::STAGES) & 1);
-      dv_consume<P4, SBF16, MINS, NB8, GDOT>(smem + slot * L::STAGE, 64 * cw, a.gs, zp2, ibase,
-                                             acc, GDOT ? (float)a.zp : 0.f);
+      dv_consume<P4, SBF16, MINS, NB8, GDOT, G16>(smem + slot * L::STAGE, 64 * cw, a.gs, zp2,
+                                                  ibase, acc, GDOT ? (float)a.zp : 0.f);
       __syncwarp();
       if (lane == 0) mbar_arrive(empty0 + 8 * slot);
     }
@@ -544,6 +557,26 @@ qmm_decode_gdot(const __grid_constant__ CUtensorMap tmx, const __grid_constant__
                 const __grid_constant__ CUtensorMap tms, const __grid_constant__ CUtensorMap tmm,
                 const DecodeArgs a) {
   dv_cta<true, SBF16, MINS, NB8, true>(tmx, tmw, tms, tmm, a);
+}
+
+// K1/K7 (and, GDOT, K5 and K7's K5 variant) on p4 planes at group size 16
+// (Q2_K, Q3_K): the same CTA with a group every k16 step, kernels of their
+// own so that the group-size-32 ones keep their machine code
+template <bool SBF16, bool MINS, int NB8>
+__global__ void __launch_bounds__(DV_THREADS, NB8 == 1 ? 3 : 2)
+qmm_decode_g16(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
+               const __grid_constant__ CUtensorMap tms, const __grid_constant__ CUtensorMap tmm,
+               const DecodeArgs a) {
+  dv_cta<true, SBF16, MINS, NB8, false, true>(tmx, tmw, tms, tmm, a);
+}
+
+template <bool SBF16, bool MINS, int NB8>
+__global__ void __launch_bounds__(DV_THREADS, NB8 == 1 ? 3 : 2)
+qmm_decode_gdot_g16(const __grid_constant__ CUtensorMap tmx,
+                    const __grid_constant__ CUtensorMap tmw,
+                    const __grid_constant__ CUtensorMap tms,
+                    const __grid_constant__ CUtensorMap tmm, const DecodeArgs a) {
+  dv_cta<true, SBF16, MINS, NB8, true, true>(tmx, tmw, tms, tmm, a);
 }
 
 }  // namespace

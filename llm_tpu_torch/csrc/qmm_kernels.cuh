@@ -47,14 +47,15 @@ struct Stack {
 };
 
 // returns 0, or the prefill GEMM's host-side error code; B <= 16 runs
-// qmm_decode.cu's kernels and is refused here
-template <bool P4, bool SBF16, bool MINS, bool STACKED>
+// qmm_decode.cu's kernels and is refused here; G16: p4 planes at group size 16
+template <bool P4, bool SBF16, bool MINS, bool STACKED, bool G16>
 int run(cudaStream_t st, const __nv_bfloat16* x, int B, int K,
         const uint8_t* qs, const void* sc, const void* mn, float* y, int N,
         int gs, int zp, Stack sk, int split, int n_layers) {
   if (B <= 16) return (int)cudaErrorInvalidValue;
-  return launch_gemm<P4, SBF16, MINS>(st, x, B, K, qs, sc, mn, y, N, gs, zp, split,
-                                      STACKED ? sk.lidx : nullptr, sk.qs_ls, sk.s_ls, n_layers);
+  return launch_gemm<P4, SBF16, MINS, G16>(st, x, B, K, qs, sc, mn, y, N, gs, zp, split,
+                                           STACKED ? sk.lidx : nullptr, sk.qs_ls, sk.s_ls,
+                                           n_layers);
 }
 
 // K1/K2 (K7 with STACKED) at B > 16 on any planes: the launch the entry points share
@@ -67,15 +68,25 @@ int qmm_any(const void* x, const void* qs, const void* scales, const void* mins,
   const uint8_t* q = reinterpret_cast<const uint8_t*>(qs);
   float* yf = reinterpret_cast<float*>(y);
   const bool has_m = mins != nullptr;
+  if (p4 && gs != 32 && gs != 16) return (int)cudaErrorInvalidValue;
   int rc = 0;
-#define QMM_RUN(P, S, M) rc = run<P, S, M, STACKED>(st, xb, B, K, q, scales, mins, yf, N, gs, zp, sk, split, n_layers)
-  if (p4) {
-    if (scales_bf16) { if (has_m) QMM_RUN(true, true, true); else QMM_RUN(true, true, false); }
-    else { if (has_m) QMM_RUN(true, false, true); else QMM_RUN(true, false, false); }
-  } else {
-    if (scales_bf16) { if (has_m) QMM_RUN(false, true, true); else QMM_RUN(false, true, false); }
-    else { if (has_m) QMM_RUN(false, false, true); else QMM_RUN(false, false, false); }
+#define QMM_RUN(P, S, M, G)                                                                  \
+  rc = run<P, S, M, STACKED, G>(st, xb, B, K, q, scales, mins, yf, N, gs, zp, sk, split,   \
+                                n_layers)
+#define QMM_SM(P, G)                                                                         \
+  if (scales_bf16) {                                                                         \
+    if (has_m) QMM_RUN(P, true, true, G); else QMM_RUN(P, true, false, G);                   \
+  } else {                                                                                   \
+    if (has_m) QMM_RUN(P, false, true, G); else QMM_RUN(P, false, false, G);                 \
   }
+  if (p4 && gs == 16) {
+    QMM_SM(true, true)
+  } else if (p4) {
+    QMM_SM(true, false)
+  } else {
+    QMM_SM(false, false)
+  }
+#undef QMM_SM
 #undef QMM_RUN
   return rc != 0 ? rc : (int)cudaGetLastError();
 }

@@ -31,8 +31,8 @@ import torch
 from ..gguf.constants import GGMLType
 from ..gguf.reader import GGUFReader
 from ..quant.codecs import dequantize_dense
-from ..quant.qtensor import (PLANE_TYPES, QTensor, concat_qtensors, expert_qtensor_from_gguf,
-                             qtensor_from_gguf)
+from ..quant.qtensor import (PLANE_TYPES, QTensor, concat_qtensors, dequantize_qtensor,
+                             expert_qtensor_from_gguf, qtensor_from_gguf)
 from .config import ModelConfig, config_from_gguf
 
 _BLK_RE = re.compile(r"^blk\.(\d+)\.(.+?)\.(weight|bias)$")
@@ -55,28 +55,42 @@ def _vector(reader: GGUFReader, name: str, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(device)
 
 
-def _matrix(reader: GGUFReader, name: str, dense_dtype, device,
-            kmajor: bool = True):
+def _dense(reader: GGUFReader, name: str, dense_dtype, device) -> torch.Tensor:
+    """A dense tensor in numpy order [(E,) N, K]: F32/F16/BF16 as stored, a
+    quantized type dequantized in f32 from its planes (q - zp) * s - m (the
+    reference's use_planes=False, llm_tpu/models/loader.py::_to_dense)."""
     ti = reader.tensors[name]
-    if ti.ggml_type in PLANE_TYPES and len(ti.shape) == 2:
+    if ti.ggml_type in _DENSE:
+        arr = torch.from_numpy(np.ascontiguousarray(
+            dequantize_dense(reader.data(name), ti.ggml_type, ti.shape)))
+    elif ti.ggml_type in PLANE_TYPES:
+        shape = tuple(int(d) for d in ti.shape)
+        qt = (expert_qtensor_from_gguf(reader.data(name), ti.ggml_type, shape)
+              if len(shape) == 3 else
+              qtensor_from_gguf(reader.data(name), ti.ggml_type, shape, kmajor=False))
+        arr = dequantize_qtensor(qt)
+    else:
+        raise NotImplementedError(f"{name}: type {ti.ggml_type.name} is not on the port's path")
+    return arr.to(device, dense_dtype)
+
+
+def _matrix(reader: GGUFReader, name: str, dense_dtype, device,
+            kmajor: bool = True, use_planes: bool = True):
+    ti = reader.tensors[name]
+    if use_planes and ti.ggml_type in PLANE_TYPES and len(ti.shape) == 2:
         return qtensor_from_gguf(reader.data(name), ti.ggml_type, ti.shape,
                                  device=device, kmajor=kmajor)
-    if ti.ggml_type in _DENSE:
-        arr = dequantize_dense(reader.data(name), ti.ggml_type, ti.shape)
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(device, dense_dtype)
-    raise NotImplementedError(f"{name}: type {ti.ggml_type.name} is not on the port's path")
+    return _dense(reader, name, dense_dtype, device)
 
 
-def _expert_stack(reader: GGUFReader, name: str, dense_dtype, device):
+def _expert_stack(reader: GGUFReader, name: str, dense_dtype, device,
+                  use_planes: bool = True):
     """A 3-D expert stack ne = (K, N, E): stacked-expert planes, or dense
     [E, N, K]."""
     ti = reader.tensors[name]
-    if ti.ggml_type in PLANE_TYPES:
+    if use_planes and ti.ggml_type in PLANE_TYPES:
         return expert_qtensor_from_gguf(reader.data(name), ti.ggml_type, ti.shape, device=device)
-    if ti.ggml_type in _DENSE:
-        arr = dequantize_dense(reader.data(name), ti.ggml_type, ti.shape)
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(device, dense_dtype)
-    raise NotImplementedError(f"{name}: type {ti.ggml_type.name} is not on the port's path")
+    return _dense(reader, name, dense_dtype, device)
 
 
 def fuse_projections(layers: list[dict]) -> None:
@@ -147,9 +161,12 @@ def scan_stack(layers: list[dict], cfg: ModelConfig) -> dict | None:
 
 
 def load_params(reader: GGUFReader, dense_dtype=torch.bfloat16, device="cuda",
-                fuse: bool = True, scan_layers: bool = False) -> tuple[dict, ModelConfig]:
+                fuse: bool = True, scan_layers: bool = False,
+                use_planes: bool = True) -> tuple[dict, ModelConfig]:
     """Returns (params, cfg); the layout is documented in
-    models/transformer.py::forward. scan_layers: stack uniform layers into
+    models/transformer.py::forward. use_planes False: every quantized
+    matrix dequantized to dense dense_dtype at load (the CLI's --no-planes).
+    scan_layers: stack uniform layers into
     params["layers_stacked"] (params["layers"] then empty); layers that
     scan_stack refuses stay per layer, as in the reference."""
     cfg = config_from_gguf(reader)
@@ -160,9 +177,10 @@ def load_params(reader: GGUFReader, dense_dtype=torch.bfloat16, device="cuda",
         if m:
             il, base, kind = int(m.group(1)), m.group(2), m.group(3)
             if kind == "weight" and base in _LAYER_MATS:
-                layers[il][base] = _matrix(reader, name, dense_dtype, device)
+                layers[il][base] = _matrix(reader, name, dense_dtype, device,
+                                           use_planes=use_planes)
             elif kind == "weight" and base in _LAYER_STACKS:
-                layers[il][base] = _expert_stack(reader, name, dense_dtype, device)
+                layers[il][base] = _expert_stack(reader, name, dense_dtype, device, use_planes)
             elif kind == "weight" and base in _LAYER_VECS:
                 layers[il][base] = _vector(reader, name, device)
             elif kind == "bias" and base in _LAYER_BIASES:
@@ -170,9 +188,11 @@ def load_params(reader: GGUFReader, dense_dtype=torch.bfloat16, device="cuda",
             else:
                 raise NotImplementedError(f"{name}: not on the port's llama path")
         elif name == "token_embd.weight":
-            params["tok_embd"] = _matrix(reader, name, dense_dtype, device, kmajor=False)
+            params["tok_embd"] = _matrix(reader, name, dense_dtype, device, kmajor=False,
+                                         use_planes=use_planes)
         elif name == "output.weight":
-            params["output"] = _matrix(reader, name, dense_dtype, device)
+            params["output"] = _matrix(reader, name, dense_dtype, device,
+                                       use_planes=use_planes)
         elif name == "output_norm.weight":
             params["output_norm"] = _vector(reader, name, device)
         elif name == "rope_freqs.weight":

@@ -18,6 +18,7 @@ import torch
 from ..device import resolve_device
 from ..gguf.constants import GGMLType
 from ..ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NORM, RopeParams
+from ..quant.codecs import KVALUES_IQ4NL
 from ..quant.qtensor import QTensor, pack_p4, pack_p4_kmajor
 from .config import BAICHUAN_13B_LAYERS, ModelConfig, alibi_profile
 from .loader import fuse_projections
@@ -71,8 +72,9 @@ def _gs(qtype) -> int:
     return 16 if qtype in (GGMLType.Q6_K, GGMLType.Q2_K, GGMLType.Q3_K) else 32
 
 
-# the block (weights a block along K) of the types the recipe writes
-_BLOCK = {GGMLType.Q4_K: 256, GGMLType.Q6_K: 256, GGMLType.Q8_0: 32}
+# the block (weights a block along K) of the types the recipes write
+_BLOCK = {GGMLType.Q2_K: 256, GGMLType.Q3_K: 256, GGMLType.Q4_K: 256, GGMLType.Q5_K: 256,
+          GGMLType.Q6_K: 256, GGMLType.Q8_0: 32}
 
 
 def fallback_type(qtype: GGMLType, k: int) -> GGMLType:
@@ -81,6 +83,45 @@ def fallback_type(qtype: GGMLType, k: int) -> GGMLType:
     llm_tpu/tools/quantize.py:141-147, whose F16 step no K of a
     supported model reaches)."""
     return qtype if k % _BLOCK.get(qtype, 32) == 0 else GGMLType.Q8_0
+
+
+# the recipes a synthetic model or file may follow, and their base type
+RECIPES = {"Q4_K_M": GGMLType.Q4_K, "Q3_K_M": GGMLType.Q3_K, "Q2_K": GGMLType.Q2_K}
+
+
+def tensor_type_for(name: str, k: int, recipe: str, i_layer: int, n_layers: int,
+                    n_gqa: int = 1, n_expert: int = 0, has_output: bool = True) -> GGMLType:
+    """The type llama.cpp's recipe gives tensor `name` (a GGUF name, or its
+    suffix: "attn_v.weight", "ffn_down_exps.weight", ...) of K inputs in
+    layer i_layer: the port's own copy of the Q4_K_M, Q3_K_M and Q2_K
+    branches of llm_tpu/tools/quantize.py::tensor_type_for, n_gqa the
+    query heads a KV head, has_output False for a tied embedding table
+    (then "token_embd.weight" is the output)."""
+    base = RECIPES[recipe]
+    t = base
+    more = use_more_bits(i_layer, n_layers)
+    if name == "output.weight" or (not has_output and name == "token_embd.weight"):
+        t = GGMLType.Q6_K
+    elif "attn_v.weight" in name:
+        if recipe == "Q2_K":
+            t = GGMLType.Q4_K if n_gqa >= 4 else GGMLType.Q3_K
+        elif recipe == "Q3_K_M":
+            t = GGMLType.Q5_K if i_layer < 2 else GGMLType.Q4_K
+        elif more:
+            t = GGMLType.Q6_K
+        if n_expert == 8:
+            t = GGMLType.Q8_0
+    elif "ffn_down" in name:
+        if recipe == "Q2_K":
+            t = GGMLType.Q3_K if more else base
+        elif recipe == "Q3_K_M":
+            t = GGMLType.Q4_K if i_layer < 2 else base
+        elif more:
+            t = GGMLType.Q6_K
+    elif "attn_qkv.weight" in name:
+        t = GGMLType.Q5_K if recipe == "Q4_K_M" else (
+            GGMLType.Q4_K if recipe == "Q3_K_M" else base)
+    return fallback_type(t, k)
 
 
 def synthetic_qtensor(rng: np.random.Generator, n: int, k: int,
@@ -128,12 +169,18 @@ def device_synthetic_qtensor(gen: torch.Generator, n: int, k: int,
                              qtype: GGMLType = GGMLType.Q4_K,
                              scales_dtype=torch.bfloat16, kmajor: bool = True,
                              pack_tk: int = 256) -> QTensor:
-    """Random planes made on gen's device: Q4_K as random packed nibbles
-    with scales and mins, other types as int8 planes in [-31, 31]. Each
-    group's weights have mean zero (Q4_K: mins = 7.5 * scales, the mean of
-    a nibble), as trained weights nearly do; a shared nonzero mean would add
-    the same component to every row's logits and pin greedy decoding to one
-    token."""
+    """Random planes made on gen's device, in the layout that loading a
+    file of qtype gives: Q4_K as random packed nibbles with scales and
+    mins; Q2_K (values 0..3, with mins) and Q3_K (-4..3, zero point 4) as
+    nibble planes at group size 16; Q5_K, Q5_1 (0..31, with mins), Q5_0
+    (-16..15), IQ4_NL and IQ4_XS (the IQ4 codebook's values) as int8
+    planes; other types as int8 planes in [-31, 31]. Each group's weights
+    have mean zero (mins = the mean value times the scale), as trained
+    weights nearly do; a shared nonzero mean would add the same component
+    to every row's logits and pin greedy decoding to one token. Types
+    without mins whose values have a nonzero mean (Q3_K, Q5_0, the IQ4
+    codebook) take scales of random sign, as Q3_K's signed 6-bit scales
+    have, so that the means cancel between groups."""
     dev = gen.device
     gs = _gs(qtype)
     scale_mag = 0.02 / np.sqrt(k) * 8
@@ -143,13 +190,36 @@ def device_synthetic_qtensor(gen: torch.Generator, n: int, k: int,
         u = torch.rand(gshape, generator=gen, device=dev, dtype=torch.float32)
         return ((lo + (hi - lo) * u) * mag).to(scales_dtype)
 
+    def signed(s):
+        flip = torch.randint(0, 2, gshape, generator=gen, device=dev, dtype=torch.int8)
+        return torch.where(flip.bool(), -s, s)
+
+    def with_mean(s, mean):
+        return (s.float() * mean).to(scales_dtype)
+
     scales = uniform(0.2, 1.0, scale_mag)
-    if qtype == GGMLType.Q4_K:
+    if qtype in (GGMLType.Q4_K, GGMLType.Q2_K, GGMLType.Q3_K):
         qshape = (k // 2, n) if kmajor else (n, k // 2)
         qs = torch.randint(0, 256, qshape, generator=gen, device=dev, dtype=torch.uint8)
-        mins = (scales.float() * 7.5).to(scales_dtype)
-        return QTensor(qs, scales, mins, gs, qtype, "p4", 0, pack_tk, kmajor)
+        if qtype == GGMLType.Q4_K:
+            return QTensor(qs, scales, with_mean(scales, 7.5), gs, qtype, "p4", 0, pack_tk,
+                           kmajor)
+        if qtype == GGMLType.Q2_K:
+            return QTensor(qs & 0x33, scales, with_mean(scales, 1.5), gs, qtype, "p4", 0,
+                           pack_tk, kmajor)
+        return QTensor(qs & 0x77, signed(scales), None, gs, qtype, "p4", 4, pack_tk, kmajor)
     qshape = (k, n) if kmajor else (n, k)
+    if qtype in (GGMLType.Q5_K, GGMLType.Q5_1):
+        qs = torch.randint(0, 32, qshape, generator=gen, device=dev, dtype=torch.int8)
+        return QTensor(qs, scales, with_mean(scales, 15.5), gs, qtype, "i8", 0, pack_tk,
+                       kmajor)
+    if qtype == GGMLType.Q5_0:
+        qs = torch.randint(-16, 16, qshape, generator=gen, device=dev, dtype=torch.int8)
+        return QTensor(qs, signed(scales), None, gs, qtype, "i8", 0, pack_tk, kmajor)
+    if qtype in (GGMLType.IQ4_NL, GGMLType.IQ4_XS):
+        idx = torch.randint(0, 16, qshape, generator=gen, device=dev, dtype=torch.int64)
+        book = torch.from_numpy(KVALUES_IQ4NL).to(dev, torch.int8)
+        return QTensor(book[idx], signed(scales), None, gs, qtype, "i8", 0, pack_tk, kmajor)
     qs = torch.randint(-31, 32, qshape, generator=gen, device=dev, dtype=torch.int8)
     return QTensor(qs, scales, None, gs, qtype, "i8", 0, pack_tk, kmajor)
 
@@ -275,9 +345,18 @@ def make_synthetic_model(n_embd: int = 64, n_layers: int = 2, n_heads: int = 8,
                          ) -> tuple[dict, ModelConfig]:
     """(params, cfg) for a llama-shaped model with random weights, on
     `device` (None = the card; pass "cpu" for the host).
-    qtype None gives dense weights in `dtype`. recipe "Q4_K_M" mixes types
-    as a Q4_K_M file does: Q6_K for the lm_head and for attn_v and ffn_down
-    of the use_more_bits layers (those layers' QKV then stays unfused).
+    qtype None gives dense weights in `dtype`. recipe "Q4_K_M", "Q3_K_M"
+    or "Q2_K" mixes types as such a file does (tensor_type_for at the
+    model's n_heads / n_kv_heads; qtype then only says that the model is
+    quantized): Q4_K_M is Q4_K with Q6_K for the lm_head and for attn_v and
+    ffn_down of the use_more_bits layers (those layers' QKV then stays
+    unfused); Q3_K_M is Q3_K with attn_v Q5_K in layers 0-1 and Q4_K
+    after, ffn_down Q4_K in layers 0-1, a Q6_K lm_head; Q2_K is Q2_K with
+    attn_v Q4_K (at 4 or more query heads a KV head), ffn_down Q3_K in the
+    use_more_bits layers, a Q6_K lm_head. On the card (on_device) Q2_K and
+    Q3_K are nibble planes at group size 16 (device_synthetic_qtensor);
+    the host draws follow the JAX package's, which makes int8 planes of
+    every type but Q4_0, Q4_1 and Q4_K.
     head_dim_v: V's head dim where it differs from K's (MLA's 128 beside
     192), for attn_v's rows and attn_output's columns. arch "gemma2":
     gemma2_config (swa_window its window), a post-norm after attention and
@@ -297,7 +376,7 @@ def make_synthetic_model(n_embd: int = 64, n_layers: int = 2, n_heads: int = 8,
     use_more_bits layers) or dense [E, N, K], in place of the FFN. With the
     recipe a matrix whose K its type's block does not divide takes Q8_0
     (fallback_type; Baichuan-13B's ffn_down, K = 13696)."""
-    if recipe not in (None, "Q4_K_M"):
+    if recipe is not None and recipe not in RECIPES:
         raise ValueError(f"unknown recipe {recipe!r}")
     if arch not in ("llama", "gemma", "gemma2", "baichuan", "refact", "qwen2", "qwen3moe"):
         raise ValueError(f"unknown arch {arch!r}")
@@ -326,10 +405,11 @@ def make_synthetic_model(n_embd: int = 64, n_layers: int = 2, n_heads: int = 8,
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
 
-    def mat(n, k, kmajor=True, six_bit=False):
-        qt = GGMLType.Q6_K if (six_bit and recipe and qtype is not None) else qtype
-        if recipe and qt is not None:
-            qt = fallback_type(qt, k)
+    def mat(n, k, kmajor=True, name=None, il=0):
+        qt = qtype
+        if recipe and qt is not None and name is not None:
+            qt = tensor_type_for(name, k, recipe, il, n_layers, n_heads // n_kv_heads,
+                                 n_expert, has_output=not tied)
         if on_device:
             if qt is None:
                 w = torch.randn((n, k), generator=gen, device=device) * 0.02
@@ -350,33 +430,37 @@ def make_synthetic_model(n_embd: int = 64, n_layers: int = 2, n_heads: int = 8,
             w = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32) * std)
         return w.to(device, dt or dtype)
 
-    def stack(n, k, six_bit=False):  # n_expert experts of [n, k], rows layout
-        w = mat(n * n_expert, k, kmajor=False, six_bit=six_bit)
+    def stack(n, k, name, il):  # n_expert experts of [n, k], rows layout
+        w = mat(n * n_expert, k, kmajor=False, name=name, il=il)
         if isinstance(w, QTensor):
             return w.map(lambda t: t.reshape(n_expert, n, -1))
         return w.reshape(n_expert, n, k)
 
     layers = []
     for il in range(n_layers):
-        more = use_more_bits(il, n_layers)
+        def lmat(key, n, k):
+            return mat(n, k, name=f"blk.{il}.{key}.weight", il=il)
+
         layers.append({
             "attn_norm": vec(n_embd),
-            "attn_q": mat(n_heads * hd, n_embd),
-            "attn_k": mat(n_kv_heads * hd, n_embd),
-            "attn_v": mat(n_kv_heads * hdv, n_embd, six_bit=more),
-            "attn_output": mat(n_embd, n_heads * hdv),
+            "attn_q": lmat("attn_q", n_heads * hd, n_embd),
+            "attn_k": lmat("attn_k", n_kv_heads * hd, n_embd),
+            "attn_v": lmat("attn_v", n_kv_heads * hdv, n_embd),
+            "attn_output": lmat("attn_output", n_embd, n_heads * hdv),
             "ffn_norm": vec(n_embd),
         })
         if moe:
             layers[-1].update(
                 attn_q_norm=vec(hd), attn_k_norm=vec(hd),
                 ffn_gate_inp=dense(n_expert, n_embd),
-                ffn_gate_exps=stack(n_ff_expert, n_embd),
-                ffn_up_exps=stack(n_ff_expert, n_embd),
-                ffn_down_exps=stack(n_embd, n_ff_expert, six_bit=more))
+                ffn_gate_exps=stack(n_ff_expert, n_embd, f"blk.{il}.ffn_gate_exps.weight", il),
+                ffn_up_exps=stack(n_ff_expert, n_embd, f"blk.{il}.ffn_up_exps.weight", il),
+                ffn_down_exps=stack(n_embd, n_ff_expert, f"blk.{il}.ffn_down_exps.weight",
+                                    il))
         else:
-            layers[-1].update(ffn_gate=mat(n_ff, n_embd), ffn_up=mat(n_ff, n_embd),
-                              ffn_down=mat(n_embd, n_ff, six_bit=more))
+            layers[-1].update(ffn_gate=lmat("ffn_gate", n_ff, n_embd),
+                              ffn_up=lmat("ffn_up", n_ff, n_embd),
+                              ffn_down=lmat("ffn_down", n_embd, n_ff))
         if arch == "gemma2":
             layers[-1].update(attn_post_norm=vec(n_embd), ffn_post_norm=vec(n_embd))
         if arch == "qwen2":
@@ -385,10 +469,10 @@ def make_synthetic_model(n_embd: int = 64, n_layers: int = 2, n_heads: int = 8,
                 layers[-1][key] = dense(1, n, std=0.1, dt=torch.float32)[0]
         if fuse and qtype is not None:
             fuse_projections(layers[-1:])
+    tok = mat(vocab, n_embd, kmajor=False, name="token_embd.weight")
     if tied:  # the lm_head is the embedding table
-        tok = mat(vocab, n_embd, kmajor=False, six_bit=True)
         out = kmajor_copy(tok) if isinstance(tok, QTensor) else tok
     else:
-        tok, out = mat(vocab, n_embd, kmajor=False), mat(vocab, n_embd, six_bit=True)
+        out = mat(vocab, n_embd, name="output.weight")
     params = {"layers": layers, "tok_embd": tok, "output": out, "output_norm": vec(n_embd)}
     return params, cfg

@@ -9,7 +9,7 @@ scalar-prefetch index maps pick the layer's blocks).
 x is rounded to the compute dtype (bf16 on the card), weights are
 dequantized in f32 as (q - zp) * s, and the mins correction uses the f32
 group sums of the rounded x. K5 computes the same sum as the TPU's gdot
-kernel does: per 32-group the dot of x with the raw nibbles, times s[g] in
+kernel does: per quant group the dot of x with the raw nibbles, times s[g] in
 f32, then the mins and zero-point terms from the group sums of x, their
 operands rounded to the compute dtype. `qmm_plain` / `qmm_gdot_plain` are
 these functions step by step in PyTorch. `qmm_cuda` launches, at B <= 16,
@@ -24,9 +24,10 @@ plain version is theirs on the layer's copy (`qmm_stacked_plain`), and
 `qmm_stacked_cuda` launches the same kernels (the decode GEMV's stacked
 entry points; the GEMM built apart, from csrc/qmm_stacked.cu) with the
 stacked base pointers, the per-layer strides and a pointer to the device
-index, which every CTA reads once. `quant_matmul` dispatches on the device
-of x: CPU tensors take the plain version, CUDA tensors the kernel (which
-raises rather than fall back).
+index, which every CTA reads once. Nibble planes have group size 32 or 16
+(Q2_K, Q3_K: kernels of their own, counted as K1_gs16, K5_gs16, K7_gs16).
+`quant_matmul` dispatches on the device of x: CPU tensors take the plain
+version, CUDA tensors the kernel (which raises rather than fall back).
 """
 
 from __future__ import annotations
@@ -39,8 +40,10 @@ from ..device import full_f32
 from ..quant.qtensor import QTensor, StackedWeight, slice_stacked
 from . import cuda_build
 
-# launches of each kernel, counted where the wrapper launches it
-LAUNCHES = {"K1": 0, "K2": 0, "K5": 0, "K7": 0}
+# launches of each kernel, counted where the wrapper launches it; on nibble
+# planes at group size 16 (Q2_K, Q3_K) K1, K5 and K7 run kernels of their
+# own (qmm_decode_g16, qmm_decode_gdot_g16, qmm_wgmma_g16), counted apart
+LAUNCHES = {"K1": 0, "K2": 0, "K5": 0, "K7": 0, "K1_gs16": 0, "K5_gs16": 0, "K7_gs16": 0}
 # rows up to which the reference takes the group-factored path (and up to
 # which K1/K2/K5/K7 run the decode GEMV, csrc/qmm_decode.cu)
 GDOT_MAX_B = 16
@@ -190,8 +193,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {"qmm_decode": {"qmm_decode_launch": [_P] * 5 + [_I] * 9 + [_P],
                             "qmm_decode_stacked_launch": [_P] * 5 + [_I] * 9
                             + [_L, _L, _I, _P, _P],
-                            "qmm_gdot_decode_launch": [_P] * 5 + [_I] * 7 + [_P],
-                            "qmm_gdot_decode_stacked_launch": [_P] * 5 + [_I] * 7
+                            "qmm_gdot_decode_launch": [_P] * 5 + [_I] * 8 + [_P],
+                            "qmm_gdot_decode_stacked_launch": [_P] * 5 + [_I] * 8
                             + [_L, _L, _I, _P, _P]},
              "qmm": {"qmm_launch": [_P] * 5 + [_I] * 8 + [_P]},
              "qmm_stacked": {"qmm_stacked_launch": [_P] * 5 + [_I] * 8 + [_L, _L, _I, _P, _P]}}
@@ -225,7 +228,7 @@ def check_planes(qt: QTensor, B: int, K: int) -> None:
     if qt.mins is not None and qt.mins.dtype != sdt:
         raise ValueError("qmm_cuda: scales and mins must share a dtype")
     if p4:
-        ok = qt.qs.dtype == torch.uint8 and qt.group_size == 32 and qt.pack_tk == 256 \
+        ok = qt.qs.dtype == torch.uint8 and qt.group_size in (16, 32) and qt.pack_tk == 256 \
             and K % 256 == 0
     else:
         ok = qt.qs.dtype == torch.int8 and qt.group_size in (16, 32) and K % 32 == 0
@@ -250,6 +253,14 @@ def _out(B: int, N: int, x: torch.Tensor, out_dtype) -> tuple[torch.Tensor, int]
     bf16 = out_dtype == torch.bfloat16
     return torch.empty((B, N), dtype=torch.bfloat16 if bf16 else torch.float32,
                        device=x.device), int(bf16)
+
+
+def kernel_name(name: str, qt: QTensor) -> str:
+    """The LAUNCHES key of K1, K5 or K7 on these planes: the group-size-16
+    form's on such nibble planes (Q2_K, Q3_K), K2 for K1 on int8 planes."""
+    if qt.layout != "p4":
+        return "K2" if name == "K1" else name
+    return f"{name}_gs16" if qt.group_size == 16 else name
 
 
 def _cast(y: torch.Tensor, out_dtype) -> torch.Tensor:
@@ -289,9 +300,9 @@ def _qmm_launch(x: torch.Tensor, qt: QTensor, gdot: bool, split: int | None,
         y, obf16 = _out(B, N, x, out_dtype)
         rc = _lib("qmm_decode").qmm_gdot_decode_launch(
             x.data_ptr(), qt.qs.data_ptr(), qt.scales.data_ptr(), mins, y.data_ptr(), B, K, N,
-            qt.zp, sbf16, split, obf16, stream)
+            qt.group_size, qt.zp, sbf16, split, obf16, stream)
         cuda_build.check(rc, "qmm_gdot_decode_launch")
-        LAUNCHES["K5"] += 1
+        LAUNCHES[kernel_name("K5", qt)] += 1
         return _cast(y, out_dtype)
     if B <= GDOT_MAX_B:
         _check_decode(qt)
@@ -306,7 +317,7 @@ def _qmm_launch(x: torch.Tensor, qt: QTensor, gdot: bool, split: int | None,
                                y.data_ptr(), B, K, N, qt.group_size, qt.zp, int(p4), sbf16,
                                split, stream)
         cuda_build.check(rc, "qmm_launch")
-    LAUNCHES["K1" if p4 else "K2"] += 1
+    LAUNCHES[kernel_name("K1", qt)] += 1
     return _cast(y, out_dtype)
 
 
@@ -346,8 +357,8 @@ def qmm_stacked_cuda(x: torch.Tensor, sw: StackedWeight, gdot: bool = False,
         y, obf16 = _out(B, N, x, out_dtype)
         rc = _lib("qmm_decode").qmm_gdot_decode_stacked_launch(
             x.data_ptr(), qt.qs.data_ptr(), qt.scales.data_ptr(), mins, y.data_ptr(), B, K, N,
-            qt.zp, sbf16, _split(x, N, qt.layout), obf16, qs_ls, s_ls, qt.qs.shape[0],
-            idx.data_ptr(), stream)
+            qt.group_size, qt.zp, sbf16, _split(x, N, qt.layout), obf16, qs_ls, s_ls,
+            qt.qs.shape[0], idx.data_ptr(), stream)
     elif B <= GDOT_MAX_B:
         _check_decode(layer)
         y, obf16 = _out(B, N, x, out_dtype)
@@ -362,7 +373,7 @@ def qmm_stacked_cuda(x: torch.Tensor, sw: StackedWeight, gdot: bool = False,
             qt.group_size, qt.zp, p4, sbf16, _split(x, N, qt.layout), qs_ls, s_ls,
             qt.qs.shape[0], idx.data_ptr(), stream)
     cuda_build.check(rc, "qmm_stacked_launch")
-    LAUNCHES["K7"] += 1
+    LAUNCHES[kernel_name("K7", layer)] += 1
     return _cast(y, out_dtype)
 
 

@@ -18,8 +18,9 @@ and the corrections' operands to bf16.
 `qmm_chain_plain` is the chain in plain PyTorch, `qmm_chain_cuda`
 launches csrc/qmm_chain.cu (one cooperative launch of thread block
 clusters of qmm_chain_tc, or of qmm_chain_tc_gelu for a GeGLU tail,
-counted apart as K6_gelu; `chain_plan` picks each phase's K split within
-a cluster), and
+counted apart as K6_gelu, or of qmm_chain_tc_g16 where a phase's nibble
+planes have group size 16, counted as K6_gs16; `chain_plan` picks each
+phase's K split within a cluster), and
 `qmm_chain` dispatches on the device of x: CPU tensors take the plain
 version, CUDA tensors the kernel (which raises rather than fall back).
 `layer_tail` / `norm_mm` return None where the geometry gate says no, on
@@ -40,8 +41,9 @@ from .norms import rms_norm
 
 # launches of the kernels, counted where the wrapper launches them: K6 the
 # SwiGLU kernel (every head and lm_head, and llama's tails), K6_gelu the
-# GeGLU one (gemma's tails)
-LAUNCHES = {"K6": 0, "K6_gelu": 0}
+# GeGLU one (gemma's tails), K6_gs16 the kernel of a chain with a phase on
+# nibble planes at group size 16 (Q2_K, Q3_K), with either act
+LAUNCHES = {"K6": 0, "K6_gelu": 0, "K6_gs16": 0}
 # rows the kernel takes: the chain serves decode steps (T <= 8)
 CHAIN_MAX_B = 8
 PRE = {"cast": 0, "norm": 1, "res_norm": 2, "swiglu": 3, "geglu": 4}
@@ -241,26 +243,39 @@ def _lib():
     return lib
 
 
-def chain_clusters(gelu: bool = False) -> dict:
-    """{cluster size: clusters the card holds at once} for K6's grid (gelu:
-    K6_gelu's), every CTA resident."""
-    if gelu not in _CLUSTERS:
+# K6's kernels (csrc/qmm_chain.cu::chain_kernel), by their launch count
+KERNEL_KINDS = {"K6": 0, "K6_gelu": 1, "K6_gs16": 2}
+
+
+def chain_kernel(qts, gelu: bool = False) -> str:
+    """The kernel (its LAUNCHES key) a chain of these phases launches:
+    K6_gs16 where a phase's nibble planes have group size 16, else K6_gelu
+    for a GeGLU boundary, else K6."""
+    if any(qt.layout == "p4" and qt.group_size == 16 for qt in qts):
+        return "K6_gs16"
+    return "K6_gelu" if gelu else "K6"
+
+
+def chain_clusters(kernel: str = "K6") -> dict:
+    """{cluster size: clusters the card holds at once} for the grid of K6's
+    kernel `kernel` (chain_kernel), every CTA resident."""
+    if kernel not in _CLUSTERS:
         counts = {}
         for c in CHAIN_CLUSTERS:
-            n = _lib().qmm_chain_clusters(c, int(gelu))
+            n = _lib().qmm_chain_clusters(c, KERNEL_KINDS[kernel])
             if n < 1:
                 raise RuntimeError(f"qmm_chain_clusters: the card holds no cluster of {c} of "
-                                   "K6's CTAs")
+                                   f"{kernel}'s CTAs")
             counts[c] = n
-        _CLUSTERS[gelu] = counts
-    return _CLUSTERS[gelu]
+        _CLUSTERS[kernel] = counts
+    return _CLUSTERS[kernel]
 
 
 def launch_plan(qts, gelu: bool = False) -> tuple[int, tuple[int, ...], tuple[int, ...]]:
-    """The (cluster size, splits, last splits) K6 (gelu: K6_gelu) launches
-    these phases with on this card."""
+    """The (cluster size, splits, last splits) K6 launches these phases
+    with on this card (gelu: a GeGLU boundary), on its kernel's grid."""
     return chain_plan(tuple((qt.in_features, qt.out_features) for qt in qts),
-                      chain_clusters(gelu))
+                      chain_clusters(chain_kernel(qts, gelu)))
 
 
 def qmm_chain_cuda(x: torch.Tensor, qts, gammas=(), x_res: torch.Tensor | None = None, *,
@@ -359,7 +374,7 @@ def _chain_launch(x, qts, gammas=(), x_res=None, *, pres, eps, final="cast", out
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib().qmm_chain_launch(descs, P, B, float(eps), cluster, stream)
     cuda_build.check(rc, "qmm_chain_launch")
-    LAUNCHES["K6_gelu" if gelu else "K6"] += 1
+    LAUNCHES[chain_kernel(qts, gelu)] += 1
     return out
 
 

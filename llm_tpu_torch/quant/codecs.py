@@ -7,6 +7,12 @@ import numpy as np
 
 from ..gguf.constants import GGMLType
 
+# IQ4's non-linear 4-bit codebook (ggml-common.h kvalues_iq4nl)
+KVALUES_IQ4NL = np.array(
+    [-127, -104, -83, -65, -49, -35, -22, -10, 1, 13, 25, 38, 53, 69, 89, 113],
+    dtype=np.float32,
+)
+
 
 def _u8(raw: np.ndarray, ts: int) -> np.ndarray:
     """Raw bytes -> [n_blocks, ts] uint8 rows of one block each."""
@@ -36,6 +42,26 @@ def _unpack_k4_scales(sc: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
             ls[:, j] = (sc[:, j + 4] & 0xF) | ((sc[:, j - 4] >> 6) << 4)
             lm[:, j] = (sc[:, j + 4] >> 4) | ((sc[:, j] >> 6) << 4)
     return ls, lm
+
+
+def _unpack2(qs: np.ndarray) -> np.ndarray:
+    """Q2_K / Q3_K's 2-bit field (B, 64) -> (B, 256) values 0..3: per
+    128-value half, byte l holds values l, l + 32, l + 64 and l + 96."""
+    B = qs.shape[0]
+    q = qs.reshape(B, 2, 32)
+    out = np.stack([(q >> s) & 3 for s in (0, 2, 4, 6)], axis=2)  # (B, 2, 4, 32)
+    return out.reshape(B, 256)
+
+
+def _q3k_scales(sc_bytes: np.ndarray) -> np.ndarray:
+    """Q3_K's 12-byte field -> 16 signed 6-bit scales."""
+    B = sc_bytes.shape[0]
+    out = np.empty((B, 16), np.int32)
+    for j in range(16):
+        lo = sc_bytes[:, j] & 0xF if j < 8 else sc_bytes[:, j - 8] >> 4
+        hi = (sc_bytes[:, 8 + j % 4] >> (2 * (j // 4))) & 3
+        out[:, j] = (lo.astype(np.int32) | (hi.astype(np.int32) << 4)) - 32
+    return out
 
 
 def dequantize_dense(raw: np.ndarray, ggml_type: GGMLType | int,

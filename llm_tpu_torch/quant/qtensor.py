@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..gguf.constants import GGMLType
-from .codecs import _read_f16, _u8, _unpack_k4_scales
+from .codecs import KVALUES_IQ4NL, _q3k_scales, _read_f16, _u8, _unpack2, _unpack_k4_scales
 
 PACK_TK = 256
 
@@ -138,6 +138,19 @@ def planes_from_raw(raw: np.ndarray, ggml_type: GGMLType, n_per_row: int):
         q = np.concatenate([qs & 0xF, qs >> 4], axis=-1).astype(np.int8)
         # the block stores +m; the plane convention subtracts mins
         return q, _read_f16(b[:, 0:2]), -_read_f16(b[:, 2:4]), 32
+    if t in (GGMLType.Q5_0, GGMLType.Q5_1):
+        # Q5_0: d, 4 bytes of fifth bits, 16 nibble bytes; Q5_1: d, m, then the same
+        one = t == GGMLType.Q5_1
+        b = _u8(raw, 24 if one else 22)
+        o = 4 if one else 2
+        qh = np.ascontiguousarray(b[:, o:o + 4]).view("<u4").reshape(-1).astype(np.uint32)
+        qs = b[:, o + 4:]
+        j = np.arange(16)
+        xh0 = ((qh[:, None] >> j) << 4) & 0x10
+        xh1 = (qh[:, None] >> (j + 12)) & 0x10
+        q = np.concatenate([(qs & 0x0F) | xh0, (qs >> 4) | xh1], axis=-1).astype(np.int8)
+        d = _read_f16(b[:, 0:2])
+        return (q, d, -_read_f16(b[:, 2:4]), 32) if one else (q - 16, d, None, 32)
     if t == GGMLType.Q4_K:
         b = _u8(raw, 144)
         B = b.shape[0]
@@ -160,14 +173,68 @@ def planes_from_raw(raw: np.ndarray, ggml_type: GGMLType, n_per_row: int):
         q4 = ((ql[:, :, 1] >> 4) | (((qh >> 6) & 3) << 4)).astype(np.int32) - 32
         q = np.stack([q1, q2, q3, q4], axis=2).reshape(B, 256).astype(np.int8)
         return q, d * sc, None, 16
+    if t == GGMLType.Q5_K:
+        b = _u8(raw, 176)
+        B = b.shape[0]
+        d, dmin = _read_f16(b[:, 0:2]), _read_f16(b[:, 2:4])
+        ls, lm = _unpack_k4_scales(b[:, 4:16])
+        qh = b[:, 16:48]
+        qs = b[:, 48:].reshape(B, 4, 32)
+        lo, hi = (qs & 0xF).astype(np.int32), (qs >> 4).astype(np.int32)
+        parts = []
+        for n4 in range(4):
+            parts.append(lo[:, n4] + np.where((qh & (1 << (2 * n4))) > 0, 16, 0))
+            parts.append(hi[:, n4] + np.where((qh & (2 << (2 * n4))) > 0, 16, 0))
+        q = np.stack(parts, axis=1).reshape(B, 256).astype(np.int8)
+        return q, d * ls.astype(np.float32), dmin * lm.astype(np.float32), 32
+    if t == GGMLType.Q2_K:
+        b = _u8(raw, 84)
+        sc = b[:, 0:16]
+        q = _unpack2(b[:, 16:80]).astype(np.int8)
+        d, dmin = _read_f16(b[:, 80:82]), _read_f16(b[:, 82:84])
+        return q, d * (sc & 0xF).astype(np.float32), dmin * (sc >> 4).astype(np.float32), 16
+    if t == GGMLType.Q3_K:
+        b = _u8(raw, 110)
+        B = b.shape[0]
+        hm = b[:, 0:32]
+        q2 = _unpack2(b[:, 32:96]).astype(np.int8)
+        sc6 = _q3k_scales(b[:, 96:108])
+        d = _read_f16(b[:, 108:110])
+        hbits = np.stack([(hm >> kk) & 1 for kk in range(8)], axis=1).reshape(B, 256)
+        q = (q2 - np.where(hbits > 0, 0, 4)).astype(np.int8)
+        return q, d * sc6.astype(np.float32), None, 16
+    if t == GGMLType.IQ4_NL:
+        b = _u8(raw, 18)
+        qs = b[:, 2:]
+        q = np.concatenate([KVALUES_IQ4NL[qs & 0xF], KVALUES_IQ4NL[qs >> 4]],
+                           axis=-1).astype(np.int8)
+        return q, _read_f16(b[:, 0:2]), None, 32
+    if t == GGMLType.IQ4_XS:
+        b = _u8(raw, 136)
+        B = b.shape[0]
+        d = _read_f16(b[:, 0:2])
+        scales_h = np.ascontiguousarray(b[:, 2:4]).view("<u2").reshape(-1).astype(np.int32)
+        scales_l = b[:, 4:8]
+        qs = b[:, 8:].reshape(B, 8, 16)
+        ls = np.empty((B, 8), np.int32)
+        for ib in range(8):
+            lo = (scales_l[:, ib // 2] >> (4 * (ib % 2))) & 0xF
+            ls[:, ib] = (lo.astype(np.int32) | (((scales_h >> (2 * ib)) & 3) << 4)) - 32
+        q = np.stack([KVALUES_IQ4NL[qs & 0xF], KVALUES_IQ4NL[qs >> 4]],
+                     axis=2).reshape(B, 256).astype(np.int8)
+        return q, d * ls.astype(np.float32), None, 32
     raise ValueError(f"no plane unpacker for {t.name}")
 
 
-# 4-bit types that nibble-pack, with the zero point that makes them 0..15
-_PACK4 = {GGMLType.Q4_0: 8, GGMLType.Q4_1: 0, GGMLType.Q4_K: 0}
+# types whose plane values fit a nibble, with the zero point that makes
+# them 0..15: the 4-bit ones, and Q2_K (0..3) and Q3_K (-4..3), which a
+# 2- or 3-bit model reads at 4 bits a weight rather than 8
+_PACK4 = {GGMLType.Q4_0: 8, GGMLType.Q4_1: 0, GGMLType.Q4_K: 0, GGMLType.Q2_K: 0,
+          GGMLType.Q3_K: 4}
 
-PLANE_TYPES = (GGMLType.Q8_0, GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q4_K,
-               GGMLType.Q6_K)
+PLANE_TYPES = (GGMLType.Q8_0, GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1,
+               GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K,
+               GGMLType.IQ4_NL, GGMLType.IQ4_XS)
 
 
 def qtensor_from_gguf(raw: np.ndarray, ggml_type: GGMLType,

@@ -95,7 +95,8 @@ class Context:
     def __init__(self, reader=None, n_cells: int = 4096, dtype=torch.bfloat16,
                  device=None, params_cfg=None, kv_dtype=None, chain: bool = False,
                  gdot: bool = False, scan_layers: bool = False, n_ubatch: int = 512,
-                 swa_full: bool = False, n_seq_hint: int = 1, ep_cf: float = 0.0):
+                 swa_full: bool = False, n_seq_hint: int = 1, ep_cf: float = 0.0,
+                 use_planes: bool = True):
         """Load from a GGUFReader, or take (params, cfg) as made by
         models/synthetic.py or convert_params.py. device None = the card.
         kv_dtype: the cache type, None for `dtype`, a torch dtype, or
@@ -116,7 +117,9 @@ class Context:
         cells. ep_cf: a mixture-of-experts model's capacity factor, folded
         into the config where it has none (the reference's LLM_TPU_EP_CF /
         --ep-capacity-factor): steps of more than 8 tokens cap each
-        expert's tokens and drop the rest (parallel/moe.py); 0 is exact."""
+        expert's tokens and drop the rest (parallel/moe.py); 0 is exact.
+        use_planes False: a GGUF's quantized matrices dequantized to dense
+        `dtype` at load (the reference's use_planes, the CLI's --no-planes)."""
         t0 = time.perf_counter()
         self.device = resolve_device(device)
         if params_cfg is not None:
@@ -128,7 +131,8 @@ class Context:
                     self.params = {**self.params, "layers_stacked": stacked, "layers": []}
         else:
             self.params, self.cfg = load_params(reader, dense_dtype=dtype,
-                                                device=self.device, scan_layers=scan_layers)
+                                                device=self.device, scan_layers=scan_layers,
+                                                use_planes=use_planes)
         if ep_cf > 0 and self.cfg.n_expert > 0 and self.cfg.ep_cf == 0.0:
             self.cfg = dataclasses.replace(self.cfg, ep_cf=float(ep_cf))
         self.kv_dtype = kv_dtype if kv_dtype is not None else dtype

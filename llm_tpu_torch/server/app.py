@@ -617,8 +617,6 @@ _NOT_PORTED = {
     "dist_process_id": (None, "meshes are not ported yet (ROADMAP Queue 1 item 10)"),
     "platform": (None, "meshes are not ported yet (ROADMAP Queue 1 item 10)"),
     "n_virtual_devices": (None, "meshes are not ported yet (ROADMAP Queue 1 item 10)"),
-    "ep_capacity_factor": (0.0, "the flag does not reach the Context yet, whose ep_cf "
-                                "argument takes it (ROADMAP Queue 1 item 8)"),
 }
 
 
@@ -659,7 +657,9 @@ def _parser():
     ap.add_argument("--platform", default=None, help="(not ported yet)")
     ap.add_argument("--n-virtual-devices", type=int, default=None, help="(not ported yet)")
     ap.add_argument("--ep-capacity-factor", type=float,
-                    default=ed("ep-capacity-factor", 0.0), help="(not ported yet)")
+                    default=ed("ep-capacity-factor", 0.0), metavar="F",
+                    help="MoE expert capacity factor (0 = exact, no drops). "
+                         "Env: LLM_TPU_ARG_EP_CAPACITY_FACTOR")
     ap.add_argument("--device", default=ed("device", "cuda"),
                     help="torch device: cuda (default; the card) or cpu. "
                          "Env: LLM_TPU_ARG_DEVICE")
@@ -677,7 +677,7 @@ def server_contexts(args, reader, device):
 
     dtype = torch.float32 if args.f32 else torch.bfloat16
     ctx = Context(reader, n_cells=args.ctx_size, n_ubatch=args.n_batch, dtype=dtype,
-                  device=device, n_seq_hint=args.n_parallel)
+                  device=device, n_seq_hint=args.n_parallel, ep_cf=args.ep_capacity_factor)
     draft_ctx = None
     if args.model_draft:
         draft_ctx = Context(GGUFReader(args.model_draft), n_cells=args.ctx_size,

@@ -13,10 +13,11 @@ Runs on the card (--device cuda, the default; without a card it exits
 nonzero) unless --device cpu is given. --profile DIR writes a
 torch.profiler trace there. --grammar, --grammar-file and --json-schema
 constrain the generated text through the port's grammar/ (GBNF, "%regex",
-JSON schema). Options whose modules the port has not ported exit with an
-error that names their ROADMAP item: --lora and --control-vector,
---no-planes (dense dequantization at load), the mesh options and T5
-models.
+JSON schema). --no-planes dequantizes the weights to dense at load;
+--ep-capacity-factor F caps a mixture-of-experts model's expert buckets
+(Context's ep_cf). Options whose modules the port has not ported exit with
+an error that names their ROADMAP item: --lora and --control-vector, the
+mesh options and T5 models.
 """
 
 from __future__ import annotations
@@ -37,8 +38,6 @@ _NOT_PORTED = {
     "control_vector": ([], "control vectors are not ported yet (ROADMAP Queue 1 item 9.1)"),
     "control_vector_layer_range": (None, "control vectors are not ported yet "
                                          "(ROADMAP Queue 1 item 9.1)"),
-    "no_planes": (False, "dense dequantization at load is not ported yet "
-                         "(ROADMAP Queue 1 item 8: dequantize_qtensor)"),
     "tensor_parallel": (1, "meshes are not ported yet (ROADMAP Queue 1 item 10)"),
     "seq_parallel": (1, "meshes are not ported yet (ROADMAP Queue 1 item 10)"),
     "dist_coordinator": (None, "meshes are not ported yet (ROADMAP Queue 1 item 10)"),
@@ -46,8 +45,6 @@ _NOT_PORTED = {
     "dist_process_id": (None, "meshes are not ported yet (ROADMAP Queue 1 item 10)"),
     "platform": (None, "meshes are not ported yet (ROADMAP Queue 1 item 10)"),
     "n_virtual_devices": (None, "meshes are not ported yet (ROADMAP Queue 1 item 10)"),
-    "ep_capacity_factor": (0.0, "the flag does not reach the Context yet, whose ep_cf "
-                                "argument takes it (ROADMAP Queue 1 item 8)"),
 }
 
 
@@ -217,7 +214,8 @@ def _parser():
     ap.add_argument("--repeat-penalty", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=-1)
     ap.add_argument("--f32", action="store_true")
-    ap.add_argument("--no-planes", action="store_true", help="(not ported yet)")
+    ap.add_argument("--no-planes", action="store_true",
+                    help="dequantize the weights to dense at load (no quantized kernels)")
     ap.add_argument("-r", "--reverse-prompt", action="append", default=[])
     ap.add_argument("--prompt-cache", default=None,
                     help="session file: restore matching prompt prefix, save on exit")
@@ -241,7 +239,9 @@ def _parser():
     ap.add_argument("--platform", default=None, help="(not ported yet)")
     ap.add_argument("--n-virtual-devices", type=int, default=None, help="(not ported yet)")
     ap.add_argument("--ep-capacity-factor", type=float,
-                    default=ed("ep-capacity-factor", 0.0), help="(not ported yet)")
+                    default=ed("ep-capacity-factor", 0.0), metavar="F",
+                    help="MoE expert capacity factor (0 = exact, no drops). "
+                         "Env: LLM_TPU_ARG_EP_CAPACITY_FACTOR")
     ap.add_argument("--device", default=ed("device", "cuda"),
                     help="torch device: cuda (default; the card) or cpu. "
                          "Env: LLM_TPU_ARG_DEVICE")
@@ -285,6 +285,8 @@ def main(argv=None):
         n_cells=args.ctx_size,
         dtype=torch.float32 if args.f32 else torch.bfloat16,
         device=device,
+        ep_cf=args.ep_capacity_factor,
+        use_planes=not args.no_planes,
     )
     ctx.perf.t_load_ms = (time.perf_counter() - t0) * 1e3
     print(f"model loaded in {time.perf_counter()-t0:.1f}s "

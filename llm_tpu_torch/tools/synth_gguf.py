@@ -1,21 +1,32 @@
-"""A llama GGUF with random Q4_K_M-typed blocks and a byte-level BPE vocab,
-made from a seed, written with the port's GGUF writer: a file the CLI loads
-and answers from like a downloaded checkpoint, with no download.
+"""A llama GGUF with random blocks typed as a Q4_K_M, Q3_K_M or Q2_K file
+is, and a byte-level BPE vocab, made from a seed, written with the port's
+GGUF writer: a file the CLI loads and answers from like a downloaded
+checkpoint, with no download.
 
-    python -m llm_tpu_torch.tools.synth_gguf out.gguf [--layers 32] [--seed 0]
+    python -m llm_tpu_torch.tools.synth_gguf out.gguf [--layers 32] [--seed 0] \
+        [--ftype {Q4_K_M,Q3_K_M,Q2_K}]
 
-The type mix is llama.cpp's Q4_K_M recipe (llm_tpu/tools/quantize.py
-tensor_type_for): Q4_K everywhere, Q6_K for the lm_head and for attn_v and
-ffn_down of the use_more_bits layers, f32 norms. A block's quant and scale
-bytes are random; its f16 `d` and `dmin` are finite, sized so that weights
-come out ~1e-2. The vocab (`bpe_vocab`) is byte-level BPE with
-`tokenizer.ggml.pre = "llama-bpe"`: the 256 byte tokens, merges each of
-which builds a new token from two earlier ones, and Llama 3's special
+The type mix is llama.cpp's recipe for the ftype
+(models/synthetic.py::tensor_type_for, the port's copy of
+llm_tpu/tools/quantize.py tensor_type_for), f32 norms: Q4_K_M (the
+default) is Q4_K everywhere, Q6_K for the lm_head and for attn_v and
+ffn_down of the use_more_bits layers; Q3_K_M is Q3_K with attn_v Q5_K in
+layers 0-1 and Q4_K after, ffn_down Q4_K in layers 0-1, a Q6_K lm_head;
+Q2_K is Q2_K with attn_v Q4_K (LLAMA3_8B's 4 query heads a KV head),
+ffn_down Q3_K in the use_more_bits layers, a Q6_K lm_head. A block's quant
+and scale bytes are random; its f16 `d` (and `dmin`) are finite, sized
+(_D_FIELDS) so that the weights' rms is ~0.02 for the types with signed
+scales and zero-mean weights (Q6_K, Q3_K) and ~0.04-0.05 for those with
+mins (Q4_K, Q5_K, Q2_K), whose random mins leave each row a mean of
+0.01-0.03. The vocab (`bpe_vocab`) is byte-level BPE
+with `tokenizer.ggml.pre = "llama-bpe"`: the 256 byte tokens, merges each
+of which builds a new token from two earlier ones, and Llama 3's special
 tokens (<|begin_of_text|> = 128000, ..., 256 of them at the top of the
 vocab).
 
 The geometry defaults to LLAMA3_8B (models/synthetic.py). `chip_smoke.py`
-writes the 32-layer file on the card's machine; the tests write tiny ones.
+writes the 8-layer Q4_K_M file and 2-layer Q3_K_M and Q2_K ones on the
+card's machine; the tests write tiny ones.
 """
 
 from __future__ import annotations
@@ -26,9 +37,9 @@ import time
 
 import numpy as np
 
-from ..gguf.constants import GGMLType, Keys, type_traits
+from ..gguf.constants import FileType, GGMLType, Keys, type_traits
 from ..gguf.writer import GGUFWriter
-from ..models.synthetic import LLAMA3_8B
+from ..models.synthetic import LLAMA3_8B, RECIPES, tensor_type_for
 from ..tokenizers.bpe import bytes_to_unicode
 
 N_LLAMA3_SPECIAL = 256
@@ -92,37 +103,43 @@ def bpe_vocab(n_vocab: int, seed: int = 0, n_special: int = N_LLAMA3_SPECIAL,
             K.ADD_BOS: True, K.ADD_EOS: False}
 
 
-def use_more_bits(i_layer: int, n_layers: int) -> bool:
-    """llama.cpp's use_more_bits: the first and last eighth and every 3rd
-    layer between (llm_tpu/tools/quantize.py:60)."""
-    return (i_layer < n_layers / 8 or i_layer >= 7 * n_layers / 8
-            or (i_layer - n_layers // 8) % 3 == 2)
+# each type's f16 scale fields (byte offsets) and the low end m of the
+# range [m, 2m) a field's value is drawn from: the weights' rms is ~0.02
+# for Q6_K and Q3_K (signed sub-scales, zero mean), ~0.04-0.05 for the
+# types with mins (a Q3_K at Q4_K's rms, m = 7e-4, made a two-layer
+# LLAMA3_8B-wide Q3_K_M file 3-5x as sensitive to bf16 rounding as a
+# Q4_K_M one: PERF.md, PR 16)
+_D_FIELDS = {
+    GGMLType.Q4_K: ((0, 4), 1e-4),     # d, dmin; 6-bit sub-scales, 4-bit codes
+    GGMLType.Q6_K: ((208, 210), 1e-5),  # d; int8 sub-scales, 6-bit codes
+    GGMLType.Q5_K: ((0, 4), 5e-5),     # d, dmin; 6-bit sub-scales, 5-bit codes
+    GGMLType.Q3_K: ((108, 110), 3e-4),  # d; signed 6-bit sub-scales, codes -4..3
+    GGMLType.Q2_K: ((80, 84), 2e-3),   # d, dmin; 4-bit sub-scales, codes 0..3
+}
 
 
 def random_blocks(rng: np.random.Generator, ggml_type: GGMLType, n_rows: int,
                   n_per_row: int) -> np.ndarray:
     """Raw blocks of a [n_rows, n_per_row] tensor: random bytes, with each
-    block's f16 d (and Q4_K's dmin) set finite."""
+    block's f16 d (and dmin) set finite (_D_FIELDS)."""
     tt = type_traits(ggml_type)
     nb = n_rows * n_per_row // tt.block_size
     raw = np.frombuffer(rng.bytes(nb * tt.type_size), np.uint8).reshape(nb, tt.type_size).copy()
-    if ggml_type == GGMLType.Q4_K:  # d, dmin, 12 scale/min bytes, 128 nibble bytes
-        dm = (rng.random((nb, 2), np.float32) * 1e-4 + 1e-4).astype(np.float16)
-        raw[:, 0:4] = dm.view(np.uint8)
-    elif ggml_type == GGMLType.Q6_K:  # ql, qh, 16 int8 scales, then d
-        d = (rng.random(nb, np.float32) * 1e-5 + 1e-5).astype(np.float16)
-        raw[:, tt.type_size - 2:] = d.view(np.uint8).reshape(nb, 2)
-    else:
-        raise ValueError(f"random_blocks makes Q4_K and Q6_K, not {ggml_type.name}")
+    if ggml_type not in _D_FIELDS:
+        raise ValueError(f"random_blocks makes {', '.join(t.name for t in _D_FIELDS)}, "
+                         f"not {ggml_type.name}")
+    (lo, hi), mag = _D_FIELDS[ggml_type]
+    d = (rng.random((nb, (hi - lo) // 2), np.float32) * mag + mag).astype(np.float16)
+    raw[:, lo:hi] = d.view(np.uint8).reshape(nb, hi - lo)
     return raw
 
 
-def write_llama_q4km(path: str, n_layers: int = LLAMA3_8B["n_layers"],
-                     n_embd: int = LLAMA3_8B["n_embd"], n_heads: int = LLAMA3_8B["n_heads"],
-                     n_kv_heads: int = LLAMA3_8B["n_kv_heads"], n_ff: int = LLAMA3_8B["n_ff"],
-                     vocab: dict | None = None, n_vocab: int = LLAMA3_8B["vocab"],
-                     seed: int = 0, context_length: int = 8192,
-                     rope_theta: float = 500000.0) -> dict:
+def write_llama(path: str, n_layers: int = LLAMA3_8B["n_layers"],
+                n_embd: int = LLAMA3_8B["n_embd"], n_heads: int = LLAMA3_8B["n_heads"],
+                n_kv_heads: int = LLAMA3_8B["n_kv_heads"], n_ff: int = LLAMA3_8B["n_ff"],
+                vocab: dict | None = None, n_vocab: int = LLAMA3_8B["vocab"],
+                seed: int = 0, context_length: int = 8192,
+                rope_theta: float = 500000.0, ftype: str = "Q4_K_M") -> dict:
     """Write the file; returns what it wrote (bytes, tensors by type, the
     seconds to make the vocab and blocks and to write them)."""
     t0 = time.perf_counter()
@@ -132,8 +149,10 @@ def write_llama_q4km(path: str, n_layers: int = LLAMA3_8B["n_layers"],
     arch = "llama"
     w = GGUFWriter(path, arch=arch)
     a = (lambda k: k.format(arch=arch))
-    w.add_kv(Keys.General.NAME, f"synthetic llama Q4_K_M seed {seed}")
-    w.add_kv(Keys.General.FILE_TYPE, np.uint32(15))  # MOSTLY_Q4_K_M
+    if ftype not in RECIPES:
+        raise ValueError(f"ftype {ftype!r}: one of {', '.join(RECIPES)}")
+    w.add_kv(Keys.General.NAME, f"synthetic llama {ftype} seed {seed}")
+    w.add_kv(Keys.General.FILE_TYPE, np.uint32(FileType[f"MOSTLY_{ftype}"]))
     w.add_kv(a(Keys.LLM.CONTEXT_LENGTH), np.uint32(context_length))
     w.add_kv(a(Keys.LLM.EMBEDDING_LENGTH), np.uint32(n_embd))
     w.add_kv(a(Keys.LLM.BLOCK_COUNT), np.uint32(n_layers))
@@ -150,7 +169,9 @@ def write_llama_q4km(path: str, n_layers: int = LLAMA3_8B["n_layers"],
     hd = n_embd // n_heads
     types: dict[str, int] = {}
 
-    def mat(name, ggml_type, n_rows, n_per_row):
+    def mat(name, n_rows, n_per_row, il=0):
+        ggml_type = tensor_type_for(name, n_per_row, ftype, il, n_layers,
+                                    n_heads // n_kv_heads)
         w.add_tensor(name, None, ggml_type=ggml_type, shape=(n_per_row, n_rows),
                      raw=random_blocks(rng, ggml_type, n_rows, n_per_row))
         types[ggml_type.name] = types.get(ggml_type.name, 0) + 1
@@ -159,22 +180,20 @@ def write_llama_q4km(path: str, n_layers: int = LLAMA3_8B["n_layers"],
         w.add_tensor(name, np.ones(n, np.float32))
         types["F32"] = types.get("F32", 0) + 1
 
-    Q4K, Q6K = GGMLType.Q4_K, GGMLType.Q6_K
-    mat("token_embd.weight", Q4K, n_vocab, n_embd)
+    mat("token_embd.weight", n_vocab, n_embd)
     for il in range(n_layers):
-        more = use_more_bits(il, n_layers)
         p = f"blk.{il}."
         ones(p + "attn_norm.weight", n_embd)
-        mat(p + "attn_q.weight", Q4K, n_heads * hd, n_embd)
-        mat(p + "attn_k.weight", Q4K, n_kv_heads * hd, n_embd)
-        mat(p + "attn_v.weight", Q6K if more else Q4K, n_kv_heads * hd, n_embd)
-        mat(p + "attn_output.weight", Q4K, n_embd, n_heads * hd)
+        mat(p + "attn_q.weight", n_heads * hd, n_embd, il)
+        mat(p + "attn_k.weight", n_kv_heads * hd, n_embd, il)
+        mat(p + "attn_v.weight", n_kv_heads * hd, n_embd, il)
+        mat(p + "attn_output.weight", n_embd, n_heads * hd, il)
         ones(p + "ffn_norm.weight", n_embd)
-        mat(p + "ffn_gate.weight", Q4K, n_ff, n_embd)
-        mat(p + "ffn_up.weight", Q4K, n_ff, n_embd)
-        mat(p + "ffn_down.weight", Q6K if more else Q4K, n_embd, n_ff)
+        mat(p + "ffn_gate.weight", n_ff, n_embd, il)
+        mat(p + "ffn_up.weight", n_ff, n_embd, il)
+        mat(p + "ffn_down.weight", n_embd, n_ff, il)
     ones("output_norm.weight", n_embd)
-    mat("output.weight", Q6K, n_vocab, n_embd)
+    mat("output.weight", n_vocab, n_embd)
     t_blocks = time.perf_counter() - t0 - t_vocab
     t1 = time.perf_counter()
     w.write()
@@ -188,8 +207,9 @@ def main(argv=None) -> None:
     ap.add_argument("out")
     ap.add_argument("--layers", type=int, default=LLAMA3_8B["n_layers"])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ftype", choices=list(RECIPES), default="Q4_K_M")
     args = ap.parse_args(argv)
-    print(write_llama_q4km(args.out, n_layers=args.layers, seed=args.seed))
+    print(write_llama(args.out, n_layers=args.layers, seed=args.seed, ftype=args.ftype))
 
 
 if __name__ == "__main__":

@@ -83,9 +83,13 @@ def _tail_case(types, seed, B):
 TYPES = [(GGMLType.Q4_K, GGMLType.Q4_K, GGMLType.Q6_K),
          (GGMLType.Q8_0, GGMLType.Q8_0, GGMLType.Q8_0),
          (GGMLType.Q4_0, GGMLType.Q4_K, GGMLType.Q4_K)]
+# Q3_K_M's and Q2_K's tails: nibble planes at group size 16
+LOWBIT_TYPES = [(GGMLType.Q3_K, GGMLType.Q3_K, GGMLType.Q4_K),
+                (GGMLType.Q2_K, GGMLType.Q2_K, GGMLType.Q3_K)]
 
 
-@pytest.mark.parametrize("types", TYPES, ids=lambda t: "-".join(x.name for x in t))
+@pytest.mark.parametrize("types", TYPES + LOWBIT_TYPES,
+                         ids=lambda t: "-".join(x.name for x in t))
 def test_layer_tail_f32_matches_reference(types):
     pairs, att, xres, gamma = _tail_case(types, 7, 5)
     want = jax_chain.layer_tail(jnp.asarray(att), jnp.asarray(xres), jnp.asarray(gamma),
@@ -97,7 +101,8 @@ def test_layer_tail_f32_matches_reference(types):
     assert _rel(got.numpy(), want) < TOL_F32
 
 
-@pytest.mark.parametrize("types", TYPES, ids=lambda t: "-".join(x.name for x in t))
+@pytest.mark.parametrize("types", TYPES + LOWBIT_TYPES,
+                         ids=lambda t: "-".join(x.name for x in t))
 def test_layer_tail_bf16_matches_reference(types):
     """The bf16 dtype walk (bf16 residual, norm and SwiGLU boundaries) at
     B = 8, as test_qmm_chain.py's bf16 case."""

@@ -11,8 +11,9 @@ llm_tpu's convert_hf_llama, and a tiny Q4_K_M-typed llama with a
 byte-level BPE vocab ("llama-bpe") from the port's tools/synth_gguf.py.
 Also: the perf counters counted as the reference counts them, the
 prompt cache, --profile, --grammar / --grammar-file / --json-schema (the
-reference's text at temp 0), the options the port has not ported (an error
-that names the ROADMAP item), and --device cuda without a card."""
+reference's text at temp 0), --no-planes and --ep-capacity-factor (the
+reference's text), the options the port has not ported (an error that
+names the ROADMAP item), and --device cuda without a card."""
 
 import re
 import sys
@@ -59,7 +60,7 @@ def spm_gguf(tmp_path_factory):
 @pytest.fixture(scope="module")
 def bpe_gguf(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("cli") / "tiny_bpe_q4km.gguf")
-    synth_gguf.write_llama_q4km(path, n_layers=2, n_embd=256, n_heads=4, n_kv_heads=1,
+    synth_gguf.write_llama(path, n_layers=2, n_embd=256, n_heads=4, n_kv_heads=1,
                                 n_ff=512, n_vocab=1024, seed=3)
     return path
 
@@ -199,13 +200,53 @@ def test_profile_writes_a_trace(spm_gguf, tmp_path, capsys):
     (["--control-vector-layer-range", "0", "1"], "Queue 1 item 9.1"),
     (["-sp", "2"], "Queue 1 item 10"), (["--platform", "cpu"], "Queue 1 item 10"),
     (["--lora", "a.gguf"], "Queue 1 item 9.1"),
-    (["--control-vector", "c.gguf"], "Queue 1 item 9.1"), (["-tp", "2"], "Queue 1 item 10"),
-    (["--no-planes"], "Queue 1 item 8"), (["--ep-capacity-factor", "1.5"], "Queue 1 item 8")])
+    (["--control-vector", "c.gguf"], "Queue 1 item 9.1"), (["-tp", "2"], "Queue 1 item 10")])
 def test_unported_options_exit_naming_the_roadmap(spm_gguf, extra, item, capsys):
     with pytest.raises(SystemExit) as e:
         cli.main(["-m", spm_gguf, "--device", "cpu", *extra])
     assert e.value.code == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+def moe_gguf_with_vocab(path: str) -> str:
+    """A tiny qwen3moe (test_torch_moe.py's hf_moe geometry: 4 experts of
+    48, 2 a token) with tests/test_tools.py's SPM vocab, converted by
+    llm_tpu's convert_hf_llama."""
+    transformers = pytest.importorskip("transformers")
+    from test_tools import _test_vocab
+
+    from llm_tpu.convert.hf_llama import convert_hf_llama
+
+    cfg = transformers.Qwen3MoeConfig(
+        vocab_size=97, hidden_size=64, intermediate_size=112, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=128,
+        rope_theta=10000.0, tie_word_embeddings=False, moe_intermediate_size=48, head_dim=16,
+        num_experts=4, num_experts_per_tok=2, norm_topk_prob=True, decoder_sparse_step=1)
+    torch.manual_seed(0)
+    convert_hf_llama(transformers.Qwen3MoeForCausalLM(cfg).eval(), path, arch="qwen3moe",
+                     vocab=_test_vocab(97))
+    return path
+
+
+@pytest.mark.parametrize("extra", [["--no-planes"], ["--ep-capacity-factor", "0.5"]],
+                         ids=["no-planes", "ep-capacity-factor"])
+def test_load_options_print_the_reference_text(extra, bpe_gguf, tmp_path, monkeypatch,
+                                               capsys):
+    """--no-planes (every quantized matrix dequantized to dense at load) on
+    the Q4_K_M file, and --ep-capacity-factor 0.5 on a tiny qwen3moe whose
+    30-token prompt is one step of more than 8 tokens, so that the cap of
+    8 tokens an expert drops assignments: the port prints llm_tpu's text
+    and stderr. (llm_tpu's CLI hands the factor on through LLM_TPU_EP_CF,
+    restored after the test.)"""
+    monkeypatch.setenv("LLM_TPU_EP_CF", "0")
+    path = bpe_gguf if extra[0] == "--no-planes" else \
+        moe_gguf_with_vocab(str(tmp_path / "moe.gguf"))
+    argv = ["-m", path, "--f32", "-c", "64", "-p", "the quick brown fox jumps over a lazy",
+            "-n", "12", "--temp", "0", "--device", "cpu", *extra]
+    want, werr = _run(jax_cli.main, argv, capsys)
+    got, gerr = _run(cli.main, argv, capsys)
+    assert got == want and len(got) > len("the quick brown fox jumps over a lazy")
+    assert _untimed(gerr) == _untimed(werr)
 
 
 def test_default_device_needs_a_card(spm_gguf, capsys):

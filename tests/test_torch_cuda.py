@@ -69,6 +69,9 @@ def _planes(layout, zp, gs, mins, N, K, B, scales_dtype, seed=0):
     ("p4", 0, 32, True, 256, 512),     # Q4_K
     ("p4", 8, 32, False, 264, 512),    # Q4_0, N not a multiple of 16
     ("p4", 0, 32, True, 1000, 1024),   # ragged N tile
+    ("p4", 0, 16, True, 256, 512),     # Q2_K (gs 16, mins)
+    ("p4", 4, 16, False, 264, 512),    # Q3_K (gs 16, zero point 4), N not a multiple of 16
+    ("p4", 4, 16, False, 1000, 1024),  # Q3_K, ragged N tile
     ("i8", 0, 16, False, 256, 512),    # Q6_K
     ("i8", 0, 32, False, 200, 64),     # Q8_0, short K, ragged N
     ("i8", 0, 32, True, 128, 256),     # i8 with mins
@@ -83,9 +86,10 @@ def test_qmm_kernel_matches_plain(cuda_device, layout, zp, gs, mins, N, K, B, sc
 
 # the decode GEMV (K1/K2 at B <= 16, csrc/qmm_decode.cu) at the main path's
 # decode shapes: p4 attn_k, p4 down, Q6_K (i8 gs 16) down and an i8 gs 32
-# attn_k, at B on both sides of each 8-row block
+# attn_k, the gs 16 nibble planes of Q3_K (attn_k) and Q2_K (down), at B on
+# both sides of each 8-row block
 DECODE_MAIN = [("Q4_K", 4096, 1024), ("Q4_K", 14336, 4096), ("Q6_K", 14336, 4096),
-               ("Q8_0", 4096, 1024)]
+               ("Q8_0", 4096, 1024), ("Q3_K", 4096, 1024), ("Q2_K", 14336, 4096)]
 
 
 def _device_planes(dev, qtype, K, N, B, seed=0):
@@ -106,7 +110,7 @@ def test_decode_main_shapes_match_plain(cuda_device, qtype, K, N, B):
     from torch.profiler import ProfilerActivity, profile
 
     x, qt = _device_planes(cuda_device, qtype, K, N, B)
-    kern = "K1" if qt.layout == "p4" else "K2"
+    kern = cuda_qmm.kernel_name("K1", qt)
     launched = cuda_qmm.LAUNCHES[kern]
     y = cuda_qmm.qmm_cuda(x, qt)
     torch.cuda.synchronize()
@@ -631,18 +635,22 @@ def test_cuda_tensors_never_take_the_plain_path(cuda_device):
 
 @pytest.mark.parametrize("scales_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("B", [1, 3, 8, 16])
+@pytest.mark.parametrize("gs", [32, 16])
 @pytest.mark.parametrize("zp,mins,N,K", [(0, True, 256, 512), (8, False, 264, 512),
                                          (0, True, 1000, 1024), (0, False, 512, 256),
-                                         (0, True, 1024, 4096)])
-def test_gdot_kernel_matches_plain(cuda_device, zp, mins, N, K, B, scales_dtype):
+                                         (0, True, 1024, 4096), (4, False, 1024, 4096)])
+def test_gdot_kernel_matches_plain(cuda_device, zp, mins, N, K, gs, B, scales_dtype):
     """K5 against qmm_gdot_plain (bf16): Q4_K with mins, Q4_0 with zero
     point 8 and N not a multiple of 16, a ragged N tile, no correction,
-    and LLAMA3_8B's attn_k (4 N tiles, a K split no other case takes)."""
-    x, qt = _planes("p4", zp, 32, mins, N, K, B, scales_dtype)
-    launched = cuda_qmm.LAUNCHES["K5"]
+    and LLAMA3_8B's attn_k (4 N tiles, a K split no other case takes) with
+    mins and with Q3_K's zero point 4; at group size 32 and 16 (Q2_K,
+    Q3_K: K5_gs16)."""
+    x, qt = _planes("p4", zp, gs, mins, N, K, B, scales_dtype)
+    kern = cuda_qmm.kernel_name("K5", qt)
+    launched = cuda_qmm.LAUNCHES[kern]
     got = qmatmul.qmm(x.to(cuda_device), qt.to(cuda_device), gdot=True).cpu()
     want = qmm_gdot_plain(x, qt, torch.bfloat16)
-    assert cuda_qmm.LAUNCHES["K5"] == launched + 1
+    assert cuda_qmm.LAUNCHES[kern] == launched + 1
     assert (got - want).abs().max() <= 1e-3 * want.abs().max()
 
 
@@ -704,9 +712,21 @@ def test_k7_k5_variant_equals_k5_bit_for_bit(cuda_device, K, N, zp, B):
 
 
 def _chain_planes(rng, k, n, qtype, scales_dtype):
+    """Chain phase planes: p4k (Q4_K), p4q2 (Q2_K: gs 16, codes 0..3,
+    mins), p4q3 (Q3_K: gs 16, zero point 4, no mins), i8g16 (Q6_K-like),
+    i8g32."""
     if qtype == "p4k":
         qs = pack_p4_kmajor(rng.integers(0, 16, size=(k, n)), 0)
         gs, layout, zp = 32, "p4", 0
+    elif qtype in ("p4q2", "p4q3"):
+        zp = 4 if qtype == "p4q3" else 0
+        qs = pack_p4_kmajor(rng.integers(-zp, (8 if zp else 4) - zp, size=(k, n)), zp)
+        gs, layout = 16, "p4"
+        scales = ((rng.random((k // gs, n)) + 0.5) * (2.0 / np.sqrt(k) / 8)).astype(np.float32)
+        m = (scales * 1.5).astype(np.float32) if qtype == "p4q2" else None
+        to = (lambda a: torch.from_numpy(a).to(scales_dtype))
+        return QTensor(torch.from_numpy(qs), to(scales), None if m is None else to(m), gs,
+                       GGMLType.Q2_K if zp == 0 else GGMLType.Q3_K, layout, zp)
     else:
         qs = rng.integers(-32, 32, size=(k, n)).astype(np.int8)
         gs, layout, zp = (16 if qtype == "i8g16" else 32), "i8", 0
@@ -791,9 +811,39 @@ def test_chain_gelu_at_a_given_plan(cuda_device, plan):
     assert (got.cpu().float() - want).abs().max() <= 2e-2 * want.abs().max()
 
 
+@pytest.mark.parametrize("act", ["swiglu", "geglu"])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("wo,gu,down", [("p4q3", "p4q3", "p4q3"), ("p4q3", "p4q3", "p4k"),
+                                        ("p4q2", "p4q2", "p4q3"), ("p4k", "p4q3", "i8g16")],
+                         ids=["q3k", "q3k-q4k-down", "q2k", "q3k-gu-only"])
+def test_chain_gs16_tail_matches_plain(cuda_device, wo, gu, down, B, act):
+    """K6_gs16 (qmm_chain_tc_g16: phases on nibble planes at group size 16
+    beside group size 32 and int8 ones, either act) against qmm_chain_plain,
+    counted apart from K6 and K6_gelu, bit-identical from launch to launch."""
+    rng = np.random.default_rng(B)
+    E, Fh = 512, 768
+    ws = [_chain_planes(rng, 512, E, wo, torch.bfloat16).to(cuda_device),
+          _chain_planes(rng, E, 2 * Fh, gu, torch.bfloat16).to(cuda_device),
+          _chain_planes(rng, Fh, E, down, torch.bfloat16).to(cuda_device)]
+    bf = torch.bfloat16
+    att = torch.from_numpy(rng.normal(size=(B, 512)).astype(np.float32)).to(bf).to(cuda_device)
+    xres = torch.from_numpy(rng.normal(size=(B, E)).astype(np.float32)).to(bf).to(cuda_device)
+    gamma = torch.from_numpy((rng.normal(size=E) * 0.2 + 1).astype(np.float32)).to(cuda_device)
+    pres = dict(TAIL_PRES, pres=("cast", "res_norm", act))
+    want = cuda_qmm_chain.qmm_chain_plain(att.cpu(), [w.to("cpu") for w in ws], (gamma.cpu(),),
+                                          xres.cpu(), **pres).float()
+    before = dict(cuda_qmm_chain.LAUNCHES)
+    got = cuda_qmm_chain.qmm_chain_cuda(att, ws, (gamma,), xres, **pres)
+    again = cuda_qmm_chain.qmm_chain_cuda(att, ws, (gamma,), xres, **pres)
+    assert cuda_qmm_chain.LAUNCHES == {**before, "K6_gs16": before["K6_gs16"] + 2}
+    assert torch.equal(got, again)
+    assert (got.cpu().float() - want).abs().max() <= 2e-2 * want.abs().max()
+
+
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("B", [1, 3, 8])
-@pytest.mark.parametrize("qtype,N", [("p4k", 768), ("i8g16", 1280), ("i8g32", 384)])
+@pytest.mark.parametrize("qtype,N", [("p4k", 768), ("p4q3", 768), ("p4q2", 640),
+                                     ("i8g16", 1280), ("i8g32", 384)])
 def test_chain_norm_mm_kernel_matches_plain(cuda_device, qtype, N, B, out_dtype):
     """K6's norm + matmul (a head, an lm_head) against the plain version."""
     rng = np.random.default_rng(N + B)
@@ -906,6 +956,8 @@ K7_PLANES = [  # layout, zp, gs, mins, N, K
     ("p4", 0, 32, True, 256, 512),     # Q4_K
     ("p4", 8, 32, False, 264, 512),    # Q4_0, N not a multiple of 16
     ("p4", 0, 32, True, 1000, 1024),   # ragged N tile
+    ("p4", 0, 16, True, 256, 512),     # Q2_K
+    ("p4", 4, 16, False, 264, 512),    # Q3_K, N not a multiple of 16
     ("i8", 0, 16, False, 256, 512),    # Q6_K
     ("i8", 0, 32, False, 200, 64),     # Q8_0, short K, ragged N
 ]
@@ -923,11 +975,12 @@ def test_k7_matches_plain_and_unstacked(cuda_device, layout, zp, gs, mins, N, K,
     x, qt = _stacked(layout, zp, gs, mins, N, K, B, torch.bfloat16)
     xd, qd = x.to(cuda_device), qt.to(cuda_device)
     lids = torch.arange(3, dtype=torch.int32, device=cuda_device)
+    kern = cuda_qmm.kernel_name("K7", qt.map(lambda t: t[0]))
     for il in range(3):
         sw = StackedWeight(qd, lids[il:il + 1])
-        launched = cuda_qmm.LAUNCHES["K7"]
+        launched = cuda_qmm.LAUNCHES[kern]
         got = qmatmul.qmm(xd, sw, gdot=gdot)
-        assert cuda_qmm.LAUNCHES["K7"] == launched + 1
+        assert cuda_qmm.LAUNCHES[kern] == launched + 1
         want = qmm_stacked_plain(x, StackedWeight(qt, torch.tensor([il], dtype=torch.int32)),
                                  torch.bfloat16, gdot=gdot)
         assert (got.cpu() - want).abs().max() <= 1e-3 * want.abs().max()

@@ -2,7 +2,8 @@
 against llm_tpu's group-factored kernel, qmm_pallas(gdot=True) ->
 _gdot_kernel in interpret mode, on the same planes made from a numpy seed:
 the p4 cases of test_torch_qmm.py (Q4_K with mins, Q4_0 with zero point 8,
-a ragged N) at B = 1 and 8. Then qmm(gdot=True)'s routing: the shapes the
+a ragged N) and the nibble planes of Q2_K (group size 16, mins) and Q3_K
+(group size 16, zero point 4) at B = 1 and 8. Then qmm(gdot=True)'s routing: the shapes the
 reference's gate admits take K5, every other shape K1/K2.
 
 Tolerances, relative to max|y|: 2e-4 in f32, as test_torch_qmm.py. In bf16
@@ -27,10 +28,12 @@ from llm_tpu_torch.ops import qmatmul
 from llm_tpu_torch.ops.cuda_qmm import GDOT_MAX_B, gdot_eligible, qmm_gdot_plain, qmm_plain
 from llm_tpu_torch.quant.qtensor import QTensor
 
-P4_CASES = [  # zp, mins, N
-    (0, True, 256),    # Q4_K
-    (8, False, 256),   # Q4_0
-    (0, True, 200),    # ragged N
+P4_CASES = [  # zp, mins, N, gs
+    (0, True, 256, 32),    # Q4_K
+    (8, False, 256, 32),   # Q4_0
+    (0, True, 200, 32),    # ragged N
+    (0, True, 256, 16),    # Q2_K: group size 16, mins
+    (4, False, 200, 16),   # Q3_K: group size 16, zero point 4, ragged N
 ]
 
 
@@ -55,14 +58,14 @@ def _rel(got, want):
 
 @pytest.mark.parametrize("cdtype,tol", [("f32", 2e-4), ("bf16", 1e-6)])
 @pytest.mark.parametrize("B", [1, 8])
-@pytest.mark.parametrize("zp,mins,N", P4_CASES, ids=["q4k", "q4_0", "ragged"])
-def test_gdot_plain_matches_pallas(zp, mins, N, B, cdtype, tol):
-    x, qs, scales, m, qt = _planes(zp, mins, N, B=B)
+@pytest.mark.parametrize("zp,mins,N,gs", P4_CASES, ids=["q4k", "q4_0", "ragged", "q2k", "q3k"])
+def test_gdot_plain_matches_pallas(zp, mins, N, gs, B, cdtype, tol):
+    x, qs, scales, m, qt = _planes(zp, mins, N, B=B, gs=gs)
     jdt, tdt = ((jnp.float32, torch.float32) if cdtype == "f32"
                 else (jnp.bfloat16, torch.bfloat16))
     want = np.asarray(qmm_pallas(
         jnp.asarray(x), jnp.asarray(qs), jnp.asarray(scales),
-        None if m is None else jnp.asarray(m), gs=32, zp=zp, layout="p4",
+        None if m is None else jnp.asarray(m), gs=gs, zp=zp, layout="p4",
         tile_n=128, tile_k=256, interpret=True, compute_dtype=jdt, gdot=True))
     got = qmm_gdot_plain(torch.from_numpy(x), qt, tdt).numpy()
     assert got.shape == want.shape == (B, N)

@@ -34,27 +34,29 @@ from llm_tpu_torch.gguf.constants import GGMLType
 from llm_tpu_torch.ops.cuda_qmm import _check_decode, qmm_gdot_plain, unpack_planes
 from llm_tpu_torch.quant.qtensor import QTensor
 
-CASES = [  # name, zp, mins, N, K
-    ("Q4_K", 0, True, 256, 512),
-    ("Q4_0", 8, False, 256, 512),
-    ("ragged", 0, True, 200, 1024),
-    ("Q4_0_ragged", 8, False, 264, 512),
+CASES = [  # name, zp, mins, N, K, gs
+    ("Q4_K", 0, True, 256, 512, 32),
+    ("Q4_0", 8, False, 256, 512, 32),
+    ("ragged", 0, True, 200, 1024, 32),
+    ("Q4_0_ragged", 8, False, 264, 512, 32),
+    ("Q2_K", 0, True, 256, 512, 16),        # group size 16: a group every 16-k step
+    ("Q3_K_ragged", 4, False, 264, 512, 16),
 ]
 ROWS = [1, 3, 8, 16]
 PLAIN_REL_TOL = 1e-5
 PALLAS_REL_TOL = 1e-6  # test_torch_gdot.py's bf16 tolerance
 
 
-def _planes(zp, mins, N, K, B, scales_dtype, seed=0):
+def _planes(zp, mins, N, K, B, scales_dtype, seed=0, gs=32):
     rng = np.random.default_rng(seed)
     q = rng.integers(0, 16, size=(K, N)).astype(np.int16) - zp
     qs = jax_pack_p4_kmajor(q, zp, 256)
-    scales = ((rng.random((K // 32, N)) + 0.5) * 0.01).astype(np.float32)
-    m = (rng.random((K // 32, N)) * 0.05).astype(np.float32) if mins else None
+    scales = ((rng.random((K // gs, N)) + 0.5) * 0.01).astype(np.float32)
+    m = (rng.random((K // gs, N)) * 0.05).astype(np.float32) if mins else None
     x = rng.normal(size=(B, K)).astype(np.float32)
     sc = torch.from_numpy(scales).to(scales_dtype)
     mn = None if m is None else torch.from_numpy(m).to(scales_dtype)
-    return x, qs, QTensor(torch.from_numpy(qs), sc, mn, 32, GGMLType.Q4_K, "p4", zp)
+    return x, qs, QTensor(torch.from_numpy(qs), sc, mn, gs, GGMLType.Q4_K, "p4", zp)
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -62,24 +64,27 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
 
 
 def gdot_decode_order(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """The kernel's K5 arithmetic: per group g, P'_g = sum over its two
-    16-k steps of the f32 products of x with the raw nibbles, then
-    acc = s[g] * P'_g + acc and the bf16-rounded correction, group after
-    group, in f32."""
+    """The kernel's K5 arithmetic: per group g, P'_g = sum over its 16-k
+    steps (two at group size 32, one at 16) of the f32 products of x with
+    the raw nibbles, then acc = s[g] * P'_g + acc and the bf16-rounded
+    correction, group after group, in f32."""
     xr = _bf16(x)
     q = (unpack_planes(qt) + qt.zp).float()  # the raw nibbles
     assert torch.equal(_bf16(q), q) and q.min() >= 0 and q.max() <= 15
     K, N = q.shape
-    B, G = xr.shape[0], K // 32
+    steps = qt.group_size // 16
+    B, G = xr.shape[0], K // qt.group_size
     s = qt.scales.float()
     m = None if qt.mins is None else qt.mins.float()
     with full_f32():
-        xg = xr.reshape(B, G, 2, 16).permute(1, 2, 0, 3)            # [G, 2, B, 16]
-        qg = q.reshape(G, 2, 16, N)
+        xg = xr.reshape(B, G, steps, 16).permute(1, 2, 0, 3)        # [G, steps, B, 16]
+        qg = q.reshape(G, steps, 16, N)
         p16 = torch.einsum("gsbk,gskn->gsbn", xg, qg)              # each 16-k step
-        p = p16[:, 0] + p16[:, 1]                                   # [G, B, N]
-        xs = xg.sum(-1)                                              # [G, 2, B]
-        xsum = _bf16(xs[:, 0] + xs[:, 1])                            # [G, B]
+        xs = xg.sum(-1)                                              # [G, steps, B]
+        p, xsum = p16[:, 0], xs[:, 0]
+        for st in range(1, steps):
+            p, xsum = p + p16[:, st], xsum + xs[:, st]              # [G, B, N], [G, B]
+        xsum = _bf16(xsum)
         acc = torch.zeros((B, N))
         for g in range(G):
             acc = s[g] * p[g] + acc
@@ -97,9 +102,9 @@ def _rel(got, want) -> float:
 
 @pytest.mark.parametrize("B", ROWS)
 @pytest.mark.parametrize("scales_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("name,zp,mins,N,K", CASES, ids=[c[0] for c in CASES])
-def test_gdot_order_matches_plain(name, zp, mins, N, K, scales_dtype, B):
-    x, _, qt = _planes(zp, mins, N, K, B, scales_dtype)
+@pytest.mark.parametrize("name,zp,mins,N,K,gs", CASES, ids=[c[0] for c in CASES])
+def test_gdot_order_matches_plain(name, zp, mins, N, K, gs, scales_dtype, B):
+    x, _, qt = _planes(zp, mins, N, K, B, scales_dtype, gs=gs)
     xt = torch.from_numpy(x)
     got = gdot_decode_order(xt, qt)
     want = qmm_gdot_plain(xt, qt, torch.bfloat16)
@@ -118,14 +123,14 @@ def test_gdot_order_matches_plain_at_the_down_width(B):
 
 @pytest.mark.parametrize("B", ROWS)
 @pytest.mark.parametrize("scales_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("name,zp,mins,N,K", CASES, ids=[c[0] for c in CASES])
-def test_gdot_order_matches_pallas(name, zp, mins, N, K, scales_dtype, B):
+@pytest.mark.parametrize("name,zp,mins,N,K,gs", CASES, ids=[c[0] for c in CASES])
+def test_gdot_order_matches_pallas(name, zp, mins, N, K, gs, scales_dtype, B):
     """Against the TPU kernel in interpret mode, in bf16, on the same planes
     (the scales and mins as the port holds them, passed in f32)."""
-    x, qs, qt = _planes(zp, mins, N, K, B, scales_dtype)
+    x, qs, qt = _planes(zp, mins, N, K, B, scales_dtype, gs=gs)
     f32 = (lambda t: None if t is None else jnp.asarray(t.float().numpy()))
     want = np.asarray(qmm_pallas(
-        jnp.asarray(x), jnp.asarray(qs), f32(qt.scales), f32(qt.mins), gs=32, zp=zp,
+        jnp.asarray(x), jnp.asarray(qs), f32(qt.scales), f32(qt.mins), gs=gs, zp=zp,
         layout="p4", tile_n=128, tile_k=256, interpret=True, compute_dtype=jnp.bfloat16,
         gdot=True))
     got = gdot_decode_order(torch.from_numpy(x), qt).numpy()

@@ -105,9 +105,9 @@ def test_synthetic_llama_file_is_the_same_through_either_writer(tmp_path, monkey
     llm_tpu's reader finds the recipe's types and the vocab in it."""
     geo = dict(n_layers=2, n_embd=256, n_heads=4, n_kv_heads=1, n_ff=512, n_vocab=1024)
     a, b = str(tmp_path / "port.gguf"), str(tmp_path / "ref.gguf")
-    info = synth_gguf.write_llama_q4km(a, **geo)
+    info = synth_gguf.write_llama(a, **geo)
     monkeypatch.setattr(synth_gguf, "GGUFWriter", JaxGGUFWriter)
-    synth_gguf.write_llama_q4km(b, **geo)
+    synth_gguf.write_llama(b, **geo)
     assert open(a, "rb").read() == open(b, "rb").read()
     assert info["tensors"] == {"Q4_K": 13, "Q6_K": 3, "F32": 5}
     r = JaxGGUFReader(a)

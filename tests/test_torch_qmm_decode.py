@@ -8,7 +8,8 @@ and folds each group into the f32 result as acc += s[g] * P_g, then
 acc -= m[g] * xsum_g with xsum_g the f32 group sum of the bf16 x. Nothing
 is rounded to bf16 on the way. Held here, on seeded numpy planes of every
 type the kernel takes (Q4_K, Q4_0 with zero point 8, Q6_K with gs 16,
-Q8_0, i8 with mins; bf16 and f32 scales), at B in {1, 3, 8, 16} and at
+Q8_0, i8 with mins, Q2_K and Q3_K as nibble planes at gs 16, Q3_K with zero
+point 4; bf16 and f32 scales), at B in {1, 3, 8, 16} and at
 one K = 14336:
   * against qmm_plain, the function the card's checks hold the kernel to,
     at the card's 1e-3 of max|y| (the two orders differ by ~1e-6 of it);
@@ -42,6 +43,8 @@ CASES = [  # name, layout, zp, gs, mins, N, K
     ("Q8_0", "i8", 0, 32, False, 200, 320),     # K % 128 == 64: a half stage
     ("i8_mins", "i8", 0, 32, True, 128, 256),
     ("Q4_K_down", "p4", 0, 32, True, 128, 14336),
+    ("Q2_K", "p4", 0, 16, True, 256, 512),      # nibble planes at gs 16, with mins
+    ("Q3_K", "p4", 4, 16, False, 264, 512),     # gs 16, zero point 4, the gathered path
 ]
 ROWS = [1, 3, 8, 16]
 CARD_REL_TOL = 1e-3  # chip_smoke.py::check_qmm, tests/test_torch_cuda.py
@@ -147,7 +150,7 @@ def _byte_perm(x: np.ndarray, y: np.ndarray, sel: int) -> np.ndarray:
 
 
 @pytest.mark.parametrize("by", [0, 1, 2, 3])
-@pytest.mark.parametrize("zp", [0, 8])  # Q4_K / Q4_1, Q4_0
+@pytest.mark.parametrize("zp", [0, 8, 4])  # Q4_K / Q4_1 / Q2_K, Q4_0, Q3_K
 def test_p4_byte_trick_is_exact(zp, by):
     """Two plane rows' bytes of one column (byte `by` of their words) ->
     byte_perm -> (p & 0x000F000F) | 0x43004300 and the same of p >> 4 ->

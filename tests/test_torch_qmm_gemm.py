@@ -6,7 +6,8 @@ The kernel folds the mins into the weight, w' = (q - zp) * s - m in f32,
 splits w' into bf16 hi = bf16(w') and lo = bf16(w' - hi), and sums
 x @ hi + x @ lo in f32 on the tensor cores, x rounded to bf16. Held here,
 on seeded numpy planes of every type the kernel takes (Q4_K, Q4_0, Q6_K,
-Q8_0, i8 with mins, i8 with a zero point; bf16 and f32 scales):
+Q8_0, i8 with mins, i8 with a zero point, Q2_K and Q3_K as nibble planes at
+gs 16; bf16 and f32 scales):
   * against qmm_plain, the function the card's checks hold the kernel to
     (1e-3 of max|y| there), at 1e-5 of max|y|: hi + lo keeps 16 bits of
     w' (2^-16 = 1.5e-5 of a weight at worst, 2.9e-6 of max|y| measured
@@ -46,6 +47,8 @@ CASES = [  # name, layout, zp, gs, mins, N, K
     ("Q8_0", "i8", 0, 32, False, 200, 320),    # K % 128 == 64: a half stage
     ("i8_mins", "i8", 0, 32, True, 128, 256),
     ("i8_zp", "i8", 3, 32, False, 128, 256),
+    ("Q2_K", "p4", 0, 16, True, 256, 512),     # nibble planes at gs 16, with mins
+    ("Q3_K", "p4", 4, 16, False, 264, 512),    # gs 16, zero point 4, the gathered path
 ]
 B = 33
 PLAIN_REL_TOL = 1e-5

@@ -85,12 +85,14 @@ K7_CASES = [  # layout, zp, gs, mins, gdot
     ("i8", 0, 16, False, False),  # Q6_K: stacked K2
     ("i8", 0, 32, False, False),  # Q8_0
     ("p4", 0, 32, True, True),    # Q4_K, group-factored: stacked K5
+    ("p4", 0, 16, True, False),   # Q2_K: nibble planes at group size 16
+    ("p4", 4, 16, False, True),   # Q3_K (zero point 4), group-factored
 ]
 
 
 @pytest.mark.parametrize("cdtype,tol", [("f32", 2e-4), ("bf16", 2e-2)])
 @pytest.mark.parametrize("layout,zp,gs,mins,gdot", K7_CASES,
-                         ids=["q4k", "q4_0", "q6k", "q8_0", "q4k-gdot"])
+                         ids=["q4k", "q4_0", "q6k", "q8_0", "q4k-gdot", "q2k", "q3k-gdot"])
 def test_k7_plain_matches_pallas(layout, zp, gs, mins, gdot, cdtype, tol):
     x, qs, sc, mn, qt = _stack_planes(layout, zp, gs, mins)
     jdt, tdt = ((jnp.float32, torch.float32) if cdtype == "f32"

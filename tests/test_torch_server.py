@@ -416,8 +416,7 @@ def test_http_metrics_and_lora_post(servers):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--lora", "a.gguf"], "Queue 1 item 9.1"), (["-tp", "2"], "Queue 1 item 10"),
-    (["--ep-capacity-factor", "1.5"], "Queue 1 item 8")])
+    (["--lora", "a.gguf"], "Queue 1 item 9.1"), (["-tp", "2"], "Queue 1 item 10")])
 def test_server_flags_the_port_cannot_honour_exit_naming_the_roadmap(extra, item, capsys):
     """`python -m llm_tpu_torch.server.app` exits before loading anything on
     a flag whose module is not ported, naming its ROADMAP item."""
@@ -427,6 +426,35 @@ def test_server_flags_the_port_cannot_honour_exit_naming_the_roadmap(extra, item
         app.main(["-m", "absent.gguf", "--device", "cpu", *extra])
     assert e.value.code == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+def test_server_ep_capacity_factor_reaches_the_context(tmp_path, monkeypatch):
+    """--ep-capacity-factor on the server: its Context (server_contexts)
+    caps a mixture-of-experts model's expert buckets as llm_tpu's server
+    does (its flag sets LLM_TPU_EP_CF, which its Context reads): the same
+    ep_cf in both configs, and the prefill logits of a 30-token prompt,
+    one step whose cap of 8 tokens an expert drops assignments, within
+    2e-4 of llm_tpu's."""
+    from llm_tpu.tools.args import apply_ep_cf
+
+    from llm_tpu_torch.server import app
+    from test_torch_cli import moe_gguf_with_vocab
+
+    path = moe_gguf_with_vocab(str(tmp_path / "moe.gguf"))
+    monkeypatch.setenv("LLM_TPU_EP_CF", "0")
+    args = app._parser().parse_args(["-m", path, "--device", "cpu", "--f32", "-c", "64",
+                                     "--ep-capacity-factor", "0.5"])
+    ctx, _ = app.server_contexts(args, GGUFReader(path), torch.device("cpu"))
+    apply_ep_cf(args.ep_capacity_factor)
+    ref = JaxContext(JaxGGUFReader(path), n_cells=64, dtype=jnp.float32)
+    assert ctx.cfg.ep_cf == ref.cfg.ep_cf == 0.5
+    toks = [(i * 7) % 90 + 3 for i in range(30)]
+    from llm_tpu.runtime.batch import Batch as JaxBatch
+
+    from llm_tpu_torch.runtime.batch import Batch
+    assert ctx.decode(Batch.text(toks)) == 0 and ref.decode(JaxBatch.text(toks)) == 0
+    np.testing.assert_allclose(ctx.get_logits(), np.asarray(ref.get_logits()),
+                               atol=2e-4, rtol=2e-4)
 
 
 def test_server_default_device_needs_a_card(capsys):
