@@ -12,7 +12,8 @@ stacked layout: QTensor leaves with [L, ...] planes and their meta, small
 leaves as [L, ...] tensors. A mixture-of-experts layer's stacked-expert
 QTensors (rows-layout planes with a leading expert dim [E, ...]) and dense
 [E, N, K] stacks come across as they are, and so do the config's expert
-fields. This module reads no llm_tpu code.
+fields; so do layer vectors such as bitnet's sub-norms (attn_sub_norm,
+ffn_sub_norm) and its act "relu2". This module reads no llm_tpu code.
 """
 
 from __future__ import annotations

@@ -193,7 +193,8 @@ inline EncodeTiled encode_tiled() {
 // error codes of make_map (beside cudaError_t's)
 // the quantized matmuls' nibble planes at group size 32 (G16 false) or 16
 // (G16: Q2_K, Q3_K): a 64-k chunk of x spans CG groups of GS rows (int8
-// planes take gs 16 or 32 at run time)
+// planes take gs 16 or 32 at run time; group size 256 and int8 planes at 8
+// are forms of their own, GX in qmm_decode.cuh and qmm_gemm.cuh)
 template <bool G16>
 struct P4Groups {
   static constexpr int CG = G16 ? 4 : 2;    // group rows of one x chunk

@@ -7,8 +7,8 @@
 
 // x bf16 [B, K]; qs uint8 [K/2, N] (p4) or int8 [K, N] (i8); scales and
 // mins [K/gs, N] f32 or bf16 (mins may be null); y f32 [B, N].
-// Requirements (checked by the Python wrapper): p4 -> K % 256 == 0, gs 16 or 32;
-// i8 -> K % 32 == 0, gs 16 or 32; B > 16 and K % 64 == 0 (B <= 16 is
+// Requirements (checked by the Python wrapper): p4 -> K % 256 == 0, gs 16, 32
+// or 256; i8 -> K % 32 == 0, gs 8, 16 or 32; B > 16 and K % 64 == 0 (B <= 16 is
 // refused: qmm_decode.cu). split: the prefill GEMM's K ranges per tile
 // (ops/cuda_qmm.py::gemm_split).
 extern "C" int qmm_launch(const void* x, const void* qs, const void* scales,

@@ -12,8 +12,10 @@
 // the TPU kernel's _act_f32 "gelu", jax.nn.gelu(approximate=True), with
 // tanhf: kernel qmm_chain_tc_gelu, the same CTA instantiated for it),
 // either of them with phases on nibble planes at group size 16 (Q2_K,
-// Q3_K; kernel qmm_chain_tc_g16, which reads each boundary's act), or one
-// phase, out = (bf16(rms(x) * gamma)) @ W cast to bf16 or f32 (the
+// Q3_K; kernel qmm_chain_tc_g16, which reads each boundary's act), on
+// nibble planes at group size 256 (TQ1_0, TQ2_0; qmm_chain_tc_g256) or on
+// int8 planes at group size 8 (IQ1_M; qmm_chain_tc_g8), which read it
+// likewise, or one phase, out = (bf16(rms(x) * gamma)) @ W cast to bf16 or f32 (the
 // attn_norm -> fused QKV head and the final norm -> lm_head). Each phase is
 // K1/K2's function as their decode GEMV computes it (qmm_decode.cuh: exact
 // integer products on the tensor cores, s and m applied per group in f32).
@@ -242,13 +244,13 @@ __device__ __forceinline__ void chain_boundary(const ChainArgs& a, int p, float*
 }
 
 // the TMA loads of stage u (128 k) of column tile n0 into st (G16: p4
-// planes at group size 16)
-template <bool P4, bool SBF16, bool MINS, bool G16>
+// planes at group size 16; GX: p4 at 256 or i8 at 8, qmm_decode.cuh)
+template <bool P4, bool SBF16, bool MINS, bool G16, int GX = 0>
 __device__ __forceinline__ void chain_issue(const ChainMaps& maps, int p, int gs, uint32_t st,
                                             uint32_t full, int n0, int u) {
-  using L = DecodeSmem<P4, SBF16, MINS, G16>;
+  using L = DecodeSmem<P4, SBF16, MINS, G16, GX>;
   constexpr int CG = P4Groups<G16>::CG, GS = P4Groups<G16>::GS;
-  const int g_rows = P4 ? 2 * CG : DV_UNIT_K / gs;
+  const int g_rows = GX == 256 ? 1 : P4 ? 2 * CG : DV_UNIT_K / gs;
   const uint32_t tx = 2 * 64 * CH_MAX_B * 2 + L::W_BYTES +
                       g_rows * DV_TILE_N * L::ES * (MINS ? 2 : 1);
   const int kx0 = P4 ? 256 * (u >> 1) + 64 * (u & 1) : DV_UNIT_K * u;
@@ -258,7 +260,10 @@ __device__ __forceinline__ void chain_issue(const ChainMaps& maps, int p, int gs
   tma_2d(st + L::X_OFF, &maps.x[p], full, kx0, 0);
   tma_2d(st + L::X_OFF + L::X_CHUNK, &maps.x[p], full, kx1, 0);
   tma_2d(st, &maps.w[p], full, n0, row0);
-  if (P4) {
+  if (GX == 256) {  // both chunks are in group kx0 / 256
+    tma_2d(st + L::S_OFF, &maps.s[p], full, n0, kx0 / 256);
+    if (MINS) tma_2d(st + L::M_OFF, &maps.m[p], full, n0, kx0 / 256);
+  } else if (P4) {
     const int half = CG * DV_TILE_N * L::ES;
     tma_2d(st + L::S_OFF, &maps.s[p], full, n0, kx0 / GS);
     tma_2d(st + L::S_OFF + half, &maps.s[p], full, n0, kx1 / GS);
@@ -287,20 +292,20 @@ __device__ __forceinline__ void chain_store(const ChainPhase& ph, int b, int n, 
 
 // the ring's slots for a layout's stage: as many as CH_RING holds, even (a
 // consumer pair takes the slots of one parity), at most CH_MAX_SLOTS
-template <bool P4, bool SBF16, bool MINS, bool G16>
+template <bool P4, bool SBF16, bool MINS, bool G16, int GX = 0>
 struct ChainSlots {
-  static constexpr int FIT = CH_RING / DecodeSmem<P4, SBF16, MINS, G16>::STAGE;
+  static constexpr int FIT = CH_RING / DecodeSmem<P4, SBF16, MINS, G16, GX>::STAGE;
   static constexpr int N = (FIT < CH_MAX_SLOTS ? FIT : CH_MAX_SLOTS) & ~1;
 };
 
 // one phase on this CTA: its items, round by round (G16: p4 planes at
-// group size 16)
-template <bool P4, bool SBF16, bool MINS, bool G16>
+// group size 16; GX: p4 at 256 or i8 at 8, run by dv_consume_gx)
+template <bool P4, bool SBF16, bool MINS, bool G16, int GX = 0>
 __device__ __forceinline__ void chain_phase(const ChainMaps& maps, const ChainArgs& a, int p,
                                             uint8_t* ring, float* red, uint32_t full0,
                                             uint32_t empty0) {
-  using L = DecodeSmem<P4, SBF16, MINS, G16>;
-  constexpr int SLOTS = ChainSlots<P4, SBF16, MINS, G16>::N;
+  using L = DecodeSmem<P4, SBF16, MINS, G16, GX>;
+  constexpr int SLOTS = ChainSlots<P4, SBF16, MINS, G16, GX>::N;
   static_assert(SLOTS >= 2 && SLOTS * L::STAGE <= CH_RING, "a stage outgrows the ring");
   const ChainPhase& ph = a.ph[p];
   uint32_t rank, cid;
@@ -336,8 +341,8 @@ __device__ __forceinline__ void chain_phase(const ChainMaps& maps, const ChainAr
         for (int j = 0; j < nu; ++j, ++c) {
           const int slot = c % SLOTS;
           if (c >= SLOTS) mbar_wait(empty0 + 8 * slot, ((c / SLOTS) - 1) & 1);
-          chain_issue<P4, SBF16, MINS, G16>(maps, p, ph.gs, ring_a + slot * L::STAGE,
-                                            full0 + 8 * slot, tile * DV_TILE_N, u0 + j);
+          chain_issue<P4, SBF16, MINS, G16, GX>(maps, p, ph.gs, ring_a + slot * L::STAGE,
+                                                full0 + 8 * slot, tile * DV_TILE_N, u0 + j);
         }
       }
       __syncwarp();
@@ -367,8 +372,14 @@ __device__ __forceinline__ void chain_phase(const ChainMaps& maps, const ChainAr
         if ((c & 1) != kw) continue;  // pair kw takes the stages of its parity
         const int slot = c % SLOTS;
         mbar_wait(full0 + 8 * slot, (c / SLOTS) & 1);
-        dv_consume<P4, SBF16, MINS, 1, false, G16>(ring + slot * L::STAGE, 64 * cw, ph.gs, zp2,
-                                                   ibase, acc);
+        if constexpr (GX != 0) {
+          float xg[1][1][4];
+          dv_consume_gx<P4, SBF16, MINS, 1, false, GX>(ring + slot * L::STAGE, 64 * cw, zp2,
+                                                       ibase, acc, xg, 0, 0.f);
+        } else {
+          dv_consume<P4, SBF16, MINS, 1, false, G16>(ring + slot * L::STAGE, 64 * cw, ph.gs,
+                                                     zp2, ibase, acc);
+        }
         __syncwarp();
         if (lane == 0) mbar_arrive(empty0 + 8 * slot);
       }
@@ -418,11 +429,12 @@ __device__ __forceinline__ void chain_phase(const ChainMaps& maps, const ChainAr
 
 // the CTA of every kernel: the phases in turn, the boundaries with act
 // silu (GELU false) or gelu; G16: p4 phases may also have group size 16,
-// and the act is the boundary's (PRE_SWIGLU or PRE_GEGLU).
+// GX: p4 phases 256 (GX 256) or i8 phases 8 (GX 8); with G16 or GX the act
+// is the boundary's (PRE_SWIGLU or PRE_GEGLU).
 // It declares the kernel's shared memory itself: handed in as pointers
 // from the kernel, the arrays cost qmm_chain_tc 24 more instructions
 // (tools/cubin_cmp.py read DIFF), declared here it keeps its machine code
-template <bool GELU, bool G16 = false>
+template <bool GELU, bool G16 = false, int GX = 0>
 __device__ __forceinline__ void chain_cta(const ChainMaps& maps, const ChainArgs& a) {
   extern __shared__ uint8_t dyn_smem[];
   __shared__ __align__(8) uint64_t bars[2 * CH_MAX_SLOTS];  // full, then empty
@@ -436,7 +448,7 @@ __device__ __forceinline__ void chain_cta(const ChainMaps& maps, const ChainArgs
   for (int p = 0; p < a.P; ++p) {
     const ChainPhase& ph = a.ph[p];
     if (ph.pre != PRE_CAST) {
-      if (G16 && ph.pre == PRE_GEGLU) chain_boundary<true>(a, p, red5);
+      if ((G16 || GX != 0) && ph.pre == PRE_GEGLU) chain_boundary<true>(a, p, red5);
       else chain_boundary<GELU>(a, p, red5);
       grid.sync();
     }
@@ -461,13 +473,31 @@ __device__ __forceinline__ void chain_cta(const ChainMaps& maps, const ChainArgs
   } else {                                                                         \
     if (ph.mins) CHAIN_PHASE(P4, false, true, G); else CHAIN_PHASE(P4, false, false, G); \
   }
-    if (G16 && ph.p4 && ph.gs == 16) {
-      CHAIN_SM(true, G16)
-    } else if (ph.p4) {
-      CHAIN_SM(true, false)
-    } else {
-      CHAIN_SM(false, false)
+#define CHAIN_ANY                  \
+    if (G16 && ph.p4 && ph.gs == 16) { \
+      CHAIN_SM(true, G16)          \
+    } else if (ph.p4) {            \
+      CHAIN_SM(true, false)        \
+    } else {                       \
+      CHAIN_SM(false, false)       \
     }
+    if constexpr (GX != 0) {
+#define CHAIN_PHASE_GX(S, M) \
+  chain_phase<GX == 256, S, M, false, GX>(maps, a, p, ring, red, full0, empty0)
+      if (ph.gs == GX && (ph.p4 != 0) == (GX == 256)) {
+        if (ph.scales_bf16) {
+          if (ph.mins) CHAIN_PHASE_GX(true, true); else CHAIN_PHASE_GX(true, false);
+        } else {
+          if (ph.mins) CHAIN_PHASE_GX(false, true); else CHAIN_PHASE_GX(false, false);
+        }
+      } else {
+        CHAIN_ANY
+      }
+#undef CHAIN_PHASE_GX
+    } else {
+      CHAIN_ANY
+    }
+#undef CHAIN_ANY
 #undef CHAIN_SM
 #undef CHAIN_PHASE
     if (p + 1 < a.P) grid.sync();
@@ -492,13 +522,28 @@ qmm_chain_tc_g16(const __grid_constant__ ChainMaps maps, const __grid_constant__
   chain_cta<false, true>(maps, a);
 }
 
+// either with phases on p4 planes at group size 256 (TQ1_0, TQ2_0), or on
+// i8 planes at group size 8 (IQ1_M), beside the others (but group size 16)
+__global__ void __launch_bounds__(DV_THREADS, 2)
+qmm_chain_tc_g256(const __grid_constant__ ChainMaps maps, const __grid_constant__ ChainArgs a) {
+  chain_cta<false, false, 256>(maps, a);
+}
+
+__global__ void __launch_bounds__(DV_THREADS, 2)
+qmm_chain_tc_g8(const __grid_constant__ ChainMaps maps, const __grid_constant__ ChainArgs a) {
+  chain_cta<false, false, 8>(maps, a);
+}
+
 // the kernel of a launch, by its index `kind`: 2 (qmm_chain_tc_g16) if a
-// phase's p4 planes have group size 16, else 1 (qmm_chain_tc_gelu) if a
-// phase's boundary is PRE_GEGLU, else 0 (qmm_chain_tc)
+// phase's p4 planes have group size 16, 3 (qmm_chain_tc_g256) if they have
+// 256, 4 (qmm_chain_tc_g8) if a phase's i8 planes have group size 8 (no
+// launch mixes these), else 1 (qmm_chain_tc_gelu) if a phase's boundary is
+// PRE_GEGLU, else 0 (qmm_chain_tc)
 using ChainKernel = void (*)(ChainMaps, ChainArgs);
-constexpr int CH_KINDS = 3;
+constexpr int CH_KINDS = 5;
 ChainKernel chain_kernel(int kind) {
-  const ChainKernel kernels[CH_KINDS] = {qmm_chain_tc, qmm_chain_tc_gelu, qmm_chain_tc_g16};
+  const ChainKernel kernels[CH_KINDS] = {qmm_chain_tc, qmm_chain_tc_gelu, qmm_chain_tc_g16,
+                                         qmm_chain_tc_g256, qmm_chain_tc_g8};
   return kernels[kind];
 }
 
@@ -507,7 +552,7 @@ ChainKernel chain_kernel(int kind) {
 // size (it depends only on the kernel and the card).
 cudaError_t chain_clusters(int cluster, int kind, int* n) {
   static int cached[CH_KINDS][CH_MAX_CLUSTER + 1] = {{0}};
-  static bool attr[CH_KINDS] = {false, false, false};
+  static bool attr[CH_KINDS] = {false, false, false, false, false};
   if (cluster < 1 || cluster > CH_MAX_CLUSTER || kind < 0 || kind >= CH_KINDS)
     return cudaErrorInvalidValue;
   const ChainKernel kernel = chain_kernel(kind);
@@ -564,7 +609,8 @@ int phase_maps(const ChainPhase& ph, int B, ChainMaps* mp, int p) {
       ph.scales_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   const cuuint64_t dims[2] = {(cuuint64_t)ph.N, (cuuint64_t)G};
   const cuuint64_t strides[1] = {(cuuint64_t)ph.N * es};
-  const cuuint32_t box[2] = {DV_TILE_N, (cuuint32_t)(ph.p4 ? 64 / ph.gs : DV_UNIT_K / ph.gs)};
+  const cuuint32_t box[2] = {DV_TILE_N, (cuuint32_t)(ph.p4 ? (ph.gs == 256 ? 1 : 64 / ph.gs)
+                                                           : DV_UNIT_K / ph.gs)};
   if (int rc = make_map(&mp->s[p], dt, 2, ph.scales, dims, strides, box,
                         CU_TENSOR_MAP_SWIZZLE_NONE))
     return rc;
@@ -579,7 +625,7 @@ int phase_maps(const ChainPhase& ph, int B, ChainMaps* mp, int p) {
 
 // The clusters of `cluster` CTAs the card holds at once (-1 on an error):
 // the grid of a launch with that cluster size, of the kernel `kind`
-// (chain_kernel: 0 SwiGLU, 1 GeGLU, 2 group size 16). The wrapper's plan
+// (chain_kernel: 0 SwiGLU, 1 GeGLU, 2, 3, 4 group size 16, 256, 8). The wrapper's plan
 // (chain_plan) picks the cluster size and deals a phase's tiles to them.
 extern "C" int qmm_chain_clusters(int cluster, int kind) {
   int n = 0;
@@ -596,12 +642,15 @@ extern "C" int qmm_chain_clusters(int cluster, int kind) {
 extern "C" int qmm_chain_launch(const ChainPhase* phases, int P, int B, float eps, int cluster,
                                 void* stream) {
   if (P < 1 || P > CH_MAX_PHASES || B < 1 || B > CH_MAX_B) return (int)cudaErrorInvalidValue;
-  bool gelu = false, g16 = false;
+  bool gelu = false, g16 = false, g256 = false, g8 = false;
   for (int p = 0; p < P; ++p) {
     gelu = gelu || phases[p].pre == PRE_GEGLU;
     g16 = g16 || (phases[p].p4 && phases[p].gs == 16);
+    g256 = g256 || (phases[p].p4 && phases[p].gs == 256);
+    g8 = g8 || (!phases[p].p4 && phases[p].gs == 8);
   }
-  const int kind = g16 ? 2 : gelu;
+  if ((int)g16 + (int)g256 + (int)g8 > 1) return (int)cudaErrorInvalidValue;
+  const int kind = g16 ? 2 : g256 ? 3 : g8 ? 4 : gelu;
   int q = 0;
   cudaError_t err = chain_clusters(cluster, kind, &q);
   if (err != cudaSuccess) return (int)err;
@@ -623,7 +672,9 @@ extern "C" int qmm_chain_launch(const ChainPhase* phases, int P, int B, float ep
     const int rest = tiles % (q * (cluster / ph.split));
     if (ph.split_last != ph.split && (rest == 0 || rest > q * (cluster / ph.split_last)))
       return (int)cudaErrorInvalidValue;
-    if (ph.N % DV_TILE_N != 0 || ph.K % 256 != 0 || (ph.p4 && ph.gs != 32 && ph.gs != 16))
+    if (ph.N % DV_TILE_N != 0 || ph.K % 256 != 0 ||
+        (ph.p4 && ph.gs != 32 && ph.gs != 16 && ph.gs != 256) ||
+        (!ph.p4 && ph.gs != 32 && ph.gs != 16 && ph.gs != 8))
       return (int)cudaErrorInvalidValue;
     a.ph[p] = ph;
     if (int rc = phase_maps(ph, B, &maps, p)) return rc;

@@ -13,7 +13,10 @@
 // [B, N] written in f32 or bf16 (one round-to-nearest of the f32 sum).
 // p4 planes have group size 32 or 16 (Q2_K, Q3_K: the kernels
 // qmm_decode_g16 and qmm_decode_gdot_g16, the same CTA with 4 group rows of
-// scales and mins for each 64-k x chunk, each k16 step a group).
+// scales and mins for each 64-k x chunk, each k16 step a group) or 256
+// (TQ1_0, TQ2_0: qmm_decode_g256 and qmm_decode_gdot_g256, one group row a
+// stage, dv_consume_gx); i8 planes 32, 16 or 8 (IQ1_M: qmm_decode_g8, 16
+// group rows a stage, two m16n8k8 products a k16 step, dv_consume_gx).
 //
 // Bound: the planes' bytes (0.5 B a weight p4, 1 B i8, plus scales and
 // mins), a few hundred times more than its operations need at B <= 16.
@@ -100,15 +103,17 @@ constexpr int DV_MAX_B = 16;                   // rows of x
 constexpr int DV_MAX_CLUSTER = 16;             // non-portable cluster size
 constexpr int DV_RAGGED_ARRIVALS = 33;         // lane 0's expect_tx, then all 32 lanes
 constexpr int DV_RING_MAX = 96 * 1024;         // a ring of 4 stages up to this size
+constexpr int DV_RING_MAX_G8 = 120 * 1024;     // the same at group size 8 (i8)
 
-template <bool P4, bool SBF16, bool MINS, bool G16 = false>
+// GX: the group-size forms of their own, 256 (p4) or 8 (i8); 0 otherwise
+template <bool P4, bool SBF16, bool MINS, bool G16 = false, int GX = 0>
 struct DecodeSmem {
   static constexpr int W_ROWS = P4 ? 64 : 128;          // plane rows of a stage
   static constexpr int W_BYTES = W_ROWS * DV_TILE_N;    // 128 columns of them
   static constexpr int X_CHUNK = DV_MAX_B * 64 * 2;     // 16 rows x 64 k of bf16
   static constexpr int ES = SBF16 ? 2 : 4;
-  // group rows (i8: gs 16 or 32)
-  static constexpr int G_ROWS = P4 ? 2 * P4Groups<G16>::CG : 8;
+  // group rows (i8: gs 16 or 32; GX 256: one for the stage; GX 8: 16)
+  static constexpr int G_ROWS = GX == 256 ? 1 : GX == 8 ? 16 : P4 ? 2 * P4Groups<G16>::CG : 8;
   static constexpr int G_BYTES = G_ROWS * DV_TILE_N * ES;
   static constexpr int X_OFF = W_BYTES;                 // 1024-aligned
   static constexpr int S_OFF = X_OFF + 2 * X_CHUNK;
@@ -116,7 +121,7 @@ struct DecodeSmem {
   static constexpr int STAGE = (M_OFF + (MINS ? G_BYTES : 0) + 1023) / 1024 * 1024;
   // even: slot s is always taken by consumer pair s % 2, so no pair waits
   // on a slot's phase while the other pair still holds its earlier one
-  static constexpr int STAGES = 4 * STAGE <= DV_RING_MAX ? 4 : 2;
+  static constexpr int STAGES = 4 * STAGE <= (GX == 8 ? DV_RING_MAX_G8 : DV_RING_MAX) ? 4 : 2;
   static constexpr int RED = 2 * DV_MAX_B * DV_TILE_N * 4;  // [2][16][128] f32 partials
   static constexpr int RING = STAGES * STAGE;
   static constexpr int BYTES = (RING > RED ? RING : RED) + 1024;  // + slack to align to 1024
@@ -195,17 +200,18 @@ __device__ __forceinline__ void dv_gather_rows(uint8_t* w, const uint8_t* qs, in
   }
 }
 
-// ... and its group rows of scales or mins (p4: CG rows from each x chunk;
-// i8: 128 / gs rows)
-template <bool P4, bool SBF16, bool MINS, bool G16 = false>
+// ... and its group rows of scales or mins (p4: CG rows from each x chunk,
+// GX 256: the one row of both; i8: 128 / gs rows)
+template <bool P4, bool SBF16, bool MINS, bool G16 = false, int GX = 0>
 __device__ __forceinline__ void dv_gather_groups(uint8_t* s, const void* src, int lane, int n0,
                                                  int kx0, int kx1, const DecodeArgs& a) {
-  using L = DecodeSmem<P4, SBF16, MINS, G16>;
+  using L = DecodeSmem<P4, SBF16, MINS, G16, GX>;
   constexpr int CG = P4Groups<G16>::CG, GS = P4Groups<G16>::GS;
-  const int G = a.K / a.gs, rows = P4 ? 2 * CG : DV_UNIT_K / a.gs;
+  const int G = a.K / a.gs, rows = GX == 256 ? 1 : P4 ? 2 * CG : DV_UNIT_K / a.gs;
   for (int i = lane; i < L::G_ROWS * DV_TILE_N; i += 32) {
     const int gr = i / DV_TILE_N, n = n0 + i % DV_TILE_N;
-    const int g = P4 ? (gr < CG ? kx0 / GS + gr : kx1 / GS + gr - CG) : kx0 / a.gs + gr;
+    const int g = GX == 256 ? kx0 / 256
+                  : P4 ? (gr < CG ? kx0 / GS + gr : kx1 / GS + gr - CG) : kx0 / a.gs + gr;
     const bool ok = gr < rows && g < G && n < a.N;
     if (SBF16)
       reinterpret_cast<uint16_t*>(s)[i] =
@@ -217,12 +223,12 @@ __device__ __forceinline__ void dv_gather_groups(uint8_t* s, const void* src, in
 }
 
 // the producer warp: stages [u0, u1) of this CTA's column tile n0
-template <bool P4, bool SBF16, bool MINS, bool G16 = false>
+template <bool P4, bool SBF16, bool MINS, bool G16 = false, int GX = 0>
 __device__ __forceinline__ void dv_producer(const CUtensorMap* tmx, const CUtensorMap* tmw,
                                             const CUtensorMap* tms, const CUtensorMap* tmm,
                                             const DecodeArgs& a, uint8_t* smem, uint32_t full0,
                                             uint32_t empty0, int n0, int u0, int u1) {
-  using L = DecodeSmem<P4, SBF16, MINS, G16>;
+  using L = DecodeSmem<P4, SBF16, MINS, G16, GX>;
   constexpr int CG = P4Groups<G16>::CG, GS = P4Groups<G16>::GS;
   const int lane = threadIdx.x & 31;
   if (a.tma_w && lane != 0) return;
@@ -233,7 +239,7 @@ __device__ __forceinline__ void dv_producer(const CUtensorMap* tmx, const CUtens
       MINS ? static_cast<const void*>(static_cast<const char*>(a.mn) + (long long)layer * a.s_ls)
            : nullptr;
   const int xr = a.B > 8 ? 16 : 8;                   // x rows a chunk's box brings
-  const int g_rows = P4 ? 2 * CG : DV_UNIT_K / a.gs;  // group rows a stage
+  const int g_rows = GX == 256 ? 1 : P4 ? 2 * CG : DV_UNIT_K / a.gs;  // group rows a stage
   const uint32_t tx = 2 * 64 * xr * 2 +
                       (a.tma_w ? L::W_BYTES + g_rows * DV_TILE_N * L::ES * (MINS ? 2 : 1) : 0);
   const uint32_t smem_a = smem_u32(smem);
@@ -253,7 +259,10 @@ __device__ __forceinline__ void dv_producer(const CUtensorMap* tmx, const CUtens
       tma_2d(st + L::X_OFF + L::X_CHUNK, tmx, full, kx1, 0);
       if (a.tma_w) {
         tma_3d(st, tmw, full, n0, row0, layer);
-        if (P4) {
+        if (GX == 256) {  // both chunks are in group kx0 / 256
+          tma_3d(st + L::S_OFF, tms, full, n0, kx0 / 256, layer);
+          if (MINS) tma_3d(st + L::M_OFF, tmm, full, n0, kx0 / 256, layer);
+        } else if (P4) {
           const int half = CG * DV_TILE_N * L::ES;
           tma_3d(st + L::S_OFF, tms, full, n0, kx0 / GS, layer);
           tma_3d(st + L::S_OFF + half, tms, full, n0, kx1 / GS, layer);
@@ -270,9 +279,9 @@ __device__ __forceinline__ void dv_producer(const CUtensorMap* tmx, const CUtens
     if (!a.tma_w) {
       uint8_t* stp = smem + slot * L::STAGE;
       dv_gather_rows<P4, SBF16, MINS>(stp, qs, lane, n0, row0, a);
-      dv_gather_groups<P4, SBF16, MINS, G16>(stp + L::S_OFF, sc, lane, n0, kx0, kx1, a);
+      dv_gather_groups<P4, SBF16, MINS, G16, GX>(stp + L::S_OFF, sc, lane, n0, kx0, kx1, a);
       if (MINS)
-        dv_gather_groups<P4, SBF16, MINS, G16>(stp + L::M_OFF, mn, lane, n0, kx0, kx1, a);
+        dv_gather_groups<P4, SBF16, MINS, G16, GX>(stp + L::M_OFF, mn, lane, n0, kx0, kx1, a);
       mbar_arrive(full);
     }
   }
@@ -446,14 +455,180 @@ __device__ __forceinline__ void dv_consume(const uint8_t* stp, int col0, int gs,
   }
 }
 
+// d += A (16 x 8, bf16) x B (8 x 8, bf16): half of a k16 step, a0 / a1 the
+// rows g / g + 8 at k = 2t, 2t + 1 and b0 x's at the same k
+__device__ __forceinline__ void mma_bf16_k8(float (&d)[4], uint32_t a0, uint32_t a1,
+                                            uint32_t b0) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+// K5's correction of one group from its x sums X (the group's whole k
+// range): acc -= bf16(m) * bf16(X), or (no mins) zp * bf16(X) * bf16(s),
+// the operands rounded as fold_group's GDOT branch rounds them
+template <int NB8, bool MINS>
+__device__ __forceinline__ void fold_correction(float (&acc)[NB8][4][4],
+                                                const float (&xs)[NB8][1][4], const float (&s)[8],
+                                                const float (&m)[8], float zp) {
+#pragma unroll
+  for (int nb = 0; nb < NB8; ++nb)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 2 * j + (e >> 1);
+        const float xg = rn_bf16(xs[nb][0][e & 1]);
+        acc[nb][j][e] = MINS ? fmaf(-rn_bf16(m[c]), xg, acc[nb][j][e])
+                             : fmaf(-zp * xg, rn_bf16(s[c]), acc[nb][j][e]);
+      }
+}
+
+// dv_consume for the group-size forms of their own (GX):
+//  * 256, p4 planes (TQ1_0, TQ2_0): one group row holds the scale (and min)
+//    of both x chunks of the stage. The products fold every 32 k, as at
+//    group size 32, each fold with that one scale (the same sum in another
+//    f32 order). K5 (GDOT): the raw nibbles' products fold the same way;
+//    its correction needs the group's x sums over all 256 k, which lie in
+//    two stages (u even: k0..63 and 128..191 of the pack tile; u odd: the
+//    rest), so the consumer pair that takes both (dv_cta) adds them up in
+//    xg (half 0 starts it) and applies the correction after the second
+//    (half 1);
+//  * 8, i8 planes (IQ1_M): a k16 step spans two groups, its 16 group rows a
+//    stage; each step runs as two m16n8k8 products (k 0..7 and 8..15), each
+//    folded with its own group's scale.
+template <bool P4, bool SBF16, bool MINS, int NB8, bool GDOT, int GX>
+__device__ __forceinline__ void dv_consume_gx(const uint8_t* stp, int col0, uint32_t zp2,
+                                              float ibase, float (&acc)[NB8][4][4],
+                                              float (&xg)[NB8][1][4], int half, float zpf) {
+  static_assert(GX == 256 ? P4 : (GX == 8 && !P4 && !GDOT), "GX 256: p4; GX 8: i8, no K5");
+  using L = DecodeSmem<P4, SBF16, MINS, false, GX>;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int c = col0 + 8 * g;
+  const uint32_t ones[4] = {0x3F803F80u, 0x3F803F80u, 0x3F803F80u, 0x3F803F80u};
+  float s[8], m[8];
+  if constexpr (GX == 256) {
+    constexpr bool XM = MINS && !GDOT;  // K1's mins term, folded with the products
+    ld_eight<SBF16>(stp + L::S_OFF, c, s);
+    if (MINS) ld_eight<SBF16>(stp + L::M_OFF, c, m);
+    if (GDOT && half == 0) zero_acc<NB8, 1>(xg);
+    float plo[NB8][4][4], phi[NB8][4][4], xlo[NB8][1][4], xhi[NB8][1][4];
+#pragma unroll
+    for (int st = 0; st < 4; ++st) {
+      uint2 w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 16 * st + 2 * t + (i & 1) + 8 * (i >> 1);
+        w[i] = *reinterpret_cast<const uint2*>(stp + swz(r, c));
+      }
+      uint32_t b0[NB8][2], b1[NB8][2];
+      ld_xfrag<NB8>(stp + L::X_OFF, 16 * st, g, t, b0);
+      ld_xfrag<NB8>(stp + L::X_OFF + L::X_CHUNK, 16 * st, g, t, b1);
+      if ((st & 1) == 0) {
+        zero_acc<NB8, 4>(plo);
+        zero_acc<NB8, 4>(phi);
+        if (XM) {
+          zero_acc<NB8, 1>(xlo);
+          zero_acc<NB8, 1>(xhi);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t alo[4], ahi[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int cc = 2 * j + (i & 1), by = cc & 3;
+          const uint32_t wk = (cc >> 2) ? w[2 * (i >> 1)].y : w[2 * (i >> 1)].x;
+          const uint32_t wk1 = (cc >> 2) ? w[2 * (i >> 1) + 1].y : w[2 * (i >> 1) + 1].x;
+          const uint32_t p = __byte_perm(wk, wk1, by | ((4 + by) << 8) | (by << 4) | ((4 + by) << 12));
+          alo[i] = bf16x2_sub((p & 0x000F000Fu) | 0x43004300u, zp2);
+          ahi[i] = bf16x2_sub(((p >> 4) & 0x000F000Fu) | 0x43004300u, zp2);
+        }
+#pragma unroll
+        for (int nb = 0; nb < NB8; ++nb) {
+          mma_bf16(plo[nb][j], alo, b0[nb][0], b0[nb][1]);
+          mma_bf16(phi[nb][j], ahi, b1[nb][0], b1[nb][1]);
+        }
+      }
+#pragma unroll
+      for (int nb = 0; nb < NB8; ++nb) {
+        if (GDOT) {
+          mma_bf16(xg[nb][0], ones, b0[nb][0], b0[nb][1]);
+          mma_bf16(xg[nb][0], ones, b1[nb][0], b1[nb][1]);
+        } else if (XM) {
+          mma_bf16(xlo[nb][0], ones, b0[nb][0], b0[nb][1]);
+          mma_bf16(xhi[nb][0], ones, b1[nb][0], b1[nb][1]);
+        }
+      }
+      if (st & 1) {
+        fold_group<NB8, XM>(acc, plo, xlo, s, m);
+        fold_group<NB8, XM>(acc, phi, xhi, s, m);
+      }
+    }
+    if (GDOT && half == 1) fold_correction<NB8, MINS>(acc, xg, s, m, zpf);
+  } else {
+    float p0[NB8][4][4], p1[NB8][4][4], x0[NB8][1][4], x1[NB8][1][4];
+#pragma unroll
+    for (int st = 0; st < 8; ++st) {
+      uint2 w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 16 * st + 2 * t + (i & 1) + 8 * (i >> 1);
+        w[i] = *reinterpret_cast<const uint2*>(stp + swz(r, c));
+        w[i].x ^= 0x80808080u;  // int8 -> byte + 128
+        w[i].y ^= 0x80808080u;
+      }
+      uint32_t b[NB8][2];
+      ld_xfrag<NB8>(stp + L::X_OFF + (st >> 2) * L::X_CHUNK, 16 * (st & 3), g, t, b);
+      zero_acc<NB8, 4>(p0);
+      zero_acc<NB8, 4>(p1);
+      if (MINS) {
+        zero_acc<NB8, 1>(x0);
+        zero_acc<NB8, 1>(x1);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t aa[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int cc = 2 * j + (i & 1), by = cc & 3;
+          const uint32_t wk = (cc >> 2) ? w[2 * (i >> 1)].y : w[2 * (i >> 1)].x;
+          const uint32_t wk1 = (cc >> 2) ? w[2 * (i >> 1) + 1].y : w[2 * (i >> 1) + 1].x;
+          aa[i] = f2_bf16x2(q_of(wk, by, ibase), q_of(wk1, by, ibase));
+        }
+        // aa[0], aa[1]: k = 2t, 2t + 1 (the step's first group); aa[2], aa[3]: + 8
+#pragma unroll
+        for (int nb = 0; nb < NB8; ++nb) {
+          mma_bf16_k8(p0[nb][j], aa[0], aa[1], b[nb][0]);
+          mma_bf16_k8(p1[nb][j], aa[2], aa[3], b[nb][1]);
+        }
+      }
+      if (MINS) {
+#pragma unroll
+        for (int nb = 0; nb < NB8; ++nb) {
+          mma_bf16_k8(x0[nb][0], ones[0], ones[1], b[nb][0]);
+          mma_bf16_k8(x1[nb][0], ones[0], ones[1], b[nb][1]);
+        }
+      }
+      ld_eight<SBF16>(stp + L::S_OFF + 2 * st * DV_TILE_N * L::ES, c, s);
+      if (MINS) ld_eight<SBF16>(stp + L::M_OFF + 2 * st * DV_TILE_N * L::ES, c, m);
+      fold_group<NB8, MINS>(acc, p0, x0, s, m);
+      ld_eight<SBF16>(stp + L::S_OFF + (2 * st + 1) * DV_TILE_N * L::ES, c, s);
+      if (MINS) ld_eight<SBF16>(stp + L::M_OFF + (2 * st + 1) * DV_TILE_N * L::ES, c, m);
+      fold_group<NB8, MINS>(acc, p1, x1, s, m);
+    }
+  }
+}
+
 // a CTA of the grid (cluster size C, column tiles); the C CTAs of a
 // cluster split K. GDOT: K5's group-factored sum (dv_consume); G16: p4
-// planes at group size 16
-template <bool P4, bool SBF16, bool MINS, int NB8, bool GDOT, bool G16 = false>
+// planes at group size 16; GX: the forms of dv_consume_gx (256, p4; 8, i8)
+template <bool P4, bool SBF16, bool MINS, int NB8, bool GDOT, bool G16 = false, int GX = 0>
 __device__ __forceinline__ void dv_cta(const CUtensorMap& tmx, const CUtensorMap& tmw,
                                        const CUtensorMap& tms, const CUtensorMap& tmm,
                                        const DecodeArgs& a) {
-  using L = DecodeSmem<P4, SBF16, MINS, G16>;
+  using L = DecodeSmem<P4, SBF16, MINS, G16, GX>;
   extern __shared__ uint8_t dyn_smem[];
   __shared__ __align__(8) uint64_t bars[8];  // full[0..3], empty[4..7]
   const uint32_t raw = smem_u32(dyn_smem);
@@ -482,20 +657,43 @@ __device__ __forceinline__ void dv_cta(const CUtensorMap& tmx, const CUtensorMap
       for (int e = 0; e < 4; ++e) acc[nb][j][e] = 0.f;
   const int cw = warp & 1, kw = warp >> 1;
   if (warp == 4) {
-    dv_producer<P4, SBF16, MINS, G16>(&tmx, &tmw, &tms, &tmm, a, smem, full0, empty0, n0, u0,
-                                      u1);
+    dv_producer<P4, SBF16, MINS, G16, GX>(&tmx, &tmw, &tms, &tmm, a, smem, full0, empty0, n0,
+                                          u0, u1);
   } else {
     // p4: 128 + zp as a bf16 pair (K5: 128, the raw nibbles); i8: 2^23 + 128 + zp
     const uint32_t zb = 0x4300u | (uint32_t)(GDOT ? 0 : a.zp);  // exact for zp <= 15
     const uint32_t zp2 = zb | (zb << 16);
     const float ibase = 8388608.f + 128.f + (float)a.zp;
-    for (int j = kw; j < u1 - u0; j += 2) {
-      const int slot = j % L::STAGES;
-      mbar_wait(full0 + 8 * slot, (j / L::STAGES) & 1);
-      dv_consume<P4, SBF16, MINS, NB8, GDOT, G16>(smem + slot * L::STAGE, 64 * cw, a.gs, zp2,
-                                                  ibase, acc, GDOT ? (float)a.zp : 0.f);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty0 + 8 * slot);
+    if constexpr (GX == 256 && GDOT) {
+      // K5 at group size 256: consumer pair kw takes both stages of a group
+      // (stages 4 i + 2 kw and 4 i + 2 kw + 1, slots 2 kw and 2 kw + 1; the
+      // launch gives every CTA an even number of stages from an even one)
+      static_assert(L::STAGES == 4, "the pairs of stages need a ring of 4");
+      float xg[NB8][1][4];
+      for (int j2 = 2 * kw; j2 < u1 - u0; j2 += 4)
+        for (int h = 0; h < 2; ++h) {
+          const int j = j2 + h, slot = j % L::STAGES;
+          mbar_wait(full0 + 8 * slot, (j / L::STAGES) & 1);
+          dv_consume_gx<P4, SBF16, MINS, NB8, true, 256>(smem + slot * L::STAGE, 64 * cw, zp2,
+                                                         ibase, acc, xg, h, (float)a.zp);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty0 + 8 * slot);
+        }
+    } else {
+      for (int j = kw; j < u1 - u0; j += 2) {
+        const int slot = j % L::STAGES;
+        mbar_wait(full0 + 8 * slot, (j / L::STAGES) & 1);
+        if constexpr (GX != 0) {
+          float xg[NB8][1][4];
+          dv_consume_gx<P4, SBF16, MINS, NB8, false, GX>(smem + slot * L::STAGE, 64 * cw, zp2,
+                                                         ibase, acc, xg, 0, 0.f);
+        } else {
+          dv_consume<P4, SBF16, MINS, NB8, GDOT, G16>(smem + slot * L::STAGE, 64 * cw, a.gs, zp2,
+                                                      ibase, acc, GDOT ? (float)a.zp : 0.f);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty0 + 8 * slot);
+      }
     }
   }
   __syncthreads();  // every stage consumed: the ring becomes the partial tile
@@ -577,6 +775,34 @@ qmm_decode_gdot_g16(const __grid_constant__ CUtensorMap tmx,
                     const __grid_constant__ CUtensorMap tms,
                     const __grid_constant__ CUtensorMap tmm, const DecodeArgs a) {
   dv_cta<true, SBF16, MINS, NB8, true, true>(tmx, tmw, tms, tmm, a);
+}
+
+// K1/K7 (and, GDOT, K5 and K7's K5 variant) on p4 planes at group size 256
+// (TQ1_0, TQ2_0), and K2/K7 on int8 planes at group size 8 (IQ1_M): the
+// same CTA with dv_consume_gx, kernels of their own
+template <bool SBF16, bool MINS, int NB8>
+__global__ void __launch_bounds__(DV_THREADS, NB8 == 1 ? 3 : 2)
+qmm_decode_g256(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
+                const __grid_constant__ CUtensorMap tms, const __grid_constant__ CUtensorMap tmm,
+                const DecodeArgs a) {
+  dv_cta<true, SBF16, MINS, NB8, false, false, 256>(tmx, tmw, tms, tmm, a);
+}
+
+template <bool SBF16, bool MINS, int NB8>
+__global__ void __launch_bounds__(DV_THREADS, NB8 == 1 ? 3 : 2)
+qmm_decode_gdot_g256(const __grid_constant__ CUtensorMap tmx,
+                     const __grid_constant__ CUtensorMap tmw,
+                     const __grid_constant__ CUtensorMap tms,
+                     const __grid_constant__ CUtensorMap tmm, const DecodeArgs a) {
+  dv_cta<true, SBF16, MINS, NB8, true, false, 256>(tmx, tmw, tms, tmm, a);
+}
+
+template <bool SBF16, bool MINS, int NB8>
+__global__ void __launch_bounds__(DV_THREADS, NB8 == 1 ? 3 : 2)
+qmm_decode_g8(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
+              const __grid_constant__ CUtensorMap tms, const __grid_constant__ CUtensorMap tmm,
+              const DecodeArgs a) {
+  dv_cta<false, SBF16, MINS, NB8, false, false, 8>(tmx, tmw, tms, tmm, a);
 }
 
 }  // namespace

@@ -8,8 +8,11 @@
 // with x bf16 [B, K], the planes K-major (p4 uint8 [K/2, N] in 256-row pack
 // tiles, low nibble k = t, high nibble k = t + 128; or i8 [K, N]), s and m
 // [K/gs, N] in bf16 or f32, y f32 [B, N]. p4 planes have group size 32
-// (qmm_wgmma) or 16 (Q2_K, Q3_K: qmm_wgmma_g16, the same body with 4 group
-// rows of scales and mins for each 64-k x chunk, a group every k16 step).
+// (qmm_wgmma), 16 (Q2_K, Q3_K: qmm_wgmma_g16, the same body with 4 group
+// rows of scales and mins for each 64-k x chunk, a group every k16 step)
+// or 256 (TQ1_0, TQ2_0: qmm_wgmma_g256, one group row a stage); i8 planes
+// 32, 16 or 8 (IQ1_M: qmm_wgmma_g8, 16 group rows a stage, each k16 step's
+// two halves folded with their own group's scale and min).
 //
 // Bound: operations at the main path's prefill shapes (2 B K N at B = 512
 // is 2-4x the planes' bytes over the HBM rate). This kernel does twice
@@ -87,20 +90,23 @@ constexpr int GM_INFLIGHT = 3;                  // wgmma groups in flight a warp
 constexpr int GM_SMEM_CAP = 232448 - 2048;      // dynamic shared memory a CTA may take
 constexpr int GM_RAGGED_ARRIVALS = 33;          // lane 0's expect_tx, then all 32 lanes
 
-template <bool P4, bool SBF16, bool MINS, bool G16 = false>
+// GX: the group-size forms of their own, 256 (p4) or 8 (i8); 0 otherwise
+template <bool P4, bool SBF16, bool MINS, bool G16 = false, int GX = 0>
 struct GemmSmem {
+  static constexpr int GFORM = GX;
   static constexpr int X_CHUNK = GM_TILE_B * 64 * 2;  // 128 rows x 64 k of bf16
   static constexpr int W_ROWS = P4 ? 64 : 128;        // plane rows of a stage
   static constexpr int W_HALF = W_ROWS * 128;         // 128 columns of them
   static constexpr int CG = P4Groups<G16>::CG;        // p4: group rows of an x chunk
   static constexpr int GS = P4Groups<G16>::GS;        // p4: the group size
-  static constexpr int G_ROWS = P4 ? 2 * CG : 8;      // group rows (i8: gs 16 or 32)
+  // group rows (i8: gs 16 or 32; GX 256: one for the stage; GX 8: 16)
+  static constexpr int G_ROWS = GX == 256 ? 1 : GX == 8 ? 16 : P4 ? 2 * CG : 8;
   static constexpr int ES = SBF16 ? 2 : 4;
   static constexpr int G_BYTES = G_ROWS * GM_TILE_N * ES;
   static constexpr int W_OFF = 2 * X_CHUNK;
   static constexpr int S_OFF = W_OFF + 2 * W_HALF;
   static constexpr int M_OFF = S_OFF + G_BYTES;
-  static constexpr int STAGE = M_OFF + (MINS ? G_BYTES : 0);  // a multiple of 1024
+  static constexpr int STAGE = (M_OFF + (MINS ? G_BYTES : 0) + 1023) / 1024 * 1024;
   static constexpr int STAGES = GM_SMEM_CAP / STAGE > 4 ? 4 : GM_SMEM_CAP / STAGE;
   static constexpr int BYTES = STAGES * STAGE + 1024;  // + slack to align to 1024
 };
@@ -215,15 +221,17 @@ __device__ __forceinline__ void gather_rows(uint8_t* w, const uint8_t* qs, int l
 }
 
 // ... and the stage's group rows of scales or mins (p4: L::CG rows from each
-// x chunk; i8: 128 / gs rows)
-template <bool P4, bool SBF16, bool G16 = false>
+// x chunk, GX 256: the one row of both; i8: 128 / gs rows)
+template <bool P4, bool SBF16, bool G16 = false, int GX = 0>
 __device__ __forceinline__ void gather_groups(uint8_t* s, const void* src, int lane, int n0,
                                               int kx0, int kx1, const GemmArgs& a) {
-  using L = GemmSmem<P4, SBF16, false, G16>;
-  const int G = a.K / a.gs, rows = P4 ? 2 * L::CG : GM_UNIT_K / a.gs;
+  using L = GemmSmem<P4, SBF16, false, G16, GX>;
+  const int G = a.K / a.gs, rows = GX == 256 ? 1 : P4 ? 2 * L::CG : GM_UNIT_K / a.gs;
   for (int i = lane; i < L::G_ROWS * GM_TILE_N; i += 32) {
     const int gr = i / GM_TILE_N, n = n0 + i % GM_TILE_N;
-    const int g = P4 ? (gr < L::CG ? kx0 / L::GS + gr : kx1 / L::GS + gr - L::CG) : kx0 / a.gs + gr;
+    const int g = GX == 256 ? kx0 / 256
+                  : P4 ? (gr < L::CG ? kx0 / L::GS + gr : kx1 / L::GS + gr - L::CG)
+                       : kx0 / a.gs + gr;
     const bool ok = gr < rows && g < G && n < a.N;
     if (SBF16)
       reinterpret_cast<uint16_t*>(s)[i] =
@@ -252,6 +260,25 @@ __device__ __forceinline__ void ld_quad(const uint8_t* base, int idx, float (&v)
   }
 }
 
+// dequant on int8 planes at group size 8: xa's k (2 t4, 2 t4 + 1) lie in
+// the k16 step's first group (scales sa*, mins ma*), xb's (+ 8) in its
+// second (sb*, mb*)
+template <bool MINS>
+__device__ __forceinline__ void dequant_g8(uint32_t xa, uint32_t xb, float base, float sae,
+                                           float sao, float sbe, float sbo, float mae, float mao,
+                                           float mbe, float mbo, uint32_t (&fh)[4],
+                                           uint32_t (&fl)[4]) {
+  const uint32_t ya = xa ^ 0x80808080u, yb = xb ^ 0x80808080u;
+  split_hilo(fold<MINS>(q_of(ya, 0, base), sae, mae), fold<MINS>(q_of(ya, 2, base), sae, mae),
+             fh[0], fl[0]);
+  split_hilo(fold<MINS>(q_of(ya, 1, base), sao, mao), fold<MINS>(q_of(ya, 3, base), sao, mao),
+             fh[1], fl[1]);
+  split_hilo(fold<MINS>(q_of(yb, 0, base), sbe, mbe), fold<MINS>(q_of(yb, 2, base), sbe, mbe),
+             fh[2], fl[2]);
+  split_hilo(fold<MINS>(q_of(yb, 1, base), sbo, mbo), fold<MINS>(q_of(yb, 3, base), sbo, mbo),
+             fh[3], fl[3]);
+}
+
 // the kernel (its body: qmm_gemm_body.cuh)
 template <bool P4, bool SBF16, bool MINS>
 __global__ void __launch_bounds__(GM_THREADS, 1)
@@ -273,20 +300,46 @@ qmm_wgmma_g16(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ C
 #include "qmm_gemm_body.cuh"
 }
 
+// K1/K7 on p4 planes at group size 256 (TQ1_0, TQ2_0) and K2/K7 on int8
+// planes at group size 8 (IQ1_M): kernels of their own (GEMM_GX picks the
+// form in the body's GemmSmem)
+template <bool SBF16, bool MINS>
+__global__ void __launch_bounds__(GM_THREADS, 1)
+qmm_wgmma_g256(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
+               const __grid_constant__ CUtensorMap tms, const __grid_constant__ CUtensorMap tmm,
+               const GemmArgs a) {
+  constexpr bool P4 = true, G16 = false;
+#define GEMM_GX 256
+#include "qmm_gemm_body.cuh"
+}
+
+template <bool SBF16, bool MINS>
+__global__ void __launch_bounds__(GM_THREADS, 1)
+qmm_wgmma_g8(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
+             const __grid_constant__ CUtensorMap tms, const __grid_constant__ CUtensorMap tmm,
+             const GemmArgs a) {
+  constexpr bool P4 = false, G16 = false;
+#define GEMM_GX 8
+#include "qmm_gemm_body.cuh"
+}
+
 // ----------------------------------------------------------------------------
 // host side: the launch (tensor maps by hopper.cuh's make_map)
 
 // the prefill GEMM on planes qs/sc/mn (K7: layer *lidx of n_layers stacked
 // ones, qs_ls / s_ls bytes apart); split: K ranges per tile (the wrapper's
-// gemm_split); G16: p4 planes at group size 16. Returns 0 or an error
-// code; the launch's own error is left for cudaGetLastError.
-template <bool P4, bool SBF16, bool MINS, bool G16 = false>
+// gemm_split); G16: p4 planes at group size 16; GX: p4 planes at 256 or
+// i8 planes at 8. Returns 0 or an error code; the launch's own error is
+// left for cudaGetLastError.
+template <bool P4, bool SBF16, bool MINS, bool G16 = false, int GX = 0>
 int launch_gemm(cudaStream_t st, const __nv_bfloat16* x, int B, int K, const uint8_t* qs,
                 const void* sc, const void* mn, float* y, int N, int gs, int zp, int split,
                 const int* lidx, long long qs_ls, long long s_ls, int n_layers) {
-  using L = GemmSmem<P4, SBF16, MINS, G16>;
+  using L = GemmSmem<P4, SBF16, MINS, G16, GX>;
   auto kern = qmm_wgmma<P4, SBF16, MINS>;
-  if constexpr (G16) kern = qmm_wgmma_g16<SBF16, MINS>;
+  if constexpr (GX == 256) kern = qmm_wgmma_g256<SBF16, MINS>;
+  else if constexpr (GX == 8) kern = qmm_wgmma_g8<SBF16, MINS>;
+  else if constexpr (G16) kern = qmm_wgmma_g16<SBF16, MINS>;
   static bool attr = false;
   if (!attr) {
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
@@ -324,7 +377,8 @@ int launch_gemm(cudaStream_t st, const __nv_bfloat16* x, int B, int K, const uin
     const cuuint64_t sd[3] = {(cuuint64_t)N, (cuuint64_t)G, (cuuint64_t)L_};
     const cuuint64_t sst[2] = {(cuuint64_t)N * L::ES, (cuuint64_t)a.s_ls};
     const cuuint32_t sb[3] = {GM_TILE_N,
-                              (cuuint32_t)(P4 ? P4Groups<G16>::CG : GM_UNIT_K / gs), 1};
+                              (cuuint32_t)(GX == 256 ? 1 : P4 ? P4Groups<G16>::CG
+                                                              : GM_UNIT_K / gs), 1};
     if (int rc = make_map(&ms, sdt, 3, sc, sd, sst, sb, CU_TENSOR_MAP_SWIZZLE_NONE)) return rc;
     if (MINS)
       if (int rc = make_map(&mm, sdt, 3, mn, sd, sst, sb, CU_TENSOR_MAP_SWIZZLE_NONE)) return rc;

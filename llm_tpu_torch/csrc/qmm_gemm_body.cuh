@@ -1,11 +1,18 @@
 // The body of the prefill GEMM's kernels (qmm_gemm.cuh: qmm_wgmma, and
-// qmm_wgmma_g16 on nibble planes at group size 16), included inside each of
-// them after the constants P4, SBF16, MINS and G16 are in scope. Written
+// qmm_wgmma_g16 on nibble planes at group size 16, qmm_wgmma_g256 at 256,
+// qmm_wgmma_g8 on int8 planes at group size 8), included inside each of
+// them after the constants P4, SBF16, MINS and G16 are in scope, and the
+// macro GEMM_GX (the form of the last two; 0 when not defined). Written
 // once and included, not called: as a force-inlined function (and with
 // local constants in place of GemmSmem's) it moved two instructions of
 // every qmm_wgmma kernel (tools/cubin_cmp.py read DIFF against the kernels
-// as they were before the group-size-16 form was added).
-  using L = GemmSmem<P4, SBF16, MINS, G16>;
+// as they were before the group-size-16 form was added). The forms' own
+// geometry is read from GemmSmem (L::GFORM) likewise.
+#ifndef GEMM_GX
+#define GEMM_GX 0
+#endif
+  using L = GemmSmem<P4, SBF16, MINS, G16, GEMM_GX>;
+#undef GEMM_GX
   extern __shared__ uint8_t dyn_smem[];
   __shared__ __align__(8) uint64_t bars[8];  // full[0..3], empty[4..7]
   const uint32_t raw = smem_u32(dyn_smem);
@@ -33,9 +40,11 @@
     const void* mn =
         MINS ? static_cast<const void*>(static_cast<const char*>(a.mn) + (long long)layer * a.s_ls)
              : nullptr;
-    const int g_box = (P4 ? L::CG : GM_UNIT_K / a.gs) * GM_TILE_N * L::ES;
+    const int g_box = (L::GFORM == 256 ? 1 : P4 ? L::CG : GM_UNIT_K / a.gs) * GM_TILE_N * L::ES;
     const uint32_t tx = 2 * L::X_CHUNK +
-                        (a.tma_w ? 2 * L::W_HALF + (P4 ? 2 : 1) * g_box * (MINS ? 2 : 1) : 0);
+                        (a.tma_w ? 2 * L::W_HALF + (P4 && L::GFORM != 256 ? 2 : 1) * g_box *
+                                                       (MINS ? 2 : 1)
+                                 : 0);
     int stage = 0;
     uint32_t phase = 0;
     for (int it = blockIdx.x; it < a.n_items; it += gridDim.x) {
@@ -56,7 +65,10 @@
           if (a.tma_w) {
             tma_3d(st + L::W_OFF, &tmw, full, t.n0, row0, layer);
             tma_3d(st + L::W_OFF + L::W_HALF, &tmw, full, t.n0 + 128, row0, layer);
-            if (P4) {
+            if (L::GFORM == 256) {  // both chunks are in group kx0 / 256
+              tma_3d(st + L::S_OFF, &tms, full, t.n0, kx0 / 256, layer);
+              if (MINS) tma_3d(st + L::M_OFF, &tmm, full, t.n0, kx0 / 256, layer);
+            } else if (P4) {
               tma_3d(st + L::S_OFF, &tms, full, t.n0, kx0 / L::GS, layer);
               tma_3d(st + L::S_OFF + g_box, &tms, full, t.n0, kx1 / L::GS, layer);
               if (MINS) {
@@ -71,8 +83,9 @@
         }
         if (!a.tma_w) {
           gather_rows<P4>(stp + L::W_OFF, qs, lane, t.n0, row0, a);
-          gather_groups<P4, SBF16, G16>(stp + L::S_OFF, sc, lane, t.n0, kx0, kx1, a);
-          if (MINS) gather_groups<P4, SBF16, G16>(stp + L::M_OFF, mn, lane, t.n0, kx0, kx1, a);
+          gather_groups<P4, SBF16, G16, L::GFORM>(stp + L::S_OFF, sc, lane, t.n0, kx0, kx1, a);
+          if (MINS)
+            gather_groups<P4, SBF16, G16, L::GFORM>(stp + L::M_OFF, mn, lane, t.n0, kx0, kx1, a);
           mbar_arrive(full);
         }
         if (++stage == L::STAGES) {
@@ -130,7 +143,10 @@
           }
           const int chunk = P4 ? h : (2 * p + h) >> 2;
           const int kk = P4 ? p : (2 * p + h) & 3;
-          const int grow = P4 ? L::CG * h + (G16 ? p : p >> 1) : (2 * p + h) >> gshift;
+          // the group row (GX 256: the stage's one; GX 8: the step's first of two)
+          const int grow = L::GFORM == 256 ? 0
+                           : L::GFORM == 8 ? 2 * (2 * p + h)
+                           : P4 ? L::CG * h + (G16 ? p : p >> 1) : (2 * p + h) >> gshift;
           const uint64_t desc = x_desc(xs + chunk * L::X_CHUNK + kk * 32);
           const int zero = (u == t.u0 && p == 0 && h == 0) ? 0 : 1;
           float sv[4], mv[4] = {0.f, 0.f, 0.f, 0.f};
@@ -139,8 +155,17 @@
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             // the set written here was last read GM_INFLIGHT + 1 groups ago
-            dequant<P4, MINS>(rw[j][0], rw[j][1], P4 && h == 1, base, sv[2 * j],
-                              sv[2 * j + 1], mv[2 * j], mv[2 * j + 1], fh[h][j], fl[h][j]);
+            if constexpr (L::GFORM == 8) {
+              float s2[4], m2[4] = {0.f, 0.f, 0.f, 0.f};  // the step's second group
+              ld_quad<SBF16>(stp + L::S_OFF, (grow + 1) * GM_TILE_N + ncol, s2);
+              if (MINS) ld_quad<SBF16>(stp + L::M_OFF, (grow + 1) * GM_TILE_N + ncol, m2);
+              dequant_g8<MINS>(rw[j][0], rw[j][1], base, sv[2 * j], sv[2 * j + 1], s2[2 * j],
+                               s2[2 * j + 1], mv[2 * j], mv[2 * j + 1], m2[2 * j],
+                               m2[2 * j + 1], fh[h][j], fl[h][j]);
+            } else {
+              dequant<P4, MINS>(rw[j][0], rw[j][1], P4 && h == 1, base, sv[2 * j],
+                                sv[2 * j + 1], mv[2 * j], mv[2 * j + 1], fh[h][j], fl[h][j]);
+            }
             wg_fence();
             wgmma_rs(acc[j], fh[h][j], desc, zero);
             wgmma_rs(acc[j], fl[h][j], desc, 1);

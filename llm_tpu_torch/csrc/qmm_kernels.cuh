@@ -47,15 +47,16 @@ struct Stack {
 };
 
 // returns 0, or the prefill GEMM's host-side error code; B <= 16 runs
-// qmm_decode.cu's kernels and is refused here; G16: p4 planes at group size 16
-template <bool P4, bool SBF16, bool MINS, bool STACKED, bool G16>
+// qmm_decode.cu's kernels and is refused here; G16: p4 planes at group size
+// 16; GX: p4 planes at 256 or i8 planes at 8
+template <bool P4, bool SBF16, bool MINS, bool STACKED, bool G16, int GX>
 int run(cudaStream_t st, const __nv_bfloat16* x, int B, int K,
         const uint8_t* qs, const void* sc, const void* mn, float* y, int N,
         int gs, int zp, Stack sk, int split, int n_layers) {
   if (B <= 16) return (int)cudaErrorInvalidValue;
-  return launch_gemm<P4, SBF16, MINS, G16>(st, x, B, K, qs, sc, mn, y, N, gs, zp, split,
-                                           STACKED ? sk.lidx : nullptr, sk.qs_ls, sk.s_ls,
-                                           n_layers);
+  return launch_gemm<P4, SBF16, MINS, G16, GX>(st, x, B, K, qs, sc, mn, y, N, gs, zp, split,
+                                               STACKED ? sk.lidx : nullptr, sk.qs_ls, sk.s_ls,
+                                               n_layers);
 }
 
 // K1/K2 (K7 with STACKED) at B > 16 on any planes: the launch the entry points share
@@ -68,23 +69,28 @@ int qmm_any(const void* x, const void* qs, const void* scales, const void* mins,
   const uint8_t* q = reinterpret_cast<const uint8_t*>(qs);
   float* yf = reinterpret_cast<float*>(y);
   const bool has_m = mins != nullptr;
-  if (p4 && gs != 32 && gs != 16) return (int)cudaErrorInvalidValue;
+  if ((p4 && gs != 32 && gs != 16 && gs != 256) || (!p4 && gs != 32 && gs != 16 && gs != 8))
+    return (int)cudaErrorInvalidValue;
   int rc = 0;
-#define QMM_RUN(P, S, M, G)                                                                  \
-  rc = run<P, S, M, STACKED, G>(st, xb, B, K, q, scales, mins, yf, N, gs, zp, sk, split,   \
-                                n_layers)
-#define QMM_SM(P, G)                                                                         \
+#define QMM_RUN(P, S, M, G, X)                                                               \
+  rc = run<P, S, M, STACKED, G, X>(st, xb, B, K, q, scales, mins, yf, N, gs, zp, sk, split, \
+                                   n_layers)
+#define QMM_SM(P, G, X)                                                                      \
   if (scales_bf16) {                                                                         \
-    if (has_m) QMM_RUN(P, true, true, G); else QMM_RUN(P, true, false, G);                   \
+    if (has_m) QMM_RUN(P, true, true, G, X); else QMM_RUN(P, true, false, G, X);             \
   } else {                                                                                   \
-    if (has_m) QMM_RUN(P, false, true, G); else QMM_RUN(P, false, false, G);                 \
+    if (has_m) QMM_RUN(P, false, true, G, X); else QMM_RUN(P, false, false, G, X);           \
   }
   if (p4 && gs == 16) {
-    QMM_SM(true, true)
+    QMM_SM(true, true, 0)
+  } else if (p4 && gs == 256) {
+    QMM_SM(true, false, 256)
   } else if (p4) {
-    QMM_SM(true, false)
+    QMM_SM(true, false, 0)
+  } else if (gs == 8) {
+    QMM_SM(false, false, 8)
   } else {
-    QMM_SM(false, false)
+    QMM_SM(false, false, 0)
   }
 #undef QMM_SM
 #undef QMM_RUN

@@ -257,6 +257,10 @@ class FileType(enum.IntEnum):
     MOSTLY_Q5_K_S = 16
     MOSTLY_Q5_K_M = 17
     MOSTLY_Q6_K = 18
+    MOSTLY_IQ2_XXS = 19
     MOSTLY_IQ4_NL = 25
     MOSTLY_IQ4_XS = 30
+    MOSTLY_IQ1_M = 31
     MOSTLY_BF16 = 32
+    MOSTLY_TQ1_0 = 36
+    MOSTLY_TQ2_0 = 37

@@ -1,15 +1,15 @@
 """Model hyperparameters from GGUF metadata. Counterpart of
 llm_tpu/models/config.py, for the llama family, gemma (v1) and gemma2,
 baichuan and refact, qwen2 / qwen3 and the mixture-of-experts qwen2moe,
-qwen3moe and mixtral: the general keys, rope, gemma's adjustments (gelu,
-the embedding scale, NEOX rope) and gemma2's (beside those the sliding
-window on every other layer, both softcaps, its attention scale),
-baichuan-13B's and refact's (no rope, ALiBi with max_bias 8), qwen2's QKV
-biases, qwen3's per-head qk-norm, the experts' count, width and routing
-(the top-k weights normalized for llama with experts, mixtral and
-qwen3moe, not for qwen2moe), and the variant flags that the port's forward
-refuses (it raises NotImplementedError for them, see
-models/transformer.py)."""
+qwen3moe and mixtral, and bitnet: the general keys, rope, gemma's
+adjustments (gelu, the embedding scale, NEOX rope) and gemma2's (beside
+those the sliding window on every other layer, both softcaps, its
+attention scale), baichuan-13B's and refact's (no rope, ALiBi with
+max_bias 8), qwen2's QKV biases, qwen3's per-head qk-norm, the experts'
+count, width and routing (the top-k weights normalized for llama with
+experts, mixtral and qwen3moe, not for qwen2moe), bitnet's squared relu,
+and the variant flags that the port's forward refuses (it raises
+NotImplementedError for them, see models/transformer.py)."""
 
 from __future__ import annotations
 
@@ -24,15 +24,16 @@ from ..ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NONE, ROPE_TYPE_NORM, RopeParam
 # baichuan and refact, which run the llama graph (baichuan-13B and refact
 # with ALiBi in place of rope), qwen2 (QKV biases) and qwen3 (qk-norm), and
 # their mixture-of-experts variants qwen2moe (with a sigmoid-gated shared
-# expert) and qwen3moe, and mixtral
+# expert) and qwen3moe, mixtral, and bitnet (a gated squared relu, RMS
+# sub-norms before o_proj and ffn_down)
 LLAMA_ARCHS = ("llama", "gemma", "gemma2", "baichuan", "refact", "qwen2", "qwen3",
-               "qwen2moe", "qwen3moe", "mixtral")
+               "qwen2moe", "qwen3moe", "mixtral", "bitnet")
 # rope layout per architecture (llm_tpu/models/config.py _ROPE_MODE, whose
 # default is NEOX; refact's is then replaced by NONE)
 _ROPE_MODE = {"llama": ROPE_TYPE_NORM, "gemma": ROPE_TYPE_NEOX, "gemma2": ROPE_TYPE_NEOX,
               "baichuan": ROPE_TYPE_NORM, "refact": ROPE_TYPE_NEOX, "qwen2": ROPE_TYPE_NEOX,
               "qwen3": ROPE_TYPE_NEOX, "qwen2moe": ROPE_TYPE_NEOX, "qwen3moe": ROPE_TYPE_NEOX,
-              "mixtral": ROPE_TYPE_NORM}
+              "mixtral": ROPE_TYPE_NORM, "bitnet": ROPE_TYPE_NEOX}
 # baichuan's 13B profile, keyed on its layer count as the reference keys it
 BAICHUAN_13B_LAYERS = 40
 # the ALiBi max_bias baichuan-13B and refact hardcode (llama-model.cpp)
@@ -171,6 +172,9 @@ def config_from_gguf(reader) -> ModelConfig:
         # baichuan-13B and refact: no rope, ALiBi slopes of max_bias 8
         # (llm_tpu/models/config.py's baichuan and refact branches)
         cfg = alibi_profile(cfg)
+    if arch == "bitnet":
+        # BitNet b1.58: a gated squared relu; the sub-norms are tensors
+        cfg = replace(cfg, act="relu2")
     return cfg
 
 

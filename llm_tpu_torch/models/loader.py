@@ -5,7 +5,8 @@ llama does), gemma2's post-norms (attn_post_norm, ffn_post_norm, the
 names llm_tpu's converter writes; llama.cpp's own post_attention_norm /
 post_ffw_norm are refused, ROADMAP "Faults in the reference"), qwen2's
 QKV biases (attn_{q,k,v}_b), qwen3's qk-norms (attn_q_norm, attn_k_norm),
-and a mixture-of-experts layer's router (ffn_gate_inp, and exp_probs_b as
+bitnet's sub-norms (attn_sub_norm, ffn_sub_norm), and a
+mixture-of-experts layer's router (ffn_gate_inp, and exp_probs_b as
 ffn_exp_probs_b), expert stacks (ffn_{gate,up,down}_exps) and shared
 expert (ffn_{gate,up,down}_shexp, ffn_gate_inp_shexp).
 
@@ -40,7 +41,7 @@ _LAYER_MATS = ("attn_q", "attn_k", "attn_v", "attn_output", "ffn_gate", "ffn_up"
                "ffn_down", "ffn_gate_inp", "ffn_gate_shexp", "ffn_up_shexp",
                "ffn_down_shexp", "ffn_gate_inp_shexp")
 _LAYER_VECS = ("attn_norm", "ffn_norm", "attn_post_norm", "ffn_post_norm", "attn_q_norm",
-               "attn_k_norm")
+               "attn_k_norm", "attn_sub_norm", "ffn_sub_norm")
 _LAYER_STACKS = ("ffn_gate_exps", "ffn_up_exps", "ffn_down_exps")
 # biases, each under its matrix's key + "_b" (the expert-selection bias
 # exp_probs_b.bias under ffn_exp_probs_b, as the reference loader keys it)

@@ -58,6 +58,13 @@ QWEN2_5_7B = dict(n_embd=3584, n_layers=28, n_heads=28, n_kv_heads=4,
 QWEN3_30B_A3B = dict(n_embd=2048, n_layers=48, n_heads=32, n_kv_heads=4,
                      n_ff=6144, vocab=151936, head_dim=128, n_expert=128,
                      n_expert_used=8, n_ff_expert=768)
+# BitNet b1.58 2B4T (transformers.BitNetConfig's defaults, which name
+# microsoft/bitnet-b1.58-2B-4T): 20 heads over 5 KV heads of 128, ff 6912,
+# a gated squared relu and RMS sub-norms before o_proj and ffn_down, rope
+# theta 500000, untied; every K a multiple of 256, so TQ1_0 / TQ2_0 planes
+# pack as nibbles everywhere; bitnet_config adds the rest
+BITNET_B158_2B = dict(n_embd=2560, n_layers=30, n_heads=20, n_kv_heads=5,
+                      n_ff=6912, vocab=128256, head_dim=128)
 
 
 def use_more_bits(i_layer: int, n_layers: int) -> bool:
@@ -68,13 +75,19 @@ def use_more_bits(i_layer: int, n_layers: int) -> bool:
             or (i_layer - n_layers // 8) % 3 == 2)
 
 
+# the group size of each type's planes (quant/qtensor.py), 32 where absent
+_GS = {GGMLType.Q6_K: 16, GGMLType.Q2_K: 16, GGMLType.Q3_K: 16, GGMLType.IQ2_XS: 16,
+       GGMLType.IQ2_S: 16, GGMLType.IQ1_M: 8, GGMLType.TQ1_0: 256, GGMLType.TQ2_0: 256}
+
+
 def _gs(qtype) -> int:
-    return 16 if qtype in (GGMLType.Q6_K, GGMLType.Q2_K, GGMLType.Q3_K) else 32
+    return _GS.get(qtype, 32)
 
 
 # the block (weights a block along K) of the types the recipes write
 _BLOCK = {GGMLType.Q2_K: 256, GGMLType.Q3_K: 256, GGMLType.Q4_K: 256, GGMLType.Q5_K: 256,
-          GGMLType.Q6_K: 256, GGMLType.Q8_0: 32}
+          GGMLType.Q6_K: 256, GGMLType.Q8_0: 32, GGMLType.IQ2_XXS: 256, GGMLType.IQ3_XXS: 256,
+          GGMLType.IQ1_M: 256, GGMLType.TQ1_0: 256, GGMLType.TQ2_0: 256}
 
 
 def fallback_type(qtype: GGMLType, k: int) -> GGMLType:
@@ -86,37 +99,52 @@ def fallback_type(qtype: GGMLType, k: int) -> GGMLType:
 
 
 # the recipes a synthetic model or file may follow, and their base type
-RECIPES = {"Q4_K_M": GGMLType.Q4_K, "Q3_K_M": GGMLType.Q3_K, "Q2_K": GGMLType.Q2_K}
+RECIPES = {"Q4_K_M": GGMLType.Q4_K, "Q3_K_M": GGMLType.Q3_K, "Q2_K": GGMLType.Q2_K,
+           "IQ2_XXS": GGMLType.IQ2_XXS, "IQ1_M": GGMLType.IQ1_M, "TQ2_0": GGMLType.TQ2_0,
+           "TQ1_0": GGMLType.TQ1_0}
+# the sub-4-bit IQ recipes (the reference's _IQ_LOW, of those above)
+_IQ_LOW = ("IQ2_XXS", "IQ1_M")
 
 
 def tensor_type_for(name: str, k: int, recipe: str, i_layer: int, n_layers: int,
                     n_gqa: int = 1, n_expert: int = 0, has_output: bool = True) -> GGMLType:
     """The type llama.cpp's recipe gives tensor `name` (a GGUF name, or its
     suffix: "attn_v.weight", "ffn_down_exps.weight", ...) of K inputs in
-    layer i_layer: the port's own copy of the Q4_K_M, Q3_K_M and Q2_K
-    branches of llm_tpu/tools/quantize.py::tensor_type_for, n_gqa the
-    query heads a KV head, has_output False for a tied embedding table
-    (then "token_embd.weight" is the output)."""
+    layer i_layer: the port's own copy of the Q4_K_M, Q3_K_M, Q2_K,
+    IQ2_XXS, IQ1_M, TQ2_0 and TQ1_0 branches of
+    llm_tpu/tools/quantize.py::tensor_type_for, n_gqa the query heads a KV
+    head, has_output False for a tied embedding table (then
+    "token_embd.weight" is the output). The IQ recipes give the lm_head
+    Q5_K, an untied table Q2_K, attn_v Q4_K at 4 or more query heads a KV
+    head (else IQ3_S) and ffn_down IQ3_XXS in layers 0-1; the TQ ones give
+    the base type everywhere but the lm_head's Q6_K."""
     base = RECIPES[recipe]
     t = base
     more = use_more_bits(i_layer, n_layers)
+    iq = recipe in _IQ_LOW
     if name == "output.weight" or (not has_output and name == "token_embd.weight"):
-        t = GGMLType.Q6_K
+        t = GGMLType.Q5_K if iq else GGMLType.Q6_K
+    elif name == "token_embd.weight" and iq:
+        t = GGMLType.Q2_K
     elif "attn_v.weight" in name:
-        if recipe == "Q2_K":
+        if iq:
+            t = GGMLType.Q4_K if n_gqa >= 4 else GGMLType.IQ3_S
+        elif recipe == "Q2_K":
             t = GGMLType.Q4_K if n_gqa >= 4 else GGMLType.Q3_K
         elif recipe == "Q3_K_M":
             t = GGMLType.Q5_K if i_layer < 2 else GGMLType.Q4_K
-        elif more:
+        elif recipe == "Q4_K_M" and more:
             t = GGMLType.Q6_K
         if n_expert == 8:
             t = GGMLType.Q8_0
     elif "ffn_down" in name:
-        if recipe == "Q2_K":
+        if iq:
+            t = GGMLType.IQ3_XXS if i_layer < 2 else base
+        elif recipe == "Q2_K":
             t = GGMLType.Q3_K if more else base
         elif recipe == "Q3_K_M":
             t = GGMLType.Q4_K if i_layer < 2 else base
-        elif more:
+        elif recipe == "Q4_K_M" and more:
             t = GGMLType.Q6_K
     elif "attn_qkv.weight" in name:
         t = GGMLType.Q5_K if recipe == "Q4_K_M" else (
@@ -128,8 +156,10 @@ def synthetic_qtensor(rng: np.random.Generator, n: int, k: int,
                       qtype: GGMLType = GGMLType.Q4_K,
                       pack_tk: int = 256, kmajor: bool = True,
                       device="cpu") -> QTensor:
-    """Random quantized planes shaped like a loaded weight."""
-    gs = _gs(qtype)
+    """Random quantized planes shaped like a loaded weight (the JAX
+    package's draws, whose group size is 16 for Q6_K, Q2_K and Q3_K and 32
+    for every other type)."""
+    gs = 16 if qtype in (GGMLType.Q6_K, GGMLType.Q2_K, GGMLType.Q3_K) else 32
     scale_mag = 0.02 / np.sqrt(k) * 8
 
     def orient(a):  # scales/mins: [K//gs, N] kmajor else [N, K//gs]
@@ -165,6 +195,12 @@ def synthetic_qtensor(rng: np.random.Generator, n: int, k: int,
     return QTensor(put(q), put(scales), put(mins), gs, qtype, "i8", 0, pack_tk, kmajor)
 
 
+# the magnitude of the IQ grid types' plane values (their grids' range,
+# quant/iq_codecs.py: 8 * grid +- 1 for IQ1_*)
+IQ_RANGE = {GGMLType.IQ1_S: 9, GGMLType.IQ1_M: 9, GGMLType.IQ2_XXS: 43, GGMLType.IQ2_XS: 43,
+            GGMLType.IQ2_S: 43, GGMLType.IQ3_XXS: 62, GGMLType.IQ3_S: 62}
+
+
 def device_synthetic_qtensor(gen: torch.Generator, n: int, k: int,
                              qtype: GGMLType = GGMLType.Q4_K,
                              scales_dtype=torch.bfloat16, kmajor: bool = True,
@@ -174,7 +210,14 @@ def device_synthetic_qtensor(gen: torch.Generator, n: int, k: int,
     mins; Q2_K (values 0..3, with mins) and Q3_K (-4..3, zero point 4) as
     nibble planes at group size 16; Q5_K, Q5_1 (0..31, with mins), Q5_0
     (-16..15), IQ4_NL and IQ4_XS (the IQ4 codebook's values) as int8
-    planes; other types as int8 planes in [-31, 31]. Each group's weights
+    planes; TQ1_0 and TQ2_0 as nibble planes of trits 0..2 at zero point 1
+    and group size 256; the IQ grid types as int8 planes inside their
+    grids' range (IQ1_* +-9, IQ2_* +-43, IQ3_* +-62; IQ1_M at group size 8,
+    IQ2_XS and IQ2_S at 16), their scales sized so that the weights reach
+    Q4_K's +-7.5 steps (at the [-31, 31] planes' magnitude, four times
+    that, a random 30-layer BitNet is chaotic: the split-K order alone
+    moved its prefill logits by half their range, chip_smoke.py phase 16);
+    other types as int8 planes in [-31, 31]. Each group's weights
     have mean zero (mins = the mean value times the scale), as trained
     weights nearly do; a shared nonzero mean would add the same component
     to every row's logits and pin greedy decoding to one token. Types
@@ -197,6 +240,18 @@ def device_synthetic_qtensor(gen: torch.Generator, n: int, k: int,
     def with_mean(s, mean):
         return (s.float() * mean).to(scales_dtype)
 
+    if qtype in (GGMLType.TQ1_0, GGMLType.TQ2_0):
+        qshape = (k // 2, n) if kmajor else (n, k // 2)
+        lo, hi = (torch.randint(0, 3, qshape, generator=gen, device=dev, dtype=torch.uint8)
+                  for _ in range(2))
+        return QTensor(lo | (hi << 4), uniform(0.2, 1.0, scale_mag * 7.5), None, gs, qtype,
+                       "p4", 1, pack_tk, kmajor)
+    if qtype in IQ_RANGE:
+        r = IQ_RANGE[qtype]
+        qs = torch.randint(-r, r + 1, (k, n) if kmajor else (n, k), generator=gen, device=dev,
+                           dtype=torch.int8)
+        return QTensor(qs, uniform(0.2, 1.0, scale_mag * 7.5 / r), None, gs, qtype, "i8", 0,
+                       pack_tk, kmajor)
     scales = uniform(0.2, 1.0, scale_mag)
     if qtype in (GGMLType.Q4_K, GGMLType.Q2_K, GGMLType.Q3_K):
         qshape = (k // 2, n) if kmajor else (n, k // 2)
@@ -265,6 +320,20 @@ def gemma_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab,
         n_ff=n_ff, rms_eps=1e-6, rope=RopeParams(n_dims=head_dim, mode=ROPE_TYPE_NEOX),
         tie_embeddings=True, act="gelu", context_length=8192,
         embedding_scale=float(n_embd) ** 0.5)
+
+
+def bitnet_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab,
+                  head_dim=None) -> ModelConfig:
+    """A bitnet config as config_from_gguf reads BitNet b1.58's: the llama
+    graph with NEOX rope at base 500000, rms eps 1e-5, a gated squared
+    relu, an untied lm_head (the sub-norms are layer tensors)."""
+    head_dim = head_dim or n_embd // n_heads
+    return ModelConfig(
+        arch="bitnet", vocab_size=vocab, n_embd=n_embd, n_layers=n_layers,
+        n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim, head_dim_v=head_dim,
+        n_ff=n_ff, rms_eps=1e-5,
+        rope=RopeParams(n_dims=head_dim, mode=ROPE_TYPE_NEOX, freq_base=500000.0),
+        act="relu2", context_length=4096)
 
 
 def qwen2_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab,
@@ -348,7 +417,8 @@ def make_synthetic_model(n_embd: int = 64, n_layers: int = 2, n_heads: int = 8,
     qtype None gives dense weights in `dtype`. recipe "Q4_K_M", "Q3_K_M"
     or "Q2_K" mixes types as such a file does (tensor_type_for at the
     model's n_heads / n_kv_heads; qtype then only says that the model is
-    quantized): Q4_K_M is Q4_K with Q6_K for the lm_head and for attn_v and
+    quantized; IQ2_XXS, IQ1_M, TQ2_0 and TQ1_0 as tensor_type_for gives
+    them): Q4_K_M is Q4_K with Q6_K for the lm_head and for attn_v and
     ffn_down of the use_more_bits layers (those layers' QKV then stays
     unfused); Q3_K_M is Q3_K with attn_v Q5_K in layers 0-1 and Q4_K
     after, ffn_down Q4_K in layers 0-1, a Q6_K lm_head; Q2_K is Q2_K with
@@ -373,12 +443,15 @@ def make_synthetic_model(n_embd: int = 64, n_layers: int = 2, n_heads: int = 8,
     n_embd] in dtype (a GGUF keeps it F32, loaded in the dense dtype), and
     the expert stacks ffn_{gate,up,down}_exps as stacked-expert planes
     (rows layout, [E, ...]; the recipe's Q6_K for ffn_down_exps in the
-    use_more_bits layers) or dense [E, N, K], in place of the FFN. With the
+    use_more_bits layers) or dense [E, N, K], in place of the FFN. arch
+    "bitnet": bitnet_config, with the sub-norms attn_sub_norm and
+    ffn_sub_norm in every layer. With the
     recipe a matrix whose K its type's block does not divide takes Q8_0
     (fallback_type; Baichuan-13B's ffn_down, K = 13696)."""
     if recipe is not None and recipe not in RECIPES:
         raise ValueError(f"unknown recipe {recipe!r}")
-    if arch not in ("llama", "gemma", "gemma2", "baichuan", "refact", "qwen2", "qwen3moe"):
+    if arch not in ("llama", "gemma", "gemma2", "baichuan", "refact", "qwen2", "qwen3moe",
+                    "bitnet"):
         raise ValueError(f"unknown arch {arch!r}")
     device = resolve_device(device)
     tied = arch in ("gemma", "gemma2")
@@ -396,6 +469,8 @@ def make_synthetic_model(n_embd: int = 64, n_layers: int = 2, n_heads: int = 8,
         cfg = baichuan_config(*geo)
     elif arch == "refact":
         cfg = refact_config(*geo)
+    elif arch == "bitnet":
+        cfg = bitnet_config(*geo)
     else:
         cfg = llama_config(*geo, head_dim_v)
     hd, hdv = cfg.head_dim, cfg.head_dim_v
@@ -463,6 +538,8 @@ def make_synthetic_model(n_embd: int = 64, n_layers: int = 2, n_heads: int = 8,
                               ffn_down=lmat("ffn_down", n_embd, n_ff))
         if arch == "gemma2":
             layers[-1].update(attn_post_norm=vec(n_embd), ffn_post_norm=vec(n_embd))
+        if arch == "bitnet":
+            layers[-1].update(attn_sub_norm=vec(n_heads * hdv), ffn_sub_norm=vec(n_ff))
         if arch == "qwen2":
             for key, n in (("attn_q_b", n_heads * hd), ("attn_k_b", n_kv_heads * hd),
                            ("attn_v_b", n_kv_heads * hdv)):

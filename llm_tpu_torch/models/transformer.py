@@ -113,9 +113,11 @@ _UNSUPPORTED = (
     ("logit_scale", 1.0, "logit scale"), ("residual_scale", 1.0, "residual scale"),
     ("parallel_residual", False, "parallel residual"), ("norm_kind", "rms", "LayerNorm"),
 )
-# the FFN activations (the reference's ACTIVATIONS but relu2): the gated
-# SiLU of llama and the gated gelu (tanh) of gemma and gemma2
-ACTIVATIONS = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh")}
+# the FFN activations (the reference's ACTIVATIONS): the gated SiLU of
+# llama, the gated gelu (tanh) of gemma and gemma2, and bitnet's gated
+# squared relu
+ACTIVATIONS = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
+               "relu2": lambda x: torch.square(F.relu(x))}
 # the router's probabilities (the reference's expert_gating_func)
 GATING = ("softmax", "sigmoid")
 # steps of at most this many tokens gather their experts' planes per (token,
@@ -127,7 +129,8 @@ _LAYER_KEYS = {"attn_norm", "ffn_norm", "attn_q", "attn_k", "attn_v", "attn_qkv_
                "attn_post_norm", "ffn_post_norm", "attn_q_b", "attn_k_b", "attn_v_b",
                "attn_q_norm", "attn_k_norm", "ffn_gate_inp", "ffn_exp_probs_b",
                "ffn_gate_exps", "ffn_up_exps", "ffn_down_exps", "ffn_gate_shexp",
-               "ffn_up_shexp", "ffn_down_shexp", "ffn_gate_inp_shexp"}
+               "ffn_up_shexp", "ffn_down_shexp", "ffn_gate_inp_shexp", "attn_sub_norm",
+               "ffn_sub_norm"}
 
 
 def flash_route(dk: int, dv: int, k_groups: int = 1, v_groups: int = 1,
@@ -270,7 +273,7 @@ def ffn(h: torch.Tensor, layer: dict, cfg: ModelConfig, dtype, gdot: bool = Fals
         ) -> torch.Tensor:
     """The gated FFN of h [T, D] in dtype: fused gate+up, or gate and up
     apart (the shared expert's ffn_gate / ffn_up), act(g) * u in f32, down
-    (the reference's _ffn)."""
+    (the reference's _ffn), with bitnet's ffn_sub_norm before down."""
     act = ACTIVATIONS[cfg.act]
     if "ffn_gateup_fused" in layer:
         g, up = torch.split(qmm(h, layer["ffn_gateup_fused"], gdot=gdot), cfg.n_ff, dim=-1)
@@ -282,6 +285,8 @@ def ffn(h: torch.Tensor, layer: dict, cfg: ModelConfig, dtype, gdot: bool = Fals
             cur = (g * up.float()).to(dtype)
         else:
             cur = act(up.float()).to(dtype)
+    if "ffn_sub_norm" in layer:  # bitnet: a norm before ffn_down
+        cur = rms_norm(cur, layer["ffn_sub_norm"], cfg.rms_eps)
     return qmm(cur, layer["ffn_down"], out_dtype=dtype, gdot=gdot)
 
 
@@ -491,6 +496,8 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
             if out is not None:
                 x = out
                 continue
+        if "attn_sub_norm" in layer:  # bitnet: a norm before o_proj
+            att = rms_norm(att, layer["attn_sub_norm"], cfg.rms_eps)
         attn_out = qmm(att, layer["attn_output"], out_dtype=dtype, gdot=gdot)
         if "attn_post_norm" in layer:  # gemma2: a norm before the residual
             attn_out = rms_norm(attn_out, layer["attn_post_norm"], cfg.rms_eps)

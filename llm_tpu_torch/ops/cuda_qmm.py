@@ -24,8 +24,10 @@ plain version is theirs on the layer's copy (`qmm_stacked_plain`), and
 `qmm_stacked_cuda` launches the same kernels (the decode GEMV's stacked
 entry points; the GEMM built apart, from csrc/qmm_stacked.cu) with the
 stacked base pointers, the per-layer strides and a pointer to the device
-index, which every CTA reads once. Nibble planes have group size 32 or 16
-(Q2_K, Q3_K: kernels of their own, counted as K1_gs16, K5_gs16, K7_gs16).
+index, which every CTA reads once. Nibble planes have group size 32, 16
+(Q2_K, Q3_K: kernels of their own, counted as K1_gs16, K5_gs16, K7_gs16)
+or 256 (TQ1_0, TQ2_0: K1_gs256, K5_gs256, K7_gs256); int8 planes 32, 16
+or 8 (IQ1_M: kernels of their own, K2_gs8, K7_gs8).
 `quant_matmul` dispatches on the device of x: CPU tensors take the plain
 version, CUDA tensors the kernel (which raises rather than fall back).
 """
@@ -42,8 +44,14 @@ from . import cuda_build
 
 # launches of each kernel, counted where the wrapper launches it; on nibble
 # planes at group size 16 (Q2_K, Q3_K) K1, K5 and K7 run kernels of their
-# own (qmm_decode_g16, qmm_decode_gdot_g16, qmm_wgmma_g16), counted apart
-LAUNCHES = {"K1": 0, "K2": 0, "K5": 0, "K7": 0, "K1_gs16": 0, "K5_gs16": 0, "K7_gs16": 0}
+# own (qmm_decode_g16, qmm_decode_gdot_g16, qmm_wgmma_g16), counted apart,
+# and so do K1, K5 and K7 on nibble planes at group size 256 (TQ1_0,
+# TQ2_0: qmm_decode_g256, qmm_decode_gdot_g256, qmm_wgmma_g256) and K2 and
+# K7 on int8 planes at group size 8 (IQ1_M: qmm_decode_g8, qmm_wgmma_g8)
+LAUNCHES = {"K1": 0, "K2": 0, "K5": 0, "K7": 0, "K1_gs16": 0, "K5_gs16": 0, "K7_gs16": 0,
+            "K1_gs256": 0, "K5_gs256": 0, "K7_gs256": 0, "K2_gs8": 0, "K7_gs8": 0}
+# the group sizes each layout's kernels take
+P4_GROUP_SIZES, I8_GROUP_SIZES = (16, 32, 256), (8, 16, 32)
 # rows up to which the reference takes the group-factored path (and up to
 # which K1/K2/K5/K7 run the decode GEMV, csrc/qmm_decode.cu)
 GDOT_MAX_B = 16
@@ -228,10 +236,10 @@ def check_planes(qt: QTensor, B: int, K: int) -> None:
     if qt.mins is not None and qt.mins.dtype != sdt:
         raise ValueError("qmm_cuda: scales and mins must share a dtype")
     if p4:
-        ok = qt.qs.dtype == torch.uint8 and qt.group_size in (16, 32) and qt.pack_tk == 256 \
-            and K % 256 == 0
+        ok = qt.qs.dtype == torch.uint8 and qt.group_size in P4_GROUP_SIZES \
+            and qt.pack_tk == 256 and K % 256 == 0
     else:
-        ok = qt.qs.dtype == torch.int8 and qt.group_size in (16, 32) and K % 32 == 0
+        ok = qt.qs.dtype == torch.int8 and qt.group_size in I8_GROUP_SIZES and K % 32 == 0
     if not ok or (B > 16 and K % 64):
         raise ValueError(f"qmm_cuda: unsupported planes layout={qt.layout} "
                          f"gs={qt.group_size} K={K} B={B}")
@@ -256,11 +264,14 @@ def _out(B: int, N: int, x: torch.Tensor, out_dtype) -> tuple[torch.Tensor, int]
 
 
 def kernel_name(name: str, qt: QTensor) -> str:
-    """The LAUNCHES key of K1, K5 or K7 on these planes: the group-size-16
-    form's on such nibble planes (Q2_K, Q3_K), K2 for K1 on int8 planes."""
+    """The LAUNCHES key of K1, K5 or K7 on these planes: K2 for K1 on int8
+    planes; the group-size-16 and -256 forms' on such nibble planes (Q2_K,
+    Q3_K; TQ1_0, TQ2_0), the group-size-8 form's on such int8 planes
+    (IQ1_M)."""
     if qt.layout != "p4":
-        return "K2" if name == "K1" else name
-    return f"{name}_gs16" if qt.group_size == 16 else name
+        name = "K2" if name == "K1" else name
+        return f"{name}_gs8" if qt.group_size == 8 else name
+    return f"{name}_gs{qt.group_size}" if qt.group_size in (16, 256) else name
 
 
 def _cast(y: torch.Tensor, out_dtype) -> torch.Tensor:

@@ -19,7 +19,9 @@ and the corrections' operands to bf16.
 launches csrc/qmm_chain.cu (one cooperative launch of thread block
 clusters of qmm_chain_tc, or of qmm_chain_tc_gelu for a GeGLU tail,
 counted apart as K6_gelu, or of qmm_chain_tc_g16 where a phase's nibble
-planes have group size 16, counted as K6_gs16; `chain_plan` picks each
+planes have group size 16, counted as K6_gs16, qmm_chain_tc_g256 where
+they have group size 256 (K6_gs256), qmm_chain_tc_g8 where a phase's
+int8 planes have group size 8 (K6_gs8); `chain_plan` picks each
 phase's K split within a cluster), and
 `qmm_chain` dispatches on the device of x: CPU tensors take the plain
 version, CUDA tensors the kernel (which raises rather than fall back).
@@ -42,8 +44,10 @@ from .norms import rms_norm
 # launches of the kernels, counted where the wrapper launches them: K6 the
 # SwiGLU kernel (every head and lm_head, and llama's tails), K6_gelu the
 # GeGLU one (gemma's tails), K6_gs16 the kernel of a chain with a phase on
-# nibble planes at group size 16 (Q2_K, Q3_K), with either act
-LAUNCHES = {"K6": 0, "K6_gelu": 0, "K6_gs16": 0}
+# nibble planes at group size 16 (Q2_K, Q3_K), K6_gs256 one with a phase
+# on nibble planes at group size 256 (TQ1_0, TQ2_0), K6_gs8 one with a
+# phase on int8 planes at group size 8 (IQ1_M), each with either act
+LAUNCHES = {"K6": 0, "K6_gelu": 0, "K6_gs16": 0, "K6_gs256": 0, "K6_gs8": 0}
 # rows the kernel takes: the chain serves decode steps (T <= 8)
 CHAIN_MAX_B = 8
 PRE = {"cast": 0, "norm": 1, "res_norm": 2, "swiglu": 3, "geglu": 4}
@@ -119,13 +123,15 @@ def chain_fits(qts) -> bool:
     128 or more (every N % 128 == 0), a K tile that is a multiple of the
     256-row pack tile (every K % 256 == 0), p4 planes packed at 256. The
     reference also shrinks its tiles to fit the TPU's scoped VMEM, which
-    the card has no counterpart of."""
+    the card has no counterpart of. And one of K6's kernels takes every
+    phase (chain_kernel): no chain mixes group sizes 16, 256 and 8, which
+    no GGUF recipe does."""
     for qt in qts:
         if qt.out_features % 128 or qt.in_features % 256:
             return False
         if qt.layout == "p4" and qt.pack_tk != 256:
             return False
-    return True
+    return chain_kernel(qts) is not None
 
 
 def qmm_chain_plain(x: torch.Tensor, qts, gammas=(), x_res: torch.Tensor | None = None, *,
@@ -244,16 +250,21 @@ def _lib():
 
 
 # K6's kernels (csrc/qmm_chain.cu::chain_kernel), by their launch count
-KERNEL_KINDS = {"K6": 0, "K6_gelu": 1, "K6_gs16": 2}
+KERNEL_KINDS = {"K6": 0, "K6_gelu": 1, "K6_gs16": 2, "K6_gs256": 3, "K6_gs8": 4}
 
 
-def chain_kernel(qts, gelu: bool = False) -> str:
+def chain_kernel(qts, gelu: bool = False) -> str | None:
     """The kernel (its LAUNCHES key) a chain of these phases launches:
-    K6_gs16 where a phase's nibble planes have group size 16, else K6_gelu
-    for a GeGLU boundary, else K6."""
-    if any(qt.layout == "p4" and qt.group_size == 16 for qt in qts):
-        return "K6_gs16"
-    return "K6_gelu" if gelu else "K6"
+    K6_gs16, K6_gs256 or K6_gs8 where a phase's planes take a group-size
+    form of their own (nibble planes at 16 or 256, int8 planes at 8), else
+    K6_gelu for a GeGLU boundary, else K6. None where phases of two of those
+    forms meet: no kernel takes them."""
+    forms = {f"K6_gs{qt.group_size}" for qt in qts
+             if (qt.layout == "p4" and qt.group_size in (16, 256))
+             or (qt.layout != "p4" and qt.group_size == 8)}
+    if len(forms) > 1:
+        return None
+    return forms.pop() if forms else ("K6_gelu" if gelu else "K6")
 
 
 def chain_clusters(kernel: str = "K6") -> dict:

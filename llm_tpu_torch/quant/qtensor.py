@@ -24,6 +24,7 @@ import torch
 
 from ..gguf.constants import GGMLType
 from .codecs import KVALUES_IQ4NL, _q3k_scales, _read_f16, _u8, _unpack2, _unpack_k4_scales
+from .iq_codecs import PLANE_FNS
 
 PACK_TK = 256
 
@@ -223,18 +224,27 @@ def planes_from_raw(raw: np.ndarray, ggml_type: GGMLType, n_per_row: int):
         q = np.stack([KVALUES_IQ4NL[qs & 0xF], KVALUES_IQ4NL[qs >> 4]],
                      axis=2).reshape(B, 256).astype(np.int8)
         return q, d * ls.astype(np.float32), None, 32
+    fn = PLANE_FNS.get(t.name)
+    if fn is not None:  # the IQ grid and ternary types (quant/iq_codecs.py)
+        return fn(raw)
     raise ValueError(f"no plane unpacker for {t.name}")
 
 
 # types whose plane values fit a nibble, with the zero point that makes
-# them 0..15: the 4-bit ones, and Q2_K (0..3) and Q3_K (-4..3), which a
-# 2- or 3-bit model reads at 4 bits a weight rather than 8
+# them 0..15: the 4-bit ones, Q2_K (0..3) and Q3_K (-4..3), which a 2- or
+# 3-bit model reads at 4 bits a weight rather than 8, and the ternary
+# TQ1_0 / TQ2_0 (-1..1, one scale a 256-value block)
 _PACK4 = {GGMLType.Q4_0: 8, GGMLType.Q4_1: 0, GGMLType.Q4_K: 0, GGMLType.Q2_K: 0,
-          GGMLType.Q3_K: 4}
+          GGMLType.Q3_K: 4, GGMLType.TQ1_0: 1, GGMLType.TQ2_0: 1}
 
+# every type the loader builds planes of (the reference's
+# supported_plane_types): the IQ grid types as int8 planes at group size
+# 32, 16 (IQ2_XS, IQ2_S) or 8 (IQ1_M)
 PLANE_TYPES = (GGMLType.Q8_0, GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1,
                GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K,
-               GGMLType.IQ4_NL, GGMLType.IQ4_XS)
+               GGMLType.IQ4_NL, GGMLType.IQ4_XS, GGMLType.IQ2_XXS, GGMLType.IQ2_XS,
+               GGMLType.IQ2_S, GGMLType.IQ3_XXS, GGMLType.IQ3_S, GGMLType.IQ1_S,
+               GGMLType.IQ1_M, GGMLType.TQ1_0, GGMLType.TQ2_0)
 
 
 def qtensor_from_gguf(raw: np.ndarray, ggml_type: GGMLType,

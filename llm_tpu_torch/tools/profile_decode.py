@@ -19,7 +19,9 @@ runs, in parallel.
 Prints one JSON line a path: wall ms per token (host clock around
 synchronized work), the device's busy and idle shares over that window
 (kernel time summed from the profiler's CUDA events; one stream, so
-kernels do not overlap), device launches per token, the decode GEMV's
+kernels do not overlap), device launches per token (the profiler's
+records; CUPTI can drop one now and then, so exact counts come from the
+wrappers' own launch counters, also in the line), the decode GEMV's
 (K1/K2/K7: every kernel named qmm_decode or qmm_gemv) ms and launches per
 token, K5's alone (qmm_decode_gdot, or the older loop's qmm_gemv) and K6's
 (qmm_chain), flash decode's (K3/K3q: every kernel named flash_decode, a
@@ -62,6 +64,14 @@ def _span(e, skip) -> tuple[float, int]:
     return us, n
 
 
+def _launch_counts() -> dict:
+    """The kernel wrappers' launch counts (each wrapper adds one where it
+    launches its kernel)."""
+    from llm_tpu_torch.ops import cuda_attn, cuda_qmm, cuda_qmm_chain
+
+    return {**cuda_qmm.LAUNCHES, **cuda_attn.LAUNCHES, **cuda_qmm_chain.LAUNCHES}
+
+
 def profile_tokens(ctx, tok: int, n_tokens: int, ranges=()) -> dict:
     """Profile n_tokens greedy tokens of ctx.generate_loop from tok (the
     cache already holds the prompt). The numbers of the JSON line; and for
@@ -72,11 +82,13 @@ def profile_tokens(ctx, tok: int, n_tokens: int, ranges=()) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    before = _launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         toks = ctx.generate_loop(tok, n_tokens)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    counted = {k: v - before.get(k, 0) for k, v in _launch_counts().items()}
     kernels, counts = {}, {}
     for e in prof.key_averages():
         if e.key in ranges:  # a range's span on the card, not a kernel
@@ -116,6 +128,9 @@ def profile_tokens(ctx, tok: int, n_tokens: int, ranges=()) -> dict:
         "attn_ms_per_token": sum(kernels[k] for k in attn) / n,
         "attn_launches_per_token": sum(counts[k] for k in attn) / n,
         "attn_combines_per_token": sum(counts[k] for k in attn if "combine" in k) / n,
+        "counted_attn_launches_per_token": sum(v for k, v in counted.items()
+                                               if k.startswith("K3")) / n,
+        "counted_launches_per_token": {k: v / n for k, v in counted.items() if v},
         "memsets_per_token": sum(c for k, c in counts.items() if "memset" in k.lower()) / n,
         "qmm_gemv_launches_per_token": sum(c for k, c in counts.items() if "qmm_gemv" in k) / n,
         "copies_per_token": sum(c for k, c in counts.items() if "copy_kernel" in k) / n,

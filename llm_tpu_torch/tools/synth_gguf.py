@@ -1,10 +1,10 @@
-"""A llama GGUF with random blocks typed as a Q4_K_M, Q3_K_M or Q2_K file
-is, and a byte-level BPE vocab, made from a seed, written with the port's
-GGUF writer: a file the CLI loads and answers from like a downloaded
-checkpoint, with no download.
+"""A llama (or bitnet) GGUF with random blocks typed as a Q4_K_M, Q3_K_M,
+Q2_K, IQ2_XXS, IQ1_M, TQ2_0 or TQ1_0 file is, and a byte-level BPE vocab,
+made from a seed, written with the port's GGUF writer: a file the CLI
+loads and answers from like a downloaded checkpoint, with no download.
 
     python -m llm_tpu_torch.tools.synth_gguf out.gguf [--layers 32] [--seed 0] \
-        [--ftype {Q4_K_M,Q3_K_M,Q2_K}]
+        [--ftype {Q4_K_M,Q3_K_M,Q2_K,IQ2_XXS,IQ1_M,TQ2_0,TQ1_0}] [--arch {llama,bitnet}]
 
 The type mix is llama.cpp's recipe for the ftype
 (models/synthetic.py::tensor_type_for, the port's copy of
@@ -13,20 +13,26 @@ default) is Q4_K everywhere, Q6_K for the lm_head and for attn_v and
 ffn_down of the use_more_bits layers; Q3_K_M is Q3_K with attn_v Q5_K in
 layers 0-1 and Q4_K after, ffn_down Q4_K in layers 0-1, a Q6_K lm_head;
 Q2_K is Q2_K with attn_v Q4_K (LLAMA3_8B's 4 query heads a KV head),
-ffn_down Q3_K in the use_more_bits layers, a Q6_K lm_head. A block's quant
-and scale bytes are random; its f16 `d` (and `dmin`) are finite, sized
-(_D_FIELDS) so that the weights' rms is ~0.02 for the types with signed
-scales and zero-mean weights (Q6_K, Q3_K) and ~0.04-0.05 for those with
-mins (Q4_K, Q5_K, Q2_K), whose random mins leave each row a mean of
-0.01-0.03. The vocab (`bpe_vocab`) is byte-level BPE
+ffn_down Q3_K in the use_more_bits layers, a Q6_K lm_head; IQ2_XXS and
+IQ1_M are their base type with attn_v Q4_K, ffn_down IQ3_XXS in layers
+0-1, a Q5_K lm_head and a Q2_K embedding table; TQ2_0 and TQ1_0 their
+base type everywhere but a Q6_K lm_head. A block's quant and scale bytes
+are random (TQ2_0's 2-bit codes drawn from 0..2, the trits); its f16 `d`
+(and `dmin`) are finite, sized (_D_FIELDS) so that the weights' rms is
+~0.02 for the types with signed scales and zero-mean weights (Q6_K, Q3_K,
+the IQ and TQ types) and ~0.04-0.05 for those with mins (Q4_K, Q5_K,
+Q2_K), whose random mins leave each row a mean of 0.01-0.03. IQ1_M keeps
+its d in the top nibbles of its four scale words. The vocab (`bpe_vocab`) is byte-level BPE
 with `tokenizer.ggml.pre = "llama-bpe"`: the 256 byte tokens, merges each
 of which builds a new token from two earlier ones, and Llama 3's special
 tokens (<|begin_of_text|> = 128000, ..., 256 of them at the top of the
 vocab).
 
-The geometry defaults to LLAMA3_8B (models/synthetic.py). `chip_smoke.py`
-writes the 8-layer Q4_K_M file and 2-layer Q3_K_M and Q2_K ones on the
-card's machine; the tests write tiny ones.
+The geometry defaults to LLAMA3_8B (models/synthetic.py), or to
+BITNET_B158_2B with `--arch bitnet` (a squared relu, the sub-norms
+attn_sub_norm and ffn_sub_norm as f32 ones). `chip_smoke.py` writes the
+8-layer Q4_K_M file and 2-layer Q3_K_M, Q2_K, IQ1_M and bitnet TQ2_0 ones
+on the card's machine; the tests write tiny ones.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ import numpy as np
 
 from ..gguf.constants import FileType, GGMLType, Keys, type_traits
 from ..gguf.writer import GGUFWriter
-from ..models.synthetic import LLAMA3_8B, RECIPES, tensor_type_for
+from ..models.synthetic import BITNET_B158_2B, LLAMA3_8B, RECIPES, tensor_type_for
 from ..tokenizers.bpe import bytes_to_unicode
 
 N_LLAMA3_SPECIAL = 256
@@ -115,22 +121,51 @@ _D_FIELDS = {
     GGMLType.Q5_K: ((0, 4), 5e-5),     # d, dmin; 6-bit sub-scales, 5-bit codes
     GGMLType.Q3_K: ((108, 110), 3e-4),  # d; signed 6-bit sub-scales, codes -4..3
     GGMLType.Q2_K: ((80, 84), 2e-3),   # d, dmin; 4-bit sub-scales, codes 0..3
+    GGMLType.IQ2_XXS: ((0, 2), 2.5e-4),  # d; 4-bit sub-scales, grid values 8..43
+    GGMLType.IQ3_XXS: ((0, 2), 9e-5),    # d; 4-bit sub-scales, grid values 4..62
+    GGMLType.IQ1_M: (None, 1.8e-3),      # d in the scale words' top nibbles
+    GGMLType.TQ1_0: ((52, 54), 1.6e-2),  # d; trits
+    GGMLType.TQ2_0: ((64, 66), 1.6e-2),  # d; trits
 }
+
+
+def _iq1m_set_d(raw: np.ndarray, d: np.ndarray) -> None:
+    """IQ1_M's f16 d: nibble i of its bits in the top nibble of scale word
+    i (bytes 48..55), as ggml's iq1m_scale_t unpacks it."""
+    bits = d.view(np.uint16).astype(np.uint16).reshape(-1)
+    sc = np.ascontiguousarray(raw[:, 48:56]).view("<u2")
+    for i in range(4):
+        sc[:, i] = (sc[:, i] & 0x0FFF) | (((bits >> (4 * i)) & 0xF) << 12)
+    raw[:, 48:56] = sc.view(np.uint8)
+
+
+def _tq2_trits(rng: np.random.Generator, raw: np.ndarray) -> None:
+    """TQ2_0's 2-bit codes (bytes 0..63) drawn from 0..2, the trits + 1
+    (code 3 is no trit)."""
+    c = rng.integers(0, 3, size=(raw.shape[0], 64, 4), dtype=np.uint8)
+    raw[:, 0:64] = c[..., 0] | (c[..., 1] << 2) | (c[..., 2] << 4) | (c[..., 3] << 6)
 
 
 def random_blocks(rng: np.random.Generator, ggml_type: GGMLType, n_rows: int,
                   n_per_row: int) -> np.ndarray:
     """Raw blocks of a [n_rows, n_per_row] tensor: random bytes, with each
-    block's f16 d (and dmin) set finite (_D_FIELDS)."""
+    block's f16 d (and dmin) set finite (_D_FIELDS) and TQ2_0's codes
+    trits."""
     tt = type_traits(ggml_type)
     nb = n_rows * n_per_row // tt.block_size
     raw = np.frombuffer(rng.bytes(nb * tt.type_size), np.uint8).reshape(nb, tt.type_size).copy()
     if ggml_type not in _D_FIELDS:
         raise ValueError(f"random_blocks makes {', '.join(t.name for t in _D_FIELDS)}, "
                          f"not {ggml_type.name}")
-    (lo, hi), mag = _D_FIELDS[ggml_type]
+    field, mag = _D_FIELDS[ggml_type]
+    lo, hi = field or (0, 2)
     d = (rng.random((nb, (hi - lo) // 2), np.float32) * mag + mag).astype(np.float16)
-    raw[:, lo:hi] = d.view(np.uint8).reshape(nb, hi - lo)
+    if field is None:
+        _iq1m_set_d(raw, d)
+    else:
+        raw[:, lo:hi] = d.view(np.uint8).reshape(nb, hi - lo)
+    if ggml_type == GGMLType.TQ2_0:
+        _tq2_trits(rng, raw)
     return raw
 
 
@@ -139,19 +174,22 @@ def write_llama(path: str, n_layers: int = LLAMA3_8B["n_layers"],
                 n_kv_heads: int = LLAMA3_8B["n_kv_heads"], n_ff: int = LLAMA3_8B["n_ff"],
                 vocab: dict | None = None, n_vocab: int = LLAMA3_8B["vocab"],
                 seed: int = 0, context_length: int = 8192,
-                rope_theta: float = 500000.0, ftype: str = "Q4_K_M") -> dict:
+                rope_theta: float = 500000.0, ftype: str = "Q4_K_M",
+                arch: str = "llama") -> dict:
     """Write the file; returns what it wrote (bytes, tensors by type, the
-    seconds to make the vocab and blocks and to write them)."""
+    seconds to make the vocab and blocks and to write them). arch "bitnet"
+    adds each layer's sub-norms (attn_sub_norm, ffn_sub_norm)."""
     t0 = time.perf_counter()
     vocab = bpe_vocab(n_vocab, seed) if vocab is None else vocab
     n_vocab = len(vocab[Keys.Tokenizer.LIST])
     t_vocab = time.perf_counter() - t0
-    arch = "llama"
+    if arch not in ("llama", "bitnet"):
+        raise ValueError(f"arch {arch!r}: llama or bitnet")
     w = GGUFWriter(path, arch=arch)
     a = (lambda k: k.format(arch=arch))
     if ftype not in RECIPES:
         raise ValueError(f"ftype {ftype!r}: one of {', '.join(RECIPES)}")
-    w.add_kv(Keys.General.NAME, f"synthetic llama {ftype} seed {seed}")
+    w.add_kv(Keys.General.NAME, f"synthetic {arch} {ftype} seed {seed}")
     w.add_kv(Keys.General.FILE_TYPE, np.uint32(FileType[f"MOSTLY_{ftype}"]))
     w.add_kv(a(Keys.LLM.CONTEXT_LENGTH), np.uint32(context_length))
     w.add_kv(a(Keys.LLM.EMBEDDING_LENGTH), np.uint32(n_embd))
@@ -187,10 +225,14 @@ def write_llama(path: str, n_layers: int = LLAMA3_8B["n_layers"],
         mat(p + "attn_q.weight", n_heads * hd, n_embd, il)
         mat(p + "attn_k.weight", n_kv_heads * hd, n_embd, il)
         mat(p + "attn_v.weight", n_kv_heads * hd, n_embd, il)
+        if arch == "bitnet":
+            ones(p + "attn_sub_norm.weight", n_heads * hd)
         mat(p + "attn_output.weight", n_embd, n_heads * hd, il)
         ones(p + "ffn_norm.weight", n_embd)
         mat(p + "ffn_gate.weight", n_ff, n_embd, il)
         mat(p + "ffn_up.weight", n_ff, n_embd, il)
+        if arch == "bitnet":
+            ones(p + "ffn_sub_norm.weight", n_ff)
         mat(p + "ffn_down.weight", n_embd, n_ff, il)
     ones("output_norm.weight", n_embd)
     mat("output.weight", n_vocab, n_embd)
@@ -205,11 +247,18 @@ def write_llama(path: str, n_layers: int = LLAMA3_8B["n_layers"],
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("out")
-    ap.add_argument("--layers", type=int, default=LLAMA3_8B["n_layers"])
+    ap.add_argument("--layers", type=int, default=None,
+                    help="layers (default: the geometry's, 32 or BitNet's 30)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ftype", choices=list(RECIPES), default="Q4_K_M")
+    ap.add_argument("--arch", choices=("llama", "bitnet"), default="llama",
+                    help="bitnet: BITNET_B158_2B's geometry and sub-norms")
     args = ap.parse_args(argv)
-    print(write_llama(args.out, n_layers=args.layers, seed=args.seed, ftype=args.ftype))
+    geo = BITNET_B158_2B if args.arch == "bitnet" else LLAMA3_8B
+    n_layers = geo["n_layers"] if args.layers is None else args.layers
+    print(write_llama(args.out, n_layers=n_layers, n_embd=geo["n_embd"],
+                      n_heads=geo["n_heads"], n_kv_heads=geo["n_kv_heads"], n_ff=geo["n_ff"],
+                      n_vocab=geo["vocab"], seed=args.seed, ftype=args.ftype, arch=args.arch))
 
 
 if __name__ == "__main__":

@@ -71,12 +71,12 @@ def _rel(got, want):
     return float(np.abs(got - want).max() / np.abs(want).max())
 
 
-def _tail_case(types, seed, B):
+def _tail_case(types, seed, B, e=E, f=F):
     rng = np.random.default_rng(seed)
-    pairs = [_mk(rng, E, E, types[0]), _mk(rng, 2 * F, E, types[1]), _mk(rng, E, F, types[2])]
-    att = (rng.normal(size=(B, E)) * 0.1).astype(np.float32)
-    xres = (rng.normal(size=(B, E)) * 0.1).astype(np.float32)
-    gamma = (rng.normal(size=(E,)) * 0.1 + 1.0).astype(np.float32)
+    pairs = [_mk(rng, e, e, types[0]), _mk(rng, 2 * f, e, types[1]), _mk(rng, e, f, types[2])]
+    att = (rng.normal(size=(B, e)) * 0.1).astype(np.float32)
+    xres = (rng.normal(size=(B, e)) * 0.1).astype(np.float32)
+    gamma = (rng.normal(size=(e,)) * 0.1 + 1.0).astype(np.float32)
     return pairs, att, xres, gamma
 
 
@@ -86,6 +86,30 @@ TYPES = [(GGMLType.Q4_K, GGMLType.Q4_K, GGMLType.Q6_K),
 # Q3_K_M's and Q2_K's tails: nibble planes at group size 16
 LOWBIT_TYPES = [(GGMLType.Q3_K, GGMLType.Q3_K, GGMLType.Q4_K),
                 (GGMLType.Q2_K, GGMLType.Q2_K, GGMLType.Q3_K)]
+# IQ1_M's tail (int8 planes at group size 8, an IQ3_XXS down) and TQ2_0's
+# (nibble planes at group size 256, zero point 1), at 256 wide (the
+# interpreted reference chain takes ~25 s a case at E, F)
+IQ_TYPES = [(GGMLType.IQ1_M, GGMLType.IQ1_M, GGMLType.IQ3_XXS),
+            (GGMLType.TQ2_0, GGMLType.TQ2_0, GGMLType.TQ2_0)]
+
+
+@pytest.mark.parametrize("cdtype,tol", [("f32", TOL_F32), ("bf16", TOL_BF16)])
+@pytest.mark.parametrize("types", IQ_TYPES, ids=lambda t: "-".join(x.name for x in t))
+def test_layer_tail_matches_reference_at_group_sizes_256_and_8(types, cdtype, tol):
+    """test_layer_tail_{f32,bf16}_matches_reference's checks on the IQ1_M
+    and TQ2_0 tails at E = F = 256."""
+    B = 5 if cdtype == "f32" else 8
+    pairs, att, xres, gamma = _tail_case(types, 9, B, 256, 256)
+    jdt, tdt = (jnp.float32, torch.float32) if cdtype == "f32" else (jnp.bfloat16,
+                                                                     torch.bfloat16)
+    want = jax_chain.layer_tail(jnp.asarray(att, jdt), jnp.asarray(xres, jdt),
+                                jnp.asarray(gamma), *(p[0] for p in pairs), eps=EPS,
+                                compute_dtype=jdt, interpret=True)
+    tt = (lambda a: torch.from_numpy(np.asarray(jnp.asarray(a, jdt), np.float32)).to(tdt))
+    got = layer_tail(tt(att), tt(xres), torch.from_numpy(gamma), *(p[1] for p in pairs),
+                     eps=EPS, compute_dtype=tdt)
+    assert got.shape == (B, 256) and got.dtype == tdt
+    assert _rel(got.float().numpy(), np.asarray(want, np.float32)) < tol
 
 
 @pytest.mark.parametrize("types", TYPES + LOWBIT_TYPES,
@@ -186,16 +210,19 @@ def test_gates_agree_on_loaded_layers(chain_ggufs):
                 (jl["attn_output"], jl["ffn_gateup_fused"], jl["ffn_down"]),
                 ("cast", "res_norm", "swiglu")) is not None
             assert chain_fits((tl["attn_output"], tl["ffn_gateup_fused"], tl["ffn_down"])) == want
-        # every banned key (gemma2's post-norms among them): both gates
-        # refuse the tail; a sub-norm (bitnet's), which the port does not
-        # run, check_supported refuses with the whole layer before any gate
-        # is asked
+        # every banned key (gemma2's post-norms and bitnet's sub-norms among
+        # them): both gates refuse the tail; the forward runs the sub-norms
+        # (unchained), and a layer key it does not run (a LoRA adapter)
+        # check_supported refuses with the whole layer before any gate is
+        # asked
         assert tail_eligible(tl)
         for key in TAIL_BANNED:
             assert not tail_eligible({**tl, key: None})
             assert not jax_chain.tail_eligible({**jl, key: None})
+        check_supported({"layers": [{**tl, "attn_sub_norm": None, "ffn_sub_norm": None}]
+                         * tcfg.n_layers}, tcfg)
         with pytest.raises(NotImplementedError):
-            check_supported({"layers": [{**tl, "attn_sub_norm": None}]}, tcfg)
+            check_supported({"layers": [{**tl, "attn_output.lora": None}]}, tcfg)
     q4, _ = load_params(GGUFReader(chain_ggufs["Q4_K_M"]), device="cpu")
     assert [head_eligible(layer) for layer in q4["layers"]] == [False, True]
 

@@ -76,6 +76,10 @@ def _planes(layout, zp, gs, mins, N, K, B, scales_dtype, seed=0):
     ("i8", 0, 32, False, 200, 64),     # Q8_0, short K, ragged N
     ("i8", 0, 32, True, 128, 256),     # i8 with mins
     ("i8", 3, 32, False, 128, 256),    # i8 with a zero point
+    ("p4", 1, 256, False, 256, 512),   # TQ2_0 (gs 256, zero point 1)
+    ("p4", 1, 256, False, 264, 1024),  # TQ2_0, N not a multiple of 16
+    ("i8", 0, 8, False, 256, 512),     # IQ1_M (gs 8)
+    ("i8", 0, 8, False, 200, 320),     # IQ1_M, a half stage, ragged N
 ])
 def test_qmm_kernel_matches_plain(cuda_device, layout, zp, gs, mins, N, K, B, scales_dtype):
     x, qt = _planes(layout, zp, gs, mins, N, K, B, scales_dtype)
@@ -89,7 +93,9 @@ def test_qmm_kernel_matches_plain(cuda_device, layout, zp, gs, mins, N, K, B, sc
 # attn_k, the gs 16 nibble planes of Q3_K (attn_k) and Q2_K (down), at B on
 # both sides of each 8-row block
 DECODE_MAIN = [("Q4_K", 4096, 1024), ("Q4_K", 14336, 4096), ("Q6_K", 14336, 4096),
-               ("Q8_0", 4096, 1024), ("Q3_K", 4096, 1024), ("Q2_K", 14336, 4096)]
+               ("Q8_0", 4096, 1024), ("Q3_K", 4096, 1024), ("Q2_K", 14336, 4096),
+               ("TQ2_0", 2560, 3840), ("TQ2_0", 6912, 2560), ("IQ1_M", 4096, 4096),
+               ("IQ1_M", 14336, 4096), ("IQ2_XXS", 4096, 4096)]
 
 
 def _device_planes(dev, qtype, K, N, B, seed=0):
@@ -168,6 +174,41 @@ def test_k7_decode_equals_unstacked_bit_for_bit(cuda_device, qtype, K, N, B):
     for il in range(3):
         got = cuda_qmm.qmm_stacked_cuda(x, StackedWeight(qt, lids[il:il + 1]))
         assert torch.equal(got, cuda_qmm.qmm_cuda(x, layers[il]))
+
+
+REPEAT_SHAPES = [("Q3_K", 4096, 28672), ("Q4_K", 4096, 28672), ("TQ2_0", 2560, 13824),
+                 ("IQ1_M", 4096, 28672)]
+
+
+@pytest.mark.parametrize("qtype,K,N", REPEAT_SHAPES, ids=[f"{q}-{k}x{n}" for q, k, n in REPEAT_SHAPES])
+def test_decode_gives_the_same_bits_over_many_launches(cuda_device, qtype, K, N):
+    """The decode GEMV sums in a fixed order and uses no atomics: K7 on each
+    layer of a two-layer stack and K1/K2 on each layer's own planes,
+    launched back to back 1500 times each on one input at B = 1, give the
+    first launch's bits every time."""
+    from llm_tpu_torch.models.synthetic import device_synthetic_qtensor
+
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(1)
+    layers = [device_synthetic_qtensor(gen, N, K, GGMLType[qtype]) for _ in range(2)]
+    one = layers[0]
+    st = (lambda ts: torch.stack(ts))
+    qt = QTensor(st([q.qs for q in layers]), st([q.scales for q in layers]),
+                 None if one.mins is None else st([q.mins for q in layers]), one.group_size,
+                 one.ggml_type, one.layout, one.zp, one.pack_tk, one.kmajor)
+    views = [qt.map(lambda t, il=il: t[il]) for il in range(2)]
+    lids = torch.arange(2, dtype=torch.int32, device=cuda_device)
+    sws = [StackedWeight(qt, lids[il:il + 1]) for il in range(2)]
+    x = torch.randn((1, K), generator=gen, device=cuda_device).to(torch.bfloat16)
+    want = [cuda_qmm.qmm_cuda(x, views[il]) for il in range(2)]
+    off = []
+    for it in range(1500):
+        for il in range(2):
+            for kind, y in (("K7", cuda_qmm.qmm_stacked_cuda(x, sws[il])),
+                            ("unstacked", cuda_qmm.qmm_cuda(x, views[il]))):
+                if not torch.equal(y, want[il]):
+                    off.append((it, kind, il, (y - want[il]).abs().max().item()))
+    assert not off, f"{len(off)} of 6000 launches differ from the first: {off[:8]}"
 
 
 @pytest.mark.parametrize("B,gdot", [(1, False), (9, False), (17, False), (1, True), (9, True)])
@@ -635,7 +676,7 @@ def test_cuda_tensors_never_take_the_plain_path(cuda_device):
 
 @pytest.mark.parametrize("scales_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("B", [1, 3, 8, 16])
-@pytest.mark.parametrize("gs", [32, 16])
+@pytest.mark.parametrize("gs", [32, 16, 256])
 @pytest.mark.parametrize("zp,mins,N,K", [(0, True, 256, 512), (8, False, 264, 512),
                                          (0, True, 1000, 1024), (0, False, 512, 256),
                                          (0, True, 1024, 4096), (4, False, 1024, 4096)])
@@ -643,8 +684,9 @@ def test_gdot_kernel_matches_plain(cuda_device, zp, mins, N, K, gs, B, scales_dt
     """K5 against qmm_gdot_plain (bf16): Q4_K with mins, Q4_0 with zero
     point 8 and N not a multiple of 16, a ragged N tile, no correction,
     and LLAMA3_8B's attn_k (4 N tiles, a K split no other case takes) with
-    mins and with Q3_K's zero point 4; at group size 32 and 16 (Q2_K,
-    Q3_K: K5_gs16)."""
+    mins and with Q3_K's zero point 4; at group size 32, 16 (Q2_K,
+    Q3_K: K5_gs16) and 256 (TQ1_0, TQ2_0: K5_gs256, whose CTAs take whole
+    groups, so the cluster splits K in pairs of stages)."""
     x, qt = _planes("p4", zp, gs, mins, N, K, B, scales_dtype)
     kern = cuda_qmm.kernel_name("K5", qt)
     launched = cuda_qmm.LAUNCHES[kern]
@@ -713,8 +755,18 @@ def test_k7_k5_variant_equals_k5_bit_for_bit(cuda_device, K, N, zp, B):
 
 def _chain_planes(rng, k, n, qtype, scales_dtype):
     """Chain phase planes: p4k (Q4_K), p4q2 (Q2_K: gs 16, codes 0..3,
-    mins), p4q3 (Q3_K: gs 16, zero point 4, no mins), i8g16 (Q6_K-like),
-    i8g32."""
+    mins), p4q3 (Q3_K: gs 16, zero point 4, no mins), p4t (TQ2_0: gs 256,
+    trits at zero point 1), i8g16 (Q6_K-like), i8g32, i8g8 (IQ1_M-like:
+    gs 8, values -9..9)."""
+    to = (lambda a: torch.from_numpy(a).to(scales_dtype))
+    if qtype == "p4t":
+        qs = pack_p4_kmajor(rng.integers(-1, 2, size=(k, n)), 1)
+        scales = ((rng.random((k // 256, n)) + 0.5) * (4.0 / np.sqrt(k))).astype(np.float32)
+        return QTensor(torch.from_numpy(qs), to(scales), None, 256, GGMLType.TQ2_0, "p4", 1)
+    if qtype == "i8g8":
+        qs = rng.integers(-9, 10, size=(k, n)).astype(np.int8)
+        scales = ((rng.random((k // 8, n)) + 0.5) * (2.0 / np.sqrt(k) / 8)).astype(np.float32)
+        return QTensor(torch.from_numpy(qs), to(scales), None, 8, GGMLType.IQ1_M, "i8", 0)
     if qtype == "p4k":
         qs = pack_p4_kmajor(rng.integers(0, 16, size=(k, n)), 0)
         gs, layout, zp = 32, "p4", 0
@@ -840,10 +892,55 @@ def test_chain_gs16_tail_matches_plain(cuda_device, wo, gu, down, B, act):
     assert (got.cpu().float() - want).abs().max() <= 2e-2 * want.abs().max()
 
 
+@pytest.mark.parametrize("act", ["swiglu", "geglu"])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("wo,gu,down,kern", [("i8g8", "i8g8", "i8g8", "K6_gs8"),
+                                             ("i8g8", "i8g8", "i8g32", "K6_gs8"),
+                                             ("p4t", "p4t", "p4t", "K6_gs256"),
+                                             ("p4t", "p4k", "i8g16", "K6_gs256")],
+                         ids=["iq1m", "iq1m-iq3-down", "tq2", "tq2-o-only"])
+def test_chain_gx_tail_matches_plain(cuda_device, wo, gu, down, kern, B, act):
+    """K6_gs8 (qmm_chain_tc_g8: phases on int8 planes at group size 8) and
+    K6_gs256 (qmm_chain_tc_g256: nibble planes at group size 256) beside
+    the other forms, either act, against qmm_chain_plain within one bf16
+    step of max|out|, counted apart, bit-identical from launch to
+    launch."""
+    rng = np.random.default_rng(B)
+    E, Fh = 512, 768
+    ws = [_chain_planes(rng, 512, E, wo, torch.bfloat16).to(cuda_device),
+          _chain_planes(rng, E, 2 * Fh, gu, torch.bfloat16).to(cuda_device),
+          _chain_planes(rng, Fh, E, down, torch.bfloat16).to(cuda_device)]
+    bf = torch.bfloat16
+    att = torch.from_numpy(rng.normal(size=(B, 512)).astype(np.float32)).to(bf).to(cuda_device)
+    xres = torch.from_numpy(rng.normal(size=(B, E)).astype(np.float32)).to(bf).to(cuda_device)
+    gamma = torch.from_numpy((rng.normal(size=E) * 0.2 + 1).astype(np.float32)).to(cuda_device)
+    pres = dict(TAIL_PRES, pres=("cast", "res_norm", act))
+    want = cuda_qmm_chain.qmm_chain_plain(att.cpu(), [w.to("cpu") for w in ws], (gamma.cpu(),),
+                                          xres.cpu(), **pres).float()
+    before = dict(cuda_qmm_chain.LAUNCHES)
+    got = cuda_qmm_chain.qmm_chain_cuda(att, ws, (gamma,), xres, **pres)
+    again = cuda_qmm_chain.qmm_chain_cuda(att, ws, (gamma,), xres, **pres)
+    assert cuda_qmm_chain.LAUNCHES == {**before, kern: before[kern] + 2}
+    assert torch.equal(got, again)
+    assert (got.cpu().float() - want).abs().max() <= 2 ** -8 * want.abs().max()
+
+
+def test_chain_refuses_mixed_group_size_forms():
+    """No kernel takes gs-16 nibble phases beside gs-8 int8 ones: the gate
+    says no on both devices, so the caller runs the unfused path."""
+    rng = np.random.default_rng(0)
+    ws = [_chain_planes(rng, 512, 512, "p4q3", torch.bfloat16),
+          _chain_planes(rng, 512, 1536, "i8g8", torch.bfloat16),
+          _chain_planes(rng, 768, 512, "i8g8", torch.bfloat16)]
+    assert cuda_qmm_chain.chain_kernel(ws) is None and not cuda_qmm_chain.chain_fits(ws)
+    assert cuda_qmm_chain.chain_kernel(ws[1:]) == "K6_gs8"
+
+
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("B", [1, 3, 8])
 @pytest.mark.parametrize("qtype,N", [("p4k", 768), ("p4q3", 768), ("p4q2", 640),
-                                     ("i8g16", 1280), ("i8g32", 384)])
+                                     ("i8g16", 1280), ("i8g32", 384), ("p4t", 3840),
+                                     ("i8g8", 640)])
 def test_chain_norm_mm_kernel_matches_plain(cuda_device, qtype, N, B, out_dtype):
     """K6's norm + matmul (a head, an lm_head) against the plain version."""
     rng = np.random.default_rng(N + B)
@@ -960,6 +1057,10 @@ K7_PLANES = [  # layout, zp, gs, mins, N, K
     ("p4", 4, 16, False, 264, 512),    # Q3_K, N not a multiple of 16
     ("i8", 0, 16, False, 256, 512),    # Q6_K
     ("i8", 0, 32, False, 200, 64),     # Q8_0, short K, ragged N
+    ("p4", 1, 256, False, 256, 512),   # TQ2_0
+    ("p4", 1, 256, False, 264, 1024),  # TQ2_0, N not a multiple of 16
+    ("i8", 0, 8, False, 256, 512),     # IQ1_M
+    ("i8", 0, 8, False, 200, 320),     # IQ1_M, ragged N
 ]
 # stacked K1/K2 at decode and prefill rows; stacked K5 where its gate admits
 K7_CASES = ([(*p, B, False) for p in K7_PLANES for B in (1, 3, 8, 17, 40, 129, 300)]

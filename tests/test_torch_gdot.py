@@ -34,6 +34,7 @@ P4_CASES = [  # zp, mins, N, gs
     (0, True, 200, 32),    # ragged N
     (0, True, 256, 16),    # Q2_K: group size 16, mins
     (4, False, 200, 16),   # Q3_K: group size 16, zero point 4, ragged N
+    (1, False, 256, 256),  # TQ2_0: group size 256, zero point 1
 ]
 
 
@@ -58,7 +59,8 @@ def _rel(got, want):
 
 @pytest.mark.parametrize("cdtype,tol", [("f32", 2e-4), ("bf16", 1e-6)])
 @pytest.mark.parametrize("B", [1, 8])
-@pytest.mark.parametrize("zp,mins,N,gs", P4_CASES, ids=["q4k", "q4_0", "ragged", "q2k", "q3k"])
+@pytest.mark.parametrize("zp,mins,N,gs", P4_CASES,
+                         ids=["q4k", "q4_0", "ragged", "q2k", "q3k", "tq2_0"])
 def test_gdot_plain_matches_pallas(zp, mins, N, gs, B, cdtype, tol):
     x, qs, scales, m, qt = _planes(zp, mins, N, B=B, gs=gs)
     jdt, tdt = ((jnp.float32, torch.float32) if cdtype == "f32"

@@ -41,6 +41,7 @@ CASES = [  # name, zp, mins, N, K, gs
     ("Q4_0_ragged", 8, False, 264, 512, 32),
     ("Q2_K", 0, True, 256, 512, 16),        # group size 16: a group every 16-k step
     ("Q3_K_ragged", 4, False, 264, 512, 16),
+    ("TQ2_0", 1, False, 256, 512, 256),     # group size 256: folds every 32 k, one correction
 ]
 ROWS = [1, 3, 8, 16]
 PLAIN_REL_TOL = 1e-5
@@ -67,15 +68,18 @@ def gdot_decode_order(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """The kernel's K5 arithmetic: per group g, P'_g = sum over its 16-k
     steps (two at group size 32, one at 16) of the f32 products of x with
     the raw nibbles, then acc = s[g] * P'_g + acc and the bf16-rounded
-    correction, group after group, in f32."""
+    correction, group after group, in f32. At group size 256 the products
+    fold every 32 k (acc = s[g] * P'_32 + acc), and the correction, once a
+    group, takes the x sums over all 256."""
     xr = _bf16(x)
     q = (unpack_planes(qt) + qt.zp).float()  # the raw nibbles
     assert torch.equal(_bf16(q), q) and q.min() >= 0 and q.max() <= 15
     K, N = q.shape
-    steps = qt.group_size // 16
-    B, G = xr.shape[0], K // qt.group_size
-    s = qt.scales.float()
-    m = None if qt.mins is None else qt.mins.float()
+    fold = min(qt.group_size, 32)
+    steps, per = fold // 16, qt.group_size // fold
+    B, G = xr.shape[0], K // fold
+    s = qt.scales.float().repeat_interleave(per, 0)
+    m = None if qt.mins is None else qt.mins.float().repeat_interleave(per, 0)
     with full_f32():
         xg = xr.reshape(B, G, steps, 16).permute(1, 2, 0, 3)        # [G, steps, B, 16]
         qg = q.reshape(G, steps, 16, N)
@@ -84,10 +88,12 @@ def gdot_decode_order(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
         p, xsum = p16[:, 0], xs[:, 0]
         for st in range(1, steps):
             p, xsum = p + p16[:, st], xsum + xs[:, st]              # [G, B, N], [G, B]
-        xsum = _bf16(xsum)
+        xsum = _bf16(xsum.reshape(G // per, per, B).sum(1)).repeat_interleave(per, 0)
         acc = torch.zeros((B, N))
         for g in range(G):
             acc = s[g] * p[g] + acc
+            if g % per != per - 1:
+                continue  # the correction once a group, after its last fold
             if m is not None:
                 acc = -_bf16(m[g]) * xsum[g][:, None] + acc
             else:

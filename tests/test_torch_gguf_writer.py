@@ -86,7 +86,9 @@ def test_duplicates_and_bad_raw_sizes_raise(tmp_path):
 
 def test_constants_hold_the_reference_keys():
     """The tokenizer keys and value types the tokenizers and the writer read
-    are the reference's."""
+    are the reference's; the file types are its, and llama.cpp's ids of
+    the four whose files tools/synth_gguf.py writes and the reference's
+    enum lacks (IQ2_XXS, IQ1_M, TQ1_0, TQ2_0)."""
     from llm_tpu.gguf import constants as jc
 
     def flat(k):
@@ -95,8 +97,9 @@ def test_constants_hold_the_reference_keys():
 
     assert flat(Keys) == flat(jc.Keys)
     assert {e.name: e.value for e in GGUFValueType} == {e.name: e.value for e in jc.GGUFValueType}
-    assert {e.name: e.value for e in constants.FileType} == {e.name: e.value
-                                                             for e in jc.FileType}
+    assert {e.name: e.value for e in constants.FileType} == {
+        **{e.name: e.value for e in jc.FileType}, "MOSTLY_IQ2_XXS": 19, "MOSTLY_IQ1_M": 31,
+        "MOSTLY_TQ1_0": 36, "MOSTLY_TQ2_0": 37}
 
 
 def test_synthetic_llama_file_is_the_same_through_either_writer(tmp_path, monkeypatch):

@@ -186,7 +186,12 @@ def test_synth_gguf_types_follow_the_reference_recipe(tmp_path, ftype):
                                   n_kv_heads=1, n_ff=512, n_vocab=512, ftype=ftype)
     r = JaxGGUFReader(path)
     from llm_tpu.gguf.constants import FileType
-    assert r.get("general.file_type") == FileType[f"MOSTLY_{ftype}"]
+    from llm_tpu_torch.gguf.constants import FileType as PortFileType
+    # llama.cpp's file type ids; llm_tpu's enum lacks those of IQ2_XXS,
+    # IQ1_M, TQ1_0 and TQ2_0 (19, 31, 36, 37)
+    want_ft = FileType[f"MOSTLY_{ftype}"] if f"MOSTLY_{ftype}" in FileType.__members__ \
+        else PortFileType[f"MOSTLY_{ftype}"]
+    assert r.get("general.file_type") == want_ft
     for name, ti in r.tensors.items():
         if ti.ggml_type == JaxGGMLType.F32:
             continue
@@ -203,8 +208,9 @@ def test_synth_gguf_types_follow_the_reference_recipe(tmp_path, ftype):
 def test_synthetic_recipe_types_follow_the_reference(recipe):
     """make_synthetic_model(recipe=) on the card's path (planes made by a
     generator, here on the CPU): each matrix takes llm_tpu's
-    tensor_type_for type (8 layers, 4 query heads a KV head), Q2_K and
-    Q3_K as nibble planes at group size 16."""
+    tensor_type_for type (8 layers, 4 query heads a KV head), the lm_head
+    and the embedding table too, Q2_K and Q3_K as nibble planes at group
+    size 16."""
     n_layers = 8
     params, _ = make_synthetic_model(n_embd=256, n_layers=n_layers, n_heads=4, n_kv_heads=1,
                                      n_ff=512, vocab=512, qtype=GGMLType.Q4_K, device="cpu",
@@ -219,5 +225,6 @@ def test_synthetic_recipe_types_follow_the_reference(recipe):
             assert qt.ggml_type.name == want.name, (name, qt.ggml_type.name, want.name)
             if want.name in ("Q2_K", "Q3_K"):
                 assert (qt.layout, qt.group_size, qt.zp) == ("p4", 16, 4 * (want.name == "Q3_K"))
-    assert params["output"].ggml_type == GGMLType.Q6_K
-    assert params["tok_embd"].ggml_type == RECIPES[recipe]
+    for key, name in (("output", "output.weight"), ("tok_embd", "token_embd.weight")):
+        want = tensor_type_for(name, (256, 512), recipe, n_layers, n_gqa=4)
+        assert params[key].ggml_type.name == want.name, (key, want.name)

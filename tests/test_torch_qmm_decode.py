@@ -45,6 +45,8 @@ CASES = [  # name, layout, zp, gs, mins, N, K
     ("Q4_K_down", "p4", 0, 32, True, 128, 14336),
     ("Q2_K", "p4", 0, 16, True, 256, 512),      # nibble planes at gs 16, with mins
     ("Q3_K", "p4", 4, 16, False, 264, 512),     # gs 16, zero point 4, the gathered path
+    ("TQ2_0", "p4", 1, 256, False, 256, 512),   # gs 256, zero point 1: a fold every 32 k
+    ("IQ1_M", "i8", 0, 8, False, 256, 512),     # gs 8: two groups a 16-k step
 ]
 ROWS = [1, 3, 8, 16]
 CARD_REL_TOL = 1e-3  # chip_smoke.py::check_qmm, tests/test_torch_cuda.py
@@ -70,15 +72,17 @@ def _planes(layout, zp, gs, mins, N, K, B, scales_dtype, seed=0):
 def decode_order(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """The kernel's arithmetic: per group g, P_g = x_g . (q - zp)_g in f32
     (bf16-exact operands), then acc = s[g] * P_g + acc and, with mins,
-    acc = -m[g] * xsum_g + acc, group after group, in f32."""
+    acc = -m[g] * xsum_g + acc, group after group, in f32. At group size
+    256 the fold is every 32 k, each with its group's s and m."""
     xr = x.to(torch.bfloat16).float()
     q = unpack_planes(qt).float()
     assert torch.equal(q.to(torch.bfloat16).float(), q)  # q - zp exact in bf16
     K, N = q.shape
-    gs, B = qt.group_size, xr.shape[0]
+    gs, B = min(qt.group_size, 32), xr.shape[0]
     G = K // gs
-    s = qt.scales.float()
-    m = None if qt.mins is None else qt.mins.float()
+    rep = qt.group_size // gs
+    s = qt.scales.float().repeat_interleave(rep, 0)
+    m = None if qt.mins is None else qt.mins.float().repeat_interleave(rep, 0)
     with full_f32():
         xg = xr.reshape(B, G, gs).transpose(0, 1)            # [G, B, gs]
         p = torch.bmm(xg, q.reshape(G, gs, N))              # [G, B, N]

@@ -49,6 +49,8 @@ CASES = [  # name, layout, zp, gs, mins, N, K
     ("i8_zp", "i8", 3, 32, False, 128, 256),
     ("Q2_K", "p4", 0, 16, True, 256, 512),     # nibble planes at gs 16, with mins
     ("Q3_K", "p4", 4, 16, False, 264, 512),    # gs 16, zero point 4, the gathered path
+    ("TQ2_0", "p4", 1, 256, False, 256, 512),  # gs 256, zero point 1
+    ("IQ1_M", "i8", 0, 8, False, 264, 512),    # gs 8, the gathered path
 ]
 B = 33
 PLAIN_REL_TOL = 1e-5

@@ -3,7 +3,8 @@ GGUF tensor bytes give the same planes, scales and mins in both packages
 (K-major matmul planes, the rows layout of embedding tables, and stacked
 experts) for every type the port loads (Q8_0, Q4_0, Q4_1, Q5_0, Q5_1, Q2_K
 and Q3_K nibble-packed at group size 16, Q4_K, Q5_K, Q6_K, IQ4_NL,
-IQ4_XS), the dense weights of load_params(use_planes=False) equal to
+IQ4_XS; the IQ grid types as int8 planes at group size 32, 16 or 8, TQ1_0
+and TQ2_0 nibble-packed at group size 256 with zero point 1), the dense weights of load_params(use_planes=False) equal to
 llm_tpu's dequantize_tensor, the numpy packers agree, and a seed gives the
 same synthetic planes."""
 
@@ -28,7 +29,16 @@ K, N = 512, 96
 # every type whose planes the port loads
 TYPES = [GGMLType.Q8_0, GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1,
          GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K,
-         GGMLType.IQ4_NL, GGMLType.IQ4_XS]
+         GGMLType.IQ4_NL, GGMLType.IQ4_XS, GGMLType.IQ2_XXS, GGMLType.IQ2_XS, GGMLType.IQ2_S,
+         GGMLType.IQ3_XXS, GGMLType.IQ3_S, GGMLType.IQ1_S, GGMLType.IQ1_M, GGMLType.TQ1_0,
+         GGMLType.TQ2_0]
+# the group size (and layout, zero point) each IQ grid or ternary type's
+# planes take
+IQ_PLANES = {GGMLType.IQ2_XXS: ("i8", 32, 0), GGMLType.IQ2_XS: ("i8", 16, 0),
+             GGMLType.IQ2_S: ("i8", 16, 0), GGMLType.IQ3_XXS: ("i8", 32, 0),
+             GGMLType.IQ3_S: ("i8", 32, 0), GGMLType.IQ1_S: ("i8", 32, 0),
+             GGMLType.IQ1_M: ("i8", 8, 0), GGMLType.TQ1_0: ("p4", 256, 1),
+             GGMLType.TQ2_0: ("p4", 256, 1)}
 
 
 def _raw(qtype, seed=0):
@@ -66,6 +76,8 @@ def test_planes_byte_equal(qtype, kmajor):
     assert got.in_features == K and got.out_features == N
     if qtype in (GGMLType.Q2_K, GGMLType.Q3_K):  # nibble planes at group size 16
         assert (got.layout, got.group_size, got.zp) == ("p4", 16, 4 * (qtype == GGMLType.Q3_K))
+    if qtype in IQ_PLANES:
+        assert (got.layout, got.group_size, got.zp) == IQ_PLANES[qtype]
 
 
 @pytest.mark.parametrize("qtype", TYPES, ids=lambda t: t.name)

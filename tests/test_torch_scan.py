@@ -87,12 +87,16 @@ K7_CASES = [  # layout, zp, gs, mins, gdot
     ("p4", 0, 32, True, True),    # Q4_K, group-factored: stacked K5
     ("p4", 0, 16, True, False),   # Q2_K: nibble planes at group size 16
     ("p4", 4, 16, False, True),   # Q3_K (zero point 4), group-factored
+    ("p4", 1, 256, False, False),  # TQ2_0: nibble planes at group size 256
+    ("p4", 1, 256, False, True),   # TQ2_0, group-factored
+    ("i8", 0, 8, False, False),    # IQ1_M: int8 planes at group size 8
 ]
 
 
 @pytest.mark.parametrize("cdtype,tol", [("f32", 2e-4), ("bf16", 2e-2)])
 @pytest.mark.parametrize("layout,zp,gs,mins,gdot", K7_CASES,
-                         ids=["q4k", "q4_0", "q6k", "q8_0", "q4k-gdot", "q2k", "q3k-gdot"])
+                         ids=["q4k", "q4_0", "q6k", "q8_0", "q4k-gdot", "q2k", "q3k-gdot",
+                              "tq2_0", "tq2_0-gdot", "iq1_m"])
 def test_k7_plain_matches_pallas(layout, zp, gs, mins, gdot, cdtype, tol):
     x, qs, sc, mn, qt = _stack_planes(layout, zp, gs, mins)
     jdt, tdt = ((jnp.float32, torch.float32) if cdtype == "f32"
