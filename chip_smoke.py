@@ -194,7 +194,7 @@ prints no result line):
      K3qw_cap/K4qw_cap) whose first 128 prompt cells, in both of its
      tables, go through a state file into a fresh q8_0 ring Context, one
      decode step against the uninterrupted one;
- 12. Baichuan-13B at full depth (40 layers, Q4_K_M-style random planes made
+ 12. Baichuan-13B at full width and 20 of its 40 layers (Q4_K_M-style random planes made
      on the card, Q8_0 ffn_down at K = 13696), rope NONE and ALiBi: 4096
      cells, prefill 512 and 128 greedy tokens with the bf16 cache
      (K3_alibi/K4_alibi, no other flash launch; profiled over 8 more
@@ -213,7 +213,7 @@ prints no result line):
      tokens (K6 heads, unchained MoE tails; the stream equal to the
      unchained one or parted only at a near tie), and the q8_0 cache for
      32 tokens (K3q/K4q);
- 14. Gemma-7B with chain=True at full width and depth (28 layers, Q4_K_M-
+ 14. Gemma-7B with chain=True at full width and 14 of its 28 layers (Q4_K_M-
      style random planes, a tied Q6_K table of 256000 rows), 4096 cells:
      prefill 512 and 128 greedy tokens, a GeGLU tail on K6_gelu in every
      layer of every token, K3w/K4w (profiled over 8 more tokens); the
@@ -237,16 +237,30 @@ prints no result line):
      BitNet b1.58 2B4T at 30 layers on TQ2_0 planes (nibbles at group size
      256, zero point 1, on K1_gs256): prefill 512 and 128 greedy tokens
      each, profiled over 8 more; IQ1_M and BitNet with chain=True,
-     gdot=True (K6_gs8 tails; K6_gs256 heads and K5_gs256), 16 tokens,
+     gdot=True (K6_gs8 tails on IQ1_M; K5_gs256 on BitNet), 16 tokens,
      each stream equal to the unfused one or parted only at a near tie,
      and 4 decode steps' logits within full_depth_tol of the unfused
-     ones; uniform TQ2_0 and IQ1_M planes through
+     ones (BitNet's squared relu keeps it unchained, as the reference's
+     gate does; K6_gs256 runs on LLAMA3_8B's TQ2_0-recipe planes at
+     IQ_TQ2_LLAMA_LAYERS layers with chain=True, gdot=True); uniform TQ2_0
+     and IQ1_M planes through
      Context(scan_layers=True) (K7_gs256, K7_gs8) against the per-layer
      Context (prefill logits within full_depth_tol). Phase 2 holds those
      kernels against their plain versions at BitNet's and LLAMA3_8B's
      shapes (at decode within 1.5e-5 of max|y|, the K6 forms within one
      bf16 step) and K2 on every other IQ type; phase 3 runs IQ1_M and
      bitnet TQ2_0 GGUF twins.
+ 17. (after phase 14) GLM-4-9B-0414 at full width and depth (40 layers,
+     phase_glm4_9b): Q4_K_M-style random planes made on the card (a Q8_0
+     down at K = 13696, gate+up packed in one matrix, QKV biases,
+     post-norms), 4096 cells: prefill 512 and 128 greedy tokens with the
+     bf16 cache (K1/K2, K3/K4 at G = 16 with rope on 64 of 128 dims;
+     profiled over 8 more tokens), the same with gdot (K5; the stream equal
+     or parted only at a near tie) and 512 + 32 with the q8_0 cache
+     (K3q/K4q); prefill tok/s, ms a token, launches a token, idle share,
+     the planes' bytes and the bytes bound, peak memory, each beside the
+     card's name and power limit. Phase 2 holds K1/K2 at its matmuls and
+     K3/K4 at its heads; phase 3 runs a two-layer GLM-4-9B GGUF twin.
 The last lines are a JSON "kernels" line, the card line, and
 {"ok": true, "device": {...}}. It imports nothing of JAX or llm_tpu.
 """
@@ -751,7 +765,7 @@ def without_alibi(inp) -> dict:
 
 
 def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False, Dv=None, prompt=None,
-               softcap=0.0, alibi=False):
+               softcap=0.0, alibi=False, n_rot=None):
     """K3/K4 (K3q/K4q on q8_0 pairs; the wide kernels where Dk != Dv, past
     128 or at int8 rows of 8 mod 16 bytes) against attn_plain, timed beside
     their bound and SDPA. D is Dk; Dv None: D. prompt: each of the T rows is
@@ -771,7 +785,8 @@ def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False, Dv=None, promp
     [1, H, T, S] (which computes the same function: the library column).
     The bound counts what the function needs: the bytes of the tensors
     given (an ALiBi call has no q_rot, cos or sin) and, under ALiBi, one
-    score dot of Dk, not the two of a rope fold."""
+    score dot of Dk, not the two of a rope fold. n_rot: rope on the first
+    n_rot dims only (GLM-4's 64 of 128), the tables 1 / 0 past them."""
     from llm_tpu_torch.ops import cuda_attn
     from llm_tpu_torch.ops.rope import ROPE_TYPE_NORM, apply_rope
     from llm_tpu_torch.tools.kbench_attn import attn_inputs
@@ -784,7 +799,7 @@ def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False, Dv=None, promp
         x = alibi_inputs(x, T, S, H) if alibi else x
         return quant(x if seq_bias is None else {**x, "bias": seq_bias})
 
-    inp, (c, s) = attn_inputs(T, H, Hkv, S, D, seed=S + T, Dv=Dv)
+    inp, (c, s) = attn_inputs(T, H, Hkv, S, D, seed=S + T, Dv=Dv, n_rot=n_rot)
     inp = prep(inp)
     scale = D ** -0.5 * (CAP_SCORE_SCALE if softcap > 0 else 1.0)
     # the dispatchers launch K3/K4, or K3q/K4q on q8_0 pairs, for CUDA tensors
@@ -796,7 +811,7 @@ def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False, Dv=None, promp
     tol = 1e-3
     nbytes = sum(tensor_bytes(t) for t in inp.values() if t is not None) + T * H * Dv * 4
     ncp = copies_for(nbytes)
-    inps = [inp] + [prep(attn_inputs(T, H, Hkv, S, D, seed=S + T + i, Dv=Dv)[0])
+    inps = [inp] + [prep(attn_inputs(T, H, Hkv, S, D, seed=S + T + i, Dv=Dv, n_rot=n_rot)[0])
                     for i in range(1, ncp)]
     ms = time_ms(lambda i: fn(**inps[i], scale=scale, softcap=softcap), ncp)
     plain_ms = time_ms(lambda i: cuda_attn.attn_plain(**inps[i], scale=scale, softcap=softcap),
@@ -805,7 +820,7 @@ def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False, Dv=None, promp
     # bf16 keys and values with the same additive mask
     kb, vb = (cuda_attn.dequant_bf16(inp[n]).to(torch.bfloat16) for n in ("k", "v"))
     k_roped = kb if alibi else \
-        apply_rope(kb.transpose(0, 1), c, s, ROPE_TYPE_NORM, D).transpose(0, 1)
+        apply_rope(kb.transpose(0, 1), c, s, ROPE_TYPE_NORM, n_rot or D).transpose(0, 1)
     G = H // Hkv
     qs = inp["q"].transpose(0, 1)[None]
     ks = k_roped.repeat_interleave(G, dim=0)[None].contiguous()
@@ -826,6 +841,8 @@ def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False, Dv=None, promp
     dims = f"D={D}" if Dv == D else f"Dk={D} Dv={Dv}"
     if prompt is not None:
         dims += f" {T} sequences"
+    if n_rot is not None:
+        dims += f" rope {n_rot}/{D}"
     extra = {}
     if alibi:
         # the term is live: a kernel without it fails
@@ -1033,8 +1050,8 @@ def phase_kernels():
     # nibble planes at group size 256 at BitNet b1.58 2B4T's matmuls, K2 on
     # IQ1_M's int8 planes at group size 8 at LLAMA3_8B's, at decode (B = 1
     # and 8) and at a 512-token prefill step (the GEMM); K7 on both, K6 on
-    # BitNet's head and IQ1_M's tail; then K2 on the int8 planes of the
-    # other IQ types
+    # LLAMA3_8B's TQ2_0 head and tail and IQ1_M's tail; then K2 on the int8
+    # planes of the other IQ types
     f32 = torch.float32  # the scales as loading a GGUF makes them, and as phase 16 runs
     for B in (1, 8, 512):
         tol = NEW_FORM_REL_TOL if B <= 16 else 1e-3
@@ -1056,7 +1073,31 @@ def phase_kernels():
             check_chain(results, name, dims, pres, B, scales_dtype=f32, one_step=True)
     for qtype in ("IQ1_S", "IQ2_XXS", "IQ2_XS", "IQ2_S", "IQ3_XXS", "IQ3_S"):
         check_qmm(results, "4096x4096", GGMLType[qtype], 4096, 4096, 1, f32)
+    # GLM-4-9B (phase 17's planes) at decode (B = 1) and a 512-token prefill
+    # step: N = 4608, 256 (two column tiles) and 27392 and K = 13696 (Q8_0
+    # down) on the decode GEMV and the GEMM, the Q6_K lm_head (151552
+    # rows); K3 / K3q at T = 1 and 8 and K4 / K4q at T = 512 over 4096
+    # cells at its heads (32 over 2 of 128, G = 16: 16 and 128 query rows
+    # a KV head) with rope on the first 64 of the 128 dims
+    for B in (1, 512):
+        for name, K, N in GLM4_MATMULS_Q4K:
+            check_qmm(results, name, Q4K, K, N, B)
+        for name, K, N in GLM4_MATMULS_Q6K:
+            check_qmm(results, name, Q6K, K, N, B)
+        check_qmm(results, "glm4 down", Q80, 13696, 4096, B)
+    for T, name in ((1, "decode half-masked"), (8, "decode T=8"), (512, "prefill")):
+        for q8 in (False, True):
+            check_attn(results, name, T, 4096, H=32, Hkv=2, D=128, q8=q8, n_rot=64)
     return results
+
+
+# GLM-4-9B's matmuls (name, K, N; phase 17's Q4_K_M-style planes): the
+# fused QKV (N = 4608), attn_q and o_proj (4096), attn_k (N = 256; the
+# use_more_bits layers run q, k and v unfused, attn_v in Q6_K), gate+up
+# packed in ffn_up (N = 27392); attn_v and the lm_head (151552 rows) Q6_K
+GLM4_MATMULS_Q4K = (("glm4 qkv", 4096, 4608), ("glm4 attn_q/o_proj", 4096, 4096),
+                    ("glm4 attn_k", 4096, 256), ("glm4 gate_up", 4096, 27392))
+GLM4_MATMULS_Q6K = (("glm4 attn_v", 4096, 256), ("glm4 lm_head", 4096, 151552))
 
 
 # BitNet b1.58 2B4T's matmuls (name, K, N) on TQ2_0: fused QKV, o_proj,
@@ -1066,10 +1107,13 @@ BITNET_SHAPES = (("qkv", 2560, 3840), ("o_proj", 2560, 2560), ("gate_up", 2560, 
 # LLAMA3_8B's IQ1_M matmuls: gate+up, attn_q (and o_proj), down (QKV stays
 # unfused: attn_v is Q4_K)
 IQ1M_SHAPES = (("gate_up", 4096, 28672), ("attn_q", 4096, 4096), ("down", 14336, 4096))
-# BitNet's head (norm -> QKV: K6_gs256; its tails keep their sub-norms and
-# stay unchained) and LLAMA3_8B's IQ1_M tail (K6_gs8)
+# the chains phase 16 runs on K6_gs256, LLAMA3_8B's on TQ2_0-recipe planes
+# (the norm -> QKV head and the layer tail; BitNet's squared relu keeps it
+# unchained), and on K6_gs8, LLAMA3_8B's IQ1_M tail
 IQ_CHAINS = (
-    ("bitnet head qkv TQ2_0", ((2560, 3840, "TQ2_0"),), ("norm",)),
+    ("llama head qkv TQ2_0", ((4096, 6144, "TQ2_0"),), ("norm",)),
+    ("llama tail TQ2_0", ((4096, 4096, "TQ2_0"), (4096, 28672, "TQ2_0"),
+                          (14336, 4096, "TQ2_0")), ("cast", "res_norm", "swiglu")),
     ("tail IQ1_M", ((4096, 4096, "IQ1_M"), (4096, 28672, "IQ1_M"), (14336, 4096, "IQ1_M")),
      ("cast", "res_norm", "swiglu")),
 )
@@ -1117,6 +1161,39 @@ CAP_SCORE_SCALE = 16.0
 # the layer matmuls of a uniform LLAMA3_8B (name, K, N)
 STACKED_SHAPES = (("qkv", 4096, 6144), ("o_proj", 4096, 4096), ("gate_up", 4096, 28672),
                   ("down", 14336, 4096))
+
+
+def decode_rows() -> list:
+    """Phase 2's rows of the decode GEMV and K6 at LLAMA3_8B's shapes, B = 1:
+    K1 and K2 (Q4_K, Q6_K and the Q6_K lm_head), K5, K7 and K6 (the Q4_K_M
+    tails), the group-size-16 forms on Q3_K (K1_gs16, K7_gs16, K5_gs16,
+    K6_gs16) and K6_gs256 / K6_gs8 (IQ_CHAINS), each checked and
+    graph-timed as phase 2 does. `chip_smoke.py --decode-rows` runs only
+    these: run it from two trees in turns in one call to time a change of
+    those kernels' code against its parent's on one card."""
+    from llm_tpu_torch.gguf.constants import GGMLType
+
+    Q4K, Q6K, Q3K = GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q3_K
+    results = []
+    for name, K, N in (("qkv", 4096, 6144), ("attn_q/o_proj", 4096, 4096),
+                       ("attn_k", 4096, 1024), ("gate_up", 4096, 28672), ("down", 14336, 4096)):
+        check_qmm(results, name, Q4K, K, N, 1)
+    for name, K, N in (("attn_v", 4096, 1024), ("down", 14336, 4096), ("lm_head", 4096, 128256)):
+        check_qmm(results, name, Q6K, K, N, 1)
+    for name, K, N in (("qkv", 4096, 6144), ("out", 4096, 4096), ("gu", 4096, 28672),
+                       ("down", 14336, 4096)):
+        check_gdot(results, name, K, N, 1)
+    for name, K, N in STACKED_SHAPES:
+        check_stacked(results, name, "Q4_K", K, N, 1)
+    for name, K, N in LOWBIT_SHAPES:
+        check_qmm(results, name, Q3K, K, N, 1)
+        check_stacked(results, name, "Q3_K", K, N, 1)
+        check_gdot(results, name, K, N, 1, "Q3_K")
+    for name, dims, pres in CHAINS + LOWBIT_CHAINS:
+        check_chain(results, name, dims, pres, 1)
+    for name, dims, pres in IQ_CHAINS:
+        check_chain(results, name, dims, pres, 1, scales_dtype=torch.float32, one_step=True)
+    return results
 
 
 def phase_probes():
@@ -1444,14 +1521,14 @@ def two_layer_steps(seed: int, kv_dtype=None, devices=("cuda", "cpu"), chain=Fal
     return cfg, steps, toks
 
 
-# the BPE vocab of phase 3's GGUF rows, made once for both files
+# the BPE vocabs of phase 3's GGUF rows, made once a size
 _GGUF_VOCAB: dict = {}
 
 
 def gguf_two_layers(ftype: str, seed: int, geo: dict):
     """Phase 3's GGUF rows: a tools/synth_gguf.py file of geo's widths, 2
-    layers and the ftype's type mix (random blocks from seed, a
-    128256-token BPE vocab) written into a temporary directory and loaded
+    layers and the ftype's type mix (random blocks from seed, a BPE vocab
+    of geo's size) and geo's arch written into a temporary directory and loaded
     on the card by models/loader.py, so that the unpackers run on real
     block bytes. Returns (params, cfg)."""
     from llm_tpu_torch.gguf.reader import GGUFReader
@@ -1459,13 +1536,14 @@ def gguf_two_layers(ftype: str, seed: int, geo: dict):
     from llm_tpu_torch.tools import synth_gguf
 
     t0 = time.perf_counter()
-    if "vocab" not in _GGUF_VOCAB:
-        _GGUF_VOCAB["vocab"] = synth_gguf.bpe_vocab(geo["vocab"], 0)
+    if geo["vocab"] not in _GGUF_VOCAB:
+        _GGUF_VOCAB[geo["vocab"]] = synth_gguf.bpe_vocab(geo["vocab"], 0)
     with tempfile.TemporaryDirectory() as d:
         info = synth_gguf.write_llama(
             f"{d}/two_{ftype}.gguf", n_layers=geo["n_layers"], n_embd=geo["n_embd"],
             n_heads=geo["n_heads"], n_kv_heads=geo["n_kv_heads"], n_ff=geo["n_ff"],
-            vocab=_GGUF_VOCAB["vocab"], seed=seed, ftype=ftype, arch=geo.get("arch", "llama"))
+            vocab=_GGUF_VOCAB[geo["vocab"]], seed=seed, ftype=ftype,
+            arch=geo.get("arch", "llama"))
         t1 = time.perf_counter()
         params, cfg = load_params(GGUFReader(info["path"]), device="cuda")
         torch.cuda.synchronize()
@@ -1636,7 +1714,7 @@ WIDTHS_SEED = 5
 
 # the kernel each GGUF row's base type runs on the card
 GGUF_ROW_KERNEL = {"Q3_K_M": "K1_gs16", "Q2_K": "K1_gs16", "IQ1_M": "K2_gs8",
-                   "TQ2_0": "K1_gs256"}
+                   "TQ2_0": "K1_gs256", "Q4_K_M": "K1"}
 
 
 def phase_two_layers_widths():
@@ -1646,7 +1724,10 @@ def phase_two_layers_widths():
     Llama-3.2-3B's (G = 3; the 64-token prompt is a K4 prefill); then at
     Gemma-2-2B's attention widths with a bf16 and a q8_0 cache (the wide
     K3w/K4w, K3qw/K4qw), DeepSeek-V2-Lite's (K3w/K4w at Dk 192, Dv 128) and
-    head_dim 100 (the unfused attention, counted). Every
+    head_dim 100 (the unfused attention, counted); then the GGUF rows
+    (synth_gguf files of two layers loaded by models/loader.py), GLM-4-9B's
+    among them (G = 16, rope on 64 of 128 dims, QKV biases, post-norms,
+    gate+up packed in ffn_up, a Q8_0 down). Every
     step's logits within the two-layer tolerance of max|logit|. At every
     step the card's greedy token is one whose CPU logit lies within that
     tolerance of the CPU's top logit on the same inputs (both devices are
@@ -1657,8 +1738,8 @@ def phase_two_layers_widths():
     part. Returns each run's record."""
     import numpy as np
 
-    from llm_tpu_torch.models.synthetic import (BITNET_B158_2B, GEMMA_7B, LLAMA3_8B, QWEN2_5_7B,
-                                                QWEN3_30B_A3B)
+    from llm_tpu_torch.models.synthetic import (BITNET_B158_2B, GEMMA_7B, GLM4_9B, LLAMA3_8B,
+                                                QWEN2_5_7B, QWEN3_30B_A3B)
     from llm_tpu_torch.ops import attention, cuda_attn, cuda_qmm, cuda_qmm_chain
 
     recs = []
@@ -1696,6 +1777,8 @@ def phase_two_layers_widths():
             ("IQ1_M GGUF", dict(LLAMA3_8B, ftype="IQ1_M"), None, TWO_LAYER_REL_TOL,
              ("K3", "K4")),
             ("TQ2_0 GGUF", dict(BITNET_B158_2B, ftype="TQ2_0", arch="bitnet"), None,
+             TWO_LAYER_REL_TOL, ("K3", "K4")),
+            ("GLM-4-9B GGUF", dict(GLM4_9B, ftype="Q4_K_M", arch="glm4"), None,
              TWO_LAYER_REL_TOL, ("K3", "K4"))):
         t0 = time.perf_counter()
         cuda_attn.reset_launches()
@@ -1860,19 +1943,21 @@ def decode_bytes_per_token(ctx):
     return w + kv_bytes(ctx) + tables
 
 
-def decode_counts(params, chain=False, gdot=False, act="silu"):
+def decode_counts(params, cfg, chain=False, gdot=False):
     """Launches of K1/K2/K5/K6/K7 (and their forms) per decoded token (one
-    row), from the params' keys and plane types: with chain, one K6 for
-    each layer's tail that tail_eligible admits (o_proj, fused gate+up,
-    down; K6_gelu where act is gelu; not bitnet's, whose sub-norms keep it
-    unchained), each fused QKV head without biases and the lm_head, where
-    chain_fits admits them; every other K-major
+    row), from the params' keys and plane types: with chain, where the
+    model-wide chain_gate admits cfg (no residual scale, no squared relu:
+    granite, minicpm, arcee and bitnet chain nothing), one K6 for each
+    layer's tail that tail_eligible admits (o_proj, fused gate+up, down;
+    K6_gelu where cfg.act is gelu; not one with sub-norms or post-norms),
+    each fused QKV head without biases and the lm_head, where chain_fits
+    admits them; every other K-major
     matmul on K5 (p4, with gdot) or K1 (p4) or K2 (int8). A mixture-of-
     experts layer's tail is unchained: its o_proj and shared expert on
     K1/K2, its router (dense) and experts (rows-layout planes) plain
     PyTorch. A stacked model runs every layer matmul on K7, chain or not
     (K6's gates refuse stacked planes)."""
-    from llm_tpu_torch.models.transformer import n_stacked
+    from llm_tpu_torch.models.transformer import chain_gate, n_stacked
     from llm_tpu_torch.ops.cuda_qmm_chain import head_eligible
     from llm_tpu_torch.quant.qtensor import QTensor
 
@@ -1884,6 +1969,8 @@ def decode_counts(params, chain=False, gdot=False, act="silu"):
     from llm_tpu_torch.ops.cuda_qmm_chain import chain_fits, tail_eligible
 
     n = {k: 0 for k in (*QMM_LAUNCHES, *CHAIN_LAUNCHES)}
+    chain = chain_gate(cfg, chain, 1)
+    act = cfg.act
 
     def one(w):
         n[kernel_name("K5" if gdot and w.layout == "p4" else "K1", w)] += 1
@@ -1986,8 +2073,8 @@ def run_llama3_8b(ctx, attn_kernels, keep=None, n_decode=LLAMA3_8B_DECODE,
     dec, pre = attn_kernels
     per_token = {k: (counts[k] - after_prefill[k]) / n for k in counts}
     want = {k: 0.0 for k in cuda_attn.LAUNCHES}
-    want.update({k: float(v) for k, v in decode_counts(ctx.params, ctx.chain, ctx.gdot,
-                                                        ctx.cfg.act).items()})
+    want.update({k: float(v) for k, v in decode_counts(ctx.params, ctx.cfg, ctx.chain,
+                                                        ctx.gdot).items()})
     want[dec] = float(cfg.n_layers)
     prefill_counts = {k: after_prefill[k] for k in cuda_attn.LAUNCHES}
     want_prefill = {k: 0 for k in cuda_attn.LAUNCHES}
@@ -2048,9 +2135,9 @@ def check_gemv_profile(prof, memsets: int = 0) -> None:
     """The decode matmuls in a decode profile: no memset (the decode GEMV,
     K5 and K6 split K over clusters and sum in rank order) and no kernel of
     the old GEMV loop. memsets: those a token that come from elsewhere
-    (torch.argmax over Gemma-2's 256000 logits zeroes its multi-block
-    reduction's semaphores with one memset; over 128256 it runs in one
-    pass). A dropped profiler record (check_attn_profile) can only lower
+    (torch.argmax over Gemma-2's 256000 logits, or GLM-4's 151552, zeroes
+    its multi-block reduction's semaphores with one memset; over 128256 it
+    runs in one pass). A dropped profiler record (check_attn_profile) can only lower
     the count, so the memsets may fall short of that, never exceed it."""
     if prof["memsets_per_token"] > memsets or prof["qmm_gemv_launches_per_token"] != 0:
         raise AssertionError(f"decode runs {prof['memsets_per_token']} memsets and "
@@ -2464,18 +2551,25 @@ IQ_OPTION_DECODE = 16
 # apart, which phase 16 drives (and phase 2 holds against their plain
 # versions)
 IQ_KERNELS = ("K1_gs256", "K5_gs256", "K6_gs256", "K7_gs256", "K2_gs8", "K6_gs8", "K7_gs8")
+# phase 16's LLAMA3_8B on TQ2_0-recipe planes, cut to this many of its 32
+# layers: its chained run drives K6_gs256 (BitNet's squared relu keeps the
+# whole model unchained, as the reference's gate does)
+IQ_TQ2_LLAMA_LAYERS = 8
 
 
-def iq_planes(recipe: str | None, qtype: str, seed: int, arch: str = "llama"):
+def iq_planes(recipe: str | None, qtype: str, seed: int, arch: str = "llama",
+              layers: int | None = None):
     """Phase 16's planes made on the card: LLAMA3_8B (arch llama) or BitNet
-    b1.58 2B4T (arch bitnet) at full depth, a recipe's type mix
+    b1.58 2B4T (arch bitnet) at full depth (or `layers`), a recipe's type mix
     (models/synthetic.py's tensor_type_for) or qtype everywhere (recipe
     None), f32 scales as a loaded GGUF has them. Returns (params, cfg,
     planes_summary's record)."""
     from llm_tpu_torch.gguf.constants import GGMLType
     from llm_tpu_torch.models.synthetic import BITNET_B158_2B, LLAMA3_8B, make_synthetic_model
 
-    geo = BITNET_B158_2B if arch == "bitnet" else LLAMA3_8B
+    geo = dict(BITNET_B158_2B if arch == "bitnet" else LLAMA3_8B)
+    if layers is not None:
+        geo["n_layers"] = layers
     t0 = time.perf_counter()
     params, cfg = make_synthetic_model(qtype=GGMLType[qtype], device="cuda", on_device=True,
                                        seed=seed, recipe=recipe, arch=arch,
@@ -2575,9 +2669,12 @@ def phase_iq() -> dict:
         gdot=True (K6_gs8 for every tail, the IQ3_XXS downs beside it);
       * BitNet b1.58 2B4T (30 layers) on TQ2_0 planes (seed 23: nibble
         planes at group size 256, zero point 1, on K1_gs256; a Q6_K
-        lm_head), and with chain=True, gdot=True (K6_gs256 for the norm ->
-        QKV head, K5_gs256 for the unchained tails: the sub-norms keep
-        them out of the chain);
+        lm_head), and with chain=True, gdot=True (its squared relu keeps
+        every step unchained, as the reference's gate does: no K6 launch,
+        K5_gs256 for every TQ2_0 matmul);
+      * LLAMA3_8B at IQ_TQ2_LLAMA_LAYERS layers on TQ2_0-recipe planes
+        (seed 26), and with chain=True, gdot=True (K6_gs256 for every
+        norm -> QKV head and tail, K6 for the Q6_K lm_head);
     each as iq_full_run; then uniform TQ2_0 (BitNet, seed 24) and uniform
     IQ1_M (LLAMA3_8B, seed 25) planes through the scan decoder (K7_gs256,
     K7_gs8) against the per-layer Context (iq_scan_run). Returns the
@@ -2626,8 +2723,18 @@ def phase_iq() -> dict:
                             {"chain": dict(chain=True, gdot=True)})
     out.update(rec)
     counts["K1_gs256"] = runs["BitNet-b1.58-2B TQ2_0"]["K1_gs256"]
-    counts["K6_gs256"] = runs["chain"]["K6_gs256"]
     counts["K5_gs256"] = runs["chain"]["K5_gs256"]
+    if any(runs["chain"][k] for k in ("K6", "K6_gelu", "K6_gs16", "K6_gs256", "K6_gs8")):
+        raise AssertionError(f"BitNet under chain=True launched K6: {runs['chain']}")
+    del params
+    torch.cuda.empty_cache()
+
+    params, cfg, planes = iq_planes("TQ2_0", "TQ2_0", 26, layers=IQ_TQ2_LLAMA_LAYERS)
+    runs, rec = iq_full_run(f"LLAMA3_8B TQ2_0 {IQ_TQ2_LLAMA_LAYERS} layers", params, cfg,
+                            planes["llama_TQ2_0_planes_bytes"],
+                            {"chain": dict(chain=True, gdot=True)})
+    out.update(rec)
+    counts["K6_gs256"] = runs["chain"]["K6_gs256"]
     del params
     torch.cuda.empty_cache()
 
@@ -3359,9 +3466,12 @@ def phase_gemma2_9b() -> dict:
     return out
 
 
-# phase 12: Baichuan-13B at full depth (40 layers) on 4096 cells: a
-# 512-token prefill and 128 greedy tokens with the bf16 cache, 512 + 32
+# phase 12: Baichuan-13B at full width and BAICHUAN_PHASE12_LAYERS of its
+# 40 layers (cut to 20 to pay for phase 17 within the time limit; the 13B
+# profile, keyed on 40 layers, is given to the cut config) on 4096 cells:
+# a 512-token prefill and 128 greedy tokens with the bf16 cache, 512 + 32
 # with the q8_0 one
+BAICHUAN_PHASE12_LAYERS = 20
 BAICHUAN_CELLS = 4096
 BAICHUAN_PROMPT, BAICHUAN_DECODE = 512, 128
 BAICHUAN_Q8_PROMPT, BAICHUAN_Q8_DECODE = 512, 32
@@ -3369,13 +3479,15 @@ BAICHUAN_Q8_PROMPT, BAICHUAN_Q8_DECODE = 512, 32
 
 def baichuan_13b_planes():
     from llm_tpu_torch.gguf.constants import GGMLType
+    from llm_tpu_torch.models.config import alibi_profile
     from llm_tpu_torch.models.synthetic import make_synthetic_model
     from llm_tpu_torch.quant.qtensor import QTensor
 
     t0 = time.perf_counter()
     params, cfg = make_synthetic_model(qtype=GGMLType.Q4_K, device="cuda", on_device=True,
                                        seed=13, recipe="Q4_K_M", arch="baichuan",
-                                       **BAICHUAN_13B)
+                                       **dict(BAICHUAN_13B, n_layers=BAICHUAN_PHASE12_LAYERS))
+    cfg = alibi_profile(cfg)  # the 13B profile at cut depth
     torch.cuda.synchronize()
     leaves = [v for layer in params["layers"] for v in layer.values()]
     leaves += [params["tok_embd"], params["output"]]
@@ -3393,14 +3505,15 @@ def baichuan_13b_planes():
 
 
 def phase_baichuan_13b() -> dict:
-    """Phase 12: Baichuan-13B at full width and depth (40 layers, Q4_K_M-
+    """Phase 12: Baichuan-13B at full width and BAICHUAN_PHASE12_LAYERS of
+    its 40 layers (Q4_K_M-
     style random planes made on the card from seed 13: Q8_0 ffn_down at K =
     13696, Q6_K attn_v in the use_more_bits layers and the lm_head), its 13B
     profile: rope NONE and ALiBi of max_bias 8.
     (a) the bf16 cache (4096 cells): prefill 512 tokens, then 128 greedy
         tokens; launches by kernel (K3_alibi / K4_alibi a layer a step, no
         other flash launch); profiled over 8 more tokens; the cache's
-        bytes (2 x 40 layers x 40 heads x 4096 cells x 128 x 2 B);
+        bytes (2 x layers x 40 heads x 4096 cells x 128 x 2 B);
     (b) the same planes with alibi_max_bias = 0: the prompt's last logits
         apart from (a)'s by more than the two-layer tolerance (ALiBi is
         live at full depth);
@@ -3713,9 +3826,10 @@ def phase_qwen3_30b_a3b() -> dict:
 
 
 # phase 14: Gemma-7B at full width with chain=True (GEMMA7B_LAYERS of its
-# 28 layers) on 4096 cells: a 512-token prefill and 128 greedy tokens,
-# against the unchained Context on the same planes
-GEMMA7B_LAYERS = 28
+# 28 layers; cut to 14 to pay for phase 17 within the time limit) on 4096
+# cells: a 512-token prefill and 128 greedy tokens, against the unchained
+# Context on the same planes
+GEMMA7B_LAYERS = 14
 GEMMA7B_CELLS = 4096
 GEMMA7B_PROMPT, GEMMA7B_DECODE = 512, 128
 
@@ -3775,6 +3889,108 @@ def phase_gemma_7b() -> dict:
     del chained, ctx, params
     torch.cuda.empty_cache()
     out["K6_gelu"] = counts_c["K6_gelu"]
+    return out
+
+
+# phase 17: GLM-4-9B-0414 at full width and depth (40 layers) on 4096
+# cells: a 512-token prefill and 128 greedy tokens with the bf16 cache,
+# unfused and with gdot, then 512 + 32 with the q8_0 cache
+GLM4_CELLS = 4096
+GLM4_PROMPT, GLM4_DECODE = 512, 128
+GLM4_Q8_DECODE = 32
+
+
+def glm4_9b_planes():
+    """GLM-4-9B's Q4_K_M-style random planes made on the card from seed 17:
+    Q4_K everywhere but a Q6_K attn_v (the use_more_bits layers, whose QKV
+    then stays unfused) and lm_head, ffn_down Q8_0 (K = 13696, no multiple
+    of 256), gate+up packed in one [27392, 4096] matrix, f32 QKV biases and
+    post-norms. Returns (params, cfg, planes_summary's record)."""
+    from llm_tpu_torch.gguf.constants import GGMLType
+    from llm_tpu_torch.models.synthetic import GLM4_9B, make_synthetic_model, use_more_bits
+    from llm_tpu_torch.ops.rope import ROPE_TYPE_NORM
+
+    t0 = time.perf_counter()
+    params, cfg = make_synthetic_model(qtype=GGMLType.Q4_K, device="cuda", on_device=True,
+                                       seed=17, recipe="Q4_K_M", arch="glm4", **GLM4_9B)
+    torch.cuda.synchronize()
+    log(json.dumps(dict(glm4_9b_planes_s=time.perf_counter() - t0)))
+    planes = planes_summary(params, cfg, "glm4_9b")
+    if (cfg.arch, cfg.rope.mode, cfg.rope.n_dims, cfg.head_dim, cfg.n_heads // cfg.n_kv_heads) \
+            != ("glm4", ROPE_TYPE_NORM, 64, 128, 16):
+        raise AssertionError(f"not GLM-4-9B's profile: {cfg}")
+    for il, layer in enumerate(params["layers"]):
+        more = use_more_bits(il, cfg.n_layers)
+        if layer["ffn_down"].ggml_type != GGMLType.Q8_0 \
+                or layer["ffn_gateup_fused"].out_features != 2 * cfg.n_ff \
+                or ("attn_qkv_fused" in layer) == more \
+                or (more and layer["attn_v"].ggml_type != GGMLType.Q6_K) \
+                or not {"attn_q_b", "attn_k_b", "attn_v_b", "attn_post_norm",
+                        "ffn_post_norm"} <= set(layer):
+            raise AssertionError(f"layer {il} is not the Q4_K_M recipe's GLM-4 layer")
+    return params, cfg, planes
+
+
+def phase_glm4_9b() -> dict:
+    """Phase 17: GLM-4-9B-0414 (32 heads over 2 of 128, G = 16, rope NORM on
+    64 of the 128 dims, QKV biases, post-norms, gate+up packed in ffn_up, a
+    Q8_0 down at K = 13696, a Q6_K lm_head of 151552 rows) at full width
+    and depth on glm4_9b_planes:
+    (a) the bf16 cache (4096 cells): prefill 512, then 128 greedy tokens,
+        launches by kernel (K1 and K2 on every matmul, K3 / K4 a layer a
+        step), profiled over 8 more tokens;
+    (b) the same with gdot (K5 on every p4 matmul at decode), its stream
+        equal to (a)'s or parted only at a near tie (SCAN_REL_TOL);
+    (c) the q8_0 cache: prefill 512, GLM4_Q8_DECODE greedy tokens (K3q,
+        K4q).
+    Returns the records."""
+    from llm_tpu_torch.runtime.engine import Context
+    from llm_tpu_torch.tools.profile_decode import profile_tokens
+
+    params, cfg, planes = glm4_9b_planes()
+    out = {}
+    ctx = Context(None, n_cells=GLM4_CELLS, device="cuda", params_cfg=(params, cfg))
+    keep = {}
+    counts, rec = run_llama3_8b(ctx, ("K3", "K4"), keep, GLM4_DECODE, GLM4_PROMPT)
+    prof = profile_tokens(ctx, rec["last_token"], 8)
+    log("profile_decode " + json.dumps(prof))
+    check_gemv_profile(prof, memsets=1)  # the greedy argmax's over 151552 logits
+    check_attn_profile(prof, cfg.n_layers)
+    out["bf16"] = dict(
+        phase=17, path="GLM-4-9B bf16 cache", ms_per_token=1e3 / rec["decode_tok_s"],
+        decode_tok_s=rec["decode_tok_s"], prefill_tok_s=rec["prefill_tok_s"],
+        decode_bound_tok_s=rec["decode_bound_tok_s"],
+        planes_bytes=planes["glm4_9b_planes_bytes"], kv_bytes=rec["kv_bytes"],
+        peak_mem_gib=rec["peak_mem_gib"],
+        device_busy_ms_per_token=prof["device_busy_ms_per_token"],
+        idle_share=prof["idle_share"], gemv_ms_per_token=prof.get("gemv_ms_per_token"),
+        device_launches_per_token=prof["device_launches_per_token"],
+        launches_per_token={k: v for k, v in rec["launches_per_token"].items() if v},
+        distinct_tokens=len(set(keep["tokens"])))
+    log(json.dumps(out["bf16"]))
+
+    gdot = Context(None, n_cells=GLM4_CELLS, device="cuda", params_cfg=(params, cfg), gdot=True)
+    keep_g = {}
+    counts_g, rec_g = run_llama3_8b(gdot, ("K3", "K4"), keep_g, GLM4_DECODE, GLM4_PROMPT)
+    out["gdot"] = dict(phase=17, path="GLM-4-9B gdot", ms_per_token=1e3 / rec_g["decode_tok_s"],
+                       prefill_tok_s=rec_g["prefill_tok_s"],
+                       launches_per_token={k: v for k, v in
+                                           rec_g["launches_per_token"].items() if v},
+                       **parted_at_near_tie(ctx, keep, keep_g, GLM4_PROMPT, SCAN_REL_TOL))
+    log(json.dumps(out["gdot"]))
+    del gdot, ctx
+    torch.cuda.empty_cache()
+
+    q8 = Context(None, n_cells=GLM4_CELLS, device="cuda", params_cfg=(params, cfg),
+                 kv_dtype="q8_0")
+    counts_q8, rec_q8 = run_llama3_8b(q8, ("K3q", "K4q"), None, GLM4_Q8_DECODE, GLM4_PROMPT)
+    out["q8_0"] = dict(phase=17, path="GLM-4-9B q8_0 cache", kv_bytes=rec_q8["kv_bytes"],
+                       ms_per_token=1e3 / rec_q8["decode_tok_s"],
+                       prefill_tok_s=rec_q8["prefill_tok_s"], peak_mem_gib=rec_q8["peak_mem_gib"])
+    log(json.dumps(out["q8_0"]))
+    del q8, params
+    torch.cuda.empty_cache()
+    out["counts"] = {"bf16": counts, "gdot": counts_g, "q8_0": counts_q8}
     return out
 
 
@@ -3863,11 +4079,12 @@ HEADLINE = {"K1": "gate_up Q4_K K=4096 N=28672 B=1",
             "K5_gs16": "gate_up Q3_K K=4096 N=28672 B=1",
             "K6_gs16": "tail Q3_K B=1",
             "K7_gs16": "gate_up Q3_K K=4096 N=28672 B=1",
-            # the group-size-256 forms at BitNet's TQ2_0 gate+up and head,
-            # the group-size-8 ones at LLAMA3_8B's IQ1_M gate+up and tail
+            # the group-size-256 forms at BitNet's TQ2_0 gate+up and
+            # LLAMA3_8B's TQ2_0 tail, the group-size-8 ones at LLAMA3_8B's
+            # IQ1_M gate+up and tail
             "K1_gs256": "gate_up TQ2_0 K=2560 N=13824 B=1",
             "K5_gs256": "gate_up TQ2_0 K=2560 N=13824 B=1",
-            "K6_gs256": "bitnet head qkv TQ2_0 B=1",
+            "K6_gs256": "llama tail TQ2_0 B=1",
             "K7_gs256": "gate_up TQ2_0 K=2560 N=13824 B=1",
             "K2_gs8": "gate_up IQ1_M K=4096 N=28672 B=1",
             "K6_gs8": "tail IQ1_M B=1",
@@ -3991,6 +4208,10 @@ def main() -> int:
         if "gguf" in kinds:
             sweep_gguf_seeds(range(1, 5))
         return 0
+    if sys.argv[1:] == ["--decode-rows"]:
+        decode_rows()
+        log("decode rows passed")
+        return 0
     if sys.argv[1:] == ["--screen-seeds"]:
         sweep_seeds(range(1, 65), devices=("cuda",))
         return 0
@@ -4055,7 +4276,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     counts_baichuan = phase_baichuan_13b()
-    log(f"Baichuan-13B at full depth passed in {time.perf_counter() - t0:.1f} s")
+    log(f"Baichuan-13B at {BAICHUAN_PHASE12_LAYERS} layers passed in "
+        f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_qwen3_30b_a3b()
     log(f"Qwen3-30B-A3B at {QWEN3_LAYERS} layers passed in {time.perf_counter() - t0:.1f} s")
@@ -4063,6 +4285,11 @@ def main() -> int:
     gemma7b = phase_gemma_7b()
     log(f"Gemma-7B with chain at {GEMMA7B_LAYERS} layers passed in "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    glm4 = phase_glm4_9b()
+    log(f"GLM-4-9B at full depth passed in {time.perf_counter() - t0:.1f} s")
+    for run in ("bf16", "gdot", "q8_0"):
+        log(json.dumps(dict(glm4[run], card=card)))
     # each kernel's launches from the path that runs it: K1-K4 from phase 4,
     # K3q/K4q from phase 5, K5 from phase 6, K6 from phase 7, K7 from phase
     # 8, the wide K3w/K4w/K3qw/K4qw from phase 3's Gemma-2-2B and

@@ -13,7 +13,9 @@ leaves as [L, ...] tensors. A mixture-of-experts layer's stacked-expert
 QTensors (rows-layout planes with a leading expert dim [E, ...]) and dense
 [E, N, K] stacks come across as they are, and so do the config's expert
 fields; so do layer vectors such as bitnet's sub-norms (attn_sub_norm,
-ffn_sub_norm) and its act "relu2". This module reads no llm_tpu code.
+ffn_sub_norm) and its act "relu2", and the knobs of the RMS-norm llama
+graphs (embedding_scale, residual_scale, logit_scale, qk_norm_full, a
+partial rope's n_dims). This module reads no llm_tpu code.
 """
 
 from __future__ import annotations
@@ -76,7 +78,6 @@ def _convert(obj):
 # shard-major fused QKV and gate+up planes, which the port would split as
 # segment-major), so config_from_reference refuses it
 UNMODELED_DEFAULTS = {
-    "qk_norm_full": False,
     "qk_norm_ln": False, "nonparam_norm": False, "rope_swa": None,
     "nope_global_layers": False, "swa_chunked": False, "attn_temp_scale": 0.0,
     "attn_temp_floor": 8192, "qk_l2_norm": False, "expert_weight_before": False,

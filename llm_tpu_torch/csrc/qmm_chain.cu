@@ -380,8 +380,7 @@ __device__ __forceinline__ void chain_phase(const ChainMaps& maps, const ChainAr
           dv_consume<P4, SBF16, MINS, 1, false, G16>(ring + slot * L::STAGE, 64 * cw, ph.gs,
                                                      zp2, ibase, acc);
         }
-        __syncwarp();
-        if (lane == 0) mbar_arrive(empty0 + 8 * slot);
+        dv_release(empty0 + 8 * slot, lane);  // qmm_decode.cuh: the fence, then the arrival
       }
       const int g = lane >> 2, t = lane & 3;
 #pragma unroll

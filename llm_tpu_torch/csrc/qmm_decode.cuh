@@ -75,6 +75,13 @@
 //    have to go back to shared memory for the A side; mma.sync takes the
 //    weights from registers at n = 8 and uses under half of the tensor
 //    cores' mma.sync rate at the bytes bound.
+//  * a consumer warp hands a stage's slot back (dv_release) only after
+//    fence.proxy.async: its lanes read the slot through the generic proxy
+//    (ld.shared) and the producer's next TMA writes it through the async
+//    proxy, an order that the mbarrier's release and acquire alone do not
+//    give. Without the fence, qmm_decode_g16 on Q3_K planes read the last
+//    k16 step's x fragments of the second chunk from the next round's TMA
+//    now and then (a y off by that step's share on 40-50 of 6000 launches).
 //  * the K split: the CTAs of one column tile form a thread block cluster
 //    (up to 16, the split chosen by ops/cuda_qmm.py::decode_plan). Each CTA
 //    leaves its partial tile in shared memory; after a cluster barrier,
@@ -179,6 +186,15 @@ __device__ __forceinline__ void ld_eight(const uint8_t* row, int col, float (&v)
     v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
     v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
   }
+}
+
+// a consumer warp gives slot `empty`'s stage back to the producer: every
+// lane's reads of the slot (generic proxy) are performed before the TMA
+// that refills it (async proxy) can write, then one arrival for the warp
+__device__ __forceinline__ void dv_release(uint32_t empty, int lane) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty);
 }
 
 // the ragged path: the producer's lanes gather a stage's plane rows ...
@@ -676,8 +692,7 @@ __device__ __forceinline__ void dv_cta(const CUtensorMap& tmx, const CUtensorMap
           mbar_wait(full0 + 8 * slot, (j / L::STAGES) & 1);
           dv_consume_gx<P4, SBF16, MINS, NB8, true, 256>(smem + slot * L::STAGE, 64 * cw, zp2,
                                                          ibase, acc, xg, h, (float)a.zp);
-          __syncwarp();
-          if (lane == 0) mbar_arrive(empty0 + 8 * slot);
+          dv_release(empty0 + 8 * slot, lane);
         }
     } else {
       for (int j = kw; j < u1 - u0; j += 2) {
@@ -691,8 +706,7 @@ __device__ __forceinline__ void dv_cta(const CUtensorMap& tmx, const CUtensorMap
           dv_consume<P4, SBF16, MINS, NB8, GDOT, G16>(smem + slot * L::STAGE, 64 * cw, a.gs, zp2,
                                                       ibase, acc, GDOT ? (float)a.zp : 0.f);
         }
-        __syncwarp();
-        if (lane == 0) mbar_arrive(empty0 + 8 * slot);
+        dv_release(empty0 + 8 * slot, lane);
       }
     }
   }

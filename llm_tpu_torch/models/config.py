@@ -8,8 +8,12 @@ attention scale), baichuan-13B's and refact's (no rope, ALiBi with
 max_bias 8), qwen2's QKV biases, qwen3's per-head qk-norm, the experts'
 count, width and routing (the top-k weights normalized for llama with
 experts, mixtral and qwen3moe, not for qwen2moe), bitnet's squared relu,
-and the variant flags that the port's forward refuses (it raises
-NotImplementedError for them, see models/transformer.py)."""
+granite's and minicpm's embedding, residual, logit and attention scales,
+olmo2's qk-norm over the whole q and k, arcee's ungated squared relu, the
+RMS-norm llama graphs that differ only in their tensors (glm4, phi3,
+ernie4_5, xverse, internlm2, exaone), and the variant flags that the
+port's forward refuses (it raises NotImplementedError for them, see
+models/transformer.py)."""
 
 from __future__ import annotations
 
@@ -25,15 +29,25 @@ from ..ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NONE, ROPE_TYPE_NORM, RopeParam
 # with ALiBi in place of rope), qwen2 (QKV biases) and qwen3 (qk-norm), and
 # their mixture-of-experts variants qwen2moe (with a sigmoid-gated shared
 # expert) and qwen3moe, mixtral, and bitnet (a gated squared relu, RMS
-# sub-norms before o_proj and ffn_down)
+# sub-norms before o_proj and ffn_down), and the RMS-norm llama graphs
+# with small knobs: granite and minicpm (embedding, residual and logit
+# scales), olmo2 (post-norms only, qk-norm over the whole q and k), arcee
+# (an ungated squared relu), glm4 (QKV biases, post-norms, gate+up packed
+# in ffn_up, half-width rope), phi3 (fused QKV, gate+up packed in ffn_up)
+# and ernie4_5, xverse, internlm2 and exaone (the llama graph)
 LLAMA_ARCHS = ("llama", "gemma", "gemma2", "baichuan", "refact", "qwen2", "qwen3",
-               "qwen2moe", "qwen3moe", "mixtral", "bitnet")
+               "qwen2moe", "qwen3moe", "mixtral", "bitnet", "glm4", "granite", "minicpm",
+               "olmo2", "phi3", "arcee", "ernie4_5", "xverse", "internlm2", "exaone")
 # rope layout per architecture (llm_tpu/models/config.py _ROPE_MODE, whose
 # default is NEOX; refact's is then replaced by NONE)
 _ROPE_MODE = {"llama": ROPE_TYPE_NORM, "gemma": ROPE_TYPE_NEOX, "gemma2": ROPE_TYPE_NEOX,
               "baichuan": ROPE_TYPE_NORM, "refact": ROPE_TYPE_NEOX, "qwen2": ROPE_TYPE_NEOX,
               "qwen3": ROPE_TYPE_NEOX, "qwen2moe": ROPE_TYPE_NEOX, "qwen3moe": ROPE_TYPE_NEOX,
-              "mixtral": ROPE_TYPE_NORM, "bitnet": ROPE_TYPE_NEOX}
+              "mixtral": ROPE_TYPE_NORM, "bitnet": ROPE_TYPE_NEOX, "glm4": ROPE_TYPE_NORM,
+              "granite": ROPE_TYPE_NORM, "minicpm": ROPE_TYPE_NORM, "olmo2": ROPE_TYPE_NEOX,
+              "phi3": ROPE_TYPE_NEOX, "arcee": ROPE_TYPE_NORM, "ernie4_5": ROPE_TYPE_NORM,
+              "xverse": ROPE_TYPE_NORM, "internlm2": ROPE_TYPE_NORM,
+              "exaone": ROPE_TYPE_NEOX}
 # baichuan's 13B profile, keyed on its layer count as the reference keys it
 BAICHUAN_13B_LAYERS = 40
 # the ALiBi max_bias baichuan-13B and refact hardcode (llama-model.cpp)
@@ -71,6 +85,12 @@ class ModelConfig:
     ep_cf: float = 0.0
     attn_bias: bool = False  # QKV biases (qwen2, qwen2moe)
     qk_norm: bool = False  # per-head RMS norm of q and k (qwen3, qwen3moe)
+    qk_norm_full: bool = False  # RMS norm over the whole q and k (olmo2)
+    # granite's and minicpm's scales: the embedding, the attention and FFN
+    # outputs before each residual, the lm_head's logits
+    embedding_scale: float = 1.0
+    residual_scale: float = 1.0
+    logit_scale: float = 1.0
     # variants of the llama graph the JAX package supports and this port
     # does not run yet; forward raises NotImplementedError when one is set
     attn_softcap: float = 0.0
@@ -80,9 +100,6 @@ class ModelConfig:
     alibi_max_bias: float = 0.0
     kv_lora_rank: int = 0
     rope_sections: tuple | None = None
-    embedding_scale: float = 1.0
-    logit_scale: float = 1.0
-    residual_scale: float = 1.0
     parallel_residual: bool = False
 
     @property
@@ -172,9 +189,33 @@ def config_from_gguf(reader) -> ModelConfig:
         # baichuan-13B and refact: no rope, ALiBi slopes of max_bias 8
         # (llm_tpu/models/config.py's baichuan and refact branches)
         cfg = alibi_profile(cfg)
-    if arch == "bitnet":
-        # BitNet b1.58: a gated squared relu; the sub-norms are tensors
+    if arch == "granite":
+        # granite's multipliers; the logits are divided by its logit scale
+        cfg = replace(
+            cfg, embedding_scale=float(ak("{arch}.embedding_scale", 1.0) or 1.0),
+            residual_scale=float(ak("{arch}.residual_scale", 1.0) or 1.0),
+            logit_scale=1.0 / float(ak("{arch}.logit_scale", 1.0) or 1.0),
+            attn_scale=float(ak(Keys.Attention.SCALE, 0.0) or 0.0) or None)
+    if arch == "minicpm":
+        # minicpm runs granite's graph: the embedding times scale_emb, the
+        # residuals times scale_depth / sqrt(n_layers) (1.4 / sqrt(n_layers)
+        # where the file has none), the logits divided by its logit scale
+        cfg = replace(
+            cfg, embedding_scale=float(ak("{arch}.embedding_scale", 12.0) or 12.0),
+            residual_scale=float(ak("{arch}.residual_scale", 0.0) or 0.0)
+            or 1.4 / (cfg.n_layers ** 0.5),
+            logit_scale=1.0 / (float(ak("{arch}.logit_scale", 0.0) or 0.0) or 1.0))
+    if arch == "olmo2":
+        # the post-norm block: no input norms (by its tensors), q and k
+        # normed whole
+        cfg = replace(cfg, qk_norm_full=True)
+    if arch in ("bitnet", "arcee"):
+        # BitNet b1.58: a gated squared relu (the sub-norms are tensors);
+        # arcee: the same without a gate (no ffn_gate tensor)
         cfg = replace(cfg, act="relu2")
+    # ernie4_5, xverse, internlm2, exaone: the llama graph; glm4 (post-norms,
+    # QKV biases, packed gate+up) and phi3 (fused QKV, packed gate+up): by
+    # their tensors
     return cfg
 
 

@@ -5,7 +5,11 @@ llama does), gemma2's post-norms (attn_post_norm, ffn_post_norm, the
 names llm_tpu's converter writes; llama.cpp's own post_attention_norm /
 post_ffw_norm are refused, ROADMAP "Faults in the reference"), qwen2's
 QKV biases (attn_{q,k,v}_b), qwen3's qk-norms (attn_q_norm, attn_k_norm),
-bitnet's sub-norms (attn_sub_norm, ffn_sub_norm), and a
+bitnet's sub-norms (attn_sub_norm, ffn_sub_norm), phi3's fused QKV
+(attn_qkv, as attn_qkv_fused), the gate+up that phi3 and glm4 pack into
+ffn_up (as ffn_gateup_fused, the reference loader's rule), glm4's and
+olmo2's post-norms (attn_post_norm, ffn_post_norm: the names llm_tpu's
+converter writes for both), and a
 mixture-of-experts layer's router (ffn_gate_inp, and exp_probs_b as
 ffn_exp_probs_b), expert stacks (ffn_{gate,up,down}_exps) and shared
 expert (ffn_{gate,up,down}_shexp, ffn_gate_inp_shexp).
@@ -37,7 +41,7 @@ from ..quant.qtensor import (PLANE_TYPES, QTensor, concat_qtensors, dequantize_q
 from .config import ModelConfig, config_from_gguf
 
 _BLK_RE = re.compile(r"^blk\.(\d+)\.(.+?)\.(weight|bias)$")
-_LAYER_MATS = ("attn_q", "attn_k", "attn_v", "attn_output", "ffn_gate", "ffn_up",
+_LAYER_MATS = ("attn_q", "attn_k", "attn_v", "attn_qkv", "attn_output", "ffn_gate", "ffn_up",
                "ffn_down", "ffn_gate_inp", "ffn_gate_shexp", "ffn_up_shexp",
                "ffn_down_shexp", "ffn_gate_inp_shexp")
 _LAYER_VECS = ("attn_norm", "ffn_norm", "attn_post_norm", "ffn_post_norm", "attn_q_norm",
@@ -48,6 +52,18 @@ _LAYER_STACKS = ("ffn_gate_exps", "ffn_up_exps", "ffn_down_exps")
 _LAYER_BIASES = {"attn_q": "attn_q_b", "attn_k": "attn_k_b", "attn_v": "attn_v_b",
                  "exp_probs_b": "ffn_exp_probs_b"}
 _DENSE = (GGMLType.F32, GGMLType.F16, GGMLType.BF16)
+# archs whose GGUF packs [gate; up] into ffn_up (llm_tpu/models/loader.py)
+GATEUP_PACKED_ARCHS = ("phi3", "glm4")
+
+
+def layer_key(base: str, arch: str) -> str:
+    """The params key of a layer matrix: fused QKV as attn_qkv_fused, and
+    ffn_up as ffn_gateup_fused where the arch packs gate+up into it."""
+    if base == "attn_qkv":
+        return "attn_qkv_fused"
+    if base == "ffn_up" and arch in GATEUP_PACKED_ARCHS:
+        return "ffn_gateup_fused"
+    return base
 
 
 def _vector(reader: GGUFReader, name: str, device) -> torch.Tensor:
@@ -178,8 +194,8 @@ def load_params(reader: GGUFReader, dense_dtype=torch.bfloat16, device="cuda",
         if m:
             il, base, kind = int(m.group(1)), m.group(2), m.group(3)
             if kind == "weight" and base in _LAYER_MATS:
-                layers[il][base] = _matrix(reader, name, dense_dtype, device,
-                                           use_planes=use_planes)
+                layers[il][layer_key(base, cfg.arch)] = _matrix(reader, name, dense_dtype,
+                                                                device, use_planes=use_planes)
             elif kind == "weight" and base in _LAYER_STACKS:
                 layers[il][base] = _expert_stack(reader, name, dense_dtype, device, use_planes)
             elif kind == "weight" and base in _LAYER_VECS:

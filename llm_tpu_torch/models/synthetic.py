@@ -37,6 +37,14 @@ GEMMA2_9B = dict(n_embd=3584, n_layers=42, n_heads=16, n_kv_heads=8,
 # the 13B profile, rope NONE and ALiBi (baichuan_config)
 BAICHUAN_13B = dict(n_embd=5120, n_layers=40, n_heads=40, n_kv_heads=40,
                     n_ff=13696, vocab=64000, head_dim=128)
+# GLM-4-9B-0414 (THUDM/GLM-4-9B-0414, the defaults of transformers'
+# Glm4Config): 32 query heads over 2 KV heads of 128 (G = 16), rope NORM on
+# the first 64 of the 128 dims, ff 13696 (no multiple of 256: a Q4_K_M
+# recipe writes its ffn_down as Q8_0), QKV biases, post-norms after
+# attention and after the FFN, gate+up packed in ffn_up, untied lm_head;
+# glm4_config adds the rest
+GLM4_9B = dict(n_embd=4096, n_layers=40, n_heads=32, n_kv_heads=2,
+               n_ff=13696, vocab=151552, head_dim=128)
 # Refact-1.6B (smallcloudai/Refact-1_6B-fim config.json): 32 query heads
 # over one KV head of 64 dims (G = 32), ff 5632, ALiBi, no rope
 REFACT_1_6B = dict(n_embd=2048, n_layers=32, n_heads=32, n_kv_heads=1,
@@ -336,6 +344,23 @@ def bitnet_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab,
         act="relu2", context_length=4096)
 
 
+def glm4_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab,
+                head_dim=None) -> ModelConfig:
+    """A glm4 config as config_from_gguf reads GLM-4-0414's: NORM rope at
+    base 10000 on the first half of each head (rope.dimension_count
+    head_dim / 2, partial_rotary_factor 0.5), rms eps 1.5625e-7 (as the
+    file's f32 holds it), a context of 131072, an untied lm_head (the
+    biases, post-norms and packed gate+up are tensors)."""
+    head_dim = head_dim or n_embd // n_heads
+    ctx = 131072
+    return ModelConfig(
+        arch="glm4", vocab_size=vocab, n_embd=n_embd, n_layers=n_layers,
+        n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim, head_dim_v=head_dim,
+        n_ff=n_ff, rms_eps=float(np.float32(1.5625e-7)),
+        rope=RopeParams(n_dims=head_dim // 2, mode=ROPE_TYPE_NORM, n_ctx_orig=ctx),
+        context_length=ctx)
+
+
 def qwen2_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab,
                  head_dim=None) -> ModelConfig:
     """A qwen2 config as config_from_gguf reads Qwen2.5's: NEOX rope at
@@ -445,13 +470,16 @@ def make_synthetic_model(n_embd: int = 64, n_layers: int = 2, n_heads: int = 8,
     (rows layout, [E, ...]; the recipe's Q6_K for ffn_down_exps in the
     use_more_bits layers) or dense [E, N, K], in place of the FFN. arch
     "bitnet": bitnet_config, with the sub-norms attn_sub_norm and
-    ffn_sub_norm in every layer. With the
+    ffn_sub_norm in every layer. arch "glm4": glm4_config, with random f32
+    biases on q, k and v as qwen2's, the post-norms as gemma2's, and gate
+    and up as one matrix ffn_gateup_fused [2 n_ff, n_embd] of ffn_up's type
+    (the GGUF packs them in ffn_up). With the
     recipe a matrix whose K its type's block does not divide takes Q8_0
     (fallback_type; Baichuan-13B's ffn_down, K = 13696)."""
     if recipe is not None and recipe not in RECIPES:
         raise ValueError(f"unknown recipe {recipe!r}")
     if arch not in ("llama", "gemma", "gemma2", "baichuan", "refact", "qwen2", "qwen3moe",
-                    "bitnet"):
+                    "bitnet", "glm4"):
         raise ValueError(f"unknown arch {arch!r}")
     device = resolve_device(device)
     tied = arch in ("gemma", "gemma2")
@@ -471,6 +499,8 @@ def make_synthetic_model(n_embd: int = 64, n_layers: int = 2, n_heads: int = 8,
         cfg = refact_config(*geo)
     elif arch == "bitnet":
         cfg = bitnet_config(*geo)
+    elif arch == "glm4":
+        cfg = glm4_config(*geo)
     else:
         cfg = llama_config(*geo, head_dim_v)
     hd, hdv = cfg.head_dim, cfg.head_dim_v
@@ -532,15 +562,18 @@ def make_synthetic_model(n_embd: int = 64, n_layers: int = 2, n_heads: int = 8,
                 ffn_up_exps=stack(n_ff_expert, n_embd, f"blk.{il}.ffn_up_exps.weight", il),
                 ffn_down_exps=stack(n_embd, n_ff_expert, f"blk.{il}.ffn_down_exps.weight",
                                     il))
+        elif arch == "glm4":  # gate+up packed in one matrix, ffn_up's type
+            layers[-1].update(ffn_gateup_fused=lmat("ffn_up", 2 * n_ff, n_embd),
+                              ffn_down=lmat("ffn_down", n_embd, n_ff))
         else:
             layers[-1].update(ffn_gate=lmat("ffn_gate", n_ff, n_embd),
                               ffn_up=lmat("ffn_up", n_ff, n_embd),
                               ffn_down=lmat("ffn_down", n_embd, n_ff))
-        if arch == "gemma2":
+        if arch in ("gemma2", "glm4"):
             layers[-1].update(attn_post_norm=vec(n_embd), ffn_post_norm=vec(n_embd))
         if arch == "bitnet":
             layers[-1].update(attn_sub_norm=vec(n_heads * hdv), ffn_sub_norm=vec(n_ff))
-        if arch == "qwen2":
+        if arch in ("qwen2", "glm4"):
             for key, n in (("attn_q_b", n_heads * hd), ("attn_k_b", n_kv_heads * hd),
                            ("attn_v_b", n_kv_heads * hdv)):
                 layers[-1][key] = dense(1, n, std=0.1, dt=torch.float32)[0]

@@ -82,6 +82,21 @@ rows group-scaled under one K scale a row (Dk 128, Dv 192) its kernels read
 V's first group scale for the whole row (ROADMAP, "Faults in the
 reference"), so the port takes the unfused attention there.
 
+The RMS-norm llama graphs with small knobs run the same loop, as the
+reference's does (transformer.py:489-652): granite and minicpm scale the
+embedding in f32 (cfg.embedding_scale), the attention and FFN outputs
+before each residual (cfg.residual_scale) and the logits
+(cfg.logit_scale); olmo2 has no input norms (a missing attn_norm or
+ffn_norm passes x through), post-norms before each residual, and an RMS
+norm over the whole flattened q and k (cfg.qk_norm_full); glm4 adds its
+QKV biases and post-norms and packs gate+up in ffn_up, as phi3 does
+beside its fused QKV (models/loader.py); arcee's FFN is a squared relu of
+up without a gate; ernie4_5, xverse, internlm2 and exaone are the llama
+graph. The chained kernel takes only the recipe it implements
+(chain_gate, the reference's use_chain): a residual scale or a squared
+relu runs the whole model unchained, post-norms and biases keep their
+tail or head unchained.
+
 It runs eagerly and updates the KV cache tensors in place (the JAX
 package donates them to a jitted step instead). Variants of the llama
 graph that the JAX package supports and the port does not run yet raise
@@ -110,12 +125,13 @@ from .config import ModelConfig
 
 _UNSUPPORTED = (
     ("kv_lora_rank", 0, "MLA"), ("rope_sections", None, "M-RoPE"),
-    ("logit_scale", 1.0, "logit scale"), ("residual_scale", 1.0, "residual scale"),
     ("parallel_residual", False, "parallel residual"), ("norm_kind", "rms", "LayerNorm"),
 )
+# the activations the chained tail implements (K6: SwiGLU, GeGLU)
+CHAIN_ACTS = ("silu", "gelu")
 # the FFN activations (the reference's ACTIVATIONS): the gated SiLU of
-# llama, the gated gelu (tanh) of gemma and gemma2, and bitnet's gated
-# squared relu
+# llama, the gated gelu (tanh) of gemma and gemma2, and the squared relu,
+# gated in bitnet and ungated in arcee (no ffn_gate)
 ACTIVATIONS = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
                "relu2": lambda x: torch.square(F.relu(x))}
 # the router's probabilities (the reference's expert_gating_func)
@@ -192,6 +208,19 @@ def check_supported(params: dict, cfg: ModelConfig) -> None:
     n_layers = n_stacked(stacked) if stacked is not None else len(params["layers"])
     if n_layers != cfg.n_layers:
         raise ValueError(f"params hold {n_layers} layers, the config {cfg.n_layers}")
+
+
+def chain_gate(cfg: ModelConfig, chain: bool, T: int) -> bool:
+    """Whether a step of T tokens may run K6 at all: chain asked for, T <= 8,
+    and the model-wide recipe K6 implements, as the reference's use_chain
+    gate (llm_tpu/models/transformer.py:404-412) has it on the port's
+    fields: RMS norms, a sequential residual without a scale, a SiLU or
+    gelu FFN (no squared relu: bitnet and arcee run unchained). The
+    reference's nonparam_norm and fused_tp > 1 are refused by
+    config_from_reference; the per-layer gates are head_eligible and
+    tail_eligible."""
+    return (chain and T <= 8 and cfg.norm_kind == "rms" and not cfg.parallel_residual
+            and cfg.residual_scale == 1.0 and cfg.act in CHAIN_ACTS)
 
 
 def _leaf(v) -> torch.Tensor:
@@ -398,10 +427,7 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
     H, Hkv, Dk, Dv = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim_v
     T = tokens.shape[0]
     scale = cfg.attn_scale if cfg.attn_scale is not None else Dk ** -0.5
-    # the reference's model-wide gates (rms norm, no residual scale,
-    # sequential residual, silu or gelu) hold for everything check_supported
-    # admits
-    use_chain = chain and T <= 8
+    use_chain = chain_gate(cfg, chain, T)
 
     x = qembed(params["tok_embd"], tokens, dtype=dtype)
     if cfg.embedding_scale != 1.0:
@@ -456,7 +482,8 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
             qkv = norm_mm(x, layer["attn_norm"], layer["attn_qkv_fused"], eps=cfg.rms_eps,
                           compute_dtype=dtype, out_dtype=dtype)
         if qkv is None:
-            h = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
+            # post-norm graphs (olmo2) have no input norm: attend over x
+            h = rms_norm(x, layer["attn_norm"], cfg.rms_eps) if "attn_norm" in layer else x
             if "attn_qkv_fused" in layer:
                 qkv = qmm(h, layer["attn_qkv_fused"], out_dtype=dtype, gdot=gdot)
         if qkv is not None:
@@ -464,11 +491,16 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
         else:
             q, k, v = (qmm(h, layer[key], out_dtype=dtype, gdot=gdot)
                        for key in ("attn_q", "attn_k", "attn_v"))
-        if "attn_q_b" in layer:  # qwen2: biases on the fused QKV's slices
-            q, k, v = (t + layer[b].to(t.dtype)
-                       for t, b in ((q, "attn_q_b"), (k, "attn_k_b"), (v, "attn_v_b")))
+        # qwen2, glm4: biases on q, k and v (the fused QKV's slices or apart)
+        q, k, v = (t + layer[b].to(t.dtype) if b in layer else t
+                   for t, b in ((q, "attn_q_b"), (k, "attn_k_b"), (v, "attn_v_b")))
         q, k = q.reshape(T, H, Dk), k.reshape(T, Hkv, Dk)
-        if cfg.qk_norm:  # qwen3: each head of q and k, k before the cache
+        if cfg.qk_norm_full:  # olmo2: q and k normed whole, k before the cache
+            q = rms_norm(q.reshape(T, H * Dk), layer.get("attn_q_norm"),
+                         cfg.rms_eps).reshape(T, H, Dk)
+            k = rms_norm(k.reshape(T, Hkv * Dk), layer.get("attn_k_norm"),
+                         cfg.rms_eps).reshape(T, Hkv, Dk)
+        elif cfg.qk_norm:  # qwen3: each head of q and k, k before the cache
             q = rms_norm(q, layer.get("attn_q_norm"), cfg.rms_eps)
             k = rms_norm(k, layer.get("attn_k_norm"), cfg.rms_eps)
         q = apply_rope(q, cos_t, sin_t, rope.mode, rope.n_dims)
@@ -499,11 +531,13 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
         if "attn_sub_norm" in layer:  # bitnet: a norm before o_proj
             att = rms_norm(att, layer["attn_sub_norm"], cfg.rms_eps)
         attn_out = qmm(att, layer["attn_output"], out_dtype=dtype, gdot=gdot)
-        if "attn_post_norm" in layer:  # gemma2: a norm before the residual
+        if "attn_post_norm" in layer:  # gemma2, glm4, olmo2: a norm before the residual
             attn_out = rms_norm(attn_out, layer["attn_post_norm"], cfg.rms_eps)
+        if cfg.residual_scale != 1.0:  # granite, minicpm
+            attn_out = attn_out * cfg.residual_scale
         x = x + attn_out
 
-        h2 = rms_norm(x, layer["ffn_norm"], cfg.rms_eps)
+        h2 = rms_norm(x, layer["ffn_norm"], cfg.rms_eps) if "ffn_norm" in layer else x
         if cfg.n_expert > 0 and "ffn_gate_inp" in layer:
             ffn_out = moe_ffn(h2, layer, cfg)
             if "ffn_up_shexp" in layer:  # the shared expert (qwen2moe)
@@ -518,6 +552,8 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
             ffn_out = ffn(h2, layer, cfg, dtype, gdot)
         if "ffn_post_norm" in layer:
             ffn_out = rms_norm(ffn_out, layer["ffn_post_norm"], cfg.rms_eps)
+        if cfg.residual_scale != 1.0:
+            ffn_out = ffn_out * cfg.residual_scale
         x = x + ffn_out
 
     out_w = params.get("output")
@@ -534,6 +570,8 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
     if logits is None:
         hs = rms_norm(x, norm_w, cfg.rms_eps)[out_idx]
         logits = qmm(hs, out_w, gdot=gdot)
+    if cfg.logit_scale != 1.0:  # granite, minicpm
+        logits = logits * cfg.logit_scale
     if cfg.final_softcap > 0.0:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
     return logits, hs.float()

@@ -17,12 +17,14 @@ All bit-unpacking happens here in numpy at load time.
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..gguf.constants import GGMLType
+from ..gguf.constants import GGMLType, type_traits
 from .codecs import KVALUES_IQ4NL, _q3k_scales, _read_f16, _u8, _unpack2, _unpack_k4_scales
 from .iq_codecs import PLANE_FNS
 
@@ -247,19 +249,21 @@ PLANE_TYPES = (GGMLType.Q8_0, GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLT
                GGMLType.IQ1_M, GGMLType.TQ1_0, GGMLType.TQ2_0)
 
 
-def qtensor_from_gguf(raw: np.ndarray, ggml_type: GGMLType,
-                      ne_shape: tuple[int, ...], device="cpu",
-                      kmajor: bool = True) -> QTensor:
-    """Build a QTensor from raw GGUF tensor bytes. GGUF matrices have
-    ne=(K, N): N rows of length K. Matmul weights become K-major; embedding
-    tables pass kmajor=False. Scales and mins stay f32."""
-    t = GGMLType(ggml_type)
-    K, N = int(ne_shape[0]), int(np.prod(ne_shape[1:], dtype=np.int64))
+# a matrix of at least this many weights has its rows unpacked in
+# LOAD_THREADS chunks at once (numpy releases the GIL in its array work);
+# rows are independent, so the planes are the same bytes
+THREADED_MIN_WEIGHTS = 1 << 24
+LOAD_THREADS = min(8, os.cpu_count() or 1)
+
+
+def _planes_of_rows(raw: np.ndarray, t: GGMLType, K: int, N: int, kmajor: bool):
+    """(q, scales, mins, group size, zp, packed) of N rows of K weights in
+    the layout the QTensor keeps: K-major [K(/2), N] and [K/gs, N], or rows
+    [N, K(/2)] and [N, K/gs]."""
     q, scales, mins, gs = planes_from_raw(raw, t, K)
     q = q.reshape(N, K)
     scales = scales.reshape(N, K // gs)
     mins = mins.reshape(N, K // gs) if mins is not None else None
-
     do_pack = t in _PACK4 and K % PACK_TK == 0
     zp = _PACK4[t] if do_pack else 0
     if kmajor:
@@ -269,6 +273,36 @@ def qtensor_from_gguf(raw: np.ndarray, ggml_type: GGMLType,
         mins = mins.T if mins is not None else None
     elif do_pack:
         q = pack_p4(q, zp)
+    return q, scales, mins, gs, zp, do_pack
+
+
+def qtensor_from_gguf(raw: np.ndarray, ggml_type: GGMLType,
+                      ne_shape: tuple[int, ...], device="cpu",
+                      kmajor: bool = True) -> QTensor:
+    """Build a QTensor from raw GGUF tensor bytes. GGUF matrices have
+    ne=(K, N): N rows of length K. Matmul weights become K-major; embedding
+    tables pass kmajor=False. Scales and mins stay f32. A large matrix's
+    rows are unpacked in LOAD_THREADS chunks on threads and joined."""
+    t = GGMLType(ggml_type)
+    K, N = int(ne_shape[0]), int(np.prod(ne_shape[1:], dtype=np.int64))
+    n_chunks = min(LOAD_THREADS, N) if N * K >= THREADED_MIN_WEIGHTS else 1
+    if n_chunks > 1:
+        tt = type_traits(t)
+        row_bytes = K // tt.block_size * tt.type_size
+        raw8 = np.ascontiguousarray(raw).view(np.uint8).reshape(-1)
+        bounds = [N * i // n_chunks for i in range(n_chunks + 1)]
+        with ThreadPoolExecutor(n_chunks) as pool:
+            parts = list(pool.map(
+                lambda i: _planes_of_rows(raw8[bounds[i] * row_bytes:bounds[i + 1] * row_bytes],
+                                          t, K, bounds[i + 1] - bounds[i], kmajor),
+                range(n_chunks)))
+        axis = 1 if kmajor else 0
+        join = (lambda j: None if parts[0][j] is None
+                else np.concatenate([p[j] for p in parts], axis=axis))
+        q, scales, mins = join(0), join(1), join(2)
+        gs, zp, do_pack = parts[0][3:]
+    else:
+        q, scales, mins, gs, zp, do_pack = _planes_of_rows(raw, t, K, N, kmajor)
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)

@@ -52,11 +52,11 @@ def copies_for(n: int) -> int:
     return max(1, min(16, math.ceil(2 * L2_BYTES / max(n, 1))))
 
 
-def attn_inputs(T, H, Hkv, S, D, seed, masked_frac=0.5, device="cuda", Dv=None):
+def attn_inputs(T, H, Hkv, S, D, seed, masked_frac=0.5, device="cuda", Dv=None, n_rot=None):
     """Attention inputs made from seed: a causal run of T tokens whose last
     sees the first (1 - masked_frac) * S cells of a cache of S (NORM rope at
-    freq_base 5e5, bf16 q/K/V from N(0, 1); V at Dv, None: D); and the
-    half-width rope angles."""
+    freq_base 5e5 on the first n_rot dims, None: all D; bf16 q/K/V from
+    N(0, 1); V at Dv, None: D); and the half-width rope angles."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     bf = torch.bfloat16
@@ -64,11 +64,13 @@ def attn_inputs(T, H, Hkv, S, D, seed, masked_frac=0.5, device="cuda", Dv=None):
     k = torch.randn((Hkv, S, D), generator=gen, device=device).to(bf)
     v = torch.randn((Hkv, S, Dv or D), generator=gen, device=device).to(bf)
     pos = torch.arange(S, device=device)
-    c, s = rope_angles(pos, RopeParams(n_dims=D, mode=ROPE_TYPE_NORM, freq_base=500000.0))
-    cos, sin = (t.to(bf).contiguous() for t in cuda_attn.expand_tables(c, s, ROPE_TYPE_NORM, D))
+    n_rot = n_rot or D
+    c, s = rope_angles(pos, RopeParams(n_dims=n_rot, mode=ROPE_TYPE_NORM, freq_base=500000.0))
+    cos, sin = (t.to(bf).contiguous()
+                for t in cuda_attn.expand_tables(c, s, ROPE_TYPE_NORM, D, n_dims=n_rot))
     tok_pos = torch.arange(T, device=device) + int(S * (1 - masked_frac)) - T
     bias = torch.where(pos[None, :] <= tok_pos[:, None], 0.0, float("-inf")).float()
-    qr = cuda_attn.rope_companion(q, ROPE_TYPE_NORM).contiguous()
+    qr = cuda_attn.rope_companion(q, ROPE_TYPE_NORM, n_rot).contiguous()
     return dict(q=q, q_rot=qr, k=k, v=v, cos=cos, sin=sin, bias=bias.contiguous()), (c, s)
 
 

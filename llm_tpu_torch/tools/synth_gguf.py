@@ -1,10 +1,10 @@
-"""A llama (or bitnet) GGUF with random blocks typed as a Q4_K_M, Q3_K_M,
+"""A llama (or bitnet, or glm4) GGUF with random blocks typed as a Q4_K_M, Q3_K_M,
 Q2_K, IQ2_XXS, IQ1_M, TQ2_0 or TQ1_0 file is, and a byte-level BPE vocab,
 made from a seed, written with the port's GGUF writer: a file the CLI
 loads and answers from like a downloaded checkpoint, with no download.
 
     python -m llm_tpu_torch.tools.synth_gguf out.gguf [--layers 32] [--seed 0] \
-        [--ftype {Q4_K_M,Q3_K_M,Q2_K,IQ2_XXS,IQ1_M,TQ2_0,TQ1_0}] [--arch {llama,bitnet}]
+        [--ftype {Q4_K_M,Q3_K_M,Q2_K,IQ2_XXS,IQ1_M,TQ2_0,TQ1_0}] [--arch {llama,bitnet,glm4}]
 
 The type mix is llama.cpp's recipe for the ftype
 (models/synthetic.py::tensor_type_for, the port's copy of
@@ -16,7 +16,8 @@ Q2_K is Q2_K with attn_v Q4_K (LLAMA3_8B's 4 query heads a KV head),
 ffn_down Q3_K in the use_more_bits layers, a Q6_K lm_head; IQ2_XXS and
 IQ1_M are their base type with attn_v Q4_K, ffn_down IQ3_XXS in layers
 0-1, a Q5_K lm_head and a Q2_K embedding table; TQ2_0 and TQ1_0 their
-base type everywhere but a Q6_K lm_head. A block's quant and scale bytes
+base type everywhere but a Q6_K lm_head; a matrix whose K the type's
+block does not divide is Q8_0 (GLM-4's ffn_down, K = 13696). A block's quant and scale bytes
 are random (TQ2_0's 2-bit codes drawn from 0..2, the trits); its f16 `d`
 (and `dmin`) are finite, sized (_D_FIELDS) so that the weights' rms is
 ~0.02 for the types with signed scales and zero-mean weights (Q6_K, Q3_K,
@@ -30,9 +31,13 @@ vocab).
 
 The geometry defaults to LLAMA3_8B (models/synthetic.py), or to
 BITNET_B158_2B with `--arch bitnet` (a squared relu, the sub-norms
-attn_sub_norm and ffn_sub_norm as f32 ones). `chip_smoke.py` writes the
-8-layer Q4_K_M file and 2-layer Q3_K_M, Q2_K, IQ1_M and bitnet TQ2_0 ones
-on the card's machine; the tests write tiny ones.
+attn_sub_norm and ffn_sub_norm as f32 ones), or to GLM4_9B with `--arch
+glm4` (gate+up packed in ffn_up [2 n_ff, n_embd], random f32 biases on q,
+k and v, the post-norms attn_post_norm and ffn_post_norm as f32 ones,
+rope.dimension_count half the head, rope base 10000, rms eps 1.5625e-7).
+`chip_smoke.py` writes the 2-layer Q4_K_M file and 2-layer Q3_K_M, Q2_K,
+IQ1_M, bitnet TQ2_0 and glm4 Q4_K_M ones on the card's machine; the tests
+write tiny ones.
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ import numpy as np
 
 from ..gguf.constants import FileType, GGMLType, Keys, type_traits
 from ..gguf.writer import GGUFWriter
-from ..models.synthetic import BITNET_B158_2B, LLAMA3_8B, RECIPES, tensor_type_for
+from ..models.synthetic import BITNET_B158_2B, GLM4_9B, LLAMA3_8B, RECIPES, tensor_type_for
 from ..tokenizers.bpe import bytes_to_unicode
 
 N_LLAMA3_SPECIAL = 256
@@ -126,7 +131,10 @@ _D_FIELDS = {
     GGMLType.IQ1_M: (None, 1.8e-3),      # d in the scale words' top nibbles
     GGMLType.TQ1_0: ((52, 54), 1.6e-2),  # d; trits
     GGMLType.TQ2_0: ((64, 66), 1.6e-2),  # d; trits
+    GGMLType.Q8_0: ((0, 2), 2e-4),       # d; int8 codes (a fallback type)
 }
+# the archs write_llama writes, and each one's geometry
+GEOMETRY = {"llama": LLAMA3_8B, "bitnet": BITNET_B158_2B, "glm4": GLM4_9B}
 
 
 def _iq1m_set_d(raw: np.ndarray, d: np.ndarray) -> None:
@@ -174,17 +182,23 @@ def write_llama(path: str, n_layers: int = LLAMA3_8B["n_layers"],
                 n_kv_heads: int = LLAMA3_8B["n_kv_heads"], n_ff: int = LLAMA3_8B["n_ff"],
                 vocab: dict | None = None, n_vocab: int = LLAMA3_8B["vocab"],
                 seed: int = 0, context_length: int = 8192,
-                rope_theta: float = 500000.0, ftype: str = "Q4_K_M",
+                rope_theta: float | None = None, ftype: str = "Q4_K_M",
                 arch: str = "llama") -> dict:
     """Write the file; returns what it wrote (bytes, tensors by type, the
     seconds to make the vocab and blocks and to write them). arch "bitnet"
-    adds each layer's sub-norms (attn_sub_norm, ffn_sub_norm)."""
+    adds each layer's sub-norms (attn_sub_norm, ffn_sub_norm); arch "glm4"
+    packs gate+up in ffn_up, adds QKV biases and post-norms, ropes half of
+    each head and takes GLM-4's rms eps. rope_theta None: 10000 for glm4,
+    500000 (Llama 3's) otherwise."""
     t0 = time.perf_counter()
     vocab = bpe_vocab(n_vocab, seed) if vocab is None else vocab
     n_vocab = len(vocab[Keys.Tokenizer.LIST])
     t_vocab = time.perf_counter() - t0
-    if arch not in ("llama", "bitnet"):
-        raise ValueError(f"arch {arch!r}: llama or bitnet")
+    if arch not in GEOMETRY:
+        raise ValueError(f"arch {arch!r}: one of {', '.join(GEOMETRY)}")
+    glm4 = arch == "glm4"
+    if rope_theta is None:
+        rope_theta = 10000.0 if glm4 else 500000.0
     w = GGUFWriter(path, arch=arch)
     a = (lambda k: k.format(arch=arch))
     if ftype not in RECIPES:
@@ -198,8 +212,8 @@ def write_llama(path: str, n_layers: int = LLAMA3_8B["n_layers"],
     w.add_kv(a(Keys.LLM.VOCAB_SIZE), np.uint32(n_vocab))
     w.add_kv(a(Keys.Attention.HEAD_COUNT), np.uint32(n_heads))
     w.add_kv(a(Keys.Attention.HEAD_COUNT_KV), np.uint32(n_kv_heads))
-    w.add_kv(a(Keys.Attention.LAYERNORM_RMS_EPS), np.float32(1e-5))
-    w.add_kv(a(Keys.Rope.DIMENSION_COUNT), np.uint32(n_embd // n_heads))
+    w.add_kv(a(Keys.Attention.LAYERNORM_RMS_EPS), np.float32(1.5625e-7 if glm4 else 1e-5))
+    w.add_kv(a(Keys.Rope.DIMENSION_COUNT), np.uint32(n_embd // n_heads // (2 if glm4 else 1)))
     w.add_kv(a(Keys.Rope.FREQ_BASE), np.float32(rope_theta))
     for k, v in vocab.items():
         w.add_kv(k, v)
@@ -218,6 +232,10 @@ def write_llama(path: str, n_layers: int = LLAMA3_8B["n_layers"],
         w.add_tensor(name, np.ones(n, np.float32))
         types["F32"] = types.get("F32", 0) + 1
 
+    def bias(name, n):
+        w.add_tensor(name, (rng.standard_normal(n) * 0.1).astype(np.float32))
+        types["F32"] = types.get("F32", 0) + 1
+
     mat("token_embd.weight", n_vocab, n_embd)
     for il in range(n_layers):
         p = f"blk.{il}."
@@ -225,15 +243,26 @@ def write_llama(path: str, n_layers: int = LLAMA3_8B["n_layers"],
         mat(p + "attn_q.weight", n_heads * hd, n_embd, il)
         mat(p + "attn_k.weight", n_kv_heads * hd, n_embd, il)
         mat(p + "attn_v.weight", n_kv_heads * hd, n_embd, il)
+        if glm4:
+            for key, n in (("attn_q", n_heads * hd), ("attn_k", n_kv_heads * hd),
+                           ("attn_v", n_kv_heads * hd)):
+                bias(p + key + ".bias", n)
         if arch == "bitnet":
             ones(p + "attn_sub_norm.weight", n_heads * hd)
         mat(p + "attn_output.weight", n_embd, n_heads * hd, il)
+        if glm4:
+            ones(p + "attn_post_norm.weight", n_embd)
         ones(p + "ffn_norm.weight", n_embd)
-        mat(p + "ffn_gate.weight", n_ff, n_embd, il)
-        mat(p + "ffn_up.weight", n_ff, n_embd, il)
+        if glm4:  # [gate; up] in one tensor
+            mat(p + "ffn_up.weight", 2 * n_ff, n_embd, il)
+        else:
+            mat(p + "ffn_gate.weight", n_ff, n_embd, il)
+            mat(p + "ffn_up.weight", n_ff, n_embd, il)
         if arch == "bitnet":
             ones(p + "ffn_sub_norm.weight", n_ff)
         mat(p + "ffn_down.weight", n_embd, n_ff, il)
+        if glm4:
+            ones(p + "ffn_post_norm.weight", n_embd)
     ones("output_norm.weight", n_embd)
     mat("output.weight", n_vocab, n_embd)
     t_blocks = time.perf_counter() - t0 - t_vocab
@@ -248,13 +277,14 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("out")
     ap.add_argument("--layers", type=int, default=None,
-                    help="layers (default: the geometry's, 32 or BitNet's 30)")
+                    help="layers (default: the geometry's: 32, BitNet's 30, GLM-4's 40)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ftype", choices=list(RECIPES), default="Q4_K_M")
-    ap.add_argument("--arch", choices=("llama", "bitnet"), default="llama",
-                    help="bitnet: BITNET_B158_2B's geometry and sub-norms")
+    ap.add_argument("--arch", choices=tuple(GEOMETRY), default="llama",
+                    help="bitnet: BITNET_B158_2B's geometry and sub-norms; glm4: GLM4_9B's "
+                         "geometry, biases, post-norms and packed gate+up")
     args = ap.parse_args(argv)
-    geo = BITNET_B158_2B if args.arch == "bitnet" else LLAMA3_8B
+    geo = GEOMETRY[args.arch]
     n_layers = geo["n_layers"] if args.layers is None else args.layers
     print(write_llama(args.out, n_layers=n_layers, n_embd=geo["n_embd"],
                       n_heads=geo["n_heads"], n_kv_heads=geo["n_kv_heads"], n_ff=geo["n_ff"],

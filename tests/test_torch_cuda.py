@@ -176,16 +176,25 @@ def test_k7_decode_equals_unstacked_bit_for_bit(cuda_device, qtype, K, N, B):
         assert torch.equal(got, cuda_qmm.qmm_cuda(x, layers[il]))
 
 
-REPEAT_SHAPES = [("Q3_K", 4096, 28672), ("Q4_K", 4096, 28672), ("TQ2_0", 2560, 13824),
-                 ("IQ1_M", 4096, 28672)]
+# (type, K, N, gdot): the group-size-16 forms (Q3_K without mins, Q2_K
+# with them; K5_gs16 with gdot), 32, 256 and 8
+REPEAT_SHAPES = [("Q3_K", 4096, 28672, False), ("Q4_K", 4096, 28672, False),
+                 ("TQ2_0", 2560, 13824, False), ("IQ1_M", 4096, 28672, False),
+                 ("Q2_K", 4096, 28672, False), ("Q3_K", 4096, 28672, True),
+                 ("Q2_K", 4096, 28672, True)]
 
 
-@pytest.mark.parametrize("qtype,K,N", REPEAT_SHAPES, ids=[f"{q}-{k}x{n}" for q, k, n in REPEAT_SHAPES])
-def test_decode_gives_the_same_bits_over_many_launches(cuda_device, qtype, K, N):
+@pytest.mark.parametrize("qtype,K,N,gdot", REPEAT_SHAPES,
+                         ids=[f"{q}-{k}x{n}" + ("-K5" if g else "")
+                              for q, k, n, g in REPEAT_SHAPES])
+def test_decode_gives_the_same_bits_over_many_launches(cuda_device, qtype, K, N, gdot):
     """The decode GEMV sums in a fixed order and uses no atomics: K7 on each
-    layer of a two-layer stack and K1/K2 on each layer's own planes,
-    launched back to back 1500 times each on one input at B = 1, give the
-    first launch's bits every time."""
+    layer of a two-layer stack and K1/K2 on each layer's own planes (K7's
+    K5 variant and K5 with gdot), launched back to back 1500 times each on
+    one input at B = 1, give the first launch's bits every time. The
+    consumers' proxy fence before they release a slot (qmm_decode.cuh
+    dv_release) is what keeps the Q3_K case's last x fragments from the
+    next round's TMA."""
     from llm_tpu_torch.models.synthetic import device_synthetic_qtensor
 
     gen = torch.Generator(device=cuda_device)
@@ -200,15 +209,57 @@ def test_decode_gives_the_same_bits_over_many_launches(cuda_device, qtype, K, N)
     lids = torch.arange(2, dtype=torch.int32, device=cuda_device)
     sws = [StackedWeight(qt, lids[il:il + 1]) for il in range(2)]
     x = torch.randn((1, K), generator=gen, device=cuda_device).to(torch.bfloat16)
-    want = [cuda_qmm.qmm_cuda(x, views[il]) for il in range(2)]
+    want = [cuda_qmm.qmm_cuda(x, views[il], gdot) for il in range(2)]
     off = []
     for it in range(1500):
         for il in range(2):
-            for kind, y in (("K7", cuda_qmm.qmm_stacked_cuda(x, sws[il])),
-                            ("unstacked", cuda_qmm.qmm_cuda(x, views[il]))):
+            for kind, y in (("K7", cuda_qmm.qmm_stacked_cuda(x, sws[il], gdot)),
+                            ("unstacked", cuda_qmm.qmm_cuda(x, views[il], gdot))):
                 if not torch.equal(y, want[il]):
                     off.append((it, kind, il, (y - want[il]).abs().max().item()))
     assert not off, f"{len(off)} of 6000 launches differ from the first: {off[:8]}"
+
+
+def test_prefill_gemm_gives_the_same_bits_over_many_launches(cuda_device):
+    """The prefill GEMM's consumers release a ring slot after their
+    ld.shared of the planes with no proxy fence before the producer's next
+    TMA (qmm_gemm_body.cuh), as the decode GEMV's did before dv_release: at
+    LLAMA3_8B's Q4_K gate+up, a 512-token step with its K unsplit (a split
+    adds through atomics in a varying order), 1500 back-to-back launches on
+    one input give the first launch's bits every time."""
+    x, qt = _device_planes(cuda_device, "Q4_K", 4096, 28672, 512)
+    want = cuda_qmm._qmm_launch(x, qt, False, 1)
+    off = [it for it in range(1500)
+           if not torch.equal(cuda_qmm._qmm_launch(x, qt, False, 1), want)]
+    assert not off, f"{len(off)} of 1500 launches differ from the first: {off[:8]}"
+
+
+# (T, H, Hkv, S): LLAMA3_8B's heads (G = 4) and GLM-4-9B's (G = 16: 16 and
+# 128 query rows a KV head at T = 1 and 8) at decode (K3 / K3q) and at a
+# 512-token prefill step (K4 / K4q) over 4096 cells
+ATTN_REPEAT_SHAPES = [(1, 32, 8, 4096), (8, 32, 8, 4096), (512, 32, 8, 4096),
+                      (1, 32, 2, 4096), (8, 32, 2, 4096), (512, 32, 2, 4096)]
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "q8_0"])
+@pytest.mark.parametrize("T,H,Hkv,S", ATTN_REPEAT_SHAPES,
+                         ids=[f"T{t}-H{h}-Hkv{g}" for t, h, g, _ in ATTN_REPEAT_SHAPES])
+def test_flash_gives_the_same_bits_over_many_launches(cuda_device, q8, T, H, Hkv, S):
+    """K3/K3q and K4/K4q release their ring slots after their consumers'
+    ldmatrix reads with no proxy fence before the producer's next TMA
+    (flash_attn.cu, flash_prefill.cuh), as the decode GEMV's did before
+    dv_release: 1500 back-to-back launches on one input at the main path's
+    heads give the first launch's bits every time."""
+    t = _attn_inputs(T, H, Hkv, S, ROPE_TYPE_NORM)
+    if q8:
+        t["k"], t["v"] = _q8(t["k"]), _q8(t["v"])
+    dev = {n: (tuple(x.to(cuda_device) for x in a) if isinstance(a, tuple)
+               else a.to(cuda_device)) for n, a in t.items()}
+    launch = cuda_attn._decode_launch if T <= 8 else cuda_attn._prefill_launch
+    run = (lambda: launch(q8, **dev, scale=128 ** -0.5))
+    want = run()
+    off = [it for it in range(1500) if not torch.equal(run(), want)]
+    assert not off, f"{len(off)} of 1500 launches differ from the first: {off[:8]}"
 
 
 @pytest.mark.parametrize("B,gdot", [(1, False), (9, False), (17, False), (1, True), (9, True)])

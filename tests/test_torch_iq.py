@@ -142,10 +142,9 @@ def test_engine_chain_gdot_matches_reference(iq_ggufs, monkeypatch, ftype):
     """chain=True, gdot=True against llm_tpu's chained and group-factored
     kernels in interpret mode. IQ1_M: K6 takes each layer's tail (IQ1_M
     o_proj and gate+up at group size 8 beside an IQ3_XXS down) and the
-    Q5_K lm_head; K5 only the p4 Q4_K attn_v. TQ2_0 (bitnet): K6 takes
-    each layer's norm -> QKV head at group size 256 and the lm_head, the
-    sub-normed tails stay unchained (TAIL_BANNED, as the reference's
-    _TAIL_BANNED), their TQ2_0 matmuls on K5."""
+    Q5_K lm_head; K5 only the p4 Q4_K attn_v. TQ2_0 (bitnet): its squared
+    relu keeps the whole model unchained (chain_gate, as the reference's
+    use_chain), every TQ2_0 matmul on K5."""
     _f32(monkeypatch)
     for k, v in (("LLM_TPU_CHAIN", "1"), ("LLM_TPU_CHAIN_FORCE", "interpret"),
                  ("LLM_TPU_GDOT", "force"), ("LLM_TPU_FLASH_FORCE", "interpret")):
@@ -163,11 +162,11 @@ def test_engine_chain_gdot_matches_reference(iq_ggufs, monkeypatch, ftype):
         jax_qmatmul.set_backend("auto")
     # the 10-token prompt (T > 8: no chain) takes K5 for its p4 matmuls; each
     # of the 9 decode steps runs the chained kernels (IQ1_M: both tails and
-    # the lm_head; bitnet: both heads and the lm_head) and K5 for the rest
+    # the lm_head; bitnet: none) and K5 for the rest
     if ftype == "IQ1_M":
         assert calls == {"K6": 9 * 3, "K5": 2 * 1 + 9 * 2}
     else:
-        assert calls == {"K6": 9 * 3, "K5": 2 * 4 + 9 * 2 * 3}
+        assert calls == {"K6": 0, "K5": 2 * 4 + 9 * 2 * 4}
 
 
 @pytest.mark.parametrize("ftype", ["IQ1_M", "TQ2_0"])

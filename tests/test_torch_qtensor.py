@@ -20,6 +20,7 @@ from llm_tpu.quant.qtensor import expert_qtensor_from_gguf as jax_expert_qtensor
 from llm_tpu.quant.qtensor import qtensor_from_gguf as jax_qtensor_from_gguf
 
 from llm_tpu_torch.models.synthetic import synthetic_qtensor
+from llm_tpu_torch.quant import qtensor
 from llm_tpu_torch.quant.codecs import dequantize_dense
 from llm_tpu_torch.quant.qtensor import (PLANE_TYPES, dequantize_qtensor,
                                          expert_qtensor_from_gguf, pack_p4, pack_p4_kmajor,
@@ -78,6 +79,18 @@ def test_planes_byte_equal(qtype, kmajor):
         assert (got.layout, got.group_size, got.zp) == ("p4", 16, 4 * (qtype == GGMLType.Q3_K))
     if qtype in IQ_PLANES:
         assert (got.layout, got.group_size, got.zp) == IQ_PLANES[qtype]
+
+
+@pytest.mark.parametrize("kmajor", [True, False], ids=["kmajor", "rows"])
+@pytest.mark.parametrize("qtype", TYPES, ids=lambda t: t.name)
+def test_threaded_planes_byte_equal(qtype, kmajor, monkeypatch):
+    """The rows unpacked in 5 uneven chunks on threads (the loader's path
+    for large matrices, forced here at any size) give llm_tpu's planes."""
+    monkeypatch.setattr(qtensor, "THREADED_MIN_WEIGHTS", 1)
+    monkeypatch.setattr(qtensor, "LOAD_THREADS", 5)
+    raw = _raw(qtype, seed=3)
+    ref = jax_qtensor_from_gguf(raw, qtype, (K, N), kmajor=kmajor)
+    _same_qtensor(qtensor_from_gguf(raw, qtype, (K, N), kmajor=kmajor), ref)
 
 
 @pytest.mark.parametrize("qtype", TYPES, ids=lambda t: t.name)
