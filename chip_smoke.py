@@ -3,6 +3,9 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --sweep-seeds [q8_0|chain|gguf]  # phase 3's twins' errors
     python3 chip_smoke.py --screen-seeds   # the q8_0 twin's top-2 gaps on the card, seeds 1-64
+    python3 chip_smoke.py --decode-rows    # phase 2's decode GEMV / K6 rows alone
+    python3 chip_smoke.py --attn-gemm-rows # phase 2's K3/K3q, K4/K4q and B = 512 GEMM rows alone
+    python3 chip_smoke.py --command-r      # phase 2's Command-R rows, its twin and phase 18
 
 Phases, each of which raises on failure (the script then exits nonzero and
 prints no result line):
@@ -250,7 +253,7 @@ prints no result line):
      shapes (at decode within 1.5e-5 of max|y|, the K6 forms within one
      bf16 step) and K2 on every other IQ type; phase 3 runs IQ1_M and
      bitnet TQ2_0 GGUF twins.
- 17. (after phase 14) GLM-4-9B-0414 at full width and depth (40 layers,
+ 17. (after phase 14) GLM-4-9B-0414 at full width and 20 of its 40 layers (GLM4_LAYERS,
      phase_glm4_9b): Q4_K_M-style random planes made on the card (a Q8_0
      down at K = 13696, gate+up packed in one matrix, QKV biases,
      post-norms), 4096 cells: prefill 512 and 128 greedy tokens with the
@@ -261,6 +264,22 @@ prints no result line):
      the planes' bytes and the bytes bound, peak memory, each beside the
      card's name and power limit. Phase 2 holds K1/K2 at its matmuls and
      K3/K4 at its heads; phase 3 runs a two-layer GLM-4-9B GGUF twin.
+ 18. (after phase 17) Command-R v01 at full width (8192, 64 heads over 64
+     KV heads of 128, ff 22528, a tied 256000-row Q6_K table;
+     COMMAND_R_LAYERS of its 40 layers; phase_command_r_35b): Q4_K_M-style
+     random planes made on the card with LayerNorm weights and the
+     parallel block, 4096 cells: prefill 512 and 128 greedy tokens with the
+     bf16 cache (K1/K2, K3/K4 at G = 1; profiled over 8 more tokens), with
+     gdot (K5) for COMMAND_R_GDOT_DECODE tokens (the stream equal or parted
+     only at a near tie), with chain=True for CHAIN_STEPS decode steps
+     whose logits equal the unchained ones bit for bit (the chain gate
+     refuses LayerNorm; no K6 launch), and 512 + COMMAND_R_Q8_DECODE with
+     the q8_0 cache (K3q/K4q); prefill tok/s, ms a token, launches a
+     token, idle share, the planes' and cache's bytes, the bytes bound and
+     peak memory, each beside the card's name and power limit. Phase 2
+     holds K1/K2 at its matmuls (the lm_head at B = 1 and 512) and
+     K3/K3q/K4/K4q at its heads; phase 3 runs a two-layer Command-R GGUF
+     twin (vocab cut to COMMAND_R_TWIN_VOCAB).
 The last lines are a JSON "kernels" line, the card line, and
 {"ok": true, "device": {...}}. It imports nothing of JAX or llm_tpu.
 """
@@ -1088,6 +1107,9 @@ def phase_kernels():
     for T, name in ((1, "decode half-masked"), (8, "decode T=8"), (512, "prefill")):
         for q8 in (False, True):
             check_attn(results, name, T, 4096, H=32, Hkv=2, D=128, q8=q8, n_rot=64)
+    t0 = time.perf_counter()
+    command_r_rows(results)
+    log(f"Command-R rows passed in {time.perf_counter() - t0:.1f} s")
     return results
 
 
@@ -1098,6 +1120,33 @@ def phase_kernels():
 GLM4_MATMULS_Q4K = (("glm4 qkv", 4096, 4608), ("glm4 attn_q/o_proj", 4096, 4096),
                     ("glm4 attn_k", 4096, 256), ("glm4 gate_up", 4096, 27392))
 GLM4_MATMULS_Q6K = (("glm4 attn_v", 4096, 256), ("glm4 lm_head", 4096, 151552))
+# Command-R v01's matmuls (name, K, N; phase 18's Q4_K_M-style planes):
+# the fused QKV (N = 24576), o_proj and the unfused attn_q / attn_k of the
+# use_more_bits layers (8192), gate+up (45056) and down (K = 22528); attn_v
+# and down of those layers and the tied lm_head (256000 rows) Q6_K
+COMMAND_R_MATMULS_Q4K = (("command-r qkv", 8192, 24576), ("command-r o_proj", 8192, 8192),
+                         ("command-r gate_up", 8192, 45056), ("command-r down", 22528, 8192))
+COMMAND_R_MATMULS_Q6K = (("command-r attn_v", 8192, 8192), ("command-r down", 22528, 8192),
+                         ("command-r lm_head", 8192, 256000))
+
+
+def command_r_rows(results) -> None:
+    """Phase 2's Command-R rows: K1/K2 at its matmuls at decode (B = 1) and
+    a 512-token prefill step (K = 8192 and 22528, N = 24576, 45056 and the
+    tied table's 256000 rows are new to decode_plan and gemm_split), and
+    K3/K3q at T = 1 and 8 and K4/K4q at T = 512 over 4096 cells at its
+    heads (64 over 64 of 128, G = 1: 64 CTAs a wave of K4, one KV head
+    each)."""
+    from llm_tpu_torch.gguf.constants import GGMLType
+
+    for B in (1, 512):
+        for name, K, N in COMMAND_R_MATMULS_Q4K:
+            check_qmm(results, name, GGMLType.Q4_K, K, N, B)
+        for name, K, N in COMMAND_R_MATMULS_Q6K:
+            check_qmm(results, name, GGMLType.Q6_K, K, N, B)
+    for T, name in ((1, "decode half-masked"), (8, "decode T=8"), (512, "prefill")):
+        for q8 in (False, True):
+            check_attn(results, name, T, 4096, H=64, Hkv=64, D=128, q8=q8)
 
 
 # BitNet b1.58 2B4T's matmuls (name, K, N) on TQ2_0: fused QKV, o_proj,
@@ -1193,6 +1242,41 @@ def decode_rows() -> list:
         check_chain(results, name, dims, pres, 1)
     for name, dims, pres in IQ_CHAINS:
         check_chain(results, name, dims, pres, 1, scales_dtype=torch.float32, one_step=True)
+    return results
+
+
+def attn_gemm_rows() -> list:
+    """Phase 2's rows of the kernels that fence the async proxy before a
+    TMA refills shared memory they read: K3/K3q and the prefill GEMM (the
+    consumers, before they release a ring slot), K4/K4q (the producer,
+    before lane 0 refills the raw block): K3/K3q and K4/K4q at LLAMA3_8B's
+    heads (T = 1 over 4096 and 4001 cells, T = 8, T = 512), the wide K4w /
+    K4qw at 8 over 4 heads of 256 and the ALiBi K4 / K4q at 40 over 40 of
+    128 (T = 512), and the GEMM at B = 512 at LLAMA3_8B's Q4_K and Q6_K
+    shapes and on the group-size-16, 256 and 8 forms, each checked and
+    graph-timed as phase 2 does.
+    `chip_smoke.py --attn-gemm-rows` runs only these: run it from two trees
+    in turns in one call to time a change of those kernels against its
+    parent on one card."""
+    from llm_tpu_torch.gguf.constants import GGMLType
+
+    results = []
+    for q8 in (False, True):
+        check_attn(results, "decode half-masked", 1, 4096, q8=q8)
+        check_attn(results, "decode ragged-S", 1, 4001, q8=q8)
+        check_attn(results, "decode T=8", 8, 4096, q8=q8)
+        check_attn(results, "prefill", 512, 4096, q8=q8)
+        check_attn(results, "prefill", 512, 4096, H=8, Hkv=4, D=256, q8=q8)
+        check_attn(results, "prefill", 512, 4096, H=40, Hkv=40, D=128, q8=q8, alibi=True)
+    for name, K, N in (("qkv", 4096, 6144), ("attn_q/o_proj", 4096, 4096),
+                       ("attn_k", 4096, 1024), ("gate_up", 4096, 28672), ("down", 14336, 4096)):
+        check_qmm(results, name, GGMLType.Q4_K, K, N, 512)
+    for name, K, N in (("attn_v", 4096, 1024), ("down", 14336, 4096)):
+        check_qmm(results, name, GGMLType.Q6_K, K, N, 512)
+    f32 = torch.float32
+    check_qmm(results, "gate_up", GGMLType.Q3_K, 4096, 28672, 512)
+    check_qmm(results, "gate_up", GGMLType.TQ2_0, 2560, 13824, 512, f32)
+    check_qmm(results, "gate_up", GGMLType.IQ1_M, 4096, 28672, 512, f32)
     return results
 
 
@@ -1717,7 +1801,14 @@ GGUF_ROW_KERNEL = {"Q3_K_M": "K1_gs16", "Q2_K": "K1_gs16", "IQ1_M": "K2_gs8",
                    "TQ2_0": "K1_gs256", "Q4_K_M": "K1"}
 
 
-def phase_two_layers_widths():
+# the vocab of phase 3's Command-R twin: the CPU replays dequantize the
+# tied table in f32 every step, and Gemma-2-9B's 256000 x 3584 took ~1 min
+# a row so (PERF.md); Command-R's 256000 x 8192 would take more than
+# twice that. Phase 2 holds the full lm_head, phase 18 runs it
+COMMAND_R_TWIN_VOCAB = 32768
+
+
+def phase_two_layers_widths(only=None):
     """two_layer_steps at Llama-3.2-1B's widths with a bf16 cache (K3/K4 at
     D = 64) and a q8_0 cache (its 64-dim rows keep 32-dim group scales: the
     unfused attention on both devices, by shape, no K3q/K4q launch), and at
@@ -1727,7 +1818,10 @@ def phase_two_layers_widths():
     head_dim 100 (the unfused attention, counted); then the GGUF rows
     (synth_gguf files of two layers loaded by models/loader.py), GLM-4-9B's
     among them (G = 16, rope on 64 of 128 dims, QKV biases, post-norms,
-    gate+up packed in ffn_up, a Q8_0 down). Every
+    gate+up packed in ffn_up, a Q8_0 down) and Command-R's (8192 wide, 64
+    heads over 64, LayerNorm weights, the parallel block, a tied table of
+    COMMAND_R_TWIN_VOCAB rows, the logit scale; only: the rows of these
+    names alone, else every row). Every
     step's logits within the two-layer tolerance of max|logit|. At every
     step the card's greedy token is one whose CPU logit lies within that
     tolerance of the CPU's top logit on the same inputs (both devices are
@@ -1738,8 +1832,8 @@ def phase_two_layers_widths():
     part. Returns each run's record."""
     import numpy as np
 
-    from llm_tpu_torch.models.synthetic import (BITNET_B158_2B, GEMMA_7B, GLM4_9B, LLAMA3_8B,
-                                                QWEN2_5_7B, QWEN3_30B_A3B)
+    from llm_tpu_torch.models.synthetic import (BITNET_B158_2B, COMMAND_R_35B, GEMMA_7B,
+                                                GLM4_9B, LLAMA3_8B, QWEN2_5_7B, QWEN3_30B_A3B)
     from llm_tpu_torch.ops import attention, cuda_attn, cuda_qmm, cuda_qmm_chain
 
     recs = []
@@ -1779,7 +1873,12 @@ def phase_two_layers_widths():
             ("TQ2_0 GGUF", dict(BITNET_B158_2B, ftype="TQ2_0", arch="bitnet"), None,
              TWO_LAYER_REL_TOL, ("K3", "K4")),
             ("GLM-4-9B GGUF", dict(GLM4_9B, ftype="Q4_K_M", arch="glm4"), None,
-             TWO_LAYER_REL_TOL, ("K3", "K4"))):
+             TWO_LAYER_REL_TOL, ("K3", "K4")),
+            ("Command-R GGUF", dict(COMMAND_R_35B, ftype="Q4_K_M", arch="command-r",
+                                    vocab=COMMAND_R_TWIN_VOCAB), None, TWO_LAYER_REL_TOL,
+             ("K3", "K4"))):
+        if only is not None and name not in only:
+            continue
         t0 = time.perf_counter()
         cuda_attn.reset_launches()
         cuda_qmm_chain.reset_launches()
@@ -2272,7 +2371,7 @@ SCAN_TIE_REL = 1e-3
 # phase 8's scan against the per-layer Context on the same planes (and
 # phases 15 and 16's uniform scans, phase 11's ISWA ring against
 # swa_full, phase 16's chained runs against the unfused one): both
-# Contexts' logits, at the prefill (or chain_steps_against's decode steps)
+# Contexts' logits, at the prefill (or steps_against's decode steps)
 # and at a replayed step where their greedy streams part, within this
 # share of max|logit|, and a part only where the top two lie within it.
 # Decode's K1 and K7 are bit-equal; the prefill GEMM's split-K atomics may
@@ -2596,7 +2695,7 @@ def iq_full_run(tag: str, params, cfg, planes_bytes: int, options: dict
     stream equal to the unfused one or parted only where the unfused
     logits' top two lie within full_depth_tol of max|logit|, and each
     Context's logits held to the unfused one's at that tolerance over
-    chain_steps_against's decode steps. Returns ({run: launch counts},
+    steps_against's decode steps. Returns ({run: launch counts},
     {run: record})."""
     from llm_tpu_torch.runtime.engine import Context
     from llm_tpu_torch.tools.profile_decode import profile_tokens
@@ -2629,8 +2728,7 @@ def iq_full_run(tag: str, params, cfg, planes_bytes: int, options: dict
                                              rec_o["launches_per_token"].items() if v},
                          **parted_at_near_tie(ctx, keep, keep_o, LLAMA3_8B_PROMPT,
                                               full_depth_tol(cfg)),
-                         steps=chain_steps_against(other, ctx, LLAMA3_8B_PROMPT,
-                                                   full_depth_tol(cfg)))
+                         steps=steps_against(other, ctx, LLAMA3_8B_PROMPT, full_depth_tol(cfg)))
         log(json.dumps(out[path]))
         del other
     return runs, out
@@ -3682,22 +3780,22 @@ def parted_at_near_tie(ctx, keep, other, n_prompt: int, rel_tol: float) -> dict:
     return rec
 
 
-# the decode steps on which phases 13 and 14 hold the chained Context's
-# logits against the unchained one's (distinct tokens, where the greedy
+# the decode steps on which steps_against holds one Context's logits
+# against another's on the same planes (distinct tokens, where the greedy
 # streams of random planes may repeat one token)
 CHAIN_STEPS = 4
 
 
-def chain_steps_against(chained, ctx, n_prompt: int, rel_tol: float = TWO_LAYER_CHAIN_REL_TOL
-                        ) -> dict:
-    """Both Contexts emptied, the n_prompt-token prompt prefilled again on
-    each, then CHAIN_STEPS single-token decode steps of distinct tokens on
-    each. A MoE's chained Context follows the unchained one's experts over
-    the prompt and the steps, the same inputs on both (RouteTwin; its
-    gate also refuses planted faults). Every step's logits within rel_tol
-    of max|logit| (by default TWO_LAYER_CHAIN_REL_TOL, the chained twin's
-    tolerance: K6 and K1/K2 round their bf16 boundaries apart as the card
-    and the CPU do)."""
+def steps_against(other, ctx, n_prompt: int, rel_tol: float = TWO_LAYER_CHAIN_REL_TOL
+                  ) -> dict:
+    """Both Contexts (other: chained or gdot; ctx: unfused) emptied, the
+    n_prompt-token prompt prefilled again on each, then CHAIN_STEPS
+    single-token decode steps of distinct tokens on each. A MoE's other
+    Context follows ctx's experts over the prompt and the steps, the same
+    inputs on both (RouteTwin; its gate also refuses planted faults).
+    Every step's logits within rel_tol of max|logit| (by default
+    TWO_LAYER_CHAIN_REL_TOL, the chained twin's tolerance: K6 and K1/K2
+    round their bf16 boundaries apart as the card and the CPU do)."""
     import numpy as np
 
     from llm_tpu_torch.runtime.batch import Batch
@@ -3706,8 +3804,8 @@ def chain_steps_against(chained, ctx, n_prompt: int, rel_tol: float = TWO_LAYER_
     toks = [(i * 7919 + 13) % ctx.cfg.vocab_size for i in range(1, CHAIN_STEPS + 1)]
     lg = {}
     with RouteTwin() as route:
-        for name, c in (("unchained", ctx), ("chain", chained)):
-            if name == "unchained":
+        for name, c in (("ctx", ctx), ("other", other)):
+            if name == "ctx":
                 route.mode = "record"
             else:
                 route.follow()
@@ -3719,18 +3817,18 @@ def chain_steps_against(chained, ctx, n_prompt: int, rel_tol: float = TWO_LAYER_
                 steps.append(c.get_logits().copy())
             lg[name] = np.stack(steps)
         route.mode = None
-    route.followed_all("the chained steps")
+    route.followed_all("the other Context's steps")
     if ctx.cfg.n_expert:
         route.planted_fault()
-    err = float(np.abs(lg["chain"] - lg["unchained"]).max())
-    tol = rel_tol * float(np.abs(lg["unchained"]).max())
-    rec = dict(chain_steps_max_abs_err=err, tol=tol, rel_err=err / float(
-        np.abs(lg["unchained"]).max()), top1_equal=[int(a.argmax()) == int(b.argmax())
-                                                   for a, b in zip(lg["chain"], lg["unchained"])],
-        **route.record())
+    err = float(np.abs(lg["other"] - lg["ctx"]).max())
+    top = float(np.abs(lg["ctx"]).max())
+    rec = dict(steps_max_abs_err=err, tol=rel_tol * top, rel_err=err / top,
+               top1_equal=[int(a.argmax()) == int(b.argmax())
+                           for a, b in zip(lg["other"], lg["ctx"])], **route.record())
     log(json.dumps(rec))
-    if not (np.isfinite(lg["chain"]).all() and err <= tol):
-        raise AssertionError(f"chained vs unchained decode steps: max|err| {err} > {tol}")
+    if not (np.isfinite(lg["other"]).all() and err <= rel_tol * top):
+        raise AssertionError(f"decode steps against the unfused Context: max|err| {err} > "
+                             f"{rel_tol * top}")
     return rec
 
 
@@ -3748,7 +3846,7 @@ def phase_qwen3_30b_a3b() -> dict:
     (b) chain=True on the same planes, 16 tokens: K6 for each fused head
         (qk-norm after it) and the lm_head, every MoE tail unchained; the
         stream equal to (a)'s or parted only at a near tie; then
-        chain_steps_against (a)'s Context, which holds the chained logits
+        steps_against (a)'s Context, which holds the chained logits
         to the unchained ones on the same experts (RouteTwin, outside the
         timed windows, which run no hook);
     (c) the q8_0 cache: prefill 512, 32 greedy tokens (K3q, K4q).
@@ -3803,7 +3901,7 @@ def phase_qwen3_30b_a3b() -> dict:
     out["b"] = dict(phase=13, path="Qwen3-30B-A3B chain", K6_per_token=rec_c[
         "launches_per_token"]["K6"], ms_per_token=1e3 / rec_c["decode_tok_s"],
         **parted_at_near_tie(ctx, keep, keep_c, QWEN3_PROMPT, TWO_LAYER_CHAIN_REL_TOL),
-        steps=chain_steps_against(chained, ctx, QWEN3_PROMPT))
+        steps=steps_against(chained, ctx, QWEN3_PROMPT))
     del chained
     torch.cuda.empty_cache()
     log(json.dumps(out["b"]))
@@ -3843,7 +3941,7 @@ def phase_gemma_7b() -> dict:
     attention; profiled over 8 more tokens; then the unchained Context's
     128 tokens on the same planes, the streams equal or parted only at a
     near tie (random planes with a tied, scaled table repeat one token),
-    and chain_steps_against it on distinct tokens. Returns K6_gelu's
+    and steps_against it on distinct tokens. Returns K6_gelu's
     launches and the records."""
     from llm_tpu_torch.gguf.constants import GGMLType
     from llm_tpu_torch.models.synthetic import GEMMA_7B, make_synthetic_model
@@ -3884,7 +3982,7 @@ def phase_gemma_7b() -> dict:
         K6_per_token=rec_c["launches_per_token"]["K6"],
         distinct_tokens=len(set(keep_c["tokens"])),
         **parted_at_near_tie(ctx, keep, keep_c, GEMMA7B_PROMPT, TWO_LAYER_CHAIN_REL_TOL),
-        steps=chain_steps_against(chained, ctx, GEMMA7B_PROMPT))
+        steps=steps_against(chained, ctx, GEMMA7B_PROMPT))
     log(json.dumps(out["chain"]))
     del chained, ctx, params
     torch.cuda.empty_cache()
@@ -3892,16 +3990,19 @@ def phase_gemma_7b() -> dict:
     return out
 
 
-# phase 17: GLM-4-9B-0414 at full width and depth (40 layers) on 4096
-# cells: a 512-token prefill and 128 greedy tokens with the bf16 cache,
-# unfused and with gdot, then 512 + 32 with the q8_0 cache
+# phase 17: GLM-4-9B-0414 at full width and GLM4_LAYERS of its 40 layers
+# (cut to 20 to pay for phase 18 within the time limit) on 4096 cells: a
+# 512-token prefill and 128 greedy tokens with the bf16 cache, unfused and
+# with gdot, then 512 + 32 with the q8_0 cache
+GLM4_LAYERS = 20
 GLM4_CELLS = 4096
 GLM4_PROMPT, GLM4_DECODE = 512, 128
 GLM4_Q8_DECODE = 32
 
 
 def glm4_9b_planes():
-    """GLM-4-9B's Q4_K_M-style random planes made on the card from seed 17:
+    """GLM-4-9B's Q4_K_M-style random planes made on the card from seed 17
+    at GLM4_LAYERS layers:
     Q4_K everywhere but a Q6_K attn_v (the use_more_bits layers, whose QKV
     then stays unfused) and lm_head, ffn_down Q8_0 (K = 13696, no multiple
     of 256), gate+up packed in one [27392, 4096] matrix, f32 QKV biases and
@@ -3912,7 +4013,8 @@ def glm4_9b_planes():
 
     t0 = time.perf_counter()
     params, cfg = make_synthetic_model(qtype=GGMLType.Q4_K, device="cuda", on_device=True,
-                                       seed=17, recipe="Q4_K_M", arch="glm4", **GLM4_9B)
+                                       seed=17, recipe="Q4_K_M", arch="glm4",
+                                       **dict(GLM4_9B, n_layers=GLM4_LAYERS))
     torch.cuda.synchronize()
     log(json.dumps(dict(glm4_9b_planes_s=time.perf_counter() - t0)))
     planes = planes_summary(params, cfg, "glm4_9b")
@@ -3931,66 +4033,167 @@ def glm4_9b_planes():
     return params, cfg, planes
 
 
-def phase_glm4_9b() -> dict:
-    """Phase 17: GLM-4-9B-0414 (32 heads over 2 of 128, G = 16, rope NORM on
-    64 of the 128 dims, QKV biases, post-norms, gate+up packed in ffn_up, a
-    Q8_0 down at K = 13696, a Q6_K lm_head of 151552 rows) at full width
-    and depth on glm4_9b_planes:
-    (a) the bf16 cache (4096 cells): prefill 512, then 128 greedy tokens,
-        launches by kernel (K1 and K2 on every matmul, K3 / K4 a layer a
-        step), profiled over 8 more tokens;
-    (b) the same with gdot (K5 on every p4 matmul at decode), its stream
-        equal to (a)'s or parted only at a near tie (SCAN_REL_TOL);
-    (c) the q8_0 cache: prefill 512, GLM4_Q8_DECODE greedy tokens (K3q,
+def run_full_model_phase(phase: int, model: str, params, cfg, planes_bytes: int, card: str,
+                         cells: int, prompt: int, decode: int, gdot_decode: int,
+                         q8_decode: int, chain: bool = False) -> dict:
+    """One dense model's planes at full width through the main path:
+    (a) the bf16 cache (`cells` cells): prefill `prompt` tokens, then
+        `decode` greedy tokens, launches by kernel (K1 and K2 on every
+        matmul, K3 / K4 a layer a step), profiled over 8 more tokens;
+    (b) gdot (K5 on every p4 matmul at decode) for `gdot_decode` tokens,
+        the stream equal to (a)'s or parted only at a near tie, and
+        steps_against (a)'s Context on distinct tokens within SCAN_REL_TOL
+        (random planes with a tied table repeat one greedy token, which a
+        fault that leaves that token on top would not move);
+    (c) with `chain`: chain=True, whose gate refuses LayerNorm and the
+        parallel block, so CHAIN_STEPS decode steps give the unchained
+        logits bit for bit and launch no K6;
+    (d) the q8_0 cache: prefill `prompt`, `q8_decode` greedy tokens (K3q,
         K4q).
-    Returns the records."""
+    Each record is logged beside the card's name and power limit. Returns
+    the records, and each run's launches under "counts"."""
+    from llm_tpu_torch.ops import cuda_qmm_chain
     from llm_tpu_torch.runtime.engine import Context
     from llm_tpu_torch.tools.profile_decode import profile_tokens
 
-    params, cfg, planes = glm4_9b_planes()
     out = {}
-    ctx = Context(None, n_cells=GLM4_CELLS, device="cuda", params_cfg=(params, cfg))
+    ctx = Context(None, n_cells=cells, device="cuda", params_cfg=(params, cfg))
     keep = {}
-    counts, rec = run_llama3_8b(ctx, ("K3", "K4"), keep, GLM4_DECODE, GLM4_PROMPT)
+    counts, rec = run_llama3_8b(ctx, ("K3", "K4"), keep, decode, prompt)
     prof = profile_tokens(ctx, rec["last_token"], 8)
     log("profile_decode " + json.dumps(prof))
-    check_gemv_profile(prof, memsets=1)  # the greedy argmax's over 151552 logits
+    check_gemv_profile(prof, memsets=1)  # the greedy argmax's over the vocabulary
     check_attn_profile(prof, cfg.n_layers)
     out["bf16"] = dict(
-        phase=17, path="GLM-4-9B bf16 cache", ms_per_token=1e3 / rec["decode_tok_s"],
-        decode_tok_s=rec["decode_tok_s"], prefill_tok_s=rec["prefill_tok_s"],
+        phase=phase, path=f"{model} bf16 cache", n_layers=cfg.n_layers,
+        ms_per_token=1e3 / rec["decode_tok_s"], decode_tok_s=rec["decode_tok_s"],
+        prefill_tok_s=rec["prefill_tok_s"], prefill_ms_per_token=1e3 / rec["prefill_tok_s"],
         decode_bound_tok_s=rec["decode_bound_tok_s"],
-        planes_bytes=planes["glm4_9b_planes_bytes"], kv_bytes=rec["kv_bytes"],
-        peak_mem_gib=rec["peak_mem_gib"],
+        decode_bytes_per_token=decode_bytes_per_token(ctx),
+        planes_bytes=planes_bytes, kv_bytes=rec["kv_bytes"], peak_mem_gib=rec["peak_mem_gib"],
         device_busy_ms_per_token=prof["device_busy_ms_per_token"],
         idle_share=prof["idle_share"], gemv_ms_per_token=prof.get("gemv_ms_per_token"),
         device_launches_per_token=prof["device_launches_per_token"],
         launches_per_token={k: v for k, v in rec["launches_per_token"].items() if v},
-        distinct_tokens=len(set(keep["tokens"])))
+        distinct_tokens=len(set(keep["tokens"])), card=card)
     log(json.dumps(out["bf16"]))
 
-    gdot = Context(None, n_cells=GLM4_CELLS, device="cuda", params_cfg=(params, cfg), gdot=True)
+    gdot = Context(None, n_cells=cells, device="cuda", params_cfg=(params, cfg), gdot=True)
     keep_g = {}
-    counts_g, rec_g = run_llama3_8b(gdot, ("K3", "K4"), keep_g, GLM4_DECODE, GLM4_PROMPT)
-    out["gdot"] = dict(phase=17, path="GLM-4-9B gdot", ms_per_token=1e3 / rec_g["decode_tok_s"],
-                       prefill_tok_s=rec_g["prefill_tok_s"],
-                       launches_per_token={k: v for k, v in
-                                           rec_g["launches_per_token"].items() if v},
-                       **parted_at_near_tie(ctx, keep, keep_g, GLM4_PROMPT, SCAN_REL_TOL))
+    counts_g, rec_g = run_llama3_8b(gdot, ("K3", "K4"), keep_g, gdot_decode, prompt)
+    out["gdot"] = dict(phase=phase, path=f"{model} gdot", ms_per_token=1e3 / rec_g[
+        "decode_tok_s"], prefill_tok_s=rec_g["prefill_tok_s"],
+        launches_per_token={k: v for k, v in rec_g["launches_per_token"].items() if v},
+        **parted_at_near_tie(ctx, keep, keep_g, prompt, SCAN_REL_TOL),
+        steps=steps_against(gdot, ctx, prompt, SCAN_REL_TOL), card=card)
     log(json.dumps(out["gdot"]))
-    del gdot, ctx
+    del gdot
     torch.cuda.empty_cache()
 
-    q8 = Context(None, n_cells=GLM4_CELLS, device="cuda", params_cfg=(params, cfg),
-                 kv_dtype="q8_0")
-    counts_q8, rec_q8 = run_llama3_8b(q8, ("K3q", "K4q"), None, GLM4_Q8_DECODE, GLM4_PROMPT)
-    out["q8_0"] = dict(phase=17, path="GLM-4-9B q8_0 cache", kv_bytes=rec_q8["kv_bytes"],
+    if chain:
+        chained = Context(None, n_cells=cells, device="cuda", params_cfg=(params, cfg),
+                          chain=True)
+        cuda_qmm_chain.reset_launches()
+        steps = steps_against(chained, ctx, prompt, rel_tol=0.0)
+        k6 = dict(cuda_qmm_chain.LAUNCHES)
+        out["chain"] = dict(phase=phase, path=f"{model} chain=True", k6_launches=k6,
+                            bit_equal=steps["steps_max_abs_err"] == 0.0, card=card)
+        log(json.dumps(out["chain"]))
+        if any(k6.values()) or not out["chain"]["bit_equal"]:
+            raise AssertionError(f"{model} under chain=True: K6 launches {k6}, steps {steps}")
+        del chained
+    del ctx
+    torch.cuda.empty_cache()
+
+    q8 = Context(None, n_cells=cells, device="cuda", params_cfg=(params, cfg), kv_dtype="q8_0")
+    counts_q8, rec_q8 = run_llama3_8b(q8, ("K3q", "K4q"), None, q8_decode, prompt)
+    out["q8_0"] = dict(phase=phase, path=f"{model} q8_0 cache", kv_bytes=rec_q8["kv_bytes"],
                        ms_per_token=1e3 / rec_q8["decode_tok_s"],
-                       prefill_tok_s=rec_q8["prefill_tok_s"], peak_mem_gib=rec_q8["peak_mem_gib"])
+                       prefill_tok_s=rec_q8["prefill_tok_s"],
+                       decode_bound_tok_s=rec_q8["decode_bound_tok_s"],
+                       peak_mem_gib=rec_q8["peak_mem_gib"], card=card)
     log(json.dumps(out["q8_0"]))
-    del q8, params
+    del q8
     torch.cuda.empty_cache()
     out["counts"] = {"bf16": counts, "gdot": counts_g, "q8_0": counts_q8}
+    return out
+
+
+def phase_glm4_9b(card: str) -> dict:
+    """Phase 17: GLM-4-9B-0414 (32 heads over 2 of 128, G = 16, rope NORM on
+    64 of the 128 dims, QKV biases, post-norms, gate+up packed in ffn_up, a
+    Q8_0 down at K = 13696, a Q6_K lm_head of 151552 rows) at full width
+    and GLM4_LAYERS layers on glm4_9b_planes, through run_full_model_phase
+    (bf16, gdot and the q8_0 cache). Returns the records."""
+    params, cfg, planes = glm4_9b_planes()
+    out = run_full_model_phase(17, "GLM-4-9B", params, cfg, planes["glm4_9b_planes_bytes"], card,
+                               GLM4_CELLS, GLM4_PROMPT, GLM4_DECODE, GLM4_DECODE, GLM4_Q8_DECODE)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+# phase 18: Command-R v01 at full width and COMMAND_R_LAYERS of its 40
+# layers (cut to 20: at 40 the whole script took 1040 s on an H100 host) on 4096
+# cells: a 512-token prefill and 128 greedy tokens with the bf16 cache,
+# unfused, then gdot, chain and the q8_0 cache on fewer tokens
+COMMAND_R_LAYERS = 20
+COMMAND_R_CELLS = 4096
+COMMAND_R_PROMPT, COMMAND_R_DECODE = 512, 128
+COMMAND_R_GDOT_DECODE = 32
+COMMAND_R_Q8_DECODE = 32
+
+
+def command_r_planes():
+    """Command-R v01's Q4_K_M-style random planes made on the card from
+    seed 19 at COMMAND_R_LAYERS layers: Q4_K everywhere but a Q6_K attn_v
+    and ffn_down in the use_more_bits layers (whose q, k and v then stay
+    unfused) and the tied Q6_K table (256000 rows; the lm_head its K-major
+    copy), an attn_norm (LayerNorm weights, no bias) and no ffn_norm a
+    layer. Returns (params, cfg, planes_summary's record)."""
+    from llm_tpu_torch.gguf.constants import GGMLType
+    from llm_tpu_torch.models.synthetic import COMMAND_R_35B, make_synthetic_model, use_more_bits
+    from llm_tpu_torch.ops.rope import ROPE_TYPE_NORM
+
+    t0 = time.perf_counter()
+    params, cfg = make_synthetic_model(qtype=GGMLType.Q4_K, device="cuda", on_device=True,
+                                       seed=19, recipe="Q4_K_M", arch="command-r",
+                                       **dict(COMMAND_R_35B, n_layers=COMMAND_R_LAYERS))
+    torch.cuda.synchronize()
+    log(json.dumps(dict(command_r_planes_s=time.perf_counter() - t0)))
+    planes = planes_summary(params, cfg, "command_r")
+    widths = ("n_embd", "n_heads", "n_kv_heads", "n_ff", "head_dim")
+    if (cfg.arch, cfg.norm_kind, cfg.parallel_residual, cfg.logit_scale, cfg.rope.mode,
+            cfg.vocab_size) != ("command-r", "ln", True, 0.0625, ROPE_TYPE_NORM,
+                                COMMAND_R_35B["vocab"]) \
+            or any(getattr(cfg, k) != COMMAND_R_35B[k] for k in widths):
+        raise AssertionError(f"not Command-R's profile: {cfg}")
+    if not (params["tok_embd"].ggml_type == params["output"].ggml_type == GGMLType.Q6_K
+            and params["output"].out_features == cfg.vocab_size):
+        raise AssertionError("not the tied Q6_K table")
+    for il, layer in enumerate(params["layers"]):
+        more = use_more_bits(il, cfg.n_layers)
+        down = GGMLType.Q6_K if more else GGMLType.Q4_K
+        if layer["ffn_down"].ggml_type != down or ("attn_qkv_fused" in layer) == more \
+                or "ffn_norm" in layer or layer["attn_norm"].shape != (cfg.n_embd,) \
+                or layer["ffn_gateup_fused"].out_features != 2 * cfg.n_ff:
+            raise AssertionError(f"layer {il} is not the Q4_K_M recipe's Command-R layer")
+    return params, cfg, planes
+
+
+def phase_command_r_35b(card: str) -> dict:
+    """Phase 18: Command-R v01 (8192 wide, 64 heads over 64 of 128, G = 1,
+    ff 22528, LayerNorm, the parallel block on one shared norm, logits
+    times 0.0625, a tied 256000-row Q6_K table) at full width and
+    COMMAND_R_LAYERS layers on command_r_planes, through
+    run_full_model_phase (bf16, gdot on COMMAND_R_GDOT_DECODE tokens,
+    chain=True bit-equal with no K6, the q8_0 cache). Returns the records."""
+    params, cfg, planes = command_r_planes()
+    out = run_full_model_phase(18, "Command-R", params, cfg, planes["command_r_planes_bytes"],
+                               card, COMMAND_R_CELLS, COMMAND_R_PROMPT, COMMAND_R_DECODE,
+                               COMMAND_R_GDOT_DECODE, COMMAND_R_Q8_DECODE, chain=True)
+    del params
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4212,6 +4415,17 @@ def main() -> int:
         decode_rows()
         log("decode rows passed")
         return 0
+    if sys.argv[1:] == ["--attn-gemm-rows"]:
+        attn_gemm_rows()
+        log("attention and GEMM rows passed")
+        return 0
+    if sys.argv[1:] == ["--command-r"]:
+        command_r_rows([])
+        phase_two_layers_widths(only=("Command-R GGUF",))
+        t0 = time.perf_counter()
+        phase_command_r_35b(card)
+        log(f"Command-R at {COMMAND_R_LAYERS} layers passed in {time.perf_counter() - t0:.1f} s")
+        return 0
     if sys.argv[1:] == ["--screen-seeds"]:
         sweep_seeds(range(1, 65), devices=("cuda",))
         return 0
@@ -4286,10 +4500,11 @@ def main() -> int:
     log(f"Gemma-7B with chain at {GEMMA7B_LAYERS} layers passed in "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    glm4 = phase_glm4_9b()
-    log(f"GLM-4-9B at full depth passed in {time.perf_counter() - t0:.1f} s")
-    for run in ("bf16", "gdot", "q8_0"):
-        log(json.dumps(dict(glm4[run], card=card)))
+    glm4 = phase_glm4_9b(card)
+    log(f"GLM-4-9B at {GLM4_LAYERS} layers passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_command_r_35b(card)
+    log(f"Command-R at {COMMAND_R_LAYERS} layers passed in {time.perf_counter() - t0:.1f} s")
     # each kernel's launches from the path that runs it: K1-K4 from phase 4,
     # K3q/K4q from phase 5, K5 from phase 6, K6 from phase 7, K7 from phase
     # 8, the wide K3w/K4w/K3qw/K4qw from phase 3's Gemma-2-2B and

@@ -15,7 +15,11 @@ QTensors (rows-layout planes with a leading expert dim [E, ...]) and dense
 fields; so do layer vectors such as bitnet's sub-norms (attn_sub_norm,
 ffn_sub_norm) and its act "relu2", and the knobs of the RMS-norm llama
 graphs (embedding_scale, residual_scale, logit_scale, qk_norm_full, a
-partial rope's n_dims). This module reads no llm_tpu code.
+partial rope's n_dims), and those of the LayerNorm graphs (norm_kind,
+parallel_residual, nonparam_norm, attn_bias) with their bias vectors,
+learned positions (pos_embd) and embedding norm (tok_norm); cohere2's
+nope_global_layers comes across too, for the forward to refuse. This
+module reads no llm_tpu code.
 """
 
 from __future__ import annotations
@@ -78,8 +82,7 @@ def _convert(obj):
 # shard-major fused QKV and gate+up planes, which the port would split as
 # segment-major), so config_from_reference refuses it
 UNMODELED_DEFAULTS = {
-    "qk_norm_ln": False, "nonparam_norm": False, "rope_swa": None,
-    "nope_global_layers": False, "swa_chunked": False, "attn_temp_scale": 0.0,
+    "qk_norm_ln": False, "rope_swa": None, "swa_chunked": False, "attn_temp_scale": 0.0,
     "attn_temp_floor": 8192, "qk_l2_norm": False, "expert_weight_before": False,
     "ssm_d_conv": 0, "ssm_d_inner": 0, "ssm_d_state": 0, "ssm_dt_rank": 0,
     "ssm_n_group": 0, "ssm_dt_b_c_rms": False, "wkv_head_size": 0, "rescale_every_n": 0,

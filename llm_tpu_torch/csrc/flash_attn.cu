@@ -588,6 +588,9 @@ __device__ __forceinline__ void da_consumer(const DecArgs& a, uint8_t* smem, uin
         mma_bf16(acc[dm][nr], va, pl[nr][0], pl[nr][1]);
       }
     }
+    // the slot's K, V, tables and bias rows were read by ld.shared and
+    // ldmatrix (the generic proxy); the producer's next TMA writes it
+    fence_proxy_async();
     __syncwarp();
     if (lane == 0) mbar_arrive(empty0 + 8 * slot);
   }
@@ -1107,6 +1110,7 @@ __device__ __forceinline__ void dw_consumer(const DecArgs& a, uint8_t* smem, uin
         }
       }
     }
+    fence_proxy_async();  // generic reads of the NC slots before their next TMA
     __syncwarp();
     if (lane == 0) {
 #pragma unroll

@@ -223,10 +223,12 @@ __device__ __forceinline__ void wide_producer(const PrefillCta& cta, const CUten
       }
       mbar_wait(cta.rawbar, it & 1);
       convert_block<Q8>(cta.smem + c * FP_STAGE, cta.smem + FP_RAW, p, ksc, vsc);
+      // as prefill_producer: the raw block's reads and the stage's writes
+      // ordered before the next TMA into the raw block and the wgmma
+      fence_proxy_async();
       asm volatile("bar.sync 1, 128;\n" ::: "memory");
       if (it + 1 < 2 * nblk)
         load_raw_wide<Q8>(w, raw, cta.rawbar, tmk, tmv, tmc, tms, (b + c) * FP_SB, c ^ 1, h, p);
-      fence_proxy_async();
       mbar_arrive(full);
     }
   }
@@ -408,6 +410,8 @@ __device__ __forceinline__ void wide_consumers(const PrefillCta& cta, const Pref
     wg_commit();
     wg_wait<0>();
     fence_regs(o);
+    // no proxy fence: only wgmma read this slot (the partial scores meet in
+    // xch, outside the ring), and wait_group 0 has seen those reads complete
     __syncwarp();
     if (lane == 0) mbar_arrive(cta.empty0 + 8 * wg);
   }

@@ -66,8 +66,9 @@
 //    and V), cos and sin into the raw block (the cells past S read as
 //    zero), one block ahead, and K4's V straight into its stage slot; the
 //    128 lanes turn the raw block into the planes (and K4q's V, dequantized)
-//    with byte permutes, no conversion instruction, and fence their stores
-//    into the async proxy before the stage's full barrier releases it. The
+//    with byte permutes, no conversion instruction, and fence the async
+//    proxy before lane 0's next TMA refills the raw block they read and
+//    before the stage's full barrier releases the planes they wrote. The
 //    producer alone takes about half the kernel's time
 //    (tools/prefill_split.py, which times each side alone from
 //    csrc/flash_prefill_probe.cu; PERF.md).
@@ -164,10 +165,6 @@ __device__ __forceinline__ void named_sync(int id) {
 }
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 template <int N>
@@ -452,11 +449,14 @@ __device__ __forceinline__ void prefill_producer(const PrefillCta& c, const CUte
     }
     mbar_wait(rawbar, b & 1);
     convert_block<Q8, ALIBI>(smem + stage * FP_STAGE, smem + FP_RAW, p, ksc, vsc);
+    // each lane's generic reads of the raw block and writes of the stage
+    // are ordered before the async proxy: lane 0's next TMA into the raw
+    // block, and the consumers' wgmma on the stage
+    fence_proxy_async();
     // every lane has read the raw block: lane 0 asks for the next one
     asm volatile("bar.sync 1, 128;\n" ::: "memory");
     if (p == 0 && b + 1 < nblk)
       load_raw<Q8, ALIBI>(raw, rawbar, tmk, tmv, tmc, tms, (b + 1) * FP_SB, h);
-    fence_proxy_async();
     mbar_arrive(full);
     if (++stage == FP_STAGES) {
       stage = 0;
@@ -660,6 +660,9 @@ __device__ __forceinline__ void prefill_consumers(
     if (wg == 0 || b + 1 < nblk) named_arrive(other);  // warpgroup 1's last turn is the last
     wg_wait<0>();
     fence_regs(o);
+    // no proxy fence before the release: only wgmma (the async proxy) read
+    // this slot (q and the bias come from global memory), and wait_group 0
+    // has seen those reads complete
     __syncwarp();
     if (lane == 0) mbar_arrive(empty0 + 8 * stage);
     if (++stage == FP_STAGES) {

@@ -33,6 +33,15 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
+// orders this thread's generic-proxy accesses of shared memory (ld.shared,
+// ldmatrix, st.shared) before later async-proxy ones (TMA, wgmma): a
+// consumer runs it in every lane before its warp gives a ring slot that it
+// read back to the producer, whose next TMA refills the slot; a producer
+// runs it after writing a slot that wgmma will read
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   asm volatile(
       "{\n"

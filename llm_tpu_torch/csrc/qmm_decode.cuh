@@ -192,7 +192,7 @@ __device__ __forceinline__ void ld_eight(const uint8_t* row, int col, float (&v)
 // lane's reads of the slot (generic proxy) are performed before the TMA
 // that refills it (async proxy) can write, then one arrival for the warp
 __device__ __forceinline__ void dv_release(uint32_t empty, int lane) {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  fence_proxy_async();
   __syncwarp();
   if (lane == 0) mbar_arrive(empty);
 }

@@ -172,7 +172,9 @@
             wg_commit();
             wg_wait<GM_INFLIGHT>();
             if ((2 * p + h) * 2 + j == GM_INFLIGHT && pending >= 0) {
-              // every matrix instruction that read the previous stage is done
+              // every matrix instruction that read the previous stage is done;
+              // its planes and scales were read by ld.shared (generic proxy)
+              fence_proxy_async();
               __syncwarp();
               if (lane == 0) mbar_arrive(empty0 + 8 * pending);
               pending = -1;
@@ -189,6 +191,7 @@
     wg_wait<0>();
     fence_acc(acc[0]);
     fence_acc(acc[1]);
+    fence_proxy_async();
     __syncwarp();
     if (lane == 0) mbar_arrive(empty0 + 8 * pending);
     pending = -1;

@@ -11,9 +11,16 @@ experts, mixtral and qwen3moe, not for qwen2moe), bitnet's squared relu,
 granite's and minicpm's embedding, residual, logit and attention scales,
 olmo2's qk-norm over the whole q and k, arcee's ungated squared relu, the
 RMS-norm llama graphs that differ only in their tensors (glm4, phi3,
-ernie4_5, xverse, internlm2, exaone), and the variant flags that the
+ernie4_5, xverse, internlm2, exaone), the LayerNorm graphs (command-r,
+falcon, phi2, gptneox, gptj, starcoder2, stablelm, orion, nemotron, olmo,
+gpt2, starcoder, bloom, mpt: the norm kind, their act, the parallel
+residual, QKV biases, olmo's norm without parameters, rope NONE with or
+without ALiBi, command-r's logit scale), and the variant flags that the
 port's forward refuses (it raises NotImplementedError for them, see
-models/transformer.py)."""
+models/transformer.py). Every eps is read from
+{arch}.attention.layer_norm_rms_epsilon, as the reference reads it (an
+LN file that carries only layer_norm_epsilon runs at 1e-5 there too:
+ROADMAP "Faults in the reference")."""
 
 from __future__ import annotations
 
@@ -34,10 +41,18 @@ from ..ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NONE, ROPE_TYPE_NORM, RopeParam
 # scales), olmo2 (post-norms only, qk-norm over the whole q and k), arcee
 # (an ungated squared relu), glm4 (QKV biases, post-norms, gate+up packed
 # in ffn_up, half-width rope), phi3 (fused QKV, gate+up packed in ffn_up)
-# and ernie4_5, xverse, internlm2 and exaone (the llama graph)
+# and ernie4_5, xverse, internlm2 and exaone (the llama graph); and the
+# LayerNorm graphs: command-r (a parallel block on one shared norm, a logit
+# scale), falcon, gptj and phi2 (parallel, the FFN on the attention's
+# normed input), gptneox (parallel with its own ffn_norm), starcoder2 and
+# stablelm (QKV biases), orion, nemotron (an ungated squared relu), olmo
+# (no norm parameters), gpt2 and starcoder (learned positions, no rope),
+# bloom and mpt (ALiBi, no rope; bloom's embedding norm)
+LN_ARCHS = ("command-r", "falcon", "phi2", "gptneox", "gptj", "starcoder2", "stablelm",
+            "orion", "nemotron", "olmo", "gpt2", "starcoder", "bloom", "mpt")
 LLAMA_ARCHS = ("llama", "gemma", "gemma2", "baichuan", "refact", "qwen2", "qwen3",
                "qwen2moe", "qwen3moe", "mixtral", "bitnet", "glm4", "granite", "minicpm",
-               "olmo2", "phi3", "arcee", "ernie4_5", "xverse", "internlm2", "exaone")
+               "olmo2", "phi3", "arcee", "ernie4_5", "xverse", "internlm2", "exaone") + LN_ARCHS
 # rope layout per architecture (llm_tpu/models/config.py _ROPE_MODE, whose
 # default is NEOX; refact's is then replaced by NONE)
 _ROPE_MODE = {"llama": ROPE_TYPE_NORM, "gemma": ROPE_TYPE_NEOX, "gemma2": ROPE_TYPE_NEOX,
@@ -47,7 +62,12 @@ _ROPE_MODE = {"llama": ROPE_TYPE_NORM, "gemma": ROPE_TYPE_NEOX, "gemma2": ROPE_T
               "granite": ROPE_TYPE_NORM, "minicpm": ROPE_TYPE_NORM, "olmo2": ROPE_TYPE_NEOX,
               "phi3": ROPE_TYPE_NEOX, "arcee": ROPE_TYPE_NORM, "ernie4_5": ROPE_TYPE_NORM,
               "xverse": ROPE_TYPE_NORM, "internlm2": ROPE_TYPE_NORM,
-              "exaone": ROPE_TYPE_NEOX}
+              "exaone": ROPE_TYPE_NEOX, "command-r": ROPE_TYPE_NORM, "falcon": ROPE_TYPE_NEOX,
+              "phi2": ROPE_TYPE_NEOX, "gptneox": ROPE_TYPE_NEOX, "gptj": ROPE_TYPE_NORM,
+              "starcoder2": ROPE_TYPE_NEOX, "stablelm": ROPE_TYPE_NEOX,
+              "orion": ROPE_TYPE_NEOX, "nemotron": ROPE_TYPE_NEOX, "olmo": ROPE_TYPE_NORM,
+              "gpt2": ROPE_TYPE_NEOX, "starcoder": ROPE_TYPE_NEOX, "bloom": ROPE_TYPE_NEOX,
+              "mpt": ROPE_TYPE_NEOX}
 # baichuan's 13B profile, keyed on its layer count as the reference keys it
 BAICHUAN_13B_LAYERS = 40
 # the ALiBi max_bias baichuan-13B and refact hardcode (llama-model.cpp)
@@ -69,7 +89,7 @@ class ModelConfig:
     rope: RopeParams = field(default_factory=lambda: RopeParams(n_dims=0))
     attn_scale: float | None = None  # None -> 1/sqrt(head_dim)
     tie_embeddings: bool = False
-    norm_kind: str = "rms"
+    norm_kind: str = "rms"  # "rms" | "ln" (LayerNorm, models/transformer.py::norm)
     act: str = "silu"
     context_length: int = 0
     # mixture of experts (models/transformer.py::moe_ffn): experts, those a
@@ -83,7 +103,7 @@ class ModelConfig:
     expert_weights_scale: float = 1.0
     expert_gating_func: str = "softmax"
     ep_cf: float = 0.0
-    attn_bias: bool = False  # QKV biases (qwen2, qwen2moe)
+    attn_bias: bool = False  # QKV biases (qwen2, qwen2moe, starcoder2, stablelm, phi2)
     qk_norm: bool = False  # per-head RMS norm of q and k (qwen3, qwen3moe)
     qk_norm_full: bool = False  # RMS norm over the whole q and k (olmo2)
     # granite's and minicpm's scales: the embedding, the attention and FFN
@@ -91,6 +111,11 @@ class ModelConfig:
     embedding_scale: float = 1.0
     residual_scale: float = 1.0
     logit_scale: float = 1.0
+    # the LayerNorm graphs: olmo's norms without weight or bias (even where
+    # the file has no norm tensor), and the parallel block (attention and
+    # FFN both read the layer's input, x + ffn + attn)
+    nonparam_norm: bool = False
+    parallel_residual: bool = False
     # variants of the llama graph the JAX package supports and this port
     # does not run yet; forward raises NotImplementedError when one is set
     attn_softcap: float = 0.0
@@ -100,7 +125,7 @@ class ModelConfig:
     alibi_max_bias: float = 0.0
     kv_lora_rank: int = 0
     rope_sections: tuple | None = None
-    parallel_residual: bool = False
+    nope_global_layers: bool = False  # cohere2: no rope on its global layers
 
     @property
     def n_rep(self) -> int:
@@ -216,6 +241,37 @@ def config_from_gguf(reader) -> ModelConfig:
     # ernie4_5, xverse, internlm2, exaone: the llama graph; glm4 (post-norms,
     # QKV biases, packed gate+up) and phi3 (fused QKV, packed gate+up): by
     # their tensors
+    if arch in LN_ARCHS:
+        # llm_tpu/models/config.py's LayerNorm branches: gelu for most, an
+        # ungated squared relu for nemotron; the parallel block for
+        # command-r, falcon, phi2 and gptj, and for gptneox unless its file
+        # says use_parallel_residual false; QKV biases for starcoder2,
+        # stablelm and phi2; olmo's norms without parameters; no rope for
+        # gpt2, starcoder, bloom and mpt, with ALiBi of max_bias 8 for bloom
+        # and the file's max_alibi_bias for mpt; command-r's logit scale, a
+        # multiplier (granite and minicpm divide by theirs)
+        kw = dict(norm_kind="ln")
+        if arch in ("falcon", "phi2", "gptneox", "gptj", "starcoder2", "gpt2", "starcoder",
+                    "bloom", "mpt"):
+            kw["act"] = "gelu"
+        if arch == "nemotron":
+            kw["act"] = "relu2"
+        if arch in ("command-r", "falcon", "phi2", "gptj") or (
+                arch == "gptneox" and bool(ak("{arch}.use_parallel_residual", True))):
+            kw["parallel_residual"] = True
+        if arch in ("starcoder2", "stablelm", "phi2"):
+            kw["attn_bias"] = True
+        if arch == "olmo":
+            kw["nonparam_norm"] = True
+        if arch in ("gpt2", "starcoder", "bloom", "mpt"):
+            kw["rope"] = replace(rope, mode=ROPE_TYPE_NONE, n_dims=0)
+        if arch == "bloom":
+            kw["alibi_max_bias"] = ALIBI_MAX_BIAS
+        if arch == "mpt":
+            kw["alibi_max_bias"] = float(ak("{arch}.attention.max_alibi_bias", 8.0) or 8.0)
+        if arch == "command-r":
+            kw["logit_scale"] = float(ak("{arch}.logit_scale", 1.0) or 1.0)
+        cfg = replace(cfg, **kw)
     return cfg
 
 

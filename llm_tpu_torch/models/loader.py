@@ -9,7 +9,12 @@ bitnet's sub-norms (attn_sub_norm, ffn_sub_norm), phi3's fused QKV
 (attn_qkv, as attn_qkv_fused), the gate+up that phi3 and glm4 pack into
 ffn_up (as ffn_gateup_fused, the reference loader's rule), glm4's and
 olmo2's post-norms (attn_post_norm, ffn_post_norm: the names llm_tpu's
-converter writes for both), and a
+converter writes for both), the LayerNorm graphs' biases (each under its
+tensor's key + "_b": the norms', o_proj's, up's, gate's and down's, and
+the fused QKV's as attn_qkv_fused_b), the learned positions
+(position_embd as pos_embd, dense f32 [n_ctx, n_embd]), the embedding norm
+(token_embd_norm as tok_norm, tok_norm_b) and the output norm's and
+lm_head's biases (output_norm_b, output_b), and a
 mixture-of-experts layer's router (ffn_gate_inp, and exp_probs_b as
 ffn_exp_probs_b), expert stacks (ffn_{gate,up,down}_exps) and shared
 expert (ffn_{gate,up,down}_shexp, ffn_gate_inp_shexp).
@@ -47,10 +52,17 @@ _LAYER_MATS = ("attn_q", "attn_k", "attn_v", "attn_qkv", "attn_output", "ffn_gat
 _LAYER_VECS = ("attn_norm", "ffn_norm", "attn_post_norm", "ffn_post_norm", "attn_q_norm",
                "attn_k_norm", "attn_sub_norm", "ffn_sub_norm")
 _LAYER_STACKS = ("ffn_gate_exps", "ffn_up_exps", "ffn_down_exps")
-# biases, each under its matrix's key + "_b" (the expert-selection bias
-# exp_probs_b.bias under ffn_exp_probs_b, as the reference loader keys it)
+# biases, each under its tensor's key + "_b" (the fused QKV's under
+# attn_qkv_fused_b, the expert-selection bias exp_probs_b.bias under
+# ffn_exp_probs_b, as the reference loader keys them)
 _LAYER_BIASES = {"attn_q": "attn_q_b", "attn_k": "attn_k_b", "attn_v": "attn_v_b",
-                 "exp_probs_b": "ffn_exp_probs_b"}
+                 "exp_probs_b": "ffn_exp_probs_b", "attn_qkv": "attn_qkv_fused_b",
+                 "attn_output": "attn_output_b", "ffn_up": "ffn_up_b", "ffn_gate": "ffn_gate_b",
+                 "ffn_down": "ffn_down_b", "attn_norm": "attn_norm_b", "ffn_norm": "ffn_norm_b"}
+# the model's vectors and dense tables outside the layers, by tensor name
+_TOP_VECS = {"output_norm.weight": "output_norm", "output_norm.bias": "output_norm_b",
+             "output.bias": "output_b", "token_embd_norm.weight": "tok_norm",
+             "token_embd_norm.bias": "tok_norm_b", "rope_freqs.weight": "rope_freqs"}
 _DENSE = (GGMLType.F32, GGMLType.F16, GGMLType.BF16)
 # archs whose GGUF packs [gate; up] into ffn_up (llm_tpu/models/loader.py)
 GATEUP_PACKED_ARCHS = ("phi3", "glm4")
@@ -210,10 +222,10 @@ def load_params(reader: GGUFReader, dense_dtype=torch.bfloat16, device="cuda",
         elif name == "output.weight":
             params["output"] = _matrix(reader, name, dense_dtype, device,
                                        use_planes=use_planes)
-        elif name == "output_norm.weight":
-            params["output_norm"] = _vector(reader, name, device)
-        elif name == "rope_freqs.weight":
-            params["rope_freqs"] = _vector(reader, name, device)
+        elif name in _TOP_VECS:
+            params[_TOP_VECS[name]] = _vector(reader, name, device)
+        elif name == "position_embd.weight":
+            params["pos_embd"] = _dense(reader, name, torch.float32, device)
         else:
             raise NotImplementedError(f"{name}: not on the port's llama path")
     if "output" not in params:

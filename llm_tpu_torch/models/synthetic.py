@@ -73,6 +73,13 @@ QWEN3_30B_A3B = dict(n_embd=2048, n_layers=48, n_heads=32, n_kv_heads=4,
 # pack as nibbles everywhere; bitnet_config adds the rest
 BITNET_B158_2B = dict(n_embd=2560, n_layers=30, n_heads=20, n_kv_heads=5,
                       n_ff=6912, vocab=128256, head_dim=128)
+# Command-R v01 (transformers.CohereConfig's defaults, which name
+# CohereForAI/c4ai-command-r-v01): 64 query heads over 64 KV heads of 128
+# (G = 1), ff 22528, SwiGLU, LayerNorm without a bias (eps 1e-5), one norm
+# shared by attention and the FFN in a parallel block, logits times 0.0625,
+# rope NORM, tied embeddings; command_r_config adds the rest
+COMMAND_R_35B = dict(n_embd=8192, n_layers=40, n_heads=64, n_kv_heads=64,
+                     n_ff=22528, vocab=256000, head_dim=128)
 
 
 def use_more_bits(i_layer: int, n_layers: int) -> bool:
@@ -361,6 +368,24 @@ def glm4_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab,
         context_length=ctx)
 
 
+def command_r_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab,
+                     head_dim=None) -> ModelConfig:
+    """A command-r config as config_from_gguf reads Command-R v01's: NORM
+    rope at base 10000 (transformers.CohereConfig's default rope_theta; the
+    checkpoint's own config is not in this repo, so its base is not taken
+    from it), LayerNorm at eps 1e-5, a parallel block, SwiGLU, the logits
+    times logit_scale 0.0625 (a multiplier, not granite's divisor) and a
+    context of 8192 (the tied table is a tensor matter: no output.weight)."""
+    head_dim = head_dim or n_embd // n_heads
+    ctx = 8192
+    return ModelConfig(
+        arch="command-r", vocab_size=vocab, n_embd=n_embd, n_layers=n_layers,
+        n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim, head_dim_v=head_dim,
+        n_ff=n_ff, rms_eps=1e-5,
+        rope=RopeParams(n_dims=head_dim, mode=ROPE_TYPE_NORM, n_ctx_orig=ctx),
+        norm_kind="ln", parallel_residual=True, logit_scale=0.0625, context_length=ctx)
+
+
 def qwen2_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab,
                  head_dim=None) -> ModelConfig:
     """A qwen2 config as config_from_gguf reads Qwen2.5's: NEOX rope at
@@ -473,16 +498,19 @@ def make_synthetic_model(n_embd: int = 64, n_layers: int = 2, n_heads: int = 8,
     ffn_sub_norm in every layer. arch "glm4": glm4_config, with random f32
     biases on q, k and v as qwen2's, the post-norms as gemma2's, and gate
     and up as one matrix ffn_gateup_fused [2 n_ff, n_embd] of ffn_up's type
-    (the GGUF packs them in ffn_up). With the
+    (the GGUF packs them in ffn_up). arch "command-r": command_r_config,
+    an attn_norm (LayerNorm weights, no bias) and no ffn_norm in every
+    layer (the parallel block's FFN reads the attention's normed input),
+    and a tied embedding as gemma2's. With the
     recipe a matrix whose K its type's block does not divide takes Q8_0
     (fallback_type; Baichuan-13B's ffn_down, K = 13696)."""
     if recipe is not None and recipe not in RECIPES:
         raise ValueError(f"unknown recipe {recipe!r}")
     if arch not in ("llama", "gemma", "gemma2", "baichuan", "refact", "qwen2", "qwen3moe",
-                    "bitnet", "glm4"):
+                    "bitnet", "glm4", "command-r"):
         raise ValueError(f"unknown arch {arch!r}")
     device = resolve_device(device)
-    tied = arch in ("gemma", "gemma2")
+    tied = arch in ("gemma", "gemma2", "command-r")
     moe = arch == "qwen3moe"
     geo = (n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab, head_dim)
     if arch == "gemma2":
@@ -501,6 +529,8 @@ def make_synthetic_model(n_embd: int = 64, n_layers: int = 2, n_heads: int = 8,
         cfg = bitnet_config(*geo)
     elif arch == "glm4":
         cfg = glm4_config(*geo)
+    elif arch == "command-r":
+        cfg = command_r_config(*geo)
     else:
         cfg = llama_config(*geo, head_dim_v)
     hd, hdv = cfg.head_dim, cfg.head_dim_v
@@ -573,6 +603,8 @@ def make_synthetic_model(n_embd: int = 64, n_layers: int = 2, n_heads: int = 8,
             layers[-1].update(attn_post_norm=vec(n_embd), ffn_post_norm=vec(n_embd))
         if arch == "bitnet":
             layers[-1].update(attn_sub_norm=vec(n_heads * hdv), ffn_sub_norm=vec(n_ff))
+        if arch == "command-r":  # one norm for both halves of the parallel block
+            del layers[-1]["ffn_norm"]
         if arch in ("qwen2", "glm4"):
             for key, n in (("attn_q_b", n_heads * hd), ("attn_k_b", n_kv_heads * hd),
                            ("attn_v_b", n_kv_heads * hdv)):

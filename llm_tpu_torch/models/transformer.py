@@ -97,6 +97,20 @@ graph. The chained kernel takes only the recipe it implements
 relu runs the whole model unchained, post-norms and biases keep their
 tail or head unchained.
 
+The LayerNorm graphs (cfg.norm_kind "ln": command-r, falcon, phi2,
+gptneox, gptj, starcoder2, stablelm, orion, nemotron, olmo, gpt2,
+starcoder, bloom, mpt) run the same loop with the reference's norm
+dispatch (norm, its _norm: LayerNorm with the tensor's bias where one is
+given, olmo's without weight or bias), learned positions added after the
+embedding (pos_embd, gpt2 and starcoder) and an embedding norm after them
+(tok_norm, bloom), a fused QKV's bias added before the split
+(attn_qkv_fused_b), biases on o_proj, up, gate and down and on the
+logits, and the parallel block (cfg.parallel_residual): the FFN reads its
+own ffn_norm of the layer's input (gptneox) or, without one, the
+attention's normed input (command-r, falcon, gptj, phi2), and the layer
+returns x + ffn_out + attn_out, summed in that order as the reference
+sums it. None of them chains (chain_gate).
+
 It runs eagerly and updates the KV cache tensors in place (the JAX
 package donates them to a jitted step instead). Variants of the llama
 graph that the JAX package supports and the port does not run yet raise
@@ -116,7 +130,7 @@ from ..ops.attention import attention, build_attn_bias
 from ..ops.cuda_attn import (MAX_HEAD_DIM, expand_tables, flash_decode, flash_prefill,
                              is_narrow, rope_companion)
 from ..ops.cuda_qmm_chain import head_eligible, is_kmajor_qt, layer_tail, norm_mm, tail_eligible
-from ..ops.norms import rms_norm
+from ..ops.norms import layer_norm, rms_norm
 from ..ops.qmatmul import dequant_expert_rows, qembed, qmm
 from ..ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NONE, ROPE_TYPE_NORM, apply_rope, rope_angles
 from ..parallel.moe import moe_ffn_grouped
@@ -125,8 +139,10 @@ from .config import ModelConfig
 
 _UNSUPPORTED = (
     ("kv_lora_rank", 0, "MLA"), ("rope_sections", None, "M-RoPE"),
-    ("parallel_residual", False, "parallel residual"), ("norm_kind", "rms", "LayerNorm"),
+    ("nope_global_layers", False, "cohere2's global layers without rope (NoPE)"),
 )
+# the norms (the reference's _norm): RMS, or LayerNorm with a bias
+NORM_KINDS = ("rms", "ln")
 # the activations the chained tail implements (K6: SwiGLU, GeGLU)
 CHAIN_ACTS = ("silu", "gelu")
 # the FFN activations (the reference's ACTIVATIONS): the gated SiLU of
@@ -139,14 +155,16 @@ GATING = ("softmax", "sigmoid")
 # steps of at most this many tokens gather their experts' planes per (token,
 # k); longer ones take the grouped dispatch (the reference's T > 8)
 MOE_GATHER_MAX_T = 8
-_TOP_KEYS = {"tok_embd", "layers", "layers_stacked", "output", "output_norm", "rope_freqs"}
+_TOP_KEYS = {"tok_embd", "layers", "layers_stacked", "output", "output_norm", "rope_freqs",
+             "output_norm_b", "output_b", "pos_embd", "tok_norm", "tok_norm_b"}
 _LAYER_KEYS = {"attn_norm", "ffn_norm", "attn_q", "attn_k", "attn_v", "attn_qkv_fused",
                "attn_output", "ffn_gate", "ffn_up", "ffn_gateup_fused", "ffn_down",
                "attn_post_norm", "ffn_post_norm", "attn_q_b", "attn_k_b", "attn_v_b",
                "attn_q_norm", "attn_k_norm", "ffn_gate_inp", "ffn_exp_probs_b",
                "ffn_gate_exps", "ffn_up_exps", "ffn_down_exps", "ffn_gate_shexp",
                "ffn_up_shexp", "ffn_down_shexp", "ffn_gate_inp_shexp", "attn_sub_norm",
-               "ffn_sub_norm"}
+               "ffn_sub_norm", "attn_norm_b", "ffn_norm_b", "attn_qkv_fused_b", "attn_output_b",
+               "ffn_up_b", "ffn_gate_b", "ffn_down_b"}
 
 
 def flash_route(dk: int, dv: int, k_groups: int = 1, v_groups: int = 1,
@@ -191,6 +209,8 @@ def check_supported(params: dict, cfg: ModelConfig) -> None:
     for name, default, what in _UNSUPPORTED:
         if getattr(cfg, name) != default:
             raise NotImplementedError(f"{what} is not ported yet")
+    if cfg.norm_kind not in NORM_KINDS:
+        raise NotImplementedError(f"norm kind {cfg.norm_kind!r} is not ported")
     if cfg.act not in ACTIVATIONS:
         raise NotImplementedError(f"FFN activation {cfg.act!r} is not ported yet")
     if cfg.expert_gating_func not in GATING:
@@ -198,12 +218,12 @@ def check_supported(params: dict, cfg: ModelConfig) -> None:
     if cfg.rope.mode not in (ROPE_TYPE_NORM, ROPE_TYPE_NEOX, ROPE_TYPE_NONE):
         raise NotImplementedError(f"rope mode {cfg.rope.mode} is not ported yet")
     extra = {k for k, v in params.items() if v is not None} - _TOP_KEYS
-    if extra:  # position embeddings, embedding norms, output biases, adapters
+    if extra:  # adapters, the reference's other models' tensors
         raise NotImplementedError(f"model tensors {sorted(extra)} are not ported yet")
     stacked = params.get("layers_stacked")
     for layer in params["layers"] + ([stacked] if stacked is not None else []):
         extra = set(layer) - _LAYER_KEYS
-        if extra:  # LoRA adapters, control vectors, biases, sub-norms
+        if extra:  # LoRA adapters, control vectors
             raise NotImplementedError(f"layer tensors {sorted(extra)} are not ported yet")
     n_layers = n_stacked(stacked) if stacked is not None else len(params["layers"])
     if n_layers != cfg.n_layers:
@@ -216,11 +236,27 @@ def chain_gate(cfg: ModelConfig, chain: bool, T: int) -> bool:
     gate (llm_tpu/models/transformer.py:404-412) has it on the port's
     fields: RMS norms, a sequential residual without a scale, a SiLU or
     gelu FFN (no squared relu: bitnet and arcee run unchained). The
-    reference's nonparam_norm and fused_tp > 1 are refused by
-    config_from_reference; the per-layer gates are head_eligible and
-    tail_eligible."""
+    reference's nonparam_norm comes only with LayerNorm, and its fused_tp >
+    1 is refused by config_from_reference; the per-layer gates are
+    head_eligible and tail_eligible."""
     return (chain and T <= 8 and cfg.norm_kind == "rms" and not cfg.parallel_residual
             and cfg.residual_scale == 1.0 and cfg.act in CHAIN_ACTS)
+
+
+def norm(x: torch.Tensor, w: torch.Tensor | None, cfg: ModelConfig,
+         b: torch.Tensor | None = None) -> torch.Tensor:
+    """The reference's _norm: RMS (a bias is not read) or LayerNorm with
+    the weight and bias given, at cfg.rms_eps."""
+    if cfg.norm_kind == "rms":
+        return rms_norm(x, w, cfg.rms_eps)
+    return layer_norm(x, w, b, cfg.rms_eps)
+
+
+def _bias(t: torch.Tensor, layer: dict, key: str) -> torch.Tensor:
+    """t plus layer[key] in t's dtype where the layer has that bias (the
+    reference's _maybe_add)."""
+    b = layer.get(key)
+    return t if b is None else t + b.to(t.dtype)
 
 
 def _leaf(v) -> torch.Tensor:
@@ -301,22 +337,23 @@ def kv_read(cache, dtype) -> torch.Tensor:
 def ffn(h: torch.Tensor, layer: dict, cfg: ModelConfig, dtype, gdot: bool = False
         ) -> torch.Tensor:
     """The gated FFN of h [T, D] in dtype: fused gate+up, or gate and up
-    apart (the shared expert's ffn_gate / ffn_up), act(g) * u in f32, down
-    (the reference's _ffn), with bitnet's ffn_sub_norm before down."""
+    apart (the shared expert's ffn_gate / ffn_up), each with its bias where
+    given, act(g) * u in f32, down and its bias (the reference's _ffn),
+    with bitnet's ffn_sub_norm before down."""
     act = ACTIVATIONS[cfg.act]
     if "ffn_gateup_fused" in layer:
         g, up = torch.split(qmm(h, layer["ffn_gateup_fused"], gdot=gdot), cfg.n_ff, dim=-1)
         cur = (act(g) * up).to(dtype)
     else:
-        up = qmm(h, layer["ffn_up"], out_dtype=dtype, gdot=gdot)
+        up = _bias(qmm(h, layer["ffn_up"], out_dtype=dtype, gdot=gdot), layer, "ffn_up_b")
         if layer.get("ffn_gate") is not None:
-            g = act(qmm(h, layer["ffn_gate"], gdot=gdot))
+            g = act(_bias(qmm(h, layer["ffn_gate"], gdot=gdot), layer, "ffn_gate_b"))
             cur = (g * up.float()).to(dtype)
         else:
             cur = act(up.float()).to(dtype)
     if "ffn_sub_norm" in layer:  # bitnet: a norm before ffn_down
         cur = rms_norm(cur, layer["ffn_sub_norm"], cfg.rms_eps)
-    return qmm(cur, layer["ffn_down"], out_dtype=dtype, gdot=gdot)
+    return _bias(qmm(cur, layer["ffn_down"], out_dtype=dtype, gdot=gdot), layer, "ffn_down_b")
 
 
 def gather_experts(stack, topi: torch.Tensor, dtype) -> torch.Tensor:
@@ -432,6 +469,10 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
     x = qembed(params["tok_embd"], tokens, dtype=dtype)
     if cfg.embedding_scale != 1.0:
         x = (x.float() * cfg.embedding_scale).to(dtype)
+    if params.get("pos_embd") is not None:  # learned positions (gpt2, starcoder)
+        x = x + params["pos_embd"][tok_pos.long()].to(dtype)
+    if params.get("tok_norm") is not None:  # the embedding norm (bloom)
+        x = norm(x, params["tok_norm"], cfg, params.get("tok_norm_b"))
     dual = swa_cell_pos is not None
 
     alibi = cfg.alibi_max_bias > 0.0
@@ -482,18 +523,22 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
             qkv = norm_mm(x, layer["attn_norm"], layer["attn_qkv_fused"], eps=cfg.rms_eps,
                           compute_dtype=dtype, out_dtype=dtype)
         if qkv is None:
-            # post-norm graphs (olmo2) have no input norm: attend over x
-            h = rms_norm(x, layer["attn_norm"], cfg.rms_eps) if "attn_norm" in layer else x
-            if "attn_qkv_fused" in layer:
-                qkv = qmm(h, layer["attn_qkv_fused"], out_dtype=dtype, gdot=gdot)
+            # post-norm graphs (olmo2) have no input norm: attend over x;
+            # olmo's non-parametric norm runs without a tensor
+            h = norm(x, layer.get("attn_norm"), cfg, layer.get("attn_norm_b")) \
+                if ("attn_norm" in layer or cfg.nonparam_norm) else x
+            if "attn_qkv_fused" in layer:  # its fused bias before the split (gpt2, bloom)
+                qkv = _bias(qmm(h, layer["attn_qkv_fused"], out_dtype=dtype, gdot=gdot), layer,
+                            "attn_qkv_fused_b")
         if qkv is not None:
             q, k, v = torch.split(qkv, (H * Dk, Hkv * Dk, Hkv * Dv), dim=-1)
         else:
             q, k, v = (qmm(h, layer[key], out_dtype=dtype, gdot=gdot)
                        for key in ("attn_q", "attn_k", "attn_v"))
-        # qwen2, glm4: biases on q, k and v (the fused QKV's slices or apart)
-        q, k, v = (t + layer[b].to(t.dtype) if b in layer else t
-                   for t, b in ((q, "attn_q_b"), (k, "attn_k_b"), (v, "attn_v_b")))
+        # qwen2, glm4, starcoder2, stablelm, phi2: biases on q, k and v (the
+        # fused QKV's slices or apart)
+        q, k, v = (_bias(t, layer, b) for t, b in ((q, "attn_q_b"), (k, "attn_k_b"),
+                                                   (v, "attn_v_b")))
         q, k = q.reshape(T, H, Dk), k.reshape(T, Hkv, Dk)
         if cfg.qk_norm_full:  # olmo2: q and k normed whole, k before the cache
             q = rms_norm(q.reshape(T, H * Dk), layer.get("attn_q_norm"),
@@ -530,14 +575,21 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
                 continue
         if "attn_sub_norm" in layer:  # bitnet: a norm before o_proj
             att = rms_norm(att, layer["attn_sub_norm"], cfg.rms_eps)
-        attn_out = qmm(att, layer["attn_output"], out_dtype=dtype, gdot=gdot)
+        attn_out = _bias(qmm(att, layer["attn_output"], out_dtype=dtype, gdot=gdot), layer,
+                         "attn_output_b")
         if "attn_post_norm" in layer:  # gemma2, glm4, olmo2: a norm before the residual
-            attn_out = rms_norm(attn_out, layer["attn_post_norm"], cfg.rms_eps)
+            attn_out = norm(attn_out, layer["attn_post_norm"], cfg)
         if cfg.residual_scale != 1.0:  # granite, minicpm
             attn_out = attn_out * cfg.residual_scale
-        x = x + attn_out
-
-        h2 = rms_norm(x, layer["ffn_norm"], cfg.rms_eps) if "ffn_norm" in layer else x
+        if cfg.parallel_residual:
+            # the parallel block: the FFN reads its own norm of the layer's
+            # input (gptneox) or the attention's normed input (command-r)
+            h2 = norm(x, layer["ffn_norm"], cfg, layer.get("ffn_norm_b")) \
+                if "ffn_norm" in layer else h
+        else:
+            x = x + attn_out
+            h2 = norm(x, layer.get("ffn_norm"), cfg, layer.get("ffn_norm_b")) \
+                if ("ffn_norm" in layer or cfg.nonparam_norm) else x
         if cfg.n_expert > 0 and "ffn_gate_inp" in layer:
             ffn_out = moe_ffn(h2, layer, cfg)
             if "ffn_up_shexp" in layer:  # the shared expert (qwen2moe)
@@ -551,10 +603,11 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
         else:
             ffn_out = ffn(h2, layer, cfg, dtype, gdot)
         if "ffn_post_norm" in layer:
-            ffn_out = rms_norm(ffn_out, layer["ffn_post_norm"], cfg.rms_eps)
+            ffn_out = norm(ffn_out, layer["ffn_post_norm"], cfg)
         if cfg.residual_scale != 1.0:
             ffn_out = ffn_out * cfg.residual_scale
-        x = x + ffn_out
+        # the reference's order of the parallel sum: (x + ffn_out) + attn_out
+        x = x + ffn_out + attn_out if cfg.parallel_residual else x + ffn_out
 
     out_w = params.get("output")
     out_w = params["tok_embd"] if out_w is None else out_w
@@ -568,9 +621,11 @@ def forward(params: dict, cfg: ModelConfig, kv_k: list, kv_v: list,
         if logits is not None:
             hs = rms_norm(hs_pre, norm_w, cfg.rms_eps)
     if logits is None:
-        hs = rms_norm(x, norm_w, cfg.rms_eps)[out_idx]
+        hs = norm(x, norm_w, cfg, params.get("output_norm_b"))[out_idx]
         logits = qmm(hs, out_w, gdot=gdot)
-    if cfg.logit_scale != 1.0:  # granite, minicpm
+    if params.get("output_b") is not None:  # phi2, gptj
+        logits = logits + params["output_b"].to(logits.dtype)
+    if cfg.logit_scale != 1.0:  # granite, minicpm, command-r
         logits = logits * cfg.logit_scale
     if cfg.final_softcap > 0.0:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap

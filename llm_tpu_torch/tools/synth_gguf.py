@@ -1,10 +1,11 @@
-"""A llama (or bitnet, or glm4) GGUF with random blocks typed as a Q4_K_M, Q3_K_M,
+"""A llama (or bitnet, glm4 or command-r) GGUF with random blocks typed as a Q4_K_M, Q3_K_M,
 Q2_K, IQ2_XXS, IQ1_M, TQ2_0 or TQ1_0 file is, and a byte-level BPE vocab,
 made from a seed, written with the port's GGUF writer: a file the CLI
 loads and answers from like a downloaded checkpoint, with no download.
 
     python -m llm_tpu_torch.tools.synth_gguf out.gguf [--layers 32] [--seed 0] \
-        [--ftype {Q4_K_M,Q3_K_M,Q2_K,IQ2_XXS,IQ1_M,TQ2_0,TQ1_0}] [--arch {llama,bitnet,glm4}]
+        [--ftype {Q4_K_M,Q3_K_M,Q2_K,IQ2_XXS,IQ1_M,TQ2_0,TQ1_0}] \
+        [--arch {llama,bitnet,glm4,command-r}]
 
 The type mix is llama.cpp's recipe for the ftype
 (models/synthetic.py::tensor_type_for, the port's copy of
@@ -34,10 +35,16 @@ BITNET_B158_2B with `--arch bitnet` (a squared relu, the sub-norms
 attn_sub_norm and ffn_sub_norm as f32 ones), or to GLM4_9B with `--arch
 glm4` (gate+up packed in ffn_up [2 n_ff, n_embd], random f32 biases on q,
 k and v, the post-norms attn_post_norm and ffn_post_norm as f32 ones,
-rope.dimension_count half the head, rope base 10000, rms eps 1.5625e-7).
+rope.dimension_count half the head, rope base 10000, rms eps 1.5625e-7),
+or to COMMAND_R_35B with `--arch command-r` (LayerNorm weights as f32
+ones and no biases, an attn_norm and no ffn_norm a layer, a tied
+embedding table in the lm_head's type and no output.weight,
+command-r.logit_scale 0.0625, rope base 10000, and the LN eps 1e-5 under
+llama.cpp's key layer_norm_epsilon, which the reference does not read: its
+1e-5 default is the same value).
 `chip_smoke.py` writes the 2-layer Q4_K_M file and 2-layer Q3_K_M, Q2_K,
-IQ1_M, bitnet TQ2_0 and glm4 Q4_K_M ones on the card's machine; the tests
-write tiny ones.
+IQ1_M, bitnet TQ2_0, glm4 and command-r Q4_K_M ones on the card's machine;
+the tests write tiny ones.
 """
 
 from __future__ import annotations
@@ -50,7 +57,8 @@ import numpy as np
 
 from ..gguf.constants import FileType, GGMLType, Keys, type_traits
 from ..gguf.writer import GGUFWriter
-from ..models.synthetic import BITNET_B158_2B, GLM4_9B, LLAMA3_8B, RECIPES, tensor_type_for
+from ..models.synthetic import (BITNET_B158_2B, COMMAND_R_35B, GLM4_9B, LLAMA3_8B, RECIPES,
+                                tensor_type_for)
 from ..tokenizers.bpe import bytes_to_unicode
 
 N_LLAMA3_SPECIAL = 256
@@ -134,7 +142,10 @@ _D_FIELDS = {
     GGMLType.Q8_0: ((0, 2), 2e-4),       # d; int8 codes (a fallback type)
 }
 # the archs write_llama writes, and each one's geometry
-GEOMETRY = {"llama": LLAMA3_8B, "bitnet": BITNET_B158_2B, "glm4": GLM4_9B}
+GEOMETRY = {"llama": LLAMA3_8B, "bitnet": BITNET_B158_2B, "glm4": GLM4_9B,
+            "command-r": COMMAND_R_35B}
+# command-r's logit scale (c4ai-command-r-v01's, CohereConfig's default)
+COMMAND_R_LOGIT_SCALE = 0.0625
 
 
 def _iq1m_set_d(raw: np.ndarray, d: np.ndarray) -> None:
@@ -188,17 +199,19 @@ def write_llama(path: str, n_layers: int = LLAMA3_8B["n_layers"],
     seconds to make the vocab and blocks and to write them). arch "bitnet"
     adds each layer's sub-norms (attn_sub_norm, ffn_sub_norm); arch "glm4"
     packs gate+up in ffn_up, adds QKV biases and post-norms, ropes half of
-    each head and takes GLM-4's rms eps. rope_theta None: 10000 for glm4,
-    500000 (Llama 3's) otherwise."""
+    each head and takes GLM-4's rms eps; arch "command-r" writes one
+    LayerNorm weight a layer (attn_norm), a tied table and its logit scale.
+    rope_theta None: 10000 for glm4 and command-r, 500000 (Llama 3's)
+    otherwise."""
     t0 = time.perf_counter()
     vocab = bpe_vocab(n_vocab, seed) if vocab is None else vocab
     n_vocab = len(vocab[Keys.Tokenizer.LIST])
     t_vocab = time.perf_counter() - t0
     if arch not in GEOMETRY:
         raise ValueError(f"arch {arch!r}: one of {', '.join(GEOMETRY)}")
-    glm4 = arch == "glm4"
+    glm4, cmdr = arch == "glm4", arch == "command-r"
     if rope_theta is None:
-        rope_theta = 10000.0 if glm4 else 500000.0
+        rope_theta = 10000.0 if glm4 or cmdr else 500000.0
     w = GGUFWriter(path, arch=arch)
     a = (lambda k: k.format(arch=arch))
     if ftype not in RECIPES:
@@ -212,7 +225,11 @@ def write_llama(path: str, n_layers: int = LLAMA3_8B["n_layers"],
     w.add_kv(a(Keys.LLM.VOCAB_SIZE), np.uint32(n_vocab))
     w.add_kv(a(Keys.Attention.HEAD_COUNT), np.uint32(n_heads))
     w.add_kv(a(Keys.Attention.HEAD_COUNT_KV), np.uint32(n_kv_heads))
-    w.add_kv(a(Keys.Attention.LAYERNORM_RMS_EPS), np.float32(1.5625e-7 if glm4 else 1e-5))
+    if cmdr:  # llama.cpp's key for a LayerNorm's eps, and the logit scale
+        w.add_kv(a(Keys.Attention.LAYERNORM_EPS), np.float32(1e-5))
+        w.add_kv(a("{arch}.logit_scale"), np.float32(COMMAND_R_LOGIT_SCALE))
+    else:
+        w.add_kv(a(Keys.Attention.LAYERNORM_RMS_EPS), np.float32(1.5625e-7 if glm4 else 1e-5))
     w.add_kv(a(Keys.Rope.DIMENSION_COUNT), np.uint32(n_embd // n_heads // (2 if glm4 else 1)))
     w.add_kv(a(Keys.Rope.FREQ_BASE), np.float32(rope_theta))
     for k, v in vocab.items():
@@ -223,7 +240,7 @@ def write_llama(path: str, n_layers: int = LLAMA3_8B["n_layers"],
 
     def mat(name, n_rows, n_per_row, il=0):
         ggml_type = tensor_type_for(name, n_per_row, ftype, il, n_layers,
-                                    n_heads // n_kv_heads)
+                                    n_heads // n_kv_heads, has_output=not cmdr)
         w.add_tensor(name, None, ggml_type=ggml_type, shape=(n_per_row, n_rows),
                      raw=random_blocks(rng, ggml_type, n_rows, n_per_row))
         types[ggml_type.name] = types.get(ggml_type.name, 0) + 1
@@ -252,7 +269,8 @@ def write_llama(path: str, n_layers: int = LLAMA3_8B["n_layers"],
         mat(p + "attn_output.weight", n_embd, n_heads * hd, il)
         if glm4:
             ones(p + "attn_post_norm.weight", n_embd)
-        ones(p + "ffn_norm.weight", n_embd)
+        if not cmdr:  # command-r's FFN reads the attention's normed input
+            ones(p + "ffn_norm.weight", n_embd)
         if glm4:  # [gate; up] in one tensor
             mat(p + "ffn_up.weight", 2 * n_ff, n_embd, il)
         else:
@@ -264,7 +282,8 @@ def write_llama(path: str, n_layers: int = LLAMA3_8B["n_layers"],
         if glm4:
             ones(p + "ffn_post_norm.weight", n_embd)
     ones("output_norm.weight", n_embd)
-    mat("output.weight", n_vocab, n_embd)
+    if not cmdr:  # command-r's lm_head is the embedding table
+        mat("output.weight", n_vocab, n_embd)
     t_blocks = time.perf_counter() - t0 - t_vocab
     t1 = time.perf_counter()
     w.write()
@@ -277,12 +296,14 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("out")
     ap.add_argument("--layers", type=int, default=None,
-                    help="layers (default: the geometry's: 32, BitNet's 30, GLM-4's 40)")
+                    help="layers (default: the geometry's: 32, BitNet's 30, GLM-4's and "
+                         "Command-R's 40)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ftype", choices=list(RECIPES), default="Q4_K_M")
     ap.add_argument("--arch", choices=tuple(GEOMETRY), default="llama",
                     help="bitnet: BITNET_B158_2B's geometry and sub-norms; glm4: GLM4_9B's "
-                         "geometry, biases, post-norms and packed gate+up")
+                         "geometry, biases, post-norms and packed gate+up; command-r: "
+                         "COMMAND_R_35B's geometry, LayerNorm weights, a tied table")
     args = ap.parse_args(argv)
     geo = GEOMETRY[args.arch]
     n_layers = geo["n_layers"] if args.layers is None else args.layers

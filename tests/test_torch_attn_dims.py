@@ -55,6 +55,7 @@ from llm_tpu_torch.runtime.engine import Context
 from llm_tpu_torch.runtime.kv_cache import kv_group
 
 from test_torch_flash_decode import kernel_order as decode_order
+from test_torch_flash_decode import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_flash_prefill import kernel_order as prefill_order
 
 PALLAS_TOL = dict(atol=5e-3, rtol=5e-3)     # test_pallas_attn.py:53

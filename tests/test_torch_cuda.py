@@ -222,8 +222,8 @@ def test_decode_gives_the_same_bits_over_many_launches(cuda_device, qtype, K, N,
 
 def test_prefill_gemm_gives_the_same_bits_over_many_launches(cuda_device):
     """The prefill GEMM's consumers release a ring slot after their
-    ld.shared of the planes with no proxy fence before the producer's next
-    TMA (qmm_gemm_body.cuh), as the decode GEMV's did before dv_release: at
+    ld.shared of the planes, behind a proxy fence before the producer's
+    next TMA (qmm_gemm_body.cuh), as the decode GEMV's dv_release: at
     LLAMA3_8B's Q4_K gate+up, a 512-token step with its K unsplit (a split
     adds through atomics in a varying order), 1500 back-to-back launches on
     one input give the first launch's bits every time."""
@@ -245,11 +245,11 @@ ATTN_REPEAT_SHAPES = [(1, 32, 8, 4096), (8, 32, 8, 4096), (512, 32, 8, 4096),
 @pytest.mark.parametrize("T,H,Hkv,S", ATTN_REPEAT_SHAPES,
                          ids=[f"T{t}-H{h}-Hkv{g}" for t, h, g, _ in ATTN_REPEAT_SHAPES])
 def test_flash_gives_the_same_bits_over_many_launches(cuda_device, q8, T, H, Hkv, S):
-    """K3/K3q and K4/K4q release their ring slots after their consumers'
-    ldmatrix reads with no proxy fence before the producer's next TMA
-    (flash_attn.cu, flash_prefill.cuh), as the decode GEMV's did before
-    dv_release: 1500 back-to-back launches on one input at the main path's
-    heads give the first launch's bits every time."""
+    """K3/K3q's consumers read their ring slots by ldmatrix and K4/K4q's
+    producer reads its raw block by ld.shared before a TMA refills them
+    (flash_attn.cu, flash_prefill.cuh), each behind a proxy fence, as the
+    decode GEMV's dv_release: 1500 back-to-back launches on one input at
+    the main path's heads give the first launch's bits every time."""
     t = _attn_inputs(T, H, Hkv, S, ROPE_TYPE_NORM)
     if q8:
         t["k"], t["v"] = _q8(t["k"]), _q8(t["v"])
@@ -257,6 +257,26 @@ def test_flash_gives_the_same_bits_over_many_launches(cuda_device, q8, T, H, Hkv
                else a.to(cuda_device)) for n, a in t.items()}
     launch = cuda_attn._decode_launch if T <= 8 else cuda_attn._prefill_launch
     run = (lambda: launch(q8, **dev, scale=128 ** -0.5))
+    want = run()
+    off = [it for it in range(1500) if not torch.equal(run(), want)]
+    assert not off, f"{len(off)} of 1500 launches differ from the first: {off[:8]}"
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "q8_0"])
+@pytest.mark.parametrize("T", [1, 512])
+def test_wide_flash_gives_the_same_bits_over_many_launches(cuda_device, q8, T):
+    """The wide kernels (K3w/K3qw, K4w/K4qw) at Gemma-7B's heads (16 over
+    16 of 256 dims): K4w's producer reads its raw block through the generic
+    proxy before lane 0's next TMA refills it, and K3w's consumers read
+    their slots likewise; 1500 back-to-back launches on one input give the
+    first launch's bits every time."""
+    t = _attn_inputs(T, 16, 16, 4096, ROPE_TYPE_NORM, D=256)
+    if q8:
+        t["k"], t["v"] = _q8(t["k"]), _q8(t["v"])
+    dev = {n: (tuple(x.to(cuda_device) for x in a) if isinstance(a, tuple)
+               else a.to(cuda_device)) for n, a in t.items()}
+    launch = cuda_attn._decode_launch if T <= 8 else cuda_attn._prefill_launch
+    run = (lambda: launch(q8, **dev, scale=256 ** -0.5))
     want = run()
     off = [it for it in range(1500) if not torch.equal(run(), want)]
     assert not off, f"{len(off)} of 1500 launches differ from the first: {off[:8]}"

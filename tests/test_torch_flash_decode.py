@@ -55,6 +55,18 @@ CARD_TOL = dict(atol=1e-3, rtol=1e-3)  # chip_smoke.py::check_attn, test_torch_c
 N_SM = 132  # H100 SXM
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module's many small torch ops: beside
+    the suite's other workers, more threads spend their time waiting on
+    each other (a case that takes 0.2 s alone took 30-70 s so). The
+    worker's setting comes back after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bf(x: torch.Tensor) -> torch.Tensor:
     """x rounded to bf16 (to nearest, as the kernel's bf16x2 products and
     cvt.rn round), as f32."""
