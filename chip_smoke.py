@@ -4,7 +4,8 @@
     python3 chip_smoke.py --sweep-seeds [q8_0|chain|gguf]  # phase 3's twins' errors
     python3 chip_smoke.py --screen-seeds   # the q8_0 twin's top-2 gaps on the card, seeds 1-64
     python3 chip_smoke.py --decode-rows    # phase 2's decode GEMV / K6 rows alone
-    python3 chip_smoke.py --attn-gemm-rows # phase 2's K3/K3q, K4/K4q and B = 512 GEMM rows alone
+    python3 chip_smoke.py --attn-gemm-rows [--root DIR]  # phase 2's K3/K4 and B = 512 GEMM rows
+                                           # alone (--root: another checkout's kernels)
     python3 chip_smoke.py --command-r      # phase 2's Command-R rows, its twin and phase 18
 
 Phases, each of which raises on failure (the script then exits nonzero and
@@ -18,17 +19,18 @@ prints no result line):
      qmm_chain_tc kernel and the GeGLU one, qmm_chain_tc_gelu, issue HMMA
      and TMA loads, the old qmm_chain_kernel is gone), the prefill GEMM's (every qmm_wgmma kernel
      issues HGMMA and TMA loads, no mma.sync GEMM is left), flash
-     prefill's (every one of the ten
-     flash_prefill kernels of libflash_prefill.so, two at head dim 128 and
-     eight _dim ones at 64, 80, 96 and any other D, issues HGMMA, no
-     f32-FMA prefill kernel is left in it or in libflash_attn.so), and
+     prefill's (every one of the K4_KERNELS flash_prefill kernels of
+     libflash_prefill.so, two at head dim 128, eight _dim ones at 64, 80,
+     96 and any other D, and the wide, capped and ALiBi ones, issues
+     HGMMA, no f32-FMA prefill kernel is left in it or in
+     libflash_attn.so), and
      flash decode's (the 46 flash_decode_tc kernels of libflash_attn.so,
      six at head dim 128, 24 _dim ones, 8 wide and 8 capped wide ones,
      issue HMMA and TMA loads, no split-S kernel or combine kernel is left
      there; libflash_probe.so keeps the split-S body and its combine for
-     S3), and the capped wide kernels (gemma2's softcap) counted apart: 8
-     flash_decode_tc_wide_cap (HMMA, TMA) and 2
-     flash_prefill_wgmma_wide_cap (HGMMA, TMA); likewise the narrow
+     S3), and the capped kernels (gemma2's softcap) counted apart: 8
+     flash_decode_tc_wide_cap (HMMA, TMA), 4 flash_prefill_wgmma_wide_cap
+     and 4 narrow flash_prefill_wgmma_cap (HGMMA, TMA); likewise the narrow
      kernels' ALiBi instantiations: 12 flash_decode_tc_alibi (HMMA, TMA)
      and 4 flash_prefill_wgmma_alibi (HGMMA, TMA); and the forms on nibble
      planes at group size 16, counted apart: 16 qmm_decode_g16 /
@@ -74,11 +76,14 @@ prints no result line):
      (T = 2 and 4, each row masked to its own sequence's cells;
      per_sequence_bias), K3q at T = 4; K1/K2 at every Gemma-2-9B matmul
      shape (K or N = 3584, its 256000-row tied Q6_K lm_head) at B = 1, 8
-     and 512; the capped wide kernels at cap 50 (K3w_cap, K3qw_cap,
-     K4w_cap, K4qw_cap) at Gemma-2-9B's heads (16 over 8 of 256) and
-     K3w_cap/K4w_cap at Gemma-2-27B's (32 over 16 of 128), each timed
-     beside the uncapped kernel at the same shape and SDPA's uncapped time
-     (no one PyTorch call computes capped attention: library None); the
+     and 512; the capped kernels at cap 50: the wide ones (K3w_cap,
+     K3qw_cap, K4w_cap, K4qw_cap) at Gemma-2-9B's heads (16 over 8 of 256)
+     and at Gemma-2-27B's (32 over 16 of 128) K3w_cap at decode and the
+     narrow ones' capped instantiations K4_cap / K4q_cap at a 512-token
+     prefill, each timed beside the uncapped kernel at the same shape and
+     SDPA's uncapped time (no one SDPA call computes capped attention:
+     library None; `--attn-gemm-rows` times flex_attention with a tanh
+     score_mod there); the
      ALiBi kernels (K3_alibi, K3q_alibi, K4_alibi, K4q_alibi) on rope
      NONE (no rope tables) at Baichuan-13B's heads (40 over 40 of 128, both
      caches) and refact's (32 over 1 of 64, the run-time D kernels), each
@@ -280,6 +285,16 @@ prints no result line):
      holds K1/K2 at its matmuls (the lm_head at B = 1 and 512) and
      K3/K3q/K4/K4q at its heads; phase 3 runs a two-layer Command-R GGUF
      twin (vocab cut to COMMAND_R_TWIN_VOCAB).
+ 19. (after phase 18) Gemma-2-27B at full width (4608, 32 query heads over
+     16 KV heads of 128, ff 36864, a tied 256000-row Q6_K table;
+     GEMMA2_27B_LAYERS of its 46 layers, the 46-layer config's scale
+     144^-0.5 kept; phase_gemma2_27b): Q4_K_M-style random planes made on
+     the card, 1024 cells: prefill 512 and GEMMA2_27B_DECODE greedy tokens
+     with the bf16 cache (K4_cap a layer at the prefill step, the narrow
+     CTA's capped instantiation, and no K4w_cap; K3w_cap a layer a token)
+     and with the q8_0 cache (K4q_cap; K3qw_cap); each against a second
+     Context fed the same prompt 8 tokens a step (K3w_cap / K3qw_cap): the
+     prompt's last logits within the two-layer tolerance of max|logit|.
 The last lines are a JSON "kernels" line, the card line, and
 {"ok": true, "device": {...}}. It imports nothing of JAX or llm_tpu.
 """
@@ -288,6 +303,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -428,11 +444,15 @@ K3_CAP_KERNELS = 8
 K3_ALIBI_KERNELS = 6 * 2
 K3_KERNELS = 6 * 5 + 8 + K3_CAP_KERNELS + K3_ALIBI_KERNELS
 # K4/K4q's: bf16 / q8_0 cache, at 128 and at 64, 80, 96 and any other D,
-# the wide one (flash_prefill_wgmma_wide), the capped wide one, and the
-# ALiBi ones at 128 and at any other D (flash_prefill_wgmma_alibi)
-K4_CAP_KERNELS = 2
+# the wide ones (flash_prefill_wgmma_wide, one or two 128-dim chunks), the
+# capped wide ones, the narrow ones' capped instantiations at 128 and at
+# any other D (flash_prefill_wgmma_cap), and the ALiBi ones at 128 and at
+# any other D (flash_prefill_wgmma_alibi)
+K4_WIDE_KERNELS = 2 * 2
+K4_CAP_KERNELS = 2 * 2
+K4_NARROW_CAP_KERNELS = 2 * 2
 K4_ALIBI_KERNELS = 2 * 2
-K4_KERNELS = 2 * 5 + 2 + K4_CAP_KERNELS + K4_ALIBI_KERNELS
+K4_KERNELS = 2 * 5 + K4_WIDE_KERNELS + K4_CAP_KERNELS + K4_NARROW_CAP_KERNELS + K4_ALIBI_KERNELS
 
 # S3's split-S kernels in libflash_probe.so: stacked v1 / v0 and the three
 # q8 modes
@@ -783,17 +803,58 @@ def without_alibi(inp) -> dict:
             "sin": torch.zeros((S, D), dtype=torch.bfloat16, device=q.device)}
 
 
+def attn_kernel(T: int, D: int, Dv: int, q8: bool, softcap: float, alibi: bool) -> str:
+    """The LAUNCHES key the dispatcher counts for a step of these heads
+    (cuda_attn.decode_kernel / prefill_kernel; a checkout run by --root
+    that predates them took every capped step wide)."""
+    from llm_tpu_torch.ops import cuda_attn
+
+    fn = getattr(cuda_attn, "decode_kernel" if T <= 8 else "prefill_kernel", None)
+    if fn is not None:
+        return fn(D, Dv, q8, softcap, alibi)
+    narrow = cuda_attn.is_narrow(D, Dv, q8) and softcap <= 0.0
+    return (("K3" if T <= 8 else "K4") + ("q" if q8 else "") + ("" if narrow else "w")
+            + ("_cap" if softcap > 0 else "") + ("_alibi" if alibi else ""))
+
+
+def flex_capped_ms(qs, ks, vs, bias, scale: float, softcap: float):
+    """(ms, None) of one torch.nn.attention.flex_attention call, compiled,
+    with a score_mod of softcap * tanh(s / softcap) + bias[t, s] on the
+    same pre-roped, GQA-expanded bf16 q, K, V as SDPA's (the capped rows'
+    library yardstick: the port never calls it), or (None, the reason)
+    where it does not compile or run."""
+    try:
+        from torch.nn.attention.flex_attention import flex_attention
+
+        flex = torch.compile(flex_attention)
+        bias = bias.float().contiguous()
+
+        def capped(score, b, h, q_idx, kv_idx):
+            return softcap * torch.tanh(score / softcap) + bias[q_idx, kv_idx]
+
+        def run(_i):
+            return flex(qs, ks, vs, score_mod=capped, scale=scale)
+
+        run(0)
+        torch.cuda.synchronize()
+        return time_ms(run), None
+    except Exception as e:  # noqa: BLE001 (any failure of the yardstick is recorded)
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200] if str(e) else ''}"
+
+
 def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False, Dv=None, prompt=None,
-               softcap=0.0, alibi=False, n_rot=None):
+               softcap=0.0, alibi=False, n_rot=None, flex=False):
     """K3/K4 (K3q/K4q on q8_0 pairs; the wide kernels where Dk != Dv, past
     128 or at int8 rows of 8 mod 16 bytes) against attn_plain, timed beside
     their bound and SDPA. D is Dk; Dv None: D. prompt: each of the T rows is
     its own sequence's, prompts of that many cells (per_sequence_bias);
-    None: one causal sequence. softcap > 0: the capped wide kernels
-    (K3w_cap, K3qw_cap, K4w_cap, K4qw_cap) against attn_plain(softcap=),
-    at scores scaled by CAP_SCORE_SCALE, where attn_plain without the cap
-    must differ from attn_plain with it by more than the tolerance; no one
-    PyTorch call computes capped attention, so the library column is None,
+    None: one causal sequence. softcap > 0: the capped kernels (K3w_cap,
+    K3qw_cap at decode; K4_cap, K4q_cap at a prefill step the narrow kernels
+    take, else K4w_cap, K4qw_cap) against attn_plain(softcap=), at scores
+    scaled by CAP_SCORE_SCALE, where attn_plain without the cap must differ
+    from attn_plain with it by more than the tolerance; no one SDPA call
+    computes capped attention, so the library column is None (flex: the
+    time of flex_attention with the cap as a score_mod, flex_capped_ms),
     with SDPA's uncapped time and the uncapped kernel's at the same shape
     logged beside it. alibi: the narrow kernels' ALiBi instantiations
     (K3_alibi, K3q_alibi, K4_alibi, K4q_alibi) on alibi_inputs against
@@ -856,7 +917,7 @@ def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False, Dv=None, promp
     flops = 2.0 * T * H * S * ((D + Dv + 1) if alibi else (2 * D + Dv))
     bmin, by = bound_ms(nbytes, flops)
     narrow = cuda_attn.is_narrow(D, Dv, q8)
-    kern = ("K3" if T <= 8 else "K4") + ("q" if q8 else "") + ("" if narrow else "w")
+    kern = attn_kernel(T, D, Dv, q8, 0.0, False)
     dims = f"D={D}" if Dv == D else f"Dk={D} Dv={Dv}"
     if prompt is not None:
         dims += f" {T} sequences"
@@ -869,7 +930,7 @@ def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False, Dv=None, promp
         plain_inps = [without_alibi(x) for x in inps]
         extra = dict(unalibi_kernel=kern, unalibi_ms=time_ms(
             lambda i: fn(**plain_inps[i], scale=scale), ncp), alibi_moves_plain_by=moves)
-        kern += "_alibi"
+        kern = attn_kernel(T, D, Dv, q8, 0.0, True)
         dims += " alibi"
     if softcap > 0:
         # the cap is live at these scores: a kernel without it fails
@@ -877,13 +938,22 @@ def check_attn(results, name, T, S, H=32, Hkv=8, D=128, q8=False, Dv=None, promp
         extra = dict(uncapped_kernel=kern, uncapped_ms=time_ms(
             lambda i: fn(**inps[i], scale=scale), ncp), sdpa_uncapped_ms=lib_ms,
             score_scale=scale, cap_moves_plain_by=cap_moves)
-        kern = ("K3" if T <= 8 else "K4") + ("q" if q8 else "") + "w_cap"
+        kern = attn_kernel(T, D, Dv, q8, softcap, False)
         dims += f" cap={softcap:g}"
         lib_ms = None
+        if flex:
+            lib_ms, why = flex_capped_ms(qs, ks, vs, inp["bias"].clamp(min=-1e30), scale,
+                                         softcap)
+            extra.update(library="flex_attention", library_failed=why)
     rec = dict(kernel=kern, shape=f"{name} T={T} S={S} H={H} Hkv={Hkv} {dims}",
                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bmin,
                bound_by=by, library_ms=lib_ms,
                sdpa_backend=sdpa_backend(qs, ks, vs, attn_mask=mask, scale=scale), **extra)
+    if T > 8 and not narrow and hasattr(cuda_attn, "wide_prefill_plan"):
+        chunks = cuda_attn.wide_prefill_chunks(D, Dv)
+        rec["wide_plan"] = cuda_attn.wide_prefill_plan(
+            T, H, Hkv, S, D, Dv, torch.cuda.get_device_properties(0).multi_processor_count,
+            lambda sp: cuda_attn._wide_clusters(q8, chunks, sp))
     if T > 8:
         # K4/K4q run every score and P.V product twice (bf16 hi + lo of
         # k*cos, k*sin and p): their floor is twice the operations bound,
@@ -983,16 +1053,18 @@ def phase_kernels():
             check_qmm(results, name, Q6K, K, N, B)
     for B in (1, 8):
         check_qmm(results, "gemma2 lm_head", Q6K, 3584, 256000, B)
-    # the capped wide kernels at cap 50: Gemma-2-9B's heads (16 over 8 of
-    # 256) at decode (T = 1, 8; K3qw_cap at T = 1) and at a 512-token
-    # prefill step over 4096 cells, and Gemma-2-27B's (32 over 16 of 128),
-    # a shape the narrow kernels take uncapped
+    # the capped kernels at cap 50: Gemma-2-9B's heads (16 over 8 of 256)
+    # at decode (T = 1, 8; K3qw_cap at T = 1) and at a 512-token prefill
+    # step over 4096 cells (the wide K4w_cap, K4qw_cap), and Gemma-2-27B's
+    # (32 over 16 of 128; K3w_cap at decode, the narrow K4_cap and K4q_cap
+    # at the prefill step, phase 19's)
     for T, name in ((1, "decode half-masked"), (8, "decode T=8"), (512, "prefill")):
         check_attn(results, name, T, 4096, H=16, Hkv=8, D=256, softcap=GEMMA2_CAP)
         check_attn(results, name, T, 4096, H=32, Hkv=16, D=128, softcap=GEMMA2_CAP)
         if T != 8:
             check_attn(results, name, T, 4096, H=16, Hkv=8, D=256, q8=True,
                        softcap=GEMMA2_CAP)
+    check_attn(results, "prefill", 512, 4096, H=32, Hkv=16, D=128, q8=True, softcap=GEMMA2_CAP)
     # the ALiBi kernels: Baichuan-13B's heads (40 over 40 of 128) and
     # refact's (32 over 1 of 64: the run-time D kernels), at decode (T = 1,
     # 8) and a 512-token prefill step over 4096 cells, both caches (refact's
@@ -1245,19 +1317,22 @@ def decode_rows() -> list:
     return results
 
 
-def attn_gemm_rows() -> list:
-    """Phase 2's rows of the kernels that fence the async proxy before a
-    TMA refills shared memory they read: K3/K3q and the prefill GEMM (the
-    consumers, before they release a ring slot), K4/K4q (the producer,
-    before lane 0 refills the raw block): K3/K3q and K4/K4q at LLAMA3_8B's
-    heads (T = 1 over 4096 and 4001 cells, T = 8, T = 512), the wide K4w /
-    K4qw at 8 over 4 heads of 256 and the ALiBi K4 / K4q at 40 over 40 of
-    128 (T = 512), and the GEMM at B = 512 at LLAMA3_8B's Q4_K and Q6_K
+def attn_gemm_rows(flex: bool = True) -> list:
+    """Phase 2's rows of K3/K3q, K4/K4q and the prefill GEMM: K3/K3q and
+    K4/K4q at LLAMA3_8B's heads (T = 1 over 4096 and 4001 cells, T = 8,
+    T = 512), the ALiBi K4 / K4q at 40 over 40 of 128, every wide and
+    capped prefill row of phase 2 (K4w / K4qw at 8 over 4 heads of 256,
+    MLA's 192 / 128, Dk 128 / Dv 64, int8 at 72 and 136; K4w_cap /
+    K4qw_cap at Gemma-2-9B's heads, K4_cap / K4q_cap at Gemma-2-27B's, and
+    K4 / K4q uncapped at Gemma-2-27B's heads, the capped 128-dim rows'
+    yardstick), and the GEMM at B = 512 at LLAMA3_8B's Q4_K and Q6_K
     shapes and on the group-size-16, 256 and 8 forms, each checked and
-    graph-timed as phase 2 does.
-    `chip_smoke.py --attn-gemm-rows` runs only these: run it from two trees
-    in turns in one call to time a change of those kernels against its
-    parent on one card."""
+    graph-timed as phase 2 does; flex: the capped rows' library column
+    (flex_attention, compiled: not in phase 2, whose time it would grow).
+    `chip_smoke.py --attn-gemm-rows [--root DIR]` runs only these (--root:
+    DIR's llm_tpu_torch, an older checkout, which takes no flex column):
+    run it on two trees in turns in one call to time a change of those
+    kernels against its parent on one card."""
     from llm_tpu_torch.gguf.constants import GGMLType
 
     results = []
@@ -1268,6 +1343,15 @@ def attn_gemm_rows() -> list:
         check_attn(results, "prefill", 512, 4096, q8=q8)
         check_attn(results, "prefill", 512, 4096, H=8, Hkv=4, D=256, q8=q8)
         check_attn(results, "prefill", 512, 4096, H=40, Hkv=40, D=128, q8=q8, alibi=True)
+        check_attn(results, "prefill", 512, 4096, H=32, Hkv=16, D=128, q8=q8)
+        check_attn(results, "prefill", 512, 4096, H=32, Hkv=16, D=128, q8=q8,
+                   softcap=GEMMA2_CAP, flex=flex)
+        check_attn(results, "prefill", 512, 4096, H=16, Hkv=8, D=256, q8=q8,
+                   softcap=GEMMA2_CAP, flex=flex)
+    check_attn(results, "prefill", 512, 4096, H=16, Hkv=16, D=192, Dv=128)
+    check_attn(results, "prefill", 512, 4096, D=128, Dv=64)
+    check_attn(results, "prefill", 512, 4096, D=72, q8=True)
+    check_attn(results, "prefill", 512, 4096, H=16, Hkv=8, D=136, q8=True)
     for name, K, N in (("qkv", 4096, 6144), ("attn_q/o_proj", 4096, 4096),
                        ("attn_k", 4096, 1024), ("gate_up", 4096, 28672), ("down", 14336, 4096)):
         check_qmm(results, name, GGMLType.Q4_K, K, N, 512)
@@ -3457,8 +3541,9 @@ def replay_past_prompt(ring, full, stream) -> dict:
 
 
 def phase_gemma2_9b() -> dict:
-    """Phase 11: Gemma-2-9B at full width and 21 of its 42 layers (Q4_K_M-style
-    random planes made on the card from seed 11, tied Q6_K lm_head).
+    """Phase 11: Gemma-2-9B at full width and GEMMA2_PHASE11_LAYERS (12) of its
+    42 layers (Q4_K_M-style random planes made on the card from seed 11,
+    tied Q6_K lm_head).
     (a) the ISWA ring Context (8192 cells, ring 4608): prefill 4608 tokens
         in 512-token steps, then 128 greedy tokens, every decode step on a
         reused ring cell; launches by kernel (capped K3w_cap / K4w_cap a
@@ -4134,10 +4219,11 @@ def phase_glm4_9b(card: str) -> dict:
 
 
 # phase 18: Command-R v01 at full width and COMMAND_R_LAYERS of its 40
-# layers (cut to 20: at 40 the whole script took 1040 s on an H100 host) on 4096
+# layers (cut to 20: at 40 the whole script took 1040 s on an H100 host;
+# then to 12 to pay for phase 19 within the time limit) on 4096
 # cells: a 512-token prefill and 128 greedy tokens with the bf16 cache,
 # unfused, then gdot, chain and the q8_0 cache on fewer tokens
-COMMAND_R_LAYERS = 20
+COMMAND_R_LAYERS = 12
 COMMAND_R_CELLS = 4096
 COMMAND_R_PROMPT, COMMAND_R_DECODE = 512, 128
 COMMAND_R_GDOT_DECODE = 32
@@ -4197,6 +4283,94 @@ def phase_command_r_35b(card: str) -> dict:
     return out
 
 
+# phase 19: Gemma-2-27B (google/gemma-2-27b config.json; models/synthetic.py
+# GEMMA2_27B) at full width and GEMMA2_27B_LAYERS of its 46 layers, cut after
+# the 46-layer config chose its scale (gemma2_27b_config), on 1024 cells (no
+# ring: its window is 4096): a 512-token prefill (one step) and
+# GEMMA2_27B_DECODE greedy tokens with each cache type, and a twin Context
+# fed the same prompt GEMMA2_27B_STEP tokens a step
+GEMMA2_27B_LAYERS = 4
+GEMMA2_27B_CELLS = 1024
+GEMMA2_27B_PROMPT, GEMMA2_27B_DECODE, GEMMA2_27B_STEP = 512, 8, 8
+
+
+def phase_gemma2_27b(card: str) -> dict:
+    """Phase 19: Gemma-2-27B's capped 128-dim prefill on the narrow CTA.
+    Q4_K_M-style random planes made on the card from seed 19 (a tied Q6_K
+    table), gemma2_27b_config(GEMMA2_27B_LAYERS), whose scale must be
+    (4608 / 32)^-0.5. For the bf16 cache (K4_cap at the prefill, K3w_cap
+    at decode) and the q8_0 one (K4q_cap, K3qw_cap): prefill 512 and
+    GEMMA2_27B_DECODE greedy tokens with every launch counted
+    (run_llama3_8b: the capped narrow kernel a layer at the one prefill
+    step and no other flash prefill, K4w_cap among them); then a second
+    Context on the same planes fed the prompt GEMMA2_27B_STEP tokens a step,
+    which runs K3w_cap (K3qw_cap) alone, an independent kernel: the prompt's
+    last logits within TWO_LAYER_REL_TOL of max|logit| (on q8_0 caches
+    TWO_LAYER_Q8_REL_TOL: a last-bit difference can also move a cached
+    value across an int8 step). Returns the launches and the records."""
+    import numpy as np
+
+    from llm_tpu_torch.gguf.constants import GGMLType
+    from llm_tpu_torch.models.synthetic import (GEMMA2_27B, gemma2_27b_config,
+                                                make_synthetic_model)
+    from llm_tpu_torch.ops import cuda_attn
+    from llm_tpu_torch.quant.qtensor import QTensor
+    from llm_tpu_torch.runtime.batch import Batch
+    from llm_tpu_torch.runtime.engine import Context
+
+    t0 = time.perf_counter()
+    params, _ = make_synthetic_model(qtype=GGMLType.Q4_K, device="cuda", on_device=True,
+                                     seed=19, recipe="Q4_K_M", arch="gemma2",
+                                     **dict(GEMMA2_27B, n_layers=GEMMA2_27B_LAYERS))
+    cfg = gemma2_27b_config(GEMMA2_27B_LAYERS)
+    if cfg.attn_scale != (4608 / 32) ** -0.5 or cfg.n_layers != GEMMA2_27B_LAYERS:
+        raise AssertionError(f"Gemma-2-27B at cut depth: scale {cfg.attn_scale}")
+    torch.cuda.synchronize()
+    leaves = [v for layer in params["layers"] for v in layer.values()]
+    leaves += [params["tok_embd"], params["output"]]
+    nbytes = sum(qt_bytes(v) for v in leaves if isinstance(v, QTensor))
+    log(json.dumps(dict(phase=19, gemma2_27b_planes_s=time.perf_counter() - t0,
+                        planes_bytes=nbytes, attn_scale=cfg.attn_scale, card=card)))
+    prompt = main_prompt(cfg.vocab_size, GEMMA2_27B_PROMPT)
+    out = {}
+    for kv, (dec, pre), rel in ((None, ("K3w_cap", "K4_cap"), TWO_LAYER_REL_TOL),
+                                ("q8_0", ("K3qw_cap", "K4q_cap"), TWO_LAYER_Q8_REL_TOL)):
+        kw = {"kv_dtype": kv} if kv else {}
+        ctx = Context(None, n_cells=GEMMA2_27B_CELLS, device="cuda", params_cfg=(params, cfg),
+                      **kw)
+        keep = {}
+        counts, rec = run_llama3_8b(ctx, (dec, pre), keep, GEMMA2_27B_DECODE,
+                                    GEMMA2_27B_PROMPT)
+        del ctx
+        twin = Context(None, n_cells=GEMMA2_27B_CELLS, device="cuda", params_cfg=(params, cfg),
+                       **kw)
+        cuda_attn.reset_launches()
+        for i in range(0, len(prompt), GEMMA2_27B_STEP):
+            assert twin.decode(Batch.text(prompt[i:i + GEMMA2_27B_STEP])) == 0
+        torch.cuda.synchronize()
+        twin_counts = {k: v for k, v in cuda_attn.LAUNCHES.items() if v}
+        want_twin = {dec: cfg.n_layers * -(-len(prompt) // GEMMA2_27B_STEP)}
+        lt = twin.get_logits()
+        err = float(np.abs(keep["logits"] - lt).max())
+        tol = rel * float(np.abs(lt).max())
+        log(json.dumps(dict(phase=19, kv_dtype=kv or "bf16", prefill_kernel=pre,
+                            prefill_launches=counts[pre], twin_launches=twin_counts,
+                            prefill_vs_steps_of_8_max_abs_diff=err, tol=tol,
+                            prefill_tok_s=rec["prefill_tok_s"],
+                            ms_per_token=1e3 / rec["decode_tok_s"], card=card)))
+        del twin
+        torch.cuda.empty_cache()
+        if twin_counts != want_twin:
+            raise AssertionError(f"the twin's flash launches {twin_counts} != {want_twin}")
+        if not (err <= tol and math.isfinite(err)):
+            raise AssertionError(f"Gemma-2-27B {kv or 'bf16'}: the prefill's last logits vs "
+                                 f"steps of {GEMMA2_27B_STEP}: max|diff| {err} > {tol}")
+        out.update({pre: counts[pre], dec: counts[dec], f"{kv or 'bf16'}_rec": rec})
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 REPLACES = {
     "K1": ("llm_tpu_torch/csrc/qmm_decode.cu", "llm_tpu/ops/pallas_qmm.py:159"),
     "K2": ("llm_tpu_torch/csrc/qmm_decode.cu", "llm_tpu/ops/pallas_qmm.py:149"),
@@ -4215,6 +4389,8 @@ REPLACES = {
     "K4w_cap": ("llm_tpu_torch/csrc/flash_prefill.cu", "llm_tpu/ops/pallas_attn.py:328"),
     "K3qw_cap": ("llm_tpu_torch/csrc/flash_attn.cu", "llm_tpu/ops/pallas_attn.py:135"),
     "K4qw_cap": ("llm_tpu_torch/csrc/flash_prefill.cu", "llm_tpu/ops/pallas_attn.py:341"),
+    "K4_cap": ("llm_tpu_torch/csrc/flash_prefill.cu", "llm_tpu/ops/pallas_attn.py:328"),
+    "K4q_cap": ("llm_tpu_torch/csrc/flash_prefill.cu", "llm_tpu/ops/pallas_attn.py:341"),
     # the ALiBi term of the TPU kernels' bodies (_decode_body :83-96,
     # _prefill_body :294-302), reached through the same entries
     "K3_alibi": ("llm_tpu_torch/csrc/flash_attn.cu", "llm_tpu/ops/pallas_attn.py:123"),
@@ -4267,6 +4443,9 @@ HEADLINE = {"K1": "gate_up Q4_K K=4096 N=28672 B=1",
             "K4w_cap": "prefill T=512 S=4096 H=16 Hkv=8 D=256 cap=50",
             "K3qw_cap": "decode half-masked T=1 S=4096 H=16 Hkv=8 D=256 cap=50",
             "K4qw_cap": "prefill T=512 S=4096 H=16 Hkv=8 D=256 cap=50",
+            # the narrow capped kernels at Gemma-2-27B's heads (phase 19)
+            "K4_cap": "prefill T=512 S=4096 H=32 Hkv=16 D=128 cap=50",
+            "K4q_cap": "prefill T=512 S=4096 H=32 Hkv=16 D=128 cap=50",
             # the ALiBi kernels at Baichuan-13B's heads (phase 12)
             "K3_alibi": "decode half-masked T=1 S=4096 H=40 Hkv=40 D=128 alibi",
             "K4_alibi": "prefill T=512 S=4096 H=40 Hkv=40 D=128 alibi",
@@ -4321,6 +4500,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    attn_gemm = sys.argv[1:2] == ["--attn-gemm-rows"]
+    root = None
+    if attn_gemm and sys.argv[2:3] == ["--root"] and len(sys.argv) == 4:
+        root = os.path.abspath(sys.argv[3])  # that checkout's llm_tpu_torch, built there
+        sys.path.insert(0, root)
+    elif attn_gemm and len(sys.argv) != 2:
+        print("usage: chip_smoke.py --attn-gemm-rows [--root DIR]", file=sys.stderr)
+        return 2
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
@@ -4339,6 +4526,11 @@ def main() -> int:
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line or "error" in line or "C75" in line:
                 log("   ", line.strip())
+    if attn_gemm:
+        log(f"attention and GEMM rows of {os.path.dirname(cuda_build.CSRC.parent)}")
+        attn_gemm_rows(flex=root is None)
+        log("attention and GEMM rows passed")
+        return 0
     # the decode GEMV: K1/K2/K7's 16 qmm_decode kernels and K5's 8
     # (qmm_decode_gdot) issue mma.sync and TMA tile loads; the old GEMV loop
     # (qmm_gemv) is in no library but S1's, whose probes keep it; K6's
@@ -4384,13 +4576,15 @@ def main() -> int:
     # library; S3's library keeps that body
     check_sass("decode_attn_sass", {"flash_attn": K3_KERNELS}, "flash_decode_tc",
                ("HMMA", "UTMALDG"), ("flash_decode_split", "flash_decode_combine"))
-    # the capped wide instantiations (gemma2's attention softcap), counted
-    # apart: K3w_cap/K3qw_cap issue mma.sync and TMA loads, K4w_cap/K4qw_cap
-    # wgmma and TMA loads
+    # the capped instantiations (gemma2's attention softcap), counted apart:
+    # K3w_cap/K3qw_cap issue mma.sync and TMA loads, K4w_cap/K4qw_cap and
+    # the narrow K4_cap/K4q_cap wgmma and TMA loads
     check_sass("capped_decode_sass", {"flash_attn": K3_CAP_KERNELS}, "flash_decode_tc_wide_cap",
                ("HMMA", "UTMALDG"), ())
     check_sass("capped_prefill_sass", {"flash_prefill": K4_CAP_KERNELS},
                "flash_prefill_wgmma_wide_cap", ("HGMMA", "UTMALDG"), ())
+    check_sass("narrow_capped_prefill_sass", {"flash_prefill": K4_NARROW_CAP_KERNELS},
+               "flash_prefill_wgmma_cap", ("HGMMA", "UTMALDG"), ())
     # the ALiBi instantiations of the narrow kernels (Baichuan-13B, refact),
     # counted apart: K3_alibi/K3q_alibi issue mma.sync and TMA loads,
     # K4_alibi/K4q_alibi wgmma and TMA loads
@@ -4414,10 +4608,6 @@ def main() -> int:
     if sys.argv[1:] == ["--decode-rows"]:
         decode_rows()
         log("decode rows passed")
-        return 0
-    if sys.argv[1:] == ["--attn-gemm-rows"]:
-        attn_gemm_rows()
-        log("attention and GEMM rows passed")
         return 0
     if sys.argv[1:] == ["--command-r"]:
         command_r_rows([])
@@ -4505,25 +4695,30 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_command_r_35b(card)
     log(f"Command-R at {COMMAND_R_LAYERS} layers passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gemma27 = phase_gemma2_27b(card)
+    log(f"Gemma-2-27B at {GEMMA2_27B_LAYERS} layers passed in {time.perf_counter() - t0:.1f} s")
     # each kernel's launches from the path that runs it: K1-K4 from phase 4,
     # K3q/K4q from phase 5, K5 from phase 6, K6 from phase 7, K7 from phase
     # 8, the wide K3w/K4w/K3qw/K4qw from phase 3's Gemma-2-2B and
     # DeepSeek-V2-Lite twins (their card runs), the capped ones from phase
     # 11 (K3w_cap/K4w_cap its ring run, K3qw_cap/K4qw_cap its q8_0 one), the
-    # ALiBi ones from phase 12 (its bf16 and q8_0 runs), K6_gelu from phase
+    # narrow capped K4_cap/K4q_cap from phase 19, the ALiBi ones from phase 12 (its bf16 and q8_0 runs), K6_gelu from phase
     # 14's chained run, S1 from the kbench run, S3 from the kbench_attn run
     counts = {**counts, "K3q": counts_q8["K3q"], "K4q": counts_q8["K4q"],
               "K5": counts_gdot["K5"], "K6": counts_chain["K6"], "K7": counts_scan["K7"],
               **{k: sum(r["attn_launches"][k] for r in widths)
                  for k in ("K3w", "K4w", "K3qw", "K4qw")},
               **{k: counts_gemma2[k] for k in ("K3w_cap", "K4w_cap", "K3qw_cap", "K4qw_cap")},
+              **{k: gemma27[k] for k in ("K4_cap", "K4q_cap")},
               **counts_baichuan, "K6_gelu": gemma7b["K6_gelu"],
               **{k: lowbit["counts"][k] for k in ("K1_gs16", "K5_gs16", "K6_gs16", "K7_gs16")},
               **{k: iq["counts"][k] for k in IQ_KERNELS}}
 
     kernels = []
     for k in ("K1", "K2", "K3", "K4", "K3q", "K4q", "K3w", "K4w", "K3qw", "K4qw", "K3w_cap",
-              "K4w_cap", "K3qw_cap", "K4qw_cap", "K3_alibi", "K4_alibi", "K3q_alibi",
+              "K4w_cap", "K3qw_cap", "K4qw_cap", "K4_cap", "K4q_cap", "K3_alibi", "K4_alibi",
+              "K3q_alibi",
               "K4q_alibi", "K5", "K6", "K6_gelu", "K7", "K1_gs16", "K5_gs16", "K6_gs16",
               "K7_gs16") + IQ_KERNELS:
         mine = [r for r in results if r["kernel"] == k]

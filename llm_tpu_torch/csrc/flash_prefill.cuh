@@ -87,6 +87,11 @@
 //    the other's chain does; a warpgroup releases the stage once both its
 //    chains have retired.
 //
+// gemma2's attention softcap (pallas_attn.py _prefill_body's softcap term)
+// is the CAP instantiation of the consumers: cap log2e * tanhf(s * scale /
+// cap) + max(bias, -1e30) log2e in place of the one fmaf, in kernels of
+// their own (flash_prefill_wgmma_cap) at Dk = Dv <= 128.
+//
 // ALiBi (pallas_attn.py _prefill_body's slopes_ref / dist_ref term, score
 // -= slope_h * (pos_q - pos_k) after the scale and before the bias) is the
 // ALIBI instantiation of the producer and the consumers. Every ALiBi model
@@ -124,6 +129,11 @@ constexpr int FP_CONSUMERS = 256;
 constexpr int FP_THREADS = FP_CONSUMERS + 128;
 constexpr int FP_PRODUCER_REGS = 56;  // 2 x 128 x 224 + 128 x 56 = 384 x 168
 constexpr int FP_CONSUMER_REGS = 224;
+// the capped instantiation: tanhf's temporaries do not fit 224 registers
+// beside q, O, the scores and the bias rows (300 bytes of spills; 40 / 232
+// ran Gemma-2-27B's capped step 7% faster on an H100, PERF.md)
+constexpr int FP_CAP_PRODUCER_REGS = 40;  // 2 x 128 x 232 + 128 x 40 = 384 x 168
+constexpr int FP_CAP_CONSUMER_REGS = 232;
 constexpr int FP_HALF = FP_SB * 128;       // bytes of a [64 cells][64 dims] bf16 half
 constexpr int FP_PLANE = 2 * FP_HALF;      // one [64][128] plane
 constexpr int FP_V_OFF = 4 * FP_PLANE;     // after kc_hi, ks_hi, kc_lo, ks_lo
@@ -467,11 +477,14 @@ __device__ __forceinline__ void prefill_producer(const PrefillCta& c, const CUte
 
 // the two consumer warpgroups (threads 0 .. FP_CONSUMERS - 1): the CTA's
 // 128 rows over every stage, then the output. DT: the head dim, 0 = a.D;
-// ALIBI: the ALiBi term, from al, and no rope (q alone, one K-side plane)
-template <int DT, bool ALIBI = false>
+// ALIBI: the ALiBi term, from al, and no rope (q alone, one K-side plane);
+// CAP: gemma2's attention softcap, a score s becoming cap.y * tanhf(s *
+// cap.x) + max(bias, -1e30) log2 e, cap.x = scale / softcap and cap.y =
+// softcap * log2 e (the TPU kernel's tanh(s * scale / cap) * cap)
+template <int DT, bool ALIBI = false, bool CAP = false>
 __device__ __forceinline__ void prefill_consumers(
     const PrefillCta& c, const PrefillArgs& a,
-    const PrefillAlibi& al = PrefillAlibi{nullptr, nullptr, nullptr}) {
+    const PrefillAlibi& al = PrefillAlibi{nullptr, nullptr, nullptr}, float2 cap = float2{}) {
   const int D = DT ? DT : a.D;
   const uint32_t smem_a = c.smem_a, full0 = c.full0, empty0 = c.empty0;
   const int h = c.h, row0 = c.row0, nblk = c.nblk;
@@ -568,10 +581,17 @@ __device__ __forceinline__ void prefill_consumers(
     // sc[4i + e]: row (e < 2 ? a : b), cell 8i + 2 t4 + (e & 1)
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      sc[4 * i + 0] = fmaf(sc[4 * i + 0], scale2, ba[2 * i]);
-      sc[4 * i + 1] = fmaf(sc[4 * i + 1], scale2, ba[2 * i + 1]);
-      sc[4 * i + 2] = fmaf(sc[4 * i + 2], scale2, bb[2 * i]);
-      sc[4 * i + 3] = fmaf(sc[4 * i + 3], scale2, bb[2 * i + 1]);
+      if constexpr (CAP) {
+        sc[4 * i + 0] = fmaf(tanhf(sc[4 * i + 0] * cap.x), cap.y, ba[2 * i]);
+        sc[4 * i + 1] = fmaf(tanhf(sc[4 * i + 1] * cap.x), cap.y, ba[2 * i + 1]);
+        sc[4 * i + 2] = fmaf(tanhf(sc[4 * i + 2] * cap.x), cap.y, bb[2 * i]);
+        sc[4 * i + 3] = fmaf(tanhf(sc[4 * i + 3] * cap.x), cap.y, bb[2 * i + 1]);
+      } else {
+        sc[4 * i + 0] = fmaf(sc[4 * i + 0], scale2, ba[2 * i]);
+        sc[4 * i + 1] = fmaf(sc[4 * i + 1], scale2, ba[2 * i + 1]);
+        sc[4 * i + 2] = fmaf(sc[4 * i + 2], scale2, bb[2 * i]);
+        sc[4 * i + 3] = fmaf(sc[4 * i + 3], scale2, bb[2 * i + 1]);
+      }
     }
     if (sb + FP_SB > a.S) {
 #pragma unroll

@@ -12,6 +12,8 @@ as packed planes. Counterpart of llm_tpu/models/synthetic.py.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -31,6 +33,12 @@ LLAMA3_8B = dict(n_embd=4096, n_layers=32, n_heads=32, n_kv_heads=8,
 # (attention) and 30 (logits), tied embeddings; gemma2_config adds the rest
 GEMMA2_9B = dict(n_embd=3584, n_layers=42, n_heads=16, n_kv_heads=8,
                  n_ff=14336, vocab=256000, head_dim=256)
+# Gemma-2-27B (google/gemma-2-27b config.json): hidden 4608, 46 layers, 32
+# query heads over 16 KV heads of 128 dims, ff 36864, query_pre_attn_scalar
+# 144 = 4608 / 32 (gemma2_config's 46-layer profile), softcaps 50 and 30, a
+# 4096-cell window on every other layer, tied embeddings
+GEMMA2_27B = dict(n_embd=4608, n_layers=46, n_heads=32, n_kv_heads=16,
+                  n_ff=36864, vocab=256000, head_dim=128)
 # Baichuan-13B (baichuan-inc/Baichuan-13B-Base config.json): 40 heads over
 # 40 KV heads of 128 dims, ff 13696 (no multiple of 256: a Q4_K_M-style
 # recipe writes its ffn_down as Q8_0), untied lm_head; 40 layers select
@@ -321,6 +329,13 @@ def gemma2_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab, head_dim=N
         tie_embeddings=True, act="gelu", context_length=8192, attn_softcap=50.0,
         final_softcap=30.0, swa_window=swa_window, swa_pattern=2,
         embedding_scale=float(n_embd) ** 0.5)
+
+
+def gemma2_27b_config(n_layers: int) -> ModelConfig:
+    """Gemma-2-27B's config cut to n_layers: built at its 46 layers, which
+    select the scale (n_embd / n_heads)^-0.5 = 144^-0.5, then cut; a gemma2
+    config built at another depth scales by head_dim^-0.5."""
+    return dataclasses.replace(gemma2_config(**GEMMA2_27B), n_layers=n_layers)
 
 
 def gemma_config(n_embd, n_layers, n_heads, n_kv_heads, n_ff, vocab,

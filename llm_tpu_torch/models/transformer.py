@@ -13,8 +13,9 @@ qwen2moe, qwen3moe) paths:
 gemma (v1) runs the llama graph with a gelu (tanh) FFN and the embedding
 scaled by sqrt(n_embd) in f32. gemma2 (cfg.arch "gemma2") adds, as the
 reference does: the embedding scaled by sqrt(n_embd) in f32; the
-attention logit softcap inside the flash kernels (their capped wide
-instantiations, K3w_cap/K4w_cap and the q8 ones) and the unfused
+attention logit softcap inside the flash kernels (their capped
+instantiations: K3w_cap at decode, K4_cap at a prefill step whose heads
+the narrow kernels take, else K4w_cap, and the q8 ones) and the unfused
 attention; a sliding window on every other layer (cfg.layer_is_swa), as a
 second bias; post-norms (attn_post_norm, ffn_post_norm) on the attention
 and FFN outputs before each residual; a gelu (tanh) FFN; and the final

@@ -32,20 +32,25 @@ does (any multiple of 8). Dk = Dv <= 128 (on the int8 cache a multiple of
 dims, the columns past D arriving from TMA as zeros. Everything else, Dk !=
 Dv (MLA's 192/128), heads past 128 (gemma's 256) and int8 rows whose pitch
 is no multiple of 16 bytes (D = 72, 136: 8 mod 16), runs the wide kernels
-(LAUNCHES "K3w", "K3qw", "K4w", "K4qw"): the same arithmetic over two
-128-dim chunks, int8 rows of such a pitch brought by 8-byte cp.async.
-Heads past 256 are refused here; models/transformer.py's flash_route sends
-them to the unfused attention on either device.
+(LAUNCHES "K3w", "K3qw", "K4w", "K4qw"): the same arithmetic over
+128-dim chunks, int8 rows of such a pitch brought by 8-byte cp.async. The
+wide K4/K4q's CTA owns 128 query rows over ceil(max(Dk, Dv) / 128) chunks
+and splits a KV head's cells over a thread block cluster where the row
+tiles leave SMs idle (`wide_prefill_plan`, which a CPU test holds against
+the kernel's budgets). Heads past 256 are refused here;
+models/transformer.py's flash_route sends them to the unfused attention on
+either device.
 
 softcap > 0 (gemma2's attention logit cap, pallas_attn.py's `softcap`):
 each score becomes cap * tanh(score * scale / cap) before the bias is added.
-Every capped step runs the wide kernels' capped instantiations (LAUNCHES
-"K3w_cap", "K3qw_cap", "K4w_cap", "K4qw_cap"), whatever its head dims: a
-shape the narrow kernels would take (Gemma-2-27B's 128) raises nothing and
-runs wide with one 128-dim chunk, so the narrow kernels and the uncapped
-wide ones keep their machine code. The kernels take tanhf, not
-tanh.approx.f32, whose ~2^-11 relative error would reach ~2% of a weight
-at cap 50.
+A capped prefill step whose heads the narrow kernels take (Gemma-2-27B's
+128) runs their capped instantiations (LAUNCHES "K4_cap", "K4q_cap"),
+kernels of their own, so that the uncapped narrow kernels keep their
+machine code; any other capped prefill step runs the wide ones' ("K4w_cap",
+"K4qw_cap"), and every capped decode step the wide decode kernels'
+("K3w_cap", "K3qw_cap"), whatever its head dims. The kernels take tanhf,
+not tanh.approx.f32, whose ~2^-11 relative error would reach ~2% of a
+weight at cap 50.
 
 ALiBi (alibi_slopes f32 [H] with the positions tok_pos [T] and cell_pos
 [S]; pallas_attn.py's `alibi_slopes` / `dist`, dist = tok_pos - cell_pos,
@@ -66,6 +71,7 @@ step to the unfused attention on either device, and the launch raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -77,7 +83,7 @@ from .rope import ROPE_TYPE_NEOX, ROPE_TYPE_NONE, ROPE_TYPE_NORM
 NEG = -1e30
 T_CHUNK = 64  # query rows per step of attn_plain, to bound its score tensor
 LAUNCHES = {"K3": 0, "K4": 0, "K3q": 0, "K4q": 0, "K3w": 0, "K4w": 0, "K3qw": 0, "K4qw": 0,
-            "K3w_cap": 0, "K4w_cap": 0, "K3qw_cap": 0, "K4qw_cap": 0,
+            "K3w_cap": 0, "K4w_cap": 0, "K3qw_cap": 0, "K4qw_cap": 0, "K4_cap": 0, "K4q_cap": 0,
             "K3_alibi": 0, "K4_alibi": 0, "K3q_alibi": 0, "K4q_alibi": 0}
 # the K3/K3q launches (narrow, wide, capped and ALiBi) by T, the query rows of the call
 DECODE_LAUNCHES_BY_T: dict[int, int] = {}
@@ -94,6 +100,10 @@ DECODE_BLOCK, DECODE_ROWS, DECODE_MAX_T, DECODE_MAX_CLUSTER = 64, 32, 8, 8
 WIDE_ROWS = 16  # the wide K3/K3q: query rows a CTA
 NARROW_HEAD_DIM = 128  # the head dims a narrow kernel's block holds
 MAX_HEAD_DIM = 256  # the wide kernels: two 128-dim chunks
+# the wide K4/K4q (csrc/flash_prefill.cu): query rows a CTA (64 a consumer
+# warpgroup), cells a block, the largest cluster that splits a head's cells
+WIDE_PREFILL_ROWS, WIDE_PREFILL_BLOCK, WIDE_PREFILL_MAX_SPLIT = 128, 32, 8
+SMEM_PER_CTA = 232448  # the H100's 227 KB of shared memory a block
 
 
 def head_dim_ok(d: int) -> bool:
@@ -211,19 +221,39 @@ def _prefill_lib():
         lib.flash_prefill_q8_launch.restype = ctypes.c_int
         lib.flash_prefill_wide_launch.argtypes = (
             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-            + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+            + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.flash_prefill_wide_launch.restype = ctypes.c_int
         lib.flash_prefill_wide_q8_launch.argtypes = (
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-            + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+            + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.flash_prefill_wide_q8_launch.restype = ctypes.c_int
+        lib.flash_prefill_cap_launch.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+            + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+        lib.flash_prefill_cap_launch.restype = ctypes.c_int
+        lib.flash_prefill_q8_cap_launch.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+            + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+        lib.flash_prefill_q8_cap_launch.restype = ctypes.c_int
         lib.flash_prefill_alibi_launch.argtypes = (
             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
         lib.flash_prefill_alibi_launch.restype = ctypes.c_int
         lib.flash_prefill_q8_alibi_launch.argtypes = (
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
         lib.flash_prefill_q8_alibi_launch.restype = ctypes.c_int
+        lib.flash_prefill_wide_clusters.argtypes = [ctypes.c_int] * 3
+        lib.flash_prefill_wide_clusters.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_clusters(q8: bool, chunks: int, split: int) -> int:
+    """The clusters of `split` wide K4/K4q CTAs the card holds at once
+    (cudaOccupancyMaxActiveClusters)."""
+    n = _prefill_lib().flash_prefill_wide_clusters(int(q8), chunks, split)
+    if n < 0:
+        cuda_build.check(-n, "flash_prefill_wide_clusters")
+    return n
 
 
 def _check_inputs(q, q_rot, k, v, cos, sin, bias, kv_dtype=torch.bfloat16):
@@ -315,6 +345,59 @@ def decode_attn_plan(T: int, H: int, Hkv: int, S: int, n_sm: int,
     return cluster, -(-nblk // cluster), chunks
 
 
+def wide_prefill_chunks(dk: int, dv: int) -> int:
+    """The 128-dim chunks of the wide K4/K4q at (Dk, Dv): one where both
+    are at most 128 (no dead chunk), else two."""
+    return 1 if max(dk, dv) <= NARROW_HEAD_DIM else 2
+
+
+def wide_prefill_smem(chunks: int) -> dict:
+    """The wide K4/K4q CTA's dynamic shared memory at `chunks` chunks, in
+    bytes, as csrc/flash_prefill.cu's WideSmem lays it out: q and q_rot of
+    the 128 rows (two chunks only: one chunk holds them in registers), the
+    ring of planes slots (one (block, chunk) item's four K-side planes,
+    [32 cells][128 dims] bf16 each, its raw inputs landing in it) and of V
+    slots (a block's V, [chunks][32 cells][128 dims] bf16), and 1024 to
+    align. The S split's partials (O f32 [128][chunks * 128], m and l, and
+    every rank's m and l) reuse the ring."""
+    q = 0 if chunks == 1 else 2 * 2 * chunks * 2 * 64 * 128
+    slots = 4 if chunks == 1 else 2
+    plane_slot = 4 * WIDE_PREFILL_BLOCK * 128 * 2
+    v_slot = chunks * WIDE_PREFILL_BLOCK * 128 * 2
+    partials = (WIDE_PREFILL_ROWS * chunks * 128 * 4 + 2 * WIDE_PREFILL_ROWS * 4
+                + 2 * WIDE_PREFILL_MAX_SPLIT * WIDE_PREFILL_ROWS * 4)
+    ring = q + slots * plane_slot + slots * v_slot
+    return dict(q=q, planes_slots=slots, v_slots=slots, plane_slot=plane_slot, v_slot=v_slot,
+                partials=partials, total=ring + 1024)
+
+
+def wide_prefill_plan(T: int, H: int, Hkv: int, S: int, dk: int, dv: int,
+                      n_sm: int, clusters=None) -> dict:
+    """The wide K4/K4q's launch for T query tokens of H heads over Hkv KV
+    heads and S cells on n_sm SMs: a CTA owns WIDE_PREFILL_ROWS rows r = t*G
+    + g of one KV head (grid ceil(T*G/128) tiles x Hkv) over `chunks`
+    128-dim chunks, and a thread block cluster of `split` CTAs splits the
+    head's 32-cell blocks where the tiles leave SMs idle: as many as put one
+    CTA on every SM, at most WIDE_PREFILL_MAX_SPLIT and one a block, and no
+    more than let every cluster run at once (clusters(split): the clusters
+    of that size the card holds, cudaOccupancyMaxActiveClusters on the
+    card; None: n_sm // split, one CTA an SM), then the fewest that give
+    each CTA the same number of blocks (each then takes `blocks_per_cta`,
+    the last at least one). No scratch in global memory: the ranks meet in
+    distributed shared memory."""
+    tiles = -(-T * (H // Hkv) // WIDE_PREFILL_ROWS)
+    nblk = -(-S // WIDE_PREFILL_BLOCK)
+    clusters = clusters or (lambda s: n_sm // s)
+    target = max(1, min(WIDE_PREFILL_MAX_SPLIT, nblk, n_sm // (tiles * Hkv)))
+    while target > 1 and clusters(target) < tiles * Hkv:
+        target -= 1
+    split = -(-nblk // -(-nblk // target))
+    chunks = wide_prefill_chunks(dk, dv)
+    return dict(rows=WIDE_PREFILL_ROWS, cells=WIDE_PREFILL_BLOCK, chunks=chunks, split=split,
+                blocks_per_cta=-(-nblk // split), ctas=tiles * Hkv * split,
+                smem_bytes=wide_prefill_smem(chunks)["total"], scratch_bytes=0)
+
+
 def _check_decode(T, *tensors):
     """What K3/K3q take beyond _check_inputs: T <= 8 and 16-byte aligned
     tensors (TMA and 16-byte loads)."""
@@ -348,7 +431,7 @@ def _decode_launch(q8: bool, q, q_rot, k, v, cos, sin, bias, scale: float,
     T, H, Hkv, S, Dk, Dv = (_check_q8 if q8 else _check_inputs)(q, q_rot, k, v, cos, sin, bias)
     planes = (*k, *v) if q8 else (k, v)
     _check_decode(T, *(t for t in (q, q_rot, *planes, cos, sin, bias) if t is not None))
-    narrow = is_narrow(Dk, Dv, q8) and softcap <= 0.0
+    narrow = is_narrow(Dk, Dv, q8) and softcap <= 0.0  # every capped step runs wide
     alibi = _check_alibi(alibi_slopes, tok_pos, cell_pos, cos is not None, T, H, S, narrow,
                          softcap)
     if cluster is None:
@@ -367,7 +450,7 @@ def _decode_launch(q8: bool, q, q_rot, k, v, cos, sin, bias, scale: float,
         rc = getattr(lib, name)(*ptrs, T, H, Hkv, S, Dk, Dv, float(scale),
                                 max(float(softcap), 0.0), int(cluster), stream)
     cuda_build.check(rc, name)
-    LAUNCHES[_kernel_name("K3", q8, narrow, softcap, alibi)] += 1
+    LAUNCHES[decode_kernel(Dk, Dv, q8, softcap, alibi)] += 1
     DECODE_LAUNCHES_BY_T[T] = DECODE_LAUNCHES_BY_T.get(T, 0) + 1
     return out
 
@@ -375,8 +458,8 @@ def _decode_launch(q8: bool, q, q_rot, k, v, cos, sin, bias, scale: float,
 def _kernel_name(base: str, q8: bool, narrow: bool, softcap: float,
                  alibi: bool = False) -> str:
     """The LAUNCHES key of a launch: K3/K4, q on the int8 cache, w on the
-    wide kernels, _cap on their capped instantiations, _alibi on the
-    narrow kernels' ALiBi ones."""
+    wide kernels, _cap on the capped instantiations, _alibi on the narrow
+    kernels' ALiBi ones."""
     return (base + ("q" if q8 else "") + ("" if narrow else "w")
             + ("_cap" if softcap > 0.0 else "") + ("_alibi" if alibi else ""))
 
@@ -395,32 +478,57 @@ def flash_decode_q8_cuda(q, q_rot, k, v, cos, sin, bias, scale: float, softcap: 
                           alibi_slopes=alibi_slopes, tok_pos=tok_pos, cell_pos=cell_pos)
 
 
+def prefill_kernel(dk: int, dv: int, q8: bool, softcap: float, alibi: bool = False) -> str:
+    """The LAUNCHES key of a K4/K4q step: the narrow kernels where
+    is_narrow (their capped instantiations K4_cap / K4q_cap where softcap >
+    0, their ALiBi ones with alibi), else the wide ones (K4w, K4qw, capped
+    K4w_cap, K4qw_cap). Every shape goes to exactly one kernel."""
+    return _kernel_name("K4", q8, is_narrow(dk, dv, q8), softcap, alibi)
+
+
+def decode_kernel(dk: int, dv: int, q8: bool, softcap: float, alibi: bool = False) -> str:
+    """The LAUNCHES key of a K3/K3q step: the narrow kernels where
+    is_narrow and uncapped (their ALiBi ones with alibi), else the wide
+    ones; every capped step the wide ones' capped instantiations."""
+    return _kernel_name("K3", q8, is_narrow(dk, dv, q8) and softcap <= 0.0, softcap, alibi)
+
+
 def _prefill_launch(q8: bool, q, q_rot, k, v, cos, sin, bias, scale: float,
                     softcap: float = 0.0, alibi_slopes=None, tok_pos=None,
-                    cell_pos=None) -> torch.Tensor:
+                    cell_pos=None, split=None) -> torch.Tensor:
     """Launch K4 (bf16 k, v) or K4q (q8: (int8, scales) pairs), narrow or
-    wide by is_narrow (wide and capped where softcap > 0; the narrow ALiBi
-    instantiation with alibi_slopes, tok_pos and cell_pos, q_rot, cos and
-    sin None), any G = H / Hkv. Returns [T, H, Dv] f32."""
+    wide by is_narrow (the narrow capped instantiation where softcap > 0 and
+    the heads are narrow; the narrow ALiBi instantiation with alibi_slopes,
+    tok_pos and cell_pos, q_rot, cos and sin None), any G = H / Hkv. The
+    wide kernel's cluster is `split` CTAs a row tile (None:
+    wide_prefill_plan's). Returns [T, H, Dv] f32."""
     T, H, Hkv, S, Dk, Dv = (_check_q8 if q8 else _check_inputs)(q, q_rot, k, v, cos, sin, bias)
     planes = (*k, *v) if q8 else (k, v)
-    narrow = is_narrow(Dk, Dv, q8) and softcap <= 0.0
+    narrow = is_narrow(Dk, Dv, q8)
     alibi = _check_alibi(alibi_slopes, tok_pos, cell_pos, cos is not None, T, H, S, narrow,
                          softcap)
     out = torch.empty((T, H, Dv), dtype=torch.float32, device=q.device)
     ptrs = _launch_ptrs(q, q_rot, planes, cos, sin, bias, alibi_slopes, tok_pos, cell_pos, out)
     lib = _prefill_lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if narrow:
+    cap = max(float(softcap), 0.0)
+    if narrow and cap > 0.0:
+        name = "flash_prefill_q8_cap_launch" if q8 else "flash_prefill_cap_launch"
+        rc = getattr(lib, name)(*ptrs, T, H, Hkv, S, Dk, float(scale), cap, stream)
+    elif narrow:
         name = ("flash_prefill_q8" if q8 else "flash_prefill") + ("_alibi" if alibi else "") \
             + "_launch"
         rc = getattr(lib, name)(*ptrs, T, H, Hkv, S, Dk, float(scale), stream)
     else:
+        if split is None:
+            chunks = wide_prefill_chunks(Dk, Dv)
+            split = wide_prefill_plan(T, H, Hkv, S, Dk, Dv, sm_count(q.device),
+                                      lambda s: _wide_clusters(q8, chunks, s))["split"]
         name = "flash_prefill_wide_q8_launch" if q8 else "flash_prefill_wide_launch"
-        rc = getattr(lib, name)(*ptrs, T, H, Hkv, S, Dk, Dv, float(scale),
-                                max(float(softcap), 0.0), stream)
+        rc = getattr(lib, name)(*ptrs, T, H, Hkv, S, Dk, Dv, float(scale), cap, int(split),
+                                stream)
     cuda_build.check(rc, name)
-    LAUNCHES[_kernel_name("K4", q8, narrow, softcap, alibi)] += 1
+    LAUNCHES[prefill_kernel(Dk, Dv, q8, softcap, alibi)] += 1
     return out
 
 

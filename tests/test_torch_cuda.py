@@ -262,21 +262,38 @@ def test_flash_gives_the_same_bits_over_many_launches(cuda_device, q8, T, H, Hkv
     assert not off, f"{len(off)} of 1500 launches differ from the first: {off[:8]}"
 
 
-@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "q8_0"])
-@pytest.mark.parametrize("T", [1, 512])
-def test_wide_flash_gives_the_same_bits_over_many_launches(cuda_device, q8, T):
-    """The wide kernels (K3w/K3qw, K4w/K4qw) at Gemma-7B's heads (16 over
-    16 of 256 dims): K4w's producer reads its raw block through the generic
-    proxy before lane 0's next TMA refills it, and K3w's consumers read
-    their slots likewise; 1500 back-to-back launches on one input give the
-    first launch's bits every time."""
-    t = _attn_inputs(T, 16, 16, 4096, ROPE_TYPE_NORM, D=256)
+# (T, H, Hkv, Dk, Dv, q8, softcap) over 4096 cells: K3w / K3qw at
+# Gemma-7B's heads (16 over 16 of 256); the wide K4w / K4qw's ring at two
+# chunks (Gemma-7B's heads, a split of 2; Gemma-2-2B's 8 over 4, a split of
+# 4), at one (Dk 128 / Dv 64), capped (Gemma-2-9B's heads), on the int8
+# cache at 256 and at rows of 8 mod 16 bytes (72: one chunk by cp.async;
+# 136: two), and the narrow capped K4_cap / K4q_cap at Gemma-2-27B's heads
+WIDE_REPEAT_CASES = [(1, 16, 16, 256, 256, False, 0.0), (1, 16, 16, 256, 256, True, 0.0),
+                     (512, 16, 16, 256, 256, False, 0.0), (512, 16, 16, 256, 256, True, 0.0),
+                     (512, 8, 4, 256, 256, False, 0.0), (512, 32, 8, 128, 64, False, 0.0),
+                     (512, 16, 8, 256, 256, False, 50.0), (512, 16, 8, 256, 256, True, 50.0),
+                     (512, 32, 8, 72, 72, True, 0.0), (512, 16, 8, 136, 136, True, 0.0),
+                     (512, 32, 16, 128, 128, False, 50.0), (512, 32, 16, 128, 128, True, 50.0)]
+
+
+@pytest.mark.parametrize("T,H,Hkv,Dk,Dv,q8,softcap", WIDE_REPEAT_CASES,
+                         ids=[f"T{t}-H{h}-Hkv{hk}-Dk{dk}-Dv{dv}-{'q8' if q else 'bf16'}-cap{c:g}"
+                              for t, h, hk, dk, dv, q, c in WIDE_REPEAT_CASES])
+def test_wide_flash_gives_the_same_bits_over_many_launches(cuda_device, T, H, Hkv, Dk, Dv, q8,
+                                                           softcap):
+    """The wide kernels and the capped ones: K4w's producer reads each
+    item's raw inputs through the generic proxy and writes the planes over
+    them before a later TMA refills the slot, its consumers release a slot
+    chunk by chunk and meet their split's ranks in rank order, and K3w's
+    consumers read their slots likewise; 1500 back-to-back launches on one
+    input give the first launch's bits every time."""
+    t = _attn_inputs(T, H, Hkv, 4096, ROPE_TYPE_NORM, D=Dk, Dv=Dv)
     if q8:
         t["k"], t["v"] = _q8(t["k"]), _q8(t["v"])
     dev = {n: (tuple(x.to(cuda_device) for x in a) if isinstance(a, tuple)
                else a.to(cuda_device)) for n, a in t.items()}
     launch = cuda_attn._decode_launch if T <= 8 else cuda_attn._prefill_launch
-    run = (lambda: launch(q8, **dev, scale=256 ** -0.5))
+    run = (lambda: launch(q8, **dev, scale=Dk ** -0.5, softcap=softcap))
     want = run()
     off = [it for it in range(1500) if not torch.equal(run(), want)]
     assert not off, f"{len(off)} of 1500 launches differ from the first: {off[:8]}"
@@ -490,11 +507,14 @@ WIDE_CASES = [(1, 8, 4, 4096, 256, 256), (8, 8, 4, 4096, 256, 256), (512, 8, 4, 
               (1, 16, 16, 4096, 192, 128), (8, 16, 16, 1000, 192, 128),
               (512, 16, 16, 4096, 192, 128), (1, 32, 8, 4096, 128, 64),
               (40, 32, 8, 1000, 128, 64), (4, 8, 2, 500, 64, 128), (24, 8, 2, 500, 64, 128),
-              (2, 8, 2, 200, 136, 136), (70, 8, 2, 200, 136, 136), (8, 8, 1, 300, 256, 256)]
+              (2, 8, 2, 200, 136, 136), (70, 8, 2, 200, 136, 136), (8, 8, 1, 300, 256, 256),
+              (512, 32, 8, 4096, 128, 64), (512, 16, 16, 4096, 256, 256), (9, 16, 8, 333, 256, 256)]
 WIDE_Q8_CASES = [(1, 8, 4, 4096, 256, 256), (512, 8, 4, 4096, 256, 256),
                  (1, 8, 4, 4096, 72, 72), (8, 8, 2, 999, 72, 72), (512, 8, 4, 4096, 72, 72),
                  (1, 8, 4, 4096, 136, 136), (100, 8, 4, 1000, 136, 136),
-                 (3, 16, 16, 700, 192, 128), (40, 16, 16, 700, 192, 128)]
+                 (3, 16, 16, 700, 192, 128), (40, 16, 16, 700, 192, 128),
+                 (512, 32, 8, 4096, 72, 72), (512, 16, 8, 4096, 136, 136),
+                 (512, 16, 16, 4096, 192, 128)]
 
 
 def _wide_ids(cases):
@@ -541,13 +561,38 @@ def test_flash_decode_wide_is_bit_identical(cuda_device, Dk, Dv, q8):
     assert torch.equal(first, second)
 
 
-# the capped wide kernels (gemma2's attention softcap): Gemma-2-9B's heads
-# (16 over 8 of 256) at decode, prefill, a ragged S and T * G past 16;
-# Gemma-2-27B's (32 over 16 of 128, a shape the narrow kernels take, run
-# wide with one 128-dim chunk); G = 4 at 128. (T, H, Hkv, S, D)
+@pytest.mark.parametrize("split", [1, 2, 3, 8])
+@pytest.mark.parametrize("q8,Dk,Dv,softcap", [(False, 256, 256, 0.0), (True, 256, 256, 50.0),
+                                             (False, 128, 64, 0.0), (True, 136, 136, 0.0)],
+                         ids=["bf16-256", "q8-256-cap50", "bf16-128-64", "q8-136"])
+def test_wide_prefill_at_any_split_matches_plain(cuda_device, q8, Dk, Dv, softcap, split):
+    """The wide K4w / K4qw with a KV head's 32-cell blocks split over a
+    cluster of 1, 2, 3 or 8 CTAs (the last rank's blocks fewer), their
+    partials met in rank order, against attn_plain at atol = rtol = 1e-3;
+    the same launch twice gives the same bits."""
+    t = _attn_inputs(100, 8, 2, 1000, ROPE_TYPE_NEOX, D=Dk, Dv=Dv)
+    if q8:
+        t["k"], t["v"] = _q8(t["k"]), _q8(t["v"])
+    dev = {n: (tuple(x.to(cuda_device) for x in a) if isinstance(a, tuple)
+               else a.to(cuda_device)) for n, a in t.items()}
+    scale = 2.0 * Dk ** -0.5
+    first, second = (cuda_attn._prefill_launch(q8, **dev, scale=scale, softcap=softcap,
+                                               split=split) for _ in range(2))
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first.cpu(), cuda_attn.attn_plain(**t, scale=scale,
+                                                                 softcap=softcap),
+                               atol=1e-3, rtol=1e-3)
+
+
+# the capped kernels (gemma2's attention softcap): Gemma-2-9B's heads (16
+# over 8 of 256) at decode, prefill, a ragged S and T * G past 16 (the
+# wide K3w_cap / K4w_cap); Gemma-2-27B's (32 over 16 of 128: K3w_cap at
+# decode, the narrow K4_cap at a prefill step); G = 4 at 128 and the
+# run-time D kernel at 64. (T, H, Hkv, S, D)
 CAP_CASES = [(1, 16, 8, 4096, 256), (8, 16, 8, 4096, 256), (512, 16, 8, 4096, 256),
              (3, 16, 8, 333, 256), (100, 16, 8, 1000, 256), (1, 32, 16, 4096, 128),
-             (8, 32, 16, 1000, 128), (512, 32, 16, 4096, 128), (40, 8, 2, 300, 128)]
+             (8, 32, 16, 1000, 128), (512, 32, 16, 4096, 128), (40, 8, 2, 300, 128),
+             (100, 8, 2, 1000, 64)]
 
 
 @pytest.mark.parametrize("cap", [50.0, 2.0], ids=["cap50", "cap2"])
@@ -555,11 +600,12 @@ CAP_CASES = [(1, 16, 8, 4096, 256), (8, 16, 8, 4096, 256), (512, 16, 8, 4096, 25
 @pytest.mark.parametrize("T,H,Hkv,S,D", CAP_CASES,
                          ids=[f"T{t}-H{h}-Hkv{hk}-S{s}-D{d}" for t, h, hk, s, d in CAP_CASES])
 def test_flash_capped_kernels_match_plain(cuda_device, T, H, Hkv, S, D, q8, cap):
-    """K3w_cap/K4w_cap (K3qw_cap/K4qw_cap on (int8, scales) pairs) against
-    attn_plain(softcap=cap) at the uncapped kernels' atol = rtol = 1e-3,
-    each one launch of its capped kernel and none of another; cap 2 bends
-    most scores (|s| ~ 1 here), cap 50 gemma2's own. Past T = 1, row 0 is
-    a padding row."""
+    """K3w_cap/K4w_cap and K4_cap (K3qw_cap/K4qw_cap and K4q_cap on (int8,
+    scales) pairs) against attn_plain(softcap=cap) at the uncapped kernels'
+    atol = rtol = 1e-3, each one launch of its capped kernel and none of
+    another: capped decode always wide, capped prefill narrow where the
+    uncapped one is; cap 2 bends most scores (|s| ~ 1 here), cap 50
+    gemma2's own. Past T = 1, row 0 is a padding row."""
     t = _attn_inputs(T, H, Hkv, S, ROPE_TYPE_NEOX, D=D)
     if T == 1:  # a row that sees cells (_attn_inputs' row 0 sees none)
         t["bias"] = torch.zeros((1, S)).masked_fill_(
@@ -569,7 +615,8 @@ def test_flash_capped_kernels_match_plain(cuda_device, T, H, Hkv, S, D, q8, cap)
     dev = {n: (tuple(x.to(cuda_device) for x in a) if isinstance(a, tuple)
                else a.to(cuda_device)) for n, a in t.items()}
     fn = cuda_attn.flash_decode if T <= 8 else cuda_attn.flash_prefill
-    kern = ("K3" if T <= 8 else "K4") + ("q" if q8 else "") + "w_cap"
+    kern = ("K3" + ("q" if q8 else "") + "w_cap" if T <= 8
+            else "K4" + ("q" if q8 else "") + ("_cap" if D <= 128 else "w_cap"))
     launched = dict(cuda_attn.LAUNCHES)
     got = fn(**dev, scale=D ** -0.5, softcap=cap).cpu()
     assert {k: v - launched[k] for k, v in cuda_attn.LAUNCHES.items() if v != launched[k]} \
